@@ -7,16 +7,20 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
    ``mc_tpu_torch/csrc`` with ``nvcc``;
-2. each of the three CUDA kernels against its plain PyTorch version on the
+2. each of the five CUDA kernels against its plain PyTorch version on the
    card, same key, with the tolerances of the parity contract, at the
-   contract's sizes and at the main path's shapes;
+   contract's sizes and at the main path's shapes (the simulate kernel with
+   resume and importance sampling too);
 3. the main path at the size users run: the 1M-path European call by five
-   methods against Black-Scholes, the 100k x 100-step bullet, and the
-   16,384 x 100 x 500 nested-MC surface (last-step and tower checks);
+   methods and with importance sampling against Black-Scholes, the
+   100k x 100-step bullet, the 100k x 100 trajectories and a resume from
+   their step 50, and the 16,384 x 100 x 500 nested-MC surface by both
+   strategies with its exposure and XVA figures;
 4. the kernels' launch counts over phase 3;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up) and end-to-end times of the phase-3 calls;
-6. one JSON line of per-kernel results, then the JSON status line.
+6. one JSON line of per-kernel results (with each kernel's bound), then the
+   JSON status line.
 
 Without a CUDA device it prints no result and exits 2.
 """
@@ -38,6 +42,9 @@ EULER_PATHS, EULER_STEPS = 1 << 16, 100
 NMC_SMALL = (2048, 16, 64)          # outer paths, steps, inner paths
 MAIN_PATHS, MAIN_STEPS = 1_000_000, 100
 BULLET_PATHS = 100_000
+TRAJ_PATHS = (65_536, BULLET_PATHS)
+RESUME_STEPS = (50, 51)             # even and odd resume points
+IS_STRIKE = 180.0                   # deep out of the money: IS pays off
 NMC_MAIN = (16384, 100, 500)        # README quickstart: 4.1e10 inner steps
 REPS = 5
 DEVICE = "cuda"
@@ -49,11 +56,80 @@ VANILLA_RTOL = 1e-5
 BULLET_SE_TOL = 0.05                # |d price|, |d stderr| in stderrs
 SURF_TOL, SURF_FRAC = 1e-4, 0.999   # rtol = atol, share of points
 SURF_MEAN_RTOL = 1e-4
+TRAJ_S_RTOL = 2e-6                  # stored prices: a few f32 ulp
+XVA_RTOL = 1e-4                     # cva_wwr_spot(beta=0) against cva
+
+# The least time of a kernel: the larger of its bytes over the memory rate
+# and its operations over the issue rate of their type.  H100 SXM: 3.35 TB/s
+# and 67 TFLOP/s f32 (NVIDIA's H100 datasheet); that f32 rate is 132
+# SMs x 128 lanes x 2 (an FMA) at 1.98 GHz, and the same SMs issue 64 int32
+# lanes and 16 special-function (transcendental) lanes per clock.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+# --- operation counts, per lane, from the kernels' source ----------------
+# (int32, f32, transcendental) operations.
+
+
+def _add(*terms):
+    return tuple(sum(t) for t in zip(*terms))
+
+
+def _scale(ops, k):
+    return tuple(k * o for o in ops)
+
+
+def pair_ops(rounds: int):
+    """One threefry2x32 call and Box-Muller: 2 key adds, 3 ops a round
+    (add, rotate, xor), 2 adds per key injection, 2 ops per bits_to_unit;
+    7 f32 ops; log1p, sqrt, cos, sin."""
+    return (2 + 3 * rounds + 2 * (rounds // 4) + 4, 7, 4)
+
+
+STEP_OPS = (0, 4, 1)       # w += drift_dt + vol_dt*z; s = base*exp(w)
+UPDATE_OPS = {"vanilla_call": (0, 0, 0), "vanilla_put": (0, 0, 0),
+              "bullet_call": (0, 2, 0)}   # count += (s < B)
+TERMINAL_OPS = (0, 3, 0)   # payoff and pay^2
+
+
+def path_ops(payoff: str, n_steps: int, rounds: int):
+    """A log-Euler path of n_steps and its payoff."""
+    return _add(_scale(pair_ops(rounds), (n_steps + 1) // 2),
+                _scale(_add(STEP_OPS, UPDATE_OPS[payoff]), n_steps),
+                TERMINAL_OPS)
+
+
+def inner_ops(payoff: str, n_steps: int, n_inner: int):
+    """The inner sweeps of one outer path over all its steps: at step j,
+    n_inner paths of the n_steps-j-1 remaining steps (threefry-13)."""
+    total = (0, 0, 0)
+    for j in range(n_steps):
+        rem = n_steps - j - 1
+        one = _add(_scale(pair_ops(13), (rem + 1) // 2),
+                   _scale(_add(STEP_OPS, UPDATE_OPS[payoff]), rem),
+                   (0, 2, 0))
+        total = _add(total, _scale(one, n_inner), (0, 3, 1))  # mean, discount
+    return total
+
+
+def bound(n_bytes: float, ops):
+    """(bound_ms, bound_by) of one call moving n_bytes and doing ops."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(ops[0] / INT32_OPS_PER_S, ops[1] / F32_OPS_PER_S,
+                ops[2] / SFU_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# --- timing ----------------------------------------------------------------
 
 
 def cuda_ms(fn, reps: int = REPS, min_ms: float = 5.0):
@@ -87,6 +163,10 @@ def wall_s(fn):
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def share(mask) -> float:
+    return float(mask.double().mean())
 
 
 def main() -> int:
@@ -124,9 +204,12 @@ def main() -> int:
             print(f"phase 1: ptxas {line.strip()}")
 
     option = mt.DEMO_OPTION
+    otm = mt.OptionParams(k=IS_STRIKE)
+    is_shift = math.log(IS_STRIKE / option.s0) / option.sigma  # S_T at K
     call, bullet = get_payoff("vanilla_call"), get_payoff("bullet_call")
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
     key_in = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_INNER))
+    p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
     # --- Phase 2: each kernel against its plain version ----------------
     def vanilla_check(name, got, want):
@@ -156,57 +239,119 @@ def main() -> int:
         return max(dp, ds)
 
     def terminal_pair_case(n_paths):
-        prm = pk.pack_params(option, MAIN_STEPS, dev)
         cfg = pk.KernelConfig(n_paths=(n_paths + 1) // 2, n_steps=MAIN_STEPS,
                               method="terminal")
         got = engines.finish_price(finish_sum(pk.terminal_pair_partials(
-            call, cfg, key, prm, n_paths)), n_paths, option)
+            call, cfg, key, p100, n_paths)), n_paths, option)
         want = engines.finish_price(finish_sum(
-            pk.terminal_pair_partials_plain(call, cfg, key, prm, n_paths)),
+            pk.terminal_pair_partials_plain(call, cfg, key, p100, n_paths)),
             n_paths, option)
         return vanilla_check(f"terminal_pair {n_paths} paths", got, want)
 
-    def simulate_case(po, cfg, check):
-        prm = pk.pack_params(option, cfg.n_steps, dev)
+    def simulate_case(po, cfg, check, opt=option, **resume):
+        prm = pk.pack_params(opt, cfg.n_steps, dev)
         got = engines.finish_price(finish_sum(pk.simulate_partials(
-            po, cfg, key, prm)), cfg.n_paths, option, cfg.with_cv)
+            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv)
         want = engines.finish_price(finish_sum(pk.simulate_partials_plain(
-            po, cfg, key, prm)), cfg.n_paths, option, cfg.with_cv)
+            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv)
         name = (f"simulate_partials {po.name} {cfg.method} "
                 f"{cfg.n_paths}x{cfg.n_steps} anti={cfg.antithetic} "
-                f"cv={cfg.with_cv} {cfg.rng_source}")
+                f"cv={cfg.with_cv} {cfg.rng_source} "
+                f"start={cfg.start_step} is_shift={cfg.is_shift:.4f}")
         return check(name, got, want)
 
-    def nmc_case(shape):
-        n_out, n_steps, n_inner = shape
-        cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-        prm = pk.pack_params(option, n_steps, dev)
-        surf_k, outer_k = nk.nmc_fused(bullet, cfg, key, key_in, prm)
-        t0 = time.perf_counter()
-        surf_p, outer_p = nk.nmc_fused_plain(bullet, cfg, key, key_in, prm)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
+    def traj_case(n_paths, rng_source):
+        cfg = pk.KernelConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
+                              rng_source=rng_source)
+        s_k, c_k, part_k = pk.simulate_trajectories(bullet, cfg, key, p100)
+        s_p, c_p, part_p = pk.simulate_trajectories_plain(bullet, cfg, key,
+                                                          p100)
+        s_err = float(((s_k - s_p).abs() / s_p.abs()).max())
+        paths_same = share((c_k == c_p).all(dim=0))
+        name = f"trajectories {n_paths}x{MAIN_STEPS} {rng_source}"
+        print(f"phase 2: {name}: S {share(s_k == s_p):.6f} bitwise "
+              f"(max rel err {s_err:.3e}, limit {TRAJ_S_RTOL}), state "
+              f"{share(c_k == c_p):.6f} bitwise, {paths_same:.6f} of paths "
+              f"with every count equal (need {SURF_FRAC})")
+        if not (s_err <= TRAJ_S_RTOL and paths_same >= SURF_FRAC):
+            fail(f"{name}: the stored grids disagree with the plain version")
+        err = bullet_check(
+            f"{name} payoff",
+            engines.finish_price(finish_sum(part_k), n_paths, option),
+            engines.finish_price(finish_sum(part_p), n_paths, option))
+        return max(err, float((s_k - s_p).abs().max()))
+
+    def surface_check(name, surf_k, surf_p):
         close = torch.isclose(surf_k, surf_p, rtol=SURF_TOL, atol=SURF_TOL)
-        frac = float(close.double().mean())
-        bitwise = float((surf_k == surf_p).double().mean())
+        frac = share(close)
         err = float((surf_k - surf_p).abs().max())
         mean_k = float(surf_k.double().mean())
         mean_p = float(surf_p.double().mean())
+        ok = (frac >= SURF_FRAC
+              and abs(mean_k - mean_p) <= SURF_MEAN_RTOL * abs(mean_p))
+        print(f"phase 2: {name}: {frac:.6f} of points within "
+              f"rtol=atol={SURF_TOL} (need {SURF_FRAC}), "
+              f"{share(surf_k == surf_p):.6f} bitwise, max |d| {err:.3e}; "
+              f"surface mean {mean_k:.7f} vs {mean_p:.7f} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name}: the kernel disagrees with its plain version")
+        return err
+
+    def outer_check(name, outer_k, outer_p, n_out):
         ok_k = engines.finish_price(finish_sum(outer_k), n_out, option)
         ok_p = engines.finish_price(finish_sum(outer_p), n_out, option)
         d_outer = abs(float(ok_k.price) - float(ok_p.price))
-        ok = (frac >= SURF_FRAC
-              and abs(mean_k - mean_p) <= SURF_MEAN_RTOL * abs(mean_p)
-              and d_outer <= BULLET_SE_TOL * float(ok_p.stderr))
-        print(f"phase 2: nmc_fused {n_out}x{n_steps}x{n_inner}: {frac:.6f} of "
-              f"points within rtol=atol={SURF_TOL} (need {SURF_FRAC}), "
-              f"{bitwise:.6f} bitwise, max |d| {err:.3e}; surface mean "
-              f"{mean_k:.7f} vs {mean_p:.7f}; outer {float(ok_k.price):.7f} "
-              f"vs {float(ok_p.price):.7f}; plain took {plain_s:.2f} s "
-              f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail("nmc_fused kernel disagrees with its plain version")
-        return err
+        print(f"phase 2: {name}: outer {float(ok_k.price):.7f} vs "
+              f"{float(ok_p.price):.7f}")
+        if not d_outer <= BULLET_SE_TOL * float(ok_p.stderr):
+            fail(f"{name}: the outer price disagrees with its plain version")
+        return d_outer
+
+    def nmc_small_cases(shape):
+        n_out, n_steps, n_inner = shape
+        cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+        prm = pk.pack_params(option, n_steps, dev)
+        label = "x".join(map(str, shape))
+        surf_k, outer_k = nk.nmc_fused(bullet, cfg, key, key_in, prm)
+        surf_p, outer_p = nk.nmc_fused_plain(bullet, cfg, key, key_in, prm)
+        err = surface_check(f"nmc_fused {label}", surf_k, surf_p)
+        err = max(err, outer_check(f"nmc_fused {label}", outer_k, outer_p,
+                                   n_out))
+        s, c, _ = pk.simulate_trajectories(bullet, nk.outer_config(cfg), key,
+                                           prm)
+        inner_err = surface_check(
+            f"nmc_inner {label}", nk.nmc_inner(bullet, cfg, key_in, prm, s, c),
+            nk.nmc_inner_plain(bullet, cfg, key_in, prm, s, c))
+        return err, inner_err
+
+    def nmc_main_case(shape):
+        """Both NMC kernels against one plain run at the main shape: the
+        plain fused version IS the plain trajectories + plain inner sweep,
+        so one plain run (tens of seconds) checks and times both kernels."""
+        n_out, n_steps, n_inner = shape
+        cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+        prm = pk.pack_params(option, n_steps, dev)
+        label = "x".join(map(str, shape))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_p, c_p, outer_p = pk.simulate_trajectories_plain(
+            bullet, nk.outer_config(cfg), key, prm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        surf_p = nk.nmc_inner_plain(bullet, cfg, key_in, prm, s_p, c_p)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"phase 2: nmc plain {label}: trajectories {t1 - t0:.3f} s, "
+              f"inner sweep {t2 - t1:.3f} s (host clock, one run)")
+        surf_k, outer_k = nk.nmc_fused(bullet, cfg, key, key_in, prm)
+        err = surface_check(f"nmc_fused {label}", surf_k, surf_p)
+        err = max(err, outer_check(f"nmc_fused {label}", outer_k, outer_p,
+                                   n_out))
+        inner_err = surface_check(
+            f"nmc_inner {label} (on the plain grids)",
+            nk.nmc_inner(bullet, cfg, key_in, prm, s_p, c_p), surf_p)
+        return err, inner_err, (t2 - t0) * 1e3, (t2 - t1) * 1e3
 
     # At the sizes of the parity contract, then at the main path's shapes.
     tp_err = max(terminal_pair_case(TP_PATHS), terminal_pair_case(MAIN_PATHS))
@@ -231,7 +376,27 @@ def main() -> int:
             n_paths=BULLET_PATHS, n_steps=MAIN_STEPS, antithetic=anti),
             bullet_check))
     sim_err = max(simulate_case(*c) for c in cases)
-    nmc_err = max(nmc_case(NMC_SMALL), nmc_case(NMC_MAIN))
+
+    traj_err = max(traj_case(n_paths, src) for n_paths in TRAJ_PATHS
+                   for src in ("threefry13", "threefry"))
+    s_grid, c_grid, _ = pk.simulate_trajectories(
+        bullet, pk.KernelConfig(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS),
+        key, p100)
+    for start in RESUME_STEPS:  # resume from the stored states
+        sim_err = max(sim_err, simulate_case(
+            bullet, pk.KernelConfig(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS,
+                                    start_step=start), bullet_check,
+            s_init=s_grid[start - 1].contiguous(),
+            state_init=c_grid[start - 1].contiguous()))
+    for kw in (dict(method="terminal"), dict(),
+               dict(antithetic=True), dict(antithetic=True, with_cv=True)):
+        sim_err = max(sim_err, simulate_case(
+            call, pk.KernelConfig(n_paths=MAIN_PATHS, n_steps=MAIN_STEPS,
+                                  is_shift=is_shift, **kw),
+            vanilla_check, opt=otm))
+    fused_err, inner_err = nmc_small_cases(NMC_SMALL)
+    err_f, err_i, fused_plain_ms, inner_plain_ms = nmc_main_case(NMC_MAIN)
+    fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
 
     # --- Phase 3: the main path at a size users run --------------------
     _cuda.reset_launch_counts()
@@ -255,7 +420,22 @@ def main() -> int:
         if not (math.isfinite(z) and z <= 3.0):
             fail(f"call {label} is {z:.2f} se from Black-Scholes")
         vanilla_price = vanilla_price or float(res.price)
+    bs_otm = bs_call(otm.s0, otm.k, otm.t, otm.r, otm.sigma, otm.q)
+    plain_otm = mt.price(otm, sim, method="terminal", device=DEVICE)
+    is_otm = mt.price(otm, sim, importance_shift="auto", device=DEVICE)
+    z = abs(float(is_otm.price) - bs_otm) / float(is_otm.stderr)
+    print(f"phase 3: call K={IS_STRIKE:g} importance_shift='auto': "
+          f"{float(is_otm.price):.7f} +/- {float(is_otm.stderr):.7f}, "
+          f"{z:.2f} se from BS {bs_otm:.7f}; unshifted terminal "
+          f"{float(plain_otm.price):.7f} +/- {float(plain_otm.stderr):.7f} "
+          f"({float(plain_otm.stderr) / float(is_otm.stderr):.1f}x the "
+          "stderr)")
+    if not (math.isfinite(z) and z <= 3.0
+            and float(is_otm.stderr) < float(plain_otm.stderr)):
+        fail("the importance-sampled OTM call misses Black-Scholes or does "
+             "not cut the stderr")
     bsim = mt.SimParams(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS)
+    bullet_res = None
     for anti in (False, True):
         res = mt.price(option, bsim, payoff="bullet_call", antithetic=anti,
                        device=DEVICE)
@@ -264,6 +444,37 @@ def main() -> int:
               f"{p:.5f} +/- {float(res.stderr):.5f}")
         if not (math.isfinite(p) and 0.0 < p < vanilla_price):
             fail(f"bullet price {p} is not in (0, {vanilla_price})")
+        bullet_res = bullet_res or res
+
+    traj = mt.simulate_trajectories(option, bsim, device=DEVICE)
+    path, state = traj.path_matrix(), traj.state_matrix()
+    counts = torch.cumsum((path < option.barrier).float(), dim=1)
+    mean_pay = float(traj.pay_sum) / BULLET_PATHS
+    d_pay = abs(mean_pay - float(bullet_res.payoff_mean))
+    counts_ok = bool(torch.equal(state, counts))
+    finite = bool(torch.isfinite(path).all())
+    print(f"phase 3: trajectories {BULLET_PATHS}x{MAIN_STEPS}: state == "
+          f"cumsum(S < B) {'exactly' if counts_ok else 'NOT'}; mean payoff "
+          f"{mean_pay:.7f} vs price(bullet_call) "
+          f"{float(bullet_res.payoff_mean):.7f}"
+          f" (|d| {d_pay:.3e}, limit 1e-5 relative)")
+    if not (counts_ok and finite
+            and d_pay <= 1e-5 * abs(float(bullet_res.payoff_mean))):
+        fail("the trajectories break the barrier-count or payoff check")
+    start = RESUME_STEPS[0]
+    resumed = engines.finish_price(finish_sum(pk.simulate_partials(
+        bullet, pk.KernelConfig(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS,
+                                start_step=start), key, p100,
+        s_init=traj.s[start - 1].contiguous(),
+        state_init=traj.state[start - 1].contiguous())), BULLET_PATHS, option)
+    d_res = abs(float(resumed.price) - float(bullet_res.price))
+    print(f"phase 3: resume at step {start} of the stored grid: "
+          f"{float(resumed.price):.7f} vs straight "
+          f"{float(bullet_res.price):.7f}"
+          f" ({d_res / float(bullet_res.stderr):.4f} se, limit "
+          f"{BULLET_SE_TOL})")
+    if not d_res <= BULLET_SE_TOL * float(bullet_res.stderr):
+        fail("the resumed bullet disagrees with the straight run")
 
     n_out, n_steps, n_inner = NMC_MAIN
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
@@ -276,19 +487,17 @@ def main() -> int:
         fail(f"NMC surface has shape {tuple(surf.shape)} or non-finite values")
     # Last step: remaining = 0, so every inner path IS the stored state and
     # the point is e^{-rT} * payoff(S_T, count_T) of the outer path.
-    ncfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-    prm = pk.pack_params(option, n_steps, dev)
-    s_hist, c_hist = nk.outer_history(bullet, ncfg, key, prm)
-    p32 = pk.unpack_params(prm)
-    want = (torch.exp(-p32.r * p32.t)
-            * bullet.terminal((c_hist[-1],), s_hist[-1], p32))
+    ntraj = mt.simulate_trajectories(option, nsim, device=DEVICE)
+    p32 = pk.unpack_params(pk.pack_params(option, n_steps, dev))
+    want = torch.exp(-p32.r * p32.t) * bullet.terminal(
+        (ntraj.state[-1],), ntraj.s[-1], p32)
     last = surf[:, -1]
     last_ok = bool(torch.allclose(last, want, rtol=1e-5, atol=0.0))
     print(f"phase 3: nmc {n_out}x{n_steps}x{n_inner} ({nmc_first_s:.2f} s): "
           f"outer {float(res.outer.price):.5f} +/- {float(res.outer.stderr):.5f}"
           f", surface mean {float(res.surface_mean):.5f}; last step == "
           f"e^-rT*payoff: {'ok' if last_ok else 'MISMATCH'} "
-          f"({float((last == want).double().mean()):.6f} bitwise)")
+          f"({share(last == want):.6f} bitwise)")
     if not last_ok:
         fail("NMC last step is not the discounted terminal payoff")
     cols = surf.double().mean(dim=0)
@@ -298,6 +507,59 @@ def main() -> int:
           f"{float(dev_se):.2f} outer stderr (limit 4)")
     if not float(dev_se) <= 4.0:
         fail("NMC surface columns break the tower property")
+
+    res_g = mt.price_nmc(option, nsim, strategy="grid", device=DEVICE)
+    g_close = share(torch.isclose(res_g.surface, res.surface, rtol=SURF_TOL,
+                                  atol=SURF_TOL))
+    spot_ok = bool(torch.equal(res_g.spot_matrix(), ntraj.path_matrix()))
+    print(f"phase 3: nmc strategy='grid': {share(res_g.surface == res.surface):.6f}"
+          f" of points bitwise equal to 'fused', {g_close:.6f} within "
+          f"rtol=atol={SURF_TOL} (need {SURF_FRAC}); surface mean "
+          f"{float(res_g.surface_mean):.7f} vs {float(res.surface_mean):.7f}; "
+          f"spot_matrix() == trajectories: {spot_ok}")
+    if not (g_close >= SURF_FRAC and spot_ok
+            and abs(float(res_g.surface_mean) - float(res.surface_mean))
+            <= SURF_MEAN_RTOL * abs(float(res.surface_mean))):
+        fail("the grid strategy disagrees with the fused one")
+
+    ee, pfe = res_g.exposure_profile(0.95)
+    for j in (0, n_steps // 4, n_steps // 2, 3 * n_steps // 4, n_steps - 1):
+        print(f"phase 3: exposure t_{j + 1} = {float(res_g.observation_dates()[j]):.2f}"
+              f" y: EE {float(ee[j]):.6f}, PFE(95%) {float(pfe[j]):.6f}")
+    cva = float(res_g.cva(0.02))
+    fca, fba = res_g.fva(0.01)
+    xva = {
+        "cva(0.02)": cva,
+        "dva(0.01)": float(res_g.dva(0.01)),
+        "bilateral_cva(0.02, 0.01)": float(res_g.bilateral_cva(0.02, 0.01)),
+        "fca(0.01)": float(fca), "fba(0.01)": float(fba),
+        "mva(0.01, 99%, mpor 2)": float(res_g.mva(0.01, 0.99, 2)),
+        "collateralized cva (H=1, mta=0.1, mpor 2)": float(
+            res_g.collateralized(1.0, mta=0.1, mpor_steps=2).cva(0.02)),
+        "cva_wwr(0.02, beta=0.05)": float(res_g.cva_wwr(0.02, 0.05)),
+        "cva_wwr_spot(0.02, beta=0)": float(res_g.cva_wwr_spot(0.02, 0.0)),
+    }
+    im = res_g.im_profile(0.99, 2)
+    print("phase 3: xva of the grid surface: " + ", ".join(
+        f"{k} {v:.7f}" for k, v in xva.items())
+        + f"; IM(99%, mpor 2) at t_1 {float(im[0]):.6f}, at t_n "
+        f"{float(im[-1]):.6f}")
+    d_wwr = abs(xva["cva_wwr_spot(0.02, beta=0)"] - cva)
+    if not (all(math.isfinite(v) for v in xva.values()) and cva > 0.0
+            and d_wwr <= XVA_RTOL * cva):
+        fail("the exposure metrics are not finite, or cva_wwr_spot(beta=0) "
+             "is not cva")
+    flips = {}
+    for name in ("vanilla_call", "vanilla_put"):
+        r = mt.price_nmc(option, nsim, name, strategy="grid", device=DEVICE)
+        flips[name] = (float(r.cva(0.02)), float(r.cva_wwr_spot(0.02, 2.0)))
+    print(f"phase 3: spot-linked WWR at beta=2 (cva -> cva_wwr_spot): call "
+          f"{flips['vanilla_call'][0]:.7f} -> {flips['vanilla_call'][1]:.7f},"
+          f" put {flips['vanilla_put'][0]:.7f} -> "
+          f"{flips['vanilla_put'][1]:.7f}")
+    if not (flips["vanilla_call"][1] > flips["vanilla_call"][0]
+            and flips["vanilla_put"][1] < flips["vanilla_put"][0]):
+        fail("spot-linked WWR does not flip sign between call and put")
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     launches = dict(_cuda.launch_counts)
@@ -314,7 +576,6 @@ def main() -> int:
               f"{p_ms:.4f} ms (spread {p_sp:.1%}, {REPS} reps of {p_n}) {tag}")
         return k_ms, p_ms
 
-    p100 = pk.pack_params(option, MAIN_STEPS, dev)
     cfg_tp = pk.KernelConfig(n_paths=MAIN_PATHS // 2, n_steps=MAIN_STEPS,
                              method="terminal")
     tp_ms = time_pair(
@@ -329,45 +590,98 @@ def main() -> int:
         lambda: pk.simulate_partials(bullet, cfg_b, key, p100),
         lambda: pk.simulate_partials_plain(bullet, cfg_b, key, p100),
         f"{BULLET_PATHS}x{MAIN_STEPS}")
-    for label, cfg in (
+    p_otm = pk.pack_params(otm, MAIN_STEPS, dev)
+    for label, cfg, prm in (
             ("simulate_partials call terminal antithetic",
              pk.KernelConfig(n_paths=MAIN_PATHS, n_steps=MAIN_STEPS,
-                             method="terminal", antithetic=True)),
+                             method="terminal", antithetic=True), p100),
             ("simulate_partials call euler", pk.KernelConfig(
-                n_paths=MAIN_PATHS, n_steps=MAIN_STEPS)),
+                n_paths=MAIN_PATHS, n_steps=MAIN_STEPS), p100),
             ("simulate_partials call euler antithetic+cv", pk.KernelConfig(
                 n_paths=MAIN_PATHS, n_steps=MAIN_STEPS, antithetic=True,
-                with_cv=True))):
+                with_cv=True), p100),
+            ("simulate_partials call K=180 euler IS", pk.KernelConfig(
+                n_paths=MAIN_PATHS, n_steps=MAIN_STEPS, is_shift=is_shift),
+             p_otm)):
         time_pair(label,
-                  lambda cfg=cfg: pk.simulate_partials(call, cfg, key, p100),
-                  lambda cfg=cfg: pk.simulate_partials_plain(call, cfg, key,
-                                                             p100),
+                  lambda cfg=cfg, prm=prm: pk.simulate_partials(call, cfg, key,
+                                                                prm),
+                  lambda cfg=cfg, prm=prm: pk.simulate_partials_plain(
+                      call, cfg, key, prm),
                   f"{cfg.n_paths}x{cfg.n_steps}")
+    start = RESUME_STEPS[0]
+    cfg_r = pk.KernelConfig(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS,
+                            start_step=start)
+    resume = dict(s_init=traj.s[start - 1].contiguous(),
+                  state_init=traj.state[start - 1].contiguous())
+    time_pair(f"simulate_partials bullet resumed at step {start}",
+              lambda: pk.simulate_partials(bullet, cfg_r, key, p100, **resume),
+              lambda: pk.simulate_partials_plain(bullet, cfg_r, key, p100,
+                                                 **resume),
+              f"{BULLET_PATHS}x{MAIN_STEPS}")
+    traj_ms = time_pair(
+        "trajectories bullet",
+        lambda: pk.simulate_trajectories(bullet, cfg_b, key, p100),
+        lambda: pk.simulate_trajectories_plain(bullet, cfg_b, key, p100),
+        f"{BULLET_PATHS}x{MAIN_STEPS}")
+    grid_bytes = 2 * 4 * BULLET_PATHS * MAIN_STEPS
+    print(f"phase 5: trajectories grid writes {grid_bytes / 1e6:.1f} MB in "
+          f"{traj_ms[0]:.4f} ms: {grid_bytes / traj_ms[0] / 1e6:.1f} GB/s "
+          f"{tag}")
+
     n_out, n_steps, n_inner = NMC_SMALL
     ncfg_s = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     p_s = pk.pack_params(option, n_steps, dev)
-    nmc_ms = time_pair(
-        "nmc_fused",
-        lambda: nk.nmc_fused(bullet, ncfg_s, key, key_in, p_s),
-        lambda: nk.nmc_fused_plain(bullet, ncfg_s, key, key_in, p_s),
-        f"{n_out}x{n_steps}x{n_inner} (plain too slow at the main shape)")
+    s_s, c_s, _ = pk.simulate_trajectories(bullet, nk.outer_config(ncfg_s),
+                                           key, p_s)
+    time_pair("nmc_fused",
+              lambda: nk.nmc_fused(bullet, ncfg_s, key, key_in, p_s),
+              lambda: nk.nmc_fused_plain(bullet, ncfg_s, key, key_in, p_s),
+              f"{n_out}x{n_steps}x{n_inner}")
+    time_pair("nmc_inner",
+              lambda: nk.nmc_inner(bullet, ncfg_s, key_in, p_s, s_s, c_s),
+              lambda: nk.nmc_inner_plain(bullet, ncfg_s, key_in, p_s, s_s,
+                                         c_s),
+              f"{n_out}x{n_steps}x{n_inner}")
     n_out, n_steps, n_inner = NMC_MAIN
     ncfg_m = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-    nmc_main_ms, sp, _ = cuda_ms(lambda: nk.nmc_fused(bullet, ncfg_m, key,
-                                                      key_in, prm))
+    p_m = pk.pack_params(option, n_steps, dev)
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
-    print(f"phase 5: nmc_fused {n_out}x{n_steps}x{n_inner}: kernel "
-          f"{nmc_main_ms:.2f} ms (spread {sp:.1%}), "
-          f"{inner_steps / nmc_main_ms * 1e3:.4e} inner path-steps/s {tag}")
+    nmc_main = {}
+    for name, fn in (
+            ("nmc_fused", lambda: nk.nmc_fused(bullet, ncfg_m, key, key_in,
+                                               p_m)),
+            ("nmc_inner", lambda: nk.nmc_inner(bullet, ncfg_m, key_in, p_m,
+                                               ntraj.s, ntraj.state)),
+            ("nmc_inner", lambda: nk.nmc_inner(bullet, ncfg_m, key_in, p_m,
+                                               ntraj.s, ntraj.state)),
+            ("nmc_fused", lambda: nk.nmc_fused(bullet, ncfg_m, key, key_in,
+                                               p_m))):
+        ms, sp, _ = cuda_ms(fn)  # in turns: fused, inner, inner, fused
+        nmc_main.setdefault(name, []).append(ms)
+        print(f"phase 5: {name} {n_out}x{n_steps}x{n_inner}: kernel "
+              f"{ms:.3f} ms (spread {sp:.1%}), "
+              f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
+    nmc_main = {k: statistics.median(v) for k, v in nmc_main.items()}
 
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
          lambda: mt.price(option, sim, device=DEVICE)),
+        ("price() call K=180 1M paths importance_shift='auto'", "paths/s",
+         MAIN_PATHS, lambda: mt.price(otm, sim, importance_shift="auto",
+                                      device=DEVICE)),
         (f"price() bullet {BULLET_PATHS}x{MAIN_STEPS}", "path-steps/s",
          BULLET_PATHS * MAIN_STEPS,
          lambda: mt.price(option, bsim, payoff="bullet_call", device=DEVICE)),
-        (f"price_nmc() {n_out}x{n_steps}x{n_inner}", "inner path-steps/s",
-         inner_steps, lambda: mt.price_nmc(option, nsim, device=DEVICE)),
+        (f"simulate_trajectories() {BULLET_PATHS}x{MAIN_STEPS}",
+         "path-steps/s", BULLET_PATHS * MAIN_STEPS,
+         lambda: mt.simulate_trajectories(option, bsim, device=DEVICE)),
+        (f"price_nmc() fused {n_out}x{n_steps}x{n_inner}",
+         "inner path-steps/s", inner_steps,
+         lambda: mt.price_nmc(option, nsim, device=DEVICE)),
+        (f"price_nmc() grid {n_out}x{n_steps}x{n_inner}",
+         "inner path-steps/s", inner_steps,
+         lambda: mt.price_nmc(option, nsim, strategy="grid", device=DEVICE)),
     )
     for label, unit, work, fn in e2e:
         secs = sorted(wall_s(fn) for _ in range(REPS))
@@ -377,26 +691,40 @@ def main() -> int:
               f"{work / med:.4e} {unit} {tag}")
 
     # --- Phase 6: results -----------------------------------------------
-    kernels = [
-        dict(name="terminal_pair", route="cuda",
-             source="mc_tpu_torch/csrc/path_kernels.cu",
-             replaces="mc_tpu/ops/path_kernels.py:1015",
-             launches=launches["terminal_pair"], max_abs_err=tp_err,
-             ms=tp_ms[0], plain_ms=tp_ms[1], shape=f"{MAIN_PATHS} paths"),
-        dict(name="simulate_partials", route="cuda",
-             source="mc_tpu_torch/csrc/path_kernels.cu",
-             replaces="mc_tpu/ops/path_kernels.py:395",
-             launches=launches["simulate_partials"],
-             max_abs_err=sim_err, ms=sim_ms[0], plain_ms=sim_ms[1],
-             shape=f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
-        dict(name="nmc_fused", route="cuda",
-             source="mc_tpu_torch/csrc/nmc_kernels.cu",
-             replaces="mc_tpu/ops/nmc_kernels.py:264",
-             launches=launches["nmc_fused"], max_abs_err=nmc_err,
-             ms=nmc_ms[0], plain_ms=nmc_ms[1],
-             shape="x".join(map(str, NMC_SMALL)),
-             main_shape_ms=nmc_main_ms),
-    ]
+    nmc_bytes = 4 * n_out * n_steps  # the surface
+    nmc_ops = _scale(inner_ops("bullet_call", n_steps, n_inner), n_out)
+    outer_ops = _scale(path_ops("bullet_call", n_steps, 13), n_out)
+    bounds = {
+        "terminal_pair": bound(
+            0, _scale(_add(pair_ops(13), (0, 14, 2)), MAIN_PATHS // 2)),
+        "simulate_partials": bound(
+            0, _scale(path_ops("bullet_call", MAIN_STEPS, 13), BULLET_PATHS)),
+        "trajectories": bound(
+            grid_bytes,
+            _scale(path_ops("bullet_call", MAIN_STEPS, 13), BULLET_PATHS)),
+        "nmc_fused": bound(nmc_bytes, _add(nmc_ops, outer_ops)),
+        "nmc_inner": bound(3 * nmc_bytes, nmc_ops),
+    }
+    rows = (
+        ("terminal_pair", "path_kernels.cu", "path_kernels.py:1015", tp_err,
+         tp_ms, f"{MAIN_PATHS} paths"),
+        ("simulate_partials", "path_kernels.cu", "path_kernels.py:395",
+         sim_err, sim_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
+        ("trajectories", "path_kernels.cu", "path_kernels.py:524", traj_err,
+         traj_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
+        ("nmc_fused", "nmc_kernels.cu", "nmc_kernels.py:264", fused_err,
+         (nmc_main["nmc_fused"], fused_plain_ms), "x".join(map(str, NMC_MAIN))),
+        ("nmc_inner", "nmc_kernels.cu", "nmc_kernels.py:338", inner_err,
+         (nmc_main["nmc_inner"], inner_plain_ms), "x".join(map(str, NMC_MAIN))),
+    )
+    kernels = []
+    for name, src, tpu, err, (k_ms, p_ms), shape in rows:
+        b_ms, b_by = bounds[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"mc_tpu_torch/csrc/{src}",
+            replaces=f"mc_tpu/ops/{tpu}", launches=launches[name],
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, shape=shape))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

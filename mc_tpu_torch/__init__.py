@@ -5,14 +5,19 @@ reference.  This package imports ``torch`` and never ``jax`` or ``mc_tpu``.
 Its kernels are CUDA C++ in ``csrc/``, built with ``nvcc`` at their first
 launch; importing the package builds and loads nothing.
 
-    from mc_tpu_torch import price, price_nmc
+    from mc_tpu_torch import price, price_nmc, simulate_trajectories
     price()                        # 100k-path European call on "cuda"
     price(device="cpu")            # the plain PyTorch versions
+    price_nmc(strategy="grid").cva(0.02)   # exposure surface -> CVA
 """
 
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
-from mc_tpu_torch.engines import price
-from mc_tpu_torch.nmc import price_nmc
+from mc_tpu_torch.engines import Trajectories, price, simulate_trajectories
+from mc_tpu_torch.nmc import NMCResult, price_nmc
+from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
+                              coupon_dates)
 
-__all__ = ["price", "price_nmc", "OptionParams", "SimParams", "DEMO_OPTION",
+__all__ = ["price", "price_nmc", "simulate_trajectories", "Trajectories",
+           "NMCResult", "ExposureMetrics", "CollateralizedExposure",
+           "coupon_dates", "OptionParams", "SimParams", "DEMO_OPTION",
            "DEMO_SIM"]

@@ -1,10 +1,13 @@
-"""Command-line interface (port of ``mc_tpu/cli.py:70-210`` demo/price/nmc).
+"""Command-line interface (port of ``mc_tpu/cli.py:70-462``
+demo/price/nmc/traj).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
-``price`` and ``nmc`` print one JSON object each.  ``--device`` is explicit
-(default ``cuda``); nothing is resized for the device.
+``price`` and ``nmc`` print one JSON object each (``nmc --exposure`` adds
+the XVA figures of the surface); ``traj`` writes the reference's tidy
+trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
+``cuda``); nothing is resized for the device.
 """
 
 from __future__ import annotations
@@ -110,10 +113,15 @@ def cmd_price(args):
     from mc_tpu_torch.oracle import bs_call
 
     option, sim = _parse(args)
+    shift = args.importance_shift
+    if shift not in (None, "auto"):
+        shift = float(shift)
     res = price(option, sim, payoff=args.payoff, method=args.method,
                 antithetic=args.antithetic,
                 control_variate=args.control_variate,
-                rng_source=args.rng_source, device=args.device)
+                rng_source=args.rng_source,
+                importance_shift=0.0 if shift is None else shift,
+                device=args.device)
     out = {
         "payoff": args.payoff,
         "price": float(res.price),
@@ -127,18 +135,99 @@ def cmd_price(args):
     return 0
 
 
+def _profile(x):
+    return [round(float(v), 6) for v in x.tolist()]
+
+
+def _xva_outputs(res, args, out):
+    """The XVA rows of ``nmc --exposure``: DVA/BCVA, FVA, collateral, IM/MVA
+    and the wrong-way-risk CVAs."""
+    if args.dva_hazard is not None:
+        out["dva"] = float(res.dva(args.dva_hazard, args.cva_recovery))
+        if args.cva_hazard is not None:
+            out["bilateral_cva"] = float(res.bilateral_cva(
+                args.cva_hazard, args.dva_hazard, args.cva_recovery,
+                args.cva_recovery))
+    if args.fva_spread is not None:
+        fca, fba = res.fva(args.fva_spread)
+        out["fca"], out["fba"] = float(fca), float(fba)
+    if args.collateral_threshold is not None:
+        c = res.collateralized(args.collateral_threshold,
+                               mta=args.mta, mpor_steps=args.mpor_steps)
+        out["collateralized_ee"] = _profile(
+            c.exposure_profile(args.pfe_quantile)[0])
+        if args.cva_hazard is not None:
+            out["collateralized_cva"] = float(
+                c.cva(args.cva_hazard, args.cva_recovery))
+    if args.im_quantile is not None:
+        mpor = max(args.mpor_steps, 1)
+        out["initial_margin"] = _profile(res.im_profile(args.im_quantile,
+                                                        mpor_steps=mpor))
+        if args.mva_spread is not None:
+            out["mva"] = float(res.mva(args.mva_spread, args.im_quantile,
+                                       mpor))
+    if args.cva_hazard is not None and args.wwr_beta is not None:
+        out["cva_wwr"] = float(res.cva_wwr(
+            args.cva_hazard, args.wwr_beta, args.cva_recovery))
+    if args.cva_hazard is not None and args.wwr_spot_beta is not None:
+        out["cva_wwr_spot"] = float(res.cva_wwr_spot(
+            args.cva_hazard, args.wwr_spot_beta, args.cva_recovery))
+    return out
+
+
 def cmd_nmc(args):
+    import numpy as np
+
     from mc_tpu_torch.nmc import price_nmc
 
     option, sim = _parse(args)
-    res = price_nmc(option, sim, payoff=args.payoff, discount=args.discount,
-                    device=args.device)
-    print(json.dumps({
+    if args.wwr_spot_beta is not None and args.strategy != "grid":
+        raise SystemExit("--wwr-spot-beta needs the outer spot grid: "
+                         "--strategy grid")
+    res = price_nmc(option, sim, payoff=args.payoff, strategy=args.strategy,
+                    discount=args.discount, device=args.device)
+    out = {
         "outer_price": float(res.outer.price),
         "outer_stderr": float(res.outer.stderr),
         "surface_mean": float(res.surface_mean),
         "n_points": int(res.n_points),
-    }))
+    }
+    if args.exposure:
+        ee, pfe = res.exposure_profile(args.pfe_quantile)
+        out["expected_exposure"] = _profile(ee)
+        out["pfe"] = _profile(pfe)
+        if args.cva_hazard is not None:
+            out["cva"] = float(res.cva(args.cva_hazard, args.cva_recovery,
+                                       t_horizon=args.t))
+        out = _xva_outputs(res, args, out)
+    if args.surface_npz:
+        np.savez_compressed(args.surface_npz,
+                            surface=res.surface_matrix().cpu().numpy())
+        out["surface_npz"] = args.surface_npz
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_traj(args):
+    """CSV trajectory dump in the reference's tidy format (testing.cu:37-47):
+    ``time,trajectory,value`` rows, one per (step, path), step-major."""
+    import numpy as np
+
+    from mc_tpu_torch import simulate_trajectories
+
+    option, sim = _parse(args)
+    traj = simulate_trajectories(option, sim, payoff=args.payoff,
+                                 device=args.device)
+    grid = traj.s.cpu().numpy()  # (steps, paths)
+    n_steps, n_paths = grid.shape
+    rows = np.empty((n_steps * n_paths, 3))
+    rows[:, 0] = np.repeat(np.arange(n_steps), n_paths)
+    rows[:, 1] = np.tile(np.arange(n_paths), n_steps)
+    rows[:, 2] = grid.reshape(-1)  # f32 -> f64 is exact
+    np.savetxt(args.out, rows, fmt=("%d", "%d", "%.6f"), delimiter=",",
+               header="time,trajectory,value", comments="")
+    print(json.dumps({"csv": args.out, "trajectories": n_paths,
+                      "steps": n_steps}))
     return 0
 
 
@@ -164,14 +253,56 @@ def main(argv=None):
     p.add_argument("--control-variate", action="store_true")
     p.add_argument("--rng-source", choices=("threefry13", "threefry"),
                    default="threefry13")
+    p.add_argument("--importance-shift", default=None,
+                   help="drift shift in sd units, or 'auto' (aim at K)")
     p.set_defaults(fn=cmd_price)
 
     p = sub.add_parser("nmc", help="nested MC price surface, JSON output")
     _add_option_flags(p)
     p.add_argument("--payoff", default="bullet_call")
+    p.add_argument("--strategy", choices=("fused", "grid"), default="fused")
     p.add_argument("--discount", choices=("full", "remaining"),
                    default="full")
+    p.add_argument("--surface-npz", default=None,
+                   help="save the (paths, steps) surface to this .npz")
+    p.add_argument("--exposure", action="store_true",
+                   help="emit EE/PFE exposure profiles from the surface")
+    p.add_argument("--pfe-quantile", type=float, default=0.95)
+    p.add_argument("--cva-hazard", type=float, default=None,
+                   help="flat hazard rate: emit unilateral CVA")
+    p.add_argument("--cva-recovery", type=float, default=0.4)
+    p.add_argument("--dva-hazard", type=float, default=None,
+                   help="own flat hazard: emit DVA and bilateral CVA "
+                        "(needs --cva-hazard)")
+    p.add_argument("--fva-spread", type=float, default=None,
+                   help="funding spread: emit FCA/FBA")
+    p.add_argument("--collateral-threshold", type=float, default=None,
+                   help="two-way CSA threshold: emit collateralized "
+                        "EE/CVA (with --mta / --mpor-steps)")
+    p.add_argument("--mta", type=float, default=0.0)
+    p.add_argument("--mpor-steps", type=int, default=0,
+                   help="margin period of risk, in steps")
+    p.add_argument("--im-quantile", type=float, default=None,
+                   help="dynamic initial-margin profile: quantile of "
+                        "the adverse MtM move over the MPoR")
+    p.add_argument("--mva-spread", type=float, default=None,
+                   help="funding spread on the IM profile -> MVA "
+                        "(needs --im-quantile)")
+    p.add_argument("--wwr-beta", type=float, default=None,
+                   help="exposure-linked wrong-way-risk CVA "
+                        "(needs --cva-hazard)")
+    p.add_argument("--wwr-spot-beta", type=float, default=None,
+                   help="spot-linked wrong-way-risk CVA: intensity "
+                        "rides the underlying level (sign flips with "
+                        "the position; needs --cva-hazard and "
+                        "--strategy grid)")
     p.set_defaults(fn=cmd_nmc)
+
+    p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="bullet_call")
+    p.add_argument("--out", default="testing.csv")
+    p.set_defaults(fn=cmd_traj)
 
     args = ap.parse_args(argv)
     return args.fn(args)

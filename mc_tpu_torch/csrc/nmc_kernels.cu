@@ -1,7 +1,11 @@
-// Fused nested Monte Carlo, kernel 3 of the port, for sm_90a.
+// Nested Monte Carlo, kernels 3 and 5 of the port, for sm_90a.
 //
-// Replaces mc_tpu/ops/nmc_kernels.py nmc_fused_kernel (the Pallas call at
-// :283).  It computes the same surface: for every outer path i and step j,
+// nmc_fused_kernel replaces mc_tpu/ops/nmc_kernels.py nmc_fused_kernel (the
+// Pallas call at :283); nmc_inner_kernel replaces nmc_inner_kernel (the
+// Pallas call at :351), the grid strategy, which reads each (S_j, count_j)
+// from the grids trajectories_kernel stored instead of recomputing the outer
+// path.  Both compute the same surface through one device function,
+// nmc_point (as mc_tpu shares _nmc_point_tile): for outer path i, step j,
 //   surface[j, i] = disc_j * mean_{m < n_inner} payoff(inner path m resumed
 //                   from (S_j, count_j) for the remaining n_steps-j-1 steps),
 // with inner counter (c0 = path id, c1 = ((j+1)*n_inner + m)*pair_cap + q)
@@ -25,6 +29,12 @@
 // fill the tail.  The j = n_steps-1 blocks hold the outer terminal states
 // and write the outer moment rows.  An odd remaining count drops the second
 // half-step of the last pair by a select, as the TPU kernel does.
+//
+// nmc_inner_kernel keeps that schedule and reads 8 bytes per point where the
+// fused kernel recomputes j+1 outer steps; both are negligible beside the
+// inner sweep, so the two kernels take about the same time.  Its grids come
+// from trajectories_kernel, whose step and draws are Phase A's, so the two
+// strategies give bitwise equal surfaces.
 
 #include <cstdint>
 
@@ -38,6 +48,40 @@ namespace mc {
 
 constexpr int kNmcThreads = 128;
 constexpr int kNmcRounds = 13;  // NMC streams are threefry-13 (NMCConfig)
+
+// Phase B: the discounted mean payoff of n_inner inner paths resumed from
+// (S_j, count_j), the state of path `id` after step j+1.
+template <class Payoff>
+__device__ float nmc_point(const Params& p, int discount_remaining, uint32_t ki0,
+                           uint32_t ki1, uint32_t id, int j, int n_steps, int n_inner,
+                           float s_j, float st_j) {
+  const int remaining = n_steps - j - 1;
+  const int n_pairs = (remaining + 1) / 2;
+  const uint32_t pair_cap = static_cast<uint32_t>((n_steps + 1) / 2);
+  const uint32_t t_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner);
+  double sum = 0.0;
+  for (int m = 0; m < n_inner; ++m) {
+    const uint32_t c1_base = (t_base + static_cast<uint32_t>(m)) * pair_cap;
+    float wi = 0.0f, si = s_j, sti = st_j;
+    for (int q = 0; q < n_pairs; ++q) {
+      float z0, z1;
+      normal_pair<kNmcRounds>(ki0, ki1, id, c1_base + static_cast<uint32_t>(q), z0, z1);
+      float w1 = wi, s1, st1 = sti;
+      euler_step<Payoff>(p, s_j, z0, w1, s1, st1);
+      float w2 = w1, s2, st2 = st1;
+      euler_step<Payoff>(p, s_j, z1, w2, s2, st2);
+      const bool take2 = (2 * q + 1) < remaining;  // drop an overrunning half-step
+      wi = take2 ? w2 : w1;
+      si = take2 ? s2 : s1;
+      sti = take2 ? st2 : st1;
+    }
+    sum += static_cast<double>(Payoff::terminal(sti, si, p));
+  }
+  const float disc = discount_remaining
+      ? expf(-p.r * (p.t - (static_cast<float>(j) + 1.0f) * p.dt))
+      : expf(-p.r * p.t);
+  return static_cast<float>(sum / static_cast<double>(n_inner)) * disc;
+}
 
 template <class Payoff>
 __global__ void __launch_bounds__(kNmcThreads)
@@ -60,56 +104,48 @@ nmc_fused_kernel(int discount_remaining, uint32_t ko0, uint32_t ko1, uint32_t ki
   const int done = j + 1;
   for (int m = 0; m < done / 2; ++m) {
     normal_pair<kNmcRounds>(ko0, ko1, id, static_cast<uint32_t>(m), z0, z1);
-    w = w + (p.drift_dt + p.vol_dt * z0);
-    s = p.s0 * expf(w);
-    st = Payoff::update(st, s, p);
-    w = w + (p.drift_dt + p.vol_dt * z1);
-    s = p.s0 * expf(w);
-    st = Payoff::update(st, s, p);
+    euler_step<Payoff>(p, p.s0, z0, w, s, st);
+    euler_step<Payoff>(p, p.s0, z1, w, s, st);
   }
   if (done & 1) {
     normal_pair<kNmcRounds>(ko0, ko1, id, static_cast<uint32_t>(done / 2), z0, z1);
-    w = w + (p.drift_dt + p.vol_dt * z0);
-    s = p.s0 * expf(w);
-    st = Payoff::update(st, s, p);
+    euler_step<Payoff>(p, p.s0, z0, w, s, st);
   }
-  const float s_j = s, st_j = st;
 
   if (j == n_steps - 1) {  // block-uniform: the outer terminal moments
-    const float pay = valid ? Payoff::terminal(st_j, s_j, p) : 0.0f;
+    const float pay = valid ? Payoff::terminal(st, s, p) : 0.0f;
     const double acc[2] = {static_cast<double>(pay), static_cast<double>(pay * pay)};
     block_store_moments<2, kNmcThreads>(acc, outer_partials + 2 * static_cast<size_t>(tile), 2);
   }
 
-  // Phase B: n_inner inner paths resumed from (S_j, count_j).
-  const int remaining = n_steps - j - 1;
-  const int n_pairs = (remaining + 1) / 2;
-  const uint32_t pair_cap = static_cast<uint32_t>((n_steps + 1) / 2);
-  const uint32_t t_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner);
-  double sum = 0.0;
-  for (int m = 0; m < n_inner; ++m) {
-    const uint32_t c1_base = (t_base + static_cast<uint32_t>(m)) * pair_cap;
-    float wi = 0.0f, si = s_j, sti = st_j;
-    for (int q = 0; q < n_pairs; ++q) {
-      normal_pair<kNmcRounds>(ki0, ki1, id, c1_base + static_cast<uint32_t>(q), z0, z1);
-      const float w1 = wi + (p.drift_dt + p.vol_dt * z0);
-      const float s1 = s_j * expf(w1);  // log-space: one exp rounding per S
-      const float st1 = Payoff::update(sti, s1, p);
-      const float w2 = w1 + (p.drift_dt + p.vol_dt * z1);
-      const float s2 = s_j * expf(w2);
-      const float st2 = Payoff::update(st1, s2, p);
-      const bool take2 = (2 * q + 1) < remaining;  // drop an overrunning half-step
-      wi = take2 ? w2 : w1;
-      si = take2 ? s2 : s1;
-      sti = take2 ? st2 : st1;
-    }
-    sum += static_cast<double>(Payoff::terminal(sti, si, p));
-  }
-  const float disc = discount_remaining
-      ? expf(-p.r * (p.t - (static_cast<float>(j) + 1.0f) * p.dt))
-      : expf(-p.r * p.t);
-  const float v = static_cast<float>(sum / static_cast<double>(n_inner)) * disc;
+  const float v = nmc_point<Payoff>(p, discount_remaining, ki0, ki1, id, j, n_steps,
+                                    n_inner, s, st);
   if (in_range) surface[static_cast<size_t>(j) * n_paths + local] = valid ? v : 0.0f;
+}
+
+template <class Payoff>
+__global__ void __launch_bounds__(kNmcThreads)
+nmc_inner_kernel(int discount_remaining, uint32_t ki0, uint32_t ki1,
+                 const float* __restrict__ params, int n_steps, int n_inner,
+                 uint32_t n_paths, uint32_t path_offset, uint32_t bound, int tiles,
+                 const float* __restrict__ s_grid, const float* __restrict__ state_grid,
+                 float* __restrict__ surface) {
+  const Params p = load_params(params);
+  const int j = blockIdx.x / tiles;  // the state after step j+1
+  const int tile = blockIdx.x % tiles;
+  const uint32_t local = static_cast<uint32_t>(tile) * kNmcThreads + threadIdx.x;
+  if (local >= n_paths) return;  // no block-wide step follows
+  const uint32_t id = path_offset + local;
+  const size_t at = static_cast<size_t>(j) * n_paths + local;
+  const float v = nmc_point<Payoff>(p, discount_remaining, ki0, ki1, id, j, n_steps,
+                                    n_inner, s_grid[at], state_grid[at]);
+  surface[at] = id < bound ? v : 0.0f;
+}
+
+// Blocks: one per (step, tile of kNmcThreads outer paths), step-major.
+inline long long nmc_blocks(uint32_t n_paths, int n_steps, int* tiles) {
+  *tiles = static_cast<int>((n_paths + kNmcThreads - 1) / kNmcThreads);
+  return static_cast<long long>(*tiles) * n_steps;
 }
 
 template <class Payoff>
@@ -118,12 +154,27 @@ cudaError_t launch_nmc(int discount_remaining, uint32_t ko0, uint32_t ko1,
                        int n_inner, uint32_t n_paths, uint32_t path_offset,
                        uint32_t bound, float* surface, double* outer_partials,
                        cudaStream_t stream) {
-  const int tiles = static_cast<int>((n_paths + kNmcThreads - 1) / kNmcThreads);
-  const long long n_blocks = static_cast<long long>(tiles) * n_steps;
+  int tiles;
+  const long long n_blocks = nmc_blocks(n_paths, n_steps, &tiles);
   if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   nmc_fused_kernel<Payoff><<<static_cast<unsigned>(n_blocks), kNmcThreads, 0, stream>>>(
       discount_remaining, ko0, ko1, ki0, ki1, params, n_steps, n_inner, n_paths,
       path_offset, bound, tiles, surface, outer_partials);
+  return cudaGetLastError();
+}
+
+template <class Payoff>
+cudaError_t launch_nmc_inner(int discount_remaining, uint32_t ki0, uint32_t ki1,
+                             const float* params, int n_steps, int n_inner,
+                             uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                             const float* s_grid, const float* state_grid,
+                             float* surface, cudaStream_t stream) {
+  int tiles;
+  const long long n_blocks = nmc_blocks(n_paths, n_steps, &tiles);
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  nmc_inner_kernel<Payoff><<<static_cast<unsigned>(n_blocks), kNmcThreads, 0, stream>>>(
+      discount_remaining, ki0, ki1, params, n_steps, n_inner, n_paths, path_offset,
+      bound, tiles, s_grid, state_grid, surface);
   return cudaGetLastError();
 }
 
@@ -138,25 +189,34 @@ int mc_nmc_fused(int payoff_id, int discount_remaining, uint32_t ko0, uint32_t k
                  int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
                  float* surface, double* outer_partials, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MC_LAUNCH_NMC(PAYOFF)                                                       \
+  mc::launch_nmc<PAYOFF>(discount_remaining, ko0, ko1, ki0, ki1, params, n_steps,   \
+                         n_inner, n_paths, path_offset, bound, surface, outer_partials, s)
   switch (payoff_id) {
-    case mc::PAYOFF_VANILLA_CALL:
-      return mc::launch_nmc<mc::VanillaCall>(discount_remaining, ko0, ko1, ki0, ki1,
-                                             params, n_steps, n_inner, n_paths,
-                                             path_offset, bound, surface,
-                                             outer_partials, s);
-    case mc::PAYOFF_VANILLA_PUT:
-      return mc::launch_nmc<mc::VanillaPut>(discount_remaining, ko0, ko1, ki0, ki1,
-                                            params, n_steps, n_inner, n_paths,
-                                            path_offset, bound, surface,
-                                            outer_partials, s);
-    case mc::PAYOFF_BULLET_CALL:
-      return mc::launch_nmc<mc::BulletCall>(discount_remaining, ko0, ko1, ki0, ki1,
-                                            params, n_steps, n_inner, n_paths,
-                                            path_offset, bound, surface,
-                                            outer_partials, s);
-    default:
-      return cudaErrorInvalidValue;
+    case mc::PAYOFF_VANILLA_CALL: return MC_LAUNCH_NMC(mc::VanillaCall);
+    case mc::PAYOFF_VANILLA_PUT: return MC_LAUNCH_NMC(mc::VanillaPut);
+    case mc::PAYOFF_BULLET_CALL: return MC_LAUNCH_NMC(mc::BulletCall);
+    default: return cudaErrorInvalidValue;
   }
+#undef MC_LAUNCH_NMC
+}
+
+int mc_nmc_inner(int payoff_id, int discount_remaining, uint32_t ki0, uint32_t ki1,
+                 const float* params, int n_steps, int n_inner, uint32_t n_paths,
+                 uint32_t path_offset, uint32_t bound, const float* s_grid,
+                 const float* state_grid, float* surface, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MC_LAUNCH_NMC_INNER(PAYOFF)                                                  \
+  mc::launch_nmc_inner<PAYOFF>(discount_remaining, ki0, ki1, params, n_steps, n_inner, \
+                               n_paths, path_offset, bound, s_grid, state_grid,       \
+                               surface, s)
+  switch (payoff_id) {
+    case mc::PAYOFF_VANILLA_CALL: return MC_LAUNCH_NMC_INNER(mc::VanillaCall);
+    case mc::PAYOFF_VANILLA_PUT: return MC_LAUNCH_NMC_INNER(mc::VanillaPut);
+    case mc::PAYOFF_BULLET_CALL: return MC_LAUNCH_NMC_INNER(mc::BulletCall);
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_LAUNCH_NMC_INNER
 }
 
 }  // extern "C"

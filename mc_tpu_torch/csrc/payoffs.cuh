@@ -1,4 +1,5 @@
-// Packed option parameters and the payoff functors the kernels template on.
+// Packed option parameters, the payoff functors the kernels template on, and
+// the log-Euler step every GBM kernel takes.
 //
 // Params is the layout of ops/path_kernels.py PARAM_FIELDS (15 f32): the
 // analogue of the reference's __constant__ OptionData (trajectories.cuh:12).
@@ -54,5 +55,16 @@ struct BulletCall {
     return (count >= p.p1 && count <= p.p2) ? fmaxf(s - p.k, 0.0f) : 0.0f;
   }
 };
+
+// One log-Euler step from the leg's start price `base` (p.s0, or the resume
+// price): the step of simulate_kernel, trajectories_kernel and both NMC
+// kernels, so their paths agree bit for bit.
+template <class Payoff>
+__device__ __forceinline__ void euler_step(const Params& p, float base, float z,
+                                           float& w, float& s, float& st) {
+  w = w + (p.drift_dt + p.vol_dt * z);
+  s = base * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, p);
+}
 
 }  // namespace mc

@@ -1,15 +1,17 @@
-"""Pricing engine (port of ``mc_tpu/engines.py:165-343``).
+"""Pricing engine (port of ``mc_tpu/engines.py:165-411``).
 
 ``price`` chooses the method and stream exactly as ``mc_tpu.price`` does,
 runs one kernel (or its plain version on the CPU), finishes the moment
-sums in f64 and returns a `PriceResult`.  The device is explicit: CUDA by
-default, and there is no fallback when no card is present.
+sums in f64 and returns a `PriceResult`.  ``simulate_trajectories``
+materializes every step's price and payoff state.  The device is explicit:
+CUDA by default, and there is no fallback when no card is present.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -21,8 +23,8 @@ from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
 
-__all__ = ["price", "finish_price", "STREAM_OUTER", "STREAM_INNER",
-           "resolve_device"]
+__all__ = ["price", "finish_price", "simulate_trajectories", "Trajectories",
+           "STREAM_OUTER", "STREAM_INNER", "resolve_device"]
 
 # Stream tags (replace the reference's magic seeds 1234/1235,
 # wrappers.cuh:41,151: outer vs inner NMC draws must be independent).
@@ -84,7 +86,7 @@ def finish_price(sums: torch.Tensor, n_paths: int, option: OptionParams,
 def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
                 method: str, antithetic: bool, control_variate: bool,
                 rng_source: str, key, path_offset: int, n_paths: int,
-                device: torch.device) -> PriceResult:
+                importance_shift: float, device: torch.device) -> PriceResult:
     params = pk.pack_params(option, sim.n_steps, device)
     if method == "terminal_pair":
         # both Box-Muller halves become paths: element e = paths (2e, 2e+1)
@@ -94,7 +96,8 @@ def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
     else:
         cfg = pk.KernelConfig(n_paths=n_paths, n_steps=sim.n_steps,
                               antithetic=antithetic, with_cv=control_variate,
-                              rng_source=rng_source, method=method)
+                              rng_source=rng_source, method=method,
+                              is_shift=importance_shift)
         partials = pk.simulate_partials(payoff, cfg, key, params,
                                         path_offset=path_offset)
     return finish_price(finish_sum(partials), n_paths, option,
@@ -113,7 +116,7 @@ def price(option: OptionParams = DEMO_OPTION,
           key=None,
           path_offset: int = 0,
           n_paths: Optional[int] = None,
-          importance_shift: float = 0.0,
+          importance_shift=0.0,
           device="cuda") -> PriceResult:
     """Price an option by Monte Carlo on ``device``.
 
@@ -126,8 +129,13 @@ def price(option: OptionParams = DEMO_OPTION,
     paths (2e, 2e+1)).
 
     ``key``: a (k0, k1) pair of uint32 words; default
-    ``rng.derive_key(sim.seed, stream)``.  Importance sampling is not
-    ported yet and raises ``NotImplementedError``.
+    ``rng.derive_key(sim.seed, stream)``.
+
+    ``importance_shift``: shift the sampled terminal log-price by this many
+    sigma*sqrt(T) standard deviations, with the exact likelihood ratio on
+    every payoff (unbiased); ``"auto"`` centres the terminal log-price at
+    log K, (log(K/S0) - (r - q - sigma^2/2) T) / (sigma sqrt(T)), which aims
+    deep out-of-the-money paths at the strike.
     """
     po = get_payoff(payoff)
     if method is None:
@@ -150,14 +158,75 @@ def price(option: OptionParams = DEMO_OPTION,
         if path_offset:
             raise ValueError("terminal_pair does not take a path_offset "
                              "(element ids cover paths (2e, 2e+1))")
+    if importance_shift == "auto":
+        # centre E[log S_T] at log K: shift = (log(K/S0) - mu T)/(sigma vT)
+        mu = option.r - option.q - 0.5 * option.sigma ** 2
+        importance_shift = ((math.log(option.k / option.s0) - mu * option.t)
+                            / (option.sigma * math.sqrt(option.t)))
     pk.check_rng_source(rng_source)
-    if importance_shift:
-        raise NotImplementedError("importance sampling is not ported to "
-                                  "mc_tpu_torch yet")
     dev = resolve_device(device)
     if key is None:
         key = rng.derive_key(sim.seed, stream)
     key = (int(key[0]), int(key[1]))
     return _price_impl(option, po, sim, method, antithetic, control_variate,
                        rng_source, key, int(path_offset),
-                       int(n_paths or sim.n_paths), dev)
+                       int(n_paths or sim.n_paths), float(importance_shift),
+                       dev)
+
+
+# ---------------------------------------------------------------------------
+# Trajectory materialization (the reference's C9)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Trajectories:
+    """Materialized path grids, step-major ``(n_steps, n_paths)`` f32.
+
+    ``s[j]`` is the price after step j+1; ``state[j]`` the payoff state
+    (the bullet barrier count; zeros for a payoff without state) after step
+    j+1: the (d_stock_prices, d_sums_i) grids of trajectories.cuh:304-305.
+    ``pay_sum``/``pay_sq`` are the f64 sums of the undiscounted payoff and
+    its square over the paths.
+    """
+
+    s: Any
+    state: Any
+    pay_sum: Any
+    pay_sq: Any
+
+    @property
+    def n_paths(self) -> int:
+        return self.s.shape[1]
+
+    def path_matrix(self):
+        """(n_paths, n_steps) view of the price grid."""
+        return self.s.T
+
+    def state_matrix(self):
+        """(n_paths, n_steps) view of the state grid."""
+        return self.state.T
+
+
+def simulate_trajectories(option: OptionParams = DEMO_OPTION,
+                          sim: SimParams = DEMO_SIM,
+                          payoff="bullet_call",
+                          *,
+                          stream: int = STREAM_OUTER,
+                          key=None,
+                          path_offset: int = 0,
+                          device="cuda") -> Trajectories:
+    """Simulate and keep every step of ``sim.n_paths`` log-Euler paths
+    (simulate_outer_trajectories, trajectories.cuh:273-351) on ``device``,
+    on the threefry-13 stream ``price()`` draws for the same key."""
+    po = get_payoff(payoff)
+    dev = resolve_device(device)
+    if key is None:
+        key = rng.derive_key(sim.seed, stream)
+    key = (int(key[0]), int(key[1]))
+    cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps)
+    s, st, partials = pk.simulate_trajectories(
+        po, cfg, key, pk.pack_params(option, sim.n_steps, dev),
+        path_offset=int(path_offset))
+    pay_sum, pay_sq = finish_sum(partials)
+    return Trajectories(s=s, state=st, pay_sum=pay_sum, pay_sq=pay_sq)

@@ -4,16 +4,24 @@
 For every point (outer path, step) of every outer bullet trajectory,
 ``n_inner`` inner paths resumed from the stored state estimate the
 conditional expected payoff: the price surface of the reference's NMC
-wrappers (``inc/wrappers.cuh:128-340``).  Only the fused strategy is
-ported; its kernel recomputes each outer path in registers and needs no
-history buffer, so there is no tile height to size (``mc_tpu``'s
-``nmc_auto_tile_rows`` sized the TPU's VMEM history).
+wrappers (``inc/wrappers.cuh:128-340``), and through `ExposureMetrics` the
+exposure and XVA figures it feeds.
+
+* ``strategy="fused"`` (C11): one kernel recomputes each outer path in
+  registers and keeps no history, so there is no tile height to size
+  (``mc_tpu``'s ``nmc_auto_tile_rows`` sized the TPU's VMEM history).
+* ``strategy="grid"`` (C10): the trajectories kernel stores the outer
+  (S, state) grids, the inner kernel sweeps them; the spot grid rides on the
+  result for spot-linked metrics.  Both strategies give bitwise equal
+  surfaces.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
+
+import torch
 
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
@@ -24,29 +32,61 @@ from mc_tpu_torch.ops import nmc_kernels as nk
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
+from mc_tpu_torch.xva import (ExposureMetrics, _cva_path_intensity, _f32,
+                              _grid_weights)
 
 __all__ = ["price_nmc", "NMCResult"]
 
 
 @dataclasses.dataclass(frozen=True)
-class NMCResult:
+class NMCResult(ExposureMetrics):
     """Price surface + outer estimate.
 
     ``surface[j, i]`` is the discounted inner-MC estimate of the conditional
     expected payoff of outer path ``i`` given its state after step j+1,
     shaped ``(n_steps, n_paths)`` step-major; ``outer`` the plain outer-path
     price; ``surface_mean`` the mean over all n_paths*n_steps points (the
-    reference's final "option price" output).
+    reference's final "option price" output); ``t_horizon`` the option's
+    maturity T; ``spot_surface`` the outer spot grid in the surface's layout
+    under ``strategy="grid"``, else None.
     """
 
     surface: Any
     outer: PriceResult
     surface_mean: Any
     n_points: Any
+    t_horizon: Any = 1.0
+    spot_surface: Any = None
 
     def surface_matrix(self):
         """(n_paths, n_steps) view of the surface."""
         return self.surface.T
+
+    def spot_matrix(self):
+        """(n_paths, n_steps) view of the outer spot grid (grid strategy
+        only)."""
+        if self.spot_surface is None:
+            raise ValueError(
+                "the outer spot grid is only materialized by "
+                "strategy='grid'; re-price with it for spot-linked metrics")
+        return self.spot_surface.T
+
+    def cva_wwr_spot(self, hazard_rate: float, beta: float,
+                     recovery: float = 0.4,
+                     t_horizon: Optional[float] = None):
+        """CVA under spot-linked wrong-way risk: the intensity rides each
+        path's underlying, lambda_i(t_j) = hazard * exp(beta * (S_ij /
+        mean_i S_ij - 1)) (centred per date, so beta=0 is the flat `cva`).
+        Unlike the exposure link of `cva_wwr`, the sign of the effect flips
+        with the position: beta > 0 raises a long call's CVA and lowers a
+        long put's.  Needs ``strategy="grid"``."""
+        s = self.spot_matrix()
+        v = self.surface_matrix()
+        _, _, dt = _grid_weights(self.observation_dates(t_horizon, v.shape[1]))
+        rel = s / s.mean(dim=0, keepdim=True) - 1.0
+        lam = _f32(hazard_rate, v.device) * torch.exp(
+            _f32(beta, v.device) * rel)
+        return _cva_path_intensity(v, lam, dt, recovery)
 
 
 def price_nmc(option: OptionParams = DEMO_OPTION,
@@ -64,15 +104,14 @@ def price_nmc(option: OptionParams = DEMO_OPTION,
     """Nested Monte Carlo price surface.
 
     ``sim.n_paths_inner`` inner paths re-price every (path, step) point of
-    every outer trajectory.  ``strategy="grid"`` (the two-stage version
-    over materialized trajectories) is not ported yet.
+    every outer trajectory.  ``strategy``: "fused" (one kernel) or "grid"
+    (materialized trajectories, then the inner kernel; the result carries
+    the spot grid).
     """
     po = get_payoff(payoff)
-    if strategy == "grid":
-        raise NotImplementedError("strategy='grid' is not ported to "
-                                  "mc_tpu_torch yet; use 'fused'")
-    if strategy != "fused":
-        raise ValueError(f"unknown strategy {strategy!r}")
+    if strategy not in ("fused", "grid"):
+        raise ValueError(f"unknown strategy {strategy!r}; use 'fused' or "
+                         "'grid'")
     if po.n_state > 1:
         raise ValueError("NMC supports payoffs with at most one state array")
     cfg = nk.NMCConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
@@ -87,10 +126,17 @@ def price_nmc(option: OptionParams = DEMO_OPTION,
     key_inner = (int(key_inner[0]), int(key_inner[1]))
 
     params = pk.pack_params(option, sim.n_steps, dev)
-    surface, outer_partials = nk.nmc_fused(po, cfg, key_outer, key_inner,
-                                           params)
+    spot = None
+    if strategy == "fused":
+        surface, outer_partials = nk.nmc_fused(po, cfg, key_outer, key_inner,
+                                               params)
+    else:
+        spot, c_grid, outer_partials = pk.simulate_trajectories(
+            po, nk.outer_config(cfg), key_outer, params)
+        surface = nk.nmc_inner(po, cfg, key_inner, params, spot, c_grid)
     outer = finish_price(finish_sum(outer_partials), sim.n_paths, option)
     n_points = sim.n_paths * sim.n_steps
     return NMCResult(surface=surface, outer=outer,
                      surface_mean=surface.double().sum() / n_points,
-                     n_points=n_points)
+                     n_points=n_points, t_horizon=float(option.t),
+                     spot_surface=spot)

@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels
 (the counterpart of ``mc_tpu/ops/_pallas.py``).
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The build happens at the
-first launch, never at import, into ``build/mc_tpu_torch/<hash>/`` beside
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build happens at the first
+launch, never at import, into ``build/mc_tpu_torch/<hash>/`` beside
 the package, keyed by a hash of the sources and flags, so a fresh checkout
 builds everything on its first call and later calls reuse the library.
 
@@ -36,13 +37,14 @@ LIB_NAME = "libmc_tpu_torch.so"
 # plain versions), and no float contraction, so each mul and add rounds as
 # it does in the PyTorch version.  -Xptxas -v reports registers per kernel.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("terminal_pair", "simulate_partials", "nmc_fused")
+KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
+           "nmc_inner")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
+_c_f32 = ctypes.c_float
 _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
@@ -52,15 +54,27 @@ _SIGNATURES = {
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
                           _c_u32, _c_ptr, _c_int, _c_ptr], _c_int),
     # payoff_id, rounds, euler, antithetic, with_cv, k0, k1, params, n_steps,
-    # n_paths, path_offset, bound, partials, n_mom, n_blocks, stream
+    # start_step, is_shift, n_paths, path_offset, bound, s_init, state_init,
+    # partials, n_mom, n_blocks, stream
     "mc_simulate_partials": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_u32,
-                              _c_u32, _c_ptr, _c_int, _c_u32, _c_u32, _c_u32,
-                              _c_ptr, _c_int, _c_int, _c_ptr], _c_int),
+                              _c_u32, _c_ptr, _c_int, _c_int, _c_f32, _c_u32,
+                              _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                              _c_int, _c_ptr], _c_int),
+    # payoff_id, rounds, k0, k1, params, n_steps, n_paths, path_offset,
+    # bound, s_grid, state_grid, partials, n_blocks, stream
+    "mc_trajectories": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                         _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr,
+                         _c_int, _c_ptr], _c_int),
     # payoff_id, discount_remaining, ko0, ko1, ki0, ki1, params, n_steps,
     # n_inner, n_paths, path_offset, bound, surface, outer_partials, stream
     "mc_nmc_fused": ([_c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_u32, _c_ptr,
                       _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr,
                       _c_ptr], _c_int),
+    # payoff_id, discount_remaining, ki0, ki1, params, n_steps, n_inner,
+    # n_paths, path_offset, bound, s_grid, state_grid, surface, stream
+    "mc_nmc_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int, _c_int,
+                      _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+                     _c_int),
 }
 
 _lock = threading.Lock()
@@ -99,6 +113,19 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their stderr, or raise on the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=CSRC) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for c, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(c)}\n{err}")
+    return "".join(errs)
+
+
 def _build() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
@@ -112,18 +139,20 @@ def _build() -> Path:
                           ptxas=log.read_text() if log.exists() else "")
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    ptxas = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                      for o, src in zip(objs, srcs)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    (out_dir / "ptxas.log").write_text(proc.stderr)
+    for o in objs:
+        o.unlink()
+    (out_dir / "ptxas.log").write_text(ptxas)
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    build_info.update(path=str(out), seconds=seconds, ptxas=proc.stderr)
+    build_info.update(path=str(out), seconds=seconds, ptxas=ptxas)
     return out
 
 

@@ -1,13 +1,20 @@
-"""Nested Monte Carlo kernel: wrapper, plain version, configuration
+"""Nested Monte Carlo kernels: wrappers, plain versions, configuration
 (port of ``mc_tpu/ops/nmc_kernels.py:55-186``).
 
-``nmc_fused`` replaces the fused Pallas kernel at
-``mc_tpu/ops/nmc_kernels.py:264`` with ``csrc/nmc_kernels.cu``.  For every
-outer path ``i`` and step ``j`` it estimates the discounted conditional
-expected payoff given the state after step ``j+1`` by ``n_inner`` inner
-paths resumed from ``(S_j, count_j)``.  The inner counter for draw pair
-``q`` of inner path ``m`` is ``(i, ((j+1)*n_inner + m)*pair_cap + q)`` on
-the inner key: unique, and independent of how paths are laid out.
+Two kernels in ``csrc/nmc_kernels.cu`` compute one surface:
+
+* ``nmc_fused`` replaces the fused Pallas kernel at
+  ``mc_tpu/ops/nmc_kernels.py:264``: it recomputes the outer paths itself;
+* ``nmc_inner`` replaces ``nmc_inner_kernel`` at
+  ``mc_tpu/ops/nmc_kernels.py:338`` (the grid strategy): it reads the outer
+  states from the grids ``path_kernels.simulate_trajectories`` stored.
+
+For every outer path ``i`` and step ``j`` they estimate the discounted
+conditional expected payoff given the state after step ``j+1`` by
+``n_inner`` inner paths resumed from ``(S_j, count_j)``.  The inner counter
+for draw pair ``q`` of inner path ``m`` is
+``(i, ((j+1)*n_inner + m)*pair_cap + q)`` on the inner key: unique, and
+independent of how paths are laid out.
 
 The surface is step-major ``(n_steps, n_paths)`` f32; the outer moments
 come back as ``(rows, 2)`` f64 partials for ``reduce.finish_sum``.
@@ -21,10 +28,12 @@ import torch
 
 from mc_tpu_torch import rng
 from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.path_kernels import _bound, _check_params, unpack_params
 from mc_tpu_torch.ops.payoffs import PathPayoff
 
-__all__ = ["NMCConfig", "nmc_fused", "nmc_fused_plain", "outer_history"]
+__all__ = ["NMCConfig", "nmc_fused", "nmc_inner", "nmc_fused_plain",
+           "nmc_inner_plain"]
 
 # Inner-path elements per step of the plain version: bounds its temporaries.
 PLAIN_INNER_ELEMS = 1 << 20
@@ -71,33 +80,6 @@ class NMCConfig:
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
-
-
-def outer_history(payoff: PathPayoff, cfg: NMCConfig, key_outer, params,
-                  path_offset: int = 0):
-    """Outer paths with their history: ``(s_hist, c_hist)``, each
-    ``(n_steps, n_paths)`` f32, the price and payoff state after step j+1.
-
-    The outer stream is the same one ``simulate_partials`` draws (13-round
-    threefry, counter (path id, pair)), on ``key_outer``.
-    """
-    p = unpack_params(params)
-    ko0, ko1 = int(key_outer[0]), int(key_outer[1])
-    ids = (torch.arange(cfg.n_paths, dtype=torch.int64, device=params.device)
-           + path_offset) & 0xFFFFFFFF
-    s0 = p.s0.expand(ids.shape)
-    state = payoff.init(p, torch.zeros_like(s0))
-    w = torch.zeros_like(s0)
-    s_hist, c_hist = [], []
-    for j in range(cfg.n_steps):
-        if j % 2 == 0:
-            z_pair = rng.normal_pair(ko0, ko1, ids, torch.full_like(ids, j // 2))
-        w = w + (p.drift_dt + p.vol_dt * z_pair[j % 2])
-        s = s0 * torch.exp(w)  # log-space: one exp rounding per S_t
-        state = payoff.update(state, s, p)
-        s_hist.append(s)
-        c_hist.append(state[0] if payoff.n_state else torch.zeros_like(s))
-    return torch.stack(s_hist), torch.stack(c_hist)
 
 
 def _simulate_resumed(payoff: PathPayoff, p, s_t, state_t, remaining: int,
@@ -152,31 +134,49 @@ def _discount_factor(cfg: NMCConfig, p, j: int):
     return torch.exp(-p.r * (p.t - t_j))
 
 
-def nmc_fused_plain(payoff: PathPayoff, cfg: NMCConfig, key_outer, key_inner,
-                    params: torch.Tensor, path_offset: int = 0, n_valid=None):
-    """Plain version of the fused NMC kernel: (surface, outer partials)."""
+def nmc_inner_plain(payoff: PathPayoff, cfg: NMCConfig, key_inner,
+                    params: torch.Tensor, s_grid, c_grid, path_offset: int = 0,
+                    n_valid=None):
+    """Plain version of the inner (grid-strategy) NMC kernel: the surface
+    from the outer states ``s_grid``/``c_grid`` (n_steps, n_paths)."""
     p = unpack_params(params)
     ki0, ki1 = int(key_inner[0]), int(key_inner[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     ids = (torch.arange(cfg.n_paths, dtype=torch.int64, device=params.device)
            + path_offset) & 0xFFFFFFFF
     valid = ids < bound
-    s_hist, c_hist = outer_history(payoff, cfg, key_outer, params, path_offset)
-    state_t = (c_hist[-1],) if payoff.n_state else ()
-    pay = torch.where(valid, payoff.terminal(state_t, s_hist[-1], p), 0.0)
-    outer = torch.stack([pay.double().sum(), (pay * pay).double().sum()])[None]
     surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
                           device=params.device)
     for j in range(cfg.n_steps):
         inner_sum = _nmc_point_sum(payoff, cfg, p, ki0, ki1, ids, j,
-                                   s_hist[j], c_hist[j])
+                                   s_grid[j], c_grid[j])
         v = (inner_sum / cfg.n_inner).float() * _discount_factor(cfg, p, j)
         surface[j] = torch.where(valid, v, 0.0)
-    return surface, outer
+    return surface
+
+
+def outer_config(cfg: NMCConfig) -> pk.KernelConfig:
+    """The outer paths' stream: the plain log-Euler loop, threefry-13."""
+    return pk.KernelConfig(n_paths=cfg.n_paths, n_steps=cfg.n_steps,
+                           rng_source=cfg.rng_source)
+
+
+def nmc_fused_plain(payoff: PathPayoff, cfg: NMCConfig, key_outer, key_inner,
+                    params: torch.Tensor, path_offset: int = 0, n_valid=None):
+    """Plain version of the fused NMC kernel: (surface, outer partials).
+
+    The fused kernel recomputes in registers the outer states that the
+    trajectories kernel stores, so its plain version is the two plain
+    stages of the grid strategy.
+    """
+    s_grid, c_grid, outer = pk.simulate_trajectories_plain(
+        payoff, outer_config(cfg), key_outer, params, path_offset, n_valid)
+    return nmc_inner_plain(payoff, cfg, key_inner, params, s_grid, c_grid,
+                           path_offset, n_valid), outer
 
 
 # ---------------------------------------------------------------------------
-# Wrapper: plain version on the CPU, the CUDA kernel on the card
+# Wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
 
@@ -205,3 +205,40 @@ def nmc_fused(payoff: PathPayoff, cfg: NMCConfig, key_outer, key_inner,
     _cuda.check(status, "nmc_fused kernel")
     _cuda.count_launch("nmc_fused")
     return surface, outer
+
+
+def nmc_inner(payoff: PathPayoff, cfg: NMCConfig, key_inner,
+              params: torch.Tensor, s_grid, c_grid, path_offset: int = 0,
+              n_valid=None):
+    """Grid-strategy NMC over the stored outer states ``s_grid``/``c_grid``
+    ((n_steps, n_paths) f32 on the params' device, as
+    ``path_kernels.simulate_trajectories`` returns them): the surface
+    (n_steps, n_paths) f32."""
+    _check_params(params)
+    if payoff.n_state > 1:
+        raise ValueError("NMC supports payoffs with at most one state array")
+    for name, g in (("s_grid", s_grid), ("c_grid", c_grid)):
+        if (not torch.is_tensor(g) or g.dtype != torch.float32
+                or g.shape != (cfg.n_steps, cfg.n_paths)
+                or not g.is_contiguous() or g.device != params.device):
+            raise ValueError(
+                f"{name} must be a contiguous float32 tensor of shape "
+                f"({cfg.n_steps}, {cfg.n_paths}) on {params.device}; got "
+                f"{getattr(g, 'shape', None)} {getattr(g, 'dtype', type(g))}")
+    if params.device.type == "cpu":
+        return nmc_inner_plain(payoff, cfg, key_inner, params, s_grid, c_grid,
+                               path_offset, n_valid)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    lib = _cuda.load()
+    surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+                          device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_nmc_inner(
+            payoff.cuda_id, int(cfg.discount == "remaining"),
+            int(key_inner[0]), int(key_inner[1]), params.data_ptr(),
+            cfg.n_steps, cfg.n_inner, cfg.n_paths, path_offset & 0xFFFFFFFF,
+            bound, s_grid.data_ptr(), c_grid.data_ptr(), surface.data_ptr(),
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "nmc_inner kernel")
+    _cuda.count_launch("nmc_inner")
+    return surface

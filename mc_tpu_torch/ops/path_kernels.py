@@ -1,14 +1,18 @@
 """Path-simulation kernels: wrappers, plain versions, configuration
 (port of ``mc_tpu/ops/path_kernels.py``).
 
-Two kernels live in ``csrc/path_kernels.cu``:
+Three kernels live in ``csrc/path_kernels.cu``:
 
 * ``terminal_pair_partials`` (replaces the Pallas kernel at
   ``mc_tpu/ops/path_kernels.py:1015``): one threefry + Box-Muller pair per
   element prices the exact terminal paths ``2e`` and ``2e+1``.
 * ``simulate_partials`` (replaces ``mc_tpu/ops/path_kernels.py:395``): the
-  exact terminal draw or the log-Euler step loop, with the antithetic leg
-  and the control-variate moments fused in.
+  exact terminal draw or the log-Euler step loop, with the antithetic leg,
+  the control-variate moments, importance sampling and resume from stored
+  per-path states fused in.
+* ``simulate_trajectories`` (replaces ``mc_tpu/ops/path_kernels.py:524``):
+  the log-Euler loop that stores the price and payoff state after every
+  step, step-major ``(n_steps, n_paths)``, plus the payoff partials.
 
 Each wrapper returns ``(rows, moments)`` f64 partial sums for
 ``reduce.finish_sum``.  It takes the plain PyTorch version below only when
@@ -20,6 +24,7 @@ values per path as the kernels and add them in f64 per chunk of paths.
 from __future__ import annotations
 
 import dataclasses
+import math
 from types import SimpleNamespace
 
 import torch
@@ -30,7 +35,8 @@ from mc_tpu_torch.ops.payoffs import PathPayoff
 
 __all__ = ["KernelConfig", "PARAM_FIELDS", "pack_params", "unpack_params",
            "terminal_pair_partials", "simulate_partials",
-           "terminal_pair_partials_plain", "simulate_partials_plain"]
+           "simulate_trajectories", "terminal_pair_partials_plain",
+           "simulate_partials_plain", "simulate_trajectories_plain"]
 
 # ---------------------------------------------------------------------------
 # Parameter packing: the analogue of __constant__ OptionData
@@ -91,8 +97,11 @@ class KernelConfig:
     with_cv: bool = False         # emit control-variate moment partials
     rng_source: str = "threefry13"  # "threefry13" | "threefry" (20 rounds)
     method: str = "euler"         # "euler" | "terminal"
-    start_step: int = 0           # resume: not ported yet
-    is_shift: float = 0.0         # importance sampling: not ported yet
+    start_step: int = 0           # resume: Tk of trajectories.cuh:116-117
+    # Importance sampling: shift the terminal log-price by `is_shift`
+    # standard deviations (of sigma*sqrt(T)); payoffs carry the exact
+    # likelihood ratio, so the estimator stays unbiased.
+    is_shift: float = 0.0
 
     def __post_init__(self):
         if self.method not in ("euler", "terminal"):
@@ -101,14 +110,12 @@ class KernelConfig:
                 "use 'euler' or 'terminal' (method='terminal_pair' is only "
                 "available through price())")
         check_rng_source(self.rng_source)
-        if self.start_step:
-            raise NotImplementedError(
-                "resume (start_step/s_init/state_init) is not ported to "
-                "mc_tpu_torch yet")
-        if self.is_shift:
-            raise NotImplementedError(
-                "importance sampling (is_shift) is not ported to "
-                "mc_tpu_torch yet")
+        if self.is_shift and self.start_step:
+            raise ValueError("importance sampling with resume (start_step>0) "
+                             "is not supported")
+        if self.start_step and not 0 < self.start_step < self.n_steps:
+            raise ValueError(f"start_step must be in [0, n_steps); got "
+                             f"{self.start_step} with n_steps={self.n_steps}")
         if not 0 < self.n_paths < 1 << 32:
             raise ValueError(f"n_paths must be in [1, 2^32); got {self.n_paths}")
 
@@ -151,45 +158,110 @@ def _bound(path_offset: int, n_paths: int, n_valid) -> int:
     return bound & 0xFFFFFFFF
 
 
+def _check_per_path(name: str, a: torch.Tensor, n_paths: int,
+                    device: torch.device) -> None:
+    """A per-path f32 input: ``(n_paths,)``, contiguous, on ``device``."""
+    if (not torch.is_tensor(a) or a.dtype != torch.float32
+            or a.shape != (n_paths,) or not a.is_contiguous()
+            or a.device != device):
+        raise ValueError(
+            f"{name} must be a contiguous float32 tensor of shape "
+            f"({n_paths},) on {device}; got "
+            f"{getattr(a, 'shape', None)} {getattr(a, 'dtype', type(a))} "
+            f"on {getattr(a, 'device', None)}")
+
+
+def _check_resume(payoff: PathPayoff, cfg: KernelConfig,
+                  params: torch.Tensor, s_init, state_init) -> None:
+    if s_init is None:
+        if state_init is not None:
+            raise ValueError("state_init needs s_init")
+        return
+    _check_per_path("s_init", s_init, cfg.n_paths, params.device)
+    if payoff.n_state:
+        if state_init is None:
+            raise ValueError(f"{payoff.name} carries a path state; resume "
+                             "needs state_init with s_init")
+        _check_per_path("state_init", state_init, cfg.n_paths,
+                        params.device)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions of the kernels' per-path arithmetic
 # ---------------------------------------------------------------------------
 
 
-def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair):
-    """Simulate one leg to maturity; returns ``(s_t, state)``.
+def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
+                  state_init=None):
+    """Simulate one leg to maturity; returns ``(s_t, state, weight)``.
 
-    ``draw_pair(m) -> (z_2m, z_2m+1)``.  The step loop consumes both
-    Box-Muller halves of every threefry call; an odd step count ends with
-    the head half of one more pair.
+    ``draw_pair(m) -> (z_2m, z_2m+1)``; ``s0`` is the per-path start price
+    (the resume price from ``start_step`` on).  The step loop consumes both
+    Box-Muller halves of every threefry call; an odd resume point first
+    takes the tail half of its pair, an odd step count ends with the head
+    half of one more pair.  ``weight`` is the importance-sampling
+    likelihood ratio dP/dQ (None when ``cfg.is_shift`` is 0).
     """
+    shift = torch.tensor(cfg.is_shift, dtype=torch.float32, device=s0.device)
     if cfg.method == "terminal":
         z, _ = draw_pair(0)
-        return s0 * torch.exp(p.drift_t + p.vol_t * z), ()
+        if cfg.is_shift:
+            z = z + shift
+        s_t = s0 * torch.exp(p.drift_t + p.vol_t * z)
+        if cfg.is_shift:
+            # dP/dQ at the sampled point: exp(-shift*eps + shift^2/2).
+            return s_t, (), torch.exp(-shift * z + 0.5 * shift * shift)
+        return s_t, (), None
 
-    state = payoff.init(p, torch.zeros_like(s0))
+    state = (payoff.init(p, torch.zeros_like(s0)) if state_init is None
+             else state_init)
+    # Per-step drift shift theta = shift/sqrt(n): the terminal log-price
+    # moves by sigma*sqrt(T)*shift, as under the terminal method.
+    theta = shift / torch.tensor(math.sqrt(cfg.n_steps), dtype=torch.float32,
+                                 device=s0.device)
     w = torch.zeros_like(s0)
     s = s0
 
     def one_step(w, state, z):
+        if cfg.is_shift:
+            z = z + theta
         w = w + (p.drift_dt + p.vol_dt * z)
         s = s0 * torch.exp(w)  # log-space: one exp rounding per S_t
         return w, s, payoff.update(state, s, p)
 
-    for m in range(cfg.n_steps // 2):
+    start, end = cfg.start_step, cfg.n_steps
+    if start % 2:  # odd resume point: consume the tail half of its pair
+        _, z1 = draw_pair(start // 2)
+        w, s, state = one_step(w, state, z1)
+        start += 1
+    for m in range(start // 2, end // 2):
         z0, z1 = draw_pair(m)
         w, s, state = one_step(w, state, z0)
         w, s, state = one_step(w, state, z1)
-    if cfg.n_steps % 2:  # odd step count: epilogue consumes the head half only
-        z0, _ = draw_pair(cfg.n_steps // 2)
+    if end % 2:  # odd step count: epilogue consumes the head half only
+        z0, _ = draw_pair(end // 2)
         w, s, state = one_step(w, state, z0)
-    return s, state
+    if cfg.is_shift:
+        # log dP/dQ = -theta * sum(eps_j) + n theta^2 / 2, the shifted
+        # increments recovered from the log-price accumulator:
+        # sum(eps) * vol_dt = w - n * drift_dt.
+        n = torch.tensor(float(cfg.n_steps), dtype=torch.float32,
+                         device=s0.device)
+        sum_eps = (w - n * p.drift_dt) / p.vol_dt
+        return s, state, torch.exp(-theta * sum_eps + 0.5 * n * theta * theta)
+    return s, state, None
 
 
-def _payoff_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair):
-    """One leg and its payoff: ``(payoff, S_T)``; S_T is the control."""
-    s_t, state = _simulate_leg(payoff, cfg, p, s0, draw_pair)
-    return payoff.terminal(state, s_t, p), s_t
+def _payoff_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
+                state_init=None):
+    """One leg and its payoff: ``(payoff, S_T)``; S_T is the control.
+    Under importance sampling both carry the likelihood ratio."""
+    s_t, state, weight = _simulate_leg(payoff, cfg, p, s0, draw_pair,
+                                       state_init)
+    pay = payoff.terminal(state, s_t, p)
+    if weight is not None:
+        return pay * weight, s_t * weight
+    return pay, s_t
 
 
 def _terminal_pair_vals(payoff, p, ids_e, bound_paths: int, z0, z1):
@@ -206,6 +278,17 @@ def _terminal_pair_vals(payoff, p, ids_e, bound_paths: int, z0, z1):
 
 def _chunk_row(vals) -> torch.Tensor:
     return torch.stack([v.double().sum() for v in vals])
+
+
+def _chunk_ids(cfg: KernelConfig, params, path_offset: int, bound: int):
+    """Per chunk of the plain versions: (start, stop, ids, valid), the ids
+    being the uint32 global path ids of local paths [start, stop)."""
+    for start in range(0, cfg.n_paths, PLAIN_CHUNK):
+        stop = min(start + PLAIN_CHUNK, cfg.n_paths)
+        local = torch.arange(start, stop, dtype=torch.int64,
+                             device=params.device)
+        ids = (local + path_offset) & 0xFFFFFFFF
+        yield start, stop, ids, ids < bound
 
 
 def terminal_pair_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
@@ -226,27 +309,30 @@ def terminal_pair_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
 
 def simulate_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
                             params: torch.Tensor, path_offset: int = 0,
-                            n_valid=None):
+                            n_valid=None, s_init=None, state_init=None):
     """Plain version of the simulate kernel: (chunks, n_moments) f64."""
     p = unpack_params(params)
     k0, k1 = int(key[0]), int(key[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     rows = []
-    for start in range(0, cfg.n_paths, PLAIN_CHUNK):
-        local = torch.arange(start, min(start + PLAIN_CHUNK, cfg.n_paths),
-                             dtype=torch.int64, device=params.device)
-        ids = (local + path_offset) & 0xFFFFFFFF  # uint32 global path ids
-        valid = ids < bound
+    for start, stop, ids, valid in _chunk_ids(cfg, params, path_offset,
+                                              bound):
 
         def draw_pair(m, ids=ids):
             return rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
                                    rounds=cfg.rng_rounds)
 
-        s0 = p.s0.expand(ids.shape)
-        pay, x = _payoff_leg(payoff, cfg, p, s0, draw_pair)
+        if s_init is None:
+            s0, st0 = p.s0.expand(ids.shape), None
+        else:
+            s0 = s_init[start:stop]
+            st0 = (state_init[start:stop],) if payoff.n_state else ()
+        pay, x = _payoff_leg(payoff, cfg, p, s0, draw_pair, st0)
         if cfg.antithetic:
+            # The antithetic leg negates the draw before the IS shift.
             pay_n, x_n = _payoff_leg(payoff, cfg, p, s0,
-                                     lambda m: tuple(-z for z in draw_pair(m)))
+                                     lambda m: tuple(-z for z in draw_pair(m)),
+                                     st0)
             pay = 0.5 * (pay + pay_n)
             x = 0.5 * (x + x_n)
         pay = torch.where(valid, pay, 0.0)
@@ -258,6 +344,42 @@ def simulate_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
             vals += [x, x * x, pay * x]
         rows.append(_chunk_row(vals))
     return torch.stack(rows)
+
+
+def simulate_trajectories_plain(payoff: PathPayoff, cfg: KernelConfig, key,
+                                params: torch.Tensor, path_offset: int = 0,
+                                n_valid=None):
+    """Plain version of the trajectories kernel: ``(s_grid, state_grid,
+    partials)``, the grids ``(n_steps, n_paths)`` f32 (price and payoff
+    state after step j+1; zeros for a payoff without state), the partials
+    (chunks, 2) f64 [sum pay, sum pay^2]."""
+    p = unpack_params(params)
+    k0, k1 = int(key[0]), int(key[1])
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    s_grid = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+                         device=params.device)
+    st_grid = torch.zeros_like(s_grid)
+    rows = []
+    for start, stop, ids, valid in _chunk_ids(cfg, params, path_offset,
+                                              bound):
+        s0 = p.s0.expand(ids.shape)
+        state = payoff.init(p, torch.zeros_like(s0))
+        w = torch.zeros_like(s0)
+        s = s0
+        for j in range(cfg.n_steps):
+            if j % 2 == 0:  # one threefry pair per two steps
+                z_pair = rng.normal_pair(k0, k1, ids,
+                                         torch.full_like(ids, j // 2),
+                                         rounds=cfg.rng_rounds)
+            w = w + (p.drift_dt + p.vol_dt * z_pair[j % 2])
+            s = s0 * torch.exp(w)  # log-space: one exp rounding per S_t
+            state = payoff.update(state, s, p)
+            s_grid[j, start:stop] = s
+            if payoff.n_state:
+                st_grid[j, start:stop] = state[0]
+        pay = torch.where(valid, payoff.terminal(state, s, p), 0.0)
+        rows.append(_chunk_row([pay, pay * pay]))
+    return s_grid, st_grid, torch.stack(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -302,30 +424,73 @@ def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key,
 
     ``path_offset``/``n_valid``: global path-id offset of this slice and the
     global path-count bound (defaults to offset + cfg.n_paths).
+    ``s_init``/``state_init``: optional per-path resume arrays, ``(n_paths,)``
+    f32 on the params' device (the reference's (Sk, Ik) resume arguments,
+    trajectories.cuh:116-117); the leg then runs from ``cfg.start_step``.
     """
     _check_params(params)
-    if s_init is not None or state_init is not None:
-        raise NotImplementedError("resume (s_init/state_init) is not ported "
-                                  "to mc_tpu_torch yet")
     if cfg.method == "terminal" and payoff.n_state:
         raise ValueError(f"{payoff.name} is path-dependent; "
                          "method='terminal' invalid")
+    _check_resume(payoff, cfg, params, s_init, state_init)
     if params.device.type == "cpu":
         return simulate_partials_plain(payoff, cfg, key, params, path_offset,
-                                       n_valid)
+                                       n_valid, s_init, state_init)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
     n_blocks = _grid(lib, cfg.n_paths)
     partials = torch.empty((n_blocks, cfg.n_moments), dtype=torch.float64,
                            device=params.device)
+    st_ptr = (state_init.data_ptr() if s_init is not None and payoff.n_state
+              else None)
     with torch.cuda.device(params.device):
         status = lib.mc_simulate_partials(
             payoff.cuda_id, cfg.rng_rounds, int(cfg.method == "euler"),
             int(cfg.antithetic), int(cfg.with_cv), int(key[0]), int(key[1]),
-            params.data_ptr(), cfg.n_steps, cfg.n_paths,
-            path_offset & 0xFFFFFFFF, bound,
+            params.data_ptr(), cfg.n_steps, cfg.start_step, cfg.is_shift,
+            cfg.n_paths, path_offset & 0xFFFFFFFF, bound,
+            None if s_init is None else s_init.data_ptr(), st_ptr,
             partials.data_ptr(), cfg.n_moments, n_blocks,
             _cuda.stream_handle(params.device))
     _cuda.check(status, "simulate_partials kernel")
     _cuda.count_launch("simulate_partials")
     return partials
+
+
+def simulate_trajectories(payoff: PathPayoff, cfg: KernelConfig, key,
+                          params: torch.Tensor, path_offset: int = 0,
+                          n_valid=None):
+    """Materialize the (S, state) grids: ``(s_grid, state_grid, partials)``
+    with the grids ``(n_steps, n_paths)`` f32 step-major (entry [j, i] after
+    step j+1 of path i) and the partials ``(rows, 2)`` f64 [sum, sumsq] of
+    the payoff.  The plain log-Euler loop only: no antithetic leg, control
+    variate, importance sampling or resume."""
+    _check_params(params)
+    if payoff.n_state > 1:
+        raise ValueError("the trajectories kernel stores one state array")
+    if (cfg.method != "euler" or cfg.antithetic or cfg.with_cv
+            or cfg.start_step or cfg.is_shift):
+        raise ValueError("simulate_trajectories runs the plain log-Euler "
+                         "loop: method='euler' without antithetic, CV, IS "
+                         "or resume")
+    if params.device.type == "cpu":
+        return simulate_trajectories_plain(payoff, cfg, key, params,
+                                           path_offset, n_valid)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    lib = _cuda.load()
+    n_blocks = _grid(lib, cfg.n_paths)
+    s_grid = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+                         device=params.device)
+    st_grid = torch.empty_like(s_grid)
+    partials = torch.empty((n_blocks, 2), dtype=torch.float64,
+                           device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_trajectories(
+            payoff.cuda_id, cfg.rng_rounds, int(key[0]), int(key[1]),
+            params.data_ptr(), cfg.n_steps, cfg.n_paths,
+            path_offset & 0xFFFFFFFF, bound, s_grid.data_ptr(),
+            st_grid.data_ptr(), partials.data_ptr(), n_blocks,
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "trajectories kernel")
+    _cuda.count_launch("trajectories")
+    return s_grid, st_grid, partials

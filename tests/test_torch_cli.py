@@ -51,12 +51,60 @@ def test_price_and_nmc_subcommands_emit_json():
     assert res["outer_stderr"] > 0
 
 
+def test_nmc_exposure_flags_emit_xva(capsys, tmp_path):
+    from mc_tpu_torch import cli
+
+    npz = tmp_path / "surface.npz"
+    assert cli.main([
+        "nmc", "--device", "cpu", "--n-paths", "256", "--n-steps", "6",
+        "--n-inner", "8", "--payoff", "vanilla_call", "--strategy", "grid",
+        "--exposure", "--cva-hazard", "0.02", "--dva-hazard", "0.01",
+        "--fva-spread", "0.01", "--collateral-threshold", "1",
+        "--mpor-steps", "2", "--im-quantile", "0.99", "--mva-spread", "0.01",
+        "--wwr-beta", "0.05", "--wwr-spot-beta", "2",
+        "--surface-npz", str(npz)]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k in ("expected_exposure", "pfe", "collateralized_ee",
+              "initial_margin"):
+        assert len(res[k]) == 6, k
+    assert res["cva"] > 0 and res["dva"] == 0.0
+    assert res["bilateral_cva"] == res["cva"]
+    assert res["fca"] > 0 and res["fba"] == 0.0
+    assert 0 <= res["collateralized_cva"] <= res["cva"]
+    assert res["mva"] > 0 and res["cva_wwr"] > res["cva"]
+    assert res["cva_wwr_spot"] > res["cva"]  # a long call: spot WWR raises
+    import numpy as np
+    assert np.load(npz)["surface"].shape == (256, 6)
+    with pytest.raises(SystemExit, match="strategy grid"):
+        cli.main(["nmc", "--device", "cpu", "--n-paths", "64", "--n-steps",
+                  "4", "--n-inner", "4", "--exposure", "--cva-hazard",
+                  "0.02", "--wwr-spot-beta", "1"])
+
+
+def test_price_importance_shift(capsys):
+    from mc_tpu_torch import cli
+
+    assert cli.main(["price", "--device", "cpu", "-K", "180", "--n-paths",
+                     "20000", "--n-steps", "8", "--importance-shift",
+                     "auto"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(res["price"] - res["black_scholes"]) <= 4 * res["stderr"]
+    assert res["stderr"] < 0.1 * res["price"]
+
+
 def test_cuda_default_without_a_card_fails_loudly():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; chip_smoke.py covers it")
     proc = _run("-m", "mc_tpu_torch", "price", "--n-paths", "1000")
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    for fn in (mt.simulate_trajectories, mt.price_nmc):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, sim)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.price_nmc(mt.DEMO_OPTION, sim, strategy="grid")
 
 
 def test_import_keeps_jax_nvcc_and_triton_out():

@@ -256,19 +256,72 @@ def test_hw_rng_source_refused():
         mt.price(OPT, SIM, rng_source="philox", device="cpu")
 
 
-def test_importance_sampling_and_resume_not_ported():
-    with pytest.raises(NotImplementedError):
-        mt.price(OPT, SIM, method="terminal", importance_shift=0.5,
+# --- importance sampling (the cases of tests/test_importance.py) -----------
+
+# Deep out-of-the-money call: plain MC rarely sees a payoff.
+J_OTM = mc_tpu.OptionParams(k=180.0)
+OTM = convert.option_params(J_OTM)
+SHIFT = 2.9389333245105953  # log(180/100)/0.2: aim S_T at the strike
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="terminal", importance_shift=SHIFT),
+    dict(method="euler", importance_shift=SHIFT),
+    dict(method="euler", antithetic=True, importance_shift=SHIFT),
+    dict(method="terminal", antithetic=True, control_variate=True,
+         importance_shift=SHIFT),
+    dict(importance_shift="auto"),
+    dict(payoff="bullet_call", importance_shift=0.5),
+], ids=["terminal", "euler", "euler-antithetic", "terminal-anti-cv", "auto",
+        "bullet"])
+def test_importance_sampling_matches_mc_tpu(kw):
+    """Same stream, same shifted draws, same likelihood ratios: the IS price
+    agrees with mc_tpu's to the parity contract's tolerance."""
+    bullet = kw.get("payoff") == "bullet_call"
+    jopt, opt = (J_OPT, OPT) if bullet else (J_OTM, OTM)
+    want = mc_tpu.price(jopt, J_SIM, engine="xla", **kw)
+    got = mt.price(opt, SIM, device="cpu", **kw)
+    se_rtol = VANILLA_RTOL
+    if kw.get("control_variate"):
+        cfg = pk.KernelConfig(n_paths=SIM.n_paths, n_steps=SIM.n_steps,
+                              method="terminal", antithetic=True,
+                              with_cv=True, is_shift=SHIFT)
+        se_rtol = _cv_stderr_rtol(finish_sum(pk.simulate_partials(
+            get_payoff("vanilla_call"), cfg, KEY,
+            pk.pack_params(OTM, SIM.n_steps))), SIM.n_paths)
+    _assert_price_close(got, want, bullet=bullet, se_rtol=se_rtol)
+
+
+def test_importance_sampling_is_unbiased_and_cuts_the_stderr():
+    bs = oracle.bs_call(100.0, 180.0, 1.0, 0.1, 0.2)
+    sim = mt.SimParams(n_paths=20_000, n_steps=10)
+    plain = mt.price(OTM, sim, method="terminal", device="cpu")
+    for kw in (dict(method="terminal"), dict(method="euler"),
+               dict(method="euler", antithetic=True)):
+        res = mt.price(OTM, sim, importance_shift="auto", device="cpu", **kw)
+        assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr), kw
+        assert float(res.stderr) < 0.2 * float(plain.stderr), kw
+
+
+def test_importance_shift_zero_is_plain():
+    a = mt.price(OTM, SIM, method="euler", importance_shift=0.0, device="cpu")
+    b = mt.price(OTM, SIM, method="euler", device="cpu")
+    assert float(a.price) == float(b.price)
+    assert float(a.stderr) == float(b.stderr)
+
+
+def test_importance_sampling_guards():
+    with pytest.raises(ValueError, match="terminal_pair"):
+        mt.price(OTM, SIM, method="terminal_pair", importance_shift=1.0,
                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        pk.KernelConfig(n_paths=8, n_steps=4, start_step=2)
-    with pytest.raises(NotImplementedError):
-        pk.KernelConfig(n_paths=8, n_steps=4, is_shift=1.0)
-    cfg = pk.KernelConfig(n_paths=8, n_steps=4)
-    with pytest.raises(NotImplementedError):
-        pk.simulate_partials(get_payoff("bullet_call"), cfg, KEY,
-                             pk.pack_params(OPT, 4),
-                             s_init=torch.ones(8))
+    with pytest.raises(ValueError, match="hardware PRNG"):
+        mt.price(OTM, SIM, rng_source="hw", importance_shift=1.0,
+                 device="cpu")
+    # a shift routes plain terminal pricing to the per-path stream
+    a = mt.price(OTM, SIM, importance_shift=1.0, device="cpu")
+    b = mt.price(OTM, SIM, method="terminal", importance_shift=1.0,
+                 device="cpu")
+    assert float(a.price) == float(b.price)
 
 
 def test_invalid_combinations():

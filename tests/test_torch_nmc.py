@@ -1,7 +1,9 @@
-"""mc_tpu_torch's fused nested MC against mc_tpu on the CPU.
+"""mc_tpu_torch's nested MC (fused and grid strategies) against mc_tpu on
+the CPU.
 
-The port runs nmc_fused's plain PyTorch version here; mc_tpu runs its
-engine="xla" dual (bitwise equal to its fused Pallas kernel).
+The port runs its kernels' plain PyTorch versions here; mc_tpu runs its
+engine="xla" dual (bitwise equal to its fused Pallas kernel) or its grid
+strategy's Pallas kernels in interpret mode.
 
 Tolerances (parity contract): a barrier count can flip where an inner S
 lands within an ulp of B, so the surface is held to rtol = atol = 1e-4 on
@@ -19,6 +21,7 @@ from mc_tpu.nmc import price_nmc as jprice_nmc
 import mc_tpu_torch as mt
 from mc_tpu_torch import convert
 from mc_tpu_torch.ops import nmc_kernels as nk
+from mc_tpu_torch.ops.payoffs import get_payoff
 
 torch.set_num_threads(1)
 
@@ -117,7 +120,76 @@ def test_counter_span_guard_and_refusals():
         nk.NMCConfig(n_paths=8, n_steps=4096, n_inner=1024)
     with pytest.raises(ValueError, match="hardware PRNG"):
         mt.price_nmc(OPT, SIM, rng_source="hw", device="cpu")
-    with pytest.raises(NotImplementedError, match="grid"):
-        mt.price_nmc(OPT, SIM, strategy="grid", device="cpu")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        mt.price_nmc(OPT, SIM, strategy="split", device="cpu")
     with pytest.raises(ValueError, match="discount"):
         mt.price_nmc(OPT, SIM, discount="half", device="cpu")
+
+
+# --- the grid strategy -----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def grid():
+    return mt.price_nmc(OPT, SIM, strategy="grid", device="cpu")
+
+
+def test_grid_strategy_runs_and_equals_fused_bitwise(both, grid):
+    """The port's form of tests/test_nmc.py::test_strategies_bitwise_identical:
+    the inner kernel over stored trajectories gives the fused surface."""
+    fused, _ = both
+    assert torch.equal(grid.surface, fused.surface)
+    assert float(grid.outer.price) == float(fused.outer.price)
+    assert float(grid.surface_mean) == float(fused.surface_mean)
+
+
+@pytest.mark.parametrize("payoff,discount,n_steps", [
+    ("bullet_call", "full", 8),
+    ("vanilla_put", "remaining", 7),
+])
+def test_grid_matches_mc_tpu_grid(payoff, discount, n_steps):
+    jsim = mc_tpu.SimParams(n_paths=256, n_steps=n_steps, n_paths_inner=16)
+    got = mt.price_nmc(OPT, convert.sim_params(jsim), payoff,
+                       strategy="grid", discount=discount, device="cpu")
+    want = jprice_nmc(J_OPT, jsim, payoff, strategy="grid",
+                      discount=discount)
+    _assert_surfaces_agree(got, want, jsim.n_paths)
+    np.testing.assert_allclose(
+        got.spot_matrix().numpy(),
+        convert.surface_matrix(want.spot_surface, jsim.n_paths), rtol=2e-6)
+
+
+def test_spot_matrix_is_the_trajectory_grid(grid):
+    traj = mt.simulate_trajectories(OPT, SIM, device="cpu")
+    assert torch.equal(grid.spot_matrix(), traj.path_matrix())
+    assert tuple(grid.spot_matrix().shape) == (SIM.n_paths, SIM.n_steps)
+
+
+def test_spot_matrix_needs_the_grid_strategy(both):
+    fused, _ = both
+    assert fused.spot_surface is None
+    with pytest.raises(ValueError, match="strategy='grid'"):
+        fused.spot_matrix()
+    with pytest.raises(ValueError, match="strategy='grid'"):
+        fused.cva_wwr_spot(0.02, 1.0)
+
+
+def test_t_horizon_is_the_maturity(grid):
+    assert grid.t_horizon == OPT.t
+    res = mt.price_nmc(mt.OptionParams(t=2.0, p1=1.0, p2=6.0),
+                       SIM.replace(n_paths=64), device="cpu")
+    assert res.t_horizon == 2.0
+    np.testing.assert_allclose(res.observation_dates().numpy(),
+                               np.arange(1, 9) * 0.25, rtol=1e-7)
+
+
+def test_inner_kernel_guards():
+    cfg = nk.NMCConfig(n_paths=8, n_steps=4, n_inner=2)
+    prm = mt.engines.pk.pack_params(OPT, 4)
+    good = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="s_grid"):
+        nk.nmc_inner(get_payoff("bullet_call"), cfg, (1, 2), prm,
+                     torch.zeros((4, 7)), good)
+    with pytest.raises(ValueError, match="c_grid"):
+        nk.nmc_inner(get_payoff("bullet_call"), cfg, (1, 2), prm, good,
+                     good.double())

@@ -2,7 +2,8 @@
 
 Parity contract: threefry words and derived keys are bitwise equal; the
 Box-Muller normals differ only through each framework's f32 log1p/cos/sin
-(measured: ~92% bitwise, at most 3 ulp apart), so they are held to 4 ulp.
+(measured: 79-92% bitwise depending on the host's CPU, at most 3 ulp apart),
+so they are held to 4 ulp.
 """
 
 import jax.numpy as jnp
@@ -97,7 +98,10 @@ def test_normals_within_4_ulp(rounds):
         ulp = np.abs(j.view(np.int32).astype(np.int64)
                      - t.view(np.int32).astype(np.int64))
         assert ulp.max() <= 4, ulp.max()
-        assert (ulp == 0).mean() > 0.8
+        # The bitwise share depends on the host: torch's vectorized
+        # log1p/cos/sin differ by CPU ISA (measured 79.3-79.5% on an AVX512
+        # host, 92% on another).  A wrong formula lands near 0%.
+        assert (ulp == 0).mean() >= 0.5
 
 
 def test_normals_stack_follows_pair_convention():
