@@ -7,18 +7,26 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
    ``mc_tpu_torch/csrc`` with ``nvcc``;
-2. each of the five CUDA kernels against its plain PyTorch version on the
+2. each of the seven CUDA kernels against its plain PyTorch version on the
    card, same key, with the tolerances of the parity contract, at the
-   contract's sizes and at the main path's shapes (the simulate kernel with
-   resume and importance sampling too);
+   contract's sizes and at the main path's shapes: the simulate kernel for
+   all 18 payoffs (with resume, multi-word resume, importance sampling and
+   the geometric control variate too), the terminal kernels for the six
+   terminal-only payoffs, trajectories and both NMC kernels for the payoffs
+   with one state word, the strike ladder and the batched book;
 3. the main path at the size users run: the 1M-path European call by five
-   methods and with importance sampling against Black-Scholes, the
-   100k x 100-step bullet, the 100k x 100 trajectories and a resume from
-   their step 50, and the 16,384 x 100 x 500 nested-MC surface by both
-   strategies with its exposure and XVA figures;
+   methods and with importance sampling against Black-Scholes, every
+   payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
+   closed form or its parity identity, the 100k x 100-step bullet, the
+   100k x 100 trajectories and a resume from their step 50, the
+   16,384 x 100 x 500 nested-MC surface by both strategies with its
+   exposure and XVA figures, the 17-strike ladder at 1M paths and the
+   64-contract x 2^20-path x 100-step book;
 4. the kernels' launch counts over phase 3;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
-   after a warm-up) and end-to-end times of the phase-3 calls;
+   after a warm-up), the ladder and the book beside the single-contract
+   launches they replace, the simulate kernel per payoff with its
+   registers, and end-to-end times of the phase-3 calls;
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -29,10 +37,12 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Phase-2 (kernel vs plain) and phase-3 (main path) sizes.
@@ -46,8 +56,30 @@ TRAJ_PATHS = (65_536, BULLET_PATHS)
 RESUME_STEPS = (50, 51)             # even and odd resume points
 IS_STRIKE = 180.0                   # deep out of the money: IS pays off
 NMC_MAIN = (16384, 100, 500)        # README quickstart: 4.1e10 inner steps
+PAYOFF_PATHS = 65_536                # phase 2: every payoff, 100 steps
+LADDER_STRIKES = (60.0, 140.0, 17)   # linspace: the CLI's vol-surface row
+LADDER_PATHS = 1_000_000
+BOOK_SMALL = (16, 1 << 16)           # phase 2: contracts, paths (100 steps)
+BOOK_MAIN = (64, 1 << 20)            # bench.py:586-609 book64 (100 steps)
 REPS = 5
 DEVICE = "cuda"
+
+# Options that make each payoff live at 100 steps, and the contracts its
+# closed form prices: the down barriers at 90, the variance swap's variance
+# strike 0, the forward start fixing at step 50 (t1 = 0.5) at the money,
+# the cliquet's 4 periods of 25 steps with floor -2% and cap 4%.
+PAYOFF_OPTIONS = {
+    "down_out_call": dict(barrier=90.0),
+    "down_in_call": dict(barrier=90.0),
+    "down_out_call_bb": dict(barrier=90.0),
+    "variance_swap": dict(k=0.0),
+    "forward_start_call": dict(k=1.0, p1=50.0),
+    "cliquet": dict(k=25.0, p1=-0.02, p2=0.04),
+}
+# Payoffs whose value jumps where S crosses K or B: a path can flip where S
+# lands within an ulp, so they take the bullet's tolerance.
+FLIP_PAYOFFS = {"digital_call", "digital_put", "bullet_call", "up_out_call",
+                "down_out_call", "down_in_call"}
 
 # Parity contract.  Vanilla: same stream, same f32 arithmetic; the only
 # differences are CUDA's libm against PyTorch's and the order of f64 sums.
@@ -98,6 +130,7 @@ STEP_OPS = (0, 4, 1)       # w += drift_dt + vol_dt*z; s = base*exp(w)
 UPDATE_OPS = {"vanilla_call": (0, 0, 0), "vanilla_put": (0, 0, 0),
               "bullet_call": (0, 2, 0)}   # count += (s < B)
 TERMINAL_OPS = (0, 3, 0)   # payoff and pay^2
+TERMINAL_DRAW_OPS = (0, 3, 1)  # S_T = s0 * exp(drift_t + vol_t * z)
 
 
 def path_ops(payoff: str, n_steps: int, rounds: int):
@@ -169,6 +202,47 @@ def share(mask) -> float:
     return float(mask.double().mean())
 
 
+def ptxas_registers(log: str) -> dict:
+    """{(kernel, payoff struct, rounds or None): registers} from the
+    ``-Xptxas -v`` log: each "Compiling entry function" line names a
+    mangled mc::kernel<Payoff[, ROUNDS]>, its "Used N registers" follows."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN2mc(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            kernel, rest = m.group(2)[:n], m.group(2)[n:]
+            p = re.match(r"INS_(\d+)", rest)
+            payoff = rest[p.end():p.end() + int(p.group(1))] if p else None
+            r = re.search(r"ELi(\d+)E", rest)
+            entry = (kernel, payoff, int(r.group(1)) if r else None)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+            entry = None
+    return out
+
+
+def book_options(mt, n_contracts: int):
+    """bench.py:586-609's book: strikes U(80, 120) and vols U(0.1, 0.4) from
+    default_rng(7), S0 = 100, T = 1, r = 0.1, B = 120, window [10, 50]."""
+    rng_np = np.random.default_rng(7)
+    b = n_contracts
+    return mt.OptionParams(
+        s0=np.full(b, 100.0, np.float32), t=np.full(b, 1.0, np.float32),
+        k=rng_np.uniform(80, 120, b).astype(np.float32),
+        r=np.full(b, 0.1, np.float32),
+        sigma=rng_np.uniform(0.1, 0.4, b).astype(np.float32),
+        barrier=np.full(b, 120.0, np.float32),
+        p1=np.full(b, 10.0, np.float32), p2=np.full(b, 50.0, np.float32),
+        q=np.zeros(b, np.float32))
+
+
+def contract(mt, book, b: int):
+    return mt.OptionParams(*(float(v[b]) for v in book.astuple()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -176,11 +250,11 @@ def main() -> int:
         return 2
 
     import mc_tpu_torch as mt
-    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch import engines, oracle, rng
     from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops import nmc_kernels as nk
     from mc_tpu_torch.ops import path_kernels as pk
-    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
@@ -211,6 +285,9 @@ def main() -> int:
     key_in = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_INNER))
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
+    def payoff_option(name):
+        return mt.OptionParams(**PAYOFF_OPTIONS.get(name, {}))
+
     # --- Phase 2: each kernel against its plain version ----------------
     def vanilla_check(name, got, want):
         dp = abs(float(got.price) - float(want.price))
@@ -238,47 +315,54 @@ def main() -> int:
             fail(f"{name} kernel disagrees with its plain version")
         return max(dp, ds)
 
-    def terminal_pair_case(n_paths):
+    def check_for(name):
+        return bullet_check if name in FLIP_PAYOFFS else vanilla_check
+
+    def terminal_pair_case(n_paths, po=call, opt=option):
         cfg = pk.KernelConfig(n_paths=(n_paths + 1) // 2, n_steps=MAIN_STEPS,
                               method="terminal")
+        prm = pk.pack_params(opt, MAIN_STEPS, dev)
         got = engines.finish_price(finish_sum(pk.terminal_pair_partials(
-            call, cfg, key, p100, n_paths)), n_paths, option)
+            po, cfg, key, prm, n_paths)), n_paths, opt)
         want = engines.finish_price(finish_sum(
-            pk.terminal_pair_partials_plain(call, cfg, key, p100, n_paths)),
-            n_paths, option)
-        return vanilla_check(f"terminal_pair {n_paths} paths", got, want)
+            pk.terminal_pair_partials_plain(po, cfg, key, prm, n_paths)),
+            n_paths, opt)
+        return check_for(po.name)(f"terminal_pair {po.name} {n_paths} paths",
+                                  got, want)
 
     def simulate_case(po, cfg, check, opt=option, **resume):
         prm = pk.pack_params(opt, cfg.n_steps, dev)
+        ex = (engines.control_mean(po, prm)
+              if cfg.with_cv and po.has_control else None)
         got = engines.finish_price(finish_sum(pk.simulate_partials(
-            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv)
+            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv, ex)
         want = engines.finish_price(finish_sum(pk.simulate_partials_plain(
-            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv)
+            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv, ex)
         name = (f"simulate_partials {po.name} {cfg.method} "
                 f"{cfg.n_paths}x{cfg.n_steps} anti={cfg.antithetic} "
                 f"cv={cfg.with_cv} {cfg.rng_source} "
                 f"start={cfg.start_step} is_shift={cfg.is_shift:.4f}")
         return check(name, got, want)
 
-    def traj_case(n_paths, rng_source):
+    def traj_case(n_paths, rng_source, po=bullet, opt=option):
         cfg = pk.KernelConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
                               rng_source=rng_source)
-        s_k, c_k, part_k = pk.simulate_trajectories(bullet, cfg, key, p100)
-        s_p, c_p, part_p = pk.simulate_trajectories_plain(bullet, cfg, key,
-                                                          p100)
+        prm = pk.pack_params(opt, MAIN_STEPS, dev)
+        s_k, c_k, part_k = pk.simulate_trajectories(po, cfg, key, prm)
+        s_p, c_p, part_p = pk.simulate_trajectories_plain(po, cfg, key, prm)
         s_err = float(((s_k - s_p).abs() / s_p.abs()).max())
         paths_same = share((c_k == c_p).all(dim=0))
-        name = f"trajectories {n_paths}x{MAIN_STEPS} {rng_source}"
+        name = f"trajectories {po.name} {n_paths}x{MAIN_STEPS} {rng_source}"
         print(f"phase 2: {name}: S {share(s_k == s_p):.6f} bitwise "
               f"(max rel err {s_err:.3e}, limit {TRAJ_S_RTOL}), state "
               f"{share(c_k == c_p):.6f} bitwise, {paths_same:.6f} of paths "
-              f"with every count equal (need {SURF_FRAC})")
+              f"with every state equal (need {SURF_FRAC})")
         if not (s_err <= TRAJ_S_RTOL and paths_same >= SURF_FRAC):
             fail(f"{name}: the stored grids disagree with the plain version")
-        err = bullet_check(
+        err = check_for(po.name)(
             f"{name} payoff",
-            engines.finish_price(finish_sum(part_k), n_paths, option),
-            engines.finish_price(finish_sum(part_p), n_paths, option))
+            engines.finish_price(finish_sum(part_k), n_paths, opt),
+            engines.finish_price(finish_sum(part_p), n_paths, opt))
         return max(err, float((s_k - s_p).abs().max()))
 
     def surface_check(name, surf_k, surf_p):
@@ -298,9 +382,9 @@ def main() -> int:
             fail(f"{name}: the kernel disagrees with its plain version")
         return err
 
-    def outer_check(name, outer_k, outer_p, n_out):
-        ok_k = engines.finish_price(finish_sum(outer_k), n_out, option)
-        ok_p = engines.finish_price(finish_sum(outer_p), n_out, option)
+    def outer_check(name, outer_k, outer_p, n_out, opt=option):
+        ok_k = engines.finish_price(finish_sum(outer_k), n_out, opt)
+        ok_p = engines.finish_price(finish_sum(outer_p), n_out, opt)
         d_outer = abs(float(ok_k.price) - float(ok_p.price))
         print(f"phase 2: {name}: outer {float(ok_k.price):.7f} vs "
               f"{float(ok_p.price):.7f}")
@@ -308,22 +392,74 @@ def main() -> int:
             fail(f"{name}: the outer price disagrees with its plain version")
         return d_outer
 
-    def nmc_small_cases(shape):
+    def nmc_small_cases(shape, po=bullet, opt=option):
         n_out, n_steps, n_inner = shape
         cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-        prm = pk.pack_params(option, n_steps, dev)
-        label = "x".join(map(str, shape))
-        surf_k, outer_k = nk.nmc_fused(bullet, cfg, key, key_in, prm)
-        surf_p, outer_p = nk.nmc_fused_plain(bullet, cfg, key, key_in, prm)
+        prm = pk.pack_params(opt, n_steps, dev)
+        label = f"{po.name} " + "x".join(map(str, shape))
+        surf_k, outer_k = nk.nmc_fused(po, cfg, key, key_in, prm)
+        surf_p, outer_p = nk.nmc_fused_plain(po, cfg, key, key_in, prm)
         err = surface_check(f"nmc_fused {label}", surf_k, surf_p)
         err = max(err, outer_check(f"nmc_fused {label}", outer_k, outer_p,
-                                   n_out))
-        s, c, _ = pk.simulate_trajectories(bullet, nk.outer_config(cfg), key,
+                                   n_out, opt))
+        s, c, _ = pk.simulate_trajectories(po, nk.outer_config(cfg), key,
                                            prm)
         inner_err = surface_check(
-            f"nmc_inner {label}", nk.nmc_inner(bullet, cfg, key_in, prm, s, c),
-            nk.nmc_inner_plain(bullet, cfg, key_in, prm, s, c))
+            f"nmc_inner {label}", nk.nmc_inner(po, cfg, key_in, prm, s, c),
+            nk.nmc_inner_plain(po, cfg, key_in, prm, s, c))
         return err, inner_err
+
+    def batch_check(name, got, want, n_paths, opt, flip, cv=False, ex=None):
+        """got/want: (n_mom, M) finished sums of M strikes or contracts; each
+        price and stderr held to the vanilla or the bullet tolerance."""
+        g = engines.finish_price(got, n_paths, opt, cv, ex)
+        w = engines.finish_price(want, n_paths, opt, cv, ex)
+        dp = (g.price - w.price).abs()
+        ds = (g.stderr - w.stderr).abs()
+        if flip:
+            tol_p = tol_s = BULLET_SE_TOL * w.stderr
+            rule = f"<= {BULLET_SE_TOL} se"
+        else:
+            tol_p, tol_s = VANILLA_RTOL * w.price.abs(), VANILLA_RTOL * w.stderr
+            rule = f"rtol {VANILLA_RTOL}"
+        ok = bool((dp <= tol_p).all() and (ds <= tol_s).all())
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+        print(f"phase 2: {name}: sums {share(got == want):.4f} bitwise (max "
+              f"rel {rel:.3e}); max |dprice| {float(dp.max()):.3e}, max |dse| "
+              f"{float(ds.max()):.3e} ({rule}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name}: the kernel disagrees with its plain version")
+        return float(torch.maximum(dp, ds).max())
+
+    def ladder_case(po, cfg, strikes_t, opt=option):
+        prm = pk.pack_params(opt, cfg.n_steps, dev)
+        got = finish_sum(pk.simulate_ladder_partials(po, cfg, key, prm,
+                                                     strikes_t))
+        want = finish_sum(pk.simulate_ladder_partials_plain(po, cfg, key, prm,
+                                                            strikes_t))
+        return batch_check(
+            f"ladder {po.name} {cfg.method} {cfg.n_paths}x{cfg.n_steps} "
+            f"{strikes_t.numel()} strikes anti={cfg.antithetic}",
+            got.T, want.T, cfg.n_paths, opt, po.name in FLIP_PAYOFFS)
+
+    def book_case(po, cfg, rows):
+        """(max error, the plain version's ms in this one run: CUDA events)"""
+        got = finish_sum(pk.simulate_book_partials(po, cfg, key, rows))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = pk.simulate_book_partials_plain(po, cfg, key, rows)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        ex = (engines.control_mean(po, rows)
+              if cfg.with_cv and po.has_control else None)
+        return batch_check(
+            f"book {po.name} {cfg.method} {rows.shape[0]} contracts x "
+            f"{cfg.n_paths}x{cfg.n_steps} anti={cfg.antithetic} "
+            f"cv={cfg.with_cv} (plain {plain_ms:.1f} ms, one run)", got.T,
+            finish_sum(want).T, cfg.n_paths, pk.unpack_params(rows.T),
+            po.name in FLIP_PAYOFFS, cfg.with_cv, ex), plain_ms
 
     def nmc_main_case(shape):
         """Both NMC kernels against one plain run at the main shape: the
@@ -397,6 +533,86 @@ def main() -> int:
     fused_err, inner_err = nmc_small_cases(NMC_SMALL)
     err_f, err_i, fused_plain_ms, inner_plain_ms = nmc_main_case(NMC_MAIN)
     fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
+
+    # Every payoff through the simulate kernel (Euler, 100 steps); the six
+    # terminal-only ones through both terminal kernels at 1M paths; the
+    # geometric control variate with antithetic; multi-word resume.
+    for name, po in sorted(PAYOFFS.items()):
+        opt = payoff_option(name)
+        sim_err = max(sim_err, simulate_case(po, pk.KernelConfig(
+            n_paths=PAYOFF_PATHS, n_steps=MAIN_STEPS), check_for(name), opt))
+        if po.terminal_only:
+            sim_err = max(sim_err, simulate_case(po, pk.KernelConfig(
+                n_paths=MAIN_PATHS, n_steps=MAIN_STEPS, method="terminal"),
+                check_for(name), opt))
+            tp_err = max(tp_err, terminal_pair_case(MAIN_PATHS, po, opt))
+    sim_err = max(sim_err, simulate_case(
+        get_payoff("asian_call_geo_cv"), pk.KernelConfig(
+            n_paths=PAYOFF_PATHS, n_steps=MAIN_STEPS, antithetic=True,
+            with_cv=True), vanilla_check))
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(PAYOFF_PATHS, device=dev,
+                                           generator=gen)
+
+    start = RESUME_STEPS[1]  # odd: the tail half of its pair first
+    s_res = 100.0 * torch.exp(0.1 * torch.randn(PAYOFF_PATHS, device=dev,
+                                                generator=gen))
+    for name, words in (
+            ("variance_swap", (s_res, uniform(0.0, 0.03))),
+            ("cliquet", (torch.full_like(s_res, float(start)),
+                         s_res * uniform(0.9, 1.1), uniform(-0.04, 0.08)))):
+        sim_err = max(sim_err, simulate_case(
+            get_payoff(name), pk.KernelConfig(
+                n_paths=PAYOFF_PATHS, n_steps=MAIN_STEPS, start_step=start),
+            vanilla_check, payoff_option(name), s_init=s_res.contiguous(),
+            state_init=tuple(w.contiguous() for w in words)))
+
+    # Trajectories for every payoff with one state word (the bullet ran
+    # above); both NMC kernels for a discrete barrier and the Asian.
+    for name, po in sorted(PAYOFFS.items()):
+        if po.n_state <= 1 and name != "bullet_call":
+            traj_err = max(traj_err, traj_case(PAYOFF_PATHS, "threefry13", po,
+                                               payoff_option(name)))
+    for name in ("down_out_call", "asian_call"):
+        err_f, err_i = nmc_small_cases(NMC_SMALL, get_payoff(name),
+                                       payoff_option(name))
+        fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
+
+    # The ladder (17 strikes on shared paths) and the book (16 contracts on
+    # shared draws), then both at the main path's shapes: the 1M-path call
+    # ladder, and book64's bullet and vanilla books with the simulate kernel
+    # at their 2^20 x 100 (each contract's standalone price()).
+    strikes = np.linspace(*LADDER_STRIKES)
+    strikes_t = torch.tensor(strikes, dtype=torch.float32, device=dev)
+    ladder_err = max(
+        ladder_case(call, pk.KernelConfig(n_paths=PAYOFF_PATHS,
+                                          n_steps=MAIN_STEPS,
+                                          method="terminal"), strikes_t),
+        ladder_case(bullet, pk.KernelConfig(n_paths=PAYOFF_PATHS,
+                                            n_steps=MAIN_STEPS,
+                                            antithetic=True), strikes_t),
+        ladder_case(call, pk.KernelConfig(n_paths=LADDER_PATHS,
+                                          n_steps=MAIN_STEPS,
+                                          method="terminal"), strikes_t))
+    nb, nb_paths = BOOK_SMALL
+    rows_small = pk.pack_params_rows(book_options(mt, nb), MAIN_STEPS, dev)
+    book_err = max(book_case(po, pk.KernelConfig(
+        n_paths=nb_paths, n_steps=MAIN_STEPS, **kw), rows_small)[0]
+        for po, kw in ((bullet, {}), (bullet, dict(antithetic=True)),
+                       (call, dict(with_cv=True))))
+    nb, nb_paths = BOOK_MAIN
+    book64 = book_options(mt, nb)
+    rows_main = pk.pack_params_rows(book64, MAIN_STEPS, dev)
+    err, book_plain_ms = book_case(bullet, pk.KernelConfig(
+        n_paths=nb_paths, n_steps=MAIN_STEPS), rows_main)
+    book_err = max(book_err, err, book_case(call, pk.KernelConfig(
+        n_paths=nb_paths, n_steps=MAIN_STEPS, method="terminal"),
+        rows_main)[0])
+    sim_err = max(sim_err, simulate_case(
+        bullet, pk.KernelConfig(n_paths=nb_paths, n_steps=MAIN_STEPS),
+        bullet_check, contract(mt, book64, 0)))
 
     # --- Phase 3: the main path at a size users run --------------------
     _cuda.reset_launch_counts()
@@ -561,6 +777,126 @@ def main() -> int:
             and flips["vanilla_put"][1] < flips["vanilla_put"][0]):
         fail("spot-linked WWR does not flip sign between call and put")
 
+    # Every payoff through price(): terminal-only at 1M paths, the others at
+    # 100,000 x 100 steps; each against its closed form or identity.
+    def z_gate(label, res, want):
+        z = abs(float(res.price) - want) / float(res.stderr)
+        print(f"phase 3: {label}: {float(res.price):.7f} +/- "
+              f"{float(res.stderr):.7f}, {z:.2f} se from {want:.7f}")
+        if not (math.isfinite(z) and z <= 3.0):
+            fail(f"{label} is {z:.2f} se from its closed form")
+
+    pay = {}
+    for name, po in sorted(PAYOFFS.items()):
+        res = mt.price(payoff_option(name), sim if po.terminal_only else bsim,
+                       name, control_variate=po.has_control, device=DEVICE)
+        pay[name] = res
+        if not (math.isfinite(float(res.price))
+                and math.isfinite(float(res.stderr))):
+            fail(f"{name}: non-finite price or stderr")
+    print("phase 3: payoffs (terminal-only 1M paths, others "
+          f"{BULLET_PATHS}x{MAIN_STEPS}): " + ", ".join(
+              f"{n} {float(r.price):.6f} +/- {float(r.stderr):.6f}"
+              for n, r in pay.items()))
+    disc = math.exp(-float(np.float32(option.r)) * option.t)
+    mu = option.r - 0.5 * option.sigma ** 2
+    bs_args = (option.s0, option.k, option.t, option.r, option.sigma)
+    for name, want in (
+            ("digital_call", oracle.bs_digital_call(*bs_args)),
+            ("digital_put", oracle.bs_digital_put(*bs_args)),
+            ("best_of_cash", option.k * math.exp(-option.r * option.t) + bs),
+            ("up_out_call_bb", oracle.bs_up_out_call(*bs_args, 120.0)),
+            ("down_out_call_bb", oracle.bs_down_out_call(*bs_args, 90.0)),
+            ("forward_start_call", oracle.bs_forward_start_call(
+                option.s0, 1.0, 0.5, option.t, option.r, option.sigma)),
+            ("cliquet", oracle.bs_cliquet(4, 0.25, -0.02, 0.04, option.t,
+                                          option.r, option.sigma)),
+            ("variance_swap", math.exp(-option.r * option.t)
+             * (option.sigma ** 2 + mu * mu / MAIN_STEPS))):
+        z_gate(f"{name} vs its closed form", pay[name], want)
+    zcb = pay["zcb"]
+    d_sum = float(pay["digital_call"].price) + float(pay["digital_put"].price)
+    van = mt.price(payoff_option("down_out_call"), bsim, "vanilla_call",
+                   method="euler", device=DEVICE)
+    d_inout = float(pay["down_in_call"].price) + float(pay["down_out_call"]
+                                                       .price)
+    print(f"phase 3: zcb {float(zcb.price):.15f} vs e^-rT {disc:.15f} (stderr "
+          f"{float(zcb.stderr):.3e}); digital call + put {d_sum:.9f}; "
+          f"down-in + down-out {d_inout:.9f} vs vanilla euler "
+          f"{float(van.price):.9f}")
+    if not (abs(float(zcb.price) - disc) <= 1e-12 * disc
+            and float(zcb.stderr) <= 1e-6
+            and abs(d_sum - disc) <= 2e-6 * disc
+            and abs(d_inout - float(van.price)) <= 1e-5 * float(van.price)):
+        fail("a parity identity (zcb, digital call + put, in + out) fails")
+    geo, asian = pay["asian_call_geo_cv"], pay["asian_call"]
+    ratio = float(asian.stderr) / float(geo.stderr)
+    d_geo = abs(float(geo.price) - float(asian.price)) / float(asian.stderr)
+    print(f"phase 3: asian_call_geo_cv with CV {float(geo.price):.7f} +/- "
+          f"{float(geo.stderr):.7f} vs plain asian_call {float(asian.price):.7f}"
+          f" +/- {float(asian.stderr):.7f}: {d_geo:.2f} plain se apart, "
+          f"stderr {ratio:.1f}x smaller")
+    if not (d_geo <= 3.0 and ratio >= 3.0):
+        fail("the geometric control variate misses the plain Asian or does "
+             "not cut its stderr")
+
+    # The ladder: 17 strikes at 1M paths, each against Black-Scholes and
+    # against price() at its strike on the same key.
+    lsim = mt.SimParams(n_paths=LADDER_PATHS, n_steps=MAIN_STEPS)
+    lad = mt.price_ladder(strikes, option, lsim, device=DEVICE)
+    z_max, rel_max, same = 0.0, 0.0, 0
+    for m, k in enumerate(strikes):
+        bs_k = bs_call(option.s0, k, option.t, option.r, option.sigma)
+        z_max = max(z_max, abs(float(lad.price[m]) - bs_k)
+                    / float(lad.stderr[m]))
+        one = mt.price(mt.OptionParams(k=float(k)), lsim, method="terminal",
+                       device=DEVICE)
+        rel_max = max(rel_max, abs(float(lad.price[m]) - float(one.price))
+                      / float(one.price))
+        same += float(lad.price[m]) == float(one.price)
+    falling = bool((torch.diff(lad.price) < 0).all())
+    print(f"phase 3: ladder {len(strikes)} strikes {strikes[0]:g}..."
+          f"{strikes[-1]:g} x {LADDER_PATHS} paths: max {z_max:.2f} se from "
+          f"Black-Scholes, prices fall with the strike: {falling}; each strike"
+          f" vs price(k, method='terminal'): {same}/{len(strikes)} bitwise, "
+          f"max rel {rel_max:.3e}")
+    if not (z_max <= 3.0 and falling and rel_max <= 1e-12):
+        fail("the ladder misses Black-Scholes, is not monotone, or differs "
+             "from the single-strike prices")
+
+    # The book (bench.py's book64): 64 contracts x 2^20 paths x 100 steps.
+    msim =mt.SimParams(n_paths=nb_paths, n_steps=MAIN_STEPS)
+    t0 = time.perf_counter()
+    bk = mt.price_portfolio(book64, msim, "bullet_call", device=DEVICE)
+    torch.cuda.synchronize()
+    book_first_s = time.perf_counter() - t0
+    lines, rel_max = [], 0.0
+    for b in (0, 1, nb // 2 - 1, nb - 1):  # 0, 1, 31 and 63
+        one = mt.price(contract(mt, book64, b), msim, "bullet_call",
+                       method="euler", device=DEVICE)
+        rel = abs(float(bk.price[b]) - float(one.price)) / float(one.price)
+        rel_max = max(rel_max, rel,
+                      abs(float(bk.stderr[b]) - float(one.stderr))
+                      / float(one.stderr))
+        lines.append(f"#{b} {float(bk.price[b]):.7f} vs {float(one.price):.7f}"
+                     f" ({'bitwise' if rel == 0.0 else f'rel {rel:.2e}'})")
+    print(f"phase 3: book {nb} bullet x {nb_paths} x {MAIN_STEPS} "
+          f"({book_first_s:.3f} s): contract vs standalone price(): "
+          + "; ".join(lines))
+    if not (rel_max <= 1e-12 and bool(torch.isfinite(bk.price).all())):
+        fail("a book contract differs from its standalone price")
+    vb = mt.price_portfolio(book64, msim, "vanilla_call", device=DEVICE)
+    bs_b = torch.tensor([bs_call(100.0, float(k), 1.0, 0.1, float(v))
+                         for k, v in zip(book64.k, book64.sigma)],
+                        dtype=torch.float64, device=dev)
+    z_b = ((vb.price - bs_b).abs() / vb.stderr)
+    frac = share(z_b < 5.0)
+    print(f"phase 3: book {nb} vanilla_call terminal x {nb_paths}: "
+          f"{frac:.4f} of contracts within 5 se of Black-Scholes (need > "
+          f"0.95), max {float(z_b.max()):.2f} se")
+    if not frac > 0.95:
+        fail("the vanilla book misses Black-Scholes")
+
     # --- Phase 4: launch counts over phase 3 ----------------------------
     launches = dict(_cuda.launch_counts)
     print(f"phase 4: launches over phase 3: {launches}")
@@ -664,6 +1000,55 @@ def main() -> int:
               f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
     nmc_main = {k: statistics.median(v) for k, v in nmc_main.items()}
 
+    # The ladder beside the 17 single-strike launches it replaces.
+    cfg_l = pk.KernelConfig(n_paths=LADDER_PATHS, n_steps=MAIN_STEPS,
+                            method="terminal")
+    ladder_ms = time_pair(
+        "ladder call terminal",
+        lambda: pk.simulate_ladder_partials(call, cfg_l, key, p100, strikes_t),
+        lambda: pk.simulate_ladder_partials_plain(call, cfg_l, key, p100,
+                                                  strikes_t),
+        f"{LADDER_PATHS} paths x {len(strikes)} strikes")
+    p_strikes = [pk.pack_params(mt.OptionParams(k=float(k)), MAIN_STEPS, dev)
+                 for k in strikes]
+    singles_ms, sp, _ = cuda_ms(lambda: [pk.simulate_partials(
+        call, cfg_l, key, prm) for prm in p_strikes])
+    print(f"phase 5: {len(strikes)} single-strike simulate_partials launches "
+          f"(terminal, {LADDER_PATHS} paths each): {singles_ms:.4f} ms "
+          f"(spread {sp:.1%}); the ladder kernel takes "
+          f"{ladder_ms[0] / singles_ms:.3f}x their time {tag}")
+
+    # The book beside 64 sequential single-contract launches (its plain
+    # version was timed once in phase 2).
+    cfg_bk =pk.KernelConfig(n_paths=nb_paths, n_steps=MAIN_STEPS)
+    book_ms, sp, _ = cuda_ms(lambda: pk.simulate_book_partials(
+        bullet, cfg_bk, key, rows_main))
+    seq_ms, sp_seq, _ = cuda_ms(lambda: [pk.simulate_partials(
+        bullet, cfg_bk, key, rows_main[b]) for b in range(nb)])
+    book_steps = nb * nb_paths * MAIN_STEPS
+    print(f"phase 5: book bullet {nb} x {nb_paths} x {MAIN_STEPS}: kernel "
+          f"{book_ms:.4f} ms (spread {sp:.1%}), {book_steps / book_ms * 1e3:.4e}"
+          f" contract-path-steps/s; {nb} sequential simulate_partials "
+          f"launches {seq_ms:.4f} ms (spread {sp_seq:.1%}): the book takes "
+          f"{book_ms / seq_ms:.3f}x the sequential time ({seq_ms / book_ms:.2f}"
+          f"x faster); plain {book_plain_ms:.1f} ms (one run) {tag}")
+
+    # The simulate kernel per payoff (100,000 x 100 Euler) and the
+    # registers of every instantiation the main path launches.
+    regs = ptxas_registers(_cuda.build_info.get("ptxas", ""))
+    for name, po in sorted(PAYOFFS.items()):
+        struct = type(po).__name__
+        prm = pk.pack_params(payoff_option(name), MAIN_STEPS, dev)
+        line = (f"registers simulate {regs.get(('simulate_kernel', struct, 13))}"
+                f", ladder {regs.get(('ladder_kernel', struct, None))}, book "
+                f"{regs.get(('book_kernel', struct, None))}")
+        if not po.terminal_only:
+            ms, sp, _ = cuda_ms(lambda po=po, prm=prm: pk.simulate_partials(
+                po, cfg_b, key, prm))
+            line = (f"simulate_partials {BULLET_PATHS}x{MAIN_STEPS} {ms:.4f} ms"
+                    f" (spread {sp:.1%}), " + line)
+        print(f"phase 5: {name}: {line} {tag}")
+
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
          lambda: mt.price(option, sim, device=DEVICE)),
@@ -682,6 +1067,13 @@ def main() -> int:
         (f"price_nmc() grid {n_out}x{n_steps}x{n_inner}",
          "inner path-steps/s", inner_steps,
          lambda: mt.price_nmc(option, nsim, strategy="grid", device=DEVICE)),
+        (f"price_ladder() call {LADDER_PATHS} paths x {len(strikes)} strikes",
+         "strike-paths/s", LADDER_PATHS * len(strikes),
+         lambda: mt.price_ladder(strikes, option, lsim, device=DEVICE)),
+        (f"price_portfolio() bullet {nb} x {nb_paths} x {MAIN_STEPS}",
+         "contract-path-steps/s", book_steps,
+         lambda: mt.price_portfolio(book64, msim, "bullet_call",
+                                    device=DEVICE)),
     )
     for label, unit, work, fn in e2e:
         secs = sorted(wall_s(fn) for _ in range(REPS))
@@ -704,6 +1096,20 @@ def main() -> int:
             _scale(path_ops("bullet_call", MAIN_STEPS, 13), BULLET_PATHS)),
         "nmc_fused": bound(nmc_bytes, _add(nmc_ops, outer_ops)),
         "nmc_inner": bound(3 * nmc_bytes, nmc_ops),
+        # one terminal draw per path, then the payoff at each strike
+        "ladder": bound(
+            60 + 4 * len(strikes)
+            + 16 * len(strikes) * _cuda.cdiv(LADDER_PATHS, 256),
+            _scale(_add(pair_ops(13), TERMINAL_DRAW_OPS,
+                        _scale(TERMINAL_OPS, len(strikes))), LADDER_PATHS)),
+        # the draws once per path, the step loop once per contract
+        "book": bound(
+            60 * nb + 16 * nb * _cuda.cdiv(nb_paths, 256),
+            _scale(_add(_scale(pair_ops(13), (MAIN_STEPS + 1) // 2),
+                        _scale(_add(_scale(_add(STEP_OPS,
+                                                UPDATE_OPS["bullet_call"]),
+                                           MAIN_STEPS), TERMINAL_OPS), nb)),
+                   nb_paths)),
     }
     rows = (
         ("terminal_pair", "path_kernels.cu", "path_kernels.py:1015", tp_err,
@@ -716,6 +1122,10 @@ def main() -> int:
          (nmc_main["nmc_fused"], fused_plain_ms), "x".join(map(str, NMC_MAIN))),
         ("nmc_inner", "nmc_kernels.cu", "nmc_kernels.py:338", inner_err,
          (nmc_main["nmc_inner"], inner_plain_ms), "x".join(map(str, NMC_MAIN))),
+        ("ladder", "batch_kernels.cu", "path_kernels.py:634", ladder_err,
+         ladder_ms, f"call terminal {LADDER_PATHS} x {len(strikes)} strikes"),
+        ("book", "batch_kernels.cu", "path_kernels.py:760", book_err,
+         (book_ms, book_plain_ms), f"bullet {nb} x {nb_paths} x {MAIN_STEPS}"),
     )
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:

@@ -13,7 +13,8 @@ import numpy as np
 
 from mc_tpu_torch.config import OptionParams, SimParams
 
-__all__ = ["option_params", "sim_params", "key", "surface_matrix"]
+__all__ = ["option_params", "book_params", "sim_params", "key",
+           "surface_matrix"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
@@ -33,6 +34,19 @@ def option_params(src) -> OptionParams:
                              f"prices one contract (got shape {v.shape})")
         vals.append(float(v))
     return OptionParams(*vals)
+
+
+def book_params(src) -> OptionParams:
+    """``mc_tpu.OptionParams`` whose fields are scalars or ``(B,)`` arrays
+    (a book for ``price_portfolio``) -> the port's OptionParams with every
+    field a ``(B,)`` float32 numpy array, scalars broadcast to B."""
+    vals = [np.atleast_1d(np.asarray(_field(src, f), np.float32))
+            for f in _OPTION_FIELDS]
+    for f, v in zip(_OPTION_FIELDS, vals):
+        if v.ndim != 1:
+            raise ValueError(f"book field {f!r} must be a scalar or a (B,) "
+                             f"array; got shape {v.shape}")
+    return OptionParams(*(np.array(v) for v in np.broadcast_arrays(*vals)))
 
 
 def sim_params(src) -> SimParams:

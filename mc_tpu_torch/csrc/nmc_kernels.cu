@@ -9,7 +9,10 @@
 //   surface[j, i] = disc_j * mean_{m < n_inner} payoff(inner path m resumed
 //                   from (S_j, count_j) for the remaining n_steps-j-1 steps),
 // with inner counter (c0 = path id, c1 = ((j+1)*n_inner + m)*pair_cap + q)
-// on the inner key, and the outer moments [sum pay, sum pay^2].
+// on the inner key, and the outer moments [sum pay, sum pay^2].  Both take
+// the payoffs with at most one state word (mc_tpu's price_nmc refuses the
+// others): the six terminal-only ones, bullet, Asian, the three discrete
+// barriers and the lookback; the stored state is word 0.
 //
 // What bounds it on the H100: the inner sweep, n_inner*(n_steps-j-1) steps
 // per point, each half a threefry-13 call, half the Box-Muller
@@ -54,7 +57,8 @@ constexpr int kNmcRounds = 13;  // NMC streams are threefry-13 (NMCConfig)
 template <class Payoff>
 __device__ float nmc_point(const Params& p, int discount_remaining, uint32_t ki0,
                            uint32_t ki1, uint32_t id, int j, int n_steps, int n_inner,
-                           float s_j, float st_j) {
+                           float s_j, typename Payoff::State st_j) {
+  using State = typename Payoff::State;
   const int remaining = n_steps - j - 1;
   const int n_pairs = (remaining + 1) / 2;
   const uint32_t pair_cap = static_cast<uint32_t>((n_steps + 1) / 2);
@@ -62,13 +66,16 @@ __device__ float nmc_point(const Params& p, int discount_remaining, uint32_t ki0
   double sum = 0.0;
   for (int m = 0; m < n_inner; ++m) {
     const uint32_t c1_base = (t_base + static_cast<uint32_t>(m)) * pair_cap;
-    float wi = 0.0f, si = s_j, sti = st_j;
+    float wi = 0.0f, si = s_j;
+    State sti = st_j;
     for (int q = 0; q < n_pairs; ++q) {
       float z0, z1;
       normal_pair<kNmcRounds>(ki0, ki1, id, c1_base + static_cast<uint32_t>(q), z0, z1);
-      float w1 = wi, s1, st1 = sti;
+      float w1 = wi, s1;
+      State st1 = sti;
       euler_step<Payoff>(p, s_j, z0, w1, s1, st1);
-      float w2 = w1, s2, st2 = st1;
+      float w2 = w1, s2;
+      State st2 = st1;
       euler_step<Payoff>(p, s_j, z1, w2, s2, st2);
       const bool take2 = (2 * q + 1) < remaining;  // drop an overrunning half-step
       wi = take2 ? w2 : w1;
@@ -99,7 +106,8 @@ nmc_fused_kernel(int discount_remaining, uint32_t ko0, uint32_t ko1, uint32_t ki
   const bool valid = in_range && id < bound;
 
   // Phase A: the outer path up to step j+1, on the outer stream.
-  float w = 0.0f, s = p.s0, st = Payoff::init();
+  float w = 0.0f, s = p.s0;
+  typename Payoff::State st = Payoff::init(p);
   float z0, z1;
   const int done = j + 1;
   for (int m = 0; m < done / 2; ++m) {
@@ -137,8 +145,10 @@ nmc_inner_kernel(int discount_remaining, uint32_t ki0, uint32_t ki1,
   if (local >= n_paths) return;  // no block-wide step follows
   const uint32_t id = path_offset + local;
   const size_t at = static_cast<size_t>(j) * n_paths + local;
+  typename Payoff::State st = Payoff::init(p);
+  if (Payoff::kStates) st.w[0] = state_grid[at];
   const float v = nmc_point<Payoff>(p, discount_remaining, ki0, ki1, id, j, n_steps,
-                                    n_inner, s_grid[at], state_grid[at]);
+                                    n_inner, s_grid[at], st);
   surface[at] = id < bound ? v : 0.0f;
 }
 
@@ -192,12 +202,13 @@ int mc_nmc_fused(int payoff_id, int discount_remaining, uint32_t ko0, uint32_t k
 #define MC_LAUNCH_NMC(PAYOFF)                                                       \
   mc::launch_nmc<PAYOFF>(discount_remaining, ko0, ko1, ki0, ki1, params, n_steps,   \
                          n_inner, n_paths, path_offset, bound, surface, outer_partials, s)
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return MC_LAUNCH_NMC(mc::PAYOFF);
   switch (payoff_id) {
-    case mc::PAYOFF_VANILLA_CALL: return MC_LAUNCH_NMC(mc::VanillaCall);
-    case mc::PAYOFF_VANILLA_PUT: return MC_LAUNCH_NMC(mc::VanillaPut);
-    case mc::PAYOFF_BULLET_CALL: return MC_LAUNCH_NMC(mc::BulletCall);
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;
   }
+#undef MC_CASE
 #undef MC_LAUNCH_NMC
 }
 
@@ -210,12 +221,13 @@ int mc_nmc_inner(int payoff_id, int discount_remaining, uint32_t ki0, uint32_t k
   mc::launch_nmc_inner<PAYOFF>(discount_remaining, ki0, ki1, params, n_steps, n_inner, \
                                n_paths, path_offset, bound, s_grid, state_grid,       \
                                surface, s)
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return MC_LAUNCH_NMC_INNER(mc::PAYOFF);
   switch (payoff_id) {
-    case mc::PAYOFF_VANILLA_CALL: return MC_LAUNCH_NMC_INNER(mc::VanillaCall);
-    case mc::PAYOFF_VANILLA_PUT: return MC_LAUNCH_NMC_INNER(mc::VanillaPut);
-    case mc::PAYOFF_BULLET_CALL: return MC_LAUNCH_NMC_INNER(mc::BulletCall);
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;
   }
+#undef MC_CASE
 #undef MC_LAUNCH_NMC_INNER
 }
 

@@ -3,39 +3,48 @@
 // terminal_pair_kernel replaces mc_tpu/ops/path_kernels.py
 // terminal_pair_partials (the Pallas call at :1031): element e draws one
 // threefry + Box-Muller pair and prices the two exact GBM terminal paths 2e
-// and 2e+1, each masked by pid < n_paths.
+// and 2e+1, each masked by pid < n_paths.  It takes the six terminal-only
+// payoffs.
 //
 // simulate_kernel replaces mc_tpu/ops/path_kernels.py simulate_partials (the
-// Pallas call at :450): the exact terminal draw or the log-Euler step loop
-// (w += drift_dt + vol_dt*z; S = base*exp(w)), one threefry per two steps,
-// the payoff templated in, the antithetic leg and the control-variate
-// moments fused into the same pass.  Resume: each path may start from its
-// own (s_init, state_init) at step start_step (an odd start first takes the
-// tail half of its pair); null pointers mean "from p.s0".  Importance
-// sampling: is_shift moves each draw (by is_shift on the terminal draw, by
-// theta = is_shift/sqrt(n_steps) per Euler step) and pay and x carry the
-// likelihood ratio; the antithetic leg negates the draw before the shift.
+// Pallas call at :450), for all 18 payoffs: the exact terminal draw or the
+// log-Euler step loop (w += drift_dt + vol_dt*z; S = base*exp(w)), one
+// threefry per two steps, the payoff templated in, the antithetic leg and
+// the control-variate moments fused into the same pass; the control is
+// Payoff::control (S_T unless the payoff has its own, mc_tpu :285).  Resume:
+// each path may start from its own s_init and payoff state at step
+// start_step, the state a (kStates, n_paths) block, word q of path i at
+// q*n_paths + i (an odd start first takes the tail half of its pair); null
+// pointers mean "from p.s0 and Payoff::init".  Importance sampling: is_shift
+// moves each draw (by is_shift on the terminal draw, by theta =
+// is_shift/sqrt(n_steps) per Euler step) and pay and x carry the likelihood
+// ratio; the antithetic leg negates the draw before the shift.  The leg and
+// its finish (simulate_path, path_payoff, add_moments) are the ladder's and
+// the book's too (batch_kernels.cu).
 //
 // trajectories_kernel replaces mc_tpu/ops/path_kernels.py
-// simulate_trajectories_kernel (the Pallas call at :543): the plain
-// log-Euler loop of simulate_kernel that also stores S and the payoff state
-// after every step into step-major (n_steps, n_paths) grids, entry
-// j*n_paths + i, so a warp's stores of one step are coalesced.  Its step is
-// the euler_step and its draw schedule the outer leg of nmc_fused_kernel,
-// so its grids are bitwise the states that kernel recomputes in registers.
+// simulate_trajectories_kernel (the Pallas call at :543), for the payoffs
+// with at most one state word: the plain log-Euler loop of simulate_kernel
+// that also stores S and state word 0 after every step into step-major
+// (n_steps, n_paths) grids, entry j*n_paths + i, so a warp's stores of one
+// step are coalesced.  Its step is the euler_step and its draw schedule the
+// outer leg of nmc_fused_kernel, so its grids are bitwise the states that
+// kernel recomputes in registers.
 //
 // What bounds them on the H100: terminal_pair and simulate read 60 bytes of
-// parameters (and 4 or 8 bytes per path on resume) and write one row of
-// moments per block, so bytes do not matter; trajectories writes 8 bytes per
-// path-step (80 MB at 100,000 x 100, 24 us at 3.35 TB/s), less than its RNG
-// work takes.  The cost is the RNG's integer work (13 or 20 threefry rounds
-// of add/rotate/xor per pair) and the transcendentals (log1pf, sqrtf, cosf,
-// sinf per pair, one expf per step).  The design keeps all of it in
-// registers: one thread per path (per element for the pair kernel) over a
-// grid-stride loop, both Box-Muller halves consumed, both antithetic legs
-// stepped from the same draw, and f64 moment sums per thread reduced once
-// per block (reduce.cuh).  Float contraction is off in the build
-// (--fmad=false), so each mul and add rounds as in the plain version.
+// parameters (and 4 bytes per path and state word on resume) and write one
+// row of moments per block, so bytes do not matter; trajectories writes 8
+// bytes per path-step (80 MB at 100,000 x 100, 24 us at 3.35 TB/s), less
+// than its RNG work takes.  The cost is the RNG's integer work (13 or 20
+// threefry rounds of add/rotate/xor per pair) and the transcendentals
+// (log1pf, sqrtf, cosf, sinf per pair, one expf per step, and the payoff's
+// own: logf per step for the bridge barriers, the variance swap and the
+// geometric control, one more expf for the bridge barriers).  The design
+// keeps all of it in registers: one thread per path (per element for the
+// pair kernel) over a grid-stride loop, both Box-Muller halves consumed, both
+// antithetic legs stepped from the same draw, and f64 moment sums per thread
+// reduced once per block (reduce.cuh).  Float contraction is off in the
+// build (--fmad=false), so each mul and add rounds as in the plain version.
 
 #include <cstdint>
 
@@ -62,10 +71,11 @@ terminal_pair_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
     float z0, z1;
     normal_pair<ROUNDS>(k0, k1, static_cast<uint32_t>(e), 0u, z0, z1);
     const uint64_t pid = 2 * e;
+    const typename Payoff::State st0 = Payoff::init(p);
     const float pa = pid < n_paths_total
-        ? Payoff::terminal(0.0f, p.s0 * expf(p.drift_t + p.vol_t * z0), p) : 0.0f;
+        ? Payoff::terminal(st0, p.s0 * expf(p.drift_t + p.vol_t * z0), p) : 0.0f;
     const float pb = pid + 1 < n_paths_total
-        ? Payoff::terminal(0.0f, p.s0 * expf(p.drift_t + p.vol_t * z1), p) : 0.0f;
+        ? Payoff::terminal(st0, p.s0 * expf(p.drift_t + p.vol_t * z1), p) : 0.0f;
     acc[0] += static_cast<double>(pa + pb);
     acc[1] += static_cast<double>(pa * pa + pb * pb);
   }
@@ -97,71 +107,29 @@ simulate_kernel(int euler, int antithetic, int with_cv, uint32_t k0, uint32_t k1
        i < n_paths; i += stride) {
     const uint32_t id = path_offset + static_cast<uint32_t>(i);
     const float base = s_init ? s_init[i] : p.s0;
-    const float st0 = state_init ? state_init[i] : Payoff::init();
-    // pay and x of each leg; under IS both carry the leg's likelihood ratio
-    // (a weight of 1 when unshifted: exact).
-    float pay, x, pay_n = 0.0f, x_n = 0.0f;
-    if (!euler) {
-      float z, unused;
-      normal_pair<ROUNDS>(k0, k1, id, 0u, z, unused);
-      auto leg = [&](float zl, float& pay_l, float& x_l) {
-        const float zs = shifted ? zl + is_shift : zl;
-        const float s_t = base * expf(p.drift_t + p.vol_t * zs);
-        // dP/dQ at the sampled point: exp(-shift*eps + shift^2/2)
-        const float wt =
-            shifted ? expf(-is_shift * zs + 0.5f * is_shift * is_shift) : 1.0f;
-        pay_l = Payoff::terminal(Payoff::init(), s_t, p) * wt;
-        x_l = s_t * wt;
-      };
-      leg(z, pay, x);
-      if (antithetic) leg(-z, pay_n, x_n);  // negated before the shift
-    } else {
-      float w = 0.0f, s = base, st = st0;
-      float wn = 0.0f, sn = base, stn = st0;  // antithetic leg
-      // Both legs from one draw; the antithetic leg negates it before the shift.
-      auto step = [&](float z) {
-        euler_step<Payoff>(p, base, shifted ? z + theta : z, w, s, st);
-        if (antithetic) euler_step<Payoff>(p, base, shifted ? -z + theta : -z, wn, sn, stn);
-      };
-      float z0, z1;
-      int start = start_step;
-      if (start & 1) {  // odd resume point: the tail half of its pair first
-        normal_pair<ROUNDS>(k0, k1, id, static_cast<uint32_t>(start / 2), z0, z1);
-        step(z1);
-        ++start;
+    typename Payoff::State st0 = Payoff::init(p);
+    if (state_init) {
+#pragma unroll
+      for (int q = 0; q < Payoff::kStates; ++q) {
+        st0.w[q] = state_init[static_cast<uint64_t>(q) * n_paths + i];
       }
-      for (int m = start / 2; m < n_steps / 2; ++m) {
-        normal_pair<ROUNDS>(k0, k1, id, static_cast<uint32_t>(m), z0, z1);
-        step(z0);
-        step(z1);
-      }
-      if (n_steps & 1) {  // odd step count: the epilogue takes the head half
-        normal_pair<ROUNDS>(k0, k1, id, static_cast<uint32_t>(n_steps / 2), z0, z1);
-        step(z0);
-      }
-      auto leg = [&](float w_l, float s_l, float st_l, float& pay_l, float& x_l) {
-        const float wt = shifted ? euler_is_weight(p, w_l, n_steps, theta) : 1.0f;
-        pay_l = Payoff::terminal(st_l, s_l, p) * wt;
-        x_l = s_l * wt;
-      };
-      leg(w, s, st, pay, x);
-      if (antithetic) leg(wn, sn, stn, pay_n, x_n);
     }
-    if (antithetic) {
-      pay = 0.5f * (pay + pay_n);
-      x = 0.5f * (x + x_n);
-    }
-    const bool valid = id < bound;
-    pay = valid ? pay : 0.0f;
-    acc[0] += static_cast<double>(pay);
-    acc[1] += static_cast<double>(pay * pay);
-    if (with_cv) {
-      // Control variate X = terminal price (pair mean if antithetic).
-      x = valid ? x : 0.0f;
-      acc[2] += static_cast<double>(x);
-      acc[3] += static_cast<double>(x * x);
-      acc[4] += static_cast<double>(pay * x);
-    }
+    const PathEnd<Payoff> e = simulate_path<Payoff>(
+        p, euler, antithetic, base, st0, start_step, n_steps, euler ? theta : is_shift,
+        [&](int m, float& z0, float& z1) {
+          normal_pair<ROUNDS>(k0, k1, id, static_cast<uint32_t>(m), z0, z1);
+        });
+    // Under IS pay and x carry each leg's likelihood ratio dP/dQ: at the
+    // terminal draw exp(-shift*eps + shift^2/2); 1 when unshifted (exact).
+    auto weight = [&](float w_l) {
+      if (!shifted) return 1.0f;
+      return euler ? euler_is_weight(p, w_l, n_steps, theta)
+                   : expf(-is_shift * w_l + 0.5f * is_shift * is_shift);
+    };
+    float pay, x;  // x: the control variate X (pair mean if antithetic)
+    path_payoff<Payoff>(p, e, antithetic, weight(e.w), antithetic ? weight(e.wn) : 1.0f,
+                        pay, x);
+    add_moments(acc, pay, x, id < bound, with_cv);
   }
   block_store_moments<kMaxMoments, kThreads>(
       acc, partials + static_cast<size_t>(n_mom) * blockIdx.x, n_mom);
@@ -179,12 +147,13 @@ trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
   for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n_paths; i += stride) {
     const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    float w = 0.0f, s = p.s0, st = Payoff::init();
+    float w = 0.0f, s = p.s0;
+    typename Payoff::State st = Payoff::init(p);
     auto step = [&](float z, int j) {
       euler_step<Payoff>(p, p.s0, z, w, s, st);
       const size_t at = static_cast<size_t>(j) * n_paths + i;
       s_grid[at] = s;
-      state_grid[at] = st;
+      state_grid[at] = Payoff::kStates ? st.w[0] : 0.0f;
     };
     float z0, z1;
     for (int m = 0; m < n_steps / 2; ++m) {
@@ -276,16 +245,16 @@ int mc_terminal_pair(int payoff_id, int rounds, uint32_t k0, uint32_t k1,
                      const float* params, uint32_t n_elems, uint32_t n_paths_total,
                      double* partials, int n_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MC_CASE(ID, PAYOFF)                                                    \
+  case mc::ID:                                                                 \
+    return mc::launch_terminal_pair<mc::PAYOFF>(rounds, k0, k1, params, n_elems, \
+                                                n_paths_total, partials, n_blocks, s);
   switch (payoff_id) {
-    case mc::PAYOFF_VANILLA_CALL:
-      return mc::launch_terminal_pair<mc::VanillaCall>(
-          rounds, k0, k1, params, n_elems, n_paths_total, partials, n_blocks, s);
-    case mc::PAYOFF_VANILLA_PUT:
-      return mc::launch_terminal_pair<mc::VanillaPut>(
-          rounds, k0, k1, params, n_elems, n_paths_total, partials, n_blocks, s);
+    MC_TERMINAL_PAYOFFS(MC_CASE)
     default:  // path-dependent payoffs have no terminal draw
       return cudaErrorInvalidValue;
   }
+#undef MC_CASE
 }
 
 int mc_simulate_partials(int payoff_id, int rounds, int euler, int antithetic,
@@ -299,12 +268,13 @@ int mc_simulate_partials(int payoff_id, int rounds, int euler, int antithetic,
   mc::launch_simulate<PAYOFF>(rounds, euler, antithetic, with_cv, k0, k1, params,   \
                               n_steps, start_step, is_shift, n_paths, path_offset, \
                               bound, s_init, state_init, partials, n_mom, n_blocks, s)
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return MC_LAUNCH_SIMULATE(mc::PAYOFF);
   switch (payoff_id) {
-    case mc::PAYOFF_VANILLA_CALL: return MC_LAUNCH_SIMULATE(mc::VanillaCall);
-    case mc::PAYOFF_VANILLA_PUT: return MC_LAUNCH_SIMULATE(mc::VanillaPut);
-    case mc::PAYOFF_BULLET_CALL: return MC_LAUNCH_SIMULATE(mc::BulletCall);
+    MC_ALL_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;
   }
+#undef MC_CASE
 #undef MC_LAUNCH_SIMULATE
 }
 
@@ -317,12 +287,13 @@ int mc_trajectories(int payoff_id, int rounds, uint32_t k0, uint32_t k1,
   mc::launch_trajectories<PAYOFF>(rounds, k0, k1, params, n_steps, n_paths,         \
                                   path_offset, bound, s_grid, state_grid, partials, \
                                   n_blocks, s)
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return MC_LAUNCH_TRAJECTORIES(mc::PAYOFF);
   switch (payoff_id) {
-    case mc::PAYOFF_VANILLA_CALL: return MC_LAUNCH_TRAJECTORIES(mc::VanillaCall);
-    case mc::PAYOFF_VANILLA_PUT: return MC_LAUNCH_TRAJECTORIES(mc::VanillaPut);
-    case mc::PAYOFF_BULLET_CALL: return MC_LAUNCH_TRAJECTORIES(mc::BulletCall);
+    MC_ONE_WORD_PAYOFFS(MC_CASE)  // the grid stores one state word
     default: return cudaErrorInvalidValue;
   }
+#undef MC_CASE
 #undef MC_LAUNCH_TRAJECTORIES
 }
 

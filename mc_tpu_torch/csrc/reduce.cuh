@@ -11,16 +11,34 @@ namespace mc {
 
 constexpr int kMaxMoments = 5;
 
-// Reduce acc[0..N) over the block and store the result at out[0..n_store).
-// Every thread of the block must call it.
-template <int N, int THREADS>
+// Add one path's moments to acc, a path past the bound adding zeros:
+// [pay, pay^2] and, with the control variate, [x, x^2, pay*x].
+template <int N>
+__device__ __forceinline__ void add_moments(double (&acc)[N], float pay, float x,
+                                            bool valid, bool with_cv) {
+  pay = valid ? pay : 0.0f;
+  acc[0] += static_cast<double>(pay);
+  acc[1] += static_cast<double>(pay * pay);
+  if constexpr (N == kMaxMoments) {
+    if (with_cv) {
+      x = valid ? x : 0.0f;
+      acc[2] += static_cast<double>(x);
+      acc[3] += static_cast<double>(x * x);
+      acc[4] += static_cast<double>(pay * x);
+    }
+  }
+}
+
+// Reduce acc[0..N) over the block of blockDim.x threads, a power of two of
+// at most MAX_THREADS, and store the result at out[0..n_store).  The tree's
+// order is fixed by blockDim.x.  Every thread of the block must call it.
+template <int N, int MAX_THREADS>
 __device__ void block_store_moments(const double (&acc)[N], double* out, int n_store) {
-  __shared__ double sh[N][THREADS];
+  __shared__ double sh[N][MAX_THREADS];
 #pragma unroll
   for (int m = 0; m < N; ++m) sh[m][threadIdx.x] = acc[m];
   __syncthreads();
-#pragma unroll
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) {
 #pragma unroll
       for (int m = 0; m < N; ++m) sh[m][threadIdx.x] += sh[m][threadIdx.x + s];

@@ -1,9 +1,11 @@
-"""Pricing engine (port of ``mc_tpu/engines.py:165-411``).
+"""Pricing engine (port of ``mc_tpu/engines.py:165-649``).
 
 ``price`` chooses the method and stream exactly as ``mc_tpu.price`` does,
 runs one kernel (or its plain version on the CPU), finishes the moment
 sums in f64 and returns a `PriceResult`.  ``simulate_trajectories``
-materializes every step's price and payoff state.  The device is explicit:
+materializes every step's price and payoff state.  ``price_ladder`` prices
+M strikes on shared paths and ``price_portfolio`` a book of B contracts
+under common random numbers, each in one kernel.  The device is explicit:
 CUDA by default, and there is no fallback when no card is present.
 """
 
@@ -23,7 +25,8 @@ from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
 
-__all__ = ["price", "finish_price", "simulate_trajectories", "Trajectories",
+__all__ = ["price", "price_ladder", "price_portfolio", "finish_price",
+           "control_mean", "simulate_trajectories", "Trajectories",
            "STREAM_OUTER", "STREAM_INNER", "resolve_device"]
 
 # Stream tags (replace the reference's magic seeds 1234/1235,
@@ -47,18 +50,38 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _f32_fields(option: OptionParams) -> OptionParams:
-    """The option as the kernels see it: every field rounded to f32."""
-    return OptionParams(*(float(np.float32(v)) for v in option.astuple()))
+def _f32(v, device):
+    """A field as the kernels see it, rounded to f32: a float, or an f64
+    tensor on ``device`` for an array-valued (book) field."""
+    if getattr(v, "ndim", 0):
+        return torch.as_tensor(v).to(torch.float32).to(device, torch.float64)
+    return float(np.float32(v))
+
+
+def _exp(x):
+    return torch.exp(x) if torch.is_tensor(x) else math.exp(x)
+
+
+def control_mean(payoff: PathPayoff, params: torch.Tensor):
+    """E[X] of the payoff's own control variate, in f64 from the packed f32
+    parameters (``(15,)``, or a book's ``(B, 15)`` rows)."""
+    rows = params.double()
+    return payoff.control_expectation(
+        pk.unpack_params(rows.T if rows.dim() == 2 else rows))
 
 
 def finish_price(sums: torch.Tensor, n_paths: int, option: OptionParams,
-                 control_variate: bool = False) -> PriceResult:
+                 control_variate: bool = False,
+                 control_expectation=None) -> PriceResult:
     """PriceResult from the finished f64 moment sums of one pricing run:
     ``[sum_pay, sum_pay2]``, or with the control variate
-    ``[sum_pay, sum_pay2, sum_x, sum_x2, sum_pay_x]``."""
-    o = _f32_fields(option)
-    discount = math.exp(-o.r * o.t)
+    ``[sum_pay, sum_pay2, sum_x, sum_x2, sum_pay_x]``; each sum a scalar,
+    or a ``(B,)`` vector for a book whose option fields are ``(B,)``.
+    ``control_expectation`` is E[X] of a payoff's own control; the default
+    control is S_T, E[S_T] = S0 e^{(r-q)T}."""
+    s0, r, t, q = (_f32(v, sums.device)
+                   for v in (option.s0, option.r, option.t, option.q))
+    discount = _exp(-r * t)
     n = torch.tensor(float(n_paths), dtype=torch.float64, device=sums.device)
     if not control_variate:
         return summarize(sums[0], sums[1], n, discount)
@@ -71,7 +94,8 @@ def finish_price(sums: torch.Tensor, n_paths: int, option: OptionParams,
     var_x = torch.clamp(sum_x2 / n - mean_x * mean_x, min=1e-30)
     cov = sum_px / n - mean_p * mean_x
     beta = cov / var_x
-    ex = o.s0 * math.exp((o.r - o.q) * o.t)  # E[S_T]
+    ex = (s0 * _exp((r - q) * t) if control_expectation is None  # E[S_T]
+          else control_expectation)
     adj_mean = mean_p - beta * (mean_x - ex)
     adj_var = torch.clamp(var_p - cov * cov / var_x, min=0.0)
     return PriceResult(
@@ -81,6 +105,13 @@ def finish_price(sums: torch.Tensor, n_paths: int, option: OptionParams,
         payoff_mean=adj_mean,
         payoff_var=adj_var,
     )
+
+
+def _stream_key(sim: SimParams, stream: int, key):
+    """The (k0, k1) stream key: ``key``, or ``derive_key(sim.seed, stream)``."""
+    if key is None:
+        key = rng.derive_key(sim.seed, stream)
+    return int(key[0]), int(key[1])
 
 
 def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
@@ -100,8 +131,10 @@ def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
                               is_shift=importance_shift)
         partials = pk.simulate_partials(payoff, cfg, key, params,
                                         path_offset=path_offset)
+    ex = (control_mean(payoff, params)
+          if control_variate and payoff.has_control else None)
     return finish_price(finish_sum(partials), n_paths, option,
-                        control_variate)
+                        control_variate, ex)
 
 
 def price(option: OptionParams = DEMO_OPTION,
@@ -158,6 +191,7 @@ def price(option: OptionParams = DEMO_OPTION,
         if path_offset:
             raise ValueError("terminal_pair does not take a path_offset "
                              "(element ids cover paths (2e, 2e+1))")
+    po.validate(option, sim.n_steps)
     if importance_shift == "auto":
         # centre E[log S_T] at log K: shift = (log(K/S0) - mu T)/(sigma vT)
         mu = option.r - option.q - 0.5 * option.sigma ** 2
@@ -165,11 +199,9 @@ def price(option: OptionParams = DEMO_OPTION,
                             / (option.sigma * math.sqrt(option.t)))
     pk.check_rng_source(rng_source)
     dev = resolve_device(device)
-    if key is None:
-        key = rng.derive_key(sim.seed, stream)
-    key = (int(key[0]), int(key[1]))
     return _price_impl(option, po, sim, method, antithetic, control_variate,
-                       rng_source, key, int(path_offset),
+                       rng_source, _stream_key(sim, stream, key),
+                       int(path_offset),
                        int(n_paths or sim.n_paths), float(importance_shift),
                        dev)
 
@@ -221,12 +253,99 @@ def simulate_trajectories(option: OptionParams = DEMO_OPTION,
     on the threefry-13 stream ``price()`` draws for the same key."""
     po = get_payoff(payoff)
     dev = resolve_device(device)
-    if key is None:
-        key = rng.derive_key(sim.seed, stream)
-    key = (int(key[0]), int(key[1]))
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps)
     s, st, partials = pk.simulate_trajectories(
-        po, cfg, key, pk.pack_params(option, sim.n_steps, dev),
+        po, cfg, _stream_key(sim, stream, key),
+        pk.pack_params(option, sim.n_steps, dev),
         path_offset=int(path_offset))
     pay_sum, pay_sq = finish_sum(partials)
     return Trajectories(s=s, state=st, pay_sum=pay_sum, pay_sq=pay_sq)
+
+
+# ---------------------------------------------------------------------------
+# Strike ladders and books: many payoffs on shared paths, one kernel each
+# ---------------------------------------------------------------------------
+
+
+def _batch_method(po: PathPayoff, method: Optional[str]) -> str:
+    """The ladder's and the book's method: "terminal" for terminal-only
+    payoffs (the classic per-path stream, not terminal_pair), else
+    "euler"."""
+    if method is None:
+        method = "terminal" if po.terminal_only else "euler"
+    if po.n_state > 0 and method == "terminal":
+        raise ValueError(f"{po.name} is path-dependent; "
+                         "method='terminal' invalid")
+    return method
+
+
+def price_ladder(strikes,
+                 option: OptionParams = DEMO_OPTION,
+                 sim: SimParams = DEMO_SIM,
+                 payoff="vanilla_call",
+                 *,
+                 method: Optional[str] = None,
+                 antithetic: bool = False,
+                 stream: int = STREAM_OUTER,
+                 key=None,
+                 device="cuda") -> PriceResult:
+    """Price a strike ladder on SHARED paths in one kernel.
+
+    Returns a PriceResult whose fields are ``(n_strikes,)`` tensors.  Each
+    path is simulated once and every strike evaluated on it (the strike
+    enters a payoff only through ``terminal``), so strike m is
+    ``price(option with k=strikes[m], method=...)`` on the same key: bitwise
+    up to 2^21 paths on the card (the two kernels then share their blocks),
+    to f64 rounding above.  The estimates across strikes are positively
+    correlated, as calibration wants.
+    """
+    po = get_payoff(payoff)
+    method = _batch_method(po, method)
+    dev = resolve_device(device)
+    if torch.is_tensor(strikes):
+        strikes = strikes.detach().cpu()
+    strikes = torch.as_tensor(np.asarray(strikes, np.float64)).to(
+        torch.float32).reshape(-1).to(dev)
+    cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
+                          antithetic=antithetic, method=method)
+    partials = pk.simulate_ladder_partials(
+        po, cfg, _stream_key(sim, stream, key),
+        pk.pack_params(option, sim.n_steps, dev), strikes)
+    return finish_price(finish_sum(partials).T, sim.n_paths, option)
+
+
+def price_portfolio(options: OptionParams,
+                    sim: SimParams = DEMO_SIM,
+                    payoff="vanilla_call",
+                    *,
+                    method: Optional[str] = None,
+                    antithetic: bool = False,
+                    control_variate: bool = False,
+                    stream: int = STREAM_OUTER,
+                    key=None,
+                    device="cuda") -> PriceResult:
+    """Price a book of B contracts in one kernel.
+
+    ``options`` is an OptionParams whose fields are floats or ``(B,)``
+    arrays or tensors (scalars broadcast to B): any mix of spots, strikes,
+    vols, maturities and barriers.  Every contract runs on the same draws
+    (common random numbers), so spreads and book-level Greeks are
+    low-variance and contract b is its standalone ``price(...,
+    method=...)`` on the same key: bitwise up to 2^21 paths and 216 steps on
+    the card (the two kernels then share their blocks), to f64 rounding
+    beyond.  Returns a PriceResult of ``(B,)``
+    tensors; ``control_variate`` finishes each contract with its own CV.
+    """
+    po = get_payoff(payoff)
+    method = _batch_method(po, method)
+    dev = resolve_device(device)
+    rows = pk.pack_params_rows(options, sim.n_steps, dev)
+    cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
+                          antithetic=antithetic, with_cv=control_variate,
+                          method=method)
+    partials = pk.simulate_book_partials(po, cfg, _stream_key(sim, stream, key),
+                                         rows)
+    ex = (control_mean(po, rows)
+          if control_variate and po.has_control else None)
+    return finish_price(finish_sum(partials).T, sim.n_paths,
+                        pk.unpack_params(rows.T), control_variate, ex)

@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
-           "nmc_inner")
+           "nmc_inner", "ladder", "book")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -49,13 +49,14 @@ _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
     "mc_nmc_block_threads": ([], _c_int),
+    "mc_ladder_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
                           _c_u32, _c_ptr, _c_int, _c_ptr], _c_int),
     # payoff_id, rounds, euler, antithetic, with_cv, k0, k1, params, n_steps,
-    # start_step, is_shift, n_paths, path_offset, bound, s_init, state_init,
-    # partials, n_mom, n_blocks, stream
+    # start_step, is_shift, n_paths, path_offset, bound, s_init, state_init
+    # (the (kStates, n_paths) block), partials, n_mom, n_blocks, stream
     "mc_simulate_partials": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_u32,
                               _c_u32, _c_ptr, _c_int, _c_int, _c_f32, _c_u32,
                               _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr, _c_int,
@@ -75,6 +76,17 @@ _SIGNATURES = {
     "mc_nmc_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int, _c_int,
                       _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
                      _c_int),
+    # payoff_id, euler, antithetic, k0, k1, params, strikes, n_strikes,
+    # n_steps, n_paths, path_offset, bound, partials, n_blocks, stream
+    "mc_ladder_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                            _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
+                            _c_ptr, _c_int, _c_ptr], _c_int),
+    # payoff_id, euler, antithetic, with_cv, k0, k1, params_rows,
+    # n_contracts, n_steps, n_paths, path_offset, bound, threads, partials,
+    # n_mom, n_blocks, stream
+    "mc_book_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
+                          _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
+                          _c_int, _c_ptr, _c_int, _c_int, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()

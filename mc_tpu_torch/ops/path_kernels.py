@@ -1,7 +1,8 @@
 """Path-simulation kernels: wrappers, plain versions, configuration
 (port of ``mc_tpu/ops/path_kernels.py``).
 
-Three kernels live in ``csrc/path_kernels.cu``:
+Three kernels live in ``csrc/path_kernels.cu`` and two in
+``csrc/batch_kernels.cu``:
 
 * ``terminal_pair_partials`` (replaces the Pallas kernel at
   ``mc_tpu/ops/path_kernels.py:1015``): one threefry + Box-Muller pair per
@@ -13,8 +14,14 @@ Three kernels live in ``csrc/path_kernels.cu``:
 * ``simulate_trajectories`` (replaces ``mc_tpu/ops/path_kernels.py:524``):
   the log-Euler loop that stores the price and payoff state after every
   step, step-major ``(n_steps, n_paths)``, plus the payoff partials.
+* ``simulate_ladder_partials`` (replaces ``mc_tpu/ops/path_kernels.py:634``):
+  one simulation per path, M strikes evaluated on it.
+* ``simulate_book_partials`` (replaces ``mc_tpu/ops/path_kernels.py:760``):
+  B contracts, each with its own parameter row, on the same draws (common
+  random numbers), the draws made once and replayed for every contract.
 
-Each wrapper returns ``(rows, moments)`` f64 partial sums for
+Each wrapper returns f64 partial sums, one row per block (``(rows,
+moments)``, or ``(rows, M|B, moments)`` for the ladder and the book), for
 ``reduce.finish_sum``.  It takes the plain PyTorch version below only when
 the parameter tensor it was given lies on the CPU; for a CUDA tensor it
 launches the kernel or raises.  The plain versions compute the same f32
@@ -33,10 +40,13 @@ from mc_tpu_torch import rng
 from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops.payoffs import PathPayoff
 
-__all__ = ["KernelConfig", "PARAM_FIELDS", "pack_params", "unpack_params",
-           "terminal_pair_partials", "simulate_partials",
-           "simulate_trajectories", "terminal_pair_partials_plain",
-           "simulate_partials_plain", "simulate_trajectories_plain"]
+__all__ = ["KernelConfig", "PARAM_FIELDS", "pack_params", "pack_params_rows",
+           "unpack_params", "terminal_pair_partials", "simulate_partials",
+           "simulate_trajectories", "simulate_ladder_partials",
+           "simulate_book_partials", "book_block_threads",
+           "terminal_pair_partials_plain", "simulate_partials_plain",
+           "simulate_trajectories_plain", "simulate_ladder_partials_plain",
+           "simulate_book_partials_plain"]
 
 # ---------------------------------------------------------------------------
 # Parameter packing: the analogue of __constant__ OptionData
@@ -50,21 +60,25 @@ PARAM_FIELDS = (
 
 # Paths per chunk of the plain versions: bounds their temporaries.
 PLAIN_CHUNK = 1 << 20
+# Bytes of the normals the plain book keeps per chunk, replayed per contract.
+PLAIN_BOOK_DRAW_BYTES = 1 << 28
+
+# The book kernel's block: its normal buffer (8 bytes per path and pair of
+# steps) and its reduction buffer (5 f64 moments x 256 threads, reduce.cuh)
+# must fit the 227 KB of shared memory an H100 block may hold.
+BOOK_SMEM_BYTES = 232_448
+BOOK_REDUCE_BYTES = 5 * 8 * 256
+BOOK_MAX_THREADS = 256
 
 # Kernel grids are capped so a large run grid-strides; the cap depends on
 # nothing but the path count, so the partials' order is fixed.
 MAX_BLOCKS = 8192
 
 
-def pack_params(option, n_steps: int, device="cpu") -> torch.Tensor:
-    """OptionParams + derived GBM coefficients as an f32 (15,) tensor.
-
-    Every derived field is computed in f32 in the same order as
-    ``mc_tpu.ops.path_kernels.pack_params``, so both packages see the same
-    constants.
-    """
-    s0, t, k, r, sigma, barrier, p1, p2, q = (
-        torch.tensor(float(v), dtype=torch.float32) for v in option.astuple())
+def _pack(fields, n_steps: int) -> torch.Tensor:
+    """The 15 packed fields from the 9 option fields (f32 tensors of one
+    shape), stacked along a new last axis."""
+    s0, t, k, r, sigma, barrier, p1, p2, q = fields
     n = torch.tensor(float(n_steps), dtype=torch.float32)
     dt = t / n
     vals = dict(
@@ -75,9 +89,33 @@ def pack_params(option, n_steps: int, device="cpu") -> torch.Tensor:
         vol_dt=sigma * torch.sqrt(dt),
         drift_t=(r - q - 0.5 * sigma * sigma) * t,
         vol_t=sigma * torch.sqrt(t),
-        inv_n_steps=1.0 / n,
+        inv_n_steps=(1.0 / n).expand(s0.shape),
     )
-    return torch.stack([vals[name] for name in PARAM_FIELDS]).to(device)
+    return torch.stack([vals[name] for name in PARAM_FIELDS], dim=-1)
+
+
+def pack_params(option, n_steps: int, device="cpu") -> torch.Tensor:
+    """OptionParams + derived GBM coefficients as an f32 (15,) tensor.
+
+    Every derived field is computed in f32 in the same order as
+    ``mc_tpu.ops.path_kernels.pack_params``, so both packages see the same
+    constants.
+    """
+    fields = [torch.tensor(float(v), dtype=torch.float32)
+              for v in option.astuple()]
+    return _pack(fields, n_steps).to(device)
+
+
+def pack_params_rows(options, n_steps: int, device="cpu") -> torch.Tensor:
+    """A book's parameter rows, ``(B, 15)`` f32: ``options`` is an
+    OptionParams whose fields are floats or ``(B,)`` arrays or tensors
+    (scalars broadcast to B).  Row b equals ``pack_params`` of contract b
+    bit for bit: the same f32 operations, elementwise."""
+    fields = [torch.as_tensor(v.detach().cpu() if torch.is_tensor(v) else v,
+                              dtype=torch.float32).reshape(-1)
+              for v in options.astuple()]
+    fields = torch.broadcast_tensors(*fields)
+    return _pack(fields, n_steps).contiguous().to(device)
 
 
 def unpack_params(params: torch.Tensor) -> SimpleNamespace:
@@ -171,6 +209,14 @@ def _check_per_path(name: str, a: torch.Tensor, n_paths: int,
             f"on {getattr(a, 'device', None)}")
 
 
+def _state_tuple(payoff: PathPayoff, state_init):
+    """A resume state as a tuple of ``payoff.n_state`` per-path arrays: a
+    bare tensor is taken for a payoff with one state word."""
+    if state_init is None or isinstance(state_init, (tuple, list)):
+        return None if state_init is None else tuple(state_init)
+    return (state_init,)
+
+
 def _check_resume(payoff: PathPayoff, cfg: KernelConfig,
                   params: torch.Tensor, s_init, state_init) -> None:
     if s_init is None:
@@ -182,8 +228,14 @@ def _check_resume(payoff: PathPayoff, cfg: KernelConfig,
         if state_init is None:
             raise ValueError(f"{payoff.name} carries a path state; resume "
                              "needs state_init with s_init")
-        _check_per_path("state_init", state_init, cfg.n_paths,
-                        params.device)
+        if len(state_init) != payoff.n_state:
+            raise ValueError(
+                f"{payoff.name} carries {payoff.n_state} state words; "
+                f"state_init has {len(state_init)} arrays (pass a tuple of "
+                f"{payoff.n_state}, or a bare tensor for one word)")
+        for q, a in enumerate(state_init):
+            _check_per_path(f"state_init[{q}]", a, cfg.n_paths,
+                            params.device)
 
 
 # ---------------------------------------------------------------------------
@@ -254,14 +306,16 @@ def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
 
 def _payoff_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
                 state_init=None):
-    """One leg and its payoff: ``(payoff, S_T)``; S_T is the control.
-    Under importance sampling both carry the likelihood ratio."""
+    """One leg, its payoff and its control variate: ``(payoff, x)``, x the
+    payoff's own control where it has one, else S_T.  Under importance
+    sampling both carry the likelihood ratio."""
     s_t, state, weight = _simulate_leg(payoff, cfg, p, s0, draw_pair,
                                        state_init)
     pay = payoff.terminal(state, s_t, p)
+    x = payoff.control(state, s_t, p) if payoff.has_control else s_t
     if weight is not None:
-        return pay * weight, s_t * weight
-    return pay, s_t
+        return pay * weight, x * weight
+    return pay, x
 
 
 def _terminal_pair_vals(payoff, p, ids_e, bound_paths: int, z0, z1):
@@ -280,11 +334,12 @@ def _chunk_row(vals) -> torch.Tensor:
     return torch.stack([v.double().sum() for v in vals])
 
 
-def _chunk_ids(cfg: KernelConfig, params, path_offset: int, bound: int):
+def _chunk_ids(cfg: KernelConfig, params, path_offset: int, bound: int,
+               chunk: int = PLAIN_CHUNK):
     """Per chunk of the plain versions: (start, stop, ids, valid), the ids
     being the uint32 global path ids of local paths [start, stop)."""
-    for start in range(0, cfg.n_paths, PLAIN_CHUNK):
-        stop = min(start + PLAIN_CHUNK, cfg.n_paths)
+    for start in range(0, cfg.n_paths, chunk):
+        stop = min(start + chunk, cfg.n_paths)
         local = torch.arange(start, stop, dtype=torch.int64,
                              device=params.device)
         ids = (local + path_offset) & 0xFFFFFFFF
@@ -311,6 +366,7 @@ def simulate_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
                             params: torch.Tensor, path_offset: int = 0,
                             n_valid=None, s_init=None, state_init=None):
     """Plain version of the simulate kernel: (chunks, n_moments) f64."""
+    state_init = _state_tuple(payoff, state_init)
     p = unpack_params(params)
     k0, k1 = int(key[0]), int(key[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
@@ -326,20 +382,21 @@ def simulate_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
             s0, st0 = p.s0.expand(ids.shape), None
         else:
             s0 = s_init[start:stop]
-            st0 = (state_init[start:stop],) if payoff.n_state else ()
+            st0 = (tuple(a[start:stop] for a in state_init)
+                   if payoff.n_state else ())
         pay, x = _payoff_leg(payoff, cfg, p, s0, draw_pair, st0)
         if cfg.antithetic:
             # The antithetic leg negates the draw before the IS shift.
-            pay_n, x_n = _payoff_leg(payoff, cfg, p, s0,
-                                     lambda m: tuple(-z for z in draw_pair(m)),
+            pay_n, x_n = _payoff_leg(payoff, cfg, p, s0, _negated(draw_pair),
                                      st0)
             pay = 0.5 * (pay + pay_n)
             x = 0.5 * (x + x_n)
         pay = torch.where(valid, pay, 0.0)
         vals = [pay, pay * pay]
         if cfg.with_cv:
-            # Control variate X = terminal price (pair mean if antithetic):
-            # E[X] = S0 * exp((r - q) T) exactly under the log-Euler scheme.
+            # Control variate X (pair mean if antithetic): the terminal
+            # price, E[X] = S0 * exp((r - q) T) exactly under the log-Euler
+            # scheme, unless the payoff brings its own.
             x = torch.where(valid, x, 0.0)
             vals += [x, x * x, pay * x]
         rows.append(_chunk_row(vals))
@@ -380,6 +437,86 @@ def simulate_trajectories_plain(payoff: PathPayoff, cfg: KernelConfig, key,
         pay = torch.where(valid, payoff.terminal(state, s, p), 0.0)
         rows.append(_chunk_row([pay, pay * pay]))
     return s_grid, st_grid, torch.stack(rows)
+
+
+def _n_pairs(cfg: KernelConfig) -> int:
+    """Normal pairs one leg draws: one for the terminal draw, one per two
+    Euler steps."""
+    return 1 if cfg.method == "terminal" else (cfg.n_steps + 1) // 2
+
+
+def _negated(draw_pair):
+    """The antithetic leg's draws: the same pairs, negated."""
+    return lambda m: tuple(-z for z in draw_pair(m))
+
+
+def simulate_ladder_partials_plain(payoff: PathPayoff, cfg: KernelConfig,
+                                   key, params: torch.Tensor, strikes,
+                                   path_offset: int = 0, n_valid=None):
+    """Plain version of the ladder kernel: (chunks, M, 2) f64 [sum pay,
+    sum pay^2] per strike, each path simulated once and every strike
+    evaluated on it by ``payoff.terminal`` with ``k`` swapped."""
+    p = unpack_params(params)
+    k0, k1 = int(key[0]), int(key[1])
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    rows = []
+    for _, _, ids, valid in _chunk_ids(cfg, params, path_offset, bound):
+
+        def draw_pair(m, ids=ids):
+            return rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
+                                   rounds=cfg.rng_rounds)
+
+        s0 = p.s0.expand(ids.shape)
+        s_t, state, _ = _simulate_leg(payoff, cfg, p, s0, draw_pair)
+        if cfg.antithetic:
+            s_n, state_n, _ = _simulate_leg(payoff, cfg, p, s0,
+                                            _negated(draw_pair))
+        per_strike = []
+        for k in strikes:
+            pm = SimpleNamespace(**{**vars(p), "k": k})
+            pay = payoff.terminal(state, s_t, pm)
+            if cfg.antithetic:
+                pay = 0.5 * (pay + payoff.terminal(state_n, s_n, pm))
+            pay = torch.where(valid, pay, 0.0)
+            per_strike.append(_chunk_row([pay, pay * pay]))
+        rows.append(torch.stack(per_strike))
+    return torch.stack(rows)
+
+
+def simulate_book_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
+                                 params_rows: torch.Tensor,
+                                 path_offset: int = 0, n_valid=None):
+    """Plain version of the book kernel: (chunks, B, n_moments) f64.  A
+    chunk's normals are drawn once and replayed for every contract; the
+    antithetic leg negates them."""
+    k0, k1 = int(key[0]), int(key[1])
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    n_pairs = _n_pairs(cfg)
+    chunk = max(1, min(PLAIN_CHUNK, PLAIN_BOOK_DRAW_BYTES // (8 * n_pairs)))
+    contracts = [unpack_params(row) for row in params_rows]
+    rows = []
+    for _, _, ids, valid in _chunk_ids(cfg, params_rows, path_offset, bound,
+                                       chunk):
+        draws = [rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
+                                 rounds=cfg.rng_rounds)
+                 for m in range(n_pairs)]
+        per_contract = []
+        for p in contracts:
+            s0 = p.s0.expand(ids.shape)
+            pay, x = _payoff_leg(payoff, cfg, p, s0, draws.__getitem__)
+            if cfg.antithetic:
+                pay_n, x_n = _payoff_leg(payoff, cfg, p, s0,
+                                         _negated(draws.__getitem__))
+                pay = 0.5 * (pay + pay_n)
+                x = 0.5 * (x + x_n)
+            pay = torch.where(valid, pay, 0.0)
+            vals = [pay, pay * pay]
+            if cfg.with_cv:
+                x = torch.where(valid, x, 0.0)
+                vals += [x, x * x, pay * x]
+            per_contract.append(_chunk_row(vals))
+        rows.append(torch.stack(per_contract))
+    return torch.stack(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -426,12 +563,15 @@ def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key,
     global path-count bound (defaults to offset + cfg.n_paths).
     ``s_init``/``state_init``: optional per-path resume arrays, ``(n_paths,)``
     f32 on the params' device (the reference's (Sk, Ik) resume arguments,
-    trajectories.cuh:116-117); the leg then runs from ``cfg.start_step``.
+    trajectories.cuh:116-117); ``state_init`` is a tuple of the payoff's
+    ``n_state`` arrays, or a bare tensor for a payoff with one state word.
+    The leg then runs from ``cfg.start_step``.
     """
     _check_params(params)
     if cfg.method == "terminal" and payoff.n_state:
         raise ValueError(f"{payoff.name} is path-dependent; "
                          "method='terminal' invalid")
+    state_init = _state_tuple(payoff, state_init)
     _check_resume(payoff, cfg, params, s_init, state_init)
     if params.device.type == "cpu":
         return simulate_partials_plain(payoff, cfg, key, params, path_offset,
@@ -441,8 +581,11 @@ def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key,
     n_blocks = _grid(lib, cfg.n_paths)
     partials = torch.empty((n_blocks, cfg.n_moments), dtype=torch.float64,
                            device=params.device)
-    st_ptr = (state_init.data_ptr() if s_init is not None and payoff.n_state
-              else None)
+    # The state words as one (n_state, n_paths) block, word q of path i at
+    # q * n_paths + i.
+    block = (torch.stack(state_init).contiguous()
+             if s_init is not None and payoff.n_state else None)
+    st_ptr = None if block is None else block.data_ptr()
     with torch.cuda.device(params.device):
         status = lib.mc_simulate_partials(
             payoff.cuda_id, cfg.rng_rounds, int(cfg.method == "euler"),
@@ -494,3 +637,113 @@ def simulate_trajectories(payoff: PathPayoff, cfg: KernelConfig, key,
     _cuda.check(status, "trajectories kernel")
     _cuda.count_launch("trajectories")
     return s_grid, st_grid, partials
+
+
+def _check_batch(payoff: PathPayoff, cfg: KernelConfig, what: str) -> None:
+    if cfg.rng_source != "threefry13":
+        raise ValueError(f"the {what} kernel draws the threefry-13 stream "
+                         f"(price_ladder and price_portfolio); got "
+                         f"rng_source={cfg.rng_source!r}")
+    if cfg.start_step or cfg.is_shift:
+        raise ValueError(f"the {what} kernel takes no resume or importance "
+                         "sampling")
+    if cfg.method == "terminal" and payoff.n_state:
+        raise ValueError(f"{payoff.name} is path-dependent; "
+                         "method='terminal' invalid")
+
+
+def simulate_ladder_partials(payoff: PathPayoff, cfg: KernelConfig, key,
+                             params: torch.Tensor, strikes: torch.Tensor,
+                             path_offset: int = 0, n_valid=None):
+    """(rows, M, 2) f64 [sum, sumsq] of the payoff at each of the M
+    ``strikes`` ((M,) f32 on the params' device) on shared paths: one
+    simulation per path, the strike entering only ``payoff.terminal``."""
+    _check_params(params)
+    _check_batch(payoff, cfg, "ladder")
+    if cfg.with_cv:
+        raise ValueError("the ladder kernel has no control variate")
+    if (not torch.is_tensor(strikes) or strikes.dtype != torch.float32
+            or strikes.dim() != 1 or strikes.numel() < 1
+            or not strikes.is_contiguous() or strikes.device != params.device):
+        raise ValueError(
+            f"strikes must be a non-empty contiguous float32 (M,) tensor on "
+            f"{params.device}; got {getattr(strikes, 'shape', None)} "
+            f"{getattr(strikes, 'dtype', type(strikes))}")
+    if params.device.type == "cpu":
+        return simulate_ladder_partials_plain(payoff, cfg, key, params,
+                                              strikes, path_offset, n_valid)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    lib = _cuda.load()
+    n_blocks = _cuda.cdiv(cfg.n_paths, lib.mc_ladder_block_threads())
+    partials = torch.empty((n_blocks, strikes.numel(), 2),
+                           dtype=torch.float64, device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_ladder_partials(
+            payoff.cuda_id, int(cfg.method == "euler"), int(cfg.antithetic),
+            int(key[0]), int(key[1]), params.data_ptr(), strikes.data_ptr(),
+            strikes.numel(), cfg.n_steps, cfg.n_paths,
+            path_offset & 0xFFFFFFFF, bound, partials.data_ptr(), n_blocks,
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "ladder kernel")
+    _cuda.count_launch("ladder")
+    return partials
+
+
+def book_block_threads(cfg: KernelConfig) -> int:
+    """Threads (= paths) per block of the book kernel: the largest power of
+    two up to 256 whose normal buffer fits beside the block reduction in
+    227 KB of shared memory (the counterpart of mc_tpu's
+    ``book_tile_rows``).  Raises where even 32 do not fit."""
+    n_pairs = _n_pairs(cfg)
+    threads = BOOK_MAX_THREADS
+    while threads >= 32:
+        if 8 * n_pairs * threads + BOOK_REDUCE_BYTES <= BOOK_SMEM_BYTES:
+            return threads
+        threads //= 2
+    raise ValueError(
+        f"the book kernel keeps each path's normals in shared memory: "
+        f"{cfg.n_steps} steps need {8 * n_pairs} bytes a path, and even a "
+        f"block of 32 paths exceeds the {BOOK_SMEM_BYTES} bytes an H100 "
+        "block may hold; price fewer steps, or the contracts one by one "
+        "with price()")
+
+
+def simulate_book_partials(payoff: PathPayoff, cfg: KernelConfig, key,
+                           params_rows: torch.Tensor, path_offset: int = 0,
+                           n_valid=None):
+    """(rows, B, n_moments) f64 accumulators of a B-contract book in one
+    pass: ``params_rows`` is ``(B, 15)`` f32, one ``pack_params_rows`` row
+    per contract.  Every contract runs on the same draws (common random
+    numbers), drawn once per path and replayed per contract; moments as in
+    ``simulate_partials``."""
+    if (not torch.is_tensor(params_rows) or params_rows.dtype != torch.float32
+            or params_rows.dim() != 2
+            or params_rows.shape[1] != len(PARAM_FIELDS)
+            or params_rows.shape[0] < 1 or not params_rows.is_contiguous()
+            or params_rows.device.type not in ("cpu", "cuda")):
+        raise ValueError(
+            f"params_rows must be a contiguous float32 (B, "
+            f"{len(PARAM_FIELDS)}) tensor with B >= 1; got "
+            f"{getattr(params_rows, 'shape', None)} "
+            f"{getattr(params_rows, 'dtype', type(params_rows))}")
+    _check_batch(payoff, cfg, "book")
+    threads = book_block_threads(cfg)
+    if params_rows.device.type == "cpu":
+        return simulate_book_partials_plain(payoff, cfg, key, params_rows,
+                                            path_offset, n_valid)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    lib = _cuda.load()
+    n_blocks = _cuda.cdiv(cfg.n_paths, threads)
+    n_contracts = params_rows.shape[0]
+    partials = torch.empty((n_blocks, n_contracts, cfg.n_moments),
+                           dtype=torch.float64, device=params_rows.device)
+    with torch.cuda.device(params_rows.device):
+        status = lib.mc_book_partials(
+            payoff.cuda_id, int(cfg.method == "euler"), int(cfg.antithetic),
+            int(cfg.with_cv), int(key[0]), int(key[1]),
+            params_rows.data_ptr(), n_contracts, cfg.n_steps, cfg.n_paths,
+            path_offset & 0xFFFFFFFF, bound, threads, partials.data_ptr(),
+            cfg.n_moments, n_blocks, _cuda.stream_handle(params_rows.device))
+    _cuda.check(status, "book kernel")
+    _cuda.count_launch("book")
+    return partials

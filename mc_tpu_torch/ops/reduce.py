@@ -16,8 +16,10 @@ __all__ = ["finish_sum"]
 
 
 def finish_sum(partials: torch.Tensor) -> torch.Tensor:
-    """(n_rows, n_moments) f64 partials -> (n_moments,) f64 sums."""
-    if partials.dtype != torch.float64 or partials.dim() != 2:
-        raise ValueError("finish_sum takes (rows, moments) float64 partials; "
-                         f"got {tuple(partials.shape)} {partials.dtype}")
+    """(n_rows, ..., n_moments) f64 partials -> (..., n_moments) f64 sums
+    (the ladder's and the book's rows carry a strike or contract axis)."""
+    if partials.dtype != torch.float64 or partials.dim() < 2:
+        raise ValueError("finish_sum takes (rows, ..., moments) float64 "
+                         f"partials; got {tuple(partials.shape)} "
+                         f"{partials.dtype}")
     return partials.sum(dim=0)

@@ -100,9 +100,11 @@ def test_cuda_default_without_a_card_fails_loudly():
     assert "no CUDA device" in proc.stderr
     import mc_tpu_torch as mt
     sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
-    for fn in (mt.simulate_trajectories, mt.price_nmc):
+    for fn in (mt.simulate_trajectories, mt.price_nmc, mt.price_portfolio):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(mt.DEMO_OPTION, sim)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.price_ladder([90.0, 110.0], mt.DEMO_OPTION, sim)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt.price_nmc(mt.DEMO_OPTION, sim, strategy="grid")
 
@@ -132,3 +134,46 @@ def test_chip_smoke_refuses_without_a_card():
     proc = _run("chip_smoke.py")
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_ladder_and_book_subcommands_emit_json(capsys):
+    from mc_tpu_torch import cli, oracle
+
+    assert cli.main(["ladder", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "8", "--k-min", "80", "--k-max", "120",
+                     "--n-strikes", "5", "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["strikes"] == [80.0, 90.0, 100.0, 110.0, 120.0]
+    assert res["n_paths"] == 20000
+    for k, p, se in zip(res["strikes"], res["prices"], res["stderrs"]):
+        assert abs(p - oracle.bs_call(100.0, k, 1.0, 0.1, 0.2)) <= 4 * se
+    assert res["prices"] == sorted(res["prices"], reverse=True)
+
+    assert cli.main(["book", "--device", "cpu", "--n-paths", "4096",
+                     "--n-steps", "8", "--n-contracts", "6"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["payoff"] == "vanilla_call" and res["n_contracts"] == 6
+    assert len(res["prices"]) == 6 and min(res["prices"]) > 0
+    assert 0 < res["stderr_max"] < 1
+
+
+def test_price_closed_form_fields(capsys):
+    from mc_tpu_torch import cli, oracle
+
+    base = ["price", "--device", "cpu", "--n-paths", "20000", "--n-steps",
+            "8"]
+    assert cli.main(base + ["--payoff", "vanilla_put"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # as mc_tpu's cli prints it: the call's closed form for the put too
+    assert res["black_scholes"] == oracle.bs_call(100.0, 100.0, 1.0, 0.1, 0.2)
+    assert "implied_vol" not in res
+    assert cli.main(base) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(res["implied_vol"] - 0.2) < 0.01
+    assert cli.main(base + ["--payoff", "digital_call"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(res["price"] - res["closed_form"]) <= 4 * res["stderr"]
+    assert cli.main(base + ["--payoff", "up_out_call_bb"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(res["price"] - res["closed_form_continuous_barrier"]) <= (
+        4 * res["stderr"])

@@ -333,8 +333,8 @@ def test_invalid_combinations():
     with pytest.raises(ValueError, match="path_offset"):
         mt.price(OPT, SIM, method="terminal_pair", path_offset=4,
                  device="cpu")
-    with pytest.raises(KeyError, match="not yet ported"):
-        mt.price(OPT, SIM, "asian_call", device="cpu")
+    with pytest.raises(KeyError, match="unknown payoff 'asian_put'"):
+        mt.price(OPT, SIM, "asian_put", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         mt.price(OPT, SIM, device="meta")
     with pytest.raises(ValueError, match="2\\^32"):
@@ -371,3 +371,22 @@ def test_convert_surface_matrix():
     assert m[130, 2] == grid[2, 1, 2]
     with pytest.raises(ValueError):
         convert.surface_matrix(grid, 257)
+
+
+def test_finish_price_book_equals_scalar_finish():
+    """The vectorized finish of a book (option fields (B,)) equals the
+    scalar finish of each contract, with and without the control variate."""
+    rs = np.random.default_rng(3)
+    opts = [mt.OptionParams(s0=s0, k=100.0, r=r, t=t, q=q) for s0, r, t, q in
+            zip((100.0, 95.0, 110.0), (0.1, 0.05, 0.02), (1.0, 0.5, 2.0),
+                (0.0, 0.01, 0.03))]
+    sums = torch.tensor(rs.uniform(1.0, 2.0, (3, 5)) * [1e3, 1e5, 1e5, 1.2e7,
+                                                      1.1e6])
+    book = mt.OptionParams(*(np.array(col, np.float32) for col in
+                             zip(*(o.astuple() for o in opts))))
+    for cv in (False, True):
+        got = engines.finish_price(sums.T, 1000, book, cv)
+        for i, o in enumerate(opts):
+            one = engines.finish_price(sums[i], 1000, o, cv)
+            assert float(got.price[i]) == float(one.price), (cv, i)
+            assert float(got.stderr[i]) == float(one.stderr), (cv, i)

@@ -193,3 +193,43 @@ def test_inner_kernel_guards():
     with pytest.raises(ValueError, match="c_grid"):
         nk.nmc_inner(get_payoff("bullet_call"), cfg, (1, 2), prm, good,
                      good.double())
+
+
+# --- every payoff with at most one state word ---------------------------------
+
+ONE_WORD = ["digital_call", "digital_put", "best_of_cash", "zcb",
+            "asian_call", "up_out_call", "down_out_call", "down_in_call",
+            "lookback_call"]
+
+
+def _live_option(payoff):
+    return mc_tpu.OptionParams(p1=1.0, p2=6.0, barrier=90.0
+                               if payoff.startswith("down") else 120.0)
+
+
+@pytest.mark.parametrize("payoff", ONE_WORD)
+def test_one_word_payoffs_grid_equals_fused_bitwise(payoff):
+    opt = convert.option_params(_live_option(payoff))
+    sim = mt.SimParams(n_paths=128, n_steps=6, n_paths_inner=8)
+    fused = mt.price_nmc(opt, sim, payoff, device="cpu")
+    grid = mt.price_nmc(opt, sim, payoff, strategy="grid", device="cpu")
+    assert torch.equal(grid.surface, fused.surface)
+    assert float(grid.outer.price) == float(fused.outer.price)
+    assert bool(torch.isfinite(fused.surface).all())
+
+
+@pytest.mark.parametrize("payoff", ["asian_call", "down_out_call",
+                                    "lookback_call", "digital_call"])
+def test_one_word_payoffs_match_mc_tpu(payoff):
+    jopt = _live_option(payoff)
+    jsim = mc_tpu.SimParams(n_paths=256, n_steps=7, n_paths_inner=16,
+                            seed=5)
+    got = mt.price_nmc(convert.option_params(jopt), convert.sim_params(jsim),
+                       payoff, device="cpu")
+    want = jprice_nmc(jopt, jsim, payoff, engine="xla")
+    _assert_surfaces_agree(got, want, jsim.n_paths)
+
+
+def test_nmc_refuses_multi_word_payoffs():
+    with pytest.raises(ValueError, match="at most one state array"):
+        mt.price_nmc(OPT, SIM, "variance_swap", device="cpu")

@@ -259,3 +259,55 @@ def test_traj_csv_golden_fingerprint(tmp_path, capsys, record_property):
           "docs/GOLDENS.md")
     assert re.fullmatch(r"[0-9a-f]{64}", digest)
     assert text.count(b"\n") == 1 + 512 * 100
+
+
+# --- every payoff with at most one state word ---------------------------------
+
+# word 0 is continuous in S (a sum or a max) for these; a flag elsewhere
+CONTINUOUS_STATE = {"asian_call", "lookback_call"}
+
+
+@pytest.mark.parametrize("payoff", [
+    "digital_call", "digital_put", "best_of_cash", "zcb", "asian_call",
+    "up_out_call", "down_out_call", "down_in_call", "lookback_call"])
+def test_one_word_payoff_trajectories_match_mc_tpu(payoff):
+    """The trajectories kernel's plain version for each payoff the kernel
+    takes against mc_tpu's kernel in interpret mode: prices to 2e-6, state
+    word 0 to 2e-6 where it is a sum or a max, else equal on all but 0.1%
+    of paths, and the payoff sums to 1e-5 (0.05 stderr for the flags)."""
+    n_paths, n_steps = 1024, 8
+    jopt = mc_tpu.OptionParams(barrier=90.0 if payoff.startswith("down")
+                               else 120.0)
+    opt = convert.option_params(jopt)
+    cfg = pk.KernelConfig(n_paths=n_paths, n_steps=n_steps)
+    s, st, parts = pk.simulate_trajectories(
+        get_payoff(payoff), cfg, engines.rng.derive_key(9, 0),
+        pk.pack_params(opt, n_steps))
+    jcfg = jpk.KernelConfig(n_paths=n_paths, n_steps=n_steps, tile_rows=8)
+    js, jst, jsum, jsq = jpk.simulate_trajectories_kernel(
+        jget_payoff(payoff), jcfg, mc_tpu.rng.derive_key(9, 0),
+        jpk.pack_params(jopt.as_f32(), n_steps))
+    np.testing.assert_allclose(s.numpy(), convert.surface_matrix(js, n_paths).T,
+                               rtol=S_RTOL)
+    jstate = convert.surface_matrix(jst, n_paths).T
+    if payoff in CONTINUOUS_STATE:
+        np.testing.assert_allclose(st.numpy(), jstate, rtol=S_RTOL)
+    else:
+        same = (st.numpy() == jstate).all(axis=0)
+        assert same.mean() >= 1.0 - FLIP_FRAC
+    got = engines.finish_price(finish_sum(parts), n_paths, opt)
+    want = engines.finish_price(torch.tensor(
+        [float(jfinish_sum(jsum)), float(jfinish_sum(jsq))],
+        dtype=torch.float64), n_paths, opt)
+    if payoff in CONTINUOUS_STATE or payoff in ("best_of_cash", "zcb"):
+        assert float(got.price) == pytest.approx(float(want.price), rel=1e-5)
+    else:
+        se = float(want.stderr)
+        assert abs(float(got.price) - float(want.price)) <= BULLET_SE * se
+
+
+def test_trajectories_refuse_multi_word_payoffs():
+    cfg = pk.KernelConfig(n_paths=8, n_steps=4)
+    with pytest.raises(ValueError, match="one state array"):
+        pk.simulate_trajectories(get_payoff("cliquet"), cfg, (1, 2),
+                                 pk.pack_params(OPT, 4))
