@@ -7,26 +7,35 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
    ``mc_tpu_torch/csrc`` with ``nvcc``;
-2. each of the seven CUDA kernels against its plain PyTorch version on the
+2. each of the ten CUDA kernels against its plain PyTorch version on the
    card, same key, with the tolerances of the parity contract, at the
    contract's sizes and at the main path's shapes: the simulate kernel for
    all 18 payoffs (with resume, multi-word resume, importance sampling and
    the geometric control variate too), the terminal kernels for the six
    terminal-only payoffs, trajectories and both NMC kernels for the payoffs
-   with one state word, the strike ladder and the batched book;
+   with one state word, the strike ladder and the batched book, the greek
+   kernel for the five pathwise payoffs and the two reductions up to 2^26
+   elements (one view misaligned);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
    closed form or its parity identity, the 100k x 100-step bullet, the
    100k x 100 trajectories and a resume from their step 50, the
    16,384 x 100 x 500 nested-MC surface by both strategies with its
-   exposure and XVA figures, the 17-strike ladder at 1M paths and the
-   64-contract x 2^20-path x 100-step book;
+   exposure and XVA figures, the 17-strike ladder at 1M paths, the
+   64-contract x 2^20-path x 100-step book, the greeks of the 1M-path call
+   (fused kernel) against Black-Scholes, the Asian's and the lookback's at
+   100,000 x 100 by kernel and autograd, theta by autograd, the bullet's
+   delta and gamma by CRN-FD against LRM, the digital's LRM gamma, a
+   4 x 2^20-path chunked run stopped and resumed, and the reductions over
+   a payoff array and 2^26 normals;
 4. the kernels' launch counts over phase 3;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up), the ladder and the book beside the single-contract
    launches they replace, the simulate kernel per payoff with its
-   registers, and end-to-end times of the phase-3 calls;
+   registers, the greek kernel beside the simulate kernel on its shape,
+   the reductions beside ``torch.sum``, and end-to-end times of the
+   phase-3 calls (greeks() by route, chunked_price());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -37,9 +46,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,6 +72,15 @@ LADDER_STRIKES = (60.0, 140.0, 17)   # linspace: the CLI's vol-surface row
 LADDER_PATHS = 1_000_000
 BOOK_SMALL = (16, 1 << 16)           # phase 2: contracts, paths (100 steps)
 BOOK_MAIN = (64, 1 << 20)            # bench.py:586-609 book64 (100 steps)
+GREEK_TERM_PATHS = 1 << 20           # phase 2: terminal pathwise payoffs
+GREEK_EULER_PATHS = 65_536           # phase 2: Asian, lookback (100, 99 steps)
+GREEK_PATHS = 1_000_000              # phases 2-3: the call's greeks, terminal
+GREEK_STEP_PATHS = 100_000           # phases 2-3: 100,000 x 100, the CLI default
+FD_BUMP = 0.05                       # the bullet's CRN-FD bump (h = 5 at S0)
+CHUNK_PATHS, N_CHUNKS = 1 << 20, 4   # phase 3: chunked_price, resume after 2
+REDUCE_SIZES = (1, 1_000_003, 1 << 20, 1 << 26)  # 2^20 misaligned too
+PAY_ARRAY = 1 << 20                  # phase 3: the call's payoff array
+NORMALS = 1 << 26                    # phase 3: normals through sum_sumsq
 REPS = 5
 DEVICE = "cuda"
 
@@ -90,6 +110,10 @@ SURF_TOL, SURF_FRAC = 1e-4, 0.999   # rtol = atol, share of points
 SURF_MEAN_RTOL = 1e-4
 TRAJ_S_RTOL = 2e-6                  # stored prices: a few f32 ulp
 XVA_RTOL = 1e-4                     # cva_wwr_spot(beta=0) against cva
+# The greek kernel and the reductions against their plain versions: the
+# same f32 values per path (element), f64 sums in another order.
+SUMS_RTOL = 1e-12
+GREEK_ROUTE_RTOL = 1e-3             # fused kernel vs autograd (mc_tpu's own)
 
 # The least time of a kernel: the larger of its bytes over the memory rate
 # and its operations over the issue rate of their type.  H100 SXM: 3.35 TB/s
@@ -100,6 +124,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# f64 outside the tensor cores: 132 SMs x 64 lanes x 2 (an FMA) at 1.98 GHz
+# (34 TFLOP/s on the datasheet).
+F64_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -128,9 +155,16 @@ def pair_ops(rounds: int):
 
 STEP_OPS = (0, 4, 1)       # w += drift_dt + vol_dt*z; s = base*exp(w)
 UPDATE_OPS = {"vanilla_call": (0, 0, 0), "vanilla_put": (0, 0, 0),
-              "bullet_call": (0, 2, 0)}   # count += (s < B)
+              "bullet_call": (0, 2, 0),   # count += (s < B)
+              "asian_call": (0, 1, 0)}    # acc += s
 TERMINAL_OPS = (0, 3, 0)   # payoff and pay^2
 TERMINAL_DRAW_OPS = (0, 3, 1)  # S_T = s0 * exp(drift_t + vol_t * z)
+# The greek kernel on top of the step: sum_z += z, and for a payoff with
+# state t_j (2), the four spot tangents (a division and 7) and the Asian's
+# four state-tangent adds and its update; at maturity the tangents again,
+# the payoff's five values and their squares.
+GREEK_STEP_OPS = (0, 1 + 2 + 8 + 5, 0)
+GREEK_TERMINAL_OPS = (0, 8 + 4 * 3 + 2 + 10, 0)
 
 
 def path_ops(payoff: str, n_steps: int, rounds: int):
@@ -153,11 +187,12 @@ def inner_ops(payoff: str, n_steps: int, n_inner: int):
     return total
 
 
-def bound(n_bytes: float, ops):
-    """(bound_ms, bound_by) of one call moving n_bytes and doing ops."""
+def bound(n_bytes: float, ops, f64_ops: float = 0.0):
+    """(bound_ms, bound_by) of one call moving n_bytes and doing ops (and
+    f64_ops f64 adds and multiplies)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(ops[0] / INT32_OPS_PER_S, ops[1] / F32_OPS_PER_S,
-                ops[2] / SFU_OPS_PER_S)
+                ops[2] / SFU_OPS_PER_S, f64_ops / F64_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -213,7 +248,9 @@ def ptxas_registers(log: str) -> dict:
             n = int(m.group(1))
             kernel, rest = m.group(2)[:n], m.group(2)[n:]
             p = re.match(r"INS_(\d+)", rest)
-            payoff = rest[p.end():p.end() + int(p.group(1))] if p else None
+            b = re.match(r"ILb(\d)E", rest)  # sum_kernel<bool>
+            payoff = (rest[p.end():p.end() + int(p.group(1))] if p
+                      else f"bool{b.group(1)}" if b else None)
             r = re.search(r"ELi(\d+)E", rest)
             entry = (kernel, payoff, int(r.group(1)) if r else None)
             continue
@@ -251,15 +288,23 @@ def main() -> int:
 
     import mc_tpu_torch as mt
     from mc_tpu_torch import engines, oracle, rng
+    from mc_tpu_torch.checkpoint import load_checkpoint
     from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops import nmc_kernels as nk
     from mc_tpu_torch.ops import path_kernels as pk
-    from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
+    from mc_tpu_torch.ops import reduce
+    from mc_tpu_torch.ops.payoffs import PATHWISE, PAYOFFS, get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+
+    def stamp(phase: int) -> None:
+        print(f"phase {phase}: starts {time.perf_counter() - t_start:.1f} s "
+              "into the run")
+
     card = nvidia_smi_name_power()
     kind = torch.cuda.get_device_name(0)
     tag = f"[{card}]"
@@ -289,6 +334,7 @@ def main() -> int:
         return mt.OptionParams(**PAYOFF_OPTIONS.get(name, {}))
 
     # --- Phase 2: each kernel against its plain version ----------------
+    stamp(2)
     def vanilla_check(name, got, want):
         dp = abs(float(got.price) - float(want.price))
         ds = abs(float(got.stderr) - float(want.stderr))
@@ -614,7 +660,71 @@ def main() -> int:
         bullet, pk.KernelConfig(n_paths=nb_paths, n_steps=MAIN_STEPS),
         bullet_check, contract(mt, book64, 0)))
 
+    # The greek kernel (the five pathwise payoffs: the terminal-only ones
+    # at 2^20, the Asian and the lookback over 100 and 99 steps; and the
+    # main path's shapes, whose last blocks are partly filled: the
+    # terminal-only ones at GREEK_PATHS, the Asian, the lookback and the
+    # call at GREEK_STEP_PATHS x 100) and the reductions (aligned and
+    # misaligned views up to 2^26 elements): every sum to f64 rounding of
+    # the plain version's.
+    def sums_check(name, got, want):
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+        ok = rel <= SUMS_RTOL
+        print(f"phase 2: {name}: {share(got == want):.2f} of the sums bitwise,"
+              f" max rel {rel:.3e} (limit {SUMS_RTOL}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name}: the kernel disagrees with its plain version")
+
+    def greek_results(sums, n_paths):
+        """(price, stderr) of pay, delta, vega, rho, epsilon: (5, 2)."""
+        return torch.stack([torch.stack([r.price, r.stderr]) for r in (
+            engines.finish_price(sums[2 * i:2 * i + 2], n_paths, option)
+            for i in range(5))])
+
+    def greek_case(name, method, n_paths, n_steps):
+        po = get_payoff(name)
+        cfg = pk.KernelConfig(n_paths=n_paths, n_steps=n_steps, method=method)
+        prm = pk.pack_params(option, n_steps, dev)
+        got = finish_sum(pk.simulate_greek_partials(po, cfg, key, prm))
+        want = finish_sum(pk.simulate_greek_partials_plain(po, cfg, key, prm))
+        sums_check(f"greek_partials {name} {method} {n_paths}x{n_steps}",
+                   got, want)
+        return float((greek_results(got, n_paths)
+                      - greek_results(want, n_paths)).abs().max())
+
+    greek_err = 0.0
+    for name in PATHWISE:
+        if get_payoff(name).terminal_only:
+            shapes = [("terminal", n, MAIN_STEPS)
+                      for n in (GREEK_TERM_PATHS, GREEK_PATHS)]
+        else:
+            shapes = [("euler", GREEK_EULER_PATHS, n_steps)
+                      for n_steps in (MAIN_STEPS, MAIN_STEPS - 1)]
+        if name == "vanilla_call" or not get_payoff(name).terminal_only:
+            shapes.append(("euler", GREEK_STEP_PATHS, MAIN_STEPS))
+        for method, n_paths, n_steps in shapes:
+            greek_err = max(greek_err, greek_case(name, method, n_paths,
+                                                  n_steps))
+    reduce_err = dict.fromkeys(("tile_partials", "sum_sumsq"), 0.0)
+    for n in REDUCE_SIZES:
+        x = torch.randn(n + 1, device=dev, generator=gen)
+        views = ((("aligned", x[:n]), ("misaligned", x[1:]))
+                 if n == REDUCE_SIZES[2] else (("aligned", x[:n]),))
+        for label, v in views:
+            for name, fn, plain in (
+                    ("tile_partials", reduce.tile_partials,
+                     reduce.tile_partials_plain),
+                    ("sum_sumsq", reduce.sum_sumsq_partials,
+                     reduce.sum_sumsq_partials_plain)):
+                got, want = finish_sum(fn(v)), finish_sum(plain(v))
+                sums_check(f"{name} {n} elements {label}", got, want)
+                reduce_err[name] = max(reduce_err[name],
+                                       float((got - want).abs().max()))
+    del x, v
+
     # --- Phase 3: the main path at a size users run --------------------
+    stamp(3)
     _cuda.reset_launch_counts()
     bs = bs_call(option.s0, option.k, option.t, option.r, option.sigma,
                  option.q)
@@ -897,6 +1007,197 @@ def main() -> int:
     if not frac > 0.95:
         fail("the vanilla book misses Black-Scholes")
 
+    # Greeks.  The 1M-path call's through the fused kernel against
+    # Black-Scholes (epsilon = -S0 T delta at q = 0).
+    kernel_which = ("delta", "vega", "rho", "epsilon")
+    bs_delta = oracle.bs_delta_call(*bs_args)
+    bs_vega = oracle.bs_vega(*bs_args)
+    bs_rho = option.k * option.t * oracle.bs_digital_call(*bs_args)
+    bs_greek = dict(delta=bs_delta, vega=bs_vega, rho=bs_rho,
+                    epsilon=-option.s0 * option.t * bs_delta,
+                    theta=-(option.sigma / (2 * option.t) * bs_vega
+                            + option.r / option.t * bs_rho))
+    gsim = mt.SimParams(n_paths=GREEK_PATHS, n_steps=MAIN_STEPS)
+    g = mt.greeks(option, gsim, which=kernel_which, device=DEVICE)
+    one = mt.price(option, gsim, method="terminal", device=DEVICE)
+    zs = {k: abs(float(g[k]) - bs_greek[k]) / float(g[f"{k}_stderr"])
+          for k in kernel_which}
+    d_price = abs(float(g["price"]) - float(one.price)) / float(one.price)
+    print(f"phase 3: greeks() call {GREEK_PATHS} terminal (fused kernel): "
+          + ", ".join(f"{k} {float(g[k]):.6f} +/- {float(g[k + '_stderr']):.6f}"
+                      f" ({zs[k]:.2f} se from {bs_greek[k]:.6f})"
+                      for k in kernel_which)
+          + f"; its price vs price(method='terminal') rel {d_price:.2e}")
+    if not (max(zs.values()) <= 3.0 and d_price <= SUMS_RTOL):
+        fail("the fused greeks miss Black-Scholes, or their price is not "
+             "price()'s")
+
+    # The Asian and the lookback at 100,000 x 100: the fused kernel against
+    # autograd through price() on the same draws.
+    asim = mt.SimParams(n_paths=GREEK_STEP_PATHS, n_steps=MAIN_STEPS)
+
+    def route_gap(gk, ga, keys):
+        return max(abs(float(gk[k]) - float(ga[k]))
+                   / (max(1.0, abs(float(ga[k]))) * GREEK_ROUTE_RTOL + 1e-4)
+                   for k in keys)
+
+    for name in ("asian_call", "lookback_call"):
+        gk = mt.greeks(option, asim, name, which=kernel_which, device=DEVICE)
+        ga = mt.greeks(option, asim, name, which=kernel_which + ("theta",),
+                       device=DEVICE)
+        gap = route_gap(gk, ga, kernel_which)
+        print(f"phase 3: greeks() {name} {GREEK_STEP_PATHS}x{MAIN_STEPS}: "
+              + ", ".join(f"{k} kernel {float(gk[k]):.6f} autograd "
+                          f"{float(ga[k]):.6f}" for k in kernel_which)
+              + f", theta {float(ga['theta']):.6f}; largest gap "
+              f"{gap:.3f} of the limit ({GREEK_ROUTE_RTOL} rel)")
+        if not (gap <= 1.0 and math.isfinite(float(ga["theta"]))):
+            fail(f"{name}: the fused greeks and autograd disagree")
+
+    # The default which (with theta) through autograd, the call over 100
+    # Euler steps.  Per path dP/dT = sigma/(2T) dP/dsigma + r/T dP/dr
+    # (q = 0), so theta is held to that combination of the fused kernel's
+    # vega and rho on the same draws, and to Black-Scholes within 3 of
+    # its stderr's bound sigma/(2T) se_vega + r/T se_rho.
+    ga = mt.greeks(option, asim, sim_method="euler", device=DEVICE)
+    gk = mt.greeks(option, asim, which=kernel_which, sim_method="euler",
+                   device=DEVICE)
+    theta_k = -(option.sigma / (2 * option.t) * float(gk["vega"])
+                + option.r / option.t * float(gk["rho"]))
+    theta_se = (option.sigma / (2 * option.t) * float(gk["vega_stderr"])
+                + option.r / option.t * float(gk["rho_stderr"]))
+    gap = max(route_gap(gk, ga, ("delta", "vega", "rho")),
+              abs(float(ga["theta"]) - theta_k)
+              / (max(1.0, abs(theta_k)) * GREEK_ROUTE_RTOL + 1e-4))
+    z_theta = abs(float(ga["theta"]) - bs_greek["theta"]) / theta_se
+    print(f"phase 3: greeks() call euler {GREEK_STEP_PATHS}x{MAIN_STEPS} "
+          f"default which (autograd): " + ", ".join(
+              f"{k} {float(ga[k]):.6f}" for k in ("delta", "vega", "rho",
+                                                  "theta"))
+          + f"; theta from the kernel's vega and rho {theta_k:.6f}, largest "
+          f"gap {gap:.3f} of the limit; theta {z_theta:.2f} se from "
+          f"Black-Scholes {bs_greek['theta']:.6f}")
+    if not (gap <= 1.0 and z_theta <= 3.0):
+        fail("autograd greeks disagree with the fused kernel or theta "
+             "misses Black-Scholes")
+
+    # The bullet's delta and gamma by CRN-FD (the simulate kernel) against
+    # LRM.  FD's stderr comes from the per-path differences of three
+    # trajectory runs at S0 - h, S0, S0 + h (the same draws), whose means
+    # are greeks()'s FD values up to the order of the sums.
+    gf = mt.greeks(option, asim, "bullet_call", method="fd",
+                   which=("delta", "gamma"), rel_bump=FD_BUMP, device=DEVICE)
+    gl = mt.greeks(option, asim, "bullet_call", method="lrm",
+                   which=("delta", "gamma"), device=DEVICE)
+    h = np.float32(FD_BUMP) * np.float32(option.s0)
+    pays = []
+    for sgn in (-1, 0, 1):
+        bumped = mt.OptionParams(s0=float(np.float32(option.s0) + sgn * h))
+        tr = mt.simulate_trajectories(bumped, asim, device=DEVICE)
+        pays.append(bullet.terminal((tr.state[-1],), tr.s[-1], p32).double())
+    per_path = {"delta": (pays[2] - pays[0]) / (2.0 * float(h)),
+                "gamma": (pays[2] - 2.0 * pays[1] + pays[0])
+                / (float(h) * float(h))}
+    fd_line = []
+    for k, v in per_path.items():
+        mean = disc * float(v.mean())
+        se = disc * float(v.std()) / math.sqrt(GREEK_STEP_PATHS)
+        joint = math.hypot(se, float(gl[f"{k}_stderr"]))
+        z = abs(float(gf[k]) - float(gl[k])) / joint
+        d_traj = abs(float(gf[k]) - mean) / max(abs(mean), 1e-12)
+        fd_line.append(f"{k} fd {float(gf[k]):.6f} +/- {se:.6f} (paths' "
+                       f"mean {mean:.6f}, rel {d_traj:.1e}), lrm "
+                       f"{float(gl[k]):.6f} +/- {float(gl[k + '_stderr']):.6f}"
+                       f": {z:.2f} joint se")
+        if not (z <= 3.0 and d_traj <= 1e-6):
+            fail(f"the bullet's FD {k} misses LRM, or is not its paths' mean")
+    print(f"phase 3: bullet {GREEK_STEP_PATHS}x{MAIN_STEPS} (h = {h:g}): "
+          + "; ".join(fd_line))
+
+    # The digital's LRM gamma, the unbiased gamma of a discontinuous payoff.
+    gd = mt.greeks(option, gsim, "digital_call", method="lrm",
+                   which=("gamma",), device=DEVICE)
+    st = option.sigma * math.sqrt(option.t)
+    d2 = (math.log(option.s0 / option.k)
+          + (option.r - 0.5 * option.sigma ** 2) * option.t) / st
+    gamma_cf = (math.exp(-option.r * option.t)
+                * math.exp(-0.5 * d2 * d2) / math.sqrt(2 * math.pi)
+                * (-d2 / st - 1.0) / (option.s0 * option.s0 * st))
+    z = abs(float(gd["gamma"]) - gamma_cf) / float(gd["gamma_stderr"])
+    print(f"phase 3: digital_call LRM gamma {GREEK_PATHS} terminal: "
+          f"{float(gd['gamma']):.7f} +/- {float(gd['gamma_stderr']):.7f}, "
+          f"{z:.2f} se from {gamma_cf:.7f}")
+    if not z <= 3.0:
+        fail("the digital's LRM gamma misses its closed form")
+
+    # chunked_price: 4 x 2^20 Euler paths in 2^20-path chunks, stopped
+    # after chunk 2 (a two-chunk run writes that state) and resumed.
+    csim = mt.SimParams(n_paths=N_CHUNKS * CHUNK_PATHS, n_steps=MAIN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "run.npz")
+        full = mt.chunked_price(option, csim, chunk_paths=CHUNK_PATHS,
+                                method="euler", device=DEVICE)
+        mt.chunked_price(option, csim.replace(n_paths=2 * CHUNK_PATHS),
+                         chunk_paths=CHUNK_PATHS, method="euler",
+                         checkpoint_path=ck, device=DEVICE)
+        mid = load_checkpoint(ck)
+        mid.n_paths = csim.n_paths
+        mid.save(ck)
+        resumed = mt.chunked_price(option, csim, chunk_paths=CHUNK_PATHS,
+                                   method="euler", checkpoint_path=ck,
+                                   resume=True, device=DEVICE)
+        done = load_checkpoint(ck).paths_done
+    straight = mt.price(option, csim, method="euler", device=DEVICE)
+    bitwise = (float(resumed.price) == float(full.price)
+               and float(resumed.stderr) == float(full.stderr))
+    d_chunk = abs(float(full.price) - float(straight.price)) / float(
+        straight.price)
+    print(f"phase 3: chunked_price {N_CHUNKS}x{CHUNK_PATHS}x{MAIN_STEPS}: "
+          f"{float(full.price):.9f} +/- {float(full.stderr):.9f}; resumed "
+          f"after chunk 2 ({done} paths done): {float(resumed.price):.9f} "
+          f"({'bitwise' if bitwise else 'NOT bitwise'}); price(method="
+          f"'euler') {float(straight.price):.9f} (rel {d_chunk:.2e})")
+    if not (bitwise and d_chunk <= SUMS_RTOL and done == csim.n_paths):
+        fail("the resumed chunked run differs from the uninterrupted one or "
+             "from price()")
+
+    # The reductions: the 2^20-path call's payoff array through
+    # sum_sumsq_pallas and sum_pallas gives price()'s price and stderr;
+    # 2^26 normals give their f64 sums and moments.
+    n_pay = PAY_ARRAY
+    ids = torch.arange(n_pay, dtype=torch.int64, device=dev)
+    z0, _ = rng.normal_pair(key[0], key[1], ids, torch.zeros_like(ids))
+    pay_arr = call.terminal((), p32.s0 * torch.exp(p32.drift_t
+                                                   + p32.vol_t * z0), p32)
+    del ids, z0
+    s, s2 = reduce.sum_sumsq_pallas(pay_arr)
+    s_only = reduce.sum_pallas(pay_arr)
+    via = oracle.summarize(s, s2, float(n_pay), disc)
+    ref = mt.price(option, mt.SimParams(n_paths=n_pay, n_steps=MAIN_STEPS),
+                   method="terminal", device=DEVICE)
+    d_red = max(abs(float(via.price) - float(ref.price)) / float(ref.price),
+                abs(float(via.stderr) - float(ref.stderr)) / float(ref.stderr),
+                abs(float(s_only) - float(s)) / float(s))
+    x26 = torch.randn(NORMALS, device=dev, generator=gen)
+    n26 = float(x26.numel())
+    t_s, t_s2 = reduce.sum_sumsq_pallas(x26)
+    lib_s = torch.sum(x26, dtype=torch.float64)
+    lib_s2 = torch.sum((x26 * x26).double())
+    mean26, var26 = float(t_s) / n26, float(t_s2) / n26 - (float(t_s) / n26) ** 2
+    d26 = max(abs(float(t_s) - float(lib_s)) / abs(float(lib_s)),
+              abs(float(t_s2) - float(lib_s2)) / float(lib_s2))
+    print(f"phase 3: sum_sumsq_pallas over the {n_pay}-path call's payoffs: "
+          f"price {float(via.price):.9f} +/- {float(via.stderr):.9f} vs "
+          f"price() {float(ref.price):.9f} +/- {float(ref.stderr):.9f}, "
+          f"sum_pallas == its sum: max rel {d_red:.2e}; over {NORMALS} normals: "
+          f"mean {mean26:.3e}, variance {var26:.6f}, vs torch.sum f64 rel "
+          f"{d26:.2e}")
+    if not (d_red <= SUMS_RTOL and d26 <= SUMS_RTOL
+            and abs(mean26) <= 5.0 / math.sqrt(n26)
+            and abs(var26 - 1.0) <= 5.0 * math.sqrt(2.0 / n26)):
+        fail("the reductions disagree with price() or torch.sum, or the "
+             "normals' moments are off")
+
     # --- Phase 4: launch counts over phase 3 ----------------------------
     launches = dict(_cuda.launch_counts)
     print(f"phase 4: launches over phase 3: {launches}")
@@ -904,6 +1205,7 @@ def main() -> int:
         fail("a kernel of the main path was never launched")
 
     # --- Phase 5: times -------------------------------------------------
+    stamp(5)
     def time_pair(label, kernel_fn, plain_fn, shape):
         k_ms, k_sp, k_n = cuda_ms(kernel_fn)
         p_ms, p_sp, p_n = cuda_ms(plain_fn)
@@ -1049,6 +1351,52 @@ def main() -> int:
                     f" (spread {sp:.1%}), " + line)
         print(f"phase 5: {name}: {line} {tag}")
 
+    # The greek kernel beside the simulate kernel on its shape (what the
+    # tangents cost): the call over the 1M-path terminal draw, the Asian
+    # over 100,000 x 100.
+    asian = get_payoff("asian_call")
+    greek_ms = {}
+    for label, po, cfg in (
+            (f"call terminal {GREEK_PATHS} paths", call, pk.KernelConfig(
+                n_paths=GREEK_PATHS, n_steps=MAIN_STEPS, method="terminal")),
+            (f"asian euler {GREEK_STEP_PATHS}x{MAIN_STEPS}", asian,
+             pk.KernelConfig(n_paths=GREEK_STEP_PATHS, n_steps=MAIN_STEPS))):
+        greek_ms[po.name] = time_pair(
+            "greek_partials",
+            lambda po=po, cfg=cfg: pk.simulate_greek_partials(po, cfg, key,
+                                                              p100),
+            lambda po=po, cfg=cfg: pk.simulate_greek_partials_plain(
+                po, cfg, key, p100), label)
+        sim_only, sp, _ = cuda_ms(lambda po=po, cfg=cfg: pk.simulate_partials(
+            po, cfg, key, p100))
+        struct = type(po).__name__
+        print(f"phase 5: greek_partials {label}: {greek_ms[po.name][0]:.4f} ms"
+              f" = {greek_ms[po.name][0] / sim_only:.2f}x simulate_partials "
+              f"on the same paths ({sim_only:.4f} ms, spread {sp:.1%}); "
+              f"registers greek {regs.get(('greek_kernel', struct, 13))}, "
+              f"simulate {regs.get(('simulate_kernel', struct, 13))} {tag}")
+
+    # The reductions beside torch.sum(dtype=float64), the one PyTorch call
+    # that computes the sum (and one of sum_sumsq's two moments).
+    reduce_ms = {}
+    for n, x in ((n_pay, pay_arr), (NORMALS, x26)):
+        lib_ms, lib_sp, _ = cuda_ms(lambda x=x: torch.sum(
+            x, dtype=torch.float64))
+        for name, fn, plain in (
+                ("tile_partials", reduce.tile_partials,
+                 reduce.tile_partials_plain),
+                ("sum_sumsq", reduce.sum_sumsq_partials,
+                 reduce.sum_sumsq_partials_plain)):
+            k_ms, p_ms = time_pair(name, lambda fn=fn, x=x: fn(x),
+                                   lambda plain=plain, x=x: plain(x),
+                                   f"{n} f32")
+            reduce_ms[name] = (k_ms, p_ms, lib_ms)
+            print(f"phase 5: {name} {n} f32: {4 * n / k_ms / 1e6:.1f} GB/s; "
+                  f"torch.sum(dtype=float64) {lib_ms:.4f} ms (spread "
+                  f"{lib_sp:.1%}, {4 * n / lib_ms / 1e6:.1f} GB/s); registers"
+                  f" {regs.get(('sum_kernel', 'bool' + str(int(name == 'sum_sumsq')), None))} "
+                  f"{tag}")
+
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
          lambda: mt.price(option, sim, device=DEVICE)),
@@ -1074,6 +1422,33 @@ def main() -> int:
          "contract-path-steps/s", book_steps,
          lambda: mt.price_portfolio(book64, msim, "bullet_call",
                                     device=DEVICE)),
+        (f"greeks() pathwise (fused kernel) call {GREEK_PATHS} terminal",
+         "paths/s", GREEK_PATHS,
+         lambda: mt.greeks(option, gsim, which=kernel_which, device=DEVICE)),
+        (f"greeks() pathwise (fused kernel) asian {GREEK_STEP_PATHS}x"
+         f"{MAIN_STEPS}", "path-steps/s", GREEK_STEP_PATHS * MAIN_STEPS,
+         lambda: mt.greeks(option, asim, "asian_call", which=kernel_which,
+                           device=DEVICE)),
+        (f"greeks() pathwise (autograd) call euler {GREEK_STEP_PATHS}x"
+         f"{MAIN_STEPS}, default which", "path-steps/s",
+         GREEK_STEP_PATHS * MAIN_STEPS,
+         lambda: mt.greeks(option, asim, sim_method="euler", device=DEVICE)),
+        (f"greeks() fd bullet {GREEK_STEP_PATHS}x{MAIN_STEPS} delta+gamma",
+         "path-steps/s", GREEK_STEP_PATHS * MAIN_STEPS,
+         lambda: mt.greeks(option, asim, "bullet_call", method="fd",
+                           which=("delta", "gamma"), rel_bump=FD_BUMP,
+                           device=DEVICE)),
+        (f"greeks() lrm bullet {GREEK_STEP_PATHS}x{MAIN_STEPS} delta+gamma",
+         "path-steps/s", GREEK_STEP_PATHS * MAIN_STEPS,
+         lambda: mt.greeks(option, asim, "bullet_call", method="lrm",
+                           which=("delta", "gamma"), device=DEVICE)),
+        (f"chunked_price() call euler {N_CHUNKS}x{CHUNK_PATHS}x{MAIN_STEPS}",
+         "path-steps/s", csim.n_paths * MAIN_STEPS,
+         lambda: mt.chunked_price(option, csim, chunk_paths=CHUNK_PATHS,
+                                  method="euler", device=DEVICE)),
+        (f"price() call euler {csim.n_paths}x{MAIN_STEPS}", "path-steps/s",
+         csim.n_paths * MAIN_STEPS,
+         lambda: mt.price(option, csim, method="euler", device=DEVICE)),
     )
     for label, unit, work, fn in e2e:
         secs = sorted(wall_s(fn) for _ in range(REPS))
@@ -1083,6 +1458,7 @@ def main() -> int:
               f"{work / med:.4e} {unit} {tag}")
 
     # --- Phase 6: results -----------------------------------------------
+    stamp(6)
     nmc_bytes = 4 * n_out * n_steps  # the surface
     nmc_ops = _scale(inner_ops("bullet_call", n_steps, n_inner), n_out)
     outer_ops = _scale(path_ops("bullet_call", n_steps, 13), n_out)
@@ -1110,6 +1486,14 @@ def main() -> int:
                                                 UPDATE_OPS["bullet_call"]),
                                            MAIN_STEPS), TERMINAL_OPS), nb)),
                    nb_paths)),
+        # the Asian's path and its tangents
+        "greek_partials": bound(0, _scale(_add(
+            path_ops("asian_call", MAIN_STEPS, 13),
+            _scale(GREEK_STEP_OPS, MAIN_STEPS), GREEK_TERMINAL_OPS),
+            GREEK_STEP_PATHS)),
+        # each element read once; one f64 add (and an f32 square and an add)
+        "tile_partials": bound(4 * n26, (0, 0, 0), n26),
+        "sum_sumsq": bound(4 * n26, (0, n26, 0), 2 * n26),
     }
     rows = (
         ("terminal_pair", "path_kernels.cu", "path_kernels.py:1015", tp_err,
@@ -1126,6 +1510,15 @@ def main() -> int:
          ladder_ms, f"call terminal {LADDER_PATHS} x {len(strikes)} strikes"),
         ("book", "batch_kernels.cu", "path_kernels.py:760", book_err,
          (book_ms, book_plain_ms), f"bullet {nb} x {nb_paths} x {MAIN_STEPS}"),
+        ("greek_partials", "greek_kernels.cu", "path_kernels.py:932",
+         greek_err, greek_ms["asian_call"],
+         f"asian {GREEK_STEP_PATHS}x{MAIN_STEPS}"),
+        ("tile_partials", "reduce_kernels.cu", "reduce.py:78",
+         reduce_err["tile_partials"], reduce_ms["tile_partials"][:2],
+         f"{int(n26)} f32"),
+        ("sum_sumsq", "reduce_kernels.cu", "reduce.py:195",
+         reduce_err["sum_sumsq"], reduce_ms["sum_sumsq"][:2],
+         f"{int(n26)} f32"),
     )
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
@@ -1134,7 +1527,9 @@ def main() -> int:
             name=name, route="cuda", source=f"mc_tpu_torch/csrc/{src}",
             replaces=f"mc_tpu/ops/{tpu}", launches=launches[name],
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, shape=shape))
+            bound_by=b_by,
+            library_ms=reduce_ms[name][2] if name in reduce_ms else None,
+            shape=shape))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,11 +1,11 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
-ladder/book).
+ladder/book/greeks).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
-``price``, ``nmc``, ``ladder`` and ``book`` print one JSON object each
-(``price`` adds the closed form where the payoff has one, ``nmc
+``price``, ``nmc``, ``ladder``, ``book`` and ``greeks`` print one JSON
+object each (``price`` adds the closed form where the payoff has one, ``nmc
 --exposure`` the XVA figures of the surface); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
@@ -194,6 +194,24 @@ def cmd_book(args):
     return 0
 
 
+def cmd_greeks(args):
+    """Greeks as one JSON object (mc_tpu/cli.py:802-825): ``greeks()``
+    routes a pathwise request to the fused kernel where it fits and to
+    autograd through ``price()`` otherwise, so nothing is filtered."""
+    from mc_tpu_torch.greeks import greeks
+
+    option, sim = _parse(args)
+    if args.which is None:
+        # LRM supports only the density parameters; default per method
+        args.which = ("delta,vega,rho" if args.method == "lrm"
+                      else "delta,vega,rho,theta")
+    g = greeks(option, sim, payoff=args.payoff, method=args.method,
+               which=tuple(args.which.split(",")),
+               antithetic=args.antithetic, device=args.device)
+    print(json.dumps({k: float(v) for k, v in g.items()}))
+    return 0
+
+
 def _profile(x):
     return [round(float(v), 6) for v in x.tolist()]
 
@@ -371,6 +389,17 @@ def main(argv=None):
     p.add_argument("--payoff", default="vanilla_call")
     p.add_argument("--n-contracts", type=int, default=16)
     p.set_defaults(fn=cmd_book)
+
+    p = sub.add_parser("greeks",
+                       help="MC Greeks (pathwise, CRN-FD, or LRM), JSON")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--method", choices=("pathwise", "fd", "lrm"),
+                   default="pathwise")
+    p.add_argument("--which", default=None,
+                   help="comma list; default depends on --method")
+    p.add_argument("--antithetic", action="store_true")
+    p.set_defaults(fn=cmd_greeks)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

@@ -1,20 +1,23 @@
 """Carry state across from ``mc_tpu``.
 
 This system has no weights.  What the two packages must share to compute
-the same thing is the contract and geometry, the stream keys, and the
-layout of the surfaces they return.  The inputs here are numpy values (or
-objects with ``mc_tpu``'s field names whose values numpy can read); this
-module never imports ``mc_tpu`` or JAX.
+the same thing is the contract and geometry, the stream keys, the layout of
+the surfaces they return, and the state of a chunked run (a checkpoint).
+The inputs here are numpy values (or objects with ``mc_tpu``'s field names
+whose values numpy can read); this module never imports ``mc_tpu`` or JAX.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
-           "surface_matrix"]
+           "surface_matrix", "checkpoint"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
@@ -78,3 +81,35 @@ def surface_matrix(grid, n_paths: int) -> np.ndarray:
         raise ValueError(f"n_paths={n_paths} exceeds the grid's "
                          f"{rows * lanes} slots")
     return np.moveaxis(g, 0, -1).reshape(rows * lanes, n_steps)[:n_paths]
+
+
+# mc_tpu's checkpoint magic and the meta keys that describe its TPU engine.
+_MC_TPU_MAGIC = "mc_tpu-checkpoint-v1"
+_ENGINE_META = ("engine", "tile_rows")
+
+
+def checkpoint(src) -> Checkpoint:
+    """An ``mc_tpu`` checkpoint -> the port's ``Checkpoint``, so that
+    ``chunked_price(resume=True)`` continues a run ``mc_tpu`` began.
+
+    ``src`` is the path of ``mc_tpu``'s ``.npz``, or a mapping of its
+    arrays (``acc``, ``comp``, ``paths_done``, ``n_paths``, ``meta_*``).
+    The sums are the f64 sum of the Kahan accumulators ``acc`` less the f64
+    sum of their compensations ``comp``; the meta drops ``engine`` and
+    ``tile_rows``, which describe the TPU's kernels and not the run.
+    """
+    if isinstance(src, (str, os.PathLike)):
+        with np.load(src, allow_pickle=False) as z:
+            return checkpoint({k: z[k] for k in z.files})
+    if "magic" in src and str(src["magic"]) != _MC_TPU_MAGIC:
+        raise ValueError(f"not an mc_tpu checkpoint (magic "
+                         f"{str(src['magic'])!r})")
+    acc = np.asarray(src["acc"], np.float64)
+    comp = np.asarray(src["comp"], np.float64)
+    sums = (acc.reshape(acc.shape[0], -1).sum(axis=1)
+            - comp.reshape(comp.shape[0], -1).sum(axis=1))
+    meta = {k[5:]: np.asarray(v).item() if np.ndim(v) == 0 else v
+            for k, v in src.items()
+            if k.startswith("meta_") and k[5:] not in _ENGINE_META}
+    return Checkpoint(paths_done=int(src["paths_done"]),
+                      n_paths=int(src["n_paths"]), sums=sums, meta=meta)

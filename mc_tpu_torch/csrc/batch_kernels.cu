@@ -25,7 +25,7 @@
 // fixed by the path count alone.  Both simulate each leg with the simulate
 // kernel's simulate_path and finish it with its path_payoff and add_moments
 // (payoffs.cuh, reduce.cuh), so a path's payoff is bitwise the same in all
-// three.  Up to 2^21 paths (path_kernels.py MAX_BLOCKS x 256) simulate_kernel
+// three.  Up to 2^21 paths (ops/_cuda.py MAX_BLOCKS x 256) simulate_kernel
 // does not grid-stride either, its blocks are the ladder's and (at 256
 // threads, up to 216 steps) the book's, and strike m's or contract b's rows
 // are bitwise those of simulate_partials at that strike or contract; above

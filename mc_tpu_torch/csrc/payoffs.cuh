@@ -13,7 +13,15 @@
 //   update(st, s, p)             the state after a step that ends at s,
 //   terminal(st, s, p)           the payoff at maturity,
 //   control(st, s, p)            the control variate (s unless the payoff
-//                                has its own).
+//                                has its own);
+// and the five payoffs greeks(method="pathwise") admits (vanilla call and
+// put, best-of-cash, Asian, lookback) carry their forward-mode derivative,
+// what jax.jvp computes in mc_tpu's greek kernel (ops/path_kernels.py:
+// 843-891), written out by hand:
+//   update_tangent(st, dst, s, ds, p)    the tangent of update at (st, s)
+//                                        along (dst, ds) (identity for a
+//                                        stateless payoff),
+//   terminal_tangent(st, dst, s, ds, p)  the tangent of terminal.
 // Kernels that keep one state word per path (trajectories, NMC) read and
 // write word 0, as mc_tpu stores state[0].
 #pragma once
@@ -67,9 +75,20 @@ struct PayoffBase {
   }
   __device__ static State update(State st, float, const Params&) { return st; }
   __device__ static float control(const State&, float s, const Params&) { return s; }
+  __device__ static State update_tangent(const State&, State dst, float, float,
+                                         const Params&) {
+    return dst;
+  }
 };
 
 __device__ __forceinline__ float step01(bool c) { return c ? 1.0f : 0.0f; }
+
+// Tangent of max(a, b) along (da, db): jax.jvp's rule for jnp.maximum (the
+// max of mc_tpu's payoffs), the larger operand's tangent, and half of each
+// at a tie (torch.maximum's derivative splits it the same way).
+__device__ __forceinline__ float max_tangent(float a, float b, float da, float db) {
+  return a > b ? da : (b > a ? db : 0.5f * da + 0.5f * db);
+}
 
 // --- terminal-only payoffs ---------------------------------------------------
 
@@ -77,11 +96,19 @@ struct VanillaCall : PayoffBase<0> {  // max(S_T - K, 0) — trajectories.cuh:76
   __device__ static float terminal(const State&, float s, const Params& p) {
     return fmaxf(s - p.k, 0.0f);
   }
+  __device__ static float terminal_tangent(const State&, const State&, float s, float ds,
+                                           const Params& p) {
+    return max_tangent(s - p.k, 0.0f, ds, 0.0f);
+  }
 };
 
 struct VanillaPut : PayoffBase<0> {
   __device__ static float terminal(const State&, float s, const Params& p) {
     return fmaxf(p.k - s, 0.0f);
+  }
+  __device__ static float terminal_tangent(const State&, const State&, float s, float ds,
+                                           const Params& p) {
+    return max_tangent(p.k - s, 0.0f, -ds, 0.0f);
   }
 };
 
@@ -100,6 +127,10 @@ struct DigitalPut : PayoffBase<0> {  // 1 iff S_T < K
 struct BestOfCash : PayoffBase<0> {  // max(S_T, K)
   __device__ static float terminal(const State&, float s, const Params& p) {
     return fmaxf(s, p.k);
+  }
+  __device__ static float terminal_tangent(const State&, const State&, float s, float ds,
+                                           const Params& p) {
+    return max_tangent(s, p.k, ds, 0.0f);
   }
 };
 
@@ -128,6 +159,15 @@ struct AsianCall : PayoffBase<1> {  // word 0: running sum of S
   }
   __device__ static float terminal(const State& st, float, const Params& p) {
     return fmaxf(st.w[0] * p.inv_n_steps - p.k, 0.0f);
+  }
+  __device__ static State update_tangent(const State&, State dst, float, float ds,
+                                         const Params&) {
+    dst.w[0] = dst.w[0] + ds;
+    return dst;
+  }
+  __device__ static float terminal_tangent(const State& st, const State& dst, float, float,
+                                           const Params& p) {
+    return max_tangent(st.w[0] * p.inv_n_steps - p.k, 0.0f, dst.w[0] * p.inv_n_steps, 0.0f);
   }
 };
 
@@ -173,6 +213,15 @@ struct LookbackFixedCall : PayoffBase<1> {
   }
   __device__ static float terminal(const State& st, float, const Params& p) {
     return fmaxf(st.w[0] - p.k, 0.0f);
+  }
+  __device__ static State update_tangent(const State& st, State dst, float s, float ds,
+                                         const Params&) {
+    dst.w[0] = max_tangent(st.w[0], s, dst.w[0], ds);
+    return dst;
+  }
+  __device__ static float terminal_tangent(const State& st, const State& dst, float, float,
+                                           const Params& p) {
+    return max_tangent(st.w[0] - p.k, 0.0f, dst.w[0], 0.0f);
   }
 };
 
@@ -271,6 +320,11 @@ struct AsianCallGeoCV : PayoffBase<2> {  // words: sum of S, sum of log S
   X(PAYOFF_VANILLA_CALL, VanillaCall) X(PAYOFF_VANILLA_PUT, VanillaPut)   \
   X(PAYOFF_DIGITAL_CALL, DigitalCall) X(PAYOFF_DIGITAL_PUT, DigitalPut)   \
   X(PAYOFF_BEST_OF_CASH, BestOfCash) X(PAYOFF_ZCB, ZeroCouponBond)
+// The payoffs with pathwise tangents (greek_kernels.cu).
+#define MC_PATHWISE_PAYOFFS(X)                                            \
+  X(PAYOFF_VANILLA_CALL, VanillaCall) X(PAYOFF_VANILLA_PUT, VanillaPut)   \
+  X(PAYOFF_BEST_OF_CASH, BestOfCash) X(PAYOFF_ASIAN_CALL, AsianCall)      \
+  X(PAYOFF_LOOKBACK_CALL, LookbackFixedCall)
 #define MC_ONE_WORD_PAYOFFS(X)                                            \
   MC_TERMINAL_PAYOFFS(X)                                                  \
   X(PAYOFF_BULLET_CALL, BulletCall) X(PAYOFF_ASIAN_CALL, AsianCall)       \

@@ -11,16 +11,30 @@ namespace mc {
 
 constexpr int kMaxMoments = 5;
 
+// Add one path's K values and their squares to acc[0..2K) as [v_0, v_0^2,
+// v_1, v_1^2, ...], a path past the bound adding zeros.
+template <int N, int K>
+__device__ __forceinline__ void add_moments(double (&acc)[N], const float (&v)[K],
+                                            bool valid) {
+  static_assert(2 * K <= N, "acc holds a value and its square per value");
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float x = valid ? v[k] : 0.0f;
+    acc[2 * k] += static_cast<double>(x);
+    acc[2 * k + 1] += static_cast<double>(x * x);
+  }
+}
+
 // Add one path's moments to acc, a path past the bound adding zeros:
 // [pay, pay^2] and, with the control variate, [x, x^2, pay*x].
 template <int N>
 __device__ __forceinline__ void add_moments(double (&acc)[N], float pay, float x,
                                             bool valid, bool with_cv) {
-  pay = valid ? pay : 0.0f;
-  acc[0] += static_cast<double>(pay);
-  acc[1] += static_cast<double>(pay * pay);
+  const float pv[1] = {pay};
+  add_moments(acc, pv, valid);
   if constexpr (N == kMaxMoments) {
     if (with_cv) {
+      pay = valid ? pay : 0.0f;
       x = valid ? x : 0.0f;
       acc[2] += static_cast<double>(x);
       acc[3] += static_cast<double>(x * x);

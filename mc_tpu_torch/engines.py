@@ -7,6 +7,11 @@ materializes every step's price and payoff state.  ``price_ladder`` prices
 M strikes on shared paths and ``price_portfolio`` a book of B contracts
 under common random numbers, each in one kernel.  The device is explicit:
 CUDA by default, and there is no fallback when no card is present.
+
+``price`` is differentiable (the counterpart of ``mc_tpu``'s custom VJP,
+``mc_tpu/engines.py:112-157``): option fields given as 0-d tensors that
+require grad flow through the packing, the simulate kernel and the finish,
+so ``torch.autograd.grad`` of a price gives its pathwise derivatives.
 """
 
 from __future__ import annotations
@@ -52,14 +57,33 @@ def resolve_device(device) -> torch.device:
 
 def _f32(v, device):
     """A field as the kernels see it, rounded to f32: a float, or an f64
-    tensor on ``device`` for an array-valued (book) field."""
-    if getattr(v, "ndim", 0):
+    tensor on ``device`` for an array-valued (book) field or a field that
+    requires grad (whose graph it keeps)."""
+    if getattr(v, "ndim", 0) or (torch.is_tensor(v) and v.requires_grad):
         return torch.as_tensor(v).to(torch.float32).to(device, torch.float64)
     return float(np.float32(v))
 
 
+class _HostExp(torch.autograd.Function):
+    """exp of a 0-d tensor by ``math.exp``: the value a float field's
+    ``_exp`` gives, bit for bit, with exp's derivative."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tensor(math.exp(float(x)), dtype=x.dtype, device=x.device)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return grad * y
+
+
 def _exp(x):
-    return torch.exp(x) if torch.is_tensor(x) else math.exp(x)
+    if not torch.is_tensor(x):
+        return math.exp(x)
+    return _HostExp.apply(x) if x.dim() == 0 else torch.exp(x)
 
 
 def control_mean(payoff: PathPayoff, params: torch.Tensor):
@@ -114,6 +138,43 @@ def _stream_key(sim: SimParams, stream: int, key):
     return int(key[0]), int(key[1])
 
 
+class _SimulateSums(torch.autograd.Function):
+    """The finished moment sums of ``simulate_partials`` as a function of
+    the packed parameters, differentiable.
+
+    Forward: the simulate kernel on a CUDA tensor, its plain version on a
+    CPU one, as ``simulate_partials`` chooses; the forward value is always
+    what that call computes.  Backward: ``simulate_partials_plain`` is
+    recomputed on the same device under ``enable_grad`` and its
+    vector-Jacobian product returned.  The plain version computes the
+    kernel's f32 values per path (bitwise on the card, where the kernels
+    are built without float contraction), so this is the gradient of the
+    function the kernel computes, as ``mc_tpu`` differentiates its Pallas
+    kernel through its bitwise-equal XLA dual; it is no fallback.  The
+    sums, not the per-block rows, are the output: the kernel and the plain
+    version cut the paths into different rows.
+    """
+
+    @staticmethod
+    def forward(ctx, params, payoff, cfg, key, path_offset):
+        ctx.save_for_backward(params)
+        ctx.args = (payoff, cfg, key, path_offset)
+        return finish_sum(pk.simulate_partials(payoff, cfg, key,
+                                               params.detach(),
+                                               path_offset=path_offset))
+
+    @staticmethod
+    def backward(ctx, grad_sums):
+        (params,) = ctx.saved_tensors
+        payoff, cfg, key, path_offset = ctx.args
+        with torch.enable_grad():
+            p = params.detach().requires_grad_()
+            sums = finish_sum(pk.simulate_partials_plain(
+                payoff, cfg, key, p, path_offset=path_offset))
+            (grad_params,) = torch.autograd.grad(sums, p, grad_sums)
+        return grad_params, None, None, None, None
+
+
 def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
                 method: str, antithetic: bool, control_variate: bool,
                 rng_source: str, key, path_offset: int, n_paths: int,
@@ -123,18 +184,21 @@ def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
         # both Box-Muller halves become paths: element e = paths (2e, 2e+1)
         cfgp = pk.KernelConfig(n_paths=(n_paths + 1) // 2, n_steps=sim.n_steps,
                                rng_source=rng_source, method="terminal")
-        partials = pk.terminal_pair_partials(payoff, cfgp, key, params, n_paths)
+        sums = finish_sum(pk.terminal_pair_partials(payoff, cfgp, key, params,
+                                                    n_paths))
     else:
         cfg = pk.KernelConfig(n_paths=n_paths, n_steps=sim.n_steps,
                               antithetic=antithetic, with_cv=control_variate,
                               rng_source=rng_source, method=method,
                               is_shift=importance_shift)
-        partials = pk.simulate_partials(payoff, cfg, key, params,
-                                        path_offset=path_offset)
+        if params.requires_grad:
+            sums = _SimulateSums.apply(params, payoff, cfg, key, path_offset)
+        else:
+            sums = finish_sum(pk.simulate_partials(payoff, cfg, key, params,
+                                                   path_offset=path_offset))
     ex = (control_mean(payoff, params)
           if control_variate and payoff.has_control else None)
-    return finish_price(finish_sum(partials), n_paths, option,
-                        control_variate, ex)
+    return finish_price(sums, n_paths, option, control_variate, ex)
 
 
 def price(option: OptionParams = DEMO_OPTION,
@@ -169,6 +233,13 @@ def price(option: OptionParams = DEMO_OPTION,
     every payoff (unbiased); ``"auto"`` centres the terminal log-price at
     log K, (log(K/S0) - (r - q - sigma^2/2) T) / (sigma sqrt(T)), which aims
     deep out-of-the-money paths at the strike.
+
+    Differentiable: an option field may be a 0-d tensor that requires grad,
+    and ``torch.autograd.grad`` of the result then gives the pathwise
+    derivative of the price (``_SimulateSums``); its value is bitwise the
+    price from float fields.  The terminal_pair kernel has no
+    differentiable counterpart (``method="terminal"`` draws the same
+    distribution), nor does ``rng_source="hw"``.
     """
     po = get_payoff(payoff)
     if method is None:
@@ -184,6 +255,12 @@ def price(option: OptionParams = DEMO_OPTION,
         raise ValueError(f"unknown method {method!r}; use 'terminal_pair', "
                          "'terminal' or 'euler'")
     if method == "terminal_pair":
+        if any(torch.is_tensor(v) and v.requires_grad
+               for v in option.astuple()):
+            raise ValueError(
+                "price() with a field that requires grad differentiates the "
+                "simulate kernel; terminal_pair has no differentiable "
+                "counterpart: pass method='terminal'")
         if antithetic or control_variate or importance_shift:
             raise ValueError("terminal_pair is the plain fast path: "
                              "antithetic/control_variate/importance_shift "

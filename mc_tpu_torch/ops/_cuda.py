@@ -27,7 +27,13 @@ from pathlib import Path
 import torch
 
 __all__ = ["cdiv", "launch_counts", "count_launch", "reset_launch_counts",
-           "load", "check", "stream_handle", "build_info", "KERNELS"]
+           "load", "check", "stream_handle", "build_info", "KERNELS",
+           "MAX_BLOCKS"]
+
+# The kernels' grids are capped so a large run grid-strides; the cap depends
+# on nothing but the path or element count, so the order of the per-block
+# partials is fixed.
+MAX_BLOCKS = 8192
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mc_tpu_torch"
@@ -40,16 +46,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
-           "nmc_inner", "ladder", "book")
+           "nmc_inner", "ladder", "book", "greek_partials", "tile_partials",
+           "sum_sumsq")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
-_c_f32 = ctypes.c_float
+_c_f32, _c_u64 = ctypes.c_float, ctypes.c_uint64
 _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
     "mc_nmc_block_threads": ([], _c_int),
     "mc_ladder_block_threads": ([], _c_int),
+    "mc_reduce_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -87,6 +95,14 @@ _SIGNATURES = {
     "mc_book_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
                           _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
                           _c_int, _c_ptr, _c_int, _c_int, _c_ptr], _c_int),
+    # payoff_id, rounds, euler, k0, k1, params, n_steps, n_paths, partials,
+    # n_blocks, stream
+    "mc_greek_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                           _c_int, _c_u32, _c_ptr, _c_int, _c_ptr], _c_int),
+    # x, n, partials, n_blocks, stream
+    "mc_tile_partials": ([_c_ptr, _c_u64, _c_ptr, _c_int, _c_ptr], _c_int),
+    "mc_sum_sumsq_partials": ([_c_ptr, _c_u64, _c_ptr, _c_int, _c_ptr],
+                              _c_int),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
 """Path-simulation kernels: wrappers, plain versions, configuration
 (port of ``mc_tpu/ops/path_kernels.py``).
 
-Three kernels live in ``csrc/path_kernels.cu`` and two in
-``csrc/batch_kernels.cu``:
+Three kernels live in ``csrc/path_kernels.cu``, two in
+``csrc/batch_kernels.cu`` and one in ``csrc/greek_kernels.cu``:
 
 * ``terminal_pair_partials`` (replaces the Pallas kernel at
   ``mc_tpu/ops/path_kernels.py:1015``): one threefry + Box-Muller pair per
@@ -19,6 +19,10 @@ Three kernels live in ``csrc/path_kernels.cu`` and two in
 * ``simulate_book_partials`` (replaces ``mc_tpu/ops/path_kernels.py:760``):
   B contracts, each with its own parameter row, on the same draws (common
   random numbers), the draws made once and replayed for every contract.
+* ``simulate_greek_partials`` (replaces ``mc_tpu/ops/path_kernels.py:932``):
+  simulate's leg carrying the pathwise tangents of the payoff with respect
+  to (s0, sigma, r, q), ten moments (pay, delta, vega, rho', epsilon) x
+  (sum, sumsq).
 
 Each wrapper returns f64 partial sums, one row per block (``(rows,
 moments)``, or ``(rows, M|B, moments)`` for the ladder and the book), for
@@ -38,15 +42,17 @@ import torch
 
 from mc_tpu_torch import rng
 from mc_tpu_torch.ops import _cuda
-from mc_tpu_torch.ops.payoffs import PathPayoff
+from mc_tpu_torch.ops.payoffs import PATHWISE, PathPayoff
 
 __all__ = ["KernelConfig", "PARAM_FIELDS", "pack_params", "pack_params_rows",
            "unpack_params", "terminal_pair_partials", "simulate_partials",
            "simulate_trajectories", "simulate_ladder_partials",
            "simulate_book_partials", "book_block_threads",
+           "simulate_greek_partials",
            "terminal_pair_partials_plain", "simulate_partials_plain",
            "simulate_trajectories_plain", "simulate_ladder_partials_plain",
-           "simulate_book_partials_plain"]
+           "simulate_book_partials_plain", "simulate_greek_partials_plain",
+           "path_chunks", "step_normals", "simulate_leg", "moment_row"]
 
 # ---------------------------------------------------------------------------
 # Parameter packing: the analogue of __constant__ OptionData
@@ -69,10 +75,6 @@ PLAIN_BOOK_DRAW_BYTES = 1 << 28
 BOOK_SMEM_BYTES = 232_448
 BOOK_REDUCE_BYTES = 5 * 8 * 256
 BOOK_MAX_THREADS = 256
-
-# Kernel grids are capped so a large run grid-strides; the cap depends on
-# nothing but the path count, so the partials' order is fixed.
-MAX_BLOCKS = 8192
 
 
 def _pack(fields, n_steps: int) -> torch.Tensor:
@@ -99,9 +101,12 @@ def pack_params(option, n_steps: int, device="cpu") -> torch.Tensor:
 
     Every derived field is computed in f32 in the same order as
     ``mc_tpu.ops.path_kernels.pack_params``, so both packages see the same
-    constants.
+    constants.  Fields are floats or 0-d tensors; a tensor that requires
+    grad keeps its graph (the same f32 operations on the host, so the same
+    bits as from a float).
     """
-    fields = [torch.tensor(float(v), dtype=torch.float32)
+    fields = [v.to("cpu", torch.float32) if torch.is_tensor(v)
+              else torch.tensor(float(v), dtype=torch.float32)
               for v in option.astuple()]
     return _pack(fields, n_steps).to(device)
 
@@ -187,7 +192,7 @@ def _check_params(params: torch.Tensor) -> None:
 
 
 def _grid(lib, n: int) -> int:
-    return min(_cuda.cdiv(n, lib.mc_block_threads()), MAX_BLOCKS)
+    return min(_cuda.cdiv(n, lib.mc_block_threads()), _cuda.MAX_BLOCKS)
 
 
 def _bound(path_offset: int, n_paths: int, n_valid) -> int:
@@ -243,20 +248,37 @@ def _check_resume(payoff: PathPayoff, cfg: KernelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
-                  state_init=None):
+def step_normals(cfg: KernelConfig, draw_pair):
+    """The Euler steps' normals, ``(j, z_j)`` for j from ``cfg.start_step``
+    to ``cfg.n_steps`` (``for_each_draw`` in ``csrc/payoffs.cuh``).
+
+    ``draw_pair(m) -> (z_2m, z_2m+1)``: step j takes half j % 2 of threefry
+    pair j // 2, so both Box-Muller halves of every call are used, an odd
+    resume point starts on the tail half of its pair and an odd step count
+    ends on the head half of one more pair.
+    """
+    for j in range(cfg.start_step, cfg.n_steps):
+        if j % 2 == 0 or j == cfg.start_step:
+            pair = draw_pair(j // 2)
+        yield j, pair[j % 2]
+
+
+def simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
+                 state_init=None, on_draw=None):
     """Simulate one leg to maturity; returns ``(s_t, state, weight)``.
 
     ``draw_pair(m) -> (z_2m, z_2m+1)``; ``s0`` is the per-path start price
-    (the resume price from ``start_step`` on).  The step loop consumes both
-    Box-Muller halves of every threefry call; an odd resume point first
-    takes the tail half of its pair, an odd step count ends with the head
-    half of one more pair.  ``weight`` is the importance-sampling
-    likelihood ratio dP/dQ (None when ``cfg.is_shift`` is 0).
+    (the resume price from ``start_step`` on).  The terminal method takes
+    the head half of pair 0, the Euler loop the draws of ``step_normals``;
+    ``on_draw(z)``, if given, sees each draw in order before any importance
+    shift.  ``weight`` is the importance-sampling likelihood ratio dP/dQ
+    (None when ``cfg.is_shift`` is 0).
     """
     shift = torch.tensor(cfg.is_shift, dtype=torch.float32, device=s0.device)
     if cfg.method == "terminal":
         z, _ = draw_pair(0)
+        if on_draw is not None:
+            on_draw(z)
         if cfg.is_shift:
             z = z + shift
         s_t = s0 * torch.exp(p.drift_t + p.vol_t * z)
@@ -281,18 +303,10 @@ def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
         s = s0 * torch.exp(w)  # log-space: one exp rounding per S_t
         return w, s, payoff.update(state, s, p)
 
-    start, end = cfg.start_step, cfg.n_steps
-    if start % 2:  # odd resume point: consume the tail half of its pair
-        _, z1 = draw_pair(start // 2)
-        w, s, state = one_step(w, state, z1)
-        start += 1
-    for m in range(start // 2, end // 2):
-        z0, z1 = draw_pair(m)
-        w, s, state = one_step(w, state, z0)
-        w, s, state = one_step(w, state, z1)
-    if end % 2:  # odd step count: epilogue consumes the head half only
-        z0, _ = draw_pair(end // 2)
-        w, s, state = one_step(w, state, z0)
+    for _, z in step_normals(cfg, draw_pair):
+        if on_draw is not None:
+            on_draw(z)
+        w, s, state = one_step(w, state, z)
     if cfg.is_shift:
         # log dP/dQ = -theta * sum(eps_j) + n theta^2 / 2, the shifted
         # increments recovered from the log-price accumulator:
@@ -309,8 +323,8 @@ def _payoff_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
     """One leg, its payoff and its control variate: ``(payoff, x)``, x the
     payoff's own control where it has one, else S_T.  Under importance
     sampling both carry the likelihood ratio."""
-    s_t, state, weight = _simulate_leg(payoff, cfg, p, s0, draw_pair,
-                                       state_init)
+    s_t, state, weight = simulate_leg(payoff, cfg, p, s0, draw_pair,
+                                      state_init)
     pay = payoff.terminal(state, s_t, p)
     x = payoff.control(state, s_t, p) if payoff.has_control else s_t
     if weight is not None:
@@ -330,20 +344,32 @@ def _terminal_pair_vals(payoff, p, ids_e, bound_paths: int, z0, z1):
     return [pa + pb, pa * pa + pb * pb]
 
 
-def _chunk_row(vals) -> torch.Tensor:
+def moment_row(vals) -> torch.Tensor:
+    """One chunk's row of partials: the f64 sum of each per-path value."""
     return torch.stack([v.double().sum() for v in vals])
 
 
-def _chunk_ids(cfg: KernelConfig, params, path_offset: int, bound: int,
-               chunk: int = PLAIN_CHUNK):
-    """Per chunk of the plain versions: (start, stop, ids, valid), the ids
-    being the uint32 global path ids of local paths [start, stop)."""
+def path_chunks(cfg: KernelConfig, key, params, path_offset: int = 0,
+                bound=None, chunk: int = PLAIN_CHUNK):
+    """Per chunk of the plain versions: ``(start, stop, ids, valid,
+    draw_pair)``.  ``ids`` are the uint32 global path ids of local paths
+    [start, stop), ``valid`` marks those below ``bound`` (default: the end
+    of the run), and ``draw_pair(m)`` is threefry normal pair m of each
+    path on ``key`` (the kernels' stream)."""
+    k0, k1 = int(key[0]), int(key[1])
+    if bound is None:
+        bound = _bound(path_offset, cfg.n_paths, None)
     for start in range(0, cfg.n_paths, chunk):
         stop = min(start + chunk, cfg.n_paths)
         local = torch.arange(start, stop, dtype=torch.int64,
                              device=params.device)
         ids = (local + path_offset) & 0xFFFFFFFF
-        yield start, stop, ids, ids < bound
+
+        def draw_pair(m, ids=ids):
+            return rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
+                                   rounds=cfg.rng_rounds)
+
+        yield start, stop, ids, ids < bound, draw_pair
 
 
 def terminal_pair_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
@@ -357,7 +383,7 @@ def terminal_pair_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
                              dtype=torch.int64, device=params.device)
         z0, z1 = rng.normal_pair(k0, k1, ids_e, torch.zeros_like(ids_e),
                                  rounds=cfg.rng_rounds)
-        rows.append(_chunk_row(_terminal_pair_vals(
+        rows.append(moment_row(_terminal_pair_vals(
             payoff, p, ids_e, n_paths_total, z0, z1)))
     return torch.stack(rows)
 
@@ -368,16 +394,10 @@ def simulate_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
     """Plain version of the simulate kernel: (chunks, n_moments) f64."""
     state_init = _state_tuple(payoff, state_init)
     p = unpack_params(params)
-    k0, k1 = int(key[0]), int(key[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     rows = []
-    for start, stop, ids, valid in _chunk_ids(cfg, params, path_offset,
-                                              bound):
-
-        def draw_pair(m, ids=ids):
-            return rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
-                                   rounds=cfg.rng_rounds)
-
+    for start, stop, ids, valid, draw_pair in path_chunks(
+            cfg, key, params, path_offset, bound):
         if s_init is None:
             s0, st0 = p.s0.expand(ids.shape), None
         else:
@@ -399,7 +419,7 @@ def simulate_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
             # scheme, unless the payoff brings its own.
             x = torch.where(valid, x, 0.0)
             vals += [x, x * x, pay * x]
-        rows.append(_chunk_row(vals))
+        rows.append(moment_row(vals))
     return torch.stack(rows)
 
 
@@ -411,31 +431,26 @@ def simulate_trajectories_plain(payoff: PathPayoff, cfg: KernelConfig, key,
     state after step j+1; zeros for a payoff without state), the partials
     (chunks, 2) f64 [sum pay, sum pay^2]."""
     p = unpack_params(params)
-    k0, k1 = int(key[0]), int(key[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     s_grid = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
                          device=params.device)
     st_grid = torch.zeros_like(s_grid)
     rows = []
-    for start, stop, ids, valid in _chunk_ids(cfg, params, path_offset,
-                                              bound):
+    for start, stop, ids, valid, draw_pair in path_chunks(
+            cfg, key, params, path_offset, bound):
         s0 = p.s0.expand(ids.shape)
         state = payoff.init(p, torch.zeros_like(s0))
         w = torch.zeros_like(s0)
         s = s0
-        for j in range(cfg.n_steps):
-            if j % 2 == 0:  # one threefry pair per two steps
-                z_pair = rng.normal_pair(k0, k1, ids,
-                                         torch.full_like(ids, j // 2),
-                                         rounds=cfg.rng_rounds)
-            w = w + (p.drift_dt + p.vol_dt * z_pair[j % 2])
+        for j, z in step_normals(cfg, draw_pair):
+            w = w + (p.drift_dt + p.vol_dt * z)
             s = s0 * torch.exp(w)  # log-space: one exp rounding per S_t
             state = payoff.update(state, s, p)
             s_grid[j, start:stop] = s
             if payoff.n_state:
                 st_grid[j, start:stop] = state[0]
         pay = torch.where(valid, payoff.terminal(state, s, p), 0.0)
-        rows.append(_chunk_row([pay, pay * pay]))
+        rows.append(moment_row([pay, pay * pay]))
     return s_grid, st_grid, torch.stack(rows)
 
 
@@ -445,9 +460,70 @@ def _n_pairs(cfg: KernelConfig) -> int:
     return 1 if cfg.method == "terminal" else (cfg.n_steps + 1) // 2
 
 
+def _spot_tangents(p, s, t_j, sum_z, sqrt_dt):
+    """dS/d(s0, sigma, r, q) of S = s0 e^w after elapsed time t_j
+    (``mc_tpu/ops/path_kernels.py:828-834``)."""
+    return (s / p.s0, s * (-p.sigma * t_j + sqrt_dt * sum_z), s * t_j,
+            -(s * t_j))
+
+
+def _greek_leg(payoff: PathPayoff, cfg: KernelConfig, p, draw_pair, like):
+    """One leg's payoff and its tangents with respect to (s0, sigma, r, q):
+    ``(pay, [d_s0, d_sigma, d_r, d_q])``, by the payoff's hand-written
+    ``update_jvp``/``terminal_jvp`` (the port of ``_greek_leg``,
+    ``mc_tpu/ops/path_kernels.py:812-892``); ``like`` is a per-path f32
+    tensor of the chunk's shape."""
+    zero = torch.zeros_like(like)
+    state = payoff.init(p, zero)
+    dstates = [tuple(torch.zeros_like(a) for a in state)] * 4
+    if cfg.method == "terminal":
+        z, _ = draw_pair(0)
+        s = p.s0 * torch.exp(p.drift_t + p.vol_t * z)
+        ds = _spot_tangents(p, s, p.t, z, p.vol_t / p.sigma)
+    else:
+        sqrt_dt = p.vol_dt / p.sigma
+        w, sum_z = zero, zero
+        for j, z in step_normals(cfg, draw_pair):
+            w = w + (p.drift_dt + p.vol_dt * z)
+            sum_z = sum_z + z
+            s = p.s0 * torch.exp(w)
+            if payoff.n_state:
+                t_j = torch.tensor(j + 1.0, dtype=torch.float32,
+                                   device=w.device) * p.dt
+                ds = _spot_tangents(p, s, t_j, sum_z, sqrt_dt)
+                dstates = [payoff.update_jvp(state, dst, s, d, p)
+                           for dst, d in zip(dstates, ds)]
+            state = payoff.update(state, s, p)
+        ds = _spot_tangents(p, s, p.t, sum_z, sqrt_dt)
+    pay = payoff.terminal(state, s, p)
+    return pay, [payoff.terminal_jvp(state, dst, s, d, p)
+                 for dst, d in zip(dstates, ds)]
+
+
 def _negated(draw_pair):
     """The antithetic leg's draws: the same pairs, negated."""
     return lambda m: tuple(-z for z in draw_pair(m))
+
+
+def simulate_greek_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
+                                  params: torch.Tensor):
+    """Plain version of the greek kernel: (chunks, 10) f64, the sum and
+    sum of squares of (pay, delta, vega, rho', epsilon) per path
+    (``_greek_moment_values``, ``mc_tpu/ops/path_kernels.py:895-908``)."""
+    p = unpack_params(params)
+    rows = []
+    for _, _, ids, valid, draw_pair in path_chunks(cfg, key, params):
+        pay, (d_s0, d_sigma, d_r, d_q) = _greek_leg(
+            payoff, cfg, p, draw_pair, torch.zeros_like(ids,
+                                                        dtype=torch.float32))
+        # rho folds the discount's derivative -T*pay; q does not enter
+        # e^{-rT}, so epsilon has none.
+        vals = []
+        for v in (pay, d_s0, d_sigma, d_r - p.t * pay, d_q):
+            v = torch.where(valid, v, 0.0)
+            vals += [v, v * v]
+        rows.append(moment_row(vals))
+    return torch.stack(rows)
 
 
 def simulate_ladder_partials_plain(payoff: PathPayoff, cfg: KernelConfig,
@@ -457,20 +533,15 @@ def simulate_ladder_partials_plain(payoff: PathPayoff, cfg: KernelConfig,
     sum pay^2] per strike, each path simulated once and every strike
     evaluated on it by ``payoff.terminal`` with ``k`` swapped."""
     p = unpack_params(params)
-    k0, k1 = int(key[0]), int(key[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     rows = []
-    for _, _, ids, valid in _chunk_ids(cfg, params, path_offset, bound):
-
-        def draw_pair(m, ids=ids):
-            return rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
-                                   rounds=cfg.rng_rounds)
-
+    for _, _, ids, valid, draw_pair in path_chunks(cfg, key, params,
+                                                   path_offset, bound):
         s0 = p.s0.expand(ids.shape)
-        s_t, state, _ = _simulate_leg(payoff, cfg, p, s0, draw_pair)
+        s_t, state, _ = simulate_leg(payoff, cfg, p, s0, draw_pair)
         if cfg.antithetic:
-            s_n, state_n, _ = _simulate_leg(payoff, cfg, p, s0,
-                                            _negated(draw_pair))
+            s_n, state_n, _ = simulate_leg(payoff, cfg, p, s0,
+                                           _negated(draw_pair))
         per_strike = []
         for k in strikes:
             pm = SimpleNamespace(**{**vars(p), "k": k})
@@ -478,7 +549,7 @@ def simulate_ladder_partials_plain(payoff: PathPayoff, cfg: KernelConfig,
             if cfg.antithetic:
                 pay = 0.5 * (pay + payoff.terminal(state_n, s_n, pm))
             pay = torch.where(valid, pay, 0.0)
-            per_strike.append(_chunk_row([pay, pay * pay]))
+            per_strike.append(moment_row([pay, pay * pay]))
         rows.append(torch.stack(per_strike))
     return torch.stack(rows)
 
@@ -489,17 +560,14 @@ def simulate_book_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
     """Plain version of the book kernel: (chunks, B, n_moments) f64.  A
     chunk's normals are drawn once and replayed for every contract; the
     antithetic leg negates them."""
-    k0, k1 = int(key[0]), int(key[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     n_pairs = _n_pairs(cfg)
     chunk = max(1, min(PLAIN_CHUNK, PLAIN_BOOK_DRAW_BYTES // (8 * n_pairs)))
     contracts = [unpack_params(row) for row in params_rows]
     rows = []
-    for _, _, ids, valid in _chunk_ids(cfg, params_rows, path_offset, bound,
-                                       chunk):
-        draws = [rng.normal_pair(k0, k1, ids, torch.full_like(ids, m),
-                                 rounds=cfg.rng_rounds)
-                 for m in range(n_pairs)]
+    for _, _, ids, valid, draw_pair in path_chunks(
+            cfg, key, params_rows, path_offset, bound, chunk):
+        draws = [draw_pair(m) for m in range(n_pairs)]
         per_contract = []
         for p in contracts:
             s0 = p.s0.expand(ids.shape)
@@ -514,7 +582,7 @@ def simulate_book_partials_plain(payoff: PathPayoff, cfg: KernelConfig, key,
             if cfg.with_cv:
                 x = torch.where(valid, x, 0.0)
                 vals += [x, x * x, pay * x]
-            per_contract.append(_chunk_row(vals))
+            per_contract.append(moment_row(vals))
         rows.append(torch.stack(per_contract))
     return torch.stack(rows)
 
@@ -637,6 +705,48 @@ def simulate_trajectories(payoff: PathPayoff, cfg: KernelConfig, key,
     _cuda.check(status, "trajectories kernel")
     _cuda.count_launch("trajectories")
     return s_grid, st_grid, partials
+
+
+# (pay, delta, vega, rho', epsilon) x (sum, sumsq)
+GREEK_MOMENTS = 10
+
+
+def simulate_greek_partials(payoff: PathPayoff, cfg: KernelConfig, key,
+                            params: torch.Tensor):
+    """(rows, 10) f64 accumulators of the pathwise greeks in one pass:
+    (sum, sumsq) of the payoff and of its derivatives with respect to s0
+    (delta), sigma (vega), r less T*pay (rho, the discount's derivative
+    folded in) and q (epsilon), all undiscounted.  The five payoffs of
+    ``PATHWISE`` only; the plain leg of ``simulate_partials`` (no
+    antithetic, control variate, importance sampling or resume, as in
+    ``mc_tpu``), paths 0..n_paths-1 of the key's stream."""
+    _check_params(params)
+    if payoff.name not in PATHWISE:
+        raise ValueError(
+            f"payoff {payoff.name!r} has no pathwise derivative (a "
+            "discontinuous payoff); use greeks(method='lrm') or "
+            "greeks(method='fd')")
+    if cfg.method == "terminal" and payoff.n_state:
+        raise ValueError(f"{payoff.name} is path-dependent; "
+                         "method='terminal' invalid")
+    if cfg.antithetic or cfg.with_cv or cfg.is_shift or cfg.start_step:
+        raise ValueError("the greek kernel takes no antithetic leg, control "
+                         "variate, importance sampling or resume")
+    if params.device.type == "cpu":
+        return simulate_greek_partials_plain(payoff, cfg, key, params)
+    lib = _cuda.load()
+    n_blocks = _grid(lib, cfg.n_paths)
+    partials = torch.empty((n_blocks, GREEK_MOMENTS), dtype=torch.float64,
+                           device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_greek_partials(
+            payoff.cuda_id, cfg.rng_rounds, int(cfg.method == "euler"),
+            int(key[0]), int(key[1]), params.data_ptr(), cfg.n_steps,
+            cfg.n_paths, partials.data_ptr(), n_blocks,
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "greek kernel")
+    _cuda.count_launch("greek_partials")
+    return partials
 
 
 def _check_batch(payoff: PathPayoff, cfg: KernelConfig, what: str) -> None:

@@ -10,6 +10,14 @@ is exact up to 2^24 steps.
 The arithmetic follows ``mc_tpu`` operation for operation (same operands,
 same association), so a kernel built with ``--fmad=false`` rounds each value
 as the plain version does.
+
+The five payoffs ``greeks(method="pathwise")`` admits (``PATHWISE``) carry
+their forward-mode derivative written out by hand, ``update_jvp`` and
+``terminal_jvp``: what ``jax.jvp`` computes in ``mc_tpu``'s greek kernel
+(``mc_tpu/ops/path_kernels.py:843-891``), and what ``csrc/payoffs.cuh``'s
+``update_tangent``/``terminal_tangent`` compute in the same association.
+Their maxima are ``torch.maximum``, whose derivative, like ``jnp.maximum``'s,
+splits the tangent half and half at a tie.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-__all__ = ["PathPayoff", "PAYOFFS", "get_payoff"]
+__all__ = ["PathPayoff", "PAYOFFS", "PATHWISE", "get_payoff"]
 
 State = Tuple[Any, ...]
 
@@ -63,6 +71,15 @@ class PathPayoff:
     def control_expectation(self, p):
         raise NotImplementedError
 
+    # Pathwise tangents (the payoffs in PATHWISE): ``update_jvp(state,
+    # dstate, s, ds, p)`` is the tangent of ``update`` at (state, s) along
+    # (dstate, ds), ``terminal_jvp`` that of ``terminal``; p is held fixed.
+    def update_jvp(self, state, dstate, s, ds, p):
+        return dstate
+
+    def terminal_jvp(self, state, dstate, s, ds, p):
+        raise NotImplementedError(f"{self.name} has no pathwise derivative")
+
     def __repr__(self):
         return f"<PathPayoff {self.name}>"
 
@@ -77,6 +94,18 @@ def _step(cond, like):
     return cond.to(like.dtype)
 
 
+def _max0(x):
+    """max(x, 0) by ``torch.maximum``, whose derivative halves at a tie."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def max_tangent(a, b, da, db):
+    """Tangent of max(a, b) along (da, db): the larger operand's tangent,
+    half of each at a tie (``jnp.maximum``'s JVP, ``torch.maximum``'s
+    derivative); ``payoffs.cuh`` max_tangent is the same expression."""
+    return torch.where(a > b, da, torch.where(b > a, db, 0.5 * da + 0.5 * db))
+
+
 class VanillaCall(PathPayoff):
     """max(S_T - K, 0) — trajectories.cuh:76."""
 
@@ -85,7 +114,11 @@ class VanillaCall(PathPayoff):
     cuda_id = 0
 
     def terminal(self, state, s, p):
-        return torch.clamp(s - p.k, min=0.0)
+        return _max0(s - p.k)
+
+    def terminal_jvp(self, state, dstate, s, ds, p):
+        return max_tangent(s - p.k, torch.zeros_like(s), ds,
+                           torch.zeros_like(ds))
 
 
 class VanillaPut(PathPayoff):
@@ -94,7 +127,11 @@ class VanillaPut(PathPayoff):
     cuda_id = 1
 
     def terminal(self, state, s, p):
-        return torch.clamp(p.k - s, min=0.0)
+        return _max0(p.k - s)
+
+    def terminal_jvp(self, state, dstate, s, ds, p):
+        return max_tangent(p.k - s, torch.zeros_like(s), -ds,
+                           torch.zeros_like(ds))
 
 
 class DigitalCall(PathPayoff):
@@ -130,6 +167,9 @@ class BestOfCash(PathPayoff):
 
     def terminal(self, state, s, p):
         return torch.maximum(s, p.k)
+
+    def terminal_jvp(self, state, dstate, s, ds, p):
+        return max_tangent(s, p.k, ds, torch.zeros_like(ds))
 
 
 class ZeroCouponBond(PathPayoff):
@@ -184,7 +224,16 @@ class AsianCall(PathPayoff):
 
     def terminal(self, state, s, p):
         (acc,) = state
-        return torch.clamp(acc * p.inv_n_steps - p.k, min=0.0)
+        return _max0(acc * p.inv_n_steps - p.k)
+
+    def update_jvp(self, state, dstate, s, ds, p):
+        (dacc,) = dstate
+        return (dacc + ds,)
+
+    def terminal_jvp(self, state, dstate, s, ds, p):
+        (acc,), (dacc,) = state, dstate
+        return max_tangent(acc * p.inv_n_steps - p.k, torch.zeros_like(acc),
+                           dacc * p.inv_n_steps, torch.zeros_like(dacc))
 
 
 class UpOutCall(PathPayoff):
@@ -267,7 +316,16 @@ class LookbackFixedCall(PathPayoff):
 
     def terminal(self, state, s, p):
         (m,) = state
-        return torch.clamp(m - p.k, min=0.0)
+        return _max0(m - p.k)
+
+    def update_jvp(self, state, dstate, s, ds, p):
+        (m,), (dm,) = state, dstate
+        return (max_tangent(m, s, dm, ds),)
+
+    def terminal_jvp(self, state, dstate, s, ds, p):
+        (m,), (dm,) = state, dstate
+        return max_tangent(m - p.k, torch.zeros_like(m), dm,
+                           torch.zeros_like(dm))
 
 
 def _bridge_survival(surv, inside, a, bb, p):
@@ -434,6 +492,9 @@ class AsianCallGeoCV(AsianCall):
     n_state = 2
     has_control = True
     cuda_id = 17
+    # Not pathwise: drop the one-word Asian's tangent rules.
+    update_jvp = PathPayoff.update_jvp
+    terminal_jvp = PathPayoff.terminal_jvp
 
     def init(self, p, like):
         return (torch.zeros_like(like), torch.zeros_like(like))
@@ -479,6 +540,12 @@ PAYOFFS: Dict[str, PathPayoff] = {
         ForwardStartCall(), Cliquet(), DigitalPut(), BestOfCash(),
     )
 }
+
+
+# The payoffs whose pathwise derivative is valid (a.e.-differentiable):
+# mc_tpu/greeks.py _PATHWISE_OK.
+PATHWISE = ("vanilla_call", "vanilla_put", "asian_call", "lookback_call",
+            "best_of_cash")
 
 
 def get_payoff(name_or_payoff) -> PathPayoff:

@@ -1,9 +1,10 @@
 """Closed-form oracles and the Monte Carlo result type
-(port of ``mc_tpu/oracle.py:63-200,459-505,568-638``).
+(port of ``mc_tpu/oracle.py:63-200,459-505,549-638``).
 
 The oracles are host f64 through ``math.erf``/``math.erfc``: the gates of
-the payoffs (vanilla, digital, continuous-barrier, forward-start, cliquet)
-and the implied volatility.  ``summarize`` turns f64 moment sums into a
+the payoffs (vanilla, digital, continuous-barrier, forward-start, cliquet),
+of the greeks (Black-Scholes delta, vega, gamma) and the implied
+volatility.  ``summarize`` turns f64 moment sums into a
 `PriceResult` on whatever device the sums live.
 """
 
@@ -17,7 +18,8 @@ import torch
 
 __all__ = ["bs_call", "bs_put", "bs_digital_call", "bs_digital_put",
            "bs_up_out_call", "bs_down_out_call", "bs_forward_start_call",
-           "bs_cliquet", "bs_implied_vol", "PriceResult", "summarize"]
+           "bs_cliquet", "bs_delta_call", "bs_vega", "bs_gamma",
+           "bs_implied_vol", "PriceResult", "summarize"]
 
 
 def _ncdf(x: float) -> float:
@@ -150,11 +152,34 @@ def bs_cliquet(n_periods, dt_period, floor, cap, t, r, sigma,
     return math.exp(-r * t) * n_periods * e_clamp
 
 
-def _bs_vega(s0, k, t, r, sigma, q) -> float:
-    d1 = ((math.log(s0 / k) + (r - q + 0.5 * sigma * sigma) * t)
-          / (sigma * math.sqrt(t)))
+def _d1(s0, k, t, r, sigma, q) -> float:
+    return ((math.log(s0 / k) + (r - q + 0.5 * sigma * sigma) * t)
+            / (sigma * math.sqrt(t)))
+
+
+def _pdf(x: float) -> float:
+    return math.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+
+
+def bs_delta_call(s0, k, t, r, sigma, q=0.0) -> float:
+    """Black-Scholes call delta e^{-qT} N(d1)."""
+    s0, k, t, r, sigma, q = map(float, (s0, k, t, r, sigma, q))
+    return math.exp(-q * t) * _ncdf(_d1(s0, k, t, r, sigma, q))
+
+
+def bs_vega(s0, k, t, r, sigma, q=0.0) -> float:
+    """dC/dsigma = s0 e^{-qT} phi(d1) sqrt(T)."""
+    s0, k, t, r, sigma, q = map(float, (s0, k, t, r, sigma, q))
+    d1 = _d1(s0, k, t, r, sigma, q)
     return (s0 * math.exp(-q * t) * math.exp(-0.5 * d1 * d1)
             / math.sqrt(2.0 * math.pi) * math.sqrt(t))
+
+
+def bs_gamma(s0, k, t, r, sigma, q=0.0) -> float:
+    """d2C/dS0^2 = e^{-qT} phi(d1) / (s0 sigma sqrt(T))."""
+    s0, k, t, r, sigma, q = map(float, (s0, k, t, r, sigma, q))
+    return (math.exp(-q * t) * _pdf(_d1(s0, k, t, r, sigma, q))
+            / (s0 * sigma * math.sqrt(t)))
 
 
 def bs_implied_vol(price, s0, k, t, r, q=0.0, n_iter: int = 24) -> float:
@@ -176,7 +201,7 @@ def bs_implied_vol(price, s0, k, t, r, q=0.0, n_iter: int = 24) -> float:
             lo = sigma
         if diff > 0.0:
             hi = sigma
-        newton = sigma - diff / max(_bs_vega(s0, k, t, r, sigma, q), 1e-8)
+        newton = sigma - diff / max(bs_vega(s0, k, t, r, sigma, q), 1e-8)
         sigma = newton if lo < newton < hi else 0.5 * (lo + hi)
     return sigma
 

@@ -41,9 +41,9 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def coupon_dates(expiry, tenor, n: int, device="cpu") -> torch.Tensor:
+def coupon_dates(expiry, tenor, n: int, device="cuda") -> torch.Tensor:
     """Observation dates of a rates exposure grid: expiry + i*tenor for
-    i = 0..n-1 (a swap's coupon or exercise dates)."""
+    i = 0..n-1 (a swap's coupon or exercise dates), on ``device``."""
     return (_f32(expiry, device)
             + torch.arange(n, dtype=torch.float32, device=device)
             * _f32(tenor, device))

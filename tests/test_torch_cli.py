@@ -107,6 +107,14 @@ def test_cuda_default_without_a_card_fails_loudly():
         mt.price_ladder([90.0, 110.0], mt.DEMO_OPTION, sim)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt.price_nmc(mt.DEMO_OPTION, sim, strategy="grid")
+    for fn in (mt.greeks, mt.chunked_price):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, sim)
+    with pytest.raises((RuntimeError, AssertionError)):
+        mt.coupon_dates(0.5, 0.25, 4)  # a CUDA tensor by default
+    proc = _run("-m", "mc_tpu_torch", "greeks", "--n-paths", "1000")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
 
 
 def test_import_keeps_jax_nvcc_and_triton_out():
@@ -177,3 +185,30 @@ def test_price_closed_form_fields(capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert abs(res["price"] - res["closed_form_continuous_barrier"]) <= (
         4 * res["stderr"])
+
+
+def test_greeks_subcommand_emits_json(capsys):
+    """mc_tpu's greeks flags: the default which goes through autograd, a
+    kernel-sized which adds the stderrs and the price, lrm its own set."""
+    from mc_tpu_torch import cli
+    from mc_tpu_torch.greeks import greeks
+
+    base = ["greeks", "--device", "cpu", "--n-paths", "4096", "--n-steps",
+            "8"]
+    assert cli.main(base) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["delta", "rho", "theta", "vega"]
+    assert 0.3 < res["delta"] < 1.0 and res["theta"] < 0
+    assert cli.main(base + ["--which", "delta,vega", "--payoff",
+                            "asian_call"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    import mc_tpu_torch as mt
+    want = greeks(mt.OptionParams(), mt.SimParams(n_paths=4096, n_steps=8),
+                  "asian_call", which=("delta", "vega"), device="cpu")
+    assert res == {k: float(v) for k, v in want.items()}
+    assert cli.main(base + ["--method", "lrm", "--payoff", "bullet_call",
+                            "--p1", "1", "--p2", "6"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == sorted(["delta", "vega", "rho", "price"]
+                                 + [f"{k}_stderr" for k in
+                                    ("delta", "vega", "rho", "price")])
