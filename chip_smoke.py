@@ -7,15 +7,18 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
    ``mc_tpu_torch/csrc`` with ``nvcc``;
-2. each of the ten CUDA kernels against its plain PyTorch version on the
-   card, same key, with the tolerances of the parity contract, at the
+2. each of the fourteen CUDA kernels against its plain PyTorch version on
+   the card, same key, with the tolerances of the parity contract, at the
    contract's sizes and at the main path's shapes: the simulate kernel for
    all 18 payoffs (with resume, multi-word resume, importance sampling and
    the geometric control variate too), the terminal kernels for the six
    terminal-only payoffs, trajectories and both NMC kernels for the payoffs
    with one state word, the strike ladder and the batched book, the greek
    kernel for the five pathwise payoffs and the two reductions up to 2^26
-   elements (one view misaligned);
+   elements (one view misaligned); the Heston kernel for its 16 payoffs
+   (Euler and QE, threefry-13 and -20, antithetic, 1M x 100), the Heston
+   trajectories for the one-word payoffs and both family NMC kernels,
+   their sums to f64 rounding and their grids and surfaces bit for bit;
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -28,14 +31,20 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    100,000 x 100 by kernel and autograd, theta by autograd, the bullet's
    delta and gamma by CRN-FD against LRM, the digital's LRM gamma, a
    4 x 2^20-path chunked run stopped and resumed, and the reductions over
-   a payoff array and 2^26 normals;
-4. the kernels' launch counts over phase 3;
+   a payoff array and 2^26 normals; then, its launch counts set to 0
+   again, the Heston path: price_heston at 1M x 100 (Euler and QE) against
+   the CF oracle, every Heston payoff at 100,000 x 100, the 16,384 x 100 x
+   500 Heston NMC by both strategies (grid == fused, the tower property),
+   its XVA figures and the ``heston`` and ``nmc --model heston`` commands;
+4. the kernels' launch counts over each of the two paths;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up), the ladder and the book beside the single-contract
    launches they replace, the simulate kernel per payoff with its
    registers, the greek kernel beside the simulate kernel on its shape,
-   the reductions beside ``torch.sum``, and end-to-end times of the
-   phase-3 calls (greeks() by route, chunked_price());
+   the reductions beside ``torch.sum``, the Heston kernels beside the GBM
+   kernels of the same shapes, and end-to-end times of the phase-3 calls
+   (greeks() by route, chunked_price(), price_heston(),
+   price_nmc_heston());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -83,6 +92,13 @@ PAY_ARRAY = 1 << 20                  # phase 3: the call's payoff array
 NORMALS = 1 << 26                    # phase 3: normals through sum_sumsq
 REPS = 5
 DEVICE = "cuda"
+# The Heston slice (bench.py's Heston rows are 1M x 100).
+HESTON_PATHS = 65_536                # phase 2: every payoff, 100 steps
+HESTON_MAIN = 1_000_000              # price_heston at 1M x 100
+HESTON_PAYOFF_MAIN = 100_000         # phase 3: every payoff; #13's shape
+HESTON_NMC_ROWS = (0, 49, 98, 99)    # phase 2: the plain rows at NMC_MAIN
+HESTON_KERNELS = ("heston_partials", "heston_trajectories", "family_inner",
+                  "family_fused")
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -165,6 +181,12 @@ TERMINAL_DRAW_OPS = (0, 3, 1)  # S_T = s0 * exp(drift_t + vol_t * z)
 # the payoff's five values and their squares.
 GREEK_STEP_OPS = (0, 1 + 2 + 8 + 5, 0)
 GREEK_TERMINAL_OPS = (0, 8 + 4 * 3 + 2 + 10, 0)
+# A Heston Euler step on top of its whole threefry pair (heston.cuh): z_s
+# (3), v+ (1), sq (2 and a sqrtf), w (6), v (7), S = s0*expf(w) (1).
+HESTON_EULER_OPS = (0, 20, 2)
+# An inner leg's end: its counter base (2), the call's payoff (2) and the
+# Kahan step (4).
+KAHAN_LEG_OPS = (2, 6, 0)
 
 
 def path_ops(payoff: str, n_steps: int, rounds: int):
@@ -251,6 +273,11 @@ def ptxas_registers(log: str) -> dict:
             b = re.match(r"ILb(\d)E", rest)  # sum_kernel<bool>
             payoff = (rest[p.end():p.end() + int(p.group(1))] if p
                       else f"bool{b.group(1)}" if b else None)
+            f = re.match(r"ENS_(\d+)", rest[p.end() + len(payoff):]) if p else None
+            if f and payoff.endswith("Family"):  # kernel<Family, Payoff>
+                kernel = f"{kernel}<{payoff}>"
+                at = p.end() + len(payoff) + f.end()
+                payoff = rest[at:at + int(f.group(1))]
             r = re.search(r"ELi(\d+)E", rest)
             entry = (kernel, payoff, int(r.group(1)) if r else None)
             continue
@@ -280,6 +307,442 @@ def contract(mt, book, b: int):
     return mt.OptionParams(*(float(v[b]) for v in book.astuple()))
 
 
+def payoff_option(mt, name):
+    return mt.OptionParams(**PAYOFF_OPTIONS.get(name, {}))
+
+
+def check_sums(name, got, want) -> float:
+    """Phase 2: finished f64 sums of a kernel against its plain version's,
+    to f64 rounding (the same f32 values per path, added in another
+    order).  Returns the largest relative difference."""
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+    ok = rel <= SUMS_RTOL
+    print(f"phase 2: {name}: {share(got == want):.2f} of the sums bitwise,"
+          f" max rel {rel:.3e} (limit {SUMS_RTOL}) "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: the kernel disagrees with its plain version")
+    return rel
+
+
+# --- the Heston slice: kernels #12, #13, #29, #30 ---------------------------
+
+
+def price_err(got, want, n_paths, opt) -> float:
+    """Largest |d price|, |d stderr| of two finished moment sums."""
+    from mc_tpu_torch.engines import finish_price
+
+    g = finish_price(got, n_paths, opt)
+    w = finish_price(want, n_paths, opt)
+    return max(abs(float(g.price) - float(w.price)),
+               abs(float(g.stderr) - float(w.stderr)))
+
+
+def check_bitwise(name, got, want) -> float:
+    """Phase 2: grids and surfaces, kernel against plain version, bit for
+    bit.  Returns the largest absolute difference."""
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"phase 2: {name}: " + ", ".join(
+        f"{share(a == b):.6f}" for a, b in zip(got, want))
+          + f" of entries bitwise, max |d| {err:.3e} "
+          f"{'ok' if all(same) else 'MISMATCH'}")
+    if not all(same):
+        fail(f"{name}: the kernel's grids disagree with its plain version")
+    return err
+
+
+def heston_kernel_checks(mt, dev, keys):
+    """Phase 2 of the Heston slice: kernels #12, #13, #29 and #30 against
+    their plain versions on the card.  Returns ({kernel: max abs error},
+    ms of the plain version's four rows at NMC_MAIN)."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.models import heston as hm
+    from mc_tpu_torch.nmc_heston import HestonNMC
+    from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    key, key_in = keys
+    err = dict.fromkeys(HESTON_KERNELS, 0.0)
+    dyn = hm.DEMO_HESTON
+
+    def note(kernel, e):
+        err[kernel] = max(err[kernel], e)
+
+    def partials_case(name, n_paths, **kw):
+        po, opt = get_payoff(name), payoff_option(mt, name)
+        cfg = hm.HestonConfig(n_paths=n_paths, n_steps=MAIN_STEPS, **kw)
+        prm = hm.pack_heston(opt, dyn, MAIN_STEPS, dev)
+        got = finish_sum(hm.heston_partials(po, cfg, key, prm))
+        want = finish_sum(hm.heston_partials_plain(po, cfg, key, prm))
+        check_sums(f"heston_partials {name} {cfg.scheme} {n_paths}x"
+                   f"{MAIN_STEPS} {cfg.rng_source} anti={cfg.antithetic}",
+                   got, want)
+        note("heston_partials", price_err(got, want, n_paths, opt))
+
+    for name in sorted(PAYOFFS):
+        if name not in hm.SIGMA_PAYOFFS:
+            partials_case(name, HESTON_PATHS)
+    for name in ("vanilla_call", "asian_call", "bullet_call"):
+        for kw in (dict(scheme="qe"), dict(rng_source="threefry"),
+                   dict(antithetic=True),
+                   dict(scheme="qe", rng_source="threefry", antithetic=True)):
+            partials_case(name, HESTON_PATHS, **kw)
+    for scheme in ("euler", "qe"):  # the main shape: a partly filled block
+        partials_case("vanilla_call", HESTON_MAIN, scheme=scheme)
+
+    def traj_case(name, n_paths):
+        po, opt = get_payoff(name), payoff_option(mt, name)
+        cfg = hm.HestonConfig(n_paths=n_paths, n_steps=MAIN_STEPS)
+        prm = hm.pack_heston(opt, dyn, MAIN_STEPS, dev)
+        *g_k, part_k = hm.heston_trajectories(po, cfg, key, prm)
+        *g_p, part_p = hm.heston_trajectories_plain(po, cfg, key, prm)
+        label = f"heston_trajectories {name} {n_paths}x{MAIN_STEPS}"
+        note("heston_trajectories",
+             check_bitwise(f"{label} (S, v, state)", g_k, g_p))
+        got, want = finish_sum(part_k), finish_sum(part_p)
+        check_sums(f"{label} payoff", got, want)
+        note("heston_trajectories", price_err(got, want, n_paths, opt))
+
+    for name, po in sorted(PAYOFFS.items()):
+        if po.n_state <= 1:
+            traj_case(name, HESTON_PATHS)
+    traj_case("bullet_call", HESTON_PAYOFF_MAIN)
+
+    fam = HestonNMC()
+
+    def family_case(po, opt, shape, rows=None):
+        """Both family kernels at shape; against the whole plain surface,
+        or only its ``rows``."""
+        n_out, n_steps, n_inner = shape
+        cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+        prm = hm.pack_heston(opt, dyn, n_steps, dev)
+        label = f"{po.name} " + "x".join(map(str, shape))
+        surf_f, outer_f = ne.family_fused(fam, po, cfg, key, key_in, prm)
+        *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
+        surf_i = ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k)
+        *g_p, st_p, outer_p = fam.trajectories_plain(po, cfg, key, prm)
+        check_bitwise(f"heston_trajectories {label} (S, v, state)",
+                      (*g_k, st_k), (*g_p, st_p))
+        rows = list(range(n_steps)) if rows is None else list(rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ne.family_rows_plain(fam, po, cfg, key_in, prm, g_p, st_p,
+                                    rows)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        what = "" if len(rows) == n_steps else f" rows {rows}"
+        note("family_fused", check_bitwise(
+            f"family_fused {label}{what} (plain {plain_ms:.1f} ms)",
+            (surf_f[rows],), (want,)))
+        note("family_inner", check_bitwise(
+            f"family_inner {label}{what}", (surf_i[rows],), (want,)))
+        got, want_o = finish_sum(outer_f), finish_sum(outer_p)
+        check_sums(f"family_fused {label} outer moments", got, want_o)
+        note("family_fused", price_err(got, want_o, n_out, opt))
+        return plain_ms
+
+    for name in ("bullet_call", "asian_call", "vanilla_call"):
+        family_case(get_payoff(name), payoff_option(mt, name), NMC_SMALL)
+    rows_ms = family_case(get_payoff("vanilla_call"), mt.DEMO_OPTION,
+                          NMC_MAIN, HESTON_NMC_ROWS)
+    return err, rows_ms
+
+
+def run_cli(argv) -> dict:
+    """The last JSON line ``python -m mc_tpu_torch <argv>`` prints, run in
+    this process (its launches count with the path's)."""
+    import contextlib
+    import io
+
+    from mc_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"python -m mc_tpu_torch {' '.join(argv)} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def heston_main_path(mt, dev, _cuda):
+    """Phase 3 of the Heston slice at full width: price_heston at 1M x 100
+    (Euler and QE) against the CF oracle, every payoff at 100,000 x 100,
+    price_nmc_heston at NMC_MAIN by both strategies, its XVA figures and
+    the two CLI commands.  The launch counts are set to 0 before it and
+    read after it: {kernel: launches}."""
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    _cuda.reset_launch_counts()
+    option, dyn = mt.DEMO_OPTION, mt.DEMO_HESTON
+    cf = mt.heston_call_cf(option.s0, option.k, option.t, option.r,
+                           *dyn.astuple(), q=option.q)
+    sim = mt.SimParams(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
+    res = {}
+    for scheme, n_se, bias in (("euler", 4.0, 0.005), ("qe", 3.0, 0.003)):
+        for anti in (False, True):
+            r = mt.price_heston(option, dyn, sim, scheme=scheme,
+                                antithetic=anti, device=DEVICE)
+            res[scheme, anti] = r
+            tol = n_se * float(r.stderr) + bias * cf
+            d = abs(float(r.price) - cf)
+            print(f"phase 3: price_heston {scheme} antithetic={anti} "
+                  f"{HESTON_MAIN}x{MAIN_STEPS}: {float(r.price):.5f} +/- "
+                  f"{float(r.stderr):.5f} vs CF {cf:.5f}: |d| {d:.5f} "
+                  f"(limit {n_se:g} se + {bias:.1%} = {tol:.5f})")
+            if not (math.isfinite(d) and d <= tol):
+                fail(f"price_heston {scheme} misses the CF oracle")
+        if not float(res[scheme, True].stderr) < float(res[scheme, False]
+                                                       .stderr):
+            fail(f"price_heston {scheme}: antithetic does not cut the stderr")
+
+    psim = mt.SimParams(n_paths=HESTON_PAYOFF_MAIN, n_steps=MAIN_STEPS)
+    pay = {name: mt.price_heston(payoff_option(mt, name), dyn, psim, name,
+                                 device=DEVICE)
+           for name in sorted(PAYOFFS) if name not in SIGMA_PAYOFFS}
+    print(f"phase 3: price_heston euler {HESTON_PAYOFF_MAIN}x{MAIN_STEPS}: "
+          + ", ".join(f"{n} {float(r.price):.6f} +/- {float(r.stderr):.6f}"
+                      for n, r in pay.items()))
+    van = float(pay["vanilla_call"].price)
+    van_down = float(mt.price_heston(payoff_option(mt, "down_out_call"), dyn,
+                                     psim, device=DEVICE).price)
+    d_inout = abs(float(pay["down_in_call"].price)
+                  + float(pay["down_out_call"].price) - van_down)
+    disc = math.exp(-float(np.float32(option.r)) * float(np.float32(option.t)))
+    d_dig = abs(float(pay["digital_call"].price)
+                + float(pay["digital_put"].price) - disc)
+    print(f"phase 3: heston ordering and parity: asian "
+          f"{float(pay['asian_call'].price):.6f}, up-and-out "
+          f"{float(pay['up_out_call'].price):.6f} < vanilla {van:.6f}; "
+          f"down-in + down-out - vanilla {d_inout:.3e}; digital call + put "
+          f"- e^-rT {d_dig:.3e}; zcb {float(pay['zcb'].price):.15f}")
+    if not (all(math.isfinite(float(r.price)) and math.isfinite(
+            float(r.stderr)) for r in pay.values())
+            and 0.0 < float(pay["asian_call"].price) < van
+            and 0.0 < float(pay["up_out_call"].price) < van
+            and d_inout <= 1e-12 * van_down and d_dig <= 2e-6 * disc
+            and float(pay["zcb"].price) == disc):
+        fail("a Heston payoff is not finite or breaks its ordering or "
+             "parity gate")
+
+    n_out, n_steps, n_inner = NMC_MAIN
+    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
+    t0 = time.perf_counter()
+    fused = mt.price_nmc_heston(option, dyn, nsim, strategy="fused",
+                                device=DEVICE)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    grid = mt.price_nmc_heston(option, dyn, nsim, strategy="grid",
+                               device=DEVICE)
+    surf = fused.surface_matrix()
+    if (tuple(surf.shape) != (n_out, n_steps)
+            or not bool(torch.isfinite(surf).all())):
+        fail(f"Heston NMC surface has shape {tuple(surf.shape)} or "
+             "non-finite values")
+    same = bool(torch.equal(grid.surface, fused.surface))
+    d_outer = abs(float(grid.outer.price) - float(fused.outer.price))
+    ph = mt.price_heston(option, dyn, mt.SimParams(n_paths=n_out,
+                                                   n_steps=n_steps),
+                         device=DEVICE)
+    d_ph = max(abs(float(r.outer.price) - float(ph.price))
+               for r in (fused, grid)) / float(ph.price)
+    p32 = mt.engines.pk.unpack_params(mt.engines.pk.pack_params(
+        option, n_steps, dev))
+    want = torch.exp(-p32.r * p32.t) * torch.clamp(
+        grid.spot_surface[-1] - p32.k, min=0.0)
+    last_ok = bool(torch.allclose(grid.surface[-1], want, rtol=1e-5, atol=0.0))
+    cols = surf.double().mean(dim=0)
+    tol_cf = 0.02 * cf + 4 * 0.15  # tests/test_nmc.py:147
+    d_cols = float((cols - cf).abs().max())
+    d_mean = abs(float(fused.surface_mean) - cf)
+    d_out_cf = abs(float(fused.outer.price) - cf)
+    print(f"phase 3: price_nmc_heston {n_out}x{n_steps}x{n_inner} "
+          f"(fused {fused_s:.2f} s): grid == fused "
+          f"{'bitwise' if same else 'NOT bitwise'} "
+          f"({share(grid.surface == fused.surface):.6f}), outer "
+          f"{float(fused.outer.price):.6f} +/- {float(fused.outer.stderr):.6f}"
+          f" (grid's |d| {d_outer:.3e}; price_heston euler on the outer key "
+          f"{float(ph.price):.6f}, rel {d_ph:.2e}); last step == e^-rT "
+          f"payoff(S_T): {'ok' if last_ok else 'MISMATCH'} "
+          f"({share(grid.surface[-1] == want):.6f} bitwise); tower vs CF "
+          f"{cf:.5f}: surface mean |d| {d_mean:.5f}, max column |d| "
+          f"{d_cols:.5f} (limit {tol_cf:.5f}), outer |d| {d_out_cf:.5f}")
+    if not (same and last_ok and d_ph <= SUMS_RTOL
+            and d_outer <= SUMS_RTOL * float(fused.outer.price)
+            and d_mean < tol_cf and d_cols < tol_cf
+            and d_out_cf <= 4.0 * float(fused.outer.stderr) + 0.02 * cf):
+        fail("the Heston NMC breaks grid == fused, its last step, the tower "
+             "property or its outer price")
+
+    cva = float(grid.cva(0.02))
+    fca, fba = grid.fva(0.01)
+    xva = {
+        "cva(0.02)": cva, "dva(0.01)": float(grid.dva(0.01)),
+        "bilateral_cva(0.02, 0.01)": float(grid.bilateral_cva(0.02, 0.01)),
+        "fca(0.01)": float(fca), "fba(0.01)": float(fba),
+        "mva(0.01, 99%, mpor 2)": float(grid.mva(0.01, 0.99, 2)),
+        "collateralized cva (H=1, mta=0.1, mpor 2)": float(
+            grid.collateralized(1.0, mta=0.1, mpor_steps=2).cva(0.02)),
+        "cva_wwr(0.02, beta=0.05)": float(grid.cva_wwr(0.02, 0.05)),
+        "cva_wwr_spot(0.02, beta=0)": float(grid.cva_wwr_spot(0.02, 0.0)),
+    }
+    print("phase 3: xva of the Heston grid surface: " + ", ".join(
+        f"{k} {v:.7f}" for k, v in xva.items()))
+    if not (all(math.isfinite(v) for v in xva.values()) and cva > 0.0
+            and abs(xva["cva_wwr_spot(0.02, beta=0)"] - cva)
+            <= XVA_RTOL * cva):
+        fail("the Heston exposure metrics are not finite, or "
+             "cva_wwr_spot(beta=0) is not cva")
+
+    h = run_cli(["heston", "--scheme", "qe", "--device", DEVICE])
+    n = run_cli(["nmc", "--model", "heston", "--strategy", "grid",
+                 "--exposure", "--cva-hazard", "0.02", "--payoff",
+                 "vanilla_call", "--n-paths", str(n_out), "--n-steps",
+                 str(n_steps), "--n-inner", str(n_inner), "--device", DEVICE])
+    d_cli = abs(h["price"] - h["cf_oracle"])
+    print(f"phase 3: python -m mc_tpu_torch heston --scheme qe: {h}; nmc "
+          f"--model heston --strategy grid --exposure: outer "
+          f"{n['outer_price']:.6f}, cva {n['cva']:.7f}, EE at t_n "
+          f"{n['expected_exposure'][-1]:.6f}")
+    if not (sorted(h) == ["cf_oracle", "payoff", "price", "scheme", "stderr"]
+            and d_cli <= 4.0 * h["stderr"] + 0.003 * h["cf_oracle"]
+            and len(n["expected_exposure"]) == n_steps and n["cva"] > 0.0
+            and n["outer_price"] == float(grid.outer.price)):
+        fail("the heston or nmc --model heston command is off")
+    return {k: _cuda.launch_counts[k] for k in HESTON_KERNELS}
+
+
+def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
+    """Phase 5 of the Heston slice: each kernel (CUDA events) beside its
+    plain version and beside the GBM kernel of the same shape (``gbm_ms``:
+    trajectories at 100,000 x 100, the two NMC kernels at NMC_MAIN), the
+    registers, and the e2e calls.  Returns {kernel: (ms, plain ms)} (the
+    family kernels' plain ms is measured in phase 2)."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.models import heston as hm
+    from mc_tpu_torch.nmc_heston import HestonNMC
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    key, key_in = keys
+    call = get_payoff("vanilla_call")
+    dyn = mt.DEMO_HESTON
+    prm = hm.pack_heston(mt.DEMO_OPTION, dyn, MAIN_STEPS, dev)
+    out = {}
+    gbm_cfg = pk.KernelConfig(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
+    gbm_sim, sp, _ = cuda_ms(lambda: pk.simulate_partials(
+        call, gbm_cfg, key, pk.pack_params(mt.DEMO_OPTION, MAIN_STEPS, dev)))
+    steps = HESTON_MAIN * MAIN_STEPS
+    for scheme in ("euler", "qe"):
+        cfg = hm.HestonConfig(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS,
+                              scheme=scheme)
+        k_ms, p_ms = time_pair(
+            f"heston_partials call {scheme}",
+            lambda cfg=cfg: hm.heston_partials(call, cfg, key, prm),
+            lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
+            f"{HESTON_MAIN}x{MAIN_STEPS}")
+        kernel = "heston_qe_kernel" if scheme == "qe" else "heston_euler_kernel"
+        print(f"phase 5: heston_partials call {scheme}: {steps / k_ms * 1e3:.4e}"
+              f" path-steps/s; {k_ms / gbm_sim:.2f}x the GBM simulate_partials"
+              f" call euler on the same shape ({gbm_sim:.4f} ms, spread "
+              f"{sp:.1%}); registers {regs.get((kernel, 'VanillaCall', 13))}"
+              f" {tag}")
+        out["heston_partials" if scheme == "euler" else "qe"] = (k_ms, p_ms)
+    bullet = get_payoff("bullet_call")
+    cfg_t = hm.HestonConfig(n_paths=HESTON_PAYOFF_MAIN, n_steps=MAIN_STEPS)
+    out["heston_trajectories"] = time_pair(
+        "heston_trajectories bullet",
+        lambda: hm.heston_trajectories(bullet, cfg_t, key, prm),
+        lambda: hm.heston_trajectories_plain(bullet, cfg_t, key, prm),
+        f"{HESTON_PAYOFF_MAIN}x{MAIN_STEPS}")
+    k_ms = out["heston_trajectories"][0]
+    grid_bytes = 3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS
+    print(f"phase 5: heston_trajectories writes {grid_bytes / 1e6:.1f} MB in "
+          f"{k_ms:.4f} ms: {grid_bytes / k_ms / 1e6:.1f} GB/s; "
+          f"{k_ms / gbm_ms['trajectories']:.2f}x the GBM trajectories kernel "
+          f"({gbm_ms['trajectories']:.4f} ms); registers "
+          f"{regs.get(('heston_trajectories_kernel', 'BulletCall', None))} "
+          f"{tag}")
+
+    fam = HestonNMC()
+    n_out, n_steps, n_inner = NMC_MAIN
+    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+    *grids, st, _ = fam.trajectories(call, cfg, key, prm)
+    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    times = {}
+    for name, fn in (
+            ("family_fused", lambda: ne.family_fused(fam, call, cfg, key,
+                                                     key_in, prm)),
+            ("family_inner", lambda: ne.family_inner(fam, call, cfg, key_in,
+                                                     prm, grids, st)),
+            ("family_inner", lambda: ne.family_inner(fam, call, cfg, key_in,
+                                                     prm, grids, st)),
+            ("family_fused", lambda: ne.family_fused(fam, call, cfg, key,
+                                                     key_in, prm))):
+        ms, sp, _ = cuda_ms(fn)  # in turns: fused, inner, inner, fused
+        times.setdefault(name, []).append(ms)
+        print(f"phase 5: {name} heston call {n_out}x{n_steps}x{n_inner}: "
+              f"kernel {ms:.3f} ms (spread {sp:.1%}), "
+              f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
+    for name in ("family_fused", "family_inner"):
+        ms = statistics.median(times[name])
+        gbm = gbm_ms["nmc_fused" if name == "family_fused" else "nmc_inner"]
+        out[name] = (ms, None)
+        print(f"phase 5: {name} heston: {ms:.3f} ms = {ms / gbm:.2f}x the GBM"
+              f" bullet NMC kernel on the same shape ({gbm:.3f} ms); "
+              f"registers {regs.get((name + '_kernel<HestonFamily>', 'VanillaCall', None))}"
+              f" {tag}")
+
+    osim = mt.SimParams(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
+    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
+    for label, unit, work, fn in (
+            (f"price_heston() euler {HESTON_MAIN}x{MAIN_STEPS}",
+             "path-steps/s", steps,
+             lambda: mt.price_heston(sim=osim, device=DEVICE)),
+            (f"price_heston() qe {HESTON_MAIN}x{MAIN_STEPS}", "path-steps/s",
+             steps, lambda: mt.price_heston(sim=osim, scheme="qe",
+                                            device=DEVICE)),
+            (f"price_nmc_heston() fused {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_heston(sim=nsim, strategy="fused",
+                                         device=DEVICE)),
+            (f"price_nmc_heston() grid {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_heston(sim=nsim, strategy="grid",
+                                         device=DEVICE))):
+        secs = sorted(wall_s(fn) for _ in range(REPS))
+        med = statistics.median(secs)
+        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {REPS} "
+              f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
+              f"{work / med:.4e} {unit} {tag}")
+    return out
+
+
+def heston_bounds():
+    """bound() of the four Heston rows at the shapes the kernels line
+    reports: #12 Euler at 1M x 100, #13 at 100,000 x 100, the family
+    kernels at NMC_MAIN (vanilla)."""
+    euler_path = _add(_scale(_add(pair_ops(13), HESTON_EULER_OPS), MAIN_STEPS),
+                      TERMINAL_OPS)
+    n_out, n_steps, n_inner = NMC_MAIN
+    substeps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    legs = n_out * n_inner * n_steps
+    inner = _add(_scale(_add(pair_ops(13), HESTON_EULER_OPS), substeps),
+                 _scale(KAHAN_LEG_OPS, legs))
+    outer = _scale(euler_path, n_out)
+    surface = 4 * n_out * n_steps
+    return {
+        "heston_partials": bound(68, _scale(euler_path, HESTON_MAIN)),
+        "heston_trajectories": bound(
+            3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS,
+            _scale(euler_path, HESTON_PAYOFF_MAIN)),
+        "family_fused": bound(surface, _add(inner, outer)),
+        # the S and v grids and the surface (a vanilla call has no state)
+        "family_inner": bound(3 * surface, inner),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -295,6 +758,7 @@ def main() -> int:
     from mc_tpu_torch.ops import reduce
     from mc_tpu_torch.ops.payoffs import PATHWISE, PAYOFFS, get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
+    from mc_tpu_torch.models.heston import HESTON_TAG
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
@@ -328,10 +792,10 @@ def main() -> int:
     call, bullet = get_payoff("vanilla_call"), get_payoff("bullet_call")
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
     key_in = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_INNER))
+    heston_keys = tuple(
+        tuple(int(k) for k in rng.derive_key(1234, stream, HESTON_TAG))
+        for stream in (engines.STREAM_OUTER, engines.STREAM_INNER))
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
-
-    def payoff_option(name):
-        return mt.OptionParams(**PAYOFF_OPTIONS.get(name, {}))
 
     # --- Phase 2: each kernel against its plain version ----------------
     stamp(2)
@@ -584,7 +1048,7 @@ def main() -> int:
     # terminal-only ones through both terminal kernels at 1M paths; the
     # geometric control variate with antithetic; multi-word resume.
     for name, po in sorted(PAYOFFS.items()):
-        opt = payoff_option(name)
+        opt = payoff_option(mt, name)
         sim_err = max(sim_err, simulate_case(po, pk.KernelConfig(
             n_paths=PAYOFF_PATHS, n_steps=MAIN_STEPS), check_for(name), opt))
         if po.terminal_only:
@@ -612,7 +1076,8 @@ def main() -> int:
         sim_err = max(sim_err, simulate_case(
             get_payoff(name), pk.KernelConfig(
                 n_paths=PAYOFF_PATHS, n_steps=MAIN_STEPS, start_step=start),
-            vanilla_check, payoff_option(name), s_init=s_res.contiguous(),
+            vanilla_check, payoff_option(mt, name),
+            s_init=s_res.contiguous(),
             state_init=tuple(w.contiguous() for w in words)))
 
     # Trajectories for every payoff with one state word (the bullet ran
@@ -620,10 +1085,10 @@ def main() -> int:
     for name, po in sorted(PAYOFFS.items()):
         if po.n_state <= 1 and name != "bullet_call":
             traj_err = max(traj_err, traj_case(PAYOFF_PATHS, "threefry13", po,
-                                               payoff_option(name)))
+                                               payoff_option(mt, name)))
     for name in ("down_out_call", "asian_call"):
         err_f, err_i = nmc_small_cases(NMC_SMALL, get_payoff(name),
-                                       payoff_option(name))
+                                       payoff_option(mt, name))
         fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
 
     # The ladder (17 strikes on shared paths) and the book (16 contracts on
@@ -667,15 +1132,6 @@ def main() -> int:
     # call at GREEK_STEP_PATHS x 100) and the reductions (aligned and
     # misaligned views up to 2^26 elements): every sum to f64 rounding of
     # the plain version's.
-    def sums_check(name, got, want):
-        rel = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
-        ok = rel <= SUMS_RTOL
-        print(f"phase 2: {name}: {share(got == want):.2f} of the sums bitwise,"
-              f" max rel {rel:.3e} (limit {SUMS_RTOL}) "
-              f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"{name}: the kernel disagrees with its plain version")
-
     def greek_results(sums, n_paths):
         """(price, stderr) of pay, delta, vega, rho, epsilon: (5, 2)."""
         return torch.stack([torch.stack([r.price, r.stderr]) for r in (
@@ -688,7 +1144,7 @@ def main() -> int:
         prm = pk.pack_params(option, n_steps, dev)
         got = finish_sum(pk.simulate_greek_partials(po, cfg, key, prm))
         want = finish_sum(pk.simulate_greek_partials_plain(po, cfg, key, prm))
-        sums_check(f"greek_partials {name} {method} {n_paths}x{n_steps}",
+        check_sums(f"greek_partials {name} {method} {n_paths}x{n_steps}",
                    got, want)
         return float((greek_results(got, n_paths)
                       - greek_results(want, n_paths)).abs().max())
@@ -718,10 +1174,11 @@ def main() -> int:
                     ("sum_sumsq", reduce.sum_sumsq_partials,
                      reduce.sum_sumsq_partials_plain)):
                 got, want = finish_sum(fn(v)), finish_sum(plain(v))
-                sums_check(f"{name} {n} elements {label}", got, want)
+                check_sums(f"{name} {n} elements {label}", got, want)
                 reduce_err[name] = max(reduce_err[name],
                                        float((got - want).abs().max()))
     del x, v
+    heston_err, family_rows_ms = heston_kernel_checks(mt, dev, heston_keys)
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -898,7 +1355,8 @@ def main() -> int:
 
     pay = {}
     for name, po in sorted(PAYOFFS.items()):
-        res = mt.price(payoff_option(name), sim if po.terminal_only else bsim,
+        res = mt.price(payoff_option(mt, name),
+                       sim if po.terminal_only else bsim,
                        name, control_variate=po.has_control, device=DEVICE)
         pay[name] = res
         if not (math.isfinite(float(res.price))
@@ -926,7 +1384,7 @@ def main() -> int:
         z_gate(f"{name} vs its closed form", pay[name], want)
     zcb = pay["zcb"]
     d_sum = float(pay["digital_call"].price) + float(pay["digital_put"].price)
-    van = mt.price(payoff_option("down_out_call"), bsim, "vanilla_call",
+    van = mt.price(payoff_option(mt, "down_out_call"), bsim, "vanilla_call",
                    method="euler", device=DEVICE)
     d_inout = float(pay["down_in_call"].price) + float(pay["down_out_call"]
                                                        .price)
@@ -1198,11 +1656,19 @@ def main() -> int:
         fail("the reductions disagree with price() or torch.sum, or the "
              "normals' moments are off")
 
+    # The GBM path's launches; then the Heston path, driven with the counts
+    # set to 0 before it and read after it.
+    launches = {k: n for k, n in _cuda.launch_counts.items()
+                if k not in HESTON_KERNELS}
+    heston_launches = heston_main_path(mt, dev, _cuda)
+
     # --- Phase 4: launch counts over phase 3 ----------------------------
-    launches = dict(_cuda.launch_counts)
-    print(f"phase 4: launches over phase 3: {launches}")
-    if not all(launches[k] > 0 for k in _cuda.KERNELS):
+    print(f"phase 4: launches over phase 3's GBM path: {launches}")
+    print(f"phase 4: launches over phase 3's Heston path: {heston_launches}")
+    if not (all(n > 0 for n in launches.values())
+            and all(n > 0 for n in heston_launches.values())):
         fail("a kernel of the main path was never launched")
+    launches.update(heston_launches)
 
     # --- Phase 5: times -------------------------------------------------
     stamp(5)
@@ -1340,7 +1806,7 @@ def main() -> int:
     regs = ptxas_registers(_cuda.build_info.get("ptxas", ""))
     for name, po in sorted(PAYOFFS.items()):
         struct = type(po).__name__
-        prm = pk.pack_params(payoff_option(name), MAIN_STEPS, dev)
+        prm = pk.pack_params(payoff_option(mt, name), MAIN_STEPS, dev)
         line = (f"registers simulate {regs.get(('simulate_kernel', struct, 13))}"
                 f", ladder {regs.get(('ladder_kernel', struct, None))}, book "
                 f"{regs.get(('book_kernel', struct, None))}")
@@ -1396,6 +1862,12 @@ def main() -> int:
                   f"{lib_sp:.1%}, {4 * n / lib_ms / 1e6:.1f} GB/s); registers"
                   f" {regs.get(('sum_kernel', 'bool' + str(int(name == 'sum_sumsq')), None))} "
                   f"{tag}")
+
+    heston_ms = heston_times(mt, dev, heston_keys, regs, tag, time_pair, {
+        "trajectories": traj_ms[0], "nmc_fused": nmc_main["nmc_fused"],
+        "nmc_inner": nmc_main["nmc_inner"]})
+    heston_ms["family_fused"] = (heston_ms["family_fused"][0], family_rows_ms)
+    heston_ms["family_inner"] = (heston_ms["family_inner"][0], family_rows_ms)
 
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
@@ -1494,38 +1966,52 @@ def main() -> int:
         # each element read once; one f64 add (and an f32 square and an add)
         "tile_partials": bound(4 * n26, (0, 0, 0), n26),
         "sum_sumsq": bound(4 * n26, (0, n26, 0), 2 * n26),
+        **heston_bounds(),
     }
+    nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
-        ("terminal_pair", "path_kernels.cu", "path_kernels.py:1015", tp_err,
-         tp_ms, f"{MAIN_PATHS} paths"),
-        ("simulate_partials", "path_kernels.cu", "path_kernels.py:395",
+        ("terminal_pair", "path_kernels.cu", "ops/path_kernels.py:1015",
+         tp_err, tp_ms, f"{MAIN_PATHS} paths"),
+        ("simulate_partials", "path_kernels.cu", "ops/path_kernels.py:395",
          sim_err, sim_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
-        ("trajectories", "path_kernels.cu", "path_kernels.py:524", traj_err,
-         traj_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
-        ("nmc_fused", "nmc_kernels.cu", "nmc_kernels.py:264", fused_err,
-         (nmc_main["nmc_fused"], fused_plain_ms), "x".join(map(str, NMC_MAIN))),
-        ("nmc_inner", "nmc_kernels.cu", "nmc_kernels.py:338", inner_err,
-         (nmc_main["nmc_inner"], inner_plain_ms), "x".join(map(str, NMC_MAIN))),
-        ("ladder", "batch_kernels.cu", "path_kernels.py:634", ladder_err,
+        ("trajectories", "path_kernels.cu", "ops/path_kernels.py:524",
+         traj_err, traj_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
+        ("nmc_fused", "nmc_kernels.cu", "ops/nmc_kernels.py:264", fused_err,
+         (nmc_main["nmc_fused"], fused_plain_ms), nmc_shape),
+        ("nmc_inner", "nmc_kernels.cu", "ops/nmc_kernels.py:338", inner_err,
+         (nmc_main["nmc_inner"], inner_plain_ms), nmc_shape),
+        ("ladder", "batch_kernels.cu", "ops/path_kernels.py:634", ladder_err,
          ladder_ms, f"call terminal {LADDER_PATHS} x {len(strikes)} strikes"),
-        ("book", "batch_kernels.cu", "path_kernels.py:760", book_err,
+        ("book", "batch_kernels.cu", "ops/path_kernels.py:760", book_err,
          (book_ms, book_plain_ms), f"bullet {nb} x {nb_paths} x {MAIN_STEPS}"),
-        ("greek_partials", "greek_kernels.cu", "path_kernels.py:932",
+        ("greek_partials", "greek_kernels.cu", "ops/path_kernels.py:932",
          greek_err, greek_ms["asian_call"],
          f"asian {GREEK_STEP_PATHS}x{MAIN_STEPS}"),
-        ("tile_partials", "reduce_kernels.cu", "reduce.py:78",
+        ("tile_partials", "reduce_kernels.cu", "ops/reduce.py:78",
          reduce_err["tile_partials"], reduce_ms["tile_partials"][:2],
          f"{int(n26)} f32"),
-        ("sum_sumsq", "reduce_kernels.cu", "reduce.py:195",
+        ("sum_sumsq", "reduce_kernels.cu", "ops/reduce.py:195",
          reduce_err["sum_sumsq"], reduce_ms["sum_sumsq"][:2],
          f"{int(n26)} f32"),
+        ("heston_partials", "heston_kernels.cu", "models/heston.py:332",
+         heston_err["heston_partials"], heston_ms["heston_partials"],
+         f"call euler {HESTON_MAIN}x{MAIN_STEPS}"),
+        ("heston_trajectories", "heston_kernels.cu", "models/heston.py:527",
+         heston_err["heston_trajectories"], heston_ms["heston_trajectories"],
+         f"bullet {HESTON_PAYOFF_MAIN}x{MAIN_STEPS}"),
+        ("family_inner", "family_nmc_kernels.cu", "nmc_engine.py:314",
+         heston_err["family_inner"], heston_ms["family_inner"],
+         f"heston call {nmc_shape} (plain: rows {list(HESTON_NMC_ROWS)})"),
+        ("family_fused", "family_nmc_kernels.cu", "nmc_engine.py:407",
+         heston_err["family_fused"], heston_ms["family_fused"],
+         f"heston call {nmc_shape} (plain: rows {list(HESTON_NMC_ROWS)})"),
     )
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
         b_ms, b_by = bounds[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"mc_tpu_torch/csrc/{src}",
-            replaces=f"mc_tpu/ops/{tpu}", launches=launches[name],
+            replaces=f"mc_tpu/{tpu}", launches=launches[name],
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
             bound_by=b_by,
             library_ms=reduce_ms[name][2] if name in reduce_ms else None,

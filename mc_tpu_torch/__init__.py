@@ -12,6 +12,8 @@ launch; importing the package builds and loads nothing.
     price_ladder([90, 100, 110])   # three strikes on shared paths
     price_portfolio(OptionParams(k=np.array([95., 105.])))  # a book, CRN
     price_nmc(strategy="grid").cva(0.02)   # exposure surface -> CVA
+    price_heston(scheme="qe")              # Heston, Andersen QE
+    price_nmc_heston().cva(0.02)           # exposure under stochastic vol
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -21,11 +23,17 @@ from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import (Trajectories, price, price_ladder,
                                   price_portfolio, simulate_trajectories)
 from mc_tpu_torch.greeks import greeks
+from mc_tpu_torch.models.heston import (DEMO_HESTON, HestonDynamics,
+                                        heston_call_cf, price_heston)
 from mc_tpu_torch.nmc import NMCResult, price_nmc
+from mc_tpu_torch.nmc_engine import price_nmc_family
+from mc_tpu_torch.nmc_heston import price_nmc_heston
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
 
 __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
+           "price_heston", "price_nmc_heston", "price_nmc_family",
+           "HestonDynamics", "DEMO_HESTON", "heston_call_cf",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

@@ -1,12 +1,13 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
-ladder/book/greeks).
+ladder/book/greeks/heston).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
-``price``, ``nmc``, ``ladder``, ``book`` and ``greeks`` print one JSON
-object each (``price`` adds the closed form where the payoff has one, ``nmc
---exposure`` the XVA figures of the surface); ``traj`` writes the
+``price``, ``nmc``, ``ladder``, ``book``, ``greeks`` and ``heston`` print
+one JSON object each (``price`` adds the closed form where the payoff has
+one, ``heston`` the CF oracle for the call, ``nmc --exposure`` the XVA
+figures of the surface, under GBM or ``--model heston``); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
 """
@@ -252,17 +253,67 @@ def _xva_outputs(res, args, out):
     return out
 
 
+def _add_heston_flags(p: argparse.ArgumentParser):
+    g = p.add_argument_group("Heston variance process")
+    g.add_argument("--v0", type=float, default=0.04)
+    g.add_argument("--kappa", type=float, default=2.0)
+    g.add_argument("--theta-v", type=float, default=0.04)
+    g.add_argument("--xi", type=float, default=0.3)
+    g.add_argument("--rho-sv", type=float, default=-0.7)
+
+
+def _heston_dyn(args):
+    from mc_tpu_torch.models.heston import HestonDynamics
+
+    return HestonDynamics(v0=args.v0, kappa=args.kappa, theta=args.theta_v,
+                          xi=args.xi, rho=args.rho_sv)
+
+
+def cmd_heston(args):
+    """Heston price as one JSON object (mc_tpu/cli.py:1869-1882), the CF
+    oracle beside the call."""
+    from mc_tpu_torch.models.heston import heston_call_cf, price_heston
+
+    option, sim = _parse(args)
+    res = price_heston(option, _heston_dyn(args), sim, payoff=args.payoff,
+                       scheme=args.scheme, antithetic=args.antithetic,
+                       device=args.device)
+    out = {"payoff": args.payoff, "scheme": args.scheme,
+           "price": float(res.price), "stderr": float(res.stderr)}
+    if args.payoff == "vanilla_call":
+        out["cf_oracle"] = heston_call_cf(args.s0, args.k, args.t, args.r,
+                                          args.v0, args.kappa, args.theta_v,
+                                          args.xi, args.rho_sv, q=args.q)
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_nmc(args):
     import numpy as np
 
     from mc_tpu_torch.nmc import price_nmc
+    from mc_tpu_torch.nmc_engine import NMC_FAMILIES, ensure_family
 
     option, sim = _parse(args)
     if args.wwr_spot_beta is not None and args.strategy != "grid":
         raise SystemExit("--wwr-spot-beta needs the outer spot grid: "
                          "--strategy grid")
-    res = price_nmc(option, sim, payoff=args.payoff, strategy=args.strategy,
-                    discount=args.discount, device=args.device)
+    if args.model == "gbm":
+        res = price_nmc(option, sim, payoff=args.payoff,
+                        strategy=args.strategy, discount=args.discount,
+                        device=args.device)
+    else:
+        try:
+            ensure_family(args.model)
+        except ValueError as e:
+            raise SystemExit(f"--model {args.model}: {e}") from None
+        if args.discount != "full":
+            raise SystemExit(f"--discount is fixed (full) with --model "
+                             f"{args.model}")
+        res = NMC_FAMILIES[args.model](option, _heston_dyn(args), sim,
+                                       payoff=args.payoff,
+                                       strategy=args.strategy,
+                                       device=args.device)
     out = {
         "outer_price": float(res.outer.price),
         "outer_stderr": float(res.outer.stderr),
@@ -340,6 +391,12 @@ def main(argv=None):
     p.add_argument("--strategy", choices=("fused", "grid"), default="fused")
     p.add_argument("--discount", choices=("full", "remaining"),
                    default="full")
+    p.add_argument("--model", default="gbm",
+                   choices=("gbm", "heston", "bates", "merton", "vasicek",
+                            "localvol", "cev", "basket", "sabr", "term",
+                            "rainbow"),
+                   help="the outer and inner dynamics: gbm or heston (the "
+                        "other families of mc_tpu are not ported yet)")
     p.add_argument("--surface-npz", default=None,
                    help="save the (paths, steps) surface to this .npz")
     p.add_argument("--exposure", action="store_true",
@@ -373,6 +430,7 @@ def main(argv=None):
                         "rides the underlying level (sign flips with "
                         "the position; needs --cva-hazard and "
                         "--strategy grid)")
+    _add_heston_flags(p)
     p.set_defaults(fn=cmd_nmc)
 
     p = sub.add_parser("ladder", help="strike ladder on shared paths, JSON")
@@ -400,6 +458,17 @@ def main(argv=None):
                    help="comma list; default depends on --method")
     p.add_argument("--antithetic", action="store_true")
     p.set_defaults(fn=cmd_greeks)
+
+    p = sub.add_parser("heston", help="Heston stochastic-vol price, JSON")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    _add_heston_flags(p)
+    p.add_argument("--scheme", default="euler", choices=("euler", "qe"),
+                   help="discretization: full-truncation Euler or Andersen "
+                        "QE (exact per-step martingale, low bias at coarse "
+                        "steps)")
+    p.set_defaults(fn=cmd_heston)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

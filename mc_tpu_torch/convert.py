@@ -12,15 +12,18 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
+from mc_tpu_torch.models.heston import HESTON_FIELDS, HestonDynamics
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
-           "surface_matrix", "checkpoint"]
+           "surface_matrix", "checkpoint", "heston_dynamics", "heston_params"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
+_HESTON_DYN_FIELDS = ("v0", "kappa", "theta", "xi", "rho")
 
 
 def _field(src, name):
@@ -55,6 +58,30 @@ def book_params(src) -> OptionParams:
 def sim_params(src) -> SimParams:
     """``mc_tpu.SimParams`` fields -> the port's SimParams."""
     return SimParams(**{f: int(_field(src, f)) for f in _SIM_FIELDS})
+
+
+def heston_dynamics(src) -> HestonDynamics:
+    """``mc_tpu.models.heston.HestonDynamics`` fields (scalars) -> the
+    port's HestonDynamics."""
+    vals = []
+    for f in _HESTON_DYN_FIELDS:
+        v = np.asarray(_field(src, f))
+        if v.shape != ():
+            raise ValueError(f"Heston field {f!r} must be a scalar; got "
+                             f"shape {v.shape}")
+        vals.append(float(v))
+    return HestonDynamics(*vals)
+
+
+def heston_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed Heston parameters (``_pack_heston``: the (17,)
+    f32 vector of ``HESTON_FIELDS``) -> the port's CPU tensor, bit for
+    bit; ``.to(device)`` it for a kernel."""
+    a = np.asarray(arr)
+    if a.shape != (len(HESTON_FIELDS),) or a.dtype != np.float32:
+        raise ValueError(f"packed Heston parameters are {len(HESTON_FIELDS)}"
+                         f" float32 values; got {a.shape} {a.dtype}")
+    return torch.from_numpy(a.copy())
 
 
 def key(arr) -> tuple[int, int]:

@@ -1,0 +1,140 @@
+// The Heston family on the device: its packed parameters and its two
+// schemes, the twins of mc_tpu_torch/models/heston.py (and of
+// mc_tpu/models/heston.py:94-220) operation for operation, in the same
+// association.  The build passes --fmad=false, so each mul and add rounds
+// as it does in the plain PyTorch version and the kernels that step with
+// these functions give the plain version's values bit for bit.
+//
+// HestonParams is the layout of HESTON_FIELDS (17 f32).  A payoff reads the
+// Params of payoffs.cuh; under Heston it gets one filled with the fields a
+// payoff may read (s0, k, r, barrier, p1, p2, t, dt, inv_n_steps), and the
+// GBM-only ones (sigma, q and the drift/vol coefficients) are NaN, so a
+// payoff that read them would fail its gate loudly rather than price with a
+// stale volatility.  The entry points refuse the two payoffs that do
+// (the Brownian-bridge barriers).
+#pragma once
+
+#include <cstdint>
+
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+struct HestonParams {
+  Params pay;  // the payoff's view of the contract
+  float v0, kappa, theta, xi, rho, rho_perp, sqrt_dt, growth;
+};
+constexpr int kHestonFields = 17;
+
+__device__ __forceinline__ HestonParams load_heston(const float* __restrict__ v) {
+  const float nan = __int_as_float(0x7fc00000);
+  HestonParams h;
+  h.pay.s0 = v[0]; h.pay.k = v[1]; h.pay.r = v[2]; h.pay.barrier = v[3];
+  h.pay.p1 = v[4]; h.pay.p2 = v[5]; h.pay.t = v[6]; h.pay.dt = v[7];
+  h.pay.inv_n_steps = v[8];
+  h.pay.sigma = nan; h.pay.q = nan; h.pay.drift_dt = nan; h.pay.vol_dt = nan;
+  h.pay.drift_t = nan; h.pay.vol_t = nan;
+  h.v0 = v[9]; h.kappa = v[10]; h.theta = v[11]; h.xi = v[12]; h.rho = v[13];
+  h.rho_perp = v[14]; h.sqrt_dt = v[15]; h.growth = v[16];
+  return h;
+}
+
+// One full-truncation Euler substep of the log-price accumulator w and the
+// variance v: only v+ = max(v, 0) enters the diffusion terms.
+__device__ __forceinline__ void heston_euler_step(const HestonParams& h, float z_v,
+                                                  float z_perp, float& w, float& v) {
+  const float z_s = h.rho * z_v + h.rho_perp * z_perp;
+  const float v_plus = fmaxf(v, 0.0f);
+  const float sq = (v > 0.0f ? sqrtf(v) : 0.0f) * h.sqrt_dt;
+  w = w + ((h.growth - 0.5f * v_plus) * h.pay.dt + sq * z_s);
+  v = (v + (h.kappa * (h.theta - v_plus)) * h.pay.dt) + (h.xi * sq) * z_v;
+}
+
+// Per-step constants of Andersen's QE scheme, gamma1 = gamma2 = 1/2.
+struct QeConsts {
+  float emkdt, c1, c2, k0, k1, k2, k3, k4, a_mc, growth_dt;
+};
+
+__device__ __forceinline__ QeConsts qe_consts(const HestonParams& h) {
+  const float gamma = 0.5f;
+  const float dt = h.pay.dt;
+  QeConsts c;
+  c.emkdt = expf(-h.kappa * dt);
+  const float one_m = 1.0f - c.emkdt;
+  c.c1 = (((h.xi * h.xi) * c.emkdt) * one_m) / h.kappa;
+  c.c2 = ((((h.theta * h.xi) * h.xi) * one_m) * one_m) / (2.0f * h.kappa);
+  const float kr = (h.kappa * h.rho) / h.xi - 0.5f;
+  c.k0 = ((((-h.rho) * h.kappa) * h.theta) * dt) / h.xi;
+  c.k1 = (gamma * dt) * kr - h.rho / h.xi;
+  c.k2 = (gamma * dt) * kr + h.rho / h.xi;
+  c.k3 = (gamma * dt) * (1.0f - h.rho * h.rho);
+  c.k4 = c.k3;
+  c.a_mc = c.k2 + 0.5f * c.k4;  // martingale-correction exponent A
+  c.growth_dt = h.growth * dt;
+  return c;
+}
+
+// One QE step (w, v) -> (w', v'), v' >= 0, with the per-step martingale
+// correction K0* (Andersen 2008, Prop. 5.1; the plain K0 where its validity
+// constraint fails).  Both branches are evaluated on domain-safe arguments
+// and selected, as in the plain version.
+__device__ __forceinline__ void heston_qe_step(const HestonParams& h, const QeConsts& c,
+                                               float z_v, float z_s, float u, float& w,
+                                               float& v) {
+  const float one_minus = static_cast<float>(1.0 - 1e-6);
+  const float m = h.theta + (v - h.theta) * c.emkdt;
+  const float s2 = v * c.c1 + c.c2;
+  const float psi = s2 / (m * m);
+
+  // quadratic branch: v' = a (b + Z)^2
+  const float two_over = 2.0f / fmaxf(psi, 1e-12f);
+  float b2 = fmaxf(two_over - 1.0f, 0.0f);
+  b2 = b2 + sqrtf(two_over * b2);
+  const float a = m / (1.0f + b2);
+  const float bz = sqrtf(b2) + z_v;
+  const float v_quad = (a * bz) * bz;
+
+  // exponential branch: mass p_at0 at zero + exponential tail
+  const float p_at0 = (psi - 1.0f) / (psi + 1.0f);
+  const float beta = (1.0f - p_at0) / fmaxf(m, 1e-30f);
+  const float u_c = fminf(u, 0.99999994f);
+  const float v_exp = u_c <= p_at0 ? 0.0f : (log1pf(-p_at0) - log1pf(-u_c)) / beta;
+
+  const bool quad = psi <= 1.5f;
+  const float v_next = quad ? v_quad : v_exp;
+
+  const float aa = c.a_mc;
+  const float two_a_a = (2.0f * aa) * a;
+  const bool ok_q = two_a_a < one_minus;
+  const float safe = ok_q ? 1.0f - two_a_a : 1.0f;
+  const float k0_q = ((((-aa) * b2) * a) / safe + 0.5f * logf(safe)) - (0.5f * c.k3) * v;
+  const bool ok_e = aa < beta * one_minus;
+  const float marg = ok_e ? p_at0 + (beta * (1.0f - p_at0)) / fmaxf(beta - aa, 1e-30f)
+                          : 1.0f;
+  const float k0_e = (-logf(marg)) - (0.5f * c.k3) * v;
+  const float k0_plain = c.k0 + c.k1 * v;
+  const float k0_eff = quad ? (ok_q ? k0_q : k0_plain) : (ok_e ? k0_e : k0_plain);
+
+  const float var_s = fmaxf(c.k3 * v + c.k4 * v_next, 0.0f);
+  w = (((w + c.growth_dt) + k0_eff) + c.k2 * v_next) + sqrtf(var_s) * z_s;
+  v = v_next;
+}
+
+// One outer Euler step of path `id` on the threefry-13 stream: pair (id, j),
+// S = s0 exp(w), the payoff state updated.  The step of the trajectories
+// kernel and of the family NMC's outer paths, so the grids one stores are
+// bitwise the states the other recomputes in registers.
+template <class Payoff>
+__device__ __forceinline__ void heston_outer_step(const HestonParams& h, uint32_t k0,
+                                                  uint32_t k1, uint32_t id, int j,
+                                                  float& w, float& v, float& s,
+                                                  typename Payoff::State& st) {
+  float z_v, z_perp;
+  normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j), z_v, z_perp);
+  heston_euler_step(h, z_v, z_perp, w, v);
+  s = h.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, h.pay);
+}
+
+}  // namespace mc

@@ -50,6 +50,15 @@ __device__ __forceinline__ float bits_to_unit(uint32_t b) {
   return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// The uniform of word 0 of counter (c0, c1): mc_tpu's draw_unit.
+template <int ROUNDS>
+__device__ __forceinline__ float unit_draw(uint32_t k0, uint32_t k1, uint32_t c0,
+                                           uint32_t c1) {
+  uint32_t x0 = c0, x1 = c1;
+  threefry2x32<ROUNDS>(k0, k1, x0, x1);
+  return bits_to_unit(x0);
+}
+
 template <int ROUNDS>
 __device__ __forceinline__ void normal_pair(uint32_t k0, uint32_t k1,
                                             uint32_t c0, uint32_t c1,

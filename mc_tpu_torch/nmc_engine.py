@@ -1,0 +1,384 @@
+"""The generic nested-Monte-Carlo engine over a model-family protocol
+(port of ``mc_tpu/nmc_engine.py:59-249,251-277,543-675``).
+
+A family supplies its physics through `NMCFamily` (parameter packing, the
+trajectories that store its outer state grids, the plain inner leg and its
+discounting); the engine owns the rest: the entry guards, the keys, the
+f32 Kahan inner sum and the two strategies.  Heston is the only family
+registered so far; the others of ``mc_tpu`` are still to port (ROADMAP.md
+queue B, item 14).
+
+Two kernels in ``csrc/family_nmc_kernels.cu`` compute one surface, both
+templates over a device-side family struct:
+
+* ``family_inner`` (replaces ``family_inner_kernel``,
+  ``mc_tpu/nmc_engine.py:314``): the grid strategy, over the grids the
+  family's trajectories kernel stored;
+* ``family_fused`` (replaces ``family_fused_kernel``,
+  ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself.
+
+For outer path i and step j, surface[j, i] = point_scale * (1/n_inner) *
+the f32 Kahan sum over m = 0..n_inner-1, in that order, of inner leg m
+resumed from the state after step j+1, its substep u drawing on counter
+``((j+1)*n_inner + m) * counter_stride + u`` of the inner key.  ``mc_tpu``
+makes that order part of its bitwise contract (``family_point_tile``,
+``mc_tpu/nmc_engine.py:251-277``), so the engine keeps its Kahan sum where
+the port's GBM NMC (``ops/nmc_kernels.py``) sums in f64.  Each wrapper takes
+its plain PyTorch version only when the parameter tensor lies on the CPU;
+for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import math
+from typing import Any, Callable, Dict
+
+import torch
+
+from mc_tpu_torch import rng
+from mc_tpu_torch.config import OptionParams, SimParams
+from mc_tpu_torch.engines import STREAM_INNER, STREAM_OUTER, resolve_device
+from mc_tpu_torch.nmc import NMCResult
+from mc_tpu_torch.oracle import summarize
+from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops.path_kernels import _bound
+from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
+from mc_tpu_torch.ops.reduce import finish_sum
+
+__all__ = ["NMCFamily", "FamilyConfig", "family_point_sum_plain",
+           "family_rows_plain", "family_inner", "family_inner_plain",
+           "family_fused", "family_fused_plain", "price_nmc_family",
+           "NMC_FAMILIES", "register_nmc_family", "ensure_family"]
+
+# Inner-leg elements (inner paths x outer paths) per block of the plain
+# version: bounds its temporaries.
+PLAIN_INNER_ELEMS = 1 << 20
+
+_MASK = 0xFFFFFFFF
+
+
+class NMCFamily:
+    """Per-family physics consumed by the engine.  A family overrides the
+    class attributes and the methods below; ``cuda_id`` names its struct in
+    ``csrc/family_nmc_kernels.cu`` (FamilyId)."""
+
+    name = "?"
+    tag = 0            # rng.derive_key stream tag (that of price_<model>)
+    n_grids = 1        # market-state grids, S first
+    even_steps = True  # a pair-consuming outer loop needs even n_steps
+    cuda_id = -1
+
+    def span(self, n_steps: int, n_inner: int):
+        """(largest inner counter, formula) for the counter-wrap guard."""
+        raise NotImplementedError
+
+    def pack(self, option, dyn, n_steps: int, device) -> torch.Tensor:
+        raise NotImplementedError
+
+    def unpack(self, params: torch.Tensor):
+        raise NotImplementedError
+
+    def check_params(self, params: torch.Tensor) -> None:
+        raise NotImplementedError
+
+    def counter_stride(self, n_steps: int) -> int:
+        """Counters one inner leg may draw."""
+        return n_steps
+
+    def point_scale(self, p, grids_j):
+        """Per-point factor on the inner mean: the full e^{-rT} (f32), as
+        the reference's nmc.cuh:100-104."""
+        return torch.exp(-p.r * p.t)
+
+    def outer_discount(self, p) -> float:
+        """The outer price's discount, e^{-rT} in f64 from the f32 fields
+        (``engines.finish_price``'s)."""
+        return math.exp(-float(p.r) * float(p.t))
+
+    def trajectories(self, payoff, cfg, key, params, path_offset=0,
+                     n_valid=None):
+        """The outer paths on ``key`` through the family's trajectories
+        kernel: ``(*market_grids, state_grid, partials)``, grids
+        ``(n_steps, n_paths)`` f32 step-major, partials ``(rows, 2)`` f64
+        [sum pay, sum pay^2]."""
+        raise NotImplementedError
+
+    def trajectories_plain(self, payoff, cfg, key, params, path_offset=0,
+                           n_valid=None):
+        raise NotImplementedError
+
+    def leg(self, payoff: PathPayoff, p, k0: int, k1: int, ids, c_base,
+            remaining: int, grids_j, state_j):
+        """The plain inner legs resumed from the grid rows ``grids_j`` and
+        payoff state ``state_j`` (tensors shaped like ``ids``): ``remaining``
+        substeps, substep u on counters ``(ids, c_base + u)``; the terminal
+        payoffs."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyConfig:
+    n_paths: int   # outer paths
+    n_steps: int
+    n_inner: int   # inner paths per point
+
+    def __post_init__(self):
+        if self.n_paths < 1 or self.n_steps < 1 or self.n_inner < 1:
+            raise ValueError("n_paths, n_steps and n_inner must be positive")
+        if self.n_paths >= 1 << 32:
+            raise ValueError("n_paths must be below 2^32 (uint32 path ids)")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def family_point_sum_plain(fam: NMCFamily, payoff: PathPayoff,
+                           cfg: FamilyConfig, p, key_inner, ids, j: int,
+                           grids_j, state_j):
+    """The f32 Kahan sum over the n_inner legs, m = 0..n_inner-1 in order,
+    resumed from the state after step j+1 (one per path of ``ids``): the
+    order of ``mc_tpu``'s ``family_point_tile``."""
+    k0, k1 = int(key_inner[0]), int(key_inner[1])
+    remaining = cfg.n_steps - j - 1
+    stride = fam.counter_stride(cfg.n_steps)
+    acc = torch.zeros_like(grids_j[0])
+    comp = torch.zeros_like(acc)
+    per_block = max(1, PLAIN_INNER_ELEMS // max(ids.numel(), 1))
+    for m0 in range(0, cfg.n_inner, per_block):
+        m = torch.arange(m0, min(m0 + per_block, cfg.n_inner),
+                         dtype=torch.int64, device=ids.device)[:, None]
+        c_base = (((j + 1) * cfg.n_inner + m) * stride) & _MASK
+        ids2 = ids.expand(m.shape[0], -1)
+        pays = fam.leg(payoff, p, k0, k1, ids2, c_base,
+                       remaining, tuple(g.expand_as(ids2) for g in grids_j),
+                       tuple(a.expand_as(ids2) for a in state_j))
+        for pay in pays:  # Kahan, in the order of m
+            y = pay - comp
+            t = acc + y
+            comp = (t - acc) - y
+            acc = t
+    return acc
+
+
+def family_rows_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
+                      key_inner, params: torch.Tensor, grids, state_grid,
+                      steps, path_offset: int = 0, n_valid=None):
+    """Rows ``steps`` of the plain surface, ``(len(steps), n_paths)`` f32,
+    from the stored grids."""
+    p = fam.unpack(params)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    ids = (torch.arange(cfg.n_paths, dtype=torch.int64, device=params.device)
+           + path_offset) & _MASK
+    valid = ids < bound
+    inv_n = torch.tensor(1.0 / cfg.n_inner, dtype=torch.float32,
+                         device=params.device)
+    rows = []
+    for j in steps:
+        grids_j = tuple(g[j] for g in grids)
+        state_j = (state_grid[j],) if payoff.n_state else ()
+        acc = family_point_sum_plain(fam, payoff, cfg, p, key_inner, ids, j,
+                                     grids_j, state_j)
+        v = acc * inv_n * fam.point_scale(p, grids_j)
+        rows.append(torch.where(valid, v, 0.0))
+    return torch.stack(rows)
+
+
+def family_inner_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
+                       key_inner, params: torch.Tensor, grids, state_grid,
+                       path_offset: int = 0, n_valid=None):
+    """Plain version of the family_inner kernel: the surface
+    ``(n_steps, n_paths)`` f32."""
+    return family_rows_plain(fam, payoff, cfg, key_inner, params, grids,
+                             state_grid, range(cfg.n_steps), path_offset,
+                             n_valid)
+
+
+def family_fused_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
+                       key_outer, key_inner, params: torch.Tensor,
+                       path_offset: int = 0, n_valid=None):
+    """Plain version of the family_fused kernel: ``(surface, outer
+    partials)``.  The fused kernel recomputes in registers the outer states
+    the trajectories kernel stores, so its plain version is the two plain
+    stages of the grid strategy."""
+    *grids, state_grid, outer = fam.trajectories_plain(
+        payoff, cfg, key_outer, params, path_offset, n_valid)
+    return family_inner_plain(fam, payoff, cfg, key_inner, params, grids,
+                              state_grid, path_offset, n_valid), outer
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version on the CPU, the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def _check(fam: NMCFamily, payoff: PathPayoff, params: torch.Tensor) -> None:
+    fam.check_params(params)
+    if payoff.n_state > 1:
+        raise ValueError("NMC supports payoffs with at most one state array")
+
+
+def _check_grid(name: str, g, cfg: FamilyConfig, device) -> None:
+    if (not torch.is_tensor(g) or g.dtype != torch.float32
+            or g.shape != (cfg.n_steps, cfg.n_paths)
+            or not g.is_contiguous() or g.device != device):
+        raise ValueError(
+            f"{name} must be a contiguous float32 tensor of shape "
+            f"({cfg.n_steps}, {cfg.n_paths}) on {device}; got "
+            f"{getattr(g, 'shape', None)} {getattr(g, 'dtype', type(g))}")
+
+
+def family_inner(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
+                 key_inner, params: torch.Tensor, grids, state_grid,
+                 path_offset: int = 0, n_valid=None):
+    """Grid-strategy family NMC over the stored outer grids (``fam.n_grids``
+    market grids and the payoff's state grid, each ``(n_steps, n_paths)``
+    f32 on the params' device, as ``fam.trajectories`` returns them): the
+    surface ``(n_steps, n_paths)`` f32."""
+    _check(fam, payoff, params)
+    grids = tuple(grids)
+    if len(grids) != fam.n_grids:
+        raise ValueError(f"{fam.name} has {fam.n_grids} market grids; got "
+                         f"{len(grids)}")
+    for k, g in enumerate(grids):
+        _check_grid(f"grids[{k}]", g, cfg, params.device)
+    _check_grid("state_grid", state_grid, cfg, params.device)
+    if params.device.type == "cpu":
+        return family_inner_plain(fam, payoff, cfg, key_inner, params, grids,
+                                  state_grid, path_offset, n_valid)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    lib = _cuda.load()
+    surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+                          device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_family_inner(
+            fam.cuda_id, payoff.cuda_id, int(key_inner[0]), int(key_inner[1]),
+            params.data_ptr(), cfg.n_steps, cfg.n_inner, cfg.n_paths,
+            path_offset & _MASK, bound, _cuda.pointer_array(grids),
+            len(grids), state_grid.data_ptr(), surface.data_ptr(),
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "family_inner kernel")
+    _cuda.count_launch("family_inner")
+    return surface
+
+
+def family_fused(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
+                 key_outer, key_inner, params: torch.Tensor,
+                 path_offset: int = 0, n_valid=None):
+    """Fused family NMC: ``(surface (n_steps, n_paths) f32, outer (rows, 2)
+    f64)``, no outer grids kept anywhere."""
+    _check(fam, payoff, params)
+    if params.device.type == "cpu":
+        return family_fused_plain(fam, payoff, cfg, key_outer, key_inner,
+                                  params, path_offset, n_valid)
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    lib = _cuda.load()
+    tiles = _cuda.cdiv(cfg.n_paths, lib.mc_family_block_threads())
+    surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+                          device=params.device)
+    outer = torch.empty((tiles, 2), dtype=torch.float64, device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_family_fused(
+            fam.cuda_id, payoff.cuda_id, int(key_outer[0]), int(key_outer[1]),
+            int(key_inner[0]), int(key_inner[1]), params.data_ptr(),
+            cfg.n_steps, cfg.n_inner, cfg.n_paths, path_offset & _MASK, bound,
+            surface.data_ptr(), outer.data_ptr(),
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "family_fused kernel")
+    _cuda.count_launch("family_fused")
+    return surface, outer
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
+def _validate_and_keys(fam: NMCFamily, sim: SimParams, payoff,
+                       stream_outer: int, stream_inner: int):
+    """The entry guards and the family's keys ``derive_key(seed, stream,
+    tag)`` (``mc_tpu/nmc_engine.py:592-611``)."""
+    po = get_payoff(payoff)
+    if po.n_state > 1:
+        raise ValueError("NMC supports payoffs with at most one state array")
+    if fam.even_steps and sim.n_steps % 2:
+        raise ValueError(f"{fam.name} requires an even n_steps "
+                         "(pair-consuming outer loop)")
+    span, desc = fam.span(sim.n_steps, sim.n_paths_inner)
+    if span >= 1 << 32:
+        raise ValueError(
+            f"inner RNG counter space exhausted: {desc} = {span} >= 2^32; "
+            "reduce n_steps or n_paths_inner")
+    keys = [rng.derive_key(sim.seed, s, fam.tag)
+            for s in (stream_outer, stream_inner)]
+    return po, *((int(k[0]), int(k[1])) for k in keys)
+
+
+def price_nmc_family(fam: NMCFamily,
+                     option: OptionParams,
+                     dyn,
+                     sim: SimParams,
+                     payoff="vanilla_call",
+                     *,
+                     strategy: str = "grid",
+                     stream_outer: int = STREAM_OUTER,
+                     stream_inner: int = STREAM_INNER,
+                     device="cuda") -> NMCResult:
+    """Nested MC surface under family ``fam`` on ``device``.
+
+    ``strategy``: "grid" stores the outer grids (the family's trajectories
+    kernel) and re-prices them (``family_inner``); the result carries grid 0
+    (the spot) as ``spot_surface``.  "fused" runs ``family_fused``, which
+    recomputes the outer paths.  Both give bitwise equal surfaces.
+    """
+    po, key_outer, key_inner = _validate_and_keys(fam, sim, payoff,
+                                                  stream_outer, stream_inner)
+    if strategy not in ("fused", "grid"):
+        raise ValueError(f"unknown strategy {strategy!r}; use 'fused' or "
+                         "'grid'")
+    dev = resolve_device(device)
+    cfg = FamilyConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
+                       n_inner=sim.n_paths_inner)
+    params = fam.pack(option, dyn, sim.n_steps, dev)
+    spot = None
+    if strategy == "fused":
+        surface, outer_partials = family_fused(fam, po, cfg, key_outer,
+                                               key_inner, params)
+    else:
+        *grids, state_grid, outer_partials = fam.trajectories(
+            po, cfg, key_outer, params)
+        surface = family_inner(fam, po, cfg, key_inner, params, grids,
+                               state_grid)
+        spot = grids[0]  # every family's grid 0 is the market spot
+    sums = finish_sum(outer_partials)
+    outer = summarize(sums[0], sums[1], float(sim.n_paths),
+                      fam.outer_discount(fam.unpack(params)))
+    n_points = sim.n_paths * sim.n_steps
+    return NMCResult(surface=surface, outer=outer,
+                     surface_mean=surface.double().sum() / n_points,
+                     n_points=n_points, t_horizon=float(option.t),
+                     spot_surface=spot)
+
+
+# name -> price_nmc_<model>, filled by the family modules when imported
+# (the CLI's `nmc --model` dispatch reads it after ensure_family).
+NMC_FAMILIES: Dict[str, Callable[..., Any]] = {}
+# name -> the module that registers it.
+FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston"}
+
+
+def register_nmc_family(name: str, price_fn) -> None:
+    NMC_FAMILIES[name] = price_fn
+
+
+def ensure_family(name: str) -> None:
+    """Import the module that registers family ``name``; a family not
+    ported yet raises."""
+    if name not in FAMILY_MODULES:
+        raise ValueError(
+            f"model family {name!r} is not ported to mc_tpu_torch yet "
+            f"(ROADMAP.md queue B, item 14); ported: {sorted(FAMILY_MODULES)}")
+    importlib.import_module(FAMILY_MODULES[name])

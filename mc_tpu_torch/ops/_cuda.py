@@ -27,8 +27,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["cdiv", "launch_counts", "count_launch", "reset_launch_counts",
-           "load", "check", "stream_handle", "build_info", "KERNELS",
-           "MAX_BLOCKS"]
+           "load", "check", "stream_handle", "pointer_array", "build_info",
+           "KERNELS", "MAX_BLOCKS"]
 
 # The kernels' grids are capped so a large run grid-strides; the cap depends
 # on nothing but the path or element count, so the order of the per-block
@@ -47,17 +47,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "nmc_inner", "ladder", "book", "greek_partials", "tile_partials",
-           "sum_sumsq")
+           "sum_sumsq", "heston_partials", "heston_trajectories",
+           "family_inner", "family_fused")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
 _c_f32, _c_u64 = ctypes.c_float, ctypes.c_uint64
+_c_ptr_array = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
     "mc_nmc_block_threads": ([], _c_int),
     "mc_ladder_block_threads": ([], _c_int),
     "mc_reduce_block_threads": ([], _c_int),
+    "mc_heston_block_threads": ([], _c_int),
+    "mc_family_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -103,6 +107,27 @@ _SIGNATURES = {
     "mc_tile_partials": ([_c_ptr, _c_u64, _c_ptr, _c_int, _c_ptr], _c_int),
     "mc_sum_sumsq_partials": ([_c_ptr, _c_u64, _c_ptr, _c_int, _c_ptr],
                               _c_int),
+    # payoff_id, qe, rounds, antithetic, k0, k1, params, n_steps, n_paths,
+    # path_offset, bound, partials, n_blocks, stream
+    "mc_heston_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
+                            _c_ptr, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
+                            _c_int, _c_ptr], _c_int),
+    # payoff_id, k0, k1, params, n_steps, n_paths, path_offset, bound,
+    # s_grid, v_grid, state_grid, partials, n_blocks, stream
+    "mc_heston_trajectories": ([_c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                                _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr,
+                                _c_ptr, _c_ptr, _c_int, _c_ptr], _c_int),
+    # family_id, payoff_id, ki0, ki1, params, n_steps, n_inner, n_paths,
+    # path_offset, bound, grids (host array of n_grids device pointers),
+    # n_grids, state_grid, surface, stream
+    "mc_family_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                         _c_int, _c_u32, _c_u32, _c_u32, _c_ptr_array, _c_int,
+                         _c_ptr, _c_ptr, _c_ptr], _c_int),
+    # family_id, payoff_id, ko0, ko1, ki0, ki1, params, n_steps, n_inner,
+    # n_paths, path_offset, bound, surface, outer_partials, stream
+    "mc_family_fused": ([_c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_u32,
+                         _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
+                         _c_ptr, _c_ptr, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()
@@ -207,3 +232,9 @@ def check(status: int, what: str) -> None:
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def pointer_array(tensors):
+    """A host array of the tensors' device pointers (a ``const float* const*``
+    argument)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))

@@ -212,3 +212,47 @@ def test_greeks_subcommand_emits_json(capsys):
     assert sorted(res) == sorted(["delta", "vega", "rho", "price"]
                                  + [f"{k}_stderr" for k in
                                     ("delta", "vega", "rho", "price")])
+
+
+def test_heston_subcommand_prints_mc_tpus_keys(capsys):
+    from mc_tpu_torch import cli
+
+    assert cli.main(["heston", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "8", "--scheme", "qe"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["cf_oracle", "payoff", "price", "scheme", "stderr"]
+    assert res["scheme"] == "qe" and res["payoff"] == "vanilla_call"
+    assert abs(res["price"] - res["cf_oracle"]) < 0.5  # as mc_tpu's cli test
+    assert cli.main(["heston", "--device", "cpu", "--n-paths", "4096",
+                     "--n-steps", "8", "--payoff", "asian_call",
+                     "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "cf_oracle" not in res and 0 < res["price"] < 10
+
+
+def test_nmc_model_heston_emits_xva(capsys):
+    from mc_tpu_torch import cli
+
+    assert cli.main(["nmc", "--model", "heston", "--strategy", "grid",
+                     "--exposure", "--cva-hazard", "0.02", "--dva-hazard",
+                     "0.01", "--wwr-spot-beta", "2", "--payoff",
+                     "vanilla_call", "--device", "cpu", "--n-paths", "256",
+                     "--n-steps", "6", "--n-inner", "8", "--xi", "0.5"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(res["expected_exposure"]) == 6 and len(res["pfe"]) == 6
+    assert res["cva"] > 0 and res["bilateral_cva"] == res["cva"]
+    assert res["cva_wwr_spot"] > res["cva"]
+    assert res["n_points"] == 256 * 6
+
+
+def test_heston_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    for fn in (mt.price_heston, mt.price_nmc_heston):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, mt.DEMO_HESTON, sim)
+    proc = _run("-m", "mc_tpu_torch", "heston", "--n-paths", "1000")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
