@@ -7,7 +7,7 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
    ``mc_tpu_torch/csrc`` with ``nvcc``;
-2. each of the fourteen CUDA kernels against its plain PyTorch version on
+2. each CUDA kernel against its plain PyTorch version on
    the card, same key, with the tolerances of the parity contract, at the
    contract's sizes and at the main path's shapes: the simulate kernel for
    all 18 payoffs (with resume, multi-word resume, importance sampling and
@@ -17,8 +17,14 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    kernel for the five pathwise payoffs and the two reductions up to 2^26
    elements (one view misaligned); the Heston kernel for its 16 payoffs
    (Euler and QE, threefry-13 and -20, antithetic, 1M x 100), the Heston
-   trajectories for the one-word payoffs and both family NMC kernels,
-   their sums to f64 rounding and their grids and surfaces bit for bit;
+   trajectories for the one-word payoffs and both family NMC kernels; the
+   Merton kernel (every payoff, Euler and the terminal draw, threefry-13
+   and -20, antithetic, 1M x 100 and 1M), the Merton trajectories and the
+   generic trajectories under Bates (every one-word payoff), the Bates
+   kernel (16 payoffs, Euler and QE, 1M x 100) and the Merton and Bates
+   family NMC kernels; their sums to f64 rounding and their grids and
+   surfaces bit for bit (the GBM, Heston, Merton and Bates NMC at the main
+   shape against the plain rows 0, 49, 98 and 99);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -36,15 +42,24 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    the CF oracle, every Heston payoff at 100,000 x 100, the 16,384 x 100 x
    500 Heston NMC by both strategies (grid == fused, the tower property),
    its XVA figures and the ``heston`` and ``nmc --model heston`` commands;
-4. the kernels' launch counts over each of the two paths;
+   then, the counts set to 0 before each, the Merton path and the Bates
+   path: price_merton at 1M x 100 (Euler) and 1M (terminal) against the
+   series, price_bates at 1M x 100 (Euler and QE) against the CF oracle,
+   every payoff at 100,000 x 100, the 16,384 x 100 x 500 NMC by both
+   strategies (grid == fused, the outer price, the tower property), its XVA
+   figures and the ``merton``/``bates`` and ``nmc --model`` commands;
+4. the kernels' launch counts over each of the four paths;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
-   after a warm-up), the ladder and the book beside the single-contract
+   after a warm-up; 3 for the NMC kernels and calls, warm from phases 2
+   and 3; the plain versions that take over 0.1 s, once), the ladder and the book beside the single-contract
    launches they replace, the simulate kernel per payoff with its
    registers, the greek kernel beside the simulate kernel on its shape,
    the reductions beside ``torch.sum``, the Heston kernels beside the GBM
-   kernels of the same shapes, and end-to-end times of the phase-3 calls
-   (greeks() by route, chunked_price(), price_heston(),
-   price_nmc_heston());
+   kernels of the same shapes, the Merton and Bates kernels beside the
+   Heston kernels of their shapes, and end-to-end times of the phase-3
+   calls (greeks() by route, chunked_price(), price_heston(),
+   price_nmc_heston(), price_merton(), price_bates(), price_nmc_merton(),
+   price_nmc_bates());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -99,6 +114,23 @@ HESTON_PAYOFF_MAIN = 100_000         # phase 3: every payoff; #13's shape
 HESTON_NMC_ROWS = (0, 49, 98, 99)    # phase 2: the plain rows at NMC_MAIN
 HESTON_KERNELS = ("heston_partials", "heston_trajectories", "family_inner",
                   "family_fused")
+# The jump slice (Merton and Bates at bench.py's Heston size, and the
+# README's NMC).
+JUMP_PATHS = 65_536                  # phase 2: every payoff, 100 steps
+JUMP_MAIN = 1_000_000                # price_merton / price_bates at 1M (x 100)
+PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
+JUMP_NMC_ROWS = (0, 49, 98, 99)      # phase 2: the plain rows at NMC_MAIN
+GBM_NMC_ROWS = JUMP_NMC_ROWS         # phase 2: the GBM plain rows at NMC_MAIN
+NMC_REPS = 3                         # phase 5: NMC calls take 0.1-0.6 s
+MERTON_KERNELS = ("merton_partials", "merton_trajectories", "family_inner",
+                  "family_fused")
+BATES_KERNELS = ("bates_partials", "family_trajectories", "family_inner",
+                 "family_fused")
+# The kernels line's rows of the jump slice (the family kernels' rows per
+# family: their launches are read on that family's path).
+JUMP_ROWS = ("merton_partials", "merton_trajectories", "bates_partials",
+             "family_trajectories", "family_inner_merton",
+             "family_fused_merton", "family_inner_bates", "family_fused_bates")
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -222,11 +254,12 @@ def bound(n_bytes: float, ops, f64_ops: float = 0.0):
 # --- timing ----------------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int = REPS, min_ms: float = 5.0):
+def cuda_ms(fn, reps: int = REPS, min_ms: float = 5.0, warm: bool = True):
     """Device time of one call of fn in ms: median over reps, relative
     spread, and the calls batched into each timed rep (enough back-to-back
     calls that a rep lasts at least min_ms, so launch jitter averages out).
-    """
+    ``warm=False``: fn ran already (an NMC kernel of ~0.1-0.6 s a call), so
+    no warm-up call."""
     def timed(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -237,22 +270,27 @@ def cuda_ms(fn, reps: int = REPS, min_ms: float = 5.0):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     inner = max(1, math.ceil(min_ms / max(timed(1), 1e-3)))
     times = [timed(inner) for _ in range(reps)]
     med = statistics.median(times)
     return med, (max(times) - min(times)) / med, inner
 
 
-def wall_s(fn):
-    """Host-clock seconds of fn, ended by a synchronize (after a warm-up)."""
+def e2e_seconds(fn, reps: int = REPS):
+    """Host-clock seconds of ``reps`` calls of fn, each ended by a
+    synchronize, after one warm-up call; sorted."""
     fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return sorted(secs)
 
 
 def share(mask) -> float:
@@ -352,11 +390,52 @@ def check_bitwise(name, got, want) -> float:
     return err
 
 
+def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
+                    rows=None):
+    """Phase 2: family ``fam``'s fused and inner kernels and its outer
+    trajectories at ``shape`` against their plain versions: grids, the
+    surface (whole, or only its ``rows``) and the outer moments bitwise or
+    to f64 rounding.  ``note(kind, err)`` takes the kinds "trajectories",
+    "fused" and "inner".  Returns the plain rows' ms."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    key, key_in = keys
+    po, opt = get_payoff(name), payoff_option(mt, name)
+    n_out, n_steps, n_inner = shape
+    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+    prm = pack(opt, dyn, n_steps, dev)
+    label = f"{fam.name} {name} " + "x".join(map(str, shape))
+    surf_f, outer_f = ne.family_fused(fam, po, cfg, key, key_in, prm)
+    *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
+    surf_i = ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k)
+    *g_p, st_p, outer_p = fam.trajectories_plain(po, cfg, key, prm)
+    note("trajectories", check_bitwise(
+        f"{fam.name} trajectories {label} (grids, state)", (*g_k, st_k),
+        (*g_p, st_p)))
+    rows = list(range(n_steps)) if rows is None else list(rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ne.family_rows_plain(fam, po, cfg, key_in, prm, g_p, st_p, rows)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    what = "" if len(rows) == n_steps else f" rows {rows}"
+    note("fused", check_bitwise(
+        f"family_fused {label}{what} (plain {plain_ms:.1f} ms)",
+        (surf_f[rows],), (want,)))
+    note("inner", check_bitwise(f"family_inner {label}{what}",
+                                (surf_i[rows],), (want,)))
+    got, want_o = finish_sum(outer_f), finish_sum(outer_p)
+    check_sums(f"family_fused {label} outer moments", got, want_o)
+    note("fused", price_err(got, want_o, n_out, opt))
+    return plain_ms
+
+
 def heston_kernel_checks(mt, dev, keys):
     """Phase 2 of the Heston slice: kernels #12, #13, #29 and #30 against
     their plain versions on the card.  Returns ({kernel: max abs error},
     ms of the plain version's four rows at NMC_MAIN)."""
-    from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.nmc_heston import HestonNMC
     from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
@@ -410,42 +489,18 @@ def heston_kernel_checks(mt, dev, keys):
     traj_case("bullet_call", HESTON_PAYOFF_MAIN)
 
     fam = HestonNMC()
+    kinds = {"trajectories": "heston_trajectories", "fused": "family_fused",
+             "inner": "family_inner"}
 
-    def family_case(po, opt, shape, rows=None):
-        """Both family kernels at shape; against the whole plain surface,
-        or only its ``rows``."""
-        n_out, n_steps, n_inner = shape
-        cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-        prm = hm.pack_heston(opt, dyn, n_steps, dev)
-        label = f"{po.name} " + "x".join(map(str, shape))
-        surf_f, outer_f = ne.family_fused(fam, po, cfg, key, key_in, prm)
-        *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
-        surf_i = ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k)
-        *g_p, st_p, outer_p = fam.trajectories_plain(po, cfg, key, prm)
-        check_bitwise(f"heston_trajectories {label} (S, v, state)",
-                      (*g_k, st_k), (*g_p, st_p))
-        rows = list(range(n_steps)) if rows is None else list(rows)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = ne.family_rows_plain(fam, po, cfg, key_in, prm, g_p, st_p,
-                                    rows)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        what = "" if len(rows) == n_steps else f" rows {rows}"
-        note("family_fused", check_bitwise(
-            f"family_fused {label}{what} (plain {plain_ms:.1f} ms)",
-            (surf_f[rows],), (want,)))
-        note("family_inner", check_bitwise(
-            f"family_inner {label}{what}", (surf_i[rows],), (want,)))
-        got, want_o = finish_sum(outer_f), finish_sum(outer_p)
-        check_sums(f"family_fused {label} outer moments", got, want_o)
-        note("family_fused", price_err(got, want_o, n_out, opt))
-        return plain_ms
+    def family_note(kind, e):
+        note(kinds[kind], e)
 
     for name in ("bullet_call", "asian_call", "vanilla_call"):
-        family_case(get_payoff(name), payoff_option(mt, name), NMC_SMALL)
-    rows_ms = family_case(get_payoff("vanilla_call"), mt.DEMO_OPTION,
-                          NMC_MAIN, HESTON_NMC_ROWS)
+        family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys, name,
+                        NMC_SMALL, family_note)
+    rows_ms = family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
+                              "vanilla_call", NMC_MAIN, family_note,
+                              HESTON_NMC_ROWS)
     return err, rows_ms
 
 
@@ -463,154 +518,6 @@ def run_cli(argv) -> dict:
     if rc != 0:
         fail(f"python -m mc_tpu_torch {' '.join(argv)} exited {rc}")
     return json.loads(out.getvalue().strip().splitlines()[-1])
-
-
-def heston_main_path(mt, dev, _cuda):
-    """Phase 3 of the Heston slice at full width: price_heston at 1M x 100
-    (Euler and QE) against the CF oracle, every payoff at 100,000 x 100,
-    price_nmc_heston at NMC_MAIN by both strategies, its XVA figures and
-    the two CLI commands.  The launch counts are set to 0 before it and
-    read after it: {kernel: launches}."""
-    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
-    from mc_tpu_torch.ops.payoffs import PAYOFFS
-
-    _cuda.reset_launch_counts()
-    option, dyn = mt.DEMO_OPTION, mt.DEMO_HESTON
-    cf = mt.heston_call_cf(option.s0, option.k, option.t, option.r,
-                           *dyn.astuple(), q=option.q)
-    sim = mt.SimParams(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
-    res = {}
-    for scheme, n_se, bias in (("euler", 4.0, 0.005), ("qe", 3.0, 0.003)):
-        for anti in (False, True):
-            r = mt.price_heston(option, dyn, sim, scheme=scheme,
-                                antithetic=anti, device=DEVICE)
-            res[scheme, anti] = r
-            tol = n_se * float(r.stderr) + bias * cf
-            d = abs(float(r.price) - cf)
-            print(f"phase 3: price_heston {scheme} antithetic={anti} "
-                  f"{HESTON_MAIN}x{MAIN_STEPS}: {float(r.price):.5f} +/- "
-                  f"{float(r.stderr):.5f} vs CF {cf:.5f}: |d| {d:.5f} "
-                  f"(limit {n_se:g} se + {bias:.1%} = {tol:.5f})")
-            if not (math.isfinite(d) and d <= tol):
-                fail(f"price_heston {scheme} misses the CF oracle")
-        if not float(res[scheme, True].stderr) < float(res[scheme, False]
-                                                       .stderr):
-            fail(f"price_heston {scheme}: antithetic does not cut the stderr")
-
-    psim = mt.SimParams(n_paths=HESTON_PAYOFF_MAIN, n_steps=MAIN_STEPS)
-    pay = {name: mt.price_heston(payoff_option(mt, name), dyn, psim, name,
-                                 device=DEVICE)
-           for name in sorted(PAYOFFS) if name not in SIGMA_PAYOFFS}
-    print(f"phase 3: price_heston euler {HESTON_PAYOFF_MAIN}x{MAIN_STEPS}: "
-          + ", ".join(f"{n} {float(r.price):.6f} +/- {float(r.stderr):.6f}"
-                      for n, r in pay.items()))
-    van = float(pay["vanilla_call"].price)
-    van_down = float(mt.price_heston(payoff_option(mt, "down_out_call"), dyn,
-                                     psim, device=DEVICE).price)
-    d_inout = abs(float(pay["down_in_call"].price)
-                  + float(pay["down_out_call"].price) - van_down)
-    disc = math.exp(-float(np.float32(option.r)) * float(np.float32(option.t)))
-    d_dig = abs(float(pay["digital_call"].price)
-                + float(pay["digital_put"].price) - disc)
-    print(f"phase 3: heston ordering and parity: asian "
-          f"{float(pay['asian_call'].price):.6f}, up-and-out "
-          f"{float(pay['up_out_call'].price):.6f} < vanilla {van:.6f}; "
-          f"down-in + down-out - vanilla {d_inout:.3e}; digital call + put "
-          f"- e^-rT {d_dig:.3e}; zcb {float(pay['zcb'].price):.15f}")
-    if not (all(math.isfinite(float(r.price)) and math.isfinite(
-            float(r.stderr)) for r in pay.values())
-            and 0.0 < float(pay["asian_call"].price) < van
-            and 0.0 < float(pay["up_out_call"].price) < van
-            and d_inout <= 1e-12 * van_down and d_dig <= 2e-6 * disc
-            and float(pay["zcb"].price) == disc):
-        fail("a Heston payoff is not finite or breaks its ordering or "
-             "parity gate")
-
-    n_out, n_steps, n_inner = NMC_MAIN
-    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
-    t0 = time.perf_counter()
-    fused = mt.price_nmc_heston(option, dyn, nsim, strategy="fused",
-                                device=DEVICE)
-    torch.cuda.synchronize()
-    fused_s = time.perf_counter() - t0
-    grid = mt.price_nmc_heston(option, dyn, nsim, strategy="grid",
-                               device=DEVICE)
-    surf = fused.surface_matrix()
-    if (tuple(surf.shape) != (n_out, n_steps)
-            or not bool(torch.isfinite(surf).all())):
-        fail(f"Heston NMC surface has shape {tuple(surf.shape)} or "
-             "non-finite values")
-    same = bool(torch.equal(grid.surface, fused.surface))
-    d_outer = abs(float(grid.outer.price) - float(fused.outer.price))
-    ph = mt.price_heston(option, dyn, mt.SimParams(n_paths=n_out,
-                                                   n_steps=n_steps),
-                         device=DEVICE)
-    d_ph = max(abs(float(r.outer.price) - float(ph.price))
-               for r in (fused, grid)) / float(ph.price)
-    p32 = mt.engines.pk.unpack_params(mt.engines.pk.pack_params(
-        option, n_steps, dev))
-    want = torch.exp(-p32.r * p32.t) * torch.clamp(
-        grid.spot_surface[-1] - p32.k, min=0.0)
-    last_ok = bool(torch.allclose(grid.surface[-1], want, rtol=1e-5, atol=0.0))
-    cols = surf.double().mean(dim=0)
-    tol_cf = 0.02 * cf + 4 * 0.15  # tests/test_nmc.py:147
-    d_cols = float((cols - cf).abs().max())
-    d_mean = abs(float(fused.surface_mean) - cf)
-    d_out_cf = abs(float(fused.outer.price) - cf)
-    print(f"phase 3: price_nmc_heston {n_out}x{n_steps}x{n_inner} "
-          f"(fused {fused_s:.2f} s): grid == fused "
-          f"{'bitwise' if same else 'NOT bitwise'} "
-          f"({share(grid.surface == fused.surface):.6f}), outer "
-          f"{float(fused.outer.price):.6f} +/- {float(fused.outer.stderr):.6f}"
-          f" (grid's |d| {d_outer:.3e}; price_heston euler on the outer key "
-          f"{float(ph.price):.6f}, rel {d_ph:.2e}); last step == e^-rT "
-          f"payoff(S_T): {'ok' if last_ok else 'MISMATCH'} "
-          f"({share(grid.surface[-1] == want):.6f} bitwise); tower vs CF "
-          f"{cf:.5f}: surface mean |d| {d_mean:.5f}, max column |d| "
-          f"{d_cols:.5f} (limit {tol_cf:.5f}), outer |d| {d_out_cf:.5f}")
-    if not (same and last_ok and d_ph <= SUMS_RTOL
-            and d_outer <= SUMS_RTOL * float(fused.outer.price)
-            and d_mean < tol_cf and d_cols < tol_cf
-            and d_out_cf <= 4.0 * float(fused.outer.stderr) + 0.02 * cf):
-        fail("the Heston NMC breaks grid == fused, its last step, the tower "
-             "property or its outer price")
-
-    cva = float(grid.cva(0.02))
-    fca, fba = grid.fva(0.01)
-    xva = {
-        "cva(0.02)": cva, "dva(0.01)": float(grid.dva(0.01)),
-        "bilateral_cva(0.02, 0.01)": float(grid.bilateral_cva(0.02, 0.01)),
-        "fca(0.01)": float(fca), "fba(0.01)": float(fba),
-        "mva(0.01, 99%, mpor 2)": float(grid.mva(0.01, 0.99, 2)),
-        "collateralized cva (H=1, mta=0.1, mpor 2)": float(
-            grid.collateralized(1.0, mta=0.1, mpor_steps=2).cva(0.02)),
-        "cva_wwr(0.02, beta=0.05)": float(grid.cva_wwr(0.02, 0.05)),
-        "cva_wwr_spot(0.02, beta=0)": float(grid.cva_wwr_spot(0.02, 0.0)),
-    }
-    print("phase 3: xva of the Heston grid surface: " + ", ".join(
-        f"{k} {v:.7f}" for k, v in xva.items()))
-    if not (all(math.isfinite(v) for v in xva.values()) and cva > 0.0
-            and abs(xva["cva_wwr_spot(0.02, beta=0)"] - cva)
-            <= XVA_RTOL * cva):
-        fail("the Heston exposure metrics are not finite, or "
-             "cva_wwr_spot(beta=0) is not cva")
-
-    h = run_cli(["heston", "--scheme", "qe", "--device", DEVICE])
-    n = run_cli(["nmc", "--model", "heston", "--strategy", "grid",
-                 "--exposure", "--cva-hazard", "0.02", "--payoff",
-                 "vanilla_call", "--n-paths", str(n_out), "--n-steps",
-                 str(n_steps), "--n-inner", str(n_inner), "--device", DEVICE])
-    d_cli = abs(h["price"] - h["cf_oracle"])
-    print(f"phase 3: python -m mc_tpu_torch heston --scheme qe: {h}; nmc "
-          f"--model heston --strategy grid --exposure: outer "
-          f"{n['outer_price']:.6f}, cva {n['cva']:.7f}, EE at t_n "
-          f"{n['expected_exposure'][-1]:.6f}")
-    if not (sorted(h) == ["cf_oracle", "payoff", "price", "scheme", "stderr"]
-            and d_cli <= 4.0 * h["stderr"] + 0.003 * h["cf_oracle"]
-            and len(n["expected_exposure"]) == n_steps and n["cva"] > 0.0
-            and n["outer_price"] == float(grid.outer.price)):
-        fail("the heston or nmc --model heston command is off")
-    return {k: _cuda.launch_counts[k] for k in HESTON_KERNELS}
 
 
 def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
@@ -641,7 +548,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
             f"heston_partials call {scheme}",
             lambda cfg=cfg: hm.heston_partials(call, cfg, key, prm),
             lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
-            f"{HESTON_MAIN}x{MAIN_STEPS}")
+            f"{HESTON_MAIN}x{MAIN_STEPS}", plain_reps=1)
         kernel = "heston_qe_kernel" if scheme == "qe" else "heston_euler_kernel"
         print(f"phase 5: heston_partials call {scheme}: {steps / k_ms * 1e3:.4e}"
               f" path-steps/s; {k_ms / gbm_sim:.2f}x the GBM simulate_partials"
@@ -655,7 +562,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
         "heston_trajectories bullet",
         lambda: hm.heston_trajectories(bullet, cfg_t, key, prm),
         lambda: hm.heston_trajectories_plain(bullet, cfg_t, key, prm),
-        f"{HESTON_PAYOFF_MAIN}x{MAIN_STEPS}")
+        f"{HESTON_PAYOFF_MAIN}x{MAIN_STEPS}", plain_reps=1)
     k_ms = out["heston_trajectories"][0]
     grid_bytes = 3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS
     print(f"phase 5: heston_trajectories writes {grid_bytes / 1e6:.1f} MB in "
@@ -680,7 +587,8 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
                                                      prm, grids, st)),
             ("family_fused", lambda: ne.family_fused(fam, call, cfg, key,
                                                      key_in, prm))):
-        ms, sp, _ = cuda_ms(fn)  # in turns: fused, inner, inner, fused
+        # in turns: fused, inner, inner, fused (warm from phases 2 and 3)
+        ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
         times.setdefault(name, []).append(ms)
         print(f"phase 5: {name} heston call {n_out}x{n_steps}x{n_inner}: "
               f"kernel {ms:.3f} ms (spread {sp:.1%}), "
@@ -711,9 +619,10 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
              "inner path-steps/s", inner_steps,
              lambda: mt.price_nmc_heston(sim=nsim, strategy="grid",
                                          device=DEVICE))):
-        secs = sorted(wall_s(fn) for _ in range(REPS))
+        reps = NMC_REPS if unit == "inner path-steps/s" else REPS
+        secs = e2e_seconds(fn, reps)
         med = statistics.median(secs)
-        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {REPS} "
+        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
               f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
               f"{work / med:.4e} {unit} {tag}")
     return out
@@ -743,6 +652,528 @@ def heston_bounds():
     }
 
 
+# --- the jump slice: kernels #14, #15, #16, the generic trajectories and
+# the Merton and Bates instantiations of #29 and #30 ------------------------
+
+
+def unit_ops(rounds: int, words: int):
+    """One threefry2x32 call and bits_to_unit of ``words`` of its words."""
+    return (2 + 3 * rounds + 2 * (rounds // 4) + 2 * words, words, 0)
+
+
+def scan_ops(kmax: int):
+    """The Poisson scan: expf(-lam), then per iteration the k -> float
+    conversion, the compare-add (2), the pmf multiply, the IEEE division
+    (a reciprocal and two refinement ops) and the cdf add."""
+    return _add((0, 0, 1), _scale((1, 5, 1), kmax))
+
+
+# A Merton step on top of its draws and scan: w (3), the jump n*mu_j +
+# (sigma_j*sqrtf(n))*e (4 and a sqrtf), w + jump (1), S = base*expf(w) (1).
+MERTON_STEP_OPS = (0, 9, 2)
+# Bates's jump on top of Heston's Euler step (HESTON_EULER_OPS): the jump
+# (4 and a sqrtf) and w += jump (1).
+BATES_JUMP_OPS = (0, 5, 1)
+
+
+def merton_path(n_steps: int, rounds: int, kmax: int):
+    """A Merton Euler path: per step pair, draw3 (two normal pairs and both
+    words of a third call) and two steps; its payoff."""
+    pair = _add(_scale(pair_ops(rounds), 2), unit_ops(rounds, 2),
+                _scale(_add(MERTON_STEP_OPS, scan_ops(kmax)), 2))
+    return _add(_scale(pair, n_steps // 2), TERMINAL_OPS)
+
+
+def merton_terminal_path(rounds: int, kmax: int):
+    """The exact terminal draw: a normal pair, a uniform, the scan at
+    lam*T, S_T = s0*expf((drift_t + vol_t*z) + jump) (8 and a sqrtf and an
+    expf), its payoff."""
+    return _add(pair_ops(rounds), unit_ops(rounds, 1), scan_ops(kmax),
+                (0, 8, 2), TERMINAL_OPS)
+
+
+def merton_substep(kmax: int):
+    """An inner Merton substep: the (z, e) pair, the uniform, the step."""
+    return _add(pair_ops(13), unit_ops(13, 1), MERTON_STEP_OPS, scan_ops(kmax))
+
+
+def bates_step(rounds: int, kmax: int):
+    """A Bates Euler step: two normal pairs, a uniform, Heston's step, the
+    jump and the scan."""
+    return _add(_scale(pair_ops(rounds), 2), unit_ops(rounds, 1),
+                HESTON_EULER_OPS, BATES_JUMP_OPS, scan_ops(kmax))
+
+
+def family_bounds(prefix: str, substep, path, n_grids: int):
+    """bound() of a family's fused and inner kernels at NMC_MAIN (vanilla)
+    from its inner substep's and outer path's operations."""
+    n_out, n_steps, n_inner = NMC_MAIN
+    substeps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    legs = n_out * n_inner * n_steps
+    inner = _add(_scale(substep, substeps), _scale(KAHAN_LEG_OPS, legs))
+    surface = 4 * n_out * n_steps
+    return {f"family_fused_{prefix}": bound(surface,
+                                            _add(inner, _scale(path, n_out))),
+            # the market grids and the surface (a vanilla call has no state)
+            f"family_inner_{prefix}": bound((n_grids + 1) * surface, inner)}
+
+
+def jump_kmax():
+    """(kmax at lam*dt, kmax at lam*T) of the demo jumps at MAIN_STEPS."""
+    from mc_tpu_torch.models.merton import DEMO_MERTON, poisson_kmax
+
+    return (poisson_kmax(DEMO_MERTON.lam / MAIN_STEPS),
+            poisson_kmax(DEMO_MERTON.lam))
+
+
+def jump_bounds():
+    """bound() of the jump slice's rows at the shapes the kernels line
+    reports: #14 Euler at 1M x 100, #15 and the generic trajectories at
+    NMC_MAIN's outer 16,384 x 100 (vanilla), #16 Euler at 1M x 100, the
+    family kernels at NMC_MAIN (vanilla)."""
+    k_dt, _ = jump_kmax()
+    n_out, n_steps, _ = NMC_MAIN
+    m_path = merton_path(MAIN_STEPS, 13, k_dt)
+    b_path = _add(_scale(bates_step(13, k_dt), MAIN_STEPS), TERMINAL_OPS)
+    return {
+        "merton_partials": bound(76, _scale(m_path, JUMP_MAIN)),
+        "merton_trajectories": bound(2 * 4 * n_out * n_steps,
+                                     _scale(m_path, n_out)),
+        "bates_partials": bound(80, _scale(b_path, JUMP_MAIN)),
+        "family_trajectories": bound(3 * 4 * n_out * n_steps,
+                                     _scale(b_path, n_out)),
+        **family_bounds("merton", merton_substep(k_dt), m_path, 1),
+        **family_bounds("bates", bates_step(13, k_dt), b_path, 2),
+    }
+
+
+def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
+    """Phase 2 of the jump slice: #14 (every payoff, both methods,
+    threefry-13/-20, antithetic; the main shapes 1M x 100 and 1M terminal),
+    #15 and the generic trajectories (every one-word payoff), #16 (its 16
+    payoffs, Euler and QE; 1M x 100), and both families' #29/#30 at
+    NMC_SMALL and at NMC_MAIN against the plain rows JUMP_NMC_ROWS, each
+    against its plain version on the card.  Returns ({row: max abs error},
+    {family: ms of the plain version's rows at NMC_MAIN})."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.models import bates as bm
+    from mc_tpu_torch.models import merton as mm
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.nmc_bates import BatesNMC
+    from mc_tpu_torch.nmc_merton import MertonNMC
+    from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    err = dict.fromkeys(JUMP_ROWS, 0.0)
+    k_dt, k_t = jump_kmax()
+
+    def note(row, e):
+        err[row] = max(err[row], e)
+
+    def partials_case(row, fn, plain, cfg, key, prm, name, opt, label):
+        po = get_payoff(name)
+        got = finish_sum(fn(po, cfg, key, prm))
+        want = finish_sum(plain(po, cfg, key, prm))
+        check_sums(f"{row} {name} {label} {cfg.n_paths}x{cfg.n_steps} "
+                   f"{cfg.rng_source} anti={cfg.antithetic}", got, want)
+        note(row, price_err(got, want, cfg.n_paths, opt))
+
+    def merton_case(name, n_paths, method="euler", **kw):
+        opt = payoff_option(mt, name)
+        cfg = mm.MertonConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
+                              kmax=k_t if method == "terminal" else k_dt,
+                              method=method, **kw)
+        partials_case("merton_partials", mm.merton_partials,
+                      mm.merton_partials_plain, cfg, merton_keys[0],
+                      mm.pack_merton(opt, mm.DEMO_MERTON, MAIN_STEPS, dev),
+                      name, opt, method)
+
+    def bates_case(name, n_paths, **kw):
+        opt = payoff_option(mt, name)
+        cfg = bm.BatesConfig(n_paths=n_paths, n_steps=MAIN_STEPS, kmax=k_dt,
+                             **kw)
+        partials_case("bates_partials", bm.bates_partials,
+                      bm.bates_partials_plain, cfg, bates_keys[0],
+                      bm.pack_bates(opt, bm.DEMO_BATES, MAIN_STEPS, dev),
+                      name, opt, cfg.scheme)
+
+    for name, po in sorted(PAYOFFS.items()):
+        merton_case(name, JUMP_PATHS)
+        if po.terminal_only:  # the main shape of the terminal draw
+            merton_case(name, JUMP_MAIN, "terminal")
+        if name not in SIGMA_PAYOFFS:
+            bates_case(name, JUMP_PATHS)
+    for kw in (dict(rng_source="threefry"), dict(antithetic=True),
+               dict(rng_source="threefry", antithetic=True)):
+        for method in ("euler", "terminal"):
+            merton_case("vanilla_call", JUMP_PATHS, method, **kw)
+    for kw in (dict(scheme="qe"), dict(rng_source="threefry"),
+               dict(antithetic=True),
+               dict(scheme="qe", rng_source="threefry", antithetic=True)):
+        bates_case("vanilla_call", JUMP_PATHS, **kw)
+    merton_case("vanilla_call", JUMP_MAIN)  # the main shape: a partial block
+    for scheme in ("euler", "qe"):
+        bates_case("vanilla_call", JUMP_MAIN, scheme=scheme)
+
+    fams = {"merton": (MertonNMC(extras=(k_dt,)), mm.pack_merton,
+                       mm.DEMO_MERTON, merton_keys, "merton_trajectories"),
+            "bates": (BatesNMC(extras=(k_dt,)), bm.pack_bates,
+                      bm.DEMO_BATES, bates_keys, "family_trajectories")}
+
+    def traj_case(family, name, n_paths, n_steps=MAIN_STEPS):
+        fam, pack, dyn, (key, _), row = fams[family]
+        po, opt = get_payoff(name), payoff_option(mt, name)
+        cfg = ne.FamilyConfig(n_paths=n_paths, n_steps=n_steps, n_inner=1)
+        prm = pack(opt, dyn, n_steps, dev)
+        *g_k, part_k = fam.trajectories(po, cfg, key, prm)
+        *g_p, part_p = fam.trajectories_plain(po, cfg, key, prm)
+        label = f"{row} {family} {name} {n_paths}x{n_steps}"
+        note(row, check_bitwise(f"{label} (grids, state)", g_k, g_p))
+        got, want = finish_sum(part_k), finish_sum(part_p)
+        check_sums(f"{label} payoff", got, want)
+        note(row, price_err(got, want, n_paths, opt))
+
+    for name, po in sorted(PAYOFFS.items()):
+        if po.n_state <= 1:
+            for family in fams:
+                traj_case(family, name, JUMP_PATHS)
+
+    rows_ms = {}
+    for family, (fam, pack, dyn, keys, traj_row) in fams.items():
+        kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
+                 "inner": f"family_inner_{family}"}
+
+        def family_note(kind, e, kinds=kinds):
+            note(kinds[kind], e)
+
+        for name in ("bullet_call", "asian_call", "vanilla_call"):
+            family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
+                            family_note)
+        rows_ms[family] = family_nmc_case(mt, dev, fam, pack, dyn, keys,
+                                          "vanilla_call", NMC_MAIN,
+                                          family_note, JUMP_NMC_ROWS)
+    return err, rows_ms
+
+
+def family_main_path(mt, dev, _cuda, family):
+    """Phase 3 of a model family ("heston", "merton" or "bates") at full
+    width: the call at 1M (x 100) against its oracle by each scheme or
+    method, with and without the antithetic twin, every payoff at
+    100,000 x 100 with ordering and parity gates, the NMC at NMC_MAIN by
+    both strategies (grid == fused bitwise, the outer price == the Euler
+    price on the outer key up to f64 sums, the last step, the tower
+    property), its XVA figures and the family's two CLI commands.  The
+    launch counts are set to 0 before it and read after it: {kernel:
+    launches}."""
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    _cuda.reset_launch_counts()
+    option = o = mt.DEMO_OPTION
+    # the Heston gates: Euler's O(dt) bias (4 se + 0.5%), QE's smaller one
+    sv_gates = (("euler", "scheme", 4.0, 0.005), ("qe", "scheme", 3.0, 0.003))
+    sv_names = [n for n in sorted(PAYOFFS) if n not in SIGMA_PAYOFFS]
+    if family == "heston":
+        dyn, price_fn, nmc_fn = mt.DEMO_HESTON, mt.price_heston, mt.price_nmc_heston
+        ref = mt.heston_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(), q=o.q)
+        gates, names, kernels = sv_gates, sv_names, HESTON_KERNELS
+        n_main = HESTON_MAIN
+    elif family == "merton":
+        dyn, price_fn, nmc_fn = mt.DEMO_MERTON, mt.price_merton, mt.price_nmc_merton
+        ref = mt.merton_call_closed_form(o.s0, o.k, o.t, o.r, o.sigma,
+                                         *dyn.astuple(), q=o.q)
+        # exact in law: no discretization bias, 3 stderr
+        gates = (("euler", "method", 3.0, 0.0), ("terminal", "method", 3.0, 0.0))
+        names, kernels, n_main = sorted(PAYOFFS), MERTON_KERNELS, JUMP_MAIN
+    else:
+        dyn, price_fn, nmc_fn = mt.DEMO_BATES, mt.price_bates, mt.price_nmc_bates
+        ref = mt.bates_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(), q=o.q)
+        gates, names, kernels = sv_gates, sv_names, BATES_KERNELS
+        n_main = JUMP_MAIN
+    sim = mt.SimParams(n_paths=n_main, n_steps=MAIN_STEPS)
+    for which, arg, n_se, bias in gates:
+        se = {}
+        for anti in (False, True):
+            r = price_fn(option, dyn, sim, **{arg: which}, antithetic=anti,
+                         device=DEVICE)
+            se[anti] = float(r.stderr)
+            tol = n_se * float(r.stderr) + bias * ref
+            d = abs(float(r.price) - ref)
+            print(f"phase 3: price_{family} {which} antithetic={anti} "
+                  f"{n_main}x{MAIN_STEPS}: {float(r.price):.5f} +/- "
+                  f"{float(r.stderr):.5f} vs oracle {ref:.5f}: |d| {d:.5f} "
+                  f"(limit {n_se:g} se + {bias:.1%} = {tol:.5f})")
+            if not (math.isfinite(d) and d <= tol):
+                fail(f"price_{family} {which} misses its oracle")
+        if not se[True] < se[False]:
+            fail(f"price_{family} {which}: antithetic does not cut the "
+                 "stderr")
+
+    psim = mt.SimParams(n_paths=PAYOFF_MAIN, n_steps=MAIN_STEPS)
+    pay = {name: price_fn(payoff_option(mt, name), dyn, psim, name,
+                          device=DEVICE) for name in names}
+    print(f"phase 3: price_{family} euler {PAYOFF_MAIN}x{MAIN_STEPS}: "
+          + ", ".join(f"{n} {float(r.price):.6f} +/- {float(r.stderr):.6f}"
+                      for n, r in pay.items()))
+    van = float(pay["vanilla_call"].price)
+    van_down = float(price_fn(payoff_option(mt, "down_out_call"), dyn, psim,
+                              device=DEVICE).price)
+    d_inout = abs(float(pay["down_in_call"].price)
+                  + float(pay["down_out_call"].price) - van_down)
+    disc = math.exp(-float(np.float32(option.r)) * float(np.float32(option.t)))
+    d_dig = abs(float(pay["digital_call"].price)
+                + float(pay["digital_put"].price) - disc)
+    # on the same paths the bridge weight is at most the discrete flag
+    bridge_ok = all(float(pay[f"{side}_call_bb"].price)
+                    <= float(pay[f"{side}_call"].price)
+                    for side in ("up_out", "down_out") if family == "merton")
+    print(f"phase 3: {family} ordering and parity: asian "
+          f"{float(pay['asian_call'].price):.6f}, up-and-out "
+          f"{float(pay['up_out_call'].price):.6f} < vanilla {van:.6f}; "
+          f"down-in + down-out - vanilla {d_inout:.3e}; digital call + put "
+          f"- e^-rT {d_dig:.3e}; zcb {float(pay['zcb'].price):.15f}"
+          + ("; the bridge barriers at most the discrete ones: "
+             f"{'ok' if bridge_ok else 'NO'}" if family == "merton" else ""))
+    if not (all(math.isfinite(float(r.price)) and math.isfinite(
+            float(r.stderr)) for r in pay.values())
+            and 0.0 < float(pay["asian_call"].price) < van
+            and 0.0 < float(pay["up_out_call"].price) < van
+            and d_inout <= 1e-12 * van_down and d_dig <= 2e-6 * disc
+            and float(pay["zcb"].price) == disc and bridge_ok):
+        fail(f"a {family} payoff is not finite or breaks its ordering or "
+             "parity gate")
+
+    n_out, n_steps, n_inner = NMC_MAIN
+    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
+    t0 = time.perf_counter()
+    fused = nmc_fn(option, dyn, nsim, strategy="fused", device=DEVICE)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    grid = nmc_fn(option, dyn, nsim, strategy="grid", device=DEVICE)
+    surf = fused.surface_matrix()
+    if (tuple(surf.shape) != (n_out, n_steps)
+            or not bool(torch.isfinite(surf).all())):
+        fail(f"{family} NMC surface has shape {tuple(surf.shape)} or "
+             "non-finite values")
+    same = bool(torch.equal(grid.surface, fused.surface))
+    d_outer = abs(float(grid.outer.price) - float(fused.outer.price))
+    standalone = price_fn(option, dyn, mt.SimParams(n_paths=n_out,
+                                                    n_steps=n_steps),
+                          device=DEVICE)
+    d_sa = max(abs(float(r.outer.price) - float(standalone.price))
+               for r in (fused, grid)) / float(standalone.price)
+    p32 = mt.engines.pk.unpack_params(mt.engines.pk.pack_params(
+        option, n_steps, dev))
+    want = torch.exp(-p32.r * p32.t) * torch.clamp(
+        grid.spot_surface[-1] - p32.k, min=0.0)
+    last_ok = bool(torch.allclose(grid.surface[-1], want, rtol=1e-5, atol=0.0))
+    cols = surf.double().mean(dim=0)
+    tol_ref = 0.02 * ref + 4 * 0.15  # tests/test_nmc.py:147
+    d_cols = float((cols - ref).abs().max())
+    d_mean = abs(float(fused.surface_mean) - ref)
+    d_out_ref = abs(float(fused.outer.price) - ref)
+    print(f"phase 3: price_nmc_{family} {n_out}x{n_steps}x{n_inner} "
+          f"(fused {fused_s:.2f} s): grid == fused "
+          f"{'bitwise' if same else 'NOT bitwise'} "
+          f"({share(grid.surface == fused.surface):.6f}), outer "
+          f"{float(fused.outer.price):.6f} +/- {float(fused.outer.stderr):.6f}"
+          f" (grid's |d| {d_outer:.3e}; price_{family} euler on the outer "
+          f"key {float(standalone.price):.6f}, rel {d_sa:.2e}); last step == "
+          f"e^-rT payoff(S_T): {'ok' if last_ok else 'MISMATCH'} "
+          f"({share(grid.surface[-1] == want):.6f} bitwise); tower vs oracle "
+          f"{ref:.5f}: surface mean |d| {d_mean:.5f}, max column |d| "
+          f"{d_cols:.5f} (limit {tol_ref:.5f}), outer |d| {d_out_ref:.5f}")
+    if not (same and last_ok and d_sa <= SUMS_RTOL
+            and d_outer <= SUMS_RTOL * float(fused.outer.price)
+            and d_mean < tol_ref and d_cols < tol_ref
+            and d_out_ref <= 4.0 * float(fused.outer.stderr) + 0.02 * ref):
+        fail(f"the {family} NMC breaks grid == fused, its last step, the "
+             "tower property or its outer price")
+
+    cva = float(grid.cva(0.02))
+    fca, fba = grid.fva(0.01)
+    xva = {
+        "cva(0.02)": cva, "dva(0.01)": float(grid.dva(0.01)),
+        "bilateral_cva(0.02, 0.01)": float(grid.bilateral_cva(0.02, 0.01)),
+        "fca(0.01)": float(fca), "fba(0.01)": float(fba),
+        "mva(0.01, 99%, mpor 2)": float(grid.mva(0.01, 0.99, 2)),
+        "collateralized cva (H=1, mta=0.1, mpor 2)": float(
+            grid.collateralized(1.0, mta=0.1, mpor_steps=2).cva(0.02)),
+        "cva_wwr(0.02, beta=0.05)": float(grid.cva_wwr(0.02, 0.05)),
+        "cva_wwr_spot(0.02, beta=0)": float(grid.cva_wwr_spot(0.02, 0.0)),
+    }
+    print(f"phase 3: xva of the {family} grid surface: " + ", ".join(
+        f"{k} {v:.7f}" for k, v in xva.items()))
+    if not (all(math.isfinite(v) for v in xva.values()) and cva > 0.0
+            and abs(xva["cva_wwr_spot(0.02, beta=0)"] - cva)
+            <= XVA_RTOL * cva):
+        fail(f"the {family} exposure metrics are not finite, or "
+             "cva_wwr_spot(beta=0) is not cva")
+
+    argv = [family, "--device", DEVICE]
+    if family == "merton":  # exact in law: 3 stderr
+        argv += ["--method", "terminal", "-N", str(JUMP_MAIN)]
+        oracle_key, n_se, bias = "merton_series_oracle", 3.0, 0.0
+    else:  # QE at the CLI's 100,000 x 100
+        argv += ["--scheme", "qe"]
+        oracle_key, n_se, bias = "cf_oracle", 4.0, 0.003
+    c = run_cli(argv)
+    n = run_cli(["nmc", "--model", family, "--strategy", "grid", "--exposure",
+                 "--cva-hazard", "0.02", "--payoff", "vanilla_call",
+                 "--n-paths", str(n_out), "--n-steps", str(n_steps),
+                 "--n-inner", str(n_inner), "--device", DEVICE])
+    d_cli = abs(c["price"] - c[oracle_key])
+    print(f"phase 3: python -m mc_tpu_torch {' '.join(argv)}: {c}; nmc "
+          f"--model {family} --strategy grid --exposure: outer "
+          f"{n['outer_price']:.6f}, cva {n['cva']:.7f}, EE at t_n "
+          f"{n['expected_exposure'][-1]:.6f}")
+    if not (c["payoff"] == "vanilla_call"
+            and d_cli <= n_se * c["stderr"] + bias * c[oracle_key]
+            and len(n["expected_exposure"]) == n_steps and n["cva"] > 0.0
+            and n["outer_price"] == float(grid.outer.price)):
+        fail(f"the {family} or nmc --model {family} command is off")
+    return {k: _cuda.launch_counts[k] for k in kernels}
+
+
+def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
+               gbm_ms):
+    """Phase 5 of the jump slice: each kernel (CUDA events) beside its plain
+    version and beside the Heston kernel of its shape (``gbm_ms``: Heston's
+    partials at 1M x 100 and its NMC kernels at NMC_MAIN), the registers,
+    and the e2e calls.  Returns {row: (ms, plain ms)} (the family kernels'
+    plain ms is measured in phase 2)."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.models import bates as bm
+    from mc_tpu_torch.models import merton as mm
+    from mc_tpu_torch.nmc_bates import BatesNMC
+    from mc_tpu_torch.nmc_merton import MertonNMC
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    call = get_payoff("vanilla_call")
+    k_dt, k_t = jump_kmax()
+    out = {}
+    steps = JUMP_MAIN * MAIN_STEPS
+    m_prm = mm.pack_merton(mt.DEMO_OPTION, mm.DEMO_MERTON, MAIN_STEPS, dev)
+    b_prm = bm.pack_bates(mt.DEMO_OPTION, bm.DEMO_BATES, MAIN_STEPS, dev)
+    m_cfg = {m: mm.MertonConfig(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS,
+                                kmax=k, method=m)
+             for m, k in (("euler", k_dt), ("terminal", k_t))}
+    b_cfg = {sc: bm.BatesConfig(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS,
+                                kmax=k_dt, scheme=sc)
+             for sc in ("euler", "qe")}
+    # Each kernel at its main shape; the plain versions of the Euler rows
+    # (the terminal draw and QE: the kernel alone).
+    for row, label, fn, plain, regs_key in (
+            ("merton_partials", "merton_partials call euler",
+             lambda: mm.merton_partials(call, m_cfg["euler"], merton_keys[0],
+                                        m_prm),
+             lambda: mm.merton_partials_plain(call, m_cfg["euler"],
+                                              merton_keys[0], m_prm),
+             ("merton_partials_kernel", "VanillaCall", 13)),
+            (None, "merton_partials call terminal",
+             lambda: mm.merton_partials(call, m_cfg["terminal"],
+                                        merton_keys[0], m_prm), None,
+             ("merton_partials_kernel", "VanillaCall", 13)),
+            ("bates_partials", "bates_partials call euler",
+             lambda: bm.bates_partials(call, b_cfg["euler"], bates_keys[0],
+                                       b_prm),
+             lambda: bm.bates_partials_plain(call, b_cfg["euler"],
+                                             bates_keys[0], b_prm),
+             ("bates_partials_kernel", "VanillaCall", 13)),
+            (None, "bates_partials call qe",
+             lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0],
+                                       b_prm), None,
+             ("bates_partials_kernel", "VanillaCall", 13))):
+        if plain is None:
+            k_ms, sp, _ = cuda_ms(fn)
+            print(f"phase 5: {label} {JUMP_MAIN}x{MAIN_STEPS}: kernel "
+                  f"{k_ms:.4f} ms (spread {sp:.1%}) {tag}")
+        else:
+            out[row] = time_pair(label, fn, plain,
+                                 f"{JUMP_MAIN}x{MAIN_STEPS}", plain_reps=1)
+            k_ms = out[row][0]
+        heston = gbm_ms["qe" if label.endswith("qe") else "heston_partials"]
+        print(f"phase 5: {label}: {steps / k_ms * 1e3:.4e} path-steps/s; "
+              f"{k_ms / heston:.2f}x heston_partials call "
+              f"{'qe' if label.endswith('qe') else 'euler'} on the same shape"
+              f" ({heston:.4f} ms); registers (ROUNDS=13, all methods and "
+              f"schemes) {regs.get(regs_key)} {tag}")
+
+    n_out, n_steps, n_inner = NMC_MAIN
+    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    for family, fam, prm, (key, key_in), traj_row in (
+            ("merton", MertonNMC(extras=(k_dt,)), m_prm, merton_keys,
+             "merton_trajectories"),
+            ("bates", BatesNMC(extras=(k_dt,)), b_prm, bates_keys,
+             "family_trajectories")):
+        out[traj_row] = time_pair(
+            f"{traj_row} {family} call",
+            lambda fam=fam, prm=prm, key=key: fam.trajectories(call, cfg, key,
+                                                               prm),
+            lambda fam=fam, prm=prm, key=key: fam.trajectories_plain(
+                call, cfg, key, prm),
+            f"{n_out}x{n_steps}", plain_reps=1)
+        grid_bytes = (fam.n_grids + 1) * 4 * n_out * n_steps
+        print(f"phase 5: {traj_row} writes {grid_bytes / 1e6:.1f} MB in "
+              f"{out[traj_row][0]:.4f} ms: "
+              f"{grid_bytes / out[traj_row][0] / 1e6:.1f} GB/s {tag}")
+        *grids, st, _ = fam.trajectories(call, cfg, key, prm)
+        for name, fn in (
+                ("family_fused", lambda fam=fam, prm=prm, key=key,
+                 key_in=key_in: ne.family_fused(fam, call, cfg, key, key_in,
+                                                prm)),
+                ("family_inner", lambda fam=fam, prm=prm, key_in=key_in,
+                 grids=grids, st=st: ne.family_inner(fam, call, cfg, key_in,
+                                                     prm, grids, st))):
+            ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
+            out[f"{name}_{family}"] = (ms, None)
+            struct = "MertonFamily" if family == "merton" else "BatesFamily"
+            print(f"phase 5: {name} {family} call {n_out}x{n_steps}x{n_inner}"
+                  f": kernel {ms:.3f} ms (spread {sp:.1%}), "
+                  f"{inner_steps / ms * 1e3:.4e} inner path-steps/s = "
+                  f"{ms / gbm_ms[name]:.2f}x the Heston kernel "
+                  f"({gbm_ms[name]:.3f} ms); registers "
+                  f"{regs.get((f'{name}_kernel<{struct}>', 'VanillaCall', None))}"
+                  f" {tag}")
+
+    osim = mt.SimParams(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS)
+    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
+    for label, unit, work, fn in (
+            (f"price_merton() euler {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
+             steps, lambda: mt.price_merton(sim=osim, device=DEVICE)),
+            (f"price_merton() terminal {JUMP_MAIN}", "paths/s", JUMP_MAIN,
+             lambda: mt.price_merton(sim=osim, method="terminal",
+                                     device=DEVICE)),
+            (f"price_bates() euler {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
+             steps, lambda: mt.price_bates(sim=osim, device=DEVICE)),
+            (f"price_bates() qe {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
+             steps, lambda: mt.price_bates(sim=osim, scheme="qe",
+                                           device=DEVICE)),
+            (f"price_nmc_merton() fused {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_merton(sim=nsim, strategy="fused",
+                                         device=DEVICE)),
+            (f"price_nmc_merton() grid {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_merton(sim=nsim, strategy="grid",
+                                         device=DEVICE)),
+            (f"price_nmc_bates() fused {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_bates(sim=nsim, strategy="fused",
+                                        device=DEVICE)),
+            (f"price_nmc_bates() grid {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_bates(sim=nsim, strategy="grid",
+                                        device=DEVICE))):
+        secs = e2e_seconds(fn, NMC_REPS)
+        med = statistics.median(secs)
+        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over "
+              f"{NMC_REPS} (min {secs[0] * 1e3:.4f}, max "
+              f"{secs[-1] * 1e3:.4f}), {work / med:.4e} {unit} {tag}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -758,7 +1189,9 @@ def main() -> int:
     from mc_tpu_torch.ops import reduce
     from mc_tpu_torch.ops.payoffs import PATHWISE, PAYOFFS, get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
+    from mc_tpu_torch.models.bates import BATES_TAG
     from mc_tpu_torch.models.heston import HESTON_TAG
+    from mc_tpu_torch.models.merton import MERTON_TAG
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
@@ -785,6 +1218,8 @@ def main() -> int:
     for line in _cuda.build_info.get("ptxas", "").splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"phase 1: ptxas {line.strip()}")
+    print(f"phase 1: {_cuda.build_info.get('ptxas', '').count('Compiling entry')}"
+          " kernel instantiations compiled")
 
     option = mt.DEMO_OPTION
     otm = mt.OptionParams(k=IS_STRIKE)
@@ -792,9 +1227,10 @@ def main() -> int:
     call, bullet = get_payoff("vanilla_call"), get_payoff("bullet_call")
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
     key_in = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_INNER))
-    heston_keys = tuple(
-        tuple(int(k) for k in rng.derive_key(1234, stream, HESTON_TAG))
+    heston_keys, merton_keys, bates_keys = (tuple(
+        tuple(int(k) for k in rng.derive_key(1234, stream, tag))
         for stream in (engines.STREAM_OUTER, engines.STREAM_INNER))
+        for tag in (HESTON_TAG, MERTON_TAG, BATES_TAG))
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
     # --- Phase 2: each kernel against its plain version ----------------
@@ -971,32 +1407,36 @@ def main() -> int:
             finish_sum(want).T, cfg.n_paths, pk.unpack_params(rows.T),
             po.name in FLIP_PAYOFFS, cfg.with_cv, ex), plain_ms
 
-    def nmc_main_case(shape):
+    def nmc_main_case(shape, rows=GBM_NMC_ROWS):
         """Both NMC kernels against one plain run at the main shape: the
-        plain fused version IS the plain trajectories + plain inner sweep,
-        so one plain run (tens of seconds) checks and times both kernels."""
+        plain trajectories and the plain inner sweep's ``rows`` (the plain
+        fused version IS the two), so one plain run checks and times both
+        kernels."""
         n_out, n_steps, n_inner = shape
         cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
         prm = pk.pack_params(option, n_steps, dev)
         label = "x".join(map(str, shape))
+        rows = list(rows)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s_p, c_p, outer_p = pk.simulate_trajectories_plain(
             bullet, nk.outer_config(cfg), key, prm)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        surf_p = nk.nmc_inner_plain(bullet, cfg, key_in, prm, s_p, c_p)
+        surf_p = nk.nmc_inner_plain(bullet, cfg, key_in, prm, s_p, c_p,
+                                    steps=rows)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         print(f"phase 2: nmc plain {label}: trajectories {t1 - t0:.3f} s, "
-              f"inner sweep {t2 - t1:.3f} s (host clock, one run)")
+              f"inner sweep rows {rows} {t2 - t1:.3f} s (host clock, one run)")
         surf_k, outer_k = nk.nmc_fused(bullet, cfg, key, key_in, prm)
-        err = surface_check(f"nmc_fused {label}", surf_k, surf_p)
+        err = surface_check(f"nmc_fused {label} rows {rows}", surf_k[rows],
+                            surf_p)
         err = max(err, outer_check(f"nmc_fused {label}", outer_k, outer_p,
                                    n_out))
         inner_err = surface_check(
-            f"nmc_inner {label} (on the plain grids)",
-            nk.nmc_inner(bullet, cfg, key_in, prm, s_p, c_p), surf_p)
+            f"nmc_inner {label} rows {rows} (on the plain grids)",
+            nk.nmc_inner(bullet, cfg, key_in, prm, s_p, c_p)[rows], surf_p)
         return err, inner_err, (t2 - t0) * 1e3, (t2 - t1) * 1e3
 
     # At the sizes of the parity contract, then at the main path's shapes.
@@ -1179,6 +1619,8 @@ def main() -> int:
                                        float((got - want).abs().max()))
     del x, v
     heston_err, family_rows_ms = heston_kernel_checks(mt, dev, heston_keys)
+    jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, merton_keys,
+                                                bates_keys)
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -1656,28 +2098,38 @@ def main() -> int:
         fail("the reductions disagree with price() or torch.sum, or the "
              "normals' moments are off")
 
-    # The GBM path's launches; then the Heston path, driven with the counts
-    # set to 0 before it and read after it.
+    # The GBM path's launches; then the Heston, Merton and Bates paths,
+    # each driven with the counts set to 0 before it and read after it.
     launches = {k: n for k, n in _cuda.launch_counts.items()
-                if k not in HESTON_KERNELS}
-    heston_launches = heston_main_path(mt, dev, _cuda)
+                if k not in HESTON_KERNELS + MERTON_KERNELS + BATES_KERNELS}
+    heston_launches, merton_launches, bates_launches = (
+        family_main_path(mt, dev, _cuda, family)
+        for family in ("heston", "merton", "bates"))
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
     print(f"phase 4: launches over phase 3's Heston path: {heston_launches}")
-    if not (all(n > 0 for n in launches.values())
-            and all(n > 0 for n in heston_launches.values())):
+    print(f"phase 4: launches over phase 3's Merton path: {merton_launches}")
+    print(f"phase 4: launches over phase 3's Bates path: {bates_launches}")
+    if not all(n > 0 for path in (launches, heston_launches, merton_launches,
+                                  bates_launches) for n in path.values()):
         fail("a kernel of the main path was never launched")
     launches.update(heston_launches)
+    for family, path in (("merton", merton_launches),
+                         ("bates", bates_launches)):
+        for k, n in path.items():
+            launches[f"{k}_{family}" if k.startswith("family_i")
+                     or k.startswith("family_f") else k] = n
 
     # --- Phase 5: times -------------------------------------------------
     stamp(5)
-    def time_pair(label, kernel_fn, plain_fn, shape):
+    def time_pair(label, kernel_fn, plain_fn, shape, plain_reps=REPS):
         k_ms, k_sp, k_n = cuda_ms(kernel_fn)
-        p_ms, p_sp, p_n = cuda_ms(plain_fn)
+        p_ms, p_sp, p_n = cuda_ms(plain_fn, reps=plain_reps)
         print(f"phase 5: {label} {shape}: kernel {k_ms:.4f} ms "
               f"(spread {k_sp:.1%}, {REPS} reps of {k_n} calls), plain "
-              f"{p_ms:.4f} ms (spread {p_sp:.1%}, {REPS} reps of {p_n}) {tag}")
+              f"{p_ms:.4f} ms (spread {p_sp:.1%}, {plain_reps} reps of {p_n})"
+              f" {tag}")
         return k_ms, p_ms
 
     cfg_tp = pk.KernelConfig(n_paths=MAIN_PATHS // 2, n_steps=MAIN_STEPS,
@@ -1761,7 +2213,8 @@ def main() -> int:
                                                ntraj.s, ntraj.state)),
             ("nmc_fused", lambda: nk.nmc_fused(bullet, ncfg_m, key, key_in,
                                                p_m))):
-        ms, sp, _ = cuda_ms(fn)  # in turns: fused, inner, inner, fused
+        # in turns: fused, inner, inner, fused (warm from phases 2 and 3)
+        ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
         nmc_main.setdefault(name, []).append(ms)
         print(f"phase 5: {name} {n_out}x{n_steps}x{n_inner}: kernel "
               f"{ms:.3f} ms (spread {sp:.1%}), "
@@ -1868,6 +2321,12 @@ def main() -> int:
         "nmc_inner": nmc_main["nmc_inner"]})
     heston_ms["family_fused"] = (heston_ms["family_fused"][0], family_rows_ms)
     heston_ms["family_inner"] = (heston_ms["family_inner"][0], family_rows_ms)
+    jump_ms = jump_times(mt, dev, merton_keys, bates_keys, regs, tag,
+                         time_pair, {k: v[0] for k, v in heston_ms.items()})
+    for family in ("merton", "bates"):
+        for name in ("family_fused", "family_inner"):
+            row = f"{name}_{family}"
+            jump_ms[row] = (jump_ms[row][0], jump_rows_ms[family])
 
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
@@ -1923,9 +2382,10 @@ def main() -> int:
          lambda: mt.price(option, csim, method="euler", device=DEVICE)),
     )
     for label, unit, work, fn in e2e:
-        secs = sorted(wall_s(fn) for _ in range(REPS))
+        reps = NMC_REPS if unit == "inner path-steps/s" else REPS
+        secs = e2e_seconds(fn, reps)
         med = statistics.median(secs)
-        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {REPS} "
+        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
               f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
               f"{work / med:.4e} {unit} {tag}")
 
@@ -1967,6 +2427,7 @@ def main() -> int:
         "tile_partials": bound(4 * n26, (0, 0, 0), n26),
         "sum_sumsq": bound(4 * n26, (0, n26, 0), 2 * n26),
         **heston_bounds(),
+        **jump_bounds(),
     }
     nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
@@ -1977,9 +2438,12 @@ def main() -> int:
         ("trajectories", "path_kernels.cu", "ops/path_kernels.py:524",
          traj_err, traj_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
         ("nmc_fused", "nmc_kernels.cu", "ops/nmc_kernels.py:264", fused_err,
-         (nmc_main["nmc_fused"], fused_plain_ms), nmc_shape),
+         (nmc_main["nmc_fused"], fused_plain_ms),
+         f"bullet {nmc_shape} (plain: trajectories and rows "
+         f"{list(GBM_NMC_ROWS)})"),
         ("nmc_inner", "nmc_kernels.cu", "ops/nmc_kernels.py:338", inner_err,
-         (nmc_main["nmc_inner"], inner_plain_ms), nmc_shape),
+         (nmc_main["nmc_inner"], inner_plain_ms),
+         f"bullet {nmc_shape} (plain: rows {list(GBM_NMC_ROWS)})"),
         ("ladder", "batch_kernels.cu", "ops/path_kernels.py:634", ladder_err,
          ladder_ms, f"call terminal {LADDER_PATHS} x {len(strikes)} strikes"),
         ("book", "batch_kernels.cu", "ops/path_kernels.py:760", book_err,
@@ -2005,7 +2469,28 @@ def main() -> int:
         ("family_fused", "family_nmc_kernels.cu", "nmc_engine.py:407",
          heston_err["family_fused"], heston_ms["family_fused"],
          f"heston call {nmc_shape} (plain: rows {list(HESTON_NMC_ROWS)})"),
-    )
+        ("merton_partials", "merton_kernels.cu", "models/merton.py:278",
+         jump_err["merton_partials"], jump_ms["merton_partials"],
+         f"call euler {JUMP_MAIN}x{MAIN_STEPS}"),
+        ("merton_trajectories", "merton_nmc_kernels.cu",
+         "models/merton.py:392",
+         jump_err["merton_trajectories"], jump_ms["merton_trajectories"],
+         f"call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
+        ("bates_partials", "bates_kernels.cu", "models/bates.py:257",
+         jump_err["bates_partials"], jump_ms["bates_partials"],
+         f"call euler {JUMP_MAIN}x{MAIN_STEPS}"),
+        ("family_trajectories", "bates_nmc_kernels.cu",
+         "nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
+         "xla_family_trajectories)",
+         jump_err["family_trajectories"], jump_ms["family_trajectories"],
+         f"bates call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
+    ) + tuple(
+        (f"{name}_{family}", f"{family}_nmc_kernels.cu", tpu,
+         jump_err[f"{name}_{family}"], jump_ms[f"{name}_{family}"],
+         f"{family} call {nmc_shape} (plain: rows {list(JUMP_NMC_ROWS)})")
+        for family in ("merton", "bates")
+        for name, tpu in (("family_inner", "nmc_engine.py:314"),
+                          ("family_fused", "nmc_engine.py:407")))
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
         b_ms, b_by = bounds[name]

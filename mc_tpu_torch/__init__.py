@@ -14,6 +14,9 @@ launch; importing the package builds and loads nothing.
     price_nmc(strategy="grid").cva(0.02)   # exposure surface -> CVA
     price_heston(scheme="qe")              # Heston, Andersen QE
     price_nmc_heston().cva(0.02)           # exposure under stochastic vol
+    price_merton(method="terminal")        # Merton jump-diffusion
+    price_bates(scheme="qe")               # Bates SVJ (Heston + jumps)
+    price_nmc_bates().cva(0.02)            # exposure under vol and jumps
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -23,17 +26,26 @@ from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import (Trajectories, price, price_ladder,
                                   price_portfolio, simulate_trajectories)
 from mc_tpu_torch.greeks import greeks
+from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
+                                       bates_call_cf, price_bates)
 from mc_tpu_torch.models.heston import (DEMO_HESTON, HestonDynamics,
                                         heston_call_cf, price_heston)
+from mc_tpu_torch.models.merton import (DEMO_MERTON, MertonDynamics,
+                                        merton_call_closed_form, price_merton)
 from mc_tpu_torch.nmc import NMCResult, price_nmc
 from mc_tpu_torch.nmc_engine import price_nmc_family
+from mc_tpu_torch.nmc_bates import price_nmc_bates
 from mc_tpu_torch.nmc_heston import price_nmc_heston
+from mc_tpu_torch.nmc_merton import price_nmc_merton
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
 
 __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "price_heston", "price_nmc_heston", "price_nmc_family",
            "HestonDynamics", "DEMO_HESTON", "heston_call_cf",
+           "price_merton", "price_nmc_merton", "MertonDynamics",
+           "DEMO_MERTON", "merton_call_closed_form", "price_bates",
+           "price_nmc_bates", "BatesDynamics", "DEMO_BATES", "bates_call_cf",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

@@ -1,13 +1,15 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
-ladder/book/greeks/heston).
+ladder/book/greeks/heston/merton/bates).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
-``price``, ``nmc``, ``ladder``, ``book``, ``greeks`` and ``heston`` print
-one JSON object each (``price`` adds the closed form where the payoff has
-one, ``heston`` the CF oracle for the call, ``nmc --exposure`` the XVA
-figures of the surface, under GBM or ``--model heston``); ``traj`` writes the
+``price``, ``nmc``, ``ladder``, ``book``, ``greeks``, ``heston``,
+``merton`` and ``bates`` print one JSON object each (``price`` adds the
+closed form where the payoff has one, ``heston`` and ``bates`` the CF oracle
+for the call, ``merton`` the series oracle, ``nmc --exposure`` the XVA
+figures of the surface, under GBM or ``--model heston|merton|bates``, each
+family's dynamics from its own flags); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
 """
@@ -269,6 +271,35 @@ def _heston_dyn(args):
                           xi=args.xi, rho=args.rho_sv)
 
 
+def _add_jump_flags(p: argparse.ArgumentParser):
+    g = p.add_argument_group("compound-Poisson jumps (Merton, Bates)")
+    g.add_argument("--lam", type=float, default=0.3,
+                   help="jump intensity (per year)")
+    g.add_argument("--mu-j", type=float, default=-0.10,
+                   help="mean log jump size")
+    g.add_argument("--sigma-j", type=float, default=0.15,
+                   help="std of log jump size")
+
+
+def _merton_dyn(args):
+    from mc_tpu_torch.models.merton import MertonDynamics
+
+    return MertonDynamics(lam=args.lam, mu_j=args.mu_j, sigma_j=args.sigma_j)
+
+
+def _bates_dyn(args):
+    from mc_tpu_torch.models.bates import BatesDynamics
+
+    return BatesDynamics(v0=args.v0, kappa=args.kappa, theta=args.theta_v,
+                         xi=args.xi, rho=args.rho_sv, lam=args.lam,
+                         mu_j=args.mu_j, sigma_j=args.sigma_j)
+
+
+# --model -> the family's dynamics from its own flags.
+_FAMILY_DYNAMICS = {"heston": _heston_dyn, "merton": _merton_dyn,
+                    "bates": _bates_dyn}
+
+
 def cmd_heston(args):
     """Heston price as one JSON object (mc_tpu/cli.py:1869-1882), the CF
     oracle beside the call."""
@@ -284,6 +315,46 @@ def cmd_heston(args):
         out["cf_oracle"] = heston_call_cf(args.s0, args.k, args.t, args.r,
                                           args.v0, args.kappa, args.theta_v,
                                           args.xi, args.rho_sv, q=args.q)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_merton(args):
+    """Merton price as one JSON object (mc_tpu/cli.py:910-926), the series
+    oracle beside the call."""
+    from mc_tpu_torch.models.merton import (merton_call_closed_form,
+                                            price_merton)
+
+    option, sim = _parse(args)
+    res = price_merton(option, _merton_dyn(args), sim, payoff=args.payoff,
+                       method=args.method, antithetic=args.antithetic,
+                       device=args.device)
+    out = {"payoff": args.payoff, "price": float(res.price),
+           "stderr": float(res.stderr), "lam": args.lam}
+    if args.payoff == "vanilla_call":
+        out["merton_series_oracle"] = merton_call_closed_form(
+            args.s0, args.k, args.t, args.r, args.sigma, lam=args.lam,
+            mu_j=args.mu_j, sigma_j=args.sigma_j, q=args.q)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_bates(args):
+    """Bates price as one JSON object (mc_tpu/cli.py:510-530), the CF
+    oracle beside the call."""
+    from mc_tpu_torch.models.bates import bates_call_cf, price_bates
+
+    option, sim = _parse(args)
+    res = price_bates(option, _bates_dyn(args), sim, payoff=args.payoff,
+                      scheme=args.scheme, antithetic=args.antithetic,
+                      device=args.device)
+    out = {"payoff": args.payoff, "scheme": args.scheme,
+           "price": float(res.price), "stderr": float(res.stderr)}
+    if args.payoff == "vanilla_call":
+        out["cf_oracle"] = bates_call_cf(
+            args.s0, args.k, args.t, args.r, args.v0, args.kappa,
+            args.theta_v, args.xi, args.rho_sv, args.lam, args.mu_j,
+            args.sigma_j, q=args.q)
     print(json.dumps(out))
     return 0
 
@@ -310,8 +381,9 @@ def cmd_nmc(args):
         if args.discount != "full":
             raise SystemExit(f"--discount is fixed (full) with --model "
                              f"{args.model}")
-        res = NMC_FAMILIES[args.model](option, _heston_dyn(args), sim,
-                                       payoff=args.payoff,
+        res = NMC_FAMILIES[args.model](option,
+                                       _FAMILY_DYNAMICS[args.model](args),
+                                       sim, payoff=args.payoff,
                                        strategy=args.strategy,
                                        device=args.device)
     out = {
@@ -395,8 +467,9 @@ def main(argv=None):
                    choices=("gbm", "heston", "bates", "merton", "vasicek",
                             "localvol", "cev", "basket", "sabr", "term",
                             "rainbow"),
-                   help="the outer and inner dynamics: gbm or heston (the "
-                        "other families of mc_tpu are not ported yet)")
+                   help="the outer and inner dynamics: gbm, heston, merton "
+                        "or bates (the other families of mc_tpu are not "
+                        "ported yet)")
     p.add_argument("--surface-npz", default=None,
                    help="save the (paths, steps) surface to this .npz")
     p.add_argument("--exposure", action="store_true",
@@ -431,6 +504,7 @@ def main(argv=None):
                         "the position; needs --cva-hazard and "
                         "--strategy grid)")
     _add_heston_flags(p)
+    _add_jump_flags(p)
     p.set_defaults(fn=cmd_nmc)
 
     p = sub.add_parser("ladder", help="strike ladder on shared paths, JSON")
@@ -469,6 +543,28 @@ def main(argv=None):
                         "QE (exact per-step martingale, low bias at coarse "
                         "steps)")
     p.set_defaults(fn=cmd_heston)
+
+    p = sub.add_parser("merton",
+                       help="Merton jump-diffusion price (series oracle)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--method", choices=("euler", "terminal"),
+                   default="euler")
+    p.add_argument("--antithetic", action="store_true")
+    _add_jump_flags(p)
+    p.set_defaults(fn=cmd_merton)
+
+    p = sub.add_parser("bates", help="Bates SVJ (Heston + jumps) price vs "
+                       "the factorized CF oracle")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    _add_heston_flags(p)
+    _add_jump_flags(p)
+    p.add_argument("--scheme", default="euler", choices=("euler", "qe"),
+                   help="diffusion substep; jumps are exact in law either "
+                        "way")
+    p.set_defaults(fn=cmd_bates)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

@@ -16,14 +16,20 @@ import torch
 
 from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
+from mc_tpu_torch.models.bates import BATES_FIELDS, BatesDynamics
 from mc_tpu_torch.models.heston import HESTON_FIELDS, HestonDynamics
+from mc_tpu_torch.models.merton import MERTON_FIELDS, MertonDynamics
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
-           "surface_matrix", "checkpoint", "heston_dynamics", "heston_params"]
+           "surface_matrix", "checkpoint", "heston_dynamics", "heston_params",
+           "merton_dynamics", "merton_params", "bates_dynamics",
+           "bates_params"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
 _HESTON_DYN_FIELDS = ("v0", "kappa", "theta", "xi", "rho")
+_MERTON_DYN_FIELDS = ("lam", "mu_j", "sigma_j")
+_BATES_DYN_FIELDS = _HESTON_DYN_FIELDS + _MERTON_DYN_FIELDS
 
 
 def _field(src, name):
@@ -31,15 +37,9 @@ def _field(src, name):
 
 
 def option_params(src) -> OptionParams:
-    """``mc_tpu.OptionParams`` fields (scalars) -> the port's OptionParams."""
-    vals = []
-    for f in _OPTION_FIELDS:
-        v = np.asarray(_field(src, f))
-        if v.shape != ():
-            raise ValueError(f"option field {f!r} must be a scalar; the port "
-                             f"prices one contract (got shape {v.shape})")
-        vals.append(float(v))
-    return OptionParams(*vals)
+    """``mc_tpu.OptionParams`` fields (scalars) -> the port's OptionParams
+    (one contract; ``book_params`` takes a book)."""
+    return OptionParams(*_scalars(src, _OPTION_FIELDS, "option"))
 
 
 def book_params(src) -> OptionParams:
@@ -60,28 +60,61 @@ def sim_params(src) -> SimParams:
     return SimParams(**{f: int(_field(src, f)) for f in _SIM_FIELDS})
 
 
+def _scalars(src, fields, what):
+    vals = []
+    for f in fields:
+        v = np.asarray(_field(src, f))
+        if v.shape != ():
+            raise ValueError(f"{what} field {f!r} must be a scalar; got "
+                             f"shape {v.shape}")
+        vals.append(float(v))
+    return vals
+
+
+def _packed(arr, fields, what) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.shape != (len(fields),) or a.dtype != np.float32:
+        raise ValueError(f"packed {what} parameters are {len(fields)} "
+                         f"float32 values; got {a.shape} {a.dtype}")
+    return torch.from_numpy(a.copy())
+
+
 def heston_dynamics(src) -> HestonDynamics:
     """``mc_tpu.models.heston.HestonDynamics`` fields (scalars) -> the
     port's HestonDynamics."""
-    vals = []
-    for f in _HESTON_DYN_FIELDS:
-        v = np.asarray(_field(src, f))
-        if v.shape != ():
-            raise ValueError(f"Heston field {f!r} must be a scalar; got "
-                             f"shape {v.shape}")
-        vals.append(float(v))
-    return HestonDynamics(*vals)
+    return HestonDynamics(*_scalars(src, _HESTON_DYN_FIELDS, "Heston"))
 
 
 def heston_params(arr) -> torch.Tensor:
     """``mc_tpu``'s packed Heston parameters (``_pack_heston``: the (17,)
     f32 vector of ``HESTON_FIELDS``) -> the port's CPU tensor, bit for
     bit; ``.to(device)`` it for a kernel."""
-    a = np.asarray(arr)
-    if a.shape != (len(HESTON_FIELDS),) or a.dtype != np.float32:
-        raise ValueError(f"packed Heston parameters are {len(HESTON_FIELDS)}"
-                         f" float32 values; got {a.shape} {a.dtype}")
-    return torch.from_numpy(a.copy())
+    return _packed(arr, HESTON_FIELDS, "Heston")
+
+
+def merton_dynamics(src) -> MertonDynamics:
+    """``mc_tpu.models.merton.MertonDynamics`` fields (scalars) -> the
+    port's MertonDynamics."""
+    return MertonDynamics(*_scalars(src, _MERTON_DYN_FIELDS, "Merton"))
+
+
+def merton_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed Merton parameters (``_pack_merton``: the (19,)
+    f32 vector of ``MERTON_FIELDS``) -> the port's CPU tensor, bit for
+    bit."""
+    return _packed(arr, MERTON_FIELDS, "Merton")
+
+
+def bates_dynamics(src) -> BatesDynamics:
+    """``mc_tpu.models.bates.BatesDynamics`` fields (scalars) -> the port's
+    BatesDynamics."""
+    return BatesDynamics(*_scalars(src, _BATES_DYN_FIELDS, "Bates"))
+
+
+def bates_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed Bates parameters (``_pack_bates``: the (20,) f32
+    vector of ``BATES_FIELDS``) -> the port's CPU tensor, bit for bit."""
+    return _packed(arr, BATES_FIELDS, "Bates")
 
 
 def key(arr) -> tuple[int, int]:

@@ -1,0 +1,134 @@
+// The Bates (1996) family on the device: Heston's variance and schemes
+// (heston.cuh) plus Merton's compound-Poisson jump (merton.cuh), composed as
+// mc_tpu/models/bates.py composes them.  BatesParams is the layout of
+// BATES_FIELDS (20 f32): HESTON_FIELDS, whose growth is compensated by
+// lam*kbar, then lam_dt, mu_j, sigma_j; load_heston reads the first 17
+// unchanged.  The build passes --fmad=false, so each mul and add rounds as
+// it does in the plain PyTorch version.
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "heston.cuh"
+#include "merton.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kBatesFields = 20;
+
+struct BatesParams {
+  HestonParams h;
+  float lam_dt, mu_j, sigma_j;
+};
+
+__device__ __forceinline__ BatesParams load_bates(const float* __restrict__ v) {
+  BatesParams b;
+  b.h = load_heston(v);
+  b.lam_dt = v[17]; b.mu_j = v[18]; b.sigma_j = v[19];
+  return b;
+}
+
+// The jump half of a Bates step after the diffusion substep moved (w, v):
+// w += jump(N(u), e), S = base*exp(w), the payoff state updated.
+template <class Payoff>
+__device__ __forceinline__ void bates_jump(const BatesParams& b, int kmax, float e, float u,
+                                           float base, float& w, float& s,
+                                           typename Payoff::State& st) {
+  const float n = poisson_inv_cdf(u, b.lam_dt, kmax);
+  w = w + jump_increment(b.mu_j, b.sigma_j, n, e);
+  s = base * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, b.h.pay);
+}
+
+// The draws of a Bates Euler step from counter c: the diffusion pair
+// (z_v, z_perp) of (id, c), the first normal of (id, c+1) for the jump size
+// and word 0 of (id, c+2) for the Poisson uniform.
+template <int ROUNDS>
+__device__ __forceinline__ void bates_euler_draw(uint32_t k0, uint32_t k1, uint32_t id,
+                                                 uint32_t c, float& z_v, float& z_perp,
+                                                 float& e, float& u) {
+  float unused;
+  normal_pair<ROUNDS>(k0, k1, id, c, z_v, z_perp);
+  normal_pair<ROUNDS>(k0, k1, id, c + 1u, e, unused);
+  u = unit_draw<ROUNDS>(k0, k1, id, c + 2u);
+}
+
+// One Bates Euler step from counter c (threefry-13): Heston's
+// full-truncation step, then the jump.  The outer step (c = 3j) and the
+// inner substep (c = c_base + 3u) of the family NMC.
+template <class Payoff>
+__device__ __forceinline__ void bates_euler_step(const BatesParams& b, int kmax, uint32_t k0,
+                                                 uint32_t k1, uint32_t id, uint32_t c,
+                                                 float base, float& w, float& v, float& s,
+                                                 typename Payoff::State& st) {
+  float z_v, z_perp, e, u;
+  bates_euler_draw<13>(k0, k1, id, c, z_v, z_perp, e, u);
+  heston_euler_step(b.h, z_v, z_perp, w, v);
+  bates_jump<Payoff>(b, kmax, e, u, base, w, s, st);
+}
+
+// Bates for the family NMC engine (mc_tpu/nmc_bates.py:47-188): grids (S, v);
+// outer step j on counters 3j, 3j+1, 3j+2 (price_bates's Euler path), the
+// inner legs from (S_t, v_t) with w from 0 on c_base + 3u.
+struct BatesFamilyParams {
+  BatesParams b;
+  int kmax;
+};
+
+struct BatesFamily {
+  using Params = BatesFamilyParams;
+  static constexpr int kGrids = 2;
+
+  template <class Payoff>
+  struct Carry {
+    float w, v, s;
+    typename Payoff::State st;
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex) {
+    return Params{load_bates(params), ex.i[0]};
+  }
+  __device__ static const mc::Params& payoff_params(const Params& p) { return p.b.h.pay; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& p) {
+    return Carry<Payoff>{0.0f, p.b.h.v0, p.b.h.pay.s0, Payoff::init(p.b.h.pay)};
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& c) {
+    bates_euler_step<Payoff>(p.b, p.kmax, k0, k1, id, 3u * static_cast<uint32_t>(j),
+                             p.b.h.pay.s0, c.w, c.v, c.s, c.st);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& c, float (&g)[kGrids]) {
+    g[0] = c.s;
+    g[1] = c.v;
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& p, const Carry<Payoff>& c) {
+    return Payoff::terminal(c.st, c.s, p.b.h.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    float w = 0.0f, v = g[1], s = g[0];
+    for (int u = 0; u < remaining; ++u) {
+      bates_euler_step<Payoff>(p.b, p.kmax, k0, k1, id, c_base + 3u * static_cast<uint32_t>(u),
+                               g[0], w, v, s, st);
+    }
+    return Payoff::terminal(st, s, p.b.h.pay);
+  }
+  __device__ static float point_scale(const Params& p, const float (&)[kGrids]) {
+    return expf(-p.b.h.pay.r * p.b.h.pay.t);  // the full e^{-rT}
+  }
+  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+    return 3u * static_cast<uint32_t>(n_steps);
+  }
+};
+
+}  // namespace mc

@@ -1,0 +1,323 @@
+// The family nested-MC engine on the device: the kernels every model family
+// instantiates (family_nmc_kernels.cu for Heston, merton_nmc_kernels.cu and
+// bates_nmc_kernels.cu for the jump families), templates over a device-side
+// family whose interface mirrors NMCFamily (nmc_engine.py):
+//   Params, load(ptr, extras)          the packed parameters and the family's
+//                                      integer extras (Merton's and Bates's
+//                                      Poisson scan depth);
+//   payoff_params(p)                   the payoffs' view of the contract;
+//   kGrids                             market-state grids (S first);
+//   Carry<Payoff>, outer_init(p)       the outer path's carry and its start;
+//   outer_step<Payoff>(p, k0, k1, id, j, c)
+//                                      one outer step j on the outer stream,
+//                                      steps taken j = 0, 1, 2, ... in order;
+//   point(c, g), outer_pay(p, c)       the grid rows of a carry, its payoff;
+//   inner_leg<Payoff>(p, k0, k1, id, c_base, remaining, g, st)
+//                                      an inner leg resumed from the rows g and
+//                                      payoff state st, `remaining` substeps,
+//                                      drawing from counter c_base on;
+//   point_scale(p, g)                  the factor on the inner mean;
+//   counter_stride(n_steps)            the counter budget of one inner leg.
+//
+// family_fused_kernel replaces mc_tpu/nmc_engine.py family_fused_kernel (the
+// Pallas call at :426) and family_inner_kernel its family_inner_kernel (the
+// Pallas call at :331).  family_trajectories_kernel stores a family's outer
+// grids where mc_tpu builds them with its XLA scan (xla_family_trajectories,
+// nmc_engine.py:445-488): it has no Pallas counterpart.
+//
+// For outer path i and step j, surface[j, i] = point_scale * (1/n_inner) *
+// the f32 Kahan sum over m = 0..n_inner-1, in that order, of inner leg m,
+// counters c_base = ((j+1)*n_inner + m) * counter_stride: mc_tpu's
+// family_point_tile, whose order is part of its bitwise contract.  The
+// outer moments [sum pay, sum pay^2] of the fused kernel come from its
+// j = n_steps-1 blocks, one f64 row per tile.
+//
+// What bounds them on the H100: the inner sweep, n_paths * n_inner *
+// n_steps(n_steps-1)/2 substeps, each a family step with its threefry draws
+// and transcendentals.  Bytes are negligible (the surface, and a few bytes
+// a point of grids for the inner kernel); the trajectories kernel writes
+// (kGrids + 1) * 4 bytes a path-step, less than its RNG work takes.
+//
+// Design: one block per (step j, tile of 128 outer paths), step-major, so
+// the largest remaining work (j = 0) is issued first and the short blocks
+// fill the tail; all threads of a block share j, so the inner loops never
+// diverge.  The fused kernel recomputes the outer path up to step j+1 in
+// registers through the family's outer step, the one the trajectories
+// kernels store, j+1 steps against the sweep's n_inner*(n_steps-j-1), and
+// keeps no history; so the grid and fused strategies give bitwise equal
+// surfaces.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "payoffs.cuh"
+#include "reduce.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kFamilyThreads = 128;
+constexpr int kMaxGrids = 8;
+
+enum FamilyId { FAMILY_HESTON = 0, FAMILY_MERTON = 1, FAMILY_BATES = 2 };
+
+// A family's integer extras, by value (Merton's and Bates's i[0] = kmax).
+struct FamilyExtras {
+  int i[4];
+};
+
+struct GridPtrs {
+  const float* g[kMaxGrids];
+};
+
+struct GridOutPtrs {
+  float* g[kMaxGrids];
+};
+
+// The discounted inner mean at (path id, step j) from the grid rows g and
+// payoff state st: the Kahan sum of the n_inner legs in order.
+template <class Family, class Payoff>
+__device__ float family_point(const typename Family::Params& p, uint32_t ki0, uint32_t ki1,
+                              uint32_t id, int j, int n_steps, int n_inner,
+                              const float (&g)[Family::kGrids],
+                              const typename Payoff::State& st) {
+  const int remaining = n_steps - j - 1;
+  const uint32_t t_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner);
+  const uint32_t stride = Family::counter_stride(n_steps);
+  float acc = 0.0f, comp = 0.0f;
+  for (int m = 0; m < n_inner; ++m) {
+    const uint32_t c_base = (t_base + static_cast<uint32_t>(m)) * stride;
+    const float pay = Family::template inner_leg<Payoff>(p, ki0, ki1, id, c_base, remaining,
+                                                         g, st);
+    const float y = pay - comp;
+    const float t = acc + y;
+    comp = (t - acc) - y;
+    acc = t;
+  }
+  const float inv_n = static_cast<float>(1.0 / static_cast<double>(n_inner));
+  return (acc * inv_n) * Family::point_scale(p, g);
+}
+
+template <class Family, class Payoff>
+__global__ void __launch_bounds__(kFamilyThreads)
+family_fused_kernel(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
+                    const float* __restrict__ params, FamilyExtras extras, int n_steps,
+                    int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                    int tiles, float* __restrict__ surface,
+                    double* __restrict__ outer_partials) {
+  const typename Family::Params p = Family::load(params, extras);
+  const int j = blockIdx.x / tiles;  // the state after step j+1
+  const int tile = blockIdx.x % tiles;
+  const uint32_t local = static_cast<uint32_t>(tile) * kFamilyThreads + threadIdx.x;
+  const bool in_range = local < n_paths;
+  const uint32_t id = path_offset + local;
+  const bool valid = in_range && id < bound;
+
+  // The outer path up to step j+1, on the outer stream, in registers.
+  auto c = Family::template outer_init<Payoff>(p);
+  for (int i = 0; i <= j; ++i) Family::template outer_step<Payoff>(p, ko0, ko1, id, i, c);
+
+  if (j == n_steps - 1) {  // block-uniform: the outer terminal moments
+    const float pay = valid ? Family::template outer_pay<Payoff>(p, c) : 0.0f;
+    const double acc[2] = {static_cast<double>(pay), static_cast<double>(pay * pay)};
+    block_store_moments<2, kFamilyThreads>(acc,
+                                           outer_partials + 2 * static_cast<size_t>(tile), 2);
+  }
+
+  float g[Family::kGrids];
+  Family::template point<Payoff>(c, g);
+  const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, g, c.st);
+  if (in_range) surface[static_cast<size_t>(j) * n_paths + local] = valid ? v : 0.0f;
+}
+
+template <class Family, class Payoff>
+__global__ void __launch_bounds__(kFamilyThreads)
+family_inner_kernel(uint32_t ki0, uint32_t ki1, const float* __restrict__ params,
+                    FamilyExtras extras, int n_steps, int n_inner, uint32_t n_paths,
+                    uint32_t path_offset, uint32_t bound, int tiles, GridPtrs grids,
+                    const float* __restrict__ state_grid, float* __restrict__ surface) {
+  const typename Family::Params p = Family::load(params, extras);
+  const int j = blockIdx.x / tiles;  // the state after step j+1
+  const int tile = blockIdx.x % tiles;
+  const uint32_t local = static_cast<uint32_t>(tile) * kFamilyThreads + threadIdx.x;
+  if (local >= n_paths) return;  // no block-wide step follows
+  const uint32_t id = path_offset + local;
+  const size_t at = static_cast<size_t>(j) * n_paths + local;
+  float g[Family::kGrids];
+#pragma unroll
+  for (int k = 0; k < Family::kGrids; ++k) g[k] = grids.g[k][at];
+  typename Payoff::State st = Payoff::init(Family::payoff_params(p));
+  if (Payoff::kStates) st.w[0] = state_grid[at];
+  const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, g, st);
+  surface[at] = id < bound ? v : 0.0f;
+}
+
+// One path per thread over a grid-stride loop: the family's outer steps,
+// its kGrids grids and payoff state word 0 stored after each step,
+// step-major (entry j*n_paths + i), and one f64 row of [sum pay, sum pay^2]
+// per block.
+template <class Family, class Payoff>
+__global__ void __launch_bounds__(kFamilyThreads)
+family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
+                           FamilyExtras extras, int n_steps, uint32_t n_paths,
+                           uint32_t path_offset, uint32_t bound, GridOutPtrs grids,
+                           float* __restrict__ state_grid, double* __restrict__ partials) {
+  const typename Family::Params p = Family::load(params, extras);
+  double acc[2] = {0.0, 0.0};
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
+  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_paths; i += stride) {
+    const uint32_t id = path_offset + static_cast<uint32_t>(i);
+    auto c = Family::template outer_init<Payoff>(p);
+    for (int j = 0; j < n_steps; ++j) {
+      Family::template outer_step<Payoff>(p, k0, k1, id, j, c);
+      float g[Family::kGrids];
+      Family::template point<Payoff>(c, g);
+      const size_t at = static_cast<size_t>(j) * n_paths + i;
+#pragma unroll
+      for (int k = 0; k < Family::kGrids; ++k) grids.g[k][at] = g[k];
+      state_grid[at] = Payoff::kStates ? c.st.w[0] : 0.0f;
+    }
+    const float pv[1] = {Family::template outer_pay<Payoff>(p, c)};
+    add_moments(acc, pv, id < bound);
+  }
+  block_store_moments<2, kFamilyThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
+                                         2);
+}
+
+// Blocks of the NMC kernels: one per (step, tile of kFamilyThreads outer
+// paths), step-major.
+inline long long family_blocks(uint32_t n_paths, int n_steps, int* tiles) {
+  *tiles = static_cast<int>((n_paths + kFamilyThreads - 1) / kFamilyThreads);
+  return static_cast<long long>(*tiles) * n_steps;
+}
+
+template <class Family, class Payoff>
+cudaError_t launch_family_fused(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
+                                const float* params, FamilyExtras extras, int n_steps,
+                                int n_inner, uint32_t n_paths, uint32_t path_offset,
+                                uint32_t bound, float* surface, double* outer_partials,
+                                cudaStream_t stream) {
+  int tiles;
+  const long long n_blocks = family_blocks(n_paths, n_steps, &tiles);
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  family_fused_kernel<Family, Payoff>
+      <<<static_cast<unsigned>(n_blocks), kFamilyThreads, 0, stream>>>(
+          ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound,
+          tiles, surface, outer_partials);
+  return cudaGetLastError();
+}
+
+template <class Family, class Payoff>
+cudaError_t launch_family_inner(uint32_t ki0, uint32_t ki1, const float* params,
+                                FamilyExtras extras, int n_steps, int n_inner,
+                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                const GridPtrs& grids, const float* state_grid, float* surface,
+                                cudaStream_t stream) {
+  int tiles;
+  const long long n_blocks = family_blocks(n_paths, n_steps, &tiles);
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  family_inner_kernel<Family, Payoff>
+      <<<static_cast<unsigned>(n_blocks), kFamilyThreads, 0, stream>>>(
+          ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound, tiles,
+          grids, state_grid, surface);
+  return cudaGetLastError();
+}
+
+template <class Family, class Payoff>
+cudaError_t launch_family_trajectories(uint32_t k0, uint32_t k1, const float* params,
+                                       FamilyExtras extras, int n_steps, uint32_t n_paths,
+                                       uint32_t path_offset, uint32_t bound,
+                                       const GridOutPtrs& grids, float* state_grid,
+                                       double* partials, int n_blocks, cudaStream_t stream) {
+  family_trajectories_kernel<Family, Payoff><<<n_blocks, kFamilyThreads, 0, stream>>>(
+      k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids, state_grid,
+      partials);
+  return cudaGetLastError();
+}
+
+// The payoff switch of each family's launchers (the one-word payoffs, the
+// ones a grid can resume).  A family's source instantiates them through the
+// launchers declared below, which the entry points of family_nmc_kernels.cu
+// call per family, so each family's kernels compile in its own source.
+template <class Family>
+cudaError_t family_fused_switch(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
+                                uint32_t ki1, const float* params, FamilyExtras extras,
+                                int n_steps, int n_inner, uint32_t n_paths,
+                                uint32_t path_offset, uint32_t bound, float* surface,
+                                double* outer_partials, cudaStream_t stream) {
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case ID:                                                                               \
+    return launch_family_fused<Family, PAYOFF>(ko0, ko1, ki0, ki1, params, extras,       \
+                                               n_steps, n_inner, n_paths, path_offset,   \
+                                               bound, surface, outer_partials, stream);
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
+template <class Family>
+cudaError_t family_inner_switch(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
+                                FamilyExtras extras, int n_steps, int n_inner,
+                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                const GridPtrs& grids, const float* state_grid, float* surface,
+                                cudaStream_t stream) {
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case ID:                                                                               \
+    return launch_family_inner<Family, PAYOFF>(ki0, ki1, params, extras, n_steps,        \
+                                               n_inner, n_paths, path_offset, bound,     \
+                                               grids, state_grid, surface, stream);
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
+template <class Family>
+cudaError_t family_trajectories_switch(int payoff_id, uint32_t k0, uint32_t k1,
+                                       const float* params, FamilyExtras extras, int n_steps,
+                                       uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                       const GridOutPtrs& grids, float* state_grid,
+                                       double* partials, int n_blocks, cudaStream_t stream) {
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case ID:                                                                               \
+    return launch_family_trajectories<Family, PAYOFF>(k0, k1, params, extras, n_steps,   \
+                                                      n_paths, path_offset, bound,       \
+                                                      grids, state_grid, partials,       \
+                                                      n_blocks, stream);
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
+// Each family's launchers, defined in its own source as calls of the
+// switches above on its family struct.
+#define MC_FAMILY_LAUNCHERS(PREFIX)                                                       \
+  cudaError_t PREFIX##_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,      \
+                             uint32_t ki1, const float* params, FamilyExtras extras,       \
+                             int n_steps, int n_inner, uint32_t n_paths,                   \
+                             uint32_t path_offset, uint32_t bound, float* surface,         \
+                             double* outer_partials, cudaStream_t stream);                 \
+  cudaError_t PREFIX##_inner(int payoff_id, uint32_t ki0, uint32_t ki1,                    \
+                             const float* params, FamilyExtras extras, int n_steps,        \
+                             int n_inner, uint32_t n_paths, uint32_t path_offset,          \
+                             uint32_t bound, const GridPtrs& grids,                        \
+                             const float* state_grid, float* surface, cudaStream_t stream);\
+  cudaError_t PREFIX##_trajectories(int payoff_id, uint32_t k0, uint32_t k1,               \
+                                    const float* params, FamilyExtras extras, int n_steps, \
+                                    uint32_t n_paths, uint32_t path_offset, uint32_t bound,\
+                                    const GridOutPtrs& grids, float* state_grid,           \
+                                    double* partials, int n_blocks, cudaStream_t stream);
+MC_FAMILY_LAUNCHERS(heston_family)
+MC_FAMILY_LAUNCHERS(merton_family)
+MC_FAMILY_LAUNCHERS(bates_family)
+#undef MC_FAMILY_LAUNCHERS
+
+}  // namespace mc

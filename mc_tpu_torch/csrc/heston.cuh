@@ -138,3 +138,11 @@ __device__ __forceinline__ void heston_outer_step(const HestonParams& h, uint32_
 }
 
 }  // namespace mc
+
+// The payoffs a Heston (or Bates) kernel takes: every one but the two that
+// read sigma.
+#define MC_HESTON_PAYOFFS(X)                                              \
+  MC_ONE_WORD_PAYOFFS(X)                                                  \
+  X(PAYOFF_VARIANCE_SWAP, VarianceSwap)                                   \
+  X(PAYOFF_FORWARD_START_CALL, ForwardStartCall)                          \
+  X(PAYOFF_CLIQUET, Cliquet) X(PAYOFF_ASIAN_CALL_GEO_CV, AsianCallGeoCV)

@@ -177,13 +177,6 @@ cudaError_t launch_heston_partials(int qe, int rounds, int antithetic, uint32_t 
 
 }  // namespace mc
 
-// The payoffs a Heston kernel takes: every one but the two that read sigma.
-#define MC_HESTON_PAYOFFS(X)                                              \
-  MC_ONE_WORD_PAYOFFS(X)                                                  \
-  X(PAYOFF_VARIANCE_SWAP, VarianceSwap)                                   \
-  X(PAYOFF_FORWARD_START_CALL, ForwardStartCall)                          \
-  X(PAYOFF_CLIQUET, Cliquet) X(PAYOFF_ASIAN_CALL_GEO_CV, AsianCallGeoCV)
-
 extern "C" {
 
 int mc_heston_block_threads() { return mc::kHestonThreads; }

@@ -1,0 +1,190 @@
+// The Merton jump-diffusion family on the device: its packed parameters, the
+// Poisson inverse-CDF scan, the step and the family NMC struct, the twins of
+// mc_tpu_torch/models/merton.py (and of mc_tpu/models/merton.py:82-228)
+// operation for operation, in the same association.  The build passes
+// --fmad=false, so each mul and add rounds as it does in the plain PyTorch
+// version.
+//
+// MertonParams is the layout of MERTON_FIELDS (19 f32).  Merton packs every
+// field of the payoffs' Params (sigma, q, dt and the drift/vol
+// coefficients, drift compensated by lam*kappa), so every payoff of the
+// registry prices under it, the two Brownian-bridge barriers included
+// (their crossing probability reads the diffusion's sigma, as in mc_tpu).
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kMertonFields = 19;
+
+struct MertonParams {
+  Params pay;  // the payoff's view of the contract
+  float lam_dt, lam_t, mu_j, sigma_j;
+};
+
+__device__ __forceinline__ MertonParams load_merton(const float* __restrict__ v) {
+  MertonParams m;
+  m.pay.s0 = v[0]; m.pay.k = v[1]; m.pay.r = v[2]; m.pay.barrier = v[3];
+  m.pay.p1 = v[4]; m.pay.p2 = v[5]; m.pay.t = v[6]; m.pay.q = v[7];
+  m.pay.sigma = v[8]; m.pay.dt = v[9]; m.pay.inv_n_steps = v[10];
+  m.pay.drift_dt = v[11]; m.pay.vol_dt = v[12]; m.pay.drift_t = v[13];
+  m.pay.vol_t = v[14];
+  m.lam_dt = v[15]; m.lam_t = v[16]; m.mu_j = v[17]; m.sigma_j = v[18];
+  return m;
+}
+
+// The branch-free Poisson inverse CDF: N = #{k in 0..kmax-1 : u >= F(k)},
+// as an f32 count.  kmax (<= 256, host-chosen so the clipped tail is below
+// 1e-12) is a runtime loop bound; the pmf recurrence (pmf*lam)/k and the cdf
+// sum run in mc_tpu's order, so a count moves only where u lands within an
+// ulp of a cdf step.
+__device__ __forceinline__ float poisson_inv_cdf(float u, float lam, int kmax) {
+  float pmf = expf(-lam);
+  float cdf = pmf;
+  float n = 0.0f;
+  for (int k = 1; k <= kmax; ++k) {
+    n = n + (u >= cdf ? 1.0f : 0.0f);
+    pmf = (pmf * lam) / static_cast<float>(k);
+    cdf = cdf + pmf;
+  }
+  return n;
+}
+
+// The compound-jump log increment given the count n and one N(0,1) e:
+// n*mu_j + (sigma_j*sqrt(n))*e (mc_tpu's _jump_increment).
+__device__ __forceinline__ float jump_increment(float mu_j, float sigma_j, float n, float e) {
+  return n * mu_j + (sigma_j * sqrtf(n)) * e;
+}
+
+// One Merton step from the leg's start price `base` (s0, or the stored
+// S_t of an inner leg): the exact-in-law log increment
+// w = ((w + drift_dt) + vol_dt*z) + jump, S = base*exp(w).
+template <class Payoff>
+__device__ __forceinline__ void merton_step(const MertonParams& m, int kmax, float z, float e,
+                                            float u, float base, float& w, float& s,
+                                            typename Payoff::State& st) {
+  const float n = poisson_inv_cdf(u, m.lam_dt, kmax);
+  w = ((w + m.pay.drift_dt) + m.pay.vol_dt * z) + jump_increment(m.mu_j, m.sigma_j, n, e);
+  s = base * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, m.pay);
+}
+
+// The draws of the step pair (2m, 2m+1): the diffusion normals of pair
+// (id, 3m), the jump-size normals of (id, 3m+1) and the Poisson uniforms of
+// both words of (id, 3m+2) (mc_tpu's _merton_draw3).
+struct MertonDraws {
+  float z0, z1, e0, e1, u0, u1;
+};
+
+template <int ROUNDS>
+__device__ __forceinline__ MertonDraws merton_draw3(uint32_t k0, uint32_t k1, uint32_t id,
+                                                    uint32_t m) {
+  MertonDraws d;
+  const uint32_t base = 3u * m;
+  normal_pair<ROUNDS>(k0, k1, id, base, d.z0, d.z1);
+  normal_pair<ROUNDS>(k0, k1, id, base + 1u, d.e0, d.e1);
+  uint32_t x0 = id, x1 = base + 2u;
+  threefry2x32<ROUNDS>(k0, k1, x0, x1);
+  d.u0 = bits_to_unit(x0);
+  d.u1 = bits_to_unit(x1);
+  return d;
+}
+
+// The half of a draw3 the odd step of a pair takes.
+struct MertonHalf {
+  float z, e, u;
+};
+
+// One outer step j of path `id` on the threefry-13 stream: an even step
+// draws pair m = j/2 and parks the odd step's half in `next`, an odd step
+// takes it.  The step of the Merton trajectories kernel (#15) and of the
+// fused family kernel's outer paths, both stepping j = 0, 1, 2, ... in
+// order, so the grids one stores are bitwise the states the other
+// recomputes.
+template <class Payoff>
+__device__ __forceinline__ void merton_outer_step(const MertonParams& m, int kmax, uint32_t k0,
+                                                  uint32_t k1, uint32_t id, int j, float& w,
+                                                  float& s, typename Payoff::State& st,
+                                                  MertonHalf& next) {
+  MertonHalf h;
+  if ((j & 1) == 0) {
+    const MertonDraws d = merton_draw3<13>(k0, k1, id, static_cast<uint32_t>(j >> 1));
+    h = MertonHalf{d.z0, d.e0, d.u0};
+    next = MertonHalf{d.z1, d.e1, d.u1};
+  } else {
+    h = next;
+  }
+  merton_step<Payoff>(m, kmax, h.z, h.e, h.u, m.pay.s0, w, s, st);
+}
+
+// Merton for the family NMC engine (mc_tpu/nmc_merton.py:44-166): grid S;
+// the inner legs resume from S_t with w from 0, substep u drawing the normal
+// pair (z, e) of counter c_base + 2u and the Poisson uniform of word 0 of
+// c_base + 2u + 1.  The carry holds s, so outer_pay reads the rounded spot
+// the step stored.
+struct MertonFamilyParams {
+  MertonParams m;
+  int kmax;
+};
+
+struct MertonFamily {
+  using Params = MertonFamilyParams;
+  static constexpr int kGrids = 1;
+
+  template <class Payoff>
+  struct Carry {
+    float w, s;
+    typename Payoff::State st;
+    MertonHalf next;
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex) {
+    return Params{load_merton(params), ex.i[0]};
+  }
+  __device__ static const mc::Params& payoff_params(const Params& p) { return p.m.pay; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& p) {
+    return Carry<Payoff>{0.0f, p.m.pay.s0, Payoff::init(p.m.pay), MertonHalf{0.0f, 0.0f, 0.0f}};
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& c) {
+    merton_outer_step<Payoff>(p.m, p.kmax, k0, k1, id, j, c.w, c.s, c.st, c.next);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& c, float (&g)[kGrids]) {
+    g[0] = c.s;
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& p, const Carry<Payoff>& c) {
+    return Payoff::terminal(c.st, c.s, p.m.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    float w = 0.0f, s = g[0];
+    for (int u = 0; u < remaining; ++u) {
+      const uint32_t c = c_base + 2u * static_cast<uint32_t>(u);
+      float z, e;
+      normal_pair<13>(k0, k1, id, c, z, e);
+      const float uu = unit_draw<13>(k0, k1, id, c + 1u);
+      merton_step<Payoff>(p.m, p.kmax, z, e, uu, g[0], w, s, st);
+    }
+    return Payoff::terminal(st, s, p.m.pay);
+  }
+  __device__ static float point_scale(const Params& p, const float (&)[kGrids]) {
+    return expf(-p.m.pay.r * p.m.pay.t);  // the full e^{-rT}
+  }
+  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+    return 2u * static_cast<uint32_t>(n_steps);
+  }
+};
+
+}  // namespace mc

@@ -1,6 +1,9 @@
 """Model families beyond GBM (port of ``mc_tpu/models/``).
 
 ``heston``: the Heston stochastic-volatility family, full-truncation Euler
-and Andersen QE, with its (S, v, state) trajectories.  The other families
-of ``mc_tpu/models/`` are still to port (ROADMAP.md queue B, item 13).
+and Andersen QE, with its (S, v, state) trajectories.  ``merton``: Merton
+jump-diffusion, the exact terminal draw and the Euler loop, with its (S,
+state) trajectories.  ``bates``: Bates SVJ, Heston's schemes with Merton's
+jump.  The other families of ``mc_tpu/models/`` are still to port
+(ROADMAP.md queue B, item 13).
 """

@@ -1,21 +1,26 @@
 """The generic nested-Monte-Carlo engine over a model-family protocol
-(port of ``mc_tpu/nmc_engine.py:59-249,251-277,543-675``).
+(port of ``mc_tpu/nmc_engine.py:59-249,251-277,445-488,543-675``).
 
-A family supplies its physics through `NMCFamily` (parameter packing, the
-trajectories that store its outer state grids, the plain inner leg and its
-discounting); the engine owns the rest: the entry guards, the keys, the
-f32 Kahan inner sum and the two strategies.  Heston is the only family
-registered so far; the others of ``mc_tpu`` are still to port (ROADMAP.md
-queue B, item 14).
+A family supplies its physics through `NMCFamily` (parameter packing, its
+integer ``extras``, the trajectories that store its outer state grids, the
+plain inner leg and its discounting); the engine owns the rest: the entry
+guards, the keys, the f32 Kahan inner sum and the two strategies.  Heston,
+Merton and Bates are registered; the other families of ``mc_tpu`` are still
+to port (ROADMAP.md queue B, item 14).
 
-Two kernels in ``csrc/family_nmc_kernels.cu`` compute one surface, both
-templates over a device-side family struct:
+Three kernel templates over a device-side family struct (``csrc/family.cuh``;
+each family's instantiations compiled in its own source, the entry points
+in ``csrc/family_nmc_kernels.cu``):
 
 * ``family_inner`` (replaces ``family_inner_kernel``,
   ``mc_tpu/nmc_engine.py:314``): the grid strategy, over the grids the
   family's trajectories kernel stored;
 * ``family_fused`` (replaces ``family_fused_kernel``,
-  ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself.
+  ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself;
+* ``family_trajectories``: stores the outer grids of a family without a
+  trajectories kernel of its own (Bates; the port's counterpart of
+  ``mc_tpu``'s XLA scan ``xla_family_trajectories``), stepping the family's
+  outer step, the fused kernel's, so the grid and fused strategies agree.
 
 For outer path i and step j, surface[j, i] = point_scale * (1/n_inner) *
 the f32 Kahan sum over m = 0..n_inner-1, in that order, of inner leg m
@@ -43,14 +48,17 @@ from mc_tpu_torch.engines import STREAM_INNER, STREAM_OUTER, resolve_device
 from mc_tpu_torch.nmc import NMCResult
 from mc_tpu_torch.oracle import summarize
 from mc_tpu_torch.ops import _cuda
-from mc_tpu_torch.ops.path_kernels import _bound
+from mc_tpu_torch.ops.path_kernels import (KernelConfig, _bound, moment_row,
+                                           path_chunks)
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["NMCFamily", "FamilyConfig", "family_point_sum_plain",
            "family_rows_plain", "family_inner", "family_inner_plain",
-           "family_fused", "family_fused_plain", "price_nmc_family",
-           "NMC_FAMILIES", "register_nmc_family", "ensure_family"]
+           "family_fused", "family_fused_plain", "family_trajectories",
+           "family_trajectories_plain", "launch_family_trajectories",
+           "price_nmc_family", "NMC_FAMILIES", "NMC_FAMILY_BUILDERS",
+           "register_nmc_family", "ensure_family"]
 
 # Inner-leg elements (inner paths x outer paths) per block of the plain
 # version: bounds its temporaries.
@@ -62,13 +70,18 @@ _MASK = 0xFFFFFFFF
 class NMCFamily:
     """Per-family physics consumed by the engine.  A family overrides the
     class attributes and the methods below; ``cuda_id`` names its struct in
-    ``csrc/family_nmc_kernels.cu`` (FamilyId)."""
+    ``csrc/family.cuh`` (FamilyId).  ``extras`` are the family's integer
+    specializations of one call (Merton's and Bates's Poisson scan depth),
+    passed to the kernels by value (at most four)."""
 
     name = "?"
     tag = 0            # rng.derive_key stream tag (that of price_<model>)
     n_grids = 1        # market-state grids, S first
     even_steps = True  # a pair-consuming outer loop needs even n_steps
     cuda_id = -1
+
+    def __init__(self, extras: tuple = ()):
+        self.extras = tuple(int(x) for x in extras)
 
     def span(self, n_steps: int, n_inner: int):
         """(largest inner counter, formula) for the counter-wrap guard."""
@@ -99,14 +112,39 @@ class NMCFamily:
 
     def trajectories(self, payoff, cfg, key, params, path_offset=0,
                      n_valid=None):
-        """The outer paths on ``key`` through the family's trajectories
-        kernel: ``(*market_grids, state_grid, partials)``, grids
-        ``(n_steps, n_paths)`` f32 step-major, partials ``(rows, 2)`` f64
-        [sum pay, sum pay^2]."""
-        raise NotImplementedError
+        """The outer paths on ``key``: ``(*market_grids, state_grid,
+        partials)``, grids ``(n_steps, n_paths)`` f32 step-major, partials
+        ``(rows, 2)`` f64 [sum pay, sum pay^2].  Default: the generic
+        ``family_trajectories`` kernel over the family's outer step; a
+        family with a trajectories kernel of its own overrides it."""
+        return family_trajectories(self, payoff, cfg, key, params,
+                                   path_offset, n_valid)
 
     def trajectories_plain(self, payoff, cfg, key, params, path_offset=0,
                            n_valid=None):
+        return family_trajectories_plain(self, payoff, cfg, key, params,
+                                         path_offset, n_valid)
+
+    # The plain outer path of the default trajectories (mc_tpu's
+    # outer_init/outer_block/outer_pay, one step a block): tensors shaped
+    # like the path ids.
+    def outer_init(self, payoff: PathPayoff, p, like):
+        """The outer carry at t = 0 (it holds the payoff state)."""
+        raise NotImplementedError
+
+    def outer_draws(self, k0: int, k1: int, ids, steps):
+        """The outer key's draws of the steps ``steps`` (an int64 tensor of
+        step indices leading the dims of ``ids``) at once: a tuple of
+        tensors whose index [j] is step j's draws."""
+        raise NotImplementedError
+
+    def outer_step(self, payoff: PathPayoff, p, carry, draws):
+        """One outer step from ``carry`` on its ``draws``: ``(carry,
+        (*market_rows, state_word_0))``."""
+        raise NotImplementedError
+
+    def outer_pay(self, payoff: PathPayoff, p, carry):
+        """The outer path's payoff from its final carry."""
         raise NotImplementedError
 
     def leg(self, payoff: PathPayoff, p, k0: int, k1: int, ids, c_base,
@@ -197,6 +235,40 @@ def family_inner_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
                              n_valid)
 
 
+def family_trajectories_plain(fam: NMCFamily, payoff: PathPayoff,
+                              cfg: FamilyConfig, key, params: torch.Tensor,
+                              path_offset: int = 0, n_valid=None):
+    """Plain version of the family_trajectories kernel: ``(*market_grids,
+    state_grid, partials)`` from the family's plain outer hooks, the grids
+    ``(n_steps, n_paths)`` f32 after step j+1 (state word 0, zeros for a
+    payoff without state), the partials (chunks, 2) f64."""
+    p = fam.unpack(params)
+    k0, k1 = int(key[0]), int(key[1])
+    bound = _bound(path_offset, cfg.n_paths, n_valid)
+    shape = (cfg.n_steps, cfg.n_paths)
+    grids = [torch.empty(shape, dtype=torch.float32, device=params.device)
+             for _ in range(fam.n_grids)]
+    st_grid = torch.zeros(shape, dtype=torch.float32, device=params.device)
+    rows = []
+    layout = KernelConfig(n_paths=cfg.n_paths, n_steps=cfg.n_steps)
+    for start, stop, ids, valid, _ in path_chunks(layout, key, params,
+                                                  path_offset, bound):
+        carry = fam.outer_init(payoff, p, ids.float())
+        steps = torch.arange(cfg.n_steps, dtype=torch.int64,
+                             device=ids.device)[:, None]
+        draws = fam.outer_draws(k0, k1, ids, steps)  # every step at once
+        for j in range(cfg.n_steps):
+            carry, (*market, word0) = fam.outer_step(
+                payoff, p, carry, tuple(d[j] for d in draws))
+            for g, row in zip(grids, market):
+                g[j, start:stop] = row
+            if payoff.n_state:
+                st_grid[j, start:stop] = word0
+        pay = torch.where(valid, fam.outer_pay(payoff, p, carry), 0.0)
+        rows.append(moment_row([pay, pay * pay]))
+    return (*grids, st_grid, torch.stack(rows))
+
+
 def family_fused_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
                        key_outer, key_inner, params: torch.Tensor,
                        path_offset: int = 0, n_valid=None):
@@ -256,8 +328,9 @@ def family_inner(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
     with torch.cuda.device(params.device):
         status = lib.mc_family_inner(
             fam.cuda_id, payoff.cuda_id, int(key_inner[0]), int(key_inner[1]),
-            params.data_ptr(), cfg.n_steps, cfg.n_inner, cfg.n_paths,
-            path_offset & _MASK, bound, _cuda.pointer_array(grids),
+            params.data_ptr(), _cuda.family_extras(fam.extras), cfg.n_steps,
+            cfg.n_inner, cfg.n_paths, path_offset & _MASK, bound,
+            _cuda.pointer_array(grids),
             len(grids), state_grid.data_ptr(), surface.data_ptr(),
             _cuda.stream_handle(params.device))
     _cuda.check(status, "family_inner kernel")
@@ -284,12 +357,57 @@ def family_fused(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
         status = lib.mc_family_fused(
             fam.cuda_id, payoff.cuda_id, int(key_outer[0]), int(key_outer[1]),
             int(key_inner[0]), int(key_inner[1]), params.data_ptr(),
-            cfg.n_steps, cfg.n_inner, cfg.n_paths, path_offset & _MASK, bound,
-            surface.data_ptr(), outer.data_ptr(),
+            _cuda.family_extras(fam.extras), cfg.n_steps, cfg.n_inner,
+            cfg.n_paths, path_offset & _MASK, bound, surface.data_ptr(),
+            outer.data_ptr(),
             _cuda.stream_handle(params.device))
     _cuda.check(status, "family_fused kernel")
     _cuda.count_launch("family_fused")
     return surface, outer
+
+
+def launch_family_trajectories(family_id: int, n_grids: int, extras, payoff,
+                               n_paths: int, n_steps: int, key,
+                               params: torch.Tensor, path_offset: int = 0,
+                               n_valid=None):
+    """Launch family_trajectories_kernel for family ``family_id`` on the
+    card (the caller checks and counts): ``(*market_grids, state_grid,
+    partials)``."""
+    bound = _bound(path_offset, n_paths, n_valid)
+    lib = _cuda.load()
+    n_blocks = min(_cuda.cdiv(n_paths, lib.mc_family_block_threads()),
+                   _cuda.MAX_BLOCKS)
+    out = torch.empty((n_grids + 1, n_steps, n_paths), dtype=torch.float32,
+                      device=params.device)
+    partials = torch.empty((n_blocks, 2), dtype=torch.float64,
+                           device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_family_trajectories(
+            family_id, payoff.cuda_id, int(key[0]), int(key[1]),
+            params.data_ptr(), _cuda.family_extras(extras), n_steps, n_paths,
+            path_offset & _MASK, bound, _cuda.pointer_array(out[:n_grids]),
+            n_grids, out[n_grids].data_ptr(), partials.data_ptr(), n_blocks,
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, "family_trajectories kernel")
+    return (*out, partials)
+
+
+def family_trajectories(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
+                        key, params: torch.Tensor, path_offset: int = 0,
+                        n_valid=None):
+    """The outer grids of family ``fam`` on ``key`` through the generic
+    trajectories kernel: ``(*market_grids, state_grid, partials)``, the
+    grids ``(n_steps, n_paths)`` f32 step-major, the partials ``(rows, 2)``
+    f64 [sum pay, sum pay^2]."""
+    _check(fam, payoff, params)
+    if params.device.type == "cpu":
+        return family_trajectories_plain(fam, payoff, cfg, key, params,
+                                         path_offset, n_valid)
+    out = launch_family_trajectories(fam.cuda_id, fam.n_grids, fam.extras,
+                                     payoff, cfg.n_paths, cfg.n_steps, key,
+                                     params, path_offset, n_valid)
+    _cuda.count_launch("family_trajectories")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -364,14 +482,21 @@ def price_nmc_family(fam: NMCFamily,
 
 
 # name -> price_nmc_<model>, filled by the family modules when imported
-# (the CLI's `nmc --model` dispatch reads it after ensure_family).
+# (the CLI's `nmc --model` dispatch reads it after ensure_family);
+# NMC_FAMILY_BUILDERS: name -> builder(option, dyn, sim) -> (family, dyn32),
+# the family instance with its extras for a call.
 NMC_FAMILIES: Dict[str, Callable[..., Any]] = {}
+NMC_FAMILY_BUILDERS: Dict[str, Callable[..., Any]] = {}
 # name -> the module that registers it.
-FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston"}
+FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston",
+                  "merton": "mc_tpu_torch.nmc_merton",
+                  "bates": "mc_tpu_torch.nmc_bates"}
 
 
-def register_nmc_family(name: str, price_fn) -> None:
+def register_nmc_family(name: str, price_fn, builder=None) -> None:
     NMC_FAMILIES[name] = price_fn
+    if builder is not None:
+        NMC_FAMILY_BUILDERS[name] = builder
 
 
 def ensure_family(name: str) -> None:

@@ -106,4 +106,8 @@ def price_nmc_heston(option: OptionParams = DEMO_OPTION,
                             stream_inner=stream_inner, device=device)
 
 
-register_nmc_family("heston", price_nmc_heston)
+def _heston_builder(option, dyn, sim):
+    return HestonNMC(), (DEMO_HESTON if dyn is None else dyn).as_f32()
+
+
+register_nmc_family("heston", price_nmc_heston, _heston_builder)

@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["cdiv", "launch_counts", "count_launch", "reset_launch_counts",
            "load", "check", "stream_handle", "pointer_array", "build_info",
-           "KERNELS", "MAX_BLOCKS"]
+           "FamilyExtras", "family_extras", "KERNELS", "MAX_BLOCKS"]
 
 # The kernels' grids are capped so a large run grid-strides; the cap depends
 # on nothing but the path or element count, so the order of the per-block
@@ -48,12 +48,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "nmc_inner", "ladder", "book", "greek_partials", "tile_partials",
            "sum_sumsq", "heston_partials", "heston_trajectories",
-           "family_inner", "family_fused")
+           "family_inner", "family_fused", "merton_partials",
+           "merton_trajectories", "bates_partials", "family_trajectories")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
 _c_f32, _c_u64 = ctypes.c_float, ctypes.c_uint64
 _c_ptr_array = ctypes.POINTER(ctypes.c_void_p)
+
+
+class FamilyExtras(ctypes.Structure):
+    """A family's integer extras, passed by value (``csrc/family.cuh``
+    FamilyExtras): Merton's and Bates's i[0] is the Poisson scan depth."""
+
+    _fields_ = [("i", ctypes.c_int * 4)]
+
+
+def family_extras(values) -> FamilyExtras:
+    values = tuple(int(v) for v in values)
+    if len(values) > 4:
+        raise ValueError(f"a family carries at most 4 integer extras; got "
+                         f"{len(values)}")
+    return FamilyExtras((ctypes.c_int * 4)(*values))
+
+
 _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
@@ -62,6 +80,8 @@ _SIGNATURES = {
     "mc_reduce_block_threads": ([], _c_int),
     "mc_heston_block_threads": ([], _c_int),
     "mc_family_block_threads": ([], _c_int),
+    "mc_merton_block_threads": ([], _c_int),
+    "mc_bates_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -117,17 +137,34 @@ _SIGNATURES = {
     "mc_heston_trajectories": ([_c_int, _c_u32, _c_u32, _c_ptr, _c_int,
                                 _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr,
                                 _c_ptr, _c_ptr, _c_int, _c_ptr], _c_int),
-    # family_id, payoff_id, ki0, ki1, params, n_steps, n_inner, n_paths,
-    # path_offset, bound, grids (host array of n_grids device pointers),
-    # n_grids, state_grid, surface, stream
-    "mc_family_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
-                         _c_int, _c_u32, _c_u32, _c_u32, _c_ptr_array, _c_int,
-                         _c_ptr, _c_ptr, _c_ptr], _c_int),
-    # family_id, payoff_id, ko0, ko1, ki0, ki1, params, n_steps, n_inner,
-    # n_paths, path_offset, bound, surface, outer_partials, stream
+    # family_id, payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
+    # n_paths, path_offset, bound, grids (host array of n_grids device
+    # pointers), n_grids, state_grid, surface, stream
+    "mc_family_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, FamilyExtras,
+                         _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr_array,
+                         _c_int, _c_ptr, _c_ptr, _c_ptr], _c_int),
+    # family_id, payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
+    # n_inner, n_paths, path_offset, bound, surface, outer_partials, stream
     "mc_family_fused": ([_c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_u32,
-                         _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
-                         _c_ptr, _c_ptr, _c_ptr], _c_int),
+                         _c_ptr, FamilyExtras, _c_int, _c_int, _c_u32, _c_u32,
+                         _c_u32, _c_ptr, _c_ptr, _c_ptr], _c_int),
+    # family_id, payoff_id, k0, k1, params, extras, n_steps, n_paths,
+    # path_offset, bound, grids (host array of n_grids device pointers),
+    # n_grids, state_grid, partials, n_blocks, stream
+    "mc_family_trajectories": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                                FamilyExtras, _c_int, _c_u32, _c_u32, _c_u32,
+                                _c_ptr_array, _c_int, _c_ptr, _c_ptr, _c_int,
+                                _c_ptr], _c_int),
+    # payoff_id, terminal, rounds, antithetic, k0, k1, params, kmax,
+    # n_steps, n_paths, path_offset, bound, partials, n_blocks, stream
+    "mc_merton_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
+                            _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
+                            _c_ptr, _c_int, _c_ptr], _c_int),
+    # payoff_id, qe, rounds, antithetic, k0, k1, params, kmax, n_steps,
+    # n_paths, path_offset, bound, partials, n_blocks, stream
+    "mc_bates_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
+                           _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
+                           _c_ptr, _c_int, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()

@@ -136,22 +136,24 @@ def _discount_factor(cfg: NMCConfig, p, j: int):
 
 def nmc_inner_plain(payoff: PathPayoff, cfg: NMCConfig, key_inner,
                     params: torch.Tensor, s_grid, c_grid, path_offset: int = 0,
-                    n_valid=None):
+                    n_valid=None, steps=None):
     """Plain version of the inner (grid-strategy) NMC kernel: the surface
-    from the outer states ``s_grid``/``c_grid`` (n_steps, n_paths)."""
+    from the outer states ``s_grid``/``c_grid`` (n_steps, n_paths), or only
+    its rows ``steps``, ``(len(steps), n_paths)``."""
     p = unpack_params(params)
     ki0, ki1 = int(key_inner[0]), int(key_inner[1])
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     ids = (torch.arange(cfg.n_paths, dtype=torch.int64, device=params.device)
            + path_offset) & 0xFFFFFFFF
     valid = ids < bound
-    surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+    steps = range(cfg.n_steps) if steps is None else list(steps)
+    surface = torch.empty((len(steps), cfg.n_paths), dtype=torch.float32,
                           device=params.device)
-    for j in range(cfg.n_steps):
+    for row, j in enumerate(steps):
         inner_sum = _nmc_point_sum(payoff, cfg, p, ki0, ki1, ids, j,
                                    s_grid[j], c_grid[j])
         v = (inner_sum / cfg.n_inner).float() * _discount_factor(cfg, p, j)
-        surface[j] = torch.where(valid, v, 0.0)
+        surface[row] = torch.where(valid, v, 0.0)
     return surface
 
 

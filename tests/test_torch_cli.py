@@ -256,3 +256,78 @@ def test_heston_entry_points_default_to_cuda():
     proc = _run("-m", "mc_tpu_torch", "heston", "--n-paths", "1000")
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+def test_merton_subcommand_prints_mc_tpus_keys(capsys):
+    from mc_tpu_torch import cli
+
+    assert cli.main(["merton", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "8", "--method", "terminal"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["lam", "merton_series_oracle", "payoff", "price",
+                           "stderr"]
+    assert abs(res["price"] - res["merton_series_oracle"]) <= 4 * res["stderr"]
+    assert cli.main(["merton", "--device", "cpu", "--n-paths", "4096",
+                     "--n-steps", "8", "--payoff", "asian_call",
+                     "--antithetic", "--lam", "1.0"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "merton_series_oracle" not in res and res["lam"] == 1.0
+    assert 0 < res["price"] < 10
+
+
+def test_bates_subcommand_prints_mc_tpus_keys(capsys):
+    from mc_tpu_torch import cli
+
+    assert cli.main(["bates", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "8", "--scheme", "qe"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["cf_oracle", "payoff", "price", "scheme", "stderr"]
+    assert res["scheme"] == "qe"
+    assert abs(res["price"] - res["cf_oracle"]) < 0.5  # as mc_tpu's cli test
+
+
+@pytest.mark.parametrize("model", ["merton", "bates"])
+def test_nmc_model_jump_family_is_its_price_nmc(model, capsys):
+    """nmc --model merton|bates builds the family's own dynamics from its
+    flags (--lam/--mu-j/--sigma-j, and the Heston flags under bates) and
+    prices through price_nmc_<model> on the same inputs, bit for bit."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", model, "--strategy", "grid", "--exposure",
+            "--cva-hazard", "0.02", "--payoff", "vanilla_call", "--device",
+            "cpu", "--n-paths", "256", "--n-steps", "6", "--n-inner", "8",
+            "--lam", "1.2", "--mu-j", "0.05", "--sigma-j", "0.25", "--xi",
+            "0.5"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    sim = mt.SimParams(n_paths=256, n_steps=6, n_paths_inner=8)
+    if model == "merton":
+        want = mt.price_nmc_merton(
+            mt.OptionParams(), mt.MertonDynamics(1.2, 0.05, 0.25), sim,
+            strategy="grid", device="cpu")
+    else:
+        want = mt.price_nmc_bates(
+            mt.OptionParams(), mt.BatesDynamics(xi=0.5, lam=1.2, mu_j=0.05,
+                                                sigma_j=0.25), sim,
+            strategy="grid", device="cpu")
+    assert res["outer_price"] == float(want.outer.price)
+    assert res["surface_mean"] == float(want.surface_mean)
+    assert len(res["expected_exposure"]) == 6 and res["cva"] > 0
+    # the default flags give the demo dynamics, another surface
+    assert cli.main(argv[:-8]) == 0
+    other = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert other["outer_price"] != res["outer_price"]
+
+
+def test_jump_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    for fn, dyn in ((mt.price_merton, mt.DEMO_MERTON),
+                    (mt.price_nmc_merton, mt.DEMO_MERTON),
+                    (mt.price_bates, mt.DEMO_BATES),
+                    (mt.price_nmc_bates, mt.DEMO_BATES)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, dyn, sim)

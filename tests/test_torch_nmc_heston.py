@@ -147,7 +147,7 @@ def test_guards():
                                           n_paths_inner=2),
                          strategy="vmem", device="cpu")
     with pytest.raises(ValueError, match="item 14"):
-        ensure_family("merton")
+        ensure_family("sabr")
     ensure_family("heston")
     assert NMC_FAMILIES["heston"] is price_nmc_heston
     fam = HestonNMC()
