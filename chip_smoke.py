@@ -22,9 +22,13 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    and -20, antithetic, 1M x 100 and 1M), the Merton trajectories and the
    generic trajectories under Bates (every one-word payoff), the Bates
    kernel (16 payoffs, Euler and QE, 1M x 100) and the Merton and Bates
+   family NMC kernels; the CEV kernel (16 payoffs, antithetic, 1M x 100),
+   the local-vol kernel (18 payoffs, antithetic, threefry-20, the K = 25
+   CEV-gate surface, 1M x 100), the local-vol trajectories and the generic
+   trajectories under CEV (every one-word payoff) and the CEV and local-vol
    family NMC kernels; their sums to f64 rounding and their grids and
-   surfaces bit for bit (the GBM, Heston, Merton and Bates NMC at the main
-   shape against the plain rows 0, 49, 98 and 99);
+   surfaces bit for bit (every NMC at the main shape against the plain rows
+   0 and 99);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -48,7 +52,14 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    every payoff at 100,000 x 100, the 16,384 x 100 x 500 NMC by both
    strategies (grid == fused, the outer price, the tower property), its XVA
    figures and the ``merton``/``bates`` and ``nmc --model`` commands;
-4. the kernels' launch counts over each of the four paths;
+   then, the counts set to 0 before each, the CEV path and the local-vol
+   path: price_cev at 1M x 100 against the noncentral chi-squared price,
+   price_localvol at 1M x 100 on a flat surface against Black-Scholes and
+   on the CEV-shaped surface against the CEV price, every payoff at
+   100,000 x 100, the 16,384 x 100 x 500 NMC by both strategies (grid ==
+   fused, the outer price, the flat EE profile), its XVA figures and the
+   ``cev``, ``localvol --beta 0.7`` and ``nmc --model`` commands;
+4. the kernels' launch counts over each of the six paths;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up; 3 for the NMC kernels and calls, warm from phases 2
    and 3; the plain versions that take over 0.1 s, once), the ladder and the book beside the single-contract
@@ -56,10 +67,12 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    registers, the greek kernel beside the simulate kernel on its shape,
    the reductions beside ``torch.sum``, the Heston kernels beside the GBM
    kernels of the same shapes, the Merton and Bates kernels beside the
-   Heston kernels of their shapes, and end-to-end times of the phase-3
-   calls (greeks() by route, chunked_price(), price_heston(),
+   Heston kernels of their shapes, the CEV and local-vol kernels beside
+   the Heston and Merton kernels of their shapes, and end-to-end times of
+   the phase-3 calls (greeks() by route, chunked_price(), price_heston(),
    price_nmc_heston(), price_merton(), price_bates(), price_nmc_merton(),
-   price_nmc_bates());
+   price_nmc_bates(), price_cev(), price_localvol(), price_nmc_cev(),
+   price_nmc_localvol());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -91,7 +104,7 @@ TRAJ_PATHS = (65_536, BULLET_PATHS)
 RESUME_STEPS = (50, 51)             # even and odd resume points
 IS_STRIKE = 180.0                   # deep out of the money: IS pays off
 NMC_MAIN = (16384, 100, 500)        # README quickstart: 4.1e10 inner steps
-PAYOFF_PATHS = 65_536                # phase 2: every payoff, 100 steps
+PAYOFF_PATHS = 16_384                # phase 2: every payoff, 100 steps
 LADDER_STRIKES = (60.0, 140.0, 17)   # linspace: the CLI's vol-surface row
 LADDER_PATHS = 1_000_000
 BOOK_SMALL = (16, 1 << 16)           # phase 2: contracts, paths (100 steps)
@@ -108,18 +121,18 @@ NORMALS = 1 << 26                    # phase 3: normals through sum_sumsq
 REPS = 5
 DEVICE = "cuda"
 # The Heston slice (bench.py's Heston rows are 1M x 100).
-HESTON_PATHS = 65_536                # phase 2: every payoff, 100 steps
+HESTON_PATHS = 16_384                # phase 2: every payoff, 100 steps
 HESTON_MAIN = 1_000_000              # price_heston at 1M x 100
 HESTON_PAYOFF_MAIN = 100_000         # phase 3: every payoff; #13's shape
-HESTON_NMC_ROWS = (0, 49, 98, 99)    # phase 2: the plain rows at NMC_MAIN
+HESTON_NMC_ROWS = (0, 99)            # phase 2: the plain rows at NMC_MAIN
 HESTON_KERNELS = ("heston_partials", "heston_trajectories", "family_inner",
                   "family_fused")
 # The jump slice (Merton and Bates at bench.py's Heston size, and the
 # README's NMC).
-JUMP_PATHS = 65_536                  # phase 2: every payoff, 100 steps
+JUMP_PATHS = 16_384                  # phase 2: every payoff, 100 steps
 JUMP_MAIN = 1_000_000                # price_merton / price_bates at 1M (x 100)
 PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
-JUMP_NMC_ROWS = (0, 49, 98, 99)      # phase 2: the plain rows at NMC_MAIN
+JUMP_NMC_ROWS = (0, 99)              # phase 2: the plain rows at NMC_MAIN
 GBM_NMC_ROWS = JUMP_NMC_ROWS         # phase 2: the GBM plain rows at NMC_MAIN
 NMC_REPS = 3                         # phase 5: NMC calls take 0.1-0.6 s
 MERTON_KERNELS = ("merton_partials", "merton_trajectories", "family_inner",
@@ -131,6 +144,18 @@ BATES_KERNELS = ("bates_partials", "family_trajectories", "family_inner",
 JUMP_ROWS = ("merton_partials", "merton_trajectories", "bates_partials",
              "family_trajectories", "family_inner_merton",
              "family_fused_merton", "family_inner_bates", "family_fused_bates")
+# The CEV and local-vol slice (at the same sizes; local vol on its demo
+# surface, K = 9, and the CEV-gate surface, K = 25).
+LV_PATHS = 65_536                    # phase 2: every payoff, 100 steps
+LV_MAIN = 1_000_000                  # price_cev / price_localvol at 1M x 100
+LV_NMC_ROWS = (0, 99)                # phase 2: the plain rows at NMC_MAIN
+CEV_KERNELS = ("cev_partials", "family_trajectories", "family_inner",
+               "family_fused")
+LOCALVOL_KERNELS = ("localvol_partials", "localvol_trajectories",
+                    "family_inner", "family_fused")
+LV_ROWS = ("cev_partials", "localvol_partials", "localvol_trajectories",
+           "family_trajectories_cev", "family_inner_cev", "family_fused_cev",
+           "family_inner_localvol", "family_fused_localvol")
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -259,7 +284,8 @@ def cuda_ms(fn, reps: int = REPS, min_ms: float = 5.0, warm: bool = True):
     spread, and the calls batched into each timed rep (enough back-to-back
     calls that a rep lasts at least min_ms, so launch jitter averages out).
     ``warm=False``: fn ran already (an NMC kernel of ~0.1-0.6 s a call), so
-    no warm-up call."""
+    no warm-up call.  A call that lasts min_ms alone is a rep of one call:
+    the call that sized the reps counts as the first."""
     def timed(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -273,16 +299,20 @@ def cuda_ms(fn, reps: int = REPS, min_ms: float = 5.0, warm: bool = True):
     if warm:
         fn()
         torch.cuda.synchronize()
-    inner = max(1, math.ceil(min_ms / max(timed(1), 1e-3)))
-    times = [timed(inner) for _ in range(reps)]
+    first = timed(1)
+    inner = max(1, math.ceil(min_ms / max(first, 1e-3)))
+    times = [first] if inner == 1 else []
+    times += [timed(inner) for _ in range(reps - len(times))]
     med = statistics.median(times)
     return med, (max(times) - min(times)) / med, inner
 
 
-def e2e_seconds(fn, reps: int = REPS):
+def e2e_seconds(fn, reps: int = REPS, warm: bool = True):
     """Host-clock seconds of ``reps`` calls of fn, each ended by a
-    synchronize, after one warm-up call; sorted."""
-    fn()
+    synchronize, after one warm-up call (none if ``warm=False``: fn ran
+    already); sorted."""
+    if warm:
+        fn()
     secs = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -291,6 +321,90 @@ def e2e_seconds(fn, reps: int = REPS):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return sorted(secs)
+
+
+def e2e_report(rows, tag: str) -> None:
+    """Phase 5: each (label, unit, work, fn) end to end on the host clock
+    (e2e_seconds: REPS; NMC_REPS and no warm-up call for an NMC call, warm
+    from phases 2 and 3), its median and its rate."""
+    for label, unit, work, fn in rows:
+        nmc = unit == "inner path-steps/s"
+        reps = NMC_REPS if nmc else REPS
+        secs = e2e_seconds(fn, reps, warm=not nmc)
+        med = statistics.median(secs)
+        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
+              f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
+              f"{work / med:.4e} {unit} {tag}")
+
+
+def partials_times(rows, n_paths: int, time_pair, heston_ms, regs, tag):
+    """Phase 5: each (row, label, kernel fn, plain fn or None, registers
+    key) at n_paths x MAIN_STEPS beside its plain version where given, and
+    beside Heston's partials kernel of the label's scheme (``heston_ms``:
+    "heston_partials" for Euler, "qe").  Returns {row: (ms, plain ms)}."""
+    out = {}
+    for row, label, fn, plain, regs_key in rows:
+        if plain is None:
+            k_ms, sp, _ = cuda_ms(fn)
+            print(f"phase 5: {label} {n_paths}x{MAIN_STEPS}: kernel "
+                  f"{k_ms:.4f} ms (spread {sp:.1%}) {tag}")
+        else:
+            out[row] = time_pair(label, fn, plain, f"{n_paths}x{MAIN_STEPS}")
+            k_ms = out[row][0]
+        scheme = "qe" if label.endswith("qe") else "euler"
+        heston = heston_ms["qe" if scheme == "qe" else "heston_partials"]
+        print(f"phase 5: {label}: {n_paths * MAIN_STEPS / k_ms * 1e3:.4e} "
+              f"path-steps/s; {k_ms / heston:.2f}x heston_partials call "
+              f"{scheme} on the same shape ({heston:.4f} ms); registers "
+              f"{regs.get(regs_key)} {tag}")
+    return out
+
+
+def family_nmc_times(families, call, time_pair, heston_ms, regs, tag):
+    """Phase 5: per (family, NMCFamily, params, (key, key_in), trajectories
+    row, device struct), its outer trajectories at NMC_MAIN's outer shape
+    beside their plain version, and its fused and inner kernels at NMC_MAIN
+    (CUDA events, warm from phases 2 and 3) beside the Heston kernels
+    (``heston_ms``).  Returns {row: (ms, plain ms or None)}."""
+    from mc_tpu_torch import nmc_engine as ne
+
+    n_out, n_steps, n_inner = NMC_MAIN
+    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    out = {}
+    for family, fam, prm, (key, key_in), traj_row, struct in families:
+        out[traj_row] = time_pair(
+            f"{traj_row} {family} call",
+            lambda fam=fam, prm=prm, key=key: fam.trajectories(call, cfg, key,
+                                                               prm),
+            lambda fam=fam, prm=prm, key=key: fam.trajectories_plain(
+                call, cfg, key, prm),
+            f"{n_out}x{n_steps}")
+        grid_bytes = (fam.n_grids + 1) * 4 * n_out * n_steps
+        k_ms = out[traj_row][0]
+        traj_regs = regs.get((f"family_trajectories_kernel<{struct}>",
+                              "VanillaCall", None))
+        print(f"phase 5: {traj_row} writes {grid_bytes / 1e6:.1f} MB in "
+              f"{k_ms:.4f} ms: {grid_bytes / k_ms / 1e6:.1f} GB/s; registers "
+              f"{traj_regs} {tag}")
+        *grids, st, _ = fam.trajectories(call, cfg, key, prm)
+        for name, fn in (
+                ("family_fused", lambda fam=fam, prm=prm, key=key,
+                 key_in=key_in: ne.family_fused(fam, call, cfg, key, key_in,
+                                                prm)),
+                ("family_inner", lambda fam=fam, prm=prm, key_in=key_in,
+                 grids=grids, st=st: ne.family_inner(fam, call, cfg, key_in,
+                                                     prm, grids, st))):
+            ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
+            out[f"{name}_{family}"] = (ms, None)
+            print(f"phase 5: {name} {family} call {n_out}x{n_steps}x{n_inner}"
+                  f": kernel {ms:.3f} ms (spread {sp:.1%}), "
+                  f"{inner_steps / ms * 1e3:.4e} inner path-steps/s = "
+                  f"{ms / heston_ms[name]:.2f}x the Heston kernel "
+                  f"({heston_ms[name]:.3f} ms); registers "
+                  f"{regs.get((f'{name}_kernel<{struct}>', 'VanillaCall', None))}"
+                  f" {tag}")
+    return out
 
 
 def share(mask) -> float:
@@ -548,7 +662,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
             f"heston_partials call {scheme}",
             lambda cfg=cfg: hm.heston_partials(call, cfg, key, prm),
             lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
-            f"{HESTON_MAIN}x{MAIN_STEPS}", plain_reps=1)
+            f"{HESTON_MAIN}x{MAIN_STEPS}")
         kernel = "heston_qe_kernel" if scheme == "qe" else "heston_euler_kernel"
         print(f"phase 5: heston_partials call {scheme}: {steps / k_ms * 1e3:.4e}"
               f" path-steps/s; {k_ms / gbm_sim:.2f}x the GBM simulate_partials"
@@ -562,7 +676,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
         "heston_trajectories bullet",
         lambda: hm.heston_trajectories(bullet, cfg_t, key, prm),
         lambda: hm.heston_trajectories_plain(bullet, cfg_t, key, prm),
-        f"{HESTON_PAYOFF_MAIN}x{MAIN_STEPS}", plain_reps=1)
+        f"{HESTON_PAYOFF_MAIN}x{MAIN_STEPS}")
     k_ms = out["heston_trajectories"][0]
     grid_bytes = 3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS
     print(f"phase 5: heston_trajectories writes {grid_bytes / 1e6:.1f} MB in "
@@ -604,7 +718,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
 
     osim = mt.SimParams(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
-    for label, unit, work, fn in (
+    e2e_report((
             (f"price_heston() euler {HESTON_MAIN}x{MAIN_STEPS}",
              "path-steps/s", steps,
              lambda: mt.price_heston(sim=osim, device=DEVICE)),
@@ -618,13 +732,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
             (f"price_nmc_heston() grid {n_out}x{n_steps}x{n_inner}",
              "inner path-steps/s", inner_steps,
              lambda: mt.price_nmc_heston(sim=nsim, strategy="grid",
-                                         device=DEVICE))):
-        reps = NMC_REPS if unit == "inner path-steps/s" else REPS
-        secs = e2e_seconds(fn, reps)
-        med = statistics.median(secs)
-        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
-              f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
-              f"{work / med:.4e} {unit} {tag}")
+                                         device=DEVICE))), tag)
     return out
 
 
@@ -747,6 +855,60 @@ def jump_bounds():
     }
 
 
+def partials_check(note, row, fn, plain, cfg, key, prm, name, opt, label):
+    """Phase 2: a partials kernel (``fn``) against its plain version on one
+    payoff: the finished sums to f64 rounding; ``note(row, err)`` takes the
+    largest price or stderr difference."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    po = get_payoff(name)
+    got = finish_sum(fn(po, cfg, key, prm))
+    want = finish_sum(plain(po, cfg, key, prm))
+    check_sums(f"{row} {name} {label} {cfg.n_paths}x{cfg.n_steps} "
+               f"{getattr(cfg, 'rng_source', 'threefry13')} "
+               f"anti={cfg.antithetic}", got, want)
+    note(row, price_err(got, want, cfg.n_paths, opt))
+
+
+def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
+               n_steps=MAIN_STEPS):
+    """Phase 2: a family's outer trajectories (its own kernel or the
+    generic one) against their plain version: the grids bitwise, the payoff
+    sums to f64 rounding."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    po, opt = get_payoff(name), payoff_option(mt, name)
+    cfg = ne.FamilyConfig(n_paths=n_paths, n_steps=n_steps, n_inner=1)
+    prm = pack(opt, dyn, n_steps, dev)
+    *g_k, part_k = fam.trajectories(po, cfg, key, prm)
+    *g_p, part_p = fam.trajectories_plain(po, cfg, key, prm)
+    label = f"{row} {fam.name} {name} {n_paths}x{n_steps}"
+    note(row, check_bitwise(f"{label} (grids, state)", g_k, g_p))
+    got, want = finish_sum(part_k), finish_sum(part_p)
+    check_sums(f"{label} payoff", got, want)
+    note(row, price_err(got, want, n_paths, opt))
+
+
+def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys, traj_row,
+                      rows):
+    """Phase 2: a family's #29/#30 at NMC_SMALL (bullet, Asian, vanilla) and
+    at NMC_MAIN against the plain ``rows``; returns the rows' plain ms."""
+    kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
+             "inner": f"family_inner_{family}"}
+
+    def family_note(kind, e):
+        note(kinds[kind], e)
+
+    for name in ("bullet_call", "asian_call", "vanilla_call"):
+        family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
+                        family_note)
+    return family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
+                           NMC_MAIN, family_note, rows)
+
+
 def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     """Phase 2 of the jump slice: #14 (every payoff, both methods,
     threefry-13/-20, antithetic; the main shapes 1M x 100 and 1M terminal),
@@ -755,14 +917,12 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     NMC_SMALL and at NMC_MAIN against the plain rows JUMP_NMC_ROWS, each
     against its plain version on the card.  Returns ({row: max abs error},
     {family: ms of the plain version's rows at NMC_MAIN})."""
-    from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.models import bates as bm
     from mc_tpu_torch.models import merton as mm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
     from mc_tpu_torch.nmc_bates import BatesNMC
     from mc_tpu_torch.nmc_merton import MertonNMC
-    from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
-    from mc_tpu_torch.ops.reduce import finish_sum
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
 
     err = dict.fromkeys(JUMP_ROWS, 0.0)
     k_dt, k_t = jump_kmax()
@@ -770,32 +930,24 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     def note(row, e):
         err[row] = max(err[row], e)
 
-    def partials_case(row, fn, plain, cfg, key, prm, name, opt, label):
-        po = get_payoff(name)
-        got = finish_sum(fn(po, cfg, key, prm))
-        want = finish_sum(plain(po, cfg, key, prm))
-        check_sums(f"{row} {name} {label} {cfg.n_paths}x{cfg.n_steps} "
-                   f"{cfg.rng_source} anti={cfg.antithetic}", got, want)
-        note(row, price_err(got, want, cfg.n_paths, opt))
-
     def merton_case(name, n_paths, method="euler", **kw):
         opt = payoff_option(mt, name)
         cfg = mm.MertonConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
                               kmax=k_t if method == "terminal" else k_dt,
                               method=method, **kw)
-        partials_case("merton_partials", mm.merton_partials,
-                      mm.merton_partials_plain, cfg, merton_keys[0],
-                      mm.pack_merton(opt, mm.DEMO_MERTON, MAIN_STEPS, dev),
-                      name, opt, method)
+        partials_check(note, "merton_partials", mm.merton_partials,
+                       mm.merton_partials_plain, cfg, merton_keys[0],
+                       mm.pack_merton(opt, mm.DEMO_MERTON, MAIN_STEPS, dev),
+                       name, opt, method)
 
     def bates_case(name, n_paths, **kw):
         opt = payoff_option(mt, name)
         cfg = bm.BatesConfig(n_paths=n_paths, n_steps=MAIN_STEPS, kmax=k_dt,
                              **kw)
-        partials_case("bates_partials", bm.bates_partials,
-                      bm.bates_partials_plain, cfg, bates_keys[0],
-                      bm.pack_bates(opt, bm.DEMO_BATES, MAIN_STEPS, dev),
-                      name, opt, cfg.scheme)
+        partials_check(note, "bates_partials", bm.bates_partials,
+                       bm.bates_partials_plain, cfg, bates_keys[0],
+                       bm.pack_bates(opt, bm.DEMO_BATES, MAIN_STEPS, dev),
+                       name, opt, cfg.scheme)
 
     for name, po in sorted(PAYOFFS.items()):
         merton_case(name, JUMP_PATHS)
@@ -819,95 +971,109 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
                        mm.DEMO_MERTON, merton_keys, "merton_trajectories"),
             "bates": (BatesNMC(extras=(k_dt,)), bm.pack_bates,
                       bm.DEMO_BATES, bates_keys, "family_trajectories")}
-
-    def traj_case(family, name, n_paths, n_steps=MAIN_STEPS):
-        fam, pack, dyn, (key, _), row = fams[family]
-        po, opt = get_payoff(name), payoff_option(mt, name)
-        cfg = ne.FamilyConfig(n_paths=n_paths, n_steps=n_steps, n_inner=1)
-        prm = pack(opt, dyn, n_steps, dev)
-        *g_k, part_k = fam.trajectories(po, cfg, key, prm)
-        *g_p, part_p = fam.trajectories_plain(po, cfg, key, prm)
-        label = f"{row} {family} {name} {n_paths}x{n_steps}"
-        note(row, check_bitwise(f"{label} (grids, state)", g_k, g_p))
-        got, want = finish_sum(part_k), finish_sum(part_p)
-        check_sums(f"{label} payoff", got, want)
-        note(row, price_err(got, want, n_paths, opt))
-
     for name, po in sorted(PAYOFFS.items()):
         if po.n_state <= 1:
-            for family in fams:
-                traj_case(family, name, JUMP_PATHS)
-
-    rows_ms = {}
-    for family, (fam, pack, dyn, keys, traj_row) in fams.items():
-        kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
-                 "inner": f"family_inner_{family}"}
-
-        def family_note(kind, e, kinds=kinds):
-            note(kinds[kind], e)
-
-        for name in ("bullet_call", "asian_call", "vanilla_call"):
-            family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
-                            family_note)
-        rows_ms[family] = family_nmc_case(mt, dev, fam, pack, dyn, keys,
-                                          "vanilla_call", NMC_MAIN,
-                                          family_note, JUMP_NMC_ROWS)
+            for fam, pack, dyn, (key, _), row in fams.values():
+                traj_check(mt, dev, note, row, fam, pack, dyn, key, name,
+                           JUMP_PATHS)
+    rows_ms = {family: family_nmc_checks(mt, dev, note, family, fam, pack,
+                                         dyn, keys, row, JUMP_NMC_ROWS)
+               for family, (fam, pack, dyn, keys, row) in fams.items()}
     return err, rows_ms
 
 
 def family_main_path(mt, dev, _cuda, family):
-    """Phase 3 of a model family ("heston", "merton" or "bates") at full
-    width: the call at 1M (x 100) against its oracle by each scheme or
-    method, with and without the antithetic twin, every payoff at
-    100,000 x 100 with ordering and parity gates, the NMC at NMC_MAIN by
-    both strategies (grid == fused bitwise, the outer price == the Euler
-    price on the outer key up to f64 sums, the last step, the tower
-    property), its XVA figures and the family's two CLI commands.  The
-    launch counts are set to 0 before it and read after it: {kernel:
-    launches}."""
+    """Phase 3 of a model family ("heston", "merton", "bates", "cev" or
+    "localvol") at full width: the call at 1M (x 100) against its oracle by
+    each scheme, method or gate surface, with and without the antithetic
+    twin, every payoff at 100,000 x 100 with ordering and parity gates, the
+    NMC at NMC_MAIN by both strategies (grid == fused bitwise, the outer
+    price == the family's price on the outer key up to f64 sums, the last
+    step, the tower property: every column of the surface, the call's EE
+    profile, flat at the time-0 price), its XVA figures and the family's
+    two CLI commands.  The launch counts are set to 0 before it and read
+    after it: {kernel: launches}."""
+    from mc_tpu_torch.models import localvol as lm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.ops.payoffs import PAYOFFS
 
     _cuda.reset_launch_counts()
     option = o = mt.DEMO_OPTION
-    # the Heston gates: Euler's O(dt) bias (4 se + 0.5%), QE's smaller one
-    sv_gates = (("euler", "scheme", 4.0, 0.005), ("qe", "scheme", 3.0, 0.003))
     sv_names = [n for n in sorted(PAYOFFS) if n not in SIGMA_PAYOFFS]
-    if family == "heston":
-        dyn, price_fn, nmc_fn = mt.DEMO_HESTON, mt.price_heston, mt.price_nmc_heston
-        ref = mt.heston_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(), q=o.q)
-        gates, names, kernels = sv_gates, sv_names, HESTON_KERNELS
-        n_main = HESTON_MAIN
+    # gates: (label, dynamics, price_fn keywords, oracle, n stderr, the
+    # absolute allowance for the scheme's bias)
+    if family in ("heston", "bates"):
+        if family == "heston":
+            dyn, price_fn, nmc_fn = (mt.DEMO_HESTON, mt.price_heston,
+                                     mt.price_nmc_heston)
+            ref = mt.heston_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(),
+                                    q=o.q)
+            kernels, n_main = HESTON_KERNELS, HESTON_MAIN
+        else:
+            dyn, price_fn, nmc_fn = (mt.DEMO_BATES, mt.price_bates,
+                                     mt.price_nmc_bates)
+            ref = mt.bates_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(),
+                                   q=o.q)
+            kernels, n_main = BATES_KERNELS, JUMP_MAIN
+        # Euler's O(dt) bias (4 se + 0.5%), QE's smaller one
+        gates = [(s, dyn, dict(scheme=s), ref, n_se, bias * ref)
+                 for s, n_se, bias in (("euler", 4.0, 0.005),
+                                       ("qe", 3.0, 0.003))]
+        names = sv_names
     elif family == "merton":
         dyn, price_fn, nmc_fn = mt.DEMO_MERTON, mt.price_merton, mt.price_nmc_merton
         ref = mt.merton_call_closed_form(o.s0, o.k, o.t, o.r, o.sigma,
                                          *dyn.astuple(), q=o.q)
         # exact in law: no discretization bias, 3 stderr
-        gates = (("euler", "method", 3.0, 0.0), ("terminal", "method", 3.0, 0.0))
+        gates = [(m, dyn, dict(method=m), ref, 3.0, 0.0)
+                 for m in ("euler", "terminal")]
         names, kernels, n_main = sorted(PAYOFFS), MERTON_KERNELS, JUMP_MAIN
+    elif family == "cev":
+        dyn, price_fn, nmc_fn = mt.DEMO_CEV, mt.price_cev, mt.price_nmc_cev
+        ref = mt.cev_call_closed_form(o.s0, o.k, o.t, o.r, *dyn.astuple(),
+                                      q=o.q)
+        # level-space Euler's O(dt) bias: tests/test_cev.py's 4 se + 0.5%
+        gates = [("euler", dyn, {}, ref, 4.0, 0.005 * ref)]
+        names, kernels, n_main = sv_names, CEV_KERNELS, LV_MAIN
     else:
-        dyn, price_fn, nmc_fn = mt.DEMO_BATES, mt.price_bates, mt.price_nmc_bates
-        ref = mt.bates_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(), q=o.q)
-        gates, names, kernels = sv_gates, sv_names, BATES_KERNELS
-        n_main = JUMP_MAIN
+        dyn, price_fn, nmc_fn = (lm.LocalVolSurface.demo(MAIN_STEPS),
+                                 mt.price_localvol, mt.price_nmc_localvol)
+        beta = 0.7
+        # tests/test_localvol.py: log-Euler is exact on a flat surface (3.5
+        # se); the CEV-shaped one adds its Euler and knot bias (+ 0.02)
+        gates = [("flat 0.2", lm.LocalVolSurface.flat(0.2, MAIN_STEPS), {},
+                  bs_call(o.s0, o.k, o.t, o.r, 0.2, o.q), 3.5, 0.0),
+                 ("CEV-shaped beta 0.7 K=25", cev_gate_surface(lm, MAIN_STEPS),
+                  {}, mt.cev_call_closed_form(o.s0, o.k, o.t, o.r,
+                                              0.2 * o.s0 ** (1.0 - beta),
+                                              beta, q=o.q), 3.5, 0.02)]
+        ref = None  # the demo surface has no oracle: its 1M-path price
+        names, kernels, n_main = sorted(PAYOFFS), LOCALVOL_KERNELS, LV_MAIN
     sim = mt.SimParams(n_paths=n_main, n_steps=MAIN_STEPS)
-    for which, arg, n_se, bias in gates:
+    for which, gdyn, kw, gref, n_se, allow in gates:
         se = {}
         for anti in (False, True):
-            r = price_fn(option, dyn, sim, **{arg: which}, antithetic=anti,
+            r = price_fn(option, gdyn, sim, **kw, antithetic=anti,
                          device=DEVICE)
             se[anti] = float(r.stderr)
-            tol = n_se * float(r.stderr) + bias * ref
-            d = abs(float(r.price) - ref)
+            tol = n_se * float(r.stderr) + allow
+            d = abs(float(r.price) - gref)
             print(f"phase 3: price_{family} {which} antithetic={anti} "
                   f"{n_main}x{MAIN_STEPS}: {float(r.price):.5f} +/- "
-                  f"{float(r.stderr):.5f} vs oracle {ref:.5f}: |d| {d:.5f} "
-                  f"(limit {n_se:g} se + {bias:.1%} = {tol:.5f})")
+                  f"{float(r.stderr):.5f} vs oracle {gref:.5f}: |d| {d:.5f} "
+                  f"(limit {n_se:g} se + {allow:.5f} = {tol:.5f})")
             if not (math.isfinite(d) and d <= tol):
                 fail(f"price_{family} {which} misses its oracle")
         if not se[True] < se[False]:
             fail(f"price_{family} {which}: antithetic does not cut the "
                  "stderr")
+    if ref is None:
+        r = price_fn(option, dyn, sim, antithetic=True, device=DEVICE)
+        ref = float(r.price)
+        print(f"phase 3: price_{family} demo surface antithetic "
+              f"{n_main}x{MAIN_STEPS}: {ref:.5f} +/- {float(r.stderr):.5f} "
+              "(the time-0 price the NMC's EE profile is held to)")
 
     psim = mt.SimParams(n_paths=PAYOFF_MAIN, n_steps=MAIN_STEPS)
     pay = {name: price_fn(payoff_option(mt, name), dyn, psim, name,
@@ -924,16 +1090,17 @@ def family_main_path(mt, dev, _cuda, family):
     d_dig = abs(float(pay["digital_call"].price)
                 + float(pay["digital_put"].price) - disc)
     # on the same paths the bridge weight is at most the discrete flag
+    bridged = "up_out_call_bb" in names
     bridge_ok = all(float(pay[f"{side}_call_bb"].price)
                     <= float(pay[f"{side}_call"].price)
-                    for side in ("up_out", "down_out") if family == "merton")
+                    for side in ("up_out", "down_out") if bridged)
     print(f"phase 3: {family} ordering and parity: asian "
           f"{float(pay['asian_call'].price):.6f}, up-and-out "
           f"{float(pay['up_out_call'].price):.6f} < vanilla {van:.6f}; "
           f"down-in + down-out - vanilla {d_inout:.3e}; digital call + put "
           f"- e^-rT {d_dig:.3e}; zcb {float(pay['zcb'].price):.15f}"
           + ("; the bridge barriers at most the discrete ones: "
-             f"{'ok' if bridge_ok else 'NO'}" if family == "merton" else ""))
+             f"{'ok' if bridge_ok else 'NO'}" if bridged else ""))
     if not (all(math.isfinite(float(r.price)) and math.isfinite(
             float(r.stderr)) for r in pay.values())
             and 0.0 < float(pay["asian_call"].price) < van
@@ -964,11 +1131,15 @@ def family_main_path(mt, dev, _cuda, family):
                for r in (fused, grid)) / float(standalone.price)
     p32 = mt.engines.pk.unpack_params(mt.engines.pk.pack_params(
         option, n_steps, dev))
-    want = torch.exp(-p32.r * p32.t) * torch.clamp(
-        grid.spot_surface[-1] - p32.k, min=0.0)
+    s_last = grid.spot_surface[-1]
+    if family == "localvol":  # the inner leg pays on s0*exp(log(S_T/s0))
+        s_last = p32.s0 * torch.exp(torch.log(s_last / p32.s0))
+    want = torch.exp(-p32.r * p32.t) * torch.clamp(s_last - p32.k, min=0.0)
     last_ok = bool(torch.allclose(grid.surface[-1], want, rtol=1e-5, atol=0.0))
     cols = surf.double().mean(dim=0)
     tol_ref = 0.02 * ref + 4 * 0.15  # tests/test_nmc.py:147
+    # the call's EE profile (the surface is non-negative): flat at ref
+    d_ee = float((grid.exposure_profile()[0].double() - ref).abs().max())
     d_cols = float((cols - ref).abs().max())
     d_mean = abs(float(fused.surface_mean) - ref)
     d_out_ref = abs(float(fused.outer.price) - ref)
@@ -977,15 +1148,16 @@ def family_main_path(mt, dev, _cuda, family):
           f"{'bitwise' if same else 'NOT bitwise'} "
           f"({share(grid.surface == fused.surface):.6f}), outer "
           f"{float(fused.outer.price):.6f} +/- {float(fused.outer.stderr):.6f}"
-          f" (grid's |d| {d_outer:.3e}; price_{family} euler on the outer "
+          f" (grid's |d| {d_outer:.3e}; price_{family} on the outer "
           f"key {float(standalone.price):.6f}, rel {d_sa:.2e}); last step == "
           f"e^-rT payoff(S_T): {'ok' if last_ok else 'MISMATCH'} "
           f"({share(grid.surface[-1] == want):.6f} bitwise); tower vs oracle "
           f"{ref:.5f}: surface mean |d| {d_mean:.5f}, max column |d| "
-          f"{d_cols:.5f} (limit {tol_ref:.5f}), outer |d| {d_out_ref:.5f}")
+          f"{d_cols:.5f}, max EE |d| {d_ee:.5f} (limit {tol_ref:.5f}), "
+          f"outer |d| {d_out_ref:.5f}")
     if not (same and last_ok and d_sa <= SUMS_RTOL
             and d_outer <= SUMS_RTOL * float(fused.outer.price)
-            and d_mean < tol_ref and d_cols < tol_ref
+            and d_mean < tol_ref and d_cols < tol_ref and d_ee < tol_ref
             and d_out_ref <= 4.0 * float(fused.outer.stderr) + 0.02 * ref):
         fail(f"the {family} NMC breaks grid == fused, its last step, the "
              "tower property or its outer price")
@@ -1011,12 +1183,24 @@ def family_main_path(mt, dev, _cuda, family):
              "cva_wwr_spot(beta=0) is not cva")
 
     argv = [family, "--device", DEVICE]
+    nmc_outer, outer_tol = float(grid.outer.price), 0.0  # the same call
     if family == "merton":  # exact in law: 3 stderr
         argv += ["--method", "terminal", "-N", str(JUMP_MAIN)]
-        oracle_key, n_se, bias = "merton_series_oracle", 3.0, 0.0
+        oracle_key, n_se, allow = "merton_series_oracle", 3.0, 0.0
+    elif family == "cev":  # at the CLI's 100,000 x 100, test_cev.py's gate
+        oracle_key, n_se, allow = "ncx2_oracle", 4.0, 0.005 * ref
+    elif family == "localvol":  # the CEV-shaped surface, 9 knots
+        argv += ["--beta", "0.7"]
+        oracle_key, n_se, allow = "cev_oracle", 3.5, 0.02
+        # nmc --model localvol's surface is sigma + curv*x^2: its outer
+        # price is price_localvol's on that surface, on the outer key
+        nmc_outer = float(price_fn(option, lm.LocalVolSurface.from_function(
+            lambda x, t: 0.2 + 0.1 * x * x, n_steps), mt.SimParams(
+                n_paths=n_out, n_steps=n_steps), device=DEVICE).price)
+        outer_tol = SUMS_RTOL * nmc_outer
     else:  # QE at the CLI's 100,000 x 100
         argv += ["--scheme", "qe"]
-        oracle_key, n_se, bias = "cf_oracle", 4.0, 0.003
+        oracle_key, n_se, allow = "cf_oracle", 4.0, 0.003 * ref
     c = run_cli(argv)
     n = run_cli(["nmc", "--model", family, "--strategy", "grid", "--exposure",
                  "--cva-hazard", "0.02", "--payoff", "vanilla_call",
@@ -1028,9 +1212,9 @@ def family_main_path(mt, dev, _cuda, family):
           f"{n['outer_price']:.6f}, cva {n['cva']:.7f}, EE at t_n "
           f"{n['expected_exposure'][-1]:.6f}")
     if not (c["payoff"] == "vanilla_call"
-            and d_cli <= n_se * c["stderr"] + bias * c[oracle_key]
+            and d_cli <= n_se * c["stderr"] + allow
             and len(n["expected_exposure"]) == n_steps and n["cva"] > 0.0
-            and n["outer_price"] == float(grid.outer.price)):
+            and abs(n["outer_price"] - nmc_outer) <= outer_tol):
         fail(f"the {family} or nmc --model {family} command is off")
     return {k: _cuda.launch_counts[k] for k in kernels}
 
@@ -1042,7 +1226,6 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
     partials at 1M x 100 and its NMC kernels at NMC_MAIN), the registers,
     and the e2e calls.  Returns {row: (ms, plain ms)} (the family kernels'
     plain ms is measured in phase 2)."""
-    from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.models import bates as bm
     from mc_tpu_torch.models import merton as mm
     from mc_tpu_torch.nmc_bates import BatesNMC
@@ -1051,7 +1234,6 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
 
     call = get_payoff("vanilla_call")
     k_dt, k_t = jump_kmax()
-    out = {}
     steps = JUMP_MAIN * MAIN_STEPS
     m_prm = mm.pack_merton(mt.DEMO_OPTION, mm.DEMO_MERTON, MAIN_STEPS, dev)
     b_prm = bm.pack_bates(mt.DEMO_OPTION, bm.DEMO_BATES, MAIN_STEPS, dev)
@@ -1062,84 +1244,42 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
                                 kmax=k_dt, scheme=sc)
              for sc in ("euler", "qe")}
     # Each kernel at its main shape; the plain versions of the Euler rows
-    # (the terminal draw and QE: the kernel alone).
-    for row, label, fn, plain, regs_key in (
-            ("merton_partials", "merton_partials call euler",
-             lambda: mm.merton_partials(call, m_cfg["euler"], merton_keys[0],
-                                        m_prm),
-             lambda: mm.merton_partials_plain(call, m_cfg["euler"],
-                                              merton_keys[0], m_prm),
-             ("merton_partials_kernel", "VanillaCall", 13)),
-            (None, "merton_partials call terminal",
-             lambda: mm.merton_partials(call, m_cfg["terminal"],
-                                        merton_keys[0], m_prm), None,
-             ("merton_partials_kernel", "VanillaCall", 13)),
-            ("bates_partials", "bates_partials call euler",
-             lambda: bm.bates_partials(call, b_cfg["euler"], bates_keys[0],
-                                       b_prm),
-             lambda: bm.bates_partials_plain(call, b_cfg["euler"],
-                                             bates_keys[0], b_prm),
-             ("bates_partials_kernel", "VanillaCall", 13)),
-            (None, "bates_partials call qe",
-             lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0],
-                                       b_prm), None,
-             ("bates_partials_kernel", "VanillaCall", 13))):
-        if plain is None:
-            k_ms, sp, _ = cuda_ms(fn)
-            print(f"phase 5: {label} {JUMP_MAIN}x{MAIN_STEPS}: kernel "
-                  f"{k_ms:.4f} ms (spread {sp:.1%}) {tag}")
-        else:
-            out[row] = time_pair(label, fn, plain,
-                                 f"{JUMP_MAIN}x{MAIN_STEPS}", plain_reps=1)
-            k_ms = out[row][0]
-        heston = gbm_ms["qe" if label.endswith("qe") else "heston_partials"]
-        print(f"phase 5: {label}: {steps / k_ms * 1e3:.4e} path-steps/s; "
-              f"{k_ms / heston:.2f}x heston_partials call "
-              f"{'qe' if label.endswith('qe') else 'euler'} on the same shape"
-              f" ({heston:.4f} ms); registers (ROUNDS=13, all methods and "
-              f"schemes) {regs.get(regs_key)} {tag}")
+    # (the terminal draw and QE: the kernel alone).  Registers: ROUNDS=13,
+    # all methods and schemes.
+    out = partials_times((
+        ("merton_partials", "merton_partials call euler",
+         lambda: mm.merton_partials(call, m_cfg["euler"], merton_keys[0],
+                                    m_prm),
+         lambda: mm.merton_partials_plain(call, m_cfg["euler"],
+                                          merton_keys[0], m_prm),
+         ("merton_partials_kernel", "VanillaCall", 13)),
+        (None, "merton_partials call terminal",
+         lambda: mm.merton_partials(call, m_cfg["terminal"], merton_keys[0],
+                                    m_prm), None,
+         ("merton_partials_kernel", "VanillaCall", 13)),
+        ("bates_partials", "bates_partials call euler",
+         lambda: bm.bates_partials(call, b_cfg["euler"], bates_keys[0],
+                                   b_prm),
+         lambda: bm.bates_partials_plain(call, b_cfg["euler"], bates_keys[0],
+                                         b_prm),
+         ("bates_partials_kernel", "VanillaCall", 13)),
+        (None, "bates_partials call qe",
+         lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0], b_prm),
+         None, ("bates_partials_kernel", "VanillaCall", 13))),
+        JUMP_MAIN, time_pair, gbm_ms, regs, tag)
+
+    out.update(family_nmc_times(
+        (("merton", MertonNMC(extras=(k_dt,)), m_prm, merton_keys,
+          "merton_trajectories", "MertonFamily"),
+         ("bates", BatesNMC(extras=(k_dt,)), b_prm, bates_keys,
+          "family_trajectories", "BatesFamily")),
+        call, time_pair, gbm_ms, regs, tag))
 
     n_out, n_steps, n_inner = NMC_MAIN
-    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
-    for family, fam, prm, (key, key_in), traj_row in (
-            ("merton", MertonNMC(extras=(k_dt,)), m_prm, merton_keys,
-             "merton_trajectories"),
-            ("bates", BatesNMC(extras=(k_dt,)), b_prm, bates_keys,
-             "family_trajectories")):
-        out[traj_row] = time_pair(
-            f"{traj_row} {family} call",
-            lambda fam=fam, prm=prm, key=key: fam.trajectories(call, cfg, key,
-                                                               prm),
-            lambda fam=fam, prm=prm, key=key: fam.trajectories_plain(
-                call, cfg, key, prm),
-            f"{n_out}x{n_steps}", plain_reps=1)
-        grid_bytes = (fam.n_grids + 1) * 4 * n_out * n_steps
-        print(f"phase 5: {traj_row} writes {grid_bytes / 1e6:.1f} MB in "
-              f"{out[traj_row][0]:.4f} ms: "
-              f"{grid_bytes / out[traj_row][0] / 1e6:.1f} GB/s {tag}")
-        *grids, st, _ = fam.trajectories(call, cfg, key, prm)
-        for name, fn in (
-                ("family_fused", lambda fam=fam, prm=prm, key=key,
-                 key_in=key_in: ne.family_fused(fam, call, cfg, key, key_in,
-                                                prm)),
-                ("family_inner", lambda fam=fam, prm=prm, key_in=key_in,
-                 grids=grids, st=st: ne.family_inner(fam, call, cfg, key_in,
-                                                     prm, grids, st))):
-            ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
-            out[f"{name}_{family}"] = (ms, None)
-            struct = "MertonFamily" if family == "merton" else "BatesFamily"
-            print(f"phase 5: {name} {family} call {n_out}x{n_steps}x{n_inner}"
-                  f": kernel {ms:.3f} ms (spread {sp:.1%}), "
-                  f"{inner_steps / ms * 1e3:.4e} inner path-steps/s = "
-                  f"{ms / gbm_ms[name]:.2f}x the Heston kernel "
-                  f"({gbm_ms[name]:.3f} ms); registers "
-                  f"{regs.get((f'{name}_kernel<{struct}>', 'VanillaCall', None))}"
-                  f" {tag}")
-
     osim = mt.SimParams(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS)
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
-    for label, unit, work, fn in (
+    e2e_report((
             (f"price_merton() euler {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
              steps, lambda: mt.price_merton(sim=osim, device=DEVICE)),
             (f"price_merton() terminal {JUMP_MAIN}", "paths/s", JUMP_MAIN,
@@ -1165,12 +1305,216 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
             (f"price_nmc_bates() grid {n_out}x{n_steps}x{n_inner}",
              "inner path-steps/s", inner_steps,
              lambda: mt.price_nmc_bates(sim=nsim, strategy="grid",
-                                        device=DEVICE))):
-        secs = e2e_seconds(fn, NMC_REPS)
-        med = statistics.median(secs)
-        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over "
-              f"{NMC_REPS} (min {secs[0] * 1e3:.4f}, max "
-              f"{secs[-1] * 1e3:.4f}), {work / med:.4e} {unit} {tag}")
+                                        device=DEVICE))), tag)
+    return out
+
+
+# --- the CEV and local-vol slice: kernels #18, #19, #20, the generic
+# trajectories under CEV and both families' #29/#30 ---------------------------
+
+# A CEV substep on top of its half pair: the alive test and the floor (2),
+# S^beta = expf(beta*logf(S)) (1, a logf and an expf), diff (1), S +
+# growth_dt*S (2), (diff*sqrt_dt)*z (2), the floor at 0 and the select (2).
+CEV_STEP_OPS = (0, 10, 2)
+
+
+def lv_step_ops(n_knots: int):
+    """A local-vol step on top of its half pair: the lookup (per ramp a
+    subtract, max, min, multiply and add; the floor), the drift (4), the
+    diffusion (3), w (1) and S = s0*expf(w) (1 and an expf)."""
+    return (0, 5 * (n_knots - 1) + 1 + 9, 1)
+
+
+def half_pair_path(step, n_steps: int):
+    """A path of n_steps steps that share one threefry pair per two, and
+    its payoff."""
+    return _add(_scale(pair_ops(13), n_steps // 2), _scale(step, n_steps),
+                TERMINAL_OPS)
+
+
+def cev_gate_surface(lm, n_steps: int, beta: float = 0.7,
+                     sigma_atm: float = 0.2):
+    """tests/test_localvol.py's CEV-shaped surface: sigma_atm (S/S0)^(beta-1)
+    on K = 25 knots over x in [-1.5, 1.5]."""
+    return lm.LocalVolSurface.from_function(
+        lambda x, t: sigma_atm * math.exp((beta - 1.0) * x), n_steps,
+        x_lo=-1.5, x_hi=1.5, n_knots=25)
+
+
+def lv_bounds():
+    """bound() of the CEV and local-vol rows at the shapes the kernels line
+    reports: #18 and #19 (demo surface, K = 9) at 1M x 100, #20 and the
+    generic trajectories under CEV at NMC_MAIN's outer 16,384 x 100
+    (vanilla), the family kernels at NMC_MAIN (vanilla)."""
+    n_out, n_steps, _ = NMC_MAIN
+    lv_step = lv_step_ops(9)
+    c_path = half_pair_path(CEV_STEP_OPS, MAIN_STEPS)
+    l_path = half_pair_path(lv_step, MAIN_STEPS)
+    half = _scale(pair_ops(13), 0.5)
+    surface_bytes = 4 * (11 + 2 * 9 - 1 + MAIN_STEPS * 9)
+    return {
+        "cev_partials": bound(52, _scale(c_path, LV_MAIN)),
+        "localvol_partials": bound(surface_bytes, _scale(l_path, LV_MAIN)),
+        "localvol_trajectories": bound(2 * 4 * n_out * n_steps,
+                                       _scale(l_path, n_out)),
+        "family_trajectories_cev": bound(2 * 4 * n_out * n_steps,
+                                         _scale(c_path, n_out)),
+        **family_bounds("cev", _add(half, CEV_STEP_OPS), c_path, 1),
+        # the inner leg's start, w = logf(S_t/s0) and S = s0*expf(w), is
+        # under 1% of its steps: left out
+        **family_bounds("localvol", _add(half, lv_step), l_path, 1),
+    }
+
+
+def lv_kernel_checks(mt, dev, cev_keys, lv_keys):
+    """Phase 2 of the CEV and local-vol slice: #18 (16 payoffs, antithetic;
+    1M x 100), #19 (18 payoffs on the demo surface, antithetic,
+    threefry-20, the K = 25 CEV-gate surface; 1M x 100), #20 and the
+    generic trajectories under CEV (every one-word payoff), and both
+    families' #29/#30 at NMC_SMALL and at NMC_MAIN against the plain rows
+    LV_NMC_ROWS, each against its plain version on the card.  Returns
+    ({row: max abs error}, {family: ms of the plain version's rows at
+    NMC_MAIN})."""
+    from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.nmc_cev import CEVNMC
+    from mc_tpu_torch.nmc_localvol import LocalVolNMC
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    err = dict.fromkeys(LV_ROWS, 0.0)
+    demo_surface = lm.LocalVolSurface.demo(MAIN_STEPS)
+    gate_surface = cev_gate_surface(lm, MAIN_STEPS)
+
+    def note(row, e):
+        err[row] = max(err[row], e)
+
+    def cev_case(name, n_paths, **kw):
+        opt = payoff_option(mt, name)
+        cfg = cm.CEVConfig(n_paths=n_paths, n_steps=MAIN_STEPS, **kw)
+        partials_check(note, "cev_partials", cm.cev_partials,
+                       cm.cev_partials_plain, cfg, cev_keys[0],
+                       cm.pack_cev(opt, cm.DEMO_CEV, MAIN_STEPS, dev), name,
+                       opt, "")
+
+    def lv_case(name, n_paths, surf=demo_surface, **kw):
+        opt = payoff_option(mt, name)
+        cfg = lm.LocalVolConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
+                                n_knots=surf.n_knots, **kw)
+        partials_check(note, "localvol_partials", lm.localvol_partials,
+                       lm.localvol_partials_plain, cfg, lv_keys[0],
+                       lm.pack_localvol(opt, surf, MAIN_STEPS, dev), name,
+                       opt, f"K={surf.n_knots}")
+
+    for name in sorted(PAYOFFS):
+        if name not in SIGMA_PAYOFFS:
+            cev_case(name, LV_PATHS)
+        lv_case(name, LV_PATHS)
+    for name in ("vanilla_call", "bullet_call"):
+        cev_case(name, LV_PATHS, antithetic=True)
+        for kw in (dict(antithetic=True), dict(rng_source="threefry"),
+                   dict(rng_source="threefry", antithetic=True)):
+            lv_case(name, LV_PATHS, **kw)
+        lv_case(name, LV_PATHS, gate_surface)
+    cev_case("vanilla_call", LV_MAIN)  # the main shapes
+    lv_case("vanilla_call", LV_MAIN)
+    lv_case("vanilla_call", LV_MAIN, gate_surface)
+
+    def lv_pack(opt, _, n_steps, dev):  # the demo surface at n_steps
+        return lm.pack_localvol(opt, lm.LocalVolSurface.demo(n_steps),
+                                n_steps, dev)
+
+    fams = {"cev": (CEVNMC(), cm.pack_cev, cm.DEMO_CEV, cev_keys,
+                    "family_trajectories_cev"),
+            "localvol": (LocalVolNMC(extras=(demo_surface.n_knots,)),
+                         lv_pack, None, lv_keys, "localvol_trajectories")}
+    for name, po in sorted(PAYOFFS.items()):
+        if po.n_state <= 1:
+            for fam, pack, dyn, (key, _), row in fams.values():
+                traj_check(mt, dev, note, row, fam, pack, dyn, key, name,
+                           LV_PATHS)
+    rows_ms = {family: family_nmc_checks(mt, dev, note, family, fam, pack,
+                                         dyn, keys, row, LV_NMC_ROWS)
+               for family, (fam, pack, dyn, keys, row) in fams.items()}
+    return err, rows_ms
+
+
+def lv_times(mt, dev, cev_keys, lv_keys, regs, tag, time_pair, ref_ms):
+    """Phase 5 of the CEV and local-vol slice: each kernel (CUDA events)
+    beside its plain version and beside the kernel of its shape one family
+    down (``ref_ms``: Heston's Euler partials at 1M x 100 and its NMC
+    kernels at NMC_MAIN, Merton's #15 at NMC_MAIN's outer 16,384 x 100), the
+    registers, and the e2e calls.  Returns {row: (ms, plain ms)} (the family
+    kernels' plain ms is measured in phase 2)."""
+    from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.nmc_cev import CEVNMC
+    from mc_tpu_torch.nmc_localvol import LocalVolNMC
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    call = get_payoff("vanilla_call")
+    steps = LV_MAIN * MAIN_STEPS
+    c_prm = cm.pack_cev(mt.DEMO_OPTION, cm.DEMO_CEV, MAIN_STEPS, dev)
+    demo_surface = lm.LocalVolSurface.demo(MAIN_STEPS)
+    l_prm = {k: lm.pack_localvol(mt.DEMO_OPTION, surf, MAIN_STEPS, dev)
+             for k, surf in ((9, demo_surface),
+                             (25, cev_gate_surface(lm, MAIN_STEPS)))}
+    c_cfg = cm.CEVConfig(n_paths=LV_MAIN, n_steps=MAIN_STEPS)
+    l_cfg = {k: lm.LocalVolConfig(n_paths=LV_MAIN, n_steps=MAIN_STEPS,
+                                  n_knots=k) for k in (9, 25)}
+    out = partials_times((
+        ("cev_partials", "cev_partials call euler",
+         lambda: cm.cev_partials(call, c_cfg, cev_keys[0], c_prm),
+         lambda: cm.cev_partials_plain(call, c_cfg, cev_keys[0], c_prm),
+         ("cev_partials_kernel", "VanillaCall", None)),
+        ("localvol_partials", "localvol_partials call K=9 euler",
+         lambda: lm.localvol_partials(call, l_cfg[9], lv_keys[0], l_prm[9]),
+         lambda: lm.localvol_partials_plain(call, l_cfg[9], lv_keys[0],
+                                            l_prm[9]),
+         ("localvol_partials_kernel", "VanillaCall", 13)),
+        (None, "localvol_partials call K=25 euler",
+         lambda: lm.localvol_partials(call, l_cfg[25], lv_keys[0],
+                                      l_prm[25]), None,
+         ("localvol_partials_kernel", "VanillaCall", 13))),
+        LV_MAIN, time_pair, ref_ms, regs, tag)
+
+    out.update(family_nmc_times(
+        (("cev", CEVNMC(), c_prm, cev_keys, "family_trajectories_cev",
+          "CEVFamily"),
+         ("localvol", LocalVolNMC(extras=(9,)), l_prm[9], lv_keys,
+          "localvol_trajectories", "LocalVolFamily")),
+        call, time_pair, ref_ms, regs, tag))
+    m15 = ref_ms["merton_trajectories"]
+    for row in ("family_trajectories_cev", "localvol_trajectories"):
+        print(f"phase 5: {row}: {out[row][0] / m15:.2f}x merton_trajectories "
+              f"on the same shape ({m15:.4f} ms) {tag}")
+
+    n_out, n_steps, n_inner = NMC_MAIN
+    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    osim = mt.SimParams(n_paths=LV_MAIN, n_steps=MAIN_STEPS)
+    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
+    e2e_report((
+            (f"price_cev() {LV_MAIN}x{MAIN_STEPS}", "path-steps/s", steps,
+             lambda: mt.price_cev(sim=osim, device=DEVICE)),
+            (f"price_localvol() K=9 {LV_MAIN}x{MAIN_STEPS}", "path-steps/s",
+             steps, lambda: mt.price_localvol(mt.DEMO_OPTION, demo_surface,
+                                              osim, device=DEVICE)),
+            (f"price_nmc_cev() fused {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_cev(sim=nsim, strategy="fused",
+                                      device=DEVICE)),
+            (f"price_nmc_cev() grid {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_cev(sim=nsim, strategy="grid",
+                                      device=DEVICE)),
+            (f"price_nmc_localvol() fused {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_localvol(sim=nsim, strategy="fused",
+                                           device=DEVICE)),
+            (f"price_nmc_localvol() grid {n_out}x{n_steps}x{n_inner}",
+             "inner path-steps/s", inner_steps,
+             lambda: mt.price_nmc_localvol(sim=nsim, strategy="grid",
+                                           device=DEVICE))), tag)
     return out
 
 
@@ -1190,7 +1534,9 @@ def main() -> int:
     from mc_tpu_torch.ops.payoffs import PATHWISE, PAYOFFS, get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
     from mc_tpu_torch.models.bates import BATES_TAG
+    from mc_tpu_torch.models.cev import CEV_TAG
     from mc_tpu_torch.models.heston import HESTON_TAG
+    from mc_tpu_torch.models.localvol import LOCALVOL_TAG
     from mc_tpu_torch.models.merton import MERTON_TAG
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
@@ -1227,10 +1573,10 @@ def main() -> int:
     call, bullet = get_payoff("vanilla_call"), get_payoff("bullet_call")
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
     key_in = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_INNER))
-    heston_keys, merton_keys, bates_keys = (tuple(
+    heston_keys, merton_keys, bates_keys, cev_keys, lv_keys = (tuple(
         tuple(int(k) for k in rng.derive_key(1234, stream, tag))
         for stream in (engines.STREAM_OUTER, engines.STREAM_INNER))
-        for tag in (HESTON_TAG, MERTON_TAG, BATES_TAG))
+        for tag in (HESTON_TAG, MERTON_TAG, BATES_TAG, CEV_TAG, LOCALVOL_TAG))
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
     # --- Phase 2: each kernel against its plain version ----------------
@@ -1621,6 +1967,7 @@ def main() -> int:
     heston_err, family_rows_ms = heston_kernel_checks(mt, dev, heston_keys)
     jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, merton_keys,
                                                 bates_keys)
+    lv_err, lv_rows_ms = lv_kernel_checks(mt, dev, cev_keys, lv_keys)
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -2098,37 +2445,42 @@ def main() -> int:
         fail("the reductions disagree with price() or torch.sum, or the "
              "normals' moments are off")
 
-    # The GBM path's launches; then the Heston, Merton and Bates paths,
-    # each driven with the counts set to 0 before it and read after it.
+    # The GBM path's launches; then the Heston, Merton, Bates, CEV and
+    # local-vol paths, each driven with the counts set to 0 before it and
+    # read after it.
     launches = {k: n for k, n in _cuda.launch_counts.items()
-                if k not in HESTON_KERNELS + MERTON_KERNELS + BATES_KERNELS}
-    heston_launches, merton_launches, bates_launches = (
-        family_main_path(mt, dev, _cuda, family)
-        for family in ("heston", "merton", "bates"))
+                if k not in HESTON_KERNELS + MERTON_KERNELS + BATES_KERNELS
+                + CEV_KERNELS + LOCALVOL_KERNELS}
+    families = ("heston", "merton", "bates", "cev", "localvol")
+    family_launches = {family: family_main_path(mt, dev, _cuda, family)
+                       for family in families}
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
-    print(f"phase 4: launches over phase 3's Heston path: {heston_launches}")
-    print(f"phase 4: launches over phase 3's Merton path: {merton_launches}")
-    print(f"phase 4: launches over phase 3's Bates path: {bates_launches}")
-    if not all(n > 0 for path in (launches, heston_launches, merton_launches,
-                                  bates_launches) for n in path.values()):
+    for family, path in family_launches.items():
+        print(f"phase 4: launches over phase 3's {family} path: {path}")
+    if not all(n > 0 for path in (launches, *family_launches.values())
+               for n in path.values()):
         fail("a kernel of the main path was never launched")
-    launches.update(heston_launches)
-    for family, path in (("merton", merton_launches),
-                         ("bates", bates_launches)):
-        for k, n in path.items():
-            launches[f"{k}_{family}" if k.startswith("family_i")
-                     or k.startswith("family_f") else k] = n
+    launches.update(family_launches["heston"])
+    # the kernels line's rows: the family kernels per family (and the
+    # generic trajectories' row under CEV)
+    for family in families[1:]:
+        for k, n in family_launches[family].items():
+            suffixed = (k.startswith("family_i") or k.startswith("family_f")
+                        or (family == "cev" and k == "family_trajectories"))
+            launches[f"{k}_{family}" if suffixed else k] = n
 
     # --- Phase 5: times -------------------------------------------------
     stamp(5)
-    def time_pair(label, kernel_fn, plain_fn, shape, plain_reps=REPS):
+    def time_pair(label, kernel_fn, plain_fn, shape):
+        """The kernel (REPS reps) beside its plain version (one rep: a
+        yardstick of correctness, not of speed)."""
         k_ms, k_sp, k_n = cuda_ms(kernel_fn)
-        p_ms, p_sp, p_n = cuda_ms(plain_fn, reps=plain_reps)
+        p_ms, p_sp, p_n = cuda_ms(plain_fn, reps=1)
         print(f"phase 5: {label} {shape}: kernel {k_ms:.4f} ms "
               f"(spread {k_sp:.1%}, {REPS} reps of {k_n} calls), plain "
-              f"{p_ms:.4f} ms (spread {p_sp:.1%}, {plain_reps} reps of {p_n})"
+              f"{p_ms:.4f} ms (1 rep of {p_n})"
               f" {tag}")
         return k_ms, p_ms
 
@@ -2327,6 +2679,15 @@ def main() -> int:
         for name in ("family_fused", "family_inner"):
             row = f"{name}_{family}"
             jump_ms[row] = (jump_ms[row][0], jump_rows_ms[family])
+    lv_ms = lv_times(mt, dev, cev_keys, lv_keys, regs, tag, time_pair, {
+        "heston_partials": heston_ms["heston_partials"][0],
+        "family_fused": heston_ms["family_fused"][0],
+        "family_inner": heston_ms["family_inner"][0],
+        "merton_trajectories": jump_ms["merton_trajectories"][0]})
+    for family in ("cev", "localvol"):
+        for name in ("family_fused", "family_inner"):
+            row = f"{name}_{family}"
+            lv_ms[row] = (lv_ms[row][0], lv_rows_ms[family])
 
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
@@ -2381,13 +2742,7 @@ def main() -> int:
          csim.n_paths * MAIN_STEPS,
          lambda: mt.price(option, csim, method="euler", device=DEVICE)),
     )
-    for label, unit, work, fn in e2e:
-        reps = NMC_REPS if unit == "inner path-steps/s" else REPS
-        secs = e2e_seconds(fn, reps)
-        med = statistics.median(secs)
-        print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
-              f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
-              f"{work / med:.4e} {unit} {tag}")
+    e2e_report(e2e, tag)
 
     # --- Phase 6: results -----------------------------------------------
     stamp(6)
@@ -2428,6 +2783,7 @@ def main() -> int:
         "sum_sumsq": bound(4 * n26, (0, n26, 0), 2 * n26),
         **heston_bounds(),
         **jump_bounds(),
+        **lv_bounds(),
     }
     nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
@@ -2489,6 +2845,27 @@ def main() -> int:
          jump_err[f"{name}_{family}"], jump_ms[f"{name}_{family}"],
          f"{family} call {nmc_shape} (plain: rows {list(JUMP_NMC_ROWS)})")
         for family in ("merton", "bates")
+        for name, tpu in (("family_inner", "nmc_engine.py:314"),
+                          ("family_fused", "nmc_engine.py:407"))) + (
+        ("cev_partials", "cev_kernels.cu", "models/cev.py:150",
+         lv_err["cev_partials"], lv_ms["cev_partials"],
+         f"call {LV_MAIN}x{MAIN_STEPS}"),
+        ("localvol_partials", "localvol_kernels.cu", "models/localvol.py:264",
+         lv_err["localvol_partials"], lv_ms["localvol_partials"],
+         f"call K=9 {LV_MAIN}x{MAIN_STEPS}"),
+        ("localvol_trajectories", "localvol_nmc_kernels.cu",
+         "models/localvol.py:406", lv_err["localvol_trajectories"],
+         lv_ms["localvol_trajectories"], f"call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
+        ("family_trajectories_cev", "cev_nmc_kernels.cu",
+         "nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
+         "xla_family_trajectories)", lv_err["family_trajectories_cev"],
+         lv_ms["family_trajectories_cev"],
+         f"cev call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
+    ) + tuple(
+        (f"{name}_{family}", f"{family}_nmc_kernels.cu", tpu,
+         lv_err[f"{name}_{family}"], lv_ms[f"{name}_{family}"],
+         f"{family} call {nmc_shape} (plain: rows {list(LV_NMC_ROWS)})")
+        for family in ("cev", "localvol")
         for name, tpu in (("family_inner", "nmc_engine.py:314"),
                           ("family_fused", "nmc_engine.py:407")))
     kernels = []

@@ -17,6 +17,9 @@ launch; importing the package builds and loads nothing.
     price_merton(method="terminal")        # Merton jump-diffusion
     price_bates(scheme="qe")               # Bates SVJ (Heston + jumps)
     price_nmc_bates().cva(0.02)            # exposure under vol and jumps
+    price_cev()                            # CEV local vol (the skew)
+    price_localvol(surf=LocalVolSurface.demo(100))  # a sigma(S, t) smile
+    price_nmc_localvol().cva(0.02)         # exposure under the smile
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -28,14 +31,20 @@ from mc_tpu_torch.engines import (Trajectories, price, price_ladder,
 from mc_tpu_torch.greeks import greeks
 from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
                                        bates_call_cf, price_bates)
+from mc_tpu_torch.models.cev import (DEMO_CEV, CEVDynamics,
+                                     cev_call_closed_form, price_cev)
 from mc_tpu_torch.models.heston import (DEMO_HESTON, HestonDynamics,
                                         heston_call_cf, price_heston)
+from mc_tpu_torch.models.localvol import (DEMO_LOCALVOL, LocalVolSurface,
+                                          price_localvol)
 from mc_tpu_torch.models.merton import (DEMO_MERTON, MertonDynamics,
                                         merton_call_closed_form, price_merton)
 from mc_tpu_torch.nmc import NMCResult, price_nmc
 from mc_tpu_torch.nmc_engine import price_nmc_family
 from mc_tpu_torch.nmc_bates import price_nmc_bates
+from mc_tpu_torch.nmc_cev import price_nmc_cev
 from mc_tpu_torch.nmc_heston import price_nmc_heston
+from mc_tpu_torch.nmc_localvol import price_nmc_localvol
 from mc_tpu_torch.nmc_merton import price_nmc_merton
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
@@ -46,6 +55,9 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "price_merton", "price_nmc_merton", "MertonDynamics",
            "DEMO_MERTON", "merton_call_closed_form", "price_bates",
            "price_nmc_bates", "BatesDynamics", "DEMO_BATES", "bates_call_cf",
+           "price_cev", "price_nmc_cev", "CEVDynamics", "DEMO_CEV",
+           "cev_call_closed_form", "price_localvol", "price_nmc_localvol",
+           "LocalVolSurface", "DEMO_LOCALVOL",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

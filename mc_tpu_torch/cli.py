@@ -1,14 +1,16 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
-ladder/book/greeks/heston/merton/bates).
+ladder/book/greeks/heston/merton/bates/cev/localvol).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
 ``price``, ``nmc``, ``ladder``, ``book``, ``greeks``, ``heston``,
-``merton`` and ``bates`` print one JSON object each (``price`` adds the
-closed form where the payoff has one, ``heston`` and ``bates`` the CF oracle
-for the call, ``merton`` the series oracle, ``nmc --exposure`` the XVA
-figures of the surface, under GBM or ``--model heston|merton|bates``, each
+``merton``, ``bates``, ``cev`` and ``localvol`` print one JSON object each
+(``price`` adds the closed form where the payoff has one, ``heston`` and
+``bates`` the CF oracle for the call, ``merton`` the series oracle, ``cev``
+the noncentral chi-squared oracle, ``localvol --beta`` that oracle and the
+z-score of a CEV-shaped surface, ``nmc --exposure`` the XVA figures of the
+surface, under GBM or ``--model heston|merton|bates|cev|localvol``, each
 family's dynamics from its own flags); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
@@ -295,9 +297,25 @@ def _bates_dyn(args):
                          mu_j=args.mu_j, sigma_j=args.sigma_j)
 
 
+def _cev_dyn(args):
+    from mc_tpu_torch.models.cev import CEVDynamics
+
+    return CEVDynamics.from_atm_vol(args.sigma_atm, args.beta, args.s0)
+
+
+def _nmc_surface(args):
+    """``nmc --model localvol``'s surface (mc_tpu/cli.py:320-329): sigma +
+    curv*x^2 at every step, no term slope."""
+    from mc_tpu_torch.models.localvol import LocalVolSurface
+
+    return LocalVolSurface.from_function(
+        lambda x, t: args.sigma + args.smile_curv * x * x, args.n_steps)
+
+
 # --model -> the family's dynamics from its own flags.
 _FAMILY_DYNAMICS = {"heston": _heston_dyn, "merton": _merton_dyn,
-                    "bates": _bates_dyn}
+                    "bates": _bates_dyn, "cev": _cev_dyn,
+                    "localvol": _nmc_surface}
 
 
 def cmd_heston(args):
@@ -355,6 +373,59 @@ def cmd_bates(args):
             args.s0, args.k, args.t, args.r, args.v0, args.kappa,
             args.theta_v, args.xi, args.rho_sv, args.lam, args.mu_j,
             args.sigma_j, q=args.q)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_cev(args):
+    """CEV price as one JSON object (mc_tpu/cli.py:888-906), the
+    noncentral chi-squared oracle beside the call where 0 < beta < 1."""
+    from mc_tpu_torch.models.cev import cev_call_closed_form, price_cev
+
+    option, sim = _parse(args)
+    dyn = _cev_dyn(args)
+    res = price_cev(option, dyn, sim, payoff=args.payoff,
+                    antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "price": float(res.price),
+           "stderr": float(res.stderr), "beta": args.beta}
+    if args.payoff == "vanilla_call" and 0.0 < args.beta < 1.0:
+        out["ncx2_oracle"] = cev_call_closed_form(
+            args.s0, args.k, args.t, args.r, dyn.sigma_lv, args.beta,
+            q=args.q)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_localvol(args):
+    """Local-vol price as one JSON object (mc_tpu/cli.py:1580-1607): the
+    surface sigma + curv*x^2 + slope*t, or with ``--beta`` the CEV-shaped
+    sigma*e^{(beta-1)x}, whose call prints the CEV oracle and z-score."""
+    import math
+
+    from mc_tpu_torch.models.cev import cev_call_closed_form
+    from mc_tpu_torch.models.localvol import LocalVolSurface, price_localvol
+
+    option, sim = _parse(args)
+    if args.beta is not None:
+        beta = args.beta
+
+        def fn(x, t):
+            return args.sigma * math.exp((beta - 1.0) * x)
+    else:
+        def fn(x, t):
+            return args.sigma + args.smile_curv * x * x + args.term_slope * t
+    surf = LocalVolSurface.from_function(fn, sim.n_steps,
+                                         n_knots=args.n_knots)
+    res = price_localvol(option, surf, sim, payoff=args.payoff,
+                         antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "price": float(res.price),
+           "stderr": float(res.stderr)}
+    if (args.beta is not None and args.payoff == "vanilla_call"
+            and 0.0 < args.beta < 1.0):  # the closed form's range
+        out["cev_oracle"] = cev_call_closed_form(
+            args.s0, args.k, args.t, args.r,
+            args.sigma * args.s0 ** (1.0 - args.beta), args.beta, args.q)
+        out["z_score"] = (out["price"] - out["cev_oracle"]) / out["stderr"]
     print(json.dumps(out))
     return 0
 
@@ -467,9 +538,9 @@ def main(argv=None):
                    choices=("gbm", "heston", "bates", "merton", "vasicek",
                             "localvol", "cev", "basket", "sabr", "term",
                             "rainbow"),
-                   help="the outer and inner dynamics: gbm, heston, merton "
-                        "or bates (the other families of mc_tpu are not "
-                        "ported yet)")
+                   help="the outer and inner dynamics: gbm, heston, merton, "
+                        "bates, cev or localvol (the other families of mc_tpu "
+                        "are not ported yet)")
     p.add_argument("--surface-npz", default=None,
                    help="save the (paths, steps) surface to this .npz")
     p.add_argument("--exposure", action="store_true",
@@ -505,6 +576,12 @@ def main(argv=None):
                         "--strategy grid)")
     _add_heston_flags(p)
     _add_jump_flags(p)
+    p.add_argument("--sigma-atm", type=float, default=0.2,
+                   help="cev at-the-money vol")
+    p.add_argument("--beta", type=float, default=0.5,
+                   help="cev elasticity")
+    p.add_argument("--smile-curv", type=float, default=0.1,
+                   help="localvol: sigma(x) = sigma + curv*x^2")
     p.set_defaults(fn=cmd_nmc)
 
     p = sub.add_parser("ladder", help="strike ladder on shared paths, JSON")
@@ -565,6 +642,29 @@ def main(argv=None):
                    help="diffusion substep; jumps are exact in law either "
                         "way")
     p.set_defaults(fn=cmd_bates)
+
+    p = sub.add_parser("cev", help="CEV local-vol price (ncx2 oracle)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    p.add_argument("--sigma-atm", type=float, default=0.2)
+    p.add_argument("--beta", type=float, default=0.5)
+    p.set_defaults(fn=cmd_cev)
+
+    p = sub.add_parser("localvol",
+                       help="local-volatility surface price (CEV oracle "
+                            "with --beta)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    p.add_argument("--smile-curv", type=float, default=0.1,
+                   help="sigma(x,t) = sigma + curv*x^2 + slope*t")
+    p.add_argument("--term-slope", type=float, default=0.05)
+    p.add_argument("--beta", type=float, default=None,
+                   help="CEV-shaped surface sigma*e^{(beta-1)x} instead "
+                        "(prints the noncentral-chi^2 oracle z-score)")
+    p.add_argument("--n-knots", type=int, default=9)
+    p.set_defaults(fn=cmd_localvol)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

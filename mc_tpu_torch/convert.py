@@ -17,19 +17,23 @@ import torch
 from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
 from mc_tpu_torch.models.bates import BATES_FIELDS, BatesDynamics
+from mc_tpu_torch.models.cev import CEV_FIELDS, CEVDynamics
 from mc_tpu_torch.models.heston import HESTON_FIELDS, HestonDynamics
+from mc_tpu_torch.models.localvol import LocalVolSurface, packed_length
 from mc_tpu_torch.models.merton import MERTON_FIELDS, MertonDynamics
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
            "surface_matrix", "checkpoint", "heston_dynamics", "heston_params",
            "merton_dynamics", "merton_params", "bates_dynamics",
-           "bates_params"]
+           "bates_params", "cev_dynamics", "cev_params", "localvol_surface",
+           "localvol_params"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
 _HESTON_DYN_FIELDS = ("v0", "kappa", "theta", "xi", "rho")
 _MERTON_DYN_FIELDS = ("lam", "mu_j", "sigma_j")
 _BATES_DYN_FIELDS = _HESTON_DYN_FIELDS + _MERTON_DYN_FIELDS
+_CEV_DYN_FIELDS = ("sigma_lv", "beta")
 
 
 def _field(src, name):
@@ -115,6 +119,43 @@ def bates_params(arr) -> torch.Tensor:
     """``mc_tpu``'s packed Bates parameters (``_pack_bates``: the (20,) f32
     vector of ``BATES_FIELDS``) -> the port's CPU tensor, bit for bit."""
     return _packed(arr, BATES_FIELDS, "Bates")
+
+
+def cev_dynamics(src) -> CEVDynamics:
+    """``mc_tpu.models.cev.CEVDynamics`` fields (scalars) -> the port's
+    CEVDynamics."""
+    return CEVDynamics(*_scalars(src, _CEV_DYN_FIELDS, "CEV"))
+
+
+def cev_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed CEV parameters (``_pack_cev``: the (13,) f32
+    vector of ``CEV_FIELDS``) -> the port's CPU tensor, bit for bit."""
+    return _packed(arr, CEV_FIELDS, "CEV")
+
+
+def localvol_surface(src) -> LocalVolSurface:
+    """``mc_tpu.models.localvol.LocalVolSurface`` (``x_knots`` (K,) and
+    ``vols`` (n_steps, K), arrays numpy can read) -> the port's, as f32
+    numpy arrays."""
+    xs = np.asarray(_field(src, "x_knots"), np.float32)
+    vols = np.asarray(_field(src, "vols"), np.float32)
+    if xs.ndim != 1 or vols.ndim != 2 or vols.shape[1] != xs.shape[0]:
+        raise ValueError(f"a surface is x_knots (K,) and vols (n_steps, K); "
+                         f"got {xs.shape} and {vols.shape}")
+    return LocalVolSurface(x_knots=xs.copy(), vols=vols.copy())
+
+
+def localvol_params(arr, n_knots: int, n_steps: int) -> torch.Tensor:
+    """``mc_tpu``'s packed local-vol vector (``_pack_localvol``) -> the
+    port's CPU tensor, bit for bit, its length checked against
+    11 + 2K - 1 + n_steps*K."""
+    a = np.asarray(arr)
+    want = packed_length(n_knots, n_steps)
+    if a.shape != (want,) or a.dtype != np.float32:
+        raise ValueError(f"packed local-vol parameters at K={n_knots}, "
+                         f"n_steps={n_steps} are {want} float32 values; got "
+                         f"{a.shape} {a.dtype}")
+    return torch.from_numpy(a.copy())
 
 
 def key(arr) -> tuple[int, int]:

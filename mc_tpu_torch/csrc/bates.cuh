@@ -88,7 +88,8 @@ struct BatesFamily {
     typename Payoff::State st;
   };
 
-  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex) {
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
+                                int) {
     return Params{load_bates(params), ex.i[0]};
   }
   __device__ static const mc::Params& payoff_params(const Params& p) { return p.b.h.pay; }

@@ -1,10 +1,11 @@
 // The family nested-MC engine on the device: the kernels every model family
-// instantiates (family_nmc_kernels.cu for Heston, merton_nmc_kernels.cu and
-// bates_nmc_kernels.cu for the jump families), templates over a device-side
-// family whose interface mirrors NMCFamily (nmc_engine.py):
-//   Params, load(ptr, extras)          the packed parameters and the family's
+// instantiates (family_nmc_kernels.cu for Heston, <family>_nmc_kernels.cu
+// for Merton, Bates, CEV and local vol), templates over a device-side family
+// whose interface mirrors NMCFamily (nmc_engine.py):
+//   Params, load(ptr, extras, n_steps) the packed parameters, the family's
 //                                      integer extras (Merton's and Bates's
-//                                      Poisson scan depth);
+//                                      Poisson scan depth, local vol's knot
+//                                      count) and the step count;
 //   payoff_params(p)                   the payoffs' view of the contract;
 //   kGrids                             market-state grids (S first);
 //   Carry<Payoff>, outer_init(p)       the outer path's carry and its start;
@@ -61,9 +62,13 @@ namespace mc {
 constexpr int kFamilyThreads = 128;
 constexpr int kMaxGrids = 8;
 
-enum FamilyId { FAMILY_HESTON = 0, FAMILY_MERTON = 1, FAMILY_BATES = 2 };
+enum FamilyId {
+  FAMILY_HESTON = 0, FAMILY_MERTON = 1, FAMILY_BATES = 2, FAMILY_CEV = 3,
+  FAMILY_LOCALVOL = 4
+};
 
-// A family's integer extras, by value (Merton's and Bates's i[0] = kmax).
+// A family's integer extras, by value (Merton's and Bates's i[0] = kmax,
+// local vol's i[0] = K).
 struct FamilyExtras {
   int i[4];
 };
@@ -107,7 +112,7 @@ family_fused_kernel(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
                     int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
                     int tiles, float* __restrict__ surface,
                     double* __restrict__ outer_partials) {
-  const typename Family::Params p = Family::load(params, extras);
+  const typename Family::Params p = Family::load(params, extras, n_steps);
   const int j = blockIdx.x / tiles;  // the state after step j+1
   const int tile = blockIdx.x % tiles;
   const uint32_t local = static_cast<uint32_t>(tile) * kFamilyThreads + threadIdx.x;
@@ -138,7 +143,7 @@ family_inner_kernel(uint32_t ki0, uint32_t ki1, const float* __restrict__ params
                     FamilyExtras extras, int n_steps, int n_inner, uint32_t n_paths,
                     uint32_t path_offset, uint32_t bound, int tiles, GridPtrs grids,
                     const float* __restrict__ state_grid, float* __restrict__ surface) {
-  const typename Family::Params p = Family::load(params, extras);
+  const typename Family::Params p = Family::load(params, extras, n_steps);
   const int j = blockIdx.x / tiles;  // the state after step j+1
   const int tile = blockIdx.x % tiles;
   const uint32_t local = static_cast<uint32_t>(tile) * kFamilyThreads + threadIdx.x;
@@ -164,7 +169,7 @@ family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ p
                            FamilyExtras extras, int n_steps, uint32_t n_paths,
                            uint32_t path_offset, uint32_t bound, GridOutPtrs grids,
                            float* __restrict__ state_grid, double* __restrict__ partials) {
-  const typename Family::Params p = Family::load(params, extras);
+  const typename Family::Params p = Family::load(params, extras, n_steps);
   double acc[2] = {0.0, 0.0};
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
   for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -318,6 +323,8 @@ cudaError_t family_trajectories_switch(int payoff_id, uint32_t k0, uint32_t k1,
 MC_FAMILY_LAUNCHERS(heston_family)
 MC_FAMILY_LAUNCHERS(merton_family)
 MC_FAMILY_LAUNCHERS(bates_family)
+MC_FAMILY_LAUNCHERS(cev_family)
+MC_FAMILY_LAUNCHERS(localvol_family)
 #undef MC_FAMILY_LAUNCHERS
 
 }  // namespace mc

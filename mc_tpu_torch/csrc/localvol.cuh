@@ -1,0 +1,150 @@
+// The local-volatility family on the device: the packed surface, the
+// clamped-ramp lookup, the log-Euler step and the family NMC struct, the
+// twins of mc_tpu_torch/models/localvol.py (and of
+// mc_tpu/models/localvol.py:131-213) operation for operation, in the same
+// association.  The build passes --fmad=false, so each mul and add rounds as
+// it does in the plain PyTorch version.
+//
+// The packed vector has a variable length, 11 + 2K - 1 + n_steps*K f32:
+//   [s0, k, t, barrier, p1, p2, q, dt, inv_n_steps, r, sigma_ref,
+//    x_knots(K), dx(K-1), v0(n_steps), slopes(n_steps*(K-1))]
+// so the kernels read it by pointer, with K and n_steps runtime integers.
+// The payoffs' Params take the head's fields (sigma = sigma_ref, which only
+// the Brownian-bridge barriers read); the GBM drift/vol coefficients are NaN.
+//
+// The surface tables stay in global memory: at step j every thread of a
+// block (of a warp, in lockstep) reads the same slope row, so each load is
+// one broadcast transaction served from L1 (the table is 3.7 KB at K = 9,
+// n_steps = 100, and 10 KB at K = 25), and staging it in shared memory
+// would buy nothing a first version needs.
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kLvHead = 11;
+
+struct LocalVolParams {
+  Params pay;              // the payoff's view of the contract
+  const float* v;          // the packed vector
+  int n_knots, n_steps;
+  float base_drift, sdt;   // (r - q)*dt, sqrt(dt)
+};
+
+__device__ __forceinline__ LocalVolParams load_localvol(const float* __restrict__ v,
+                                                        int n_knots, int n_steps) {
+  const float nan = __int_as_float(0x7fc00000);
+  LocalVolParams l;
+  l.pay.s0 = v[0]; l.pay.k = v[1]; l.pay.t = v[2]; l.pay.barrier = v[3];
+  l.pay.p1 = v[4]; l.pay.p2 = v[5]; l.pay.q = v[6]; l.pay.dt = v[7];
+  l.pay.inv_n_steps = v[8]; l.pay.r = v[9]; l.pay.sigma = v[10];
+  l.pay.drift_dt = nan; l.pay.vol_dt = nan; l.pay.drift_t = nan; l.pay.vol_t = nan;
+  l.v = v;
+  l.n_knots = n_knots;
+  l.n_steps = n_steps;
+  l.base_drift = (l.pay.r - l.pay.q) * l.pay.dt;
+  l.sdt = sqrtf(l.pay.dt);  // computed, not packed, as in mc_tpu
+  return l;
+}
+
+// sigma(w, step j): v0[j] plus the K-1 ramps m_k * min(max(w - x_k, 0),
+// dx_k), added in k order, floored at 1e-4.
+__device__ __forceinline__ float lv_sigma_at(const LocalVolParams& l, float w, int j) {
+  const int km1 = l.n_knots - 1;
+  const float* x = l.v + kLvHead;
+  const float* dx = x + l.n_knots;
+  const float* v0 = dx + km1;
+  const float* m = v0 + l.n_steps + static_cast<size_t>(j) * km1;
+  float s = v0[j];
+  for (int k = 0; k < km1; ++k) s = s + m[k] * fminf(fmaxf(w - x[k], 0.0f), dx[k]);
+  return fmaxf(s, 1e-4f);
+}
+
+// One log-Euler step on surface row j: w = (w + (base_drift -
+// ((0.5*sg)*sg)*dt)) + (sg*sdt)*z, S = s0*exp(w), the payoff state updated.
+template <class Payoff>
+__device__ __forceinline__ void lv_step(const LocalVolParams& l, int j, float z, float& w,
+                                        float& s, typename Payoff::State& st) {
+  const float sg = lv_sigma_at(l, w, j);
+  w = (w + (l.base_drift - ((0.5f * sg) * sg) * l.pay.dt)) + (sg * l.sdt) * z;
+  s = l.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, l.pay);
+}
+
+// Local vol for the family NMC engine (mc_tpu/nmc_localvol.py:52-167):
+// grid S, extras i[0] = K.  The outer step j draws pair (id, j/2) at even j,
+// parks the odd step's normal in the carry and carries S, so the outer
+// payoff reads the spot the step stored.  The inner leg at row j resumes
+// from w0 = log(S_t / s0), recomputes S = s0*exp(w) at every substep and
+// pays on it; its substep 2q takes surface row j+1+2q (j+1 = n_steps -
+// remaining), pair q of counter c_base + q, the odd one taken only while
+// 2q+1 < remaining (block-uniform).
+struct LocalVolFamily {
+  using Params = LocalVolParams;
+  static constexpr int kGrids = 1;
+
+  template <class Payoff>
+  struct Carry {
+    float w, s;
+    typename Payoff::State st;
+    float z_next;
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
+                                int n_steps) {
+    return load_localvol(params, ex.i[0], n_steps);
+  }
+  __device__ static const mc::Params& payoff_params(const Params& l) { return l.pay; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& l) {
+    return Carry<Payoff>{0.0f, l.pay.s0, Payoff::init(l.pay), 0.0f};
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& l, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& o) {
+    float z;
+    if ((j & 1) == 0) {
+      normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j >> 1), z, o.z_next);
+    } else {
+      z = o.z_next;
+    }
+    lv_step<Payoff>(l, j, z, o.w, o.s, o.st);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {
+    g[0] = o.s;
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& l, const Carry<Payoff>& o) {
+    return Payoff::terminal(o.st, o.s, l.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& l, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    float w = logf(g[0] / l.pay.s0);  // the absolute log-moneyness at the point
+    float s = l.pay.s0 * expf(w);
+    const int row = l.n_steps - remaining;  // j + 1
+    for (int q = 0; 2 * q < remaining; ++q) {
+      float z0, z1;
+      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(q), z0, z1);
+      lv_step<Payoff>(l, row + 2 * q, z0, w, s, st);
+      if (2 * q + 1 < remaining) lv_step<Payoff>(l, row + 2 * q + 1, z1, w, s, st);
+    }
+    return Payoff::terminal(st, s, l.pay);
+  }
+  __device__ static float point_scale(const Params& l, const float (&)[kGrids]) {
+    return expf(-l.pay.r * l.pay.t);  // the full e^{-rT}
+  }
+  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+    return static_cast<uint32_t>(n_steps + 1) / 2u;  // one pair per two substeps
+  }
+};
+
+}  // namespace mc

@@ -143,7 +143,8 @@ struct MertonFamily {
     MertonHalf next;
   };
 
-  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex) {
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
+                                int) {
     return Params{load_merton(params), ex.i[0]};
   }
   __device__ static const mc::Params& payoff_params(const Params& p) { return p.m.pay; }

@@ -4,6 +4,8 @@
 and Andersen QE, with its (S, v, state) trajectories.  ``merton``: Merton
 jump-diffusion, the exact terminal draw and the Euler loop, with its (S,
 state) trajectories.  ``bates``: Bates SVJ, Heston's schemes with Merton's
-jump.  The other families of ``mc_tpu/models/`` are still to port
+jump.  ``cev``: CEV local vol, level-space Euler with an absorbing zero.
+``localvol``: a sigma(S, t) knot surface, log-Euler, with its (S, state)
+trajectories.  The other families of ``mc_tpu/models/`` are still to port
 (ROADMAP.md queue B, item 13).
 """

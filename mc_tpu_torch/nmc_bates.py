@@ -64,7 +64,7 @@ class BatesNMC(NMCFamily):
     def unpack(self, params):
         return unpack_bates(params)
 
-    def check_params(self, params):
+    def check_params(self, params, n_steps):
         check_bates_params(params)
 
     def outer_init(self, payoff, p, like):

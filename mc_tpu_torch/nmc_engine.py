@@ -5,8 +5,8 @@ A family supplies its physics through `NMCFamily` (parameter packing, its
 integer ``extras``, the trajectories that store its outer state grids, the
 plain inner leg and its discounting); the engine owns the rest: the entry
 guards, the keys, the f32 Kahan inner sum and the two strategies.  Heston,
-Merton and Bates are registered; the other families of ``mc_tpu`` are still
-to port (ROADMAP.md queue B, item 14).
+Merton, Bates, CEV and local vol are registered; the other families of
+``mc_tpu`` are still to port (ROADMAP.md queue B, item 14).
 
 Three kernel templates over a device-side family struct (``csrc/family.cuh``;
 each family's instantiations compiled in its own source, the entry points
@@ -18,7 +18,7 @@ in ``csrc/family_nmc_kernels.cu``):
 * ``family_fused`` (replaces ``family_fused_kernel``,
   ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself;
 * ``family_trajectories``: stores the outer grids of a family without a
-  trajectories kernel of its own (Bates; the port's counterpart of
+  trajectories kernel of its own (Bates and CEV; the port's counterpart of
   ``mc_tpu``'s XLA scan ``xla_family_trajectories``), stepping the family's
   outer step, the fused kernel's, so the grid and fused strategies agree.
 
@@ -71,8 +71,9 @@ class NMCFamily:
     """Per-family physics consumed by the engine.  A family overrides the
     class attributes and the methods below; ``cuda_id`` names its struct in
     ``csrc/family.cuh`` (FamilyId).  ``extras`` are the family's integer
-    specializations of one call (Merton's and Bates's Poisson scan depth),
-    passed to the kernels by value (at most four)."""
+    specializations of one call (Merton's and Bates's Poisson scan depth,
+    local vol's knot count), passed to the kernels by value (at most
+    four)."""
 
     name = "?"
     tag = 0            # rng.derive_key stream tag (that of price_<model>)
@@ -93,7 +94,9 @@ class NMCFamily:
     def unpack(self, params: torch.Tensor):
         raise NotImplementedError
 
-    def check_params(self, params: torch.Tensor) -> None:
+    def check_params(self, params: torch.Tensor, n_steps: int) -> None:
+        """Refuse a parameter tensor the kernels of an ``n_steps`` run
+        cannot read."""
         raise NotImplementedError
 
     def counter_stride(self, n_steps: int) -> int:
@@ -287,8 +290,9 @@ def family_fused_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
 # ---------------------------------------------------------------------------
 
 
-def _check(fam: NMCFamily, payoff: PathPayoff, params: torch.Tensor) -> None:
-    fam.check_params(params)
+def _check(fam: NMCFamily, payoff: PathPayoff, params: torch.Tensor,
+           cfg: FamilyConfig) -> None:
+    fam.check_params(params, cfg.n_steps)
     if payoff.n_state > 1:
         raise ValueError("NMC supports payoffs with at most one state array")
 
@@ -310,7 +314,7 @@ def family_inner(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
     market grids and the payoff's state grid, each ``(n_steps, n_paths)``
     f32 on the params' device, as ``fam.trajectories`` returns them): the
     surface ``(n_steps, n_paths)`` f32."""
-    _check(fam, payoff, params)
+    _check(fam, payoff, params, cfg)
     grids = tuple(grids)
     if len(grids) != fam.n_grids:
         raise ValueError(f"{fam.name} has {fam.n_grids} market grids; got "
@@ -343,7 +347,7 @@ def family_fused(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
                  path_offset: int = 0, n_valid=None):
     """Fused family NMC: ``(surface (n_steps, n_paths) f32, outer (rows, 2)
     f64)``, no outer grids kept anywhere."""
-    _check(fam, payoff, params)
+    _check(fam, payoff, params, cfg)
     if params.device.type == "cpu":
         return family_fused_plain(fam, payoff, cfg, key_outer, key_inner,
                                   params, path_offset, n_valid)
@@ -399,7 +403,7 @@ def family_trajectories(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
     trajectories kernel: ``(*market_grids, state_grid, partials)``, the
     grids ``(n_steps, n_paths)`` f32 step-major, the partials ``(rows, 2)``
     f64 [sum pay, sum pay^2]."""
-    _check(fam, payoff, params)
+    _check(fam, payoff, params, cfg)
     if params.device.type == "cpu":
         return family_trajectories_plain(fam, payoff, cfg, key, params,
                                          path_offset, n_valid)
@@ -490,7 +494,9 @@ NMC_FAMILY_BUILDERS: Dict[str, Callable[..., Any]] = {}
 # name -> the module that registers it.
 FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston",
                   "merton": "mc_tpu_torch.nmc_merton",
-                  "bates": "mc_tpu_torch.nmc_bates"}
+                  "bates": "mc_tpu_torch.nmc_bates",
+                  "cev": "mc_tpu_torch.nmc_cev",
+                  "localvol": "mc_tpu_torch.nmc_localvol"}
 
 
 def register_nmc_family(name: str, price_fn, builder=None) -> None:

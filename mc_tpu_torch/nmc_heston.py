@@ -52,7 +52,7 @@ class HestonNMC(NMCFamily):
     def unpack(self, params):
         return unpack_heston(params)
 
-    def check_params(self, params):
+    def check_params(self, params, n_steps):
         check_heston_params(params)
 
     @staticmethod

@@ -66,7 +66,7 @@ class MertonNMC(NMCFamily):
     def unpack(self, params):
         return unpack_merton(params)
 
-    def check_params(self, params):
+    def check_params(self, params, n_steps):
         check_merton_params(params)
 
     def _cfg(self, cfg):

@@ -49,7 +49,8 @@ KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "nmc_inner", "ladder", "book", "greek_partials", "tile_partials",
            "sum_sumsq", "heston_partials", "heston_trajectories",
            "family_inner", "family_fused", "merton_partials",
-           "merton_trajectories", "bates_partials", "family_trajectories")
+           "merton_trajectories", "bates_partials", "family_trajectories",
+           "cev_partials", "localvol_partials", "localvol_trajectories")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -59,7 +60,8 @@ _c_ptr_array = ctypes.POINTER(ctypes.c_void_p)
 
 class FamilyExtras(ctypes.Structure):
     """A family's integer extras, passed by value (``csrc/family.cuh``
-    FamilyExtras): Merton's and Bates's i[0] is the Poisson scan depth."""
+    FamilyExtras): Merton's and Bates's i[0] is the Poisson scan depth,
+    local vol's the knot count."""
 
     _fields_ = [("i", ctypes.c_int * 4)]
 
@@ -82,6 +84,8 @@ _SIGNATURES = {
     "mc_family_block_threads": ([], _c_int),
     "mc_merton_block_threads": ([], _c_int),
     "mc_bates_block_threads": ([], _c_int),
+    "mc_cev_block_threads": ([], _c_int),
+    "mc_localvol_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -165,6 +169,16 @@ _SIGNATURES = {
     "mc_bates_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
                            _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
                            _c_ptr, _c_int, _c_ptr], _c_int),
+    # payoff_id, antithetic, k0, k1, params, n_steps, n_paths, path_offset,
+    # bound, partials, n_blocks, stream
+    "mc_cev_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                         _c_u32, _c_u32, _c_u32, _c_ptr, _c_int, _c_ptr],
+                        _c_int),
+    # payoff_id, rounds, antithetic, k0, k1, params, n_knots, n_steps,
+    # n_paths, path_offset, bound, partials, n_blocks, stream
+    "mc_localvol_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                              _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
+                              _c_int, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()

@@ -331,3 +331,91 @@ def test_jump_entry_points_default_to_cuda():
                     (mt.price_nmc_bates, mt.DEMO_BATES)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(mt.DEMO_OPTION, dyn, sim)
+
+
+def test_cev_subcommand_prints_mc_tpus_keys(capsys):
+    from mc_tpu_torch import cli
+
+    assert cli.main(["cev", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "20", "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["beta", "ncx2_oracle", "payoff", "price", "stderr"]
+    assert abs(res["price"] - res["ncx2_oracle"]) <= (
+        4 * res["stderr"] + 0.005 * res["ncx2_oracle"])  # test_cev.py's gate
+    assert cli.main(["cev", "--device", "cpu", "--n-paths", "4096",
+                     "--n-steps", "8", "--beta", "1.0"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "ncx2_oracle" not in res and res["beta"] == 1.0  # GBM: no form
+
+
+def test_localvol_subcommand_prints_mc_tpus_keys(capsys):
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    assert cli.main(["localvol", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "20", "--beta", "0.7",
+                     "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["cev_oracle", "payoff", "price", "stderr",
+                           "z_score"]
+    assert abs(res["z_score"]) < 4.0
+    assert res["cev_oracle"] == pytest.approx(mt.cev_call_closed_form(
+        100.0, 100.0, 1.0, 0.1, 0.2 * 100.0 ** 0.3, 0.7), rel=1e-12)
+    argv = ["localvol", "--device", "cpu", "--n-paths", "4096", "--n-steps",
+            "8", "--smile-curv", "0.3", "--term-slope", "0.1", "--n-knots",
+            "5"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["payoff", "price", "stderr"]
+    surf = mt.LocalVolSurface.from_function(
+        lambda x, t: 0.2 + 0.3 * x * x + 0.1 * t, 8, n_knots=5)
+    want = mt.price_localvol(mt.OptionParams(), surf,
+                             mt.SimParams(n_paths=4096, n_steps=8),
+                             device="cpu")
+    assert res["price"] == float(want.price)
+
+
+@pytest.mark.parametrize("model", ["cev", "localvol"])
+def test_nmc_model_cev_localvol_is_its_price_nmc(model, capsys):
+    """nmc --model cev builds CEVDynamics.from_atm_vol(--sigma-atm, --beta,
+    --s0); --model localvol mc_tpu's nmc surface sigma + curv*x^2 (no term
+    slope); each prices through price_nmc_<model>, bit for bit."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", model, "--strategy", "grid", "--exposure",
+            "--cva-hazard", "0.02", "--payoff", "vanilla_call", "--device",
+            "cpu", "--n-paths", "256", "--n-steps", "6", "--n-inner", "8",
+            "--sigma-atm", "0.3", "--beta", "0.6", "--smile-curv", "0.4"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    sim = mt.SimParams(n_paths=256, n_steps=6, n_paths_inner=8)
+    if model == "cev":
+        want = mt.price_nmc_cev(
+            mt.OptionParams(), mt.CEVDynamics.from_atm_vol(0.3, 0.6), sim,
+            strategy="grid", device="cpu")
+    else:
+        surf = mt.LocalVolSurface.from_function(
+            lambda x, t: 0.2 + 0.4 * x * x, 6)
+        want = mt.price_nmc_localvol(mt.OptionParams(), surf, sim,
+                                     strategy="grid", device="cpu")
+    assert res["outer_price"] == float(want.outer.price)
+    assert res["surface_mean"] == float(want.surface_mean)
+    assert len(res["expected_exposure"]) == 6 and res["cva"] > 0
+    assert cli.main(argv[:-6]) == 0  # the default flags: another surface
+    other = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert other["surface_mean"] != res["surface_mean"]
+
+
+def test_cev_localvol_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    surf = mt.LocalVolSurface.demo(4)
+    for fn, dyn in ((mt.price_cev, mt.DEMO_CEV),
+                    (mt.price_nmc_cev, mt.DEMO_CEV),
+                    (mt.price_localvol, surf),
+                    (mt.price_nmc_localvol, surf)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, dyn, sim)
