@@ -26,9 +26,12 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    the local-vol kernel (18 payoffs, antithetic, threefry-20, the K = 25
    CEV-gate surface, 1M x 100), the local-vol trajectories and the generic
    trajectories under CEV (every one-word payoff) and the CEV and local-vol
-   family NMC kernels; their sums to f64 rounding and their grids and
-   surfaces bit for bit (every NMC at the main shape against the plain rows
-   0 and 99);
+   family NMC kernels; the SABR kernel (16 payoffs, threefry-13 and -20,
+   antithetic, 1M x 100), the term-structure and cash-dividend kernels (18
+   payoffs each, on steep curves and two payments, antithetic, 1M x 100),
+   the generic trajectories under SABR and term and their family NMC
+   kernels; their sums to f64 rounding and their grids and surfaces bit for
+   bit (every NMC against the plain rows 0 and 99 at the main shape);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -58,21 +61,32 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    on the CEV-shaped surface against the CEV price, every payoff at
    100,000 x 100, the 16,384 x 100 x 500 NMC by both strategies (grid ==
    fused, the outer price, the flat EE profile), its XVA figures and the
-   ``cev``, ``localvol --beta 0.7`` and ``nmc --model`` commands;
-4. the kernels' launch counts over each of the six paths;
+   ``cev``, ``localvol --beta 0.7`` and ``nmc --model`` commands; then,
+   the counts set to 0 before each, the SABR, term and dividend paths:
+   price_sabr at 1M x 100 against Black-Scholes at nu -> 0 and Hagan's
+   price, price_term on the demo curves against Black-Scholes at the
+   averaged parameters, price_divs with one payment against the
+   quadrature price and with two against put-call parity on the scheme's
+   forward, every payoff at 100,000 x 100, the SABR and term NMC at 16,384
+   x 100 x 500 by both strategies with their XVA figures, and the
+   ``sabr``, ``term``, ``divs`` and ``nmc --model`` commands;
+4. the kernels' launch counts over each of the nine paths;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
-   after a warm-up; 3 for the NMC kernels and calls, warm from phases 2
-   and 3; the plain versions that take over 0.1 s, once), the ladder and the book beside the single-contract
+   after a warm-up; 3 for this slice's NMC kernels and calls and 1 for the
+   earlier ones', warm from phases 2 and 3; the plain versions once), the
+   ladder and the book beside the single-contract
    launches they replace, the simulate kernel per payoff with its
    registers, the greek kernel beside the simulate kernel on its shape,
    the reductions beside ``torch.sum``, the Heston kernels beside the GBM
    kernels of the same shapes, the Merton and Bates kernels beside the
    Heston kernels of their shapes, the CEV and local-vol kernels beside
-   the Heston and Merton kernels of their shapes, and end-to-end times of
-   the phase-3 calls (greeks() by route, chunked_price(), price_heston(),
-   price_nmc_heston(), price_merton(), price_bates(), price_nmc_merton(),
-   price_nmc_bates(), price_cev(), price_localvol(), price_nmc_cev(),
-   price_nmc_localvol());
+   the Heston and Merton kernels of their shapes, the SABR kernels beside
+   Heston's and the term and dividend kernels beside CEV's, and end-to-end
+   times of the phase-3 calls (greeks() by route, chunked_price(),
+   price_heston(), price_nmc_heston(), price_merton(), price_bates(),
+   price_nmc_merton(), price_nmc_bates(), price_cev(), price_localvol(),
+   price_nmc_cev(), price_nmc_localvol(), price_sabr(), price_term(),
+   price_divs(), price_nmc_sabr(), price_nmc_term());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -89,6 +103,7 @@ import statistics
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -104,6 +119,7 @@ TRAJ_PATHS = (65_536, BULLET_PATHS)
 RESUME_STEPS = (50, 51)             # even and odd resume points
 IS_STRIKE = 180.0                   # deep out of the money: IS pays off
 NMC_MAIN = (16384, 100, 500)        # README quickstart: 4.1e10 inner steps
+NMC_ROWS = (0, 99)                   # phase 2: the plain rows at NMC_MAIN
 PAYOFF_PATHS = 16_384                # phase 2: every payoff, 100 steps
 LADDER_STRIKES = (60.0, 140.0, 17)   # linspace: the CLI's vol-surface row
 LADDER_PATHS = 1_000_000
@@ -120,21 +136,19 @@ PAY_ARRAY = 1 << 20                  # phase 3: the call's payoff array
 NORMALS = 1 << 26                    # phase 3: normals through sum_sumsq
 REPS = 5
 DEVICE = "cuda"
-# The Heston slice (bench.py's Heston rows are 1M x 100).
-HESTON_PATHS = 16_384                # phase 2: every payoff, 100 steps
-HESTON_MAIN = 1_000_000              # price_heston at 1M x 100
-HESTON_PAYOFF_MAIN = 100_000         # phase 3: every payoff; #13's shape
-HESTON_NMC_ROWS = (0, 99)            # phase 2: the plain rows at NMC_MAIN
+# The model families (bench.py's Heston rows are 1M x 100, and every family
+# since has taken that size; the README's NMC).
+FAMILY_PATHS = 16_384                # phase 2: every payoff, 100 steps
+FAMILY_MAIN = 1_000_000              # price_<family> at 1M (x 100)
+PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
+HESTON_PAYOFF_MAIN = PAYOFF_MAIN     # #13's shape
+NMC_REPS = 3                         # phase 5: NMC calls take 0.1-0.6 s
+# Phase 5: one rep for the earlier slices' NMC kernels and calls (GBM,
+# Heston, Merton, Bates, CEV, local vol: steady within 0.5% from run to run,
+# PERF.md section 2).
+EARLIER_NMC_REPS = 1
 HESTON_KERNELS = ("heston_partials", "heston_trajectories", "family_inner",
                   "family_fused")
-# The jump slice (Merton and Bates at bench.py's Heston size, and the
-# README's NMC).
-JUMP_PATHS = 16_384                  # phase 2: every payoff, 100 steps
-JUMP_MAIN = 1_000_000                # price_merton / price_bates at 1M (x 100)
-PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
-JUMP_NMC_ROWS = (0, 99)              # phase 2: the plain rows at NMC_MAIN
-GBM_NMC_ROWS = JUMP_NMC_ROWS         # phase 2: the GBM plain rows at NMC_MAIN
-NMC_REPS = 3                         # phase 5: NMC calls take 0.1-0.6 s
 MERTON_KERNELS = ("merton_partials", "merton_trajectories", "family_inner",
                   "family_fused")
 BATES_KERNELS = ("bates_partials", "family_trajectories", "family_inner",
@@ -144,18 +158,18 @@ BATES_KERNELS = ("bates_partials", "family_trajectories", "family_inner",
 JUMP_ROWS = ("merton_partials", "merton_trajectories", "bates_partials",
              "family_trajectories", "family_inner_merton",
              "family_fused_merton", "family_inner_bates", "family_fused_bates")
-# The CEV and local-vol slice (at the same sizes; local vol on its demo
-# surface, K = 9, and the CEV-gate surface, K = 25).
-LV_PATHS = 65_536                    # phase 2: every payoff, 100 steps
-LV_MAIN = 1_000_000                  # price_cev / price_localvol at 1M x 100
-LV_NMC_ROWS = (0, 99)                # phase 2: the plain rows at NMC_MAIN
+# The single-asset families (single_families; local vol on its demo surface,
+# K = 9, and the CEV-gate surface, K = 25; in phase 2 term on steep curves,
+# dividends on a two-payment schedule).
 CEV_KERNELS = ("cev_partials", "family_trajectories", "family_inner",
                "family_fused")
 LOCALVOL_KERNELS = ("localvol_partials", "localvol_trajectories",
                     "family_inner", "family_fused")
-LV_ROWS = ("cev_partials", "localvol_partials", "localvol_trajectories",
-           "family_trajectories_cev", "family_inner_cev", "family_fused_cev",
-           "family_inner_localvol", "family_fused_localvol")
+SABR_KERNELS = ("sabr_partials", "family_trajectories", "family_inner",
+                "family_fused")
+TERM_KERNELS = ("term_partials", "family_trajectories", "family_inner",
+                "family_fused")
+DIVS_KERNELS = ("divs_partials",)
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -323,13 +337,13 @@ def e2e_seconds(fn, reps: int = REPS, warm: bool = True):
     return sorted(secs)
 
 
-def e2e_report(rows, tag: str) -> None:
+def e2e_report(rows, tag: str, nmc_reps: int = NMC_REPS) -> None:
     """Phase 5: each (label, unit, work, fn) end to end on the host clock
-    (e2e_seconds: REPS; NMC_REPS and no warm-up call for an NMC call, warm
+    (e2e_seconds: REPS; nmc_reps and no warm-up call for an NMC call, warm
     from phases 2 and 3), its median and its rate."""
     for label, unit, work, fn in rows:
         nmc = unit == "inner path-steps/s"
-        reps = NMC_REPS if nmc else REPS
+        reps = nmc_reps if nmc else REPS
         secs = e2e_seconds(fn, reps, warm=not nmc)
         med = statistics.median(secs)
         print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
@@ -337,13 +351,13 @@ def e2e_report(rows, tag: str) -> None:
               f"{work / med:.4e} {unit} {tag}")
 
 
-def partials_times(rows, n_paths: int, time_pair, heston_ms, regs, tag):
+def partials_times(rows, n_paths: int, time_pair, regs, tag):
     """Phase 5: each (row, label, kernel fn, plain fn or None, registers
-    key) at n_paths x MAIN_STEPS beside its plain version where given, and
-    beside Heston's partials kernel of the label's scheme (``heston_ms``:
-    "heston_partials" for Euler, "qe").  Returns {row: (ms, plain ms)}."""
+    key, (ref label, ref ms)) at n_paths x MAIN_STEPS beside its plain
+    version where given, and beside the reference, a kernel of the same
+    shape.  Returns {row: (ms, plain ms)}."""
     out = {}
-    for row, label, fn, plain, regs_key in rows:
+    for row, label, fn, plain, regs_key, (ref_label, ref_ms) in rows:
         if plain is None:
             k_ms, sp, _ = cuda_ms(fn)
             print(f"phase 5: {label} {n_paths}x{MAIN_STEPS}: kernel "
@@ -351,28 +365,28 @@ def partials_times(rows, n_paths: int, time_pair, heston_ms, regs, tag):
         else:
             out[row] = time_pair(label, fn, plain, f"{n_paths}x{MAIN_STEPS}")
             k_ms = out[row][0]
-        scheme = "qe" if label.endswith("qe") else "euler"
-        heston = heston_ms["qe" if scheme == "qe" else "heston_partials"]
         print(f"phase 5: {label}: {n_paths * MAIN_STEPS / k_ms * 1e3:.4e} "
-              f"path-steps/s; {k_ms / heston:.2f}x heston_partials call "
-              f"{scheme} on the same shape ({heston:.4f} ms); registers "
-              f"{regs.get(regs_key)} {tag}")
+              f"path-steps/s; {k_ms / ref_ms:.2f}x {ref_label} on the same "
+              f"shape ({ref_ms:.4f} ms); registers {regs.get(regs_key)} "
+              f"{tag}")
     return out
 
 
-def family_nmc_times(families, call, time_pair, heston_ms, regs, tag):
+def family_nmc_times(families, call, time_pair, regs, tag):
     """Phase 5: per (family, NMCFamily, params, (key, key_in), trajectories
-    row, device struct), its outer trajectories at NMC_MAIN's outer shape
+    row, device struct, reps, (ref label, {"family_fused": ms,
+    "family_inner": ms})), its outer trajectories at NMC_MAIN's outer shape
     beside their plain version, and its fused and inner kernels at NMC_MAIN
-    (CUDA events, warm from phases 2 and 3) beside the Heston kernels
-    (``heston_ms``).  Returns {row: (ms, plain ms or None)}."""
+    (CUDA events, ``reps`` reps, warm from phases 2 and 3) beside the
+    reference family's kernels.  Returns {row: (ms, plain ms or None)}."""
     from mc_tpu_torch import nmc_engine as ne
 
     n_out, n_steps, n_inner = NMC_MAIN
     cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
     out = {}
-    for family, fam, prm, (key, key_in), traj_row, struct in families:
+    for (family, fam, prm, (key, key_in), traj_row, struct, reps,
+         (ref_label, ref_ms)) in families:
         out[traj_row] = time_pair(
             f"{traj_row} {family} call",
             lambda fam=fam, prm=prm, key=key: fam.trajectories(call, cfg, key,
@@ -395,13 +409,13 @@ def family_nmc_times(families, call, time_pair, heston_ms, regs, tag):
                 ("family_inner", lambda fam=fam, prm=prm, key_in=key_in,
                  grids=grids, st=st: ne.family_inner(fam, call, cfg, key_in,
                                                      prm, grids, st))):
-            ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
+            ms, sp, _ = cuda_ms(fn, reps=reps, warm=False)
             out[f"{name}_{family}"] = (ms, None)
             print(f"phase 5: {name} {family} call {n_out}x{n_steps}x{n_inner}"
                   f": kernel {ms:.3f} ms (spread {sp:.1%}), "
                   f"{inner_steps / ms * 1e3:.4e} inner path-steps/s = "
-                  f"{ms / heston_ms[name]:.2f}x the Heston kernel "
-                  f"({heston_ms[name]:.3f} ms); registers "
+                  f"{ms / ref_ms[name]:.2f}x the {ref_label} kernel "
+                  f"({ref_ms[name]:.3f} ms); registers "
                   f"{regs.get((f'{name}_kernel<{struct}>', 'VanillaCall', None))}"
                   f" {tag}")
     return out
@@ -575,14 +589,14 @@ def heston_kernel_checks(mt, dev, keys):
 
     for name in sorted(PAYOFFS):
         if name not in hm.SIGMA_PAYOFFS:
-            partials_case(name, HESTON_PATHS)
+            partials_case(name, FAMILY_PATHS)
     for name in ("vanilla_call", "asian_call", "bullet_call"):
         for kw in (dict(scheme="qe"), dict(rng_source="threefry"),
                    dict(antithetic=True),
                    dict(scheme="qe", rng_source="threefry", antithetic=True)):
-            partials_case(name, HESTON_PATHS, **kw)
+            partials_case(name, FAMILY_PATHS, **kw)
     for scheme in ("euler", "qe"):  # the main shape: a partly filled block
-        partials_case("vanilla_call", HESTON_MAIN, scheme=scheme)
+        partials_case("vanilla_call", FAMILY_MAIN, scheme=scheme)
 
     def traj_case(name, n_paths):
         po, opt = get_payoff(name), payoff_option(mt, name)
@@ -599,7 +613,7 @@ def heston_kernel_checks(mt, dev, keys):
 
     for name, po in sorted(PAYOFFS.items()):
         if po.n_state <= 1:
-            traj_case(name, HESTON_PATHS)
+            traj_case(name, FAMILY_PATHS)
     traj_case("bullet_call", HESTON_PAYOFF_MAIN)
 
     fam = HestonNMC()
@@ -613,8 +627,7 @@ def heston_kernel_checks(mt, dev, keys):
         family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys, name,
                         NMC_SMALL, family_note)
     rows_ms = family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
-                              "vanilla_call", NMC_MAIN, family_note,
-                              HESTON_NMC_ROWS)
+                              "vanilla_call", NMC_MAIN, family_note, NMC_ROWS)
     return err, rows_ms
 
 
@@ -651,18 +664,18 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
     dyn = mt.DEMO_HESTON
     prm = hm.pack_heston(mt.DEMO_OPTION, dyn, MAIN_STEPS, dev)
     out = {}
-    gbm_cfg = pk.KernelConfig(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
+    gbm_cfg = pk.KernelConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
     gbm_sim, sp, _ = cuda_ms(lambda: pk.simulate_partials(
         call, gbm_cfg, key, pk.pack_params(mt.DEMO_OPTION, MAIN_STEPS, dev)))
-    steps = HESTON_MAIN * MAIN_STEPS
+    steps = FAMILY_MAIN * MAIN_STEPS
     for scheme in ("euler", "qe"):
-        cfg = hm.HestonConfig(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS,
+        cfg = hm.HestonConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
                               scheme=scheme)
         k_ms, p_ms = time_pair(
             f"heston_partials call {scheme}",
             lambda cfg=cfg: hm.heston_partials(call, cfg, key, prm),
             lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
-            f"{HESTON_MAIN}x{MAIN_STEPS}")
+            f"{FAMILY_MAIN}x{MAIN_STEPS}")
         kernel = "heston_qe_kernel" if scheme == "qe" else "heston_euler_kernel"
         print(f"phase 5: heston_partials call {scheme}: {steps / k_ms * 1e3:.4e}"
               f" path-steps/s; {k_ms / gbm_sim:.2f}x the GBM simulate_partials"
@@ -702,7 +715,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
             ("family_fused", lambda: ne.family_fused(fam, call, cfg, key,
                                                      key_in, prm))):
         # in turns: fused, inner, inner, fused (warm from phases 2 and 3)
-        ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
+        ms, sp, _ = cuda_ms(fn, reps=EARLIER_NMC_REPS, warm=False)
         times.setdefault(name, []).append(ms)
         print(f"phase 5: {name} heston call {n_out}x{n_steps}x{n_inner}: "
               f"kernel {ms:.3f} ms (spread {sp:.1%}), "
@@ -716,13 +729,13 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
               f"registers {regs.get((name + '_kernel<HestonFamily>', 'VanillaCall', None))}"
               f" {tag}")
 
-    osim = mt.SimParams(n_paths=HESTON_MAIN, n_steps=MAIN_STEPS)
+    osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
     e2e_report((
-            (f"price_heston() euler {HESTON_MAIN}x{MAIN_STEPS}",
+            (f"price_heston() euler {FAMILY_MAIN}x{MAIN_STEPS}",
              "path-steps/s", steps,
              lambda: mt.price_heston(sim=osim, device=DEVICE)),
-            (f"price_heston() qe {HESTON_MAIN}x{MAIN_STEPS}", "path-steps/s",
+            (f"price_heston() qe {FAMILY_MAIN}x{MAIN_STEPS}", "path-steps/s",
              steps, lambda: mt.price_heston(sim=osim, scheme="qe",
                                             device=DEVICE)),
             (f"price_nmc_heston() fused {n_out}x{n_steps}x{n_inner}",
@@ -732,7 +745,8 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
             (f"price_nmc_heston() grid {n_out}x{n_steps}x{n_inner}",
              "inner path-steps/s", inner_steps,
              lambda: mt.price_nmc_heston(sim=nsim, strategy="grid",
-                                         device=DEVICE))), tag)
+                                         device=DEVICE))), tag,
+        EARLIER_NMC_REPS)
     return out
 
 
@@ -750,7 +764,7 @@ def heston_bounds():
     outer = _scale(euler_path, n_out)
     surface = 4 * n_out * n_steps
     return {
-        "heston_partials": bound(68, _scale(euler_path, HESTON_MAIN)),
+        "heston_partials": bound(68, _scale(euler_path, FAMILY_MAIN)),
         "heston_trajectories": bound(
             3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS,
             _scale(euler_path, HESTON_PAYOFF_MAIN)),
@@ -790,14 +804,6 @@ def merton_path(n_steps: int, rounds: int, kmax: int):
     pair = _add(_scale(pair_ops(rounds), 2), unit_ops(rounds, 2),
                 _scale(_add(MERTON_STEP_OPS, scan_ops(kmax)), 2))
     return _add(_scale(pair, n_steps // 2), TERMINAL_OPS)
-
-
-def merton_terminal_path(rounds: int, kmax: int):
-    """The exact terminal draw: a normal pair, a uniform, the scan at
-    lam*T, S_T = s0*expf((drift_t + vol_t*z) + jump) (8 and a sqrtf and an
-    expf), its payoff."""
-    return _add(pair_ops(rounds), unit_ops(rounds, 1), scan_ops(kmax),
-                (0, 8, 2), TERMINAL_OPS)
 
 
 def merton_substep(kmax: int):
@@ -844,10 +850,10 @@ def jump_bounds():
     m_path = merton_path(MAIN_STEPS, 13, k_dt)
     b_path = _add(_scale(bates_step(13, k_dt), MAIN_STEPS), TERMINAL_OPS)
     return {
-        "merton_partials": bound(76, _scale(m_path, JUMP_MAIN)),
+        "merton_partials": bound(76, _scale(m_path, FAMILY_MAIN)),
         "merton_trajectories": bound(2 * 4 * n_out * n_steps,
                                      _scale(m_path, n_out)),
-        "bates_partials": bound(80, _scale(b_path, JUMP_MAIN)),
+        "bates_partials": bound(80, _scale(b_path, FAMILY_MAIN)),
         "family_trajectories": bound(3 * 4 * n_out * n_steps,
                                      _scale(b_path, n_out)),
         **family_bounds("merton", merton_substep(k_dt), m_path, 1),
@@ -892,10 +898,10 @@ def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
     note(row, price_err(got, want, n_paths, opt))
 
 
-def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys, traj_row,
-                      rows):
+def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
+                      traj_row):
     """Phase 2: a family's #29/#30 at NMC_SMALL (bullet, Asian, vanilla) and
-    at NMC_MAIN against the plain ``rows``; returns the rows' plain ms."""
+    at NMC_MAIN against the plain NMC_ROWS; returns the rows' plain ms."""
     kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
              "inner": f"family_inner_{family}"}
 
@@ -906,7 +912,7 @@ def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys, traj_row,
         family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
                         family_note)
     return family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
-                           NMC_MAIN, family_note, rows)
+                           NMC_MAIN, family_note, NMC_ROWS)
 
 
 def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
@@ -914,7 +920,7 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     threefry-13/-20, antithetic; the main shapes 1M x 100 and 1M terminal),
     #15 and the generic trajectories (every one-word payoff), #16 (its 16
     payoffs, Euler and QE; 1M x 100), and both families' #29/#30 at
-    NMC_SMALL and at NMC_MAIN against the plain rows JUMP_NMC_ROWS, each
+    NMC_SMALL and at NMC_MAIN against the plain rows NMC_ROWS, each
     against its plain version on the card.  Returns ({row: max abs error},
     {family: ms of the plain version's rows at NMC_MAIN})."""
     from mc_tpu_torch.models import bates as bm
@@ -950,22 +956,22 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
                        name, opt, cfg.scheme)
 
     for name, po in sorted(PAYOFFS.items()):
-        merton_case(name, JUMP_PATHS)
+        merton_case(name, FAMILY_PATHS)
         if po.terminal_only:  # the main shape of the terminal draw
-            merton_case(name, JUMP_MAIN, "terminal")
+            merton_case(name, FAMILY_MAIN, "terminal")
         if name not in SIGMA_PAYOFFS:
-            bates_case(name, JUMP_PATHS)
+            bates_case(name, FAMILY_PATHS)
     for kw in (dict(rng_source="threefry"), dict(antithetic=True),
                dict(rng_source="threefry", antithetic=True)):
         for method in ("euler", "terminal"):
-            merton_case("vanilla_call", JUMP_PATHS, method, **kw)
+            merton_case("vanilla_call", FAMILY_PATHS, method, **kw)
     for kw in (dict(scheme="qe"), dict(rng_source="threefry"),
                dict(antithetic=True),
                dict(scheme="qe", rng_source="threefry", antithetic=True)):
-        bates_case("vanilla_call", JUMP_PATHS, **kw)
-    merton_case("vanilla_call", JUMP_MAIN)  # the main shape: a partial block
+        bates_case("vanilla_call", FAMILY_PATHS, **kw)
+    merton_case("vanilla_call", FAMILY_MAIN)  # the main shape: a partial block
     for scheme in ("euler", "qe"):
-        bates_case("vanilla_call", JUMP_MAIN, scheme=scheme)
+        bates_case("vanilla_call", FAMILY_MAIN, scheme=scheme)
 
     fams = {"merton": (MertonNMC(extras=(k_dt,)), mm.pack_merton,
                        mm.DEMO_MERTON, merton_keys, "merton_trajectories"),
@@ -975,25 +981,29 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
         if po.n_state <= 1:
             for fam, pack, dyn, (key, _), row in fams.values():
                 traj_check(mt, dev, note, row, fam, pack, dyn, key, name,
-                           JUMP_PATHS)
+                           FAMILY_PATHS)
     rows_ms = {family: family_nmc_checks(mt, dev, note, family, fam, pack,
-                                         dyn, keys, row, JUMP_NMC_ROWS)
+                                         dyn, keys, row)
                for family, (fam, pack, dyn, keys, row) in fams.items()}
     return err, rows_ms
 
 
 def family_main_path(mt, dev, _cuda, family):
-    """Phase 3 of a model family ("heston", "merton", "bates", "cev" or
-    "localvol") at full width: the call at 1M (x 100) against its oracle by
-    each scheme, method or gate surface, with and without the antithetic
-    twin, every payoff at 100,000 x 100 with ordering and parity gates, the
-    NMC at NMC_MAIN by both strategies (grid == fused bitwise, the outer
-    price == the family's price on the outer key up to f64 sums, the last
-    step, the tower property: every column of the surface, the call's EE
-    profile, flat at the time-0 price), its XVA figures and the family's
-    two CLI commands.  The launch counts are set to 0 before it and read
-    after it: {kernel: launches}."""
+    """Phase 3 of a model family ("heston", "merton", "bates", "cev",
+    "localvol", "sabr", "term" or "divs") at full width: the call at 1M (x
+    100) against its oracle by each scheme, method, gate surface or
+    dynamics, with and without the antithetic twin (and, for dividends,
+    two-payment put-call parity against the scheme's forward), every payoff
+    at 100,000 x 100 with ordering and parity gates, the NMC at NMC_MAIN by
+    both strategies (grid == fused bitwise, the outer price == the family's
+    price on the outer key up to f64 sums, the last step, the tower
+    property: every column of the surface, the call's EE profile, flat at
+    the time-0 price), its XVA figures and the family's two CLI commands
+    (dividends have no NMC: its one command).  The launch counts are set to
+    0 before it and read after it: {kernel: launches}."""
+    from mc_tpu_torch.models import dividends as dm
     from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.models import term as tm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.ops.payoffs import PAYOFFS
@@ -1009,13 +1019,13 @@ def family_main_path(mt, dev, _cuda, family):
                                      mt.price_nmc_heston)
             ref = mt.heston_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(),
                                     q=o.q)
-            kernels, n_main = HESTON_KERNELS, HESTON_MAIN
+            kernels = HESTON_KERNELS
         else:
             dyn, price_fn, nmc_fn = (mt.DEMO_BATES, mt.price_bates,
                                      mt.price_nmc_bates)
             ref = mt.bates_call_cf(o.s0, o.k, o.t, o.r, *dyn.astuple(),
                                    q=o.q)
-            kernels, n_main = BATES_KERNELS, JUMP_MAIN
+            kernels = BATES_KERNELS
         # Euler's O(dt) bias (4 se + 0.5%), QE's smaller one
         gates = [(s, dyn, dict(scheme=s), ref, n_se, bias * ref)
                  for s, n_se, bias in (("euler", 4.0, 0.005),
@@ -1028,14 +1038,42 @@ def family_main_path(mt, dev, _cuda, family):
         # exact in law: no discretization bias, 3 stderr
         gates = [(m, dyn, dict(method=m), ref, 3.0, 0.0)
                  for m in ("euler", "terminal")]
-        names, kernels, n_main = sorted(PAYOFFS), MERTON_KERNELS, JUMP_MAIN
+        names, kernels = sorted(PAYOFFS), MERTON_KERNELS
     elif family == "cev":
         dyn, price_fn, nmc_fn = mt.DEMO_CEV, mt.price_cev, mt.price_nmc_cev
         ref = mt.cev_call_closed_form(o.s0, o.k, o.t, o.r, *dyn.astuple(),
                                       q=o.q)
         # level-space Euler's O(dt) bias: tests/test_cev.py's 4 se + 0.5%
         gates = [("euler", dyn, {}, ref, 4.0, 0.005 * ref)]
-        names, kernels, n_main = sv_names, CEV_KERNELS, LV_MAIN
+        names, kernels = sv_names, CEV_KERNELS
+    elif family == "sabr":
+        dyn, price_fn, nmc_fn = mt.DEMO_SABR, mt.price_sabr, mt.price_nmc_sabr
+        hagan = mt.sabr_call_hagan(o.s0, o.k, o.t, o.r, *dyn.astuple(),
+                                   q=o.q)
+        # tests/test_sabr.py: nu -> 0 at beta = 1 is exact lognormal
+        # stepping (4 se); Hagan's expansion carries its ~1% (4 se + 1%)
+        gates = [("nu->0 vs BS", mt.SABRDynamics(0.2, 1.0, 1e-6, 0.0), {},
+                  bs_call(o.s0, o.k, o.t, o.r, 0.2, o.q), 4.0, 0.0),
+                 ("demo vs Hagan", dyn, {}, hagan, 4.0, 0.01 * hagan)]
+        ref = None  # the EE profile is held to the demo's 1M-path price
+        names, kernels = sv_names, SABR_KERNELS
+    elif family == "term":  # the demo curves (nmc --model term's)
+        dyn, price_fn, nmc_fn = (tm.demo_term(MAIN_STEPS), mt.price_term,
+                                 mt.price_nmc_term)
+        rs, sg = (np.asarray(a, np.float64) for a in (dyn.rates, dyn.sigmas))
+        # exact in law at the averaged parameters: 4 se
+        ref = bs_call(o.s0, o.k, o.t, float(rs.mean()),
+                      float(np.sqrt((sg * sg).mean())), o.q)
+        gates = [("curves vs averaged BS", dyn, {}, ref, 4.0, 0.0)]
+        names, kernels = sorted(PAYOFFS), TERM_KERNELS
+    elif family == "divs":
+        dyn, price_fn, nmc_fn = (mt.div_schedule(
+            MAIN_STEPS, [MAIN_STEPS // 2 - 1], [5.0]), mt.price_divs, None)
+        # one payment at tau = 0.5: the quadrature is exact for the scheme
+        ref = mt.bs_call_cash_div(o.s0, o.k, o.t, o.r, o.sigma, 5.0, 0.5,
+                                  q=o.q)
+        gates = [("one payment vs quadrature", dyn, {}, ref, 4.0, 0.0)]
+        names, kernels = sorted(PAYOFFS), DIVS_KERNELS
     else:
         dyn, price_fn, nmc_fn = (lm.LocalVolSurface.demo(MAIN_STEPS),
                                  mt.price_localvol, mt.price_nmc_localvol)
@@ -1049,7 +1087,8 @@ def family_main_path(mt, dev, _cuda, family):
                                               0.2 * o.s0 ** (1.0 - beta),
                                               beta, q=o.q), 3.5, 0.02)]
         ref = None  # the demo surface has no oracle: its 1M-path price
-        names, kernels, n_main = sorted(PAYOFFS), LOCALVOL_KERNELS, LV_MAIN
+        names, kernels = sorted(PAYOFFS), LOCALVOL_KERNELS
+    n_main = FAMILY_MAIN
     sim = mt.SimParams(n_paths=n_main, n_steps=MAIN_STEPS)
     for which, gdyn, kw, gref, n_se, allow in gates:
         se = {}
@@ -1071,9 +1110,28 @@ def family_main_path(mt, dev, _cuda, family):
     if ref is None:
         r = price_fn(option, dyn, sim, antithetic=True, device=DEVICE)
         ref = float(r.price)
-        print(f"phase 3: price_{family} demo surface antithetic "
+        print(f"phase 3: price_{family} demo antithetic "
               f"{n_main}x{MAIN_STEPS}: {ref:.5f} +/- {float(r.stderr):.5f} "
               "(the time-0 price the NMC's EE profile is held to)")
+    r32 = float(np.float32(option.r))
+    if family == "term":  # every price is discounted at the curve average
+        r32 = float(tm.pack_term(option, dyn, MAIN_STEPS, "cpu")[
+            tm.HEAD_FIELDS.index("r")])
+    if family == "divs":  # two payments: C - P = e^{-rT} (E[S_T] - K)
+        two = two_payments(dm, MAIN_STEPS)
+        c, p = (price_fn(option, two, sim, name, device=DEVICE)
+                for name in ("vanilla_call", "vanilla_put"))
+        fwd = mt.cash_div_forward(o.s0, o.t, o.r, o.sigma, two, MAIN_STEPS,
+                                  q=o.q)
+        d_par = abs(float(c.price) - float(p.price)
+                    - math.exp(-o.r * o.t) * (fwd - o.k))
+        joint = math.hypot(float(c.stderr), float(p.stderr))
+        print(f"phase 3: price_divs two payments {n_main}x{MAIN_STEPS}: call "
+              f"{float(c.price):.5f} - put {float(p.price):.5f} vs "
+              f"e^-rT (forward {fwd:.5f} - K): |d| {d_par:.5f} (limit 4 se = "
+              f"{4.0 * joint:.5f})")
+        if not d_par <= 4.0 * joint:
+            fail("price_divs breaks put-call parity on its forward")
 
     psim = mt.SimParams(n_paths=PAYOFF_MAIN, n_steps=MAIN_STEPS)
     pay = {name: price_fn(payoff_option(mt, name), dyn, psim, name,
@@ -1086,7 +1144,7 @@ def family_main_path(mt, dev, _cuda, family):
                               device=DEVICE).price)
     d_inout = abs(float(pay["down_in_call"].price)
                   + float(pay["down_out_call"].price) - van_down)
-    disc = math.exp(-float(np.float32(option.r)) * float(np.float32(option.t)))
+    disc = math.exp(-r32 * float(np.float32(option.t)))
     d_dig = abs(float(pay["digital_call"].price)
                 + float(pay["digital_put"].price) - disc)
     # on the same paths the bridge weight is at most the discrete flag
@@ -1109,6 +1167,13 @@ def family_main_path(mt, dev, _cuda, family):
             and float(pay["zcb"].price) == disc and bridge_ok):
         fail(f"a {family} payoff is not finite or breaks its ordering or "
              "parity gate")
+    if nmc_fn is None:  # dividends: no NMC; the divs command
+        c = run_cli(["divs", "--device", DEVICE])
+        print(f"phase 3: python -m mc_tpu_torch divs --device {DEVICE}: {c}")
+        if not (c["payoff"] == "vanilla_call" and c["dividends"] == [[24, 5.0]]
+                and abs(c["z_score"]) <= 4.0):
+            fail("the divs command is off")
+        return {k: _cuda.launch_counts[k] for k in kernels}
 
     n_out, n_steps, n_inner = NMC_MAIN
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
@@ -1132,9 +1197,12 @@ def family_main_path(mt, dev, _cuda, family):
     p32 = mt.engines.pk.unpack_params(mt.engines.pk.pack_params(
         option, n_steps, dev))
     s_last = grid.spot_surface[-1]
-    if family == "localvol":  # the inner leg pays on s0*exp(log(S_T/s0))
+    if family in ("localvol", "term"):  # pays on s0*exp(log(S_T/s0))
         s_last = p32.s0 * torch.exp(torch.log(s_last / p32.s0))
-    want = torch.exp(-p32.r * p32.t) * torch.clamp(s_last - p32.k, min=0.0)
+    elif family == "sabr":  # the inner leg pays on exp(log(F_T))
+        s_last = torch.exp(torch.log(s_last))
+    r_t = torch.tensor(r32, dtype=torch.float32, device=dev)
+    want = torch.exp(-r_t * p32.t) * torch.clamp(s_last - p32.k, min=0.0)
     last_ok = bool(torch.allclose(grid.surface[-1], want, rtol=1e-5, atol=0.0))
     cols = surf.double().mean(dim=0)
     tol_ref = 0.02 * ref + 4 * 0.15  # tests/test_nmc.py:147
@@ -1185,10 +1253,21 @@ def family_main_path(mt, dev, _cuda, family):
     argv = [family, "--device", DEVICE]
     nmc_outer, outer_tol = float(grid.outer.price), 0.0  # the same call
     if family == "merton":  # exact in law: 3 stderr
-        argv += ["--method", "terminal", "-N", str(JUMP_MAIN)]
+        argv += ["--method", "terminal", "-N", str(FAMILY_MAIN)]
         oracle_key, n_se, allow = "merton_series_oracle", 3.0, 0.0
     elif family == "cev":  # at the CLI's 100,000 x 100, test_cev.py's gate
         oracle_key, n_se, allow = "ncx2_oracle", 4.0, 0.005 * ref
+    elif family == "sabr":  # Hagan's ~1% at the CLI's 100,000 x 100
+        oracle_key, n_se, allow = "hagan_oracle", 4.0, 0.01 * hagan
+        # nmc --model sabr takes rho from --rho-sv (-0.7): its outer price
+        # is price_sabr's on those dynamics, on the outer key
+        nmc_outer = float(price_fn(option, mt.SABRDynamics(rho=-0.7),
+                                   mt.SimParams(n_paths=n_out,
+                                                n_steps=n_steps),
+                                   device=DEVICE).price)
+        outer_tol = SUMS_RTOL * nmc_outer
+    elif family == "term":  # nmc --model term's curves are DEMO_TERM's
+        oracle_key, n_se, allow = "oracle", 4.0, 0.0
     elif family == "localvol":  # the CEV-shaped surface, 9 knots
         argv += ["--beta", "0.7"]
         oracle_key, n_se, allow = "cev_oracle", 3.5, 0.02
@@ -1234,60 +1313,67 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
 
     call = get_payoff("vanilla_call")
     k_dt, k_t = jump_kmax()
-    steps = JUMP_MAIN * MAIN_STEPS
+    steps = FAMILY_MAIN * MAIN_STEPS
     m_prm = mm.pack_merton(mt.DEMO_OPTION, mm.DEMO_MERTON, MAIN_STEPS, dev)
     b_prm = bm.pack_bates(mt.DEMO_OPTION, bm.DEMO_BATES, MAIN_STEPS, dev)
-    m_cfg = {m: mm.MertonConfig(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS,
+    m_cfg = {m: mm.MertonConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
                                 kmax=k, method=m)
              for m, k in (("euler", k_dt), ("terminal", k_t))}
-    b_cfg = {sc: bm.BatesConfig(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS,
+    b_cfg = {sc: bm.BatesConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
                                 kmax=k_dt, scheme=sc)
              for sc in ("euler", "qe")}
-    # Each kernel at its main shape; the plain versions of the Euler rows
+    # Each kernel at its main shape, beside Heston's partials of its scheme
+    # (the terminal draw: Euler's); the plain versions of the Euler rows
     # (the terminal draw and QE: the kernel alone).  Registers: ROUNDS=13,
     # all methods and schemes.
+    euler = ("heston_partials call euler", gbm_ms["heston_partials"])
+    qe = ("heston_partials call qe", gbm_ms["qe"])
     out = partials_times((
         ("merton_partials", "merton_partials call euler",
          lambda: mm.merton_partials(call, m_cfg["euler"], merton_keys[0],
                                     m_prm),
          lambda: mm.merton_partials_plain(call, m_cfg["euler"],
                                           merton_keys[0], m_prm),
-         ("merton_partials_kernel", "VanillaCall", 13)),
+         ("merton_partials_kernel", "VanillaCall", 13), euler),
         (None, "merton_partials call terminal",
          lambda: mm.merton_partials(call, m_cfg["terminal"], merton_keys[0],
                                     m_prm), None,
-         ("merton_partials_kernel", "VanillaCall", 13)),
+         ("merton_partials_kernel", "VanillaCall", 13), euler),
         ("bates_partials", "bates_partials call euler",
          lambda: bm.bates_partials(call, b_cfg["euler"], bates_keys[0],
                                    b_prm),
          lambda: bm.bates_partials_plain(call, b_cfg["euler"], bates_keys[0],
                                          b_prm),
-         ("bates_partials_kernel", "VanillaCall", 13)),
+         ("bates_partials_kernel", "VanillaCall", 13), euler),
         (None, "bates_partials call qe",
          lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0], b_prm),
-         None, ("bates_partials_kernel", "VanillaCall", 13))),
-        JUMP_MAIN, time_pair, gbm_ms, regs, tag)
+         None, ("bates_partials_kernel", "VanillaCall", 13), qe)),
+        FAMILY_MAIN, time_pair, regs, tag)
 
+    heston_nmc = ("Heston", {name: gbm_ms[name]
+                             for name in ("family_fused", "family_inner")})
     out.update(family_nmc_times(
         (("merton", MertonNMC(extras=(k_dt,)), m_prm, merton_keys,
-          "merton_trajectories", "MertonFamily"),
+          "merton_trajectories", "MertonFamily", EARLIER_NMC_REPS,
+          heston_nmc),
          ("bates", BatesNMC(extras=(k_dt,)), b_prm, bates_keys,
-          "family_trajectories", "BatesFamily")),
-        call, time_pair, gbm_ms, regs, tag))
+          "family_trajectories", "BatesFamily", EARLIER_NMC_REPS,
+          heston_nmc)), call, time_pair, regs, tag))
 
     n_out, n_steps, n_inner = NMC_MAIN
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
-    osim = mt.SimParams(n_paths=JUMP_MAIN, n_steps=MAIN_STEPS)
+    osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
     e2e_report((
-            (f"price_merton() euler {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
-             steps, lambda: mt.price_merton(sim=osim, device=DEVICE)),
-            (f"price_merton() terminal {JUMP_MAIN}", "paths/s", JUMP_MAIN,
+            (f"price_merton() euler {FAMILY_MAIN}x{MAIN_STEPS}",
+             "path-steps/s", steps,
+             lambda: mt.price_merton(sim=osim, device=DEVICE)),
+            (f"price_merton() terminal {FAMILY_MAIN}", "paths/s", FAMILY_MAIN,
              lambda: mt.price_merton(sim=osim, method="terminal",
                                      device=DEVICE)),
-            (f"price_bates() euler {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
+            (f"price_bates() euler {FAMILY_MAIN}x{MAIN_STEPS}", "path-steps/s",
              steps, lambda: mt.price_bates(sim=osim, device=DEVICE)),
-            (f"price_bates() qe {JUMP_MAIN}x{MAIN_STEPS}", "path-steps/s",
+            (f"price_bates() qe {FAMILY_MAIN}x{MAIN_STEPS}", "path-steps/s",
              steps, lambda: mt.price_bates(sim=osim, scheme="qe",
                                            device=DEVICE)),
             (f"price_nmc_merton() fused {n_out}x{n_steps}x{n_inner}",
@@ -1305,17 +1391,26 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
             (f"price_nmc_bates() grid {n_out}x{n_steps}x{n_inner}",
              "inner path-steps/s", inner_steps,
              lambda: mt.price_nmc_bates(sim=nsim, strategy="grid",
-                                        device=DEVICE))), tag)
+                                        device=DEVICE))), tag,
+        EARLIER_NMC_REPS)
     return out
 
 
-# --- the CEV and local-vol slice: kernels #18, #19, #20, the generic
-# trajectories under CEV and both families' #29/#30 ---------------------------
+# --- the single-asset families (CEV, local vol, SABR, term, dividends):
+# kernels #17-#22, the generic trajectories under CEV, SABR and term, and
+# their #29/#30, all driven from one table (single_families) --------------
 
 # A CEV substep on top of its half pair: the alive test and the floor (2),
 # S^beta = expf(beta*logf(S)) (1, a logf and an expf), diff (1), S +
 # growth_dt*S (2), (diff*sqrt_dt)*z (2), the floor at 0 and the select (2).
 CEV_STEP_OPS = (0, 10, 2)
+# A SABR step on top of its whole threefry pair (sabr.cuh): z_f (3), the
+# local vol sig*expf((beta-1)*lf) (3 and an expf), lf (7), the vol factor
+# (7 and an expf), F = expf(lf) (an expf).
+SABR_STEP_OPS = (0, 20, 3)
+# A cash-dividend step on top of its half pair (divs.cuh): the factor's
+# exponent (2), S*expf (1 and an expf), the drop and its floor (2).
+DIVS_STEP_OPS = (0, 5, 1)
 
 
 def lv_step_ops(n_knots: int):
@@ -1341,180 +1436,289 @@ def cev_gate_surface(lm, n_steps: int, beta: float = 0.7,
         x_lo=-1.5, x_hi=1.5, n_knots=25)
 
 
-def lv_bounds():
-    """bound() of the CEV and local-vol rows at the shapes the kernels line
-    reports: #18 and #19 (demo surface, K = 9) at 1M x 100, #20 and the
-    generic trajectories under CEV at NMC_MAIN's outer 16,384 x 100
-    (vanilla), the family kernels at NMC_MAIN (vanilla)."""
-    n_out, n_steps, _ = NMC_MAIN
-    lv_step = lv_step_ops(9)
-    c_path = half_pair_path(CEV_STEP_OPS, MAIN_STEPS)
-    l_path = half_pair_path(lv_step, MAIN_STEPS)
-    half = _scale(pair_ops(13), 0.5)
-    surface_bytes = 4 * (11 + 2 * 9 - 1 + MAIN_STEPS * 9)
-    return {
-        "cev_partials": bound(52, _scale(c_path, LV_MAIN)),
-        "localvol_partials": bound(surface_bytes, _scale(l_path, LV_MAIN)),
-        "localvol_trajectories": bound(2 * 4 * n_out * n_steps,
-                                       _scale(l_path, n_out)),
-        "family_trajectories_cev": bound(2 * 4 * n_out * n_steps,
-                                         _scale(c_path, n_out)),
-        **family_bounds("cev", _add(half, CEV_STEP_OPS), c_path, 1),
-        # the inner leg's start, w = logf(S_t/s0) and S = s0*expf(w), is
-        # under 1% of its steps: left out
-        **family_bounds("localvol", _add(half, lv_step), l_path, 1),
-    }
+def two_payments(dm, n_steps: int):
+    """Two payments: 3.0 after step 24 and 4.0 after step 74 (of 100)."""
+    return dm.div_schedule(n_steps, [n_steps // 4 - 1, 3 * n_steps // 4 - 1],
+                           [3.0, 4.0])
 
 
-def lv_kernel_checks(mt, dev, cev_keys, lv_keys):
-    """Phase 2 of the CEV and local-vol slice: #18 (16 payoffs, antithetic;
-    1M x 100), #19 (18 payoffs on the demo surface, antithetic,
-    threefry-20, the K = 25 CEV-gate surface; 1M x 100), #20 and the
-    generic trajectories under CEV (every one-word payoff), and both
-    families' #29/#30 at NMC_SMALL and at NMC_MAIN against the plain rows
-    LV_NMC_ROWS, each against its plain version on the card.  Returns
-    ({row: max abs error}, {family: ms of the plain version's rows at
-    NMC_MAIN})."""
+class SingleNMC(NamedTuple):
+    """A family's NMC as phases 2, 5 and 6 read it."""
+    fam: object           # its NMCFamily
+    dyn: object           # n_steps -> its default dynamics
+    traj_tpu: str         # what its trajectories kernel replaces
+    struct: str           # its family struct in csrc/<family>.cuh
+    n_grids: int          # its market grids
+    substep: tuple        # phase 6: an inner substep's operations
+    ref: tuple            # phase 5: (label, family) of the NMC kernels beside
+    traj_ref: str         # phase 5: the trajectories row of the same shape
+    reps: int             # phase 5's reps (warm from phases 2 and 3)
+
+
+class Single(NamedTuple):
+    """A single-asset family as phases 2, 5 and 6 and the kernels line read
+    it; its partials row is ``<family>_partials``."""
+    family: str
+    kernels: tuple        # its launch counters (the *_KERNELS tuple)
+    model: object         # its models module: <family>_partials(_plain)
+    config: object        # (n_paths, dyn, **kw) -> its partials config
+    pack: object          # (option, dyn, n_steps, device) -> its params
+    tpu: str              # the Pallas kernel its partials kernel replaces
+    checks: tuple         # phase 2: ((label, dyn), ...), the first sweeps
+    payoffs: tuple        # phase 2's payoff sweep
+    variants: tuple       # phase 2: keywords run on the vanilla and bullet
+    timed: tuple          # phase 5: ((label, dyn), ...) at FAMILY_MAIN; the
+                          # first beside its plain version, the e2e dynamics
+    ref: str              # phase 5: the partials row of the same shape
+    rounds: object        # the registers key's ROUNDS (None: no template)
+    path: tuple           # phase 6: a path's operations (the first timed)
+    nmc: object           # SingleNMC, or None
+
+
+def single_families(mt):
+    """The table of the CEV, local-vol, SABR, term and dividend families."""
     from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import dividends as dm
     from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.models import sabr as sm
+    from mc_tpu_torch.models import term as tm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
     from mc_tpu_torch.nmc_cev import CEVNMC
     from mc_tpu_torch.nmc_localvol import LocalVolNMC
+    from mc_tpu_torch.nmc_sabr import SABRNMC
+    from mc_tpu_torch.nmc_term import TermNMC
     from mc_tpu_torch.ops.payoffs import PAYOFFS
 
-    err = dict.fromkeys(LV_ROWS, 0.0)
-    demo_surface = lm.LocalVolSurface.demo(MAIN_STEPS)
-    gate_surface = cev_gate_surface(lm, MAIN_STEPS)
+    def config(cls):
+        return lambda n, _, **kw: cls(n_paths=n, n_steps=MAIN_STEPS, **kw)
+
+    every, sv = tuple(sorted(PAYOFFS)), tuple(
+        n for n in sorted(PAYOFFS) if n not in SIGMA_PAYOFFS)
+    anti = (dict(antithetic=True),)
+    rng20 = (dict(antithetic=True), dict(rng_source="threefry"),
+             dict(rng_source="threefry", antithetic=True))
+    generic = ("nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
+               "xla_family_trajectories)")
+    half = _scale(pair_ops(13), 0.5)
+    cev = (("", cm.DEMO_CEV),)
+    lv = (("K=9", lm.LocalVolSurface.demo(MAIN_STEPS)),
+          ("K=25", cev_gate_surface(lm, MAIN_STEPS)))
+    sabr = (("", sm.DEMO_SABR),)
+    # rates 12% down to 2%, vols 10% up to 40%
+    steep = (("steep curves", tm.TermStructure.from_knots(
+        [0.12, 0.08, 0.04, 0.02], [0.1, 0.2, 0.3, 0.4], MAIN_STEPS)),)
+    two = (("two payments", two_payments(dm, MAIN_STEPS)),)
+    # the inner leg's start under local vol and term (w = logf(S_t/s0), S =
+    # s0*expf(w)) is under 1% of its steps: left out of the substep
+    return (
+        Single(family="cev", kernels=CEV_KERNELS, model=cm,
+               config=config(cm.CEVConfig), pack=cm.pack_cev,
+               tpu="models/cev.py:150", checks=cev, payoffs=sv,
+               variants=anti, timed=cev, ref="heston_partials", rounds=None,
+               path=half_pair_path(CEV_STEP_OPS, MAIN_STEPS),
+               nmc=SingleNMC(
+                   fam=CEVNMC(), dyn=lambda n: cm.DEMO_CEV, traj_tpu=generic,
+                   struct="CEVFamily", n_grids=1,
+                   substep=_add(half, CEV_STEP_OPS), ref=("Heston", "heston"),
+                   traj_ref="merton_trajectories", reps=EARLIER_NMC_REPS)),
+        Single(family="localvol", kernels=LOCALVOL_KERNELS, model=lm,
+               config=lambda n, surf, **kw: lm.LocalVolConfig(
+                   n_paths=n, n_steps=MAIN_STEPS, n_knots=surf.n_knots, **kw),
+               pack=lm.pack_localvol, tpu="models/localvol.py:264",
+               checks=lv, payoffs=every, variants=rng20, timed=lv,
+               ref="heston_partials", rounds=13,
+               path=half_pair_path(lv_step_ops(9), MAIN_STEPS),
+               nmc=SingleNMC(
+                   fam=LocalVolNMC(extras=(9,)), dyn=lm.LocalVolSurface.demo,
+                   traj_tpu="models/localvol.py:406", struct="LocalVolFamily",
+                   n_grids=1, substep=_add(half, lv_step_ops(9)),
+                   ref=("Heston", "heston"), traj_ref="merton_trajectories",
+                   reps=EARLIER_NMC_REPS)),
+        Single(family="sabr", kernels=SABR_KERNELS, model=sm,
+               config=config(sm.SABRConfig), pack=sm.pack_sabr,
+               tpu="models/sabr.py:177", checks=sabr, payoffs=sv,
+               variants=rng20, timed=sabr, ref="heston_partials", rounds=13,
+               path=_add(_scale(_add(pair_ops(13), SABR_STEP_OPS),
+                                MAIN_STEPS), TERMINAL_OPS),
+               nmc=SingleNMC(
+                   fam=SABRNMC(), dyn=lambda n: sm.DEMO_SABR,
+                   traj_tpu=generic, struct="SABRFamily", n_grids=2,
+                   substep=_add(pair_ops(13), SABR_STEP_OPS),
+                   ref=("Heston", "heston"),
+                   traj_ref="family_trajectories_cev", reps=NMC_REPS)),
+        Single(family="term", kernels=TERM_KERNELS, model=tm,
+               config=config(tm.TermConfig), pack=tm.pack_term,
+               tpu="models/term.py:178", checks=steep, payoffs=every,
+               variants=anti,
+               timed=(("demo curves", tm.demo_term(MAIN_STEPS)),),
+               ref="cev_partials", rounds=None,
+               path=half_pair_path(STEP_OPS, MAIN_STEPS),
+               nmc=SingleNMC(
+                   fam=TermNMC(), dyn=tm.demo_term, traj_tpu=generic,
+                   struct="TermFamily", n_grids=1,
+                   substep=_add(half, STEP_OPS), ref=("CEV", "cev"),
+                   traj_ref="family_trajectories_cev", reps=NMC_REPS)),
+        Single(family="divs", kernels=DIVS_KERNELS, model=dm,
+               config=config(dm.DivsConfig), pack=dm.pack_divs,
+               tpu="models/dividends.py:146", checks=two, payoffs=every,
+               variants=anti, timed=two, ref="cev_partials", rounds=None,
+               path=half_pair_path(DIVS_STEP_OPS, MAIN_STEPS), nmc=None),
+    )
+
+
+def spaced(*parts) -> str:
+    return " ".join(p for p in parts if p)
+
+
+def traj_row(s: Single) -> str:
+    """The kernels line's row of a family's trajectories kernel (the
+    generic kernel's rows carry the family)."""
+    k = s.kernels[1]
+    return f"{k}_{s.family}" if k == "family_trajectories" else k
+
+
+def single_rows(s: Single):
+    """A family's rows on the kernels line."""
+    return (f"{s.family}_partials",) + ((
+        traj_row(s), f"family_inner_{s.family}", f"family_fused_{s.family}")
+        if s.nmc else ())
+
+
+def nmc_pack(s: Single):
+    """The NMC's pack: its default dynamics at the run's steps."""
+    return lambda opt, _, n_steps, dev: s.pack(opt, s.nmc.dyn(n_steps),
+                                               n_steps, dev)
+
+
+def single_kernel_checks(mt, dev, singles, keys):
+    """Phase 2 of the single-asset families: each partials kernel on its
+    payoff sweep, its variants on the vanilla and bullet, its other
+    dynamics (local vol's K = 25 CEV-gate surface) and the main shape, the
+    trajectories (every one-word payoff), and the #29/#30 at NMC_SMALL and
+    at NMC_MAIN against the plain rows NMC_ROWS, each against its plain
+    version on the card.  Returns ({row: max abs error}, {family: ms of the
+    plain version's rows at NMC_MAIN})."""
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    err = {row: 0.0 for s in singles for row in single_rows(s)}
 
     def note(row, e):
         err[row] = max(err[row], e)
 
-    def cev_case(name, n_paths, **kw):
-        opt = payoff_option(mt, name)
-        cfg = cm.CEVConfig(n_paths=n_paths, n_steps=MAIN_STEPS, **kw)
-        partials_check(note, "cev_partials", cm.cev_partials,
-                       cm.cev_partials_plain, cfg, cev_keys[0],
-                       cm.pack_cev(opt, cm.DEMO_CEV, MAIN_STEPS, dev), name,
-                       opt, "")
+    rows_ms = {}
+    for s in singles:
+        row = f"{s.family}_partials"
 
-    def lv_case(name, n_paths, surf=demo_surface, **kw):
-        opt = payoff_option(mt, name)
-        cfg = lm.LocalVolConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
-                                n_knots=surf.n_knots, **kw)
-        partials_check(note, "localvol_partials", lm.localvol_partials,
-                       lm.localvol_partials_plain, cfg, lv_keys[0],
-                       lm.pack_localvol(opt, surf, MAIN_STEPS, dev), name,
-                       opt, f"K={surf.n_knots}")
+        def case(name, n_paths, label_dyn, **kw):
+            label, dyn = label_dyn
+            opt = payoff_option(mt, name)
+            partials_check(note, row, getattr(s.model, row),
+                           getattr(s.model, f"{row}_plain"),
+                           s.config(n_paths, dyn, **kw), keys[s.family][0],
+                           s.pack(opt, dyn, MAIN_STEPS, dev), name, opt,
+                           label)
 
-    for name in sorted(PAYOFFS):
-        if name not in SIGMA_PAYOFFS:
-            cev_case(name, LV_PATHS)
-        lv_case(name, LV_PATHS)
-    for name in ("vanilla_call", "bullet_call"):
-        cev_case(name, LV_PATHS, antithetic=True)
-        for kw in (dict(antithetic=True), dict(rng_source="threefry"),
-                   dict(rng_source="threefry", antithetic=True)):
-            lv_case(name, LV_PATHS, **kw)
-        lv_case(name, LV_PATHS, gate_surface)
-    cev_case("vanilla_call", LV_MAIN)  # the main shapes
-    lv_case("vanilla_call", LV_MAIN)
-    lv_case("vanilla_call", LV_MAIN, gate_surface)
-
-    def lv_pack(opt, _, n_steps, dev):  # the demo surface at n_steps
-        return lm.pack_localvol(opt, lm.LocalVolSurface.demo(n_steps),
-                                n_steps, dev)
-
-    fams = {"cev": (CEVNMC(), cm.pack_cev, cm.DEMO_CEV, cev_keys,
-                    "family_trajectories_cev"),
-            "localvol": (LocalVolNMC(extras=(demo_surface.n_knots,)),
-                         lv_pack, None, lv_keys, "localvol_trajectories")}
-    for name, po in sorted(PAYOFFS.items()):
-        if po.n_state <= 1:
-            for fam, pack, dyn, (key, _), row in fams.values():
-                traj_check(mt, dev, note, row, fam, pack, dyn, key, name,
-                           LV_PATHS)
-    rows_ms = {family: family_nmc_checks(mt, dev, note, family, fam, pack,
-                                         dyn, keys, row, LV_NMC_ROWS)
-               for family, (fam, pack, dyn, keys, row) in fams.items()}
+        for name in s.payoffs:
+            case(name, FAMILY_PATHS, s.checks[0])
+        for name in ("vanilla_call", "bullet_call"):
+            for kw in s.variants:
+                case(name, FAMILY_PATHS, s.checks[0], **kw)
+            for label_dyn in s.checks[1:]:
+                case(name, FAMILY_PATHS, label_dyn)
+        for label_dyn in s.checks:  # the main shape: a partly filled block
+            case("vanilla_call", FAMILY_MAIN, label_dyn)
+        if s.nmc is None:
+            continue
+        for name, po in sorted(PAYOFFS.items()):
+            if po.n_state <= 1:
+                traj_check(mt, dev, note, traj_row(s), s.nmc.fam, nmc_pack(s),
+                           None, keys[s.family][0], name, FAMILY_PATHS)
+        rows_ms[s.family] = family_nmc_checks(
+            mt, dev, note, s.family, s.nmc.fam, nmc_pack(s), None,
+            keys[s.family], traj_row(s))
     return err, rows_ms
 
 
-def lv_times(mt, dev, cev_keys, lv_keys, regs, tag, time_pair, ref_ms):
-    """Phase 5 of the CEV and local-vol slice: each kernel (CUDA events)
+def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms):
+    """Phase 5 of the single-asset families: each kernel (CUDA events)
     beside its plain version and beside the kernel of its shape one family
-    down (``ref_ms``: Heston's Euler partials at 1M x 100 and its NMC
-    kernels at NMC_MAIN, Merton's #15 at NMC_MAIN's outer 16,384 x 100), the
-    registers, and the e2e calls.  Returns {row: (ms, plain ms)} (the family
-    kernels' plain ms is measured in phase 2)."""
-    from mc_tpu_torch.models import cev as cm
-    from mc_tpu_torch.models import localvol as lm
-    from mc_tpu_torch.nmc_cev import CEVNMC
-    from mc_tpu_torch.nmc_localvol import LocalVolNMC
+    down (``ref_ms``: Heston's Euler partials and NMC kernels, Merton's
+    #15; the table's earlier families as they come), the registers, and
+    the e2e calls.  Returns {row: (ms, plain ms)} (the family kernels'
+    plain ms is measured in phase 2)."""
     from mc_tpu_torch.ops.payoffs import get_payoff
 
-    call = get_payoff("vanilla_call")
-    steps = LV_MAIN * MAIN_STEPS
-    c_prm = cm.pack_cev(mt.DEMO_OPTION, cm.DEMO_CEV, MAIN_STEPS, dev)
-    demo_surface = lm.LocalVolSurface.demo(MAIN_STEPS)
-    l_prm = {k: lm.pack_localvol(mt.DEMO_OPTION, surf, MAIN_STEPS, dev)
-             for k, surf in ((9, demo_surface),
-                             (25, cev_gate_surface(lm, MAIN_STEPS)))}
-    c_cfg = cm.CEVConfig(n_paths=LV_MAIN, n_steps=MAIN_STEPS)
-    l_cfg = {k: lm.LocalVolConfig(n_paths=LV_MAIN, n_steps=MAIN_STEPS,
-                                  n_knots=k) for k in (9, 25)}
-    out = partials_times((
-        ("cev_partials", "cev_partials call euler",
-         lambda: cm.cev_partials(call, c_cfg, cev_keys[0], c_prm),
-         lambda: cm.cev_partials_plain(call, c_cfg, cev_keys[0], c_prm),
-         ("cev_partials_kernel", "VanillaCall", None)),
-        ("localvol_partials", "localvol_partials call K=9 euler",
-         lambda: lm.localvol_partials(call, l_cfg[9], lv_keys[0], l_prm[9]),
-         lambda: lm.localvol_partials_plain(call, l_cfg[9], lv_keys[0],
-                                            l_prm[9]),
-         ("localvol_partials_kernel", "VanillaCall", 13)),
-        (None, "localvol_partials call K=25 euler",
-         lambda: lm.localvol_partials(call, l_cfg[25], lv_keys[0],
-                                      l_prm[25]), None,
-         ("localvol_partials_kernel", "VanillaCall", 13))),
-        LV_MAIN, time_pair, ref_ms, regs, tag)
-
-    out.update(family_nmc_times(
-        (("cev", CEVNMC(), c_prm, cev_keys, "family_trajectories_cev",
-          "CEVFamily"),
-         ("localvol", LocalVolNMC(extras=(9,)), l_prm[9], lv_keys,
-          "localvol_trajectories", "LocalVolFamily")),
-        call, time_pair, ref_ms, regs, tag))
-    m15 = ref_ms["merton_trajectories"]
-    for row in ("family_trajectories_cev", "localvol_trajectories"):
-        print(f"phase 5: {row}: {out[row][0] / m15:.2f}x merton_trajectories "
-              f"on the same shape ({m15:.4f} ms) {tag}")
-
+    call, opt = get_payoff("vanilla_call"), mt.DEMO_OPTION
     n_out, n_steps, n_inner = NMC_MAIN
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
-    osim = mt.SimParams(n_paths=LV_MAIN, n_steps=MAIN_STEPS)
+    osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
     nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
-    e2e_report((
-            (f"price_cev() {LV_MAIN}x{MAIN_STEPS}", "path-steps/s", steps,
-             lambda: mt.price_cev(sim=osim, device=DEVICE)),
-            (f"price_localvol() K=9 {LV_MAIN}x{MAIN_STEPS}", "path-steps/s",
-             steps, lambda: mt.price_localvol(mt.DEMO_OPTION, demo_surface,
-                                              osim, device=DEVICE)),
-            (f"price_nmc_cev() fused {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_cev(sim=nsim, strategy="fused",
-                                      device=DEVICE)),
-            (f"price_nmc_cev() grid {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_cev(sim=nsim, strategy="grid",
-                                      device=DEVICE)),
-            (f"price_nmc_localvol() fused {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_localvol(sim=nsim, strategy="fused",
-                                           device=DEVICE)),
-            (f"price_nmc_localvol() grid {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_localvol(sim=nsim, strategy="grid",
-                                           device=DEVICE))), tag)
+    known = dict(ref_ms)  # {row: ms}
+    out = {}
+    for s in singles:
+        row, key = f"{s.family}_partials", keys[s.family][0]
+        fn, plain = getattr(s.model, row), getattr(s.model, f"{row}_plain")
+        rows = []
+        for i, (label, dyn) in enumerate(s.timed):
+            cfg = s.config(FAMILY_MAIN, dyn)
+            prm = s.pack(opt, dyn, MAIN_STEPS, dev)
+            rows.append((
+                row if i == 0 else None, spaced(row, "call", label),
+                lambda cfg=cfg, prm=prm: fn(call, cfg, key, prm),
+                (lambda cfg=cfg, prm=prm: plain(call, cfg, key, prm))
+                if i == 0 else None,
+                (f"{row}_kernel", "VanillaCall", s.rounds),
+                (f"{s.ref} call euler", known[s.ref])))
+        out.update(partials_times(rows, FAMILY_MAIN, time_pair, regs, tag))
+        price_fn = getattr(mt, f"price_{s.family}")
+        label, dyn = s.timed[0]
+        e2e = [(spaced(f"price_{s.family}()", label,
+                      f"{FAMILY_MAIN}x{MAIN_STEPS}"), "path-steps/s",
+                FAMILY_MAIN * MAIN_STEPS,
+                lambda dyn=dyn: price_fn(opt, dyn, osim, device=DEVICE))]
+        if s.nmc is not None:
+            n = s.nmc
+            ref_label, ref_family = n.ref
+            out.update(family_nmc_times(
+                ((s.family, n.fam, s.pack(opt, n.dyn(MAIN_STEPS), MAIN_STEPS,
+                                          dev), keys[s.family], traj_row(s),
+                  n.struct, n.reps,
+                  (ref_label, {name: known[f"{name}_{ref_family}"]
+                               for name in ("family_fused", "family_inner")})),
+                 ), call, time_pair, regs, tag))
+            t_ms = known[n.traj_ref]
+            print(f"phase 5: {traj_row(s)}: {out[traj_row(s)][0] / t_ms:.2f}x "
+                  f"{n.traj_ref} on the same shape ({t_ms:.4f} ms) {tag}")
+            nmc_fn = getattr(mt, f"price_nmc_{s.family}")
+            e2e += [(f"price_nmc_{s.family}() {strategy} {n_out}x{n_steps}x"
+                     f"{n_inner}", "inner path-steps/s", inner_steps,
+                     lambda strategy=strategy: nmc_fn(
+                         sim=nsim, strategy=strategy, device=DEVICE))
+                    for strategy in ("fused", "grid")]
+        known.update({k: v[0] for k, v in out.items()})
+        e2e_report(e2e, tag, s.nmc.reps if s.nmc else NMC_REPS)
+    return out
+
+
+def single_bounds(singles):
+    """bound() of the single-asset families' rows at the shapes the kernels
+    line reports: each partials kernel at FAMILY_MAIN x 100 (its packed
+    vector read once), the trajectories at NMC_MAIN's outer 16,384 x 100
+    (vanilla: the market grids and a state grid written), the family
+    kernels at NMC_MAIN (vanilla)."""
+    from mc_tpu_torch.config import DEMO_OPTION
+
+    n_out, n_steps, _ = NMC_MAIN
+    out = {}
+    for s in singles:
+        prm = s.pack(DEMO_OPTION, s.timed[0][1], MAIN_STEPS, "cpu")
+        out[f"{s.family}_partials"] = bound(4 * prm.numel(),
+                                            _scale(s.path, FAMILY_MAIN))
+        if s.nmc is not None:
+            out[traj_row(s)] = bound((s.nmc.n_grids + 1) * 4 * n_out * n_steps,
+                                     _scale(s.path, n_out))
+            out.update(family_bounds(s.family, s.nmc.substep, s.path,
+                                     s.nmc.n_grids))
     return out
 
 
@@ -1538,6 +1742,9 @@ def main() -> int:
     from mc_tpu_torch.models.heston import HESTON_TAG
     from mc_tpu_torch.models.localvol import LOCALVOL_TAG
     from mc_tpu_torch.models.merton import MERTON_TAG
+    from mc_tpu_torch.models.dividends import DIVS_TAG
+    from mc_tpu_torch.models.sabr import SABR_TAG
+    from mc_tpu_torch.models.term import TERM_TAG
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
@@ -1573,10 +1780,14 @@ def main() -> int:
     call, bullet = get_payoff("vanilla_call"), get_payoff("bullet_call")
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
     key_in = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_INNER))
-    heston_keys, merton_keys, bates_keys, cev_keys, lv_keys = (tuple(
+    keys = {family: tuple(
         tuple(int(k) for k in rng.derive_key(1234, stream, tag))
         for stream in (engines.STREAM_OUTER, engines.STREAM_INNER))
-        for tag in (HESTON_TAG, MERTON_TAG, BATES_TAG, CEV_TAG, LOCALVOL_TAG))
+        for family, tag in (("heston", HESTON_TAG), ("merton", MERTON_TAG),
+                            ("bates", BATES_TAG), ("cev", CEV_TAG),
+                            ("localvol", LOCALVOL_TAG), ("sabr", SABR_TAG),
+                            ("term", TERM_TAG), ("divs", DIVS_TAG))}
+    singles = single_families(mt)
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
     # --- Phase 2: each kernel against its plain version ----------------
@@ -1753,7 +1964,7 @@ def main() -> int:
             finish_sum(want).T, cfg.n_paths, pk.unpack_params(rows.T),
             po.name in FLIP_PAYOFFS, cfg.with_cv, ex), plain_ms
 
-    def nmc_main_case(shape, rows=GBM_NMC_ROWS):
+    def nmc_main_case(shape, rows=NMC_ROWS):
         """Both NMC kernels against one plain run at the main shape: the
         plain trajectories and the plain inner sweep's ``rows`` (the plain
         fused version IS the two), so one plain run checks and times both
@@ -1964,10 +2175,10 @@ def main() -> int:
                 reduce_err[name] = max(reduce_err[name],
                                        float((got - want).abs().max()))
     del x, v
-    heston_err, family_rows_ms = heston_kernel_checks(mt, dev, heston_keys)
-    jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, merton_keys,
-                                                bates_keys)
-    lv_err, lv_rows_ms = lv_kernel_checks(mt, dev, cev_keys, lv_keys)
+    heston_err, family_rows_ms = heston_kernel_checks(mt, dev, keys["heston"])
+    jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, keys["merton"],
+                                                keys["bates"])
+    single_err, single_rows_ms = single_kernel_checks(mt, dev, singles, keys)
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -2445,13 +2656,15 @@ def main() -> int:
         fail("the reductions disagree with price() or torch.sum, or the "
              "normals' moments are off")
 
-    # The GBM path's launches; then the Heston, Merton, Bates, CEV and
-    # local-vol paths, each driven with the counts set to 0 before it and
-    # read after it.
+    # The GBM path's launches; then the Heston, Merton, Bates, CEV,
+    # local-vol, SABR, term and dividend paths, each driven with the counts
+    # set to 0 before it and read after it.
     launches = {k: n for k, n in _cuda.launch_counts.items()
                 if k not in HESTON_KERNELS + MERTON_KERNELS + BATES_KERNELS
-                + CEV_KERNELS + LOCALVOL_KERNELS}
-    families = ("heston", "merton", "bates", "cev", "localvol")
+                + CEV_KERNELS + LOCALVOL_KERNELS + SABR_KERNELS
+                + TERM_KERNELS + DIVS_KERNELS}
+    families = ("heston", "merton", "bates", "cev", "localvol", "sabr",
+                "term", "divs")
     family_launches = {family: family_main_path(mt, dev, _cuda, family)
                        for family in families}
 
@@ -2464,11 +2677,12 @@ def main() -> int:
         fail("a kernel of the main path was never launched")
     launches.update(family_launches["heston"])
     # the kernels line's rows: the family kernels per family (and the
-    # generic trajectories' row under CEV)
+    # generic trajectories' rows under CEV, SABR and term)
     for family in families[1:]:
         for k, n in family_launches[family].items():
             suffixed = (k.startswith("family_i") or k.startswith("family_f")
-                        or (family == "cev" and k == "family_trajectories"))
+                        or (family in ("cev", "sabr", "term")
+                            and k == "family_trajectories"))
             launches[f"{k}_{family}" if suffixed else k] = n
 
     # --- Phase 5: times -------------------------------------------------
@@ -2566,7 +2780,7 @@ def main() -> int:
             ("nmc_fused", lambda: nk.nmc_fused(bullet, ncfg_m, key, key_in,
                                                p_m))):
         # in turns: fused, inner, inner, fused (warm from phases 2 and 3)
-        ms, sp, _ = cuda_ms(fn, reps=NMC_REPS, warm=False)
+        ms, sp, _ = cuda_ms(fn, reps=EARLIER_NMC_REPS, warm=False)
         nmc_main.setdefault(name, []).append(ms)
         print(f"phase 5: {name} {n_out}x{n_steps}x{n_inner}: kernel "
               f"{ms:.3f} ms (spread {sp:.1%}), "
@@ -2668,26 +2882,24 @@ def main() -> int:
                   f" {regs.get(('sum_kernel', 'bool' + str(int(name == 'sum_sumsq')), None))} "
                   f"{tag}")
 
-    heston_ms = heston_times(mt, dev, heston_keys, regs, tag, time_pair, {
+    heston_ms = heston_times(mt, dev, keys["heston"], regs, tag, time_pair, {
         "trajectories": traj_ms[0], "nmc_fused": nmc_main["nmc_fused"],
         "nmc_inner": nmc_main["nmc_inner"]})
     heston_ms["family_fused"] = (heston_ms["family_fused"][0], family_rows_ms)
     heston_ms["family_inner"] = (heston_ms["family_inner"][0], family_rows_ms)
-    jump_ms = jump_times(mt, dev, merton_keys, bates_keys, regs, tag,
+    jump_ms = jump_times(mt, dev, keys["merton"], keys["bates"], regs, tag,
                          time_pair, {k: v[0] for k, v in heston_ms.items()})
-    for family in ("merton", "bates"):
-        for name in ("family_fused", "family_inner"):
-            row = f"{name}_{family}"
-            jump_ms[row] = (jump_ms[row][0], jump_rows_ms[family])
-    lv_ms = lv_times(mt, dev, cev_keys, lv_keys, regs, tag, time_pair, {
+    single_ms = single_times(mt, dev, singles, keys, regs, tag, time_pair, {
         "heston_partials": heston_ms["heston_partials"][0],
-        "family_fused": heston_ms["family_fused"][0],
-        "family_inner": heston_ms["family_inner"][0],
+        "family_fused_heston": heston_ms["family_fused"][0],
+        "family_inner_heston": heston_ms["family_inner"][0],
         "merton_trajectories": jump_ms["merton_trajectories"][0]})
-    for family in ("cev", "localvol"):
-        for name in ("family_fused", "family_inner"):
-            row = f"{name}_{family}"
-            lv_ms[row] = (lv_ms[row][0], lv_rows_ms[family])
+    # the family kernels' plain ms: their rows in phase 2
+    for ms, rows_ms in ((jump_ms, jump_rows_ms), (single_ms, single_rows_ms)):
+        for family, plain_ms in rows_ms.items():
+            for name in ("family_fused", "family_inner"):
+                row = f"{name}_{family}"
+                ms[row] = (ms[row][0], plain_ms)
 
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
@@ -2742,7 +2954,7 @@ def main() -> int:
          csim.n_paths * MAIN_STEPS,
          lambda: mt.price(option, csim, method="euler", device=DEVICE)),
     )
-    e2e_report(e2e, tag)
+    e2e_report(e2e, tag, EARLIER_NMC_REPS)
 
     # --- Phase 6: results -----------------------------------------------
     stamp(6)
@@ -2783,7 +2995,7 @@ def main() -> int:
         "sum_sumsq": bound(4 * n26, (0, n26, 0), 2 * n26),
         **heston_bounds(),
         **jump_bounds(),
-        **lv_bounds(),
+        **single_bounds(singles),
     }
     nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
@@ -2796,10 +3008,10 @@ def main() -> int:
         ("nmc_fused", "nmc_kernels.cu", "ops/nmc_kernels.py:264", fused_err,
          (nmc_main["nmc_fused"], fused_plain_ms),
          f"bullet {nmc_shape} (plain: trajectories and rows "
-         f"{list(GBM_NMC_ROWS)})"),
+         f"{list(NMC_ROWS)})"),
         ("nmc_inner", "nmc_kernels.cu", "ops/nmc_kernels.py:338", inner_err,
          (nmc_main["nmc_inner"], inner_plain_ms),
-         f"bullet {nmc_shape} (plain: rows {list(GBM_NMC_ROWS)})"),
+         f"bullet {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
         ("ladder", "batch_kernels.cu", "ops/path_kernels.py:634", ladder_err,
          ladder_ms, f"call terminal {LADDER_PATHS} x {len(strikes)} strikes"),
         ("book", "batch_kernels.cu", "ops/path_kernels.py:760", book_err,
@@ -2815,26 +3027,26 @@ def main() -> int:
          f"{int(n26)} f32"),
         ("heston_partials", "heston_kernels.cu", "models/heston.py:332",
          heston_err["heston_partials"], heston_ms["heston_partials"],
-         f"call euler {HESTON_MAIN}x{MAIN_STEPS}"),
+         f"call euler {FAMILY_MAIN}x{MAIN_STEPS}"),
         ("heston_trajectories", "heston_kernels.cu", "models/heston.py:527",
          heston_err["heston_trajectories"], heston_ms["heston_trajectories"],
          f"bullet {HESTON_PAYOFF_MAIN}x{MAIN_STEPS}"),
         ("family_inner", "family_nmc_kernels.cu", "nmc_engine.py:314",
          heston_err["family_inner"], heston_ms["family_inner"],
-         f"heston call {nmc_shape} (plain: rows {list(HESTON_NMC_ROWS)})"),
+         f"heston call {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
         ("family_fused", "family_nmc_kernels.cu", "nmc_engine.py:407",
          heston_err["family_fused"], heston_ms["family_fused"],
-         f"heston call {nmc_shape} (plain: rows {list(HESTON_NMC_ROWS)})"),
+         f"heston call {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
         ("merton_partials", "merton_kernels.cu", "models/merton.py:278",
          jump_err["merton_partials"], jump_ms["merton_partials"],
-         f"call euler {JUMP_MAIN}x{MAIN_STEPS}"),
+         f"call euler {FAMILY_MAIN}x{MAIN_STEPS}"),
         ("merton_trajectories", "merton_nmc_kernels.cu",
          "models/merton.py:392",
          jump_err["merton_trajectories"], jump_ms["merton_trajectories"],
          f"call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
         ("bates_partials", "bates_kernels.cu", "models/bates.py:257",
          jump_err["bates_partials"], jump_ms["bates_partials"],
-         f"call euler {JUMP_MAIN}x{MAIN_STEPS}"),
+         f"call euler {FAMILY_MAIN}x{MAIN_STEPS}"),
         ("family_trajectories", "bates_nmc_kernels.cu",
          "nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
          "xla_family_trajectories)",
@@ -2843,31 +3055,23 @@ def main() -> int:
     ) + tuple(
         (f"{name}_{family}", f"{family}_nmc_kernels.cu", tpu,
          jump_err[f"{name}_{family}"], jump_ms[f"{name}_{family}"],
-         f"{family} call {nmc_shape} (plain: rows {list(JUMP_NMC_ROWS)})")
+         f"{family} call {nmc_shape} (plain: rows {list(NMC_ROWS)})")
         for family in ("merton", "bates")
         for name, tpu in (("family_inner", "nmc_engine.py:314"),
-                          ("family_fused", "nmc_engine.py:407"))) + (
-        ("cev_partials", "cev_kernels.cu", "models/cev.py:150",
-         lv_err["cev_partials"], lv_ms["cev_partials"],
-         f"call {LV_MAIN}x{MAIN_STEPS}"),
-        ("localvol_partials", "localvol_kernels.cu", "models/localvol.py:264",
-         lv_err["localvol_partials"], lv_ms["localvol_partials"],
-         f"call K=9 {LV_MAIN}x{MAIN_STEPS}"),
-        ("localvol_trajectories", "localvol_nmc_kernels.cu",
-         "models/localvol.py:406", lv_err["localvol_trajectories"],
-         lv_ms["localvol_trajectories"], f"call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
-        ("family_trajectories_cev", "cev_nmc_kernels.cu",
-         "nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
-         "xla_family_trajectories)", lv_err["family_trajectories_cev"],
-         lv_ms["family_trajectories_cev"],
-         f"cev call {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
-    ) + tuple(
-        (f"{name}_{family}", f"{family}_nmc_kernels.cu", tpu,
-         lv_err[f"{name}_{family}"], lv_ms[f"{name}_{family}"],
-         f"{family} call {nmc_shape} (plain: rows {list(LV_NMC_ROWS)})")
-        for family in ("cev", "localvol")
-        for name, tpu in (("family_inner", "nmc_engine.py:314"),
                           ("family_fused", "nmc_engine.py:407")))
+    for sf in singles:  # partials, trajectories, inner, fused
+        srcs = (f"{sf.family}_kernels.cu",) + (
+            f"{sf.family}_nmc_kernels.cu",) * 3
+        tpus = (sf.tpu,) + ((sf.nmc.traj_tpu, "nmc_engine.py:314",
+                             "nmc_engine.py:407") if sf.nmc else ())
+        shapes = (spaced("call", sf.timed[0][0],
+                        f"{FAMILY_MAIN}x{MAIN_STEPS}"),
+                  f"{sf.family} call {NMC_MAIN[0]}x{NMC_MAIN[1]}") + (
+            f"{sf.family} call {nmc_shape} (plain: rows {list(NMC_ROWS)})",
+        ) * 2
+        rows += tuple((row, src, tpu, single_err[row], single_ms[row], shape)
+                      for row, src, tpu, shape in zip(
+                          single_rows(sf), srcs, tpus, shapes))
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
         b_ms, b_by = bounds[name]

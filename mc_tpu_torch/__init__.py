@@ -20,6 +20,10 @@ launch; importing the package builds and loads nothing.
     price_cev()                            # CEV local vol (the skew)
     price_localvol(surf=LocalVolSurface.demo(100))  # a sigma(S, t) smile
     price_nmc_localvol().cva(0.02)         # exposure under the smile
+    price_sabr(payoff="asian_call")        # SABR, on the forward path
+    price_term(term=TermStructure.from_knots([0.1, 0.05], [0.2, 0.3], 100))
+    price_divs(divs=div_schedule(100, [49], [5.0]))  # a cash dividend
+    price_nmc_sabr().cva(0.02)             # exposure under SABR
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -33,12 +37,18 @@ from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
                                        bates_call_cf, price_bates)
 from mc_tpu_torch.models.cev import (DEMO_CEV, CEVDynamics,
                                      cev_call_closed_form, price_cev)
+from mc_tpu_torch.models.dividends import (bs_call_cash_div,
+                                           cash_div_forward, div_schedule,
+                                           price_divs)
 from mc_tpu_torch.models.heston import (DEMO_HESTON, HestonDynamics,
                                         heston_call_cf, price_heston)
 from mc_tpu_torch.models.localvol import (DEMO_LOCALVOL, LocalVolSurface,
                                           price_localvol)
 from mc_tpu_torch.models.merton import (DEMO_MERTON, MertonDynamics,
                                         merton_call_closed_form, price_merton)
+from mc_tpu_torch.models.sabr import (DEMO_SABR, SABRDynamics, price_sabr,
+                                      sabr_call_hagan, sabr_implied_vol)
+from mc_tpu_torch.models.term import DEMO_TERM, TermStructure, price_term
 from mc_tpu_torch.nmc import NMCResult, price_nmc
 from mc_tpu_torch.nmc_engine import price_nmc_family
 from mc_tpu_torch.nmc_bates import price_nmc_bates
@@ -46,6 +56,8 @@ from mc_tpu_torch.nmc_cev import price_nmc_cev
 from mc_tpu_torch.nmc_heston import price_nmc_heston
 from mc_tpu_torch.nmc_localvol import price_nmc_localvol
 from mc_tpu_torch.nmc_merton import price_nmc_merton
+from mc_tpu_torch.nmc_sabr import price_nmc_sabr
+from mc_tpu_torch.nmc_term import price_nmc_term
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
 
@@ -57,7 +69,11 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "price_nmc_bates", "BatesDynamics", "DEMO_BATES", "bates_call_cf",
            "price_cev", "price_nmc_cev", "CEVDynamics", "DEMO_CEV",
            "cev_call_closed_form", "price_localvol", "price_nmc_localvol",
-           "LocalVolSurface", "DEMO_LOCALVOL",
+           "LocalVolSurface", "DEMO_LOCALVOL", "price_sabr",
+           "price_nmc_sabr", "SABRDynamics", "DEMO_SABR", "sabr_call_hagan",
+           "sabr_implied_vol", "price_term", "price_nmc_term",
+           "TermStructure", "DEMO_TERM", "price_divs", "div_schedule",
+           "bs_call_cash_div", "cash_div_forward",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

@@ -1,17 +1,21 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
-ladder/book/greeks/heston/merton/bates/cev/localvol).
+ladder/book/greeks/heston/merton/bates/cev/localvol/sabr/term/divs).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
 ``price``, ``nmc``, ``ladder``, ``book``, ``greeks``, ``heston``,
-``merton``, ``bates``, ``cev`` and ``localvol`` print one JSON object each
-(``price`` adds the closed form where the payoff has one, ``heston`` and
-``bates`` the CF oracle for the call, ``merton`` the series oracle, ``cev``
-the noncentral chi-squared oracle, ``localvol --beta`` that oracle and the
-z-score of a CEV-shaped surface, ``nmc --exposure`` the XVA figures of the
-surface, under GBM or ``--model heston|merton|bates|cev|localvol``, each
-family's dynamics from its own flags); ``traj`` writes the
+``merton``, ``bates``, ``cev``, ``localvol``, ``sabr``, ``term`` and
+``divs`` print one JSON object each (``price`` adds the closed form where
+the payoff has one, ``heston`` and ``bates`` the CF oracle for the call,
+``merton`` the series oracle, ``cev`` the noncentral chi-squared oracle,
+``localvol --beta`` that oracle and the z-score of a CEV-shaped surface,
+``sabr`` Hagan's price and implied vol beside the MC-inverted one, ``term``
+Black-Scholes at the averaged curves and the z-score, ``divs`` the
+quadrature oracle and z-score of one dividend, ``nmc --exposure`` the XVA
+figures of the surface, under GBM or ``--model
+heston|merton|bates|cev|localvol|sabr|term``, each family's dynamics from
+its own flags); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
 """
@@ -312,10 +316,20 @@ def _nmc_surface(args):
         lambda x, t: args.sigma + args.smile_curv * x * x, args.n_steps)
 
 
-# --model -> the family's dynamics from its own flags.
+def _nmc_sabr_dyn(args):
+    """``nmc --model sabr``'s dynamics (mc_tpu/cli.py:373-381): alpha, nu
+    and rho from --rho-sv, beta 1."""
+    from mc_tpu_torch.models.sabr import SABRDynamics
+
+    return SABRDynamics(alpha=args.alpha, nu=args.nu, rho=args.rho_sv)
+
+
+# --model -> the family's dynamics from its own flags (term: the default
+# curves of price_nmc_term).
 _FAMILY_DYNAMICS = {"heston": _heston_dyn, "merton": _merton_dyn,
                     "bates": _bates_dyn, "cev": _cev_dyn,
-                    "localvol": _nmc_surface}
+                    "localvol": _nmc_surface, "sabr": _nmc_sabr_dyn,
+                    "term": lambda args: None}
 
 
 def cmd_heston(args):
@@ -430,6 +444,93 @@ def cmd_localvol(args):
     return 0
 
 
+def cmd_sabr(args):
+    """SABR price as one JSON object (mc_tpu/cli.py:929-952): for the call,
+    Hagan's price and implied vol beside the MC price's implied vol."""
+    import math
+
+    from mc_tpu_torch.models.sabr import (SABRDynamics, price_sabr,
+                                          sabr_call_hagan, sabr_implied_vol)
+    from mc_tpu_torch.oracle import bs_implied_vol
+
+    option, sim = _parse(args)
+    dyn = SABRDynamics(alpha=args.alpha, beta=args.beta, nu=args.nu,
+                       rho=args.rho_fv)
+    res = price_sabr(option, dyn, sim, payoff=args.payoff,
+                     antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "price": float(res.price),
+           "stderr": float(res.stderr)}
+    if args.payoff == "vanilla_call":
+        out["hagan_oracle"] = sabr_call_hagan(
+            args.s0, args.k, args.t, args.r, alpha=args.alpha,
+            beta=args.beta, nu=args.nu, rho=args.rho_fv, q=args.q)
+        f = args.s0 * math.exp((args.r - args.q) * args.t)
+        out["hagan_implied_vol"] = sabr_implied_vol(
+            f, args.k, args.t, args.alpha, args.beta, args.nu, args.rho_fv)
+        out["mc_implied_vol"] = bs_implied_vol(
+            out["price"], args.s0, args.k, args.t, args.r, args.q)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_term(args):
+    """Term-structure price as one JSON object (mc_tpu/cli.py:1552-1577):
+    for the call, Black-Scholes at the averaged curves and the z-score."""
+    import numpy as np
+
+    from mc_tpu_torch.models.term import TermStructure, price_term
+    from mc_tpu_torch.oracle import bs_call
+
+    option, sim = _parse(args)
+    rates = [float(x) for x in args.rate_knots.split(",")]
+    sigmas = [float(x) for x in args.sigma_knots.split(",")]
+    term = TermStructure.from_knots(rates, sigmas, sim.n_steps)
+    res = price_term(option, term, sim, payoff=args.payoff,
+                     antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "rate_knots": rates,
+           "sigma_knots": sigmas, "price": float(res.price),
+           "stderr": float(res.stderr)}
+    if args.payoff == "vanilla_call":
+        rs = np.asarray(term.rates, np.float64)
+        sg = np.asarray(term.sigmas, np.float64)
+        out["oracle"] = bs_call(args.s0, args.k, args.t, float(rs.mean()),
+                                float(np.sqrt((sg ** 2).mean())), args.q)
+        out["z_score"] = (out["price"] - out["oracle"]) / out["stderr"]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_divs(args):
+    """Cash-dividend price as one JSON object (mc_tpu/cli.py:1091-1121):
+    with one dividend, the call's quadrature oracle and z-score."""
+    from mc_tpu_torch.models.dividends import (bs_call_cash_div,
+                                               div_schedule, price_divs)
+
+    option, sim = _parse(args)
+    steps = ([int(x) for x in args.div_steps.split(",")]
+             if args.div_steps else [])
+    amounts = ([float(x) for x in args.div_amounts.split(",")]
+               if args.div_amounts else [])
+    if len(steps) != len(amounts):
+        raise SystemExit("--div-steps and --div-amounts must pair up")
+    divs = div_schedule(sim.n_steps, steps, amounts)
+    res = price_divs(option, divs, sim, payoff=args.payoff,
+                     antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "price": float(res.price),
+           "stderr": float(res.stderr),
+           "dividends": [[int(j), float(a)] for j, a in zip(steps, amounts)]}
+    tau = (steps[0] + 1) / sim.n_steps * args.t if len(steps) == 1 else None
+    if (args.payoff == "vanilla_call" and tau is not None
+            and 0.0 < tau < args.t):
+        out["quadrature_oracle"] = bs_call_cash_div(
+            args.s0, args.k, args.t, args.r, args.sigma, amounts[0], tau,
+            q=args.q)
+        out["z_score"] = ((out["price"] - out["quadrature_oracle"])
+                          / out["stderr"])
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_nmc(args):
     import numpy as np
 
@@ -539,8 +640,8 @@ def main(argv=None):
                             "localvol", "cev", "basket", "sabr", "term",
                             "rainbow"),
                    help="the outer and inner dynamics: gbm, heston, merton, "
-                        "bates, cev or localvol (the other families of mc_tpu "
-                        "are not ported yet)")
+                        "bates, cev, localvol, sabr or term (vasicek, basket "
+                        "and rainbow are not ported yet)")
     p.add_argument("--surface-npz", default=None,
                    help="save the (paths, steps) surface to this .npz")
     p.add_argument("--exposure", action="store_true",
@@ -582,6 +683,10 @@ def main(argv=None):
                    help="cev elasticity")
     p.add_argument("--smile-curv", type=float, default=0.1,
                    help="localvol: sigma(x) = sigma + curv*x^2")
+    p.add_argument("--alpha", type=float, default=0.2,
+                   help="sabr initial vol")
+    p.add_argument("--nu", type=float, default=0.4,
+                   help="sabr vol-of-vol (its rho is --rho-sv)")
     p.set_defaults(fn=cmd_nmc)
 
     p = sub.add_parser("ladder", help="strike ladder on shared paths, JSON")
@@ -665,6 +770,43 @@ def main(argv=None):
                         "(prints the noncentral-chi^2 oracle z-score)")
     p.add_argument("--n-knots", type=int, default=9)
     p.set_defaults(fn=cmd_localvol)
+
+    p = sub.add_parser("sabr",
+                       help="SABR stochastic-vol price (Hagan oracle)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    p.add_argument("--alpha", type=float, default=0.2,
+                   help="initial forward vol")
+    p.add_argument("--beta", type=float, default=1.0,
+                   help="CEV backbone exponent")
+    p.add_argument("--nu", type=float, default=0.4, help="vol-of-vol")
+    p.add_argument("--rho-fv", type=float, default=-0.4,
+                   help="forward-vol correlation")
+    p.set_defaults(fn=cmd_sabr)
+
+    p = sub.add_parser("term",
+                       help="rate/vol term-structure price (averaged-BS "
+                            "oracle)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    p.add_argument("--rate-knots", default="0.10,0.07,0.05",
+                   help="comma list spread evenly over the steps")
+    p.add_argument("--sigma-knots", default="0.15,0.22,0.30")
+    p.set_defaults(fn=cmd_term)
+
+    p = sub.add_parser("divs",
+                       help="GBM with discrete cash dividends "
+                            "(quadrature oracle)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    p.add_argument("--div-steps", default="24",
+                   help="comma list of dividend step indices")
+    p.add_argument("--div-amounts", default="5.0",
+                   help="comma list of cash amounts")
+    p.set_defaults(fn=cmd_divs)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

@@ -16,17 +16,21 @@ import torch
 
 from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
+from mc_tpu_torch.models import dividends as _divs
+from mc_tpu_torch.models import term as _term
 from mc_tpu_torch.models.bates import BATES_FIELDS, BatesDynamics
 from mc_tpu_torch.models.cev import CEV_FIELDS, CEVDynamics
 from mc_tpu_torch.models.heston import HESTON_FIELDS, HestonDynamics
 from mc_tpu_torch.models.localvol import LocalVolSurface, packed_length
 from mc_tpu_torch.models.merton import MERTON_FIELDS, MertonDynamics
+from mc_tpu_torch.models.sabr import SABR_FIELDS, SABRDynamics
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
            "surface_matrix", "checkpoint", "heston_dynamics", "heston_params",
            "merton_dynamics", "merton_params", "bates_dynamics",
            "bates_params", "cev_dynamics", "cev_params", "localvol_surface",
-           "localvol_params"]
+           "localvol_params", "sabr_dynamics", "sabr_params",
+           "term_structure", "term_params", "divs_params"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
@@ -34,6 +38,7 @@ _HESTON_DYN_FIELDS = ("v0", "kappa", "theta", "xi", "rho")
 _MERTON_DYN_FIELDS = ("lam", "mu_j", "sigma_j")
 _BATES_DYN_FIELDS = _HESTON_DYN_FIELDS + _MERTON_DYN_FIELDS
 _CEV_DYN_FIELDS = ("sigma_lv", "beta")
+_SABR_DYN_FIELDS = ("alpha", "beta", "nu", "rho")
 
 
 def _field(src, name):
@@ -76,10 +81,14 @@ def _scalars(src, fields, what):
 
 
 def _packed(arr, fields, what) -> torch.Tensor:
+    return _packed_vector(arr, len(fields), what)
+
+
+def _packed_vector(arr, want: int, what: str) -> torch.Tensor:
     a = np.asarray(arr)
-    if a.shape != (len(fields),) or a.dtype != np.float32:
-        raise ValueError(f"packed {what} parameters are {len(fields)} "
-                         f"float32 values; got {a.shape} {a.dtype}")
+    if a.shape != (want,) or a.dtype != np.float32:
+        raise ValueError(f"packed {what} parameters are {want} float32 "
+                         f"values; got {a.shape} {a.dtype}")
     return torch.from_numpy(a.copy())
 
 
@@ -149,13 +158,48 @@ def localvol_params(arr, n_knots: int, n_steps: int) -> torch.Tensor:
     """``mc_tpu``'s packed local-vol vector (``_pack_localvol``) -> the
     port's CPU tensor, bit for bit, its length checked against
     11 + 2K - 1 + n_steps*K."""
-    a = np.asarray(arr)
-    want = packed_length(n_knots, n_steps)
-    if a.shape != (want,) or a.dtype != np.float32:
-        raise ValueError(f"packed local-vol parameters at K={n_knots}, "
-                         f"n_steps={n_steps} are {want} float32 values; got "
-                         f"{a.shape} {a.dtype}")
-    return torch.from_numpy(a.copy())
+    return _packed_vector(arr, packed_length(n_knots, n_steps),
+                          f"local-vol (K={n_knots}, n_steps={n_steps})")
+
+
+def sabr_dynamics(src) -> SABRDynamics:
+    """``mc_tpu.models.sabr.SABRDynamics`` fields (scalars) -> the port's
+    SABRDynamics."""
+    return SABRDynamics(*_scalars(src, _SABR_DYN_FIELDS, "SABR"))
+
+
+def sabr_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed SABR parameters (``_pack_sabr``: the (17,) f32
+    vector of ``SABR_FIELDS``) -> the port's CPU tensor, bit for bit."""
+    return _packed(arr, SABR_FIELDS, "SABR")
+
+
+def term_structure(src) -> _term.TermStructure:
+    """``mc_tpu.models.term.TermStructure`` (``rates`` and ``sigmas``, one
+    entry per step, arrays numpy can read) -> the port's, as f32 numpy
+    arrays."""
+    rates = np.asarray(_field(src, "rates"), np.float32)
+    sigmas = np.asarray(_field(src, "sigmas"), np.float32)
+    if rates.ndim != 1 or rates.shape != sigmas.shape:
+        raise ValueError(f"a term structure is rates and sigmas, both "
+                         f"(n_steps,); got {rates.shape} and {sigmas.shape}")
+    return _term.TermStructure(rates=rates.copy(), sigmas=sigmas.copy())
+
+
+def term_params(arr, n_steps: int) -> torch.Tensor:
+    """``mc_tpu``'s packed term-structure vector (``_pack_term``) -> the
+    port's CPU tensor, bit for bit, its length checked against
+    11 + 2*n_steps."""
+    return _packed_vector(arr, _term.packed_length(n_steps),
+                          f"term-structure (n_steps={n_steps})")
+
+
+def divs_params(arr, n_steps: int) -> torch.Tensor:
+    """``mc_tpu``'s packed cash-dividend vector (``_pack_divs``) -> the
+    port's CPU tensor, bit for bit, its length checked against
+    13 + n_steps."""
+    return _packed_vector(arr, _divs.packed_length(n_steps),
+                          f"cash-dividend (n_steps={n_steps})")
 
 
 def key(arr) -> tuple[int, int]:

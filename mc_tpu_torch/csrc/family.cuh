@@ -1,11 +1,13 @@
 // The family nested-MC engine on the device: the kernels every model family
 // instantiates (family_nmc_kernels.cu for Heston, <family>_nmc_kernels.cu
-// for Merton, Bates, CEV and local vol), templates over a device-side family
+// for Merton, Bates, CEV, local vol, SABR and term structures), templates
+// over a device-side family
 // whose interface mirrors NMCFamily (nmc_engine.py):
 //   Params, load(ptr, extras, n_steps) the packed parameters, the family's
 //                                      integer extras (Merton's and Bates's
 //                                      Poisson scan depth, local vol's knot
-//                                      count) and the step count;
+//                                      count) and the step count (local
+//                                      vol's and term's curve length);
 //   payoff_params(p)                   the payoffs' view of the contract;
 //   kGrids                             market-state grids (S first);
 //   Carry<Payoff>, outer_init(p)       the outer path's carry and its start;
@@ -64,7 +66,7 @@ constexpr int kMaxGrids = 8;
 
 enum FamilyId {
   FAMILY_HESTON = 0, FAMILY_MERTON = 1, FAMILY_BATES = 2, FAMILY_CEV = 3,
-  FAMILY_LOCALVOL = 4
+  FAMILY_LOCALVOL = 4, FAMILY_SABR = 5, FAMILY_TERM = 6
 };
 
 // A family's integer extras, by value (Merton's and Bates's i[0] = kmax,
@@ -325,6 +327,8 @@ MC_FAMILY_LAUNCHERS(merton_family)
 MC_FAMILY_LAUNCHERS(bates_family)
 MC_FAMILY_LAUNCHERS(cev_family)
 MC_FAMILY_LAUNCHERS(localvol_family)
+MC_FAMILY_LAUNCHERS(sabr_family)
+MC_FAMILY_LAUNCHERS(term_family)
 #undef MC_FAMILY_LAUNCHERS
 
 }  // namespace mc

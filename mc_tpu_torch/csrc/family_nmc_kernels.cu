@@ -11,7 +11,8 @@
 // against its kGrids: Heston (its kernels instantiated here; its grids come
 // from heston_trajectories, heston_kernels.cu), Merton
 // (merton_nmc_kernels.cu), Bates (bates_nmc_kernels.cu), CEV
-// (cev_nmc_kernels.cu) and local vol (localvol_nmc_kernels.cu), each
+// (cev_nmc_kernels.cu), local vol (localvol_nmc_kernels.cu), SABR
+// (sabr_nmc_kernels.cu) and term structures (term_nmc_kernels.cu), each
 // family's instantiations compiled in its own source.  A later family adds
 // its struct, its launchers and a case.
 
@@ -112,6 +113,8 @@ inline int family_grids(int family_id) {
     case FAMILY_BATES: return 2;
     case FAMILY_CEV: return 1;
     case FAMILY_LOCALVOL: return 1;
+    case FAMILY_SABR: return 2;
+    case FAMILY_TERM: return 1;
     default: return -1;
   }
 }
@@ -123,7 +126,7 @@ extern "C" {
 int mc_family_block_threads() { return mc::kFamilyThreads; }
 
 // extras: the family's integer extras by value (Merton's and Bates's
-// i[0] = kmax, local vol's i[0] = K; Heston and CEV read none).
+// i[0] = kmax, local vol's i[0] = K; Heston, CEV, SABR and term read none).
 int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                     uint32_t ki1, const float* params, mc::FamilyExtras extras, int n_steps,
                     int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
@@ -150,6 +153,14 @@ int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, ui
       return mc::localvol_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras,
                                        n_steps, n_inner, n_paths, path_offset, bound, surface,
                                        outer_partials, s);
+    case mc::FAMILY_SABR:
+      return mc::sabr_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
+                                   n_inner, n_paths, path_offset, bound, surface,
+                                   outer_partials, s);
+    case mc::FAMILY_TERM:
+      return mc::term_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
+                                   n_inner, n_paths, path_offset, bound, surface,
+                                   outer_partials, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -180,14 +191,20 @@ int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
     case mc::FAMILY_LOCALVOL:
       return mc::localvol_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
                                        n_paths, path_offset, bound, g, state_grid, surface, s);
+    case mc::FAMILY_SABR:
+      return mc::sabr_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
+                                   n_paths, path_offset, bound, g, state_grid, surface, s);
+    case mc::FAMILY_TERM:
+      return mc::term_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
+                                   n_paths, path_offset, bound, g, state_grid, surface, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // grids: a host array of n_grids device pointers the kernel writes, each
 // (n_steps, n_paths) f32; partials (n_blocks, 2) f64.  Merton (#15's
-// kernel), Bates, CEV and local vol (#20's kernel); Heston stores its grids
-// with heston_trajectories.
+// kernel), Bates, CEV, local vol (#20's kernel), SABR and term; Heston
+// stores its grids with heston_trajectories.
 int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k1,
                            const float* params, mc::FamilyExtras extras, int n_steps,
                            uint32_t n_paths, uint32_t path_offset, uint32_t bound,
@@ -214,6 +231,14 @@ int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k
       return mc::localvol_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
                                               n_paths, path_offset, bound, g, state_grid,
                                               partials, n_blocks, s);
+    case mc::FAMILY_SABR:
+      return mc::sabr_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
+                                          n_paths, path_offset, bound, g, state_grid,
+                                          partials, n_blocks, s);
+    case mc::FAMILY_TERM:
+      return mc::term_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
+                                          n_paths, path_offset, bound, g, state_grid,
+                                          partials, n_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

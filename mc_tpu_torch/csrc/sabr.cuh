@@ -1,0 +1,117 @@
+// The SABR family on the device: its packed parameters, the step and the
+// family NMC struct, the twins of mc_tpu_torch/models/sabr.py (and of
+// mc_tpu/models/sabr.py:70-107, mc_tpu/nmc_sabr.py:36-108) operation for
+// operation, in the same association.  The build passes --fmad=false, so
+// each mul and add rounds as it does in the plain PyTorch version.
+//
+// SABRParams is the layout of SABR_FIELDS (17 f32).  The payoffs' Params get
+// the fields a payoff may read (s0, k, r, barrier, p1, p2, t, q, dt,
+// inv_n_steps); sigma and the GBM drift/vol coefficients are NaN, as under
+// Heston, and the entry points refuse the two payoffs that read sigma.
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kSabrFields = 17;
+
+struct SABRParams {
+  Params pay;  // the payoff's view of the contract
+  float sqrt_dt, f0, alpha, beta, nu, rho, rho_perp;
+};
+
+__device__ __forceinline__ SABRParams load_sabr(const float* __restrict__ v) {
+  const float nan = __int_as_float(0x7fc00000);
+  SABRParams c;
+  c.pay.s0 = v[0]; c.pay.k = v[1]; c.pay.r = v[2]; c.pay.barrier = v[3];
+  c.pay.p1 = v[4]; c.pay.p2 = v[5]; c.pay.t = v[6]; c.pay.q = v[7];
+  c.pay.dt = v[8]; c.pay.inv_n_steps = v[9];
+  c.pay.sigma = nan; c.pay.drift_dt = nan; c.pay.vol_dt = nan; c.pay.drift_t = nan;
+  c.pay.vol_t = nan;
+  c.sqrt_dt = v[10]; c.f0 = v[11]; c.alpha = v[12]; c.beta = v[13]; c.nu = v[14];
+  c.rho = v[15]; c.rho_perp = v[16];
+  return c;
+}
+
+// One SABR step: z_f = rho*z_vol + rho_perp*z_perp; the local lognormal vol
+// sig*exp((beta-1)*lf) at lf = log F; lf += (vol_loc*sqrt_dt)*z_f, less
+// ((0.5*vol_loc)*vol_loc)*dt; sig *= exp((nu*sqrt_dt)*z_vol -
+// ((0.5*nu)*nu)*dt), the exact lognormal factor.
+__device__ __forceinline__ void sabr_step(const SABRParams& c, float z_vol, float z_perp,
+                                          float& lf, float& sig) {
+  const float z_f = c.rho * z_vol + c.rho_perp * z_perp;
+  const float vol_loc = sig * expf((c.beta - 1.0f) * lf);
+  lf = (lf + (vol_loc * c.sqrt_dt) * z_f) - ((0.5f * vol_loc) * vol_loc) * c.pay.dt;
+  sig = sig * expf((c.nu * c.sqrt_dt) * z_vol - ((0.5f * c.nu) * c.nu) * c.pay.dt);
+}
+
+// SABR for the family NMC engine (mc_tpu/nmc_sabr.py:36-108): grids (F,
+// sig), no extras.  The outer path starts from log(f0) and alpha (the
+// forward, not the spot), step j draws pair (id, j), and the carry keeps
+// the rounded F = exp(log F) the step stored, which the outer payoff reads.
+// The inner leg resumes from (log F_t, sig_t), substep u on pair c_base + u,
+// and pays on exp(log F) (at the last row on exp(log F_T)).
+struct SABRFamily {
+  using Params = SABRParams;
+  static constexpr int kGrids = 2;
+
+  template <class Payoff>
+  struct Carry {
+    float lf, sig, f;  // log F, the vol, F = exp(log F)
+    typename Payoff::State st;
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras&, int) {
+    return load_sabr(params);
+  }
+  __device__ static const mc::Params& payoff_params(const Params& c) { return c.pay; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& c) {
+    return Carry<Payoff>{logf(c.f0), c.alpha, c.f0, Payoff::init(c.pay)};
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& o) {
+    float z_vol, z_perp;
+    normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j), z_vol, z_perp);
+    sabr_step(c, z_vol, z_perp, o.lf, o.sig);
+    o.f = expf(o.lf);
+    o.st = Payoff::update(o.st, o.f, c.pay);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {
+    g[0] = o.f;
+    g[1] = o.sig;
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& c, const Carry<Payoff>& o) {
+    return Payoff::terminal(o.st, o.f, c.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    float lf = logf(g[0]), sig = g[1];
+    for (int u = 0; u < remaining; ++u) {
+      float z_vol, z_perp;
+      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(u), z_vol, z_perp);
+      sabr_step(c, z_vol, z_perp, lf, sig);
+      st = Payoff::update(st, expf(lf), c.pay);
+    }
+    return Payoff::terminal(st, expf(lf), c.pay);
+  }
+  __device__ static float point_scale(const Params& c, const float (&)[kGrids]) {
+    return expf(-c.pay.r * c.pay.t);  // the full e^{-rT}
+  }
+  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+    return static_cast<uint32_t>(n_steps);  // one pair per substep
+  }
+};
+
+}  // namespace mc

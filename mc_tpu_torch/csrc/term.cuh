@@ -1,0 +1,136 @@
+// The term-structure family on the device: its packed curves, the log-Euler
+// step and the family NMC struct, the twins of mc_tpu_torch/models/term.py
+// (and of mc_tpu/models/term.py:83-137, mc_tpu/nmc_term.py:36-115) operation
+// for operation, in the same association.  The build passes --fmad=false, so
+// each mul and add rounds as it does in the plain PyTorch version.
+//
+// The packed vector is 11 + 2*n_steps f32:
+//   [s0, k, t, barrier, p1, p2, q, dt, inv_n_steps, r_bar, sigma_bar,
+//    drift_dt(n_steps), vol_sdt(n_steps)]
+// so the kernels read it by pointer, with n_steps a runtime integer.  The
+// payoffs' Params take the head's fields (r and sigma the averaged curves,
+// which the Brownian-bridge barriers read); the GBM drift/vol coefficients
+// are NaN.
+//
+// The curves stay in global memory: at step j every thread of a block (of a
+// warp, in lockstep) reads the same two floats, drift_dt[j] and vol_sdt[j],
+// so each is one broadcast load served from L1 (800 bytes at n_steps = 100,
+// against local vol's 3(K-1)+1 loads a step); staging them in shared memory
+// would take the same load/store units and buy nothing a first version
+// needs.
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kTermHead = 11;
+
+struct TermParams {
+  Params pay;            // the payoff's view of the contract
+  const float* drift;    // drift_dt[n_steps]
+  const float* vol;      // vol_sdt[n_steps]
+  int n_steps;
+};
+
+__device__ __forceinline__ TermParams load_term(const float* __restrict__ v, int n_steps) {
+  const float nan = __int_as_float(0x7fc00000);
+  TermParams c;
+  c.pay.s0 = v[0]; c.pay.k = v[1]; c.pay.t = v[2]; c.pay.barrier = v[3];
+  c.pay.p1 = v[4]; c.pay.p2 = v[5]; c.pay.q = v[6]; c.pay.dt = v[7];
+  c.pay.inv_n_steps = v[8]; c.pay.r = v[9]; c.pay.sigma = v[10];
+  c.pay.drift_dt = nan; c.pay.vol_dt = nan; c.pay.drift_t = nan; c.pay.vol_t = nan;
+  c.drift = v + kTermHead;
+  c.vol = v + kTermHead + n_steps;
+  c.n_steps = n_steps;
+  return c;
+}
+
+// One log-Euler step on the curves' entry j: w = w + (drift_dt[j] +
+// vol_sdt[j]*z), S = s0*exp(w), the payoff state updated.
+template <class Payoff>
+__device__ __forceinline__ void term_step(const TermParams& c, int j, float z, float& w,
+                                          float& s, typename Payoff::State& st) {
+  w = w + (c.drift[j] + c.vol[j] * z);
+  s = c.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, c.pay);
+}
+
+// Term structures for the family NMC engine (mc_tpu/nmc_term.py:36-115):
+// grid S, no extras (the device load gets n_steps).  The outer step j draws
+// pair (id, j/2) at even j, parks the odd step's normal in the carry and
+// carries the rounded S the step stored, which the outer payoff reads.  The
+// inner leg at row j resumes from w0 = log(S_t / s0), recomputes S =
+// s0*exp(w) at every substep and pays on it (at the last row on
+// s0*exp(log(S_T/s0))); its substep 2q takes the curves' entry j+1+2q (j+1 =
+// n_steps - remaining), pair q of counter c_base + q, the odd one taken only
+// while 2q+1 < remaining (block-uniform: mc_tpu's take2, whose clamped
+// overrun entry is never used).
+struct TermFamily {
+  using Params = TermParams;
+  static constexpr int kGrids = 1;
+
+  template <class Payoff>
+  struct Carry {
+    float w, s;
+    typename Payoff::State st;
+    float z_next;
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras&,
+                                int n_steps) {
+    return load_term(params, n_steps);
+  }
+  __device__ static const mc::Params& payoff_params(const Params& c) { return c.pay; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& c) {
+    return Carry<Payoff>{0.0f, c.pay.s0, Payoff::init(c.pay), 0.0f};
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& o) {
+    float z;
+    if ((j & 1) == 0) {
+      normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j >> 1), z, o.z_next);
+    } else {
+      z = o.z_next;
+    }
+    term_step<Payoff>(c, j, z, o.w, o.s, o.st);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {
+    g[0] = o.s;
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& c, const Carry<Payoff>& o) {
+    return Payoff::terminal(o.st, o.s, c.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    float w = logf(g[0] / c.pay.s0);  // the absolute log-moneyness at the point
+    float s = c.pay.s0 * expf(w);
+    const int row = c.n_steps - remaining;  // j + 1
+    for (int q = 0; 2 * q < remaining; ++q) {
+      float z0, z1;
+      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(q), z0, z1);
+      term_step<Payoff>(c, row + 2 * q, z0, w, s, st);
+      if (2 * q + 1 < remaining) term_step<Payoff>(c, row + 2 * q + 1, z1, w, s, st);
+    }
+    return Payoff::terminal(st, s, c.pay);
+  }
+  __device__ static float point_scale(const Params& c, const float (&)[kGrids]) {
+    return expf(-c.pay.r * c.pay.t);  // the full e^{-r_bar T}
+  }
+  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+    return static_cast<uint32_t>(n_steps + 1) / 2u;  // one pair per two substeps
+  }
+};
+
+}  // namespace mc

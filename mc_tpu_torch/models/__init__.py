@@ -6,6 +6,9 @@ jump-diffusion, the exact terminal draw and the Euler loop, with its (S,
 state) trajectories.  ``bates``: Bates SVJ, Heston's schemes with Merton's
 jump.  ``cev``: CEV local vol, level-space Euler with an absorbing zero.
 ``localvol``: a sigma(S, t) knot surface, log-Euler, with its (S, state)
-trajectories.  The other families of ``mc_tpu/models/`` are still to port
+trajectories.  ``sabr``: SABR, the log-forward under a CEV backbone and an
+exact lognormal vol.  ``term``: per-step rate and vol curves.
+``dividends``: GBM with discrete cash dividends.  The other families of
+``mc_tpu/models/`` (Vasicek, basket, rainbow, FX) are still to port
 (ROADMAP.md queue B, item 13).
 """

@@ -79,10 +79,6 @@ FAMILY_LOCALVOL = 4
 HEAD_FIELDS = ("s0", "k", "t", "barrier", "p1", "p2", "q", "dt",
                "inv_n_steps", "r", "sigma")
 SIGMA_FLOOR = 1e-4
-# Paths per chunk of the plain versions on the CPU: a chunk's (K-1, paths)
-# ramps then stay in cache (3-5x faster than one 2^20-path chunk); the card
-# takes pk.PLAIN_CHUNK, fewer launches.
-CPU_CHUNK = 1 << 14
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,10 +281,6 @@ def check_localvol_params(params: torch.Tensor, n_knots: int,
 # ---------------------------------------------------------------------------
 
 
-def _chunk(params: torch.Tensor) -> int:
-    return pk.PLAIN_CHUNK if params.is_cuda else CPU_CHUNK
-
-
 def _pair_normals(k0, k1, ids, n_steps: int, rounds: int = 13):
     """Every pair's normals at once: z0[m], z1[m] for steps 2m, 2m+1."""
     return rng.normal_pair(k0, k1, ids,
@@ -325,7 +317,7 @@ def localvol_partials_plain(payoff: PathPayoff, cfg: LocalVolConfig, key,
     rows = []
     for _, _, ids, valid, _ in pk.path_chunks(cfg.path_config(), key, params,
                                               path_offset, bound,
-                                              _chunk(params)):
+                                              pk.plain_chunk(params)):
         pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), k0, k1,
                                       ids), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
@@ -348,7 +340,7 @@ def localvol_trajectories_plain(payoff: PathPayoff, cfg: LocalVolConfig, key,
     rows = []
     for start, stop, ids, valid, _ in pk.path_chunks(
             cfg.path_config(), key, params, path_offset, bound,
-            _chunk(params)):
+            pk.plain_chunk(params)):
         zero = torch.zeros_like(ids, dtype=torch.float32)
         w, s, state = zero, zero + p.s0, payoff.init(p, zero)
         z0, z1 = _pair_normals(k0, k1, ids, cfg.n_steps)

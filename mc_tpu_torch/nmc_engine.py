@@ -5,8 +5,9 @@ A family supplies its physics through `NMCFamily` (parameter packing, its
 integer ``extras``, the trajectories that store its outer state grids, the
 plain inner leg and its discounting); the engine owns the rest: the entry
 guards, the keys, the f32 Kahan inner sum and the two strategies.  Heston,
-Merton, Bates, CEV and local vol are registered; the other families of
-``mc_tpu`` are still to port (ROADMAP.md queue B, item 14).
+Merton, Bates, CEV, local vol, SABR and term structures are registered; the
+other families of ``mc_tpu`` (Vasicek, basket, rainbow) are still to port
+(ROADMAP.md queue B, item 14).
 
 Three kernel templates over a device-side family struct (``csrc/family.cuh``;
 each family's instantiations compiled in its own source, the entry points
@@ -18,9 +19,10 @@ in ``csrc/family_nmc_kernels.cu``):
 * ``family_fused`` (replaces ``family_fused_kernel``,
   ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself;
 * ``family_trajectories``: stores the outer grids of a family without a
-  trajectories kernel of its own (Bates and CEV; the port's counterpart of
-  ``mc_tpu``'s XLA scan ``xla_family_trajectories``), stepping the family's
-  outer step, the fused kernel's, so the grid and fused strategies agree.
+  trajectories kernel of its own (Bates, CEV, SABR and term; the port's
+  counterpart of ``mc_tpu``'s XLA scan ``xla_family_trajectories``),
+  stepping the family's outer step, the fused kernel's, so the grid and
+  fused strategies agree.
 
 For outer path i and step j, surface[j, i] = point_scale * (1/n_inner) *
 the f32 Kahan sum over m = 0..n_inner-1, in that order, of inner leg m
@@ -496,7 +498,9 @@ FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston",
                   "merton": "mc_tpu_torch.nmc_merton",
                   "bates": "mc_tpu_torch.nmc_bates",
                   "cev": "mc_tpu_torch.nmc_cev",
-                  "localvol": "mc_tpu_torch.nmc_localvol"}
+                  "localvol": "mc_tpu_torch.nmc_localvol",
+                  "sabr": "mc_tpu_torch.nmc_sabr",
+                  "term": "mc_tpu_torch.nmc_term"}
 
 
 def register_nmc_family(name: str, price_fn, builder=None) -> None:

@@ -50,7 +50,8 @@ KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "sum_sumsq", "heston_partials", "heston_trajectories",
            "family_inner", "family_fused", "merton_partials",
            "merton_trajectories", "bates_partials", "family_trajectories",
-           "cev_partials", "localvol_partials", "localvol_trajectories")
+           "cev_partials", "localvol_partials", "localvol_trajectories",
+           "sabr_partials", "term_partials", "divs_partials")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -86,6 +87,9 @@ _SIGNATURES = {
     "mc_bates_block_threads": ([], _c_int),
     "mc_cev_block_threads": ([], _c_int),
     "mc_localvol_block_threads": ([], _c_int),
+    "mc_sabr_block_threads": ([], _c_int),
+    "mc_term_block_threads": ([], _c_int),
+    "mc_divs_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -179,6 +183,20 @@ _SIGNATURES = {
     "mc_localvol_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
                               _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
                               _c_int, _c_ptr], _c_int),
+    # payoff_id, rounds, antithetic, k0, k1, params, n_steps, n_paths,
+    # path_offset, bound, partials, n_blocks, stream
+    "mc_sabr_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                          _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_int,
+                          _c_ptr], _c_int),
+    # payoff_id, antithetic, k0, k1, params, n_steps, n_paths, path_offset,
+    # bound, partials, n_blocks, stream (term: 11 + 2*n_steps params; divs:
+    # 13 + n_steps)
+    "mc_term_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                          _c_u32, _c_u32, _c_u32, _c_ptr, _c_int, _c_ptr],
+                         _c_int),
+    "mc_divs_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                          _c_u32, _c_u32, _c_u32, _c_ptr, _c_int, _c_ptr],
+                         _c_int),
 }
 
 _lock = threading.Lock()

@@ -66,6 +66,10 @@ PARAM_FIELDS = (
 
 # Paths per chunk of the plain versions: bounds their temporaries.
 PLAIN_CHUNK = 1 << 20
+# Paths per chunk of the families' plain versions on the CPU: a chunk's
+# step temporaries then stay in cache (3-5x faster than one 2^20-path
+# chunk); the card takes PLAIN_CHUNK, fewer launches.
+CPU_CHUNK = 1 << 14
 # Bytes of the normals the plain book keeps per chunk, replayed per contract.
 PLAIN_BOOK_DRAW_BYTES = 1 << 28
 
@@ -347,6 +351,11 @@ def _terminal_pair_vals(payoff, p, ids_e, bound_paths: int, z0, z1):
 def moment_row(vals) -> torch.Tensor:
     """One chunk's row of partials: the f64 sum of each per-path value."""
     return torch.stack([v.double().sum() for v in vals])
+
+
+def plain_chunk(params: torch.Tensor) -> int:
+    """Paths per chunk of a family's plain version on ``params``' device."""
+    return PLAIN_CHUNK if params.is_cuda else CPU_CHUNK
 
 
 def path_chunks(cfg: KernelConfig, key, params, path_offset: int = 0,

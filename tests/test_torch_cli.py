@@ -419,3 +419,117 @@ def test_cev_localvol_entry_points_default_to_cuda():
                     (mt.price_nmc_localvol, surf)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(mt.DEMO_OPTION, dyn, sim)
+
+
+def test_sabr_subcommand_prints_mc_tpus_keys(capsys):
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    assert cli.main(["sabr", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "20", "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["hagan_implied_vol", "hagan_oracle",
+                           "mc_implied_vol", "payoff", "price", "stderr"]
+    # tests/test_sabr.py's gate: MC noise + the expansion's ~1%
+    assert abs(res["price"] - res["hagan_oracle"]) <= (
+        4 * res["stderr"] + 0.01 * res["hagan_oracle"])
+    assert res["mc_implied_vol"] == pytest.approx(res["hagan_implied_vol"],
+                                                  abs=0.01)
+    argv = ["sabr", "--device", "cpu", "--n-paths", "4096", "--n-steps", "8",
+            "--payoff", "asian_call", "--alpha", "0.3", "--beta", "0.7",
+            "--nu", "0.6", "--rho-fv", "0.2"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["payoff", "price", "stderr"]
+    want = mt.price_sabr(mt.OptionParams(), mt.SABRDynamics(0.3, 0.7, 0.6,
+                                                            0.2),
+                         mt.SimParams(n_paths=4096, n_steps=8), "asian_call",
+                         device="cpu")
+    assert res["price"] == float(want.price)
+
+
+def test_term_subcommand_prints_mc_tpus_keys(capsys):
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    assert cli.main(["term", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "20", "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["oracle", "payoff", "price", "rate_knots",
+                           "sigma_knots", "stderr", "z_score"]
+    assert abs(res["z_score"]) < 3.5  # exact in law
+    assert res["rate_knots"] == [0.1, 0.07, 0.05]
+    argv = ["term", "--device", "cpu", "--n-paths", "4096", "--n-steps", "8",
+            "--payoff", "asian_call", "--rate-knots", "0.02,0.08",
+            "--sigma-knots", "0.4,0.1"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "oracle" not in res
+    want = mt.price_term(mt.OptionParams(), mt.TermStructure.from_knots(
+        [0.02, 0.08], [0.4, 0.1], 8), mt.SimParams(n_paths=4096, n_steps=8),
+        "asian_call", device="cpu")
+    assert res["price"] == float(want.price)
+
+
+def test_divs_subcommand_prints_mc_tpus_keys(capsys):
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    assert cli.main(["divs", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "50"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["dividends", "payoff", "price",
+                           "quadrature_oracle", "stderr", "z_score"]
+    assert res["dividends"] == [[24, 5.0]] and abs(res["z_score"]) < 3.5
+    argv = ["divs", "--device", "cpu", "--n-paths", "4096", "--n-steps", "8",
+            "--div-steps", "1,5", "--div-amounts", "2.5,4"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "quadrature_oracle" not in res  # two payments: no oracle
+    want = mt.price_divs(mt.OptionParams(), mt.div_schedule(8, [1, 5],
+                                                            [2.5, 4.0]),
+                         mt.SimParams(n_paths=4096, n_steps=8), device="cpu")
+    assert res["price"] == float(want.price)
+    with pytest.raises(SystemExit, match="pair up"):
+        cli.main(["divs", "--device", "cpu", "--div-steps", "1,2",
+                  "--div-amounts", "3"])
+
+
+@pytest.mark.parametrize("model", ["sabr", "term"])
+def test_nmc_model_sabr_term_is_its_price_nmc(model, capsys):
+    """nmc --model sabr builds SABRDynamics(--alpha, --nu, rho=--rho-sv),
+    as mc_tpu's; --model term prices mc_tpu's default curves; each through
+    price_nmc_<model>, bit for bit."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", model, "--strategy", "grid", "--exposure",
+            "--cva-hazard", "0.02", "--payoff", "vanilla_call", "--device",
+            "cpu", "--n-paths", "256", "--n-steps", "6", "--n-inner", "8",
+            "--alpha", "0.3", "--nu", "0.6", "--rho-sv", "-0.2"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    sim = mt.SimParams(n_paths=256, n_steps=6, n_paths_inner=8)
+    if model == "sabr":
+        want = mt.price_nmc_sabr(mt.OptionParams(),
+                                 mt.SABRDynamics(alpha=0.3, nu=0.6, rho=-0.2),
+                                 sim, strategy="grid", device="cpu")
+    else:
+        want = mt.price_nmc_term(sim=sim, strategy="grid", device="cpu")
+    assert res["outer_price"] == float(want.outer.price)
+    assert res["surface_mean"] == float(want.surface_mean)
+    assert len(res["expected_exposure"]) == 6 and res["cva"] > 0
+
+
+def test_sabr_term_divs_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    term = mt.TermStructure.from_knots([0.1], [0.2], 4)
+    for fn, dyn in ((mt.price_sabr, mt.DEMO_SABR),
+                    (mt.price_nmc_sabr, mt.DEMO_SABR),
+                    (mt.price_term, term), (mt.price_nmc_term, term),
+                    (mt.price_divs, None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, dyn, sim)

@@ -12,7 +12,8 @@ Tolerances: those of tests/test_torch_nmc_cev.py.  Inside the port, grid ==
 fused bitwise and the outer price is price_localvol's on the outer key to
 f64 rounding.  The inner legs pay on a spot recomputed from its log, so the
 last row is the discounted payoff of s0*exp(log(S_T/s0)), not of S_T
-(``mc_tpu/nmc_localvol.py:87,112``).  The statistical cases of
+(``mc_tpu/nmc_localvol.py:87,112``); the test holds the plain leg to that
+on spots whose round trip this host's exp/log moves.  The statistical cases of
 tests/test_nmc_localvol.py run at mc_tpu's sizes and tolerances.
 """
 
@@ -29,7 +30,8 @@ from mc_tpu_torch import convert, rng
 from mc_tpu_torch.models import localvol as tl
 from mc_tpu_torch.nmc_engine import (NMC_FAMILIES, NMC_FAMILY_BUILDERS,
                                      FamilyConfig, ensure_family,
-                                     family_fused, price_nmc_family)
+                                     family_fused, family_rows_plain,
+                                     price_nmc_family)
 from mc_tpu_torch.nmc_localvol import LocalVolNMC, price_nmc_localvol
 from mc_tpu_torch.ops.payoffs import get_payoff
 
@@ -128,6 +130,17 @@ def test_grid_is_localvol_trajectories(both):
     assert torch.equal(res["grid"].spot_surface, s)
 
 
+def round_trip_spots(s0: float, lo: float = 101.0, hi: float = 200.0):
+    """Spots x in the money whose f32 round trip s0*exp(log(x/s0)) differs
+    from x on this host (its exp/log), with that round trip: ``(x, rt)``.
+    A dense grid over [lo, hi] gives some on any host."""
+    x = torch.linspace(lo, hi, 1 << 16, dtype=torch.float32)
+    rt = s0 * torch.exp(torch.log(x / s0))
+    off = rt != x
+    assert bool(off.any()), "no spot of the grid is off after its round trip"
+    return x[off], rt[off]
+
+
 def test_last_step_pays_on_the_recomputed_spot(both):
     _, surf, res = both
     g = res["grid"]
@@ -135,7 +148,18 @@ def test_last_step_pays_on_the_recomputed_spot(both):
     s = p.s0 * torch.exp(torch.log(g.spot_surface[-1] / p.s0))
     want = torch.exp(-p.r * p.t) * torch.clamp(s - p.k, min=0.0)
     assert torch.equal(g.surface[-1], want)
-    assert not torch.equal(s, g.spot_surface[-1])  # an ulp off on some paths
+    # The plain inner leg on a last row of spots that the round trip moves:
+    # it pays on the round-tripped spot, not on the stored one.
+    x, rt = round_trip_spots(float(p.s0))
+    cfg = FamilyConfig(n_paths=x.numel(), n_steps=8, n_inner=1)
+    grid = x.expand(8, -1).contiguous()
+    row = family_rows_plain(LocalVolNMC(extras=(11,)),
+                            get_payoff("vanilla_call"), cfg, (3, 4),
+                            tl.pack_localvol(OPT, surf, 8, "cpu"), (grid,),
+                            torch.zeros_like(grid), [7])[0]
+    disc = torch.exp(-p.r * p.t)
+    assert torch.equal(row, disc * torch.clamp(rt - p.k, min=0.0))
+    assert not torch.equal(row, disc * torch.clamp(x - p.k, min=0.0))
 
 
 def test_guards():
