@@ -30,8 +30,13 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    antithetic, 1M x 100), the term-structure and cash-dividend kernels (18
    payoffs each, on steep curves and two payments, antithetic, 1M x 100),
    the generic trajectories under SABR and term and their family NMC
-   kernels; their sums to f64 rounding and their grids and surfaces bit for
-   bit (every NMC against the plain rows 0 and 99 at the main shape);
+   kernels; the Vasicek kernel (18 payoffs, threefry-13 and -20,
+   antithetic, 1M x 100), the Vasicek trajectories, the basket kernel (18
+   payoffs at d = 4, the call at d = 1, 8, 9 and 32, antithetic, 1M x 100),
+   the basket's (B, state) trajectories at 100,000 x 100, the generic
+   trajectories of its d asset grids and both families' NMC kernels; their
+   sums to f64 rounding and their grids and surfaces bit for bit (every NMC
+   against the plain rows 0 and 99 at the main shape);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -69,8 +74,16 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    quadrature price and with two against put-call parity on the scheme's
    forward, every payoff at 100,000 x 100, the SABR and term NMC at 16,384
    x 100 x 500 by both strategies with their XVA figures, and the
-   ``sabr``, ``term``, ``divs`` and ``nmc --model`` commands;
-4. the kernels' launch counts over each of the nine paths;
+   ``sabr``, ``term``, ``divs`` and ``nmc --model`` commands; then, the
+   counts set to 0 before each, the Vasicek and basket paths:
+   price_vasicek at 1M x 100 against Merton's (1973) call and the affine
+   bond, price_basket at d = 1 and at perfect correlation against
+   Black-Scholes, every payoff at 100,000 x 100, both NMCs at 16,384 x 100
+   x 500 by both strategies (grid == fused, the outer price, the last row,
+   the tower property) with the bond's EE flat at P(0,T) and the Margrabe
+   exchange EE flat at its closed form, their XVA figures, and the
+   ``vasicek``, ``basket`` and ``nmc --model`` commands;
+4. the kernels' launch counts over each of the eleven paths;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up; 3 for this slice's NMC kernels and calls and 1 for the
    earlier ones', warm from phases 2 and 3; the plain versions once), the
@@ -81,12 +94,15 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    kernels of the same shapes, the Merton and Bates kernels beside the
    Heston kernels of their shapes, the CEV and local-vol kernels beside
    the Heston and Merton kernels of their shapes, the SABR kernels beside
-   Heston's and the term and dividend kernels beside CEV's, and end-to-end
+   Heston's, the term and dividend kernels beside CEV's, the Vasicek
+   kernels beside Merton's and the basket kernels beside Heston's, and
+   end-to-end
    times of the phase-3 calls (greeks() by route, chunked_price(),
    price_heston(), price_nmc_heston(), price_merton(), price_bates(),
    price_nmc_merton(), price_nmc_bates(), price_cev(), price_localvol(),
    price_nmc_cev(), price_nmc_localvol(), price_sabr(), price_term(),
-   price_divs(), price_nmc_sabr(), price_nmc_term());
+   price_divs(), price_nmc_sabr(), price_nmc_term(), price_vasicek(),
+   price_nmc_vasicek(), price_basket(), price_nmc_basket());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -144,8 +160,8 @@ PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
 HESTON_PAYOFF_MAIN = PAYOFF_MAIN     # #13's shape
 NMC_REPS = 3                         # phase 5: NMC calls take 0.1-0.6 s
 # Phase 5: one rep for the earlier slices' NMC kernels and calls (GBM,
-# Heston, Merton, Bates, CEV, local vol: steady within 0.5% from run to run,
-# PERF.md section 2).
+# Heston, Merton, Bates, CEV, local vol, SABR, term: steady within 0.5% from
+# run to run, PERF.md section 2).
 EARLIER_NMC_REPS = 1
 HESTON_KERNELS = ("heston_partials", "heston_trajectories", "family_inner",
                   "family_fused")
@@ -170,6 +186,11 @@ SABR_KERNELS = ("sabr_partials", "family_trajectories", "family_inner",
 TERM_KERNELS = ("term_partials", "family_trajectories", "family_inner",
                 "family_fused")
 DIVS_KERNELS = ("divs_partials",)
+VASICEK_KERNELS = ("vasicek_partials", "vasicek_trajectories", "family_inner",
+                   "family_fused")
+BASKET_KERNELS = ("basket_partials", "family_trajectories", "family_inner",
+                  "family_fused", "basket_trajectories")
+GRID_PATHS = 100_000                 # #26: the (B, state) grids, 100 steps
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -439,11 +460,13 @@ def ptxas_registers(log: str) -> dict:
             b = re.match(r"ILb(\d)E", rest)  # sum_kernel<bool>
             payoff = (rest[p.end():p.end() + int(p.group(1))] if p
                       else f"bool{b.group(1)}" if b else None)
-            f = re.match(r"ENS_(\d+)", rest[p.end() + len(payoff):]) if p else None
-            if f and payoff.endswith("Family"):  # kernel<Family, Payoff>
-                kernel = f"{kernel}<{payoff}>"
+            f = (re.match(r"(?:ILi(\d+)EE)?ENS_(\d+)",
+                          rest[p.end() + len(payoff):]) if p else None)
+            if f and payoff.endswith("Family"):  # kernel<Family[<N>], Payoff>
+                cap = f"<{f.group(1)}>" if f.group(1) else ""
+                kernel = f"{kernel}<{payoff}{cap}>"
                 at = p.end() + len(payoff) + f.end()
-                payoff = rest[at:at + int(f.group(1))]
+                payoff = rest[at:at + int(f.group(2))]
             r = re.search(r"ELi(\d+)E", rest)
             entry = (kernel, payoff, int(r.group(1)) if r else None)
             continue
@@ -990,23 +1013,30 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
 
 def family_main_path(mt, dev, _cuda, family):
     """Phase 3 of a model family ("heston", "merton", "bates", "cev",
-    "localvol", "sabr", "term" or "divs") at full width: the call at 1M (x
-    100) against its oracle by each scheme, method, gate surface or
-    dynamics, with and without the antithetic twin (and, for dividends,
-    two-payment put-call parity against the scheme's forward), every payoff
-    at 100,000 x 100 with ordering and parity gates, the NMC at NMC_MAIN by
-    both strategies (grid == fused bitwise, the outer price == the family's
-    price on the outer key up to f64 sums, the last step, the tower
-    property: every column of the surface, the call's EE profile, flat at
-    the time-0 price), its XVA figures and the family's two CLI commands
-    (dividends have no NMC: its one command).  The launch counts are set to
-    0 before it and read after it: {kernel: launches}."""
+    "localvol", "sabr", "term", "divs", "vasicek" or "basket") at full
+    width: the call at 1M (x 100) against its oracle by each scheme, method,
+    gate surface or dynamics (Vasicek's bond too), with and without the
+    antithetic twin (and, for dividends, two-payment put-call parity against
+    the scheme's forward), every payoff at 100,000 x 100 with ordering and
+    parity gates, the basket's (B, state) trajectories at 100,000 x 100, the
+    NMC at NMC_MAIN by both strategies (grid == fused bitwise, the outer
+    price == the family's price on the outer key up to f64 sums, the last
+    step, the tower property: every column of the surface, the call's EE
+    profile, flat at the time-0 price; Vasicek's bond EE flat at P(0,T),
+    the basket's Margrabe exchange EE flat at its closed form), its XVA
+    figures and the family's two CLI commands (dividends have no NMC: its
+    one command).  The launch counts are set to 0 before it and read after
+    it: {kernel: launches}."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch import rng
+    from mc_tpu_torch.models import basket as bm
     from mc_tpu_torch.models import dividends as dm
     from mc_tpu_torch.models import localvol as lm
     from mc_tpu_torch.models import term as tm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
     from mc_tpu_torch.oracle import bs_call
-    from mc_tpu_torch.ops.payoffs import PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
 
     _cuda.reset_launch_counts()
     option = o = mt.DEMO_OPTION
@@ -1066,6 +1096,31 @@ def family_main_path(mt, dev, _cuda, family):
                       float(np.sqrt((sg * sg).mean())), o.q)
         gates = [("curves vs averaged BS", dyn, {}, ref, 4.0, 0.0)]
         names, kernels = sorted(PAYOFFS), TERM_KERNELS
+    elif family == "vasicek":
+        dyn, price_fn, nmc_fn = (mt.DEMO_VASICEK, mt.price_vasicek,
+                                 mt.price_nmc_vasicek)
+        a, b, sr, rho = dyn.astuple()
+        ref = mt.bsv_call(o.s0, o.k, o.t, o.r, o.sigma, a, b, sr, rho, o.q)
+        # exact in law at any step count: tests/test_vasicek.py's 3.5 se
+        gates = [("call vs Merton 1973", dyn, {}, ref, 3.5, 0.0),
+                 ("zcb vs the affine bond", dyn, dict(payoff="zcb"),
+                  mt.vasicek_zcb(o.r, a, b, sr, o.t), 3.5, 0.0)]
+        names, kernels = sorted(PAYOFFS), VASICEK_KERNELS
+    elif family == "basket":
+        dyn, price_fn, nmc_fn = (mt.DEMO_BASKET, mt.price_basket,
+                                 mt.price_nmc_basket)
+        one = mt.BasketDynamics(*(np.array(v, np.float32) for v in (
+            [o.s0], [0.2], [1.0], [[1.0]])))
+        perfect = mt.BasketDynamics(
+            np.full(3, o.s0, np.float32), np.full(3, 0.2, np.float32),
+            np.full(3, 1.0 / 3, np.float32), np.ones((3, 3), np.float32))
+        bs = bs_call(o.s0, o.k, o.t, o.r, 0.2, o.q)
+        # tests/test_basket.py: log-Euler is exact in law, 4 se
+        gates = [("d=1 vs BS", one, {}, bs, 4.0, 0.0),
+                 ("perfect correlation d=3 vs BS", perfect, {}, bs, 4.0,
+                  0.0)]
+        ref = None  # the demo basket: its 1M-path price
+        names, kernels = sorted(PAYOFFS), BASKET_KERNELS
     elif family == "divs":
         dyn, price_fn, nmc_fn = (mt.div_schedule(
             MAIN_STEPS, [MAIN_STEPS // 2 - 1], [5.0]), mt.price_divs, None)
@@ -1145,6 +1200,10 @@ def family_main_path(mt, dev, _cuda, family):
     d_inout = abs(float(pay["down_in_call"].price)
                   + float(pay["down_out_call"].price) - van_down)
     disc = math.exp(-r32 * float(np.float32(option.t)))
+    zcb_ok = float(pay["zcb"].price) == disc
+    if family == "vasicek":  # discounted pathwise: the bond's own price
+        disc = float(pay["zcb"].price)
+        zcb_ok = abs(disc - gates[1][3]) <= 4.0 * float(pay["zcb"].stderr)
     d_dig = abs(float(pay["digital_call"].price)
                 + float(pay["digital_put"].price) - disc)
     # on the same paths the bridge weight is at most the discrete flag
@@ -1164,9 +1223,37 @@ def family_main_path(mt, dev, _cuda, family):
             and 0.0 < float(pay["asian_call"].price) < van
             and 0.0 < float(pay["up_out_call"].price) < van
             and d_inout <= 1e-12 * van_down and d_dig <= 2e-6 * disc
-            and float(pay["zcb"].price) == disc and bridge_ok):
+            and zcb_ok and bridge_ok):
         fail(f"a {family} payoff is not finite or breaks its ordering or "
              "parity gate")
+    if family == "basket":  # #26: the (B, state) grids the basket LSMC reads
+        bullet = get_payoff("bullet_call")
+        bkey = rng.derive_key(5, 0, bm.BASKET_TAG)
+        cfg = bm.BasketConfig(n_paths=GRID_PATHS, n_steps=MAIN_STEPS,
+                              d=dyn.d)
+        b_grid, st_grid, parts = bm.basket_trajectories(
+            bullet, cfg, bkey, bm.pack_basket(option, dyn, MAIN_STEPS, dev))
+        traj_price = mt.engines.finish_price(finish_sum(parts), GRID_PATHS,
+                                             option)
+        own = price_fn(option, dyn, mt.SimParams(n_paths=GRID_PATHS,
+                                                 n_steps=MAIN_STEPS),
+                       "bullet_call", key=bkey, device=DEVICE)
+        d_traj = abs(float(traj_price.price) - float(own.price))
+        counts = st_grid[-1]
+        print(f"phase 3: basket_trajectories bullet {GRID_PATHS}x{MAIN_STEPS}"
+              f": price {float(traj_price.price):.6f} vs price_basket on the "
+              f"same key {float(own.price):.6f} (|d| {d_traj:.3e}); B grid "
+              f"min {float(b_grid.min()):.4f} max {float(b_grid.max()):.4f};"
+              f" barrier counts at T in [{float(counts.min()):g}, "
+              f"{float(counts.max()):g}]")
+        if not (d_traj <= SUMS_RTOL * abs(float(own.price))
+                and bool(torch.isfinite(b_grid).all())
+                and float(b_grid.min()) > 0.0
+                and bool((counts == counts.round()).all())
+                and 0.0 <= float(counts.min()) <= float(counts.max())
+                <= MAIN_STEPS):
+            fail("the basket trajectories disagree with price_basket or "
+                 "their grids are off")
     if nmc_fn is None:  # dividends: no NMC; the divs command
         c = run_cli(["divs", "--device", DEVICE])
         print(f"phase 3: python -m mc_tpu_torch divs --device {DEVICE}: {c}")
@@ -1197,12 +1284,27 @@ def family_main_path(mt, dev, _cuda, family):
     p32 = mt.engines.pk.unpack_params(mt.engines.pk.pack_params(
         option, n_steps, dev))
     s_last = grid.spot_surface[-1]
-    if family in ("localvol", "term"):  # pays on s0*exp(log(S_T/s0))
+    if family in ("vasicek", "basket"):
+        # the last row prices from every grid (y's discount, the d assets):
+        # the plain leg on the outer grids, which equal the kernels' bit
+        # for bit (phase 2)
+        fam, dyn32 = ne.NMC_FAMILY_BUILDERS[family](option, dyn, nsim)
+        ncfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps,
+                               n_inner=n_inner)
+        nkeys = [rng.derive_key(nsim.seed, st, fam.tag) for st in (0, 1)]
+        nprm = fam.pack(option, dyn32, n_steps, dev)
+        *g_p, st_p, _ = fam.trajectories_plain(get_payoff("vanilla_call"),
+                                               ncfg, nkeys[0], nprm)
+        want = ne.family_rows_plain(fam, get_payoff("vanilla_call"), ncfg,
+                                    nkeys[1], nprm, g_p, st_p,
+                                    [n_steps - 1])[0]
+    elif family in ("localvol", "term"):  # pays on s0*exp(log(S_T/s0))
         s_last = p32.s0 * torch.exp(torch.log(s_last / p32.s0))
     elif family == "sabr":  # the inner leg pays on exp(log(F_T))
         s_last = torch.exp(torch.log(s_last))
     r_t = torch.tensor(r32, dtype=torch.float32, device=dev)
-    want = torch.exp(-r_t * p32.t) * torch.clamp(s_last - p32.k, min=0.0)
+    if family not in ("vasicek", "basket"):
+        want = torch.exp(-r_t * p32.t) * torch.clamp(s_last - p32.k, min=0.0)
     last_ok = bool(torch.allclose(grid.surface[-1], want, rtol=1e-5, atol=0.0))
     cols = surf.double().mean(dim=0)
     tol_ref = 0.02 * ref + 4 * 0.15  # tests/test_nmc.py:147
@@ -1229,6 +1331,35 @@ def family_main_path(mt, dev, _cuda, family):
             and d_out_ref <= 4.0 * float(fused.outer.stderr) + 0.02 * ref):
         fail(f"the {family} NMC breaks grid == fused, its last step, the "
              "tower property or its outer price")
+    if family in ("vasicek", "basket"):
+        # a martingale's EE is flat at its closed form: Vasicek's bond at
+        # P(0,T); the exchange option on weights (1, -1), K = 0 at
+        # Margrabe's price (tests/test_nmc_vasicek.py's 5e-4, and
+        # test_nmc_basket.py's 4%)
+        if family == "vasicek":
+            label, flat, flat_ref = "zcb", nmc_fn(
+                option, dyn, nsim, "zcb", strategy="fused",
+                device=DEVICE), gates[1][3]
+            flat_tol = 5e-4
+        else:
+            exch = mt.BasketDynamics(*(np.array(v, np.float32) for v in (
+                [100.0, 95.0], [0.25, 0.2], [1.0, -1.0],
+                [[1.0, 0.4], [0.4, 1.0]])))
+            label, flat, flat_ref = "Margrabe exchange", nmc_fn(
+                mt.OptionParams(k=0.0), exch, nsim, strategy="fused",
+                device=DEVICE), mt.margrabe(100.0, 95.0, 1.0, 0.25, 0.2,
+                                            0.4)
+            flat_tol = 0.04 * flat_ref
+        d_flat = float((flat.exposure_profile()[0].double()
+                        - flat_ref).abs().max())
+        d_flat_mean = abs(float(flat.surface_mean) - flat_ref)
+        print(f"phase 3: price_nmc_{family} {label} fused "
+              f"{n_out}x{n_steps}x{n_inner}: EE flat at the closed form "
+              f"{flat_ref:.6f}: max |d| {d_flat:.6f}, surface mean |d| "
+              f"{d_flat_mean:.6f} (limit {flat_tol:.6f})")
+        if not (d_flat < flat_tol and d_flat_mean < flat_tol):
+            fail(f"the {family} NMC's {label} exposure is not flat at its "
+                 "closed form")
 
     cva = float(grid.cva(0.02))
     fca, fba = grid.fva(0.01)
@@ -1268,6 +1399,11 @@ def family_main_path(mt, dev, _cuda, family):
         outer_tol = SUMS_RTOL * nmc_outer
     elif family == "term":  # nmc --model term's curves are DEMO_TERM's
         oracle_key, n_se, allow = "oracle", 4.0, 0.0
+    elif family == "vasicek":  # Merton's (1973) call at 100,000 x 100
+        oracle_key, n_se, allow = "oracle", 4.0, 0.0
+    elif family == "basket":  # no oracle: price_basket's own call
+        argv += ["--n-assets", "4", "--corr", "0.5"]
+        oracle_key, n_se, allow = None, 0.0, 0.0
     elif family == "localvol":  # the CEV-shaped surface, 9 knots
         argv += ["--beta", "0.7"]
         oracle_key, n_se, allow = "cev_oracle", 3.5, 0.02
@@ -1285,7 +1421,9 @@ def family_main_path(mt, dev, _cuda, family):
                  "--cva-hazard", "0.02", "--payoff", "vanilla_call",
                  "--n-paths", str(n_out), "--n-steps", str(n_steps),
                  "--n-inner", str(n_inner), "--device", DEVICE])
-    d_cli = abs(c["price"] - c[oracle_key])
+    d_cli = abs(c["price"] - (c[oracle_key] if oracle_key else float(
+        price_fn(option, dyn, mt.SimParams(n_paths=100_000, n_steps=100),
+                 device=DEVICE).price)))  # the command's default size
     print(f"phase 3: python -m mc_tpu_torch {' '.join(argv)}: {c}; nmc "
           f"--model {family} --strategy grid --exposure: outer "
           f"{n['outer_price']:.6f}, cva {n['cva']:.7f}, EE at t_n "
@@ -1411,6 +1549,32 @@ SABR_STEP_OPS = (0, 20, 3)
 # A cash-dividend step on top of its half pair (divs.cuh): the factor's
 # exponent (2), S*expf (1 and an expf), the drop and its floor (2).
 DIVS_STEP_OPS = (0, 5, 1)
+# A Vasicek step on top of its three normals (vasicek.cuh): eps (1), eta
+# (3), u (5), dy (4), w (3), y (1), x (2), S = s0*expf(w) (1 and an expf).
+VASICEK_STEP_OPS = (0, 20, 1)
+# The Vasicek payoff's pathwise discount, payoff * expf(-y).
+VASICEK_DISCOUNT_OPS = (0, 2, 1)
+
+
+def vasicek_path(n_steps: int, rounds: int = 13):
+    """A Vasicek path: one and a half threefry pairs a step, the step, the
+    discounted payoff."""
+    return _add(_scale(pair_ops(rounds), 3 * n_steps // 2),
+                _scale(VASICEK_STEP_OPS, n_steps), TERMINAL_OPS,
+                VASICEK_DISCOUNT_OPS)
+
+
+def basket_step_ops(d: int):
+    """A basket step on top of its ceil(d/2) pairs (basket.cuh): the signs
+    (d), the mix's d(d+1)/2 multiplies and d(d-1)/2 adds, the increments
+    (3d), the levels and the weighted sum (3d - 1), d expf."""
+    return (0, d + d * (d + 1) // 2 + d * (d - 1) // 2 + 6 * d - 1, d)
+
+
+def basket_path(d: int, n_steps: int):
+    """A basket path of n_steps steps and its payoff."""
+    return _add(_scale(_add(_scale(pair_ops(13), (d + 1) // 2),
+                            basket_step_ops(d)), n_steps), TERMINAL_OPS)
 
 
 def lv_step_ops(n_knots: int):
@@ -1473,20 +1637,38 @@ class Single(NamedTuple):
     rounds: object        # the registers key's ROUNDS (None: no template)
     path: tuple           # phase 6: a path's operations (the first timed)
     nmc: object           # SingleNMC, or None
+    grid: object = None   # GridKernel: a trajectories kernel beside the NMC's
+    main_checks: int = 2  # phase 2: the checks also run at the main shape
+
+
+class GridKernel(NamedTuple):
+    """A family's trajectories kernel outside its NMC (the basket's #26:
+    the (B, state) grids its LSMC reads), checked for every one-word payoff
+    and timed at ``n_paths`` x MAIN_STEPS on the family's first check."""
+    row: str
+    fn: object            # (payoff, config, key, params) -> (*grids, partials)
+    plain: object
+    tpu: str
+    n_paths: int
 
 
 def single_families(mt):
-    """The table of the CEV, local-vol, SABR, term and dividend families."""
+    """The table of the CEV, local-vol, SABR, term, dividend, Vasicek and
+    basket families."""
+    from mc_tpu_torch.models import basket as bm
     from mc_tpu_torch.models import cev as cm
     from mc_tpu_torch.models import dividends as dm
     from mc_tpu_torch.models import localvol as lm
     from mc_tpu_torch.models import sabr as sm
     from mc_tpu_torch.models import term as tm
+    from mc_tpu_torch.models import vasicek as vm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.nmc_basket import BasketNMC
     from mc_tpu_torch.nmc_cev import CEVNMC
     from mc_tpu_torch.nmc_localvol import LocalVolNMC
     from mc_tpu_torch.nmc_sabr import SABRNMC
     from mc_tpu_torch.nmc_term import TermNMC
+    from mc_tpu_torch.nmc_vasicek import VasicekNMC
     from mc_tpu_torch.ops.payoffs import PAYOFFS
 
     def config(cls):
@@ -1508,6 +1690,10 @@ def single_families(mt):
     steep = (("steep curves", tm.TermStructure.from_knots(
         [0.12, 0.08, 0.04, 0.02], [0.1, 0.2, 0.3, 0.4], MAIN_STEPS)),)
     two = (("two payments", two_payments(dm, MAIN_STEPS)),)
+    vas = (("", vm.DEMO_VASICEK),)
+    # the demo basket (d = 4, rho = 0.5), then both capacities' edges
+    baskets = tuple((f"d={d}", bm.demo_basket(d, 0.5)) for d in (4, 1, 8, 9,
+                                                               32))
     # the inner leg's start under local vol and term (w = logf(S_t/s0), S =
     # s0*expf(w)) is under 1% of its steps: left out of the substep
     return (
@@ -1545,7 +1731,8 @@ def single_families(mt):
                    traj_tpu=generic, struct="SABRFamily", n_grids=2,
                    substep=_add(pair_ops(13), SABR_STEP_OPS),
                    ref=("Heston", "heston"),
-                   traj_ref="family_trajectories_cev", reps=NMC_REPS)),
+                   traj_ref="family_trajectories_cev",
+                   reps=EARLIER_NMC_REPS)),
         Single(family="term", kernels=TERM_KERNELS, model=tm,
                config=config(tm.TermConfig), pack=tm.pack_term,
                tpu="models/term.py:178", checks=steep, payoffs=every,
@@ -1557,12 +1744,44 @@ def single_families(mt):
                    fam=TermNMC(), dyn=tm.demo_term, traj_tpu=generic,
                    struct="TermFamily", n_grids=1,
                    substep=_add(half, STEP_OPS), ref=("CEV", "cev"),
-                   traj_ref="family_trajectories_cev", reps=NMC_REPS)),
+                   traj_ref="family_trajectories_cev",
+                   reps=EARLIER_NMC_REPS)),
         Single(family="divs", kernels=DIVS_KERNELS, model=dm,
                config=config(dm.DivsConfig), pack=dm.pack_divs,
                tpu="models/dividends.py:146", checks=two, payoffs=every,
                variants=anti, timed=two, ref="cev_partials", rounds=None,
                path=half_pair_path(DIVS_STEP_OPS, MAIN_STEPS), nmc=None),
+        Single(family="vasicek", kernels=VASICEK_KERNELS, model=vm,
+               config=config(vm.VasicekConfig), pack=vm.pack_vasicek,
+               tpu="models/vasicek.py:266", checks=vas, payoffs=every,
+               variants=rng20, timed=vas, ref="merton_partials", rounds=13,
+               path=vasicek_path(MAIN_STEPS),
+               nmc=SingleNMC(
+                   fam=VasicekNMC(), dyn=lambda n: vm.DEMO_VASICEK,
+                   traj_tpu="models/vasicek.py:405", struct="VasicekFamily",
+                   n_grids=3, substep=_add(_scale(pair_ops(13), 2),
+                                           VASICEK_STEP_OPS),
+                   ref=("Merton", "merton"), traj_ref="merton_trajectories",
+                   reps=NMC_REPS)),
+        Single(family="basket", kernels=BASKET_KERNELS, model=bm,
+               config=lambda n, b, **kw: bm.BasketConfig(
+                   n_paths=n, n_steps=MAIN_STEPS, d=b.d, **kw),
+               pack=bm.pack_basket, tpu="models/basket.py:268",
+               checks=baskets, payoffs=every, variants=anti,
+               timed=baskets[:1] + baskets[4:], ref="heston_partials",
+               rounds=8, path=basket_path(4, MAIN_STEPS),
+               nmc=SingleNMC(
+                   fam=BasketNMC(extras=(4,)), dyn=lambda n: bm.DEMO_BASKET,
+                   traj_tpu=generic, struct="BasketFamily<8>", n_grids=4,
+                   substep=_add(_scale(pair_ops(13), 2), basket_step_ops(4)),
+                   ref=("Heston", "heston"),
+                   traj_ref="family_trajectories_sabr", reps=NMC_REPS),
+               grid=GridKernel(row="basket_trajectories",
+                               fn=bm.basket_trajectories,
+                               plain=bm.basket_trajectories_plain,
+                               tpu="models/basket.py:393",
+                               n_paths=GRID_PATHS),
+               main_checks=1),  # the d edges at FAMILY_PATHS
     )
 
 
@@ -1581,7 +1800,7 @@ def single_rows(s: Single):
     """A family's rows on the kernels line."""
     return (f"{s.family}_partials",) + ((
         traj_row(s), f"family_inner_{s.family}", f"family_fused_{s.family}")
-        if s.nmc else ())
+        if s.nmc else ()) + ((s.grid.row,) if s.grid else ())
 
 
 def nmc_pack(s: Single):
@@ -1625,7 +1844,8 @@ def single_kernel_checks(mt, dev, singles, keys):
                 case(name, FAMILY_PATHS, s.checks[0], **kw)
             for label_dyn in s.checks[1:]:
                 case(name, FAMILY_PATHS, label_dyn)
-        for label_dyn in s.checks:  # the main shape: a partly filled block
+        for label_dyn in s.checks[:s.main_checks]:  # the main shape: a
+            # partly filled block
             case("vanilla_call", FAMILY_MAIN, label_dyn)
         if s.nmc is None:
             continue
@@ -1636,7 +1856,32 @@ def single_kernel_checks(mt, dev, singles, keys):
         rows_ms[s.family] = family_nmc_checks(
             mt, dev, note, s.family, s.nmc.fam, nmc_pack(s), None,
             keys[s.family], traj_row(s))
+        if s.grid is not None:
+            for name, po in sorted(PAYOFFS.items()):
+                if po.n_state <= 1:
+                    grid_check(mt, dev, note, s, keys[s.family][0], name)
     return err, rows_ms
+
+
+def grid_check(mt, dev, note, s: Single, key, name):
+    """Phase 2: a family's GridKernel on its first dynamics at
+    ``n_paths`` x MAIN_STEPS against its plain version: the grids bitwise,
+    the payoff sums to f64 rounding."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    g = s.grid
+    po, opt = get_payoff(name), payoff_option(mt, name)
+    label, dyn = s.checks[0]
+    cfg = s.config(g.n_paths, dyn)
+    prm = s.pack(opt, dyn, MAIN_STEPS, dev)
+    *g_k, part_k = g.fn(po, cfg, key, prm)
+    *g_p, part_p = g.plain(po, cfg, key, prm)
+    text = spaced(g.row, label, name, f"{g.n_paths}x{MAIN_STEPS}")
+    note(g.row, check_bitwise(f"{text} (grids, state)", g_k, g_p))
+    got, want = finish_sum(part_k), finish_sum(part_p)
+    check_sums(f"{text} payoff", got, want)
+    note(g.row, price_err(got, want, g.n_paths, opt))
 
 
 def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms):
@@ -1695,6 +1940,21 @@ def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms):
                      lambda strategy=strategy: nmc_fn(
                          sim=nsim, strategy=strategy, device=DEVICE))
                     for strategy in ("fused", "grid")]
+        if s.grid is not None:
+            g, (label, dyn) = s.grid, s.timed[0]
+            cfg = s.config(g.n_paths, dyn)
+            prm = s.pack(opt, dyn, MAIN_STEPS, dev)
+            out[g.row] = time_pair(
+                spaced(g.row, "call", label),
+                lambda cfg=cfg, prm=prm: g.fn(call, cfg, key, prm),
+                lambda cfg=cfg, prm=prm: g.plain(call, cfg, key, prm),
+                f"{g.n_paths}x{MAIN_STEPS}")
+            grid_bytes = 2 * 4 * g.n_paths * MAIN_STEPS
+            print(f"phase 5: {g.row} writes {grid_bytes / 1e6:.1f} MB in "
+                  f"{out[g.row][0]:.4f} ms: "
+                  f"{grid_bytes / out[g.row][0] / 1e6:.1f} GB/s; registers "
+                  f"{regs.get((f'{g.row}_kernel', 'VanillaCall', s.rounds))}"
+                  f" {tag}")
         known.update({k: v[0] for k, v in out.items()})
         e2e_report(e2e, tag, s.nmc.reps if s.nmc else NMC_REPS)
     return out
@@ -1719,6 +1979,10 @@ def single_bounds(singles):
                                      _scale(s.path, n_out))
             out.update(family_bounds(s.family, s.nmc.substep, s.path,
                                      s.nmc.n_grids))
+        if s.grid is not None:  # the level and state grids written
+            out[s.grid.row] = bound(
+                4 * prm.numel() + 2 * 4 * s.grid.n_paths * MAIN_STEPS,
+                _scale(s.path, s.grid.n_paths))
     return out
 
 
@@ -1737,6 +2001,7 @@ def main() -> int:
     from mc_tpu_torch.ops import reduce
     from mc_tpu_torch.ops.payoffs import PATHWISE, PAYOFFS, get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
+    from mc_tpu_torch.models.basket import BASKET_TAG
     from mc_tpu_torch.models.bates import BATES_TAG
     from mc_tpu_torch.models.cev import CEV_TAG
     from mc_tpu_torch.models.heston import HESTON_TAG
@@ -1745,6 +2010,7 @@ def main() -> int:
     from mc_tpu_torch.models.dividends import DIVS_TAG
     from mc_tpu_torch.models.sabr import SABR_TAG
     from mc_tpu_torch.models.term import TERM_TAG
+    from mc_tpu_torch.models.vasicek import VASICEK_TAG
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
@@ -1773,6 +2039,11 @@ def main() -> int:
             print(f"phase 1: ptxas {line.strip()}")
     print(f"phase 1: {_cuda.build_info.get('ptxas', '').count('Compiling entry')}"
           " kernel instantiations compiled")
+    secs = sorted(_cuda.build_info.get("source_seconds", {}).items(),
+                  key=lambda kv: -kv[1])
+    if secs:  # each source's nvcc, all started together
+        print("phase 1: nvcc seconds by source: " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in secs))
 
     option = mt.DEMO_OPTION
     otm = mt.OptionParams(k=IS_STRIKE)
@@ -1786,7 +2057,8 @@ def main() -> int:
         for family, tag in (("heston", HESTON_TAG), ("merton", MERTON_TAG),
                             ("bates", BATES_TAG), ("cev", CEV_TAG),
                             ("localvol", LOCALVOL_TAG), ("sabr", SABR_TAG),
-                            ("term", TERM_TAG), ("divs", DIVS_TAG))}
+                            ("term", TERM_TAG), ("divs", DIVS_TAG),
+                            ("vasicek", VASICEK_TAG), ("basket", BASKET_TAG))}
     singles = single_families(mt)
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
@@ -2657,14 +2929,15 @@ def main() -> int:
              "normals' moments are off")
 
     # The GBM path's launches; then the Heston, Merton, Bates, CEV,
-    # local-vol, SABR, term and dividend paths, each driven with the counts
-    # set to 0 before it and read after it.
+    # local-vol, SABR, term, dividend, Vasicek and basket paths, each driven
+    # with the counts set to 0 before it and read after it.
     launches = {k: n for k, n in _cuda.launch_counts.items()
                 if k not in HESTON_KERNELS + MERTON_KERNELS + BATES_KERNELS
                 + CEV_KERNELS + LOCALVOL_KERNELS + SABR_KERNELS
-                + TERM_KERNELS + DIVS_KERNELS}
+                + TERM_KERNELS + DIVS_KERNELS + VASICEK_KERNELS
+                + BASKET_KERNELS}
     families = ("heston", "merton", "bates", "cev", "localvol", "sabr",
-                "term", "divs")
+                "term", "divs", "vasicek", "basket")
     family_launches = {family: family_main_path(mt, dev, _cuda, family)
                        for family in families}
 
@@ -2677,21 +2950,21 @@ def main() -> int:
         fail("a kernel of the main path was never launched")
     launches.update(family_launches["heston"])
     # the kernels line's rows: the family kernels per family (and the
-    # generic trajectories' rows under CEV, SABR and term)
+    # generic trajectories' rows under CEV, SABR, term and the basket)
     for family in families[1:]:
         for k, n in family_launches[family].items():
             suffixed = (k.startswith("family_i") or k.startswith("family_f")
-                        or (family in ("cev", "sabr", "term")
+                        or (family in ("cev", "sabr", "term", "basket")
                             and k == "family_trajectories"))
             launches[f"{k}_{family}" if suffixed else k] = n
 
     # --- Phase 5: times -------------------------------------------------
     stamp(5)
     def time_pair(label, kernel_fn, plain_fn, shape):
-        """The kernel (REPS reps) beside its plain version (one rep: a
-        yardstick of correctness, not of speed)."""
+        """The kernel (REPS reps) beside its plain version (one rep, no
+        warm-up: a yardstick of correctness, not of speed)."""
         k_ms, k_sp, k_n = cuda_ms(kernel_fn)
-        p_ms, p_sp, p_n = cuda_ms(plain_fn, reps=1)
+        p_ms, p_sp, p_n = cuda_ms(plain_fn, reps=1, warm=False)
         print(f"phase 5: {label} {shape}: kernel {k_ms:.4f} ms "
               f"(spread {k_sp:.1%}, {REPS} reps of {k_n} calls), plain "
               f"{p_ms:.4f} ms (1 rep of {p_n})"
@@ -2893,7 +3166,10 @@ def main() -> int:
         "heston_partials": heston_ms["heston_partials"][0],
         "family_fused_heston": heston_ms["family_fused"][0],
         "family_inner_heston": heston_ms["family_inner"][0],
-        "merton_trajectories": jump_ms["merton_trajectories"][0]})
+        "merton_partials": jump_ms["merton_partials"][0],
+        "merton_trajectories": jump_ms["merton_trajectories"][0],
+        "family_fused_merton": jump_ms["family_fused_merton"][0],
+        "family_inner_merton": jump_ms["family_inner_merton"][0]})
     # the family kernels' plain ms: their rows in phase 2
     for ms, rows_ms in ((jump_ms, jump_rows_ms), (single_ms, single_rows_ms)):
         for family, plain_ms in rows_ms.items():
@@ -3059,7 +3335,7 @@ def main() -> int:
         for family in ("merton", "bates")
         for name, tpu in (("family_inner", "nmc_engine.py:314"),
                           ("family_fused", "nmc_engine.py:407")))
-    for sf in singles:  # partials, trajectories, inner, fused
+    for sf in singles:  # partials, trajectories, inner, fused, grid
         srcs = (f"{sf.family}_kernels.cu",) + (
             f"{sf.family}_nmc_kernels.cu",) * 3
         tpus = (sf.tpu,) + ((sf.nmc.traj_tpu, "nmc_engine.py:314",
@@ -3069,6 +3345,10 @@ def main() -> int:
                   f"{sf.family} call {NMC_MAIN[0]}x{NMC_MAIN[1]}") + (
             f"{sf.family} call {nmc_shape} (plain: rows {list(NMC_ROWS)})",
         ) * 2
+        if sf.grid is not None:  # after the NMC's three rows
+            srcs, tpus = srcs + (srcs[0],), tpus + (sf.grid.tpu,)
+            shapes = shapes + (spaced("call", sf.timed[0][0],
+                                      f"{sf.grid.n_paths}x{MAIN_STEPS}"),)
         rows += tuple((row, src, tpu, single_err[row], single_ms[row], shape)
                       for row, src, tpu, shape in zip(
                           single_rows(sf), srcs, tpus, shapes))

@@ -24,6 +24,10 @@ launch; importing the package builds and loads nothing.
     price_term(term=TermStructure.from_knots([0.1, 0.05], [0.2, 0.3], 100))
     price_divs(divs=div_schedule(100, [49], [5.0]))  # a cash dividend
     price_nmc_sabr().cva(0.02)             # exposure under SABR
+    price_vasicek(payoff="zcb")            # stochastic rates, pathwise discount
+    price_nmc_vasicek().cva(0.02)          # exposure under Vasicek rates
+    price_basket(basket=demo_basket(8, 0.3))  # a correlated 8-asset basket
+    price_nmc_basket().cva(0.02)           # basket exposure, d asset grids
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -33,6 +37,8 @@ from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import (Trajectories, price, price_ladder,
                                   price_portfolio, simulate_trajectories)
 from mc_tpu_torch.greeks import greeks
+from mc_tpu_torch.models.basket import (DEMO_BASKET, BasketDynamics,
+                                        demo_basket, price_basket)
 from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
                                        bates_call_cf, price_bates)
 from mc_tpu_torch.models.cev import (DEMO_CEV, CEVDynamics,
@@ -49,8 +55,11 @@ from mc_tpu_torch.models.merton import (DEMO_MERTON, MertonDynamics,
 from mc_tpu_torch.models.sabr import (DEMO_SABR, SABRDynamics, price_sabr,
                                       sabr_call_hagan, sabr_implied_vol)
 from mc_tpu_torch.models.term import DEMO_TERM, TermStructure, price_term
+from mc_tpu_torch.models.vasicek import (DEMO_VASICEK, VasicekDynamics,
+                                         price_vasicek)
 from mc_tpu_torch.nmc import NMCResult, price_nmc
 from mc_tpu_torch.nmc_engine import price_nmc_family
+from mc_tpu_torch.nmc_basket import price_nmc_basket
 from mc_tpu_torch.nmc_bates import price_nmc_bates
 from mc_tpu_torch.nmc_cev import price_nmc_cev
 from mc_tpu_torch.nmc_heston import price_nmc_heston
@@ -58,6 +67,8 @@ from mc_tpu_torch.nmc_localvol import price_nmc_localvol
 from mc_tpu_torch.nmc_merton import price_nmc_merton
 from mc_tpu_torch.nmc_sabr import price_nmc_sabr
 from mc_tpu_torch.nmc_term import price_nmc_term
+from mc_tpu_torch.nmc_vasicek import price_nmc_vasicek
+from mc_tpu_torch.oracle import bsv_call, margrabe, vasicek_zcb
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
 
@@ -73,7 +84,10 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "price_nmc_sabr", "SABRDynamics", "DEMO_SABR", "sabr_call_hagan",
            "sabr_implied_vol", "price_term", "price_nmc_term",
            "TermStructure", "DEMO_TERM", "price_divs", "div_schedule",
-           "bs_call_cash_div", "cash_div_forward",
+           "bs_call_cash_div", "cash_div_forward", "price_vasicek",
+           "price_nmc_vasicek", "VasicekDynamics", "DEMO_VASICEK",
+           "vasicek_zcb", "bsv_call", "price_basket", "price_nmc_basket",
+           "BasketDynamics", "DEMO_BASKET", "demo_basket", "margrabe",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

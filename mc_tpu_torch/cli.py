@@ -1,21 +1,24 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
-ladder/book/greeks/heston/merton/bates/cev/localvol/sabr/term/divs).
+ladder/book/greeks/heston/merton/bates/cev/localvol/sabr/term/divs/vasicek/
+basket).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
 ``price``, ``nmc``, ``ladder``, ``book``, ``greeks``, ``heston``,
-``merton``, ``bates``, ``cev``, ``localvol``, ``sabr``, ``term`` and
-``divs`` print one JSON object each (``price`` adds the closed form where
+``merton``, ``bates``, ``cev``, ``localvol``, ``sabr``, ``term``, ``divs``,
+``vasicek`` and ``basket`` print one JSON object each (``price`` adds the
+closed form where
 the payoff has one, ``heston`` and ``bates`` the CF oracle for the call,
 ``merton`` the series oracle, ``cev`` the noncentral chi-squared oracle,
 ``localvol --beta`` that oracle and the z-score of a CEV-shaped surface,
 ``sabr`` Hagan's price and implied vol beside the MC-inverted one, ``term``
 Black-Scholes at the averaged curves and the z-score, ``divs`` the
-quadrature oracle and z-score of one dividend, ``nmc --exposure`` the XVA
-figures of the surface, under GBM or ``--model
-heston|merton|bates|cev|localvol|sabr|term``, each family's dynamics from
-its own flags); ``traj`` writes the
+quadrature oracle and z-score of one dividend, ``vasicek`` the bond's or
+Merton's (1973) call oracle and z-score, ``nmc --exposure`` the XVA figures
+of the surface, under GBM or ``--model
+heston|merton|bates|cev|localvol|sabr|term|vasicek|basket``, each family's
+dynamics from its own flags); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
 """
@@ -324,12 +327,28 @@ def _nmc_sabr_dyn(args):
     return SABRDynamics(alpha=args.alpha, nu=args.nu, rho=args.rho_sv)
 
 
+def _vasicek_dyn(args):
+    from mc_tpu_torch.models.vasicek import VasicekDynamics
+
+    return VasicekDynamics(a=args.a, b=args.b, sigma_r=args.sigma_r,
+                           rho=args.rho_r)
+
+
+def _basket_dyn(args):
+    """``--n-assets`` assets at the demo's spots and vols, pairwise
+    correlation ``--corr`` (mc_tpu/cli.py:1123-1130, 382-389)."""
+    from mc_tpu_torch.models.basket import demo_basket
+
+    return demo_basket(d=args.n_assets, rho=args.corr)
+
+
 # --model -> the family's dynamics from its own flags (term: the default
 # curves of price_nmc_term).
 _FAMILY_DYNAMICS = {"heston": _heston_dyn, "merton": _merton_dyn,
                     "bates": _bates_dyn, "cev": _cev_dyn,
                     "localvol": _nmc_surface, "sabr": _nmc_sabr_dyn,
-                    "term": lambda args: None}
+                    "term": lambda args: None, "vasicek": _vasicek_dyn,
+                    "basket": _basket_dyn}
 
 
 def cmd_heston(args):
@@ -531,6 +550,61 @@ def cmd_divs(args):
     return 0
 
 
+def cmd_vasicek(args):
+    """Vasicek-rates price as one JSON object (mc_tpu/cli.py:1185-1206): for
+    the bond the affine closed form, for the call Merton's (1973), and the
+    z-score."""
+    from mc_tpu_torch.models.vasicek import price_vasicek
+    from mc_tpu_torch.oracle import bsv_call, vasicek_zcb
+
+    option, sim = _parse(args)
+    res = price_vasicek(option, _vasicek_dyn(args), sim, payoff=args.payoff,
+                        antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "price": float(res.price),
+           "stderr": float(res.stderr)}
+    if args.payoff == "zcb":
+        out["oracle"] = vasicek_zcb(args.r, args.a, args.b, args.sigma_r,
+                                    args.t)
+    elif args.payoff == "vanilla_call":
+        out["oracle"] = bsv_call(args.s0, args.k, args.t, args.r, args.sigma,
+                                 args.a, args.b, args.sigma_r, args.rho_r,
+                                 args.q)
+    if "oracle" in out:
+        out["z_score"] = (out["price"] - out["oracle"]) / out["stderr"]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_basket(args):
+    """Basket price as one JSON object (mc_tpu/cli.py:1123-1133)."""
+    from mc_tpu_torch.models.basket import price_basket
+
+    option, sim = _parse(args)
+    res = price_basket(option, _basket_dyn(args), sim, payoff=args.payoff,
+                       antithetic=args.antithetic, device=args.device)
+    print(json.dumps({"payoff": args.payoff, "n_assets": args.n_assets,
+                      "price": float(res.price),
+                      "stderr": float(res.stderr)}))
+    return 0
+
+
+def _add_vasicek_flags(p: argparse.ArgumentParser):
+    p.add_argument("--a", type=float, default=0.3,
+                   help="vasicek rate mean-reversion speed")
+    p.add_argument("--b", type=float, default=0.05,
+                   help="vasicek long-run rate level (r0 is --rate)")
+    p.add_argument("--sigma-r", type=float, default=0.015,
+                   help="vasicek rate volatility")
+    p.add_argument("--rho-r", type=float, default=-0.3,
+                   help="equity/rate correlation")
+
+
+def _add_basket_flags(p: argparse.ArgumentParser):
+    p.add_argument("--n-assets", type=int, default=4, help="basket size")
+    p.add_argument("--corr", type=float, default=0.5,
+                   help="basket pairwise correlation")
+
+
 def cmd_nmc(args):
     import numpy as np
 
@@ -640,8 +714,8 @@ def main(argv=None):
                             "localvol", "cev", "basket", "sabr", "term",
                             "rainbow"),
                    help="the outer and inner dynamics: gbm, heston, merton, "
-                        "bates, cev, localvol, sabr or term (vasicek, basket "
-                        "and rainbow are not ported yet)")
+                        "bates, cev, localvol, sabr, term, vasicek or basket "
+                        "(rainbow is not ported yet)")
     p.add_argument("--surface-npz", default=None,
                    help="save the (paths, steps) surface to this .npz")
     p.add_argument("--exposure", action="store_true",
@@ -687,6 +761,8 @@ def main(argv=None):
                    help="sabr initial vol")
     p.add_argument("--nu", type=float, default=0.4,
                    help="sabr vol-of-vol (its rho is --rho-sv)")
+    _add_vasicek_flags(p)
+    _add_basket_flags(p)
     p.set_defaults(fn=cmd_nmc)
 
     p = sub.add_parser("ladder", help="strike ladder on shared paths, JSON")
@@ -807,6 +883,23 @@ def main(argv=None):
     p.add_argument("--div-amounts", default="5.0",
                    help="comma list of cash amounts")
     p.set_defaults(fn=cmd_divs)
+
+    p = sub.add_parser("vasicek",
+                       help="stochastic-rate (Black-Scholes-Vasicek) price, "
+                            "pathwise discounting")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call",
+                   help="any registry payoff; 'zcb' prices the bond")
+    p.add_argument("--antithetic", action="store_true")
+    _add_vasicek_flags(p)
+    p.set_defaults(fn=cmd_vasicek)
+
+    p = sub.add_parser("basket", help="correlated multi-asset basket price")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--antithetic", action="store_true")
+    _add_basket_flags(p)
+    p.set_defaults(fn=cmd_basket)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

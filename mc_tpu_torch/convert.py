@@ -16,6 +16,7 @@ import torch
 
 from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
+from mc_tpu_torch.models import basket as _basket
 from mc_tpu_torch.models import dividends as _divs
 from mc_tpu_torch.models import term as _term
 from mc_tpu_torch.models.bates import BATES_FIELDS, BatesDynamics
@@ -24,13 +25,16 @@ from mc_tpu_torch.models.heston import HESTON_FIELDS, HestonDynamics
 from mc_tpu_torch.models.localvol import LocalVolSurface, packed_length
 from mc_tpu_torch.models.merton import MERTON_FIELDS, MertonDynamics
 from mc_tpu_torch.models.sabr import SABR_FIELDS, SABRDynamics
+from mc_tpu_torch.models.vasicek import VASICEK_FIELDS, VasicekDynamics
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
            "surface_matrix", "checkpoint", "heston_dynamics", "heston_params",
            "merton_dynamics", "merton_params", "bates_dynamics",
            "bates_params", "cev_dynamics", "cev_params", "localvol_surface",
            "localvol_params", "sabr_dynamics", "sabr_params",
-           "term_structure", "term_params", "divs_params"]
+           "term_structure", "term_params", "divs_params",
+           "vasicek_dynamics", "vasicek_params", "basket_dynamics",
+           "basket_params"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
@@ -39,6 +43,8 @@ _MERTON_DYN_FIELDS = ("lam", "mu_j", "sigma_j")
 _BATES_DYN_FIELDS = _HESTON_DYN_FIELDS + _MERTON_DYN_FIELDS
 _CEV_DYN_FIELDS = ("sigma_lv", "beta")
 _SABR_DYN_FIELDS = ("alpha", "beta", "nu", "rho")
+_VASICEK_DYN_FIELDS = ("a", "b", "sigma_r", "rho")
+_BASKET_FIELDS = ("s0s", "sigmas", "weights", "corr")
 
 
 def _field(src, name):
@@ -200,6 +206,42 @@ def divs_params(arr, n_steps: int) -> torch.Tensor:
     13 + n_steps."""
     return _packed_vector(arr, _divs.packed_length(n_steps),
                           f"cash-dividend (n_steps={n_steps})")
+
+
+def vasicek_dynamics(src) -> VasicekDynamics:
+    """``mc_tpu.models.vasicek.VasicekDynamics`` fields (scalars) -> the
+    port's VasicekDynamics."""
+    return VasicekDynamics(*_scalars(src, _VASICEK_DYN_FIELDS, "Vasicek"))
+
+
+def vasicek_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed Vasicek parameters (``_pack_vasicek``: the (22,)
+    f32 vector of ``VASICEK_FIELDS``) -> the port's CPU tensor, bit for
+    bit."""
+    return _packed(arr, VASICEK_FIELDS, "Vasicek")
+
+
+def basket_dynamics(src) -> _basket.BasketDynamics:
+    """``mc_tpu.models.basket.BasketDynamics`` (``s0s``, ``sigmas``,
+    ``weights`` (d,) and ``corr`` (d, d), arrays numpy can read) -> the
+    port's, as f32 numpy arrays."""
+    s0s, sigmas, weights, corr = (np.asarray(_field(src, f), np.float32)
+                                  for f in _BASKET_FIELDS)
+    d = s0s.shape[0] if s0s.ndim == 1 else -1
+    if (d < 1 or sigmas.shape != (d,) or weights.shape != (d,)
+            or corr.shape != (d, d)):
+        raise ValueError(f"a basket is s0s, sigmas, weights (d,) and corr "
+                         f"(d, d); got {s0s.shape}, {sigmas.shape}, "
+                         f"{weights.shape} and {corr.shape}")
+    return _basket.BasketDynamics(s0s.copy(), sigmas.copy(), weights.copy(),
+                                  corr.copy())
+
+
+def basket_params(arr, d: int) -> torch.Tensor:
+    """``mc_tpu``'s packed basket vector (``_pack_basket``) -> the port's
+    CPU tensor, bit for bit, its length checked against 10 + 3d +
+    d(d+1)/2."""
+    return _packed_vector(arr, _basket.packed_length(d), f"basket (d={d})")
 
 
 def key(arr) -> tuple[int, int]:

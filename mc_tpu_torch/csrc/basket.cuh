@@ -1,0 +1,254 @@
+// The correlated basket on the device: its packed parameters, the step (d
+// normals, the Cholesky mix, the log increments), the basket level and the
+// family NMC struct, the twins of mc_tpu_torch/models/basket.py and
+// mc_tpu_torch/nmc_basket.py (and of mc_tpu/models/basket.py:82-134,
+// mc_tpu/nmc_basket.py:44-245) operation for operation, in the same
+// association.  The build passes --fmad=false, so each mul and add rounds as
+// it does in the plain PyTorch version.
+//
+// The packed vector has a variable length, 10 + 3d + d(d+1)/2 f32:
+//   [k, r, t, barrier, p1, p2, dt, inv_n_steps, sqrt_dt, b0,
+//    s0s(d), weights(d), drifts(d), L's lower triangle row by row]
+// so the kernels read it by pointer, d a runtime integer.  Its head is the
+// payoffs' view of the contract (s0 = b0, the basket's initial level; sigma
+// = k*0, as mc_tpu's Pallas kernel unpacks it, so the Brownian-bridge
+// barriers price as their discrete twins); q and the GBM drift/vol
+// coefficients are NaN.
+//
+// d is a runtime value up to a capacity kMaxD, a template parameter with two
+// values, 8 and 32, so every d in [1, 32] runs without a rebuild and the
+// build stays two instantiations per kernel and payoff (not 32).  At
+// capacity 8 the loops over assets and normals unroll fully, guarded by
+// i < d, and the log-moneyness ws[8] and the normals z[8] live in
+// registers (the loops run to the capacity, each body guarded by i < d, no
+// early exit); at capacity 32 they stay loops to d (the 528-term Cholesky
+// mix unrolled would cost minutes of ptxas per instantiation) and the two
+// arrays live in local memory.  The Cholesky factor, s0s, weights and drifts are
+// uniform loads from the packed vector (every thread of a warp reads the
+// same word: one L1 broadcast).
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kBasketHead = 10;
+
+// The unroll factor of the loops over assets at capacity kMaxD.
+template <int kMaxD>
+struct BasketUnroll {
+  static constexpr int value = kMaxD <= 8 ? kMaxD : 1;
+};
+
+// A loop bound over assets (or normals): the capacity where the loop
+// unrolls, so every index is a constant and the arrays stay in registers
+// (the body guarded by i < n, no early exit); n itself where it does not.
+template <int kMaxD>
+__device__ __forceinline__ int basket_bound(int n) {
+  return kMaxD <= 8 ? kMaxD : n;
+}
+
+template <int kMaxD>
+struct BasketParams {
+  Params pay;  // the payoff's view of the contract
+  float sqrt_dt;
+  int d, npps;  // assets, threefry pairs a step (ceil(d/2))
+  const float* s0s;
+  const float* w;
+  const float* drift;
+  const float* chol;  // row i at i(i+1)/2
+};
+
+template <int kMaxD>
+__device__ __forceinline__ BasketParams<kMaxD> load_basket(const float* __restrict__ v, int d) {
+  const float nan = __int_as_float(0x7fc00000);
+  BasketParams<kMaxD> c;
+  c.pay.k = v[0]; c.pay.r = v[1]; c.pay.t = v[2]; c.pay.barrier = v[3];
+  c.pay.p1 = v[4]; c.pay.p2 = v[5]; c.pay.dt = v[6]; c.pay.inv_n_steps = v[7];
+  c.sqrt_dt = v[8]; c.pay.s0 = v[9];
+  c.pay.sigma = c.pay.k * 0.0f;  // mc_tpu's Pallas kernel (basket.py:243)
+  c.pay.q = nan; c.pay.drift_dt = nan; c.pay.vol_dt = nan; c.pay.drift_t = nan;
+  c.pay.vol_t = nan;
+  c.d = d;
+  c.npps = (d + 1) / 2;
+  c.s0s = v + kBasketHead;
+  c.w = c.s0s + d;
+  c.drift = c.w + d;
+  c.chol = c.drift + d;
+  return c;
+}
+
+// The step's d normals, pair q of counter base + q giving z_{2q}, z_{2q+1},
+// times sign (+1, or -1 for the antithetic leg).
+template <int kMaxD>
+__device__ __forceinline__ void basket_draw(const BasketParams<kMaxD>& c, uint32_t k0,
+                                            uint32_t k1, uint32_t id, uint32_t base,
+                                            float sign, float (&z)[kMaxD]) {
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int q = 0; q < basket_bound<kMaxD / 2>(c.npps); ++q) {
+    if (q < c.npps) {
+      float a, b;
+      normal_pair<13>(k0, k1, id, base + static_cast<uint32_t>(q), a, b);
+      z[2 * q] = sign * a;
+      z[2 * q + 1] = sign * b;
+    }
+  }
+}
+
+// w_i = (w_i + drift_i) + sqrt_dt * y_i, y_i = L_i0 z_0 + L_i1 z_1 + ...
+// added in k order.
+template <int kMaxD>
+__device__ __forceinline__ void basket_mix(const BasketParams<kMaxD>& c, const float (&z)[kMaxD],
+                                           float (&ws)[kMaxD]) {
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+    if (i < c.d) {
+      const float* row = c.chol + i * (i + 1) / 2;
+      float y = __ldg(row) * z[0];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+      for (int k = 1; k < basket_bound<kMaxD>(i + 1); ++k) {
+        if (k <= i) y = y + __ldg(row + k) * z[k];
+      }
+      ws[i] = (ws[i] + __ldg(c.drift + i)) + c.sqrt_dt * y;
+    }
+  }
+}
+
+// B = w_0 S_0 + w_1 S_1 + ... in i order, S_i = s0_i * expf(w_i);
+// on_asset(i, S_i) sees each asset's price.
+template <int kMaxD, class OnAsset>
+__device__ __forceinline__ float basket_level(const BasketParams<kMaxD>& c,
+                                              const float (&ws)[kMaxD], OnAsset on_asset) {
+  float b = 0.0f;
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+    if (i < c.d) {
+      const float s = __ldg(c.s0s + i) * expf(ws[i]);
+      on_asset(i, s);
+      const float term = __ldg(c.w + i) * s;
+      b = i == 0 ? term : b + term;
+    }
+  }
+  return b;
+}
+
+template <int kMaxD>
+__device__ __forceinline__ float basket_level(const BasketParams<kMaxD>& c,
+                                              const float (&ws)[kMaxD]) {
+  return basket_level(c, ws, [](int, float) {});
+}
+
+// One path's leg of n_steps from the start, step j on counters j*npps + q:
+// the payoff state after each step and the last step's level in b;
+// on_step(j, b, st) sees each step.
+template <class Payoff, int kMaxD, class OnStep>
+__device__ __forceinline__ float basket_leg(const BasketParams<kMaxD>& c, float sign,
+                                            uint32_t k0, uint32_t k1, uint32_t id, int n_steps,
+                                            OnStep on_step) {
+  float ws[kMaxD], z[kMaxD];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < kMaxD; ++i) ws[i] = 0.0f;
+  typename Payoff::State st = Payoff::init(c.pay);
+  float b = c.pay.s0;
+  for (int j = 0; j < n_steps; ++j) {
+    basket_draw(c, k0, k1, id, static_cast<uint32_t>(j) * static_cast<uint32_t>(c.npps), sign,
+                z);
+    basket_mix(c, z, ws);
+    b = basket_level(c, ws);
+    st = Payoff::update(st, b, c.pay);
+    on_step(j, b, st);
+  }
+  return Payoff::terminal(st, b, c.pay);
+}
+
+// The basket for the family NMC engine (mc_tpu/nmc_basket.py:44-245): the
+// d asset price grids (S_1..S_d), extras i[0] = d.  The outer step j draws
+// its pairs j*npps + q; the carry holds the level b the step fed the payoff,
+// which the outer payoff reads.  The inner leg resumes each asset from w_i =
+// logf(S_i / s0_i), substep u drawing pairs c_base + u*npps + q, and pays on
+// the level of its last substep (at the last row on the level of the
+// resumed w).  Discounted at e^{-rT}.
+template <int kMaxD>
+struct BasketFamily {
+  using Params = BasketParams<kMaxD>;
+  static constexpr int kGrids = kMaxD;
+
+  template <class Payoff>
+  struct Carry {
+    float ws[kMaxD], lv[kMaxD];  // log-moneyness, the asset prices
+    float b;
+    typename Payoff::State st;
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex, int) {
+    return load_basket<kMaxD>(params, ex.i[0]);
+  }
+  __device__ static const mc::Params& payoff_params(const Params& c) { return c.pay; }
+  __device__ static int grid_count(const Params& c) { return c.d; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& c) {
+    Carry<Payoff> o;
+#pragma unroll (BasketUnroll<kMaxD>::value)
+    for (int i = 0; i < kMaxD; ++i) {
+      o.ws[i] = 0.0f;
+      o.lv[i] = 0.0f;
+    }
+    o.b = basket_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
+    o.st = Payoff::init(c.pay);
+    return o;
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& o) {
+    float z[kMaxD];
+    basket_draw(c, k0, k1, id, static_cast<uint32_t>(j) * static_cast<uint32_t>(c.npps), 1.0f,
+                z);
+    basket_mix(c, z, o.ws);
+    o.b = basket_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
+    o.st = Payoff::update(o.st, o.b, c.pay);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {
+    // every slot (the kernels store the first d): a copy the compiler
+    // keeps to the slots that are read
+#pragma unroll (BasketUnroll<kMaxD>::value)
+    for (int i = 0; i < kMaxD; ++i) g[i] = o.lv[i];
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& c, const Carry<Payoff>& o) {
+    return Payoff::terminal(o.st, o.b, c.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    float ws[kMaxD], z[kMaxD];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+    for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+      if (i < c.d) ws[i] = logf(g[i] / __ldg(c.s0s + i));
+    }
+    if (remaining == 0) return Payoff::terminal(st, basket_level(c, ws), c.pay);
+    float b = 0.0f;
+    for (int u = 0; u < remaining; ++u) {
+      basket_draw(c, k0, k1, id, c_base + static_cast<uint32_t>(u) * static_cast<uint32_t>(c.npps),
+                  1.0f, z);
+      basket_mix(c, z, ws);
+      b = basket_level(c, ws);
+      st = Payoff::update(st, b, c.pay);
+    }
+    return Payoff::terminal(st, b, c.pay);
+  }
+  __device__ static float point_scale(const Params& c, const float (&)[kGrids]) {
+    return expf(-c.pay.r * c.pay.t);  // the full e^{-rT}
+  }
+  __device__ static uint32_t counter_stride(const Params& c, int n_steps) {
+    return static_cast<uint32_t>(n_steps) * static_cast<uint32_t>(c.npps);
+  }
+};
+
+}  // namespace mc

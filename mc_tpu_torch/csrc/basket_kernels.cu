@@ -1,0 +1,161 @@
+// Basket kernels of the port, for sm_90a.
+//
+// basket_partials_kernel replaces mc_tpu/models/basket.py _basket_partials
+// (the Pallas call at :277): one path per thread over a grid-stride loop;
+// the step loop drawing step j's d normals from the pairs (id, j*ceil(d/2) +
+// q), the Cholesky mix and the log increments, the payoff updated on the
+// basket level (basket_leg, basket.cuh); threefry-13; the antithetic leg
+// (every normal negated) run after the first in the same thread, averaged
+// as 0.5*(a+b); paths at or past `bound` add zeros; each block writes one
+// row of f64 [sum pay, sum pay^2] (reduce.cuh), no float atomics.  Every
+// payoff of the registry (the bridge barriers read sigma = 0, as in
+// mc_tpu's Pallas kernel).
+//
+// basket_trajectories_kernel replaces basket_trajectories_kernel
+// (mc_tpu/models/basket.py:393, the Pallas call at :409): the same leg,
+// storing the basket level and payoff state word 0 after every step,
+// step-major (entry j*n_paths + i), and the payoff's moment rows; the twelve
+// one-word payoffs.  These are the (B, state) grids mc_tpu's basket LSMC
+// regresses on; the NMC's per-asset grids come from the family engine
+// (basket_nmc_kernels.cu).
+//
+// Both take any d in [1, 32] at run time through two capacities, kMaxD = 8
+// (d <= 8: registers) and 32 (d > 8: local memory; basket.cuh).
+//
+// What bounds them on the H100: operations.  A step spends ceil(d/2)
+// threefry pairs, the mix's d(d+1)/2 multiply-adds (one uniform load each
+// from L1), d expf and ~3d f32 operations more; the parameters are 4(10 +
+// 3d + d(d+1)/2) bytes, each block writes 16.  The trajectories kernel
+// writes 8 bytes a path-step besides.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "basket.cuh"
+#include "payoffs.cuh"
+#include "reduce.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kBasketThreads = 256;
+
+template <class Payoff, int kMaxD>
+__global__ void __launch_bounds__(kBasketThreads)
+basket_partials_kernel(int antithetic, uint32_t k0, uint32_t k1,
+                       const float* __restrict__ params, int d, int n_steps, uint32_t n_paths,
+                       uint32_t path_offset, uint32_t bound, double* __restrict__ partials) {
+  const BasketParams<kMaxD> c = load_basket<kMaxD>(params, d);
+  const auto none = [](int, float, const typename Payoff::State&) {};
+  double acc[2] = {0.0, 0.0};
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
+  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_paths; i += stride) {
+    const uint32_t id = path_offset + static_cast<uint32_t>(i);
+    float p = basket_leg<Payoff>(c, 1.0f, k0, k1, id, n_steps, none);
+    if (antithetic) p = 0.5f * (p + basket_leg<Payoff>(c, -1.0f, k0, k1, id, n_steps, none));
+    const float pv[1] = {p};
+    add_moments(acc, pv, id < bound);
+  }
+  block_store_moments<2, kBasketThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
+                                         2);
+}
+
+template <class Payoff, int kMaxD>
+__global__ void __launch_bounds__(kBasketThreads)
+basket_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params, int d,
+                           int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                           float* __restrict__ b_grid, float* __restrict__ state_grid,
+                           double* __restrict__ partials) {
+  const BasketParams<kMaxD> c = load_basket<kMaxD>(params, d);
+  double acc[2] = {0.0, 0.0};
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
+  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_paths; i += stride) {
+    const uint32_t id = path_offset + static_cast<uint32_t>(i);
+    const float pv[1] = {basket_leg<Payoff>(
+        c, 1.0f, k0, k1, id, n_steps,
+        [&](int j, float b, const typename Payoff::State& st) {
+          const size_t at = static_cast<size_t>(j) * n_paths + i;
+          b_grid[at] = b;
+          state_grid[at] = Payoff::kStates ? st.w[0] : 0.0f;
+        })};
+    add_moments(acc, pv, id < bound);
+  }
+  block_store_moments<2, kBasketThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
+                                         2);
+}
+
+template <class Payoff, int kMaxD>
+cudaError_t launch_basket_partials(int antithetic, uint32_t k0, uint32_t k1, const float* params,
+                                   int d, int n_steps, uint32_t n_paths, uint32_t path_offset,
+                                   uint32_t bound, double* partials, int n_blocks,
+                                   cudaStream_t stream) {
+  basket_partials_kernel<Payoff, kMaxD><<<n_blocks, kBasketThreads, 0, stream>>>(
+      antithetic, k0, k1, params, d, n_steps, n_paths, path_offset, bound, partials);
+  return cudaGetLastError();
+}
+
+template <class Payoff, int kMaxD>
+cudaError_t launch_basket_trajectories(uint32_t k0, uint32_t k1, const float* params, int d,
+                                       int n_steps, uint32_t n_paths, uint32_t path_offset,
+                                       uint32_t bound, float* b_grid, float* state_grid,
+                                       double* partials, int n_blocks, cudaStream_t stream) {
+  basket_trajectories_kernel<Payoff, kMaxD><<<n_blocks, kBasketThreads, 0, stream>>>(
+      k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, state_grid, partials);
+  return cudaGetLastError();
+}
+
+}  // namespace mc
+
+extern "C" {
+
+int mc_basket_block_threads() { return mc::kBasketThreads; }
+
+// params: the packed vector of 10 + 3d + d(d+1)/2 floats (the wrapper checks
+// its length); d in [1, 32].
+int mc_basket_partials(int payoff_id, int antithetic, uint32_t k0, uint32_t k1,
+                       const float* params, int d, int n_steps, uint32_t n_paths,
+                       uint32_t path_offset, uint32_t bound, double* partials, int n_blocks,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 32 || n_steps < 1) return cudaErrorInvalidValue;
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case mc::ID:                                                                           \
+    return d <= 8 ? mc::launch_basket_partials<mc::PAYOFF, 8>(                           \
+                        antithetic, k0, k1, params, d, n_steps, n_paths, path_offset,    \
+                        bound, partials, n_blocks, s)                                    \
+                  : mc::launch_basket_partials<mc::PAYOFF, 32>(                          \
+                        antithetic, k0, k1, params, d, n_steps, n_paths, path_offset,    \
+                        bound, partials, n_blocks, s);
+  switch (payoff_id) {
+    MC_ALL_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
+// b_grid, state_grid: (n_steps, n_paths) f32; partials (n_blocks, 2) f64.
+int mc_basket_trajectories(int payoff_id, uint32_t k0, uint32_t k1, const float* params, int d,
+                           int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                           float* b_grid, float* state_grid, double* partials, int n_blocks,
+                           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 32 || n_steps < 1) return cudaErrorInvalidValue;
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case mc::ID:                                                                           \
+    return d <= 8 ? mc::launch_basket_trajectories<mc::PAYOFF, 8>(                       \
+                        k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, \
+                        state_grid, partials, n_blocks, s)                               \
+                  : mc::launch_basket_trajectories<mc::PAYOFF, 32>(                      \
+                        k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, \
+                        state_grid, partials, n_blocks, s);
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
+}  // extern "C"

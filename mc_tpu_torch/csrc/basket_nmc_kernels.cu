@@ -1,0 +1,69 @@
+// The basket instantiations of the family NMC kernels (family.cuh), for
+// sm_90a: family_fused_kernel<BasketFamily<kMaxD>> (#30),
+// family_inner_kernel<BasketFamily<kMaxD>> (#29) and
+// family_trajectories_kernel<BasketFamily<kMaxD>>, which stores the d asset
+// price grids of the grid strategy where mc_tpu builds them with its XLA scan
+// (no Pallas counterpart).  Its step is BasketFamily::outer_step
+// (basket.cuh), the fused kernel's, so the two give the same outer paths bit
+// for bit.  The call's d (extras i[0], in [1, 32]) picks the capacity: 8 for
+// d <= 8, 32 above.  The twelve one-word payoffs each; family_nmc_kernels.cu's
+// entry points call the launchers below.  A source of their own, so they
+// compile beside basket_kernels.cu.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "basket.cuh"
+#include "family.cuh"
+
+namespace mc {
+
+cudaError_t basket_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
+                                uint32_t ki1, const float* params, FamilyExtras extras,
+                                int n_steps, int n_inner, uint32_t n_paths,
+                                uint32_t path_offset, uint32_t bound, float* surface,
+                                double* outer_partials, cudaStream_t stream) {
+  const int d = extras.i[0];
+  if (d < 1 || d > 32) return cudaErrorInvalidValue;
+  return d <= 8 ? family_fused_switch<BasketFamily<8>>(
+                      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner,
+                      n_paths, path_offset, bound, surface, outer_partials, stream)
+                : family_fused_switch<BasketFamily<32>>(
+                      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner,
+                      n_paths, path_offset, bound, surface, outer_partials, stream);
+}
+
+cudaError_t basket_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
+                                FamilyExtras extras, int n_steps, int n_inner,
+                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                const GridPtrs& grids, const float* state_grid, float* surface,
+                                cudaStream_t stream) {
+  const int d = extras.i[0];
+  if (d < 1 || d > 32) return cudaErrorInvalidValue;
+  return d <= 8 ? family_inner_switch<BasketFamily<8>>(payoff_id, ki0, ki1, params, extras,
+                                                       n_steps, n_inner, n_paths, path_offset,
+                                                       bound, grids, state_grid, surface,
+                                                       stream)
+                : family_inner_switch<BasketFamily<32>>(payoff_id, ki0, ki1, params, extras,
+                                                        n_steps, n_inner, n_paths,
+                                                        path_offset, bound, grids, state_grid,
+                                                        surface, stream);
+}
+
+cudaError_t basket_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
+                                       const float* params, FamilyExtras extras, int n_steps,
+                                       uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                       const GridOutPtrs& grids, float* state_grid,
+                                       double* partials, int n_blocks, cudaStream_t stream) {
+  const int d = extras.i[0];
+  if (d < 1 || d > 32) return cudaErrorInvalidValue;
+  return d <= 8 ? family_trajectories_switch<BasketFamily<8>>(
+                      payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound,
+                      grids, state_grid, partials, n_blocks, stream)
+                : family_trajectories_switch<BasketFamily<32>>(
+                      payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound,
+                      grids, state_grid, partials, n_blocks, stream);
+}
+
+}  // namespace mc

@@ -127,7 +127,7 @@ struct BatesFamily {
   __device__ static float point_scale(const Params& p, const float (&)[kGrids]) {
     return expf(-p.b.h.pay.r * p.b.h.pay.t);  // the full e^{-rT}
   }
-  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+  __device__ static uint32_t counter_stride(const Params&, int n_steps) {
     return 3u * static_cast<uint32_t>(n_steps);
   }
 };

@@ -1,15 +1,19 @@
 // The family nested-MC engine on the device: the kernels every model family
 // instantiates (family_nmc_kernels.cu for Heston, <family>_nmc_kernels.cu
-// for Merton, Bates, CEV, local vol, SABR and term structures), templates
-// over a device-side family
-// whose interface mirrors NMCFamily (nmc_engine.py):
+// for Merton, Bates, CEV, local vol, SABR, term structures, Vasicek and the
+// basket), templates over a device-side family whose interface mirrors
+// NMCFamily (nmc_engine.py):
 //   Params, load(ptr, extras, n_steps) the packed parameters, the family's
 //                                      integer extras (Merton's and Bates's
 //                                      Poisson scan depth, local vol's knot
-//                                      count) and the step count (local
-//                                      vol's and term's curve length);
+//                                      count, the basket's d) and the step
+//                                      count (local vol's and term's curve
+//                                      length);
 //   payoff_params(p)                   the payoffs' view of the contract;
-//   kGrids                             market-state grids (S first);
+//   kGrids                             market-state grids (S first), or, for
+//                                      a family with grid_count(p) (the
+//                                      basket), their capacity: the call
+//                                      stores grid_count(p) of them;
 //   Carry<Payoff>, outer_init(p)       the outer path's carry and its start;
 //   outer_step<Payoff>(p, k0, k1, id, j, c)
 //                                      one outer step j on the outer stream,
@@ -20,7 +24,7 @@
 //                                      payoff state st, `remaining` substeps,
 //                                      drawing from counter c_base on;
 //   point_scale(p, g)                  the factor on the inner mean;
-//   counter_stride(n_steps)            the counter budget of one inner leg.
+//   counter_stride(p, n_steps)         the counter budget of one inner leg.
 //
 // family_fused_kernel replaces mc_tpu/nmc_engine.py family_fused_kernel (the
 // Pallas call at :426) and family_inner_kernel its family_inner_kernel (the
@@ -52,6 +56,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -62,18 +67,36 @@
 namespace mc {
 
 constexpr int kFamilyThreads = 128;
-constexpr int kMaxGrids = 8;
+// The most grids a family stores: the basket's d <= MAX_BASKET_D = 32.
+constexpr int kMaxGrids = 32;
 
 enum FamilyId {
   FAMILY_HESTON = 0, FAMILY_MERTON = 1, FAMILY_BATES = 2, FAMILY_CEV = 3,
-  FAMILY_LOCALVOL = 4, FAMILY_SABR = 5, FAMILY_TERM = 6
+  FAMILY_LOCALVOL = 4, FAMILY_SABR = 5, FAMILY_TERM = 6, FAMILY_VASICEK = 7,
+  FAMILY_BASKET = 8
 };
 
 // A family's integer extras, by value (Merton's and Bates's i[0] = kmax,
-// local vol's i[0] = K).
+// local vol's i[0] = K, the basket's i[0] = d).
 struct FamilyExtras {
   int i[4];
 };
+
+// The grids a call stores: Family::grid_count(p) where the family has one
+// (a runtime count up to its capacity kGrids), else kGrids.
+template <class Family, class = void>
+struct RuntimeGrids : std::false_type {};
+template <class Family>
+struct RuntimeGrids<Family, std::void_t<decltype(&Family::grid_count)>> : std::true_type {};
+
+template <class Family>
+__device__ __forceinline__ int grid_count(const typename Family::Params& p) {
+  if constexpr (RuntimeGrids<Family>::value) {
+    return Family::grid_count(p);
+  } else {
+    return Family::kGrids;
+  }
+}
 
 struct GridPtrs {
   const float* g[kMaxGrids];
@@ -92,7 +115,7 @@ __device__ float family_point(const typename Family::Params& p, uint32_t ki0, ui
                               const typename Payoff::State& st) {
   const int remaining = n_steps - j - 1;
   const uint32_t t_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner);
-  const uint32_t stride = Family::counter_stride(n_steps);
+  const uint32_t stride = Family::counter_stride(p, n_steps);
   float acc = 0.0f, comp = 0.0f;
   for (int m = 0; m < n_inner; ++m) {
     const uint32_t c_base = (t_base + static_cast<uint32_t>(m)) * stride;
@@ -153,8 +176,11 @@ family_inner_kernel(uint32_t ki0, uint32_t ki1, const float* __restrict__ params
   const uint32_t id = path_offset + local;
   const size_t at = static_cast<size_t>(j) * n_paths + local;
   float g[Family::kGrids];
+  const int n_grids = grid_count<Family>(p);
 #pragma unroll
-  for (int k = 0; k < Family::kGrids; ++k) g[k] = grids.g[k][at];
+  for (int k = 0; k < Family::kGrids; ++k) {
+    if (k < n_grids) g[k] = grids.g[k][at];
+  }
   typename Payoff::State st = Payoff::init(Family::payoff_params(p));
   if (Payoff::kStates) st.w[0] = state_grid[at];
   const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, g, st);
@@ -172,6 +198,7 @@ family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ p
                            uint32_t path_offset, uint32_t bound, GridOutPtrs grids,
                            float* __restrict__ state_grid, double* __restrict__ partials) {
   const typename Family::Params p = Family::load(params, extras, n_steps);
+  const int n_grids = grid_count<Family>(p);
   double acc[2] = {0.0, 0.0};
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
   for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -184,7 +211,9 @@ family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ p
       Family::template point<Payoff>(c, g);
       const size_t at = static_cast<size_t>(j) * n_paths + i;
 #pragma unroll
-      for (int k = 0; k < Family::kGrids; ++k) grids.g[k][at] = g[k];
+      for (int k = 0; k < Family::kGrids; ++k) {
+        if (k < n_grids) grids.g[k][at] = g[k];
+      }
       state_grid[at] = Payoff::kStates ? c.st.w[0] : 0.0f;
     }
     const float pv[1] = {Family::template outer_pay<Payoff>(p, c)};
@@ -329,6 +358,8 @@ MC_FAMILY_LAUNCHERS(cev_family)
 MC_FAMILY_LAUNCHERS(localvol_family)
 MC_FAMILY_LAUNCHERS(sabr_family)
 MC_FAMILY_LAUNCHERS(term_family)
+MC_FAMILY_LAUNCHERS(vasicek_family)
+MC_FAMILY_LAUNCHERS(basket_family)
 #undef MC_FAMILY_LAUNCHERS
 
 }  // namespace mc

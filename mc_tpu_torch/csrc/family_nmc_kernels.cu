@@ -12,9 +12,10 @@
 // from heston_trajectories, heston_kernels.cu), Merton
 // (merton_nmc_kernels.cu), Bates (bates_nmc_kernels.cu), CEV
 // (cev_nmc_kernels.cu), local vol (localvol_nmc_kernels.cu), SABR
-// (sabr_nmc_kernels.cu) and term structures (term_nmc_kernels.cu), each
-// family's instantiations compiled in its own source.  A later family adds
-// its struct, its launchers and a case.
+// (sabr_nmc_kernels.cu), term structures (term_nmc_kernels.cu), Vasicek
+// (vasicek_nmc_kernels.cu) and the basket (basket_nmc_kernels.cu, its grid
+// count the call's d), each family's instantiations compiled in its own
+// source.  A later family adds its struct, its launchers and a case.
 
 #include <cstdint>
 
@@ -80,7 +81,7 @@ struct HestonFamily {
   __device__ static float point_scale(const Params& h, const float (&)[kGrids]) {
     return expf(-h.pay.r * h.pay.t);  // the full e^{-rT}, as nmc.cuh:100-104
   }
-  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+  __device__ static uint32_t counter_stride(const Params&, int n_steps) {
     return static_cast<uint32_t>(n_steps);
   }
 };
@@ -105,8 +106,9 @@ cudaError_t heston_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const
                                            state_grid, surface, stream);
 }
 
-// The market grids each family stores (S first).
-inline int family_grids(int family_id) {
+// The market grids each family stores (S first): the basket's d, in [1,
+// kMaxGrids], is its extras' i[0].
+inline int family_grids(int family_id, const FamilyExtras& extras) {
   switch (family_id) {
     case FAMILY_HESTON: return 2;
     case FAMILY_MERTON: return 1;
@@ -115,6 +117,9 @@ inline int family_grids(int family_id) {
     case FAMILY_LOCALVOL: return 1;
     case FAMILY_SABR: return 2;
     case FAMILY_TERM: return 1;
+    case FAMILY_VASICEK: return 3;
+    case FAMILY_BASKET:
+      return extras.i[0] >= 1 && extras.i[0] <= kMaxGrids ? extras.i[0] : -1;
     default: return -1;
   }
 }
@@ -126,7 +131,8 @@ extern "C" {
 int mc_family_block_threads() { return mc::kFamilyThreads; }
 
 // extras: the family's integer extras by value (Merton's and Bates's
-// i[0] = kmax, local vol's i[0] = K; Heston, CEV, SABR and term read none).
+// i[0] = kmax, local vol's i[0] = K, the basket's i[0] = d; Heston, CEV,
+// SABR, term and Vasicek read none).
 int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                     uint32_t ki1, const float* params, mc::FamilyExtras extras, int n_steps,
                     int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
@@ -161,6 +167,14 @@ int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, ui
       return mc::term_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
                                    n_inner, n_paths, path_offset, bound, surface,
                                    outer_partials, s);
+    case mc::FAMILY_VASICEK:
+      return mc::vasicek_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
+                                      n_inner, n_paths, path_offset, bound, surface,
+                                      outer_partials, s);
+    case mc::FAMILY_BASKET:
+      return mc::basket_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
+                                     n_inner, n_paths, path_offset, bound, surface,
+                                     outer_partials, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -172,7 +186,7 @@ int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
                     const float* const* grids, int n_grids, const float* state_grid,
                     float* surface, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_grids != mc::family_grids(family_id)) return cudaErrorInvalidValue;
+  if (n_grids != mc::family_grids(family_id, extras)) return cudaErrorInvalidValue;
   mc::GridPtrs g = {};
   for (int k = 0; k < n_grids; ++k) g.g[k] = grids[k];
   switch (family_id) {
@@ -197,21 +211,28 @@ int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
     case mc::FAMILY_TERM:
       return mc::term_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
                                    n_paths, path_offset, bound, g, state_grid, surface, s);
+    case mc::FAMILY_VASICEK:
+      return mc::vasicek_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
+                                      n_paths, path_offset, bound, g, state_grid, surface, s);
+    case mc::FAMILY_BASKET:
+      return mc::basket_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
+                                     n_paths, path_offset, bound, g, state_grid, surface, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // grids: a host array of n_grids device pointers the kernel writes, each
 // (n_steps, n_paths) f32; partials (n_blocks, 2) f64.  Merton (#15's
-// kernel), Bates, CEV, local vol (#20's kernel), SABR and term; Heston
-// stores its grids with heston_trajectories.
+// kernel), Bates, CEV, local vol (#20's kernel), SABR, term, Vasicek (#24's
+// kernel) and the basket's d asset grids; Heston stores its grids with
+// heston_trajectories.
 int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k1,
                            const float* params, mc::FamilyExtras extras, int n_steps,
                            uint32_t n_paths, uint32_t path_offset, uint32_t bound,
                            float* const* grids, int n_grids, float* state_grid,
                            double* partials, int n_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_grids != mc::family_grids(family_id)) return cudaErrorInvalidValue;
+  if (n_grids != mc::family_grids(family_id, extras)) return cudaErrorInvalidValue;
   mc::GridOutPtrs g = {};
   for (int k = 0; k < n_grids; ++k) g.g[k] = grids[k];
   switch (family_id) {
@@ -239,6 +260,14 @@ int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k
       return mc::term_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
                                           n_paths, path_offset, bound, g, state_grid,
                                           partials, n_blocks, s);
+    case mc::FAMILY_VASICEK:
+      return mc::vasicek_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
+                                             n_paths, path_offset, bound, g, state_grid,
+                                             partials, n_blocks, s);
+    case mc::FAMILY_BASKET:
+      return mc::basket_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
+                                            n_paths, path_offset, bound, g, state_grid,
+                                            partials, n_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

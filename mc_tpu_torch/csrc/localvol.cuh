@@ -142,7 +142,7 @@ struct LocalVolFamily {
   __device__ static float point_scale(const Params& l, const float (&)[kGrids]) {
     return expf(-l.pay.r * l.pay.t);  // the full e^{-rT}
   }
-  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+  __device__ static uint32_t counter_stride(const Params&, int n_steps) {
     return static_cast<uint32_t>(n_steps + 1) / 2u;  // one pair per two substeps
   }
 };

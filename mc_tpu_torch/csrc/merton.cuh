@@ -183,7 +183,7 @@ struct MertonFamily {
   __device__ static float point_scale(const Params& p, const float (&)[kGrids]) {
     return expf(-p.m.pay.r * p.m.pay.t);  // the full e^{-rT}
   }
-  __host__ __device__ static uint32_t counter_stride(int n_steps) {
+  __device__ static uint32_t counter_stride(const Params&, int n_steps) {
     return 2u * static_cast<uint32_t>(n_steps);
   }
 };

@@ -1,0 +1,153 @@
+// The Black-Scholes-Vasicek family on the device: its packed parameters, the
+// exact OU-triple step and the family NMC struct, the twins of
+// mc_tpu_torch/models/vasicek.py and mc_tpu_torch/nmc_vasicek.py (and of
+// mc_tpu/models/vasicek.py:168-218, mc_tpu/nmc_vasicek.py:53-175) operation
+// for operation, in the same association.  The build passes --fmad=false, so
+// each mul and add rounds as it does in the plain PyTorch version.
+//
+// VasicekParams is the layout of VASICEK_FIELDS (22 f32).  The payoffs'
+// Params get the fields a payoff may read (s0, k, r, barrier, p1, p2, t, dt,
+// inv_n_steps, and sigma = sigma_s, which the Brownian-bridge barriers
+// read); q and the GBM drift/vol coefficients are NaN, so a payoff that
+// read them would fail its gate loudly.
+#pragma once
+
+#include <cstdint>
+
+#include "family.cuh"
+#include "payoffs.cuh"
+#include "rng.cuh"
+
+namespace mc {
+
+constexpr int kVasicekFields = 22;
+
+struct VasicekParams {
+  Params pay;  // the payoff's view of the contract
+  float sqrt_dt, x0, bdt, e1, big_b, drift_adj, l11, l21, l22, l31, l32, l33;
+};
+
+__device__ __forceinline__ VasicekParams load_vasicek(const float* __restrict__ v) {
+  const float nan = __int_as_float(0x7fc00000);
+  VasicekParams c;
+  c.pay.s0 = v[0]; c.pay.k = v[1]; c.pay.r = v[2]; c.pay.barrier = v[3];
+  c.pay.p1 = v[4]; c.pay.p2 = v[5]; c.pay.t = v[6]; c.pay.dt = v[7];
+  c.pay.inv_n_steps = v[8]; c.sqrt_dt = v[9]; c.pay.sigma = v[10];
+  c.pay.q = nan; c.pay.drift_dt = nan; c.pay.vol_dt = nan; c.pay.drift_t = nan;
+  c.pay.vol_t = nan;
+  c.x0 = v[11]; c.bdt = v[12]; c.e1 = v[13]; c.big_b = v[14]; c.drift_adj = v[15];
+  c.l11 = v[16]; c.l21 = v[17]; c.l22 = v[18]; c.l31 = v[19]; c.l32 = v[20];
+  c.l33 = v[21];
+  return c;
+}
+
+// The state of a path: w = log S/s0 (of the leg's start), x = r - b, y =
+// int r du.
+struct VasicekState {
+  float w, x, y;
+};
+
+// One exact step from three iid normals: eps = l11 za, eta = l21 za + l22 zb,
+// u = (l31 za + l32 zb) + l33 zc; dy = (bdt + x B) + eta; w = ((w + dy) -
+// drift_adj) + u; y += dy; x = x e1 + eps; S = s0 * expf(w).
+__device__ __forceinline__ float vasicek_step(const VasicekParams& c, float za, float zb,
+                                              float zc, float s0, VasicekState& g) {
+  const float eps = c.l11 * za;
+  const float eta = c.l21 * za + c.l22 * zb;
+  const float u = (c.l31 * za + c.l32 * zb) + c.l33 * zc;
+  const float dy = (c.bdt + g.x * c.big_b) + eta;
+  g.w = ((g.w + dy) - c.drift_adj) + u;
+  g.y = g.y + dy;
+  g.x = g.x * c.e1 + eps;
+  return s0 * expf(g.w);  // log-space: one exp rounding per S_t
+}
+
+// The normals of the step pair m: pairs 3m, 3m+1, 3m+2 of path id.
+template <int ROUNDS>
+__device__ __forceinline__ void vasicek_draw6(uint32_t k0, uint32_t k1, uint32_t id, int m,
+                                              float (&z)[6]) {
+  const uint32_t c = 3u * static_cast<uint32_t>(m);
+  normal_pair<ROUNDS>(k0, k1, id, c, z[0], z[1]);
+  normal_pair<ROUNDS>(k0, k1, id, c + 1u, z[2], z[3]);
+  normal_pair<ROUNDS>(k0, k1, id, c + 2u, z[4], z[5]);
+}
+
+// Vasicek for the family NMC engine (mc_tpu/nmc_vasicek.py:53-175): grids
+// (S, x, y), no extras.  The outer step j draws the step pair j/2's six
+// normals at even j, steps on (z0, z1, z2) and parks (z3, z4, z5) for the
+// odd step; the carry holds S, so the outer payoff reads the spot the step
+// stored, and the outer payoff is discounted by its own exp(-y_T).  The
+// inner leg resumes from (S_t, x_t) with w = y = 0, substep u drawing the
+// pairs 2(c_base + u) -> (za, zb) and 2(c_base + u) + 1 -> (zc, unused), and
+// pays payoff(S_t exp(w)) * exp(-y); the point is scaled by exp(-y_t) of the
+// outer path, so every value is discounted to time 0 along its own rates.
+struct VasicekFamily {
+  using Params = VasicekParams;
+  static constexpr int kGrids = 3;
+
+  template <class Payoff>
+  struct Carry {
+    VasicekState g;
+    float s;
+    typename Payoff::State st;
+    float parked[3];
+  };
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras&, int) {
+    return load_vasicek(params);
+  }
+  __device__ static const mc::Params& payoff_params(const Params& c) { return c.pay; }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& c) {
+    return Carry<Payoff>{VasicekState{0.0f, c.x0, 0.0f}, c.pay.s0, Payoff::init(c.pay),
+                         {0.0f, 0.0f, 0.0f}};
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& o) {
+    float za, zb, zc;
+    if ((j & 1) == 0) {
+      float z[6];
+      vasicek_draw6<13>(k0, k1, id, j >> 1, z);
+      za = z[0]; zb = z[1]; zc = z[2];
+      o.parked[0] = z[3]; o.parked[1] = z[4]; o.parked[2] = z[5];
+    } else {
+      za = o.parked[0]; zb = o.parked[1]; zc = o.parked[2];
+    }
+    o.s = vasicek_step(c, za, zb, zc, c.pay.s0, o.g);
+    o.st = Payoff::update(o.st, o.s, c.pay);
+  }
+  template <class Payoff>
+  __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {
+    g[0] = o.s;
+    g[1] = o.g.x;
+    g[2] = o.g.y;
+  }
+  template <class Payoff>
+  __device__ static float outer_pay(const Params& c, const Carry<Payoff>& o) {
+    return Payoff::terminal(o.st, o.s, c.pay) * expf(-o.g.y);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
+                                    typename Payoff::State st) {
+    VasicekState s{0.0f, g[1], 0.0f};
+    for (int u = 0; u < remaining; ++u) {
+      const uint32_t cu = 2u * (c_base + static_cast<uint32_t>(u));
+      float za, zb, zc, unused;
+      normal_pair<13>(k0, k1, id, cu, za, zb);
+      normal_pair<13>(k0, k1, id, cu + 1u, zc, unused);
+      st = Payoff::update(st, vasicek_step(c, za, zb, zc, g[0], s), c.pay);
+    }
+    return Payoff::terminal(st, g[0] * expf(s.w), c.pay) * expf(-s.y);
+  }
+  __device__ static float point_scale(const Params&, const float (&g)[kGrids]) {
+    return expf(-g[2]);  // the outer path's own discount to time 0
+  }
+  __device__ static uint32_t counter_stride(const Params&, int n_steps) {
+    return static_cast<uint32_t>(n_steps);  // the leg doubles it: two pairs a substep
+  }
+};
+
+}  // namespace mc

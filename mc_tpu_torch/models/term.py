@@ -32,6 +32,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import dataclasses
+from fractions import Fraction
 from types import SimpleNamespace
 from typing import Any
 
@@ -50,8 +51,8 @@ from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["TermStructure", "DEMO_KNOTS", "demo_term", "DEMO_TERM",
            "TERM_TAG", "HEAD_FIELDS",
-           "TermConfig", "mean_f32", "packed_length", "pack_term",
-           "unpack_term", "term_step", "term_partials", "term_partials_plain",
+           "TermConfig", "fma_f32", "sqrt_f32", "mean_f32", "packed_length",
+           "pack_term", "unpack_term", "term_step", "term_partials", "term_partials_plain",
            "price_term"]
 
 # rng.derive_key stream tag of the term-structure family (mc_tpu's 0x7E53).
@@ -104,6 +105,28 @@ def demo_term(n_steps: int) -> TermStructure:
 
 
 DEMO_TERM = demo_term(100)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """a*b + c rounded once to f32 (round half to even), as a 0-d f32
+    tensor from f32 scalars: the fused multiply-add XLA's CPU backend
+    contracts ``mc_tpu``'s jitted a*b + c into, computed exactly in
+    rationals."""
+    a, b, c = (np.float32(float(v)) for v in (a, b, c))
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(exact))
+    near = (np.nextafter(r, np.float32(-np.inf)), r,
+            np.nextafter(r, np.float32(np.inf)))
+    best = min(near, key=lambda x: (abs(Fraction(float(x)) - exact),
+                                    int(np.asarray(x).view(np.int32)) & 1))
+    return torch.tensor(best, dtype=torch.float32)
+
+
+def sqrt_f32(x) -> torch.Tensor:
+    """The correctly rounded f32 square root of an f32 scalar, as a 0-d f32
+    tensor (XLA's; PyTorch's CPU sqrt of a 0-d tensor misses it now and
+    then)."""
+    return torch.tensor(np.sqrt(np.float32(float(x))), dtype=torch.float32)
 
 
 def mean_f32(x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ A family supplies its physics through `NMCFamily` (parameter packing, its
 integer ``extras``, the trajectories that store its outer state grids, the
 plain inner leg and its discounting); the engine owns the rest: the entry
 guards, the keys, the f32 Kahan inner sum and the two strategies.  Heston,
-Merton, Bates, CEV, local vol, SABR and term structures are registered; the
-other families of ``mc_tpu`` (Vasicek, basket, rainbow) are still to port
-(ROADMAP.md queue B, item 14).
+Merton, Bates, CEV, local vol, SABR, term structures, Vasicek (pathwise
+discounting: a per-point scale from its own grid) and the basket (d asset
+grids, d a runtime value up to 32) are registered; ``mc_tpu``'s rainbow is
+still to port (ROADMAP.md queue B, item 14).
 
 Three kernel templates over a device-side family struct (``csrc/family.cuh``;
 each family's instantiations compiled in its own source, the entry points
@@ -19,7 +20,8 @@ in ``csrc/family_nmc_kernels.cu``):
 * ``family_fused`` (replaces ``family_fused_kernel``,
   ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself;
 * ``family_trajectories``: stores the outer grids of a family without a
-  trajectories kernel of its own (Bates, CEV, SABR and term; the port's
+  trajectories kernel of its own (Bates, CEV, SABR, term and the basket's
+  d asset grids; the port's
   counterpart of ``mc_tpu``'s XLA scan ``xla_family_trajectories``),
   stepping the family's outer step, the fused kernel's, so the grid and
   fused strategies agree.
@@ -74,8 +76,8 @@ class NMCFamily:
     class attributes and the methods below; ``cuda_id`` names its struct in
     ``csrc/family.cuh`` (FamilyId).  ``extras`` are the family's integer
     specializations of one call (Merton's and Bates's Poisson scan depth,
-    local vol's knot count), passed to the kernels by value (at most
-    four)."""
+    local vol's knot count, the basket's d), passed to the kernels by value
+    (at most four)."""
 
     name = "?"
     tag = 0            # rng.derive_key stream tag (that of price_<model>)
@@ -139,8 +141,9 @@ class NMCFamily:
 
     def outer_draws(self, k0: int, k1: int, ids, steps):
         """The outer key's draws of the steps ``steps`` (an int64 tensor of
-        step indices leading the dims of ``ids``) at once: a tuple of
-        tensors whose index [j] is step j's draws."""
+        step indices leading the dims of ``ids``): a tuple of tensors (or of
+        sequences that draw on indexing) whose index [j] is step j's
+        draws."""
         raise NotImplementedError
 
     def outer_step(self, payoff: PathPayoff, p, carry, draws):
@@ -500,7 +503,9 @@ FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston",
                   "cev": "mc_tpu_torch.nmc_cev",
                   "localvol": "mc_tpu_torch.nmc_localvol",
                   "sabr": "mc_tpu_torch.nmc_sabr",
-                  "term": "mc_tpu_torch.nmc_term"}
+                  "term": "mc_tpu_torch.nmc_term",
+                  "vasicek": "mc_tpu_torch.nmc_vasicek",
+                  "basket": "mc_tpu_torch.nmc_basket"}
 
 
 def register_nmc_family(name: str, price_fn, builder=None) -> None:

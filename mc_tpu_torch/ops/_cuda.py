@@ -51,7 +51,9 @@ KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "family_inner", "family_fused", "merton_partials",
            "merton_trajectories", "bates_partials", "family_trajectories",
            "cev_partials", "localvol_partials", "localvol_trajectories",
-           "sabr_partials", "term_partials", "divs_partials")
+           "sabr_partials", "term_partials", "divs_partials",
+           "vasicek_partials", "vasicek_trajectories", "basket_partials",
+           "basket_trajectories")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -62,7 +64,7 @@ _c_ptr_array = ctypes.POINTER(ctypes.c_void_p)
 class FamilyExtras(ctypes.Structure):
     """A family's integer extras, passed by value (``csrc/family.cuh``
     FamilyExtras): Merton's and Bates's i[0] is the Poisson scan depth,
-    local vol's the knot count."""
+    local vol's the knot count, the basket's its dimension d."""
 
     _fields_ = [("i", ctypes.c_int * 4)]
 
@@ -90,6 +92,8 @@ _SIGNATURES = {
     "mc_sabr_block_threads": ([], _c_int),
     "mc_term_block_threads": ([], _c_int),
     "mc_divs_block_threads": ([], _c_int),
+    "mc_vasicek_block_threads": ([], _c_int),
+    "mc_basket_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -197,11 +201,28 @@ _SIGNATURES = {
     "mc_divs_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
                           _c_u32, _c_u32, _c_u32, _c_ptr, _c_int, _c_ptr],
                          _c_int),
+    # payoff_id, rounds, antithetic, k0, k1, params, n_steps, n_paths,
+    # path_offset, bound, partials, n_blocks, stream
+    "mc_vasicek_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                             _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_int,
+                             _c_ptr], _c_int),
+    # payoff_id, antithetic, k0, k1, params, d, n_steps, n_paths,
+    # path_offset, bound, partials, n_blocks, stream
+    "mc_basket_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                            _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_int,
+                            _c_ptr], _c_int),
+    # payoff_id, k0, k1, params, d, n_steps, n_paths, path_offset, bound,
+    # b_grid, state_grid, partials, n_blocks, stream
+    "mc_basket_trajectories": ([_c_int, _c_u32, _c_u32, _c_ptr, _c_int,
+                                _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
+                                _c_ptr, _c_ptr, _c_int, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()
 _lib = None
-build_info: dict = {}  # path, seconds (None when reused), ptxas log
+# path, seconds (None when reused), ptxas log, source_seconds (each
+# source's nvcc, all started together)
+build_info: dict = {}
 
 
 def cdiv(a: int, b: int) -> int:
@@ -235,17 +256,29 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _run_all(cmds: list[list[str]]) -> str:
-    """Run the commands at once; their stderr, or raise on the first that
-    fails."""
+def _run_all(cmds: list[list[str]]) -> tuple[str, list[float]]:
+    """Run the commands at once: their stderr and the seconds each took, or
+    raise on the first that fails."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, cwd=CSRC) for c in cmds]
-    errs = [p.communicate()[1] for p in procs]
+    errs, secs = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        errs[i] = procs[i].communicate()[1]
+        secs[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for c, p, err in zip(cmds, procs, errs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
                                f"{' '.join(c)}\n{err}")
-    return "".join(errs)
+    return "".join(errs), secs
 
 
 def _build() -> Path:
@@ -265,8 +298,8 @@ def _build() -> Path:
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    ptxas = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                      for o, src in zip(objs, srcs)])
+    ptxas, secs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                            for o, src in zip(objs, srcs)])
     tmp = out_dir / f"{LIB_NAME}.{tag}"
     _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
@@ -274,7 +307,8 @@ def _build() -> Path:
         o.unlink()
     (out_dir / "ptxas.log").write_text(ptxas)
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    build_info.update(path=str(out), seconds=seconds, ptxas=ptxas)
+    build_info.update(path=str(out), seconds=seconds, ptxas=ptxas,
+                      source_seconds=dict(zip((s.name for s in srcs), secs)))
     return out
 
 

@@ -1,10 +1,11 @@
 """Closed-form oracles and the Monte Carlo result type
-(port of ``mc_tpu/oracle.py:63-200,459-505,549-638``).
+(port of ``mc_tpu/oracle.py:63-200,300-317,459-505,515-549,549-638``).
 
 The oracles are host f64 through ``math.erf``/``math.erfc``: the gates of
 the payoffs (vanilla, digital, continuous-barrier, forward-start, cliquet),
-of the greeks (Black-Scholes delta, vega, gamma) and the implied
-volatility.  ``summarize`` turns f64 moment sums into a
+of the greeks (Black-Scholes delta, vega, gamma), the implied volatility,
+the Vasicek bond and Merton's (1973) call under Vasicek rates, and
+Margrabe's (1978) exchange option.  ``summarize`` turns f64 moment sums into a
 `PriceResult` on whatever device the sums live.
 """
 
@@ -19,7 +20,8 @@ import torch
 __all__ = ["bs_call", "bs_put", "bs_digital_call", "bs_digital_put",
            "bs_up_out_call", "bs_down_out_call", "bs_forward_start_call",
            "bs_cliquet", "bs_delta_call", "bs_vega", "bs_gamma",
-           "bs_implied_vol", "PriceResult", "summarize"]
+           "bs_implied_vol", "vasicek_zcb", "bsv_call", "margrabe",
+           "PriceResult", "summarize"]
 
 
 def _ncdf(x: float) -> float:
@@ -204,6 +206,50 @@ def bs_implied_vol(price, s0, k, t, r, q=0.0, n_iter: int = 24) -> float:
         newton = sigma - diff / max(bs_vega(s0, k, t, r, sigma, q), 1e-8)
         sigma = newton if lo < newton < hi else 0.5 * (lo + hi)
     return sigma
+
+
+def vasicek_zcb(r0, a, b, sigma_r, t) -> float:
+    """Zero-coupon bond P(0,T) = E[exp(-int_0^T r_u du)] under
+    dr = a (b - r) dt + sigma_r dW (the affine closed form)."""
+    r0, a, b, sigma_r, t = map(float, (r0, a, b, sigma_r, t))
+    bt = -math.expm1(-a * t) / a
+    loga = ((b - sigma_r * sigma_r / (2.0 * a * a)) * (bt - t)
+            - sigma_r * sigma_r * bt * bt / (4.0 * a))
+    return math.exp(loga - bt * r0)
+
+
+def bsv_call(s0, k, t, r0, sigma_s, a, b, sigma_r, rho, q=0.0) -> float:
+    """European equity call under Black-Scholes-Vasicek (Merton 1973): under
+    the T-forward measure F = S e^{-qT}/P(0,T) is lognormal with variance
+    sigma_s^2 T + (sigma_r/a)^2 (T - 2B + C2) + 2 rho sigma_s (sigma_r/a)
+    (T - B), B = (1-e^{-aT})/a, C2 = (1-e^{-2aT})/(2a); the Black formula
+    S0 e^{-qT} N(d1) - K P(0,T) N(d2)."""
+    s0, k, t, r0, sigma_s, a, b, sigma_r, rho, q = map(
+        float, (s0, k, t, r0, sigma_s, a, b, sigma_r, rho, q))
+    p0t = vasicek_zcb(r0, a, b, sigma_r, t)
+    bt = -math.expm1(-a * t) / a
+    c2 = -math.expm1(-2.0 * a * t) / (2.0 * a)
+    var = (sigma_s * sigma_s * t
+           + (sigma_r * sigma_r / (a * a)) * (t - 2.0 * bt + c2)
+           + 2.0 * rho * sigma_s * (sigma_r / a) * (t - bt))
+    sig = math.sqrt(var)
+    d1 = (math.log(s0 * math.exp(-q * t) / (k * p0t)) + 0.5 * var) / sig
+    d2 = d1 - sig
+    return s0 * math.exp(-q * t) * _phid(d1) - k * p0t * _phid(d2)
+
+
+def margrabe(s1, s2, t, sigma1, sigma2, rho, q1=0.0, q2=0.0) -> float:
+    """Margrabe (1978) exchange option e^{-rT} E[max(S1_T - S2_T, 0)]: rate
+    free, at sigma^2 = sigma1^2 + sigma2^2 - 2 rho sigma1 sigma2."""
+    s1, s2, t, sigma1, sigma2, rho, q1, q2 = map(
+        float, (s1, s2, t, sigma1, sigma2, rho, q1, q2))
+    sig = math.sqrt(sigma1 * sigma1 + sigma2 * sigma2
+                    - 2.0 * rho * sigma1 * sigma2)
+    st = sig * math.sqrt(t)
+    d1 = (math.log(s1 / s2) + (q2 - q1 + 0.5 * sig * sig) * t) / st
+    d2 = d1 - st
+    return (s1 * math.exp(-q1 * t) * _phid(d1)
+            - s2 * math.exp(-q2 * t) * _phid(d2))
 
 
 @dataclasses.dataclass(frozen=True)

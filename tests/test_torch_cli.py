@@ -533,3 +533,91 @@ def test_sabr_term_divs_entry_points_default_to_cuda():
                     (mt.price_divs, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(mt.DEMO_OPTION, dyn, sim)
+
+
+def test_vasicek_subcommand_prints_mc_tpus_keys(capsys):
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    assert cli.main(["vasicek", "--device", "cpu", "--n-paths", "20000",
+                     "--n-steps", "8", "--antithetic"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["oracle", "payoff", "price", "stderr", "z_score"]
+    # exact in law: tests/test_vasicek.py's 3.5 stderr
+    assert res["oracle"] == mt.bsv_call(100.0, 100.0, 1.0, 0.1, 0.2, 0.3,
+                                        0.05, 0.015, -0.3)
+    assert abs(res["z_score"]) <= 3.5
+    argv = ["vasicek", "--device", "cpu", "--n-paths", "4096", "--n-steps",
+            "4", "--payoff", "zcb", "--a", "1.0", "--b", "0.03",
+            "--sigma-r", "0.05", "--rho-r", "0.2"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["oracle"] == mt.vasicek_zcb(0.1, 1.0, 0.03, 0.05, 1.0)
+    want = mt.price_vasicek(mt.OptionParams(),
+                            mt.VasicekDynamics(1.0, 0.03, 0.05, 0.2),
+                            mt.SimParams(n_paths=4096, n_steps=4), "zcb",
+                            device="cpu")
+    assert res["price"] == float(want.price)
+    assert res["stderr"] == float(want.stderr)
+    argv[argv.index("zcb")] = "asian_call"
+    assert cli.main(argv) == 0
+    assert "oracle" not in json.loads(
+        capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_basket_subcommand_prints_mc_tpus_keys(capsys):
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["basket", "--device", "cpu", "--n-paths", "4096", "--n-steps",
+            "8", "--n-assets", "3", "--corr", "0.2", "--payoff", "asian_call",
+            "--antithetic"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(res) == ["n_assets", "payoff", "price", "stderr"]
+    want = mt.price_basket(mt.OptionParams(), mt.demo_basket(3, 0.2),
+                           mt.SimParams(n_paths=4096, n_steps=8),
+                           "asian_call", antithetic=True, device="cpu")
+    assert res["n_assets"] == 3 and res["price"] == float(want.price)
+    assert res["stderr"] == float(want.stderr)
+
+
+@pytest.mark.parametrize("model", ["vasicek", "basket"])
+def test_nmc_model_vasicek_basket_is_its_price_nmc(model, capsys):
+    """nmc --model vasicek builds VasicekDynamics(--a, --b, --sigma-r,
+    rho=--rho-r) and --model basket the demo basket of --n-assets at
+    --corr, as mc_tpu's; each through price_nmc_<model>, bit for bit."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", model, "--strategy", "grid", "--exposure",
+            "--cva-hazard", "0.02", "--payoff", "vanilla_call", "--device",
+            "cpu", "--n-paths", "256", "--n-steps", "6", "--n-inner", "8",
+            "--a", "0.5", "--b", "0.04", "--sigma-r", "0.02", "--rho-r",
+            "0.1", "--n-assets", "3", "--corr", "0.3"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    sim = mt.SimParams(n_paths=256, n_steps=6, n_paths_inner=8)
+    if model == "vasicek":
+        want = mt.price_nmc_vasicek(mt.OptionParams(),
+                                    mt.VasicekDynamics(0.5, 0.04, 0.02, 0.1),
+                                    sim, strategy="grid", device="cpu")
+    else:
+        want = mt.price_nmc_basket(mt.OptionParams(), mt.demo_basket(3, 0.3),
+                                   sim, strategy="grid", device="cpu")
+    assert res["outer_price"] == float(want.outer.price)
+    assert res["surface_mean"] == float(want.surface_mean)
+    assert len(res["expected_exposure"]) == 6 and res["cva"] > 0
+
+
+def test_vasicek_basket_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    for fn, dyn in ((mt.price_vasicek, mt.DEMO_VASICEK),
+                    (mt.price_nmc_vasicek, mt.DEMO_VASICEK),
+                    (mt.price_basket, mt.DEMO_BASKET),
+                    (mt.price_nmc_basket, mt.DEMO_BASKET)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(mt.DEMO_OPTION, dyn, sim)

@@ -147,7 +147,7 @@ def test_guards():
                                           n_paths_inner=2),
                          strategy="vmem", device="cpu")
     with pytest.raises(ValueError, match="item 14"):
-        ensure_family("vasicek")  # a family not ported yet
+        ensure_family("rainbow")  # a family not ported yet
     ensure_family("heston")
     assert NMC_FAMILIES["heston"] is price_nmc_heston
     fam = HestonNMC()
@@ -172,7 +172,7 @@ def test_discount_is_refused_under_heston(capsys):
                   "--device", "cpu", "--n-paths", "8", "--n-steps", "4",
                   "--n-inner", "2"])
     with pytest.raises(SystemExit, match="item 14"):
-        cli.main(["nmc", "--model", "vasicek", "--device", "cpu",
+        cli.main(["nmc", "--model", "rainbow", "--device", "cpu",
                   "--n-paths", "8", "--n-steps", "4", "--n-inner", "2"])
 
 
