@@ -34,9 +34,16 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    antithetic, 1M x 100), the Vasicek trajectories, the basket kernel (18
    payoffs at d = 4, the call at d = 1, 8, 9 and 32, antithetic, 1M x 100),
    the basket's (B, state) trajectories at 100,000 x 100, the generic
-   trajectories of its d asset grids and both families' NMC kernels; their
-   sums to f64 rounding and their grids and surfaces bit for bit (every NMC
-   against the plain rows 0 and 99 at the main shape);
+   trajectories of its d asset grids and both families' NMC kernels; the
+   FX kernel (8 contracts, threefry-13 and -20, 1M), the rainbow kernel (6
+   payoffs at d = 4, 1M, antithetic; the call at d = 1, 2, 8, 9, 32), the
+   rainbow's generic trajectories and NMC kernels (both folds), the QMC
+   kernels (terminal and Euler on the lattice and Sobol, the Brownian
+   bridge, every payoff at a small point count, the call and the Asian at
+   2^20 points x 100) on two shifts; their sums to f64 rounding and their
+   grids and surfaces bit for bit (every NMC at NMC_SMALL in full, at the
+   main shape against the plain row 99, the GBM and rainbow NMC rows 0 and
+   99);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -82,11 +89,19 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    x 500 by both strategies (grid == fused, the outer price, the last row,
    the tower property) with the bond's EE flat at P(0,T) and the Margrabe
    exchange EE flat at its closed form, their XVA figures, and the
-   ``vasicek``, ``basket`` and ``nmc --model`` commands;
-4. the kernels' launch counts over each of the eleven paths;
+   ``vasicek``, ``basket`` and ``nmc --model`` commands; then, the counts
+   set to 0 before each, the FX path (every contract at 1M against its
+   closed form, ``fx``), the rainbow path (Margrabe and the four Stulz
+   prices at d = 2 and 1M, the d = 4 best-of call, the NMC at 16,384 x 100
+   x 500 by both strategies with its best-of EE flat at Stulz's price,
+   ``rainbow`` and ``nmc --model rainbow``) and the QMC path (the terminal
+   call on 2^20 points x 16 shifts of both families against Black-Scholes,
+   its stderr against plain MC's on the same budget, the Asian by Euler and
+   by the bridge, ``qmc``);
+4. the kernels' launch counts over each of the fourteen paths;
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
-   after a warm-up; 3 for this slice's NMC kernels and calls and 1 for the
-   earlier ones', warm from phases 2 and 3; the plain versions once), the
+   after a warm-up; the NMC kernels and calls once, in phases 2 and 3; the
+   plain versions once), the
    ladder and the book beside the single-contract
    launches they replace, the simulate kernel per payoff with its
    registers, the greek kernel beside the simulate kernel on its shape,
@@ -95,14 +110,18 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    Heston kernels of their shapes, the CEV and local-vol kernels beside
    the Heston and Merton kernels of their shapes, the SABR kernels beside
    Heston's, the term and dividend kernels beside CEV's, the Vasicek
-   kernels beside Merton's and the basket kernels beside Heston's, and
+   kernels beside Merton's, the basket kernels beside Heston's, the FX
+   kernel beside terminal_pair, the rainbow kernels beside the basket's,
+   the QMC kernels on both families (the NMC kernels' times are their
+   phase-2 calls' and the NMC calls' their phase-3 calls'), and
    end-to-end
    times of the phase-3 calls (greeks() by route, chunked_price(),
    price_heston(), price_nmc_heston(), price_merton(), price_bates(),
    price_nmc_merton(), price_nmc_bates(), price_cev(), price_localvol(),
    price_nmc_cev(), price_nmc_localvol(), price_sabr(), price_term(),
    price_divs(), price_nmc_sabr(), price_nmc_term(), price_vasicek(),
-   price_nmc_vasicek(), price_basket(), price_nmc_basket());
+   price_nmc_vasicek(), price_basket(), price_nmc_basket(), price_fx(),
+   price_rainbow(), price_nmc_rainbow(), price_qmc());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -118,6 +137,7 @@ import re
 import statistics
 import sys
 import tempfile
+import threading
 import time
 from typing import NamedTuple
 
@@ -136,6 +156,11 @@ RESUME_STEPS = (50, 51)             # even and odd resume points
 IS_STRIKE = 180.0                   # deep out of the money: IS pays off
 NMC_MAIN = (16384, 100, 500)        # README quickstart: 4.1e10 inner steps
 NMC_ROWS = (0, 99)                   # phase 2: the plain rows at NMC_MAIN
+# Phase 2: the plain row of the earlier slices' family NMC at NMC_MAIN (the
+# last: grid == fused is held bitwise in phase 3, and every row of every
+# family at NMC_SMALL).
+EARLIER_NMC_ROWS = (99,)
+CLI_NMC_PATHS = 2048                 # phase 3: nmc --model's outer paths
 PAYOFF_PATHS = 16_384                # phase 2: every payoff, 100 steps
 LADDER_STRIKES = (60.0, 140.0, 17)   # linspace: the CLI's vol-surface row
 LADDER_PATHS = 1_000_000
@@ -158,11 +183,6 @@ FAMILY_PATHS = 16_384                # phase 2: every payoff, 100 steps
 FAMILY_MAIN = 1_000_000              # price_<family> at 1M (x 100)
 PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
 HESTON_PAYOFF_MAIN = PAYOFF_MAIN     # #13's shape
-NMC_REPS = 3                         # phase 5: NMC calls take 0.1-0.6 s
-# Phase 5: one rep for the earlier slices' NMC kernels and calls (GBM,
-# Heston, Merton, Bates, CEV, local vol, SABR, term: steady within 0.5% from
-# run to run, PERF.md section 2).
-EARLIER_NMC_REPS = 1
 HESTON_KERNELS = ("heston_partials", "heston_trajectories", "family_inner",
                   "family_fused")
 MERTON_KERNELS = ("merton_partials", "merton_trajectories", "family_inner",
@@ -235,6 +255,16 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # f64 outside the tensor cores: 132 SMs x 64 lanes x 2 (an FMA) at 1.98 GHz
 # (34 TFLOP/s on the datasheet).
 F64_OPS_PER_S = 132 * 64 * 2 * 1.98e9
+
+
+def process_seconds() -> float:
+    """Seconds since this process started (Linux /proc): the interpreter's
+    and PyTorch's start-up included."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 def fail(msg: str) -> None:
@@ -358,18 +388,33 @@ def e2e_seconds(fn, reps: int = REPS, warm: bool = True):
     return sorted(secs)
 
 
-def e2e_report(rows, tag: str, nmc_reps: int = NMC_REPS) -> None:
+def e2e_report(rows, tag: str) -> None:
     """Phase 5: each (label, unit, work, fn) end to end on the host clock
-    (e2e_seconds: REPS; nmc_reps and no warm-up call for an NMC call, warm
-    from phases 2 and 3), its median and its rate."""
+    (e2e_seconds: REPS after a warm-up call), its median and its rate.  An
+    NMC call's fn is the seconds its phase-3 call took (host clock, ended by
+    a synchronize, warm from phase 2): that one call is its time."""
     for label, unit, work, fn in rows:
-        nmc = unit == "inner path-steps/s"
-        reps = nmc_reps if nmc else REPS
-        secs = e2e_seconds(fn, reps, warm=not nmc)
+        reps = REPS
+        if isinstance(fn, float):
+            secs, reps = [fn], "1 (its phase-3 call)"
+        else:
+            secs = e2e_seconds(fn, reps)
         med = statistics.median(secs)
         print(f"phase 5: e2e {label}: median {med * 1e3:.4f} ms over {reps} "
               f"(min {secs[0] * 1e3:.4f}, max {secs[-1] * 1e3:.4f}), "
               f"{work / med:.4e} {unit} {tag}")
+
+
+def nmc_e2e_rows(family, e2e_nmc):
+    """The e2e rows of price_nmc_<family>() fused and grid at NMC_MAIN: the
+    seconds of their phase-3 calls (``e2e_nmc[(family, strategy)]``)."""
+    n_out, n_steps, n_inner = NMC_MAIN
+    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
+    name = "price_nmc" if family == "gbm" else f"price_nmc_{family}"
+    return tuple((f"{name}() {strategy} {n_out}x{n_steps}x{n_inner}",
+                  "inner path-steps/s", inner_steps,
+                  e2e_nmc[(family, strategy)])
+                 for strategy in ("fused", "grid"))
 
 
 def partials_times(rows, n_paths: int, time_pair, regs, tag):
@@ -395,18 +440,19 @@ def partials_times(rows, n_paths: int, time_pair, regs, tag):
 
 def family_nmc_times(families, call, time_pair, regs, tag):
     """Phase 5: per (family, NMCFamily, params, (key, key_in), trajectories
-    row, device struct, reps, (ref label, {"family_fused": ms,
+    row, device struct, nmc_ms, (ref label, {"family_fused": ms,
     "family_inner": ms})), its outer trajectories at NMC_MAIN's outer shape
     beside their plain version, and its fused and inner kernels at NMC_MAIN
-    (CUDA events, ``reps`` reps, warm from phases 2 and 3) beside the
-    reference family's kernels.  Returns {row: (ms, plain ms or None)}."""
+    (``nmc_ms``: family_nmc_case's CUDA-event times of its phase-2 calls,
+    warm from NMC_SMALL) beside the reference family's kernels.  Returns
+    {row: (ms, plain ms or None)}."""
     from mc_tpu_torch import nmc_engine as ne
 
     n_out, n_steps, n_inner = NMC_MAIN
     cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
     out = {}
-    for (family, fam, prm, (key, key_in), traj_row, struct, reps,
+    for (family, fam, prm, (key, key_in), traj_row, struct, nmc_ms,
          (ref_label, ref_ms)) in families:
         out[traj_row] = time_pair(
             f"{traj_row} {family} call",
@@ -422,18 +468,11 @@ def family_nmc_times(families, call, time_pair, regs, tag):
         print(f"phase 5: {traj_row} writes {grid_bytes / 1e6:.1f} MB in "
               f"{k_ms:.4f} ms: {grid_bytes / k_ms / 1e6:.1f} GB/s; registers "
               f"{traj_regs} {tag}")
-        *grids, st, _ = fam.trajectories(call, cfg, key, prm)
-        for name, fn in (
-                ("family_fused", lambda fam=fam, prm=prm, key=key,
-                 key_in=key_in: ne.family_fused(fam, call, cfg, key, key_in,
-                                                prm)),
-                ("family_inner", lambda fam=fam, prm=prm, key_in=key_in,
-                 grids=grids, st=st: ne.family_inner(fam, call, cfg, key_in,
-                                                     prm, grids, st))):
-            ms, sp, _ = cuda_ms(fn, reps=reps, warm=False)
+        for name in ("family_fused", "family_inner"):
+            ms = nmc_ms[name.split("_")[1]]
             out[f"{name}_{family}"] = (ms, None)
             print(f"phase 5: {name} {family} call {n_out}x{n_steps}x{n_inner}"
-                  f": kernel {ms:.3f} ms (spread {sp:.1%}), "
+                  f": kernel {ms:.3f} ms (its phase-2 call), "
                   f"{inner_steps / ms * 1e3:.4e} inner path-steps/s = "
                   f"{ms / ref_ms[name]:.2f}x the {ref_label} kernel "
                   f"({ref_ms[name]:.3f} ms); registers "
@@ -541,13 +580,26 @@ def check_bitwise(name, got, want) -> float:
     return err
 
 
+def timed_call(fn):
+    """(fn(), its device ms by CUDA events): one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
                     rows=None):
     """Phase 2: family ``fam``'s fused and inner kernels and its outer
     trajectories at ``shape`` against their plain versions: grids, the
     surface (whole, or only its ``rows``) and the outer moments bitwise or
     to f64 rounding.  ``note(kind, err)`` takes the kinds "trajectories",
-    "fused" and "inner".  Returns the plain rows' ms."""
+    "fused" and "inner".  Returns {"plain": the plain rows' ms, "fused",
+    "inner": the kernels' ms (CUDA events, this one call each: phase 5's
+    times of the family kernels)}."""
     from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
@@ -558,9 +610,11 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     prm = pack(opt, dyn, n_steps, dev)
     label = f"{fam.name} {name} " + "x".join(map(str, shape))
-    surf_f, outer_f = ne.family_fused(fam, po, cfg, key, key_in, prm)
+    (surf_f, outer_f), fused_ms = timed_call(
+        lambda: ne.family_fused(fam, po, cfg, key, key_in, prm))
     *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
-    surf_i = ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k)
+    surf_i, inner_ms = timed_call(
+        lambda: ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k))
     *g_p, st_p, outer_p = fam.trajectories_plain(po, cfg, key, prm)
     note("trajectories", check_bitwise(
         f"{fam.name} trajectories {label} (grids, state)", (*g_k, st_k),
@@ -580,13 +634,13 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     got, want_o = finish_sum(outer_f), finish_sum(outer_p)
     check_sums(f"family_fused {label} outer moments", got, want_o)
     note("fused", price_err(got, want_o, n_out, opt))
-    return plain_ms
+    return {"plain": plain_ms, "fused": fused_ms, "inner": inner_ms}
 
 
 def heston_kernel_checks(mt, dev, keys):
     """Phase 2 of the Heston slice: kernels #12, #13, #29 and #30 against
     their plain versions on the card.  Returns ({kernel: max abs error},
-    ms of the plain version's four rows at NMC_MAIN)."""
+    family_nmc_case's ms at NMC_MAIN)."""
     from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.nmc_heston import HestonNMC
     from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
@@ -649,9 +703,10 @@ def heston_kernel_checks(mt, dev, keys):
     for name in ("bullet_call", "asian_call", "vanilla_call"):
         family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys, name,
                         NMC_SMALL, family_note)
-    rows_ms = family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
-                              "vanilla_call", NMC_MAIN, family_note, NMC_ROWS)
-    return err, rows_ms
+    nmc_ms = family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
+                             "vanilla_call", NMC_MAIN, family_note,
+                             EARLIER_NMC_ROWS)
+    return err, nmc_ms
 
 
 def run_cli(argv) -> dict:
@@ -670,19 +725,20 @@ def run_cli(argv) -> dict:
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
+def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
+                 e2e_nmc):
     """Phase 5 of the Heston slice: each kernel (CUDA events) beside its
     plain version and beside the GBM kernel of the same shape (``gbm_ms``:
     trajectories at 100,000 x 100, the two NMC kernels at NMC_MAIN), the
-    registers, and the e2e calls.  Returns {kernel: (ms, plain ms)} (the
-    family kernels' plain ms is measured in phase 2)."""
-    from mc_tpu_torch import nmc_engine as ne
+    registers, and the e2e calls.  The family kernels' times are their
+    phase-2 calls' (``nmc_ms``), the NMC calls' their phase-3 calls'
+    (``e2e_nmc``).  Returns {kernel: (ms, plain ms)} (the family kernels'
+    plain ms is measured in phase 2)."""
     from mc_tpu_torch.models import heston as hm
-    from mc_tpu_torch.nmc_heston import HestonNMC
     from mc_tpu_torch.ops import path_kernels as pk
     from mc_tpu_torch.ops.payoffs import get_payoff
 
-    key, key_in = keys
+    key = keys[0]
     call = get_payoff("vanilla_call")
     dyn = mt.DEMO_HESTON
     prm = hm.pack_heston(mt.DEMO_OPTION, dyn, MAIN_STEPS, dev)
@@ -722,29 +778,13 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
           f"{regs.get(('heston_trajectories_kernel', 'BulletCall', None))} "
           f"{tag}")
 
-    fam = HestonNMC()
     n_out, n_steps, n_inner = NMC_MAIN
-    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-    *grids, st, _ = fam.trajectories(call, cfg, key, prm)
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
-    times = {}
-    for name, fn in (
-            ("family_fused", lambda: ne.family_fused(fam, call, cfg, key,
-                                                     key_in, prm)),
-            ("family_inner", lambda: ne.family_inner(fam, call, cfg, key_in,
-                                                     prm, grids, st)),
-            ("family_inner", lambda: ne.family_inner(fam, call, cfg, key_in,
-                                                     prm, grids, st)),
-            ("family_fused", lambda: ne.family_fused(fam, call, cfg, key,
-                                                     key_in, prm))):
-        # in turns: fused, inner, inner, fused (warm from phases 2 and 3)
-        ms, sp, _ = cuda_ms(fn, reps=EARLIER_NMC_REPS, warm=False)
-        times.setdefault(name, []).append(ms)
-        print(f"phase 5: {name} heston call {n_out}x{n_steps}x{n_inner}: "
-              f"kernel {ms:.3f} ms (spread {sp:.1%}), "
-              f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
     for name in ("family_fused", "family_inner"):
-        ms = statistics.median(times[name])
+        ms = nmc_ms[name.split("_")[1]]
+        print(f"phase 5: {name} heston call {n_out}x{n_steps}x{n_inner}: "
+              f"kernel {ms:.3f} ms (its phase-2 call), "
+              f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
         gbm = gbm_ms["nmc_fused" if name == "family_fused" else "nmc_inner"]
         out[name] = (ms, None)
         print(f"phase 5: {name} heston: {ms:.3f} ms = {ms / gbm:.2f}x the GBM"
@@ -753,7 +793,6 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
               f" {tag}")
 
     osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
-    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
     e2e_report((
             (f"price_heston() euler {FAMILY_MAIN}x{MAIN_STEPS}",
              "path-steps/s", steps,
@@ -761,15 +800,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms):
             (f"price_heston() qe {FAMILY_MAIN}x{MAIN_STEPS}", "path-steps/s",
              steps, lambda: mt.price_heston(sim=osim, scheme="qe",
                                             device=DEVICE)),
-            (f"price_nmc_heston() fused {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_heston(sim=nsim, strategy="fused",
-                                         device=DEVICE)),
-            (f"price_nmc_heston() grid {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_heston(sim=nsim, strategy="grid",
-                                         device=DEVICE))), tag,
-        EARLIER_NMC_REPS)
+            *nmc_e2e_rows("heston", e2e_nmc)), tag)
     return out
 
 
@@ -922,9 +953,10 @@ def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
 
 
 def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
-                      traj_row):
+                      traj_row, rows=None):
     """Phase 2: a family's #29/#30 at NMC_SMALL (bullet, Asian, vanilla) and
-    at NMC_MAIN against the plain NMC_ROWS; returns the rows' plain ms."""
+    at NMC_MAIN against the plain ``rows`` (default EARLIER_NMC_ROWS);
+    returns family_nmc_case's ms at NMC_MAIN."""
     kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
              "inner": f"family_inner_{family}"}
 
@@ -935,7 +967,8 @@ def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
         family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
                         family_note)
     return family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
-                           NMC_MAIN, family_note, NMC_ROWS)
+                           NMC_MAIN, family_note,
+                           EARLIER_NMC_ROWS if rows is None else rows)
 
 
 def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
@@ -1011,7 +1044,7 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     return err, rows_ms
 
 
-def family_main_path(mt, dev, _cuda, family):
+def family_main_path(mt, dev, _cuda, family, e2e_nmc):
     """Phase 3 of a model family ("heston", "merton", "bates", "cev",
     "localvol", "sabr", "term", "divs", "vasicek" or "basket") at full
     width: the call at 1M (x 100) against its oracle by each scheme, method,
@@ -1026,7 +1059,8 @@ def family_main_path(mt, dev, _cuda, family):
     the basket's Margrabe exchange EE flat at its closed form), its XVA
     figures and the family's two CLI commands (dividends have no NMC: its
     one command).  The launch counts are set to 0 before it and read after
-    it: {kernel: launches}."""
+    it: {kernel: launches}; the NMC calls' host-clock seconds go to
+    ``e2e_nmc[(family, strategy)]`` (phase 5's e2e times)."""
     from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch import rng
     from mc_tpu_torch.models import basket as bm
@@ -1269,6 +1303,9 @@ def family_main_path(mt, dev, _cuda, family):
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
     grid = nmc_fn(option, dyn, nsim, strategy="grid", device=DEVICE)
+    torch.cuda.synchronize()
+    e2e_nmc[(family, "fused")] = fused_s
+    e2e_nmc[(family, "grid")] = time.perf_counter() - t0 - fused_s
     surf = fused.surface_matrix()
     if (tuple(surf.shape) != (n_out, n_steps)
             or not bool(torch.isfinite(surf).all())):
@@ -1382,7 +1419,10 @@ def family_main_path(mt, dev, _cuda, family):
              "cva_wwr_spot(beta=0) is not cva")
 
     argv = [family, "--device", DEVICE]
-    nmc_outer, outer_tol = float(grid.outer.price), 0.0  # the same call
+    # nmc --model <family> at CLI_NMC_PATHS outer paths: its outer price is
+    # price_<family>'s on the command's dynamics, on the outer key
+    csim = mt.SimParams(n_paths=CLI_NMC_PATHS, n_steps=n_steps)
+    nmc_outer = float(price_fn(option, dyn, csim, device=DEVICE).price)
     if family == "merton":  # exact in law: 3 stderr
         argv += ["--method", "terminal", "-N", str(FAMILY_MAIN)]
         oracle_key, n_se, allow = "merton_series_oracle", 3.0, 0.0
@@ -1392,11 +1432,8 @@ def family_main_path(mt, dev, _cuda, family):
         oracle_key, n_se, allow = "hagan_oracle", 4.0, 0.01 * hagan
         # nmc --model sabr takes rho from --rho-sv (-0.7): its outer price
         # is price_sabr's on those dynamics, on the outer key
-        nmc_outer = float(price_fn(option, mt.SABRDynamics(rho=-0.7),
-                                   mt.SimParams(n_paths=n_out,
-                                                n_steps=n_steps),
+        nmc_outer = float(price_fn(option, mt.SABRDynamics(rho=-0.7), csim,
                                    device=DEVICE).price)
-        outer_tol = SUMS_RTOL * nmc_outer
     elif family == "term":  # nmc --model term's curves are DEMO_TERM's
         oracle_key, n_se, allow = "oracle", 4.0, 0.0
     elif family == "vasicek":  # Merton's (1973) call at 100,000 x 100
@@ -1410,16 +1447,15 @@ def family_main_path(mt, dev, _cuda, family):
         # nmc --model localvol's surface is sigma + curv*x^2: its outer
         # price is price_localvol's on that surface, on the outer key
         nmc_outer = float(price_fn(option, lm.LocalVolSurface.from_function(
-            lambda x, t: 0.2 + 0.1 * x * x, n_steps), mt.SimParams(
-                n_paths=n_out, n_steps=n_steps), device=DEVICE).price)
-        outer_tol = SUMS_RTOL * nmc_outer
+            lambda x, t: 0.2 + 0.1 * x * x, n_steps), csim,
+            device=DEVICE).price)
     else:  # QE at the CLI's 100,000 x 100
         argv += ["--scheme", "qe"]
         oracle_key, n_se, allow = "cf_oracle", 4.0, 0.003 * ref
     c = run_cli(argv)
     n = run_cli(["nmc", "--model", family, "--strategy", "grid", "--exposure",
                  "--cva-hazard", "0.02", "--payoff", "vanilla_call",
-                 "--n-paths", str(n_out), "--n-steps", str(n_steps),
+                 "--n-paths", str(CLI_NMC_PATHS), "--n-steps", str(n_steps),
                  "--n-inner", str(n_inner), "--device", DEVICE])
     d_cli = abs(c["price"] - (c[oracle_key] if oracle_key else float(
         price_fn(option, dyn, mt.SimParams(n_paths=100_000, n_steps=100),
@@ -1431,18 +1467,20 @@ def family_main_path(mt, dev, _cuda, family):
     if not (c["payoff"] == "vanilla_call"
             and d_cli <= n_se * c["stderr"] + allow
             and len(n["expected_exposure"]) == n_steps and n["cva"] > 0.0
-            and abs(n["outer_price"] - nmc_outer) <= outer_tol):
+            and abs(n["outer_price"] - nmc_outer) <= SUMS_RTOL * nmc_outer):
         fail(f"the {family} or nmc --model {family} command is off")
     return {k: _cuda.launch_counts[k] for k in kernels}
 
 
 def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
-               gbm_ms):
+               gbm_ms, nmc_ms, e2e_nmc):
     """Phase 5 of the jump slice: each kernel (CUDA events) beside its plain
     version and beside the Heston kernel of its shape (``gbm_ms``: Heston's
     partials at 1M x 100 and its NMC kernels at NMC_MAIN), the registers,
     and the e2e calls.  Returns {row: (ms, plain ms)} (the family kernels'
-    plain ms is measured in phase 2)."""
+    plain ms is measured in phase 2; the family kernels' and the NMC
+    calls' times are their phase-2 and phase-3 calls', ``nmc_ms`` and
+    ``e2e_nmc``)."""
     from mc_tpu_torch.models import bates as bm
     from mc_tpu_torch.models import merton as mm
     from mc_tpu_torch.nmc_bates import BatesNMC
@@ -1492,16 +1530,13 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
                              for name in ("family_fused", "family_inner")})
     out.update(family_nmc_times(
         (("merton", MertonNMC(extras=(k_dt,)), m_prm, merton_keys,
-          "merton_trajectories", "MertonFamily", EARLIER_NMC_REPS,
+          "merton_trajectories", "MertonFamily", nmc_ms["merton"],
           heston_nmc),
          ("bates", BatesNMC(extras=(k_dt,)), b_prm, bates_keys,
-          "family_trajectories", "BatesFamily", EARLIER_NMC_REPS,
+          "family_trajectories", "BatesFamily", nmc_ms["bates"],
           heston_nmc)), call, time_pair, regs, tag))
 
-    n_out, n_steps, n_inner = NMC_MAIN
-    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
     osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
-    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
     e2e_report((
             (f"price_merton() euler {FAMILY_MAIN}x{MAIN_STEPS}",
              "path-steps/s", steps,
@@ -1514,23 +1549,8 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
             (f"price_bates() qe {FAMILY_MAIN}x{MAIN_STEPS}", "path-steps/s",
              steps, lambda: mt.price_bates(sim=osim, scheme="qe",
                                            device=DEVICE)),
-            (f"price_nmc_merton() fused {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_merton(sim=nsim, strategy="fused",
-                                         device=DEVICE)),
-            (f"price_nmc_merton() grid {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_merton(sim=nsim, strategy="grid",
-                                         device=DEVICE)),
-            (f"price_nmc_bates() fused {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_bates(sim=nsim, strategy="fused",
-                                        device=DEVICE)),
-            (f"price_nmc_bates() grid {n_out}x{n_steps}x{n_inner}",
-             "inner path-steps/s", inner_steps,
-             lambda: mt.price_nmc_bates(sim=nsim, strategy="grid",
-                                        device=DEVICE))), tag,
-        EARLIER_NMC_REPS)
+            *nmc_e2e_rows("merton", e2e_nmc),
+            *nmc_e2e_rows("bates", e2e_nmc)), tag)
     return out
 
 
@@ -1616,7 +1636,6 @@ class SingleNMC(NamedTuple):
     substep: tuple        # phase 6: an inner substep's operations
     ref: tuple            # phase 5: (label, family) of the NMC kernels beside
     traj_ref: str         # phase 5: the trajectories row of the same shape
-    reps: int             # phase 5's reps (warm from phases 2 and 3)
 
 
 class Single(NamedTuple):
@@ -1706,7 +1725,7 @@ def single_families(mt):
                    fam=CEVNMC(), dyn=lambda n: cm.DEMO_CEV, traj_tpu=generic,
                    struct="CEVFamily", n_grids=1,
                    substep=_add(half, CEV_STEP_OPS), ref=("Heston", "heston"),
-                   traj_ref="merton_trajectories", reps=EARLIER_NMC_REPS)),
+                   traj_ref="merton_trajectories")),
         Single(family="localvol", kernels=LOCALVOL_KERNELS, model=lm,
                config=lambda n, surf, **kw: lm.LocalVolConfig(
                    n_paths=n, n_steps=MAIN_STEPS, n_knots=surf.n_knots, **kw),
@@ -1718,8 +1737,7 @@ def single_families(mt):
                    fam=LocalVolNMC(extras=(9,)), dyn=lm.LocalVolSurface.demo,
                    traj_tpu="models/localvol.py:406", struct="LocalVolFamily",
                    n_grids=1, substep=_add(half, lv_step_ops(9)),
-                   ref=("Heston", "heston"), traj_ref="merton_trajectories",
-                   reps=EARLIER_NMC_REPS)),
+                   ref=("Heston", "heston"), traj_ref="merton_trajectories")),
         Single(family="sabr", kernels=SABR_KERNELS, model=sm,
                config=config(sm.SABRConfig), pack=sm.pack_sabr,
                tpu="models/sabr.py:177", checks=sabr, payoffs=sv,
@@ -1731,8 +1749,7 @@ def single_families(mt):
                    traj_tpu=generic, struct="SABRFamily", n_grids=2,
                    substep=_add(pair_ops(13), SABR_STEP_OPS),
                    ref=("Heston", "heston"),
-                   traj_ref="family_trajectories_cev",
-                   reps=EARLIER_NMC_REPS)),
+                   traj_ref="family_trajectories_cev")),
         Single(family="term", kernels=TERM_KERNELS, model=tm,
                config=config(tm.TermConfig), pack=tm.pack_term,
                tpu="models/term.py:178", checks=steep, payoffs=every,
@@ -1744,8 +1761,7 @@ def single_families(mt):
                    fam=TermNMC(), dyn=tm.demo_term, traj_tpu=generic,
                    struct="TermFamily", n_grids=1,
                    substep=_add(half, STEP_OPS), ref=("CEV", "cev"),
-                   traj_ref="family_trajectories_cev",
-                   reps=EARLIER_NMC_REPS)),
+                   traj_ref="family_trajectories_cev")),
         Single(family="divs", kernels=DIVS_KERNELS, model=dm,
                config=config(dm.DivsConfig), pack=dm.pack_divs,
                tpu="models/dividends.py:146", checks=two, payoffs=every,
@@ -1761,8 +1777,7 @@ def single_families(mt):
                    traj_tpu="models/vasicek.py:405", struct="VasicekFamily",
                    n_grids=3, substep=_add(_scale(pair_ops(13), 2),
                                            VASICEK_STEP_OPS),
-                   ref=("Merton", "merton"), traj_ref="merton_trajectories",
-                   reps=NMC_REPS)),
+                   ref=("Merton", "merton"), traj_ref="merton_trajectories")),
         Single(family="basket", kernels=BASKET_KERNELS, model=bm,
                config=lambda n, b, **kw: bm.BasketConfig(
                    n_paths=n, n_steps=MAIN_STEPS, d=b.d, **kw),
@@ -1775,7 +1790,7 @@ def single_families(mt):
                    traj_tpu=generic, struct="BasketFamily<8>", n_grids=4,
                    substep=_add(_scale(pair_ops(13), 2), basket_step_ops(4)),
                    ref=("Heston", "heston"),
-                   traj_ref="family_trajectories_sabr", reps=NMC_REPS),
+                   traj_ref="family_trajectories_sabr"),
                grid=GridKernel(row="basket_trajectories",
                                fn=bm.basket_trajectories,
                                plain=bm.basket_trajectories_plain,
@@ -1884,20 +1899,20 @@ def grid_check(mt, dev, note, s: Single, key, name):
     note(g.row, price_err(got, want, g.n_paths, opt))
 
 
-def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms):
+def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms,
+                 nmc_ms, e2e_nmc):
     """Phase 5 of the single-asset families: each kernel (CUDA events)
     beside its plain version and beside the kernel of its shape one family
     down (``ref_ms``: Heston's Euler partials and NMC kernels, Merton's
     #15; the table's earlier families as they come), the registers, and
-    the e2e calls.  Returns {row: (ms, plain ms)} (the family kernels'
-    plain ms is measured in phase 2)."""
+    the e2e calls (the family kernels' and the NMC calls' times are their
+    phase-2 and phase-3 calls', ``nmc_ms`` and ``e2e_nmc``).  Returns {row:
+    (ms, plain ms)} (the family kernels' plain ms is measured in phase
+    2)."""
     from mc_tpu_torch.ops.payoffs import get_payoff
 
     call, opt = get_payoff("vanilla_call"), mt.DEMO_OPTION
-    n_out, n_steps, n_inner = NMC_MAIN
-    inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
     osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
-    nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
     known = dict(ref_ms)  # {row: ms}
     out = {}
     for s in singles:
@@ -1927,19 +1942,14 @@ def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms):
             out.update(family_nmc_times(
                 ((s.family, n.fam, s.pack(opt, n.dyn(MAIN_STEPS), MAIN_STEPS,
                                           dev), keys[s.family], traj_row(s),
-                  n.struct, n.reps,
+                  n.struct, nmc_ms[s.family],
                   (ref_label, {name: known[f"{name}_{ref_family}"]
                                for name in ("family_fused", "family_inner")})),
                  ), call, time_pair, regs, tag))
             t_ms = known[n.traj_ref]
             print(f"phase 5: {traj_row(s)}: {out[traj_row(s)][0] / t_ms:.2f}x "
                   f"{n.traj_ref} on the same shape ({t_ms:.4f} ms) {tag}")
-            nmc_fn = getattr(mt, f"price_nmc_{s.family}")
-            e2e += [(f"price_nmc_{s.family}() {strategy} {n_out}x{n_steps}x"
-                     f"{n_inner}", "inner path-steps/s", inner_steps,
-                     lambda strategy=strategy: nmc_fn(
-                         sim=nsim, strategy=strategy, device=DEVICE))
-                    for strategy in ("fused", "grid")]
+            e2e += nmc_e2e_rows(s.family, e2e_nmc)
         if s.grid is not None:
             g, (label, dyn) = s.grid, s.timed[0]
             cfg = s.config(g.n_paths, dyn)
@@ -1956,7 +1966,7 @@ def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms):
                   f"{regs.get((f'{g.row}_kernel', 'VanillaCall', s.rounds))}"
                   f" {tag}")
         known.update({k: v[0] for k, v in out.items()})
-        e2e_report(e2e, tag, s.nmc.reps if s.nmc else NMC_REPS)
+        e2e_report(e2e, tag)
     return out
 
 
@@ -1986,6 +1996,546 @@ def single_bounds(singles):
     return out
 
 
+# --- the rainbow, FX and QMC slice: kernels #27, #28, #31, #32 and the
+# rainbow's #29/#30 ---------------------------------------------------------
+
+FX_KERNELS = ("fx_partials",)
+RAINBOW_KERNELS = ("rainbow_partials", "family_trajectories", "family_inner",
+                   "family_fused")
+QMC_KERNELS = ("qmc_sums", "qmc_bridge_sums")
+FX_RAINBOW_QMC_ROWS = ("fx_partials", "rainbow_partials",
+                "family_trajectories_rainbow", "family_inner_rainbow",
+                "family_fused_rainbow", "qmc_sums", "qmc_bridge_sums")
+QMC_POINTS = 1 << 20        # bench.py:505-527: n = prev_prime(2^20), or 2^20
+QMC_SHIFTS = 16
+QMC_CHECK_SHIFTS = 2        # phase 2: each QMC kernel on two shifts
+QMC_SMALL = 4099            # phase 2: every payoff (4096 points for Sobol)
+# The terminal QMC call's allowance beside its 3 stderr: the f32 inverse
+# CDF's bias (|dz| up to ~2e-6, delta * S0 * sigma * 2e-6 < 3e-5) and its
+# clamp at 1 - 1e-6; at 1,048,573 x 16 the stderr is ~1e-5.
+QMC_BIAS = 1e-4
+# A QMC coordinate (qmc_kernels.cu): the lattice residue (two float-assisted
+# reductions, the split's shifts and adds; u = t * (1/n) + shift and its
+# frac) or the Sobol XOR (4 int32 operations a bit, 30 bits, the shift and
+# bits_to_unit); the inverse CDF (~84 f32 operations with its four
+# divisions; logf, sqrtf and two expf).
+LATTICE_COORD_OPS = (20, 8, 0)
+SOBOL_COORD_OPS = (124, 1, 0)
+INV_CDF_OPS = (0, 84, 4)
+# A bridge entry: (c_l W[l] + c_r W[r]) + s z (5), and a step's increment
+# (1).
+BRIDGE_OPS = (0, 6, 0)
+# FX: z_x (3), S_T and X_T (3 and an expf each), the payoff (~4).
+FX_PATH_OPS = (0, 13, 2)
+
+
+def rainbow_path(d: int, antithetic: bool = False):
+    """A rainbow path: ceil(d/2) pairs, the mix (d(d+1)/2 multiplies, d(d-1)/2
+    adds), per asset (per leg) 2 f32, an expf and the max and min folds
+    (2), the payoff and its square."""
+    leg = (0, 4 * d, d)
+    return _add(_scale(pair_ops(13), (d + 1) // 2),
+                (0, d * (d + 1) // 2 + d * (d - 1) // 2, 0),
+                _scale(leg, 2 if antithetic else 1), TERMINAL_OPS)
+
+
+def qmc_path(family: str, n_steps: int, bridge: bool, payoff: str):
+    """A QMC path: n_steps coordinates and normals, the bridge's entries
+    and increments, the log-Euler steps and the payoff (the terminal draw
+    at n_steps = 0)."""
+    coord = LATTICE_COORD_OPS if family == "lattice" else SOBOL_COORD_OPS
+    if n_steps == 0:
+        return _add(coord, INV_CDF_OPS, TERMINAL_DRAW_OPS, TERMINAL_OPS)
+    step = _add(coord, INV_CDF_OPS, STEP_OPS, UPDATE_OPS[payoff],
+                BRIDGE_OPS if bridge else (0, 0, 0))
+    return _add(_scale(step, n_steps), TERMINAL_OPS)
+
+
+def fx_rainbow_qmc_setup(mt):
+    """The slice's shared inputs: the FX dynamics of tests/test_fx.py, the
+    demo basket (d = 4), the two-asset basket of tests/test_rainbow.py."""
+    import numpy as np
+
+    two = mt.BasketDynamics(
+        s0s=np.array([100.0, 105.0], np.float32),
+        sigmas=np.array([0.2, 0.25], np.float32),
+        weights=np.array([0.5, 0.5], np.float32),
+        corr=np.array([[1.0, 0.5], [0.5, 1.0]], np.float32))
+    return (mt.FXDynamics(x0=1.2, sigma_x=0.15, r_f=0.03, rho=-0.35),
+            mt.demo_basket(4, 0.5), two)
+
+
+def qmc_case(mt, dev, name, n_paths, n_steps, method, family, bridge,
+             n_shifts):
+    """(payoff, config, point set with its first n_shifts shifts, params)
+    of price_qmc's call."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    po = get_payoff(name)
+    sim = mt.SimParams(n_paths=n_paths, n_steps=n_steps)
+    m, ps = qmc.qmc_pointset(po, sim, QMC_SHIFTS, method, family, bridge, 0.1,
+                             0, sim.seed, dev)
+    ps = ps.shifted(ps.shifts[:n_shifts])
+    cfg = pk.KernelConfig(n_paths=ps.n, n_steps=n_steps, method=m)
+    return po, cfg, ps, pk.pack_params(payoff_option(mt, name), n_steps, dev)
+
+
+def fx_rainbow_qmc_checks(mt, dev, keys):
+    """Phase 2 of the rainbow, FX and QMC slice, each kernel against its
+    plain version on the card: #28 (every contract, threefry-13 and -20, at
+    1M), #27 (every payoff at d = 4 and 1M, antithetic; the bench's call
+    without; threefry-20; the call at d = 1, 2, 8, 9, 32 at 16,384), the
+    rainbow's generic trajectories (every one-word payoff) and #29/#30 at
+    NMC_SMALL (both folds) and at NMC_MAIN against the plain rows NMC_ROWS,
+    #32 (the terminal call at the full 2^20 points of both families, every
+    payoff at QMC_SMALL on the lattice and some on Sobol, the Asian at the
+    full points x 100) and #31 (the Asian at the full shape, every payoff
+    at QMC_SMALL), the QMC kernels on two shifts.
+    Sums to f64 rounding, grids and surfaces bitwise.  Returns ({row: max
+    abs error}, the rainbow NMC's family_nmc_case ms)."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models import fx
+    from mc_tpu_torch.models import rainbow as rb
+    from mc_tpu_torch.nmc_rainbow import RainbowNMC
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    err = dict.fromkeys(FX_RAINBOW_QMC_ROWS, 0.0)
+
+    def note(row, e):
+        err[row] = max(err[row], e)
+
+    opt = mt.DEMO_OPTION
+
+    def sums_case(row, fn, plain, n_paths, label):
+        got, want = finish_sum(fn()), finish_sum(plain())
+        check_sums(f"{row} {label} {n_paths} paths", got, want)
+        note(row, price_err(got, want, n_paths, opt))
+
+    fxd, demo, _ = fx_rainbow_qmc_setup(mt)
+    fx_prm = fx.pack_fx(opt, fxd, dev)
+    for contract in sorted(fx.FX_CONTRACTS):
+        for src in ("threefry13", "threefry"):
+            cfg = fx.FXConfig(FAMILY_MAIN, src)
+            sums_case("fx_partials",
+                      lambda: fx.fx_partials(contract, cfg, keys["fx"][0],
+                                             fx_prm),
+                      lambda: fx.fx_partials_plain(contract, cfg,
+                                                   keys["fx"][0], fx_prm),
+                      FAMILY_MAIN, f"{contract} {src}")
+
+    def rainbow_case(name, n_paths, dyn, **kw):
+        cfg = rb.RainbowConfig(n_paths=n_paths, d=dyn.d, **kw)
+        prm = bm.pack_basket(opt, dyn, 1, dev)
+        sums_case("rainbow_partials",
+                  lambda: rb.rainbow_partials(name, cfg, keys["rainbow"][0],
+                                              prm),
+                  lambda: rb.rainbow_partials_plain(name, cfg,
+                                                    keys["rainbow"][0], prm),
+                  n_paths, f"{name} d={dyn.d} {cfg.rng_source} "
+                  f"anti={cfg.antithetic}")
+
+    for name in sorted(rb.RAINBOW_PAYOFFS):
+        rainbow_case(name, FAMILY_MAIN, demo, antithetic=True)
+    rainbow_case("call_on_max", FAMILY_MAIN, demo)
+    rainbow_case("put_on_min", FAMILY_PATHS, demo, rng_source="threefry",
+                 antithetic=True)
+    for d in (1, 2, 8, 9, 32):
+        rainbow_case("call_on_max", FAMILY_PATHS, bm.demo_basket(d, 0.5))
+
+    def pack(o, _, n_steps, dv):
+        return bm.pack_basket(o, demo, n_steps, dv)
+
+    fam = RainbowNMC(extras=(4, 0))
+    row = "family_trajectories_rainbow"
+    for name, po in sorted(PAYOFFS.items()):
+        if po.n_state <= 1:
+            traj_check(mt, dev, note, row, fam, pack, None,
+                       keys["rainbow_nmc"][0], name, FAMILY_PATHS)
+    kinds = {"trajectories": row, "fused": "family_fused_rainbow",
+             "inner": "family_inner_rainbow"}
+    family_nmc_case(mt, dev, RainbowNMC(extras=(4, 1)), pack, None,
+                    keys["rainbow_nmc"], "vanilla_call", NMC_SMALL,
+                    lambda kind, e: note(kinds[kind], e))
+    nmc_ms = family_nmc_checks(mt, dev, note, "rainbow", fam, pack, None,
+                               keys["rainbow_nmc"], row, rows=NMC_ROWS)
+
+    def check_qmc(name, n_paths, n_steps, method, family, bridge):
+        po, cfg, ps, prm = qmc_case(mt, dev, name, n_paths, n_steps, method,
+                                    family, bridge, QMC_CHECK_SHIFTS)
+        got = finish_sum(qmc.qmc_sums(po, cfg, ps, prm, bridge))
+        want = finish_sum(qmc.qmc_sums_plain(po, cfg, ps, prm, bridge))
+        row = "qmc_bridge_sums" if bridge else "qmc_sums"
+        check_sums(f"{row} {name} {family} {cfg.method} {ps.n}x{n_steps} "
+                   f"{ps.n_shifts} shifts", got, want)
+        note(row, float((got - want).abs().max()) / ps.n)
+
+    for family in ("lattice", "sobol"):
+        check_qmc("vanilla_call", QMC_POINTS, MAIN_STEPS, "terminal", family,
+                  False)
+        check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler", family,
+                  False)
+        check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler", family,
+                  True)
+    for name, po in sorted(PAYOFFS.items()):
+        if po.terminal_only:
+            for family in ("lattice", "sobol"):
+                check_qmc(name, QMC_SMALL, MAIN_STEPS, "terminal", family,
+                          False)
+        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "lattice", False)
+        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "lattice", True)
+    for name in ("bullet_call", "lookback_call", "cliquet"):
+        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", False)
+        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", True)
+    check_qmc("asian_call", QMC_SMALL, MAIN_STEPS - 1, "euler", "lattice",
+              True)  # an odd step count: the clamped last half
+    return err, nmc_ms
+
+
+def fx_rainbow_qmc_path(mt, dev, _cuda, path, e2e_nmc):
+    """Phase 3 of the slice at full size, ``path`` one of "fx", "rainbow",
+    "qmc", the launch counts set to 0 before it and read after it:
+    {kernel: launches}.
+    fx: every contract at 1M paths within 3 stderr of its closed form
+    (tests/test_fx.py's dynamics; the composite struck at 120), and the
+    ``fx`` command.
+    rainbow: at d = 2 and 1M paths with the antithetic twin, the exchange
+    within 3 stderr of Margrabe and the four min/max options of Stulz; the
+    demo basket's best-of call at d = 4; the rainbow NMC at NMC_MAIN by
+    both strategies (grid == fused bitwise; the fully discounted best-of
+    call's EE flat at its Stulz price, 4%), its XVA figures, and the
+    ``rainbow`` and ``nmc --model rainbow`` commands (the NMC calls' seconds
+    go to ``e2e_nmc``).
+    qmc: the terminal call on 2^20 points x 16 shifts of both families
+    within 3 stderr + QMC_BIAS of Black-Scholes with a stderr at most 0.2x
+    plain MC's on the same budget; the Asian at the full points x 100 by
+    Euler and by the bridge on both families (the bridge's stderr below the
+    Euler one's, the two within their errors), and the ``qmc`` command."""
+    from mc_tpu_torch import oracle, qmc
+    from mc_tpu_torch.models import fx
+
+    _cuda.reset_launch_counts()
+    o = mt.DEMO_OPTION
+    fxd, demo, two = fx_rainbow_qmc_setup(mt)
+    sim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
+    bs = oracle.bs_call(o.s0, o.k, o.t, o.r, o.sigma, o.q)
+
+    def gate(label, res, ref, n_se=3.0, allow=0.0):
+        z = abs(float(res.price) - ref) / float(res.stderr)
+        print(f"phase 3: {label}: {float(res.price):.7f} +/- "
+              f"{float(res.stderr):.7f} vs {ref:.7f}: {z:.2f} se (limit "
+              f"{n_se:g} se + {allow:g})")
+        if not (math.isfinite(z) and abs(float(res.price) - ref)
+                <= n_se * float(res.stderr) + allow):
+            fail(f"{label} misses its closed form")
+
+    if path == "fx":
+        x0, sx, rf, rho = fxd.x0, fxd.sigma_x, fxd.r_f, fxd.rho
+        for contract in sorted(fx.FX_CONTRACTS):
+            opt = mt.OptionParams(k=120.0) if contract.startswith(
+                "compo") else o
+            kind, side = contract.split("_")
+            call = side == "call"
+            ref = {"gk": lambda: oracle.gk_call(x0, x0, o.t, o.r, rf, sx,
+                                                call),
+                   "quanto": lambda: oracle.quanto_call(
+                       o.s0, o.k, o.t, o.r, rf, o.sigma, sx, rho, o.q, x0,
+                       call),
+                   "compo": lambda: oracle.compo_call(
+                       o.s0, x0, 120.0, o.t, o.r, o.sigma, sx, rho, o.q,
+                       call),
+                   "flexo": lambda: oracle.flexo_call(
+                       o.s0, x0, o.k, o.t, rf, o.sigma, o.q, call)}[kind]()
+            gate(f"price_fx {contract} {FAMILY_MAIN} paths",
+                 mt.price_fx(opt, fxd, sim, contract, device=DEVICE), ref)
+        c = run_cli(["fx", "--device", DEVICE, "-N", str(FAMILY_MAIN)])
+        own = mt.price_fx(o, mt.DEMO_FX, sim, "quanto_call", device=DEVICE)
+        print(f"phase 3: python -m mc_tpu_torch fx: {c}")
+        if not (c["price"] == float(own.price) and abs(c["z"]) <= 3.0):
+            fail("the fx command is off")
+        return {k: _cuda.launch_counts[k] for k in FX_KERNELS}
+
+    if path == "rainbow":
+        s1, s2 = (float(v) for v in two.s0s)
+        sg1, sg2 = (float(v) for v in two.sigmas)
+        gate(f"price_rainbow exchange d=2 antithetic {FAMILY_MAIN}",
+             mt.price_rainbow(o, two, sim, "exchange", antithetic=True,
+                              device=DEVICE),
+             oracle.margrabe(s1, s2, o.t, sg1, sg2, 0.5))
+        k98 = mt.OptionParams(k=98.0)
+        for name, fn in (("call_on_min", oracle.stulz_min_call),
+                         ("call_on_max", oracle.stulz_max_call),
+                         ("put_on_min", oracle.stulz_min_put),
+                         ("put_on_max", oracle.stulz_max_put)):
+            gate(f"price_rainbow {name} K=98 d=2 antithetic {FAMILY_MAIN}",
+                 mt.price_rainbow(k98, two, sim, name, antithetic=True,
+                                  device=DEVICE),
+                 fn(s1, s2, 98.0, o.t, o.r, sg1, sg2, 0.5))
+        best = mt.price_rainbow(o, demo, sim, device=DEVICE)
+        print(f"phase 3: price_rainbow call_on_max d=4 {FAMILY_MAIN}: "
+              f"{float(best.price):.6f} +/- {float(best.stderr):.6f} (above "
+              f"the single-asset BS {bs:.6f})")
+        if not float(best.price) > bs:
+            fail("the d = 4 best-of call is not above the single-asset call")
+        # the NMC at d = 2 (the demo spots, vols 15% and 30%, rho 0.4):
+        # the fully discounted best-of call's EE flat at Stulz's price
+        dyn2 = mt.demo_basket(2, 0.4)
+        ref = oracle.stulz_max_call(100.0, 100.0, o.k, o.t, o.r, 0.15, 0.3,
+                                    0.4)
+        n_out, n_steps, n_inner = NMC_MAIN
+        nsim = mt.SimParams(n_paths=n_out, n_steps=n_steps,
+                            n_paths_inner=n_inner)
+        res = {}
+        for strategy in ("fused", "grid"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[strategy] = mt.price_nmc_rainbow(o, dyn2, nsim, "call_on_max",
+                                                 strategy=strategy,
+                                                 device=DEVICE)
+            torch.cuda.synchronize()
+            e2e_nmc[("rainbow", strategy)] = time.perf_counter() - t0
+        fused, grid = res["fused"], res["grid"]
+        same = bool(torch.equal(grid.surface, fused.surface))
+        ee = grid.exposure_profile()[0].double()
+        d_ee = float((ee - ref).abs().max())
+        d_mean = abs(float(fused.surface_mean) - ref)
+        cva = float(grid.cva(0.02))
+        print(f"phase 3: price_nmc_rainbow call_on_max d=2 "
+              f"{n_out}x{n_steps}x{n_inner} (fused "
+              f"{e2e_nmc[('rainbow', 'fused')]:.2f} s): grid == fused "
+              f"{'bitwise' if same else 'NOT bitwise'}; outer "
+              f"{float(fused.outer.price):.6f} +/- "
+              f"{float(fused.outer.stderr):.6f}; EE flat at Stulz "
+              f"{ref:.6f}: max |d| {d_ee:.6f}, surface mean |d| "
+              f"{d_mean:.6f} (limit {0.04 * ref:.6f}); cva(0.02) {cva:.7f}")
+        if not (same and d_ee < 0.04 * ref and d_mean < 0.04 * ref
+                and abs(float(fused.outer.price) - ref)
+                <= 4.0 * float(fused.outer.stderr) and cva > 0.0):
+            fail("the rainbow NMC breaks grid == fused or its EE is not "
+                 "flat at the Stulz price")
+        c = run_cli(["rainbow", "--device", DEVICE, "-N", str(FAMILY_MAIN),
+                     "--antithetic"])
+        n = run_cli(["nmc", "--model", "rainbow", "--strategy", "grid",
+                     "--exposure", "--cva-hazard", "0.02", "--payoff",
+                     "call_on_max", "--n-paths", str(CLI_NMC_PATHS),
+                     "--n-steps", str(n_steps), "--n-inner", str(n_inner),
+                     "--n-assets", "2", "--corr", "0.4", "--device", DEVICE])
+        own = mt.price_nmc_rainbow(o, dyn2, nsim.replace(
+            n_paths=CLI_NMC_PATHS), "call_on_max", strategy="grid",
+            device=DEVICE)
+        print(f"phase 3: python -m mc_tpu_torch rainbow --antithetic: {c}; "
+              f"nmc --model rainbow --n-assets 2: outer "
+              f"{n['outer_price']:.6f}, cva {n['cva']:.7f}")
+        if not (abs(c["z_score"]) <= 3.0
+                and n["outer_price"] == float(own.outer.price)
+                and n["cva"] > 0.0):
+            fail("the rainbow or nmc --model rainbow command is off")
+        return {k: _cuda.launch_counts[k] for k in RAINBOW_KERNELS}
+
+    qsim = mt.SimParams(n_paths=QMC_POINTS, n_steps=MAIN_STEPS)
+    for family in ("lattice", "sobol"):
+        q = mt.price_qmc(o, qsim, family=family, device=DEVICE)
+        n_pts = int(float(q.n_paths)) // QMC_SHIFTS
+        plain = mt.price(o, mt.SimParams(n_paths=n_pts * QMC_SHIFTS,
+                                         n_steps=MAIN_STEPS),
+                         method="terminal", device=DEVICE)
+        gate(f"price_qmc call {family} {n_pts} x {QMC_SHIFTS} shifts", q, bs,
+             allow=QMC_BIAS)
+        ratio = float(q.stderr) / float(plain.stderr)
+        print(f"phase 3: price_qmc call {family}: stderr {ratio:.5f}x plain "
+              f"MC's on {n_pts * QMC_SHIFTS} paths ({float(plain.stderr):.6f}"
+              f"; limit 0.2)")
+        if not ratio <= 0.2:
+            fail(f"QMC ({family}) does not beat plain MC at the same budget")
+        r = {b: mt.price_qmc(o, qsim, "asian_call", family=family, bridge=b,
+                             device=DEVICE) for b in (False, True)}
+        d = abs(float(r[True].price) - float(r[False].price))
+        tol = 5.0 * (float(r[True].stderr) + float(r[False].stderr)) + 1e-3
+        print(f"phase 3: price_qmc asian {family} {n_pts}x{MAIN_STEPS}x"
+              f"{QMC_SHIFTS}: euler {float(r[False].price):.7f} +/- "
+              f"{float(r[False].stderr):.7f}, bridge "
+              f"{float(r[True].price):.7f} +/- {float(r[True].stderr):.7f} "
+              f"(|d| {d:.2e}, limit {tol:.2e})")
+        if not (float(r[True].stderr) < float(r[False].stderr) and d <= tol
+                and 0.0 < float(r[True].price) < bs):
+            fail(f"the bridge does not cut the Asian's stderr ({family}) or "
+                 "the two disagree")
+    c = run_cli(["qmc", "--device", DEVICE, "-N", str(QMC_POINTS)])
+    print(f"phase 3: python -m mc_tpu_torch qmc: {c}")
+    if not (c["lattice_n"] == qmc.prev_prime(QMC_POINTS)
+            and abs(c["price"] - bs) <= 3.0 * c["stderr"] + QMC_BIAS):
+        fail("the qmc command is off")
+    return {k: _cuda.launch_counts[k] for k in QMC_KERNELS}
+
+
+def entry_registers(log: str, kernel: str) -> dict:
+    """{mangled entry: registers} of the ptxas log's entries of ``kernel``
+    (the rainbow's, templated on two integers the registers parser does not
+    tell apart)."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(_ZN2mc\d+" + kernel
+                      + r"\w*)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+            entry = None
+    return out
+
+
+def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
+                  nmc_ms, e2e_nmc):
+    """Phase 5 of the slice: each kernel (CUDA events) at its main shape
+    beside its plain version and a kernel of its kind (``ref_ms``: GBM's
+    terminal_pair at 1M, the basket's partials and NMC kernels), the
+    registers, the e2e calls.  Returns {row: (ms, plain ms)} (the rainbow
+    NMC kernels' plain ms is measured in phase 2)."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models import fx
+    from mc_tpu_torch.models import rainbow as rb
+    from mc_tpu_torch.nmc_rainbow import RainbowNMC
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    o = mt.DEMO_OPTION
+    fxd, demo, _ = fx_rainbow_qmc_setup(mt)
+    out = {}
+    cfg = fx.FXConfig(FAMILY_MAIN)
+    prm = fx.pack_fx(o, fx.DEMO_FX, dev)
+    out["fx_partials"] = time_pair(
+        "fx_partials quanto_call",
+        lambda: fx.fx_partials("quanto_call", cfg, keys["fx"][0], prm),
+        lambda: fx.fx_partials_plain("quanto_call", cfg, keys["fx"][0], prm),
+        f"{FAMILY_MAIN} paths")
+    print(f"phase 5: fx_partials: "
+          f"{out['fx_partials'][0] / ref_ms['terminal_pair']:.2f}x "
+          f"terminal_pair on 1M paths ({ref_ms['terminal_pair']:.4f} ms); "
+          f"registers {regs.get(('fx_partials_kernel', None, None))} {tag}")
+    for d, kw in ((4, {}), (4, dict(antithetic=True)), (32, {})):
+        rcfg = rb.RainbowConfig(FAMILY_MAIN, d, **kw)
+        rprm = bm.pack_basket(o, bm.demo_basket(d, 0.5), 1, dev)
+        label = f"rainbow_partials call_on_max d={d} anti={bool(kw)}"
+        if d == 4 and not kw:
+            out["rainbow_partials"] = time_pair(
+                label,
+                lambda: rb.rainbow_partials("call_on_max", rcfg,
+                                            keys["rainbow"][0], rprm),
+                lambda: rb.rainbow_partials_plain("call_on_max", rcfg,
+                                                  keys["rainbow"][0], rprm),
+                f"{FAMILY_MAIN} paths")
+            continue
+        k_ms, sp, _ = cuda_ms(lambda rcfg=rcfg, rprm=rprm: rb.rainbow_partials(
+            "call_on_max", rcfg, keys["rainbow"][0], rprm))
+        print(f"phase 5: {label} {FAMILY_MAIN} paths: kernel {k_ms:.4f} ms "
+              f"(spread {sp:.1%}) {tag}")
+    print(f"phase 5: rainbow_partials d=4: "
+          f"{out['rainbow_partials'][0] / ref_ms['basket_partials']:.4f}x the "
+          f"basket's 1M x 100 partials ({ref_ms['basket_partials']:.4f} ms); "
+          f"registers {entry_registers(ptxas, 'rainbow_partials_kernel')} "
+          f"{tag}")
+    call = get_payoff("vanilla_call")
+    out.update(family_nmc_times(
+        (("rainbow", RainbowNMC(extras=(4, 0)),
+          bm.pack_basket(o, demo, MAIN_STEPS, dev), keys["rainbow_nmc"],
+          "family_trajectories_rainbow", "RainbowFamily<8>", nmc_ms,
+          ("basket", {name: ref_ms[f"{name}_basket"]
+                      for name in ("family_fused", "family_inner")})),),
+        call, time_pair, regs, tag))
+    for label, name, family, method, bridge, plain in (
+            ("terminal call lattice", "vanilla_call", "lattice", "terminal",
+             False, False),
+            ("terminal call sobol", "vanilla_call", "sobol", "terminal",
+             False, False),
+            ("euler asian lattice", "asian_call", "lattice", "euler", False,
+             True),
+            ("euler asian sobol", "asian_call", "sobol", "euler", False,
+             False),
+            ("bridge asian lattice", "asian_call", "lattice", "euler", True,
+             True),
+            ("bridge asian sobol", "asian_call", "sobol", "euler", True,
+             False)):
+        po, qcfg, ps, qprm = qmc_case(mt, dev, name, QMC_POINTS, MAIN_STEPS,
+                                      method, family, bridge, QMC_SHIFTS)
+        row = "qmc_bridge_sums" if bridge else "qmc_sums"
+        shape = f"{ps.n}x{MAIN_STEPS if method == 'euler' else 1}x{QMC_SHIFTS}"
+        kernel_fn = (lambda po=po, qcfg=qcfg, ps=ps, qprm=qprm, bridge=bridge:
+                     qmc.qmc_sums(po, qcfg, ps, qprm, bridge))
+        if plain:
+            out[row] = time_pair(
+                f"{row} {label}", kernel_fn,
+                lambda po=po, qcfg=qcfg, ps=ps, qprm=qprm, bridge=bridge:
+                qmc.qmc_sums_plain(po, qcfg, ps, qprm, bridge), shape)
+            k_ms = out[row][0]
+        else:
+            k_ms, sp, _ = cuda_ms(kernel_fn)
+            print(f"phase 5: {row} {label} {shape}: kernel {k_ms:.4f} ms "
+                  f"(spread {sp:.1%}) {tag}")
+        steps = ps.n * QMC_SHIFTS * (MAIN_STEPS if method == "euler" else 1)
+        kern = "qmc_bridge_kernel" if bridge else "qmc_kernel"
+        print(f"phase 5: {row} {label}: {steps / k_ms * 1e3:.4e} "
+              f"path-steps/s; registers "
+              f"{regs.get((kern, type(po).__name__, None))} {tag}")
+    qsim = mt.SimParams(n_paths=QMC_POINTS, n_steps=MAIN_STEPS)
+    e2e_report((
+        (f"price_fx() quanto_call {FAMILY_MAIN}", "paths/s", FAMILY_MAIN,
+         lambda: mt.price_fx(o, fx.DEMO_FX, mt.SimParams(n_paths=FAMILY_MAIN),
+                             device=DEVICE)),
+        (f"price_rainbow() call_on_max d=4 {FAMILY_MAIN}", "paths/s",
+         FAMILY_MAIN, lambda: mt.price_rainbow(
+             o, demo, mt.SimParams(n_paths=FAMILY_MAIN), device=DEVICE)),
+        *((label.replace("()", "() call_on_max d=2"), unit, work, secs)
+          for label, unit, work, secs in nmc_e2e_rows("rainbow", e2e_nmc)),
+        *((f"price_qmc() {label} {QMC_POINTS // 1024}Ki x {QMC_SHIFTS}",
+           "path-steps/s", QMC_POINTS * QMC_SHIFTS * steps,
+           lambda kw=kw: mt.price_qmc(o, qsim, device=DEVICE, **kw))
+          for label, steps, kw in (
+              ("terminal call lattice", 1, {}),
+              ("terminal call sobol", 1, dict(family="sobol")),
+              ("asian euler lattice", MAIN_STEPS, dict(payoff="asian_call")),
+              ("asian euler sobol", MAIN_STEPS,
+               dict(payoff="asian_call", family="sobol")),
+              ("asian bridge lattice", MAIN_STEPS,
+               dict(payoff="asian_call", bridge=True)),
+              ("asian bridge sobol", MAIN_STEPS,
+               dict(payoff="asian_call", family="sobol", bridge=True))))),
+        tag)
+    return out
+
+
+def fx_rainbow_qmc_bounds():
+    """bound() of the slice's rows at the shapes the kernels line reports:
+    #28 quanto_call at 1M (44 bytes of parameters), #27 call_on_max d = 4 at
+    1M, the rainbow's trajectories at NMC_MAIN's outer 16,384 x 100 and its
+    family kernels at NMC_MAIN (the basket's substep), #32 the Euler Asian
+    and #31 the bridge's on the lattice at 1,048,573 x 100 x 16."""
+    from mc_tpu_torch.models.basket import packed_length
+
+    n_out, n_steps, _ = NMC_MAIN
+    path4 = basket_path(4, MAIN_STEPS)
+    n_qmc = 1_048_573 * QMC_SHIFTS
+    return {
+        "fx_partials": bound(44, _scale(_add(pair_ops(13), FX_PATH_OPS),
+                                        FAMILY_MAIN)),
+        "rainbow_partials": bound(4 * packed_length(4),
+                                  _scale(rainbow_path(4), FAMILY_MAIN)),
+        "family_trajectories_rainbow": bound(5 * 4 * n_out * n_steps,
+                                             _scale(path4, n_out)),
+        **family_bounds("rainbow", _add(_scale(pair_ops(13), 2),
+                                        basket_step_ops(4)), path4, 4),
+        "qmc_sums": bound(0, _scale(qmc_path("lattice", MAIN_STEPS, False,
+                                             "asian_call"), n_qmc)),
+        "qmc_bridge_sums": bound(0, _scale(qmc_path("lattice", MAIN_STEPS,
+                                                    True, "asian_call"),
+                                           n_qmc)),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2011,15 +2561,26 @@ def main() -> int:
     from mc_tpu_torch.models.sabr import SABR_TAG
     from mc_tpu_torch.models.term import TERM_TAG
     from mc_tpu_torch.models.vasicek import VASICEK_TAG
+    from mc_tpu_torch.models.fx import FX_TAG
+    from mc_tpu_torch.models.rainbow import RAINBOW_TAG
+    from mc_tpu_torch.nmc_rainbow import RAINBOW_NMC_TAG
+    from mc_tpu_torch import qmc
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
+    laps = [t_start]
+
     def stamp(phase: int) -> None:
-        print(f"phase {phase}: starts {time.perf_counter() - t_start:.1f} s "
-              "into the run")
+        laps.append(time.perf_counter())
+        print(f"phase {phase}: starts {laps[-1] - t_start:.1f} s into the "
+              "run")
+
+    def lap(what: str, phase: int = 2) -> None:
+        laps.append(time.perf_counter())
+        print(f"phase {phase}: {what} took {laps[-1] - laps[-2]:.1f} s")
 
     card = nvidia_smi_name_power()
     kind = torch.cuda.get_device_name(0)
@@ -2027,13 +2588,41 @@ def main() -> int:
 
     # --- Phase 1: device and build -------------------------------------
     print(card)
+    print(f"phase 1: starts {process_seconds():.1f} s after the process")
     print(f"phase 1: torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} device(s); device 0 = {kind}")
     t0 = time.perf_counter()
+    # The QMC point sets' tables (the lattice's CBC vectors by numpy FFTs,
+    # scipy's Sobol directions; host work, cached for the run) are built
+    # beside nvcc, which leaves the GPU idle.
+    cbc = {}
+
+    def build_lattice():
+        t = time.perf_counter()
+        try:
+            for family in ("lattice", "sobol"):
+                for method, name in (("terminal", "vanilla_call"),
+                                     ("euler", "asian_call")):
+                    qmc.qmc_pointset(get_payoff(name), mt.SimParams(
+                        n_paths=QMC_POINTS, n_steps=MAIN_STEPS), QMC_SHIFTS,
+                        method, family, False, 0.1, 0, 1234, "cpu")
+        except Exception as e:  # reported, and the run fails, below
+            cbc["error"] = repr(e)
+        cbc["seconds"] = time.perf_counter() - t
+
+    lattice = threading.Thread(target=build_lattice)
+    lattice.start()
     _cuda.load()
     print(f"phase 1: built and loaded {_cuda.build_info['path']} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_cuda.build_info.get('seconds') or 0.0:.1f} s)")
+    lattice.join()
+    if "error" in cbc:
+        fail(f"the QMC point sets' tables: {cbc['error']}")
+    print(f"phase 1: the QMC point sets' tables (the lattice's CBC vectors, n "
+          f"= {qmc.prev_prime(QMC_POINTS)}, d = 1 and {MAIN_STEPS}; Sobol's "
+          f"directions) built on the host beside nvcc in "
+          f"{cbc['seconds']:.1f} s")
     for line in _cuda.build_info.get("ptxas", "").splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"phase 1: ptxas {line.strip()}")
@@ -2058,7 +2647,9 @@ def main() -> int:
                             ("bates", BATES_TAG), ("cev", CEV_TAG),
                             ("localvol", LOCALVOL_TAG), ("sabr", SABR_TAG),
                             ("term", TERM_TAG), ("divs", DIVS_TAG),
-                            ("vasicek", VASICEK_TAG), ("basket", BASKET_TAG))}
+                            ("vasicek", VASICEK_TAG), ("basket", BASKET_TAG),
+                            ("fx", FX_TAG), ("rainbow", RAINBOW_TAG),
+                            ("rainbow_nmc", RAINBOW_NMC_TAG))}
     singles = single_families(mt)
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
@@ -2240,7 +2831,7 @@ def main() -> int:
         """Both NMC kernels against one plain run at the main shape: the
         plain trajectories and the plain inner sweep's ``rows`` (the plain
         fused version IS the two), so one plain run checks and times both
-        kernels."""
+        kernels; the kernel calls' CUDA-event ms are phase 5's times."""
         n_out, n_steps, n_inner = shape
         cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
         prm = pk.pack_params(option, n_steps, dev)
@@ -2258,15 +2849,19 @@ def main() -> int:
         t2 = time.perf_counter()
         print(f"phase 2: nmc plain {label}: trajectories {t1 - t0:.3f} s, "
               f"inner sweep rows {rows} {t2 - t1:.3f} s (host clock, one run)")
-        surf_k, outer_k = nk.nmc_fused(bullet, cfg, key, key_in, prm)
+        (surf_k, outer_k), fused_ms = timed_call(
+            lambda: nk.nmc_fused(bullet, cfg, key, key_in, prm))
         err = surface_check(f"nmc_fused {label} rows {rows}", surf_k[rows],
                             surf_p)
         err = max(err, outer_check(f"nmc_fused {label}", outer_k, outer_p,
                                    n_out))
+        surf_i, inner_ms = timed_call(
+            lambda: nk.nmc_inner(bullet, cfg, key_in, prm, s_p, c_p))
         inner_err = surface_check(
             f"nmc_inner {label} rows {rows} (on the plain grids)",
-            nk.nmc_inner(bullet, cfg, key_in, prm, s_p, c_p)[rows], surf_p)
-        return err, inner_err, (t2 - t0) * 1e3, (t2 - t1) * 1e3
+            surf_i[rows], surf_p)
+        return (err, inner_err, (t2 - t0) * 1e3, (t2 - t1) * 1e3,
+                {"nmc_fused": fused_ms, "nmc_inner": inner_ms})
 
     # At the sizes of the parity contract, then at the main path's shapes.
     tp_err = max(terminal_pair_case(TP_PATHS), terminal_pair_case(MAIN_PATHS))
@@ -2310,7 +2905,8 @@ def main() -> int:
                                   is_shift=is_shift, **kw),
             vanilla_check, opt=otm))
     fused_err, inner_err = nmc_small_cases(NMC_SMALL)
-    err_f, err_i, fused_plain_ms, inner_plain_ms = nmc_main_case(NMC_MAIN)
+    (err_f, err_i, fused_plain_ms, inner_plain_ms,
+     nmc_main) = nmc_main_case(NMC_MAIN)
     fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
 
     # Every payoff through the simulate kernel (Euler, 100 steps); the six
@@ -2447,10 +3043,22 @@ def main() -> int:
                 reduce_err[name] = max(reduce_err[name],
                                        float((got - want).abs().max()))
     del x, v
-    heston_err, family_rows_ms = heston_kernel_checks(mt, dev, keys["heston"])
-    jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, keys["merton"],
-                                                keys["bates"])
-    single_err, single_rows_ms = single_kernel_checks(mt, dev, singles, keys)
+    lap("checking the GBM kernels")
+    # The families' checks keep no tensor past their return, so they run
+    # without autograd's bookkeeping: their plain versions are launch-bound.
+    with torch.inference_mode():
+        heston_err, family_rows_ms = heston_kernel_checks(mt, dev,
+                                                          keys["heston"])
+        lap("checking the Heston kernels")
+        jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, keys["merton"],
+                                                    keys["bates"])
+        lap("checking the Merton and Bates kernels")
+        single_err, single_rows_ms = single_kernel_checks(mt, dev, singles,
+                                                          keys)
+        lap("checking the CEV, local-vol, SABR, term, dividend, Vasicek "
+            "and basket kernels")
+        frq_err, rainbow_nmc_ms = fx_rainbow_qmc_checks(mt, dev, keys)
+        lap("checking the FX, rainbow and QMC kernels")
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -2563,7 +3171,12 @@ def main() -> int:
     if not float(dev_se) <= 4.0:
         fail("NMC surface columns break the tower property")
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     res_g = mt.price_nmc(option, nsim, strategy="grid", device=DEVICE)
+    torch.cuda.synchronize()
+    e2e_nmc = {("gbm", "fused"): nmc_first_s,
+               ("gbm", "grid"): time.perf_counter() - t0}
     g_close = share(torch.isclose(res_g.surface, res.surface, rtol=SURF_TOL,
                                   atol=SURF_TOL))
     spot_ok = bool(torch.equal(res_g.spot_matrix(), ntraj.path_matrix()))
@@ -2935,11 +3548,20 @@ def main() -> int:
                 if k not in HESTON_KERNELS + MERTON_KERNELS + BATES_KERNELS
                 + CEV_KERNELS + LOCALVOL_KERNELS + SABR_KERNELS
                 + TERM_KERNELS + DIVS_KERNELS + VASICEK_KERNELS
-                + BASKET_KERNELS}
+                + BASKET_KERNELS + FX_KERNELS + RAINBOW_KERNELS
+                + QMC_KERNELS}
     families = ("heston", "merton", "bates", "cev", "localvol", "sabr",
                 "term", "divs", "vasicek", "basket")
-    family_launches = {family: family_main_path(mt, dev, _cuda, family)
-                       for family in families}
+    lap("the GBM path", 3)
+    family_launches = {}
+    for family in families:
+        family_launches[family] = family_main_path(mt, dev, _cuda, family,
+                                                   e2e_nmc)
+        lap(f"the {family} path", 3)
+    for path in ("fx", "rainbow", "qmc"):
+        family_launches[path] = fx_rainbow_qmc_path(mt, dev, _cuda, path,
+                                                  e2e_nmc)
+        lap(f"the {path} path", 3)
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
@@ -2951,10 +3573,11 @@ def main() -> int:
     launches.update(family_launches["heston"])
     # the kernels line's rows: the family kernels per family (and the
     # generic trajectories' rows under CEV, SABR, term and the basket)
-    for family in families[1:]:
+    for family in families[1:] + ("fx", "rainbow", "qmc"):
         for k, n in family_launches[family].items():
             suffixed = (k.startswith("family_i") or k.startswith("family_f")
-                        or (family in ("cev", "sabr", "term", "basket")
+                        or (family in ("cev", "sabr", "term", "basket",
+                                       "rainbow")
                             and k == "family_trajectories"))
             launches[f"{k}_{family}" if suffixed else k] = n
 
@@ -3039,26 +3662,11 @@ def main() -> int:
                                          c_s),
               f"{n_out}x{n_steps}x{n_inner}")
     n_out, n_steps, n_inner = NMC_MAIN
-    ncfg_m = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
-    p_m = pk.pack_params(option, n_steps, dev)
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
-    nmc_main = {}
-    for name, fn in (
-            ("nmc_fused", lambda: nk.nmc_fused(bullet, ncfg_m, key, key_in,
-                                               p_m)),
-            ("nmc_inner", lambda: nk.nmc_inner(bullet, ncfg_m, key_in, p_m,
-                                               ntraj.s, ntraj.state)),
-            ("nmc_inner", lambda: nk.nmc_inner(bullet, ncfg_m, key_in, p_m,
-                                               ntraj.s, ntraj.state)),
-            ("nmc_fused", lambda: nk.nmc_fused(bullet, ncfg_m, key, key_in,
-                                               p_m))):
-        # in turns: fused, inner, inner, fused (warm from phases 2 and 3)
-        ms, sp, _ = cuda_ms(fn, reps=EARLIER_NMC_REPS, warm=False)
-        nmc_main.setdefault(name, []).append(ms)
+    for name, ms in nmc_main.items():  # the phase-2 calls at NMC_MAIN
         print(f"phase 5: {name} {n_out}x{n_steps}x{n_inner}: kernel "
-              f"{ms:.3f} ms (spread {sp:.1%}), "
+              f"{ms:.3f} ms (its phase-2 call), "
               f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
-    nmc_main = {k: statistics.median(v) for k, v in nmc_main.items()}
 
     # The ladder beside the 17 single-strike launches it replaces.
     cfg_l = pk.KernelConfig(n_paths=LADDER_PATHS, n_steps=MAIN_STEPS,
@@ -3157,11 +3765,12 @@ def main() -> int:
 
     heston_ms = heston_times(mt, dev, keys["heston"], regs, tag, time_pair, {
         "trajectories": traj_ms[0], "nmc_fused": nmc_main["nmc_fused"],
-        "nmc_inner": nmc_main["nmc_inner"]})
-    heston_ms["family_fused"] = (heston_ms["family_fused"][0], family_rows_ms)
-    heston_ms["family_inner"] = (heston_ms["family_inner"][0], family_rows_ms)
+        "nmc_inner": nmc_main["nmc_inner"]}, family_rows_ms, e2e_nmc)
+    for name in ("family_fused", "family_inner"):
+        heston_ms[name] = (heston_ms[name][0], family_rows_ms["plain"])
     jump_ms = jump_times(mt, dev, keys["merton"], keys["bates"], regs, tag,
-                         time_pair, {k: v[0] for k, v in heston_ms.items()})
+                         time_pair, {k: v[0] for k, v in heston_ms.items()},
+                         jump_rows_ms, e2e_nmc)
     single_ms = single_times(mt, dev, singles, keys, regs, tag, time_pair, {
         "heston_partials": heston_ms["heston_partials"][0],
         "family_fused_heston": heston_ms["family_fused"][0],
@@ -3169,13 +3778,24 @@ def main() -> int:
         "merton_partials": jump_ms["merton_partials"][0],
         "merton_trajectories": jump_ms["merton_trajectories"][0],
         "family_fused_merton": jump_ms["family_fused_merton"][0],
-        "family_inner_merton": jump_ms["family_inner_merton"][0]})
+        "family_inner_merton": jump_ms["family_inner_merton"][0]},
+        single_rows_ms, e2e_nmc)
+    frq_ms = fx_rainbow_qmc_times(
+        mt, dev, keys, regs, _cuda.build_info.get("ptxas", ""), tag,
+        time_pair, {"terminal_pair": tp_ms[0], **{
+            row: single_ms[row][0] for row in (
+                "basket_partials", "family_fused_basket",
+                "family_inner_basket")}},
+        rainbow_nmc_ms, e2e_nmc)
+    for name in ("family_fused", "family_inner"):
+        row = f"{name}_rainbow"
+        frq_ms[row] = (frq_ms[row][0], rainbow_nmc_ms["plain"])
     # the family kernels' plain ms: their rows in phase 2
     for ms, rows_ms in ((jump_ms, jump_rows_ms), (single_ms, single_rows_ms)):
-        for family, plain_ms in rows_ms.items():
+        for family, nmc_ms in rows_ms.items():
             for name in ("family_fused", "family_inner"):
                 row = f"{name}_{family}"
-                ms[row] = (ms[row][0], plain_ms)
+                ms[row] = (ms[row][0], nmc_ms["plain"])
 
     e2e = (
         ("price() call 1M paths default", "paths/s", MAIN_PATHS,
@@ -3189,12 +3809,7 @@ def main() -> int:
         (f"simulate_trajectories() {BULLET_PATHS}x{MAIN_STEPS}",
          "path-steps/s", BULLET_PATHS * MAIN_STEPS,
          lambda: mt.simulate_trajectories(option, bsim, device=DEVICE)),
-        (f"price_nmc() fused {n_out}x{n_steps}x{n_inner}",
-         "inner path-steps/s", inner_steps,
-         lambda: mt.price_nmc(option, nsim, device=DEVICE)),
-        (f"price_nmc() grid {n_out}x{n_steps}x{n_inner}",
-         "inner path-steps/s", inner_steps,
-         lambda: mt.price_nmc(option, nsim, strategy="grid", device=DEVICE)),
+        *nmc_e2e_rows("gbm", e2e_nmc),
         (f"price_ladder() call {LADDER_PATHS} paths x {len(strikes)} strikes",
          "strike-paths/s", LADDER_PATHS * len(strikes),
          lambda: mt.price_ladder(strikes, option, lsim, device=DEVICE)),
@@ -3230,7 +3845,7 @@ def main() -> int:
          csim.n_paths * MAIN_STEPS,
          lambda: mt.price(option, csim, method="euler", device=DEVICE)),
     )
-    e2e_report(e2e, tag, EARLIER_NMC_REPS)
+    e2e_report(e2e, tag)
 
     # --- Phase 6: results -----------------------------------------------
     stamp(6)
@@ -3272,6 +3887,7 @@ def main() -> int:
         **heston_bounds(),
         **jump_bounds(),
         **single_bounds(singles),
+        **fx_rainbow_qmc_bounds(),
     }
     nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
@@ -3309,10 +3925,10 @@ def main() -> int:
          f"bullet {HESTON_PAYOFF_MAIN}x{MAIN_STEPS}"),
         ("family_inner", "family_nmc_kernels.cu", "nmc_engine.py:314",
          heston_err["family_inner"], heston_ms["family_inner"],
-         f"heston call {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
+         f"heston call {nmc_shape} (plain: rows {list(EARLIER_NMC_ROWS)})"),
         ("family_fused", "family_nmc_kernels.cu", "nmc_engine.py:407",
          heston_err["family_fused"], heston_ms["family_fused"],
-         f"heston call {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
+         f"heston call {nmc_shape} (plain: rows {list(EARLIER_NMC_ROWS)})"),
         ("merton_partials", "merton_kernels.cu", "models/merton.py:278",
          jump_err["merton_partials"], jump_ms["merton_partials"],
          f"call euler {FAMILY_MAIN}x{MAIN_STEPS}"),
@@ -3331,7 +3947,7 @@ def main() -> int:
     ) + tuple(
         (f"{name}_{family}", f"{family}_nmc_kernels.cu", tpu,
          jump_err[f"{name}_{family}"], jump_ms[f"{name}_{family}"],
-         f"{family} call {nmc_shape} (plain: rows {list(NMC_ROWS)})")
+         f"{family} call {nmc_shape} (plain: rows {list(EARLIER_NMC_ROWS)})")
         for family in ("merton", "bates")
         for name, tpu in (("family_inner", "nmc_engine.py:314"),
                           ("family_fused", "nmc_engine.py:407")))
@@ -3343,7 +3959,8 @@ def main() -> int:
         shapes = (spaced("call", sf.timed[0][0],
                         f"{FAMILY_MAIN}x{MAIN_STEPS}"),
                   f"{sf.family} call {NMC_MAIN[0]}x{NMC_MAIN[1]}") + (
-            f"{sf.family} call {nmc_shape} (plain: rows {list(NMC_ROWS)})",
+            f"{sf.family} call {nmc_shape} (plain: rows "
+            f"{list(EARLIER_NMC_ROWS)})",
         ) * 2
         if sf.grid is not None:  # after the NMC's three rows
             srcs, tpus = srcs + (srcs[0],), tpus + (sf.grid.tpu,)
@@ -3352,6 +3969,27 @@ def main() -> int:
         rows += tuple((row, src, tpu, single_err[row], single_ms[row], shape)
                       for row, src, tpu, shape in zip(
                           single_rows(sf), srcs, tpus, shapes))
+    rows += tuple(
+        (row, src, tpu, frq_err[row], frq_ms[row], shape)
+        for row, src, tpu, shape in (
+            ("fx_partials", "fx_kernels.cu", "models/fx.py:208",
+             f"quanto_call {FAMILY_MAIN} paths"),
+            ("rainbow_partials", "rainbow_kernels.cu", "models/rainbow.py:135",
+             f"call_on_max d=4 {FAMILY_MAIN} paths"),
+            ("family_trajectories_rainbow", "rainbow_nmc_kernels.cu",
+             "nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
+             "xla_family_trajectories)",
+             f"rainbow call d=4 {NMC_MAIN[0]}x{NMC_MAIN[1]}"),
+            ("family_inner_rainbow", "rainbow_nmc_kernels.cu",
+             "nmc_engine.py:314",
+             f"rainbow call d=4 {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
+            ("family_fused_rainbow", "rainbow_nmc_kernels.cu",
+             "nmc_engine.py:407",
+             f"rainbow call d=4 {nmc_shape} (plain: rows {list(NMC_ROWS)})"),
+            ("qmc_sums", "qmc_kernels.cu", "qmc.py:463",
+             f"asian euler lattice 1048573x{MAIN_STEPS}x{QMC_SHIFTS}"),
+            ("qmc_bridge_sums", "qmc_kernels.cu", "qmc.py:403",
+             f"asian bridge lattice 1048573x{MAIN_STEPS}x{QMC_SHIFTS}")))
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
         b_ms, b_by = bounds[name]
@@ -3362,6 +4000,8 @@ def main() -> int:
             bound_by=b_by,
             library_ms=reduce_ms[name][2] if name in reduce_ms else None,
             shape=shape))
+    print(f"phase 6: done {time.perf_counter() - t_start:.1f} s into the run,"
+          f" {process_seconds():.1f} s after the process started")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,6 +28,10 @@ launch; importing the package builds and loads nothing.
     price_nmc_vasicek().cva(0.02)          # exposure under Vasicek rates
     price_basket(basket=demo_basket(8, 0.3))  # a correlated 8-asset basket
     price_nmc_basket().cva(0.02)           # basket exposure, d asset grids
+    price_rainbow(payoff="call_on_max")    # best-of on correlated assets
+    price_nmc_rainbow().cva(0.02)          # best-of exposure
+    price_fx(contract="quanto_call")       # cross-currency contracts
+    price_qmc(family="sobol", bridge=True, payoff="asian_call")  # RQMC
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -43,6 +47,7 @@ from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
                                        bates_call_cf, price_bates)
 from mc_tpu_torch.models.cev import (DEMO_CEV, CEVDynamics,
                                      cev_call_closed_form, price_cev)
+from mc_tpu_torch.models.fx import DEMO_FX, FXDynamics, price_fx
 from mc_tpu_torch.models.dividends import (bs_call_cash_div,
                                            cash_div_forward, div_schedule,
                                            price_divs)
@@ -54,6 +59,7 @@ from mc_tpu_torch.models.merton import (DEMO_MERTON, MertonDynamics,
                                         merton_call_closed_form, price_merton)
 from mc_tpu_torch.models.sabr import (DEMO_SABR, SABRDynamics, price_sabr,
                                       sabr_call_hagan, sabr_implied_vol)
+from mc_tpu_torch.models.rainbow import price_rainbow
 from mc_tpu_torch.models.term import DEMO_TERM, TermStructure, price_term
 from mc_tpu_torch.models.vasicek import (DEMO_VASICEK, VasicekDynamics,
                                          price_vasicek)
@@ -65,10 +71,12 @@ from mc_tpu_torch.nmc_cev import price_nmc_cev
 from mc_tpu_torch.nmc_heston import price_nmc_heston
 from mc_tpu_torch.nmc_localvol import price_nmc_localvol
 from mc_tpu_torch.nmc_merton import price_nmc_merton
+from mc_tpu_torch.nmc_rainbow import price_nmc_rainbow
 from mc_tpu_torch.nmc_sabr import price_nmc_sabr
 from mc_tpu_torch.nmc_term import price_nmc_term
 from mc_tpu_torch.nmc_vasicek import price_nmc_vasicek
 from mc_tpu_torch.oracle import bsv_call, margrabe, vasicek_zcb
+from mc_tpu_torch.qmc import price_qmc
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
 
@@ -88,6 +96,8 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "price_nmc_vasicek", "VasicekDynamics", "DEMO_VASICEK",
            "vasicek_zcb", "bsv_call", "price_basket", "price_nmc_basket",
            "BasketDynamics", "DEMO_BASKET", "demo_basket", "margrabe",
+           "price_rainbow", "price_nmc_rainbow", "price_fx", "FXDynamics",
+           "DEMO_FX", "price_qmc",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

@@ -1,13 +1,14 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
 ladder/book/greeks/heston/merton/bates/cev/localvol/sabr/term/divs/vasicek/
-basket).
+basket/rainbow/fx/qmc).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
 ``price``, ``nmc``, ``ladder``, ``book``, ``greeks``, ``heston``,
 ``merton``, ``bates``, ``cev``, ``localvol``, ``sabr``, ``term``, ``divs``,
-``vasicek`` and ``basket`` print one JSON object each (``price`` adds the
+``vasicek``, ``basket``, ``rainbow``, ``fx`` and ``qmc`` print one JSON
+object each (``price`` adds the
 closed form where
 the payoff has one, ``heston`` and ``bates`` the CF oracle for the call,
 ``merton`` the series oracle, ``cev`` the noncentral chi-squared oracle,
@@ -15,10 +16,12 @@ the payoff has one, ``heston`` and ``bates`` the CF oracle for the call,
 ``sabr`` Hagan's price and implied vol beside the MC-inverted one, ``term``
 Black-Scholes at the averaged curves and the z-score, ``divs`` the
 quadrature oracle and z-score of one dividend, ``vasicek`` the bond's or
-Merton's (1973) call oracle and z-score, ``nmc --exposure`` the XVA figures
-of the surface, under GBM or ``--model
-heston|merton|bates|cev|localvol|sabr|term|vasicek|basket``, each family's
-dynamics from its own flags); ``traj`` writes the
+Merton's (1973) call oracle and z-score, ``rainbow`` the Stulz or Margrabe
+price and z-score at d = 2, ``fx`` the contract's closed form and z,
+``qmc`` Black-Scholes beside the call or put, ``nmc --exposure`` the XVA
+figures of the surface, under GBM or ``--model
+heston|merton|bates|cev|localvol|sabr|term|vasicek|basket|rainbow``, each
+family's dynamics from its own flags); ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
 """
@@ -348,7 +351,7 @@ _FAMILY_DYNAMICS = {"heston": _heston_dyn, "merton": _merton_dyn,
                     "bates": _bates_dyn, "cev": _cev_dyn,
                     "localvol": _nmc_surface, "sabr": _nmc_sabr_dyn,
                     "term": lambda args: None, "vasicek": _vasicek_dyn,
-                    "basket": _basket_dyn}
+                    "basket": _basket_dyn, "rainbow": _basket_dyn}
 
 
 def cmd_heston(args):
@@ -588,6 +591,115 @@ def cmd_basket(args):
     return 0
 
 
+def cmd_rainbow(args):
+    """Rainbow price as one JSON object (mc_tpu/cli.py:1137-1182): d assets
+    with spots and vols evenly from (s0, sigma) to (s02, sigma2), pairwise
+    correlation --corr; at d = 2 the Stulz or Margrabe price and the
+    z-score."""
+    import numpy as np
+
+    from mc_tpu_torch import oracle
+    from mc_tpu_torch.models.basket import BasketDynamics
+    from mc_tpu_torch.models.rainbow import price_rainbow
+
+    if args.greeks:
+        raise SystemExit("rainbow --greeks (mc_tpu's rainbow_greeks) is not "
+                         "ported to mc_tpu_torch yet (ROADMAP item 12)")
+    option, sim = _parse(args)
+    d = args.n_assets
+    corr = np.full((d, d), args.corr, np.float32)
+    np.fill_diagonal(corr, 1.0)
+    sigmas = np.linspace(args.sigma, args.sigma2, d).astype(np.float32)
+    s0s = np.linspace(args.s0, args.s02, d).astype(np.float32)
+    dyn = BasketDynamics(s0s=s0s, sigmas=sigmas,
+                         weights=np.full(d, 1.0 / d, np.float32), corr=corr)
+    res = price_rainbow(option, dyn, sim, payoff=args.payoff,
+                        antithetic=args.antithetic, device=args.device)
+    out = {"payoff": args.payoff, "n_assets": d, "price": float(res.price),
+           "stderr": float(res.stderr)}
+    if d == 2:  # the closed-form column (Margrabe, Stulz)
+        a = (float(s0s[0]), float(s0s[1]))
+        if args.payoff == "exchange":
+            out["oracle"] = oracle.margrabe(a[0], a[1], args.t, sigmas[0],
+                                            sigmas[1], args.corr, args.q,
+                                            args.q)
+        elif args.payoff != "best_of_cash":
+            fn = {"call_on_min": oracle.stulz_min_call,
+                  "call_on_max": oracle.stulz_max_call,
+                  "put_on_min": oracle.stulz_min_put,
+                  "put_on_max": oracle.stulz_max_put}[args.payoff]
+            out["oracle"] = fn(a[0], a[1], args.k, args.t, args.r, sigmas[0],
+                               sigmas[1], args.corr, args.q, args.q)
+        if "oracle" in out:
+            out["z_score"] = (out["price"] - out["oracle"]) / out["stderr"]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_fx(args):
+    """Cross-currency price beside its closed form and z (mc_tpu/cli.py:
+    533-573)."""
+    from mc_tpu_torch import oracle
+    from mc_tpu_torch.models.fx import FXDynamics, price_fx
+
+    option, sim = _parse(args)
+    fx = FXDynamics(x0=args.x0, sigma_x=args.sigma_x, r_f=args.rf,
+                    rho=args.rho_fx, kx=args.kx, x_bar=args.x_bar)
+    res = price_fx(option, fx, sim, args.contract, device=args.device)
+    kx = args.x0 if args.kx is None else args.kx
+    xb = args.x0 if args.x_bar is None else args.x_bar
+    a = args
+    ref = {
+        "gk_call": lambda: oracle.gk_call(a.x0, kx, a.t, a.r, a.rf,
+                                          a.sigma_x),
+        "gk_put": lambda: oracle.gk_put(a.x0, kx, a.t, a.r, a.rf, a.sigma_x),
+        "quanto_call": lambda: oracle.quanto_call(
+            a.s0, a.k, a.t, a.r, a.rf, a.sigma, a.sigma_x, a.rho_fx, a.q,
+            xb),
+        "quanto_put": lambda: oracle.quanto_put(
+            a.s0, a.k, a.t, a.r, a.rf, a.sigma, a.sigma_x, a.rho_fx, a.q,
+            xb),
+        "compo_call": lambda: oracle.compo_call(
+            a.s0, a.x0, a.k, a.t, a.r, a.sigma, a.sigma_x, a.rho_fx, a.q),
+        "compo_put": lambda: oracle.compo_put(
+            a.s0, a.x0, a.k, a.t, a.r, a.sigma, a.sigma_x, a.rho_fx, a.q),
+        "flexo_call": lambda: oracle.flexo_call(a.s0, a.x0, a.k, a.t, a.rf,
+                                                a.sigma, a.q),
+        "flexo_put": lambda: oracle.flexo_put(a.s0, a.x0, a.k, a.t, a.rf,
+                                              a.sigma, a.q),
+    }[args.contract]()
+    z = (float(res.price) - ref) / max(float(res.stderr), 1e-12)
+    print(json.dumps({"contract": args.contract, "price": float(res.price),
+                      "stderr": float(res.stderr), "oracle": ref,
+                      "z": round(z, 3)}))
+    return 0
+
+
+def cmd_qmc(args):
+    """Randomized-QMC price as one JSON object (mc_tpu/cli.py:828-870);
+    --model other than gbm waits for the model half of QMC."""
+    from mc_tpu_torch.oracle import bs_call
+    from mc_tpu_torch.qmc import price_qmc, price_qmc_model
+
+    option, sim = _parse(args)
+    if args.model != "gbm":
+        try:
+            price_qmc_model(args.model)
+        except NotImplementedError as e:
+            raise SystemExit(f"qmc --model {args.model}: {e}") from None
+    res = price_qmc(option, sim, payoff=args.payoff, family=args.family,
+                    n_shifts=args.n_shifts, device=args.device)
+    out = {"price": float(res.price), "stderr": float(res.stderr),
+           "lattice_n": int(float(res.n_paths)) // args.n_shifts,
+           "n_shifts": args.n_shifts}
+    if args.payoff in ("vanilla_call", "vanilla_put"):
+        # the call's price for the put too, as mc_tpu prints it (C8)
+        out["black_scholes"] = float(
+            bs_call(args.s0, args.k, args.t, args.r, args.sigma, args.q))
+    print(json.dumps(out))
+    return 0
+
+
 def _add_vasicek_flags(p: argparse.ArgumentParser):
     p.add_argument("--a", type=float, default=0.3,
                    help="vasicek rate mean-reversion speed")
@@ -714,8 +826,9 @@ def main(argv=None):
                             "localvol", "cev", "basket", "sabr", "term",
                             "rainbow"),
                    help="the outer and inner dynamics: gbm, heston, merton, "
-                        "bates, cev, localvol, sabr, term, vasicek or basket "
-                        "(rainbow is not ported yet)")
+                        "bates, cev, localvol, sabr, term, vasicek, basket or "
+                        "rainbow (the basket's flags; payoffs call_on_max "
+                        "etc. or a registry payoff on the running max)")
     p.add_argument("--surface-npz", default=None,
                    help="save the (paths, steps) surface to this .npz")
     p.add_argument("--exposure", action="store_true",
@@ -900,6 +1013,58 @@ def main(argv=None):
     p.add_argument("--antithetic", action="store_true")
     _add_basket_flags(p)
     p.set_defaults(fn=cmd_basket)
+
+    p = sub.add_parser("rainbow",
+                       help="best-of/worst-of rainbow (Stulz/Margrabe "
+                            "oracle at d=2)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="call_on_max",
+                   help="call_on_max|call_on_min|put_on_max|put_on_min|"
+                        "exchange|best_of_cash")
+    p.add_argument("--antithetic", action="store_true")
+    p.add_argument("--greeks", action="store_true",
+                   help="per-asset delta/vega + cega (not ported yet)")
+    p.add_argument("--n-assets", type=int, default=2)
+    p.add_argument("--corr", type=float, default=0.5)
+    p.add_argument("--s02", type=float, default=105.0,
+                   help="last asset's spot (spots interpolate s0..s02)")
+    p.add_argument("--sigma2", type=float, default=0.25,
+                   help="last asset's vol (vols interpolate sigma..sigma2)")
+    p.set_defaults(fn=cmd_rainbow)
+
+    p = sub.add_parser("fx", help="cross-currency quanto/compo/GK/flexo "
+                       "price vs exact closed form")
+    _add_option_flags(p)
+    p.add_argument("--contract", default="quanto_call",
+                   choices=["gk_call", "gk_put", "quanto_call",
+                            "quanto_put", "compo_call", "compo_put",
+                            "flexo_call", "flexo_put"])
+    p.add_argument("--x0", type=float, default=1.0,
+                   help="FX spot, domestic per foreign")
+    p.add_argument("--sigma-x", type=float, default=0.15)
+    p.add_argument("--rf", type=float, default=0.03,
+                   help="foreign short rate")
+    p.add_argument("--rho-fx", type=float, default=-0.35,
+                   help="asset/FX log-return correlation")
+    p.add_argument("--kx", type=float, default=None,
+                   help="FX strike for gk contracts (default: x0)")
+    p.add_argument("--x-bar", type=float, default=None,
+                   help="fixed quanto conversion rate (default: x0)")
+    p.set_defaults(fn=cmd_fx)
+
+    p = sub.add_parser("qmc", help="randomized-QMC price (lattice/Sobol)")
+    _add_option_flags(p)
+    p.add_argument("--payoff", default="vanilla_call")
+    p.add_argument("--n-shifts", type=int, default=16)
+    p.add_argument("--family", choices=("lattice", "sobol"),
+                   default="lattice")
+    p.add_argument("--model",
+                   choices=("gbm", "heston", "bates", "basket", "cev", "sabr",
+                            "localvol", "vasicek", "merton", "term"),
+                   default="gbm",
+                   help="drive a model family's step loop from the "
+                        "low-discrepancy points (gbm only, so far)")
+    p.set_defaults(fn=cmd_qmc)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

@@ -16,8 +16,10 @@ import torch
 
 from mc_tpu_torch.checkpoint import Checkpoint
 from mc_tpu_torch.config import OptionParams, SimParams
+from mc_tpu_torch import qmc as _qmc
 from mc_tpu_torch.models import basket as _basket
 from mc_tpu_torch.models import dividends as _divs
+from mc_tpu_torch.models.fx import FX_FIELDS, FXDynamics
 from mc_tpu_torch.models import term as _term
 from mc_tpu_torch.models.bates import BATES_FIELDS, BatesDynamics
 from mc_tpu_torch.models.cev import CEV_FIELDS, CEVDynamics
@@ -34,7 +36,8 @@ __all__ = ["option_params", "book_params", "sim_params", "key",
            "localvol_params", "sabr_dynamics", "sabr_params",
            "term_structure", "term_params", "divs_params",
            "vasicek_dynamics", "vasicek_params", "basket_dynamics",
-           "basket_params"]
+           "basket_params", "rainbow_dynamics", "rainbow_params",
+           "fx_dynamics", "fx_params", "qmc_pointset"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
@@ -242,6 +245,53 @@ def basket_params(arr, d: int) -> torch.Tensor:
     CPU tensor, bit for bit, its length checked against 10 + 3d +
     d(d+1)/2."""
     return _packed_vector(arr, _basket.packed_length(d), f"basket (d={d})")
+
+
+# The rainbow reads the basket's dynamics and its pack at n_steps = 1.
+rainbow_dynamics = basket_dynamics
+rainbow_params = basket_params
+
+
+def fx_dynamics(src) -> FXDynamics:
+    """``mc_tpu.models.fx.FXDynamics`` fields (scalars; ``kx`` and
+    ``x_bar`` may be None, meaning x0) -> the port's FXDynamics."""
+    x0, sigma_x, r_f, rho = _scalars(src, ("x0", "sigma_x", "r_f", "rho"),
+                                     "FX")
+    kx, x_bar = (None if _field(src, f) is None else float(_field(src, f))
+                 for f in ("kx", "x_bar"))
+    return FXDynamics(x0=x0, sigma_x=sigma_x, r_f=r_f, rho=rho, kx=kx,
+                      x_bar=x_bar)
+
+
+def fx_params(arr) -> torch.Tensor:
+    """``mc_tpu``'s packed fx vector (``_pack_fx``: the (11,) f32 vector of
+    ``FX_FIELDS``) -> the port's CPU tensor, bit for bit."""
+    return _packed(arr, FX_FIELDS, "fx")
+
+
+def qmc_pointset(family: str, n: int, zvec, shifts,
+                 device="cpu") -> "_qmc.QMCPointSet":
+    """``mc_tpu``'s point set ``(n, zvec, shifts)`` (``_qmc_pointset``:
+    the lattice's int32 generating vector and f32 (R, d) shifts, or Sobol's
+    flattened int32 (d*30,) directions and int32 (R, d) digital shifts) ->
+    the port's ``QMCPointSet``, bit for bit, so both packages can price the
+    same points."""
+    if family not in _qmc.FAMILIES:
+        raise ValueError(f"unknown QMC family {family!r}")
+    table = np.asarray(zvec)
+    sh = np.asarray(shifts)
+    if (not np.issubdtype(table.dtype, np.integer) or table.ndim != 1
+            or sh.ndim != 2):
+        raise ValueError(f"a point set is an integer (d,) or (d*30,) table "
+                         f"and (R, d) shifts; got {table.shape} "
+                         f"{table.dtype} and {sh.shape}")
+    want = np.int32 if family == "sobol" else np.float32
+    ps = _qmc.QMCPointSet(
+        family=family, n=int(n), d=int(sh.shape[1]),
+        table=torch.from_numpy(table.astype(np.int32)).to(device),
+        shifts=torch.from_numpy(sh.astype(want)).to(device))
+    ps.check()
+    return ps
 
 
 def key(arr) -> tuple[int, int]:

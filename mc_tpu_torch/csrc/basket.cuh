@@ -1,8 +1,10 @@
 // The correlated basket on the device: its packed parameters, the step (d
 // normals, the Cholesky mix, the log increments), the basket level and the
-// family NMC struct, the twins of mc_tpu_torch/models/basket.py and
-// mc_tpu_torch/nmc_basket.py (and of mc_tpu/models/basket.py:82-134,
-// mc_tpu/nmc_basket.py:44-245) operation for operation, in the same
+// family NMC structs (the basket's, and the rainbow's, which folds max or
+// min where the basket sums), the twins of mc_tpu_torch/models/basket.py,
+// mc_tpu_torch/nmc_basket.py and mc_tpu_torch/nmc_rainbow.py (and of
+// mc_tpu/models/basket.py:82-134, mc_tpu/nmc_basket.py:44-245,
+// mc_tpu/nmc_rainbow.py:54-72) operation for operation, in the same
 // association.  The build passes --fmad=false, so each mul and add rounds as
 // it does in the plain PyTorch version.
 //
@@ -83,8 +85,9 @@ __device__ __forceinline__ BasketParams<kMaxD> load_basket(const float* __restri
 }
 
 // The step's d normals, pair q of counter base + q giving z_{2q}, z_{2q+1},
-// times sign (+1, or -1 for the antithetic leg).
-template <int kMaxD>
+// times sign (+1, or -1 for the antithetic leg); threefry-13 (the rainbow's
+// terminal draw may take 20 rounds).
+template <int kMaxD, int ROUNDS = 13>
 __device__ __forceinline__ void basket_draw(const BasketParams<kMaxD>& c, uint32_t k0,
                                             uint32_t k1, uint32_t id, uint32_t base,
                                             float sign, float (&z)[kMaxD]) {
@@ -92,7 +95,7 @@ __device__ __forceinline__ void basket_draw(const BasketParams<kMaxD>& c, uint32
   for (int q = 0; q < basket_bound<kMaxD / 2>(c.npps); ++q) {
     if (q < c.npps) {
       float a, b;
-      normal_pair<13>(k0, k1, id, base + static_cast<uint32_t>(q), a, b);
+      normal_pair<ROUNDS>(k0, k1, id, base + static_cast<uint32_t>(q), a, b);
       z[2 * q] = sign * a;
       z[2 * q + 1] = sign * b;
     }
@@ -116,6 +119,20 @@ __device__ __forceinline__ void basket_mix(const BasketParams<kMaxD>& c, const f
       ws[i] = (ws[i] + __ldg(c.drift + i)) + c.sqrt_dt * y;
     }
   }
+}
+
+// y_i alone, in the same order: the rainbow's terminal draw
+// (rainbow_kernels.cu), which adds no log-moneyness.
+template <int kMaxD>
+__device__ __forceinline__ float basket_mix_y(const BasketParams<kMaxD>& c,
+                                              const float (&z)[kMaxD], int i) {
+  const float* row = c.chol + i * (i + 1) / 2;
+  float y = __ldg(row) * z[0];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int k = 1; k < basket_bound<kMaxD>(i + 1); ++k) {
+    if (k <= i) y = y + __ldg(row + k) * z[k];
+  }
+  return y;
 }
 
 // B = w_0 S_0 + w_1 S_1 + ... in i order, S_i = s0_i * expf(w_i);
@@ -248,6 +265,97 @@ struct BasketFamily {
   }
   __device__ static uint32_t counter_stride(const Params& c, int n_steps) {
     return static_cast<uint32_t>(n_steps) * static_cast<uint32_t>(c.npps);
+  }
+};
+
+// The rainbow for the family NMC engine (mc_tpu/nmc_rainbow.py:54-72): the
+// basket's physics, grids and counters, with the level the payoff reads
+// folded from the asset prices S_i = s0_i * expf(w_i) by max (extras i[1] =
+// 0) or min (1) in asset order, where the basket takes the weighted sum.
+// The fold is a runtime value, the same for every thread, so one
+// instantiation per capacity, payoff and kernel serves both.
+template <int kMaxD>
+struct RainbowParams : BasketParams<kMaxD> {
+  int fold_min;
+};
+
+template <int kMaxD, class OnAsset>
+__device__ __forceinline__ float rainbow_level(const RainbowParams<kMaxD>& c,
+                                               const float (&ws)[kMaxD], OnAsset on_asset) {
+  float m = 0.0f;
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+    if (i < c.d) {
+      const float s = __ldg(c.s0s + i) * expf(ws[i]);
+      on_asset(i, s);
+      m = i == 0 ? s : (c.fold_min ? fminf(m, s) : fmaxf(m, s));
+    }
+  }
+  return m;
+}
+
+template <int kMaxD>
+__device__ __forceinline__ float rainbow_level(const RainbowParams<kMaxD>& c,
+                                               const float (&ws)[kMaxD]) {
+  return rainbow_level(c, ws, [](int, float) {});
+}
+
+template <int kMaxD>
+struct RainbowFamily : BasketFamily<kMaxD> {
+  using Base = BasketFamily<kMaxD>;
+  using Params = RainbowParams<kMaxD>;
+  template <class Payoff>
+  using Carry = typename Base::template Carry<Payoff>;
+
+  __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex, int) {
+    Params c;
+    static_cast<BasketParams<kMaxD>&>(c) = load_basket<kMaxD>(params, ex.i[0]);
+    c.fold_min = ex.i[1];
+    return c;
+  }
+
+  template <class Payoff>
+  __device__ static Carry<Payoff> outer_init(const Params& c) {
+    Carry<Payoff> o;
+#pragma unroll (BasketUnroll<kMaxD>::value)
+    for (int i = 0; i < kMaxD; ++i) {
+      o.ws[i] = 0.0f;
+      o.lv[i] = 0.0f;
+    }
+    o.b = rainbow_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
+    o.st = Payoff::init(c.pay);
+    return o;
+  }
+  template <class Payoff>
+  __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    int j, Carry<Payoff>& o) {
+    float z[kMaxD];
+    basket_draw(c, k0, k1, id, static_cast<uint32_t>(j) * static_cast<uint32_t>(c.npps), 1.0f,
+                z);
+    basket_mix(c, z, o.ws);
+    o.b = rainbow_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
+    o.st = Payoff::update(o.st, o.b, c.pay);
+  }
+  template <class Payoff>
+  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, int remaining,
+                                    const float (&g)[Base::kGrids],
+                                    typename Payoff::State st) {
+    float ws[kMaxD], z[kMaxD];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+    for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+      if (i < c.d) ws[i] = logf(g[i] / __ldg(c.s0s + i));
+    }
+    if (remaining == 0) return Payoff::terminal(st, rainbow_level(c, ws), c.pay);
+    float b = 0.0f;
+    for (int u = 0; u < remaining; ++u) {
+      basket_draw(c, k0, k1, id, c_base + static_cast<uint32_t>(u) * static_cast<uint32_t>(c.npps),
+                  1.0f, z);
+      basket_mix(c, z, ws);
+      b = rainbow_level(c, ws);
+      st = Payoff::update(st, b, c.pay);
+    }
+    return Payoff::terminal(st, b, c.pay);
   }
 };
 

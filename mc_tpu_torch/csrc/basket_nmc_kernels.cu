@@ -6,9 +6,10 @@
 // (no Pallas counterpart).  Its step is BasketFamily::outer_step
 // (basket.cuh), the fused kernel's, so the two give the same outer paths bit
 // for bit.  The call's d (extras i[0], in [1, 32]) picks the capacity: 8 for
-// d <= 8, 32 above.  The twelve one-word payoffs each; family_nmc_kernels.cu's
-// entry points call the launchers below.  A source of their own, so they
-// compile beside basket_kernels.cu.
+// d <= 8 (instantiated here), 32 above (basket_nmc32_kernels.cu, a source of
+// its own so the two capacities compile in parallel).  The twelve one-word
+// payoffs each; family_nmc_kernels.cu's entry points call the launchers
+// below.
 
 #include <cstdint>
 
@@ -19,6 +20,8 @@
 
 namespace mc {
 
+MC_DEFINE_FAMILY_LAUNCHERS(basket8_family, BasketFamily<8>)
+
 cudaError_t basket_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                                 uint32_t ki1, const float* params, FamilyExtras extras,
                                 int n_steps, int n_inner, uint32_t n_paths,
@@ -26,12 +29,9 @@ cudaError_t basket_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint3
                                 double* outer_partials, cudaStream_t stream) {
   const int d = extras.i[0];
   if (d < 1 || d > 32) return cudaErrorInvalidValue;
-  return d <= 8 ? family_fused_switch<BasketFamily<8>>(
-                      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner,
-                      n_paths, path_offset, bound, surface, outer_partials, stream)
-                : family_fused_switch<BasketFamily<32>>(
-                      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner,
-                      n_paths, path_offset, bound, surface, outer_partials, stream);
+  return (d <= 8 ? basket8_family_fused : basket32_family_fused)(
+      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset,
+      bound, surface, outer_partials, stream);
 }
 
 cudaError_t basket_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
@@ -41,14 +41,9 @@ cudaError_t basket_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const
                                 cudaStream_t stream) {
   const int d = extras.i[0];
   if (d < 1 || d > 32) return cudaErrorInvalidValue;
-  return d <= 8 ? family_inner_switch<BasketFamily<8>>(payoff_id, ki0, ki1, params, extras,
-                                                       n_steps, n_inner, n_paths, path_offset,
-                                                       bound, grids, state_grid, surface,
-                                                       stream)
-                : family_inner_switch<BasketFamily<32>>(payoff_id, ki0, ki1, params, extras,
-                                                        n_steps, n_inner, n_paths,
-                                                        path_offset, bound, grids, state_grid,
-                                                        surface, stream);
+  return (d <= 8 ? basket8_family_inner : basket32_family_inner)(
+      payoff_id, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound, grids,
+      state_grid, surface, stream);
 }
 
 cudaError_t basket_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
@@ -58,12 +53,9 @@ cudaError_t basket_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
                                        double* partials, int n_blocks, cudaStream_t stream) {
   const int d = extras.i[0];
   if (d < 1 || d > 32) return cudaErrorInvalidValue;
-  return d <= 8 ? family_trajectories_switch<BasketFamily<8>>(
-                      payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound,
-                      grids, state_grid, partials, n_blocks, stream)
-                : family_trajectories_switch<BasketFamily<32>>(
-                      payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound,
-                      grids, state_grid, partials, n_blocks, stream);
+  return (d <= 8 ? basket8_family_trajectories : basket32_family_trajectories)(
+      payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids,
+      state_grid, partials, n_blocks, stream);
 }
 
 }  // namespace mc

@@ -1,8 +1,8 @@
 // The family nested-MC engine on the device: the kernels every model family
 // instantiates (family_nmc_kernels.cu for Heston, <family>_nmc_kernels.cu
-// for Merton, Bates, CEV, local vol, SABR, term structures, Vasicek and the
-// basket), templates over a device-side family whose interface mirrors
-// NMCFamily (nmc_engine.py):
+// for Merton, Bates, CEV, local vol, SABR, term structures, Vasicek, the
+// basket and the rainbow), templates over a device-side family whose
+// interface mirrors NMCFamily (nmc_engine.py):
 //   Params, load(ptr, extras, n_steps) the packed parameters, the family's
 //                                      integer extras (Merton's and Bates's
 //                                      Poisson scan depth, local vol's knot
@@ -73,11 +73,12 @@ constexpr int kMaxGrids = 32;
 enum FamilyId {
   FAMILY_HESTON = 0, FAMILY_MERTON = 1, FAMILY_BATES = 2, FAMILY_CEV = 3,
   FAMILY_LOCALVOL = 4, FAMILY_SABR = 5, FAMILY_TERM = 6, FAMILY_VASICEK = 7,
-  FAMILY_BASKET = 8
+  FAMILY_BASKET = 8, FAMILY_RAINBOW = 9
 };
 
 // A family's integer extras, by value (Merton's and Bates's i[0] = kmax,
-// local vol's i[0] = K, the basket's i[0] = d).
+// local vol's i[0] = K, the basket's and the rainbow's i[0] = d, the
+// rainbow's i[1] its fold: 0 max, 1 min).
 struct FamilyExtras {
   int i[4];
 };
@@ -360,6 +361,43 @@ MC_FAMILY_LAUNCHERS(sabr_family)
 MC_FAMILY_LAUNCHERS(term_family)
 MC_FAMILY_LAUNCHERS(vasicek_family)
 MC_FAMILY_LAUNCHERS(basket_family)
+MC_FAMILY_LAUNCHERS(basket32_family)
+MC_FAMILY_LAUNCHERS(rainbow_family)
+MC_FAMILY_LAUNCHERS(rainbow32_family)
 #undef MC_FAMILY_LAUNCHERS
+
+// The definitions of PREFIX's launchers as the switches above on FAMILY: the
+// basket's and the rainbow's, one per capacity, capacity 32 in a source of
+// its own (<family>_nmc32_kernels.cu) so the build's heaviest instantiations
+// compile in parallel.
+#define MC_DEFINE_FAMILY_LAUNCHERS(PREFIX, FAMILY)                                        \
+  cudaError_t PREFIX##_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,      \
+                             uint32_t ki1, const float* params, FamilyExtras extras,       \
+                             int n_steps, int n_inner, uint32_t n_paths,                   \
+                             uint32_t path_offset, uint32_t bound, float* surface,         \
+                             double* outer_partials, cudaStream_t stream) {                \
+    return family_fused_switch<FAMILY>(payoff_id, ko0, ko1, ki0, ki1, params, extras,      \
+                                      n_steps, n_inner, n_paths, path_offset, bound,      \
+                                      surface, outer_partials, stream);                   \
+  }                                                                                       \
+  cudaError_t PREFIX##_inner(int payoff_id, uint32_t ki0, uint32_t ki1,                    \
+                             const float* params, FamilyExtras extras, int n_steps,        \
+                             int n_inner, uint32_t n_paths, uint32_t path_offset,          \
+                             uint32_t bound, const GridPtrs& grids,                        \
+                             const float* state_grid, float* surface,                      \
+                             cudaStream_t stream) {                                        \
+    return family_inner_switch<FAMILY>(payoff_id, ki0, ki1, params, extras, n_steps,       \
+                                      n_inner, n_paths, path_offset, bound, grids,        \
+                                      state_grid, surface, stream);                       \
+  }                                                                                       \
+  cudaError_t PREFIX##_trajectories(int payoff_id, uint32_t k0, uint32_t k1,               \
+                                    const float* params, FamilyExtras extras, int n_steps, \
+                                    uint32_t n_paths, uint32_t path_offset, uint32_t bound,\
+                                    const GridOutPtrs& grids, float* state_grid,           \
+                                    double* partials, int n_blocks, cudaStream_t stream) { \
+    return family_trajectories_switch<FAMILY>(payoff_id, k0, k1, params, extras, n_steps,  \
+                                             n_paths, path_offset, bound, grids,          \
+                                             state_grid, partials, n_blocks, stream);     \
+  }
 
 }  // namespace mc

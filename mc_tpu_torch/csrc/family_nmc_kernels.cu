@@ -13,9 +13,10 @@
 // (merton_nmc_kernels.cu), Bates (bates_nmc_kernels.cu), CEV
 // (cev_nmc_kernels.cu), local vol (localvol_nmc_kernels.cu), SABR
 // (sabr_nmc_kernels.cu), term structures (term_nmc_kernels.cu), Vasicek
-// (vasicek_nmc_kernels.cu) and the basket (basket_nmc_kernels.cu, its grid
-// count the call's d), each family's instantiations compiled in its own
-// source.  A later family adds its struct, its launchers and a case.
+// (vasicek_nmc_kernels.cu), the basket (basket_nmc_kernels.cu and
+// basket_nmc32_kernels.cu, one per capacity, its grid count the call's d)
+// and the rainbow (rainbow_nmc_kernels.cu and rainbow_nmc32_kernels.cu, as
+// the basket), each family's instantiations compiled in its own source.  A later family adds its struct, its launchers and a case.
 
 #include <cstdint>
 
@@ -120,6 +121,11 @@ inline int family_grids(int family_id, const FamilyExtras& extras) {
     case FAMILY_VASICEK: return 3;
     case FAMILY_BASKET:
       return extras.i[0] >= 1 && extras.i[0] <= kMaxGrids ? extras.i[0] : -1;
+    case FAMILY_RAINBOW:
+      return extras.i[0] >= 1 && extras.i[0] <= kMaxGrids && extras.i[1] >= 0 &&
+                     extras.i[1] <= 1
+                 ? extras.i[0]
+                 : -1;
     default: return -1;
   }
 }
@@ -131,8 +137,9 @@ extern "C" {
 int mc_family_block_threads() { return mc::kFamilyThreads; }
 
 // extras: the family's integer extras by value (Merton's and Bates's
-// i[0] = kmax, local vol's i[0] = K, the basket's i[0] = d; Heston, CEV,
-// SABR, term and Vasicek read none).
+// i[0] = kmax, local vol's i[0] = K, the basket's i[0] = d, the rainbow's
+// i[0] = d and i[1] its fold, 0 max or 1 min; Heston, CEV, SABR, term and
+// Vasicek read none).
 int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                     uint32_t ki1, const float* params, mc::FamilyExtras extras, int n_steps,
                     int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
@@ -175,6 +182,10 @@ int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, ui
       return mc::basket_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
                                      n_inner, n_paths, path_offset, bound, surface,
                                      outer_partials, s);
+    case mc::FAMILY_RAINBOW:
+      return mc::rainbow_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
+                                      n_inner, n_paths, path_offset, bound, surface,
+                                      outer_partials, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -217,6 +228,9 @@ int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
     case mc::FAMILY_BASKET:
       return mc::basket_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
                                      n_paths, path_offset, bound, g, state_grid, surface, s);
+    case mc::FAMILY_RAINBOW:
+      return mc::rainbow_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
+                                      n_paths, path_offset, bound, g, state_grid, surface, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -224,8 +238,8 @@ int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
 // grids: a host array of n_grids device pointers the kernel writes, each
 // (n_steps, n_paths) f32; partials (n_blocks, 2) f64.  Merton (#15's
 // kernel), Bates, CEV, local vol (#20's kernel), SABR, term, Vasicek (#24's
-// kernel) and the basket's d asset grids; Heston stores its grids with
-// heston_trajectories.
+// kernel) and the basket's and the rainbow's d asset grids; Heston stores
+// its grids with heston_trajectories.
 int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k1,
                            const float* params, mc::FamilyExtras extras, int n_steps,
                            uint32_t n_paths, uint32_t path_offset, uint32_t bound,
@@ -268,6 +282,10 @@ int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k
       return mc::basket_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
                                             n_paths, path_offset, bound, g, state_grid,
                                             partials, n_blocks, s);
+    case mc::FAMILY_RAINBOW:
+      return mc::rainbow_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
+                                             n_paths, path_offset, bound, g, state_grid,
+                                             partials, n_blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Counter-based RNG on the device: threefry2x32 + Box-Muller.
+// Counter-based RNG on the device: threefry2x32 + Box-Muller, and the
+// inverse normal CDF of the quasi-Monte Carlo points.
 //
-// Device twin of mc_tpu_torch/rng.py (and of mc_tpu/rng.py:66-176): the
+// Device twin of mc_tpu_torch/rng.py (and of mc_tpu/rng.py:66-272): the
 // normal pair for counter (c0, c1) under key (k0, k1) is a pure function, so
 // a kernel, the plain PyTorch version and the JAX package draw one stream.
 // Words are uint32_t, so adds wrap and shifts are logical as in the Python
@@ -73,5 +74,64 @@ __device__ __forceinline__ void normal_pair(uint32_t k0, uint32_t k1,
   z0 = rad * cosf(theta);
   z1 = rad * sinf(theta);
 }
+
+
+// The inverse normal CDF of mc_tpu_torch/rng.py inv_normal_cdf (mc_tpu/rng.py
+// :232-272), operation for operation: u clamped to [1e-6, 1 - 1e-6],
+// Acklam's central and tail rationals by Horner (each mul and add rounded,
+// --fmad=false), one Newton step against the Abramowitz-Stegun 7.1.26 erf
+// where |x| < 3.  Not CUDA's normcdfinvf: a more accurate function, but
+// another one.  Each constant is the f32 of its double, as PyTorch rounds
+// a Python float.
+#define MC_F32(x) static_cast<float>(x)
+
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + MC_F32(0.3275911) * ax);
+  const float poly = t * (MC_F32(0.254829592) +
+                          t * (MC_F32(-0.284496736) +
+                               t * (MC_F32(1.421413741) +
+                                    t * (MC_F32(-1.453152027) + t * MC_F32(1.061405429)))));
+  const float e = 1.0f - poly * expf(-ax * ax);
+  const float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  return sgn * e;
+}
+
+__device__ __forceinline__ float inv_normal_cdf(float u) {
+  u = fminf(fmaxf(u, MC_F32(1e-6)), MC_F32(1.0 - 1e-6));
+  const float q = u - 0.5f;
+  const float r = q * q;
+  float num = MC_F32(-3.969683028665376e+01) * r + MC_F32(2.209460984245205e+02);
+  num = num * r + MC_F32(-2.759285104469687e+02);
+  num = num * r + MC_F32(1.383577518672690e+02);
+  num = num * r + MC_F32(-3.066479806614716e+01);
+  num = num * r + MC_F32(2.506628277459239e+00);
+  float den = MC_F32(-5.447609879822406e+01) * r + MC_F32(1.615858368580409e+02);
+  den = den * r + MC_F32(-1.556989798598866e+02);
+  den = den * r + MC_F32(6.680131188771972e+01);
+  den = den * r + MC_F32(-1.328068155288572e+01);
+  den = den * r + 1.0f;
+  const float central = q * num / den;
+  const float u_tail = fminf(u, 1.0f - u);
+  const float qt = sqrtf(-2.0f * logf(u_tail));
+  float num_t = MC_F32(-7.784894002430293e-03) * qt + MC_F32(-3.223964580411365e-01);
+  num_t = num_t * qt + MC_F32(-2.400758277161838e+00);
+  num_t = num_t * qt + MC_F32(-2.549732539343734e+00);
+  num_t = num_t * qt + MC_F32(4.374664141464968e+00);
+  num_t = num_t * qt + MC_F32(2.938163982698783e+00);
+  float den_t = MC_F32(7.784695709041462e-03) * qt + MC_F32(3.224671290700398e-01);
+  den_t = den_t * qt + MC_F32(2.445134137142996e+00);
+  den_t = den_t * qt + MC_F32(3.754408661907416e+00);
+  den_t = den_t * qt + 1.0f;
+  float tail = num_t / den_t;
+  tail = u < 0.5f ? tail : -tail;
+  const float p_low = MC_F32(0.02425);
+  const float x = (u < p_low || u > 1.0f - p_low) ? tail : central;
+  const float cdf = 0.5f * (1.0f + erf_as(x / MC_F32(1.4142135623730951)));
+  const float pdf = MC_F32(0.3989422804014327) * expf(-0.5f * x * x);
+  const float step = (cdf - u) / fmaxf(pdf, MC_F32(1e-10));
+  return fabsf(x) < 3.0f ? x - step : x;
+}
+#undef MC_F32
 
 }  // namespace mc

@@ -253,17 +253,19 @@ def basket_of(p, lv):
 
 
 def basket_leg(payoff: PathPayoff, p, k0: int, k1: int, ids, c, n_steps: int,
-               ws, state, sign: float = 1.0, on_step=None):
+               ws, state, sign: float = 1.0, on_step=None, level=basket_of):
     """``n_steps`` steps from ``(ws, state)``, step u drawing its pairs from
-    counter ``c + u*ceil(d/2)``: ``(ws, levels, b, state)`` after the last;
-    ``on_step(u, lv, b, state)`` sees every step."""
+    counter ``c + u*ceil(d/2)``: ``(ws, levels, b, state)`` after the last,
+    b = ``level(p, levels)`` the level the payoff reads (the basket's
+    weighted sum; the rainbow NMC's order statistic); ``on_step(u, lv, b,
+    state)`` sees every step."""
     npps = (p.d + 1) // 2
     lv = b = None
     for u in range(n_steps):
         ws = mix_step(p, ws, basket_normals(k0, k1, ids, c + u * npps, p.d,
                                             sign))
         lv = levels(p, ws)
-        b = basket_of(p, lv)
+        b = level(p, lv)
         state = payoff.update(state, b, p)
         if on_step is not None:
             on_step(u, lv, b, state)

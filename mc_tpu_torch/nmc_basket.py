@@ -78,10 +78,15 @@ class BasketNMC(NMCFamily):
     def check_params(self, params, n_steps):
         check_basket_params(params, self.d)
 
+    def level(self, p, lv):
+        """The level the payoff reads from the asset prices ``lv``: the
+        weighted sum B (the rainbow NMC folds max or min instead)."""
+        return basket_of(p, lv)
+
     def outer_init(self, payoff, p, like):
         zero = torch.zeros_like(like)
         ws = zero.expand(self.d, *zero.shape)
-        return ws, basket_of(p, levels(p, ws)), payoff.init(p, zero)
+        return ws, self.level(p, levels(p, ws)), payoff.init(p, zero)
 
     def outer_draws(self, k0, k1, ids, steps):
         # step j's d normals, drawn when the step asks for them (index j)
@@ -91,7 +96,7 @@ class BasketNMC(NMCFamily):
         ws, _, state = carry
         ws = mix_step(p, ws, draws[0])
         lv = levels(p, ws)
-        b = basket_of(p, lv)
+        b = self.level(p, lv)
         state = payoff.update(state, b, p)
         word0 = state[0] if payoff.n_state else torch.zeros_like(b)
         return (ws, b, state), (*lv, word0)
@@ -105,9 +110,9 @@ class BasketNMC(NMCFamily):
         ws = torch.stack([torch.log(g / p.s0s[i])
                           for i, g in enumerate(grids_j)])
         if not remaining:
-            return payoff.terminal(state_j, basket_of(p, levels(p, ws)), p)
+            return payoff.terminal(state_j, self.level(p, levels(p, ws)), p)
         _, _, b, state = basket_leg(payoff, p, k0, k1, ids, c_base, remaining,
-                                    ws, state_j)
+                                    ws, state_j, level=self.level)
         return payoff.terminal(state, b, p)
 
 

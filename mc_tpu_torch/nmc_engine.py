@@ -7,8 +7,9 @@ plain inner leg and its discounting); the engine owns the rest: the entry
 guards, the keys, the f32 Kahan inner sum and the two strategies.  Heston,
 Merton, Bates, CEV, local vol, SABR, term structures, Vasicek (pathwise
 discounting: a per-point scale from its own grid) and the basket (d asset
-grids, d a runtime value up to 32) are registered; ``mc_tpu``'s rainbow is
-still to port (ROADMAP.md queue B, item 14).
+grids, d a runtime value up to 32) and the rainbow (the basket's grids
+with an order-statistic level) are registered: every adapter of ``mc_tpu``'s
+``FAMILY_MODULES``.
 
 Three kernel templates over a device-side family struct (``csrc/family.cuh``;
 each family's instantiations compiled in its own source, the entry points
@@ -505,7 +506,8 @@ FAMILY_MODULES = {"heston": "mc_tpu_torch.nmc_heston",
                   "sabr": "mc_tpu_torch.nmc_sabr",
                   "term": "mc_tpu_torch.nmc_term",
                   "vasicek": "mc_tpu_torch.nmc_vasicek",
-                  "basket": "mc_tpu_torch.nmc_basket"}
+                  "basket": "mc_tpu_torch.nmc_basket",
+                  "rainbow": "mc_tpu_torch.nmc_rainbow"}
 
 
 def register_nmc_family(name: str, price_fn, builder=None) -> None:
@@ -515,10 +517,10 @@ def register_nmc_family(name: str, price_fn, builder=None) -> None:
 
 
 def ensure_family(name: str) -> None:
-    """Import the module that registers family ``name``; a family not
-    ported yet raises."""
+    """Import the module that registers family ``name``; a name without an
+    adapter raises."""
     if name not in FAMILY_MODULES:
         raise ValueError(
-            f"model family {name!r} is not ported to mc_tpu_torch yet "
-            f"(ROADMAP.md queue B, item 14); ported: {sorted(FAMILY_MODULES)}")
+            f"model family {name!r} has no nested-MC adapter (mc_tpu has "
+            f"none either); the families: {sorted(FAMILY_MODULES)}")
     importlib.import_module(FAMILY_MODULES[name])

@@ -53,7 +53,8 @@ KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "cev_partials", "localvol_partials", "localvol_trajectories",
            "sabr_partials", "term_partials", "divs_partials",
            "vasicek_partials", "vasicek_trajectories", "basket_partials",
-           "basket_trajectories")
+           "basket_trajectories", "fx_partials", "rainbow_partials",
+           "qmc_sums", "qmc_bridge_sums")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -94,6 +95,10 @@ _SIGNATURES = {
     "mc_divs_block_threads": ([], _c_int),
     "mc_vasicek_block_threads": ([], _c_int),
     "mc_basket_block_threads": ([], _c_int),
+    "mc_fx_block_threads": ([], _c_int),
+    "mc_rainbow_block_threads": ([], _c_int),
+    "mc_qmc_block_threads": ([], _c_int),
+    "mc_qmc_bridge_threads": ([_c_int], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -216,6 +221,24 @@ _SIGNATURES = {
     "mc_basket_trajectories": ([_c_int, _c_u32, _c_u32, _c_ptr, _c_int,
                                 _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
                                 _c_ptr, _c_ptr, _c_int, _c_ptr], _c_int),
+    # contract, rounds, k0, k1, params, n_paths, path_offset, bound,
+    # partials, n_blocks, stream
+    "mc_fx_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
+                        _c_u32, _c_u32, _c_ptr, _c_int, _c_ptr], _c_int),
+    # payoff, rounds, antithetic, k0, k1, params, d, n_paths, path_offset,
+    # bound, partials, n_blocks, stream
+    "mc_rainbow_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
+                             _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_int,
+                             _c_ptr], _c_int),
+    # payoff_id, family, euler, n, d, table, shifts, n_shifts, params,
+    # n_steps, partials, n_bx, stream
+    "mc_qmc_sums": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+                     _c_int, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr], _c_int),
+    # payoff_id, family, n, d, table, shifts, n_shifts, params, n_steps,
+    # bidx, bcoef, partials, n_bx, stream
+    "mc_qmc_bridge_sums": ([_c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+                            _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                            _c_int, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()

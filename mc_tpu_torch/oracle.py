@@ -1,12 +1,15 @@
 """Closed-form oracles and the Monte Carlo result type
-(port of ``mc_tpu/oracle.py:63-200,300-317,459-505,515-549,549-638``).
+(port of ``mc_tpu/oracle.py:63-200,208-455,459-505,515-549,549-638``).
 
 The oracles are host f64 through ``math.erf``/``math.erfc``: the gates of
 the payoffs (vanilla, digital, continuous-barrier, forward-start, cliquet),
 of the greeks (Black-Scholes delta, vega, gamma), the implied volatility,
-the Vasicek bond and Merton's (1973) call under Vasicek rates, and
-Margrabe's (1978) exchange option.  ``summarize`` turns f64 moment sums into a
-`PriceResult` on whatever device the sums live.
+the Vasicek bond and Merton's (1973) call under Vasicek rates,
+Margrabe's (1978) exchange option, the bivariate normal CDF (Genz's BVND)
+with Stulz's (1982) two-asset min/max options, and the cross-currency
+closed forms (Garman-Kohlhagen, quanto, composite, flexo).
+``summarize`` turns f64 moment sums into a `PriceResult` on whatever device
+the sums live.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ __all__ = ["bs_call", "bs_put", "bs_digital_call", "bs_digital_put",
            "bs_up_out_call", "bs_down_out_call", "bs_forward_start_call",
            "bs_cliquet", "bs_delta_call", "bs_vega", "bs_gamma",
            "bs_implied_vol", "vasicek_zcb", "bsv_call", "margrabe",
+           "bvn_cdf", "stulz_min_call", "stulz_max_call", "stulz_min_put",
+           "stulz_max_put", "gk_call", "gk_put", "quanto_call", "quanto_put",
+           "compo_call", "compo_put", "flexo_call", "flexo_put",
            "PriceResult", "summarize"]
 
 
@@ -250,6 +256,219 @@ def margrabe(s1, s2, t, sigma1, sigma2, rho, q1=0.0, q2=0.0) -> float:
     d2 = d1 - st
     return (s1 * math.exp(-q1 * t) * _phid(d1)
             - s2 * math.exp(-q2 * t) * _phid(d2))
+
+
+# Gauss-Legendre half-rules (weights, nodes on [0, 1] mapped from [-1, 1]).
+_GL_RULES = {
+    6: ((0.1713244923791704, 0.3607615730481386, 0.4679139345726910),
+        (0.9324695142031521, 0.6612093864662645, 0.2386191860831969)),
+    12: ((0.04717533638651183, 0.1069393259953184, 0.1600783285433462,
+          0.2031674267230659, 0.2334925365383548, 0.2491470458134028),
+         (0.9815606342467192, 0.9041172563704749, 0.7699026741943047,
+          0.5873179542866175, 0.3678314989981802, 0.1252334085114689)),
+    20: ((0.01761400713915212, 0.04060142980038694, 0.06267204833410906,
+          0.08327674157670475, 0.1019301198172404, 0.1181945319615184,
+          0.1316886384491766, 0.1420961093183821, 0.1491729864726037,
+          0.1527533871307259),
+         (0.9931285991850949, 0.9639719272779138, 0.9122344282513259,
+          0.8391169718222188, 0.7463319064601508, 0.6360536807265150,
+          0.5108670019508271, 0.3737060887154196, 0.2277858511416451,
+          0.07652652113349733)),
+}
+
+
+def _bvnu(dh: float, dk: float, r: float) -> float:
+    """Upper tail P(X > dh, Y > dk) of the standard bivariate normal with
+    correlation r: Genz's (2004) BVND, a Gauss-Legendre quadrature of
+    Drezner-Wesolowsky's integral over arcsin(r) for |r| < 0.925, else the
+    expansion in sqrt(1 - r^2) with a quadrature remainder."""
+    twopi = 2.0 * math.pi
+    if abs(r) < 0.3:
+        w, xgl = _GL_RULES[6]
+    elif abs(r) < 0.75:
+        w, xgl = _GL_RULES[12]
+    else:
+        w, xgl = _GL_RULES[20]
+    h, k = dh, dk
+    hk = h * k
+    bvn = 0.0
+    if abs(r) < 0.925:
+        hs = (h * h + k * k) / 2.0
+        asr = math.asin(r)
+        for wi, xi in zip(w, xgl):
+            for sn in (math.sin(asr * (1.0 - xi) / 2.0),
+                       math.sin(asr * (1.0 + xi) / 2.0)):
+                bvn += wi * math.exp((sn * hk - hs) / (1.0 - sn * sn))
+        return bvn * asr / (2.0 * twopi) + _phid(-h) * _phid(-k)
+    if r < 0.0:
+        k = -k
+        hk = -hk
+    if abs(r) < 1.0:
+        a_s = (1.0 - r) * (1.0 + r)
+        a = math.sqrt(a_s)
+        bs = (h - k) ** 2
+        c = (4.0 - hk) / 8.0
+        d = (12.0 - hk) / 16.0
+        asr = -(bs / a_s + hk) / 2.0
+        if asr > -100.0:
+            bvn = (a * math.exp(asr)
+                   * (1.0 - c * (bs - a_s) * (1.0 - d * bs / 5.0) / 3.0
+                      + c * d * a_s * a_s / 5.0))
+        if -hk < 100.0:
+            b = math.sqrt(bs)
+            sp = math.sqrt(twopi) * _phid(-b / a)
+            bvn -= (math.exp(-hk / 2.0) * sp * b
+                    * (1.0 - c * bs * (1.0 - d * bs / 5.0) / 3.0))
+        a = a / 2.0
+        for wi, xi in zip(w, xgl):
+            for xs in ((a * (1.0 - xi)) ** 2, (a * (1.0 + xi)) ** 2):
+                rs = math.sqrt(1.0 - xs)
+                asr = -(bs / xs + hk) / 2.0
+                if asr > -100.0:
+                    sp = 1.0 + c * xs * (1.0 + d * xs)
+                    ep = math.exp(-hk * (1.0 - rs)
+                                  / (2.0 * (1.0 + rs))) / rs
+                    bvn += a * wi * math.exp(asr) * (ep - sp)
+        bvn = -bvn / twopi
+    if r > 0.0:
+        return bvn + _phid(-max(h, k))
+    bvn = -bvn
+    if k > h:
+        bvn += _phid(k) - _phid(h)
+    return bvn
+
+
+def bvn_cdf(x, y, rho) -> float:
+    """P(X <= x, Y <= y) for a standard bivariate normal with corr rho."""
+    return _bvnu(-float(x), -float(y), float(rho))
+
+
+def stulz_min_call(s1, s2, k, t, r, sigma1, sigma2, rho,
+                   q1=0.0, q2=0.0) -> float:
+    """Stulz (1982) call on the minimum of two assets,
+    e^{-rT} E[max(min(S1_T, S2_T) - K, 0)], K > 0."""
+    s1, s2, k, t, r, sigma1, sigma2, rho, q1, q2 = map(
+        float, (s1, s2, k, t, r, sigma1, sigma2, rho, q1, q2))
+    sig = math.sqrt(sigma1 * sigma1 + sigma2 * sigma2
+                    - 2.0 * rho * sigma1 * sigma2)
+    st = sig * math.sqrt(t)
+    rt = math.sqrt(t)
+    d = (math.log(s1 / s2) + (q2 - q1 + 0.5 * sig * sig) * t) / st
+    y1 = (math.log(s1 / k) + (r - q1 + 0.5 * sigma1 * sigma1) * t) \
+        / (sigma1 * rt)
+    y2 = (math.log(s2 / k) + (r - q2 + 0.5 * sigma2 * sigma2) * t) \
+        / (sigma2 * rt)
+    rho1 = (sigma1 - rho * sigma2) / sig
+    rho2 = (sigma2 - rho * sigma1) / sig
+    return (s1 * math.exp(-q1 * t) * bvn_cdf(y1, -d, -rho1)
+            + s2 * math.exp(-q2 * t) * bvn_cdf(y2, d - st, -rho2)
+            - k * math.exp(-r * t) * bvn_cdf(y1 - sigma1 * rt,
+                                             y2 - sigma2 * rt, rho))
+
+
+def stulz_max_call(s1, s2, k, t, r, sigma1, sigma2, rho,
+                   q1=0.0, q2=0.0) -> float:
+    """Call on the maximum of two assets, by the multiset identity
+    max(M-K,0) + max(m-K,0) = max(S1-K,0) + max(S2-K,0)."""
+    c1 = bs_call(s1, k, t, r, sigma1, q1)
+    c2 = bs_call(s2, k, t, r, sigma2, q2)
+    return c1 + c2 - stulz_min_call(s1, s2, k, t, r, sigma1, sigma2, rho,
+                                    q1, q2)
+
+
+def _min_forward(s1, s2, t, sigma1, sigma2, rho, q1, q2) -> float:
+    """e^{-rT} E[min(S1_T, S2_T)] = S1 e^{-q1 T} - Margrabe(S1 -> S2)."""
+    return (float(s1) * math.exp(-float(q1) * float(t))
+            - margrabe(s1, s2, t, sigma1, sigma2, rho, q1, q2))
+
+
+def stulz_min_put(s1, s2, k, t, r, sigma1, sigma2, rho,
+                  q1=0.0, q2=0.0) -> float:
+    """Put on the minimum by parity: p_min(K) = K e^{-rT} - c_min(0) +
+    c_min(K)."""
+    return (float(k) * math.exp(-float(r) * float(t))
+            - _min_forward(s1, s2, t, sigma1, sigma2, rho, q1, q2)
+            + stulz_min_call(s1, s2, k, t, r, sigma1, sigma2, rho, q1, q2))
+
+
+def stulz_max_put(s1, s2, k, t, r, sigma1, sigma2, rho,
+                  q1=0.0, q2=0.0) -> float:
+    """Put on the maximum by parity, with c_max(0) = S1 e^{-q1 T} + S2
+    e^{-q2 T} - c_min(0)."""
+    fwd_max = (float(s1) * math.exp(-float(q1) * float(t))
+               + float(s2) * math.exp(-float(q2) * float(t))
+               - _min_forward(s1, s2, t, sigma1, sigma2, rho, q1, q2))
+    return (float(k) * math.exp(-float(r) * float(t)) - fwd_max
+            + stulz_max_call(s1, s2, k, t, r, sigma1, sigma2, rho, q1, q2))
+
+
+# Cross-currency closed forms: ``x0`` is the FX spot in domestic units per
+# foreign unit, ``r`` the domestic rate, ``r_f`` the foreign rate, ``q`` the
+# asset's dividend yield, ``rho`` the asset/FX log-return correlation.
+
+
+def _bs64(call: bool, s0, k, t, r, sigma, q) -> float:
+    """Black-Scholes in host f64 (math and _phid)."""
+    s0, k, t, r, sigma, q = map(float, (s0, k, t, r, sigma, q))
+    st = sigma * math.sqrt(t)
+    d1 = (math.log(s0 / k) + (r - q + 0.5 * sigma * sigma) * t) / st
+    d2 = d1 - st
+    c = (s0 * math.exp(-q * t) * _phid(d1)
+         - k * math.exp(-r * t) * _phid(d2))
+    if call:
+        return c
+    return c - s0 * math.exp(-q * t) + k * math.exp(-r * t)
+
+
+def gk_call(x0, kx, t, r, r_f, sigma_x, call: bool = True) -> float:
+    """Garman-Kohlhagen FX option: Black-Scholes with q = r_f."""
+    return _bs64(call, x0, kx, t, r, sigma_x, r_f)
+
+
+def gk_put(x0, kx, t, r, r_f, sigma_x) -> float:
+    return gk_call(x0, kx, t, r, r_f, sigma_x, call=False)
+
+
+def quanto_call(s0, k, t, r, r_f, sigma_s, sigma_x, rho, q=0.0,
+                x_bar=1.0, call: bool = True) -> float:
+    """Quanto option x_bar * max(+-(S_T - K), 0) paid in domestic currency:
+    Black-Scholes at the domestic rate with the effective dividend yield
+    q_eff = r - r_f + q + rho sigma_s sigma_x."""
+    q_eff = (float(r) - float(r_f) + float(q)
+             + float(rho) * float(sigma_s) * float(sigma_x))
+    return float(x_bar) * _bs64(call, s0, k, t, r, sigma_s, q_eff)
+
+
+def quanto_put(s0, k, t, r, r_f, sigma_s, sigma_x, rho, q=0.0,
+               x_bar=1.0) -> float:
+    return quanto_call(s0, k, t, r, r_f, sigma_s, sigma_x, rho, q, x_bar,
+                       call=False)
+
+
+def compo_call(s0, x0, k, t, r, sigma_s, sigma_x, rho, q=0.0,
+               call: bool = True) -> float:
+    """Composite option on S_T X_T with a domestic strike: S X is a
+    domestic tradable paying q, GBM with vol sqrt(sigma_s^2 + sigma_x^2 +
+    2 rho sigma_s sigma_x)."""
+    sigma_s, sigma_x, rho = map(float, (sigma_s, sigma_x, rho))
+    sigma_c = math.sqrt(sigma_s * sigma_s + sigma_x * sigma_x
+                        + 2.0 * rho * sigma_s * sigma_x)
+    return _bs64(call, float(s0) * float(x0), k, t, r, sigma_c, q)
+
+
+def compo_put(s0, x0, k, t, r, sigma_s, sigma_x, rho, q=0.0) -> float:
+    return compo_call(s0, x0, k, t, r, sigma_s, sigma_x, rho, q, call=False)
+
+
+def flexo_call(s0, x0, k, t, r_f, sigma_s, q=0.0, call: bool = True) -> float:
+    """A foreign vanilla converted at the realized FX rate, e^{-rT}
+    E[X_T max(+-(S_T - K), 0)]: x0 times the foreign-rate Black-Scholes
+    (change of numeraire; the domestic rate drops out)."""
+    return float(x0) * _bs64(call, s0, k, t, r_f, sigma_s, q)
+
+
+def flexo_put(s0, x0, k, t, r_f, sigma_s, q=0.0) -> float:
+    return flexo_call(s0, x0, k, t, r_f, sigma_s, q, call=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,537 @@
+"""Randomized quasi-Monte Carlo under GBM: rank-1 lattices and Sobol nets
+(port of the GBM half of ``mc_tpu/qmc.py:1-622``).
+
+For a smooth integrand a randomized-QMC estimator converges near O(1/N)
+instead of O(1/sqrt(N)).  Two point-set families, each generated from the
+path id inside the kernel (no point matrix exists in memory):
+
+* ``lattice`` (default): a rank-1 lattice of the largest prime n <= the
+  path count (capped below 2^20), its generating vector from the fast
+  component-by-component construction (``lattice_vector``, numpy FFTs,
+  ``mc_tpu``'s code as it is); coordinate j of point i is
+  frac(i z_j / n + shift_j), the residue i z_j mod n exact in integers and
+  the shift a Cranley-Patterson rotation;
+* ``sobol``: a Joe-Kuo Sobol net of 2^m points (scipy's direction numbers,
+  ``sobol_directions``), point i by the direct Gray-code formula, XORed with
+  a 30-bit random digital shift.
+
+Normals come from the inverse CDF (``rng.inv_normal_cdf``); the step loop
+and every payoff are ``price``'s (``ops/path_kernels._payoff_leg``), only
+the draw source differs: the terminal draw reads dimension 0, Euler step
+pair m dimensions (2m, 2m+1), and the Brownian bridge (``bridge=True``)
+builds each path's W from dimension k at bridge entry k
+(``bridge_schedule``, breadth-first bisection), so the best-distributed
+dimensions set the coarsest levels.  The error estimate comes from R
+independent randomizations (shifts from ``derive_key(seed, stream,
+0x51AC)``): stderr = e^{-rT} std(R shift means) / sqrt(R).
+
+Two kernels, in ``csrc/qmc_kernels.cu``, each taking all R shifts in one
+launch (blocks over (path block, shift), one f64 row per block and shift):
+
+* ``qmc_sums`` (replaces ``_pallas_qmc_shift_sum``, ``mc_tpu/qmc.py:463``):
+  the payoff sum per shift, terminal or Euler, either point family;
+* ``qmc_bridge_sums`` (replaces ``_pallas_qmc_bridge_shift_sum``,
+  ``mc_tpu/qmc.py:403``): the same with the bridge's W buffer in shared
+  memory.
+
+Each wrapper takes its plain PyTorch version below only when the parameter
+tensor lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+The model half of ``mc_tpu``'s QMC (``price_qmc_model``) is not ported yet
+(ROADMAP item 15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mc_tpu_torch import rng
+from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
+from mc_tpu_torch.engines import STREAM_OUTER, resolve_device
+from mc_tpu_torch.oracle import PriceResult
+from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import path_kernels as pk
+from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
+from mc_tpu_torch.ops.reduce import finish_sum
+
+__all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "QMC_TAG", "prev_prime",
+           "lattice_vector", "bridge_schedule", "sobol_directions",
+           "QMCPointSet", "lattice_residue", "point_units", "point_unit",
+           "qmc_draw_pair",
+           "bridge_draw_pair", "qmc_pointset", "qmc_sums", "qmc_sums_plain",
+           "finish_qmc", "price_qmc", "price_qmc_model"]
+
+MAX_LATTICE_N = 1 << 20  # the exact int32 residue's bound
+SOBOL_BITS = 30          # scipy's Joe-Kuo direction numbers are scaled to 2^30
+QMC_TAG = 0x51AC         # rng.derive_key stream tag of the shifts
+FAMILIES = {"lattice": 0, "sobol": 1}
+# Elements (paths x shifts) per chunk of the plain versions.
+PLAIN_ELEMS = {"cpu": 1 << 16, "cuda": 1 << 22}
+
+
+def _is_prime(n: int) -> bool:
+    if n < 2:
+        return False
+    for p in range(2, int(math.isqrt(n)) + 1):
+        if n % p == 0:
+            return False
+    return True
+
+
+def prev_prime(n: int) -> int:
+    """The largest prime <= n (and < MAX_LATTICE_N)."""
+    n = min(n, MAX_LATTICE_N - 1)
+    while not _is_prime(n):
+        n -= 1
+    return n
+
+
+def _primitive_root(n: int) -> int:
+    """The smallest primitive root modulo the prime n."""
+    phi = n - 1
+    factors = []
+    m = phi
+    p = 2
+    while p * p <= m:
+        if m % p == 0:
+            factors.append(p)
+            while m % p == 0:
+                m //= p
+        p += 1
+    if m > 1:
+        factors.append(m)
+    for g in range(2, n):
+        if all(pow(g, phi // f, n) != 1 for f in factors):
+            return g
+    raise ValueError(f"no primitive root for {n}")
+
+
+def lattice_vector(n: int, d: int, gamma: float = 0.1) -> np.ndarray:
+    """The (d,) uint32 generating vector of a rank-1 lattice mod the prime
+    n by fast CBC (Nuyens-Cools): candidates enumerated as powers of a
+    primitive root g turn each dimension's error E(z = g^j) into one
+    circular correlation, done with FFTs; omega is the Bernoulli-B2
+    (Korobov alpha = 2) kernel, ``gamma`` the product weight.  Cached per
+    process by value (2^20 points x 100 dimensions take tens of seconds of
+    host numpy)."""
+    return _lattice_vector(int(n), int(d), float(gamma))
+
+
+@functools.lru_cache(maxsize=16)
+def _lattice_vector(n: int, d: int, gamma: float) -> np.ndarray:
+    if not _is_prime(n):
+        raise ValueError(f"lattice size must be prime, got {n}")
+    if d < 1:
+        raise ValueError("d must be >= 1")
+    g = _primitive_root(n)
+    m = n - 1
+    perm = np.empty(m, np.int64)
+    perm[0] = 1
+    for j in range(1, m):
+        perm[j] = perm[j - 1] * g % n
+
+    def omega(x):
+        return 2.0 * math.pi ** 2 * (x * x - x + 1.0 / 6.0)
+
+    psi = omega(perm / n)                       # psi[l] = omega({g^l / n})
+    fft_psi = np.fft.rfft(psi)
+    prod = np.ones(n)                           # running product over points
+    z = np.empty(d, np.int64)
+    for s in range(d):
+        q = prod[perm]                          # product at points i = g^l
+        # errors[j] = sum_l q[l] psi[(l + j) mod m]  (circular correlation)
+        errors = np.fft.irfft(np.conj(np.fft.rfft(q)) * fft_psi, m)
+        j_star = int(np.argmin(errors))
+        z[s] = perm[j_star]
+        upd = 1.0 + gamma * np.roll(psi, -j_star)  # omega({g^{l+j*} / n})
+        prod[perm] *= upd
+        prod[0] *= 1.0 + gamma * omega(0.0)
+    return z.astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=32)
+def bridge_schedule(n_steps: int):
+    """The Brownian bridge's construction order, breadth-first bisection:
+    ``(idx, coef)``, entry k setting node idx[k] = (m, l, r) of the W buffer
+    (nodes 0..n_steps, W[0] = 0) to c_l W[l] + c_r W[r] + s Z_k with coef[k]
+    = (c_l, c_r, s); entry 0 sets W[n] = sqrt(n) Z_0."""
+    n = n_steps
+    idx = [(n, 0, 0)]
+    coef = [(0.0, 0.0, math.sqrt(n))]
+    dq = deque([(0, n)])
+    while dq:
+        l, r = dq.popleft()
+        if r - l <= 1:
+            continue
+        m = (l + r) // 2
+        span = r - l
+        idx.append((m, l, r))
+        coef.append(((r - m) / span, (m - l) / span,
+                     math.sqrt((m - l) * (r - m) / span)))
+        dq.append((l, m))
+        dq.append((m, r))
+    if len(idx) != n:
+        raise RuntimeError(f"bridge schedule has {len(idx)} entries for "
+                           f"{n} steps")
+    return np.asarray(idx, np.int32), np.asarray(coef, np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def sobol_directions(d: int) -> np.ndarray:
+    """(d, 30) uint32 Joe-Kuo direction numbers (values < 2^30): scipy's
+    Sobol direction-number matrix (the new-Joe-Kuo-6 table), read as
+    ``mc_tpu`` reads it."""
+    from scipy.stats import qmc as _sqmc
+
+    sv = np.asarray(_sqmc.Sobol(d=d, scramble=False)._sv, np.uint32)
+    if sv.shape != (d, SOBOL_BITS):
+        raise RuntimeError(f"unexpected scipy Sobol table {sv.shape}")
+    return sv
+
+
+# ---------------------------------------------------------------------------
+# Point sets
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QMCPointSet:
+    """A randomized point set on a device: ``family`` "lattice" or
+    "sobol", ``n`` points in ``d`` dimensions, ``table`` int32 (the
+    generating vector (d,), or the flattened Sobol directions (d*30,)) and
+    ``shifts`` (R, d) (f32 uniforms, or int32 30-bit digital shifts)."""
+
+    family: str
+    n: int
+    d: int
+    table: torch.Tensor
+    shifts: torch.Tensor
+
+    @property
+    def n_shifts(self) -> int:
+        return int(self.shifts.shape[0])
+
+    def check(self) -> None:
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown QMC family {self.family!r}")
+        want = self.d * (SOBOL_BITS if self.family == "sobol" else 1)
+        dtype = torch.int32 if self.family == "sobol" else torch.float32
+        if (self.table.dtype != torch.int32 or self.table.shape != (want,)
+                or not self.table.is_contiguous()
+                or self.shifts.dtype != dtype or self.shifts.dim() != 2
+                or self.shifts.shape[1] != self.d
+                or not self.shifts.is_contiguous()
+                or self.table.device != self.shifts.device):
+            raise ValueError(
+                f"a {self.family} point set needs an int32 ({want},) table "
+                f"and contiguous {dtype} (R, {self.d}) shifts on one device")
+        if not (0 < self.n <= MAX_LATTICE_N and 0 < self.n_shifts < 1 << 16):
+            raise ValueError(f"n must be in [1, 2^20] and R in [1, 2^16); "
+                             f"got n={self.n}, R={self.n_shifts}")
+
+    def shifted(self, shifts: torch.Tensor) -> "QMCPointSet":
+        """The same points under other shifts (a subset, say)."""
+        return dataclasses.replace(self, shifts=shifts.contiguous())
+
+
+def lattice_residue(ids, z, n: int):
+    """i z mod n for int64 ids and an int (or int64 tensor) z, exact (the
+    integer ``mc_tpu``'s float-assisted Barrett reduction computes in
+    int32)."""
+    return (ids * z) % n
+
+
+def point_units(ps: QMCPointSet, ids, dims):
+    """Coordinates ``dims`` (a sequence of dimensions) of points ``ids``
+    (int64, (chunk,)) under every shift: (len(dims), R, chunk) f32 in [0,
+    1).  A dimension past the last reads the last (the second half of an
+    odd step count's last pair, never used)."""
+    dev = ids.device
+    jt = torch.tensor([min(j, ps.d - 1) for j in dims], dtype=torch.int64,
+                      device=dev)
+    shifts = ps.shifts.T[jt][:, :, None]  # (D, R, 1)
+    if ps.family == "lattice":
+        t = lattice_residue(ids[None, :],
+                            ps.table.to(torch.int64)[jt][:, None], ps.n)
+        inv_n = torch.tensor(1.0 / ps.n, dtype=torch.float32, device=dev)
+        u = t.to(torch.float32)[:, None, :] * inv_n + shifts
+        return u - torch.floor(u)
+    # the XOR of the direction numbers v_k over the set bits k of the Gray
+    # code, bit b of it the parity of sum_k bit_k(gray) * bit_b(v_k): one
+    # small product (exact in f32: the sums are at most 30)
+    bit = torch.arange(SOBOL_BITS, dtype=torch.int64, device=dev)
+    gray = ids ^ (ids >> 1)
+    g_bits = ((gray[:, None] >> bit) & 1).to(torch.float32)  # (chunk, 30)
+    v = ps.table.view(ps.d, SOBOL_BITS)[jt].to(torch.int64)  # (D, 30)
+    v_bits = ((v[:, :, None] >> bit) & 1).to(torch.float32)  # (D, 30, 30)
+    parity = (g_bits[None] @ v_bits).to(torch.int64) & 1  # (D, chunk, 30)
+    acc = (parity << bit).sum(dim=2)[:, None, :] ^ shifts.to(torch.int64)
+    return rng.bits_to_unit((acc << 2) & 0xFFFFFFFF)
+
+
+def point_unit(ps: QMCPointSet, ids, j: int):
+    """Coordinate j of points ``ids`` under every shift: (R, chunk)."""
+    return point_units(ps, ids, [j])[0]
+
+
+class _Normals:
+    """``normals(j)``: the inverse-CDF normals of dimension j, (R, chunk),
+    computed ``block`` dimensions at a time (the same values, fewer
+    launches; the draws ask for j in order)."""
+
+    def __init__(self, ps: QMCPointSet, ids, block: int = 8):
+        self.ps, self.ids, self.block = ps, ids, block
+        self.first, self.z = None, None
+
+    def __call__(self, j: int):
+        j = min(j, self.ps.d - 1)
+        if self.first is None or not 0 <= j - self.first < self.z.shape[0]:
+            self.first = j - j % self.block
+            dims = range(self.first, min(self.first + self.block, self.ps.d))
+            self.z = rng.inv_normal_cdf(point_units(self.ps, self.ids, dims))
+        return self.z[j - self.first]
+
+
+def qmc_draw_pair(ps: QMCPointSet, ids, method: str):
+    """draw_pair(m) -> inverse-CDF normals of dimensions (2m, 2m+1) (the
+    terminal draw: dimension 0 and zeros), each (R, chunk); ``.unit(j)``
+    gives the raw coordinate of dimension j."""
+    normals = _Normals(ps, ids)
+
+    def draw_pair(m):
+        if method == "terminal":
+            z0 = normals(0)
+            return z0, torch.zeros_like(z0)
+        return normals(2 * m), normals(2 * m + 1)
+
+    draw_pair.unit = lambda j: point_unit(ps, ids, j)
+    return draw_pair
+
+
+def bridge_draw_pair(ps: QMCPointSet, ids, n_steps: int):
+    """draw_pair(m) -> the bridge's increments (W[2m+1] - W[2m], W[hi] -
+    W[2m+1]), hi = min(2m+2, n_steps) (the clamp of an odd step count's
+    unused last half), W built from dimension k at entry k."""
+    bidx, bcoef = bridge_schedule(n_steps)
+    dev = ids.device
+    coef = torch.from_numpy(bcoef).to(dev)
+    normals = _Normals(ps, ids)
+    w = [None] * (n_steps + 1)
+    w[0] = torch.zeros((ps.n_shifts, ids.shape[0]), dtype=torch.float32,
+                       device=dev)
+    for k in range(n_steps):
+        z = normals(k)
+        m, l, r = (int(v) for v in bidx[k])
+        w[m] = (coef[k, 0] * w[l] + coef[k, 1] * w[r]) + coef[k, 2] * z
+
+    def draw_pair(m):
+        hi = min(2 * m + 2, n_steps)
+        return w[2 * m + 1] - w[2 * m], w[hi] - w[2 * m + 1]
+
+    return draw_pair
+
+
+# ---------------------------------------------------------------------------
+# Plain version and wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check(payoff: PathPayoff, cfg: pk.KernelConfig, ps: QMCPointSet,
+           params: torch.Tensor, bridge: bool) -> None:
+    ps.check()
+    pk._check_params(params)
+    if ps.table.device != params.device:
+        raise ValueError("the point set and params must share a device")
+    if cfg.n_paths != ps.n:
+        raise ValueError(f"cfg.n_paths ({cfg.n_paths}) must be the point "
+                         f"count ({ps.n})")
+    need = 1 if cfg.method == "terminal" else cfg.n_steps
+    if ps.d != need:
+        raise ValueError(f"{cfg.method} over {cfg.n_steps} steps reads {need} "
+                         f"dimensions; the point set has {ps.d}")
+    if cfg.antithetic or cfg.with_cv or cfg.is_shift or cfg.start_step:
+        raise ValueError("QMC runs the plain leg: no antithetic, control "
+                         "variate, importance shift or resume")
+    if bridge and cfg.method != "euler":
+        raise ValueError("bridge=True requires method='euler'")
+
+
+def qmc_sums_plain(payoff: PathPayoff, cfg: pk.KernelConfig,
+                   ps: QMCPointSet, params: torch.Tensor,
+                   bridge: bool = False):
+    """Plain version of the qmc_sums and qmc_bridge_sums kernels: (chunks,
+    R, 1) f64, row c the payoff sums of chunk c's points under each shift."""
+    p = pk.unpack_params(params)
+    per = max(1, PLAIN_ELEMS[params.device.type] // ps.n_shifts)
+    rows = []
+    for start in range(0, ps.n, per):
+        ids = torch.arange(start, min(start + per, ps.n), dtype=torch.int64,
+                           device=params.device)
+        draw_pair = (bridge_draw_pair(ps, ids, cfg.n_steps) if bridge
+                     else qmc_draw_pair(ps, ids, cfg.method))
+        s0 = p.s0.expand(ps.n_shifts, ids.shape[0])
+        pay, _ = pk._payoff_leg(payoff, cfg, p, s0, draw_pair)
+        rows.append(pay.double().sum(dim=1, keepdim=True))
+    return torch.stack(rows)
+
+
+def qmc_sums(payoff: PathPayoff, cfg: pk.KernelConfig, ps: QMCPointSet,
+             params: torch.Tensor, bridge: bool = False):
+    """(rows, R, 1) f64: the payoff sums of the ``ps.n`` points under each
+    of the R shifts (``finish_sum`` gives the (R, 1) sums); ``cfg`` holds
+    the step count and the method (terminal or Euler), ``params`` from
+    ``pack_params``; ``bridge`` builds the Euler increments by the
+    Brownian bridge."""
+    _check(payoff, cfg, ps, params, bridge)
+    if params.device.type == "cpu":
+        return qmc_sums_plain(payoff, cfg, ps, params, bridge)
+    lib = _cuda.load()
+    r_shifts = ps.n_shifts
+    with torch.cuda.device(params.device):
+        stream = _cuda.stream_handle(params.device)
+        if bridge:
+            bidx, bcoef = bridge_schedule(cfg.n_steps)
+            bidx_t = torch.from_numpy(bidx.reshape(-1)).to(params.device)
+            bcoef_t = torch.from_numpy(bcoef.reshape(-1)).to(params.device)
+            threads = lib.mc_qmc_bridge_threads(cfg.n_steps)
+            if threads <= 0:
+                raise ValueError(f"the bridge's W buffer for {cfg.n_steps} "
+                                 "steps does not fit a block's shared memory")
+            n_bx = min(_cuda.cdiv(ps.n, threads), _cuda.MAX_BLOCKS)
+            partials = torch.empty((n_bx, r_shifts, 1), dtype=torch.float64,
+                                   device=params.device)
+            status = lib.mc_qmc_bridge_sums(
+                payoff.cuda_id, FAMILIES[ps.family], ps.n, ps.d,
+                ps.table.data_ptr(), ps.shifts.data_ptr(), r_shifts,
+                params.data_ptr(), cfg.n_steps, bidx_t.data_ptr(),
+                bcoef_t.data_ptr(), partials.data_ptr(), n_bx, stream)
+            _cuda.check(status, "qmc_bridge_sums kernel")
+            _cuda.count_launch("qmc_bridge_sums")
+            return partials
+        n_bx = min(_cuda.cdiv(ps.n, lib.mc_qmc_block_threads()),
+                   _cuda.MAX_BLOCKS)
+        partials = torch.empty((n_bx, r_shifts, 1), dtype=torch.float64,
+                               device=params.device)
+        status = lib.mc_qmc_sums(
+            payoff.cuda_id, FAMILIES[ps.family],
+            int(cfg.method == "euler"), ps.n, ps.d, ps.table.data_ptr(),
+            ps.shifts.data_ptr(), r_shifts, params.data_ptr(), cfg.n_steps,
+            partials.data_ptr(), n_bx, stream)
+    _cuda.check(status, "qmc_sums kernel")
+    _cuda.count_launch("qmc_sums")
+    return partials
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
+def qmc_pointset(po: PathPayoff, sim: SimParams, n_shifts: int,
+                 method: Optional[str], family: str, bridge: bool,
+                 gamma: float, stream: int, seed: int, device):
+    """``mc_tpu``'s validated point-set construction (``_qmc_pointset``,
+    the same checks raising where it raises): ``(method, QMCPointSet)``.
+    The shifts are word 0 of threefry-20 at counters (k, 0), k over R*d,
+    under ``derive_key(seed, stream, 0x51AC)``: ``bits_to_unit`` for the
+    lattice, ``bits >> 2`` for Sobol."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown QMC family {family!r}")
+    if method is None:
+        method = "terminal" if po.terminal_only else "euler"
+    if po.n_state > 0 and method == "terminal":
+        raise ValueError(f"{po.name} is path-dependent; method='terminal' "
+                         "invalid")
+    if n_shifts < 2:
+        raise ValueError("n_shifts >= 2 required for an error estimate")
+    if bridge and method != "euler":
+        raise ValueError("bridge=True requires method='euler'")
+    if family == "sobol":
+        n = 1 << min(int(math.log2(max(sim.n_paths, 2))), 20)
+    else:
+        n = prev_prime(sim.n_paths)
+    d = 1 if method == "terminal" else sim.n_steps
+    if bridge and (8192 // (sim.n_steps + 1)) // 8 * 8 < 8:
+        # mc_tpu's limit (its kernel's (n_steps+1, 8, 128) f32 VMEM
+        # scratch), kept so the same calls raise in both packages
+        raise ValueError(
+            f"bridge=True needs a (n_steps+1, 8, 128) VMEM scratch; "
+            f"n_steps={sim.n_steps} exceeds the budget (max ~1023)")
+    key = rng.derive_key(seed, stream, QMC_TAG)
+    sidx = torch.arange(n_shifts * d, dtype=torch.int64)
+    bits, _ = rng.threefry2x32(int(key[0]), int(key[1]), sidx,
+                               torch.zeros_like(sidx), rounds=20)
+    if family == "sobol":
+        table = torch.from_numpy(
+            sobol_directions(d).reshape(-1).astype(np.int32))
+        shifts = (bits >> 2).to(torch.int32).reshape(n_shifts, d)
+    else:
+        table = torch.from_numpy(lattice_vector(n, d, gamma).astype(np.int32))
+        shifts = rng.bits_to_unit(bits).reshape(n_shifts, d)
+    ps = QMCPointSet(family=family, n=n, d=d, table=table.to(device),
+                     shifts=shifts.contiguous().to(device))
+    return method, ps
+
+
+def price_qmc(option: OptionParams = DEMO_OPTION,
+              sim: SimParams = DEMO_SIM,
+              payoff="vanilla_call",
+              *,
+              n_shifts: int = 16,
+              method: Optional[str] = None,
+              family: str = "lattice",
+              gamma: float = 0.1,
+              bridge: bool = False,
+              stream: int = STREAM_OUTER,
+              device="cuda") -> PriceResult:
+    """Randomized-QMC price under GBM with ``n_shifts`` independent
+    randomizations on ``device``.  ``family="lattice"``: a rank-1 lattice
+    of the largest prime <= sim.n_paths (below 2^20), Cranley-Patterson
+    shifts; ``family="sobol"``: a Sobol net of the largest power of two <=
+    sim.n_paths (at most 2^20), 30-bit digital shifts.  ``method``: None
+    (terminal for a terminal-only payoff, else Euler), "terminal" or
+    "euler"; ``bridge`` (Euler) builds the increments by the Brownian
+    bridge.  Total samples n * n_shifts; the stderr comes from the spread
+    of the shift means.  The shift sums finish in f64."""
+    po = get_payoff(payoff)
+    dev = resolve_device(device)
+    method, ps = qmc_pointset(po, sim, n_shifts, method, family, bridge,
+                              gamma, stream, sim.seed, dev)
+    cfg = pk.KernelConfig(n_paths=ps.n, n_steps=sim.n_steps, method=method)
+    params = pk.pack_params(option, sim.n_steps, dev)
+    sums = finish_sum(qmc_sums(po, cfg, ps, params, bridge))[:, 0]
+    return finish_qmc(sums, ps.n, option)
+
+
+def finish_qmc(sums: torch.Tensor, n: int,
+               option: OptionParams) -> PriceResult:
+    """The price from the (R,) f64 payoff sums of n points per shift: the
+    mean and the sample variance of the R shift means, discounted at
+    e^{-rT} (f32, as ``finish_price``)."""
+    r_shifts = sums.shape[0]
+    means = sums / n
+    mean = means.mean()
+    var = ((means - mean) ** 2).sum() / max(r_shifts - 1, 1)
+    r = torch.tensor(float(option.r), dtype=torch.float32)
+    t = torch.tensor(float(option.t), dtype=torch.float32)
+    disc = float(torch.exp(-r * t))
+    return PriceResult(price=disc * mean,
+                       stderr=disc * torch.sqrt(var / r_shifts),
+                       n_paths=torch.tensor(float(n * r_shifts),
+                                            dtype=torch.float64),
+                       payoff_mean=mean, payoff_var=var)
+
+
+def price_qmc_model(model: str, *args, **kwargs) -> PriceResult:
+    """Randomized QMC under a model family: not ported yet (ROADMAP item
+    15, kernel #33)."""
+    raise NotImplementedError(
+        f"price_qmc_model({model!r}): QMC under a model family (mc_tpu's "
+        "_model_shift_mean_fn, kernel #33) is not ported to mc_tpu_torch "
+        "yet; price_qmc covers GBM")

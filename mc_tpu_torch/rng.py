@@ -1,5 +1,6 @@
-"""Counter-based RNG: threefry2x32 keyed per (path, draw)
-(port of ``mc_tpu/rng.py:44-198``).
+"""Counter-based RNG: threefry2x32 keyed per (path, draw), and the inverse
+normal CDF of the quasi-Monte Carlo points
+(port of ``mc_tpu/rng.py:44-272``).
 
 The normal draw for (path ``i``, draw ``j``) is a pure function
 ``N(key, i, j)``, so the port draws the same stream as the JAX package and
@@ -20,6 +21,7 @@ __all__ = [
     "bits_to_unit",
     "normal_pair",
     "normals",
+    "inv_normal_cdf",
     "TWO_PI",
     "DEFAULT_ROUNDS",
 ]
@@ -149,3 +151,78 @@ def normals(key, ids, n_draws: int, draw_offset: int = 0,
         c1 = torch.full_like(ids, draw_offset // 2 + m)
         outs.extend(normal_pair(k0, k1, ids, c1, rounds=rounds))
     return torch.stack(outs[:n_draws], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Inverse normal CDF (Acklam's rational approximation): the QMC map.
+# Box-Muller would scramble a low-discrepancy point set; QMC needs the
+# direct inverse transform.  ``csrc/rng.cuh`` holds the device twin,
+# operation for operation.
+# ---------------------------------------------------------------------------
+
+_ACKLAM_A = (-3.969683028665376e+01, 2.209460984245205e+02,
+             -2.759285104469687e+02, 1.383577518672690e+02,
+             -3.066479806614716e+01, 2.506628277459239e+00)
+_ACKLAM_B = (-5.447609879822406e+01, 1.615858368580409e+02,
+             -1.556989798598866e+02, 6.680131188771972e+01,
+             -1.328068155288572e+01)
+_ACKLAM_C = (-7.784894002430293e-03, -3.223964580411365e-01,
+             -2.400758277161838e+00, -2.549732539343734e+00,
+             4.374664141464968e+00, 2.938163982698783e+00)
+_ACKLAM_D = (7.784695709041462e-03, 3.224671290700398e-01,
+             2.445134137142996e+00, 3.754408661907416e+00)
+# Abramowitz-Stegun 7.1.26.
+_ERF_P = 0.3275911
+_ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+
+
+def _horner(coefs, x, last=None):
+    """((c0 x + c1) x + c2) ... in f32, one rounding per mul and add (no
+    fused multiply-add); ``last`` adds a final ``* x + last``."""
+    f = lambda c: torch.tensor(c, dtype=torch.float32, device=x.device)
+    acc = f(coefs[0]) * x + f(coefs[1])
+    for c in coefs[2:]:
+        acc = acc * x + f(c)
+    if last is not None:
+        acc = acc * x + f(last)
+    return acc
+
+
+def _erf_as(x):
+    """erf by Abramowitz-Stegun 7.1.26 (|abs err| <= 1.5e-7), f32."""
+    ax = torch.abs(x)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    t = one / (one + torch.tensor(_ERF_P, dtype=torch.float32,
+                                  device=x.device) * ax)
+    a = _ERF_A
+    poly = t * (a[0] + t * (a[1] + t * (a[2] + t * (a[3] + t * a[4]))))
+    e = one - poly * torch.exp(-ax * ax)
+    return torch.sign(x) * e
+
+
+def inv_normal_cdf(u):
+    """Phi^{-1}(u) for f32 ``u`` in (0, 1), clamped to [1e-6, 1 - 1e-6]:
+    Acklam's central and tail rationals, then one Newton step against the
+    A&S erf where |x| < 3 (``mc_tpu.rng.inv_normal_cdf``, the same f32
+    operations in the same order; XLA's CPU backend may contract its
+    multiply-adds, so the two stay a few ulp apart, ROADMAP C19)."""
+    dev = u.device
+    f = lambda c: torch.tensor(c, dtype=torch.float32, device=dev)
+    u = torch.clamp(u.to(torch.float32), f(1e-6), f(1.0 - 1e-6))
+    q = u - f(0.5)
+    r = q * q
+    num = _horner(_ACKLAM_A, r)
+    den = _horner(_ACKLAM_B, r, 1.0)
+    central = q * num / den
+    u_tail = torch.minimum(u, 1.0 - u)
+    qt = torch.sqrt(f(-2.0) * torch.log(u_tail))
+    num_t = _horner(_ACKLAM_C, qt)
+    den_t = _horner(_ACKLAM_D, qt, 1.0)
+    tail = num_t / den_t
+    tail = torch.where(u < f(0.5), tail, -tail)
+    p_low = f(0.02425)
+    x = torch.where((u < p_low) | (u > 1.0 - p_low), tail, central)
+    cdf = f(0.5) * (1.0 + _erf_as(x / f(1.4142135623730951)))
+    pdf = f(0.3989422804014327) * torch.exp(f(-0.5) * x * x)
+    step = (cdf - u) / torch.clamp(pdf, min=f(1e-10))
+    return torch.where(torch.abs(x) < f(3.0), x - step, x)

@@ -621,3 +621,115 @@ def test_vasicek_basket_entry_points_default_to_cuda():
                     (mt.price_nmc_basket, mt.DEMO_BASKET)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(mt.DEMO_OPTION, dyn, sim)
+
+
+def _mc_tpu_cli(argv, capsys):
+    """The last JSON line mc_tpu's CLI prints for ``argv`` (engine="xla")."""
+    from mc_tpu import cli as jcli
+
+    capsys.readouterr()
+    assert jcli.main(argv + ["--engine", "xla"]) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("contract", ["quanto_call", "compo_put", "gk_call"])
+def test_fx_subcommand_matches_mc_tpus(contract, capsys):
+    """fx: mc_tpu's keys; the oracle equal, the price within the parity
+    contract of mc_tpu's on the same stream, and price_fx's bit for bit."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["fx", "--n-paths", "4099", "--contract", contract, "--x0",
+            "1.2", "--rho-fx", "0.3", "--kx", "1.1"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_cli(argv, capsys)
+    assert sorted(res) == sorted(want) == ["contract", "oracle", "price",
+                                           "stderr", "z"]
+    assert res["oracle"] == want["oracle"]
+    assert res["price"] == pytest.approx(want["price"], rel=1e-5)
+    own = mt.price_fx(mt.OptionParams(), mt.FXDynamics(x0=1.2, rho=0.3,
+                                                       kx=1.1),
+                      mt.SimParams(n_paths=4099), contract, device="cpu")
+    assert res["price"] == float(own.price)
+
+
+@pytest.mark.parametrize("n_assets,payoff", [(2, "call_on_max"),
+                                             (2, "exchange"),
+                                             (5, "put_on_min")])
+def test_rainbow_subcommand_matches_mc_tpus(n_assets, payoff, capsys):
+    """rainbow: spots and vols interpolated from (--s0, --sigma) to
+    (--s02, --sigma2); at d = 2 the Stulz or Margrabe column and its
+    z-score; --greeks refused until the rainbow greeks are ported."""
+    from mc_tpu_torch import cli
+
+    argv = ["rainbow", "--n-paths", "3001", "--n-assets", str(n_assets),
+            "--corr", "0.3", "--payoff", payoff, "--antithetic"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_cli(argv, capsys)
+    assert sorted(res) == sorted(want)
+    assert res["price"] == pytest.approx(want["price"], rel=1e-5)
+    if n_assets == 2:
+        assert res["oracle"] == pytest.approx(want["oracle"], abs=1e-4)
+        assert abs(res["z_score"]) < 4.0
+    with pytest.raises(SystemExit, match="item 12"):
+        cli.main(argv + ["--device", "cpu", "--greeks"])
+
+
+@pytest.mark.parametrize("family,payoff", [("lattice", "vanilla_call"),
+                                           ("sobol", "asian_call")])
+def test_qmc_subcommand_matches_mc_tpus(family, payoff, capsys):
+    """qmc --model gbm: mc_tpu's keys and fields; --model heston waits for
+    the model half."""
+    from mc_tpu_torch import cli
+
+    argv = ["qmc", "--n-paths", "2000", "--n-steps", "6", "--n-shifts", "4",
+            "--family", family, "--payoff", payoff]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_cli(argv, capsys)
+    assert sorted(res) == sorted(want)
+    assert res["lattice_n"] == want["lattice_n"] and res["n_shifts"] == 4
+    assert res["price"] == pytest.approx(want["price"], rel=1e-5)
+    if payoff == "vanilla_call":
+        assert res["black_scholes"] == pytest.approx(want["black_scholes"],
+                                                     rel=1e-6)
+    with pytest.raises(SystemExit, match="not ported"):
+        cli.main(["qmc", "--model", "heston", "--device", "cpu"])
+
+
+def test_nmc_model_rainbow_is_its_price_nmc(capsys):
+    """nmc --model rainbow: the demo basket of --n-assets at --corr, as
+    mc_tpu's, through price_nmc_rainbow bit for bit; --discount is fixed."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", "rainbow", "--strategy", "grid", "--exposure",
+            "--cva-hazard", "0.02", "--payoff", "call_on_max", "--device",
+            "cpu", "--n-paths", "256", "--n-steps", "6", "--n-inner", "8",
+            "--n-assets", "3", "--corr", "0.3"]
+    assert cli.main(argv) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = mt.price_nmc_rainbow(mt.OptionParams(), mt.demo_basket(3, 0.3),
+                                mt.SimParams(n_paths=256, n_steps=6,
+                                             n_paths_inner=8),
+                                strategy="grid", device="cpu")
+    assert res["outer_price"] == float(want.outer.price)
+    assert res["surface_mean"] == float(want.surface_mean)
+    assert len(res["expected_exposure"]) == 6 and res["cva"] > 0
+    with pytest.raises(SystemExit, match="discount"):
+        cli.main(argv + ["--discount", "remaining"])
+
+
+def test_rainbow_fx_qmc_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    import mc_tpu_torch as mt
+    sim = mt.SimParams(n_paths=64, n_steps=4, n_paths_inner=4)
+    for call in (lambda: mt.price_rainbow(sim=sim),
+                 lambda: mt.price_nmc_rainbow(sim=sim),
+                 lambda: mt.price_fx(sim=sim),
+                 lambda: mt.price_qmc(sim=sim)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

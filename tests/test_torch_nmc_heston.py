@@ -146,8 +146,8 @@ def test_guards():
         price_nmc_heston(sim=mt.SimParams(n_paths=8, n_steps=4,
                                           n_paths_inner=2),
                          strategy="vmem", device="cpu")
-    with pytest.raises(ValueError, match="item 14"):
-        ensure_family("rainbow")  # a family not ported yet
+    with pytest.raises(ValueError, match="nested-MC adapter"):
+        ensure_family("divs")  # mc_tpu has no NMC adapter for it either
     ensure_family("heston")
     assert NMC_FAMILIES["heston"] is price_nmc_heston
     fam = HestonNMC()
@@ -171,9 +171,10 @@ def test_discount_is_refused_under_heston(capsys):
         cli.main(["nmc", "--model", "heston", "--discount", "remaining",
                   "--device", "cpu", "--n-paths", "8", "--n-steps", "4",
                   "--n-inner", "2"])
-    with pytest.raises(SystemExit, match="item 14"):
-        cli.main(["nmc", "--model", "rainbow", "--device", "cpu",
-                  "--n-paths", "8", "--n-steps", "4", "--n-inner", "2"])
+    with pytest.raises(SystemExit, match="discount"):
+        cli.main(["nmc", "--model", "rainbow", "--discount", "remaining",
+                  "--device", "cpu", "--n-paths", "8", "--n-steps", "4",
+                  "--n-inner", "2"])
 
 
 # --- tests/test_nmc_family_fused.py for heston -------------------------------
