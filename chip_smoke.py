@@ -6,8 +6,11 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
 ``mc_tpu``) through six phases and exits nonzero at the first failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the build of
-   ``mc_tpu_torch/csrc`` with ``nvcc``;
-2. each CUDA kernel against its plain PyTorch version on
+   ``mc_tpu_torch/csrc`` with ``nvcc`` (one compiler fewer than the host
+   has CPUs), in a thread while phase 2's first pass runs;
+2. in two passes (the families' plain versions on the card while nvcc
+   builds, then every kernel against its stored plain result),
+   each CUDA kernel against its plain PyTorch version on
    the card, same key, with the tolerances of the parity contract, at the
    contract's sizes and at the main path's shapes: the simulate kernel for
    all 18 payoffs (with resume, multi-word resume, importance sampling and
@@ -40,7 +43,11 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    rainbow's generic trajectories and NMC kernels (both folds), the QMC
    kernels (terminal and Euler on the lattice and Sobol, the Brownian
    bridge, every payoff at a small point count, the call and the Asian at
-   2^20 points x 100) on two shifts; their sums to f64 rounding and their
+   2^20 points x 100) on two shifts; the model-QMC kernel #33 under all
+   nine families (the call and the Asian on both point families, every
+   payoff of Heston and of the basket at d = 4, the basket at d = 1, 9, 32)
+   at 4,096 / 4,099 points x 100 on two shifts, its sums bitwise or within
+   2e-16; their sums to f64 rounding and their
    grids and surfaces bit for bit (every NMC at NMC_SMALL in full, at the
    main shape against the plain row 99, the GBM and rainbow NMC rows 0 and
    99);
@@ -97,8 +104,16 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    ``rainbow`` and ``nmc --model rainbow``) and the QMC path (the terminal
    call on 2^20 points x 16 shifts of both families against Black-Scholes,
    its stderr against plain MC's on the same budget, the Asian by Euler and
-   by the bridge, ``qmc``);
-4. the kernels' launch counts over each of the fourteen paths;
+   by the bridge, ``qmc``); then the model-QMC path, each family's block
+   with the counts at 0: every family's call on 2^20 Sobol points x 100 x
+   16 shifts against its oracle where the scheme is exact in law (term,
+   flat local vol, Vasicek's call and bond, the basket at d = 1, Merton)
+   or against its own MC kernel on the same scheme (Heston and Bates with
+   the CF price beside, CEV also on the lattice, SABR, the basket at
+   d = 4), its stderr against plain MC's at the same budget, and
+   ``qmc --model heston|bates --family sobol``;
+4. the kernels' launch counts over each of the fifteen paths (#33's per
+   family);
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up; the NMC kernels and calls once, in phases 2 and 3; the
    plain versions once), the
@@ -112,7 +127,7 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    Heston's, the term and dividend kernels beside CEV's, the Vasicek
    kernels beside Merton's, the basket kernels beside Heston's, the FX
    kernel beside terminal_pair, the rainbow kernels beside the basket's,
-   the QMC kernels on both families (the NMC kernels' times are their
+   the QMC kernels on both families, #33 per family (the NMC kernels' times are their
    phase-2 calls' and the NMC calls' their phase-3 calls'), and
    end-to-end
    times of the phase-3 calls (greeks() by route, chunked_price(),
@@ -121,7 +136,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    price_nmc_cev(), price_nmc_localvol(), price_sabr(), price_term(),
    price_divs(), price_nmc_sabr(), price_nmc_term(), price_vasicek(),
    price_nmc_vasicek(), price_basket(), price_nmc_basket(), price_fx(),
-   price_rainbow(), price_nmc_rainbow(), price_qmc());
+   price_rainbow(), price_nmc_rainbow(), price_qmc(), price_qmc_model()
+   (its phase-3 calls));
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -539,18 +555,52 @@ def payoff_option(mt, name):
     return mt.OptionParams(**PAYOFF_OPTIONS.get(name, {}))
 
 
-def check_sums(name, got, want) -> float:
+def check_sums(name, got, want, rtol: float = SUMS_RTOL) -> float:
     """Phase 2: finished f64 sums of a kernel against its plain version's,
     to f64 rounding (the same f32 values per path, added in another
-    order).  Returns the largest relative difference."""
+    order), within ``rtol``.  Returns the largest relative difference."""
     rel = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
-    ok = rel <= SUMS_RTOL
+    ok = rel <= rtol
     print(f"phase 2: {name}: {share(got == want):.2f} of the sums bitwise,"
-          f" max rel {rel:.3e} (limit {SUMS_RTOL}) "
+          f" max rel {rel:.3e} (limit {rtol}) "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name}: the kernel disagrees with its plain version")
     return rel
+
+
+# --- phase 2 in two passes ---------------------------------------------------
+# A family's check is a generator: its plain versions run up to its
+# ``yield``, its kernels after it.  ``defer`` runs the plain half at once, on
+# the card while nvcc builds the kernels on the host's other cores, and keeps
+# the rest; ``run_deferred`` runs the kernel halves in the
+# same order once the library has loaded.  Every check keeps its inputs,
+# shape and tolerance; only its halves run apart.
+
+_DEFERRED = []
+
+
+def defer(check, sink=None) -> None:
+    """Run ``check``'s plain half now; its kernel half, whose return value
+    goes to ``sink``, waits for ``run_deferred``."""
+    next(check)
+    _DEFERRED.append((check, sink))
+
+
+def run_deferred() -> int:
+    """Run every deferred check's kernel half, in order; returns their
+    count."""
+    done = len(_DEFERRED)
+    for check, sink in _DEFERRED:
+        try:
+            next(check)
+        except StopIteration as end:
+            if sink is not None:
+                sink(end.value)
+        else:
+            raise RuntimeError("a phase-2 check yielded twice")
+    _DEFERRED.clear()
+    return done
 
 
 # --- the Heston slice: kernels #12, #13, #29, #30 ---------------------------
@@ -597,9 +647,9 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     trajectories at ``shape`` against their plain versions: grids, the
     surface (whole, or only its ``rows``) and the outer moments bitwise or
     to f64 rounding.  ``note(kind, err)`` takes the kinds "trajectories",
-    "fused" and "inner".  Returns {"plain": the plain rows' ms, "fused",
-    "inner": the kernels' ms (CUDA events, this one call each: phase 5's
-    times of the family kernels)}."""
+    "fused" and "inner".  A deferred check (its plain half first); returns
+    {"plain": the plain rows' ms, "fused", "inner": the kernels' ms (CUDA
+    events, this one call each: phase 5's times of the family kernels)}."""
     from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
@@ -610,21 +660,22 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     prm = pack(opt, dyn, n_steps, dev)
     label = f"{fam.name} {name} " + "x".join(map(str, shape))
-    (surf_f, outer_f), fused_ms = timed_call(
-        lambda: ne.family_fused(fam, po, cfg, key, key_in, prm))
-    *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
-    surf_i, inner_ms = timed_call(
-        lambda: ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k))
     *g_p, st_p, outer_p = fam.trajectories_plain(po, cfg, key, prm)
-    note("trajectories", check_bitwise(
-        f"{fam.name} trajectories {label} (grids, state)", (*g_k, st_k),
-        (*g_p, st_p)))
     rows = list(range(n_steps)) if rows is None else list(rows)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = ne.family_rows_plain(fam, po, cfg, key_in, prm, g_p, st_p, rows)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    yield
+    (surf_f, outer_f), fused_ms = timed_call(
+        lambda: ne.family_fused(fam, po, cfg, key, key_in, prm))
+    *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
+    surf_i, inner_ms = timed_call(
+        lambda: ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k))
+    note("trajectories", check_bitwise(
+        f"{fam.name} trajectories {label} (grids, state)", (*g_k, st_k),
+        (*g_p, st_p)))
     what = "" if len(rows) == n_steps else f" rows {rows}"
     note("fused", check_bitwise(
         f"family_fused {label}{what} (plain {plain_ms:.1f} ms)",
@@ -639,8 +690,9 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
 
 def heston_kernel_checks(mt, dev, keys):
     """Phase 2 of the Heston slice: kernels #12, #13, #29 and #30 against
-    their plain versions on the card.  Returns ({kernel: max abs error},
-    family_nmc_case's ms at NMC_MAIN)."""
+    their plain versions on the card, each check deferred.  Returns
+    ({kernel: max abs error}, family_nmc_case's ms at NMC_MAIN), filled by
+    the kernel pass."""
     from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.nmc_heston import HestonNMC
     from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
@@ -657,8 +709,9 @@ def heston_kernel_checks(mt, dev, keys):
         po, opt = get_payoff(name), payoff_option(mt, name)
         cfg = hm.HestonConfig(n_paths=n_paths, n_steps=MAIN_STEPS, **kw)
         prm = hm.pack_heston(opt, dyn, MAIN_STEPS, dev)
-        got = finish_sum(hm.heston_partials(po, cfg, key, prm))
         want = finish_sum(hm.heston_partials_plain(po, cfg, key, prm))
+        yield
+        got = finish_sum(hm.heston_partials(po, cfg, key, prm))
         check_sums(f"heston_partials {name} {cfg.scheme} {n_paths}x"
                    f"{MAIN_STEPS} {cfg.rng_source} anti={cfg.antithetic}",
                    got, want)
@@ -666,21 +719,22 @@ def heston_kernel_checks(mt, dev, keys):
 
     for name in sorted(PAYOFFS):
         if name not in hm.SIGMA_PAYOFFS:
-            partials_case(name, FAMILY_PATHS)
+            defer(partials_case(name, FAMILY_PATHS))
     for name in ("vanilla_call", "asian_call", "bullet_call"):
         for kw in (dict(scheme="qe"), dict(rng_source="threefry"),
                    dict(antithetic=True),
                    dict(scheme="qe", rng_source="threefry", antithetic=True)):
-            partials_case(name, FAMILY_PATHS, **kw)
+            defer(partials_case(name, FAMILY_PATHS, **kw))
     for scheme in ("euler", "qe"):  # the main shape: a partly filled block
-        partials_case("vanilla_call", FAMILY_MAIN, scheme=scheme)
+        defer(partials_case("vanilla_call", FAMILY_MAIN, scheme=scheme))
 
     def traj_case(name, n_paths):
         po, opt = get_payoff(name), payoff_option(mt, name)
         cfg = hm.HestonConfig(n_paths=n_paths, n_steps=MAIN_STEPS)
         prm = hm.pack_heston(opt, dyn, MAIN_STEPS, dev)
-        *g_k, part_k = hm.heston_trajectories(po, cfg, key, prm)
         *g_p, part_p = hm.heston_trajectories_plain(po, cfg, key, prm)
+        yield
+        *g_k, part_k = hm.heston_trajectories(po, cfg, key, prm)
         label = f"heston_trajectories {name} {n_paths}x{MAIN_STEPS}"
         note("heston_trajectories",
              check_bitwise(f"{label} (S, v, state)", g_k, g_p))
@@ -690,8 +744,8 @@ def heston_kernel_checks(mt, dev, keys):
 
     for name, po in sorted(PAYOFFS.items()):
         if po.n_state <= 1:
-            traj_case(name, FAMILY_PATHS)
-    traj_case("bullet_call", HESTON_PAYOFF_MAIN)
+            defer(traj_case(name, FAMILY_PATHS))
+    defer(traj_case("bullet_call", HESTON_PAYOFF_MAIN))
 
     fam = HestonNMC()
     kinds = {"trajectories": "heston_trajectories", "fused": "family_fused",
@@ -701,11 +755,12 @@ def heston_kernel_checks(mt, dev, keys):
         note(kinds[kind], e)
 
     for name in ("bullet_call", "asian_call", "vanilla_call"):
-        family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys, name,
-                        NMC_SMALL, family_note)
-    nmc_ms = family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
-                             "vanilla_call", NMC_MAIN, family_note,
-                             EARLIER_NMC_ROWS)
+        defer(family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys, name,
+                              NMC_SMALL, family_note))
+    nmc_ms = {}
+    defer(family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
+                          "vanilla_call", NMC_MAIN, family_note,
+                          EARLIER_NMC_ROWS), nmc_ms.update)
     return err, nmc_ms
 
 
@@ -918,13 +973,14 @@ def jump_bounds():
 def partials_check(note, row, fn, plain, cfg, key, prm, name, opt, label):
     """Phase 2: a partials kernel (``fn``) against its plain version on one
     payoff: the finished sums to f64 rounding; ``note(row, err)`` takes the
-    largest price or stderr difference."""
+    largest price or stderr difference.  A deferred check."""
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
 
     po = get_payoff(name)
-    got = finish_sum(fn(po, cfg, key, prm))
     want = finish_sum(plain(po, cfg, key, prm))
+    yield
+    got = finish_sum(fn(po, cfg, key, prm))
     check_sums(f"{row} {name} {label} {cfg.n_paths}x{cfg.n_steps} "
                f"{getattr(cfg, 'rng_source', 'threefry13')} "
                f"anti={cfg.antithetic}", got, want)
@@ -935,7 +991,7 @@ def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
                n_steps=MAIN_STEPS):
     """Phase 2: a family's outer trajectories (its own kernel or the
     generic one) against their plain version: the grids bitwise, the payoff
-    sums to f64 rounding."""
+    sums to f64 rounding.  A deferred check."""
     from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
@@ -943,8 +999,9 @@ def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
     po, opt = get_payoff(name), payoff_option(mt, name)
     cfg = ne.FamilyConfig(n_paths=n_paths, n_steps=n_steps, n_inner=1)
     prm = pack(opt, dyn, n_steps, dev)
-    *g_k, part_k = fam.trajectories(po, cfg, key, prm)
     *g_p, part_p = fam.trajectories_plain(po, cfg, key, prm)
+    yield
+    *g_k, part_k = fam.trajectories(po, cfg, key, prm)
     label = f"{row} {fam.name} {name} {n_paths}x{n_steps}"
     note(row, check_bitwise(f"{label} (grids, state)", g_k, g_p))
     got, want = finish_sum(part_k), finish_sum(part_p)
@@ -955,8 +1012,9 @@ def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
 def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
                       traj_row, rows=None):
     """Phase 2: a family's #29/#30 at NMC_SMALL (bullet, Asian, vanilla) and
-    at NMC_MAIN against the plain ``rows`` (default EARLIER_NMC_ROWS);
-    returns family_nmc_case's ms at NMC_MAIN."""
+    at NMC_MAIN against the plain ``rows`` (default EARLIER_NMC_ROWS),
+    deferred; returns family_nmc_case's ms at NMC_MAIN (filled by the
+    kernel pass)."""
     kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
              "inner": f"family_inner_{family}"}
 
@@ -964,11 +1022,14 @@ def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
         note(kinds[kind], e)
 
     for name in ("bullet_call", "asian_call", "vanilla_call"):
-        family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
-                        family_note)
-    return family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
-                           NMC_MAIN, family_note,
-                           EARLIER_NMC_ROWS if rows is None else rows)
+        defer(family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
+                              family_note))
+    ms = {}
+    defer(family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
+                          NMC_MAIN, family_note,
+                          EARLIER_NMC_ROWS if rows is None else rows),
+          ms.update)
+    return ms
 
 
 def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
@@ -977,8 +1038,9 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     #15 and the generic trajectories (every one-word payoff), #16 (its 16
     payoffs, Euler and QE; 1M x 100), and both families' #29/#30 at
     NMC_SMALL and at NMC_MAIN against the plain rows NMC_ROWS, each
-    against its plain version on the card.  Returns ({row: max abs error},
-    {family: ms of the plain version's rows at NMC_MAIN})."""
+    against its plain version on the card, deferred.  Returns ({row: max
+    abs error}, {family: ms of the plain version's rows at NMC_MAIN}),
+    filled by the kernel pass."""
     from mc_tpu_torch.models import bates as bm
     from mc_tpu_torch.models import merton as mm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
@@ -997,19 +1059,19 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
         cfg = mm.MertonConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
                               kmax=k_t if method == "terminal" else k_dt,
                               method=method, **kw)
-        partials_check(note, "merton_partials", mm.merton_partials,
-                       mm.merton_partials_plain, cfg, merton_keys[0],
-                       mm.pack_merton(opt, mm.DEMO_MERTON, MAIN_STEPS, dev),
-                       name, opt, method)
+        defer(partials_check(note, "merton_partials", mm.merton_partials,
+                             mm.merton_partials_plain, cfg, merton_keys[0],
+                             mm.pack_merton(opt, mm.DEMO_MERTON, MAIN_STEPS,
+                                            dev), name, opt, method))
 
     def bates_case(name, n_paths, **kw):
         opt = payoff_option(mt, name)
         cfg = bm.BatesConfig(n_paths=n_paths, n_steps=MAIN_STEPS, kmax=k_dt,
                              **kw)
-        partials_check(note, "bates_partials", bm.bates_partials,
-                       bm.bates_partials_plain, cfg, bates_keys[0],
-                       bm.pack_bates(opt, bm.DEMO_BATES, MAIN_STEPS, dev),
-                       name, opt, cfg.scheme)
+        defer(partials_check(note, "bates_partials", bm.bates_partials,
+                             bm.bates_partials_plain, cfg, bates_keys[0],
+                             bm.pack_bates(opt, bm.DEMO_BATES, MAIN_STEPS,
+                                           dev), name, opt, cfg.scheme))
 
     for name, po in sorted(PAYOFFS.items()):
         merton_case(name, FAMILY_PATHS)
@@ -1036,8 +1098,8 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     for name, po in sorted(PAYOFFS.items()):
         if po.n_state <= 1:
             for fam, pack, dyn, (key, _), row in fams.values():
-                traj_check(mt, dev, note, row, fam, pack, dyn, key, name,
-                           FAMILY_PATHS)
+                defer(traj_check(mt, dev, note, row, fam, pack, dyn, key,
+                                 name, FAMILY_PATHS))
     rows_ms = {family: family_nmc_checks(mt, dev, note, family, fam, pack,
                                          dyn, keys, row)
                for family, (fam, pack, dyn, keys, row) in fams.items()}
@@ -1830,8 +1892,9 @@ def single_kernel_checks(mt, dev, singles, keys):
     dynamics (local vol's K = 25 CEV-gate surface) and the main shape, the
     trajectories (every one-word payoff), and the #29/#30 at NMC_SMALL and
     at NMC_MAIN against the plain rows NMC_ROWS, each against its plain
-    version on the card.  Returns ({row: max abs error}, {family: ms of the
-    plain version's rows at NMC_MAIN})."""
+    version on the card, deferred.  Returns ({row: max abs error}, {family:
+    ms of the plain version's rows at NMC_MAIN}), filled by the kernel
+    pass."""
     from mc_tpu_torch.ops.payoffs import PAYOFFS
 
     err = {row: 0.0 for s in singles for row in single_rows(s)}
@@ -1846,11 +1909,12 @@ def single_kernel_checks(mt, dev, singles, keys):
         def case(name, n_paths, label_dyn, **kw):
             label, dyn = label_dyn
             opt = payoff_option(mt, name)
-            partials_check(note, row, getattr(s.model, row),
-                           getattr(s.model, f"{row}_plain"),
-                           s.config(n_paths, dyn, **kw), keys[s.family][0],
-                           s.pack(opt, dyn, MAIN_STEPS, dev), name, opt,
-                           label)
+            defer(partials_check(note, row, getattr(s.model, row),
+                                 getattr(s.model, f"{row}_plain"),
+                                 s.config(n_paths, dyn, **kw),
+                                 keys[s.family][0],
+                                 s.pack(opt, dyn, MAIN_STEPS, dev), name,
+                                 opt, label))
 
         for name in s.payoffs:
             case(name, FAMILY_PATHS, s.checks[0])
@@ -1866,22 +1930,24 @@ def single_kernel_checks(mt, dev, singles, keys):
             continue
         for name, po in sorted(PAYOFFS.items()):
             if po.n_state <= 1:
-                traj_check(mt, dev, note, traj_row(s), s.nmc.fam, nmc_pack(s),
-                           None, keys[s.family][0], name, FAMILY_PATHS)
+                defer(traj_check(mt, dev, note, traj_row(s), s.nmc.fam,
+                                 nmc_pack(s), None, keys[s.family][0], name,
+                                 FAMILY_PATHS))
         rows_ms[s.family] = family_nmc_checks(
             mt, dev, note, s.family, s.nmc.fam, nmc_pack(s), None,
             keys[s.family], traj_row(s))
         if s.grid is not None:
             for name, po in sorted(PAYOFFS.items()):
                 if po.n_state <= 1:
-                    grid_check(mt, dev, note, s, keys[s.family][0], name)
+                    defer(grid_check(mt, dev, note, s, keys[s.family][0],
+                                     name))
     return err, rows_ms
 
 
 def grid_check(mt, dev, note, s: Single, key, name):
     """Phase 2: a family's GridKernel on its first dynamics at
     ``n_paths`` x MAIN_STEPS against its plain version: the grids bitwise,
-    the payoff sums to f64 rounding."""
+    the payoff sums to f64 rounding.  A deferred check."""
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
 
@@ -1890,8 +1956,9 @@ def grid_check(mt, dev, note, s: Single, key, name):
     label, dyn = s.checks[0]
     cfg = s.config(g.n_paths, dyn)
     prm = s.pack(opt, dyn, MAIN_STEPS, dev)
-    *g_k, part_k = g.fn(po, cfg, key, prm)
     *g_p, part_p = g.plain(po, cfg, key, prm)
+    yield
+    *g_k, part_k = g.fn(po, cfg, key, prm)
     text = spaced(g.row, label, name, f"{g.n_paths}x{MAIN_STEPS}")
     note(g.row, check_bitwise(f"{text} (grids, state)", g_k, g_p))
     got, want = finish_sum(part_k), finish_sum(part_p)
@@ -2003,6 +2070,7 @@ FX_KERNELS = ("fx_partials",)
 RAINBOW_KERNELS = ("rainbow_partials", "family_trajectories", "family_inner",
                    "family_fused")
 QMC_KERNELS = ("qmc_sums", "qmc_bridge_sums")
+QMC_MODEL_KERNELS = ("qmc_model_sums",)
 FX_RAINBOW_QMC_ROWS = ("fx_partials", "rainbow_partials",
                 "family_trajectories_rainbow", "family_inner_rainbow",
                 "family_fused_rainbow", "qmc_sums", "qmc_bridge_sums")
@@ -2082,7 +2150,7 @@ def qmc_case(mt, dev, name, n_paths, n_steps, method, family, bridge,
     return po, cfg, ps, pk.pack_params(payoff_option(mt, name), n_steps, dev)
 
 
-def fx_rainbow_qmc_checks(mt, dev, keys):
+def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
     """Phase 2 of the rainbow, FX and QMC slice, each kernel against its
     plain version on the card: #28 (every contract, threefry-13 and -20, at
     1M), #27 (every payoff at d = 4 and 1M, antithetic; the bench's call
@@ -2092,9 +2160,11 @@ def fx_rainbow_qmc_checks(mt, dev, keys):
     #32 (the terminal call at the full 2^20 points of both families, every
     payoff at QMC_SMALL on the lattice and some on Sobol, the Asian at the
     full points x 100) and #31 (the Asian at the full shape, every payoff
-    at QMC_SMALL), the QMC kernels on two shifts.
-    Sums to f64 rounding, grids and surfaces bitwise.  Returns ({row: max
-    abs error}, the rainbow NMC's family_nmc_case ms)."""
+    at QMC_SMALL), the QMC kernels on two shifts, each check deferred (the
+    full-width ones after ``lattice_ready()`` returns: the CBC vector is
+    built in a thread).  Sums to f64 rounding, grids and surfaces bitwise.
+    Returns ({row: max abs error}, the rainbow NMC's family_nmc_case ms),
+    filled by the kernel pass."""
     from mc_tpu_torch import qmc
     from mc_tpu_torch.models import basket as bm
     from mc_tpu_torch.models import fx
@@ -2111,7 +2181,9 @@ def fx_rainbow_qmc_checks(mt, dev, keys):
     opt = mt.DEMO_OPTION
 
     def sums_case(row, fn, plain, n_paths, label):
-        got, want = finish_sum(fn()), finish_sum(plain())
+        want = finish_sum(plain())
+        yield
+        got = finish_sum(fn())
         check_sums(f"{row} {label} {n_paths} paths", got, want)
         note(row, price_err(got, want, n_paths, opt))
 
@@ -2120,23 +2192,24 @@ def fx_rainbow_qmc_checks(mt, dev, keys):
     for contract in sorted(fx.FX_CONTRACTS):
         for src in ("threefry13", "threefry"):
             cfg = fx.FXConfig(FAMILY_MAIN, src)
-            sums_case("fx_partials",
-                      lambda: fx.fx_partials(contract, cfg, keys["fx"][0],
-                                             fx_prm),
-                      lambda: fx.fx_partials_plain(contract, cfg,
-                                                   keys["fx"][0], fx_prm),
-                      FAMILY_MAIN, f"{contract} {src}")
+            defer(sums_case(
+                "fx_partials",
+                lambda contract=contract, cfg=cfg: fx.fx_partials(
+                    contract, cfg, keys["fx"][0], fx_prm),
+                lambda contract=contract, cfg=cfg: fx.fx_partials_plain(
+                    contract, cfg, keys["fx"][0], fx_prm),
+                FAMILY_MAIN, f"{contract} {src}"))
 
     def rainbow_case(name, n_paths, dyn, **kw):
         cfg = rb.RainbowConfig(n_paths=n_paths, d=dyn.d, **kw)
         prm = bm.pack_basket(opt, dyn, 1, dev)
-        sums_case("rainbow_partials",
-                  lambda: rb.rainbow_partials(name, cfg, keys["rainbow"][0],
+        defer(sums_case(
+            "rainbow_partials",
+            lambda: rb.rainbow_partials(name, cfg, keys["rainbow"][0], prm),
+            lambda: rb.rainbow_partials_plain(name, cfg, keys["rainbow"][0],
                                               prm),
-                  lambda: rb.rainbow_partials_plain(name, cfg,
-                                                    keys["rainbow"][0], prm),
-                  n_paths, f"{name} d={dyn.d} {cfg.rng_source} "
-                  f"anti={cfg.antithetic}")
+            n_paths, f"{name} d={dyn.d} {cfg.rng_source} "
+            f"anti={cfg.antithetic}"))
 
     for name in sorted(rb.RAINBOW_PAYOFFS):
         rainbow_case(name, FAMILY_MAIN, demo, antithetic=True)
@@ -2153,45 +2226,49 @@ def fx_rainbow_qmc_checks(mt, dev, keys):
     row = "family_trajectories_rainbow"
     for name, po in sorted(PAYOFFS.items()):
         if po.n_state <= 1:
-            traj_check(mt, dev, note, row, fam, pack, None,
-                       keys["rainbow_nmc"][0], name, FAMILY_PATHS)
+            defer(traj_check(mt, dev, note, row, fam, pack, None,
+                             keys["rainbow_nmc"][0], name, FAMILY_PATHS))
     kinds = {"trajectories": row, "fused": "family_fused_rainbow",
              "inner": "family_inner_rainbow"}
-    family_nmc_case(mt, dev, RainbowNMC(extras=(4, 1)), pack, None,
-                    keys["rainbow_nmc"], "vanilla_call", NMC_SMALL,
-                    lambda kind, e: note(kinds[kind], e))
+    defer(family_nmc_case(mt, dev, RainbowNMC(extras=(4, 1)), pack, None,
+                          keys["rainbow_nmc"], "vanilla_call", NMC_SMALL,
+                          lambda kind, e: note(kinds[kind], e)))
     nmc_ms = family_nmc_checks(mt, dev, note, "rainbow", fam, pack, None,
                                keys["rainbow_nmc"], row, rows=NMC_ROWS)
 
     def check_qmc(name, n_paths, n_steps, method, family, bridge):
         po, cfg, ps, prm = qmc_case(mt, dev, name, n_paths, n_steps, method,
                                     family, bridge, QMC_CHECK_SHIFTS)
-        got = finish_sum(qmc.qmc_sums(po, cfg, ps, prm, bridge))
         want = finish_sum(qmc.qmc_sums_plain(po, cfg, ps, prm, bridge))
+        yield
+        got = finish_sum(qmc.qmc_sums(po, cfg, ps, prm, bridge))
         row = "qmc_bridge_sums" if bridge else "qmc_sums"
         check_sums(f"{row} {name} {family} {cfg.method} {ps.n}x{n_steps} "
                    f"{ps.n_shifts} shifts", got, want)
         note(row, float((got - want).abs().max()) / ps.n)
 
-    for family in ("lattice", "sobol"):
-        check_qmc("vanilla_call", QMC_POINTS, MAIN_STEPS, "terminal", family,
-                  False)
-        check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler", family,
-                  False)
-        check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler", family,
-                  True)
     for name, po in sorted(PAYOFFS.items()):
         if po.terminal_only:
             for family in ("lattice", "sobol"):
-                check_qmc(name, QMC_SMALL, MAIN_STEPS, "terminal", family,
-                          False)
-        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "lattice", False)
-        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "lattice", True)
+                defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "terminal",
+                                family, False))
+        defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "lattice",
+                        False))
+        defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "lattice",
+                        True))
     for name in ("bullet_call", "lookback_call", "cliquet"):
-        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", False)
-        check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", True)
-    check_qmc("asian_call", QMC_SMALL, MAIN_STEPS - 1, "euler", "lattice",
-              True)  # an odd step count: the clamped last half
+        defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", False))
+        defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", True))
+    defer(check_qmc("asian_call", QMC_SMALL, MAIN_STEPS - 1, "euler",
+                    "lattice", True))  # an odd step count: the clamped half
+    lattice_ready()  # the full-width lattice reads the CBC vector
+    for family in ("lattice", "sobol"):
+        defer(check_qmc("vanilla_call", QMC_POINTS, MAIN_STEPS, "terminal",
+                        family, False))
+        defer(check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler",
+                        family, False))
+        defer(check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler",
+                        family, True))
     return err, nmc_ms
 
 
@@ -2536,6 +2613,324 @@ def fx_rainbow_qmc_bounds():
     }
 
 
+# --- the model half of QMC: kernel #33 --------------------------------------
+
+QMC_MODEL_FAMILIES = ("heston", "bates", "basket", "cev", "sabr", "localvol",
+                      "vasicek", "merton", "term")
+QMC_MODEL_ROWS = tuple(f"qmc_model_sums_{m}" for m in QMC_MODEL_FAMILIES)
+QMC_MODEL_THREADS = 128    # #33's block (csrc/qmc_model.cuh kQmcModelThreads)
+QMC_MODEL_D = (1, 9, 32)   # phase 2: the basket's d-edges (32: capacity 32)
+QMC_MODEL_RTOL = 2e-16     # phase 2: #33's sums, bitwise or f64 rounding
+QMC_MODEL_JOINT_SE = 3.5   # phase 3: against the family's own kernel
+# phase 3: QMC's stderr over plain MC's at the same budget, where mc_tpu's
+# tests gate it (tests/test_qmc.py:246-272)
+QMC_MODEL_SE_RATIO = {"heston": 0.55, "basket": 0.4}
+
+
+def qmc_model_case(mt, dev, model, name, family, n_paths, n_shifts, dyn=None):
+    """(payoff, point set, params, extra) of price_qmc_model's call at
+    n_paths x MAIN_STEPS on n_shifts shifts."""
+    from mc_tpu_torch import qmc
+
+    opt = payoff_option(mt, name)
+    sim = mt.SimParams(n_paths=n_paths, n_steps=MAIN_STEPS)
+    po, d32, extra, ps = qmc.qmc_model_pointset(
+        model, opt, dyn, sim, name, n_shifts=n_shifts, family=family,
+        device=dev)
+    return po, ps, qmc.QMC_MODELS[model].pack(opt, d32, MAIN_STEPS,
+                                               dev), extra
+
+
+def qmc_model_checks(mt, dev):
+    """Phase 2 of the model half of QMC: #33 against its plain version on
+    the card at QMC_SMALL points x 100 steps x 2 shifts (4,096 Sobol points,
+    4,099 on the lattice): the call and the Asian under every family on both
+    point families, every payoff Heston and the basket (d = 4) accept, the
+    basket at d = 1, 9 and 32; and at the main shape (the call on 2^20
+    Sobol points x 100 x 16 shifts under every family, CEV on the lattice
+    too), the rows of the first and the last block under every shift
+    against the plain version over those blocks' points; the sums bitwise
+    or within QMC_MODEL_RTOL.  Each check is deferred (its plain half runs
+    now; the lattice's CBC vector is ready, fx_rainbow_qmc_checks waited
+    for it).  Returns ({row: max abs error of a shift mean}, {family: the
+    plain version's ms on the call, Sobol, host clock}), filled by the
+    kernel pass."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    err = dict.fromkeys(QMC_MODEL_ROWS, 0.0)
+    plain_ms = {}
+
+    def check(model, name, family, dyn=None, label=""):
+        po, ps, prm, extra = qmc_model_case(mt, dev, model, name, family,
+                                            QMC_SMALL, QMC_CHECK_SHIFTS, dyn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = finish_sum(qmc.qmc_model_sums_plain(model, po, ps, prm,
+                                                   MAIN_STEPS, extra))
+        torch.cuda.synchronize()
+        if (name, family, dyn) == ("vanilla_call", "sobol", None):
+            plain_ms[model] = (time.perf_counter() - t0) * 1e3
+        yield
+        got = finish_sum(qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS,
+                                            extra))
+        row = f"qmc_model_sums_{model}"
+        check_sums(f"{row} {name} {family}{label} {ps.n}x{MAIN_STEPS} "
+                   f"d={ps.d} {ps.n_shifts} shifts", got, want,
+                   QMC_MODEL_RTOL)
+        err[row] = max(err[row], float((got - want).abs().max()) / ps.n)
+
+    def main_blocks(model, family):
+        po, ps, prm, extra = qmc_model_case(mt, dev, model, "vanilla_call",
+                                            family, QMC_POINTS, QMC_SHIFTS)
+        n_bx = min(_cuda.cdiv(ps.n, QMC_MODEL_THREADS), _cuda.MAX_BLOCKS)
+        ids = torch.arange(ps.n, dtype=torch.int64, device=dev)
+        block = (ids // QMC_MODEL_THREADS) % n_bx  # the grid-strided blocks
+        blocks = (0, n_bx - 1)
+        want = [finish_sum(qmc.qmc_model_sums_plain(
+            model, po, ps, prm, MAIN_STEPS, extra, ids[block == b]))
+            for b in blocks]
+        yield
+        threads = _cuda.load().mc_qmc_model_block_threads()
+        if threads != QMC_MODEL_THREADS:
+            fail(f"qmc_model_sums runs {threads} threads a block; the "
+                 f"main-shape check assumed {QMC_MODEL_THREADS}")
+        partials = qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS, extra)
+        if partials.shape[0] != n_bx:
+            fail(f"qmc_model_sums ran {partials.shape[0]} blocks; the "
+                 f"main-shape check assumed {n_bx}")
+        row = f"qmc_model_sums_{model}"
+        for b, w in zip(blocks, want):
+            got = partials[b]
+            check_sums(f"{row} vanilla_call {family} {ps.n}x{MAIN_STEPS} "
+                       f"d={ps.d} {ps.n_shifts} shifts, block {b} of {n_bx}",
+                       got, w, QMC_MODEL_RTOL)
+            err[row] = max(err[row], float((got - w).abs().max()) / ps.n)
+
+    for model in QMC_MODEL_FAMILIES:
+        for family in ("sobol", "lattice"):
+            for name in ("vanilla_call", "asian_call"):
+                defer(check(model, name, family))
+        for family in ("sobol", "lattice") if model == "cev" else ("sobol",):
+            defer(main_blocks(model, family))
+    for name in sorted(PAYOFFS):
+        if name in ("vanilla_call", "asian_call"):
+            continue
+        if name not in SIGMA_PAYOFFS:
+            defer(check("heston", name, "sobol"))
+        defer(check("basket", name, "sobol"))
+    for d in QMC_MODEL_D:
+        defer(check("basket", "vanilla_call", "sobol", mt.demo_basket(d, 0.5),
+                    f" d={d}"))
+    return err, plain_ms
+
+
+def qmc_model_path(mt, dev, _cuda, e2e):
+    """Phase 3 of the model half of QMC at full width: every family's call
+    on QMC_POINTS Sobol points x 100 steps x 16 shifts (the demo dynamics;
+    local vol flat, the basket at d = 1 and 4), each family's block driven
+    with the launch counts set to 0 before it and read after it: {row:
+    launches}.  Where the scheme is exact in law the price is held to its
+    oracle within 3 stderr + QMC_BIAS (term at the averaged parameters,
+    local vol flat at 0.2, Vasicek's call and bond, the basket at d = 1,
+    Merton's series); elsewhere to the family's own price_<family> kernel
+    on the same scheme and step count within QMC_MODEL_JOINT_SE joint
+    stderr (Heston and Bates with their CF prices beside, CEV, SABR, the
+    basket at d = 4), Euler's bias at 100 steps being larger than the QMC
+    stderr.  Beside each, the stderr against plain MC's at the same budget
+    (gated at QMC_MODEL_SE_RATIO).  The lattice at the main shape under CEV
+    (the 100-dimension CBC vector built beside nvcc); ``qmc --model
+    heston|bates --family sobol`` at the full points.  ``e2e[model]``: the
+    (label, seconds) of each family's last Sobol call (host clock, ended by
+    a synchronize)."""
+    from mc_tpu_torch import oracle, qmc
+    from mc_tpu_torch.models.bates import bates_call_cf
+    from mc_tpu_torch.models.heston import heston_call_cf
+    from mc_tpu_torch.models.localvol import LocalVolSurface
+    from mc_tpu_torch.models.merton import merton_call_closed_form
+
+    o = mt.DEMO_OPTION
+    sim = mt.SimParams(n_paths=QMC_POINTS, n_steps=MAIN_STEPS)
+    mc_sim = mt.SimParams(n_paths=QMC_POINTS * QMC_SHIFTS,
+                          n_steps=MAIN_STEPS)
+    bs = oracle.bs_call(o.s0, o.k, o.t, o.r, o.sigma, o.q)
+    one = mt.BasketDynamics(*(np.array(v, np.float32) for v in (
+        [o.s0], [0.2], [1.0], [[1.0]])))
+    flat = LocalVolSurface.flat(0.2, MAIN_STEPS)
+    term, _ = qmc.qmc_model_dynamics("term", None, MAIN_STEPS)
+    rs, sg = (np.asarray(a, np.float64) for a in (term.rates, term.sigmas))
+    vd, md, hd, bd = mt.DEMO_VASICEK, mt.DEMO_MERTON, mt.DEMO_HESTON, \
+        mt.DEMO_BATES
+    a, b, sr, rho = vd.astuple()
+    # (model, label, dyn, payoff, exact oracle or None, plain MC at the
+    # same budget and the same scheme)
+    cases = (
+        ("term", "demo curves", term, "vanilla_call",
+         oracle.bs_call(o.s0, o.k, o.t, float(rs.mean()),
+                        float(np.sqrt((sg * sg).mean())), o.q),
+         lambda: mt.price_term(o, term, mc_sim, device=DEVICE)),
+        ("localvol", "flat 0.2", flat, "vanilla_call",
+         oracle.bs_call(o.s0, o.k, o.t, o.r, 0.2, o.q),
+         lambda: mt.price_localvol(o, flat, mc_sim, device=DEVICE)),
+        ("vasicek", "demo", None, "vanilla_call",
+         mt.bsv_call(o.s0, o.k, o.t, o.r, o.sigma, a, b, sr, rho, o.q),
+         lambda: mt.price_vasicek(o, vd, mc_sim, device=DEVICE)),
+        ("vasicek", "demo", None, "zcb", mt.vasicek_zcb(o.r, a, b, sr, o.t),
+         lambda: mt.price_vasicek(o, vd, mc_sim, "zcb", device=DEVICE)),
+        ("basket", "d=1", one, "vanilla_call", bs,
+         lambda: mt.price_basket(o, one, mc_sim, device=DEVICE)),
+        ("merton", "demo", None, "vanilla_call",
+         merton_call_closed_form(o.s0, o.k, o.t, o.r, o.sigma, md.lam,
+                                 md.mu_j, md.sigma_j, o.q),
+         lambda: mt.price_merton(o, md, mc_sim, device=DEVICE)),
+        ("heston", "demo Euler", None, "vanilla_call", None,
+         lambda: mt.price_heston(o, hd, mc_sim, device=DEVICE)),
+        ("bates", "demo Euler", None, "vanilla_call", None,
+         lambda: mt.price_bates(o, bd, mc_sim, device=DEVICE)),
+        ("cev", "demo", None, "vanilla_call", None,
+         lambda: mt.price_cev(o, mt.DEMO_CEV, mc_sim, device=DEVICE)),
+        ("sabr", "demo", None, "vanilla_call", None,
+         lambda: mt.price_sabr(o, mt.DEMO_SABR, mc_sim, device=DEVICE)),
+        ("basket", "demo d=4", None, "vanilla_call", None,
+         lambda: mt.price_basket(o, mt.DEMO_BASKET, mc_sim, device=DEVICE)))
+    cf = {"heston": heston_call_cf(o.s0, o.k, o.t, o.r, *hd.astuple(),
+                                   q=o.q),
+          "bates": bates_call_cf(o.s0, o.k, o.t, o.r, *bd.astuple(), q=o.q)}
+    launches = {}
+    for model in QMC_MODEL_FAMILIES:
+        _cuda.reset_launch_counts()
+        for cm, label, dyn, payoff, exact, mc_fn in cases:
+            if cm != model:
+                continue
+            families = ("sobol", "lattice") if model == "cev" else ("sobol",)
+            mc = mc_fn()
+            for family in families:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                q = mt.price_qmc_model(model, o, dyn, sim, payoff,
+                                       family=family, device=DEVICE)
+                torch.cuda.synchronize()
+                if (payoff, family) == ("vanilla_call", "sobol"):  # the last
+                    e2e[model] = (label, time.perf_counter() - t0)
+                n_pts = int(float(q.n_paths)) // QMC_SHIFTS
+                ratio = float(q.stderr) / float(mc.stderr)
+                text = (f"phase 3: price_qmc_model {model} {label} {payoff} "
+                        f"{family} {n_pts}x{MAIN_STEPS}x{QMC_SHIFTS}: "
+                        f"{float(q.price):.7f} +/- {float(q.stderr):.3e}")
+                if exact is not None:
+                    d = abs(float(q.price) - exact)
+                    tol = 3.0 * float(q.stderr) + QMC_BIAS
+                    text += (f" vs its oracle {exact:.7f}: |d| {d:.3e} "
+                             f"(limit 3 se + {QMC_BIAS:g} = {tol:.3e})")
+                else:
+                    d = abs(float(q.price) - float(mc.price))
+                    tol = QMC_MODEL_JOINT_SE * math.hypot(float(q.stderr),
+                                                          float(mc.stderr))
+                    text += (f" vs price_{model} {float(mc.price):.7f} +/- "
+                             f"{float(mc.stderr):.3e} on {mc_sim.n_paths}x"
+                             f"{MAIN_STEPS}: |d| {d:.3e} (limit "
+                             f"{QMC_MODEL_JOINT_SE:g} joint se = {tol:.3e})")
+                    if model in cf:
+                        text += f"; CF price {cf[model]:.7f}"
+                limit = QMC_MODEL_SE_RATIO.get(model) if exact is None else None
+                text += (f"; stderr {ratio:.5f}x plain MC's at the same "
+                         f"budget" + (f" (limit {limit:g})" if limit else ""))
+                print(text)
+                if not (math.isfinite(d) and d <= tol):
+                    fail(f"price_qmc_model {model} {label} {payoff} "
+                         f"({family}) misses its reference")
+                if limit and not ratio < limit:
+                    fail(f"price_qmc_model {model}: QMC does not cut the "
+                         "stderr against plain MC at the same budget")
+        if model in cf:  # the command, at the full points on Sobol
+            c = run_cli(["qmc", "--model", model, "--family", "sobol", "-N",
+                         str(QMC_POINTS), "--n-steps", str(MAIN_STEPS),
+                         "--device", DEVICE])
+            own = mt.price_qmc_model(model, o, None, sim, device=DEVICE)
+            print(f"phase 3: python -m mc_tpu_torch qmc --model {model} "
+                  f"--family sobol -N {QMC_POINTS}: {c}")
+            if not (c["price"] == float(own.price) and c["point_n"]
+                    == QMC_POINTS and c["cf_oracle"] == cf[model]):
+                fail(f"the qmc --model {model} command is off")
+        launches[f"qmc_model_sums_{model}"] = _cuda.launch_counts[
+            "qmc_model_sums"]
+    return launches
+
+
+def qmc_model_point_ops(model: str, family: str, n_steps: int, kmax: int,
+                        d_assets: int = 4):
+    """#33's operations for one point of ``model`` under the call: its
+    coordinates (normals: the coordinate and the inverse CDF; raw units:
+    the coordinate), its steps and the payoff."""
+    coord = LATTICE_COORD_OPS if family == "lattice" else SOBOL_COORD_OPS
+    normal = _add(coord, INV_CDF_OPS)
+    step, normals, units = {
+        "heston": (HESTON_EULER_OPS, 2, 0),
+        "bates": (_add(HESTON_EULER_OPS, BATES_JUMP_OPS, scan_ops(kmax)),
+                  3, 1),
+        "basket": (basket_step_ops(d_assets), 2 * ((d_assets + 1) // 2), 0),
+        "cev": (CEV_STEP_OPS, 1, 0),
+        "sabr": (SABR_STEP_OPS, 2, 0),
+        "localvol": (lv_step_ops(9), 1, 0),
+        "vasicek": (VASICEK_STEP_OPS, 3, 0),
+        "merton": (_add(MERTON_STEP_OPS, scan_ops(kmax)), 2, 1),
+        "term": (STEP_OPS, 1, 0)}[model]
+    per_step = _add(_scale(normal, normals), _scale(coord, units), step)
+    extra = VASICEK_DISCOUNT_OPS if model == "vasicek" else (0, 0, 0)
+    return _add(_scale(per_step, n_steps), TERMINAL_OPS, extra)
+
+
+def qmc_model_bounds():
+    """bound() of #33 per family: the call on 2^20 Sobol points x 100 steps
+    x 16 shifts (a few kB of tables and parameters: operations bound)."""
+    k_dt, _ = jump_kmax()
+    n = QMC_POINTS * QMC_SHIFTS
+    return {f"qmc_model_sums_{m}": bound(0, _scale(qmc_model_point_ops(
+        m, "sobol", MAIN_STEPS, k_dt), n)) for m in QMC_MODEL_FAMILIES}
+
+
+def qmc_model_times(mt, dev, ptxas, tag, plain_ms, e2e):
+    """Phase 5 of #33: each family's kernel (CUDA events, 3 reps) at the
+    phase-3 shape (the demo call on 2^20 Sobol points x 100 x 16; CEV on the
+    lattice too) beside the #32 Sobol Euler Asian of the same points, its
+    registers (``ptxas``: {source: its ptxas log}), and price_qmc_model()'s
+    e2e time (its phase-3 call).  Returns {row: (ms, plain ms at the
+    phase-2 shape)}."""
+    from mc_tpu_torch import qmc
+
+    out = {}
+    for model in QMC_MODEL_FAMILIES:
+        for family in ("sobol", "lattice") if model == "cev" else ("sobol",):
+            po, ps, prm, extra = qmc_model_case(mt, dev, model,
+                                                "vanilla_call", family,
+                                                QMC_POINTS, QMC_SHIFTS)
+            k_ms, sp, _ = cuda_ms(
+                lambda: qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS,
+                                           extra), reps=3)
+            regs = entry_registers(ptxas.get(f"qmc_{model}_kernels.cu", ""),
+                                   "qmc_model_kernel")
+            reg = sorted({r for e, r in regs.items() if "VanillaCall" in e})
+            steps = ps.n * QMC_SHIFTS * MAIN_STEPS
+            print(f"phase 5: qmc_model_sums {model} call {family} "
+                  f"{ps.n}x{MAIN_STEPS}x{QMC_SHIFTS} d={ps.d}: kernel "
+                  f"{k_ms:.3f} ms (spread {sp:.1%}, 3 reps), "
+                  f"{steps / k_ms * 1e3:.4e} path-steps/s, "
+                  f"{k_ms / ps.d:.4f} ms a dimension; registers {reg}; plain "
+                  f"{plain_ms[model]:.1f} ms at {QMC_SMALL}x{MAIN_STEPS}x"
+                  f"{QMC_CHECK_SHIFTS} (phase 2) {tag}")
+            if family == "sobol":
+                out[f"qmc_model_sums_{model}"] = (k_ms, plain_ms[model])
+    e2e_report(tuple(
+        (f"price_qmc_model() {model} ({e2e[model][0]}) call sobol "
+         f"{QMC_POINTS // 1024}Ki x {MAIN_STEPS} x {QMC_SHIFTS}",
+         "path-steps/s", QMC_POINTS * QMC_SHIFTS * MAIN_STEPS, e2e[model][1])
+        for model in QMC_MODEL_FAMILIES), tag)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2612,27 +3007,11 @@ def main() -> int:
 
     lattice = threading.Thread(target=build_lattice)
     lattice.start()
-    _cuda.load()
-    print(f"phase 1: built and loaded {_cuda.build_info['path']} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc "
-          f"{_cuda.build_info.get('seconds') or 0.0:.1f} s)")
-    lattice.join()
-    if "error" in cbc:
-        fail(f"the QMC point sets' tables: {cbc['error']}")
-    print(f"phase 1: the QMC point sets' tables (the lattice's CBC vectors, n "
-          f"= {qmc.prev_prime(QMC_POINTS)}, d = 1 and {MAIN_STEPS}; Sobol's "
-          f"directions) built on the host beside nvcc in "
-          f"{cbc['seconds']:.1f} s")
-    for line in _cuda.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"phase 1: ptxas {line.strip()}")
-    print(f"phase 1: {_cuda.build_info.get('ptxas', '').count('Compiling entry')}"
-          " kernel instantiations compiled")
-    secs = sorted(_cuda.build_info.get("source_seconds", {}).items(),
-                  key=lambda kv: -kv[1])
-    if secs:  # each source's nvcc, all started together
-        print("phase 1: nvcc seconds by source: " + ", ".join(
-            f"{name} {sec:.1f}" for name, sec in secs))
+
+    def lattice_ready():
+        lattice.join()
+        if "error" in cbc:
+            fail(f"the QMC point sets' tables: {cbc['error']}")
 
     option = mt.DEMO_OPTION
     otm = mt.OptionParams(k=IS_STRIKE)
@@ -2650,11 +3029,71 @@ def main() -> int:
                             ("vasicek", VASICEK_TAG), ("basket", BASKET_TAG),
                             ("fx", FX_TAG), ("rainbow", RAINBOW_TAG),
                             ("rainbow_nmc", RAINBOW_NMC_TAG))}
+
+    # The kernels build in a thread (the CPUs less one), while the
+    # families' checks run their plain versions on the card (step 0).
+    built = {}
+
+    def build():
+        try:
+            _cuda.load()
+        except Exception as e:  # reported, and the run fails, below
+            built["error"] = repr(e)
+        built["seconds"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build)
+    builder.start()
     singles = single_families(mt)
+
+    # --- Phase 2, first pass: the families' plain versions -------------
+    stamp(2)
+    # The families' checks keep no tensor past their return, so they run
+    # without autograd's bookkeeping: their plain versions are launch-bound.
+    with torch.inference_mode():
+        heston_err, family_rows_ms = heston_kernel_checks(mt, dev,
+                                                          keys["heston"])
+        lap("the Heston checks' plain versions")
+        jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, keys["merton"],
+                                                    keys["bates"])
+        lap("the Merton and Bates checks' plain versions")
+        single_err, single_rows_ms = single_kernel_checks(mt, dev, singles,
+                                                          keys)
+        lap("the CEV, local-vol, SABR, term, dividend, Vasicek and basket "
+            "checks' plain versions")
+        frq_err, rainbow_nmc_ms = fx_rainbow_qmc_checks(mt, dev, keys,
+                                                        lattice_ready)
+        lap("the FX, rainbow and QMC checks' plain versions")
+        qm_err, qm_plain_ms = qmc_model_checks(mt, dev)
+        lap("the model-QMC checks' plain versions")
+    print(f"phase 2: {len(_DEFERRED)} checks' plain halves done "
+          f"{time.perf_counter() - t0:.1f} s after the build started")
+    builder.join()
+    if "error" in built:
+        fail(f"the kernels' build: {built['error']}")
+    print(f"phase 1: built and loaded {_cuda.build_info['path']} in "
+          f"{built['seconds']:.1f} s (nvcc "
+          f"{_cuda.build_info.get('seconds') or 0.0:.1f} s, beside phase 2's "
+          "plain pass)")
+    lattice_ready()
+    print(f"phase 1: the QMC point sets' tables (the lattice's CBC vectors, n "
+          f"= {qmc.prev_prime(QMC_POINTS)}, d = 1 and {MAIN_STEPS}; Sobol's "
+          f"directions) built on the host beside nvcc in "
+          f"{cbc['seconds']:.1f} s")
+    lap("waiting for the build")
+    for line in _cuda.build_info.get("ptxas", "").splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"phase 1: ptxas {line.strip()}")
+    print(f"phase 1: {_cuda.build_info.get('ptxas', '').count('Compiling entry')}"
+          " kernel instantiations compiled (PR 10: 1,010)")
+    secs = sorted(_cuda.build_info.get("source_seconds", {}).items(),
+                  key=lambda kv: -kv[1])
+    if secs:  # each source's nvcc
+        print("phase 1: nvcc seconds by source: " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in secs))
+
     p100 = pk.pack_params(option, MAIN_STEPS, dev)
 
-    # --- Phase 2: each kernel against its plain version ----------------
-    stamp(2)
+    # --- Phase 2, second pass: each kernel against its plain version ----
     def vanilla_check(name, got, want):
         dp = abs(float(got.price) - float(want.price))
         ds = abs(float(got.stderr) - float(want.stderr))
@@ -3044,21 +3483,9 @@ def main() -> int:
                                        float((got - want).abs().max()))
     del x, v
     lap("checking the GBM kernels")
-    # The families' checks keep no tensor past their return, so they run
-    # without autograd's bookkeeping: their plain versions are launch-bound.
     with torch.inference_mode():
-        heston_err, family_rows_ms = heston_kernel_checks(mt, dev,
-                                                          keys["heston"])
-        lap("checking the Heston kernels")
-        jump_err, jump_rows_ms = jump_kernel_checks(mt, dev, keys["merton"],
-                                                    keys["bates"])
-        lap("checking the Merton and Bates kernels")
-        single_err, single_rows_ms = single_kernel_checks(mt, dev, singles,
-                                                          keys)
-        lap("checking the CEV, local-vol, SABR, term, dividend, Vasicek "
-            "and basket kernels")
-        frq_err, rainbow_nmc_ms = fx_rainbow_qmc_checks(mt, dev, keys)
-        lap("checking the FX, rainbow and QMC kernels")
+        n_checks = run_deferred()
+    lap(f"the kernel halves of the families' {n_checks} deferred checks")
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -3549,7 +3976,7 @@ def main() -> int:
                 + CEV_KERNELS + LOCALVOL_KERNELS + SABR_KERNELS
                 + TERM_KERNELS + DIVS_KERNELS + VASICEK_KERNELS
                 + BASKET_KERNELS + FX_KERNELS + RAINBOW_KERNELS
-                + QMC_KERNELS}
+                + QMC_KERNELS + QMC_MODEL_KERNELS}
     families = ("heston", "merton", "bates", "cev", "localvol", "sabr",
                 "term", "divs", "vasicek", "basket")
     lap("the GBM path", 3)
@@ -3562,6 +3989,9 @@ def main() -> int:
         family_launches[path] = fx_rainbow_qmc_path(mt, dev, _cuda, path,
                                                   e2e_nmc)
         lap(f"the {path} path", 3)
+    qm_e2e = {}
+    family_launches["qmc_model"] = qmc_model_path(mt, dev, _cuda, qm_e2e)
+    lap("the model-QMC path (each family's block with the counts at 0)", 3)
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
@@ -3573,7 +4003,7 @@ def main() -> int:
     launches.update(family_launches["heston"])
     # the kernels line's rows: the family kernels per family (and the
     # generic trajectories' rows under CEV, SABR, term and the basket)
-    for family in families[1:] + ("fx", "rainbow", "qmc"):
+    for family in families[1:] + ("fx", "rainbow", "qmc", "qmc_model"):
         for k, n in family_launches[family].items():
             suffixed = (k.startswith("family_i") or k.startswith("family_f")
                         or (family in ("cev", "sabr", "term", "basket",
@@ -3790,6 +4220,9 @@ def main() -> int:
     for name in ("family_fused", "family_inner"):
         row = f"{name}_rainbow"
         frq_ms[row] = (frq_ms[row][0], rainbow_nmc_ms["plain"])
+    qm_ms = qmc_model_times(mt, dev, _cuda.build_info.get("ptxas_by_source",
+                                                          {}), tag,
+                            qm_plain_ms, qm_e2e)
     # the family kernels' plain ms: their rows in phase 2
     for ms, rows_ms in ((jump_ms, jump_rows_ms), (single_ms, single_rows_ms)):
         for family, nmc_ms in rows_ms.items():
@@ -3888,6 +4321,7 @@ def main() -> int:
         **jump_bounds(),
         **single_bounds(singles),
         **fx_rainbow_qmc_bounds(),
+        **qmc_model_bounds(),
     }
     nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
@@ -3990,6 +4424,11 @@ def main() -> int:
              f"asian euler lattice 1048573x{MAIN_STEPS}x{QMC_SHIFTS}"),
             ("qmc_bridge_sums", "qmc_kernels.cu", "qmc.py:403",
              f"asian bridge lattice 1048573x{MAIN_STEPS}x{QMC_SHIFTS}")))
+    rows += tuple(
+        (row, f"qmc_{model}_kernels.cu", "qmc.py:824", qm_err[row], qm_ms[row],
+         f"{model} call sobol {QMC_POINTS}x{MAIN_STEPS}x{QMC_SHIFTS} (plain: "
+         f"{1 << QMC_SMALL.bit_length() - 1}x{MAIN_STEPS}x{QMC_CHECK_SHIFTS})")
+        for model, row in zip(QMC_MODEL_FAMILIES, QMC_MODEL_ROWS))
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
         b_ms, b_by = bounds[name]

@@ -76,7 +76,7 @@ from mc_tpu_torch.nmc_sabr import price_nmc_sabr
 from mc_tpu_torch.nmc_term import price_nmc_term
 from mc_tpu_torch.nmc_vasicek import price_nmc_vasicek
 from mc_tpu_torch.oracle import bsv_call, margrabe, vasicek_zcb
-from mc_tpu_torch.qmc import price_qmc
+from mc_tpu_torch.qmc import price_qmc, price_qmc_model
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
 
@@ -97,7 +97,7 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "vasicek_zcb", "bsv_call", "price_basket", "price_nmc_basket",
            "BasketDynamics", "DEMO_BASKET", "demo_basket", "margrabe",
            "price_rainbow", "price_nmc_rainbow", "price_fx", "FXDynamics",
-           "DEMO_FX", "price_qmc",
+           "DEMO_FX", "price_qmc", "price_qmc_model",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

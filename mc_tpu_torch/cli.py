@@ -677,16 +677,32 @@ def cmd_fx(args):
 
 def cmd_qmc(args):
     """Randomized-QMC price as one JSON object (mc_tpu/cli.py:828-870);
-    --model other than gbm waits for the model half of QMC."""
+    --model prices under a family's demo dynamics, the vanilla call under
+    Heston and Bates beside its CF price."""
     from mc_tpu_torch.oracle import bs_call
     from mc_tpu_torch.qmc import price_qmc, price_qmc_model
 
     option, sim = _parse(args)
     if args.model != "gbm":
-        try:
-            price_qmc_model(args.model)
-        except NotImplementedError as e:
-            raise SystemExit(f"qmc --model {args.model}: {e}") from None
+        res = price_qmc_model(args.model, option, None, sim,
+                              payoff=args.payoff, family=args.family,
+                              n_shifts=args.n_shifts, device=args.device)
+        out = {"model": args.model, "price": float(res.price),
+               "stderr": float(res.stderr),
+               "point_n": int(float(res.n_paths)) // args.n_shifts,
+               "n_shifts": args.n_shifts}
+        if args.model == "heston" and args.payoff == "vanilla_call":
+            from mc_tpu_torch.models.heston import DEMO_HESTON, heston_call_cf
+            out["cf_oracle"] = float(heston_call_cf(
+                args.s0, args.k, args.t, args.r, *DEMO_HESTON.astuple(),
+                q=args.q))
+        if args.model == "bates" and args.payoff == "vanilla_call":
+            from mc_tpu_torch.models.bates import DEMO_BATES, bates_call_cf
+            out["cf_oracle"] = float(bates_call_cf(
+                args.s0, args.k, args.t, args.r, *DEMO_BATES.astuple(),
+                q=args.q))
+        print(json.dumps(out))
+        return 0
     res = price_qmc(option, sim, payoff=args.payoff, family=args.family,
                     n_shifts=args.n_shifts, device=args.device)
     out = {"price": float(res.price), "stderr": float(res.stderr),
@@ -1062,8 +1078,8 @@ def main(argv=None):
                    choices=("gbm", "heston", "bates", "basket", "cev", "sabr",
                             "localvol", "vasicek", "merton", "term"),
                    default="gbm",
-                   help="drive a model family's step loop from the "
-                        "low-discrepancy points (gbm only, so far)")
+                   help="drive a model family's step loop (its demo "
+                        "dynamics) from the low-discrepancy points")
     p.set_defaults(fn=cmd_qmc)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")

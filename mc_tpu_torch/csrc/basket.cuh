@@ -359,4 +359,33 @@ struct RainbowFamily : BasketFamily<kMaxD> {
   }
 };
 
+// The basket's leg on a randomized-QMC draw (qmc_model.cuh, #33): step j's
+// d normals from pairs j*ceil(d/2) + q (the last pair's second normal
+// unused at an odd d), mixed and summed as on the MC stream; extra is d.
+template <int kMaxD>
+struct BasketQmcLeg {
+  using Params = BasketParams<kMaxD>;
+  __device__ static Params load(const float* __restrict__ params, int, int d) {
+    return load_basket<kMaxD>(params, d);
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
+    float ws[kMaxD], z[kMaxD];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+    for (int i = 0; i < kMaxD; ++i) ws[i] = 0.0f;
+    typename Payoff::State st = Payoff::init(c.pay);
+    float b = c.pay.s0;
+    for (int j = 0; j < n_steps; ++j) {
+#pragma unroll (BasketUnroll<kMaxD>::value)
+      for (int q = 0; q < basket_bound<kMaxD / 2>(c.npps); ++q) {
+        if (q < c.npps) draw.pair(j * c.npps + q, z[2 * q], z[2 * q + 1]);
+      }
+      basket_mix(c, z, ws);
+      b = basket_level(c, ws);
+      st = Payoff::update(st, b, c.pay);
+    }
+    return Payoff::terminal(st, b, c.pay);
+  }
+};
+
 }  // namespace mc

@@ -132,4 +132,38 @@ struct BatesFamily {
   }
 };
 
+// Bates's Euler leg on a randomized-QMC draw (qmc_model.cuh, #33), mc_tpu's
+// packed layout of 4 dimensions a step (ROADMAP C4): step j reads pair 2j
+// (dimensions 4j, 4j+1) as the diffusion pair, dimension 4j+2 as the
+// jump-size normal and the RAW coordinate 4j+3 for the Poisson count (the
+// normal of 4j+3, which mc_tpu draws and discards, is not computed).  The
+// draw split from the step: Heston's Euler step, then bates_jump; the MC
+// kernels' bates_euler_step is untouched.  extra is the scan depth kmax.
+struct BatesQmcLegParams {
+  BatesParams b;
+  int kmax;
+};
+
+struct BatesQmcLeg {
+  using Params = BatesQmcLegParams;
+  __device__ static Params load(const float* __restrict__ params, int, int kmax) {
+    return Params{load_bates(params), kmax};
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& p, int n_steps, const Draw& draw) {
+    const float s0 = p.b.h.pay.s0;
+    float w = 0.0f, v = p.b.h.v0, s = s0;
+    typename Payoff::State st = Payoff::init(p.b.h.pay);
+    for (int j = 0; j < n_steps; ++j) {
+      float z_v, z_perp;
+      draw.pair(2 * j, z_v, z_perp);
+      const float e = draw.normal(4 * j + 2);
+      const float u = draw.unit(4 * j + 3);
+      heston_euler_step(p.b.h, z_v, z_perp, w, v);
+      bates_jump<Payoff>(p.b, p.kmax, e, u, s0, w, s, st);
+    }
+    return Payoff::terminal(st, s, p.b.h.pay);
+  }
+};
+
 }  // namespace mc

@@ -137,6 +137,29 @@ __device__ __forceinline__ void heston_outer_step(const HestonParams& h, uint32_
   st = Payoff::update(st, s, h.pay);
 }
 
+// Heston's Euler leg on a randomized-QMC draw (qmc_model.cuh, #33): step j
+// reads the normals of pair j as (z_v, z_perp) (mc_tpu's QMC hook runs the
+// Euler leg only, mc_tpu/models/heston.py:255).
+struct HestonQmcLeg {
+  using Params = HestonParams;
+  __device__ static Params load(const float* __restrict__ params, int, int) {
+    return load_heston(params);
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& h, int n_steps, const Draw& draw) {
+    float w = 0.0f, v = h.v0, s = h.pay.s0;
+    typename Payoff::State st = Payoff::init(h.pay);
+    for (int j = 0; j < n_steps; ++j) {
+      float z_v, z_perp;
+      draw.pair(j, z_v, z_perp);
+      heston_euler_step(h, z_v, z_perp, w, v);
+      s = h.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
+      st = Payoff::update(st, s, h.pay);
+    }
+    return Payoff::terminal(st, s, h.pay);
+  }
+};
+
 }  // namespace mc
 
 // The payoffs a Heston (or Bates) kernel takes: every one but the two that

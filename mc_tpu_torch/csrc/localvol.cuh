@@ -147,4 +147,25 @@ struct LocalVolFamily {
   }
 };
 
+// Local vol's leg on a randomized-QMC draw (qmc_model.cuh, #33): pair m
+// feeds steps 2m and 2m+1; extra is the knot count.
+struct LocalVolQmcLeg {
+  using Params = LocalVolParams;
+  __device__ static Params load(const float* __restrict__ params, int n_steps, int n_knots) {
+    return load_localvol(params, n_knots, n_steps);
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& l, int n_steps, const Draw& draw) {
+    float w = 0.0f, s = l.pay.s0;
+    typename Payoff::State st = Payoff::init(l.pay);
+    for (int m = 0; m < n_steps / 2; ++m) {
+      float z0, z1;
+      draw.pair(m, z0, z1);
+      lv_step<Payoff>(l, 2 * m, z0, w, s, st);
+      lv_step<Payoff>(l, 2 * m + 1, z1, w, s, st);
+    }
+    return Payoff::terminal(st, s, l.pay);
+  }
+};
+
 }  // namespace mc

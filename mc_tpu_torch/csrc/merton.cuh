@@ -188,4 +188,35 @@ struct MertonFamily {
   }
 };
 
+// Merton's Euler leg on a randomized-QMC draw (qmc_model.cuh, #33),
+// mc_tpu's draw3 layout: step pair m reads pairs 3m (diffusion) and 3m+1
+// (jump sizes) and the RAW coordinates 6m+4, 6m+5 for the Poisson counts;
+// extra is the scan depth kmax.
+struct MertonQmcLegParams {
+  MertonParams m;
+  int kmax;
+};
+
+struct MertonQmcLeg {
+  using Params = MertonQmcLegParams;
+  __device__ static Params load(const float* __restrict__ params, int, int kmax) {
+    return Params{load_merton(params), kmax};
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& p, int n_steps, const Draw& draw) {
+    const float s0 = p.m.pay.s0;
+    float w = 0.0f, s = s0;
+    typename Payoff::State st = Payoff::init(p.m.pay);
+    for (int m = 0; m < n_steps / 2; ++m) {
+      float z0, z1, e0, e1;
+      draw.pair(3 * m, z0, z1);
+      draw.pair(3 * m + 1, e0, e1);
+      const float u0 = draw.unit(6 * m + 4), u1 = draw.unit(6 * m + 5);
+      merton_step<Payoff>(p.m, p.kmax, z0, e0, u0, s0, w, s, st);
+      merton_step<Payoff>(p.m, p.kmax, z1, e1, u1, s0, w, s, st);
+    }
+    return Payoff::terminal(st, s, p.m.pay);
+  }
+};
+
 }  // namespace mc

@@ -8,14 +8,9 @@
 // one f64 sum at partials[x*R + r] (reduce.cuh); ops/reduce.finish_sum adds
 // the rows, a fixed order, no float atomics.
 //
-// A point's coordinate j (qmc_unit) is computed from its id:
-//   lattice  t = i z_j mod n, exact in int32 by mc_tpu's float-assisted
-//            Barrett reduction on the 10-bit split of z_j (every value
-//            stays below 2^31 for n <= 2^20), then u = t * f32(1/n) +
-//            shift_j and u - floor(u);
-//   sobol    the direct Gray-code XOR of the 30 direction numbers of
-//            dimension j over the bits of i ^ (i >> 1), XOR the 30-bit
-//            digital shift, (x << 2) through bits_to_unit.
+// A point's coordinate j is qmc_unit (qmc.cuh, shared with #33): the exact
+// lattice residue under its Cranley-Patterson shift, or the Gray-code Sobol
+// XOR under its digital shift.
 // Both are the same for every thread of a block but the id, so the table,
 // the generating vector and the shifts are uniform loads (an L1 broadcast).
 // The normal is rng.cuh inv_normal_cdf (Acklam + one Newton step, as
@@ -43,55 +38,18 @@
 
 #include <cuda_runtime.h>
 
+#include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
+#include "qmc_model.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
 namespace mc {
 
 constexpr int kQmcThreads = 128;
-constexpr int kSobolBits = 30;
 // A block's shared memory on the H100 (227 KB) less the reduction buffer.
 constexpr int kQmcSmemBytes = 232448 - 8 * kQmcThreads;
-
-struct QmcPoints {
-  int sobol;  // 0: lattice, 1: sobol
-  int n, d;
-  float inv_n;          // f32(1/n)
-  const int* table;     // the generating vector (d) or directions (d*30)
-  const float* shift_f;  // lattice shifts (R, d)
-  const int* shift_i;    // sobol digital shifts (R, d)
-};
-
-// x mod n for 0 <= x < 2^31 (mc_tpu/qmc.py _mod_int): q = floor(x * (1/n))
-// in f32 is off by at most one, corrected both ways.
-__device__ __forceinline__ int mod_int(int x, int n, float inv_n) {
-  const int q = static_cast<int>(floorf(static_cast<float>(x) * inv_n));
-  int r = x - q * n;
-  r = r < 0 ? r + n : r;
-  return r >= n ? r - n : r;
-}
-
-__device__ __forceinline__ float qmc_unit(const QmcPoints& q, uint32_t id, int j, int r) {
-  j = min(j, q.d - 1);
-  if (!q.sobol) {
-    const int i = static_cast<int>(id);
-    const int z = __ldg(q.table + j);
-    int t = mod_int(i * (z >> 10), q.n, q.inv_n);
-    t = mod_int((t << 10) + i * (z & 1023), q.n, q.inv_n);
-    const float u = static_cast<float>(t) * q.inv_n + __ldg(q.shift_f + r * q.d + j);
-    return u - floorf(u);
-  }
-  const uint32_t gray = id ^ (id >> 1);
-  const int* v = q.table + j * kSobolBits;
-  uint32_t acc = 0u;
-#pragma unroll
-  for (int k = 0; k < kSobolBits; ++k) {
-    if ((gray >> k) & 1u) acc ^= static_cast<uint32_t>(__ldg(v + k));
-  }
-  acc ^= static_cast<uint32_t>(__ldg(q.shift_i + r * q.d + j));
-  return bits_to_unit(acc << 2);
-}
 
 template <class Payoff>
 __global__ void __launch_bounds__(kQmcThreads)
@@ -185,23 +143,6 @@ cudaError_t launch_qmc_bridge(const QmcPoints& q, const float* params, int n_ste
   return cudaGetLastError();
 }
 
-inline QmcPoints qmc_points(int family, int n, int d, const int* table, const void* shifts) {
-  QmcPoints q;
-  q.sobol = family;
-  q.n = n;
-  q.d = d;
-  q.inv_n = static_cast<float>(1.0 / static_cast<double>(n));
-  q.table = table;
-  q.shift_f = family ? nullptr : static_cast<const float*>(shifts);
-  q.shift_i = family ? static_cast<const int*>(shifts) : nullptr;
-  return q;
-}
-
-inline bool qmc_args_ok(int family, int n, int d, int n_shifts, int n_bx) {
-  return (family == 0 || family == 1) && n >= 1 && n <= (1 << 20) && d >= 1 &&
-         n_shifts >= 1 && n_shifts < (1 << 16) && n_bx >= 1;
-}
-
 }  // namespace mc
 
 extern "C" {
@@ -232,6 +173,47 @@ int mc_qmc_sums(int payoff_id, int family, int euler, int n, int d, const int* t
     default: return cudaErrorInvalidValue;
   }
 #undef MC_CASE
+}
+
+int mc_qmc_model_block_threads() { return mc::kQmcModelThreads; }
+
+// #33: the payoff sums of n points through family_id's leg (a FamilyId of
+// family.cuh; params its pack, extra its integer: kmax for Merton and Bates,
+// the knot count for local vol, d for the basket) over n_steps, under each
+// of the R shifts; partials (n_bx, R) f64.  The point set as mc_qmc_sums',
+// its d the family's dimensions.
+int mc_qmc_model_sums(int family_id, int payoff_id, int family, int n, int d,
+                      const int* table, const void* shifts, int n_shifts,
+                      const float* params, int n_steps, int extra, double* partials,
+                      int n_bx, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1)
+    return cudaErrorInvalidValue;
+  const bool even = n_steps % 2 == 0;
+  const bool kmax_ok = extra >= 1 && extra <= 256;
+  const mc::QmcPoints q = mc::qmc_points(family, n, d, table, shifts);
+  const dim3 grid(n_bx, n_shifts);
+#define MC_LAUNCH(PREFIX, OK)                                                          \
+  return (OK) ? mc::PREFIX##_qmc_model(payoff_id, q, params, n_steps, extra, partials, \
+                                       grid, s)                                        \
+              : cudaErrorInvalidValue;
+  switch (family_id) {
+    case mc::FAMILY_HESTON: MC_LAUNCH(heston, d == 2 * n_steps)
+    case mc::FAMILY_BATES: MC_LAUNCH(bates, kmax_ok && d == 4 * n_steps)
+    case mc::FAMILY_CEV: MC_LAUNCH(cev, even && d == n_steps)
+    case mc::FAMILY_SABR: MC_LAUNCH(sabr, d == 2 * n_steps)
+    case mc::FAMILY_LOCALVOL: MC_LAUNCH(localvol, even && extra >= 2 && d == n_steps)
+    case mc::FAMILY_TERM: MC_LAUNCH(term, even && d == n_steps)
+    case mc::FAMILY_VASICEK: MC_LAUNCH(vasicek, even && d == 3 * n_steps)
+    case mc::FAMILY_MERTON: MC_LAUNCH(merton, even && kmax_ok && d == 3 * n_steps)
+    case mc::FAMILY_BASKET: {
+      const bool ok = extra >= 1 && extra <= 32 && d == 2 * ((extra + 1) / 2) * n_steps;
+      if (extra <= 8) MC_LAUNCH(basket, ok)
+      MC_LAUNCH(basket32, ok)
+    }
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_LAUNCH
 }
 
 // As mc_qmc_sums, the Euler increments from the Brownian bridge: bidx

@@ -114,4 +114,25 @@ struct SABRFamily {
   }
 };
 
+// SABR's leg on a randomized-QMC draw (qmc_model.cuh, #33): step j reads
+// pair j as (z_vol, z_perp).
+struct SABRQmcLeg {
+  using Params = SABRParams;
+  __device__ static Params load(const float* __restrict__ params, int, int) {
+    return load_sabr(params);
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
+    float lf = logf(c.f0), sig = c.alpha;
+    typename Payoff::State st = Payoff::init(c.pay);
+    for (int j = 0; j < n_steps; ++j) {
+      float z_vol, z_perp;
+      draw.pair(j, z_vol, z_perp);
+      sabr_step(c, z_vol, z_perp, lf, sig);
+      st = Payoff::update(st, expf(lf), c.pay);
+    }
+    return Payoff::terminal(st, expf(lf), c.pay);
+  }
+};
+
 }  // namespace mc

@@ -133,4 +133,25 @@ struct TermFamily {
   }
 };
 
+// The term curves' leg on a randomized-QMC draw (qmc_model.cuh, #33): pair
+// m feeds steps 2m and 2m+1.
+struct TermQmcLeg {
+  using Params = TermParams;
+  __device__ static Params load(const float* __restrict__ params, int n_steps, int) {
+    return load_term(params, n_steps);
+  }
+  template <class Payoff, class Draw>
+  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
+    float w = 0.0f, s = c.pay.s0;
+    typename Payoff::State st = Payoff::init(c.pay);
+    for (int m = 0; m < n_steps / 2; ++m) {
+      float z0, z1;
+      draw.pair(m, z0, z1);
+      term_step<Payoff>(c, 2 * m, z0, w, s, st);
+      term_step<Payoff>(c, 2 * m + 1, z1, w, s, st);
+    }
+    return Payoff::terminal(st, s, c.pay);
+  }
+};
+
 }  // namespace mc

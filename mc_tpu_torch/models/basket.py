@@ -67,7 +67,7 @@ __all__ = ["BasketDynamics", "demo_basket", "DEMO_BASKET", "MAX_BASKET_D",
            "packed_length", "pack_basket", "unpack_basket", "basket_normals",
            "mix_step", "levels", "basket_of", "basket_partials",
            "basket_partials_plain", "basket_trajectories",
-           "basket_trajectories_plain", "price_basket"]
+           "basket_trajectories_plain", "qmc_pay", "price_basket"]
 
 # rng.derive_key stream tag of the basket family (mc_tpu's 0xBA5C).
 BASKET_TAG = 0xBA5C
@@ -252,18 +252,17 @@ def basket_of(p, lv):
     return b
 
 
-def basket_leg(payoff: PathPayoff, p, k0: int, k1: int, ids, c, n_steps: int,
-               ws, state, sign: float = 1.0, on_step=None, level=basket_of):
-    """``n_steps`` steps from ``(ws, state)``, step u drawing its pairs from
-    counter ``c + u*ceil(d/2)``: ``(ws, levels, b, state)`` after the last,
-    b = ``level(p, levels)`` the level the payoff reads (the basket's
-    weighted sum; the rainbow NMC's order statistic); ``on_step(u, lv, b,
-    state)`` sees every step."""
+def basket_leg(payoff: PathPayoff, p, normals, c, n_steps: int, ws, state,
+               on_step=None, level=basket_of):
+    """``n_steps`` steps from ``(ws, state)``, step u mixing the (d, ...)
+    normals ``normals(c + u*ceil(d/2))`` (its pairs from that counter on):
+    ``(ws, levels, b, state)`` after the last, b = ``level(p, levels)`` the
+    level the payoff reads (the basket's weighted sum; the rainbow NMC's
+    order statistic); ``on_step(u, lv, b, state)`` sees every step."""
     npps = (p.d + 1) // 2
     lv = b = None
     for u in range(n_steps):
-        ws = mix_step(p, ws, basket_normals(k0, k1, ids, c + u * npps, p.d,
-                                            sign))
+        ws = mix_step(p, ws, normals(c + u * npps))
         lv = levels(p, ws)
         b = level(p, lv)
         state = payoff.update(state, b, p)
@@ -313,19 +312,37 @@ def check_basket_params(params: torch.Tensor, d: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _pay(payoff: PathPayoff, cfg: BasketConfig, p, ids, k0, k1,
+def _pay(payoff: PathPayoff, cfg: BasketConfig, p, like, normals,
          on_step=None):
     """Each path's payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: a second leg on the negated normals)."""
-    zero = torch.zeros_like(ids, dtype=torch.float32)
+    ``cfg.antithetic``: a second leg on the negated normals);
+    ``normals(c, sign)`` gives the step's d normals from pair c on."""
+    zero = torch.zeros_like(like)
     pays = []
     for sign in ((1.0, -1.0) if cfg.antithetic else (1.0,)):
         ws = zero.expand(cfg.d, *zero.shape)
-        _, _, b, state = basket_leg(payoff, p, k0, k1, ids, 0, cfg.n_steps,
-                                    ws, payoff.init(p, zero), sign,
-                                    on_step if sign > 0 else None)
+        _, _, b, state = basket_leg(
+            payoff, p, lambda c, sign=sign: normals(c, sign), 0, cfg.n_steps,
+            ws, payoff.init(p, zero), on_step if sign > 0 else None)
         pays.append(payoff.terminal(state, b, p))
     return pays[0] if len(pays) == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def _threefry_normals(p, k0: int, k1: int, ids):
+    """``normals(c, sign)``: basket_normals on the MC stream."""
+    return lambda c, sign: basket_normals(k0, k1, ids, c, p.d, sign)
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The leg on a randomized-QMC draw: step j's d normals from pairs
+    j*ceil(d/2) + q, dimensions (2(j ceil(d/2) + q), +1), the last pair's
+    second normal unused at an odd d."""
+    def normals(c, sign):
+        zs = [z for q in range((p.d + 1) // 2) for z in draw_pair(c + q)]
+        return torch.stack(zs[:p.d])
+
+    return _pay(payoff, BasketConfig(n_paths=1, n_steps=n_steps, d=p.d), p,
+                like, normals)
 
 
 def basket_partials_plain(payoff: PathPayoff, cfg: BasketConfig, key,
@@ -341,7 +358,8 @@ def basket_partials_plain(payoff: PathPayoff, cfg: BasketConfig, key,
     for _, _, ids, valid, _ in pk.path_chunks(
             cfg.path_config(), key, params, path_offset, bound,
             pk.plain_chunk(params)):
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids, k0, k1), 0.0)
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(),
+                                      _threefry_normals(p, k0, k1, ids)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 
@@ -368,7 +386,8 @@ def basket_trajectories_plain(payoff: PathPayoff, cfg: BasketConfig, key,
             if payoff.n_state:
                 st_grid[j, start:stop] = state[0]
 
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids, k0, k1, store),
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(),
+                                      _threefry_normals(p, k0, k1, ids), store),
                           0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return b_grid, st_grid, torch.stack(rows)

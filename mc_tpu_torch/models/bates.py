@@ -53,12 +53,15 @@ from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["BatesDynamics", "DEMO_BATES", "BATES_FIELDS", "BATES_TAG",
+           "FAMILY_BATES",
            "BatesConfig", "pack_bates", "unpack_bates", "bates_euler_draw",
            "bates_jump", "bates_euler_step", "bates_partials",
-           "bates_partials_plain", "price_bates", "bates_call_cf"]
+           "bates_partials_plain", "qmc_pay", "price_bates", "bates_call_cf"]
 
 # rng.derive_key stream tag of the Bates family (mc_tpu's 0xBA7E).
 BATES_TAG = 0xBA7E
+# FamilyId of csrc/family.cuh.
+FAMILY_BATES = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,25 +229,30 @@ def check_bates_payoff(payoff: PathPayoff) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _pay(payoff: PathPayoff, cfg: BatesConfig, p, like, k0, k1, ids):
-    """Each path's payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: normals negated, each uniform u -> 1 - u)."""
-    qc = qe_consts(p) if cfg.scheme == "qe" else None
-    zero = torch.zeros_like(like)
-    s0 = zero + p.s0
-    n_legs = 2 if cfg.antithetic else 1
-    w, v = [zero] * n_legs, [zero + p.v0] * n_legs
-    s, st = [s0] * n_legs, [payoff.init(p, zero)] * n_legs
-    # Every step's draws at once, (z_v, z_2, u_v, e, u_n) as the kernel's
-    # BatesDraws (u_v unused under Euler).
+def _threefry_draws(cfg: BatesConfig, k0: int, k1: int, ids):
+    """``draws(j)`` -> step j's (z_v, z_2, u_v, e, u_n) as the kernel's
+    BatesDraws (u_v unused under Euler), every step drawn at once."""
     j = steps_index(cfg.n_steps, ids)
     if cfg.scheme == "qe":
         draws = _qe_draw(k0, k1, ids, j, cfg.rng_rounds)
     else:
         z_v, z_2, e, u_n = bates_euler_draw(k0, k1, ids, 3 * j, cfg.rng_rounds)
         draws = (z_v, z_2, torch.zeros_like(u_n), e, u_n)
+    return lambda j: tuple(d[j] for d in draws)
+
+
+def _pay(payoff: PathPayoff, cfg: BatesConfig, p, like, draws):
+    """Each path's payoff (the antithetic pair's mean when
+    ``cfg.antithetic``: normals negated, each uniform u -> 1 - u);
+    ``draws(j)`` gives step j's (z_v, z_2, u_v, e, u_n)."""
+    qc = qe_consts(p) if cfg.scheme == "qe" else None
+    zero = torch.zeros_like(like)
+    s0 = zero + p.s0
+    n_legs = 2 if cfg.antithetic else 1
+    w, v = [zero] * n_legs, [zero + p.v0] * n_legs
+    s, st = [s0] * n_legs, [payoff.init(p, zero)] * n_legs
     for j in range(cfg.n_steps):
-        z_v, z_2, u_v, e, u_n = (d[j] for d in draws)
+        z_v, z_2, u_v, e, u_n = draws(j)
         for leg in range(n_legs):
             if leg:
                 z_v, z_2, u_v, e, u_n = -z_v, -z_2, 1.0 - u_v, -e, 1.0 - u_n
@@ -260,6 +268,21 @@ def _pay(payoff: PathPayoff, cfg: BatesConfig, p, like, k0, k1, ids):
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
 
 
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The Euler leg on a randomized-QMC draw, ``mc_tpu``'s packed layout of
+    4 dimensions a step (ROADMAP C4): step j reads (4j, 4j+1) as the
+    diffusion pair 2j, dimension 4j+2 as the jump-size normal (the first of
+    pair 2j+1, its second discarded) and dimension 4j+3 as the RAW uniform
+    of the Poisson count; the scan depth is ``p.kmax``."""
+    def draws(j):
+        z_v, z_2 = draw_pair(2 * j)
+        e, _ = draw_pair(2 * j + 1)
+        return z_v, z_2, None, e, draw_pair.unit(4 * j + 3)
+
+    cfg = BatesConfig(n_paths=1, n_steps=n_steps, kmax=p.kmax)
+    return _pay(payoff, cfg, p, like, draws)
+
+
 def bates_partials_plain(payoff: PathPayoff, cfg: BatesConfig, key,
                          params: torch.Tensor, path_offset: int = 0,
                          n_valid=None):
@@ -272,8 +295,8 @@ def bates_partials_plain(payoff: PathPayoff, cfg: BatesConfig, key,
     rows = []
     for _, _, ids, valid, _ in pk.path_chunks(cfg.path_config(), key, params,
                                               path_offset, bound):
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), k0, k1,
-                                      ids), 0.0)
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(),
+                                      _threefry_draws(cfg, k0, k1, ids)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 

@@ -42,7 +42,7 @@ from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
-from mc_tpu_torch.models.merton import counters, steps_index
+from mc_tpu_torch.models.merton import pair_draws
 from mc_tpu_torch.oracle import PriceResult
 from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops import path_kernels as pk
@@ -51,7 +51,7 @@ from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["CEVDynamics", "DEMO_CEV", "CEV_FIELDS", "CEV_TAG", "CEVConfig",
            "pack_cev", "unpack_cev", "cev_substep", "cev_partials",
-           "cev_partials_plain", "price_cev", "cev_call_closed_form"]
+           "cev_partials_plain", "qmc_pay", "price_cev", "cev_call_closed_form"]
 
 # rng.derive_key stream tag of the CEV family (mc_tpu's 0xCE4).
 CEV_TAG = 0xCE4
@@ -167,23 +167,28 @@ def check_cev_payoff(payoff: PathPayoff) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _pay(payoff: PathPayoff, cfg: CEVConfig, p, like, k0, k1, ids):
+def _pay(payoff: PathPayoff, cfg: CEVConfig, p, like, draw_pair):
     """Each path's payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: the normals negated)."""
+    ``cfg.antithetic``: the normals negated); ``draw_pair(m)`` gives the
+    normals of substeps 2m and 2m+1."""
     s0 = torch.zeros_like(like) + p.s0
     n_legs = 2 if cfg.antithetic else 1
     s, st = [s0] * n_legs, [payoff.init(p, torch.zeros_like(like))] * n_legs
-    n_pairs = cfg.n_steps // 2
-    # Every pair's normals at once: z0[m], z1[m] for substeps 2m, 2m+1.
-    z0, z1 = rng.normal_pair(k0, k1, ids,
-                             counters(ids, steps_index(n_pairs, ids)))
-    for m in range(n_pairs):
+    for m in range(cfg.n_steps // 2):
+        z0, z1 = draw_pair(m)
         for leg in range(n_legs):
-            for z in (z0[m], z1[m]):
+            for z in (z0, z1):
                 s[leg], st[leg] = cev_substep(payoff, p, s[leg], st[leg],
                                               -z if leg else z)
     pays = [payoff.terminal(st[leg], s[leg], p) for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The leg on a randomized-QMC draw: pair m, dimensions (2m, 2m+1),
+    feeds substeps 2m and 2m+1."""
+    return _pay(payoff, CEVConfig(n_paths=1, n_steps=n_steps), p, like,
+                draw_pair)
 
 
 def cev_partials_plain(payoff: PathPayoff, cfg: CEVConfig, key,
@@ -198,8 +203,8 @@ def cev_partials_plain(payoff: PathPayoff, cfg: CEVConfig, key,
     rows = []
     for _, _, ids, valid, _ in pk.path_chunks(cfg.path_config(), key, params,
                                               path_offset, bound):
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), k0, k1,
-                                      ids), 0.0)
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), pair_draws(
+            k0, k1, ids, cfg.n_steps // 2)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 

@@ -50,13 +50,17 @@ from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["HestonDynamics", "DEMO_HESTON", "HESTON_FIELDS", "HESTON_TAG",
+           "FAMILY_HESTON",
            "HestonConfig", "pack_heston", "unpack_heston",
            "heston_euler_step", "qe_consts", "heston_qe_step",
            "heston_partials", "heston_partials_plain", "heston_trajectories",
-           "heston_trajectories_plain", "price_heston", "heston_call_cf"]
+           "heston_trajectories_plain", "qmc_pay", "price_heston",
+           "heston_call_cf"]
 
 # rng.derive_key stream tag of the Heston family (mc_tpu's 0x4E57).
 HESTON_TAG = 0x4E57
+# FamilyId of csrc/family.cuh.
+FAMILY_HESTON = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,6 +307,14 @@ def _pay(payoff: PathPayoff, cfg: HestonConfig, p, like, draw):
             st[leg] = payoff.update(st[leg], s[leg], p)
     pays = [payoff.terminal(st[leg], s[leg], p) for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The Euler leg on a randomized-QMC draw: step j reads the normals of
+    pair j, dimensions (2j, 2j+1), as (z_v, z_perp) (``mc_tpu``'s QMC
+    hook runs the Euler leg only)."""
+    cfg = HestonConfig(n_paths=1, n_steps=n_steps)
+    return _pay(payoff, cfg, p, like, lambda j: (*draw_pair(j), None))
 
 
 def heston_partials_plain(payoff: PathPayoff, cfg: HestonConfig, key,

@@ -55,7 +55,7 @@ import torch
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
-from mc_tpu_torch.models.merton import counters, steps_index
+from mc_tpu_torch.models.merton import pair_draws
 from mc_tpu_torch.oracle import PriceResult
 from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops import path_kernels as pk
@@ -65,7 +65,7 @@ from mc_tpu_torch.ops.reduce import finish_sum
 __all__ = ["LocalVolSurface", "DEMO_LOCALVOL", "LOCALVOL_TAG", "HEAD_FIELDS",
            "LocalVolConfig", "validate_surface", "packed_length",
            "pack_localvol", "unpack_localvol", "sigma_at", "localvol_step",
-           "localvol_partials", "localvol_partials_plain",
+           "localvol_partials", "localvol_partials_plain", "qmc_pay",
            "localvol_trajectories", "localvol_trajectories_plain",
            "price_localvol"]
 
@@ -281,28 +281,30 @@ def check_localvol_params(params: torch.Tensor, n_knots: int,
 # ---------------------------------------------------------------------------
 
 
-def _pair_normals(k0, k1, ids, n_steps: int, rounds: int = 13):
-    """Every pair's normals at once: z0[m], z1[m] for steps 2m, 2m+1."""
-    return rng.normal_pair(k0, k1, ids,
-                           counters(ids, steps_index(n_steps // 2, ids)),
-                           rounds=rounds)
-
-
-def _pay(payoff: PathPayoff, cfg: LocalVolConfig, p, like, k0, k1, ids):
+def _pay(payoff: PathPayoff, cfg: LocalVolConfig, p, like, draw_pair):
     """Each path's payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: the normals negated)."""
+    ``cfg.antithetic``: the normals negated); ``draw_pair(m)`` gives the
+    normals of steps 2m and 2m+1."""
     zero = torch.zeros_like(like)
     n_legs = 2 if cfg.antithetic else 1
     w, s = [zero] * n_legs, [zero + p.s0] * n_legs
     st = [payoff.init(p, zero)] * n_legs
-    z0, z1 = _pair_normals(k0, k1, ids, cfg.n_steps, cfg.rng_rounds)
     for j in range(cfg.n_steps):
-        z = (z0 if j % 2 == 0 else z1)[j // 2]
+        if j % 2 == 0:
+            pair = draw_pair(j // 2)
+        z = pair[j % 2]
         for leg in range(n_legs):
             w[leg], s[leg], st[leg] = localvol_step(payoff, p, w[leg], st[leg],
                                                     -z if leg else z, j)
     pays = [payoff.terminal(st[leg], s[leg], p) for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The leg on a randomized-QMC draw: pair m, dimensions (2m, 2m+1),
+    feeds steps 2m and 2m+1."""
+    cfg = LocalVolConfig(n_paths=1, n_steps=n_steps, n_knots=p.n_knots)
+    return _pay(payoff, cfg, p, like, draw_pair)
 
 
 def localvol_partials_plain(payoff: PathPayoff, cfg: LocalVolConfig, key,
@@ -318,8 +320,8 @@ def localvol_partials_plain(payoff: PathPayoff, cfg: LocalVolConfig, key,
     for _, _, ids, valid, _ in pk.path_chunks(cfg.path_config(), key, params,
                                               path_offset, bound,
                                               pk.plain_chunk(params)):
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), k0, k1,
-                                      ids), 0.0)
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), pair_draws(
+            k0, k1, ids, cfg.n_steps // 2, cfg.rng_rounds)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 
@@ -343,9 +345,9 @@ def localvol_trajectories_plain(payoff: PathPayoff, cfg: LocalVolConfig, key,
             pk.plain_chunk(params)):
         zero = torch.zeros_like(ids, dtype=torch.float32)
         w, s, state = zero, zero + p.s0, payoff.init(p, zero)
-        z0, z1 = _pair_normals(k0, k1, ids, cfg.n_steps)
+        draw_pair = pair_draws(k0, k1, ids, cfg.n_steps // 2)
         for j in range(cfg.n_steps):
-            z = (z0 if j % 2 == 0 else z1)[j // 2]
+            z = draw_pair(j // 2)[j % 2]
             w, s, state = localvol_step(payoff, p, w, state, z, j)
             s_grid[j, start:stop] = s
             if payoff.n_state:

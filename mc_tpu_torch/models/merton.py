@@ -57,7 +57,7 @@ from mc_tpu_torch.ops.reduce import finish_sum
 __all__ = ["MertonDynamics", "DEMO_MERTON", "MERTON_FIELDS", "MERTON_TAG",
            "MertonConfig", "pack_merton", "unpack_merton", "poisson_kmax",
            "poisson_inv_cdf", "jump_increment", "counters", "steps_index",
-           "merton_draw3",
+           "merton_draw3", "pair_draws", "qmc_pay",
            "merton_partials", "merton_partials_plain", "merton_trajectories",
            "merton_trajectories_plain", "price_merton",
            "merton_call_closed_form"]
@@ -185,6 +185,15 @@ def steps_index(n: int, ids):
         (n,) + (1,) * ids.dim())
 
 
+def pair_draws(k0: int, k1: int, ids, n: int, rounds: int = 13):
+    """``draw_pair(m)`` -> the two normals of pair (id, m), m < n, every pair
+    drawn in one threefry call: the MC draw of the step loops that take a
+    draw (their QMC draw reads the point's coordinates instead)."""
+    z0, z1 = rng.normal_pair(k0, k1, ids, counters(ids, steps_index(n, ids)),
+                             rounds=rounds)
+    return lambda m: (z0[m], z1[m])
+
+
 def merton_draw3(k0: int, k1: int, ids, m, rounds: int = 13):
     """Draws for the step pair (2m, 2m+1): ``(z0, z1, e0, e1, u0, u1)`` from
     counters 3m (diffusion normals), 3m+1 (jump-size normals) and 3m+2
@@ -261,18 +270,23 @@ def check_merton_params(params: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _euler_pay(payoff: PathPayoff, cfg: MertonConfig, p, like, k0, k1, ids):
+def _threefry_draw3(k0: int, k1: int, ids, n_pairs: int, rounds: int):
+    """``draw3(m)`` -> merton_draw3 of step pair m, every pair drawn at
+    once."""
+    draws = merton_draw3(k0, k1, ids, steps_index(n_pairs, ids), rounds)
+    return lambda m: tuple(d[m] for d in draws)
+
+
+def _euler_pay(payoff: PathPayoff, cfg: MertonConfig, p, like, draw3):
     """Each path's Euler payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: normals negated, u -> 1 - u)."""
+    ``cfg.antithetic``: normals negated, u -> 1 - u); ``draw3(m)`` gives
+    step pair m's (z0, z1, e0, e1, u0, u1)."""
     s0 = torch.zeros_like(like) + p.s0
     n_legs = 2 if cfg.antithetic else 1
     w = [torch.zeros_like(like)] * n_legs
     s, st = [s0] * n_legs, [payoff.init(p, torch.zeros_like(like))] * n_legs
-    n_pairs = cfg.n_steps // 2
-    draws = merton_draw3(k0, k1, ids, steps_index(n_pairs, ids),
-                         cfg.rng_rounds)
-    for m in range(n_pairs):
-        z0, z1, e0, e1, u0, u1 = (d[m] for d in draws)
+    for m in range(cfg.n_steps // 2):
+        z0, z1, e0, e1, u0, u1 = draw3(m)
         for leg in range(n_legs):
             halves = ((z0, e0, u0), (z1, e1, u1))
             if leg:
@@ -282,6 +296,21 @@ def _euler_pay(payoff: PathPayoff, cfg: MertonConfig, p, like, k0, k1, ids):
                                                       w[leg], st[leg], z, e, u)
     pays = [payoff.terminal(st[leg], s[leg], p) for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The Euler leg on a randomized-QMC draw (``mc_tpu``'s draw3 layout):
+    step pair m reads dimensions 6m..6m+3 as the normals of pairs 3m and
+    3m+1 and dimensions 6m+4, 6m+5 as RAW uniforms for the Poisson counts
+    (``draw_pair.unit``); the scan depth is ``p.kmax``."""
+    def draw3(m):
+        z0, z1 = draw_pair(3 * m)
+        e0, e1 = draw_pair(3 * m + 1)
+        return (z0, z1, e0, e1, draw_pair.unit(6 * m + 4),
+                draw_pair.unit(6 * m + 5))
+
+    cfg = MertonConfig(n_paths=1, n_steps=n_steps, kmax=p.kmax)
+    return _euler_pay(payoff, cfg, p, like, draw3)
 
 
 def _terminal_pay(payoff: PathPayoff, cfg: MertonConfig, p, k0, k1, ids):
@@ -320,7 +349,8 @@ def merton_partials_plain(payoff: PathPayoff, cfg: MertonConfig, key,
         if cfg.method == "terminal":
             pay = _terminal_pay(payoff, cfg, p, k0, k1, ids)
         else:
-            pay = _euler_pay(payoff, cfg, p, ids.float(), k0, k1, ids)
+            pay = _euler_pay(payoff, cfg, p, ids.float(), _threefry_draw3(
+                k0, k1, ids, cfg.n_steps // 2, cfg.rng_rounds))
         pay = torch.where(valid, pay, 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)

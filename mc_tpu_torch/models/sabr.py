@@ -40,7 +40,7 @@ from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
-from mc_tpu_torch.models.merton import counters, steps_index
+from mc_tpu_torch.models.merton import pair_draws
 from mc_tpu_torch.oracle import PriceResult, _call_segment_f64
 from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops import path_kernels as pk
@@ -49,7 +49,7 @@ from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["SABRDynamics", "DEMO_SABR", "SABR_FIELDS", "SABR_TAG",
            "SABRConfig", "pack_sabr", "unpack_sabr", "sabr_step",
-           "sabr_partials", "sabr_partials_plain", "price_sabr",
+           "sabr_partials", "sabr_partials_plain", "qmc_pay", "price_sabr",
            "sabr_implied_vol", "sabr_call_hagan"]
 
 # rng.derive_key stream tag of the SABR family (mc_tpu's 0x5AB4).
@@ -175,26 +175,31 @@ def check_sabr_payoff(payoff: PathPayoff) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _pay(payoff: PathPayoff, cfg: SABRConfig, p, like, k0, k1, ids):
+def _pay(payoff: PathPayoff, cfg: SABRConfig, p, like, draw_pair):
     """Each path's payoff on the forward path (the antithetic pair's mean
-    when ``cfg.antithetic``: both normals negated)."""
+    when ``cfg.antithetic``: both normals negated); ``draw_pair(j)`` gives
+    step j's (z_vol, z_perp)."""
     zero = torch.zeros_like(like)
     logf0 = torch.log(zero + p.f0)
     n_legs = 2 if cfg.antithetic else 1
     logf, sig = [logf0] * n_legs, [zero + p.alpha] * n_legs
     st = [payoff.init(p, zero)] * n_legs
-    # Every step's pair at once: z_vol[j], z_perp[j] for step j.
-    z_vol, z_perp = rng.normal_pair(
-        k0, k1, ids, counters(ids, steps_index(cfg.n_steps, ids)),
-        rounds=cfg.rng_rounds)
     for j in range(cfg.n_steps):
+        z_vol, z_perp = draw_pair(j)
         for leg in range(n_legs):
-            zv, zp = (-z_vol[j], -z_perp[j]) if leg else (z_vol[j], z_perp[j])
+            zv, zp = (-z_vol, -z_perp) if leg else (z_vol, z_perp)
             logf[leg], sig[leg] = sabr_step(p, logf[leg], sig[leg], zv, zp)
             st[leg] = payoff.update(st[leg], torch.exp(logf[leg]), p)
     pays = [payoff.terminal(st[leg], torch.exp(logf[leg]), p)
             for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The leg on a randomized-QMC draw: step j reads pair j, dimensions
+    (2j, 2j+1), as (z_vol, z_perp)."""
+    return _pay(payoff, SABRConfig(n_paths=1, n_steps=n_steps), p, like,
+                draw_pair)
 
 
 def sabr_partials_plain(payoff: PathPayoff, cfg: SABRConfig, key,
@@ -210,8 +215,8 @@ def sabr_partials_plain(payoff: PathPayoff, cfg: SABRConfig, key,
     for _, _, ids, valid, _ in pk.path_chunks(
             cfg.path_config(), key, params, path_offset, bound,
             pk.plain_chunk(params)):
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), k0, k1,
-                                      ids), 0.0)
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), pair_draws(
+            k0, k1, ids, cfg.n_steps, cfg.rng_rounds)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 

@@ -42,7 +42,7 @@ import torch
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
-from mc_tpu_torch.models.merton import counters, steps_index
+from mc_tpu_torch.models.merton import pair_draws
 from mc_tpu_torch.oracle import PriceResult
 from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops import path_kernels as pk
@@ -52,7 +52,7 @@ from mc_tpu_torch.ops.reduce import finish_sum
 __all__ = ["TermStructure", "DEMO_KNOTS", "demo_term", "DEMO_TERM",
            "TERM_TAG", "HEAD_FIELDS",
            "TermConfig", "fma_f32", "sqrt_f32", "mean_f32", "packed_length",
-           "pack_term", "unpack_term", "term_step", "term_partials", "term_partials_plain",
+           "pack_term", "unpack_term", "term_step", "term_partials", "term_partials_plain", "qmc_pay",
            "price_term"]
 
 # rng.derive_key stream tag of the term-structure family (mc_tpu's 0x7E53).
@@ -242,23 +242,30 @@ def check_term_params(params: torch.Tensor, n_steps: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _pay(payoff: PathPayoff, cfg: TermConfig, p, like, k0, k1, ids):
+def _pay(payoff: PathPayoff, cfg: TermConfig, p, like, draw_pair):
     """Each path's payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: the normals negated)."""
+    ``cfg.antithetic``: the normals negated); ``draw_pair(m)`` gives the
+    normals of steps 2m and 2m+1."""
     zero = torch.zeros_like(like)
     n_legs = 2 if cfg.antithetic else 1
     w, s = [zero] * n_legs, [zero + p.s0] * n_legs
     st = [payoff.init(p, zero)] * n_legs
-    # Every pair's normals at once: z0[m], z1[m] for steps 2m, 2m+1.
-    z0, z1 = rng.normal_pair(k0, k1, ids,
-                             counters(ids, steps_index(cfg.n_steps // 2, ids)))
     for j in range(cfg.n_steps):
-        z = (z0 if j % 2 == 0 else z1)[j // 2]
+        if j % 2 == 0:
+            pair = draw_pair(j // 2)
+        z = pair[j % 2]
         for leg in range(n_legs):
             w[leg], s[leg], st[leg] = term_step(payoff, p, w[leg], st[leg],
                                                 -z if leg else z, j)
     pays = [payoff.terminal(st[leg], s[leg], p) for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The leg on a randomized-QMC draw: pair m, dimensions (2m, 2m+1),
+    feeds steps 2m and 2m+1."""
+    return _pay(payoff, TermConfig(n_paths=1, n_steps=n_steps), p, like,
+                draw_pair)
 
 
 def term_partials_plain(payoff: PathPayoff, cfg: TermConfig, key,
@@ -274,8 +281,8 @@ def term_partials_plain(payoff: PathPayoff, cfg: TermConfig, key,
     for _, _, ids, valid, _ in pk.path_chunks(
             cfg.path_config(), key, params, path_offset, bound,
             pk.plain_chunk(params)):
-        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), k0, k1,
-                                      ids), 0.0)
+        pay = torch.where(valid, _pay(payoff, cfg, p, ids.float(), pair_draws(
+            k0, k1, ids, cfg.n_steps // 2)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 

@@ -63,7 +63,7 @@ __all__ = ["VasicekDynamics", "DEMO_VASICEK", "VASICEK_FIELDS",
            "pack_vasicek", "unpack_vasicek", "vasicek_step",
            "vasicek_partials", "vasicek_partials_plain",
            "vasicek_trajectories", "vasicek_trajectories_plain",
-           "price_vasicek"]
+           "qmc_pay", "price_vasicek"]
 
 # rng.derive_key stream tag of the Vasicek family (mc_tpu's 0x7A51).
 VASICEK_TAG = 0x7A51
@@ -231,23 +231,29 @@ def check_vasicek_params(params: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _legs(payoff: PathPayoff, cfg: VasicekConfig, p, ids, k0, k1,
+def _threefry_pairs(cfg: VasicekConfig, k0: int, k1: int, ids):
+    """``draw_pair(c)`` -> the normals of pair (id, c), c < 3*n_steps/2,
+    every step pair's three pairs drawn at once."""
+    m = steps_index(cfg.n_steps // 2, ids)
+    z = [rng.normal_pair(k0, k1, ids, counters(ids, 3 * m + c),
+                         rounds=cfg.rng_rounds) for c in range(3)]
+    return lambda c: (z[c % 3][0][c // 3], z[c % 3][1][c // 3])
+
+
+def _legs(payoff: PathPayoff, cfg: VasicekConfig, p, like, draw_pair,
           on_step=None):
     """Each path's discounted payoff (the antithetic pair's mean when
-    ``cfg.antithetic``: every normal negated).  ``on_step(j, s, (w, x, y),
-    state)`` sees the first leg after each step."""
-    zero = torch.zeros_like(ids, dtype=torch.float32)
+    ``cfg.antithetic``: every normal negated); step pair m reads pairs 3m,
+    3m+1 and 3m+2 of ``draw_pair``.  ``on_step(j, s, (w, x, y), state)``
+    sees the first leg after each step."""
+    zero = torch.zeros_like(like)
     s0 = zero + p.s0
     n_legs = 2 if cfg.antithetic else 1
     carry = [(zero, zero + p.x0, zero)] * n_legs
     s, st = [s0] * n_legs, [payoff.init(p, zero)] * n_legs
-    m = steps_index(cfg.n_steps // 2, ids)
-    # Every step pair's three pairs at once: z[c][h][m] is half h of pair
-    # 3m + c.
-    z = [rng.normal_pair(k0, k1, ids, counters(ids, 3 * m + c),
-                         rounds=cfg.rng_rounds) for c in range(3)]
     for mm in range(cfg.n_steps // 2):
-        (z0, z1), (z2, z3), (z4, z5) = ((h[mm] for h in zc) for zc in z)
+        (z0, z1), (z2, z3), (z4, z5) = (draw_pair(3 * mm + c)
+                                        for c in range(3))
         for j, zs in ((2 * mm, (z0, z1, z2)), (2 * mm + 1, (z3, z4, z5))):
             for leg in range(n_legs):
                 za, zb, zc = (-x for x in zs) if leg else zs
@@ -259,6 +265,13 @@ def _legs(payoff: PathPayoff, cfg: VasicekConfig, p, ids, k0, k1,
     pays = [payoff.terminal(st[leg], s[leg], p) * torch.exp(-carry[leg][2])
             for leg in range(n_legs)]
     return pays[0] if n_legs == 1 else 0.5 * (pays[0] + pays[1])
+
+
+def qmc_pay(payoff: PathPayoff, p, n_steps: int, like, draw_pair):
+    """The discounted leg on a randomized-QMC draw: step pair m reads pairs
+    3m, 3m+1 and 3m+2, dimensions 6m..6m+5."""
+    return _legs(payoff, VasicekConfig(n_paths=1, n_steps=n_steps), p, like,
+                 draw_pair)
 
 
 def vasicek_partials_plain(payoff: PathPayoff, cfg: VasicekConfig, key,
@@ -275,7 +288,8 @@ def vasicek_partials_plain(payoff: PathPayoff, cfg: VasicekConfig, key,
     for _, _, ids, valid, _ in pk.path_chunks(
             cfg.path_config(), key, params, path_offset, bound,
             pk.plain_chunk(params)):
-        pay = torch.where(valid, _legs(payoff, cfg, p, ids, k0, k1), 0.0)
+        pay = torch.where(valid, _legs(payoff, cfg, p, ids.float(),
+                                       _threefry_pairs(cfg, k0, k1, ids)), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return torch.stack(rows)
 
@@ -304,8 +318,9 @@ def vasicek_trajectories_plain(payoff: PathPayoff, cfg: VasicekConfig, key,
             if payoff.n_state:
                 st_grid[j, start:stop] = state[0]
 
-        pay = torch.where(valid, _legs(payoff, cfg, p, ids, k0, k1, store),
-                          0.0)
+        pay = torch.where(valid, _legs(payoff, cfg, p, ids.float(),
+                                       _threefry_pairs(cfg, k0, k1, ids),
+                                       store), 0.0)
         rows.append(pk.moment_row([pay, pay * pay]))
     return (*grids, st_grid, torch.stack(rows))
 

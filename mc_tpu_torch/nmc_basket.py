@@ -111,8 +111,9 @@ class BasketNMC(NMCFamily):
                           for i, g in enumerate(grids_j)])
         if not remaining:
             return payoff.terminal(state_j, self.level(p, levels(p, ws)), p)
-        _, _, b, state = basket_leg(payoff, p, k0, k1, ids, c_base, remaining,
-                                    ws, state_j, level=self.level)
+        _, _, b, state = basket_leg(
+            payoff, p, lambda c: basket_normals(k0, k1, ids, c, p.d), c_base,
+            remaining, ws, state_j, level=self.level)
         return payoff.terminal(state, b, p)
 
 

@@ -24,8 +24,9 @@ import torch
 
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_INNER, STREAM_OUTER
-from mc_tpu_torch.models.bates import (BATES_TAG, DEMO_BATES, BatesDynamics,
-                                       bates_euler_draw, bates_euler_step,
+from mc_tpu_torch.models.bates import (BATES_TAG, DEMO_BATES, FAMILY_BATES,
+                                       BatesDynamics, bates_euler_draw,
+                                       bates_euler_step,
                                        check_bates_params, pack_bates,
                                        unpack_bates)
 from mc_tpu_torch.models.merton import poisson_kmax, steps_index
@@ -44,7 +45,7 @@ class BatesNMC(NMCFamily):
     tag = BATES_TAG
     n_grids = 2
     even_steps = False
-    cuda_id = 2  # FAMILY_BATES
+    cuda_id = FAMILY_BATES
 
     @property
     def kmax(self) -> int:

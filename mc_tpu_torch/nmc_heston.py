@@ -20,9 +20,9 @@ import torch
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_INNER, STREAM_OUTER
-from mc_tpu_torch.models.heston import (DEMO_HESTON, HESTON_TAG,
-                                        HestonConfig, HestonDynamics,
-                                        check_heston_params,
+from mc_tpu_torch.models.heston import (DEMO_HESTON, FAMILY_HESTON,
+                                        HESTON_TAG, HestonConfig,
+                                        HestonDynamics, check_heston_params,
                                         heston_euler_step,
                                         heston_trajectories,
                                         heston_trajectories_plain,
@@ -41,7 +41,7 @@ class HestonNMC(NMCFamily):
     tag = HESTON_TAG
     n_grids = 2
     even_steps = False
-    cuda_id = 0  # FAMILY_HESTON
+    cuda_id = FAMILY_HESTON
 
     def span(self, n_steps, n_inner):
         return n_steps * n_inner * n_steps, "n_steps^2 * n_inner"

@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels
 (the counterpart of ``mc_tpu/ops/_pallas.py``).
 
-Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
-started together, and the objects are linked into one shared library with a
-plain C interface, loaded with ``ctypes``.  The build happens at the first
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, as many
+at once as the host has CPUs less one, the largest first, and the objects
+are linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at the first
 launch, never at import, into ``build/mc_tpu_torch/<hash>/`` beside
 the package, keyed by a hash of the sources and flags, so a fresh checkout
 builds everything on its first call and later calls reuse the library.
@@ -17,11 +18,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -54,7 +57,7 @@ KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "sabr_partials", "term_partials", "divs_partials",
            "vasicek_partials", "vasicek_trajectories", "basket_partials",
            "basket_trajectories", "fx_partials", "rainbow_partials",
-           "qmc_sums", "qmc_bridge_sums")
+           "qmc_sums", "qmc_bridge_sums", "qmc_model_sums")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -99,6 +102,7 @@ _SIGNATURES = {
     "mc_rainbow_block_threads": ([], _c_int),
     "mc_qmc_block_threads": ([], _c_int),
     "mc_qmc_bridge_threads": ([_c_int], _c_int),
+    "mc_qmc_model_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -234,6 +238,11 @@ _SIGNATURES = {
     # n_steps, partials, n_bx, stream
     "mc_qmc_sums": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
                      _c_int, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr], _c_int),
+    # family_id, payoff_id, family, n, d, table, shifts, n_shifts, params,
+    # n_steps, extra, partials, n_bx, stream
+    "mc_qmc_model_sums": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+                           _c_ptr, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
+                           _c_int, _c_ptr], _c_int),
     # payoff_id, family, n, d, table, shifts, n_shifts, params, n_steps,
     # bidx, bcoef, partials, n_bx, stream
     "mc_qmc_bridge_sums": ([_c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
@@ -243,8 +252,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-# path, seconds (None when reused), ptxas log, source_seconds (each
-# source's nvcc, all started together)
+# path, seconds (None when reused), ptxas log, ptxas_by_source (each
+# source's log), source_seconds (each source's nvcc)
 build_info: dict = {}
 
 
@@ -279,29 +288,19 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _run_all(cmds: list[list[str]]) -> tuple[str, list[float]]:
-    """Run the commands at once: their stderr and the seconds each took, or
-    raise on the first that fails."""
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, cwd=CSRC) for c in cmds]
-    errs, secs = [""] * len(procs), [0.0] * len(procs)
-
-    def wait(i):
-        errs[i] = procs[i].communicate()[1]
-        secs[i] = time.perf_counter() - t0
-
-    threads = [threading.Thread(target=wait, args=(i,))
-               for i in range(len(procs))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for c, p, err in zip(cmds, procs, errs):
+def _run_all(cmds: list[list[str]], jobs: int) -> list[tuple[str, float]]:
+    """Run the commands, at most ``jobs`` at once, in order: the stderr and
+    the seconds of each, or raise on the first that fails."""
+    def run(cmd):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
-                               f"{' '.join(c)}\n{err}")
-    return "".join(errs), secs
+                               f"{' '.join(cmd)}\n{p.stderr}")
+        return p.stderr, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=jobs) as pool:
+        return list(pool.map(run, cmds))
 
 
 def _build() -> Path:
@@ -311,27 +310,40 @@ def _build() -> Path:
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     out = out_dir / LIB_NAME
+    log = out_dir / "ptxas.json"
     if out.exists():
-        log = out_dir / "ptxas.log"
+        by_source = json.loads(log.read_text()) if log.exists() else {}
         build_info.update(path=str(out), seconds=None,
-                          ptxas=log.read_text() if log.exists() else "")
+                          ptxas="".join(by_source.values()),
+                          ptxas_by_source=by_source)
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    srcs = sorted(CSRC.glob("*.cu"))
+    # The largest sources (a proxy for nvcc's time) start first, so the pool
+    # ends together.  The pool leaves one CPU to the caller's other threads:
+    # on the H100 machine a thread beside 40 busy processes ran at a fifth of
+    # its speed at any niceness, beside 7 at full speed, and 7 compilers at
+    # once built in 72.9 s where 40 took 79.7 s.
+    srcs = sorted(CSRC.glob("*.cu"), key=lambda p: (-p.stat().st_size,
+                                                    p.name))
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    ptxas, secs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                            for o, src in zip(objs, srcs)])
+    jobs = max(1, len(os.sched_getaffinity(0)) - 1)
+    runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for o, src in zip(objs, srcs)], jobs)
     tmp = out_dir / f"{LIB_NAME}.{tag}"
-    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], 1)
     seconds = time.perf_counter() - t0
     for o in objs:
         o.unlink()
-    (out_dir / "ptxas.log").write_text(ptxas)
+    by_source = {s.name: err for s, (err, _) in zip(srcs, runs)}
+    log.write_text(json.dumps(by_source))
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    build_info.update(path=str(out), seconds=seconds, ptxas=ptxas,
-                      source_seconds=dict(zip((s.name for s in srcs), secs)))
+    build_info.update(path=str(out), seconds=seconds,
+                      ptxas="".join(by_source.values()),
+                      ptxas_by_source=by_source,
+                      source_seconds={s.name: sec
+                                      for s, (_, sec) in zip(srcs, runs)})
     return out
 
 

@@ -1,5 +1,5 @@
-"""Randomized quasi-Monte Carlo under GBM: rank-1 lattices and Sobol nets
-(port of the GBM half of ``mc_tpu/qmc.py:1-622``).
+"""Randomized quasi-Monte Carlo: rank-1 lattices and Sobol nets under GBM
+and under nine model families (port of ``mc_tpu/qmc.py``).
 
 For a smooth integrand a randomized-QMC estimator converges near O(1/N)
 instead of O(1/sqrt(N)).  Two point-set families, each generated from the
@@ -25,19 +25,30 @@ dimensions set the coarsest levels.  The error estimate comes from R
 independent randomizations (shifts from ``derive_key(seed, stream,
 0x51AC)``): stderr = e^{-rT} std(R shift means) / sqrt(R).
 
-Two kernels, in ``csrc/qmc_kernels.cu``, each taking all R shifts in one
-launch (blocks over (path block, shift), one f64 row per block and shift):
+``price_qmc_model`` runs the same point sets through a model family's
+step loop (Heston's and Bates's Euler legs, the basket, CEV, SABR, local
+vol, Vasicek, Merton, term curves): pair m of the point set feeds what the
+family draws as pair m on its MC stream, so each family's dimensions are
+its draws a path (``QMCModel.dims``); Merton and Bates read the Poisson
+counts' uniforms as raw coordinates, and Bates packs 4 dimensions a step.
 
-* ``qmc_sums`` (replaces ``_pallas_qmc_shift_sum``, ``mc_tpu/qmc.py:463``):
-  the payoff sum per shift, terminal or Euler, either point family;
+Three kernels, each taking all R shifts in one launch (blocks over (path
+block, shift), one f64 row per block and shift):
+
+* ``qmc_sums`` (replaces ``_pallas_qmc_shift_sum``, ``mc_tpu/qmc.py:463``;
+  ``csrc/qmc_kernels.cu``): the payoff sum per shift, terminal or Euler,
+  either point family;
 * ``qmc_bridge_sums`` (replaces ``_pallas_qmc_bridge_shift_sum``,
   ``mc_tpu/qmc.py:403``): the same with the bridge's W buffer in shared
-  memory.
+  memory;
+* ``qmc_model_sums`` (replaces ``_model_shift_mean_fn``'s Pallas call,
+  ``mc_tpu/qmc.py:824``; ``csrc/qmc_model.cuh``, one source a family):
+  the payoff sum per shift through a family's leg.
 
 Each wrapper takes its plain PyTorch version below only when the parameter
 tensor lies on the CPU; for a CUDA tensor it launches the kernel or raises.
-The model half of ``mc_tpu``'s QMC (``price_qmc_model``) is not ported yet
-(ROADMAP item 15).
+The shift-sharded ``price_qmc_model_sharded`` waits for the multi-card port
+(ROADMAP item 20).
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ import dataclasses
 import functools
 import math
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -59,13 +70,18 @@ from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
+from mc_tpu_torch.models import (basket, bates, cev, heston, localvol,
+                                 merton, sabr, term, vasicek)
+from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
 
 __all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "QMC_TAG", "prev_prime",
            "lattice_vector", "bridge_schedule", "sobol_directions",
            "QMCPointSet", "lattice_residue", "point_units", "point_unit",
            "qmc_draw_pair",
            "bridge_draw_pair", "qmc_pointset", "qmc_sums", "qmc_sums_plain",
-           "finish_qmc", "price_qmc", "price_qmc_model"]
+           "finish_qmc", "price_qmc", "QMC_MODELS", "QMCModel",
+           "qmc_model_dynamics", "qmc_model_pointset", "qmc_model_discount",
+           "qmc_model_sums", "qmc_model_sums_plain", "price_qmc_model"]
 
 MAX_LATTICE_N = 1 << 20  # the exact int32 residue's bound
 SOBOL_BITS = 30          # scipy's Joe-Kuo direction numbers are scaled to 2^30
@@ -452,10 +468,7 @@ def qmc_pointset(po: PathPayoff, sim: SimParams, n_shifts: int,
         raise ValueError("n_shifts >= 2 required for an error estimate")
     if bridge and method != "euler":
         raise ValueError("bridge=True requires method='euler'")
-    if family == "sobol":
-        n = 1 << min(int(math.log2(max(sim.n_paths, 2))), 20)
-    else:
-        n = prev_prime(sim.n_paths)
+    n = _point_count(family, sim.n_paths)
     d = 1 if method == "terminal" else sim.n_steps
     if bridge and (8192 // (sim.n_steps + 1)) // 8 * 8 < 8:
         # mc_tpu's limit (its kernel's (n_steps+1, 8, 128) f32 VMEM
@@ -463,6 +476,16 @@ def qmc_pointset(po: PathPayoff, sim: SimParams, n_shifts: int,
         raise ValueError(
             f"bridge=True needs a (n_steps+1, 8, 128) VMEM scratch; "
             f"n_steps={sim.n_steps} exceeds the budget (max ~1023)")
+    return method, _pointset(family, n, d, n_shifts, gamma, stream, seed,
+                             device)
+
+
+def _pointset(family: str, n: int, d: int, n_shifts: int, gamma: float,
+              stream: int, seed: int, device) -> QMCPointSet:
+    """The point set of n points in d dimensions under R = n_shifts shifts:
+    word 0 of threefry-20 at counters (k, 0), k over R*d, under
+    ``derive_key(seed, stream, 0x51AC)``, ``bits_to_unit`` for the lattice
+    (its generating vector by CBC), ``bits >> 2`` for Sobol."""
     key = rng.derive_key(seed, stream, QMC_TAG)
     sidx = torch.arange(n_shifts * d, dtype=torch.int64)
     bits, _ = rng.threefry2x32(int(key[0]), int(key[1]), sidx,
@@ -474,9 +497,16 @@ def qmc_pointset(po: PathPayoff, sim: SimParams, n_shifts: int,
     else:
         table = torch.from_numpy(lattice_vector(n, d, gamma).astype(np.int32))
         shifts = rng.bits_to_unit(bits).reshape(n_shifts, d)
-    ps = QMCPointSet(family=family, n=n, d=d, table=table.to(device),
-                     shifts=shifts.contiguous().to(device))
-    return method, ps
+    return QMCPointSet(family=family, n=n, d=d, table=table.to(device),
+                       shifts=shifts.contiguous().to(device))
+
+
+def _point_count(family: str, n_paths: int) -> int:
+    """Sobol: the largest power of two <= n_paths, at most 2^20; the
+    lattice: the largest prime <= n_paths (below 2^20)."""
+    if family == "sobol":
+        return 1 << min(int(math.log2(max(n_paths, 2))), 20)
+    return prev_prime(n_paths)
 
 
 def price_qmc(option: OptionParams = DEMO_OPTION,
@@ -509,18 +539,20 @@ def price_qmc(option: OptionParams = DEMO_OPTION,
     return finish_qmc(sums, ps.n, option)
 
 
-def finish_qmc(sums: torch.Tensor, n: int,
-               option: OptionParams) -> PriceResult:
+def finish_qmc(sums: torch.Tensor, n: int, option: OptionParams,
+               discount: Optional[float] = None) -> PriceResult:
     """The price from the (R,) f64 payoff sums of n points per shift: the
     mean and the sample variance of the R shift means, discounted at
-    e^{-rT} (f32, as ``finish_price``)."""
+    ``discount`` (default e^{-rT} in f32, as ``finish_price``)."""
     r_shifts = sums.shape[0]
     means = sums / n
     mean = means.mean()
     var = ((means - mean) ** 2).sum() / max(r_shifts - 1, 1)
-    r = torch.tensor(float(option.r), dtype=torch.float32)
-    t = torch.tensor(float(option.t), dtype=torch.float32)
-    disc = float(torch.exp(-r * t))
+    if discount is None:
+        r = torch.tensor(float(option.r), dtype=torch.float32)
+        t = torch.tensor(float(option.t), dtype=torch.float32)
+        discount = float(torch.exp(-r * t))
+    disc = discount
     return PriceResult(price=disc * mean,
                        stderr=disc * torch.sqrt(var / r_shifts),
                        n_paths=torch.tensor(float(n * r_shifts),
@@ -528,10 +560,271 @@ def finish_qmc(sums: torch.Tensor, n: int,
                        payoff_mean=mean, payoff_var=var)
 
 
-def price_qmc_model(model: str, *args, **kwargs) -> PriceResult:
-    """Randomized QMC under a model family: not ported yet (ROADMAP item
-    15, kernel #33)."""
-    raise NotImplementedError(
-        f"price_qmc_model({model!r}): QMC under a model family (mc_tpu's "
-        "_model_shift_mean_fn, kernel #33) is not ported to mc_tpu_torch "
-        "yet; price_qmc covers GBM")
+# ---------------------------------------------------------------------------
+# The model half: the same point sets under the model families
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QMCModel:
+    """A family that prices on a QMC point set: its FamilyId
+    (``csrc/family.cuh``), its demo dynamics at a step count, the dimensions
+    a step count takes (``dims(n_steps, extra)``), its pack, its params'
+    check and unpack, and its leg on a QMC draw (``models/<family>.qmc_pay``).
+    ``extra`` is the family's integer: the Poisson scan depth (Merton, Bates;
+    the unpacked ``p.kmax``), the knot count (local vol), d (the basket),
+    else 0."""
+
+    family_id: int
+    demo: Callable[[int], object]
+    dims: Callable[[int, int], int]
+    pack: Callable
+    check_params: Callable[[torch.Tensor, int, int], None]
+    unpack: Callable[[torch.Tensor, int], object]
+    leg: Callable
+    refuses_sigma: bool  # the packs without sigma: no bridge barriers
+    even_steps: bool     # the step loop consumes its draws in step pairs
+
+
+def _fixed(check):
+    """A params check that reads neither the step count nor the extra."""
+    return lambda params, n_steps, extra: check(params)
+
+
+def _with_kmax(unpack):
+    """An unpack that adds the Poisson scan depth as ``p.kmax``."""
+    def with_kmax(params, kmax):
+        p = unpack(params)
+        p.kmax = kmax
+        return p
+    return with_kmax
+
+
+def _qmc_term_demo(n_steps: int) -> term.TermStructure:
+    """``mc_tpu``'s model-QMC term curves: the knots 10%, 5% and 15%, 30%."""
+    return term.TermStructure.from_knots([0.10, 0.05], [0.15, 0.30], n_steps)
+
+
+QMC_MODELS = {
+    "heston": QMCModel(heston.FAMILY_HESTON, lambda n: heston.DEMO_HESTON,
+                       lambda n, e: 2 * n, heston.pack_heston,
+                       _fixed(heston.check_heston_params),
+                       lambda prm, e: heston.unpack_heston(prm),
+                       heston.qmc_pay, True, False),
+    "bates": QMCModel(bates.FAMILY_BATES, lambda n: bates.DEMO_BATES,
+                      lambda n, e: 4 * n, bates.pack_bates,
+                      _fixed(bates.check_bates_params),
+                      _with_kmax(bates.unpack_bates), bates.qmc_pay, True,
+                      False),
+    "basket": QMCModel(basket.FAMILY_BASKET, lambda n: basket.DEMO_BASKET,
+                       lambda n, d: 2 * ((d + 1) // 2) * n,
+                       basket.pack_basket,
+                       lambda prm, n, d: basket.check_basket_params(prm, d),
+                       basket.unpack_basket, basket.qmc_pay, False, False),
+    "cev": QMCModel(cev.FAMILY_CEV, lambda n: cev.DEMO_CEV, lambda n, e: n,
+                    cev.pack_cev, _fixed(cev.check_cev_params),
+                    lambda prm, e: cev.unpack_cev(prm), cev.qmc_pay, True,
+                    True),
+    "sabr": QMCModel(sabr.FAMILY_SABR, lambda n: sabr.DEMO_SABR,
+                     lambda n, e: 2 * n, sabr.pack_sabr,
+                     _fixed(sabr.check_sabr_params),
+                     lambda prm, e: sabr.unpack_sabr(prm), sabr.qmc_pay,
+                     True, False),
+    "localvol": QMCModel(localvol.FAMILY_LOCALVOL,
+                         localvol.LocalVolSurface.demo, lambda n, e: n,
+                         localvol.pack_localvol,
+                         lambda prm, n, k: localvol.check_localvol_params(
+                             prm, k, n),
+                         localvol.unpack_localvol, localvol.qmc_pay, False,
+                         True),
+    "vasicek": QMCModel(vasicek.FAMILY_VASICEK,
+                        lambda n: vasicek.DEMO_VASICEK, lambda n, e: 3 * n,
+                        vasicek.pack_vasicek,
+                        _fixed(vasicek.check_vasicek_params),
+                        lambda prm, e: vasicek.unpack_vasicek(prm),
+                        vasicek.qmc_pay, False, True),
+    "merton": QMCModel(merton.FAMILY_MERTON, lambda n: merton.DEMO_MERTON,
+                       lambda n, e: 3 * n, merton.pack_merton,
+                       _fixed(merton.check_merton_params),
+                       _with_kmax(merton.unpack_merton), merton.qmc_pay,
+                       False, True),
+    "term": QMCModel(term.FAMILY_TERM, _qmc_term_demo, lambda n, e: n,
+                     term.pack_term,
+                     lambda prm, n, e: term.check_term_params(prm, n),
+                     lambda prm, e: term.unpack_term(prm), term.qmc_pay,
+                     False, True),
+}
+_MODEL_ERROR = ("QMC model must be one of 'heston', 'bates', 'basket', 'cev', "
+                "'sabr', 'localvol', 'vasicek', 'merton', 'term'; got {!r}")
+
+
+def _model(model: str) -> QMCModel:
+    if model not in QMC_MODELS:
+        raise ValueError(_MODEL_ERROR.format(model))
+    return QMC_MODELS[model]
+
+
+def _check_model(model: str, payoff: PathPayoff, ps: QMCPointSet,
+                 params: torch.Tensor, n_steps: int, extra: int) -> QMCModel:
+    m = _model(model)
+    ps.check()
+    m.check_params(params, n_steps, extra)
+    if ps.table.device != params.device:
+        raise ValueError("the point set and params must share a device")
+    need = m.dims(n_steps, extra)
+    if ps.d != need:
+        raise ValueError(f"{model} over {n_steps} steps reads {need} "
+                         f"dimensions; the point set has {ps.d}")
+    if m.refuses_sigma and payoff.name in SIGMA_PAYOFFS:
+        raise ValueError(
+            f"{payoff.name} corrects for crossings with the GBM bridge "
+            f"probability, which reads sigma; the {model} parameters have no "
+            "sigma (mc_tpu fails on it too)")
+    return m
+
+
+def qmc_model_sums_plain(model: str, payoff: PathPayoff, ps: QMCPointSet,
+                         params: torch.Tensor, n_steps: int, extra: int = 0,
+                         ids: Optional[torch.Tensor] = None):
+    """Plain version of the qmc_model_sums kernel: (chunks, R, 1) f64, row c
+    the payoff sums of chunk c's points through ``model``'s leg under each
+    shift.  ``ids``: the (int64) point ids to sum, by default all ``ps.n``."""
+    m = _check_model(model, payoff, ps, params, n_steps, extra)
+    p = m.unpack(params, extra)
+    if ids is None:
+        ids = torch.arange(ps.n, dtype=torch.int64, device=params.device)
+    per = max(1, PLAIN_ELEMS[params.device.type] // ps.n_shifts)
+    rows = []
+    for chunk in ids.split(per):
+        like = torch.zeros((ps.n_shifts, chunk.shape[0]),
+                           dtype=torch.float32, device=params.device)
+        pay = m.leg(payoff, p, n_steps, like,
+                    qmc_draw_pair(ps, chunk, "euler"))
+        rows.append(pay.double().sum(dim=1, keepdim=True))
+    return torch.stack(rows)
+
+
+def qmc_model_sums(model: str, payoff: PathPayoff, ps: QMCPointSet,
+                   params: torch.Tensor, n_steps: int, extra: int = 0):
+    """(rows, R, 1) f64: the payoff sums of the ``ps.n`` points through
+    ``model``'s leg (``params`` from its pack) over ``n_steps`` under each
+    of the R shifts (``finish_sum`` gives the (R, 1) sums); ``extra`` the
+    family's integer (``QMCModel``).  One launch of the qmc_model kernel for
+    all R shifts on the card."""
+    m = _check_model(model, payoff, ps, params, n_steps, extra)
+    if params.device.type == "cpu":
+        return qmc_model_sums_plain(model, payoff, ps, params, n_steps, extra)
+    lib = _cuda.load()
+    n_bx = min(_cuda.cdiv(ps.n, lib.mc_qmc_model_block_threads()),
+               _cuda.MAX_BLOCKS)
+    partials = torch.empty((n_bx, ps.n_shifts, 1), dtype=torch.float64,
+                           device=params.device)
+    with torch.cuda.device(params.device):
+        status = lib.mc_qmc_model_sums(
+            m.family_id, payoff.cuda_id, FAMILIES[ps.family], ps.n, ps.d,
+            ps.table.data_ptr(), ps.shifts.data_ptr(), ps.n_shifts,
+            params.data_ptr(), n_steps, extra, partials.data_ptr(), n_bx,
+            _cuda.stream_handle(params.device))
+    _cuda.check(status, f"qmc_model_sums kernel ({model})")
+    _cuda.count_launch("qmc_model_sums")
+    return partials
+
+
+def _even_steps(name: str, n_steps: int) -> None:
+    if n_steps % 2:
+        raise ValueError(f"{name} requires an even n_steps "
+                         "(pair-consuming step loop)")
+
+
+def qmc_model_dynamics(model: str, dyn, n_steps: int):
+    """``mc_tpu``'s per-model checks of ``_qmc_model_pointset``, raising
+    where it raises: ``(dyn as f32, extra)``, the family's demo dynamics for
+    None (``QMCModel.demo``); ``extra`` is d for the basket, the knot count
+    for local vol, else 0 (Merton's and Bates's kmax comes with the
+    maturity, ``qmc_model_pointset``)."""
+    m = _model(model)
+    if dyn is None:
+        dyn = m.demo(n_steps)
+    if model == "localvol":
+        dyn = localvol.validate_surface(dyn, n_steps)
+    else:
+        dyn = dyn.as_f32()
+    if model == "term" and dyn.n_steps != n_steps:
+        raise ValueError("term structure must carry one knot per step")
+    if m.even_steps:
+        _even_steps("CEV" if model == "cev" else model, n_steps)
+    extra = (dyn.d if model == "basket" else
+             dyn.n_knots if model == "localvol" else 0)
+    return dyn, extra
+
+
+def qmc_model_pointset(model: str, option: OptionParams, dyn, sim: SimParams,
+                       payoff="vanilla_call", *, n_shifts: int = 16,
+                       family: str = "sobol", gamma: float = 0.1,
+                       stream: int = STREAM_OUTER, device):
+    """``mc_tpu``'s validated model point-set construction
+    (``_qmc_model_pointset``, the same checks raising where it raises):
+    ``(payoff, dyn as f32, extra, QMCPointSet)``.  n is the largest power of
+    two <= sim.n_paths (at most 2^20) for Sobol, the largest prime for the
+    lattice; the dimensions are the family's (2 n_steps for Heston and
+    SABR, n_steps for CEV, local vol and term, 3 n_steps for Vasicek and
+    Merton, 4 n_steps for Bates, 2 ceil(d/2) n_steps for the basket); the
+    shifts are ``qmc_pointset``'s."""
+    po = get_payoff(payoff)
+    po.validate(option, sim.n_steps)
+    dyn, extra = qmc_model_dynamics(model, dyn, sim.n_steps)
+    if family not in FAMILIES:
+        raise ValueError(f"unknown QMC family {family!r}")
+    if n_shifts < 2:
+        raise ValueError("n_shifts >= 2 required for an error estimate")
+    if model in ("merton", "bates"):
+        extra = merton.poisson_kmax(float(dyn.lam) * float(option.t)
+                                    / sim.n_steps)
+    n = _point_count(family, sim.n_paths)
+    d = _model(model).dims(sim.n_steps, extra)
+    return po, dyn, extra, _pointset(family, n, d, n_shifts, gamma, stream,
+                                     sim.seed, device)
+
+
+def qmc_model_discount(model: str, option: OptionParams, dyn) -> float:
+    """The date-0 discount of a family's payoff mean (``mc_tpu``'s
+    ``_model_qmc_discount``): 1 for Vasicek, whose leg discounts pathwise;
+    e^{-mean(rates) T} for term, the mean in XLA's f32 reduction order
+    (``term.mean_f32``); e^{-rT} otherwise; in f32."""
+    t = torch.tensor(float(option.t), dtype=torch.float32)
+    if model == "vasicek":
+        return 1.0
+    if model == "term":
+        rates = torch.from_numpy(np.asarray(dyn.rates, np.float32))
+        return float(torch.exp(-term.mean_f32(rates) * t))
+    r = torch.tensor(float(option.r), dtype=torch.float32)
+    return float(torch.exp(-r * t))
+
+
+def price_qmc_model(model: str,
+                    option: OptionParams = DEMO_OPTION,
+                    dyn=None,
+                    sim: SimParams = DEMO_SIM,
+                    payoff="vanilla_call",
+                    *,
+                    n_shifts: int = 16,
+                    family: str = "sobol",
+                    gamma: float = 0.1,
+                    stream: int = STREAM_OUTER,
+                    device="cuda") -> PriceResult:
+    """Randomized-QMC price under a model family on ``device``: "heston"
+    (the Euler leg), "bates" (Euler), "basket", "cev", "sabr", "localvol",
+    "vasicek", "merton" or "term"; ``dyn`` the family's dynamics (None: its
+    demo, ``qmc_model_dynamics``).  Pair m of the point set feeds what the
+    family's step loop draws as pair m (Merton's and Bates's Poisson counts
+    read raw coordinates); ``family="sobol"`` (default) or "lattice".  The
+    stderr comes from the spread of the ``n_shifts`` shift means; the sums
+    finish in f64, discounted by ``qmc_model_discount``."""
+    po, dyn32, extra, ps = qmc_model_pointset(
+        model, option, dyn, sim, payoff, n_shifts=n_shifts, family=family,
+        gamma=gamma, stream=stream, device=resolve_device(device))
+    params = _model(model).pack(option, dyn32, sim.n_steps, ps.table.device)
+    sums = finish_sum(qmc_model_sums(model, po, ps, params, sim.n_steps,
+                                     extra))[:, 0]
+    return finish_qmc(sums, ps.n, option,
+                      qmc_model_discount(model, option, dyn32))

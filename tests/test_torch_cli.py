@@ -680,8 +680,8 @@ def test_rainbow_subcommand_matches_mc_tpus(n_assets, payoff, capsys):
 @pytest.mark.parametrize("family,payoff", [("lattice", "vanilla_call"),
                                            ("sobol", "asian_call")])
 def test_qmc_subcommand_matches_mc_tpus(family, payoff, capsys):
-    """qmc --model gbm: mc_tpu's keys and fields; --model heston waits for
-    the model half."""
+    """qmc --model gbm: mc_tpu's keys and fields; --model heston prices
+    (against mc_tpu: tests/test_torch_qmc_model_cases.py)."""
     from mc_tpu_torch import cli
 
     argv = ["qmc", "--n-paths", "2000", "--n-steps", "6", "--n-shifts", "4",
@@ -695,8 +695,12 @@ def test_qmc_subcommand_matches_mc_tpus(family, payoff, capsys):
     if payoff == "vanilla_call":
         assert res["black_scholes"] == pytest.approx(want["black_scholes"],
                                                      rel=1e-6)
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["qmc", "--model", "heston", "--device", "cpu"])
+    assert cli.main(["qmc", "--model", "heston", "--n-paths", "1024",
+                     "--n-steps", "4", "--n-shifts", "2", "--device",
+                     "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["model"] == "heston" and res["point_n"] == 1021
+    assert res["stderr"] > 0 and res["cf_oracle"] > 0
 
 
 def test_nmc_model_rainbow_is_its_price_nmc(capsys):

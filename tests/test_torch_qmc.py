@@ -300,8 +300,8 @@ def test_guards_raise_where_mc_tpu_raises():
     """Each of mc_tpu's guards, in both packages: one shift, a
     path-dependent payoff on the terminal draw, the bridge off Euler, an
     unknown family, the bridge past its step limit (mc_tpu's VMEM
-    budget, kept for parity, ROADMAP C20); the model half raises until it
-    is ported."""
+    budget, kept for parity, ROADMAP C20); the model half prices (its
+    guards: tests/test_torch_qmc_model_cases.py)."""
     cases = [(dict(n_shifts=1), "n_shifts"),
              (dict(payoff="bullet_call", method="terminal"), "terminal"),
              (dict(bridge=True, method="terminal"), "bridge"),
@@ -318,7 +318,9 @@ def test_guards_raise_where_mc_tpu_raises():
     r = qmc.price_qmc(sim=mt.SimParams(n_paths=1 << 10, n_steps=1000),
                       method="euler", n_shifts=2, bridge=True, device="cpu")
     assert math.isfinite(float(r.price)) and float(r.stderr) > 0
-    with pytest.raises(NotImplementedError, match="#33"):
-        qmc.price_qmc_model("heston")
+    r = qmc.price_qmc_model("heston", sim=mt.SimParams(n_paths=1 << 10,
+                                                       n_steps=4),
+                            n_shifts=2, device="cpu")
+    assert math.isfinite(float(r.price)) and float(r.stderr) > 0
     with pytest.raises(TypeError):
         qmc.price_qmc(engine="pallas", device="cpu")
