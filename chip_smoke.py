@@ -47,7 +47,11 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    nine families (the call and the Asian on both point families, every
    payoff of Heston and of the basket at d = 4, the basket at d = 1, 9, 32)
    at 4,096 / 4,099 points x 100 on two shifts, its sums bitwise or within
-   2e-16; their sums to f64 rounding and their
+   2e-16; the rates kernel #11 under its five European swaption tiles
+   (Vasicek, Hull-White and G2++, the last two also multi-curve), payer and
+   receiver, at 1, 10 and 60 payments on 2^20 paths, 100,001 paths and an
+   offset run whose bound falls short of its end, its rows bitwise; their
+   sums to f64 rounding and their
    grids and surfaces bit for bit (every NMC at NMC_SMALL in full, at the
    main shape against the plain row 99, the GBM and rainbow NMC rows 0 and
    99);
@@ -111,9 +115,17 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    or against its own MC kernel on the same scheme (Heston and Bates with
    the CF price beside, CEV also on the lattice, SABR, the basket at
    d = 4), its stderr against plain MC's at the same budget, and
-   ``qmc --model heston|bates --family sobol``;
-4. the kernels' launch counts over each of the fifteen paths (#33's per
-   family);
+   ``qmc --model heston|bates --family sobol``; then, the counts set to 0,
+   the rates path: price_swaption, price_hw_swaption (on the demo curve,
+   on a curve bootstrapped from par swaps, and multi-curve at a 25 bp
+   projection spread) and price_g2_swaption (single- and multi-curve) at
+   2^20 paths, payer and receiver, each within 4 stderr of its oracle
+   (Jamshidian, the curve-consistent Jamshidian, the conditional-Jamshidian
+   G2++ price, the multi-curve quadratures), and ``swaption``,
+   ``hullwhite --proj-spread-bp 25`` and ``g2pp`` against the library call
+   bit for bit;
+4. the kernels' launch counts over each of the sixteen paths (#33's per
+   family; #11's per tile, one per price_* call);
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up; the NMC kernels and calls once, in phases 2 and 3; the
    plain versions once), the
@@ -127,7 +139,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    Heston's, the term and dividend kernels beside CEV's, the Vasicek
    kernels beside Merton's, the basket kernels beside Heston's, the FX
    kernel beside terminal_pair, the rainbow kernels beside the basket's,
-   the QMC kernels on both families, #33 per family (the NMC kernels' times are their
+   the QMC kernels on both families, #33 per family, #11 per tile at 2^20
+   and 2^24 paths with 10 payments and at 2^20 with 60 (the NMC kernels' times are their
    phase-2 calls' and the NMC calls' their phase-3 calls'), and
    end-to-end
    times of the phase-3 calls (greeks() by route, chunked_price(),
@@ -137,7 +150,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    price_divs(), price_nmc_sabr(), price_nmc_term(), price_vasicek(),
    price_nmc_vasicek(), price_basket(), price_nmc_basket(), price_fx(),
    price_rainbow(), price_nmc_rainbow(), price_qmc(), price_qmc_model()
-   (its phase-3 calls));
+   (its phase-3 calls), price_swaption(), price_hw_swaption(),
+   price_g2_swaption());
 6. one JSON line of per-kernel results (with each kernel's bound), then the
    JSON status line.
 
@@ -2931,6 +2945,273 @@ def qmc_model_times(mt, dev, ptxas, tag, plain_ms, e2e):
     return out
 
 
+# --- the rates slice: kernel #11 (the European swaptions) -------------------
+
+RATES_TILES = ("va", "hw", "hw_mc", "g2", "g2_mc")
+RATES_ROWS = tuple(f"rates_partials_{t}" for t in RATES_TILES)
+RATES_PATHS = 1 << 20          # mc_tpu's default n_paths for every price_*
+RATES_BIG = 1 << 24            # phase 5: the kernel at 2^24 paths too
+RATES_N_PAY = (1, 10, 60)      # 60: a 30-year semiannual swap
+RATES_OVERHANG = 100_001       # a part-full last block
+# phase 2: (paths, path_offset, bound): ids past 2^20, the bound short of
+# the end
+RATES_OFFSET = (500_000, 1_234_567, 1_234_567 + 499_000)
+RATES_RTOL = 2e-16             # phase 2: bitwise, or one f64 rounding
+RATES_SE = 4.0                 # phase 3: tests/test_rates_fused.py:42,59,103
+RATES_SPREAD = 0.0025          # the multi-curve tiles' projection spread
+# A bond (rates.cuh): ratio * expf(-B x - c) or expf(logA - B r) and the
+# fixed leg's add (3 f32, an expf); the draw's x and y (G2++: and z), the
+# swap, its sign, the max and the discount (~10 f32 and an expf).
+RATES_BOND_OPS = (0, 3, 1)
+RATES_PATH_OPS = (0, 10, 1)
+
+
+def rates_demo(mt, tile: str, n_pay: int, payer: bool):
+    """(spec, pricer kwargs) of ``tile`` on the demo dynamics and curve, the
+    multi-curve tiles at a RATES_SPREAD projection spread."""
+    spec = mt.SwaptionSpec(n_payments=n_pay, payer=payer)
+    kw = {}
+    if tile.endswith("_mc"):
+        kw["projection_curve"] = mt.DiscountCurve(
+            mt.DEMO_CURVE.times, mt.DEMO_CURVE.zeros + RATES_SPREAD)
+    return spec, kw
+
+
+def rates_pack(mt, dev, tile: str, n_pay: int, payer: bool):
+    """(pv on dev, key) that price_<model>() hands #11 for ``tile``."""
+    from mc_tpu_torch import rng
+    from mc_tpu_torch.models import g2pp, hullwhite, swaption
+
+    spec, kw = rates_demo(mt, tile, n_pay, payer)
+    proj = kw.get("projection_curve")
+    if tile == "va":
+        d = mt.DEMO_VASICEK.as_f32()
+        pv = swaption.pack_va_swpt(spec, d.a, d.b, d.sigma_r, 0.05, dev)
+        tag = swaption.SWAPTION_TAG
+    elif tile.startswith("hw"):
+        hw, curve = mt.DEMO_HW, mt.DEMO_CURVE
+        pv = hullwhite.pack_hw_swpt(hw.a, hw.sigma_r, spec,
+                                    *hullwhite.hw_tables(spec, hw, curve),
+                                    dev)
+        if proj is not None:
+            pv = hullwhite.pack_multicurve(pv, *hullwhite.hw_mc_weights(
+                spec, curve, proj))
+        tag = hullwhite.HW_TAG
+    else:
+        g2, curve = mt.DEMO_G2, mt.DEMO_CURVE
+        pv = g2pp.pack_g2_swpt(spec, g2, g2pp.g2_tables(spec, g2, curve), dev)
+        if proj is not None:
+            pv = hullwhite.pack_multicurve(pv, *hullwhite.hw_mc_weights(
+                spec, curve, proj))
+        tag = g2pp.G2_TAG
+    return pv, tuple(int(k) for k in rng.derive_key(1234, 0, tag))
+
+
+def rates_checks(mt, dev):
+    """Phase 2 of the rates slice: #11 against its plain version on the card
+    for all five tiles, payer and receiver, at n_payments 1, 10 and 60, on
+    RATES_PATHS paths, RATES_OVERHANG paths and RATES_OFFSET (a nonzero
+    path_offset, the bound short of the end): the rows bitwise (the plain
+    version adds in the kernel's order), the sums within RATES_RTOL.  Each
+    check is deferred (its plain half runs now).  Returns ({row: max abs
+    error of a price}, {tile: the plain version's ms at RATES_PATHS, n = 10,
+    payer, host clock}), filled by the kernel pass."""
+    from mc_tpu_torch.ops import fused
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    err = dict.fromkeys(RATES_ROWS, 0.0)
+    plain_ms = {}
+
+    def check(tile, n_pay, payer, n_paths, offset=0, bound=None):
+        pv, key = rates_pack(mt, dev, tile, n_pay, payer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fused.fused_moment_partials_plain(tile, n_pay, key, pv,
+                                                 n_paths, offset, bound)
+        torch.cuda.synchronize()
+        if (n_pay, payer, n_paths, offset) == (10, True, RATES_PATHS, 0):
+            plain_ms[tile] = (time.perf_counter() - t0) * 1e3
+        yield
+        got = fused.fused_moment_partials(tile, n_pay, key, pv, n_paths,
+                                          offset, bound)
+        row = f"rates_partials_{tile}"
+        rows_same = got.shape == want.shape and share(got == want)
+        check_sums(f"{row} {'payer' if payer else 'receiver'} n={n_pay} "
+                   f"{n_paths} paths offset {offset} bound {bound} (rows "
+                   f"{rows_same:.4f} bitwise)", finish_sum(got),
+                   finish_sum(want), RATES_RTOL)
+        err[row] = max(err[row], float(
+            (finish_sum(got) - finish_sum(want)).abs().max()) / n_paths)
+
+    for tile in RATES_TILES:
+        for payer in (True, False):
+            for n_pay in RATES_N_PAY:
+                for shape in ((RATES_PATHS,), (RATES_OVERHANG,),
+                              RATES_OFFSET):
+                    defer(check(tile, n_pay, payer, *shape))
+    return err, plain_ms
+
+
+def rates_path(mt, dev, _cuda, e2e):
+    """Phase 3 of the rates slice at full width: every pricer at mc_tpu's
+    default RATES_PATHS on the demo specs, payer and receiver, within
+    RATES_SE stderr of its oracle: Vasicek against Jamshidian, Hull-White
+    on the demo curve and on one bootstrapped from par swaps, Hull-White
+    multi-curve at a 25 bp projection spread, G2++ and G2++ multi-curve;
+    ``swaption``, ``hullwhite --proj-spread-bp 25`` and ``g2pp`` against
+    the library call with the command's arguments, bit for bit.  The counts
+    set to 0 before and read after: {row: launches}, each equal to the
+    price_* calls of its tile.  ``e2e[label]``: a pricer (payer) for phase
+    5."""
+    from mc_tpu_torch import oracle
+
+    _cuda.reset_launch_counts()
+    sim = mt.SimParams(n_paths=RATES_PATHS, n_steps=1)
+    curve = mt.DEMO_CURVE
+    tenor = mt.DEMO_SWAPTION.tenor
+    mats = [0.5, 1.0, 2.0, 3.0, 5.0, 10.0]
+
+    def par_rate(t_m):
+        dfs = [curve.df(tenor * j) for j in range(1, round(t_m / tenor) + 1)]
+        return (1.0 - dfs[-1]) / (tenor * sum(dfs))
+
+    boot = mt.DiscountCurve.from_par_swaps(mats, [par_rate(m) for m in mats],
+                                           tenor=tenor)
+    # the projection curve as the hullwhite command builds it
+    proj = mt.DiscountCurve(curve.times, [z + 25 * 1e-4 for z in curve.zeros])
+    va, hw, g2 = mt.DEMO_VASICEK, mt.DEMO_HW, mt.DEMO_G2
+    g2a = (g2.a, g2.sigma, g2.b_mr, g2.eta, g2.rho)
+    calls = dict.fromkeys(RATES_TILES, 0)
+
+    def args(spec):
+        return (spec.expiry, spec.tenor, spec.n_payments, spec.k_rate,
+                spec.payer)
+
+    # (label, tile, pricer of a spec, oracle of a spec)
+    cases = (
+        ("price_swaption() Vasicek", "va",
+         lambda s: mt.price_swaption(s, va, sim, device=DEVICE),
+         lambda s: oracle.vasicek_swaption(0.05, va.a, va.b, va.sigma_r,
+                                           *args(s))),
+        ("price_hw_swaption() demo curve", "hw",
+         lambda s: mt.price_hw_swaption(s, hw, curve, sim, device=DEVICE),
+         lambda s: oracle.hw_swaption(hw.a, hw.sigma_r, curve.df, *args(s))),
+        ("price_hw_swaption() par-swap curve", "hw",
+         lambda s: mt.price_hw_swaption(s, hw, boot, sim, device=DEVICE),
+         lambda s: oracle.hw_swaption(hw.a, hw.sigma_r, boot.df, *args(s))),
+        ("price_hw_swaption() multi-curve +25bp", "hw_mc",
+         lambda s: mt.price_hw_swaption(s, hw, curve, sim,
+                                        projection_curve=proj, device=DEVICE),
+         lambda s: oracle.hw_swaption_multicurve(hw.a, hw.sigma_r, curve.df,
+                                                 proj.df, *args(s))),
+        ("price_g2_swaption() demo curve", "g2",
+         lambda s: mt.price_g2_swaption(s, g2, curve, sim, device=DEVICE),
+         lambda s: oracle.g2_swaption(*g2a, curve.df, *args(s))),
+        ("price_g2_swaption() multi-curve +25bp", "g2_mc",
+         lambda s: mt.price_g2_swaption(s, g2, curve, sim,
+                                        projection_curve=proj, device=DEVICE),
+         lambda s: oracle.g2_swaption_multicurve(*g2a, curve.df, proj.df,
+                                                 *args(s))))
+    for label, tile, price, ref in cases:
+        for payer in (True, False):
+            spec = mt.SwaptionSpec(payer=payer)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = price(spec)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            calls[tile] += 1
+            want = ref(spec)
+            p, se = float(res.price), float(res.stderr)
+            d = abs(p - want)
+            print(f"phase 3: {label} {'payer' if payer else 'receiver'} "
+                  f"{RATES_PATHS} paths: {p:.8f} +/- {se:.3e} vs its oracle "
+                  f"{want:.8f}: |d| {d:.3e} = {d / se:.2f} se (limit "
+                  f"{RATES_SE:g}); {secs * 1e3:.2f} ms")
+            if not (math.isfinite(p) and se > 0 and d <= RATES_SE * se):
+                fail(f"{label} misses its oracle")
+            if payer:
+                e2e[label] = lambda price=price, spec=spec: price(spec)
+    n = str(RATES_PATHS)
+    for argv, tile, own in (
+            (["swaption", "-N", n], "va",
+             lambda: mt.price_swaption(sim=mt.SimParams(n_paths=RATES_PATHS),
+                                       r0=0.1, device=DEVICE)),
+            (["hullwhite", "-N", n, "--proj-spread-bp", "25"], "hw_mc",
+             lambda: mt.price_hw_swaption(
+                 mt.SwaptionSpec(k_rate=0.04), sim=mt.SimParams(
+                     n_paths=RATES_PATHS), projection_curve=proj,
+                 device=DEVICE)),
+            (["g2pp", "-N", n], "g2",
+             lambda: mt.price_g2_swaption(
+                 mt.SwaptionSpec(k_rate=0.04),
+                 sim=mt.SimParams(n_paths=RATES_PATHS), device=DEVICE))):
+        c = run_cli(argv + ["--device", DEVICE])
+        lib = own()
+        calls[tile] += 2
+        print(f"phase 3: python -m mc_tpu_torch {' '.join(argv)}: {c}; the "
+              f"library call {float(lib.price)!r}")
+        if not (c["price"] == float(lib.price) and abs(c["z_score"])
+                <= RATES_SE):
+            fail(f"the {argv[0]} command is off")
+    launches = {f"rates_partials_{t}": _cuda.launch_counts[
+        f"rates_partials_{t}"] for t in RATES_TILES}
+    if launches != {f"rates_partials_{t}": n for t, n in calls.items()}:
+        fail(f"#11 launched {launches} times over {calls} price_* calls")
+    return launches
+
+
+def rates_bounds():
+    """bound() of #11 per tile at RATES_PATHS, 10 payments (a few hundred
+    bytes of pack and 16 bytes a block: operations bound): the pair, the
+    bonds, the path's own work and two f64 adds; G2++ its third normal."""
+    out = {}
+    for tile in RATES_TILES:
+        ops = _add(pair_ops(13), _scale(RATES_BOND_OPS, 10), RATES_PATH_OPS)
+        if tile.startswith("g2"):
+            ops = _add(ops, unit_ops(13, 1), INV_CDF_OPS)
+        out[f"rates_partials_{tile}"] = bound(0, _scale(ops, RATES_PATHS),
+                                              2 * RATES_PATHS)
+    return out
+
+
+def rates_times(mt, dev, ptxas, tag, plain_ms, e2e):
+    """Phase 5 of #11: each tile (CUDA events) at RATES_PATHS and RATES_BIG
+    paths with 10 payments and at RATES_PATHS with 60, its registers
+    (``ptxas``: rates_kernels.cu's log), the plain version's phase-2 time,
+    and each pricer end to end (e2e_report).  Returns {row: (ms at
+    RATES_PATHS, n = 10; plain ms)}."""
+    from mc_tpu_torch.ops import fused
+
+    regs = entry_registers(ptxas, "rates_partials_kernel")
+    out = {}
+    for tile in RATES_TILES:
+        times = {}
+        for n_paths, n_pay in ((RATES_PATHS, 10), (RATES_BIG, 10),
+                               (RATES_PATHS, 60)):
+            pv, key = rates_pack(mt, dev, tile, n_pay, True)
+            k_ms, sp, _ = cuda_ms(lambda: fused.fused_moment_partials(
+                tile, n_pay, key, pv, n_paths), reps=3)
+            times[(n_paths, n_pay)] = k_ms
+            print(f"phase 5: rates_partials {tile} {n_paths} paths n={n_pay}:"
+                  f" kernel {k_ms:.4f} ms (spread {sp:.1%}, 3 reps), "
+                  f"{n_paths / k_ms * 1e3:.4e} paths/s {tag}")
+        b_ms, _ = rates_bounds()[f"rates_partials_{tile}"]
+        print(f"phase 5: rates_partials {tile}: {RATES_PATHS} paths n=10 "
+              f"{times[(RATES_PATHS, 10)]:.4f} ms against its bound "
+              f"{b_ms:.4f} ms ({b_ms / times[(RATES_PATHS, 10)]:.1%}), "
+              f"2^24 paths {times[(RATES_BIG, 10)] / times[(RATES_PATHS, 10)]:.2f}x"
+              f" the 2^20 time, n=60 {times[(RATES_PATHS, 60)] / times[(RATES_PATHS, 10)]:.2f}x"
+              f" n=10; plain {plain_ms[tile]:.2f} ms (phase 2, host clock) "
+              f"{tag}")
+        out[f"rates_partials_{tile}"] = (times[(RATES_PATHS, 10)],
+                                         plain_ms[tile])
+    print(f"phase 5: rates_partials registers {regs} {tag}")
+    e2e_report(tuple((f"{label} payer {RATES_PATHS} paths", "paths/s",
+                      RATES_PATHS, fn) for label, fn in e2e.items()), tag)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3065,6 +3346,8 @@ def main() -> int:
         lap("the FX, rainbow and QMC checks' plain versions")
         qm_err, qm_plain_ms = qmc_model_checks(mt, dev)
         lap("the model-QMC checks' plain versions")
+        rates_err, rates_plain_ms = rates_checks(mt, dev)
+        lap("the rates checks' plain versions")
     print(f"phase 2: {len(_DEFERRED)} checks' plain halves done "
           f"{time.perf_counter() - t0:.1f} s after the build started")
     builder.join()
@@ -3976,7 +4259,7 @@ def main() -> int:
                 + CEV_KERNELS + LOCALVOL_KERNELS + SABR_KERNELS
                 + TERM_KERNELS + DIVS_KERNELS + VASICEK_KERNELS
                 + BASKET_KERNELS + FX_KERNELS + RAINBOW_KERNELS
-                + QMC_KERNELS + QMC_MODEL_KERNELS}
+                + QMC_KERNELS + QMC_MODEL_KERNELS + RATES_ROWS}
     families = ("heston", "merton", "bates", "cev", "localvol", "sabr",
                 "term", "divs", "vasicek", "basket")
     lap("the GBM path", 3)
@@ -3992,6 +4275,9 @@ def main() -> int:
     qm_e2e = {}
     family_launches["qmc_model"] = qmc_model_path(mt, dev, _cuda, qm_e2e)
     lap("the model-QMC path (each family's block with the counts at 0)", 3)
+    rates_e2e = {}
+    family_launches["rates"] = rates_path(mt, dev, _cuda, rates_e2e)
+    lap("the rates path", 3)
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
@@ -4003,7 +4289,8 @@ def main() -> int:
     launches.update(family_launches["heston"])
     # the kernels line's rows: the family kernels per family (and the
     # generic trajectories' rows under CEV, SABR, term and the basket)
-    for family in families[1:] + ("fx", "rainbow", "qmc", "qmc_model"):
+    for family in families[1:] + ("fx", "rainbow", "qmc", "qmc_model",
+                                  "rates"):
         for k, n in family_launches[family].items():
             suffixed = (k.startswith("family_i") or k.startswith("family_f")
                         or (family in ("cev", "sabr", "term", "basket",
@@ -4223,6 +4510,9 @@ def main() -> int:
     qm_ms = qmc_model_times(mt, dev, _cuda.build_info.get("ptxas_by_source",
                                                           {}), tag,
                             qm_plain_ms, qm_e2e)
+    rates_ms = rates_times(mt, dev, _cuda.build_info.get(
+        "ptxas_by_source", {}).get("rates_kernels.cu", ""), tag,
+        rates_plain_ms, rates_e2e)
     # the family kernels' plain ms: their rows in phase 2
     for ms, rows_ms in ((jump_ms, jump_rows_ms), (single_ms, single_rows_ms)):
         for family, nmc_ms in rows_ms.items():
@@ -4322,6 +4612,7 @@ def main() -> int:
         **single_bounds(singles),
         **fx_rainbow_qmc_bounds(),
         **qmc_model_bounds(),
+        **rates_bounds(),
     }
     nmc_shape = "x".join(map(str, NMC_MAIN))
     rows = (
@@ -4429,6 +4720,10 @@ def main() -> int:
          f"{model} call sobol {QMC_POINTS}x{MAIN_STEPS}x{QMC_SHIFTS} (plain: "
          f"{1 << QMC_SMALL.bit_length() - 1}x{MAIN_STEPS}x{QMC_CHECK_SHIFTS})")
         for model, row in zip(QMC_MODEL_FAMILIES, QMC_MODEL_ROWS))
+    rows += tuple(
+        (row, "rates_kernels.cu", "ops/_pallas.py:107", rates_err[row],
+         rates_ms[row], f"{tile} demo payer {RATES_PATHS} paths n=10")
+        for tile, row in zip(RATES_TILES, RATES_ROWS))
     kernels = []
     for name, src, tpu, err, (k_ms, p_ms), shape in rows:
         b_ms, b_by = bounds[name]

@@ -32,6 +32,9 @@ launch; importing the package builds and loads nothing.
     price_nmc_rainbow().cva(0.02)          # best-of exposure
     price_fx(contract="quanto_call")       # cross-currency contracts
     price_qmc(family="sobol", bridge=True, payoff="asian_call")  # RQMC
+    price_swaption(SwaptionSpec(payer=False))  # Vasicek European swaption
+    price_hw_swaption(projection_curve=DiscountCurve.flat(0.045))  # on a curve
+    price_g2_swaption()                    # G2++ two-factor, curve-fitted
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
 """
@@ -48,6 +51,10 @@ from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
 from mc_tpu_torch.models.cev import (DEMO_CEV, CEVDynamics,
                                      cev_call_closed_form, price_cev)
 from mc_tpu_torch.models.fx import DEMO_FX, FXDynamics, price_fx
+from mc_tpu_torch.models.g2pp import DEMO_G2, G2Dynamics, price_g2_swaption
+from mc_tpu_torch.models.hullwhite import (DEMO_CURVE, DEMO_HW, DiscountCurve,
+                                           HullWhiteDynamics,
+                                           price_hw_swaption)
 from mc_tpu_torch.models.dividends import (bs_call_cash_div,
                                            cash_div_forward, div_schedule,
                                            price_divs)
@@ -60,6 +67,8 @@ from mc_tpu_torch.models.merton import (DEMO_MERTON, MertonDynamics,
 from mc_tpu_torch.models.sabr import (DEMO_SABR, SABRDynamics, price_sabr,
                                       sabr_call_hagan, sabr_implied_vol)
 from mc_tpu_torch.models.rainbow import price_rainbow
+from mc_tpu_torch.models.swaption import (DEMO_SWAPTION, SwaptionSpec,
+                                          price_swaption)
 from mc_tpu_torch.models.term import DEMO_TERM, TermStructure, price_term
 from mc_tpu_torch.models.vasicek import (DEMO_VASICEK, VasicekDynamics,
                                          price_vasicek)
@@ -75,7 +84,9 @@ from mc_tpu_torch.nmc_rainbow import price_nmc_rainbow
 from mc_tpu_torch.nmc_sabr import price_nmc_sabr
 from mc_tpu_torch.nmc_term import price_nmc_term
 from mc_tpu_torch.nmc_vasicek import price_nmc_vasicek
-from mc_tpu_torch.oracle import bsv_call, margrabe, vasicek_zcb
+from mc_tpu_torch.oracle import (bsv_call, g2_swaption, g2_swaption_multicurve,
+                                 hw_swaption, hw_swaption_multicurve,
+                                 margrabe, vasicek_swaption, vasicek_zcb)
 from mc_tpu_torch.qmc import price_qmc, price_qmc_model
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
@@ -97,7 +108,12 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "vasicek_zcb", "bsv_call", "price_basket", "price_nmc_basket",
            "BasketDynamics", "DEMO_BASKET", "demo_basket", "margrabe",
            "price_rainbow", "price_nmc_rainbow", "price_fx", "FXDynamics",
-           "DEMO_FX", "price_qmc", "price_qmc_model",
+           "DEMO_FX", "price_qmc", "price_qmc_model", "price_swaption",
+           "SwaptionSpec", "DEMO_SWAPTION", "vasicek_swaption",
+           "price_hw_swaption", "DiscountCurve", "HullWhiteDynamics",
+           "DEMO_CURVE", "DEMO_HW", "hw_swaption", "hw_swaption_multicurve",
+           "price_g2_swaption", "G2Dynamics", "DEMO_G2", "g2_swaption",
+           "g2_swaption_multicurve",
            "simulate_trajectories", "Trajectories", "greeks",
            "chunked_price", "NMCResult", "ExposureMetrics",
            "CollateralizedExposure", "coupon_dates", "OptionParams",

@@ -1,14 +1,14 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
 ladder/book/greeks/heston/merton/bates/cev/localvol/sabr/term/divs/vasicek/
-basket/rainbow/fx/qmc).
+basket/rainbow/fx/qmc/swaption/hullwhite/g2pp).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
 nested-MC surface, with the Black-Scholes oracle beside the estimates.
 ``price``, ``nmc``, ``ladder``, ``book``, ``greeks``, ``heston``,
 ``merton``, ``bates``, ``cev``, ``localvol``, ``sabr``, ``term``, ``divs``,
-``vasicek``, ``basket``, ``rainbow``, ``fx`` and ``qmc`` print one JSON
-object each (``price`` adds the
+``vasicek``, ``basket``, ``rainbow``, ``fx``, ``qmc``, ``swaption``,
+``hullwhite`` and ``g2pp`` print one JSON object each (``price`` adds the
 closed form where
 the payoff has one, ``heston`` and ``bates`` the CF oracle for the call,
 ``merton`` the series oracle, ``cev`` the noncentral chi-squared oracle,
@@ -18,7 +18,11 @@ Black-Scholes at the averaged curves and the z-score, ``divs`` the
 quadrature oracle and z-score of one dividend, ``vasicek`` the bond's or
 Merton's (1973) call oracle and z-score, ``rainbow`` the Stulz or Margrabe
 price and z-score at d = 2, ``fx`` the contract's closed form and z,
-``qmc`` Black-Scholes beside the call or put, ``nmc --exposure`` the XVA
+``qmc`` Black-Scholes beside the call or put, ``swaption``, ``hullwhite``
+(``--proj-spread-bp`` multi-curve, ``--par-swap-rates`` a bootstrapped
+curve) and ``g2pp`` the European swaption beside its oracle and z-score
+(their Bermudan, QMC, greek, exposure, book and curve-VaR legs exit naming
+the ROADMAP item that ports them), ``nmc --exposure`` the XVA
 figures of the surface, under GBM or ``--model
 heston|merton|bates|cev|localvol|sabr|term|vasicek|basket|rainbow``, each
 family's dynamics from its own flags); ``traj`` writes the
@@ -716,6 +720,132 @@ def cmd_qmc(args):
     return 0
 
 
+# The legs of the rates subcommands that mc_tpu_torch does not price yet:
+# flag -> the ROADMAP item that ports it.
+_RATES_LEGS = {"bermudan": "item 18, after item 17's LSMC",
+               "bounds": "item 18, after item 17's LSMC",
+               "qmc": "item 18", "greeks": "item 18", "exposure": "item 18",
+               "cva_hazard": "item 18", "book_k_rates": "item 18",
+               "book_sides": "item 18", "book_weights": "item 18",
+               "bucket_dv01": "item 18", "curve_var": "item 19"}
+
+
+def _refuse_rates_legs(args, command: str) -> None:
+    for flag, item in _RATES_LEGS.items():
+        if getattr(args, flag, None) not in (None, False):
+            raise SystemExit(
+                f"{command} --{flag.replace('_', '-')} is not ported to "
+                f"mc_tpu_torch yet (ROADMAP {item}); drop it to price the "
+                "European swaption")
+
+
+def _swaption_spec(args):
+    from mc_tpu_torch.models.swaption import SwaptionSpec
+
+    return SwaptionSpec(expiry=args.expiry, tenor=args.tenor,
+                        n_payments=args.n_payments, k_rate=args.k_rate,
+                        payer=not args.receiver)
+
+
+def _rates_curve(args):
+    """(curve, knot times): the zero knots, or the curve bootstrapped from
+    --par-swap-rates (mc_tpu/cli.py:1310-1322)."""
+    from mc_tpu_torch.models.hullwhite import DiscountCurve
+
+    times = [float(x) for x in args.curve_times.split(",")]
+    zeros = [float(x) for x in args.curve_zeros.split(",")]
+    if args.par_swap_rates:
+        mats = ([float(x) for x in args.par_swap_times.split(",")]
+                if args.par_swap_times else times)
+        pars = [float(x) for x in args.par_swap_rates.split(",")]
+        curve = DiscountCurve.from_par_swaps(mats, pars, tenor=args.tenor)
+        return curve, list(curve.times), list(curve.zeros)
+    return DiscountCurve(times, zeros), times, zeros
+
+
+def _rates_out(head: dict, res, ref: float) -> dict:
+    return {**head, "price": float(res.price), "stderr": float(res.stderr),
+            "oracle": ref,
+            "z_score": (float(res.price) - ref) / float(res.stderr)}
+
+
+def cmd_swaption(args):
+    """The European Vasicek swaption (r0 is --rate) beside Jamshidian's
+    price and the z-score (mc_tpu/cli.py:1210-1229)."""
+    from mc_tpu_torch import oracle
+    from mc_tpu_torch.models.swaption import price_swaption
+    from mc_tpu_torch.models.vasicek import VasicekDynamics
+
+    _refuse_rates_legs(args, "swaption")
+    _, sim = _parse(args)
+    dyn = VasicekDynamics(a=args.a, b=args.b, sigma_r=args.sigma_r)
+    res = price_swaption(_swaption_spec(args), dyn, sim, r0=args.r,
+                         seed=args.seed, device=args.device)
+    ref = oracle.vasicek_swaption(args.r, args.a, args.b, args.sigma_r,
+                                  args.expiry, args.tenor, args.n_payments,
+                                  args.k_rate, payer=not args.receiver)
+    print(json.dumps(_rates_out({"style": "european"}, res, ref)))
+    return 0
+
+
+def cmd_hullwhite(args):
+    """The European swaption under curve-fitted Hull-White beside the
+    curve-consistent Jamshidian price (the multi-curve quadrature with
+    --proj-spread-bp), the z-score and the curve's discounts at its knots
+    (mc_tpu/cli.py:1301-1361)."""
+    from mc_tpu_torch import oracle
+    from mc_tpu_torch.models.hullwhite import (DiscountCurve,
+                                               HullWhiteDynamics,
+                                               price_hw_swaption)
+
+    _refuse_rates_legs(args, "hullwhite")
+    _, sim = _parse(args)
+    curve, times, zeros = _rates_curve(args)
+    proj = None
+    if args.proj_spread_bp:
+        proj = DiscountCurve(times,
+                             [z + args.proj_spread_bp * 1e-4 for z in zeros])
+    dyn = HullWhiteDynamics(a=args.a, sigma_r=args.sigma_r)
+    res = price_hw_swaption(_swaption_spec(args), dyn, curve, sim,
+                            seed=args.seed, projection_curve=proj,
+                            device=args.device)
+    if proj is not None:
+        ref = oracle.hw_swaption_multicurve(
+            args.a, args.sigma_r, curve.df, proj.df, args.expiry,
+            args.tenor, args.n_payments, args.k_rate,
+            payer=not args.receiver)
+    else:
+        ref = oracle.hw_swaption(args.a, args.sigma_r, curve.df, args.expiry,
+                                 args.tenor, args.n_payments, args.k_rate,
+                                 payer=not args.receiver)
+    out = _rates_out({"model": "hull-white"}, res, ref)
+    out["curve_dfs"] = [round(curve.df(t), 6) for t in times]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_g2pp(args):
+    """The European swaption under curve-fitted G2++ beside the
+    conditional-Jamshidian price and the z-score (mc_tpu/cli.py:
+    1468-1494)."""
+    from mc_tpu_torch import oracle
+    from mc_tpu_torch.models.g2pp import G2Dynamics, price_g2_swaption
+
+    _refuse_rates_legs(args, "g2pp")
+    _, sim = _parse(args)
+    curve, _, _ = _rates_curve(args)
+    dyn = G2Dynamics(a=args.a, sigma=args.sigma_x, b_mr=args.b_mr,
+                     eta=args.eta, rho=args.rho_xy)
+    res = price_g2_swaption(_swaption_spec(args), dyn, curve, sim,
+                            seed=args.seed, device=args.device)
+    ref = oracle.g2_swaption(dyn.a, dyn.sigma, dyn.b_mr, dyn.eta, dyn.rho,
+                             curve.df, args.expiry, args.tenor,
+                             args.n_payments, args.k_rate,
+                             payer=not args.receiver)
+    print(json.dumps(_rates_out({"model": "g2++"}, res, ref)))
+    return 0
+
+
 def _add_vasicek_flags(p: argparse.ArgumentParser):
     p.add_argument("--a", type=float, default=0.3,
                    help="vasicek rate mean-reversion speed")
@@ -725,6 +855,29 @@ def _add_vasicek_flags(p: argparse.ArgumentParser):
                    help="vasicek rate volatility")
     p.add_argument("--rho-r", type=float, default=-0.3,
                    help="equity/rate correlation")
+
+
+def _add_swap_flags(p: argparse.ArgumentParser, k_rate: float):
+    p.add_argument("--expiry", type=float, default=1.0)
+    p.add_argument("--tenor", type=float, default=0.5)
+    p.add_argument("--n-payments", type=int, default=10)
+    p.add_argument("--k-rate", type=float, default=k_rate,
+                   help="fixed leg rate")
+    p.add_argument("--receiver", action="store_true")
+
+
+def _add_curve_flags(p: argparse.ArgumentParser):
+    p.add_argument("--curve-times", default="0.5,1,2,3,5,10",
+                   help="zero-curve knot times (years, ascending)")
+    p.add_argument("--curve-zeros", default="0.03,0.035,0.04,0.043,"
+                                            "0.046,0.048",
+                   help="zero rates at the knots (the curve the model "
+                        "reprices exactly)")
+    p.add_argument("--par-swap-rates", default=None,
+                   help="bootstrap the curve from par swap quotes instead "
+                        "(comma list; maturities from --par-swap-times, "
+                        "default --curve-times; on the --tenor grid)")
+    p.add_argument("--par-swap-times", default=None)
 
 
 def _add_basket_flags(p: argparse.ArgumentParser):
@@ -1081,6 +1234,95 @@ def main(argv=None):
                    help="drive a model family's step loop (its demo "
                         "dynamics) from the low-discrepancy points")
     p.set_defaults(fn=cmd_qmc)
+
+    p = sub.add_parser("swaption",
+                       help="Vasicek European swaption: one exact draw at "
+                            "expiry vs Jamshidian")
+    _add_option_flags(p)
+    _add_swap_flags(p, k_rate=0.05)
+    p.add_argument("--bermudan", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bounds", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bounds-inner", type=int, default=32)
+    p.add_argument("--qmc", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--greeks", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--exposure", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--cva-hazard", type=float, default=None)
+    p.add_argument("--degree", type=int, default=3)
+    p.add_argument("--a", type=float, default=0.3)
+    p.add_argument("--b", type=float, default=0.05)
+    p.add_argument("--sigma-r", type=float, default=0.015)
+    p.set_defaults(fn=cmd_swaption)
+
+    p = sub.add_parser("hullwhite",
+                       help="curve-fitted Hull-White European swaption vs "
+                            "the curve-consistent Jamshidian oracle")
+    _add_option_flags(p)
+    _add_swap_flags(p, k_rate=0.04)
+    _add_curve_flags(p)
+    p.add_argument("--exposure", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--proj-spread-bp", type=float, default=0.0,
+                   help="MULTI-CURVE: forwards off a projection curve "
+                        "this many bp above the discount (OIS) curve")
+    p.add_argument("--book-k-rates", default=None,
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--book-sides", default=None)
+    p.add_argument("--book-weights", default=None)
+    p.add_argument("--bermudan", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bounds", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--degree", type=int, default=3)
+    p.add_argument("--qmc", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--greeks", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bucket-dv01", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--curve-var", action="store_true",
+                   help="not ported yet (ROADMAP item 19)")
+    p.add_argument("--var-scenarios", type=int, default=256)
+    p.add_argument("--var-alpha", type=float, default=0.99)
+    p.add_argument("--var-horizon-days", type=float, default=10.0)
+    p.add_argument("--cva-hazard", type=float, default=None)
+    p.add_argument("--a", type=float, default=0.3)
+    p.add_argument("--sigma-r", type=float, default=0.015)
+    p.set_defaults(fn=cmd_hullwhite)
+
+    p = sub.add_parser("g2pp",
+                       help="curve-fitted G2++ two-factor European swaption "
+                            "vs the conditional-Jamshidian oracle")
+    _add_option_flags(p)
+    _add_swap_flags(p, k_rate=0.04)
+    _add_curve_flags(p)
+    p.add_argument("--exposure", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bermudan", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bounds", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--qmc", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--greeks", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--bucket-dv01", action="store_true",
+                   help="not ported yet (ROADMAP item 18)")
+    p.add_argument("--cva-hazard", type=float, default=None)
+    p.add_argument("--a", type=float, default=0.5)
+    p.add_argument("--sigma-x", type=float, default=0.01,
+                   help="first-factor vol")
+    p.add_argument("--b-mr", type=float, default=0.05,
+                   help="second-factor mean reversion")
+    p.add_argument("--eta", type=float, default=0.008,
+                   help="second-factor vol")
+    p.add_argument("--rho-xy", type=float, default=-0.7,
+                   help="factor correlation")
+    p.set_defaults(fn=cmd_g2pp)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

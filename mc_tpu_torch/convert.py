@@ -20,6 +20,9 @@ from mc_tpu_torch import qmc as _qmc
 from mc_tpu_torch.models import basket as _basket
 from mc_tpu_torch.models import dividends as _divs
 from mc_tpu_torch.models.fx import FX_FIELDS, FXDynamics
+from mc_tpu_torch.models.g2pp import G2Dynamics
+from mc_tpu_torch.models.hullwhite import DiscountCurve, HullWhiteDynamics
+from mc_tpu_torch.models.swaption import SwaptionSpec
 from mc_tpu_torch.models import term as _term
 from mc_tpu_torch.models.bates import BATES_FIELDS, BatesDynamics
 from mc_tpu_torch.models.cev import CEV_FIELDS, CEVDynamics
@@ -28,6 +31,7 @@ from mc_tpu_torch.models.localvol import LocalVolSurface, packed_length
 from mc_tpu_torch.models.merton import MERTON_FIELDS, MertonDynamics
 from mc_tpu_torch.models.sabr import SABR_FIELDS, SABRDynamics
 from mc_tpu_torch.models.vasicek import VASICEK_FIELDS, VasicekDynamics
+from mc_tpu_torch.ops import fused as _fused
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
            "surface_matrix", "checkpoint", "heston_dynamics", "heston_params",
@@ -37,7 +41,9 @@ __all__ = ["option_params", "book_params", "sim_params", "key",
            "term_structure", "term_params", "divs_params",
            "vasicek_dynamics", "vasicek_params", "basket_dynamics",
            "basket_params", "rainbow_dynamics", "rainbow_params",
-           "fx_dynamics", "fx_params", "qmc_pointset"]
+           "fx_dynamics", "fx_params", "qmc_pointset", "swaption_spec",
+           "discount_curve", "hw_dynamics", "g2_dynamics", "va_swpt_params",
+           "hw_swpt_params", "g2_swpt_params"]
 
 _OPTION_FIELDS = ("s0", "t", "k", "r", "sigma", "barrier", "p1", "p2", "q")
 _SIM_FIELDS = ("n_paths", "n_steps", "n_paths_inner", "seed")
@@ -48,6 +54,8 @@ _CEV_DYN_FIELDS = ("sigma_lv", "beta")
 _SABR_DYN_FIELDS = ("alpha", "beta", "nu", "rho")
 _VASICEK_DYN_FIELDS = ("a", "b", "sigma_r", "rho")
 _BASKET_FIELDS = ("s0s", "sigmas", "weights", "corr")
+_HW_DYN_FIELDS = ("a", "sigma_r")
+_G2_DYN_FIELDS = ("a", "sigma", "b_mr", "eta", "rho")
 
 
 def _field(src, name):
@@ -267,6 +275,55 @@ def fx_params(arr) -> torch.Tensor:
     """``mc_tpu``'s packed fx vector (``_pack_fx``: the (11,) f32 vector of
     ``FX_FIELDS``) -> the port's CPU tensor, bit for bit."""
     return _packed(arr, FX_FIELDS, "fx")
+
+
+def swaption_spec(src) -> SwaptionSpec:
+    """``mc_tpu.models.swaption.SwaptionSpec`` fields -> the port's."""
+    expiry, tenor, k_rate = _scalars(src, ("expiry", "tenor", "k_rate"),
+                                     "swaption")
+    return SwaptionSpec(expiry=expiry, tenor=tenor,
+                        n_payments=int(_field(src, "n_payments")),
+                        k_rate=k_rate, payer=bool(_field(src, "payer")))
+
+
+def discount_curve(src) -> DiscountCurve:
+    """``mc_tpu.models.hullwhite.DiscountCurve`` (its f64 ``times`` and
+    ``zeros`` knots) -> the port's, the same knots bit for bit."""
+    return DiscountCurve(np.asarray(_field(src, "times"), np.float64),
+                         np.asarray(_field(src, "zeros"), np.float64))
+
+
+def hw_dynamics(src) -> HullWhiteDynamics:
+    """``mc_tpu.models.hullwhite.HullWhiteDynamics`` -> the port's."""
+    return HullWhiteDynamics(*_scalars(src, _HW_DYN_FIELDS, "Hull-White"))
+
+
+def g2_dynamics(src) -> G2Dynamics:
+    """``mc_tpu.models.g2pp.G2Dynamics`` -> the port's."""
+    return G2Dynamics(*_scalars(src, _G2_DYN_FIELDS, "G2++"))
+
+
+def va_swpt_params(arr, n_payments: int) -> torch.Tensor:
+    """``mc_tpu``'s packed Vasicek swaption vector (``_pack_va_swpt``) ->
+    the port's CPU tensor, bit for bit, its length checked against 10 +
+    2n."""
+    return _packed_vector(arr, _fused.packed_length("va", n_payments),
+                          f"Vasicek swaption (n={n_payments})")
+
+
+def hw_swpt_params(arr, n_payments: int) -> torch.Tensor:
+    """``mc_tpu``'s packed Hull-White swaption vector (``_pack_hw_swpt``)
+    -> the port's CPU tensor, bit for bit, its length checked against 7 +
+    3n."""
+    return _packed_vector(arr, _fused.packed_length("hw", n_payments),
+                          f"Hull-White swaption (n={n_payments})")
+
+
+def g2_swpt_params(arr, n_payments: int) -> torch.Tensor:
+    """``mc_tpu``'s packed G2++ swaption vector (``_pack_g2_swpt``) -> the
+    port's CPU tensor, bit for bit, its length checked against 10 + 4n."""
+    return _packed_vector(arr, _fused.packed_length("g2", n_payments),
+                          f"G2++ swaption (n={n_payments})")
 
 
 def qmc_pointset(family: str, n: int, zvec, shifts,

@@ -57,7 +57,10 @@ KERNELS = ("terminal_pair", "simulate_partials", "trajectories", "nmc_fused",
            "sabr_partials", "term_partials", "divs_partials",
            "vasicek_partials", "vasicek_trajectories", "basket_partials",
            "basket_trajectories", "fx_partials", "rainbow_partials",
-           "qmc_sums", "qmc_bridge_sums", "qmc_model_sums")
+           "qmc_sums", "qmc_bridge_sums", "qmc_model_sums",
+           # #11, one count per rates tile (ops/fused.py TILES)
+           "rates_partials_va", "rates_partials_hw", "rates_partials_hw_mc",
+           "rates_partials_g2", "rates_partials_g2_mc")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _c_int, _c_u32, _c_ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
@@ -103,6 +106,7 @@ _SIGNATURES = {
     "mc_qmc_block_threads": ([], _c_int),
     "mc_qmc_bridge_threads": ([_c_int], _c_int),
     "mc_qmc_model_block_threads": ([], _c_int),
+    "mc_rates_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -248,6 +252,10 @@ _SIGNATURES = {
     "mc_qmc_bridge_sums": ([_c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
                             _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
                             _c_int, _c_ptr], _c_int),
+    # tile, n_pay, k0, k1, pv, n_paths, path_offset, bound, partials,
+    # n_blocks, stream
+    "mc_rates_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
+                           _c_u32, _c_u32, _c_ptr, _c_int, _c_ptr], _c_int),
 }
 
 _lock = threading.Lock()

@@ -737,3 +737,101 @@ def test_rainbow_fx_qmc_entry_points_default_to_cuda():
                  lambda: mt.price_qmc(sim=sim)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _mc_tpu_rates_cli(argv, capsys):
+    """The last JSON line mc_tpu's CLI prints for ``argv``: on its fused
+    route (engine="xla") where the subcommand has one, single-curve
+    hullwhite and g2pp; else on its classic route (swaption, multi-curve).
+    The classic route adds its payoffs in one f32 sum, 2e-6 off its own
+    fused route's Kahan slabs under Hull-White at 6 payments (ROADMAP
+    C23)."""
+    from mc_tpu import cli as jcli
+
+    if argv[0] != "swaption" and "--proj-spread-bp" not in argv:
+        argv = argv + ["--engine", "xla"]
+    capsys.readouterr()
+    assert jcli.main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+RATES_ARGV = {
+    "swaption": ["swaption", "--n-paths", "4099", "--k-rate", "0.06"],
+    "hullwhite": ["hullwhite", "--n-paths", "4099", "--n-payments", "6"],
+    "hullwhite_mc": ["hullwhite", "--n-paths", "4099", "--proj-spread-bp",
+                     "25"],
+    "hullwhite_par": ["hullwhite", "--n-paths", "4099", "--par-swap-rates",
+                      "0.03,0.034,0.039,0.042,0.045,0.047"],
+    "g2pp": ["g2pp", "--n-paths", "4099", "--rho-xy", "-0.3"],
+}
+
+
+@pytest.mark.parametrize("receiver", [False, True],
+                         ids=["payer", "receiver"])
+@pytest.mark.parametrize("case", sorted(RATES_ARGV))
+def test_rates_subcommands_match_mc_tpus(case, receiver, capsys):
+    """swaption, hullwhite (single-curve, --proj-spread-bp, a bootstrapped
+    curve) and g2pp: mc_tpu's keys, its oracle and curve discounts equal,
+    the price within tests/test_torch_rates.py's PRICE_RTOL of mc_tpu's,
+    and the library call's bit for bit."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import cli
+
+    argv = RATES_ARGV[case] + (["--receiver"] if receiver else [])
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_rates_cli(argv, capsys)
+    assert sorted(res) == sorted(want)
+    assert res["oracle"] == want["oracle"]
+    assert res["price"] == pytest.approx(want["price"], rel=5e-7, abs=1e-9)
+    assert res.get("curve_dfs") == want.get("curve_dfs")
+    spec = mt.SwaptionSpec(k_rate=0.06 if case == "swaption" else 0.04,
+                           n_payments=6 if case == "hullwhite" else 10,
+                           payer=not receiver)
+    sim = mt.SimParams(n_paths=4099)
+    if case == "swaption":
+        own = mt.price_swaption(spec, sim=sim, r0=0.1, device="cpu")
+    elif case == "g2pp":
+        own = mt.price_g2_swaption(spec, mt.G2Dynamics(rho=-0.3), sim=sim,
+                                   device="cpu")
+    else:
+        curve = (mt.DiscountCurve.from_par_swaps(
+            [0.5, 1, 2, 3, 5, 10], [0.03, 0.034, 0.039, 0.042, 0.045, 0.047])
+            if case == "hullwhite_par" else mt.DEMO_CURVE)
+        proj = (mt.DiscountCurve(curve.times, curve.zeros + 0.0025)
+                if case == "hullwhite_mc" else None)
+        own = mt.price_hw_swaption(spec, curve=curve, sim=sim,
+                                   projection_curve=proj, device="cpu")
+    assert res["price"] == float(own.price)
+
+
+@pytest.mark.parametrize("command,flags", [
+    ("swaption", ["--bermudan"]), ("swaption", ["--bounds"]),
+    ("swaption", ["--qmc"]), ("swaption", ["--greeks"]),
+    ("swaption", ["--exposure"]), ("swaption", ["--cva-hazard", "0.02"]),
+    ("hullwhite", ["--bermudan"]), ("hullwhite", ["--bounds"]),
+    ("hullwhite", ["--qmc"]), ("hullwhite", ["--greeks"]),
+    ("hullwhite", ["--exposure"]), ("hullwhite", ["--cva-hazard", "0.02"]),
+    ("hullwhite", ["--book-k-rates", "0.03,0.05"]),
+    ("hullwhite", ["--book-sides", "p,r"]),
+    ("hullwhite", ["--book-weights", "1,-1"]),
+    ("hullwhite", ["--bucket-dv01"]), ("hullwhite", ["--curve-var"]),
+    ("g2pp", ["--bermudan"]), ("g2pp", ["--bounds"]), ("g2pp", ["--qmc"]),
+    ("g2pp", ["--greeks"]), ("g2pp", ["--exposure"]),
+    ("g2pp", ["--cva-hazard", "0.02"]), ("g2pp", ["--bucket-dv01"])])
+def test_rates_legs_not_ported_exit_naming_their_item(command, flags):
+    from mc_tpu_torch import cli
+
+    item = "item 19" if flags == ["--curve-var"] else "item 18"
+    with pytest.raises(SystemExit, match=f"{flags[0]} .*ROADMAP {item}"):
+        cli.main([command, *flags, "--device", "cpu", "--n-paths", "64"])
+
+
+def test_rates_subcommands_take_no_tpu_flags(capsys):
+    from mc_tpu_torch import cli
+
+    for command in ("swaption", "hullwhite", "g2pp"):
+        for flag in (["--engine", "xla"], ["--tile-rows", "128"]):
+            with pytest.raises(SystemExit):
+                cli.main([command, *flag, "--device", "cpu"])
+    capsys.readouterr()
