@@ -54,7 +54,11 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    sums to f64 rounding and their
    grids and surfaces bit for bit (every NMC at NMC_SMALL in full, at the
    main shape against the plain row 99, the GBM and rainbow NMC rows 0 and
-   99);
+   99; each family's #29/#30 also at 300 x 7 x 7, 8 steps under Merton,
+   local vol and Vasicek, in full, a ragged last leg group, with Vasicek's
+   bond and the basket's exchange at d = 2 there, and local vol's K = 25
+   pack over the shared budget at 300 x 300 x 3, rows 0 and 299; the fused
+   surface equal to the inner one in every row);
 3. the main path at the size users run: the 1M-path European call by five
    methods and with importance sampling against Black-Scholes, every
    payoff at 1M paths (terminal-only) or 100,000 x 100 steps against its
@@ -141,7 +145,9 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    kernel beside terminal_pair, the rainbow kernels beside the basket's,
    the QMC kernels on both families, #33 per family, #11 per tile at 2^20
    and 2^24 paths with 10 payments and at 2^20 with 60 (the NMC kernels' times are their
-   phase-2 calls' and the NMC calls' their phase-3 calls'), and
+   phase-2 calls' and the NMC calls' their phase-3 calls'; each family's
+   #29/#30 beside its share of the bound, its registers and spills, its
+   resident blocks per SM, its shared bytes and its legs a thread), and
    end-to-end
    times of the phase-3 calls (greeks() by route, chunked_price(),
    price_heston(), price_nmc_heston(), price_merton(), price_bates(),
@@ -160,6 +166,7 @@ Without a CUDA device it prints no result and exits 2.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -185,6 +192,14 @@ TRAJ_PATHS = (65_536, BULLET_PATHS)
 RESUME_STEPS = (50, 51)             # even and odd resume points
 IS_STRIKE = 180.0                   # deep out of the money: IS pays off
 NMC_MAIN = (16384, 100, 500)        # README quickstart: 4.1e10 inner steps
+# phase 2: a part-full tile, odd steps and a ragged last leg group (7 legs
+# in groups of 2 or 4) for every family, every row; 8 steps under Merton,
+# local vol and Vasicek, whose plain outer paths take steps in pairs
+NMC_RAGGED = (300, 7, 7)
+NMC_RAGGED_EVEN = ("merton", "localvol", "vasicek")
+# phase 2: local vol at K = 25 on 300 steps, a pack (30 KB) over the
+# shared budget, read where it lies; the plain rows 0 and 299
+NMC_OVER_BUDGET = (300, 300, 3)
 NMC_ROWS = (0, 99)                   # phase 2: the plain rows at NMC_MAIN
 # Phase 2: the plain row of the earlier slices' family NMC at NMC_MAIN (the
 # last: grid == fused is held bitwise in phase 3, and every row of every
@@ -474,8 +489,8 @@ def family_nmc_times(families, call, time_pair, regs, tag):
     "family_inner": ms})), its outer trajectories at NMC_MAIN's outer shape
     beside their plain version, and its fused and inner kernels at NMC_MAIN
     (``nmc_ms``: family_nmc_case's CUDA-event times of its phase-2 calls,
-    warm from NMC_SMALL) beside the reference family's kernels.  Returns
-    {row: (ms, plain ms or None)}."""
+    warm from NMC_SMALL) beside the reference family's kernels, each with
+    family_nmc_report's line.  Returns {row: (ms, plain ms or None)}."""
     from mc_tpu_torch import nmc_engine as ne
 
     n_out, n_steps, n_inner = NMC_MAIN
@@ -505,20 +520,65 @@ def family_nmc_times(families, call, time_pair, regs, tag):
                   f": kernel {ms:.3f} ms (its phase-2 call), "
                   f"{inner_steps / ms * 1e3:.4e} inner path-steps/s = "
                   f"{ms / ref_ms[name]:.2f}x the {ref_label} kernel "
-                  f"({ref_ms[name]:.3f} ms); registers "
-                  f"{regs.get((f'{name}_kernel<{struct}>', 'VanillaCall', None))}"
-                  f" {tag}")
+                  f"({ref_ms[name]:.3f} ms) {tag}")
+            family_nmc_report(family, fam, prm, struct, name, ms, tag)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def family_nmc_bounds() -> dict:
+    """bound_ms of every family's #29/#30 row at NMC_MAIN (phase 6's)."""
+    import mc_tpu_torch as mt
+
+    rows = {**heston_bounds(), **jump_bounds(),
+            **single_bounds(single_families(mt)), **fx_rainbow_qmc_bounds()}
+    return {k: v[0] for k, v in rows.items()
+            if k.startswith(("family_fused", "family_inner"))}
+
+
+@functools.lru_cache(maxsize=None)
+def build_resources() -> dict:
+    """ptxas_resources of the whole build."""
+    from mc_tpu_torch.ops import _cuda
+
+    return ptxas_resources(_cuda.build_info.get("ptxas", ""))
+
+
+def family_nmc_report(family, fam, prm, struct, name, ms, tag) -> None:
+    """Phase 5: a family's fused or inner kernel (``name``) at NMC_MAIN, its
+    time ``ms`` beside its share of the bound, its registers and spills
+    (VanillaCall, ptxas), its resident blocks per SM, its shared memory
+    (the staged pack and table at this call's geometry, and ptxas's static
+    bytes) and its legs a thread."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    b_ms = family_nmc_bounds()[name if family == "heston"
+                               else f"{name}_{family}"]
+    res = build_resources().get((f"{name}_kernel<{struct}>", "VanillaCall",
+                                 None), {})
+    geo = ne.family_launch(fam, NMC_MAIN[2], prm.numel())
+    blocks = ne.family_occupancy(fam, get_payoff("vanilla_call"),
+                                 name == "family_fused", geo.smem_bytes)
+    print(f"phase 5: {name} {family} call {'x'.join(map(str, NMC_MAIN))}: "
+          f"{ms:.3f} ms, {b_ms / ms:.1%} of its bound ({b_ms:.2f} ms); "
+          f"registers {res.get('registers')}, spill stores/loads "
+          f"{res.get('spill_stores')}/{res.get('spill_loads')} B (stack "
+          f"{res.get('stack')} B), {blocks} blocks/SM, shared "
+          f"{geo.smem_bytes} B dynamic "
+          f"({'pack staged' if geo.staged else 'pack read in place'}) + "
+          f"{res.get('smem')} B static, kLegs {fam.legs} {tag}")
 
 
 def share(mask) -> float:
     return float(mask.double().mean())
 
 
-def ptxas_registers(log: str) -> dict:
-    """{(kernel, payoff struct, rounds or None): registers} from the
-    ``-Xptxas -v`` log: each "Compiling entry function" line names a
-    mangled mc::kernel<Payoff[, ROUNDS]>, its "Used N registers" follows."""
+def ptxas_resources(log: str) -> dict:
+    """{(kernel, payoff struct, rounds or None): {"registers", "stack",
+    "spill_stores", "spill_loads", "smem"}} from the ``-Xptxas -v`` log:
+    each "Compiling entry function" line names a mangled
+    mc::kernel<Payoff[, ROUNDS]>, its frame and "Used N registers" follow."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2mc(\d+)(\w+)'", line)
@@ -538,12 +598,30 @@ def ptxas_registers(log: str) -> dict:
                 payoff = rest[at:at + int(f.group(2))]
             r = re.search(r"ELi(\d+)E", rest)
             entry = (kernel, payoff, int(r.group(1)) if r else None)
+            out[entry] = {}
             continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            out[entry] = int(m.group(1))
+        if m:
+            s = re.search(r"(\d+) bytes smem", line)
+            out[entry].update(registers=int(m.group(1)),
+                              smem=int(s.group(1)) if s else 0)
             entry = None
     return out
+
+
+def ptxas_registers(log: str) -> dict:
+    """{(kernel, payoff struct, rounds or None): registers} from the
+    ``-Xptxas -v`` log (ptxas_resources)."""
+    return {k: v["registers"] for k, v in ptxas_resources(log).items()
+            if "registers" in v}
 
 
 def book_options(mt, n_contracts: int):
@@ -656,12 +734,13 @@ def timed_call(fn):
 
 
 def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
-                    rows=None):
+                    rows=None, what=""):
     """Phase 2: family ``fam``'s fused and inner kernels and its outer
     trajectories at ``shape`` against their plain versions: grids, the
     surface (whole, or only its ``rows``) and the outer moments bitwise or
-    to f64 rounding.  ``note(kind, err)`` takes the kinds "trajectories",
-    "fused" and "inner".  A deferred check (its plain half first); returns
+    to f64 rounding, and the fused surface == the inner's (grid == fused)
+    in every row.  ``note(kind, err)`` takes the kinds "trajectories",
+    "fused" and "inner"; ``what`` names the case's dynamics.  A deferred check (its plain half first); returns
     {"plain": the plain rows' ms, "fused", "inner": the kernels' ms (CUDA
     events, this one call each: phase 5's times of the family kernels)}."""
     from mc_tpu_torch import nmc_engine as ne
@@ -673,7 +752,7 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     n_out, n_steps, n_inner = shape
     cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
     prm = pack(opt, dyn, n_steps, dev)
-    label = f"{fam.name} {name} " + "x".join(map(str, shape))
+    label = spaced(fam.name, what, name, "x".join(map(str, shape)))
     *g_p, st_p, outer_p = fam.trajectories_plain(po, cfg, key, prm)
     rows = list(range(n_steps)) if rows is None else list(rows)
     torch.cuda.synchronize()
@@ -690,12 +769,13 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     note("trajectories", check_bitwise(
         f"{fam.name} trajectories {label} (grids, state)", (*g_k, st_k),
         (*g_p, st_p)))
-    what = "" if len(rows) == n_steps else f" rows {rows}"
+    which = "" if len(rows) == n_steps else f" rows {rows}"
     note("fused", check_bitwise(
-        f"family_fused {label}{what} (plain {plain_ms:.1f} ms)",
+        f"family_fused {label}{which} (plain {plain_ms:.1f} ms)",
         (surf_f[rows],), (want,)))
-    note("inner", check_bitwise(f"family_inner {label}{what}",
+    note("inner", check_bitwise(f"family_inner {label}{which}",
                                 (surf_i[rows],), (want,)))
+    check_bitwise(f"grid == fused {label} (every row)", (surf_i,), (surf_f,))
     got, want_o = finish_sum(outer_f), finish_sum(outer_p)
     check_sums(f"family_fused {label} outer moments", got, want_o)
     note("fused", price_err(got, want_o, n_out, opt))
@@ -771,6 +851,8 @@ def heston_kernel_checks(mt, dev, keys):
     for name in ("bullet_call", "asian_call", "vanilla_call"):
         defer(family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys, name,
                               NMC_SMALL, family_note))
+    defer(family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
+                          "vanilla_call", ragged_shape("heston"), family_note))
     nmc_ms = {}
     defer(family_nmc_case(mt, dev, fam, hm.pack_heston, dyn, keys,
                           "vanilla_call", NMC_MAIN, family_note,
@@ -804,6 +886,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
     (``e2e_nmc``).  Returns {kernel: (ms, plain ms)} (the family kernels'
     plain ms is measured in phase 2)."""
     from mc_tpu_torch.models import heston as hm
+    from mc_tpu_torch.nmc_heston import HestonNMC
     from mc_tpu_torch.ops import path_kernels as pk
     from mc_tpu_torch.ops.payoffs import get_payoff
 
@@ -857,9 +940,9 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
         gbm = gbm_ms["nmc_fused" if name == "family_fused" else "nmc_inner"]
         out[name] = (ms, None)
         print(f"phase 5: {name} heston: {ms:.3f} ms = {ms / gbm:.2f}x the GBM"
-              f" bullet NMC kernel on the same shape ({gbm:.3f} ms); "
-              f"registers {regs.get((name + '_kernel<HestonFamily>', 'VanillaCall', None))}"
-              f" {tag}")
+              f" bullet NMC kernel on the same shape ({gbm:.3f} ms) {tag}")
+        family_nmc_report("heston", HestonNMC(), prm, "HestonFamily", name,
+                          ms, tag)
 
     osim = mt.SimParams(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS)
     e2e_report((
@@ -929,9 +1012,17 @@ def merton_path(n_steps: int, rounds: int, kmax: int):
     return _add(_scale(pair, n_steps // 2), TERMINAL_OPS)
 
 
+def table_ops(kmax: int):
+    """The family kernels' Poisson count against the block's cdf table: a
+    compare-select and an add per entry (the table itself is built once a
+    block, the scan's recurrence and divisions no longer run a substep)."""
+    return _scale((0, 2, 0), kmax)
+
+
 def merton_substep(kmax: int):
-    """An inner Merton substep: the (z, e) pair, the uniform, the step."""
-    return _add(pair_ops(13), unit_ops(13, 1), MERTON_STEP_OPS, scan_ops(kmax))
+    """An inner Merton substep: the (z, e) pair, the uniform, the step, the
+    count against the table."""
+    return _add(pair_ops(13), unit_ops(13, 1), MERTON_STEP_OPS, table_ops(kmax))
 
 
 def bates_step(rounds: int, kmax: int):
@@ -939,6 +1030,13 @@ def bates_step(rounds: int, kmax: int):
     jump and the scan."""
     return _add(_scale(pair_ops(rounds), 2), unit_ops(rounds, 1),
                 HESTON_EULER_OPS, BATES_JUMP_OPS, scan_ops(kmax))
+
+
+def bates_substep(kmax: int):
+    """An inner Bates substep: bates_step's draws, Heston's step and the
+    jump, the count against the table."""
+    return _add(_scale(pair_ops(13), 2), unit_ops(13, 1), HESTON_EULER_OPS,
+                BATES_JUMP_OPS, table_ops(kmax))
 
 
 def family_bounds(prefix: str, substep, path, n_grids: int):
@@ -980,7 +1078,7 @@ def jump_bounds():
         "family_trajectories": bound(3 * 4 * n_out * n_steps,
                                      _scale(b_path, n_out)),
         **family_bounds("merton", merton_substep(k_dt), m_path, 1),
-        **family_bounds("bates", bates_step(13, k_dt), b_path, 2),
+        **family_bounds("bates", bates_substep(k_dt), b_path, 2),
     }
 
 
@@ -1023,12 +1121,20 @@ def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
     note(row, price_err(got, want, n_paths, opt))
 
 
+def ragged_shape(family: str):
+    """NMC_RAGGED, at 8 steps where the family's plain outer path takes
+    steps in pairs."""
+    n_out, n_steps, n_inner = NMC_RAGGED
+    return (n_out, n_steps + (family in NMC_RAGGED_EVEN), n_inner)
+
+
 def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
-                      traj_row, rows=None):
-    """Phase 2: a family's #29/#30 at NMC_SMALL (bullet, Asian, vanilla) and
-    at NMC_MAIN against the plain ``rows`` (default EARLIER_NMC_ROWS),
-    deferred; returns family_nmc_case's ms at NMC_MAIN (filled by the
-    kernel pass)."""
+                      traj_row, rows=None, extra=()):
+    """Phase 2: a family's #29/#30 at NMC_SMALL (bullet, Asian, vanilla), at
+    its ragged shape (every row) and at NMC_MAIN against the plain ``rows``
+    (default EARLIER_NMC_ROWS), and the ``extra`` cases (fam, pack, payoff,
+    shape, rows, what), deferred; returns family_nmc_case's ms at NMC_MAIN
+    (filled by the kernel pass)."""
     kinds = {"trajectories": traj_row, "fused": f"family_fused_{family}",
              "inner": f"family_inner_{family}"}
 
@@ -1038,6 +1144,11 @@ def family_nmc_checks(mt, dev, note, family, fam, pack, dyn, keys,
     for name in ("bullet_call", "asian_call", "vanilla_call"):
         defer(family_nmc_case(mt, dev, fam, pack, dyn, keys, name, NMC_SMALL,
                               family_note))
+    defer(family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
+                          ragged_shape(family), family_note))
+    for x_fam, x_pack, name, shape, x_rows, what in extra:
+        defer(family_nmc_case(mt, dev, x_fam, x_pack, dyn, keys, name, shape,
+                              family_note, x_rows, what))
     ms = {}
     defer(family_nmc_case(mt, dev, fam, pack, dyn, keys, "vanilla_call",
                           NMC_MAIN, family_note,
@@ -1949,13 +2060,44 @@ def single_kernel_checks(mt, dev, singles, keys):
                                  FAMILY_PATHS))
         rows_ms[s.family] = family_nmc_checks(
             mt, dev, note, s.family, s.nmc.fam, nmc_pack(s), None,
-            keys[s.family], traj_row(s))
+            keys[s.family], traj_row(s), extra=nmc_extra_cases(mt, s))
         if s.grid is not None:
             for name, po in sorted(PAYOFFS.items()):
                 if po.n_state <= 1:
                     defer(grid_check(mt, dev, note, s, keys[s.family][0],
                                      name))
     return err, rows_ms
+
+
+def nmc_extra_cases(mt, s: Single):
+    """family_nmc_checks' extra cases of a single-asset family: the second
+    fused path of phase 3 at the ragged shape (Vasicek's bond, the basket's
+    Margrabe exchange at d = 2) and local vol's pack over the shared budget
+    (NMC_OVER_BUDGET at K = 25, rows 0 and 299)."""
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.nmc_basket import BasketNMC
+    from mc_tpu_torch.nmc_localvol import LocalVolNMC
+
+    shape = ragged_shape(s.family)
+    if s.family == "vasicek":
+        return ((s.nmc.fam, nmc_pack(s), "zcb", shape, None, "bond"),)
+    if s.family == "basket":
+        exch = mt.BasketDynamics(*(np.array(v, np.float32) for v in (
+            [100.0, 95.0], [0.25, 0.2], [1.0, -1.0],
+            [[1.0, 0.4], [0.4, 1.0]])))
+        return ((BasketNMC(extras=(2,)),
+                 lambda _, __, n, d: bm.pack_basket(mt.OptionParams(k=0.0),
+                                                    exch, n, d),
+                 "vanilla_call", shape, None, "d=2 exchange"),)
+    if s.family == "localvol":
+        n_steps = NMC_OVER_BUDGET[1]
+        surf = cev_gate_surface(lm, n_steps)
+        return ((LocalVolNMC(extras=(surf.n_knots,)),
+                 lambda o, _, n, d: lm.pack_localvol(o, surf, n, d),
+                 "vanilla_call", NMC_OVER_BUDGET, (0, n_steps - 1),
+                 "K=25 over the shared budget"),)
+    return ()
 
 
 def grid_check(mt, dev, note, s: Single, key, name):

@@ -1,0 +1,428 @@
+"""Probe the family nested-MC kernels (#29 family_inner_kernel, #30
+family_fused_kernel) on one CUDA card: what they cost in registers, spills,
+shared memory and resident blocks, their SASS loops, and their times.
+
+    python3 family_nmc_probe.py [--variant LABEL=DIR[:DEFINE,...]] ...
+                                [--sass] [--time] [--out PATH]
+
+from the root of a checkout.  Each variant is a copy of ``csrc`` (DIR; the
+package's own by default) whose family NMC sources (``family_nmc_kernels.cu``
+and ``*_nmc*_kernels.cu``) it compiles with the package's nvcc flags and the
+given ``-D`` defines into ``build/probe/<LABEL>/``, every variant's sources
+at once (the CPUs less one compilers).  Per variant and family it prints
+the ptxas resources of the VanillaCall instantiations of both kernels
+(capacity 8 for the basket and the rainbow) and, where the variant has the
+``mc_family_occupancy`` entry point, their resident blocks per SM.
+``--sass`` prints the loops of the inner kernel's SASS (``cuobjdump``) for
+term, local vol and the basket: each backward branch's span, its
+instruction count and its instructions by class.  ``--time`` runs each
+family's fused and inner kernels once at 16,384 x 100 x 500 (CUDA events,
+after a warm-up at 256 x 8 x 8) in turns over the variants, twice, and
+checks every variant's surfaces bit for bit against the first variant's.
+A variant whose DIR is not the package's ``csrc`` is called through the
+entry points as they were before the launch geometry was passed in (a
+parent commit's ``csrc``).  Everything printed also goes, as JSON, to
+``--out`` (default ``build/family_probe.json``).  Needs a card;
+exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+NMC_MAIN = (16384, 100, 500)
+NMC_WARM = (256, 8, 8)
+PAYOFF = "vanilla_call"
+SASS_FAMILIES = ("term", "localvol", "basket")
+ROOT = Path(__file__).resolve().parent
+
+_u32, _int, _ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
+
+
+def families():
+    """(name, NMCFamily, params at NMC_MAIN's steps, inner and outer keys,
+    the device struct's name) of the ten families, the demo dynamics."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models import bates as bam
+    from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import heston as hm
+    from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.models import merton as mm
+    from mc_tpu_torch.models import sabr as sm
+    from mc_tpu_torch.models import term as tm
+    from mc_tpu_torch.models import vasicek as vm
+    from mc_tpu_torch.nmc_basket import BasketNMC
+    from mc_tpu_torch.nmc_bates import BatesNMC
+    from mc_tpu_torch.nmc_cev import CEVNMC
+    from mc_tpu_torch.nmc_heston import HestonNMC
+    from mc_tpu_torch.nmc_localvol import LocalVolNMC
+    from mc_tpu_torch.nmc_merton import MertonNMC
+    from mc_tpu_torch.nmc_rainbow import RAINBOW_NMC_TAG, RainbowNMC
+    from mc_tpu_torch.nmc_sabr import SABRNMC
+    from mc_tpu_torch.nmc_term import TermNMC
+    from mc_tpu_torch.nmc_vasicek import VasicekNMC
+
+    n_steps = NMC_MAIN[1]
+    k_dt = mm.poisson_kmax(mm.DEMO_MERTON.lam / n_steps)
+    table = (
+        ("heston", HestonNMC(), hm.pack_heston, hm.DEMO_HESTON,
+         hm.HESTON_TAG, "HestonFamily"),
+        ("merton", MertonNMC(extras=(k_dt,)), mm.pack_merton, mm.DEMO_MERTON,
+         mm.MERTON_TAG, "MertonFamily"),
+        ("bates", BatesNMC(extras=(k_dt,)), bam.pack_bates, bam.DEMO_BATES,
+         bam.BATES_TAG, "BatesFamily"),
+        ("cev", CEVNMC(), cm.pack_cev, cm.DEMO_CEV, cm.CEV_TAG, "CEVFamily"),
+        ("localvol", LocalVolNMC(extras=(9,)), lm.pack_localvol,
+         lm.LocalVolSurface.demo(n_steps), lm.LOCALVOL_TAG, "LocalVolFamily"),
+        ("sabr", SABRNMC(), sm.pack_sabr, sm.DEMO_SABR, sm.SABR_TAG,
+         "SABRFamily"),
+        ("term", TermNMC(), tm.pack_term, tm.demo_term(n_steps), tm.TERM_TAG,
+         "TermFamily"),
+        ("vasicek", VasicekNMC(), vm.pack_vasicek, vm.DEMO_VASICEK,
+         vm.VASICEK_TAG, "VasicekFamily"),
+        ("basket", BasketNMC(extras=(4,)), bm.pack_basket, bm.DEMO_BASKET,
+         bm.BASKET_TAG, "BasketFamily<8>"),
+        ("rainbow", RainbowNMC(extras=(4, 0)), bm.pack_basket,
+         bm.demo_basket(4, 0.5), RAINBOW_NMC_TAG, "RainbowFamily<8>"),
+    )
+    out = []
+    for name, fam, pack, dyn, tag, struct in table:
+        keys = tuple(tuple(int(k) for k in rng.derive_key(1234, s, tag))
+                     for s in (engines.STREAM_OUTER, engines.STREAM_INNER))
+        out.append((name, fam, lambda n, d, pack=pack, dyn=dyn: pack(
+            OptionParams(), dyn, n, d), keys, struct))
+    return out
+
+
+# --- build -------------------------------------------------------------------
+
+
+def build(variants):
+    """Compile every variant's family NMC sources at once and link one
+    library each: {label: (library path, {source: ptxas log})}."""
+    from mc_tpu_torch.ops import _cuda
+
+    nvcc = _cuda._nvcc()
+    cmds, jobs = [], []
+    for label, src, defines in variants:
+        out = ROOT / "build" / "probe" / label
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = sorted([src / "family_nmc_kernels.cu",
+                       *src.glob("*_nmc_kernels.cu"),
+                       *src.glob("*_nmc32_kernels.cu")],
+                      key=lambda p: -p.stat().st_size)
+        for s in srcs:
+            cmds.append([nvcc, *_cuda.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                         "-c", "-o", str(out / f"{s.stem}.o"), str(s)])
+            jobs.append((label, s.name))
+    t0 = time.perf_counter()
+    runs = _cuda._run_all(cmds, max(1, len(os.sched_getaffinity(0)) - 1))
+    print(f"probe: {len(cmds)} sources compiled in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    logs = {}
+    for (label, name), (err, _) in zip(jobs, runs):
+        logs.setdefault(label, {})[name] = err
+    libs = {}
+    for label, _, _ in variants:
+        out = ROOT / "build" / "probe" / label
+        lib = out / "libprobe.so"
+        _cuda._run_all([[nvcc, "-shared", "-o", str(lib),
+                         *map(str, sorted(out.glob("*.o")))]], 1)
+        libs[label] = (lib, logs[label])
+    return libs
+
+
+def ptxas_resources(log: str) -> dict:
+    """{mangled entry: {"registers", "stack", "spill_stores",
+    "spill_loads", "smem"}} from a ``-Xptxas -v`` log."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem"] = int(s.group(1)) if s else 0
+    return out
+
+
+def entry_name(entries, kernel: str, struct: str):
+    """The mangled entry of mc::<kernel><struct, VanillaCall>."""
+    base, _, cap = struct.partition("<")
+    pat = f"{len(kernel)}{kernel}INS_{len(base)}{base}"
+    if cap:
+        pat += f"ILi{cap.rstrip('>')}EEE"
+    else:
+        pat += "E"
+    pat += "NS_11VanillaCallE"
+    hits = [e for e in entries if pat in e]
+    return hits[0] if hits else None
+
+
+# --- SASS --------------------------------------------------------------------
+
+_CLASSES = (("MUFU", r"^MUFU"), ("load", r"^(LDG|LDS|LD|LDC|ULDC|LDL)\b"),
+            ("f32", r"^(FADD|FMUL|FFMA|FMNMX|FSETP|FSEL|FCHK|FRND|F2I|I2F)"),
+            ("int", r"^(IADD3|LOP3|SHF|IMAD|ISETP|LEA|SEL|IABS|PRMT|UIADD3|"
+                    r"ULOP3|USHF|UIMAD|ISCADD)"),
+            ("branch", r"^(BRA|BSYNC|BSSY|EXIT|CALL|RET)"))
+
+
+def sass_loops(lib: Path, entry: str):
+    """The SASS of ``entry`` and its loops: [{start, end, n, by class}]
+    for each backward branch, innermost first."""
+    out = subprocess.run(["cuobjdump", "-sass", "-fun", entry, str(lib)],
+                         capture_output=True, text=True).stdout
+    ins = []
+    for line in out.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
+                     r"(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    loops = []
+    for i, (addr, op, rest) in enumerate(ins):
+        if op.startswith("BRA"):
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if t and int(t.group(1), 16) <= addr:
+                start = int(t.group(1), 16)
+                body = [o for a, o, _ in ins if start <= a <= addr]
+                by = {c: sum(1 for o in body if re.match(p, o))
+                      for c, p in _CLASSES}
+                loops.append(dict(start=hex(start), end=hex(addr),
+                                  n=len(body), **by))
+    loops.sort(key=lambda lp: lp["n"])
+    return len(ins), loops
+
+
+# --- runs --------------------------------------------------------------------
+
+
+def bind(lib_path: Path, new_abi: bool):
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("mc_family_fused", "mc_family_inner",
+                 "mc_family_trajectories", "mc_family_block_threads"):
+        argtypes, restype = _cuda._SIGNATURES[name]
+        getattr(lib, name).restype = restype
+        if new_abi:
+            getattr(lib, name).argtypes = argtypes
+    if not new_abi:  # the entry points before the launch geometry was
+        # passed in: no n_groups and stage_floats after n_inner
+        X = _cuda.FamilyExtras
+        lib.mc_family_fused.argtypes = [
+            _int, _int, _u32, _u32, _u32, _u32, _ptr, X, _int, _int, _u32,
+            _u32, _u32, _ptr, _ptr, _ptr]
+        lib.mc_family_inner.argtypes = [
+            _int, _int, _u32, _u32, _ptr, X, _int, _int, _u32, _u32, _u32,
+            ctypes.POINTER(ctypes.c_void_p), _int, _ptr, _ptr, _ptr]
+        lib.mc_family_trajectories.argtypes = \
+            _cuda._SIGNATURES["mc_family_trajectories"][0]
+    if hasattr(lib, "mc_family_occupancy"):
+        lib.mc_family_occupancy.argtypes = [_int, _int, _cuda.FamilyExtras,
+                                            _int, _int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.mc_family_occupancy.restype = _int
+    return lib
+
+
+def run_kernels(lib, new_abi, legs, fam, prm, keys, shape):
+    """(fused surface, inner surface, fused ms, inner ms) of one call each
+    at ``shape``, through ``lib``'s entry points (``legs``: the variant's
+    MC_FAMILY_LEGS, or None)."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    n_out, n_steps, n_inner = shape
+    cfg = ne.FamilyConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+    po = get_payoff(PAYOFF)
+    (ko0, ko1), (ki0, ki1) = keys
+    stream = torch.cuda.current_stream().cuda_stream
+    ex = _cuda.family_extras(fam.extras)
+    if fam.name == "heston":  # its own trajectories kernel: the plain one
+        from mc_tpu_torch.models import heston as hm
+        grids = torch.stack(hm.heston_trajectories_plain(
+            po, hm.HestonConfig(n_paths=n_out, n_steps=n_steps), keys[0],
+            prm)[:3])
+    else:
+        grids = torch.empty((fam.n_grids + 1, n_steps, n_out),
+                            dtype=torch.float32, device=prm.device)
+        parts = torch.empty((8192, 2), dtype=torch.float64, device=prm.device)
+        _check(lib.mc_family_trajectories(
+            fam.cuda_id, po.cuda_id, ko0, ko1, prm.data_ptr(), ex, n_steps,
+            n_out, 0, n_out, _cuda.pointer_array(grids[:fam.n_grids]),
+            fam.n_grids, grids[fam.n_grids].data_ptr(), parts.data_ptr(),
+            min(-(-n_out // 128), 8192), stream), "trajectories")
+    surf_f = torch.empty((n_steps, n_out), dtype=torch.float32,
+                         device=prm.device)
+    surf_i = torch.empty_like(surf_f)
+    outer = torch.empty((-(-n_out // 128), 2), dtype=torch.float64,
+                        device=prm.device)
+    if new_abi:  # the geometry at the variant's legs (its -D, or the family's)
+        geo = ne.family_launch(fam, n_inner, prm.numel())
+        geometry = (-(-n_inner // (legs or fam.legs)), geo.stage_floats)
+    else:
+        geometry = ()
+    t = _events()
+    _check(lib.mc_family_fused(
+        fam.cuda_id, po.cuda_id, ko0, ko1, ki0, ki1, prm.data_ptr(), ex,
+        n_steps, n_inner, *geometry, n_out, 0, n_out, surf_f.data_ptr(),
+        outer.data_ptr(), stream), "fused")
+    t.append(_event())
+    _check(lib.mc_family_inner(
+        fam.cuda_id, po.cuda_id, ki0, ki1, prm.data_ptr(), ex, n_steps,
+        n_inner, *geometry, n_out, 0, n_out,
+        _cuda.pointer_array(grids[:fam.n_grids]), fam.n_grids,
+        grids[fam.n_grids].data_ptr(), surf_i.data_ptr(), stream), "inner")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return surf_f, surf_i, t[0].elapsed_time(t[1]), t[1].elapsed_time(t[2])
+
+
+def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _events():
+    return [_event()]
+
+
+def _check(status, what):
+    if status:
+        raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--out", default="build/family_probe.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("family_nmc_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.utils import nvidia_smi_name_power
+
+    card = nvidia_smi_name_power()
+    print(card, flush=True)
+    own = _cuda.CSRC.resolve()
+    variants = []
+    for spec in args.variant or [f"tree={own}"]:
+        label, _, rest = spec.partition("=")
+        src, _, defs = rest.partition(":")
+        variants.append((label, Path(src).resolve(),
+                         [d for d in defs.split(",") if d]))
+    libs = build(variants)
+    fams = families()
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        new_abi = src == own
+        lib = bind(lib_path, new_abi)
+        legs = next((int(d.split("=")[1]) for d in defines
+                     if d.startswith("MC_FAMILY_LEGS=")), None)
+        bound[label] = (lib, new_abi, legs)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        rows = {}
+        for name, fam, pack, _, struct in fams:
+            row = {}
+            for kernel in ("family_fused_kernel", "family_inner_kernel"):
+                e = entry_name(res, kernel, struct)
+                r = dict(res.get(e, {}))
+                if hasattr(lib, "mc_family_occupancy"):
+                    blocks = ctypes.c_int(0)
+                    smem = (ne.family_launch(fam, NMC_MAIN[2], pack(
+                        NMC_MAIN[1], torch.device("cpu")).numel()).smem_bytes
+                        if new_abi else 0)
+                    r["smem_dynamic"] = smem
+                    st = lib.mc_family_occupancy(
+                        fam.cuda_id, get_payoff(PAYOFF).cuda_id,
+                        _cuda.family_extras(fam.extras),
+                        int(kernel == "family_fused_kernel"), smem,
+                        ctypes.byref(blocks))
+                    r["blocks_per_sm"] = blocks.value if st == 0 else None
+                else:
+                    r["blocks_per_sm"] = None
+                row[kernel.split("_")[1]] = r
+                print(f"probe {label}: {name} {kernel}<{struct}, VanillaCall>"
+                      f": {r} {card}", flush=True)
+            if args.sass and name in SASS_FAMILIES:
+                e = entry_name(res, "family_inner_kernel", struct)
+                n_ins, loops = sass_loops(lib_path, e)
+                row["sass"] = dict(instructions=n_ins, loops=loops)
+                print(f"probe {label}: {name} family_inner_kernel SASS: "
+                      f"{n_ins} instructions; loops (innermost first):")
+                for lp in loops:
+                    print(f"  {lp}")
+            rows[name] = row
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         families=rows)
+    if args.time:
+        times = {}
+        for name, fam, pack, keys, _ in fams:
+            prm = pack(NMC_MAIN[1], dev)
+            warm = pack(NMC_WARM[1], dev)
+            ref = None
+            order = list(bound) + list(bound)[::-1]
+            for rep, label in enumerate(order):
+                lib, new_abi, legs = bound[label]
+                run_kernels(lib, new_abi, legs, fam, warm, keys, NMC_WARM)
+                sf, si, f_ms, i_ms = run_kernels(lib, new_abi, legs, fam, prm,
+                                                 keys, NMC_MAIN)
+                if ref is None:
+                    ref = (sf, si)
+                same = bool(torch.equal(sf, ref[0])
+                            and torch.equal(si, ref[1])
+                            and torch.equal(sf, si))
+                times.setdefault(name, {}).setdefault(label, []).append(
+                    dict(fused_ms=f_ms, inner_ms=i_ms, bitwise=same))
+                print(f"probe time {name} {label}: fused {f_ms:.3f} ms, inner "
+                      f"{i_ms:.3f} ms, bitwise vs {order[0]} and grid == "
+                      f"fused: {same} {card}", flush=True)
+                if not same:
+                    print(f"FAIL: {name} {label} disagrees", flush=True)
+        report["times"] = times
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(f"probe: wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,7 +27,9 @@
 // mix unrolled would cost minutes of ptxas per instantiation) and the two
 // arrays live in local memory.  The Cholesky factor, s0s, weights and drifts are
 // uniform loads from the packed vector (every thread of a warp reads the
-// same word: one L1 broadcast).
+// same word: one L1 broadcast, __ldg); the family NMC sweep
+// (basket_mix_legs, basket_levels) reads each once for its kLegs legs,
+// through plain loads, from the block's staged copy in shared memory.
 #pragma once
 
 #include <cstdint>
@@ -159,6 +161,53 @@ __device__ __forceinline__ float basket_level(const BasketParams<kMaxD>& c,
   return basket_level(c, ws, [](int, float) {});
 }
 
+// The family NMC's sweep on L legs at once (basket_mix and basket_level in
+// their order, each leg's arithmetic as one path's): the Cholesky rows, the
+// drifts, s0s and weights read once for the L legs, through plain loads (the
+// sweep's pack may lie in shared memory).
+template <int kMaxD, int L>
+__device__ __forceinline__ void basket_mix_legs(const BasketParams<kMaxD>& c,
+                                                const float (&z)[L][kMaxD],
+                                                float (&ws)[L][kMaxD]) {
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+    if (i < c.d) {
+      const float* row = c.chol + i * (i + 1) / 2;
+      const float r0 = row[0];
+      float y[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) y[l] = r0 * z[l][0];
+#pragma unroll (BasketUnroll<kMaxD>::value)
+      for (int k = 1; k < basket_bound<kMaxD>(i + 1); ++k) {
+        if (k <= i) {
+          const float rk = row[k];
+#pragma unroll
+          for (int l = 0; l < L; ++l) y[l] = y[l] + rk * z[l][k];
+        }
+      }
+      const float drift = c.drift[i];
+#pragma unroll
+      for (int l = 0; l < L; ++l) ws[l][i] = (ws[l][i] + drift) + c.sqrt_dt * y[l];
+    }
+  }
+}
+
+template <int kMaxD, int L>
+__device__ __forceinline__ void basket_levels(const BasketParams<kMaxD>& c,
+                                              const float (&ws)[L][kMaxD], float (&b)[L]) {
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+    if (i < c.d) {
+      const float s0 = c.s0s[i], wi = c.w[i];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float term = wi * (s0 * expf(ws[l][i]));
+        b[l] = i == 0 ? term : b[l] + term;
+      }
+    }
+  }
+}
+
 // One path's leg of n_steps from the start, step j on counters j*npps + q:
 // the payoff state after each step and the last step's level in b;
 // on_step(j, b, st) sees each step.
@@ -193,6 +242,8 @@ template <int kMaxD>
 struct BasketFamily {
   using Params = BasketParams<kMaxD>;
   static constexpr int kGrids = kMaxD;
+  // capacity 32 keeps one leg a thread: its arrays live in local memory
+  static constexpr int kLegs = kMaxD <= 8 ? family_legs(2) : 1;
 
   template <class Payoff>
   struct Carry {
@@ -240,25 +291,46 @@ struct BasketFamily {
   __device__ static float outer_pay(const Params& c, const Carry<Payoff>& o) {
     return Payoff::terminal(o.st, o.b, c.pay);
   }
-  template <class Payoff>
-  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float ws[kMaxD], z[kMaxD];
+  // kLegs legs, each asset resumed from w_i = logf(S_i / s0_i); P is the
+  // basket's or the rainbow's parameters, whose basket_levels sums or folds.
+  template <class Payoff, class P>
+  __device__ static void inner_legs(const P& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    float ws[kLegs][kMaxD], z[kLegs][kMaxD], b[kLegs];
 #pragma unroll (BasketUnroll<kMaxD>::value)
     for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
-      if (i < c.d) ws[i] = logf(g[i] / __ldg(c.s0s + i));
+      if (i < c.d) {
+        const float w0 = logf(g[i] / c.s0s[i]);
+#pragma unroll
+        for (int l = 0; l < kLegs; ++l) ws[l][i] = w0;
+      }
     }
-    if (remaining == 0) return Payoff::terminal(st, basket_level(c, ws), c.pay);
-    float b = 0.0f;
+    if (remaining == 0) {
+      basket_levels(c, ws, b);
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st0, b[l], c.pay);
+      return;
+    }
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) st[l] = st0;
     for (int u = 0; u < remaining; ++u) {
-      basket_draw(c, k0, k1, id, c_base + static_cast<uint32_t>(u) * static_cast<uint32_t>(c.npps),
-                  1.0f, z);
-      basket_mix(c, z, ws);
-      b = basket_level(c, ws);
-      st = Payoff::update(st, b, c.pay);
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        basket_draw(c, k0, k1, id,
+                    c_base + l * stride +
+                        static_cast<uint32_t>(u) * static_cast<uint32_t>(c.npps),
+                    1.0f, z[l]);
+      }
+      basket_mix_legs(c, z, ws);
+      basket_levels(c, ws, b);
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) st[l] = Payoff::update(st[l], b[l], c.pay);
     }
-    return Payoff::terminal(st, b, c.pay);
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st[l], b[l], c.pay);
   }
   __device__ static float point_scale(const Params& c, const float (&)[kGrids]) {
     return expf(-c.pay.r * c.pay.t);  // the full e^{-rT}
@@ -300,6 +372,23 @@ __device__ __forceinline__ float rainbow_level(const RainbowParams<kMaxD>& c,
   return rainbow_level(c, ws, [](int, float) {});
 }
 
+// basket_levels' rainbow twin: the fold of the L legs' asset prices.
+template <int kMaxD, int L>
+__device__ __forceinline__ void basket_levels(const RainbowParams<kMaxD>& c,
+                                              const float (&ws)[L][kMaxD], float (&b)[L]) {
+#pragma unroll (BasketUnroll<kMaxD>::value)
+  for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
+    if (i < c.d) {
+      const float s0 = c.s0s[i];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float s = s0 * expf(ws[l][i]);
+        b[l] = i == 0 ? s : (c.fold_min ? fminf(b[l], s) : fmaxf(b[l], s));
+      }
+    }
+  }
+}
+
 template <int kMaxD>
 struct RainbowFamily : BasketFamily<kMaxD> {
   using Base = BasketFamily<kMaxD>;
@@ -335,27 +424,6 @@ struct RainbowFamily : BasketFamily<kMaxD> {
     basket_mix(c, z, o.ws);
     o.b = rainbow_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
     o.st = Payoff::update(o.st, o.b, c.pay);
-  }
-  template <class Payoff>
-  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining,
-                                    const float (&g)[Base::kGrids],
-                                    typename Payoff::State st) {
-    float ws[kMaxD], z[kMaxD];
-#pragma unroll (BasketUnroll<kMaxD>::value)
-    for (int i = 0; i < basket_bound<kMaxD>(c.d); ++i) {
-      if (i < c.d) ws[i] = logf(g[i] / __ldg(c.s0s + i));
-    }
-    if (remaining == 0) return Payoff::terminal(st, rainbow_level(c, ws), c.pay);
-    float b = 0.0f;
-    for (int u = 0; u < remaining; ++u) {
-      basket_draw(c, k0, k1, id, c_base + static_cast<uint32_t>(u) * static_cast<uint32_t>(c.npps),
-                  1.0f, z);
-      basket_mix(c, z, ws);
-      b = rainbow_level(c, ws);
-      st = Payoff::update(st, b, c.pay);
-    }
-    return Payoff::terminal(st, b, c.pay);
   }
 };
 

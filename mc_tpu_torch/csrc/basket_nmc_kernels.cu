@@ -24,26 +24,26 @@ MC_DEFINE_FAMILY_LAUNCHERS(basket8_family, BasketFamily<8>)
 
 cudaError_t basket_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                                 uint32_t ki1, const float* params, FamilyExtras extras,
-                                int n_steps, int n_inner, uint32_t n_paths,
-                                uint32_t path_offset, uint32_t bound, float* surface,
-                                double* outer_partials, cudaStream_t stream) {
+                                int n_steps, int n_inner, int n_groups, int stage_floats,
+                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                float* surface, double* outer_partials, cudaStream_t stream) {
   const int d = extras.i[0];
   if (d < 1 || d > 32) return cudaErrorInvalidValue;
   return (d <= 8 ? basket8_family_fused : basket32_family_fused)(
-      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset,
-      bound, surface, outer_partials, stream);
+      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_groups, stage_floats,
+      n_paths, path_offset, bound, surface, outer_partials, stream);
 }
 
 cudaError_t basket_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
-                                FamilyExtras extras, int n_steps, int n_inner,
-                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                const GridPtrs& grids, const float* state_grid, float* surface,
-                                cudaStream_t stream) {
+                                FamilyExtras extras, int n_steps, int n_inner, int n_groups,
+                                int stage_floats, uint32_t n_paths, uint32_t path_offset,
+                                uint32_t bound, const GridPtrs& grids, const float* state_grid,
+                                float* surface, cudaStream_t stream) {
   const int d = extras.i[0];
   if (d < 1 || d > 32) return cudaErrorInvalidValue;
   return (d <= 8 ? basket8_family_inner : basket32_family_inner)(
-      payoff_id, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound, grids,
-      state_grid, surface, stream);
+      payoff_id, ki0, ki1, params, extras, n_steps, n_inner, n_groups, stage_floats, n_paths,
+      path_offset, bound, grids, state_grid, surface, stream);
 }
 
 cudaError_t basket_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
@@ -56,6 +56,12 @@ cudaError_t basket_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
   return (d <= 8 ? basket8_family_trajectories : basket32_family_trajectories)(
       payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids,
       state_grid, partials, n_blocks, stream);
+}
+
+cudaError_t basket_family_occupancy(int payoff_id, FamilyExtras extras, int fused, int smem_bytes,
+                                  int* blocks) {
+  return (extras.i[0] <= 8 ? basket8_family_occupancy : basket32_family_occupancy)(
+      payoff_id, extras, fused, smem_bytes, blocks);
 }
 
 }  // namespace mc

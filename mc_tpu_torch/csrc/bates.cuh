@@ -31,16 +31,23 @@ __device__ __forceinline__ BatesParams load_bates(const float* __restrict__ v) {
   return b;
 }
 
-// The jump half of a Bates step after the diffusion substep moved (w, v):
-// w += jump(N(u), e), S = base*exp(w), the payoff state updated.
+// The jump half of a Bates step after the diffusion substep moved (w, v),
+// on the jump count n: w += jump(n, e), S = base*exp(w), the payoff state
+// updated.
+template <class Payoff>
+__device__ __forceinline__ void bates_jump_n(const BatesParams& b, float n, float e, float base,
+                                             float& w, float& s, typename Payoff::State& st) {
+  w = w + jump_increment(b.mu_j, b.sigma_j, n, e);
+  s = base * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, b.h.pay);
+}
+
+// The same, its count scanned from the uniform u.
 template <class Payoff>
 __device__ __forceinline__ void bates_jump(const BatesParams& b, int kmax, float e, float u,
                                            float base, float& w, float& s,
                                            typename Payoff::State& st) {
-  const float n = poisson_inv_cdf(u, b.lam_dt, kmax);
-  w = w + jump_increment(b.mu_j, b.sigma_j, n, e);
-  s = base * expf(w);  // log-space: one exp rounding per S_t
-  st = Payoff::update(st, s, b.h.pay);
+  bates_jump_n<Payoff>(b, poisson_inv_cdf(u, b.lam_dt, kmax), e, base, w, s, st);
 }
 
 // The draws of a Bates Euler step from counter c: the diffusion pair
@@ -72,15 +79,18 @@ __device__ __forceinline__ void bates_euler_step(const BatesParams& b, int kmax,
 
 // Bates for the family NMC engine (mc_tpu/nmc_bates.py:47-188): grids (S, v);
 // outer step j on counters 3j, 3j+1, 3j+2 (price_bates's Euler path), the
-// inner legs from (S_t, v_t) with w from 0 on c_base + 3u.
+// inner legs from (S_t, v_t) with w from 0 on c_base + 3u, their jump
+// counts taken against the block's cdf table as Merton's.
 struct BatesFamilyParams {
   BatesParams b;
   int kmax;
+  const float* cdf;  // the sweep's table, F(0..kmax-1)
 };
 
 struct BatesFamily {
   using Params = BatesFamilyParams;
   static constexpr int kGrids = 2;
+  static constexpr int kLegs = family_legs(2);
 
   template <class Payoff>
   struct Carry {
@@ -90,8 +100,13 @@ struct BatesFamily {
 
   __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
                                 int) {
-    return Params{load_bates(params), ex.i[0]};
+    return Params{load_bates(params), ex.i[0], nullptr};
   }
+  static int table_floats(const FamilyExtras& ex) { return ex.i[0]; }  // host
+  __device__ static void fill_table(const Params& p, float* table) {
+    poisson_cdf_table(p.b.lam_dt, p.kmax, table);
+  }
+  __device__ static void attach_table(Params& p, const float* table) { p.cdf = table; }
   __device__ static const mc::Params& payoff_params(const Params& p) { return p.b.h.pay; }
 
   template <class Payoff>
@@ -114,15 +129,36 @@ struct BatesFamily {
     return Payoff::terminal(c.st, c.s, p.b.h.pay);
   }
   template <class Payoff>
-  __device__ static float inner_leg(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float w = 0.0f, v = g[1], s = g[0];
-    for (int u = 0; u < remaining; ++u) {
-      bates_euler_step<Payoff>(p.b, p.kmax, k0, k1, id, c_base + 3u * static_cast<uint32_t>(u),
-                               g[0], w, v, s, st);
+  __device__ static void inner_legs(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    float w[kLegs], v[kLegs], s[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      w[l] = 0.0f;
+      v[l] = g[1];
+      s[l] = g[0];
+      st[l] = st0;
     }
-    return Payoff::terminal(st, s, p.b.h.pay);
+    for (int u = 0; u < remaining; ++u) {
+      float e[kLegs], uu[kLegs], n[kLegs];
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        float z_v, z_perp;
+        bates_euler_draw<13>(k0, k1, id, c_base + l * stride + 3u * static_cast<uint32_t>(u),
+                             z_v, z_perp, e[l], uu[l]);
+        heston_euler_step(p.b.h, z_v, z_perp, w[l], v[l]);
+      }
+      poisson_counts(p.cdf, p.kmax, uu, n);
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        bates_jump_n<Payoff>(p.b, n[l], e[l], g[0], w[l], s[l], st[l]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st[l], s[l], p.b.h.pay);
   }
   __device__ static float point_scale(const Params& p, const float (&)[kGrids]) {
     return expf(-p.b.h.pay.r * p.b.h.pay.t);  // the full e^{-rT}

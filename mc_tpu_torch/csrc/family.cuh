@@ -19,12 +19,19 @@
 //                                      one outer step j on the outer stream,
 //                                      steps taken j = 0, 1, 2, ... in order;
 //   point(c, g), outer_pay(p, c)       the grid rows of a carry, its payoff;
-//   inner_leg<Payoff>(p, k0, k1, id, c_base, remaining, g, st)
-//                                      an inner leg resumed from the rows g and
-//                                      payoff state st, `remaining` substeps,
-//                                      drawing from counter c_base on;
+//   kLegs                              the inner legs a thread runs at once;
+//   inner_legs<Payoff>(p, k0, k1, id, c_base, stride, remaining, g, st, pay)
+//                                      kLegs inner legs resumed from the rows
+//                                      g and payoff state st, `remaining`
+//                                      substeps, leg l drawing from counter
+//                                      c_base + l*stride on, their payoffs
+//                                      into pay[l];
 //   point_scale(p, g)                  the factor on the inner mean;
-//   counter_stride(p, n_steps)         the counter budget of one inner leg.
+//   counter_stride(p, n_steps)         the counter budget of one inner leg;
+//   table_floats(extras), fill_table(p, t), attach_table(p, t)
+//                                      optional: a per-block table in shared
+//                                      memory (Merton's and Bates's Poisson
+//                                      cdf), built by one thread.
 //
 // family_fused_kernel replaces mc_tpu/nmc_engine.py family_fused_kernel (the
 // Pallas call at :426) and family_inner_kernel its family_inner_kernel (the
@@ -41,18 +48,39 @@
 //
 // What bounds them on the H100: the inner sweep, n_paths * n_inner *
 // n_steps(n_steps-1)/2 substeps, each a family step with its threefry draws
-// and transcendentals.  Bytes are negligible (the surface, and a few bytes
-// a point of grids for the inner kernel); the trajectories kernel writes
-// (kGrids + 1) * 4 bytes a path-step, less than its RNG work takes.
+// and transcendentals; under --fmad=false and the accurate libm a substep
+// is ~100-200 issued instructions (term's pair loop holds ~320 for two),
+// so instruction issue, not the SFU count nor bytes, is the wall.  Bytes are
+// negligible (the surface, and a few bytes a point of grids for the inner
+// kernel); the trajectories kernel writes (kGrids + 1) * 4 bytes a
+// path-step, less than its RNG work takes.
 //
 // Design: one block per (step j, tile of 128 outer paths), step-major, so
 // the largest remaining work (j = 0) is issued first and the short blocks
 // fill the tail; all threads of a block share j, so the inner loops never
-// diverge.  The fused kernel recomputes the outer path up to step j+1 in
-// registers through the family's outer step, the one the trajectories
-// kernels store, j+1 steps against the sweep's n_inner*(n_steps-j-1), and
-// keeps no history; so the grid and fused strategies give bitwise equal
-// surfaces.
+// diverge.  Inside a block:
+// - each thread runs its point's legs kLegs at a time (a compile-time
+//   constant of the family, 1, 2 or 4 as measured on the H100), kLegs
+//   independent chains the scheduler interleaves, whose payoffs are then
+//   Kahan-added in leg order; a ragged last group runs its surplus legs and
+//   does not add them (the count n_groups is the caller's, checked here);
+// - values that are the same for every thread and leg are read once for
+//   the kLegs legs of a substep: local vol's row level, knots, widths and
+//   slopes, term's curve entries, the basket's Cholesky rows, drifts, s0s
+//   and weights; Merton's and Bates's Poisson cdf F(0..kmax-1), which the
+//   scan recomputed each substep, is a per-block table built once by one
+//   thread in the scan's order, so every count is the scan's, bit for bit;
+// - the packed vector is copied once to dynamic shared memory at block
+//   start (the inner kernel's grid loads in flight meanwhile) when it fits
+//   kFamilySmemBudget beside the table, and read where it lies through the
+//   same code when it does not (local vol's surface past ~3,000 floats);
+//   the fused kernel's outer steps read it where it lies;
+// - __launch_bounds__(128, kFamilyMinBlocks) leaves the registers to ptxas:
+//   no family spills at the basket's capacity 8.
+// The fused kernel recomputes the outer path up to step j+1 in registers
+// through the family's outer step, the one the trajectories kernels store,
+// j+1 steps against the sweep's n_inner*(n_steps-j-1), and keeps no
+// history; so the grid and fused strategies give bitwise equal surfaces.
 #pragma once
 
 #include <cstdint>
@@ -67,6 +95,11 @@
 namespace mc {
 
 constexpr int kFamilyThreads = 128;
+// The dynamic shared memory a block of the NMC kernels may take for its
+// staged pack and table: 12 KB, so the SM's 16 blocks of 128 threads (its
+// 2,048 threads) still fit in its 228 KB.  A larger pack is read where it
+// lies.
+constexpr int kFamilySmemBudget = 12 * 1024;
 // The most grids a family stores: the basket's d <= MAX_BASKET_D = 32.
 constexpr int kMaxGrids = 32;
 
@@ -107,38 +140,114 @@ struct GridOutPtrs {
   float* g[kMaxGrids];
 };
 
+// A family's legs in flight per thread: its own choice, or MC_FAMILY_LEGS
+// where a build defines it (family_nmc_probe.py's sweeps).
+constexpr int family_legs(int own) {
+#ifdef MC_FAMILY_LEGS
+  return static_cast<void>(own), MC_FAMILY_LEGS;
+#else
+  return own;
+#endif
+}
+
+// The blocks of 128 threads an SM must hold, the register budget of the
+// NMC kernels' __launch_bounds__: 1 lets ptxas size the registers to the
+// code (under the bare __launch_bounds__(128) it held every family at 40
+// to 64 and spilled Heston, SABR, Vasicek, the basket and the rainbow);
+// budgets of 8 and 4 blocks were no faster for any family (PERF.md §6,
+// family_nmc_probe.py's sweep).
+// MC_FAMILY_MIN_BLOCKS sets another in a probe's build.
+#ifdef MC_FAMILY_MIN_BLOCKS
+constexpr int kFamilyMinBlocks = MC_FAMILY_MIN_BLOCKS;
+#else
+constexpr int kFamilyMinBlocks = 1;
+#endif
+
+// A family with a per-block table in shared memory (Merton's and Bates's
+// Poisson cdf): table_floats(extras) floats after the staged pack,
+// fill_table(p, table) run by thread 0, attach_table(p, table) on the
+// sweep's parameters.
+template <class Family, class = void>
+struct FamilyTable : std::false_type {};
+template <class Family>
+struct FamilyTable<Family, std::void_t<decltype(&Family::table_floats)>> : std::true_type {};
+
+template <class Family>
+inline int family_table_floats(const FamilyExtras& extras) {
+  if constexpr (FamilyTable<Family>::value) {
+    return Family::table_floats(extras);
+  } else {
+    return 0;
+  }
+}
+
+// The sweep's parameters: the packed vector's first stage_floats floats
+// copied to dynamic shared memory and loaded from there (stage_floats = 0:
+// the pack is read where it lies, through the same code), then the
+// family's table built after them.  Every thread of the block calls it
+// (one barrier).
+template <class Family>
+__device__ __forceinline__ typename Family::Params family_stage(const float* __restrict__ params,
+                                                                const FamilyExtras& extras,
+                                                                int n_steps, int stage_floats) {
+  extern __shared__ float family_smem[];
+  for (int i = threadIdx.x; i < stage_floats; i += kFamilyThreads) family_smem[i] = params[i];
+  float* table = family_smem + stage_floats;
+  if constexpr (FamilyTable<Family>::value) {
+    if (threadIdx.x == 0) Family::fill_table(Family::load(params, extras, n_steps), table);
+  }
+  __syncthreads();
+  typename Family::Params p = Family::load(stage_floats > 0 ? family_smem : params, extras,
+                                           n_steps);
+  if constexpr (FamilyTable<Family>::value) Family::attach_table(p, table);
+  return p;
+}
+
 // The discounted inner mean at (path id, step j) from the grid rows g and
-// payoff state st: the Kahan sum of the n_inner legs in order.
+// payoff state st: the Kahan sum of the n_inner legs in order, run kLegs
+// at a time (group q holds legs q*kLegs .. q*kLegs + kLegs-1, each on its
+// own counters, n_groups = ceil(n_inner / kLegs)); the legs of a ragged
+// last group past n_inner run and are not added (a block-uniform guard).
 template <class Family, class Payoff>
-__device__ float family_point(const typename Family::Params& p, uint32_t ki0, uint32_t ki1,
-                              uint32_t id, int j, int n_steps, int n_inner,
-                              const float (&g)[Family::kGrids],
-                              const typename Payoff::State& st) {
+__device__ __forceinline__ float family_point(const typename Family::Params& p, uint32_t ki0,
+                                              uint32_t ki1, uint32_t id, int j, int n_steps,
+                                              int n_inner, int n_groups,
+                                              const float (&g)[Family::kGrids],
+                                              const typename Payoff::State& st) {
+  constexpr int kLegs = Family::kLegs;
   const int remaining = n_steps - j - 1;
-  const uint32_t t_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner);
   const uint32_t stride = Family::counter_stride(p, n_steps);
+  // leg m's counters start at ((j+1)*n_inner + m) * stride
+  uint32_t c_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner) * stride;
   float acc = 0.0f, comp = 0.0f;
-  for (int m = 0; m < n_inner; ++m) {
-    const uint32_t c_base = (t_base + static_cast<uint32_t>(m)) * stride;
-    const float pay = Family::template inner_leg<Payoff>(p, ki0, ki1, id, c_base, remaining,
-                                                         g, st);
-    const float y = pay - comp;
-    const float t = acc + y;
-    comp = (t - acc) - y;
-    acc = t;
+  for (int q = 0; q < n_groups; ++q) {
+    float pay[kLegs];
+    Family::template inner_legs<Payoff>(p, ki0, ki1, id, c_base, stride, remaining, g, st, pay);
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      if (q * kLegs + l < n_inner) {
+        const float y = pay[l] - comp;
+        const float t = acc + y;
+        comp = (t - acc) - y;
+        acc = t;
+      }
+    }
+    c_base += static_cast<uint32_t>(kLegs) * stride;
   }
   const float inv_n = static_cast<float>(1.0 / static_cast<double>(n_inner));
   return (acc * inv_n) * Family::point_scale(p, g);
 }
 
 template <class Family, class Payoff>
-__global__ void __launch_bounds__(kFamilyThreads)
+__global__ void __launch_bounds__(kFamilyThreads, kFamilyMinBlocks)
 family_fused_kernel(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
                     const float* __restrict__ params, FamilyExtras extras, int n_steps,
-                    int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                    int tiles, float* __restrict__ surface,
-                    double* __restrict__ outer_partials) {
-  const typename Family::Params p = Family::load(params, extras, n_steps);
+                    int n_inner, int n_groups, int stage_floats, uint32_t n_paths,
+                    uint32_t path_offset, uint32_t bound, int tiles,
+                    float* __restrict__ surface, double* __restrict__ outer_partials) {
+  // the outer steps read the pack where it lies, the sweep its staged copy
+  const typename Family::Params po = Family::load(params, extras, n_steps);
+  const typename Family::Params p = family_stage<Family>(params, extras, n_steps, stage_floats);
   const int j = blockIdx.x / tiles;  // the state after step j+1
   const int tile = blockIdx.x % tiles;
   const uint32_t local = static_cast<uint32_t>(tile) * kFamilyThreads + threadIdx.x;
@@ -147,11 +256,11 @@ family_fused_kernel(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
   const bool valid = in_range && id < bound;
 
   // The outer path up to step j+1, on the outer stream, in registers.
-  auto c = Family::template outer_init<Payoff>(p);
-  for (int i = 0; i <= j; ++i) Family::template outer_step<Payoff>(p, ko0, ko1, id, i, c);
+  auto c = Family::template outer_init<Payoff>(po);
+  for (int i = 0; i <= j; ++i) Family::template outer_step<Payoff>(po, ko0, ko1, id, i, c);
 
   if (j == n_steps - 1) {  // block-uniform: the outer terminal moments
-    const float pay = valid ? Family::template outer_pay<Payoff>(p, c) : 0.0f;
+    const float pay = valid ? Family::template outer_pay<Payoff>(po, c) : 0.0f;
     const double acc[2] = {static_cast<double>(pay), static_cast<double>(pay * pay)};
     block_store_moments<2, kFamilyThreads>(acc,
                                            outer_partials + 2 * static_cast<size_t>(tile), 2);
@@ -159,32 +268,38 @@ family_fused_kernel(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
 
   float g[Family::kGrids];
   Family::template point<Payoff>(c, g);
-  const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, g, c.st);
+  const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, n_groups,
+                                               g, c.st);
   if (in_range) surface[static_cast<size_t>(j) * n_paths + local] = valid ? v : 0.0f;
 }
 
 template <class Family, class Payoff>
-__global__ void __launch_bounds__(kFamilyThreads)
+__global__ void __launch_bounds__(kFamilyThreads, kFamilyMinBlocks)
 family_inner_kernel(uint32_t ki0, uint32_t ki1, const float* __restrict__ params,
-                    FamilyExtras extras, int n_steps, int n_inner, uint32_t n_paths,
-                    uint32_t path_offset, uint32_t bound, int tiles, GridPtrs grids,
-                    const float* __restrict__ state_grid, float* __restrict__ surface) {
-  const typename Family::Params p = Family::load(params, extras, n_steps);
+                    FamilyExtras extras, int n_steps, int n_inner, int n_groups,
+                    int stage_floats, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                    int tiles, GridPtrs grids, const float* __restrict__ state_grid,
+                    float* __restrict__ surface) {
   const int j = blockIdx.x / tiles;  // the state after step j+1
   const int tile = blockIdx.x % tiles;
   const uint32_t local = static_cast<uint32_t>(tile) * kFamilyThreads + threadIdx.x;
-  if (local >= n_paths) return;  // no block-wide step follows
-  const uint32_t id = path_offset + local;
+  const bool in_range = local < n_paths;
   const size_t at = static_cast<size_t>(j) * n_paths + local;
+  // the grid rows' loads are in flight while the block stages its pack
   float g[Family::kGrids];
-  const int n_grids = grid_count<Family>(p);
+  const int n_grids = grid_count<Family>(Family::load(params, extras, n_steps));
 #pragma unroll
   for (int k = 0; k < Family::kGrids; ++k) {
-    if (k < n_grids) g[k] = grids.g[k][at];
+    if (k < n_grids) g[k] = in_range ? grids.g[k][at] : 0.0f;
   }
+  const float st0 = in_range && Payoff::kStates ? state_grid[at] : 0.0f;
+  const typename Family::Params p = family_stage<Family>(params, extras, n_steps, stage_floats);
+  if (!in_range) return;  // no block-wide step follows
+  const uint32_t id = path_offset + local;
   typename Payoff::State st = Payoff::init(Family::payoff_params(p));
-  if (Payoff::kStates) st.w[0] = state_grid[at];
-  const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, g, st);
+  if (Payoff::kStates) st.w[0] = st0;
+  const float v = family_point<Family, Payoff>(p, ki0, ki1, id, j, n_steps, n_inner, n_groups,
+                                               g, st);
   surface[at] = id < bound ? v : 0.0f;
 }
 
@@ -231,35 +346,58 @@ inline long long family_blocks(uint32_t n_paths, int n_steps, int* tiles) {
   return static_cast<long long>(*tiles) * n_steps;
 }
 
+// The dynamic shared memory of a call: the staged pack and the family's
+// table, refused past kFamilySmemBudget; and the group count, refused unless
+// it is ceil(n_inner / kLegs) (the caller computes both, nmc_engine.py
+// family_launch).
+template <class Family>
+cudaError_t family_geometry(const FamilyExtras& extras, int n_inner, int n_groups,
+                            int stage_floats, size_t* smem) {
+  const long long floats =
+      static_cast<long long>(stage_floats) + family_table_floats<Family>(extras);
+  if (stage_floats < 0 || 4 * floats > kFamilySmemBudget || n_inner < 1 ||
+      n_groups != (n_inner + Family::kLegs - 1) / Family::kLegs) {
+    return cudaErrorInvalidValue;
+  }
+  *smem = static_cast<size_t>(4 * floats);
+  return cudaSuccess;
+}
+
 template <class Family, class Payoff>
 cudaError_t launch_family_fused(uint32_t ko0, uint32_t ko1, uint32_t ki0, uint32_t ki1,
                                 const float* params, FamilyExtras extras, int n_steps,
-                                int n_inner, uint32_t n_paths, uint32_t path_offset,
-                                uint32_t bound, float* surface, double* outer_partials,
-                                cudaStream_t stream) {
+                                int n_inner, int n_groups, int stage_floats, uint32_t n_paths,
+                                uint32_t path_offset, uint32_t bound, float* surface,
+                                double* outer_partials, cudaStream_t stream) {
   int tiles;
+  size_t smem;
   const long long n_blocks = family_blocks(n_paths, n_steps, &tiles);
   if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  const cudaError_t ok = family_geometry<Family>(extras, n_inner, n_groups, stage_floats, &smem);
+  if (ok != cudaSuccess) return ok;
   family_fused_kernel<Family, Payoff>
-      <<<static_cast<unsigned>(n_blocks), kFamilyThreads, 0, stream>>>(
-          ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound,
-          tiles, surface, outer_partials);
+      <<<static_cast<unsigned>(n_blocks), kFamilyThreads, smem, stream>>>(
+          ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_groups, stage_floats,
+          n_paths, path_offset, bound, tiles, surface, outer_partials);
   return cudaGetLastError();
 }
 
 template <class Family, class Payoff>
 cudaError_t launch_family_inner(uint32_t ki0, uint32_t ki1, const float* params,
-                                FamilyExtras extras, int n_steps, int n_inner,
-                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                const GridPtrs& grids, const float* state_grid, float* surface,
-                                cudaStream_t stream) {
+                                FamilyExtras extras, int n_steps, int n_inner, int n_groups,
+                                int stage_floats, uint32_t n_paths, uint32_t path_offset,
+                                uint32_t bound, const GridPtrs& grids, const float* state_grid,
+                                float* surface, cudaStream_t stream) {
   int tiles;
+  size_t smem;
   const long long n_blocks = family_blocks(n_paths, n_steps, &tiles);
   if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  const cudaError_t ok = family_geometry<Family>(extras, n_inner, n_groups, stage_floats, &smem);
+  if (ok != cudaSuccess) return ok;
   family_inner_kernel<Family, Payoff>
-      <<<static_cast<unsigned>(n_blocks), kFamilyThreads, 0, stream>>>(
-          ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound, tiles,
-          grids, state_grid, surface);
+      <<<static_cast<unsigned>(n_blocks), kFamilyThreads, smem, stream>>>(
+          ki0, ki1, params, extras, n_steps, n_inner, n_groups, stage_floats, n_paths,
+          path_offset, bound, tiles, grids, state_grid, surface);
   return cudaGetLastError();
 }
 
@@ -282,14 +420,15 @@ cudaError_t launch_family_trajectories(uint32_t k0, uint32_t k1, const float* pa
 template <class Family>
 cudaError_t family_fused_switch(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                                 uint32_t ki1, const float* params, FamilyExtras extras,
-                                int n_steps, int n_inner, uint32_t n_paths,
-                                uint32_t path_offset, uint32_t bound, float* surface,
-                                double* outer_partials, cudaStream_t stream) {
+                                int n_steps, int n_inner, int n_groups, int stage_floats,
+                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                float* surface, double* outer_partials, cudaStream_t stream) {
 #define MC_CASE(ID, PAYOFF)                                                              \
   case ID:                                                                               \
     return launch_family_fused<Family, PAYOFF>(ko0, ko1, ki0, ki1, params, extras,       \
-                                               n_steps, n_inner, n_paths, path_offset,   \
-                                               bound, surface, outer_partials, stream);
+                                               n_steps, n_inner, n_groups, stage_floats, \
+                                               n_paths, path_offset, bound, surface,     \
+                                               outer_partials, stream);
   switch (payoff_id) {
     MC_ONE_WORD_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;
@@ -299,15 +438,16 @@ cudaError_t family_fused_switch(int payoff_id, uint32_t ko0, uint32_t ko1, uint3
 
 template <class Family>
 cudaError_t family_inner_switch(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
-                                FamilyExtras extras, int n_steps, int n_inner,
-                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                const GridPtrs& grids, const float* state_grid, float* surface,
-                                cudaStream_t stream) {
+                                FamilyExtras extras, int n_steps, int n_inner, int n_groups,
+                                int stage_floats, uint32_t n_paths, uint32_t path_offset,
+                                uint32_t bound, const GridPtrs& grids, const float* state_grid,
+                                float* surface, cudaStream_t stream) {
 #define MC_CASE(ID, PAYOFF)                                                              \
   case ID:                                                                               \
     return launch_family_inner<Family, PAYOFF>(ki0, ki1, params, extras, n_steps,        \
-                                               n_inner, n_paths, path_offset, bound,     \
-                                               grids, state_grid, surface, stream);
+                                               n_inner, n_groups, stage_floats, n_paths, \
+                                               path_offset, bound, grids, state_grid,    \
+                                               surface, stream);
   switch (payoff_id) {
     MC_ONE_WORD_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;
@@ -334,24 +474,46 @@ cudaError_t family_trajectories_switch(int payoff_id, uint32_t k0, uint32_t k1,
 #undef MC_CASE
 }
 
+template <class Family>
+cudaError_t family_occupancy_switch(int payoff_id, int fused, int smem_bytes, int* blocks) {
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case ID:                                                                               \
+    return fused ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
+                       blocks, family_fused_kernel<Family, PAYOFF>, kFamilyThreads,      \
+                       static_cast<size_t>(smem_bytes))                                  \
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
+                       blocks, family_inner_kernel<Family, PAYOFF>, kFamilyThreads,      \
+                       static_cast<size_t>(smem_bytes));
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
 // Each family's launchers, defined in its own source as calls of the
-// switches above on its family struct.
+// switches above on its family struct; PREFIX_occupancy gives the resident
+// blocks per SM of the fused (fused = 1) or inner kernel at smem_bytes of
+// dynamic shared memory.
 #define MC_FAMILY_LAUNCHERS(PREFIX)                                                       \
   cudaError_t PREFIX##_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,      \
                              uint32_t ki1, const float* params, FamilyExtras extras,       \
-                             int n_steps, int n_inner, uint32_t n_paths,                   \
-                             uint32_t path_offset, uint32_t bound, float* surface,         \
-                             double* outer_partials, cudaStream_t stream);                 \
+                             int n_steps, int n_inner, int n_groups, int stage_floats,     \
+                             uint32_t n_paths, uint32_t path_offset, uint32_t bound,       \
+                             float* surface, double* outer_partials, cudaStream_t stream); \
   cudaError_t PREFIX##_inner(int payoff_id, uint32_t ki0, uint32_t ki1,                    \
                              const float* params, FamilyExtras extras, int n_steps,        \
-                             int n_inner, uint32_t n_paths, uint32_t path_offset,          \
-                             uint32_t bound, const GridPtrs& grids,                        \
-                             const float* state_grid, float* surface, cudaStream_t stream);\
+                             int n_inner, int n_groups, int stage_floats,                  \
+                             uint32_t n_paths, uint32_t path_offset, uint32_t bound,       \
+                             const GridPtrs& grids, const float* state_grid,               \
+                             float* surface, cudaStream_t stream);                         \
   cudaError_t PREFIX##_trajectories(int payoff_id, uint32_t k0, uint32_t k1,               \
                                     const float* params, FamilyExtras extras, int n_steps, \
                                     uint32_t n_paths, uint32_t path_offset, uint32_t bound,\
                                     const GridOutPtrs& grids, float* state_grid,           \
-                                    double* partials, int n_blocks, cudaStream_t stream);
+                                    double* partials, int n_blocks, cudaStream_t stream);  \
+  cudaError_t PREFIX##_occupancy(int payoff_id, FamilyExtras extras, int fused,        \
+                                 int smem_bytes, int* blocks);
 MC_FAMILY_LAUNCHERS(heston_family)
 MC_FAMILY_LAUNCHERS(merton_family)
 MC_FAMILY_LAUNCHERS(bates_family)
@@ -361,35 +523,48 @@ MC_FAMILY_LAUNCHERS(sabr_family)
 MC_FAMILY_LAUNCHERS(term_family)
 MC_FAMILY_LAUNCHERS(vasicek_family)
 MC_FAMILY_LAUNCHERS(basket_family)
+MC_FAMILY_LAUNCHERS(basket8_family)
 MC_FAMILY_LAUNCHERS(basket32_family)
 MC_FAMILY_LAUNCHERS(rainbow_family)
+MC_FAMILY_LAUNCHERS(rainbow8_family)
 MC_FAMILY_LAUNCHERS(rainbow32_family)
 #undef MC_FAMILY_LAUNCHERS
 
-// The definitions of PREFIX's launchers as the switches above on FAMILY: the
-// basket's and the rainbow's, one per capacity, capacity 32 in a source of
-// its own (<family>_nmc32_kernels.cu) so the build's heaviest instantiations
-// compile in parallel.
-#define MC_DEFINE_FAMILY_LAUNCHERS(PREFIX, FAMILY)                                        \
+// The definitions of PREFIX's NMC launchers (fused, inner, occupancy) as the
+// switches above on FAMILY; MC_DEFINE_FAMILY_LAUNCHERS adds the generic
+// trajectories.  The basket's and the rainbow's come one per capacity,
+// capacity 32 in a source of its own (<family>_nmc32_kernels.cu) so the
+// build's heaviest instantiations compile in parallel.
+#define MC_DEFINE_FAMILY_NMC(PREFIX, FAMILY)                                              \
   cudaError_t PREFIX##_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,      \
                              uint32_t ki1, const float* params, FamilyExtras extras,       \
-                             int n_steps, int n_inner, uint32_t n_paths,                   \
-                             uint32_t path_offset, uint32_t bound, float* surface,         \
-                             double* outer_partials, cudaStream_t stream) {                \
+                             int n_steps, int n_inner, int n_groups, int stage_floats,     \
+                             uint32_t n_paths, uint32_t path_offset, uint32_t bound,       \
+                             float* surface, double* outer_partials,                       \
+                             cudaStream_t stream) {                                        \
     return family_fused_switch<FAMILY>(payoff_id, ko0, ko1, ki0, ki1, params, extras,      \
-                                      n_steps, n_inner, n_paths, path_offset, bound,      \
-                                      surface, outer_partials, stream);                   \
+                                      n_steps, n_inner, n_groups, stage_floats, n_paths,  \
+                                      path_offset, bound, surface, outer_partials,        \
+                                      stream);                                            \
   }                                                                                       \
   cudaError_t PREFIX##_inner(int payoff_id, uint32_t ki0, uint32_t ki1,                    \
                              const float* params, FamilyExtras extras, int n_steps,        \
-                             int n_inner, uint32_t n_paths, uint32_t path_offset,          \
-                             uint32_t bound, const GridPtrs& grids,                        \
-                             const float* state_grid, float* surface,                      \
-                             cudaStream_t stream) {                                        \
+                             int n_inner, int n_groups, int stage_floats,                  \
+                             uint32_t n_paths, uint32_t path_offset, uint32_t bound,       \
+                             const GridPtrs& grids, const float* state_grid,               \
+                             float* surface, cudaStream_t stream) {                        \
     return family_inner_switch<FAMILY>(payoff_id, ki0, ki1, params, extras, n_steps,       \
-                                      n_inner, n_paths, path_offset, bound, grids,        \
-                                      state_grid, surface, stream);                       \
+                                      n_inner, n_groups, stage_floats, n_paths,           \
+                                      path_offset, bound, grids, state_grid, surface,     \
+                                      stream);                                            \
   }                                                                                       \
+  cudaError_t PREFIX##_occupancy(int payoff_id, FamilyExtras, int fused, int smem_bytes,   \
+                                 int* blocks) {                                           \
+    return family_occupancy_switch<FAMILY>(payoff_id, fused, smem_bytes, blocks);         \
+  }
+
+#define MC_DEFINE_FAMILY_LAUNCHERS(PREFIX, FAMILY)                                        \
+  MC_DEFINE_FAMILY_NMC(PREFIX, FAMILY)                                                    \
   cudaError_t PREFIX##_trajectories(int payoff_id, uint32_t k0, uint32_t k1,               \
                                     const float* params, FamilyExtras extras, int n_steps, \
                                     uint32_t n_paths, uint32_t path_offset, uint32_t bound,\

@@ -35,6 +35,7 @@ namespace mc {
 struct HestonFamily {
   using Params = HestonParams;
   static constexpr int kGrids = 2;
+  static constexpr int kLegs = family_legs(1);
 
   template <class Payoff>
   struct Carry {
@@ -65,19 +66,34 @@ struct HestonFamily {
   __device__ static float outer_pay(const Params& h, const Carry<Payoff>& c) {
     return Payoff::terminal(c.st, c.s, h.pay);
   }
+  // kLegs legs from (S_t, v_t), each on its own counters c_base + l*stride.
   template <class Payoff>
-  __device__ static float inner_leg(const Params& h, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float w = 0.0f, v = g[1], s = g[0];
-    for (int u = 0; u < remaining; ++u) {
-      float z_v, z_perp;
-      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(u), z_v, z_perp);
-      heston_euler_step(h, z_v, z_perp, w, v);
-      s = g[0] * expf(w);
-      st = Payoff::update(st, s, h.pay);
+  __device__ static void inner_legs(const Params& h, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    float w[kLegs], v[kLegs], s[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      w[l] = 0.0f;
+      v[l] = g[1];
+      s[l] = g[0];
+      st[l] = st0;
     }
-    return Payoff::terminal(st, s, h.pay);
+    for (int u = 0; u < remaining; ++u) {
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        float z_v, z_perp;
+        normal_pair<13>(k0, k1, id, c_base + l * stride + static_cast<uint32_t>(u), z_v,
+                        z_perp);
+        heston_euler_step(h, z_v, z_perp, w[l], v[l]);
+        s[l] = g[0] * expf(w[l]);
+        st[l] = Payoff::update(st[l], s[l], h.pay);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st[l], s[l], h.pay);
   }
   __device__ static float point_scale(const Params& h, const float (&)[kGrids]) {
     return expf(-h.pay.r * h.pay.t);  // the full e^{-rT}, as nmc.cuh:100-104
@@ -87,25 +103,7 @@ struct HestonFamily {
   }
 };
 
-cudaError_t heston_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
-                                uint32_t ki1, const float* params, FamilyExtras extras,
-                                int n_steps, int n_inner, uint32_t n_paths,
-                                uint32_t path_offset, uint32_t bound, float* surface,
-                                double* outer_partials, cudaStream_t stream) {
-  return family_fused_switch<HestonFamily>(payoff_id, ko0, ko1, ki0, ki1, params, extras,
-                                           n_steps, n_inner, n_paths, path_offset, bound,
-                                           surface, outer_partials, stream);
-}
-
-cudaError_t heston_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
-                                FamilyExtras extras, int n_steps, int n_inner,
-                                uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                const GridPtrs& grids, const float* state_grid, float* surface,
-                                cudaStream_t stream) {
-  return family_inner_switch<HestonFamily>(payoff_id, ki0, ki1, params, extras, n_steps,
-                                           n_inner, n_paths, path_offset, bound, grids,
-                                           state_grid, surface, stream);
-}
+MC_DEFINE_FAMILY_NMC(heston_family, HestonFamily)
 
 // The market grids each family stores (S first): the basket's d, in [1,
 // kMaxGrids], is its extras' i[0].
@@ -136,103 +134,67 @@ extern "C" {
 
 int mc_family_block_threads() { return mc::kFamilyThreads; }
 
+// The launcher mc::<family>_family_<WHAT>(...) of family_id; Heston has no
+// generic trajectories (its grids come from heston_trajectories): refused.
+#define MC_FAMILY_DISPATCH(WHAT, ...)                                                     \
+  switch (family_id) {                                                                    \
+    case mc::FAMILY_HESTON: return MC_HESTON_##WHAT(__VA_ARGS__);                          \
+    case mc::FAMILY_MERTON: return mc::merton_family_##WHAT(__VA_ARGS__);                  \
+    case mc::FAMILY_BATES: return mc::bates_family_##WHAT(__VA_ARGS__);                    \
+    case mc::FAMILY_CEV: return mc::cev_family_##WHAT(__VA_ARGS__);                        \
+    case mc::FAMILY_LOCALVOL: return mc::localvol_family_##WHAT(__VA_ARGS__);              \
+    case mc::FAMILY_SABR: return mc::sabr_family_##WHAT(__VA_ARGS__);                      \
+    case mc::FAMILY_TERM: return mc::term_family_##WHAT(__VA_ARGS__);                      \
+    case mc::FAMILY_VASICEK: return mc::vasicek_family_##WHAT(__VA_ARGS__);                \
+    case mc::FAMILY_BASKET: return mc::basket_family_##WHAT(__VA_ARGS__);                  \
+    case mc::FAMILY_RAINBOW: return mc::rainbow_family_##WHAT(__VA_ARGS__);                \
+    default: return cudaErrorInvalidValue;                                                \
+  }
+#define MC_HESTON_fused(...) mc::heston_family_fused(__VA_ARGS__)
+#define MC_HESTON_inner(...) mc::heston_family_inner(__VA_ARGS__)
+#define MC_HESTON_occupancy(...) mc::heston_family_occupancy(__VA_ARGS__)
+#define MC_HESTON_trajectories(...) cudaErrorInvalidValue
+
+// The resident blocks per SM of family_id's fused (fused = 1) or inner
+// kernel for payoff_id at smem_bytes of dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+int mc_family_occupancy(int family_id, int payoff_id, mc::FamilyExtras extras, int fused,
+                        int smem_bytes, int* blocks) {
+  if (mc::family_grids(family_id, extras) < 0) return cudaErrorInvalidValue;
+  MC_FAMILY_DISPATCH(occupancy, payoff_id, extras, fused, smem_bytes, blocks)
+}
+
 // extras: the family's integer extras by value (Merton's and Bates's
 // i[0] = kmax, local vol's i[0] = K, the basket's i[0] = d, the rainbow's
 // i[0] = d and i[1] its fold, 0 max or 1 min; Heston, CEV, SABR, term and
-// Vasicek read none).
+// Vasicek read none).  n_groups = ceil(n_inner / the family's kLegs) and
+// stage_floats, the pack's floats staged in shared memory (0: the pack is
+// read where it lies), are the caller's launch geometry (nmc_engine.py
+// family_launch); the launchers refuse a group count or a staged size
+// (with the family's table) that does not fit.
 int mc_family_fused(int family_id, int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                     uint32_t ki1, const float* params, mc::FamilyExtras extras, int n_steps,
-                    int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                    float* surface, double* outer_partials, void* stream) {
+                    int n_inner, int n_groups, int stage_floats, uint32_t n_paths,
+                    uint32_t path_offset, uint32_t bound, float* surface,
+                    double* outer_partials, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (family_id) {
-    case mc::FAMILY_HESTON:
-      return mc::heston_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                     n_inner, n_paths, path_offset, bound, surface,
-                                     outer_partials, s);
-    case mc::FAMILY_MERTON:
-      return mc::merton_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                     n_inner, n_paths, path_offset, bound, surface,
-                                     outer_partials, s);
-    case mc::FAMILY_BATES:
-      return mc::bates_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                    n_inner, n_paths, path_offset, bound, surface,
-                                    outer_partials, s);
-    case mc::FAMILY_CEV:
-      return mc::cev_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                  n_inner, n_paths, path_offset, bound, surface,
-                                  outer_partials, s);
-    case mc::FAMILY_LOCALVOL:
-      return mc::localvol_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras,
-                                       n_steps, n_inner, n_paths, path_offset, bound, surface,
-                                       outer_partials, s);
-    case mc::FAMILY_SABR:
-      return mc::sabr_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                   n_inner, n_paths, path_offset, bound, surface,
-                                   outer_partials, s);
-    case mc::FAMILY_TERM:
-      return mc::term_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                   n_inner, n_paths, path_offset, bound, surface,
-                                   outer_partials, s);
-    case mc::FAMILY_VASICEK:
-      return mc::vasicek_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                      n_inner, n_paths, path_offset, bound, surface,
-                                      outer_partials, s);
-    case mc::FAMILY_BASKET:
-      return mc::basket_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                     n_inner, n_paths, path_offset, bound, surface,
-                                     outer_partials, s);
-    case mc::FAMILY_RAINBOW:
-      return mc::rainbow_family_fused(payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-                                      n_inner, n_paths, path_offset, bound, surface,
-                                      outer_partials, s);
-    default: return cudaErrorInvalidValue;
-  }
+  MC_FAMILY_DISPATCH(fused, payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner,
+                     n_groups, stage_floats, n_paths, path_offset, bound, surface,
+                     outer_partials, s)
 }
 
 // grids: a host array of n_grids device pointers, each (n_steps, n_paths) f32.
 int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
                     const float* params, mc::FamilyExtras extras, int n_steps, int n_inner,
-                    uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                    const float* const* grids, int n_grids, const float* state_grid,
-                    float* surface, void* stream) {
+                    int n_groups, int stage_floats, uint32_t n_paths, uint32_t path_offset,
+                    uint32_t bound, const float* const* grids, int n_grids,
+                    const float* state_grid, float* surface, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_grids != mc::family_grids(family_id, extras)) return cudaErrorInvalidValue;
   mc::GridPtrs g = {};
   for (int k = 0; k < n_grids; ++k) g.g[k] = grids[k];
-  switch (family_id) {
-    case mc::FAMILY_HESTON:
-      return mc::heston_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                     n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_MERTON:
-      return mc::merton_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                     n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_BATES:
-      return mc::bates_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                    n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_CEV:
-      return mc::cev_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                  n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_LOCALVOL:
-      return mc::localvol_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                       n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_SABR:
-      return mc::sabr_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                   n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_TERM:
-      return mc::term_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                   n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_VASICEK:
-      return mc::vasicek_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                      n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_BASKET:
-      return mc::basket_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                     n_paths, path_offset, bound, g, state_grid, surface, s);
-    case mc::FAMILY_RAINBOW:
-      return mc::rainbow_family_inner(payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-                                      n_paths, path_offset, bound, g, state_grid, surface, s);
-    default: return cudaErrorInvalidValue;
-  }
+  MC_FAMILY_DISPATCH(inner, payoff_id, ki0, ki1, params, extras, n_steps, n_inner, n_groups,
+                     stage_floats, n_paths, path_offset, bound, g, state_grid, surface, s)
 }
 
 // grids: a host array of n_grids device pointers the kernel writes, each
@@ -249,45 +211,8 @@ int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k
   if (n_grids != mc::family_grids(family_id, extras)) return cudaErrorInvalidValue;
   mc::GridOutPtrs g = {};
   for (int k = 0; k < n_grids; ++k) g.g[k] = grids[k];
-  switch (family_id) {
-    case mc::FAMILY_MERTON:
-      return mc::merton_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                            n_paths, path_offset, bound, g, state_grid,
-                                            partials, n_blocks, s);
-    case mc::FAMILY_BATES:
-      return mc::bates_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                           n_paths, path_offset, bound, g, state_grid,
-                                           partials, n_blocks, s);
-    case mc::FAMILY_CEV:
-      return mc::cev_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                         n_paths, path_offset, bound, g, state_grid,
-                                         partials, n_blocks, s);
-    case mc::FAMILY_LOCALVOL:
-      return mc::localvol_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                              n_paths, path_offset, bound, g, state_grid,
-                                              partials, n_blocks, s);
-    case mc::FAMILY_SABR:
-      return mc::sabr_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                          n_paths, path_offset, bound, g, state_grid,
-                                          partials, n_blocks, s);
-    case mc::FAMILY_TERM:
-      return mc::term_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                          n_paths, path_offset, bound, g, state_grid,
-                                          partials, n_blocks, s);
-    case mc::FAMILY_VASICEK:
-      return mc::vasicek_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                             n_paths, path_offset, bound, g, state_grid,
-                                             partials, n_blocks, s);
-    case mc::FAMILY_BASKET:
-      return mc::basket_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                            n_paths, path_offset, bound, g, state_grid,
-                                            partials, n_blocks, s);
-    case mc::FAMILY_RAINBOW:
-      return mc::rainbow_family_trajectories(payoff_id, k0, k1, params, extras, n_steps,
-                                             n_paths, path_offset, bound, g, state_grid,
-                                             partials, n_blocks, s);
-    default: return cudaErrorInvalidValue;
-  }
+  MC_FAMILY_DISPATCH(trajectories, payoff_id, k0, k1, params, extras, n_steps, n_paths,
+                     path_offset, bound, g, state_grid, partials, n_blocks, s)
 }
 
 }  // extern "C"

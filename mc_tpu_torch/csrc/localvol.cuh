@@ -12,11 +12,12 @@
 // The payoffs' Params take the head's fields (sigma = sigma_ref, which only
 // the Brownian-bridge barriers read); the GBM drift/vol coefficients are NaN.
 //
-// The surface tables stay in global memory: at step j every thread of a
-// block (of a warp, in lockstep) reads the same slope row, so each load is
-// one broadcast transaction served from L1 (the table is 3.7 KB at K = 9,
-// n_steps = 100, and 10 KB at K = 25), and staging it in shared memory
-// would buy nothing a first version needs.
+// The partials and trajectories kernels read the surface in global memory
+// (every thread of a warp reads the same slope row: one broadcast load from
+// L1).  The family NMC sweep (lv_steps) reads each row once for its kLegs
+// legs, from the block's staged copy when the surface fits the shared
+// budget (3.7 KB at K = 9, n_steps = 100; 10 KB at K = 25) and where it
+// lies when it does not.
 #pragma once
 
 #include <cstdint>
@@ -76,6 +77,35 @@ __device__ __forceinline__ void lv_step(const LocalVolParams& l, int j, float z,
   st = Payoff::update(st, s, l.pay);
 }
 
+// lv_step on L legs at once: row j's level, knots, widths and slopes read
+// once for them, each leg's lookup added in lv_sigma_at's k order.
+template <class Payoff, int L>
+__device__ __forceinline__ void lv_steps(const LocalVolParams& l, int j, const float (&z)[L],
+                                         float (&w)[L], float (&s)[L],
+                                         typename Payoff::State (&st)[L]) {
+  const int km1 = l.n_knots - 1;
+  const float* x = l.v + kLvHead;
+  const float* dx = x + l.n_knots;
+  const float* v0 = dx + km1;
+  const float* m = v0 + l.n_steps + static_cast<size_t>(j) * km1;
+  float sg[L];
+  const float level = v0[j];
+#pragma unroll
+  for (int i = 0; i < L; ++i) sg[i] = level;
+  for (int k = 0; k < km1; ++k) {
+    const float xk = x[k], dk = dx[k], mk = m[k];
+#pragma unroll
+    for (int i = 0; i < L; ++i) sg[i] = sg[i] + mk * fminf(fmaxf(w[i] - xk, 0.0f), dk);
+  }
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const float sgi = fmaxf(sg[i], 1e-4f);
+    w[i] = (w[i] + (l.base_drift - ((0.5f * sgi) * sgi) * l.pay.dt)) + (sgi * l.sdt) * z[i];
+    s[i] = l.pay.s0 * expf(w[i]);  // log-space: one exp rounding per S_t
+    st[i] = Payoff::update(st[i], s[i], l.pay);
+  }
+}
+
 // Local vol for the family NMC engine (mc_tpu/nmc_localvol.py:52-167):
 // grid S, extras i[0] = K.  The outer step j draws pair (id, j/2) at even j,
 // parks the odd step's normal in the carry and carries S, so the outer
@@ -87,6 +117,7 @@ __device__ __forceinline__ void lv_step(const LocalVolParams& l, int j, float z,
 struct LocalVolFamily {
   using Params = LocalVolParams;
   static constexpr int kGrids = 1;
+  static constexpr int kLegs = family_legs(4);
 
   template <class Payoff>
   struct Carry {
@@ -125,19 +156,33 @@ struct LocalVolFamily {
     return Payoff::terminal(o.st, o.s, l.pay);
   }
   template <class Payoff>
-  __device__ static float inner_leg(const Params& l, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float w = logf(g[0] / l.pay.s0);  // the absolute log-moneyness at the point
-    float s = l.pay.s0 * expf(w);
+  __device__ static void inner_legs(const Params& l, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    const float w0 = logf(g[0] / l.pay.s0);  // the absolute log-moneyness at the point
+    const float s0 = l.pay.s0 * expf(w0);
+    float w[kLegs], s[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int i = 0; i < kLegs; ++i) {
+      w[i] = w0;
+      s[i] = s0;
+      st[i] = st0;
+    }
     const int row = l.n_steps - remaining;  // j + 1
     for (int q = 0; 2 * q < remaining; ++q) {
-      float z0, z1;
-      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(q), z0, z1);
-      lv_step<Payoff>(l, row + 2 * q, z0, w, s, st);
-      if (2 * q + 1 < remaining) lv_step<Payoff>(l, row + 2 * q + 1, z1, w, s, st);
+      float z0[kLegs], z1[kLegs];
+#pragma unroll
+      for (int i = 0; i < kLegs; ++i) {
+        normal_pair<13>(k0, k1, id, c_base + i * stride + static_cast<uint32_t>(q), z0[i],
+                        z1[i]);
+      }
+      lv_steps<Payoff>(l, row + 2 * q, z0, w, s, st);
+      if (2 * q + 1 < remaining) lv_steps<Payoff>(l, row + 2 * q + 1, z1, w, s, st);
     }
-    return Payoff::terminal(st, s, l.pay);
+#pragma unroll
+    for (int i = 0; i < kLegs; ++i) pay[i] = Payoff::terminal(st[i], s[i], l.pay);
   }
   __device__ static float point_scale(const Params& l, const float (&)[kGrids]) {
     return expf(-l.pay.r * l.pay.t);  // the full e^{-rT}

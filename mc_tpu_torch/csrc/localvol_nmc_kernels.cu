@@ -18,33 +18,6 @@
 
 namespace mc {
 
-cudaError_t localvol_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
-                                  uint32_t ki1, const float* params, FamilyExtras extras,
-                                  int n_steps, int n_inner, uint32_t n_paths,
-                                  uint32_t path_offset, uint32_t bound, float* surface,
-                                  double* outer_partials, cudaStream_t stream) {
-  return family_fused_switch<LocalVolFamily>(payoff_id, ko0, ko1, ki0, ki1, params, extras,
-                                             n_steps, n_inner, n_paths, path_offset, bound,
-                                             surface, outer_partials, stream);
-}
-
-cudaError_t localvol_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
-                                  FamilyExtras extras, int n_steps, int n_inner, uint32_t n_paths,
-                                  uint32_t path_offset, uint32_t bound, const GridPtrs& grids,
-                                  const float* state_grid, float* surface, cudaStream_t stream) {
-  return family_inner_switch<LocalVolFamily>(payoff_id, ki0, ki1, params, extras, n_steps,
-                                             n_inner, n_paths, path_offset, bound, grids,
-                                             state_grid, surface, stream);
-}
-
-cudaError_t localvol_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
-                                         const float* params, FamilyExtras extras, int n_steps,
-                                         uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                         const GridOutPtrs& grids, float* state_grid,
-                                         double* partials, int n_blocks, cudaStream_t stream) {
-  return family_trajectories_switch<LocalVolFamily>(payoff_id, k0, k1, params, extras, n_steps,
-                                                    n_paths, path_offset, bound, grids,
-                                                    state_grid, partials, n_blocks, stream);
-}
+MC_DEFINE_FAMILY_LAUNCHERS(localvol_family, LocalVolFamily)
 
 }  // namespace mc

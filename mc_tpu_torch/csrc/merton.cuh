@@ -61,17 +61,51 @@ __device__ __forceinline__ float jump_increment(float mu_j, float sigma_j, float
   return n * mu_j + (sigma_j * sqrtf(n)) * e;
 }
 
-// One Merton step from the leg's start price `base` (s0, or the stored
-// S_t of an inner leg): the exact-in-law log increment
+// The Poisson cdf values the scan compares against, F(0..kmax-1): the
+// recurrence of poisson_inv_cdf in its order, so a count taken against the
+// table is the scan's, bit for bit.
+__device__ __forceinline__ void poisson_cdf_table(float lam, int kmax, float* cdf_k) {
+  float pmf = expf(-lam);
+  float cdf = pmf;
+  for (int k = 0; k < kmax; ++k) {
+    cdf_k[k] = cdf;
+    pmf = (pmf * lam) / static_cast<float>(k + 1);
+    cdf = cdf + pmf;
+  }
+}
+
+// The scan's counts for L uniforms against the table: N_l = #{k : u_l >=
+// F(k)}, each F(k) read once for the L of them.
+template <int L>
+__device__ __forceinline__ void poisson_counts(const float* cdf_k, int kmax,
+                                               const float (&u)[L], float (&n)[L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) n[l] = 0.0f;
+  for (int k = 0; k < kmax; ++k) {
+    const float f = cdf_k[k];
+#pragma unroll
+    for (int l = 0; l < L; ++l) n[l] = n[l] + (u[l] >= f ? 1.0f : 0.0f);
+  }
+}
+
+// One Merton step on the jump count n from the leg's start price `base`
+// (s0, or the stored S_t of an inner leg): the exact-in-law log increment
 // w = ((w + drift_dt) + vol_dt*z) + jump, S = base*exp(w).
+template <class Payoff>
+__device__ __forceinline__ void merton_step_n(const MertonParams& m, float n, float z, float e,
+                                              float base, float& w, float& s,
+                                              typename Payoff::State& st) {
+  w = ((w + m.pay.drift_dt) + m.pay.vol_dt * z) + jump_increment(m.mu_j, m.sigma_j, n, e);
+  s = base * expf(w);  // log-space: one exp rounding per S_t
+  st = Payoff::update(st, s, m.pay);
+}
+
+// The same step, its count scanned from the uniform u.
 template <class Payoff>
 __device__ __forceinline__ void merton_step(const MertonParams& m, int kmax, float z, float e,
                                             float u, float base, float& w, float& s,
                                             typename Payoff::State& st) {
-  const float n = poisson_inv_cdf(u, m.lam_dt, kmax);
-  w = ((w + m.pay.drift_dt) + m.pay.vol_dt * z) + jump_increment(m.mu_j, m.sigma_j, n, e);
-  s = base * expf(w);  // log-space: one exp rounding per S_t
-  st = Payoff::update(st, s, m.pay);
+  merton_step_n<Payoff>(m, poisson_inv_cdf(u, m.lam_dt, kmax), z, e, base, w, s, st);
 }
 
 // The draws of the step pair (2m, 2m+1): the diffusion normals of pair
@@ -125,16 +159,19 @@ __device__ __forceinline__ void merton_outer_step(const MertonParams& m, int kma
 // Merton for the family NMC engine (mc_tpu/nmc_merton.py:44-166): grid S;
 // the inner legs resume from S_t with w from 0, substep u drawing the normal
 // pair (z, e) of counter c_base + 2u and the Poisson uniform of word 0 of
-// c_base + 2u + 1.  The carry holds s, so outer_pay reads the rounded spot
-// the step stored.
+// c_base + 2u + 1, its count taken against the block's cdf table (shared
+// memory, built once a block) where the outer steps scan.  The carry holds
+// s, so outer_pay reads the rounded spot the step stored.
 struct MertonFamilyParams {
   MertonParams m;
   int kmax;
+  const float* cdf;  // the sweep's table, F(0..kmax-1)
 };
 
 struct MertonFamily {
   using Params = MertonFamilyParams;
   static constexpr int kGrids = 1;
+  static constexpr int kLegs = family_legs(4);
 
   template <class Payoff>
   struct Carry {
@@ -145,8 +182,13 @@ struct MertonFamily {
 
   __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
                                 int) {
-    return Params{load_merton(params), ex.i[0]};
+    return Params{load_merton(params), ex.i[0], nullptr};
   }
+  static int table_floats(const FamilyExtras& ex) { return ex.i[0]; }  // host
+  __device__ static void fill_table(const Params& p, float* table) {
+    poisson_cdf_table(p.m.lam_dt, p.kmax, table);
+  }
+  __device__ static void attach_table(Params& p, const float* table) { p.cdf = table; }
   __device__ static const mc::Params& payoff_params(const Params& p) { return p.m.pay; }
 
   template <class Payoff>
@@ -167,18 +209,34 @@ struct MertonFamily {
     return Payoff::terminal(c.st, c.s, p.m.pay);
   }
   template <class Payoff>
-  __device__ static float inner_leg(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float w = 0.0f, s = g[0];
-    for (int u = 0; u < remaining; ++u) {
-      const uint32_t c = c_base + 2u * static_cast<uint32_t>(u);
-      float z, e;
-      normal_pair<13>(k0, k1, id, c, z, e);
-      const float uu = unit_draw<13>(k0, k1, id, c + 1u);
-      merton_step<Payoff>(p.m, p.kmax, z, e, uu, g[0], w, s, st);
+  __device__ static void inner_legs(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    float w[kLegs], s[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      w[l] = 0.0f;
+      s[l] = g[0];
+      st[l] = st0;
     }
-    return Payoff::terminal(st, s, p.m.pay);
+    for (int u = 0; u < remaining; ++u) {
+      float z[kLegs], e[kLegs], uu[kLegs], n[kLegs];
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        const uint32_t c = c_base + l * stride + 2u * static_cast<uint32_t>(u);
+        normal_pair<13>(k0, k1, id, c, z[l], e[l]);
+        uu[l] = unit_draw<13>(k0, k1, id, c + 1u);
+      }
+      poisson_counts(p.cdf, p.kmax, uu, n);
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        merton_step_n<Payoff>(p.m, n[l], z[l], e[l], g[0], w[l], s[l], st[l]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st[l], s[l], p.m.pay);
   }
   __device__ static float point_scale(const Params& p, const float (&)[kGrids]) {
     return expf(-p.m.pay.r * p.m.pay.t);  // the full e^{-rT}

@@ -28,24 +28,24 @@ inline bool rainbow_extras_ok(const FamilyExtras& extras) {
 
 cudaError_t rainbow_family_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                                  uint32_t ki1, const float* params, FamilyExtras extras,
-                                 int n_steps, int n_inner, uint32_t n_paths,
-                                 uint32_t path_offset, uint32_t bound, float* surface,
-                                 double* outer_partials, cudaStream_t stream) {
+                                 int n_steps, int n_inner, int n_groups, int stage_floats,
+                                 uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                                 float* surface, double* outer_partials, cudaStream_t stream) {
   if (!rainbow_extras_ok(extras)) return cudaErrorInvalidValue;
   return (extras.i[0] <= 8 ? rainbow8_family_fused : rainbow32_family_fused)(
-      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset,
-      bound, surface, outer_partials, stream);
+      payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps, n_inner, n_groups, stage_floats,
+      n_paths, path_offset, bound, surface, outer_partials, stream);
 }
 
 cudaError_t rainbow_family_inner(int payoff_id, uint32_t ki0, uint32_t ki1, const float* params,
-                                 FamilyExtras extras, int n_steps, int n_inner,
-                                 uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                 const GridPtrs& grids, const float* state_grid,
-                                 float* surface, cudaStream_t stream) {
+                                 FamilyExtras extras, int n_steps, int n_inner, int n_groups,
+                                 int stage_floats, uint32_t n_paths, uint32_t path_offset,
+                                 uint32_t bound, const GridPtrs& grids,
+                                 const float* state_grid, float* surface, cudaStream_t stream) {
   if (!rainbow_extras_ok(extras)) return cudaErrorInvalidValue;
   return (extras.i[0] <= 8 ? rainbow8_family_inner : rainbow32_family_inner)(
-      payoff_id, ki0, ki1, params, extras, n_steps, n_inner, n_paths, path_offset, bound, grids,
-      state_grid, surface, stream);
+      payoff_id, ki0, ki1, params, extras, n_steps, n_inner, n_groups, stage_floats, n_paths,
+      path_offset, bound, grids, state_grid, surface, stream);
 }
 
 cudaError_t rainbow_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
@@ -57,6 +57,12 @@ cudaError_t rainbow_family_trajectories(int payoff_id, uint32_t k0, uint32_t k1,
   return (extras.i[0] <= 8 ? rainbow8_family_trajectories : rainbow32_family_trajectories)(
       payoff_id, k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids,
       state_grid, partials, n_blocks, stream);
+}
+
+cudaError_t rainbow_family_occupancy(int payoff_id, FamilyExtras extras, int fused, int smem_bytes,
+                                  int* blocks) {
+  return (extras.i[0] <= 8 ? rainbow8_family_occupancy : rainbow32_family_occupancy)(
+      payoff_id, extras, fused, smem_bytes, blocks);
 }
 
 }  // namespace mc

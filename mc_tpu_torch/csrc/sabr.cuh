@@ -59,6 +59,7 @@ __device__ __forceinline__ void sabr_step(const SABRParams& c, float z_vol, floa
 struct SABRFamily {
   using Params = SABRParams;
   static constexpr int kGrids = 2;
+  static constexpr int kLegs = family_legs(1);
 
   template <class Payoff>
   struct Carry {
@@ -94,17 +95,31 @@ struct SABRFamily {
     return Payoff::terminal(o.st, o.f, c.pay);
   }
   template <class Payoff>
-  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float lf = logf(g[0]), sig = g[1];
-    for (int u = 0; u < remaining; ++u) {
-      float z_vol, z_perp;
-      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(u), z_vol, z_perp);
-      sabr_step(c, z_vol, z_perp, lf, sig);
-      st = Payoff::update(st, expf(lf), c.pay);
+  __device__ static void inner_legs(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    const float lf0 = logf(g[0]);
+    float lf[kLegs], sig[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      lf[l] = lf0;
+      sig[l] = g[1];
+      st[l] = st0;
     }
-    return Payoff::terminal(st, expf(lf), c.pay);
+    for (int u = 0; u < remaining; ++u) {
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        float z_vol, z_perp;
+        normal_pair<13>(k0, k1, id, c_base + l * stride + static_cast<uint32_t>(u), z_vol,
+                        z_perp);
+        sabr_step(c, z_vol, z_perp, lf[l], sig[l]);
+        st[l] = Payoff::update(st[l], expf(lf[l]), c.pay);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st[l], expf(lf[l]), c.pay);
   }
   __device__ static float point_scale(const Params& c, const float (&)[kGrids]) {
     return expf(-c.pay.r * c.pay.t);  // the full e^{-rT}

@@ -12,12 +12,10 @@
 // which the Brownian-bridge barriers read); the GBM drift/vol coefficients
 // are NaN.
 //
-// The curves stay in global memory: at step j every thread of a block (of a
-// warp, in lockstep) reads the same two floats, drift_dt[j] and vol_sdt[j],
-// so each is one broadcast load served from L1 (800 bytes at n_steps = 100,
-// against local vol's 3(K-1)+1 loads a step); staging them in shared memory
-// would take the same load/store units and buy nothing a first version
-// needs.
+// At step j every thread of a block reads the same two floats, drift_dt[j]
+// and vol_sdt[j]: one broadcast load each, from L1 in the partials kernel,
+// from the block's staged copy in the family NMC sweep (term_steps), which
+// reads them once for its kLegs legs.
 #pragma once
 
 #include <cstdint>
@@ -60,6 +58,20 @@ __device__ __forceinline__ void term_step(const TermParams& c, int j, float z, f
   st = Payoff::update(st, s, c.pay);
 }
 
+// term_step on L legs at once: the curves' entry j read once for them.
+template <class Payoff, int L>
+__device__ __forceinline__ void term_steps(const TermParams& c, int j, const float (&z)[L],
+                                           float (&w)[L], float (&s)[L],
+                                           typename Payoff::State (&st)[L]) {
+  const float drift = c.drift[j], vol = c.vol[j];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    w[l] = w[l] + (drift + vol * z[l]);
+    s[l] = c.pay.s0 * expf(w[l]);
+    st[l] = Payoff::update(st[l], s[l], c.pay);
+  }
+}
+
 // Term structures for the family NMC engine (mc_tpu/nmc_term.py:36-115):
 // grid S, no extras (the device load gets n_steps).  The outer step j draws
 // pair (id, j/2) at even j, parks the odd step's normal in the carry and
@@ -73,6 +85,7 @@ __device__ __forceinline__ void term_step(const TermParams& c, int j, float z, f
 struct TermFamily {
   using Params = TermParams;
   static constexpr int kGrids = 1;
+  static constexpr int kLegs = family_legs(4);
 
   template <class Payoff>
   struct Carry {
@@ -111,19 +124,33 @@ struct TermFamily {
     return Payoff::terminal(o.st, o.s, c.pay);
   }
   template <class Payoff>
-  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    float w = logf(g[0] / c.pay.s0);  // the absolute log-moneyness at the point
-    float s = c.pay.s0 * expf(w);
+  __device__ static void inner_legs(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    const float w0 = logf(g[0] / c.pay.s0);  // the absolute log-moneyness at the point
+    const float s0 = c.pay.s0 * expf(w0);
+    float w[kLegs], s[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      w[l] = w0;
+      s[l] = s0;
+      st[l] = st0;
+    }
     const int row = c.n_steps - remaining;  // j + 1
     for (int q = 0; 2 * q < remaining; ++q) {
-      float z0, z1;
-      normal_pair<13>(k0, k1, id, c_base + static_cast<uint32_t>(q), z0, z1);
-      term_step<Payoff>(c, row + 2 * q, z0, w, s, st);
-      if (2 * q + 1 < remaining) term_step<Payoff>(c, row + 2 * q + 1, z1, w, s, st);
+      float z0[kLegs], z1[kLegs];
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        normal_pair<13>(k0, k1, id, c_base + l * stride + static_cast<uint32_t>(q), z0[l],
+                        z1[l]);
+      }
+      term_steps<Payoff>(c, row + 2 * q, z0, w, s, st);
+      if (2 * q + 1 < remaining) term_steps<Payoff>(c, row + 2 * q + 1, z1, w, s, st);
     }
-    return Payoff::terminal(st, s, c.pay);
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) pay[l] = Payoff::terminal(st[l], s[l], c.pay);
   }
   __device__ static float point_scale(const Params& c, const float (&)[kGrids]) {
     return expf(-c.pay.r * c.pay.t);  // the full e^{-r_bar T}

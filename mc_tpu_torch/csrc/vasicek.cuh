@@ -84,6 +84,7 @@ __device__ __forceinline__ void vasicek_draw6(uint32_t k0, uint32_t k1, uint32_t
 struct VasicekFamily {
   using Params = VasicekParams;
   static constexpr int kGrids = 3;
+  static constexpr int kLegs = family_legs(2);
 
   template <class Payoff>
   struct Carry {
@@ -129,18 +130,31 @@ struct VasicekFamily {
     return Payoff::terminal(o.st, o.s, c.pay) * expf(-o.g.y);
   }
   template <class Payoff>
-  __device__ static float inner_leg(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t c_base, int remaining, const float (&g)[kGrids],
-                                    typename Payoff::State st) {
-    VasicekState s{0.0f, g[1], 0.0f};
-    for (int u = 0; u < remaining; ++u) {
-      const uint32_t cu = 2u * (c_base + static_cast<uint32_t>(u));
-      float za, zb, zc, unused;
-      normal_pair<13>(k0, k1, id, cu, za, zb);
-      normal_pair<13>(k0, k1, id, cu + 1u, zc, unused);
-      st = Payoff::update(st, vasicek_step(c, za, zb, zc, g[0], s), c.pay);
+  __device__ static void inner_legs(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t c_base, uint32_t stride, int remaining,
+                                    const float (&g)[kGrids],
+                                    const typename Payoff::State& st0, float (&pay)[kLegs]) {
+    VasicekState s[kLegs];
+    typename Payoff::State st[kLegs];
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      s[l] = VasicekState{0.0f, g[1], 0.0f};
+      st[l] = st0;
     }
-    return Payoff::terminal(st, g[0] * expf(s.w), c.pay) * expf(-s.y);
+    for (int u = 0; u < remaining; ++u) {
+#pragma unroll
+      for (int l = 0; l < kLegs; ++l) {
+        const uint32_t cu = 2u * (c_base + l * stride + static_cast<uint32_t>(u));
+        float za, zb, zc, unused;
+        normal_pair<13>(k0, k1, id, cu, za, zb);
+        normal_pair<13>(k0, k1, id, cu + 1u, zc, unused);
+        st[l] = Payoff::update(st[l], vasicek_step(c, za, zb, zc, g[0], s[l]), c.pay);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kLegs; ++l) {
+      pay[l] = Payoff::terminal(st[l], g[0] * expf(s[l].w), c.pay) * expf(-s[l].y);
+    }
   }
   __device__ static float point_scale(const Params&, const float (&g)[kGrids]) {
     return expf(-g[2]);  // the outer path's own discount to time 0

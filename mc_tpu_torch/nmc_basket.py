@@ -50,9 +50,15 @@ class BasketNMC(NMCFamily):
     even_steps = False
     cuda_id = FAMILY_BASKET
 
+    legs_cap8 = 2  # csrc kLegs at capacity 8; capacity 32 runs one
+
     @property
     def d(self) -> int:
         return self.extras[0]
+
+    @property
+    def legs(self) -> int:
+        return self.legs_cap8 if self.d <= 8 else 1
 
     @property
     def n_grids(self) -> int:

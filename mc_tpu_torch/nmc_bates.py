@@ -46,10 +46,14 @@ class BatesNMC(NMCFamily):
     n_grids = 2
     even_steps = False
     cuda_id = FAMILY_BATES
+    legs = 2  # csrc kLegs
 
     @property
     def kmax(self) -> int:
         return self.extras[0]
+
+    def table_floats(self) -> int:
+        return self.kmax  # the Poisson cdf F(0..kmax-1)
 
     def span(self, n_steps, n_inner):
         # c_base uses j+1 (up to n_steps) at stride 3*n_steps per leg.

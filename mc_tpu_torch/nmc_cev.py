@@ -46,6 +46,7 @@ class CEVNMC(NMCFamily):
     n_grids = 1
     even_steps = True
     cuda_id = FAMILY_CEV
+    legs = 2  # csrc kLegs
 
     def span(self, n_steps, n_inner):
         return ((n_steps + 1) * n_inner * ((n_steps + 1) // 2),

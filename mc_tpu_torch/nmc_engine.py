@@ -27,6 +27,12 @@ in ``csrc/family_nmc_kernels.cu``):
   stepping the family's outer step, the fused kernel's, so the grid and
   fused strategies agree.
 
+The wrappers compute each call's launch geometry on the host
+(``family_launch``: the point's legs in groups of the family's ``legs``,
+its struct's kLegs; the packed parameters staged in shared memory when
+they fit ``FAMILY_SMEM_BUDGET``, else read where they lie) and pass it to
+the entry points, which refuse a geometry that does not fit.
+
 For outer path i and step j, surface[j, i] = point_scale * (1/n_inner) *
 the f32 Kahan sum over m = 0..n_inner-1, in that order, of inner leg m
 resumed from the state after step j+1, its substep u drawing on counter
@@ -40,6 +46,7 @@ for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib
 import math
@@ -58,7 +65,8 @@ from mc_tpu_torch.ops.path_kernels import (KernelConfig, _bound, moment_row,
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
 
-__all__ = ["NMCFamily", "FamilyConfig", "family_point_sum_plain",
+__all__ = ["NMCFamily", "FamilyConfig", "FamilyLaunch", "family_launch",
+           "FAMILY_SMEM_BUDGET", "family_occupancy", "family_point_sum_plain",
            "family_rows_plain", "family_inner", "family_inner_plain",
            "family_fused", "family_fused_plain", "family_trajectories",
            "family_trajectories_plain", "launch_family_trajectories",
@@ -68,6 +76,11 @@ __all__ = ["NMCFamily", "FamilyConfig", "family_point_sum_plain",
 # Inner-leg elements (inner paths x outer paths) per block of the plain
 # version: bounds its temporaries.
 PLAIN_INNER_ELEMS = 1 << 20
+
+# The dynamic shared memory a block of the fused and inner kernels may take
+# for its staged pack and table, in bytes (csrc/family.cuh
+# kFamilySmemBudget, which refuses more).
+FAMILY_SMEM_BUDGET = 12 * 1024
 
 _MASK = 0xFFFFFFFF
 
@@ -85,6 +98,7 @@ class NMCFamily:
     n_grids = 1        # market-state grids, S first
     even_steps = True  # a pair-consuming outer loop needs even n_steps
     cuda_id = -1
+    legs = 1           # inner legs a thread runs at once (its struct's kLegs)
 
     def __init__(self, extras: tuple = ()):
         self.extras = tuple(int(x) for x in extras)
@@ -107,6 +121,11 @@ class NMCFamily:
     def counter_stride(self, n_steps: int) -> int:
         """Counters one inner leg may draw."""
         return n_steps
+
+    def table_floats(self) -> int:
+        """Floats of the family's per-block table in the kernels' shared
+        memory, after the staged pack (Merton's and Bates's Poisson cdf)."""
+        return 0
 
     def point_scale(self, p, grids_j):
         """Per-point factor on the inner mean: the full e^{-rT} (f32), as
@@ -292,6 +311,64 @@ def family_fused_plain(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
 
 
 # ---------------------------------------------------------------------------
+# Launch geometry of the fused and inner kernels
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyLaunch:
+    """How one call of the fused or inner kernel runs: each point's legs in
+    ``groups`` groups of ``legs`` (the last group holds ``last_legs``, the
+    others past n_inner run and are not added), and the block's dynamic
+    shared memory: the pack's first ``stage_floats`` floats (all of them, or
+    0 where the pack is over the budget and is read where it lies) and the
+    family's table."""
+    legs: int
+    groups: int
+    last_legs: int
+    stage_floats: int
+    table_floats: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * (self.stage_floats + self.table_floats)
+
+    @property
+    def staged(self) -> bool:
+        """The route: the pack staged in shared memory, or read in place."""
+        return self.stage_floats > 0
+
+
+def family_launch(fam: NMCFamily, n_inner: int, n_pack: int) -> FamilyLaunch:
+    """The launch geometry of family ``fam`` at ``n_inner`` inner legs a
+    point and a packed parameter vector of ``n_pack`` floats: the pack is
+    staged when it fits FAMILY_SMEM_BUDGET beside the family's table."""
+    legs, table = fam.legs, fam.table_floats()
+    if 4 * table > FAMILY_SMEM_BUDGET:
+        raise ValueError(f"{fam.name}'s table of {table} floats is over the "
+                         f"{FAMILY_SMEM_BUDGET}-byte shared budget")
+    groups = -(-n_inner // legs)
+    stage = n_pack if 4 * (n_pack + table) <= FAMILY_SMEM_BUDGET else 0
+    return FamilyLaunch(legs=legs, groups=groups,
+                        last_legs=n_inner - (groups - 1) * legs,
+                        stage_floats=stage, table_floats=table)
+
+
+def family_occupancy(fam: NMCFamily, payoff: PathPayoff, fused: bool,
+                     smem_bytes: int) -> int:
+    """Resident blocks per SM of ``fam``'s fused or inner kernel for
+    ``payoff`` at ``smem_bytes`` of dynamic shared memory, on the current
+    card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _cuda.load()
+    blocks = ctypes.c_int(0)
+    _cuda.check(lib.mc_family_occupancy(
+        fam.cuda_id, payoff.cuda_id, _cuda.family_extras(fam.extras),
+        int(fused), smem_bytes, ctypes.addressof(blocks)),
+        "family_occupancy")
+    return blocks.value
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
@@ -332,6 +409,7 @@ def family_inner(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
         return family_inner_plain(fam, payoff, cfg, key_inner, params, grids,
                                   state_grid, path_offset, n_valid)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
+    geo = family_launch(fam, cfg.n_inner, params.numel())
     lib = _cuda.load()
     surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
                           device=params.device)
@@ -339,7 +417,8 @@ def family_inner(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
         status = lib.mc_family_inner(
             fam.cuda_id, payoff.cuda_id, int(key_inner[0]), int(key_inner[1]),
             params.data_ptr(), _cuda.family_extras(fam.extras), cfg.n_steps,
-            cfg.n_inner, cfg.n_paths, path_offset & _MASK, bound,
+            cfg.n_inner, geo.groups, geo.stage_floats, cfg.n_paths,
+            path_offset & _MASK, bound,
             _cuda.pointer_array(grids),
             len(grids), state_grid.data_ptr(), surface.data_ptr(),
             _cuda.stream_handle(params.device))
@@ -358,6 +437,7 @@ def family_fused(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
         return family_fused_plain(fam, payoff, cfg, key_outer, key_inner,
                                   params, path_offset, n_valid)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
+    geo = family_launch(fam, cfg.n_inner, params.numel())
     lib = _cuda.load()
     tiles = _cuda.cdiv(cfg.n_paths, lib.mc_family_block_threads())
     surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
@@ -368,7 +448,8 @@ def family_fused(fam: NMCFamily, payoff: PathPayoff, cfg: FamilyConfig,
             fam.cuda_id, payoff.cuda_id, int(key_outer[0]), int(key_outer[1]),
             int(key_inner[0]), int(key_inner[1]), params.data_ptr(),
             _cuda.family_extras(fam.extras), cfg.n_steps, cfg.n_inner,
-            cfg.n_paths, path_offset & _MASK, bound, surface.data_ptr(),
+            geo.groups, geo.stage_floats, cfg.n_paths, path_offset & _MASK,
+            bound, surface.data_ptr(),
             outer.data_ptr(),
             _cuda.stream_handle(params.device))
     _cuda.check(status, "family_fused kernel")

@@ -58,6 +58,7 @@ class LocalVolNMC(NMCFamily):
     n_grids = 1
     even_steps = True
     cuda_id = FAMILY_LOCALVOL
+    legs = 4  # csrc kLegs
 
     @property
     def n_knots(self) -> int:

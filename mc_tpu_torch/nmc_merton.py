@@ -47,10 +47,14 @@ class MertonNMC(NMCFamily):
     n_grids = 1
     even_steps = True
     cuda_id = FAMILY_MERTON
+    legs = 4  # csrc kLegs
 
     @property
     def kmax(self) -> int:
         return self.extras[0]
+
+    def table_floats(self) -> int:
+        return self.kmax  # the Poisson cdf F(0..kmax-1)
 
     def span(self, n_steps, n_inner):
         # c_base uses j+1 (up to n_steps) at stride 2*n_steps per leg.

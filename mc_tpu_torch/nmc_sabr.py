@@ -46,6 +46,7 @@ class SABRNMC(NMCFamily):
     n_grids = 2
     even_steps = False
     cuda_id = FAMILY_SABR
+    legs = 1  # csrc kLegs
 
     def span(self, n_steps, n_inner):
         return n_steps * n_inner * n_steps, "n_steps^2 * n_inner"

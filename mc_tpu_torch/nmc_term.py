@@ -51,6 +51,7 @@ class TermNMC(NMCFamily):
     n_grids = 1
     even_steps = True
     cuda_id = FAMILY_TERM
+    legs = 4  # csrc kLegs
 
     def span(self, n_steps, n_inner):
         return ((n_steps + 1) * n_inner * ((n_steps + 1) // 2),

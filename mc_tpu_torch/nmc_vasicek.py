@@ -53,6 +53,7 @@ class VasicekNMC(NMCFamily):
     n_grids = 3
     even_steps = True
     cuda_id = FAMILY_VASICEK
+    legs = 2  # csrc kLegs
 
     def span(self, n_steps, n_inner):
         # c_base uses j+1 (up to n_steps) at stride n_steps, doubled.

@@ -163,16 +163,22 @@ _SIGNATURES = {
                                 _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr,
                                 _c_ptr, _c_ptr, _c_int, _c_ptr], _c_int),
     # family_id, payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
-    # n_paths, path_offset, bound, grids (host array of n_grids device
-    # pointers), n_grids, state_grid, surface, stream
+    # n_groups, stage_floats, n_paths, path_offset, bound, grids (host array
+    # of n_grids device pointers), n_grids, state_grid, surface, stream
     "mc_family_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, FamilyExtras,
-                         _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr_array,
-                         _c_int, _c_ptr, _c_ptr, _c_ptr], _c_int),
+                         _c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
+                         _c_u32, _c_ptr_array, _c_int, _c_ptr, _c_ptr,
+                         _c_ptr], _c_int),
     # family_id, payoff_id, ko0, ko1, ki0, ki1, params, extras, n_steps,
-    # n_inner, n_paths, path_offset, bound, surface, outer_partials, stream
+    # n_inner, n_groups, stage_floats, n_paths, path_offset, bound, surface,
+    # outer_partials, stream
     "mc_family_fused": ([_c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_u32,
-                         _c_ptr, FamilyExtras, _c_int, _c_int, _c_u32, _c_u32,
-                         _c_u32, _c_ptr, _c_ptr, _c_ptr], _c_int),
+                         _c_ptr, FamilyExtras, _c_int, _c_int, _c_int, _c_int,
+                         _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr],
+                        _c_int),
+    # family_id, payoff_id, extras, fused, smem_bytes, blocks (int*)
+    "mc_family_occupancy": ([_c_int, _c_int, FamilyExtras, _c_int, _c_int,
+                             _c_ptr], _c_int),
     # family_id, payoff_id, k0, k1, params, extras, n_steps, n_paths,
     # path_offset, bound, grids (host array of n_grids device pointers),
     # n_grids, state_grid, partials, n_blocks, stream
