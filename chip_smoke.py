@@ -43,11 +43,16 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    rainbow's generic trajectories and NMC kernels (both folds), the QMC
    kernels (terminal and Euler on the lattice and Sobol, the Brownian
    bridge, every payoff at a small point count, the call and the Asian at
-   2^20 points x 100) on two shifts; the model-QMC kernel #33 under all
-   nine families (the call and the Asian on both point families, every
-   payoff of Heston and of the basket at d = 4, the basket at d = 1, 9, 32)
-   at 4,096 / 4,099 points x 100 on two shifts, its sums bitwise or within
-   2e-16; the rates kernel #11 under its five European swaption tiles
+   2^20 points x 100) on two shifts, #32 also on 3 and 17 shifts (a ragged
+   last shift group) and, at 2^20 points x 100 x 16, its first and last
+   block's rows against the plain sums of their points; the model-QMC
+   kernel #33 under all nine families (the call and the Asian on both
+   point families, every payoff of Heston and of the basket at d = 4, the
+   basket at d = 1, 9, 32) at 4,096 / 4,099 points x 100 on two shifts and
+   each family on 3 and 17, its sums bitwise or within 2e-16; #32 and #33
+   at the main shape against one launch of their first and last shift
+   alone (no other shift beside it), bitwise; the rates kernel
+   #11 under its five European swaption tiles
    (Vasicek, Hull-White and G2++, the last two also multi-curve), payer and
    receiver, at 1, 10 and 60 payments on 2^20 paths, 100,001 paths and an
    offset run whose bound falls short of its end, its rows bitwise; their
@@ -143,7 +148,9 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    Heston's, the term and dividend kernels beside CEV's, the Vasicek
    kernels beside Merton's, the basket kernels beside Heston's, the FX
    kernel beside terminal_pair, the rainbow kernels beside the basket's,
-   the QMC kernels on both families, #33 per family, #11 per tile at 2^20
+   the QMC kernels on both families and #33 per family (each beside its
+   share of the bound, its registers and spills, its resident blocks per
+   SM, its shifts a thread and its shared bytes), #11 per tile at 2^20
    and 2^24 paths with 10 payments and at 2^20 with 60 (the NMC kernels' times are their
    phase-2 calls' and the NMC calls' their phase-3 calls'; each family's
    #29/#30 beside its share of the bound, its registers and spills, its
@@ -2233,19 +2240,31 @@ FX_RAINBOW_QMC_ROWS = ("fx_partials", "rainbow_partials",
 QMC_POINTS = 1 << 20        # bench.py:505-527: n = prev_prime(2^20), or 2^20
 QMC_SHIFTS = 16
 QMC_CHECK_SHIFTS = 2        # phase 2: each QMC kernel on two shifts
+QMC_RAGGED = (3, 17)        # phase 2: shift counts with a ragged last group
+QMC_RAGGED_GBM = (("asian_call", "euler", "sobol", 3),
+                  ("asian_call", "euler", "lattice", 17),
+                  ("vanilla_call", "terminal", "sobol", 17),
+                  ("vanilla_call", "terminal", "lattice", 3))
 QMC_SMALL = 4099            # phase 2: every payoff (4096 points for Sobol)
 # The terminal QMC call's allowance beside its 3 stderr: the f32 inverse
 # CDF's bias (|dz| up to ~2e-6, delta * S0 * sigma * 2e-6 < 3e-5) and its
 # clamp at 1 - 1e-6; at 1,048,573 x 16 the stderr is ~1e-5.
 QMC_BIAS = 1e-4
-# A QMC coordinate (qmc_kernels.cu): the lattice residue (two float-assisted
-# reductions, the split's shifts and adds; u = t * (1/n) + shift and its
-# frac) or the Sobol XOR (4 int32 operations a bit, 30 bits, the shift and
-# bits_to_unit); the inverse CDF (~84 f32 operations with its four
-# divisions; logf, sqrtf and two expf).
-LATTICE_COORD_OPS = (20, 8, 0)
-SOBOL_COORD_OPS = (124, 1, 0)
+# A QMC coordinate (qmc.cuh), the least work for R shifts whatever computes
+# it: its shift-independent part once per (point, dimension), the lattice
+# residue (two float-assisted reductions, the split's shifts and adds) and
+# t * (1/n), or the Sobol XOR of the direction numbers over the Gray code's
+# set bits (10 on average for ids below 2^20: an XOR and a bit cleared
+# each); then per (point, shift, dimension) the lattice's + shift and frac,
+# or the Sobol shift's XOR and bits_to_unit, and the inverse CDF (~84 f32
+# operations with its four divisions; logf, sqrtf and two expf).
+LATTICE_BASE_OPS = (20, 5, 0)
+LATTICE_SHIFT_OPS = (0, 3, 0)
+SOBOL_BASE_OPS = (2 * 10, 0, 0)
+SOBOL_SHIFT_OPS = (4, 1, 0)
 INV_CDF_OPS = (0, 84, 4)
+QMC_COORD_OPS = {"lattice": (LATTICE_BASE_OPS, LATTICE_SHIFT_OPS),
+                 "sobol": (SOBOL_BASE_OPS, SOBOL_SHIFT_OPS)}
 # A bridge entry: (c_l W[l] + c_r W[r]) + s z (5), and a step's increment
 # (1).
 BRIDGE_OPS = (0, 6, 0)
@@ -2263,16 +2282,27 @@ def rainbow_path(d: int, antithetic: bool = False):
                 _scale(leg, 2 if antithetic else 1), TERMINAL_OPS)
 
 
-def qmc_path(family: str, n_steps: int, bridge: bool, payoff: str):
-    """A QMC path: n_steps coordinates and normals, the bridge's entries
-    and increments, the log-Euler steps and the payoff (the terminal draw
-    at n_steps = 0)."""
-    coord = LATTICE_COORD_OPS if family == "lattice" else SOBOL_COORD_OPS
+def qmc_point_ops(family: str, n_shifts: int, dims: int, per_shift):
+    """One point under n_shifts shifts: the coordinate's base of each of its
+    ``dims`` dimensions once, and per shift ``per_shift`` (its dimensions'
+    shift parts and normals, its steps and payoff)."""
+    base, _ = QMC_COORD_OPS[family]
+    return _add(_scale(base, dims), _scale(per_shift, n_shifts))
+
+
+def qmc_path(family: str, n_steps: int, bridge: bool, payoff: str,
+             n_shifts: int):
+    """A QMC point's paths under n_shifts shifts (qmc_point_ops): n_steps
+    normals, the bridge's entries and increments, the log-Euler steps and
+    the payoff (the terminal draw at n_steps = 0)."""
+    _, shift = QMC_COORD_OPS[family]
     if n_steps == 0:
-        return _add(coord, INV_CDF_OPS, TERMINAL_DRAW_OPS, TERMINAL_OPS)
-    step = _add(coord, INV_CDF_OPS, STEP_OPS, UPDATE_OPS[payoff],
+        return qmc_point_ops(family, n_shifts, 1, _add(
+            shift, INV_CDF_OPS, TERMINAL_DRAW_OPS, TERMINAL_OPS))
+    step = _add(shift, INV_CDF_OPS, STEP_OPS, UPDATE_OPS[payoff],
                 BRIDGE_OPS if bridge else (0, 0, 0))
-    return _add(_scale(step, n_steps), TERMINAL_OPS)
+    return qmc_point_ops(family, n_shifts, n_steps,
+                         _add(_scale(step, n_steps), TERMINAL_OPS))
 
 
 def fx_rainbow_qmc_setup(mt):
@@ -2299,11 +2329,43 @@ def qmc_case(mt, dev, name, n_paths, n_steps, method, family, bridge,
 
     po = get_payoff(name)
     sim = mt.SimParams(n_paths=n_paths, n_steps=n_steps)
-    m, ps = qmc.qmc_pointset(po, sim, QMC_SHIFTS, method, family, bridge, 0.1,
-                             0, sim.seed, dev)
+    m, ps = qmc.qmc_pointset(po, sim, max(QMC_SHIFTS, n_shifts), method,
+                             family, bridge, 0.1, 0, sim.seed, dev)
     ps = ps.shifted(ps.shifts[:n_shifts])
     cfg = pk.KernelConfig(n_paths=ps.n, n_steps=n_steps, method=m)
     return po, cfg, ps, pk.pack_params(payoff_option(mt, name), n_steps, dev)
+
+
+def qmc_block_plain(po, cfg, ps, prm, ids):
+    """qmc_sums_plain's sums over the points ``ids`` alone: (R, 1) f64."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    p = pk.unpack_params(prm)
+    pay, _ = pk._payoff_leg(po, cfg, p, p.s0.expand(ps.n_shifts, ids.shape[0]),
+                            qmc.qmc_draw_pair(ps, ids, cfg.method))
+    return pay.double().sum(dim=1, keepdim=True)
+
+
+def qmc_block_ids(geo, n: int, dev) -> dict:
+    """{block: its point ids} of the first and the last path block of a
+    QMC kernel's launch (``geo.point_blocks``: the kernel's grid-strided
+    blocks)."""
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    block = geo.point_blocks(ids)
+    return {b: ids[block == b] for b in (0, geo.n_bx - 1)}
+
+
+def qmc_shift_identity(label, partials, one_shift, n_shifts) -> None:
+    """A QMC kernel's main-shape partials against one launch a shift (the
+    shift alone, the rest of its group surplus legs): the first and the
+    last shift's columns bitwise."""
+    for r in (0, n_shifts - 1):
+        same = bool(torch.equal(one_shift(r)[:, 0], partials[:, r]))
+        print(f"phase 2: {label}, shift {r} launched alone: its "
+              f"{partials.shape[0]} rows bitwise {same}")
+        if not same:
+            fail(f"{label}: shift {r}'s rows depend on the shifts beside it")
 
 
 def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
@@ -2315,8 +2377,11 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
     NMC_SMALL (both folds) and at NMC_MAIN against the plain rows NMC_ROWS,
     #32 (the terminal call at the full 2^20 points of both families, every
     payoff at QMC_SMALL on the lattice and some on Sobol, the Asian at the
-    full points x 100) and #31 (the Asian at the full shape, every payoff
-    at QMC_SMALL), the QMC kernels on two shifts, each check deferred (the
+    full points x 100; QMC_RAGGED_GBM's ragged shift groups; at the main
+    shape the first and the last block's rows against the plain sums of
+    their points and each shift's rows against a launch of that shift
+    alone, bitwise) and #31 (the Asian at the full shape, every payoff at
+    QMC_SMALL), the QMC kernels on two shifts, each check deferred (the
     full-width ones after ``lattice_ready()`` returns: the CBC vector is
     built in a thread).  Sums to f64 rounding, grids and surfaces bitwise.
     Returns ({row: max abs error}, the rainbow NMC's family_nmc_case ms),
@@ -2392,9 +2457,10 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
     nmc_ms = family_nmc_checks(mt, dev, note, "rainbow", fam, pack, None,
                                keys["rainbow_nmc"], row, rows=NMC_ROWS)
 
-    def check_qmc(name, n_paths, n_steps, method, family, bridge):
+    def check_qmc(name, n_paths, n_steps, method, family, bridge,
+                  n_shifts=QMC_CHECK_SHIFTS):
         po, cfg, ps, prm = qmc_case(mt, dev, name, n_paths, n_steps, method,
-                                    family, bridge, QMC_CHECK_SHIFTS)
+                                    family, bridge, n_shifts)
         want = finish_sum(qmc.qmc_sums_plain(po, cfg, ps, prm, bridge))
         yield
         got = finish_sum(qmc.qmc_sums(po, cfg, ps, prm, bridge))
@@ -2402,6 +2468,29 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
         check_sums(f"{row} {name} {family} {cfg.method} {ps.n}x{n_steps} "
                    f"{ps.n_shifts} shifts", got, want)
         note(row, float((got - want).abs().max()) / ps.n)
+
+    def main_blocks(family):
+        """#32 at the main shape: the first and the last block's rows
+        against the plain sums of their points, and each shift's rows
+        against a launch of that shift alone, bitwise."""
+        po, cfg, ps, prm = qmc_case(mt, dev, "asian_call", QMC_POINTS,
+                                    MAIN_STEPS, "euler", family, False,
+                                    QMC_SHIFTS)
+        geo = qmc.kernel_launch(ps)
+        want = {b: qmc_block_plain(po, cfg, ps, prm, ids)
+                for b, ids in qmc_block_ids(geo, ps.n, dev).items()}
+        yield
+        partials = qmc.qmc_sums(po, cfg, ps, prm)
+        label = (f"qmc_sums asian_call {family} euler {ps.n}x{MAIN_STEPS} "
+                 f"{ps.n_shifts} shifts")
+        if partials.shape[0] != geo.n_bx:
+            fail(f"{label}: {partials.shape[0]} blocks, kernel_launch's "
+                 f"{geo.n_bx}")
+        for b, w in want.items():
+            check_sums(f"{label}, block {b} of {geo.n_bx}", partials[b], w)
+            note("qmc_sums", float((partials[b] - w).abs().max()) / ps.n)
+        qmc_shift_identity(label, partials, lambda r: qmc.qmc_sums(
+            po, cfg, ps.shifted(ps.shifts[r:r + 1]), prm), ps.n_shifts)
 
     for name, po in sorted(PAYOFFS.items()):
         if po.terminal_only:
@@ -2417,6 +2506,8 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
         defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", True))
     defer(check_qmc("asian_call", QMC_SMALL, MAIN_STEPS - 1, "euler",
                     "lattice", True))  # an odd step count: the clamped half
+    for name, method, family, r in QMC_RAGGED_GBM:  # a ragged last group
+        defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, method, family, False, r))
     lattice_ready()  # the full-width lattice reads the CBC vector
     for family in ("lattice", "sobol"):
         defer(check_qmc("vanilla_call", QMC_POINTS, MAIN_STEPS, "terminal",
@@ -2425,6 +2516,7 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
                         family, False))
         defer(check_qmc("asian_call", QMC_POINTS, MAIN_STEPS, "euler",
                         family, True))
+        defer(main_blocks(family))
     return err, nmc_ms
 
 
@@ -2604,22 +2696,72 @@ def fx_rainbow_qmc_path(mt, dev, _cuda, path, e2e_nmc):
     return {k: _cuda.launch_counts[k] for k in QMC_KERNELS}
 
 
+def entry_resources(log: str, kernel: str) -> dict:
+    """{mangled entry: {"registers", "stack", "spill_stores", "spill_loads",
+    "smem", "callees"}} of the ptxas log's entries of ``kernel`` (the
+    rainbow's, templated on two integers, and #33's, on a leg and a payoff,
+    which ptxas_resources does not tell apart).  A frame line belongs to
+    the function its "Function properties for" line names: the entry's own,
+    or an out-of-line callee's ({name: (stack, spill stores, spill loads)}
+    under "callees")."""
+    out, entry, fn = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if re.match(r"_ZN2mc\d+" + kernel,
+                                           m.group(1)) else None
+            if entry:
+                out[entry] = {"callees": {}}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
+            if fn == entry:
+                out[entry].update(zip(("stack", "spill_stores",
+                                       "spill_loads"), frame))
+            elif fn:
+                out[entry]["callees"][fn] = frame
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            s = re.search(r"(\d+) bytes smem", line)
+            out[entry].update(registers=int(m.group(1)),
+                              smem=int(s.group(1)) if s else 0)
+    return out
+
+
 def entry_registers(log: str, kernel: str) -> dict:
     """{mangled entry: registers} of the ptxas log's entries of ``kernel``
-    (the rainbow's, templated on two integers the registers parser does not
-    tell apart)."""
-    out, entry = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(_ZN2mc\d+" + kernel
-                      + r"\w*)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            out[entry] = int(m.group(1))
-            entry = None
-    return out
+    (entry_resources)."""
+    return {e: r["registers"] for e, r in entry_resources(log, kernel).items()
+            if "registers" in r}
+
+
+def qmc_launch_report(res: dict, geo, family_id: int, payoff, extra: int,
+                      table_bytes: int = 0):
+    """Phase 5's resources of a QMC kernel: ptxas's registers, spills and
+    static shared bytes (``res``), its dynamic shared bytes (Merton's and
+    Bates's Poisson table), its resident blocks per SM, its shifts a thread
+    (``geo``: qmc.kernel_launch)."""
+    from mc_tpu_torch import qmc
+
+    blocks = qmc.qmc_occupancy(family_id, payoff, extra)
+    callees = "; ".join(
+        f"{re.search(r'[0-9](qmc_[a-z_]+)', name).group(1)} stack/spill "
+        f"stores/loads {'/'.join(map(str, frame))} B"
+        for name, frame in res.get("callees", {}).items())
+    return (f"registers {res.get('registers')}, spill stores/loads "
+            f"{res.get('spill_stores')}/{res.get('spill_loads')} B (stack "
+            f"{res.get('stack')} B; out of line: {callees or 'none'}), "
+            f"{blocks} blocks/SM, kShifts {geo.k_shifts} ({geo.groups} shift "
+            f"groups), shared {table_bytes} B dynamic + {res.get('smem')} B "
+            f"static")
 
 
 def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
@@ -2711,9 +2853,17 @@ def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
                   f"(spread {sp:.1%}) {tag}")
         steps = ps.n * QMC_SHIFTS * (MAIN_STEPS if method == "euler" else 1)
         kern = "qmc_bridge_kernel" if bridge else "qmc_kernel"
+        b_ms = bound(0, _scale(qmc_path(
+            family, MAIN_STEPS if method == "euler" else 0, bridge, name,
+            QMC_SHIFTS), ps.n))[0]
+        struct = type(po).__name__
+        res = next((r for e, r in entry_resources(ptxas, kern).items()
+                    if f"{len(struct)}{struct}E" in e), {})
+        launch = ("registers " + str(res.get("registers")) if bridge else
+                  qmc_launch_report(res, qmc.kernel_launch(ps), -1, po, 0))
         print(f"phase 5: {row} {label}: {steps / k_ms * 1e3:.4e} "
-              f"path-steps/s; registers "
-              f"{regs.get((kern, type(po).__name__, None))} {tag}")
+              f"path-steps/s, {b_ms / k_ms:.1%} of its bound ({b_ms:.3f} ms);"
+              f" {launch} {tag}")
     qsim = mt.SimParams(n_paths=QMC_POINTS, n_steps=MAIN_STEPS)
     e2e_report((
         (f"price_fx() quanto_call {FAMILY_MAIN}", "paths/s", FAMILY_MAIN,
@@ -2751,7 +2901,7 @@ def fx_rainbow_qmc_bounds():
 
     n_out, n_steps, _ = NMC_MAIN
     path4 = basket_path(4, MAIN_STEPS)
-    n_qmc = 1_048_573 * QMC_SHIFTS
+    n_qmc = 1_048_573
     return {
         "fx_partials": bound(44, _scale(_add(pair_ops(13), FX_PATH_OPS),
                                         FAMILY_MAIN)),
@@ -2762,10 +2912,11 @@ def fx_rainbow_qmc_bounds():
         **family_bounds("rainbow", _add(_scale(pair_ops(13), 2),
                                         basket_step_ops(4)), path4, 4),
         "qmc_sums": bound(0, _scale(qmc_path("lattice", MAIN_STEPS, False,
-                                             "asian_call"), n_qmc)),
+                                             "asian_call", QMC_SHIFTS),
+                                    n_qmc)),
         "qmc_bridge_sums": bound(0, _scale(qmc_path("lattice", MAIN_STEPS,
-                                                    True, "asian_call"),
-                                           n_qmc)),
+                                                    True, "asian_call",
+                                                    QMC_SHIFTS), n_qmc)),
     }
 
 
@@ -2774,7 +2925,6 @@ def fx_rainbow_qmc_bounds():
 QMC_MODEL_FAMILIES = ("heston", "bates", "basket", "cev", "sabr", "localvol",
                       "vasicek", "merton", "term")
 QMC_MODEL_ROWS = tuple(f"qmc_model_sums_{m}" for m in QMC_MODEL_FAMILIES)
-QMC_MODEL_THREADS = 128    # #33's block (csrc/qmc_model.cuh kQmcModelThreads)
 QMC_MODEL_D = (1, 9, 32)   # phase 2: the basket's d-edges (32: capacity 32)
 QMC_MODEL_RTOL = 2e-16     # phase 2: #33's sums, bitwise or f64 rounding
 QMC_MODEL_JOINT_SE = 3.5   # phase 3: against the family's own kernel
@@ -2802,33 +2952,36 @@ def qmc_model_checks(mt, dev):
     the card at QMC_SMALL points x 100 steps x 2 shifts (4,096 Sobol points,
     4,099 on the lattice): the call and the Asian under every family on both
     point families, every payoff Heston and the basket (d = 4) accept, the
-    basket at d = 1, 9 and 32; and at the main shape (the call on 2^20
-    Sobol points x 100 x 16 shifts under every family, CEV on the lattice
-    too), the rows of the first and the last block under every shift
-    against the plain version over those blocks' points; the sums bitwise
-    or within QMC_MODEL_RTOL.  Each check is deferred (its plain half runs
+    basket at d = 1, 9 and 32, every family at QMC_RAGGED shifts (a ragged
+    last shift group); and at the main shape (the call on 2^20 Sobol points
+    x 100 x 16 shifts under every family, CEV on the lattice too), the rows
+    of the first and the last block under every shift against the plain
+    version over those blocks' points, and the first and the last shift's
+    rows against a launch of that shift alone, bitwise; the sums bitwise or within QMC_MODEL_RTOL.  Each
+    check is deferred (its plain half runs
     now; the lattice's CBC vector is ready, fx_rainbow_qmc_checks waited
     for it).  Returns ({row: max abs error of a shift mean}, {family: the
     plain version's ms on the call, Sobol, host clock}), filled by the
     kernel pass."""
     from mc_tpu_torch import qmc
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
-    from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops.payoffs import PAYOFFS
     from mc_tpu_torch.ops.reduce import finish_sum
 
     err = dict.fromkeys(QMC_MODEL_ROWS, 0.0)
     plain_ms = {}
 
-    def check(model, name, family, dyn=None, label=""):
+    def check(model, name, family, dyn=None, label="",
+              n_shifts=QMC_CHECK_SHIFTS):
         po, ps, prm, extra = qmc_model_case(mt, dev, model, name, family,
-                                            QMC_SMALL, QMC_CHECK_SHIFTS, dyn)
+                                            QMC_SMALL, n_shifts, dyn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = finish_sum(qmc.qmc_model_sums_plain(model, po, ps, prm,
                                                    MAIN_STEPS, extra))
         torch.cuda.synchronize()
-        if (name, family, dyn) == ("vanilla_call", "sobol", None):
+        if (name, family, dyn, n_shifts) == ("vanilla_call", "sobol", None,
+                                             QMC_CHECK_SHIFTS):
             plain_ms[model] = (time.perf_counter() - t0) * 1e3
         yield
         got = finish_sum(qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS,
@@ -2840,36 +2993,39 @@ def qmc_model_checks(mt, dev):
         err[row] = max(err[row], float((got - want).abs().max()) / ps.n)
 
     def main_blocks(model, family):
+        """At the main shape: the first and the last block's rows against
+        the plain version over their points, and each shift's rows
+        against a launch of that shift alone, bitwise."""
         po, ps, prm, extra = qmc_model_case(mt, dev, model, "vanilla_call",
                                             family, QMC_POINTS, QMC_SHIFTS)
-        n_bx = min(_cuda.cdiv(ps.n, QMC_MODEL_THREADS), _cuda.MAX_BLOCKS)
-        ids = torch.arange(ps.n, dtype=torch.int64, device=dev)
-        block = (ids // QMC_MODEL_THREADS) % n_bx  # the grid-strided blocks
-        blocks = (0, n_bx - 1)
-        want = [finish_sum(qmc.qmc_model_sums_plain(
-            model, po, ps, prm, MAIN_STEPS, extra, ids[block == b]))
-            for b in blocks]
+        geo = qmc.kernel_launch(ps, model, extra)
+        want = {b: finish_sum(qmc.qmc_model_sums_plain(
+            model, po, ps, prm, MAIN_STEPS, extra, ids))
+            for b, ids in qmc_block_ids(geo, ps.n, dev).items()}
         yield
-        threads = _cuda.load().mc_qmc_model_block_threads()
-        if threads != QMC_MODEL_THREADS:
-            fail(f"qmc_model_sums runs {threads} threads a block; the "
-                 f"main-shape check assumed {QMC_MODEL_THREADS}")
         partials = qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS, extra)
-        if partials.shape[0] != n_bx:
-            fail(f"qmc_model_sums ran {partials.shape[0]} blocks; the "
-                 f"main-shape check assumed {n_bx}")
         row = f"qmc_model_sums_{model}"
-        for b, w in zip(blocks, want):
+        label = (f"{row} vanilla_call {family} {ps.n}x{MAIN_STEPS} d={ps.d} "
+                 f"{ps.n_shifts} shifts")
+        if partials.shape[0] != geo.n_bx:
+            fail(f"{label}: {partials.shape[0]} blocks, kernel_launch's "
+                 f"{geo.n_bx}")
+        for b, w in want.items():
             got = partials[b]
-            check_sums(f"{row} vanilla_call {family} {ps.n}x{MAIN_STEPS} "
-                       f"d={ps.d} {ps.n_shifts} shifts, block {b} of {n_bx}",
-                       got, w, QMC_MODEL_RTOL)
+            check_sums(f"{label}, block {b} of {geo.n_bx}", got, w,
+                       QMC_MODEL_RTOL)
             err[row] = max(err[row], float((got - w).abs().max()) / ps.n)
+        qmc_shift_identity(label, partials, lambda r: qmc.qmc_model_sums(
+            model, po, ps.shifted(ps.shifts[r:r + 1]), prm, MAIN_STEPS,
+            extra), ps.n_shifts)
 
     for model in QMC_MODEL_FAMILIES:
         for family in ("sobol", "lattice"):
             for name in ("vanilla_call", "asian_call"):
                 defer(check(model, name, family))
+        for n_shifts, name in zip(QMC_RAGGED, ("vanilla_call", "asian_call")):
+            defer(check(model, name, "sobol", label=" ragged",
+                        n_shifts=n_shifts))
         for family in ("sobol", "lattice") if model == "cev" else ("sobol",):
             defer(main_blocks(model, family))
     for name in sorted(PAYOFFS):
@@ -3017,35 +3173,38 @@ def qmc_model_path(mt, dev, _cuda, e2e):
 
 
 def qmc_model_point_ops(model: str, family: str, n_steps: int, kmax: int,
-                        d_assets: int = 4):
-    """#33's operations for one point of ``model`` under the call: its
-    coordinates (normals: the coordinate and the inverse CDF; raw units:
-    the coordinate), its steps and the payoff."""
-    coord = LATTICE_COORD_OPS if family == "lattice" else SOBOL_COORD_OPS
+                        n_shifts: int, d_assets: int = 4):
+    """#33's operations for one point of ``model`` under the call and
+    n_shifts shifts (qmc_point_ops): each coordinate's base once, and per
+    shift its normals (the shift part and the inverse CDF) and raw units
+    (the shift part), its steps (Merton's and Bates's jump counts against the
+    block's cdf table, table_ops) and the payoff."""
+    _, coord = QMC_COORD_OPS[family]
     normal = _add(coord, INV_CDF_OPS)
     step, normals, units = {
         "heston": (HESTON_EULER_OPS, 2, 0),
-        "bates": (_add(HESTON_EULER_OPS, BATES_JUMP_OPS, scan_ops(kmax)),
+        "bates": (_add(HESTON_EULER_OPS, BATES_JUMP_OPS, table_ops(kmax)),
                   3, 1),
         "basket": (basket_step_ops(d_assets), 2 * ((d_assets + 1) // 2), 0),
         "cev": (CEV_STEP_OPS, 1, 0),
         "sabr": (SABR_STEP_OPS, 2, 0),
         "localvol": (lv_step_ops(9), 1, 0),
         "vasicek": (VASICEK_STEP_OPS, 3, 0),
-        "merton": (_add(MERTON_STEP_OPS, scan_ops(kmax)), 2, 1),
+        "merton": (_add(MERTON_STEP_OPS, table_ops(kmax)), 2, 1),
         "term": (STEP_OPS, 1, 0)}[model]
     per_step = _add(_scale(normal, normals), _scale(coord, units), step)
     extra = VASICEK_DISCOUNT_OPS if model == "vasicek" else (0, 0, 0)
-    return _add(_scale(per_step, n_steps), TERMINAL_OPS, extra)
+    return qmc_point_ops(family, n_shifts, (normals + units) * n_steps,
+                         _add(_scale(per_step, n_steps), TERMINAL_OPS, extra))
 
 
 def qmc_model_bounds():
     """bound() of #33 per family: the call on 2^20 Sobol points x 100 steps
     x 16 shifts (a few kB of tables and parameters: operations bound)."""
     k_dt, _ = jump_kmax()
-    n = QMC_POINTS * QMC_SHIFTS
     return {f"qmc_model_sums_{m}": bound(0, _scale(qmc_model_point_ops(
-        m, "sobol", MAIN_STEPS, k_dt), n)) for m in QMC_MODEL_FAMILIES}
+        m, "sobol", MAIN_STEPS, k_dt, QMC_SHIFTS), QMC_POINTS))
+        for m in QMC_MODEL_FAMILIES}
 
 
 def qmc_model_times(mt, dev, ptxas, tag, plain_ms, e2e):
@@ -3066,17 +3225,25 @@ def qmc_model_times(mt, dev, ptxas, tag, plain_ms, e2e):
             k_ms, sp, _ = cuda_ms(
                 lambda: qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS,
                                            extra), reps=3)
-            regs = entry_registers(ptxas.get(f"qmc_{model}_kernels.cu", ""),
-                                   "qmc_model_kernel")
-            reg = sorted({r for e, r in regs.items() if "VanillaCall" in e})
+            res = next((r for e, r in entry_resources(
+                ptxas.get(f"qmc_{model}_kernels.cu", ""),
+                "qmc_model_kernel").items() if "VanillaCall" in e), {})
+            k_dt, _ = jump_kmax()
+            b_ms = bound(0, _scale(qmc_model_point_ops(
+                model, family, MAIN_STEPS, k_dt, QMC_SHIFTS), ps.n))[0]
+            geo = qmc.kernel_launch(ps, model, extra)
+            launch = qmc_launch_report(
+                res, geo, qmc.QMC_MODELS[model].family_id, po, extra,
+                4 * extra if model in ("merton", "bates") else 0)
             steps = ps.n * QMC_SHIFTS * MAIN_STEPS
             print(f"phase 5: qmc_model_sums {model} call {family} "
                   f"{ps.n}x{MAIN_STEPS}x{QMC_SHIFTS} d={ps.d}: kernel "
                   f"{k_ms:.3f} ms (spread {sp:.1%}, 3 reps), "
                   f"{steps / k_ms * 1e3:.4e} path-steps/s, "
-                  f"{k_ms / ps.d:.4f} ms a dimension; registers {reg}; plain "
-                  f"{plain_ms[model]:.1f} ms at {QMC_SMALL}x{MAIN_STEPS}x"
-                  f"{QMC_CHECK_SHIFTS} (phase 2) {tag}")
+                  f"{k_ms / ps.d:.4f} ms a dimension, {b_ms / k_ms:.1%} of "
+                  f"its bound ({b_ms:.3f} ms); {launch}; plain "
+                  f"{plain_ms[model]:.1f} ms at {QMC_SMALL}x"
+                  f"{MAIN_STEPS}x{QMC_CHECK_SHIFTS} (phase 2) {tag}")
             if family == "sobol":
                 out[f"qmc_model_sums_{model}"] = (k_ms, plain_ms[model])
     e2e_report(tuple(

@@ -1,8 +1,10 @@
 """Probe the family nested-MC kernels (#29 family_inner_kernel, #30
-family_fused_kernel) on one CUDA card: what they cost in registers, spills,
-shared memory and resident blocks, their SASS loops, and their times.
+family_fused_kernel), or with ``--qmc`` the QMC kernels (#33
+qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), on one CUDA card:
+what they cost in registers, spills, shared memory and resident blocks,
+their SASS loops, and their times.
 
-    python3 family_nmc_probe.py [--variant LABEL=DIR[:DEFINE,...]] ...
+    python3 family_nmc_probe.py [--qmc] [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
 from the root of a checkout.  Each variant is a copy of ``csrc`` (DIR; the
@@ -21,9 +23,24 @@ after a warm-up at 256 x 8 x 8) in turns over the variants, twice, and
 checks every variant's surfaces bit for bit against the first variant's.
 A variant whose DIR is not the package's ``csrc`` is called through the
 entry points as they were before the launch geometry was passed in (a
-parent commit's ``csrc``).  Everything printed also goes, as JSON, to
-``--out`` (default ``build/family_probe.json``).  Needs a card;
-exits 2 without one.
+parent commit's ``csrc``).
+
+``--qmc`` builds ``qmc_kernels.cu`` and ``qmc_*_kernels.cu`` instead and
+prints the ptxas resources of qmc_model_kernel<Leg, VanillaCall> per
+family, of qmc_kernel<AsianCall> and qmc_bridge_kernel<AsianCall>, and,
+where the variant exports them, each kernel's shifts a thread and resident
+blocks per SM.  ``--sass`` prints the loops of those kernels and their
+instructions by class.  ``--time`` runs
+each family's call on 2^20 Sobol points x 100 steps x 16 shifts and the
+GBM Asian by Euler and by the bridge on both point families (CUDA events,
+after a warm-up at 4,096 points) in turns over the variants, twice, and
+checks every variant's partials bit for bit against the first variant's.
+A variant whose library does not export its shifts a thread
+(``mc_qmc_shifts``) is called through the entry points as they were
+before the shift groups were passed in.
+
+Everything printed also goes, as JSON, to ``--out`` (default
+``build/family_probe.json``).  Needs a card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -109,9 +126,19 @@ def families():
 # --- build -------------------------------------------------------------------
 
 
-def build(variants):
-    """Compile every variant's family NMC sources at once and link one
-    library each: {label: (library path, {source: ptxas log})}."""
+def probe_sources(src: Path, qmc: bool):
+    """The sources a probe compiles from ``src``: the family NMC ones, or
+    the QMC ones."""
+    if qmc:
+        return [src / "qmc_kernels.cu",
+                *(p for p in src.glob("qmc_*_kernels.cu"))]
+    return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
+            *src.glob("*_nmc32_kernels.cu")]
+
+
+def build(variants, qmc: bool = False):
+    """Compile every variant's family NMC (or QMC) sources at once and link
+    one library each: {label: (library path, {source: ptxas log})}."""
     from mc_tpu_torch.ops import _cuda
 
     nvcc = _cuda._nvcc()
@@ -119,9 +146,9 @@ def build(variants):
     for label, src, defines in variants:
         out = ROOT / "build" / "probe" / label
         out.mkdir(parents=True, exist_ok=True)
-        srcs = sorted([src / "family_nmc_kernels.cu",
-                       *src.glob("*_nmc_kernels.cu"),
-                       *src.glob("*_nmc32_kernels.cu")],
+        for old in out.glob("*.o"):
+            old.unlink()
+        srcs = sorted(probe_sources(src, qmc),
                       key=lambda p: -p.stat().st_size)
         for s in srcs:
             cmds.append([nvcc, *_cuda.NVCC_FLAGS, *(f"-D{d}" for d in defines),
@@ -146,22 +173,31 @@ def build(variants):
 
 def ptxas_resources(log: str) -> dict:
     """{mangled entry: {"registers", "stack", "spill_stores",
-    "spill_loads", "smem"}} from a ``-Xptxas -v`` log."""
-    out, entry = {}, None
+    "spill_loads", "smem", "callees"}} from a ``-Xptxas -v`` log: a frame
+    line belongs to the function its "Function properties for" line names,
+    the entry's own or an out-of-line callee's (under "callees")."""
+    out, entry, fn = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
-            out[entry] = {}
+            out[entry] = {"callees": {}}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1)
             continue
         if entry is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
-            out[entry].update(stack=int(m.group(1)),
-                              spill_stores=int(m.group(2)),
-                              spill_loads=int(m.group(3)))
+            frame = [int(g) for g in m.groups()]
+            if fn == entry:
+                out[entry].update(zip(("stack", "spill_stores",
+                                       "spill_loads"), frame))
+            elif fn:
+                out[entry]["callees"][fn] = frame
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[entry]["registers"] = int(m.group(1))
@@ -189,20 +225,56 @@ _CLASSES = (("MUFU", r"^MUFU"), ("load", r"^(LDG|LDS|LD|LDC|ULDC|LDL)\b"),
             ("f32", r"^(FADD|FMUL|FFMA|FMNMX|FSETP|FSEL|FCHK|FRND|F2I|I2F)"),
             ("int", r"^(IADD3|LOP3|SHF|IMAD|ISETP|LEA|SEL|IABS|PRMT|UIADD3|"
                     r"ULOP3|USHF|UIMAD|ISCADD)"),
-            ("branch", r"^(BRA|BSYNC|BSSY|EXIT|CALL|RET)"))
+            ("branch", r"^(BRA|BSYNC|BSSY|EXIT|CALL|RET)"),
+            ("call", r"^CALL"))
 
 
-def sass_loops(lib: Path, entry: str):
-    """The SASS of ``entry`` and its loops: [{start, end, n, by class}]
-    for each backward branch, innermost first."""
-    out = subprocess.run(["cuobjdump", "-sass", "-fun", entry, str(lib)],
-                         capture_output=True, text=True).stdout
+def _sass_ins(text: str):
+    """[(address, opcode, operands)] of a SASS listing."""
     ins = []
-    for line in out.splitlines():
+    for line in text.splitlines():
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
                      r"(.*?);", line)
         if m:
             ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    return ins
+
+
+def sass_classes(ins) -> dict:
+    """The instructions of ``ins`` by class, and their count."""
+    by = {c: sum(1 for _, o, _ in ins if re.match(p, o)) for c, p in _CLASSES}
+    return dict(n=len(ins), **by)
+
+
+def sass_functions(lib: Path, want) -> dict:
+    """{function name: its instructions} of the functions in ``lib``'s SASS
+    whose name ``want(name)`` accepts (the first copy of a name that several
+    objects define), streamed from ``cuobjdump``."""
+    funcs, name, body = {}, None, []
+    proc = subprocess.Popen(["cuobjdump", "-sass", str(lib)],
+                            stdout=subprocess.PIPE, text=True)
+    for line in proc.stdout:
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m or "Fatbin" in line:
+            if name is not None:
+                funcs.setdefault(name, _sass_ins("".join(body)))
+            name = m.group(1) if m and want(m.group(1)) else None
+            body = []
+        elif name is not None:
+            body.append(line)
+    if name is not None:
+        funcs.setdefault(name, _sass_ins("".join(body)))
+    proc.wait()
+    return funcs
+
+
+def sass_loops(lib: Path, entry: str, ins=None):
+    """The SASS of ``entry`` (or the instructions ``ins``) and its loops:
+    [{start, end, n, by class}] for each backward branch, innermost first."""
+    if ins is None:
+        ins = _sass_ins(subprocess.run(
+            ["cuobjdump", "-sass", "-fun", entry, str(lib)],
+            capture_output=True, text=True).stdout)
     loops = []
     for i, (addr, op, rest) in enumerate(ins):
         if op.startswith("BRA"):
@@ -319,8 +391,213 @@ def _check(status, what):
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
+# --- the QMC kernels (--qmc) -------------------------------------------------
+
+QMC_MAIN = (1 << 20, 100, 16)   # points, steps, shifts (chip_smoke.py's)
+QMC_WARM = 4096
+QMC_MODELS = (("heston", "HestonQmcLeg"), ("bates", "BatesQmcLeg"),
+              ("basket", "BasketQmcLeg<8>"), ("cev", "CEVQmcLeg"),
+              ("sabr", "SABRQmcLeg"), ("localvol", "LocalVolQmcLeg"),
+              ("vasicek", "VasicekQmcLeg"), ("merton", "MertonQmcLeg"),
+              ("term", "TermQmcLeg"))
+QMC_GBM = (("euler sobol", "sobol", False), ("euler lattice", "lattice", False),
+           ("bridge sobol", "sobol", True), ("bridge lattice", "lattice", True))
+
+
+def qmc_cases(n_points: int, dev):
+    """[(label, kind, payoff, point set, params, extra, family id)]: each
+    family's call and the GBM Asian's four routes at n_points x 100 x 16."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.config import OptionParams, SimParams
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    _, steps, shifts = QMC_MAIN
+    sim = SimParams(n_paths=n_points, n_steps=steps)
+    opt = OptionParams()
+    cases = []
+    for model, _ in QMC_MODELS:
+        po, dyn, extra, ps = qmc.qmc_model_pointset(
+            model, opt, None, sim, "vanilla_call", n_shifts=shifts,
+            family="sobol", device=dev)
+        m = qmc.QMC_MODELS[model]
+        cases.append((model, "model", po, ps, m.pack(opt, dyn, steps, dev),
+                      extra, m.family_id))
+    asian = get_payoff("asian_call")
+    for label, family, bridge in QMC_GBM:
+        _, ps = qmc.qmc_pointset(asian, sim, shifts, "euler", family, bridge,
+                                 0.1, 0, sim.seed, dev)
+        cases.append((f"asian {label}", "bridge" if bridge else "gbm", asian,
+                      ps, pk.pack_params(opt, steps, dev), 0, -1))
+    return cases
+
+
+def bind_qmc(lib_path: Path, new_abi: bool):
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in _cuda._SIGNATURES.items():
+        if name.startswith("mc_qmc") and hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = restype
+    if not new_abi:  # the entry points before the shift groups were passed in
+        lib.mc_qmc_sums.argtypes = [_int] * 5 + [_ptr, _ptr, _int, _ptr, _int,
+                                                 _ptr, _int, _ptr]
+        lib.mc_qmc_model_sums.argtypes = [_int] * 5 + [_ptr, _ptr, _int, _ptr,
+                                                       _int, _int, _ptr, _int,
+                                                       _ptr]
+    return lib
+
+
+def qmc_geometry(lib, case):
+    """The variant's QmcLaunch of ``case`` (qmc.qmc_launch on its exported
+    shifts)."""
+    from mc_tpu_torch import qmc
+
+    ps = case[3]
+    return qmc.qmc_launch(ps.n, ps.n_shifts, qmc_shifts_of(lib, case))
+
+
+def qmc_shifts_of(lib, case) -> int:
+    """The variant's shifts a thread for ``case`` (1 before the export)."""
+    _, kind, _, _, _, extra, fid = case
+    if kind == "model" and hasattr(lib, "mc_qmc_model_shifts"):
+        return lib.mc_qmc_model_shifts(fid, extra)
+    if kind == "gbm" and hasattr(lib, "mc_qmc_shifts"):
+        return lib.mc_qmc_shifts()
+    return 1
+
+
+def run_qmc(lib, new_abi: bool, case):
+    """(partials, ms) of one call of ``case``'s kernel through ``lib``."""
+    from mc_tpu_torch import qmc
+    from mc_tpu_torch.ops import _cuda
+
+    _, kind, po, ps, prm, extra, fid = case
+    n_steps, r = QMC_MAIN[1], ps.n_shifts
+    stream = torch.cuda.current_stream().cuda_stream
+    fam = qmc.FAMILIES[ps.family]
+    if kind == "bridge":
+        threads = lib.mc_qmc_bridge_threads(n_steps)
+    elif kind == "model":
+        threads = lib.mc_qmc_model_block_threads()
+    else:
+        threads = lib.mc_qmc_block_threads()
+    n_bx = min(_cuda.cdiv(ps.n, threads), _cuda.MAX_BLOCKS)
+    partials = torch.empty((n_bx, r), dtype=torch.float64, device=prm.device)
+    geo = ()
+    if kind != "bridge" and new_abi:
+        geo = (qmc_geometry(lib, case).groups,)
+    pts = (fam, ps.n, ps.d, ps.table.data_ptr(), ps.shifts.data_ptr(), r)
+    t = _events()
+    if kind == "model":
+        status = lib.mc_qmc_model_sums(fid, po.cuda_id, *pts, prm.data_ptr(),
+                                       n_steps, extra, partials.data_ptr(),
+                                       n_bx, *geo, stream)
+    elif kind == "gbm":
+        status = lib.mc_qmc_sums(po.cuda_id, fam, 1, *pts[1:], prm.data_ptr(),
+                                 n_steps, partials.data_ptr(), n_bx, *geo,
+                                 stream)
+    else:
+        from mc_tpu_torch.qmc import bridge_schedule
+        bidx, bcoef = bridge_schedule(n_steps)
+        bi = torch.from_numpy(bidx.reshape(-1)).to(prm.device)
+        bc = torch.from_numpy(bcoef.reshape(-1)).to(prm.device)
+        t = _events()
+        status = lib.mc_qmc_bridge_sums(po.cuda_id, fam, *pts[1:],
+                                        prm.data_ptr(), n_steps, bi.data_ptr(),
+                                        bc.data_ptr(), partials.data_ptr(),
+                                        n_bx, stream)
+    t.append(_event())
+    _check(status, f"{case[0]} kernel")
+    torch.cuda.synchronize()
+    return partials, t[0].elapsed_time(t[1])
+
+
+def qmc_entry(res, kernel: str, struct: str, payoff: str):
+    """The mangled entry of mc::<kernel><struct, payoff> (no struct: the
+    GBM kernels' <payoff>)."""
+    if struct is None:
+        pat = f"{len(kernel)}{kernel}INS_{len(payoff)}{payoff}E"
+        hits = [e for e in res if pat in e]
+        return hits[0] if hits else None
+    return entry_name(res, kernel, struct)
+
+
+def qmc_main(args, variants, card) -> dict:
+    """The --qmc probe: resources, SASS and times of the QMC kernels."""
+    libs = build(variants, qmc=True)
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    cases = qmc_cases(QMC_MAIN[0], dev) if args.time else []
+    warm = {c[0]: c for c in qmc_cases(QMC_WARM, dev)}
+    main_of = {"gbm": "asian euler sobol", "bridge": "asian bridge sobol"}
+    kernels = [(m, "qmc_model_kernel", struct, "VanillaCall")
+               for m, struct in QMC_MODELS]
+    kernels += [("gbm", "qmc_kernel", None, "AsianCall"),
+                ("bridge", "qmc_bridge_kernel", None, "AsianCall")]
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        # the shift groups are passed in where the library exports kShifts
+        new_abi = hasattr(ctypes.CDLL(str(lib_path)), "mc_qmc_shifts")
+        lib = bind_qmc(lib_path, new_abi)
+        bound[label] = (lib, new_abi)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = {name: qmc_entry(res, kernel, struct, payoff)
+                    for name, kernel, struct, payoff in kernels}
+        funcs = (sass_functions(lib_path, lambda f: f in entries.values())
+                 if args.sass else {})
+        rows = {}
+        for name, kernel, struct, payoff in kernels:
+            e = entries[name]
+            r = dict(res.get(e, {}))
+            if hasattr(lib, "mc_qmc_occupancy") and name != "bridge":
+                case = warm[main_of.get(name, name)]  # its payoff and extra
+                blocks = ctypes.c_int(0)
+                st = lib.mc_qmc_occupancy(case[6], case[2].cuda_id, case[5],
+                                          ctypes.addressof(blocks))
+                r.update(blocks_per_sm=blocks.value if st == 0 else None,
+                         shifts=qmc_shifts_of(lib, case))
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+            rows[name] = r
+            print(f"probe {label}: {name} {kernel}<{struct or payoff}>: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            for lp in r.get("sass", {}).get("loops", []):
+                print(f"  loop {lp}")
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, ptxas=logs)
+    if args.time:
+        times = {}
+        for case in cases:
+            ref = None
+            order = list(bound) + list(bound)[::-1]
+            for label in order:
+                lib, new_abi = bound[label]
+                run_qmc(lib, new_abi, warm[case[0]])
+                part, ms = run_qmc(lib, new_abi, case)
+                if ref is None:
+                    ref = part
+                same = bool(torch.equal(part, ref))
+                times.setdefault(case[0], {}).setdefault(label, []).append(
+                    dict(ms=ms, bitwise=same))
+                print(f"probe time {case[0]} {label}: {ms:.3f} ms, bitwise "
+                      f"vs {order[0]}: {same} {card}", flush=True)
+                if not same:
+                    print(f"FAIL: {case[0]} {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--qmc", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
@@ -343,6 +620,8 @@ def main() -> int:
         src, _, defs = rest.partition(":")
         variants.append((label, Path(src).resolve(),
                          [d for d in defs.split(",") if d]))
+    if args.qmc:
+        return write_report(args.out, qmc_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")
@@ -417,7 +696,11 @@ def main() -> int:
                 if not same:
                     print(f"FAIL: {name} {label} disagrees", flush=True)
         report["times"] = times
-    out = Path(args.out)
+    return write_report(args.out, report)
+
+
+def write_report(path: str, report: dict) -> int:
+    out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"probe: wrote {out}")

@@ -36,6 +36,7 @@
 
 #include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -430,29 +431,50 @@ struct RainbowFamily : BasketFamily<kMaxD> {
 // The basket's leg on a randomized-QMC draw (qmc_model.cuh, #33): step j's
 // d normals from pairs j*ceil(d/2) + q (the last pair's second normal
 // unused at an odd d), mixed and summed as on the MC stream; extra is d.
+// kShifts legs in lockstep at capacity 8; capacity 32 runs one (its arrays
+// live in local memory already).
 template <int kMaxD>
 struct BasketQmcLeg {
   using Params = BasketParams<kMaxD>;
+  static constexpr int kShifts = kMaxD <= 8 ? qmc_shifts(2) : 1;
   __device__ static Params load(const float* __restrict__ params, int, int d) {
     return load_basket<kMaxD>(params, d);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
-    float ws[kMaxD], z[kMaxD];
+  __device__ static void pay(const Params& c, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
+    float ws[K][kMaxD], z[K][kMaxD], b[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
 #pragma unroll (BasketUnroll<kMaxD>::value)
-    for (int i = 0; i < kMaxD; ++i) ws[i] = 0.0f;
-    typename Payoff::State st = Payoff::init(c.pay);
-    float b = c.pay.s0;
+      for (int i = 0; i < kMaxD; ++i) ws[k][i] = 0.0f;
+      st[k] = Payoff::init(c.pay);
+      b[k] = c.pay.s0;
+    }
     for (int j = 0; j < n_steps; ++j) {
 #pragma unroll (BasketUnroll<kMaxD>::value)
       for (int q = 0; q < basket_bound<kMaxD / 2>(c.npps); ++q) {
-        if (q < c.npps) draw.pair(j * c.npps + q, z[2 * q], z[2 * q + 1]);
+        if (q < c.npps) {
+          float z0[K], z1[K];
+          draw.pair(j * c.npps + q, z0, z1);
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            z[k][2 * q] = z0[k];
+            z[k][2 * q + 1] = z1[k];
+          }
+        }
       }
-      basket_mix(c, z, ws);
-      b = basket_level(c, ws);
-      st = Payoff::update(st, b, c.pay);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        basket_mix(c, z[k], ws[k]);
+        b[k] = basket_level(c, ws[k]);
+        st[k] = Payoff::update(st[k], b[k], c.pay);
+      }
     }
-    return Payoff::terminal(st, b, c.pay);
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], b[k], c.pay);
   }
 };
 

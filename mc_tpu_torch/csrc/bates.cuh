@@ -13,6 +13,7 @@
 #include "heston.cuh"
 #include "merton.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -173,32 +174,54 @@ struct BatesFamily {
 // (dimensions 4j, 4j+1) as the diffusion pair, dimension 4j+2 as the
 // jump-size normal and the RAW coordinate 4j+3 for the Poisson count (the
 // normal of 4j+3, which mc_tpu draws and discards, is not computed).  The
-// draw split from the step: Heston's Euler step, then bates_jump; the MC
+// draw split from the step: Heston's Euler step, then the jump on the count
+// taken against the block's cdf table (the scan's, bit for bit); the MC
 // kernels' bates_euler_step is untouched.  extra is the scan depth kmax.
+// kShifts legs in lockstep.
 struct BatesQmcLegParams {
   BatesParams b;
   int kmax;
+  const float* cdf;  // the block's table, F(0..kmax-1)
 };
 
 struct BatesQmcLeg {
   using Params = BatesQmcLegParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int, int kmax) {
-    return Params{load_bates(params), kmax};
+    return Params{load_bates(params), kmax, nullptr};
+  }
+  static int table_floats(int kmax) { return kmax; }  // host
+  __device__ static void fill_table(const Params& p, float* table) {
+    poisson_cdf_table(p.b.lam_dt, p.kmax, table);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& p, int n_steps, const Draw& draw) {
+  __device__ static void pay(const Params& p, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
     const float s0 = p.b.h.pay.s0;
-    float w = 0.0f, v = p.b.h.v0, s = s0;
-    typename Payoff::State st = Payoff::init(p.b.h.pay);
-    for (int j = 0; j < n_steps; ++j) {
-      float z_v, z_perp;
-      draw.pair(2 * j, z_v, z_perp);
-      const float e = draw.normal(4 * j + 2);
-      const float u = draw.unit(4 * j + 3);
-      heston_euler_step(p.b.h, z_v, z_perp, w, v);
-      bates_jump<Payoff>(p.b, p.kmax, e, u, s0, w, s, st);
+    float w[K], v[K], s[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w[k] = 0.0f;
+      v[k] = p.b.h.v0;
+      s[k] = s0;
+      st[k] = Payoff::init(p.b.h.pay);
     }
-    return Payoff::terminal(st, s, p.b.h.pay);
+    for (int j = 0; j < n_steps; ++j) {
+      float z_v[K], z_perp[K], e[K], u[K], n[K];
+      draw.pair(2 * j, z_v, z_perp);
+      draw.normals(4 * j + 2, e);
+      draw.units(4 * j + 3, u);
+      poisson_counts(p.cdf, p.kmax, u, n);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        heston_euler_step(p.b.h, z_v[k], z_perp[k], w[k], v[k]);
+        bates_jump_n<Payoff>(p.b, n[k], e[k], s0, w[k], s[k], st[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], p.b.h.pay);
   }
 };
 

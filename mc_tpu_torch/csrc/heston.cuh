@@ -17,6 +17,7 @@
 #include <cstdint>
 
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -139,24 +140,38 @@ __device__ __forceinline__ void heston_outer_step(const HestonParams& h, uint32_
 
 // Heston's Euler leg on a randomized-QMC draw (qmc_model.cuh, #33): step j
 // reads the normals of pair j as (z_v, z_perp) (mc_tpu's QMC hook runs the
-// Euler leg only, mc_tpu/models/heston.py:255).
+// Euler leg only, mc_tpu/models/heston.py:255); kShifts legs in lockstep.
 struct HestonQmcLeg {
   using Params = HestonParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int, int) {
     return load_heston(params);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& h, int n_steps, const Draw& draw) {
-    float w = 0.0f, v = h.v0, s = h.pay.s0;
-    typename Payoff::State st = Payoff::init(h.pay);
-    for (int j = 0; j < n_steps; ++j) {
-      float z_v, z_perp;
-      draw.pair(j, z_v, z_perp);
-      heston_euler_step(h, z_v, z_perp, w, v);
-      s = h.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
-      st = Payoff::update(st, s, h.pay);
+  __device__ static void pay(const Params& h, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
+    float w[K], v[K], s[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w[k] = 0.0f;
+      v[k] = h.v0;
+      s[k] = h.pay.s0;
+      st[k] = Payoff::init(h.pay);
     }
-    return Payoff::terminal(st, s, h.pay);
+    for (int j = 0; j < n_steps; ++j) {
+      float z_v[K], z_perp[K];
+      draw.pair(j, z_v, z_perp);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        heston_euler_step(h, z_v[k], z_perp[k], w[k], v[k]);
+        s[k] = h.pay.s0 * expf(w[k]);  // log-space: one exp rounding per S_t
+        st[k] = Payoff::update(st[k], s[k], h.pay);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], h.pay);
   }
 };
 

@@ -24,6 +24,7 @@
 
 #include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -193,23 +194,34 @@ struct LocalVolFamily {
 };
 
 // Local vol's leg on a randomized-QMC draw (qmc_model.cuh, #33): pair m
-// feeds steps 2m and 2m+1; extra is the knot count.
+// feeds steps 2m and 2m+1; extra is the knot count.  kShifts legs in
+// lockstep, each surface row read once for them (lv_steps).
 struct LocalVolQmcLeg {
   using Params = LocalVolParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int n_steps, int n_knots) {
     return load_localvol(params, n_knots, n_steps);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& l, int n_steps, const Draw& draw) {
-    float w = 0.0f, s = l.pay.s0;
-    typename Payoff::State st = Payoff::init(l.pay);
-    for (int m = 0; m < n_steps / 2; ++m) {
-      float z0, z1;
-      draw.pair(m, z0, z1);
-      lv_step<Payoff>(l, 2 * m, z0, w, s, st);
-      lv_step<Payoff>(l, 2 * m + 1, z1, w, s, st);
+  __device__ static void pay(const Params& l, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
+    float w[K], s[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w[k] = 0.0f;
+      s[k] = l.pay.s0;
+      st[k] = Payoff::init(l.pay);
     }
-    return Payoff::terminal(st, s, l.pay);
+    for (int m = 0; m < n_steps / 2; ++m) {
+      float z0[K], z1[K];
+      draw.pair(m, z0, z1);
+      lv_steps<Payoff>(l, 2 * m, z0, w, s, st);
+      lv_steps<Payoff>(l, 2 * m + 1, z1, w, s, st);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], l.pay);
   }
 };
 

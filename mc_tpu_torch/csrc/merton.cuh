@@ -16,6 +16,7 @@
 
 #include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -249,31 +250,53 @@ struct MertonFamily {
 // Merton's Euler leg on a randomized-QMC draw (qmc_model.cuh, #33),
 // mc_tpu's draw3 layout: step pair m reads pairs 3m (diffusion) and 3m+1
 // (jump sizes) and the RAW coordinates 6m+4, 6m+5 for the Poisson counts;
-// extra is the scan depth kmax.
+// extra is the scan depth kmax.  kShifts legs in lockstep; the counts are
+// taken against the block's cdf table (the scan's, bit for bit).
 struct MertonQmcLegParams {
   MertonParams m;
   int kmax;
+  const float* cdf;  // the block's table, F(0..kmax-1)
 };
 
 struct MertonQmcLeg {
   using Params = MertonQmcLegParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int, int kmax) {
-    return Params{load_merton(params), kmax};
+    return Params{load_merton(params), kmax, nullptr};
+  }
+  static int table_floats(int kmax) { return kmax; }  // host
+  __device__ static void fill_table(const Params& p, float* table) {
+    poisson_cdf_table(p.m.lam_dt, p.kmax, table);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& p, int n_steps, const Draw& draw) {
+  __device__ static void pay(const Params& p, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
     const float s0 = p.m.pay.s0;
-    float w = 0.0f, s = s0;
-    typename Payoff::State st = Payoff::init(p.m.pay);
+    float w[K], s[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w[k] = 0.0f;
+      s[k] = s0;
+      st[k] = Payoff::init(p.m.pay);
+    }
     for (int m = 0; m < n_steps / 2; ++m) {
-      float z0, z1, e0, e1;
+      float z0[K], z1[K], e0[K], e1[K], u0[K], u1[K], n0[K], n1[K];
       draw.pair(3 * m, z0, z1);
       draw.pair(3 * m + 1, e0, e1);
-      const float u0 = draw.unit(6 * m + 4), u1 = draw.unit(6 * m + 5);
-      merton_step<Payoff>(p.m, p.kmax, z0, e0, u0, s0, w, s, st);
-      merton_step<Payoff>(p.m, p.kmax, z1, e1, u1, s0, w, s, st);
+      draw.units(6 * m + 4, u0);
+      draw.units(6 * m + 5, u1);
+      poisson_counts(p.cdf, p.kmax, u0, n0);
+      poisson_counts(p.cdf, p.kmax, u1, n1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        merton_step_n<Payoff>(p.m, n0[k], z0[k], e0[k], s0, w[k], s[k], st[k]);
+        merton_step_n<Payoff>(p.m, n1[k], z1[k], e1[k], s0, w[k], s[k], st[k]);
+      }
     }
-    return Payoff::terminal(st, s, p.m.pay);
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], p.m.pay);
   }
 };
 

@@ -3,21 +3,27 @@
 // qmc_kernel replaces mc_tpu/qmc.py _pallas_qmc_shift_sum (the Pallas call
 // at :469) and qmc_bridge_kernel replaces _pallas_qmc_bridge_shift_sum (the
 // Pallas call at :409).  mc_tpu launches one pallas_call per random shift;
-// here one launch takes all R shifts: the grid is (path blocks, R), block
-// (x, r) runs points x*blockDim + t, grid-strided, under shift r, and writes
-// one f64 sum at partials[x*R + r] (reduce.cuh); ops/reduce.finish_sum adds
-// the rows, a fixed order, no float atomics.
+// here one launch takes all R shifts.  The bridge's grid is (path blocks,
+// R): block (x, r) runs points x*blockDim + t, grid-strided, under shift r.
+// qmc_kernel's is (path blocks, ceil(R / kQmcShifts)): block (x, g) runs
+// the same points under shifts g*kQmcShifts .. g*kQmcShifts + kQmcShifts-1
+// in lockstep (a ragged last group's shifts past R run on the last and are
+// not stored), each coordinate's shift-independent part computed once for
+// them.  Each writes one f64 sum per shift at partials[x*R + r]
+// (reduce.cuh), the same bits at any kQmcShifts; ops/reduce.finish_sum
+// adds the rows, a fixed order, no float atomics.
 //
-// A point's coordinate j is qmc_unit (qmc.cuh, shared with #33): the exact
+// A point's coordinate j comes from qmc.cuh (shared with #33): the exact
 // lattice residue under its Cranley-Patterson shift, or the Gray-code Sobol
-// XOR under its digital shift.
-// Both are the same for every thread of a block but the id, so the table,
-// the generating vector and the shifts are uniform loads (an L1 broadcast).
+// XOR under its digital shift.  Both are the same for every thread of a
+// block but the id, so the table, the generating vector and the shifts are
+// uniform loads (an L1 broadcast).
 // The normal is rng.cuh inv_normal_cdf (Acklam + one Newton step, as
-// mc_tpu), never CUDA's normcdfinvf.  The leg is simulate_path
-// (payoffs.cuh), the simulate kernel's: the terminal draw on dimension 0, or
-// the log-Euler loop with step pair m on dimensions (2m, 2m+1); an odd step
-// count's unused last half reads the last dimension.
+// mc_tpu), never CUDA's normcdfinvf.  qmc_kernel's leg is the simulate
+// kernel's (payoffs.cuh simulate_path, whose euler_step it runs per shift):
+// the terminal draw on dimension 0, or the log-Euler loop with step pair m
+// on dimensions (2m, 2m+1) and an odd step count's last half step on the
+// head of one more pair.
 //
 // The bridge builds each path's W (nodes 0..n_steps, W[0] = 0) from
 // dimension k at entry k of the breadth-first schedule (bidx, bcoef:
@@ -28,11 +34,12 @@
 // bytes a block, the block 128 threads where that fits (n_steps <= 452),
 // else 64 or 32.
 //
-// What bounds them on the H100: operations.  A coordinate costs the
-// residue (~10 int32 and f32 operations) or the Sobol XOR (~4 int32
-// operations a bit, 30 bits), and the inverse CDF ~50 f32 operations, two
-// divisions and a logf, sqrtf and expf each; a step ~4 f32 and an expf.
-// Bytes are a few kB of tables and shifts, read through L1.
+// What bounds them on the H100: operations.  A coordinate costs, once per
+// point, the residue (~20 int32 and a few f32 operations) or the Sobol XOR
+// over the Gray code's set bits, and per shift its add or XOR and the
+// inverse CDF (~84 f32 operations, two divisions and a logf, sqrtf and
+// expf each); a step ~4 f32 and an expf.  Bytes are a few kB of tables and
+// shifts, read through L1.
 
 #include <cstdint>
 
@@ -50,32 +57,60 @@ namespace mc {
 constexpr int kQmcThreads = 128;
 // A block's shared memory on the H100 (227 KB) less the reduction buffer.
 constexpr int kQmcSmemBytes = 232448 - 8 * kQmcThreads;
+// The shifts a thread of qmc_kernel runs at once (measured on the H100).
+constexpr int kQmcShifts = qmc_shifts(4);
+
+// simulate_path's leg (no antithetic, no importance shift, from step 0) on
+// the K shifts r0 .. r0+K-1 of point id: the terminal draw S_T = s0
+// exp(drift_t + vol_t z), or euler_step over the pairs' normals.
+template <class Payoff, int K>
+__device__ __forceinline__ void qmc_path(const Params& p, bool euler, const QmcPoints& q,
+                                         uint32_t id, int r0, int n_steps, float (&pay)[K]) {
+  float w[K], s[K];
+  typename Payoff::State st[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    w[k] = 0.0f;
+    s[k] = p.s0;
+    st[k] = Payoff::init(p);
+  }
+  if (!euler) {
+    float z[K];
+    qmc_normals<K>(q, id, 0, r0, z);
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] = p.s0 * expf(p.drift_t + p.vol_t * z[k]);
+  } else {
+    for (int j = 0; j < n_steps; ++j) {
+      float z[K];
+      qmc_normals<K>(q, id, j, r0, z);
+#pragma unroll
+      for (int k = 0; k < K; ++k) euler_step<Payoff>(p, p.s0, z[k], w[k], s[k], st[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], p);
+}
 
 template <class Payoff>
 __global__ void __launch_bounds__(kQmcThreads)
 qmc_kernel(int euler, QmcPoints q, const float* __restrict__ params, int n_steps,
            double* __restrict__ partials) {
+  constexpr int K = kQmcShifts;
   const Params p = load_params(params);
-  const int r = blockIdx.y;
-  double acc[1] = {0.0};
+  const int r0 = blockIdx.y * K;
+  double acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t id = blockIdx.x * blockDim.x + threadIdx.x; id < static_cast<uint32_t>(q.n);
        id += stride) {
-    const auto draw = [&](int m, float& z0, float& z1) {
-      if (!euler) {
-        z0 = inv_normal_cdf(qmc_unit(q, id, 0, r));
-        z1 = 0.0f;
-        return;
-      }
-      z0 = inv_normal_cdf(qmc_unit(q, id, 2 * m, r));
-      z1 = inv_normal_cdf(qmc_unit(q, id, 2 * m + 1, r));
-    };
-    const PathEnd<Payoff> e = simulate_path<Payoff>(p, euler != 0, false, p.s0, Payoff::init(p),
-                                                    0, n_steps, 0.0f, draw);
-    acc[0] += static_cast<double>(Payoff::terminal(e.st, e.s, p));
+    float pay[K];
+    qmc_path<Payoff, K>(p, euler != 0, q, id, r0, n_steps, pay);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] += static_cast<double>(pay[k]);
   }
-  block_store_moments<1, kQmcThreads>(
-      acc, partials + static_cast<size_t>(blockIdx.x) * gridDim.y + r, 1);
+  block_store_moments<K, kQmcThreads>(
+      acc, partials + static_cast<size_t>(blockIdx.x) * q.n_shifts + r0, min(K, q.n_shifts - r0));
 }
 
 template <class Payoff>
@@ -123,8 +158,10 @@ inline int bridge_threads(int n_steps) {
 
 template <class Payoff>
 cudaError_t launch_qmc(int euler, const QmcPoints& q, const float* params, int n_steps,
-                       double* partials, dim3 grid, cudaStream_t stream) {
-  qmc_kernel<Payoff><<<grid, kQmcThreads, 0, stream>>>(euler, q, params, n_steps, partials);
+                       double* partials, int n_bx, int n_groups, cudaStream_t stream) {
+  if (!qmc_groups_ok(q, kQmcShifts, n_groups)) return cudaErrorInvalidValue;
+  qmc_kernel<Payoff><<<dim3(n_bx, n_groups), kQmcThreads, 0, stream>>>(euler, q, params,
+                                                                      n_steps, partials);
   return cudaGetLastError();
 }
 
@@ -143,6 +180,27 @@ cudaError_t launch_qmc_bridge(const QmcPoints& q, const float* params, int n_ste
   return cudaGetLastError();
 }
 
+// Whether #33's point set fits family_id's leg: d its dimensions over
+// n_steps, extra its integer (kmax for Merton and Bates, the knot count for
+// local vol, d for the basket).
+inline bool qmc_model_shape_ok(int family_id, int d, int n_steps, int extra) {
+  const bool even = n_steps % 2 == 0;
+  const bool kmax_ok = extra >= 1 && extra <= 256;
+  switch (family_id) {
+    case FAMILY_HESTON: return d == 2 * n_steps;
+    case FAMILY_BATES: return kmax_ok && d == 4 * n_steps;
+    case FAMILY_CEV: return even && d == n_steps;
+    case FAMILY_SABR: return d == 2 * n_steps;
+    case FAMILY_LOCALVOL: return even && extra >= 2 && d == n_steps;
+    case FAMILY_TERM: return even && d == n_steps;
+    case FAMILY_VASICEK: return even && d == 3 * n_steps;
+    case FAMILY_MERTON: return even && kmax_ok && d == 3 * n_steps;
+    case FAMILY_BASKET:
+      return extra >= 1 && extra <= 32 && d == 2 * ((extra + 1) / 2) * n_steps;
+    default: return false;
+  }
+}
+
 }  // namespace mc
 
 extern "C" {
@@ -153,21 +211,25 @@ int mc_qmc_block_threads() { return mc::kQmcThreads; }
 // fits no block.
 int mc_qmc_bridge_threads(int n_steps) { return mc::bridge_threads(n_steps); }
 
+// The shifts a thread of qmc_kernel runs (the launch's groups are
+// ceil(R / it)).
+int mc_qmc_shifts() { return mc::kQmcShifts; }
+
 // family 0 lattice (table: the (d,) int32 generating vector, shifts (R, d)
 // f32) or 1 sobol (table: (d*30,) int32 directions, shifts (R, d) int32);
 // euler 0: the terminal draw (d = 1), 1: the Euler loop (d = n_steps);
-// partials (n_bx, R) f64.
+// partials (n_bx, R) f64; the grid n_bx x n_groups (ceil(R / kQmcShifts),
+// qmc.py qmc_launch).
 int mc_qmc_sums(int payoff_id, int family, int euler, int n, int d, const int* table,
                 const void* shifts, int n_shifts, const float* params, int n_steps,
-                double* partials, int n_bx, void* stream) {
+                double* partials, int n_bx, int n_groups, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1)
     return cudaErrorInvalidValue;
-  const mc::QmcPoints q = mc::qmc_points(family, n, d, table, shifts);
-  const dim3 grid(n_bx, n_shifts);
+  const mc::QmcPoints q = mc::qmc_points(family, n, d, n_shifts, table, shifts);
 #define MC_CASE(ID, PAYOFF) \
   case mc::ID:              \
-    return mc::launch_qmc<mc::PAYOFF>(euler, q, params, n_steps, partials, grid, s);
+    return mc::launch_qmc<mc::PAYOFF>(euler, q, params, n_steps, partials, n_bx, n_groups, s);
   switch (payoff_id) {
     MC_ALL_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;
@@ -177,40 +239,74 @@ int mc_qmc_sums(int payoff_id, int family, int euler, int n, int d, const int* t
 
 int mc_qmc_model_block_threads() { return mc::kQmcModelThreads; }
 
+// The family's switch over its launcher prefixes: the basket's capacity 8
+// for d <= 8, 32 above.
+#define MC_QMC_FAMILIES(X, BASKET_D)                                     \
+  case mc::FAMILY_HESTON: X(heston)                                     \
+  case mc::FAMILY_BATES: X(bates)                                       \
+  case mc::FAMILY_CEV: X(cev)                                           \
+  case mc::FAMILY_SABR: X(sabr)                                         \
+  case mc::FAMILY_LOCALVOL: X(localvol)                                 \
+  case mc::FAMILY_TERM: X(term)                                         \
+  case mc::FAMILY_VASICEK: X(vasicek)                                   \
+  case mc::FAMILY_MERTON: X(merton)                                     \
+  case mc::FAMILY_BASKET:                                               \
+    if ((BASKET_D) <= 8) X(basket)                                      \
+    X(basket32)
+
+// #33's shifts a thread under family_id (extra: the basket's d), 0 for an
+// unknown family.
+int mc_qmc_model_shifts(int family_id, int extra) {
+#define MC_SHIFTS(PREFIX) return mc::PREFIX##_qmc_model_shifts();
+  switch (family_id) {
+    MC_QMC_FAMILIES(MC_SHIFTS, extra)
+    default: return 0;
+  }
+#undef MC_SHIFTS
+}
+
+// Resident blocks per SM of a QMC kernel: #33's under family_id (extra:
+// its integer, which sizes Merton's and Bates's table), or qmc_kernel's for
+// family_id -1.
+int mc_qmc_occupancy(int family_id, int payoff_id, int extra, int* blocks) {
+  if (family_id == -1) {
+#define MC_CASE(ID, PAYOFF)                                                              \
+  case mc::ID:                                                                           \
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::qmc_kernel<mc::PAYOFF>, \
+                                                         mc::kQmcThreads, 0);
+    switch (payoff_id) {
+      MC_ALL_PAYOFFS(MC_CASE)
+      default: return cudaErrorInvalidValue;
+    }
+#undef MC_CASE
+  }
+#define MC_OCCUPANCY(PREFIX) return mc::PREFIX##_qmc_model_occupancy(payoff_id, extra, blocks);
+  switch (family_id) {
+    MC_QMC_FAMILIES(MC_OCCUPANCY, extra)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_OCCUPANCY
+}
+
 // #33: the payoff sums of n points through family_id's leg (a FamilyId of
 // family.cuh; params its pack, extra its integer: kmax for Merton and Bates,
 // the knot count for local vol, d for the basket) over n_steps, under each
 // of the R shifts; partials (n_bx, R) f64.  The point set as mc_qmc_sums',
-// its d the family's dimensions.
+// its d the family's dimensions; the grid n_bx x n_groups (ceil(R /
+// mc_qmc_model_shifts)).
 int mc_qmc_model_sums(int family_id, int payoff_id, int family, int n, int d,
                       const int* table, const void* shifts, int n_shifts,
                       const float* params, int n_steps, int extra, double* partials,
-                      int n_bx, void* stream) {
+                      int n_bx, int n_groups, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1)
+  if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1 ||
+      !mc::qmc_model_shape_ok(family_id, d, n_steps, extra))
     return cudaErrorInvalidValue;
-  const bool even = n_steps % 2 == 0;
-  const bool kmax_ok = extra >= 1 && extra <= 256;
-  const mc::QmcPoints q = mc::qmc_points(family, n, d, table, shifts);
-  const dim3 grid(n_bx, n_shifts);
-#define MC_LAUNCH(PREFIX, OK)                                                          \
-  return (OK) ? mc::PREFIX##_qmc_model(payoff_id, q, params, n_steps, extra, partials, \
-                                       grid, s)                                        \
-              : cudaErrorInvalidValue;
+  const mc::QmcPoints q = mc::qmc_points(family, n, d, n_shifts, table, shifts);
+#define MC_LAUNCH(PREFIX) \
+  return mc::PREFIX##_qmc_model(payoff_id, q, params, n_steps, extra, partials, n_bx, n_groups, s);
   switch (family_id) {
-    case mc::FAMILY_HESTON: MC_LAUNCH(heston, d == 2 * n_steps)
-    case mc::FAMILY_BATES: MC_LAUNCH(bates, kmax_ok && d == 4 * n_steps)
-    case mc::FAMILY_CEV: MC_LAUNCH(cev, even && d == n_steps)
-    case mc::FAMILY_SABR: MC_LAUNCH(sabr, d == 2 * n_steps)
-    case mc::FAMILY_LOCALVOL: MC_LAUNCH(localvol, even && extra >= 2 && d == n_steps)
-    case mc::FAMILY_TERM: MC_LAUNCH(term, even && d == n_steps)
-    case mc::FAMILY_VASICEK: MC_LAUNCH(vasicek, even && d == 3 * n_steps)
-    case mc::FAMILY_MERTON: MC_LAUNCH(merton, even && kmax_ok && d == 3 * n_steps)
-    case mc::FAMILY_BASKET: {
-      const bool ok = extra >= 1 && extra <= 32 && d == 2 * ((extra + 1) / 2) * n_steps;
-      if (extra <= 8) MC_LAUNCH(basket, ok)
-      MC_LAUNCH(basket32, ok)
-    }
+    MC_QMC_FAMILIES(MC_LAUNCH, extra)
     default: return cudaErrorInvalidValue;
   }
 #undef MC_LAUNCH
@@ -225,7 +321,7 @@ int mc_qmc_bridge_sums(int payoff_id, int family, int n, int d, const int* table
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1 || d != n_steps)
     return cudaErrorInvalidValue;
-  const mc::QmcPoints q = mc::qmc_points(family, n, d, table, shifts);
+  const mc::QmcPoints q = mc::qmc_points(family, n, d, n_shifts, table, shifts);
   const dim3 grid(n_bx, n_shifts);
 #define MC_CASE(ID, PAYOFF)                                                              \
   case mc::ID:                                                                           \
@@ -237,5 +333,7 @@ int mc_qmc_bridge_sums(int payoff_id, int family, int n, int d, const int* table
   }
 #undef MC_CASE
 }
+
+#undef MC_QMC_FAMILIES
 
 }  // extern "C"

@@ -14,6 +14,7 @@
 
 #include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -130,23 +131,37 @@ struct SABRFamily {
 };
 
 // SABR's leg on a randomized-QMC draw (qmc_model.cuh, #33): step j reads
-// pair j as (z_vol, z_perp).
+// pair j as (z_vol, z_perp); kShifts legs in lockstep.
 struct SABRQmcLeg {
   using Params = SABRParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int, int) {
     return load_sabr(params);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
-    float lf = logf(c.f0), sig = c.alpha;
-    typename Payoff::State st = Payoff::init(c.pay);
-    for (int j = 0; j < n_steps; ++j) {
-      float z_vol, z_perp;
-      draw.pair(j, z_vol, z_perp);
-      sabr_step(c, z_vol, z_perp, lf, sig);
-      st = Payoff::update(st, expf(lf), c.pay);
+  __device__ static void pay(const Params& c, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
+    const float lf0 = logf(c.f0);
+    float lf[K], sig[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lf[k] = lf0;
+      sig[k] = c.alpha;
+      st[k] = Payoff::init(c.pay);
     }
-    return Payoff::terminal(st, expf(lf), c.pay);
+    for (int j = 0; j < n_steps; ++j) {
+      float z_vol[K], z_perp[K];
+      draw.pair(j, z_vol, z_perp);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        sabr_step(c, z_vol[k], z_perp[k], lf[k], sig[k]);
+        st[k] = Payoff::update(st[k], expf(lf[k]), c.pay);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], expf(lf[k]), c.pay);
   }
 };
 

@@ -22,6 +22,7 @@
 
 #include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -161,23 +162,35 @@ struct TermFamily {
 };
 
 // The term curves' leg on a randomized-QMC draw (qmc_model.cuh, #33): pair
-// m feeds steps 2m and 2m+1.
+// m feeds steps 2m and 2m+1; kShifts legs in lockstep.
 struct TermQmcLeg {
   using Params = TermParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int n_steps, int) {
     return load_term(params, n_steps);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
-    float w = 0.0f, s = c.pay.s0;
-    typename Payoff::State st = Payoff::init(c.pay);
-    for (int m = 0; m < n_steps / 2; ++m) {
-      float z0, z1;
-      draw.pair(m, z0, z1);
-      term_step<Payoff>(c, 2 * m, z0, w, s, st);
-      term_step<Payoff>(c, 2 * m + 1, z1, w, s, st);
+  __device__ static void pay(const Params& c, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
+    float w[K], s[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w[k] = 0.0f;
+      s[k] = c.pay.s0;
+      st[k] = Payoff::init(c.pay);
     }
-    return Payoff::terminal(st, s, c.pay);
+    for (int m = 0; m < n_steps / 2; ++m) {
+      float z0[K], z1[K];
+      draw.pair(m, z0, z1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) term_step<Payoff>(c, 2 * m, z0[k], w[k], s[k], st[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) term_step<Payoff>(c, 2 * m + 1, z1[k], w[k], s[k], st[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], c.pay);
   }
 };
 

@@ -16,6 +16,7 @@
 
 #include "family.cuh"
 #include "payoffs.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 
 namespace mc {
@@ -166,29 +167,43 @@ struct VasicekFamily {
 
 // Vasicek's discounted leg on a randomized-QMC draw (qmc_model.cuh, #33):
 // step pair m reads pairs 3m, 3m+1 and 3m+2, (za, zb, zc) of step 2m the
-// first three normals and of step 2m+1 the last three.
+// first three normals and of step 2m+1 the last three; kShifts legs in
+// lockstep.
 struct VasicekQmcLeg {
   using Params = VasicekParams;
+  static constexpr int kShifts = qmc_shifts(4);
   __device__ static Params load(const float* __restrict__ params, int, int) {
     return load_vasicek(params);
   }
   template <class Payoff, class Draw>
-  __device__ static float pay(const Params& c, int n_steps, const Draw& draw) {
-    VasicekState g{0.0f, c.x0, 0.0f};
-    float s = c.pay.s0;
-    typename Payoff::State st = Payoff::init(c.pay);
+  __device__ static void pay(const Params& c, int n_steps, const Draw& draw,
+                             float (&pay)[kShifts]) {
+    constexpr int K = kShifts;
+    VasicekState g[K];
+    float s[K];
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      g[k] = VasicekState{0.0f, c.x0, 0.0f};
+      s[k] = c.pay.s0;
+      st[k] = Payoff::init(c.pay);
+    }
     for (int m = 0; m < n_steps / 2; ++m) {
-      float z[6];
+      float z[6][K];
       draw.pair(3 * m, z[0], z[1]);
       draw.pair(3 * m + 1, z[2], z[3]);
       draw.pair(3 * m + 2, z[4], z[5]);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        s = vasicek_step(c, z[3 * h], z[3 * h + 1], z[3 * h + 2], c.pay.s0, g);
-        st = Payoff::update(st, s, c.pay);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          s[k] = vasicek_step(c, z[3 * h][k], z[3 * h + 1][k], z[3 * h + 2][k], c.pay.s0, g[k]);
+          st[k] = Payoff::update(st[k], s[k], c.pay);
+        }
       }
     }
-    return Payoff::terminal(st, s, c.pay) * expf(-g.y);
+#pragma unroll
+    for (int k = 0; k < K; ++k) pay[k] = Payoff::terminal(st[k], s[k], c.pay) * expf(-g[k].y);
   }
 };
 

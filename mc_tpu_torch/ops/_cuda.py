@@ -245,14 +245,20 @@ _SIGNATURES = {
                              _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_int,
                              _c_ptr], _c_int),
     # payoff_id, family, euler, n, d, table, shifts, n_shifts, params,
-    # n_steps, partials, n_bx, stream
+    # n_steps, partials, n_bx, n_groups, stream
     "mc_qmc_sums": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-                     _c_int, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr], _c_int),
+                     _c_int, _c_ptr, _c_int, _c_ptr, _c_int, _c_int, _c_ptr],
+                    _c_int),
     # family_id, payoff_id, family, n, d, table, shifts, n_shifts, params,
-    # n_steps, extra, partials, n_bx, stream
+    # n_steps, extra, partials, n_bx, n_groups, stream
     "mc_qmc_model_sums": ([_c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
                            _c_ptr, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
-                           _c_int, _c_ptr], _c_int),
+                           _c_int, _c_int, _c_ptr], _c_int),
+    "mc_qmc_shifts": ([], _c_int),
+    # family_id, extra
+    "mc_qmc_model_shifts": ([_c_int, _c_int], _c_int),
+    # family_id (-1: qmc_kernel), payoff_id, extra, blocks
+    "mc_qmc_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
     # payoff_id, family, n, d, table, shifts, n_shifts, params, n_steps,
     # bidx, bcoef, partials, n_bx, stream
     "mc_qmc_bridge_sums": ([_c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,

@@ -32,8 +32,11 @@ family draws as pair m on its MC stream, so each family's dimensions are
 its draws a path (``QMCModel.dims``); Merton and Bates read the Poisson
 counts' uniforms as raw coordinates, and Bates packs 4 dimensions a step.
 
-Three kernels, each taking all R shifts in one launch (blocks over (path
-block, shift), one f64 row per block and shift):
+Three kernels, each taking all R shifts in one launch, one f64 sum per
+path block and shift.  ``qmc_sums`` and ``qmc_model_sums`` run several
+shifts a thread (the library's own count, each point's coordinate
+computed once for them), on the grid ``kernel_launch`` computes; the
+bridge runs one shift a block row:
 
 * ``qmc_sums`` (replaces ``_pallas_qmc_shift_sum``, ``mc_tpu/qmc.py:463``;
   ``csrc/qmc_kernels.cu``): the payoff sum per shift, terminal or Euler,
@@ -53,6 +56,7 @@ The shift-sharded ``price_qmc_model_sharded`` waits for the multi-card port
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -74,7 +78,9 @@ from mc_tpu_torch.models import (basket, bates, cev, heston, localvol,
                                  merton, sabr, term, vasicek)
 from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
 
-__all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "QMC_TAG", "prev_prime",
+__all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "SOBOL_ID_BITS", "QMC_TAG",
+           "QMC_THREADS", "QmcLaunch", "qmc_launch", "kernel_launch",
+           "prev_prime",
            "lattice_vector", "bridge_schedule", "sobol_directions",
            "QMCPointSet", "lattice_residue", "point_units", "point_unit",
            "qmc_draw_pair",
@@ -85,10 +91,16 @@ __all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "QMC_TAG", "prev_prime",
 
 MAX_LATTICE_N = 1 << 20  # the exact int32 residue's bound
 SOBOL_BITS = 30          # scipy's Joe-Kuo direction numbers are scaled to 2^30
+SOBOL_ID_BITS = 20       # ids < 2^20: the bits of the Gray code that can be set
 QMC_TAG = 0x51AC         # rng.derive_key stream tag of the shifts
 FAMILIES = {"lattice": 0, "sobol": 1}
 # Elements (paths x shifts) per chunk of the plain versions.
 PLAIN_ELEMS = {"cpu": 1 << 16, "cuda": 1 << 22}
+
+# The qmc_sums and qmc_model_sums kernels' block (csrc/qmc_kernels.cu,
+# csrc/qmc_model.cuh); their shifts a thread are the library's own
+# (kernel_launch).
+QMC_THREADS = 128
 
 
 def _is_prime(n: int) -> bool:
@@ -354,6 +366,66 @@ def bridge_draw_pair(ps: QMCPointSet, ids, n_steps: int):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' launch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QmcLaunch:
+    """How one call of the qmc_sums or qmc_model_sums kernel runs: ``n_bx``
+    path blocks of ``threads`` threads (grid-strided over the points) by
+    ``groups`` = ceil(R / k_shifts) shift groups, group g holding shifts
+    g*k_shifts .. g*k_shifts + k_shifts-1 (a ragged last group's past R run
+    and are not stored)."""
+    threads: int
+    n_bx: int
+    groups: int
+    k_shifts: int
+
+    def point_blocks(self, ids):
+        """The path block that sums each point of ``ids``: point i runs in
+        block (i // threads) mod n_bx, thread i mod threads."""
+        return (ids // self.threads) % self.n_bx
+
+
+def qmc_launch(n: int, n_shifts: int, k_shifts: int,
+               threads: int = QMC_THREADS) -> QmcLaunch:
+    """The launch of ``n`` points under ``n_shifts`` shifts, ``k_shifts`` a
+    thread: n_bx = min(ceil(n / threads), 8192) (the cap grid-strides, so
+    the rows' order depends on n alone)."""
+    if k_shifts not in (1, 2, 4, 8):
+        raise ValueError(f"k_shifts must be 1, 2, 4 or 8; got {k_shifts}")
+    return QmcLaunch(threads=threads,
+                     n_bx=min(_cuda.cdiv(n, threads), _cuda.MAX_BLOCKS),
+                     groups=_cuda.cdiv(n_shifts, k_shifts), k_shifts=k_shifts)
+
+
+def kernel_launch(ps: QMCPointSet, model: str | None = None,
+                  extra: int = 0) -> QmcLaunch:
+    """qmc_launch of ``ps`` on the kernel library's own block and shifts a
+    thread: qmc_kernel's (``model`` None) or #33's under ``model``
+    (``extra``: its integer; the basket's d picks its capacity)."""
+    lib = _cuda.load()
+    if model is None:
+        return qmc_launch(ps.n, ps.n_shifts, lib.mc_qmc_shifts(),
+                          lib.mc_qmc_block_threads())
+    return qmc_launch(ps.n, ps.n_shifts, lib.mc_qmc_model_shifts(
+        QMC_MODELS[model].family_id, extra), lib.mc_qmc_model_block_threads())
+
+
+def qmc_occupancy(family_id: int, payoff: PathPayoff, extra: int) -> int:
+    """Resident blocks per SM of #33's kernel under ``family_id`` (extra:
+    its integer), or of qmc_kernel for family_id -1, for ``payoff`` on the
+    current card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _cuda.load()
+    blocks = ctypes.c_int(0)
+    _cuda.check(lib.mc_qmc_occupancy(family_id, payoff.cuda_id, extra,
+                                     ctypes.addressof(blocks)),
+                "qmc_occupancy")
+    return blocks.value
+
+
+# ---------------------------------------------------------------------------
 # Plain version and wrapper
 # ---------------------------------------------------------------------------
 
@@ -430,15 +502,14 @@ def qmc_sums(payoff: PathPayoff, cfg: pk.KernelConfig, ps: QMCPointSet,
             _cuda.check(status, "qmc_bridge_sums kernel")
             _cuda.count_launch("qmc_bridge_sums")
             return partials
-        n_bx = min(_cuda.cdiv(ps.n, lib.mc_qmc_block_threads()),
-                   _cuda.MAX_BLOCKS)
-        partials = torch.empty((n_bx, r_shifts, 1), dtype=torch.float64,
+        geo = kernel_launch(ps)
+        partials = torch.empty((geo.n_bx, r_shifts, 1), dtype=torch.float64,
                                device=params.device)
         status = lib.mc_qmc_sums(
             payoff.cuda_id, FAMILIES[ps.family],
             int(cfg.method == "euler"), ps.n, ps.d, ps.table.data_ptr(),
             ps.shifts.data_ptr(), r_shifts, params.data_ptr(), cfg.n_steps,
-            partials.data_ptr(), n_bx, stream)
+            partials.data_ptr(), geo.n_bx, geo.groups, stream)
     _cuda.check(status, "qmc_sums kernel")
     _cuda.count_launch("qmc_sums")
     return partials
@@ -710,21 +781,20 @@ def qmc_model_sums(model: str, payoff: PathPayoff, ps: QMCPointSet,
     ``model``'s leg (``params`` from its pack) over ``n_steps`` under each
     of the R shifts (``finish_sum`` gives the (R, 1) sums); ``extra`` the
     family's integer (``QMCModel``).  One launch of the qmc_model kernel for
-    all R shifts on the card."""
+    all R shifts on the card, on ``kernel_launch``'s grid."""
     m = _check_model(model, payoff, ps, params, n_steps, extra)
     if params.device.type == "cpu":
         return qmc_model_sums_plain(model, payoff, ps, params, n_steps, extra)
     lib = _cuda.load()
-    n_bx = min(_cuda.cdiv(ps.n, lib.mc_qmc_model_block_threads()),
-               _cuda.MAX_BLOCKS)
-    partials = torch.empty((n_bx, ps.n_shifts, 1), dtype=torch.float64,
+    geo = kernel_launch(ps, model, extra)
+    partials = torch.empty((geo.n_bx, ps.n_shifts, 1), dtype=torch.float64,
                            device=params.device)
     with torch.cuda.device(params.device):
         status = lib.mc_qmc_model_sums(
             m.family_id, payoff.cuda_id, FAMILIES[ps.family], ps.n, ps.d,
             ps.table.data_ptr(), ps.shifts.data_ptr(), ps.n_shifts,
-            params.data_ptr(), n_steps, extra, partials.data_ptr(), n_bx,
-            _cuda.stream_handle(params.device))
+            params.data_ptr(), n_steps, extra, partials.data_ptr(), geo.n_bx,
+            geo.groups, _cuda.stream_handle(params.device))
     _cuda.check(status, f"qmc_model_sums kernel ({model})")
     _cuda.count_launch("qmc_model_sums")
     return partials
