@@ -59,7 +59,11 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    sums to f64 rounding and their
    grids and surfaces bit for bit (every NMC at NMC_SMALL in full, at the
    main shape against the plain row 99, the GBM and rainbow NMC rows 0 and
-   99; each family's #29/#30 also at 300 x 7 x 7, 8 steps under Merton,
+   99; the GBM NMC, bullet and call, also at 300 x 7 x 7 (odd steps, a
+   ragged last leg group), its grid surface == its fused one, after a
+   check of the CUDA libm on every input #3/#5 can give it: expf keeps the
+   floats' order and sincosf is cosf and sinf bit for bit; each family's
+   #29/#30 also at 300 x 7 x 7, 8 steps under Merton,
    local vol and Vasicek, in full, a ragged last leg group, with Vasicek's
    bond and the basket's exchange at d = 2 there, and local vol's K = 25
    pack over the shared budget at 300 x 300 x 3, rows 0 and 299; the fused
@@ -152,7 +156,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    share of the bound, its registers and spills, its resident blocks per
    SM, its shifts a thread and its shared bytes), #11 per tile at 2^20
    and 2^24 paths with 10 payments and at 2^20 with 60 (the NMC kernels' times are their
-   phase-2 calls' and the NMC calls' their phase-3 calls'; each family's
+   phase-2 calls' and the NMC calls' their phase-3 calls'; #3/#5 beside
+   their legs a thread, registers, spills and resident blocks per SM; each family's
    #29/#30 beside its share of the bound, its registers and spills, its
    resident blocks per SM, its shared bytes and its legs a thread), and
    end-to-end
@@ -370,16 +375,36 @@ def path_ops(payoff: str, n_steps: int, rounds: int):
                 TERMINAL_OPS)
 
 
+# An inner pair of the GBM NMC kernels: both key adds leave the pair loop
+# (id + k0 is the thread's, c + k1 the leg's), the counter's add of q stays.
+NMC_PAIR_OPS = _add(pair_ops(13), (-1, 0, 0))
+# An inner step moves w (3 f32 ops); S = base*exp(w) (SPOT_OPS) is formed at
+# each step only where the payoff's update reads S itself (the Asian, the
+# lookback, the down-and-out call), else once at the leg's end.  The payoffs
+# that test S < B (the bullet, the up-and-out and down-and-in calls) test w
+# against their point's threshold, a bisection of 32 halvings (an exp, a
+# mul, a compare and ~5 int ops each).
+NMC_STEP_OPS = (0, 3, 0)
+SPOT_OPS = (0, 1, 1)
+NMC_SPOT_EACH_STEP = {"asian_call", "lookback_call", "down_out_call"}
+NMC_BARRIER_PAYOFFS = {"bullet_call", "up_out_call", "down_in_call"}
+THRESHOLD_OPS = (5 * 32, 2 * 32, 32)
+
+
 def inner_ops(payoff: str, n_steps: int, n_inner: int):
     """The inner sweeps of one outer path over all its steps: at step j,
     n_inner paths of the n_steps-j-1 remaining steps (threefry-13)."""
+    each = payoff in NMC_SPOT_EACH_STEP
+    step = _add(NMC_STEP_OPS, UPDATE_OPS[payoff], SPOT_OPS if each else (0, 0, 0))
     total = (0, 0, 0)
     for j in range(n_steps):
         rem = n_steps - j - 1
-        one = _add(_scale(pair_ops(13), (rem + 1) // 2),
-                   _scale(_add(STEP_OPS, UPDATE_OPS[payoff]), rem),
-                   (0, 2, 0))
-        total = _add(total, _scale(one, n_inner), (0, 3, 1))  # mean, discount
+        one = _add(_scale(NMC_PAIR_OPS, (rem + 1) // 2), _scale(step, rem),
+                   SPOT_OPS if rem and not each else (0, 0, 0), (0, 2, 0))
+        point = (0, 3, 1)  # the mean, the discount
+        if rem and payoff in NMC_BARRIER_PAYOFFS:
+            point = _add(point, THRESHOLD_OPS)
+        total = _add(total, _scale(one, n_inner), point)
     return total
 
 
@@ -3801,9 +3826,15 @@ def main() -> int:
                                    n_out, opt))
         s, c, _ = pk.simulate_trajectories(po, nk.outer_config(cfg), key,
                                            prm)
+        surf_i = nk.nmc_inner(po, cfg, key_in, prm, s, c)
         inner_err = surface_check(
-            f"nmc_inner {label}", nk.nmc_inner(po, cfg, key_in, prm, s, c),
+            f"nmc_inner {label}", surf_i,
             nk.nmc_inner_plain(po, cfg, key_in, prm, s, c))
+        same = bool(torch.equal(surf_i, surf_k))
+        print(f"phase 2: nmc {label}: grid == fused bitwise: {same}")
+        if not same:
+            fail(f"nmc {label}: the inner kernel's surface is not the fused "
+                 "kernel's")
         return err, inner_err
 
     def batch_check(name, got, want, n_paths, opt, flip, cv=False, ex=None):
@@ -3935,7 +3966,28 @@ def main() -> int:
             call, pk.KernelConfig(n_paths=MAIN_PATHS, n_steps=MAIN_STEPS,
                                   is_shift=is_shift, **kw),
             vanilla_check, opt=otm))
+    # The libm premises of #3/#5 (csrc/nmc_kernels.cu), on every input they
+    # can meet: expf keeps the order of the finite floats (the bullet's, the
+    # up-and-out and the down-and-in call's legs test w against a
+    # threshold), and sincosf is cosf and sinf bit for bit (every kernel's
+    # Box-Muller draw).
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    _cuda.check(_cuda.load().mc_nmc_libm_check(bad.data_ptr(),
+                                                _cuda.stream_handle(dev)),
+                "nmc_libm_check")
+    n_order, n_trig = (int(x) for x in bad.tolist())
+    print(f"phase 2: libm: expf out of order on {n_order} neighbouring pairs "
+          f"of the finite floats, sincosf != cosf, sinf on {n_trig} of the "
+          f"2^23 Box-Muller thetas")
+    if n_order or n_trig:
+        fail("the CUDA libm breaks a premise of the NMC kernels (expf's "
+             "order or sincosf == cosf, sinf)")
     fused_err, inner_err = nmc_small_cases(NMC_SMALL)
+    # odd steps, a ragged last leg group; the bullet's window within reach
+    # of 7 steps
+    for po, opt in ((bullet, mt.OptionParams(p1=1.0, p2=6.0)), (call, option)):
+        err_f, err_i = nmc_small_cases(NMC_RAGGED, po, opt)
+        fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
     (err_f, err_i, fused_plain_ms, inner_plain_ms,
      nmc_main) = nmc_main_case(NMC_MAIN)
     fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
@@ -3982,7 +4034,8 @@ def main() -> int:
         if po.n_state <= 1 and name != "bullet_call":
             traj_err = max(traj_err, traj_case(PAYOFF_PATHS, "threefry13", po,
                                                payoff_option(mt, name)))
-    for name in ("down_out_call", "asian_call"):
+    for name in ("down_out_call", "asian_call", "vanilla_call",
+                 "up_out_call", "down_in_call"):
         err_f, err_i = nmc_small_cases(NMC_SMALL, get_payoff(name),
                                        payoff_option(mt, name))
         fused_err, inner_err = max(fused_err, err_f), max(inner_err, err_i)
@@ -4205,9 +4258,11 @@ def main() -> int:
           f"{float(res_g.surface_mean):.7f} vs {float(res.surface_mean):.7f}; "
           f"spot_matrix() == trajectories: {spot_ok}")
     if not (g_close >= SURF_FRAC and spot_ok
+            and bool(torch.equal(res_g.surface, res.surface))
             and abs(float(res_g.surface_mean) - float(res.surface_mean))
             <= SURF_MEAN_RTOL * abs(float(res.surface_mean))):
-        fail("the grid strategy disagrees with the fused one")
+        fail("the grid strategy disagrees with the fused one (grid == "
+             "fused is bitwise)")
 
     ee, pfe = res_g.exposure_profile(0.95)
     for j in (0, n_steps // 4, n_steps // 2, 3 * n_steps // 4, n_steps - 1):
@@ -4690,9 +4745,16 @@ def main() -> int:
     n_out, n_steps, n_inner = NMC_MAIN
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
     for name, ms in nmc_main.items():  # the phase-2 calls at NMC_MAIN
+        res = build_resources().get((f"{name}_kernel", "BulletCall", None),
+                                    {})
         print(f"phase 5: {name} {n_out}x{n_steps}x{n_inner}: kernel "
               f"{ms:.3f} ms (its phase-2 call), "
-              f"{inner_steps / ms * 1e3:.4e} inner path-steps/s {tag}")
+              f"{inner_steps / ms * 1e3:.4e} inner path-steps/s; bullet: "
+              f"kLegs {_cuda.load().mc_nmc_legs()}, registers "
+              f"{res.get('registers')}, spill stores/loads "
+              f"{res.get('spill_stores')}/{res.get('spill_loads')} B, "
+              f"{nk.nmc_occupancy(bullet, name == 'nmc_fused')} blocks/SM "
+              f"{tag}")
 
     # The ladder beside the 17 single-strike launches it replaces.
     cfg_l = pk.KernelConfig(n_paths=LADDER_PATHS, n_steps=MAIN_STEPS,

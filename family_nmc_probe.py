@@ -1,10 +1,12 @@
 """Probe the family nested-MC kernels (#29 family_inner_kernel, #30
 family_fused_kernel), or with ``--qmc`` the QMC kernels (#33
-qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), on one CUDA card:
-what they cost in registers, spills, shared memory and resident blocks,
-their SASS loops, and their times.
+qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
+the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), on one
+CUDA card: what they cost in registers, spills, shared memory and resident
+blocks, their SASS loops, and their times.
 
-    python3 family_nmc_probe.py [--qmc] [--variant LABEL=DIR[:DEFINE,...]] ...
+    python3 family_nmc_probe.py [--qmc | --gbm]
+                                [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
 from the root of a checkout.  Each variant is a copy of ``csrc`` (DIR; the
@@ -21,9 +23,9 @@ instruction count and its instructions by class.  ``--time`` runs each
 family's fused and inner kernels once at 16,384 x 100 x 500 (CUDA events,
 after a warm-up at 256 x 8 x 8) in turns over the variants, twice, and
 checks every variant's surfaces bit for bit against the first variant's.
-A variant whose DIR is not the package's ``csrc`` is called through the
-entry points as they were before the launch geometry was passed in (a
-parent commit's ``csrc``).
+A variant whose library lacks ``mc_family_occupancy`` is called through the
+entry points as they were before the launch geometry was passed in (an
+older commit's ``csrc``).
 
 ``--qmc`` builds ``qmc_kernels.cu`` and ``qmc_*_kernels.cu`` instead and
 prints the ptxas resources of qmc_model_kernel<Leg, VanillaCall> per
@@ -38,6 +40,29 @@ checks every variant's partials bit for bit against the first variant's.
 A variant whose library does not export its shifts a thread
 (``mc_qmc_shifts``) is called through the entry points as they were
 before the shift groups were passed in.
+
+``--gbm`` builds ``nmc_kernels.cu`` (through a unit that adds the resident
+blocks per SM of its kernels) and prints the ptxas resources, the legs a
+thread (where the variant exports them) and the resident blocks of both
+kernels for BulletCall and VanillaCall; ``--sass`` prints their loops (the
+pair loop among them) and their instructions by class.  ``--time`` runs
+both kernels at 16,384 x 100 x 500, bullet and vanilla, on the plain
+trajectories' grids (CUDA events, after a warm-up at 256 x 8 x 8) in turns
+over the variants, twice, and checks every variant's surfaces and outer
+moments bit for bit against the first variant's and its inner surface
+against its fused one.  A variant whose library does not export its legs a
+thread (``mc_nmc_legs``) is called through the entry points as they were
+before the leg groups were passed in.  ``-DMC_NMC_LEGS=N`` sets a
+variant's legs a thread.
+``--time`` also times the book kernel (#7, ``batch_kernels.cu``, built into
+the same library: it shares the bullet and the draw) on chip_smoke.py's
+bullet book64, 64 x 2^20 x 100, in turns, bitwise against the first.
+``--gbm`` also runs the library's check of two premises of the kernels on
+every input they can meet (``mc_nmc_libm_check``, as chip_smoke.py's phase
+2 does, through the first variant that exports it): that ``sincosf`` is
+``cosf`` and ``sinf`` bit for bit on each theta the Box-Muller draw can
+give, and that ``expf`` keeps the order of every finite float (the barrier
+legs' threshold rests on it).
 
 Everything printed also goes, as JSON, to ``--out`` (default
 ``build/family_probe.json``).  Needs a card; exits 2 without one.
@@ -55,6 +80,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 NMC_MAIN = (16384, 100, 500)
@@ -126,19 +152,50 @@ def families():
 # --- build -------------------------------------------------------------------
 
 
-def probe_sources(src: Path, qmc: bool):
-    """The sources a probe compiles from ``src``: the family NMC ones, or
-    the QMC ones."""
-    if qmc:
+# --gbm compiles a variant's nmc_kernels.cu and batch_kernels.cu (the book,
+# #7, which shares the bullet and the draw) through this unit, which adds the
+# resident blocks per SM of the NMC kernels (whatever their arguments).
+GBM_SHIM = """#include "{src}/nmc_kernels.cu"
+#include "{src}/batch_kernels.cu"
+
+template <class P>
+static int probe_occupancy(int fused, int* blocks) {{
+  const int threads = mc_nmc_block_threads();
+  if (fused)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::nmc_fused_kernel<P>,
+                                                         threads, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::nmc_inner_kernel<P>,
+                                                       threads, 0);
+}}
+
+extern "C" int probe_nmc_occupancy(int payoff_id, int fused, int* blocks) {{
+  switch (payoff_id) {{
+    case mc::PAYOFF_BULLET_CALL: return probe_occupancy<mc::BulletCall>(fused, blocks);
+    case mc::PAYOFF_VANILLA_CALL: return probe_occupancy<mc::VanillaCall>(fused, blocks);
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def probe_sources(src: Path, mode: str, out: Path):
+    """The sources a probe compiles from ``src``: the family NMC ones, the
+    QMC ones, or (``gbm``) the GBM NMC unit, written to ``out``."""
+    if mode == "qmc":
         return [src / "qmc_kernels.cu",
                 *(p for p in src.glob("qmc_*_kernels.cu"))]
+    if mode == "gbm":
+        shim = out / "nmc_probe.cu"
+        shim.write_text(GBM_SHIM.format(src=src))
+        return [shim]
     return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
             *src.glob("*_nmc32_kernels.cu")]
 
 
-def build(variants, qmc: bool = False):
-    """Compile every variant's family NMC (or QMC) sources at once and link
-    one library each: {label: (library path, {source: ptxas log})}."""
+def build(variants, mode: str = "family"):
+    """Compile every variant's family NMC (QMC, GBM NMC) sources at once
+    and link one library each: {label: (library path, {source: ptxas
+    log})}."""
     from mc_tpu_torch.ops import _cuda
 
     nvcc = _cuda._nvcc()
@@ -148,7 +205,7 @@ def build(variants, qmc: bool = False):
         out.mkdir(parents=True, exist_ok=True)
         for old in out.glob("*.o"):
             old.unlink()
-        srcs = sorted(probe_sources(src, qmc),
+        srcs = sorted(probe_sources(src, mode, out),
                       key=lambda p: -p.stat().st_size)
         for s in srcs:
             cmds.append([nvcc, *_cuda.NVCC_FLAGS, *(f"-D{d}" for d in defines),
@@ -222,6 +279,7 @@ def entry_name(entries, kernel: str, struct: str):
 # --- SASS --------------------------------------------------------------------
 
 _CLASSES = (("MUFU", r"^MUFU"), ("load", r"^(LDG|LDS|LD|LDC|ULDC|LDL)\b"),
+            ("f64", r"^(DADD|DMUL|DFMA|DSETP|F2F)"),
             ("f32", r"^(FADD|FMUL|FFMA|FMNMX|FSETP|FSEL|FCHK|FRND|F2I|I2F)"),
             ("int", r"^(IADD3|LOP3|SHF|IMAD|ISETP|LEA|SEL|IABS|PRMT|UIADD3|"
                     r"ULOP3|USHF|UIMAD|ISCADD)"),
@@ -526,7 +584,7 @@ def qmc_entry(res, kernel: str, struct: str, payoff: str):
 
 def qmc_main(args, variants, card) -> dict:
     """The --qmc probe: resources, SASS and times of the QMC kernels."""
-    libs = build(variants, qmc=True)
+    libs = build(variants, "qmc")
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
     bound = {}
@@ -595,9 +653,248 @@ def qmc_main(args, variants, card) -> dict:
     return report
 
 
+# --- the GBM nested-MC kernels (--gbm) ---------------------------------------
+
+GBM_PAYOFFS = (("bullet_call", "BulletCall"), ("vanilla_call", "VanillaCall"))
+GBM_KERNELS = ("nmc_fused_kernel", "nmc_inner_kernel")
+# The entry points before the leg groups were passed in (no n_groups after
+# n_inner): an older commit's csrc.
+_OLD_GBM_ABI = {
+    "mc_nmc_fused": [_int, _int, _u32, _u32, _u32, _u32, _ptr, _int, _int,
+                     _u32, _u32, _u32, _ptr, _ptr, _ptr],
+    "mc_nmc_inner": [_int, _int, _u32, _u32, _ptr, _int, _int, _u32, _u32,
+                     _u32, _ptr, _ptr, _ptr, _ptr]}
+
+
+def bind_gbm(lib_path: Path):
+    """(library, legs a thread or None): the GBM NMC entry points, with the
+    leg groups passed in where the library exports its legs (``mc_nmc_legs``)
+    and as they were before where it does not."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    new_abi = hasattr(lib, "mc_nmc_legs")
+    for name in ("mc_nmc_fused", "mc_nmc_inner", "mc_nmc_block_threads",
+                 "mc_book_partials", *(("mc_nmc_legs",) if new_abi else ())):
+        argtypes, restype = _cuda._SIGNATURES[name]
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes if new_abi else _OLD_GBM_ABI.get(name, argtypes)
+        fn.restype = restype
+    lib.probe_nmc_occupancy.argtypes = [_int, _int,
+                                        ctypes.POINTER(ctypes.c_int)]
+    lib.probe_nmc_occupancy.restype = _int
+    if hasattr(lib, "mc_nmc_libm_check"):
+        lib.mc_nmc_libm_check.argtypes, lib.mc_nmc_libm_check.restype = (
+            _cuda._SIGNATURES["mc_nmc_libm_check"])
+    return lib, (lib.mc_nmc_legs() if new_abi else None)
+
+
+def libm_check(lib, dev) -> dict:
+    """The library's mc_nmc_libm_check: the neighbouring finite floats whose
+    expf are out of order, and the Box-Muller thetas where sincosf is not
+    cosf and sinf bit for bit."""
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    _check(lib.mc_nmc_libm_check(bad.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream),
+           "mc_nmc_libm_check")
+    n_order, n_trig = (int(x) for x in bad.tolist())
+    return {"expf out of order": n_order, "sincosf != cosf, sinf": n_trig}
+
+
+def gbm_inputs(payoff: str, shape, dev):
+    """(NMCConfig, params, outer and inner keys, s grid, state grid) of the
+    demo option at ``shape``; the grids are the plain trajectories'."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import nmc_kernels as nk
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    n_out, n_steps, n_inner = shape
+    cfg = nk.NMCConfig(n_paths=n_out, n_steps=n_steps, n_inner=n_inner)
+    prm = pk.pack_params(OptionParams(), n_steps, dev)
+    keys = tuple(tuple(int(k) for k in rng.derive_key(1234, s))
+                 for s in (engines.STREAM_OUTER, engines.STREAM_INNER))
+    s_g, c_g, _ = pk.simulate_trajectories_plain(
+        get_payoff(payoff), nk.outer_config(cfg), keys[0], prm)
+    return cfg, prm, keys, s_g, c_g
+
+
+def run_gbm(lib, legs, payoff: str, inputs):
+    """(fused surface, outer partials, inner surface, fused ms, inner ms) of
+    one call of each kernel through ``lib`` (``legs``: its legs a thread, or
+    None before they were passed in)."""
+    from mc_tpu_torch.ops import nmc_kernels as nk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    cfg, prm, ((ko0, ko1), (ki0, ki1)), s_g, c_g = inputs
+    pid = get_payoff(payoff).cuda_id
+    stream = torch.cuda.current_stream().cuda_stream
+    tiles = -(-cfg.n_paths // lib.mc_nmc_block_threads())
+    surf_f = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
+                         device=prm.device)
+    surf_i = torch.empty_like(surf_f)
+    outer = torch.empty((tiles, 2), dtype=torch.float64, device=prm.device)
+    geo = () if legs is None else (nk.nmc_launch(cfg.n_inner, legs).groups,)
+    point = (cfg.n_paths, 0, cfg.n_paths)
+    t = _events()
+    _check(lib.mc_nmc_fused(pid, 0, ko0, ko1, ki0, ki1, prm.data_ptr(),
+                            cfg.n_steps, cfg.n_inner, *geo, *point,
+                            surf_f.data_ptr(), outer.data_ptr(), stream),
+           "nmc_fused")
+    t.append(_event())
+    _check(lib.mc_nmc_inner(pid, 0, ki0, ki1, prm.data_ptr(), cfg.n_steps,
+                            cfg.n_inner, *geo, *point, s_g.data_ptr(),
+                            c_g.data_ptr(), surf_i.data_ptr(), stream),
+           "nmc_inner")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return (surf_f, outer, surf_i, t[0].elapsed_time(t[1]),
+            t[1].elapsed_time(t[2]))
+
+
+BOOK_MAIN = (64, 1 << 20, 100)  # contracts, paths, steps: chip_smoke's book64
+
+
+def book_inputs(dev):
+    """(KernelConfig, parameter rows) of chip_smoke.py's book64 bullet book:
+    strikes U(80, 120) and vols U(0.1, 0.4) from default_rng(7), S0 = 100,
+    T = 1, r = 0.1, B = 120, window [10, 50]."""
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    b, n_paths, n_steps = BOOK_MAIN
+    gen = np.random.default_rng(7)
+    opt = OptionParams(
+        s0=np.full(b, 100.0, np.float32), t=np.full(b, 1.0, np.float32),
+        k=gen.uniform(80, 120, b).astype(np.float32),
+        r=np.full(b, 0.1, np.float32),
+        sigma=gen.uniform(0.1, 0.4, b).astype(np.float32),
+        barrier=np.full(b, 120.0, np.float32),
+        p1=np.full(b, 10.0, np.float32), p2=np.full(b, 50.0, np.float32),
+        q=np.zeros(b, np.float32))
+    cfg = pk.KernelConfig(n_paths=n_paths, n_steps=n_steps)
+    return cfg, pk.pack_params_rows(opt, n_steps, dev)
+
+
+def run_book(lib, inputs):
+    """(partials, ms) of one book kernel call through ``lib``."""
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    cfg, rows = inputs
+    threads = pk.book_block_threads(cfg)
+    n_blocks = -(-cfg.n_paths // threads)
+    part = torch.empty((n_blocks, rows.shape[0], cfg.n_moments),
+                       dtype=torch.float64, device=rows.device)
+    t = _events()
+    _check(lib.mc_book_partials(
+        get_payoff("bullet_call").cuda_id, 1, 0, 0, 1234, 5678,
+        rows.data_ptr(), rows.shape[0], cfg.n_steps, cfg.n_paths, 0,
+        cfg.n_paths, threads, part.data_ptr(), cfg.n_moments, n_blocks,
+        torch.cuda.current_stream().cuda_stream), "book")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1])
+
+
+def gbm_main(args, variants, card) -> dict:
+    """The --gbm probe: resources, SASS and times of the GBM NMC kernels."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    libs = build(variants, "gbm")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, legs = bind_gbm(lib_path)
+        bound[label] = (lib, legs)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = {(k, struct): qmc_entry(res, k, None, struct)
+                   for k in GBM_KERNELS for _, struct in GBM_PAYOFFS}
+        funcs = (sass_functions(lib_path, lambda f: f in entries.values())
+                 if args.sass else {})
+        rows = {}
+        for name, struct in GBM_PAYOFFS:
+            for kernel in GBM_KERNELS:
+                e = entries[(kernel, struct)]
+                r = dict(res.get(e, {}), legs=legs)
+                blocks = ctypes.c_int(0)
+                st = lib.probe_nmc_occupancy(
+                    get_payoff(name).cuda_id, int(kernel == "nmc_fused_kernel"),
+                    ctypes.byref(blocks))
+                r["blocks_per_sm"] = blocks.value if st == 0 else None
+                if args.sass and e in funcs:
+                    n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                    r["sass"] = dict(instructions=n_ins, loops=loops,
+                                     total=sass_classes(funcs[e]))
+                rows[f"{kernel} {name}"] = r
+                print(f"probe {label}: {kernel}<{struct}>: "
+                      f"{ {k: v for k, v in r.items() if k != 'sass'} } "
+                      f"{card}", flush=True)
+                if "sass" in r:
+                    print(f"  total {r['sass']['total']}")
+                    for lp in r["sass"]["loops"]:
+                        print(f"  loop {lp}")
+                    listing = Path(args.out).with_suffix(
+                        f".{label}.{kernel}.{name}.sass")
+                    listing.write_text("".join(
+                        f"{a:05x} {o}{rest}\n" for a, o, rest in funcs[e]))
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, ptxas=logs)
+    checker = next((lib for lib, _ in bound.values()
+                    if hasattr(lib, "mc_nmc_libm_check")), None)
+    if checker is not None:
+        report["libm"] = libm_check(checker, dev)
+        print(f"probe libm, every finite float and Box-Muller theta: "
+              f"{report['libm']} {card}", flush=True)
+    if args.time:
+        times = {}
+        for name, _ in GBM_PAYOFFS:
+            warm = gbm_inputs(name, NMC_WARM, dev)
+            main_in = gbm_inputs(name, NMC_MAIN, dev)
+            ref = None
+            order = list(bound) + list(bound)[::-1]
+            for label in order:
+                lib, legs = bound[label]
+                run_gbm(lib, legs, name, warm)
+                sf, outer, si, f_ms, i_ms = run_gbm(lib, legs, name, main_in)
+                if ref is None:
+                    ref = (sf, outer)
+                same = bool(torch.equal(sf, ref[0]) and torch.equal(sf, si)
+                            and torch.equal(outer, ref[1]))
+                times.setdefault(name, {}).setdefault(label, []).append(
+                    dict(fused_ms=f_ms, inner_ms=i_ms, bitwise=same))
+                print(f"probe time {name} {label}: fused {f_ms:.3f} ms, "
+                      f"inner {i_ms:.3f} ms, surface and outer moments "
+                      f"bitwise vs {order[0]} and grid == fused: {same} "
+                      f"{card}", flush=True)
+                if not same:
+                    print(f"FAIL: {name} {label} disagrees", flush=True)
+        book, ref = book_inputs(dev), None
+        for label in list(bound) + list(bound)[::-1]:
+            part, ms = run_book(bound[label][0], book)
+            ref = part if ref is None else ref
+            same = bool(torch.equal(part, ref))
+            times.setdefault("book", {}).setdefault(label, []).append(
+                dict(ms=ms, bitwise=same))
+            print(f"probe time book bullet {'x'.join(map(str, BOOK_MAIN))} "
+                  f"{label}: {ms:.3f} ms, partials bitwise vs the first: "
+                  f"{same} {card}", flush=True)
+            if not same:
+                print(f"FAIL: book {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--qmc", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--qmc", action="store_true")
+    mode.add_argument("--gbm", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
@@ -622,6 +919,8 @@ def main() -> int:
                          [d for d in defs.split(",") if d]))
     if args.qmc:
         return write_report(args.out, qmc_main(args, variants, card))
+    if args.gbm:
+        return write_report(args.out, gbm_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")
@@ -629,7 +928,9 @@ def main() -> int:
     bound = {}
     for label, src, defines in variants:
         lib_path, logs = libs[label]
-        new_abi = src == own
+        # the launch geometry is passed in where the library has the
+        # occupancy entry point, which came with it
+        new_abi = hasattr(ctypes.CDLL(str(lib_path)), "mc_family_occupancy")
         lib = bind(lib_path, new_abi)
         legs = next((int(d.split("=")[1]) for d in defines
                      if d.startswith("MC_FAMILY_LEGS=")), None)

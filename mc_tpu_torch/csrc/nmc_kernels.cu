@@ -15,8 +15,11 @@
 // barriers and the lookback; the stored state is word 0.
 //
 // What bounds it on the H100: the inner sweep, n_inner*(n_steps-j-1) steps
-// per point, each half a threefry-13 call, half the Box-Muller
-// transcendentals and one expf.  Bytes are negligible (one f32 per point).
+// per point, each half a threefry-13 call and half the Box-Muller
+// transcendentals; bytes are negligible (one f32 per point).  Under
+// --fmad=false and the accurate libm a normal pair is ~140 issued
+// instructions (threefry ~47, log1pf ~28, sincosf ~35, sqrtf ~11), so
+// instruction issue is the wall (family_nmc_probe.py --gbm, PERF.md).
 //
 // Design: the TPU kernel parks a tile's whole outer history in VMEM and then
 // sweeps it.  A Hopper block has 227 KB of shared memory, room for about 280
@@ -30,8 +33,26 @@
 // never diverges.  Work per block falls with j; block b takes step
 // j = b / tiles, so the largest blocks are issued first and the short ones
 // fill the tail.  The j = n_steps-1 blocks hold the outer terminal states
-// and write the outer moment rows.  An odd remaining count drops the second
-// half-step of the last pair by a select, as the TPU kernel does.
+// and write the outer moment rows.  Inside a point (nmc_point), each thread
+// - runs its legs kNmcLegs = 4 at a time (4 independent threefry chains the
+//   scheduler interleaves; a ragged last group runs its surplus legs and
+//   does not add them, n_groups being the caller's ceil(n_inner / 4)) and
+//   adds their payoffs in f64 in leg order, as the plain version does;
+// - takes the pairs whose both halves count, then for an odd count the head
+//   half of one more pair: the TPU kernel's select of two full half-steps
+//   at every pair, without the select;
+// - forms S = base * expf(w) only where update reads it: a terminal-only
+//   payoff's legs form it once at the end, and the bullet's, the up-and-out
+//   and the down-and-in call's (update reads S < B alone) test w against the
+//   point's below_max_w, 32 expf once per point in place of one a step.
+// __launch_bounds__(128, 1) leaves the registers to ptxas (56-59 for the
+// bullet, no spills); with no minimum of blocks ptxas held the bullet to 40
+// registers, spilled in the fused kernel and ran 1-2% slower.  kNmcLegs was
+// chosen by a sweep, where higher minimums of blocks and 256 threads gained
+// nothing (family_nmc_probe.py --gbm; PERF.md section 6).  Two premises of the libm make this bitwise the parent's
+// design; mc_nmc_libm_check tests both on every input (chip_smoke.py
+// phase 2): expf keeps the order of the floats (below_max_w) and sincosf is
+// cosf and sinf bit for bit (rng.cuh).
 //
 // nmc_inner_kernel keeps that schedule and reads 8 bytes per point where the
 // fused kernel recomputes j+1 outer steps; both are negligible beside the
@@ -39,7 +60,10 @@
 // from trajectories_kernel, whose step and draws are Phase A's, so the two
 // strategies give bitwise equal surfaces.
 
+#include <cfloat>
+#include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -52,37 +76,162 @@ namespace mc {
 constexpr int kNmcThreads = 128;
 constexpr int kNmcRounds = 13;  // NMC streams are threefry-13 (NMCConfig)
 
+// The inner legs a thread runs at once.  Only family_nmc_probe.py --gbm's
+// sweeps define MC_NMC_LEGS; the library exports what it was built with
+// (mc_nmc_legs), and the wrappers read it.
+constexpr int nmc_legs(int own) {
+#ifdef MC_NMC_LEGS
+  return static_cast<void>(own), MC_NMC_LEGS;
+#else
+  return own;
+#endif
+}
+constexpr int kNmcLegs = nmc_legs(4);
+static_assert(kNmcLegs == 1 || kNmcLegs == 2 || kNmcLegs == 4, "1, 2 or 4 legs");
+
+// How a leg moves its payoff state at a step.  kSpot: update reads the spot
+// S = base * expf(w) at each step (the Asian, the lookback, the down-and-out
+// call).  kNone: no state words (the terminal-only payoffs), so update reads
+// nothing.  kBarrier: update reads S only through S < p.barrier (the payoffs
+// with update_below: the bullet, the up-and-out and the down-and-in calls),
+// and that test is w <= below_max (below_max_w).  The kNone and kBarrier legs
+// form S once, at the leg's end, from the last w: the only S terminal reads.
+enum class StateRead { kSpot, kNone, kBarrier };
+
+template <class Payoff, class = void>
+struct HasUpdateBelow : std::false_type {};
+template <class Payoff>
+struct HasUpdateBelow<Payoff, std::void_t<decltype(&Payoff::update_below)>>
+    : std::true_type {};
+
+template <class Payoff>
+constexpr StateRead kStateRead = Payoff::kStates == 0          ? StateRead::kNone
+                                 : HasUpdateBelow<Payoff>::value ? StateRead::kBarrier
+                                                                 : StateRead::kSpot;
+
+// A float's place in the order of the floats as a uint32 (-0 just below +0),
+// and back.
+__device__ __forceinline__ uint32_t float_order(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float order_float(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// The largest finite w with base * expf(w) < barrier: -inf if there is
+// none, +inf if every finite w is.  expf is monotone over the floats
+// (mc_nmc_libm_check tests each of them) and so is its product with
+// base >= 0, so base * expf(w) < barrier exactly when w <= below_max_w: a
+// bisection over the floats' order, 32 expf once per point, in place of an
+// expf at each of the point's n_inner * remaining steps.
+__device__ float below_max_w(float base, float barrier) {
+  auto below = [&](uint32_t k) { return base * expf(order_float(k)) < barrier; };
+  uint32_t lo = float_order(-FLT_MAX), hi = float_order(FLT_MAX);
+  if (!below(lo)) return -INFINITY;
+  if (below(hi)) return INFINITY;
+  while (hi - lo > 1) {  // below(lo) and not below(hi)
+    const uint32_t mid = lo + (hi - lo) / 2;
+    if (below(mid)) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return order_float(lo);
+}
+
+// One step of a leg from base: w moves as euler_step moves it; a kSpot leg
+// forms S and updates its state from it, a kBarrier leg from w <= below_max.
+template <class Payoff>
+__device__ __forceinline__ void leg_step(const Params& p, float base, float below_max, float z,
+                                         float& w, float& s, typename Payoff::State& st) {
+  if constexpr (kStateRead<Payoff> == StateRead::kSpot) {
+    euler_step<Payoff>(p, base, z, w, s, st);
+  } else {
+    w = w + (p.drift_dt + p.vol_dt * z);
+    if constexpr (kStateRead<Payoff> == StateRead::kBarrier) {
+      st = Payoff::update_below(st, w <= below_max, p);
+    }
+  }
+}
+
+// kNmcLegs inner legs in lockstep from (s_j, st_j) over `remaining` steps,
+// leg l on counters (id, c[l] + q): the pairs whose two halves are taken,
+// then, for an odd count, the head half of one more pair.  Their payoffs
+// into pay[l].
+template <class Payoff>
+__device__ __forceinline__ void nmc_legs_run(const Params& p, uint32_t ki0, uint32_t ki1,
+                                             uint32_t id, const uint32_t (&c)[kNmcLegs],
+                                             int remaining, float s_j, float below_max,
+                                             const typename Payoff::State& st_j,
+                                             float (&pay)[kNmcLegs]) {
+  const int n_full = remaining / 2;
+  float w[kNmcLegs], s[kNmcLegs];
+  typename Payoff::State st[kNmcLegs];
+#pragma unroll
+  for (int l = 0; l < kNmcLegs; ++l) {
+    w[l] = 0.0f;
+    s[l] = s_j;
+    st[l] = st_j;
+  }
+  for (int q = 0; q < n_full; ++q) {
+#pragma unroll
+    for (int l = 0; l < kNmcLegs; ++l) {
+      float z0, z1;
+      normal_pair<kNmcRounds>(ki0, ki1, id, c[l] + static_cast<uint32_t>(q), z0, z1);
+      leg_step<Payoff>(p, s_j, below_max, z0, w[l], s[l], st[l]);
+      leg_step<Payoff>(p, s_j, below_max, z1, w[l], s[l], st[l]);
+    }
+  }
+  if (remaining & 1) {  // block-uniform
+#pragma unroll
+    for (int l = 0; l < kNmcLegs; ++l) {
+      float z0, z1;
+      normal_pair<kNmcRounds>(ki0, ki1, id, c[l] + static_cast<uint32_t>(n_full), z0, z1);
+      leg_step<Payoff>(p, s_j, below_max, z0, w[l], s[l], st[l]);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kNmcLegs; ++l) {
+    if constexpr (kStateRead<Payoff> != StateRead::kSpot) {
+      if (remaining > 0) s[l] = s_j * expf(w[l]);
+    }
+    pay[l] = Payoff::terminal(st[l], s[l], p);
+  }
+}
+
 // Phase B: the discounted mean payoff of n_inner inner paths resumed from
-// (S_j, count_j), the state of path `id` after step j+1.
+// (S_j, count_j), the state of path `id` after step j+1: the f64 sum over
+// m = 0..n_inner-1 in that order, leg m on counters (id, ((j+1)*n_inner +
+// m)*pair_cap + q), run kNmcLegs at a time (group g holds legs g*kNmcLegs ..
+// g*kNmcLegs + kNmcLegs-1, n_groups = ceil(n_inner / kNmcLegs)); the legs
+// of a ragged last group past n_inner run and are not added.
 template <class Payoff>
 __device__ float nmc_point(const Params& p, int discount_remaining, uint32_t ki0,
                            uint32_t ki1, uint32_t id, int j, int n_steps, int n_inner,
-                           float s_j, typename Payoff::State st_j) {
-  using State = typename Payoff::State;
+                           int n_groups, float s_j, typename Payoff::State st_j) {
   const int remaining = n_steps - j - 1;
-  const int n_pairs = (remaining + 1) / 2;
   const uint32_t pair_cap = static_cast<uint32_t>((n_steps + 1) / 2);
-  const uint32_t t_base = static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner);
+  uint32_t c[kNmcLegs];
+#pragma unroll
+  for (int l = 0; l < kNmcLegs; ++l) {
+    c[l] = (static_cast<uint32_t>(j + 1) * static_cast<uint32_t>(n_inner) +
+            static_cast<uint32_t>(l)) * pair_cap;
+  }
+  const float below_max = kStateRead<Payoff> == StateRead::kBarrier && remaining > 0
+                              ? below_max_w(s_j, p.barrier)
+                              : 0.0f;
   double sum = 0.0;
-  for (int m = 0; m < n_inner; ++m) {
-    const uint32_t c1_base = (t_base + static_cast<uint32_t>(m)) * pair_cap;
-    float wi = 0.0f, si = s_j;
-    State sti = st_j;
-    for (int q = 0; q < n_pairs; ++q) {
-      float z0, z1;
-      normal_pair<kNmcRounds>(ki0, ki1, id, c1_base + static_cast<uint32_t>(q), z0, z1);
-      float w1 = wi, s1;
-      State st1 = sti;
-      euler_step<Payoff>(p, s_j, z0, w1, s1, st1);
-      float w2 = w1, s2;
-      State st2 = st1;
-      euler_step<Payoff>(p, s_j, z1, w2, s2, st2);
-      const bool take2 = (2 * q + 1) < remaining;  // drop an overrunning half-step
-      wi = take2 ? w2 : w1;
-      si = take2 ? s2 : s1;
-      sti = take2 ? st2 : st1;
+  for (int g = 0; g < n_groups; ++g) {
+    float pay[kNmcLegs];
+    nmc_legs_run<Payoff>(p, ki0, ki1, id, c, remaining, s_j, below_max, st_j, pay);
+#pragma unroll
+    for (int l = 0; l < kNmcLegs; ++l) {
+      if (g * kNmcLegs + l < n_inner) sum += static_cast<double>(pay[l]);
+      c[l] += static_cast<uint32_t>(kNmcLegs) * pair_cap;
     }
-    sum += static_cast<double>(Payoff::terminal(sti, si, p));
   }
   const float disc = discount_remaining
       ? expf(-p.r * (p.t - (static_cast<float>(j) + 1.0f) * p.dt))
@@ -91,10 +240,10 @@ __device__ float nmc_point(const Params& p, int discount_remaining, uint32_t ki0
 }
 
 template <class Payoff>
-__global__ void __launch_bounds__(kNmcThreads)
+__global__ void __launch_bounds__(kNmcThreads, 1)
 nmc_fused_kernel(int discount_remaining, uint32_t ko0, uint32_t ko1, uint32_t ki0,
                  uint32_t ki1, const float* __restrict__ params, int n_steps,
-                 int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                 int n_inner, int n_groups, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
                  int tiles, float* __restrict__ surface,
                  double* __restrict__ outer_partials) {
   const Params p = load_params(params);
@@ -127,15 +276,15 @@ nmc_fused_kernel(int discount_remaining, uint32_t ko0, uint32_t ko1, uint32_t ki
   }
 
   const float v = nmc_point<Payoff>(p, discount_remaining, ki0, ki1, id, j, n_steps,
-                                    n_inner, s, st);
+                                    n_inner, n_groups, s, st);
   if (in_range) surface[static_cast<size_t>(j) * n_paths + local] = valid ? v : 0.0f;
 }
 
 template <class Payoff>
-__global__ void __launch_bounds__(kNmcThreads)
+__global__ void __launch_bounds__(kNmcThreads, 1)
 nmc_inner_kernel(int discount_remaining, uint32_t ki0, uint32_t ki1,
                  const float* __restrict__ params, int n_steps, int n_inner,
-                 uint32_t n_paths, uint32_t path_offset, uint32_t bound, int tiles,
+                 int n_groups, uint32_t n_paths, uint32_t path_offset, uint32_t bound, int tiles,
                  const float* __restrict__ s_grid, const float* __restrict__ state_grid,
                  float* __restrict__ surface) {
   const Params p = load_params(params);
@@ -148,12 +297,42 @@ nmc_inner_kernel(int discount_remaining, uint32_t ki0, uint32_t ki1,
   typename Payoff::State st = Payoff::init(p);
   if (Payoff::kStates) st.w[0] = state_grid[at];
   const float v = nmc_point<Payoff>(p, discount_remaining, ki0, ki1, id, j, n_steps,
-                                    n_inner, s_grid[at], st);
+                                    n_inner, n_groups, s_grid[at], st);
   surface[at] = id < bound ? v : 0.0f;
 }
 
-// Blocks: one per (step, tile of kNmcThreads outer paths), step-major.
-inline long long nmc_blocks(uint32_t n_paths, int n_steps, int* tiles) {
+// The libm premises of the design, one thread per uint32 k, into bad[0]
+// and bad[1]: the finite floats of order keys k, k + 1 whose expf are out of
+// order, and the thetas Box-Muller can draw (the 2^23 uniforms
+// bits_to_unit gives, k < 2^23) where sincosf is not cosf and sinf bit for
+// bit.  Integer atomics only; both counts are 0 on a good toolkit.  zero
+// (0 at launch) hides from the compiler that cosf and sinf take sincosf's
+// theta, so neither call can be folded into the other.
+__global__ void nmc_libm_check_kernel(uint32_t zero, unsigned long long* __restrict__ bad) {
+  const uint32_t k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= float_order(-FLT_MAX) && k < float_order(FLT_MAX) &&
+      expf(order_float(k)) > expf(order_float(k + 1))) {
+    atomicAdd(&bad[0], 1ull);
+  }
+  if (k < (1u << 23)) {
+    const float theta = static_cast<float>(6.283185307179586) *
+                        (__uint_as_float(k | 0x3F800000u) - 1.0f);
+    float sn, cs;
+    sincosf(theta, &sn, &cs);
+    const float theta_b = __uint_as_float(__float_as_uint(theta) ^ zero);
+    if (__float_as_uint(sn) != __float_as_uint(sinf(theta_b)) ||
+        __float_as_uint(cs) != __float_as_uint(cosf(theta_b))) {
+      atomicAdd(&bad[1], 1ull);
+    }
+  }
+}
+
+// Blocks: one per (step, tile of kNmcThreads outer paths), step-major; 0
+// (refused) unless n_groups is the caller's ceil(n_inner / kNmcLegs)
+// (ops/nmc_kernels.py nmc_launch).
+inline long long nmc_blocks(uint32_t n_paths, int n_steps, int n_inner, int n_groups,
+                            int* tiles) {
+  if (n_inner < 1 || n_groups != (n_inner + kNmcLegs - 1) / kNmcLegs) return 0;
   *tiles = static_cast<int>((n_paths + kNmcThreads - 1) / kNmcThreads);
   return static_cast<long long>(*tiles) * n_steps;
 }
@@ -161,30 +340,30 @@ inline long long nmc_blocks(uint32_t n_paths, int n_steps, int* tiles) {
 template <class Payoff>
 cudaError_t launch_nmc(int discount_remaining, uint32_t ko0, uint32_t ko1,
                        uint32_t ki0, uint32_t ki1, const float* params, int n_steps,
-                       int n_inner, uint32_t n_paths, uint32_t path_offset,
+                       int n_inner, int n_groups, uint32_t n_paths, uint32_t path_offset,
                        uint32_t bound, float* surface, double* outer_partials,
                        cudaStream_t stream) {
   int tiles;
-  const long long n_blocks = nmc_blocks(n_paths, n_steps, &tiles);
+  const long long n_blocks = nmc_blocks(n_paths, n_steps, n_inner, n_groups, &tiles);
   if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   nmc_fused_kernel<Payoff><<<static_cast<unsigned>(n_blocks), kNmcThreads, 0, stream>>>(
-      discount_remaining, ko0, ko1, ki0, ki1, params, n_steps, n_inner, n_paths,
+      discount_remaining, ko0, ko1, ki0, ki1, params, n_steps, n_inner, n_groups, n_paths,
       path_offset, bound, tiles, surface, outer_partials);
   return cudaGetLastError();
 }
 
 template <class Payoff>
 cudaError_t launch_nmc_inner(int discount_remaining, uint32_t ki0, uint32_t ki1,
-                             const float* params, int n_steps, int n_inner,
+                             const float* params, int n_steps, int n_inner, int n_groups,
                              uint32_t n_paths, uint32_t path_offset, uint32_t bound,
                              const float* s_grid, const float* state_grid,
                              float* surface, cudaStream_t stream) {
   int tiles;
-  const long long n_blocks = nmc_blocks(n_paths, n_steps, &tiles);
+  const long long n_blocks = nmc_blocks(n_paths, n_steps, n_inner, n_groups, &tiles);
   if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   nmc_inner_kernel<Payoff><<<static_cast<unsigned>(n_blocks), kNmcThreads, 0, stream>>>(
-      discount_remaining, ki0, ki1, params, n_steps, n_inner, n_paths, path_offset,
-      bound, tiles, s_grid, state_grid, surface);
+      discount_remaining, ki0, ki1, params, n_steps, n_inner, n_groups, n_paths,
+      path_offset, bound, tiles, s_grid, state_grid, surface);
   return cudaGetLastError();
 }
 
@@ -194,14 +373,39 @@ extern "C" {
 
 int mc_nmc_block_threads() { return mc::kNmcThreads; }
 
+int mc_nmc_legs() { return mc::kNmcLegs; }
+
+// bad[2] (zeroed by the caller): the counts of nmc_libm_check_kernel.
+int mc_nmc_libm_check(unsigned long long* bad, void* stream) {
+  mc::nmc_libm_check_kernel<<<1u << 24, 256, 0, static_cast<cudaStream_t>(stream)>>>(0u, bad);
+  return cudaGetLastError();
+}
+
+// The resident blocks per SM of the fused (fused = 1) or inner kernel of
+// a payoff, on the current device.
+int mc_nmc_occupancy(int payoff_id, int fused, int* blocks) {
+#define MC_CASE(ID, PAYOFF)                                                          \
+  case mc::ID:                                                                       \
+    return fused ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+                       blocks, mc::nmc_fused_kernel<mc::PAYOFF>, mc::kNmcThreads, 0) \
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+                       blocks, mc::nmc_inner_kernel<mc::PAYOFF>, mc::kNmcThreads, 0);
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
 int mc_nmc_fused(int payoff_id, int discount_remaining, uint32_t ko0, uint32_t ko1,
                  uint32_t ki0, uint32_t ki1, const float* params, int n_steps,
-                 int n_inner, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                 float* surface, double* outer_partials, void* stream) {
+                 int n_inner, int n_groups, uint32_t n_paths, uint32_t path_offset,
+                 uint32_t bound, float* surface, double* outer_partials, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MC_LAUNCH_NMC(PAYOFF)                                                       \
-  mc::launch_nmc<PAYOFF>(discount_remaining, ko0, ko1, ki0, ki1, params, n_steps,   \
-                         n_inner, n_paths, path_offset, bound, surface, outer_partials, s)
+#define MC_LAUNCH_NMC(PAYOFF)                                                        \
+  mc::launch_nmc<PAYOFF>(discount_remaining, ko0, ko1, ki0, ki1, params, n_steps,    \
+                         n_inner, n_groups, n_paths, path_offset, bound, surface,    \
+                         outer_partials, s)
 #define MC_CASE(ID, PAYOFF) \
   case mc::ID: return MC_LAUNCH_NMC(mc::PAYOFF);
   switch (payoff_id) {
@@ -213,14 +417,15 @@ int mc_nmc_fused(int payoff_id, int discount_remaining, uint32_t ko0, uint32_t k
 }
 
 int mc_nmc_inner(int payoff_id, int discount_remaining, uint32_t ki0, uint32_t ki1,
-                 const float* params, int n_steps, int n_inner, uint32_t n_paths,
-                 uint32_t path_offset, uint32_t bound, const float* s_grid,
-                 const float* state_grid, float* surface, void* stream) {
+                 const float* params, int n_steps, int n_inner, int n_groups,
+                 uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                 const float* s_grid, const float* state_grid, float* surface,
+                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MC_LAUNCH_NMC_INNER(PAYOFF)                                                  \
   mc::launch_nmc_inner<PAYOFF>(discount_remaining, ki0, ki1, params, n_steps, n_inner, \
-                               n_paths, path_offset, bound, s_grid, state_grid,       \
-                               surface, s)
+                               n_groups, n_paths, path_offset, bound, s_grid,         \
+                               state_grid, surface, s)
 #define MC_CASE(ID, PAYOFF) \
   case mc::ID: return MC_LAUNCH_NMC_INNER(mc::PAYOFF);
   switch (payoff_id) {

@@ -142,10 +142,17 @@ struct ZeroCouponBond : PayoffBase<0> {  // 1 at maturity
 
 // Barrier-window call (trajectories.cuh:144-153): count the steps with
 // S < B in f32; pay max(S_T - K, 0) iff P1 <= count <= P2.
+//
+// This payoff, UpOutCall and DownInCall read the spot in update only
+// through S < p.barrier: update_below is the state after a step from that
+// test alone (the NMC legs take it from the log-price, nmc_kernels.cu).
 struct BulletCall : PayoffBase<1> {
-  __device__ static State update(State st, float s, const Params& p) {
-    st.w[0] = st.w[0] + step01(s < p.barrier);
+  __device__ static State update_below(State st, bool below, const Params&) {
+    st.w[0] = st.w[0] + step01(below);
     return st;
+  }
+  __device__ static State update(State st, float s, const Params& p) {
+    return update_below(st, s < p.barrier, p);
   }
   __device__ static float terminal(const State& st, float s, const Params& p) {
     return (st.w[0] >= p.p1 && st.w[0] <= p.p2) ? fmaxf(s - p.k, 0.0f) : 0.0f;
@@ -173,9 +180,12 @@ struct AsianCall : PayoffBase<1> {  // word 0: running sum of S
 
 struct UpOutCall : PayoffBase<1> {  // word 0: alive flag
   __device__ static State init(const Params&) { return State{{1.0f}}; }
-  __device__ static State update(State st, float s, const Params& p) {
-    st.w[0] = st.w[0] * step01(s < p.barrier);
+  __device__ static State update_below(State st, bool below, const Params&) {
+    st.w[0] = st.w[0] * step01(below);
     return st;
+  }
+  __device__ static State update(State st, float s, const Params& p) {
+    return update_below(st, s < p.barrier, p);
   }
   __device__ static float terminal(const State& st, float s, const Params& p) {
     return st.w[0] * fmaxf(s - p.k, 0.0f);
@@ -194,9 +204,12 @@ struct DownOutCall : PayoffBase<1> {  // word 0: alive flag
 };
 
 struct DownInCall : PayoffBase<1> {  // word 0: knocked-in flag
-  __device__ static State update(State st, float s, const Params& p) {
-    st.w[0] = fmaxf(st.w[0], step01(s < p.barrier));
+  __device__ static State update_below(State st, bool below, const Params&) {
+    st.w[0] = fmaxf(st.w[0], step01(below));
     return st;
+  }
+  __device__ static State update(State st, float s, const Params& p) {
+    return update_below(st, s < p.barrier, p);
   }
   __device__ static float terminal(const State& st, float s, const Params& p) {
     return st.w[0] * fmaxf(s - p.k, 0.0f);

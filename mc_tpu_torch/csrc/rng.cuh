@@ -8,8 +8,8 @@
 // versions.  The key is injected after every 4th round; ROUNDS = 13 ends
 // without an injection, as the Python loops do.
 //
-// Box-Muller uses the accurate single-precision library calls (log1pf, cosf,
-// sinf, sqrtf): the build never passes --use_fast_math, whose __logf/__sinf
+// Box-Muller uses the accurate single-precision library calls (log1pf,
+// sincosf, sqrtf): the build never passes --use_fast_math, whose __logf/__sinf
 // would move the normals far more than the few ulp the parity tests allow.
 #pragma once
 
@@ -71,8 +71,13 @@ __device__ __forceinline__ void normal_pair(uint32_t k0, uint32_t k1,
   // 1 - u1 in (0, 1]: log is finite; r = 0 when u1 == 0.
   const float rad = sqrtf(-2.0f * log1pf(-u1));
   const float theta = static_cast<float>(6.283185307179586) * u2;
-  z0 = rad * cosf(theta);
-  z1 = rad * sinf(theta);
+  // One range reduction for both: sincosf is cosf and sinf bit for bit
+  // (mc_nmc_libm_check in nmc_kernels.cu tests every theta this draw can
+  // give, chip_smoke.py phase 2), where the two calls each reduced theta.
+  float sin_t, cos_t;
+  sincosf(theta, &sin_t, &cos_t);
+  z0 = rad * cos_t;
+  z1 = rad * sin_t;
 }
 
 

@@ -88,6 +88,11 @@ _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
     "mc_nmc_block_threads": ([], _c_int),
+    "mc_nmc_legs": ([], _c_int),
+    # bad (2 u64, zeroed), stream
+    "mc_nmc_libm_check": ([_c_ptr, _c_ptr], _c_int),
+    # payoff_id, fused, blocks (out)
+    "mc_nmc_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_ladder_block_threads": ([], _c_int),
     "mc_reduce_block_threads": ([], _c_int),
     "mc_heston_block_threads": ([], _c_int),
@@ -124,15 +129,17 @@ _SIGNATURES = {
                          _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr,
                          _c_int, _c_ptr], _c_int),
     # payoff_id, discount_remaining, ko0, ko1, ki0, ki1, params, n_steps,
-    # n_inner, n_paths, path_offset, bound, surface, outer_partials, stream
+    # n_inner, n_groups, n_paths, path_offset, bound, surface, outer_partials,
+    # stream
     "mc_nmc_fused": ([_c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_u32, _c_ptr,
-                      _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr,
-                      _c_ptr], _c_int),
+                      _c_int, _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
+                      _c_ptr, _c_ptr], _c_int),
     # payoff_id, discount_remaining, ki0, ki1, params, n_steps, n_inner,
-    # n_paths, path_offset, bound, s_grid, state_grid, surface, stream
+    # n_groups, n_paths, path_offset, bound, s_grid, state_grid, surface,
+    # stream
     "mc_nmc_inner": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_int, _c_int,
-                      _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
-                     _c_int),
+                      _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr, _c_ptr,
+                      _c_ptr], _c_int),
     # payoff_id, euler, antithetic, k0, k1, params, strikes, n_strikes,
     # n_steps, n_paths, path_offset, bound, partials, n_blocks, stream
     "mc_ladder_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,

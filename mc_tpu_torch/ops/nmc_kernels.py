@@ -22,6 +22,7 @@ come back as ``(rows, 2)`` f64 partials for ``reduce.finish_sum``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -75,6 +76,35 @@ class NMCConfig:
     def pair_cap(self) -> int:
         """Counter stride per inner path: max Box-Muller pairs per resume."""
         return (self.n_steps + 1) // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class NMCLaunch:
+    """How one call of the fused or inner kernel runs a point's inner legs:
+    in ``groups`` groups of ``legs`` (the library's kNmcLegs); the legs of
+    the last group past n_inner run and are not added."""
+    legs: int
+    groups: int
+
+
+def nmc_launch(n_inner: int, legs: int) -> NMCLaunch:
+    """The leg groups of ``n_inner`` inner legs a point, ``legs`` at a time:
+    what the entry points take (``n_groups``) and check."""
+    if n_inner < 1 or legs < 1:
+        raise ValueError(f"n_inner and legs must be positive; got {n_inner}, "
+                         f"{legs}")
+    return NMCLaunch(legs=legs, groups=-(-n_inner // legs))
+
+
+def nmc_occupancy(payoff: PathPayoff, fused: bool) -> int:
+    """Resident blocks per SM of the fused or inner kernel for ``payoff``,
+    on the current card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _cuda.load()
+    blocks = ctypes.c_int(0)
+    _cuda.check(lib.mc_nmc_occupancy(payoff.cuda_id, int(fused),
+                                     ctypes.addressof(blocks)),
+                "nmc_occupancy")
+    return blocks.value
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +223,7 @@ def nmc_fused(payoff: PathPayoff, cfg: NMCConfig, key_outer, key_inner,
                                path_offset, n_valid)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
+    geo = nmc_launch(cfg.n_inner, lib.mc_nmc_legs())
     tiles = _cuda.cdiv(cfg.n_paths, lib.mc_nmc_block_threads())
     surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
                           device=params.device)
@@ -202,8 +233,9 @@ def nmc_fused(payoff: PathPayoff, cfg: NMCConfig, key_outer, key_inner,
             payoff.cuda_id, int(cfg.discount == "remaining"),
             int(key_outer[0]), int(key_outer[1]), int(key_inner[0]),
             int(key_inner[1]), params.data_ptr(), cfg.n_steps, cfg.n_inner,
-            cfg.n_paths, path_offset & 0xFFFFFFFF, bound, surface.data_ptr(),
-            outer.data_ptr(), _cuda.stream_handle(params.device))
+            geo.groups, cfg.n_paths, path_offset & 0xFFFFFFFF, bound,
+            surface.data_ptr(), outer.data_ptr(),
+            _cuda.stream_handle(params.device))
     _cuda.check(status, "nmc_fused kernel")
     _cuda.count_launch("nmc_fused")
     return surface, outer
@@ -232,14 +264,16 @@ def nmc_inner(payoff: PathPayoff, cfg: NMCConfig, key_inner,
                                path_offset, n_valid)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
+    geo = nmc_launch(cfg.n_inner, lib.mc_nmc_legs())
     surface = torch.empty((cfg.n_steps, cfg.n_paths), dtype=torch.float32,
                           device=params.device)
     with torch.cuda.device(params.device):
         status = lib.mc_nmc_inner(
             payoff.cuda_id, int(cfg.discount == "remaining"),
             int(key_inner[0]), int(key_inner[1]), params.data_ptr(),
-            cfg.n_steps, cfg.n_inner, cfg.n_paths, path_offset & 0xFFFFFFFF,
-            bound, s_grid.data_ptr(), c_grid.data_ptr(), surface.data_ptr(),
+            cfg.n_steps, cfg.n_inner, geo.groups, cfg.n_paths,
+            path_offset & 0xFFFFFFFF, bound, s_grid.data_ptr(),
+            c_grid.data_ptr(), surface.data_ptr(),
             _cuda.stream_handle(params.device))
     _cuda.check(status, "nmc_inner kernel")
     _cuda.count_launch("nmc_inner")
