@@ -35,7 +35,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    the generic trajectories under SABR and term and their family NMC
    kernels; the Vasicek kernel (18 payoffs, threefry-13 and -20,
    antithetic, 1M x 100), the Vasicek trajectories, the basket kernel (18
-   payoffs at d = 4, the call at d = 1, 8, 9 and 32, antithetic, 1M x 100),
+   payoffs at d = 4; the call and the bullet at d = 1, 5, 8, 9, 16, 17 and
+   32, each capacity's edges, antithetic and not; 1M x 100),
    the basket's (B, state) trajectories at 100,000 x 100, the generic
    trajectories of its d asset grids and both families' NMC kernels; the
    FX kernel (8 contracts, threefry-13 and -20, 1M), the rainbow kernel (6
@@ -44,7 +45,9 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    kernels (terminal and Euler on the lattice and Sobol, the Brownian
    bridge, every payoff at a small point count, the call and the Asian at
    2^20 points x 100) on two shifts, #32 also on 3 and 17 shifts (a ragged
-   last shift group) and, at 2^20 points x 100 x 16, its first and last
+   last shift group), the bridge's Asian on both families at 1, 2, 3 and
+   453 steps and on 3 and 17 shifts and, at 2^20 points x 100 x 16, #32's
+   first and last
    block's rows against the plain sums of their points; the model-QMC
    kernel #33 under all nine families (the call and the Asian on both
    point families, every payoff of Heston and of the basket at d = 4, the
@@ -154,7 +157,10 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    kernel beside terminal_pair, the rainbow kernels beside the basket's,
    the QMC kernels on both families and #33 per family (each beside its
    share of the bound, its registers and spills, its resident blocks per
-   SM, its shifts a thread and its shared bytes), #11 per tile at 2^20
+   SM, its shifts a thread and its shared bytes; the bridge's live slots),
+   the basket's partials kernel at d = 1, 4, 9, 16, 32, antithetic and not
+   (beside its share of the bound, its capacity, paths a thread,
+   registers, spills and resident blocks per SM), #11 per tile at 2^20
    and 2^24 paths with 10 payments and at 2^20 with 60 (the NMC kernels' times are their
    phase-2 calls' and the NMC calls' their phase-3 calls'; #3/#5 beside
    their legs a thread, registers, spills and resident blocks per SM; each family's
@@ -268,6 +274,10 @@ VASICEK_KERNELS = ("vasicek_partials", "vasicek_trajectories", "family_inner",
 BASKET_KERNELS = ("basket_partials", "family_trajectories", "family_inner",
                   "family_fused", "basket_trajectories")
 GRID_PATHS = 100_000                 # #26: the (B, state) grids, 100 steps
+# Phase 2: the basket's d at each capacity's edges (basket_partials.cuh: 4,
+# 8, 16, 32), antithetic and not; phase 5 times #25 at BASKET_TIMED_D.
+BASKET_EDGES = (1, 5, 8, 9, 16, 17, 32)
+BASKET_TIMED_D = (1, 4, 9, 16, 32)
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -610,7 +620,9 @@ def ptxas_resources(log: str) -> dict:
     """{(kernel, payoff struct, rounds or None): {"registers", "stack",
     "spill_stores", "spill_loads", "smem"}} from the ``-Xptxas -v`` log:
     each "Compiling entry function" line names a mangled
-    mc::kernel<Payoff[, ROUNDS]>, its frame and "Used N registers" follow."""
+    mc::kernel<Payoff[, ROUNDS]>, its frame and "Used N registers" follow
+    (the basket's partials kernel<Payoff, capacity, antithetic>: rounds
+    (capacity, 0 or 1))."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2mc(\d+)(\w+)'", line)
@@ -628,8 +640,11 @@ def ptxas_resources(log: str) -> dict:
                 kernel = f"{kernel}<{payoff}{cap}>"
                 at = p.end() + len(payoff) + f.end()
                 payoff = rest[at:at + int(f.group(2))]
-            r = re.search(r"ELi(\d+)E", rest)
-            entry = (kernel, payoff, int(r.group(1)) if r else None)
+            r = re.search(r"ELi(\d+)E(?:Lb(\d)E)?", rest)
+            rounds = int(r.group(1)) if r else None
+            if r and r.group(2) is not None:  # kernel<P, N, bool>
+                rounds = (rounds, int(r.group(2)))
+            entry = (kernel, payoff, rounds)
             out[entry] = {}
             continue
         if entry is None:
@@ -1803,17 +1818,23 @@ def vasicek_path(n_steps: int, rounds: int = 13):
                 VASICEK_DISCOUNT_OPS)
 
 
-def basket_step_ops(d: int):
-    """A basket step on top of its ceil(d/2) pairs (basket.cuh): the signs
-    (d), the mix's d(d+1)/2 multiplies and d(d-1)/2 adds, the increments
-    (3d), the levels and the weighted sum (3d - 1), d expf."""
-    return (0, d + d * (d + 1) // 2 + d * (d - 1) // 2 + 6 * d - 1, d)
+def basket_step_ops(d: int, antithetic: bool = False):
+    """The least work of a basket step on top of its ceil(d/2) pairs (no
+    sign multiplies: no leg needs them): the mix's d(d+1)/2 multiplies and
+    d(d-1)/2 adds, the increments (3d), the levels and the weighted sum
+    (3d - 1), d expf; an antithetic twin on the same draw and mix (the
+    negated normals' mix is the mix negated) its own increments (2d),
+    levels and sum (3d - 1) and d expf."""
+    twin = (0, 5 * d - 1, d) if antithetic else (0, 0, 0)
+    return _add((0, d * (d + 1) // 2 + d * (d - 1) // 2 + 6 * d - 1, d), twin)
 
 
-def basket_path(d: int, n_steps: int):
-    """A basket path of n_steps steps and its payoff."""
+def basket_path(d: int, n_steps: int, antithetic: bool = False):
+    """A basket path of n_steps steps and its payoff (the antithetic twin's
+    and their mean)."""
     return _add(_scale(_add(_scale(pair_ops(13), (d + 1) // 2),
-                            basket_step_ops(d)), n_steps), TERMINAL_OPS)
+                            basket_step_ops(d, antithetic)), n_steps),
+                TERMINAL_OPS, (0, 3, 0) if antithetic else (0, 0, 0))
 
 
 def lv_step_ops(n_knots: int):
@@ -1877,6 +1898,8 @@ class Single(NamedTuple):
     nmc: object           # SingleNMC, or None
     grid: object = None   # GridKernel: a trajectories kernel beside the NMC's
     main_checks: int = 2  # phase 2: the checks also run at the main shape
+    edge_variants: bool = False  # phase 2: the variants on every dynamics
+    partials_src: str = ""  # the partials kernel's source, if not its own
 
 
 class GridKernel(NamedTuple):
@@ -1888,6 +1911,7 @@ class GridKernel(NamedTuple):
     plain: object
     tpu: str
     n_paths: int
+    rounds: object = None  # its registers key's integer
 
 
 def single_families(mt):
@@ -1929,9 +1953,9 @@ def single_families(mt):
         [0.12, 0.08, 0.04, 0.02], [0.1, 0.2, 0.3, 0.4], MAIN_STEPS)),)
     two = (("two payments", two_payments(dm, MAIN_STEPS)),)
     vas = (("", vm.DEMO_VASICEK),)
-    # the demo basket (d = 4, rho = 0.5), then both capacities' edges
-    baskets = tuple((f"d={d}", bm.demo_basket(d, 0.5)) for d in (4, 1, 8, 9,
-                                                               32))
+    # the demo basket (d = 4, rho = 0.5), then every capacity's edges
+    baskets = tuple((f"d={d}", bm.demo_basket(d, 0.5))
+                    for d in (4,) + BASKET_EDGES)
     # the inner leg's start under local vol and term (w = logf(S_t/s0), S =
     # s0*expf(w)) is under 1% of its steps: left out of the substep
     return (
@@ -2002,8 +2026,8 @@ def single_families(mt):
                    n_paths=n, n_steps=MAIN_STEPS, d=b.d, **kw),
                pack=bm.pack_basket, tpu="models/basket.py:268",
                checks=baskets, payoffs=every, variants=anti,
-               timed=baskets[:1] + baskets[4:], ref="heston_partials",
-               rounds=8, path=basket_path(4, MAIN_STEPS),
+               timed=baskets[:1], ref="heston_partials",
+               rounds=(4, 0), path=basket_path(4, MAIN_STEPS),
                nmc=SingleNMC(
                    fam=BasketNMC(extras=(4,)), dyn=lambda n: bm.DEMO_BASKET,
                    traj_tpu=generic, struct="BasketFamily<8>", n_grids=4,
@@ -2014,8 +2038,9 @@ def single_families(mt):
                                fn=bm.basket_trajectories,
                                plain=bm.basket_trajectories_plain,
                                tpu="models/basket.py:393",
-                               n_paths=GRID_PATHS),
-               main_checks=1),  # the d edges at FAMILY_PATHS
+                               n_paths=GRID_PATHS, rounds=8),
+               main_checks=1,  # the d edges at FAMILY_PATHS
+               edge_variants=True, partials_src="basket_partials.cuh"),
     )
 
 
@@ -2080,6 +2105,8 @@ def single_kernel_checks(mt, dev, singles, keys):
                 case(name, FAMILY_PATHS, s.checks[0], **kw)
             for label_dyn in s.checks[1:]:
                 case(name, FAMILY_PATHS, label_dyn)
+                for kw in s.variants if s.edge_variants else ():
+                    case(name, FAMILY_PATHS, label_dyn, **kw)
         for label_dyn in s.checks[:s.main_checks]:  # the main shape: a
             # partly filled block
             case("vanilla_call", FAMILY_MAIN, label_dyn)
@@ -2218,7 +2245,7 @@ def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms,
             print(f"phase 5: {g.row} writes {grid_bytes / 1e6:.1f} MB in "
                   f"{out[g.row][0]:.4f} ms: "
                   f"{grid_bytes / out[g.row][0] / 1e6:.1f} GB/s; registers "
-                  f"{regs.get((f'{g.row}_kernel', 'VanillaCall', s.rounds))}"
+                  f"{regs.get((f'{g.row}_kernel', 'VanillaCall', g.rounds))}"
                   f" {tag}")
         known.update({k: v[0] for k, v in out.items()})
         e2e_report(e2e, tag)
@@ -2271,6 +2298,9 @@ QMC_RAGGED_GBM = (("asian_call", "euler", "sobol", 3),
                   ("vanilla_call", "terminal", "sobol", 17),
                   ("vanilla_call", "terminal", "lattice", 3))
 QMC_SMALL = 4099            # phase 2: every payoff (4096 points for Sobol)
+# phase 2: the bridge's step counts beside MAIN_STEPS: its fewest nodes, an
+# odd count's clamped half, and 64-thread blocks (453 steps)
+BRIDGE_STEPS = (1, 2, 3, 453)
 # The terminal QMC call's allowance beside its 3 stderr: the f32 inverse
 # CDF's bias (|dz| up to ~2e-6, delta * S0 * sigma * 2e-6 < 3e-5) and its
 # clamp at 1 - 1e-6; at 1,048,573 x 16 the stderr is ~1e-5.
@@ -2531,6 +2561,13 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
         defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, "euler", "sobol", True))
     defer(check_qmc("asian_call", QMC_SMALL, MAIN_STEPS - 1, "euler",
                     "lattice", True))  # an odd step count: the clamped half
+    for family in ("lattice", "sobol"):  # the streamed bridge's edges
+        for n_steps in BRIDGE_STEPS:
+            defer(check_qmc("asian_call", QMC_SMALL, n_steps, "euler",
+                            family, True))
+        for r in QMC_RAGGED:
+            defer(check_qmc("asian_call", QMC_SMALL, MAIN_STEPS, "euler",
+                            family, True, r))
     for name, method, family, r in QMC_RAGGED_GBM:  # a ragged last group
         defer(check_qmc(name, QMC_SMALL, MAIN_STEPS, method, family, False, r))
     lattice_ready()  # the full-width lattice reads the CBC vector
@@ -2761,6 +2798,47 @@ def entry_resources(log: str, kernel: str) -> dict:
     return out
 
 
+def basket_partials_report(mt, dev, key, ptxas: str, tag) -> None:
+    """Phase 5: #25 at FAMILY_MAIN x 100 for each of BASKET_TIMED_D (the
+    demo basket at that d), antithetic and not (CUDA events): its share of
+    the least work's bound, its capacity and paths a thread (the
+    library's), ptxas's registers, spills and stack, resident blocks/SM."""
+    import ctypes
+
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    lib, call = _cuda.load(), get_payoff("vanilla_call")
+    res = entry_resources(ptxas, "basket_partials_kernel")
+    for d in BASKET_TIMED_D:
+        prm = bm.pack_basket(mt.DEMO_OPTION, bm.demo_basket(d, 0.5),
+                             MAIN_STEPS, dev)
+        cap = lib.mc_basket_capacity(d)
+        for anti in (False, True):
+            cfg = bm.BasketConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
+                                  d=d, antithetic=anti)
+            k_ms, sp, _ = cuda_ms(lambda cfg=cfg, prm=prm: bm.basket_partials(
+                call, cfg, key, prm))
+            b_ms, b_by = bound(4 * prm.numel(), _scale(
+                basket_path(d, MAIN_STEPS, anti), FAMILY_MAIN))
+            r = next((v for e, v in res.items() if f"11VanillaCallELi{cap}E"
+                      f"Lb{int(anti)}E" in e), {})
+            blocks = ctypes.c_int(0)
+            _cuda.check(lib.mc_basket_occupancy(call.cuda_id, d, int(anti),
+                                                ctypes.byref(blocks)),
+                        "basket occupancy")
+            print(f"phase 5: basket_partials call d={d} anti={anti} "
+                  f"{FAMILY_MAIN}x{MAIN_STEPS}: kernel {k_ms:.4f} ms (spread "
+                  f"{sp:.1%}), {b_ms / k_ms:.1%} of its bound ({b_ms:.4f} ms, "
+                  f"{b_by}); capacity {cap}, "
+                  f"{lib.mc_basket_paths_per_thread(d)} paths a "
+                  f"thread, registers {r.get('registers')}, spill "
+                  f"stores/loads {r.get('spill_stores')}/"
+                  f"{r.get('spill_loads')} B, stack {r.get('stack')} B, "
+                  f"{blocks.value} blocks/SM {tag}")
+
+
 def entry_registers(log: str, kernel: str) -> dict:
     """{mangled entry: registers} of the ptxas log's entries of ``kernel``
     (entry_resources)."""
@@ -2772,8 +2850,8 @@ def qmc_launch_report(res: dict, geo, family_id: int, payoff, extra: int,
                       table_bytes: int = 0):
     """Phase 5's resources of a QMC kernel: ptxas's registers, spills and
     static shared bytes (``res``), its dynamic shared bytes (Merton's and
-    Bates's Poisson table), its resident blocks per SM, its shifts a thread
-    (``geo``: qmc.kernel_launch)."""
+    Bates's Poisson table, the bridge's slab), its resident blocks per SM,
+    its shifts a thread (``geo``: qmc.kernel_launch, qmc.bridge_launch)."""
     from mc_tpu_torch import qmc
 
     blocks = qmc.qmc_occupancy(family_id, payoff, extra)
@@ -2884,8 +2962,14 @@ def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
         struct = type(po).__name__
         res = next((r for e, r in entry_resources(ptxas, kern).items()
                     if f"{len(struct)}{struct}E" in e), {})
-        launch = ("registers " + str(res.get("registers")) if bridge else
-                  qmc_launch_report(res, qmc.kernel_launch(ps), -1, po, 0))
+        if bridge:
+            slots = qmc.bridge_stream(MAIN_STEPS).n_slots
+            geo = qmc.bridge_launch(ps, MAIN_STEPS)
+            launch = (qmc_launch_report(res, geo, -2, po, slots,
+                                        slots * geo.k_shifts * geo.threads * 4)
+                      + f", {slots} live slots")
+        else:
+            launch = qmc_launch_report(res, qmc.kernel_launch(ps), -1, po, 0)
         print(f"phase 5: {row} {label}: {steps / k_ms * 1e3:.4e} "
               f"path-steps/s, {b_ms / k_ms:.1%} of its bound ({b_ms:.3f} ms);"
               f" {launch} {tag}")
@@ -4868,6 +4952,8 @@ def main() -> int:
         "family_fused_merton": jump_ms["family_fused_merton"][0],
         "family_inner_merton": jump_ms["family_inner_merton"][0]},
         single_rows_ms, e2e_nmc)
+    basket_partials_report(mt, dev, keys["basket"][0],
+                           _cuda.build_info.get("ptxas", ""), tag)
     frq_ms = fx_rainbow_qmc_times(
         mt, dev, keys, regs, _cuda.build_info.get("ptxas", ""), tag,
         time_pair, {"terminal_pair": tp_ms[0], **{
@@ -5048,7 +5134,7 @@ def main() -> int:
         for name, tpu in (("family_inner", "nmc_engine.py:314"),
                           ("family_fused", "nmc_engine.py:407")))
     for sf in singles:  # partials, trajectories, inner, fused, grid
-        srcs = (f"{sf.family}_kernels.cu",) + (
+        srcs = (sf.partials_src or f"{sf.family}_kernels.cu",) + (
             f"{sf.family}_nmc_kernels.cu",) * 3
         tpus = (sf.tpu,) + ((sf.nmc.traj_tpu, "nmc_engine.py:314",
                              "nmc_engine.py:407") if sf.nmc else ())
@@ -5059,7 +5145,8 @@ def main() -> int:
             f"{list(EARLIER_NMC_ROWS)})",
         ) * 2
         if sf.grid is not None:  # after the NMC's three rows
-            srcs, tpus = srcs + (srcs[0],), tpus + (sf.grid.tpu,)
+            srcs = srcs + (f"{sf.family}_kernels.cu",)
+            tpus = tpus + (sf.grid.tpu,)
             shapes = shapes + (spaced("call", sf.timed[0][0],
                                       f"{sf.grid.n_paths}x{MAIN_STEPS}"),)
         rows += tuple((row, src, tpu, single_err[row], single_ms[row], shape)

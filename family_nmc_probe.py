@@ -1,11 +1,13 @@
 """Probe the family nested-MC kernels (#29 family_inner_kernel, #30
 family_fused_kernel), or with ``--qmc`` the QMC kernels (#33
 qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
-the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), on one
-CUDA card: what they cost in registers, spills, shared memory and resident
-blocks, their SASS loops, and their times.
+the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), or
+with ``--basket`` the basket's partials and trajectories kernels (#25
+basket_partials_kernel, #26 basket_trajectories_kernel), on one CUDA card:
+what they cost in registers, spills, shared memory and resident blocks,
+their SASS loops, and their times.
 
-    python3 family_nmc_probe.py [--qmc | --gbm]
+    python3 family_nmc_probe.py [--qmc | --gbm | --basket]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
@@ -39,7 +41,10 @@ after a warm-up at 4,096 points) in turns over the variants, twice, and
 checks every variant's partials bit for bit against the first variant's.
 A variant whose library does not export its shifts a thread
 (``mc_qmc_shifts``) is called through the entry points as they were
-before the shift groups were passed in.
+before the shift groups were passed in, and one without
+``mc_qmc_bridge_shifts`` through the W-buffer bridge's (one shift a block
+row, the breadth-first schedule); where the bridge is streamed its shifts
+a thread and its live slots at 100 steps are printed too.
 
 ``--gbm`` builds ``nmc_kernels.cu`` (through a unit that adds the resident
 blocks per SM of its kernels) and prints the ptxas resources, the legs a
@@ -63,6 +68,19 @@ every input they can meet (``mc_nmc_libm_check``, as chip_smoke.py's phase
 ``cosf`` and ``sinf`` bit for bit on each theta the Box-Muller draw can
 give, and that ``expf`` keeps the order of every finite float (the barrier
 legs' threshold rests on it).
+
+``--basket`` builds ``basket_kernels.cu`` and each capacity's
+``basket<N>_kernels.cu`` (a source without ``mc_basket_occupancy``, an
+older commit's, through a unit that adds it) and prints the ptxas
+resources of every VanillaCall instantiation of both kernels, each d's
+capacity, paths a thread (where exported) and resident blocks per SM;
+``--sass`` their loops, with the instructions issued under a predicate and
+the forward branches; ``--time`` runs price_basket's kernel at 1M x 100
+for d = 1, 4, 8, 9, 16, 32, with and without antithetic, and #26 at
+100,000 x 100, d = 4, in turns over the variants, twice, each bitwise
+against the first.  ``-DMC_BASKET_PATHS=N`` sets the paths a thread of
+every capacity up to 16.  ``--sass`` writes each listed kernel's SASS
+beside ``--out``.
 
 Everything printed also goes, as JSON, to ``--out`` (default
 ``build/family_probe.json``).  Needs a card; exits 2 without one.
@@ -188,6 +206,8 @@ def probe_sources(src: Path, mode: str, out: Path):
         shim = out / "nmc_probe.cu"
         shim.write_text(GBM_SHIM.format(src=src))
         return [shim]
+    if mode == "basket":
+        return basket_sources(src, out)
     return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
             *src.glob("*_nmc32_kernels.cu")]
 
@@ -288,19 +308,22 @@ _CLASSES = (("MUFU", r"^MUFU"), ("load", r"^(LDG|LDS|LD|LDC|ULDC|LDL)\b"),
 
 
 def _sass_ins(text: str):
-    """[(address, opcode, operands)] of a SASS listing."""
+    """[(address, opcode, operands, guard)] of a SASS listing (guard: the
+    predicate, e.g. "@!P0", or "")."""
     ins = []
     for line in text.splitlines():
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
                      r"(.*?);", line)
         if m:
-            ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
+            ins.append((int(m.group(1), 16), m.group(3), m.group(4),
+                        (m.group(2) or "").strip()))
     return ins
 
 
 def sass_classes(ins) -> dict:
     """The instructions of ``ins`` by class, and their count."""
-    by = {c: sum(1 for _, o, _ in ins if re.match(p, o)) for c, p in _CLASSES}
+    by = {c: sum(1 for _, o, _, _ in ins if re.match(p, o))
+          for c, p in _CLASSES}
     return dict(n=len(ins), **by)
 
 
@@ -328,24 +351,41 @@ def sass_functions(lib: Path, want) -> dict:
 
 def sass_loops(lib: Path, entry: str, ins=None):
     """The SASS of ``entry`` (or the instructions ``ins``) and its loops:
-    [{start, end, n, by class}] for each backward branch, innermost first."""
+    [{start, end, n, by class, predicated, branches}] for each backward
+    branch, innermost first: ``predicated`` counts the instructions issued
+    under a guard other than the always-true PT, ``branches`` the forward
+    branches (a guard that skips code rather than predicating it)."""
     if ins is None:
         ins = _sass_ins(subprocess.run(
             ["cuobjdump", "-sass", "-fun", entry, str(lib)],
             capture_output=True, text=True).stdout)
     loops = []
-    for i, (addr, op, rest) in enumerate(ins):
+    for i, (addr, op, rest, _) in enumerate(ins):
         if op.startswith("BRA"):
             t = re.search(r"0x([0-9a-f]+)", rest)
             if t and int(t.group(1), 16) <= addr:
                 start = int(t.group(1), 16)
-                body = [o for a, o, _ in ins if start <= a <= addr]
-                by = {c: sum(1 for o in body if re.match(p, o))
+                body = [x for x in ins if start <= x[0] <= addr]
+                by = {c: sum(1 for _, o, _, _ in body if re.match(p, o))
                       for c, p in _CLASSES}
+                fwd = 0
+                for a, o, r, _ in body:
+                    t2 = re.search(r"0x([0-9a-f]+)", r)
+                    fwd += bool(o.startswith("BRA") and t2
+                                and int(t2.group(1), 16) > a)
                 loops.append(dict(start=hex(start), end=hex(addr),
-                                  n=len(body), **by))
+                                  n=len(body), **by,
+                                  predicated=sum(1 for _, _, _, g in body
+                                                 if g and g != "@PT"),
+                                  branches=fwd))
     loops.sort(key=lambda lp: lp["n"])
     return len(ins), loops
+
+
+def write_listing(out: str, label: str, name: str, ins) -> None:
+    """A kernel's SASS (address, guard, instruction) beside ``out``."""
+    Path(out).with_suffix(f".{label}.{name[-60:]}.sass").write_text("".join(
+        f"{a:05x} {g} {o}{rest}\n" for a, o, rest, g in ins))
 
 
 # --- runs --------------------------------------------------------------------
@@ -504,6 +544,10 @@ def bind_qmc(lib_path: Path, new_abi: bool):
         lib.mc_qmc_model_sums.argtypes = [_int] * 5 + [_ptr, _ptr, _int, _ptr,
                                                        _int, _int, _ptr, _int,
                                                        _ptr]
+    if not hasattr(lib, "mc_qmc_bridge_shifts"):  # the W-buffer bridge's
+        lib.mc_qmc_bridge_sums.argtypes = [_int, _int, _int, _int, _ptr, _ptr,
+                                           _int, _ptr, _int, _ptr, _ptr, _ptr,
+                                           _int, _ptr]
     return lib
 
 
@@ -523,6 +567,8 @@ def qmc_shifts_of(lib, case) -> int:
         return lib.mc_qmc_model_shifts(fid, extra)
     if kind == "gbm" and hasattr(lib, "mc_qmc_shifts"):
         return lib.mc_qmc_shifts()
+    if kind == "bridge" and hasattr(lib, "mc_qmc_bridge_shifts"):
+        return lib.mc_qmc_bridge_shifts()
     return 1
 
 
@@ -544,7 +590,8 @@ def run_qmc(lib, new_abi: bool, case):
     n_bx = min(_cuda.cdiv(ps.n, threads), _cuda.MAX_BLOCKS)
     partials = torch.empty((n_bx, r), dtype=torch.float64, device=prm.device)
     geo = ()
-    if kind != "bridge" and new_abi:
+    streamed = kind == "bridge" and hasattr(lib, "mc_qmc_bridge_shifts")
+    if (kind != "bridge" and new_abi) or streamed:
         geo = (qmc_geometry(lib, case).groups,)
     pts = (fam, ps.n, ps.d, ps.table.data_ptr(), ps.shifts.data_ptr(), r)
     t = _events()
@@ -556,7 +603,16 @@ def run_qmc(lib, new_abi: bool, case):
         status = lib.mc_qmc_sums(po.cuda_id, fam, 1, *pts[1:], prm.data_ptr(),
                                  n_steps, partials.data_ptr(), n_bx, *geo,
                                  stream)
-    else:
+    elif streamed:  # the bridge's entries depth first (bridge_stream)
+        st = qmc.bridge_stream(n_steps)
+        ent, pairs = (torch.from_numpy(x).to(prm.device)
+                      for x in st.tables())
+        t = _events()
+        status = lib.mc_qmc_bridge_sums(po.cuda_id, fam, *pts[1:],
+                                        prm.data_ptr(), n_steps, ent.data_ptr(),
+                                        pairs.data_ptr(), st.n_slots,
+                                        partials.data_ptr(), n_bx, *geo, stream)
+    else:  # the breadth-first schedule and a W buffer (an older csrc)
         from mc_tpu_torch.qmc import bridge_schedule
         bidx, bcoef = bridge_schedule(n_steps)
         bi = torch.from_numpy(bidx.reshape(-1)).to(prm.device)
@@ -612,10 +668,17 @@ def qmc_main(args, variants, card) -> dict:
         for name, kernel, struct, payoff in kernels:
             e = entries[name]
             r = dict(res.get(e, {}))
-            if hasattr(lib, "mc_qmc_occupancy") and name != "bridge":
+            streamed = hasattr(lib, "mc_qmc_bridge_shifts")
+            if hasattr(lib, "mc_qmc_occupancy") and (name != "bridge"
+                                                     or streamed):
                 case = warm[main_of.get(name, name)]  # its payoff and extra
+                fid, extra = case[6], case[5]
+                if name == "bridge":  # 128 threads, the stream's slots
+                    from mc_tpu_torch.qmc import bridge_stream
+                    fid, extra = -2, bridge_stream(QMC_MAIN[1]).n_slots
+                    r["live_slots"] = extra
                 blocks = ctypes.c_int(0)
-                st = lib.mc_qmc_occupancy(case[6], case[2].cuda_id, case[5],
+                st = lib.mc_qmc_occupancy(fid, case[2].cuda_id, extra,
                                           ctypes.addressof(blocks))
                 r.update(blocks_per_sm=blocks.value if st == 0 else None,
                          shifts=qmc_shifts_of(lib, case))
@@ -623,6 +686,7 @@ def qmc_main(args, variants, card) -> dict:
                 n_ins, loops = sass_loops(lib_path, e, funcs[e])
                 r["sass"] = dict(instructions=n_ins, loops=loops,
                                  total=sass_classes(funcs[e]))
+                write_listing(args.out, label, name, funcs[e])
             rows[name] = r
             print(f"probe {label}: {name} {kernel}<{struct or payoff}>: "
                   f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
@@ -839,10 +903,7 @@ def gbm_main(args, variants, card) -> dict:
                     print(f"  total {r['sass']['total']}")
                     for lp in r["sass"]["loops"]:
                         print(f"  loop {lp}")
-                    listing = Path(args.out).with_suffix(
-                        f".{label}.{kernel}.{name}.sass")
-                    listing.write_text("".join(
-                        f"{a:05x} {o}{rest}\n" for a, o, rest in funcs[e]))
+                    write_listing(args.out, label, f"{kernel}.{name}", funcs[e])
         report["variants"][label] = dict(src=str(src), defines=defines,
                                          kernels=rows, ptxas=logs)
     checker = next((lib for lib, _ in bound.values()
@@ -890,11 +951,221 @@ def gbm_main(args, variants, card) -> dict:
     return report
 
 
+# --- the basket kernels (--basket) -------------------------------------------
+
+BASKET_MAIN = (1_000_000, 100)  # paths, steps: price_basket's kernel (phase 5)
+BASKET_WARM = 4096
+BASKET_D = (1, 4, 8, 9, 16, 32)
+BASKET_GRID = (100_000, 100, 4)  # #26: chip_smoke.py's GRID_PATHS, d = 4
+# The basket's partials kernel of a csrc that predates mc_basket_occupancy
+# (the parent's capacities 8 and 32, one path a thread): this unit adds it,
+# for VanillaCall.
+BASKET_SHIM = """#include "{src}/basket_kernels.cu"
+
+extern "C" int mc_basket_occupancy(int payoff_id, int d, int antithetic, int* blocks) {{
+  (void)antithetic;
+  if (payoff_id != mc::PAYOFF_VANILLA_CALL) return cudaErrorInvalidValue;
+  const int threads = mc_basket_block_threads();
+  return d <= 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks, mc::basket_partials_kernel<mc::VanillaCall, 8>, threads, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks, mc::basket_partials_kernel<mc::VanillaCall, 32>, threads, 0);
+}}
+"""
+
+
+def basket_sources(src: Path, out: Path):
+    """The basket sources of ``src`` (basket_kernels.cu and a capacity's
+    own basket<N>_kernels.cu, not the NMC's), through BASKET_SHIM where the
+    source has no occupancy entry point."""
+    main = src / "basket_kernels.cu"
+    if "mc_basket_occupancy" in main.read_text():
+        return [main, *(q for q in src.glob("basket*_kernels.cu")
+                        if q != main and "nmc" not in q.name)]
+    shim = out / "basket_probe.cu"
+    shim.write_text(BASKET_SHIM.format(src=src))
+    return [shim]
+
+
+def bind_basket(lib_path: Path):
+    """The basket entry points of a variant's library, and its paths a
+    block (``mc_basket_block_paths``; the parent's: its threads, one path
+    each)."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("mc_basket_partials", "mc_basket_trajectories",
+                 "mc_basket_block_threads"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = \
+            _cuda._SIGNATURES[name]
+    lib.mc_basket_occupancy.argtypes = [_int, _int, _int,
+                                        ctypes.POINTER(ctypes.c_int)]
+    lib.mc_basket_occupancy.restype = _int
+    tile = (lib.mc_basket_block_paths() if hasattr(lib, "mc_basket_block_paths")
+            else lib.mc_basket_block_threads())
+    return lib, tile
+
+
+def basket_layout(lib, d: int, anti: bool) -> dict:
+    """The variant's capacity and paths a thread at d (where it exports
+    them) and its partials kernel's resident blocks per SM (VanillaCall)."""
+    blocks = ctypes.c_int(0)
+    st = lib.mc_basket_occupancy(_payoff_id("vanilla_call"), d, int(anti),
+                                 ctypes.byref(blocks))
+    out = dict(blocks_per_sm=blocks.value if st == 0 else None)
+    if hasattr(lib, "mc_basket_capacity"):
+        out.update(capacity=lib.mc_basket_capacity(d),
+                   paths_a_thread=lib.mc_basket_paths_per_thread(d))
+    return out
+
+
+def _payoff_id(name: str) -> int:
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    return get_payoff(name).cuda_id
+
+
+def basket_inputs(n_paths: int, d: int, dev):
+    """(params, key) of price_basket's call at d (demo_basket(d, 0.5))."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import basket as bm
+
+    prm = bm.pack_basket(OptionParams(), bm.demo_basket(d, 0.5),
+                         BASKET_MAIN[1], dev)
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
+                                                bm.BASKET_TAG))
+    return prm, key
+
+
+def run_basket(lib, tile, d, anti, n_paths, inputs):
+    """(partials, ms) of one basket_partials call through ``lib``."""
+    prm, (k0, k1) = inputs
+    n_blocks = min(-(-n_paths // tile), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    t = _events()
+    _check(lib.mc_basket_partials(
+        _payoff_id("vanilla_call"), int(anti), k0, k1, prm.data_ptr(), d,
+        BASKET_MAIN[1], n_paths, 0, n_paths, part.data_ptr(), n_blocks,
+        torch.cuda.current_stream().cuda_stream), "basket_partials")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1])
+
+
+def run_basket_grid(lib, inputs):
+    """(grids, partials, ms) of one basket_trajectories call (#26)."""
+    n_paths, n_steps, d = BASKET_GRID
+    prm, (k0, k1) = inputs
+    threads = lib.mc_basket_block_threads()
+    n_blocks = min(-(-n_paths // threads), 8192)
+    grids = torch.empty((2, n_steps, n_paths), dtype=torch.float32,
+                        device=prm.device)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    t = _events()
+    _check(lib.mc_basket_trajectories(
+        _payoff_id("vanilla_call"), k0, k1, prm.data_ptr(), d, n_steps,
+        n_paths, 0, n_paths, grids[0].data_ptr(), grids[1].data_ptr(),
+        part.data_ptr(), n_blocks, torch.cuda.current_stream().cuda_stream),
+        "basket_trajectories")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return grids, part, t[0].elapsed_time(t[1])
+
+
+def basket_main(args, variants, card) -> dict:
+    """The --basket probe: resources, SASS and times of the basket's
+    partials kernel (#25) and trajectories kernel (#26)."""
+    libs = build(variants, "basket")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"(22basket_partials_kernel|26basket_trajectories_kernel)"
+                      r"INS_11VanillaCallE")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, tile = bind_basket(lib_path)
+        bound[label] = (lib, tile)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = sorted(e for e in res if want.search(e))
+        funcs = (sass_functions(lib_path, lambda f: f in entries)
+                 if args.sass else {})
+        rows = {}
+        for e in entries:
+            r = dict(res[e])
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+                write_listing(args.out, label, e, funcs[e])
+            rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        layout = {}
+        for d in BASKET_D:
+            for anti in (False, True):
+                layout[f"d={d} anti={anti}"] = basket_layout(lib, d, anti)
+        print(f"probe {label}: basket_partials layout (VanillaCall) {layout} "
+              f"{card}", flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout,
+                                         ptxas=logs)
+    if args.time:
+        times = {}
+        order = list(bound) + list(bound)[::-1]
+        for d in BASKET_D:
+            main_in = basket_inputs(BASKET_MAIN[0], d, dev)
+            for anti in (False, True):
+                case = f"basket_partials call d={d} anti={anti}"
+                ref = None
+                for label in order:
+                    lib, tile = bound[label]
+                    run_basket(lib, tile, d, anti, BASKET_WARM, main_in)
+                    part, ms = run_basket(lib, tile, d, anti, BASKET_MAIN[0],
+                                          main_in)
+                    ref = part if ref is None else ref
+                    same = bool(torch.equal(part, ref))
+                    times.setdefault(case, {}).setdefault(label, []).append(
+                        dict(ms=ms, bitwise=same))
+                    print(f"probe time {case} {BASKET_MAIN[0]}x"
+                          f"{BASKET_MAIN[1]} {label}: {ms:.3f} ms, partials "
+                          f"bitwise vs {order[0]}: {same} {card}", flush=True)
+                    if not same:
+                        print(f"FAIL: {case} {label} disagrees", flush=True)
+        grid_in = basket_inputs(BASKET_GRID[0], BASKET_GRID[2], dev)
+        ref = None
+        case = (f"basket_trajectories call d={BASKET_GRID[2]} "
+                f"{BASKET_GRID[0]}x{BASKET_GRID[1]}")
+        for label in order:
+            lib, _ = bound[label]
+            run_basket_grid(lib, grid_in)
+            grids, part, ms = run_basket_grid(lib, grid_in)
+            ref = (grids, part) if ref is None else ref
+            same = bool(torch.equal(grids, ref[0])
+                        and torch.equal(part, ref[1]))
+            times.setdefault(case, {}).setdefault(label, []).append(
+                dict(ms=ms, bitwise=same))
+            print(f"probe time {case} {label}: {ms:.3f} ms, grids and "
+                  f"partials bitwise vs {order[0]}: {same} {card}", flush=True)
+            if not same:
+                print(f"FAIL: {case} {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--qmc", action="store_true")
     mode.add_argument("--gbm", action="store_true")
+    mode.add_argument("--basket", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
@@ -921,6 +1192,8 @@ def main() -> int:
         return write_report(args.out, qmc_main(args, variants, card))
     if args.gbm:
         return write_report(args.out, gbm_main(args, variants, card))
+    if args.basket:
+        return write_report(args.out, basket_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")

@@ -17,15 +17,16 @@
 // barriers price as their discrete twins); q and the GBM drift/vol
 // coefficients are NaN.
 //
-// d is a runtime value up to a capacity kMaxD, a template parameter with two
-// values, 8 and 32, so every d in [1, 32] runs without a rebuild and the
-// build stays two instantiations per kernel and payoff (not 32).  At
-// capacity 8 the loops over assets and normals unroll fully, guarded by
-// i < d, and the log-moneyness ws[8] and the normals z[8] live in
-// registers (the loops run to the capacity, each body guarded by i < d, no
-// early exit); at capacity 32 they stay loops to d (the 528-term Cholesky
-// mix unrolled would cost minutes of ptxas per instantiation) and the two
-// arrays live in local memory.  The Cholesky factor, s0s, weights and drifts are
+// d is a runtime value up to a capacity kMaxD, a template parameter (8 and
+// 32 here; the partials kernel of basket_partials.cuh also 4 and 16), so
+// every d in [1, 32] runs without a rebuild and the build stays a few
+// instantiations per kernel and payoff (not 32).  At a capacity up to 16
+// the loops over assets and normals unroll fully, guarded by i < d, and the
+// log-moneyness ws[kMaxD] and the normals z[kMaxD] live in registers (the
+// loops run to the capacity, each body guarded by i < d, no early exit); at
+// capacity 32 they stay loops to d (the 528-term Cholesky mix unrolled
+// would cost minutes of ptxas per instantiation) and the two arrays live in
+// local memory.  The Cholesky factor, s0s, weights and drifts are
 // uniform loads from the packed vector (every thread of a warp reads the
 // same word: one L1 broadcast, __ldg); the family NMC sweep
 // (basket_mix_legs, basket_levels) reads each once for its kLegs legs,
@@ -46,7 +47,7 @@ constexpr int kBasketHead = 10;
 // The unroll factor of the loops over assets at capacity kMaxD.
 template <int kMaxD>
 struct BasketUnroll {
-  static constexpr int value = kMaxD <= 8 ? kMaxD : 1;
+  static constexpr int value = kMaxD <= 16 ? kMaxD : 1;
 };
 
 // A loop bound over assets (or normals): the capacity where the loop
@@ -54,7 +55,7 @@ struct BasketUnroll {
 // (the body guarded by i < n, no early exit); n itself where it does not.
 template <int kMaxD>
 __device__ __forceinline__ int basket_bound(int n) {
-  return kMaxD <= 8 ? kMaxD : n;
+  return kMaxD <= 16 ? kMaxD : n;
 }
 
 template <int kMaxD>

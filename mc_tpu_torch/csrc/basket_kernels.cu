@@ -1,66 +1,48 @@
 // Basket kernels of the port, for sm_90a.
 //
-// basket_partials_kernel replaces mc_tpu/models/basket.py _basket_partials
-// (the Pallas call at :277): one path per thread over a grid-stride loop;
-// the step loop drawing step j's d normals from the pairs (id, j*ceil(d/2) +
-// q), the Cholesky mix and the log increments, the payoff updated on the
-// basket level (basket_leg, basket.cuh); threefry-13; the antithetic leg
-// (every normal negated) run after the first in the same thread, averaged
-// as 0.5*(a+b); paths at or past `bound` add zeros; each block writes one
-// row of f64 [sum pay, sum pay^2] (reduce.cuh), no float atomics.  Every
-// payoff of the registry (the bridge barriers read sigma = 0, as in
-// mc_tpu's Pallas kernel).
+// basket_partials_kernel (#25) replaces mc_tpu/models/basket.py
+// _basket_partials (the Pallas call at :277): its legs, kernel and
+// launchers are in basket_partials.cuh, capacity 4 here and 8, 16 and 32
+// in basket<N>_kernels.cu; mc_basket_partials below picks the capacity of
+// d, the one place that does.  A block sums 256 paths, several a thread in
+// lockstep, one f64 row [sum pay, sum pay^2] a block (reduce.cuh), no float
+// atomics; threefry-13; every payoff of the registry (the bridge barriers
+// read sigma = 0, as in mc_tpu's Pallas kernel).
 //
 // basket_trajectories_kernel replaces basket_trajectories_kernel
-// (mc_tpu/models/basket.py:393, the Pallas call at :409): the same leg,
-// storing the basket level and payoff state word 0 after every step,
-// step-major (entry j*n_paths + i), and the payoff's moment rows; the twelve
-// one-word payoffs.  These are the (B, state) grids mc_tpu's basket LSMC
-// regresses on; the NMC's per-asset grids come from the family engine
-// (basket_nmc_kernels.cu).
-//
-// Both take any d in [1, 32] at run time through two capacities, kMaxD = 8
-// (d <= 8: registers) and 32 (d > 8: local memory; basket.cuh).
+// (mc_tpu/models/basket.py:393, the Pallas call at :409): one path a thread
+// over a grid-stride loop, the step loop drawing step j's d normals from the
+// pairs (id, j*ceil(d/2) + q), the Cholesky mix and the log increments, the
+// payoff updated on the basket level (basket_leg, basket.cuh), storing the
+// basket level and payoff state word 0 after every step, step-major (entry
+// j*n_paths + i), and the payoff's moment rows; the twelve one-word
+// payoffs.  These are the (B, state) grids mc_tpu's basket LSMC regresses
+// on; the NMC's per-asset grids come from the family engine
+// (basket_nmc_kernels.cu).  It takes any d in [1, 32] through two
+// capacities, kMaxD = 8 (d <= 8: registers) and 32 (d > 8: local memory;
+// basket.cuh).
 //
 // What bounds them on the H100: operations.  A step spends ceil(d/2)
-// threefry pairs, the mix's d(d+1)/2 multiply-adds (one uniform load each
-// from L1), d expf and ~3d f32 operations more; the parameters are 4(10 +
-// 3d + d(d+1)/2) bytes, each block writes 16.  The trajectories kernel
-// writes 8 bytes a path-step besides.
+// threefry pairs, the mix's d(d+1)/2 multiplies and d(d-1)/2 adds, d expf
+// and ~6d f32 operations more (an antithetic path's second leg ~5d and d
+// expf on the same draw and mix); the parameters are 4(10 + 3d + d(d+1)/2)
+// bytes, each block writes 16.  The trajectories kernel writes 8 bytes a
+// path-step besides.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "basket.cuh"
+#include "basket_partials.cuh"
 #include "payoffs.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
 namespace mc {
 
+// The trajectories kernel's block.
 constexpr int kBasketThreads = 256;
-
-template <class Payoff, int kMaxD>
-__global__ void __launch_bounds__(kBasketThreads)
-basket_partials_kernel(int antithetic, uint32_t k0, uint32_t k1,
-                       const float* __restrict__ params, int d, int n_steps, uint32_t n_paths,
-                       uint32_t path_offset, uint32_t bound, double* __restrict__ partials) {
-  const BasketParams<kMaxD> c = load_basket<kMaxD>(params, d);
-  const auto none = [](int, float, const typename Payoff::State&) {};
-  double acc[2] = {0.0, 0.0};
-  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
-  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_paths; i += stride) {
-    const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    float p = basket_leg<Payoff>(c, 1.0f, k0, k1, id, n_steps, none);
-    if (antithetic) p = 0.5f * (p + basket_leg<Payoff>(c, -1.0f, k0, k1, id, n_steps, none));
-    const float pv[1] = {p};
-    add_moments(acc, pv, id < bound);
-  }
-  block_store_moments<2, kBasketThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
-                                         2);
-}
 
 template <class Payoff, int kMaxD>
 __global__ void __launch_bounds__(kBasketThreads)
@@ -88,16 +70,6 @@ basket_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ p
 }
 
 template <class Payoff, int kMaxD>
-cudaError_t launch_basket_partials(int antithetic, uint32_t k0, uint32_t k1, const float* params,
-                                   int d, int n_steps, uint32_t n_paths, uint32_t path_offset,
-                                   uint32_t bound, double* partials, int n_blocks,
-                                   cudaStream_t stream) {
-  basket_partials_kernel<Payoff, kMaxD><<<n_blocks, kBasketThreads, 0, stream>>>(
-      antithetic, k0, k1, params, d, n_steps, n_paths, path_offset, bound, partials);
-  return cudaGetLastError();
-}
-
-template <class Payoff, int kMaxD>
 cudaError_t launch_basket_trajectories(uint32_t k0, uint32_t k1, const float* params, int d,
                                        int n_steps, uint32_t n_paths, uint32_t path_offset,
                                        uint32_t bound, float* b_grid, float* state_grid,
@@ -107,33 +79,53 @@ cudaError_t launch_basket_trajectories(uint32_t k0, uint32_t k1, const float* pa
   return cudaGetLastError();
 }
 
+MC_DEFINE_BASKET_PARTIALS(4)
+
 }  // namespace mc
 
 extern "C" {
 
+// The trajectories kernel's threads a block (one path each).
 int mc_basket_block_threads() { return mc::kBasketThreads; }
 
+// The partials kernel's paths a block (its grid: ceil(n_paths / it),
+// capped), the capacity that runs d and the paths a thread there.
+int mc_basket_block_paths() { return mc::kBasketTile; }
+int mc_basket_capacity(int d) { return d >= 1 && d <= 32 ? mc::basket_capacity(d) : 0; }
+int mc_basket_paths_per_thread(int d) {
+  return d >= 1 && d <= 32 ? mc::basket_paths_per_thread(mc::basket_capacity(d)) : 0;
+}
+
+// Resident blocks per SM of the partials kernel (VanillaCall) at d.
+int mc_basket_occupancy(int payoff_id, int d, int antithetic, int* blocks) {
+  if (payoff_id != mc::PAYOFF_VANILLA_CALL || d < 1 || d > 32) return cudaErrorInvalidValue;
+  switch (mc::basket_capacity(d)) {
+    case 4: return mc::basket_occupancy_4(antithetic, blocks);
+    case 8: return mc::basket_occupancy_8(antithetic, blocks);
+    case 16: return mc::basket_occupancy_16(antithetic, blocks);
+    default: return mc::basket_occupancy_32(antithetic, blocks);
+  }
+}
+
 // params: the packed vector of 10 + 3d + d(d+1)/2 floats (the wrapper checks
-// its length); d in [1, 32].
+// its length); d in [1, 32]; n_blocks blocks of mc_basket_block_paths()
+// paths.
 int mc_basket_partials(int payoff_id, int antithetic, uint32_t k0, uint32_t k1,
                        const float* params, int d, int n_steps, uint32_t n_paths,
                        uint32_t path_offset, uint32_t bound, double* partials, int n_blocks,
                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 1 || d > 32 || n_steps < 1) return cudaErrorInvalidValue;
-#define MC_CASE(ID, PAYOFF)                                                              \
-  case mc::ID:                                                                           \
-    return d <= 8 ? mc::launch_basket_partials<mc::PAYOFF, 8>(                           \
-                        antithetic, k0, k1, params, d, n_steps, n_paths, path_offset,    \
-                        bound, partials, n_blocks, s)                                    \
-                  : mc::launch_basket_partials<mc::PAYOFF, 32>(                          \
-                        antithetic, k0, k1, params, d, n_steps, n_paths, path_offset,    \
-                        bound, partials, n_blocks, s);
-  switch (payoff_id) {
-    MC_ALL_PAYOFFS(MC_CASE)
-    default: return cudaErrorInvalidValue;
+#define MC_BASKET_ARGS \
+  payoff_id, antithetic, k0, k1, params, d, n_steps, n_paths, path_offset, bound, partials, \
+      n_blocks, s
+  switch (mc::basket_capacity(d)) {
+    case 4: return mc::basket_partials_4(MC_BASKET_ARGS);
+    case 8: return mc::basket_partials_8(MC_BASKET_ARGS);
+    case 16: return mc::basket_partials_16(MC_BASKET_ARGS);
+    default: return mc::basket_partials_32(MC_BASKET_ARGS);
   }
-#undef MC_CASE
+#undef MC_BASKET_ARGS
 }
 
 // b_grid, state_grid: (n_steps, n_paths) f32; partials (n_blocks, 2) f64.

@@ -15,7 +15,7 @@
 //            digital shift, (x << 2) through bits_to_unit.  Ids stay below
 //            n <= 2^20 (qmc_args_ok), so the Gray code has no set bit past
 //            bit 19 and the XOR runs over kSobolIdBits = 20 bits, the same
-//            bits as over all 30 (qmc_unit, the bridge's single-shot form).
+//            bits as over all 30.
 // The family is a runtime field, so the point families cost no template
 // instantiations.  A dimension past the last reads the last.
 #pragma once
@@ -91,31 +91,6 @@ __device__ __forceinline__ float qmc_shifted(const QmcPoints& q, uint32_t base, 
     return u - floorf(u);
   }
   return bits_to_unit((base ^ static_cast<uint32_t>(__ldg(q.shift_i + r * q.d + j))) << 2);
-}
-
-// The single-shot coordinate of the bridge kernel #31 (not redesigned): the
-// Sobol XOR over all kSobolBits bits of the table where it lies, then the
-// shift.  The same bits as qmc_base + qmc_shifted; over 20 bits the
-// bridge's ptxas allocation ran 10% slower on the H100.
-__device__ __forceinline__ float qmc_unit(const QmcPoints& q, uint32_t id, int j, int r) {
-  j = min(j, q.d - 1);
-  if (!q.sobol) {
-    const int i = static_cast<int>(id);
-    const int z = __ldg(q.table + j);
-    int t = mod_int(i * (z >> 10), q.n, q.inv_n);
-    t = mod_int((t << 10) + i * (z & 1023), q.n, q.inv_n);
-    const float u = static_cast<float>(t) * q.inv_n + __ldg(q.shift_f + r * q.d + j);
-    return u - floorf(u);
-  }
-  const uint32_t gray = id ^ (id >> 1);
-  const int* v = q.table + j * kSobolBits;
-  uint32_t acc = 0u;
-#pragma unroll
-  for (int k = 0; k < kSobolBits; ++k) {
-    if ((gray >> k) & 1u) acc ^= static_cast<uint32_t>(__ldg(v + k));
-  }
-  acc ^= static_cast<uint32_t>(__ldg(q.shift_i + r * q.d + j));
-  return bits_to_unit(acc << 2);
 }
 
 // Coordinate j of point id under the K shifts r0 .. r0+K-1 (a shift past

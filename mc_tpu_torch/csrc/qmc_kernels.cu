@@ -26,13 +26,20 @@
 // head of one more pair.
 //
 // The bridge builds each path's W (nodes 0..n_steps, W[0] = 0) from
-// dimension k at entry k of the breadth-first schedule (bidx, bcoef:
-// W[m] = (c_l W[l] + c_r W[r]) + s z_k), then steps on the increments
-// W[2m+1] - W[2m], W[min(2m+2, n)] - W[2m+1].  The indices are data, so W
-// cannot live in registers: it lives in dynamic shared memory, node k of
-// thread t at k*blockDim + t (no bank conflicts), (n_steps+1)*blockDim*4
-// bytes a block, the block 128 threads where that fits (n_steps <= 452),
-// else 64 or 32.
+// dimension k at entry k of the breadth-first schedule (qmc.bridge_schedule:
+// W[m] = (c_l W[l] + c_r W[r]) + s z_k), and steps on the increments
+// W[2m+1] - W[2m], W[min(2m+2, n)] - W[2m+1].  qmc_bridge_kernel runs the
+// same entries depth first (qmc.bridge_stream): W then comes in time order,
+// and step pair m runs as soon as the entries before it have set its nodes,
+// so a thread keeps only the nodes still to be read, in a few numbered
+// slots (8 at 100 steps, 11 at 1,023; kBridgeSlots at most) of a small
+// shared slab, slot s of shift k of thread t at (s*K + k)*blockDim + t (no
+// bank conflicts; the slot is the same for the whole block).  Each node is
+// the same f32 expression on the same operands, and dimension k's normal
+// the same in any order, so W, each increment and each payoff keep their
+// bits whatever the order.  Its grid is qmc_kernel's, kBridgeShifts
+// shifts a thread; its block keeps the threads of the W-buffer kernel it
+// replaced (bridge_threads), so each block sums the same points.
 //
 // What bounds them on the H100: operations.  A coordinate costs, once per
 // point, the residue (~20 int32 and a few f32 operations) or the Sobol XOR
@@ -113,47 +120,88 @@ qmc_kernel(int euler, QmcPoints q, const float* __restrict__ params, int n_steps
       acc, partials + static_cast<size_t>(blockIdx.x) * q.n_shifts + r0, min(K, q.n_shifts - r0));
 }
 
+// The bridge's entries in stream order, 16 bytes each (qmc.bridge_stream):
+// code = dimension | out << 16 | l << 20 | r << 24 (the slots of W[m], W[l],
+// W[r]), then c_l, c_r and s as f32 bits; pair m's code = the entries run
+// before it | slot of W[2m+1] << 16 | slot of W[min(2m+2, n)] << 20.
+constexpr int kBridgeSlots = 16;
+// The shifts a thread of qmc_bridge_kernel runs at once (measured on the
+// H100).
+constexpr int kBridgeShifts = qmc_shifts(4);
+
 template <class Payoff>
 __global__ void __launch_bounds__(kQmcThreads)
 qmc_bridge_kernel(QmcPoints q, const float* __restrict__ params, int n_steps,
-                  const int* __restrict__ bidx, const float* __restrict__ bcoef,
+                  const int4* __restrict__ entries, const int* __restrict__ pairs,
                   double* __restrict__ partials) {
-  extern __shared__ float w_sh[];
+  constexpr int K = kBridgeShifts;
+  extern __shared__ float slab[];
   const Params p = load_params(params);
-  const int r = blockIdx.y;
+  const int r0 = blockIdx.y * K;
   const int nb = blockDim.x;
-  float* w = w_sh + threadIdx.x;  // node k at w[k*nb]
-  double acc[1] = {0.0};
+  float* w = slab + threadIdx.x;  // slot s, shift k at w[(s*K + k)*nb]
+  const int n_pairs = (n_steps + 1) / 2;
+  double acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t id = blockIdx.x * blockDim.x + threadIdx.x; id < static_cast<uint32_t>(q.n);
        id += stride) {
-    w[0] = 0.0f;
-    for (int k = 0; k < n_steps; ++k) {
-      const float z = inv_normal_cdf(qmc_unit(q, id, k, r));
-      const int m = __ldg(bidx + 3 * k), l = __ldg(bidx + 3 * k + 1),
-                rr = __ldg(bidx + 3 * k + 2);
-      w[m * nb] = (__ldg(bcoef + 3 * k) * w[l * nb] + __ldg(bcoef + 3 * k + 1) * w[rr * nb]) +
-                  __ldg(bcoef + 3 * k + 2) * z;
+    float wa[K], x[K], s[K];  // W[2m], the log-spot, the spot
+    typename Payoff::State st[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      w[k * nb] = 0.0f;  // W[0] in slot 0
+      wa[k] = 0.0f;
+      x[k] = 0.0f;
+      s[k] = p.s0;
+      st[k] = Payoff::init(p);
     }
-    const auto draw = [&](int m, float& z0, float& z1) {
-      const int hi = min(2 * m + 2, n_steps);
-      z0 = w[(2 * m + 1) * nb] - w[2 * m * nb];
-      z1 = w[hi * nb] - w[(2 * m + 1) * nb];
-    };
-    const PathEnd<Payoff> e = simulate_path<Payoff>(p, true, false, p.s0, Payoff::init(p), 0,
-                                                    n_steps, 0.0f, draw);
-    acc[0] += static_cast<double>(Payoff::terminal(e.st, e.s, p));
+    int e = 0;
+    for (int m = 0; m < n_pairs; ++m) {
+      const int pc = __ldg(pairs + m);
+      for (const int end = pc & 0xffff; e < end; ++e) {
+        const int4 en = __ldg(entries + e);
+        const int so = (en.x >> 16) & 15, sl = (en.x >> 20) & 15, sr = (en.x >> 24) & 15;
+        const float cl = __int_as_float(en.y), cr = __int_as_float(en.z),
+                    sc = __int_as_float(en.w);
+        float z[K];
+        qmc_normals<K>(q, id, en.x & 0xffff, r0, z);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          w[(so * K + k) * nb] =
+              (cl * w[(sl * K + k) * nb] + cr * w[(sr * K + k) * nb]) + sc * z[k];
+        }
+      }
+      const int sa = (pc >> 16) & 15, sh = (pc >> 20) & 15;
+      const bool second = 2 * m + 1 < n_steps;  // an odd count's last pair: one step
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float w1 = w[(sa * K + k) * nb], w2 = w[(sh * K + k) * nb];
+        euler_step<Payoff>(p, p.s0, w1 - wa[k], x[k], s[k], st[k]);
+        if (second) euler_step<Payoff>(p, p.s0, w2 - w1, x[k], s[k], st[k]);
+        wa[k] = w2;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] += static_cast<double>(Payoff::terminal(st[k], s[k], p));
   }
-  block_store_moments<1, kQmcThreads>(
-      acc, partials + static_cast<size_t>(blockIdx.x) * gridDim.y + r, 1);
+  block_store_moments<K, kQmcThreads>(
+      acc, partials + static_cast<size_t>(blockIdx.x) * q.n_shifts + r0, min(K, q.n_shifts - r0));
 }
 
-// The bridge's block: the most threads (128, 64, 32) whose W buffers fit.
+// The bridge's block: the threads (128, 64, 32) of the W-buffer kernel it
+// replaced, the most whose (n_steps+1)-node buffers fitted a block's shared
+// memory, so each block sums the same points; 0 past 1,807 steps.
 inline int bridge_threads(int n_steps) {
   for (int t = kQmcThreads; t >= 32; t /= 2) {
     if (static_cast<long long>(n_steps + 1) * t * 4 <= kQmcSmemBytes) return t;
   }
   return 0;
+}
+
+inline int bridge_slab_bytes(int n_slots, int threads) {
+  return n_slots * kBridgeShifts * threads * 4;
 }
 
 template <class Payoff>
@@ -167,16 +215,16 @@ cudaError_t launch_qmc(int euler, const QmcPoints& q, const float* params, int n
 
 template <class Payoff>
 cudaError_t launch_qmc_bridge(const QmcPoints& q, const float* params, int n_steps,
-                              const int* bidx, const float* bcoef, double* partials, dim3 grid,
-                              cudaStream_t stream) {
+                              const int4* entries, const int* pairs, int n_slots,
+                              double* partials, int n_bx, int n_groups, cudaStream_t stream) {
   const int threads = bridge_threads(n_steps);
-  if (threads == 0) return cudaErrorInvalidValue;
-  const int bytes = (n_steps + 1) * threads * 4;
+  if (threads == 0 || !qmc_groups_ok(q, kBridgeShifts, n_groups)) return cudaErrorInvalidValue;
+  const int bytes = bridge_slab_bytes(n_slots, threads);
   const cudaError_t err = cudaFuncSetAttribute(
       qmc_bridge_kernel<Payoff>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  qmc_bridge_kernel<Payoff><<<grid, threads, bytes, stream>>>(q, params, n_steps, bidx, bcoef,
-                                                             partials);
+  qmc_bridge_kernel<Payoff><<<dim3(n_bx, n_groups), threads, bytes, stream>>>(
+      q, params, n_steps, entries, pairs, partials);
   return cudaGetLastError();
 }
 
@@ -207,9 +255,14 @@ extern "C" {
 
 int mc_qmc_block_threads() { return mc::kQmcThreads; }
 
-// The bridge kernel's threads per block for n_steps, 0 if its W buffer
-// fits no block.
+// The bridge kernel's threads per block for n_steps, 0 past the steps it
+// takes.
 int mc_qmc_bridge_threads(int n_steps) { return mc::bridge_threads(n_steps); }
+
+// The shifts a thread of qmc_bridge_kernel runs (its launch's groups are
+// ceil(R / it)), and the most slots of its stream.
+int mc_qmc_bridge_shifts() { return mc::kBridgeShifts; }
+int mc_qmc_bridge_slots() { return mc::kBridgeSlots; }
 
 // The shifts a thread of qmc_kernel runs (the launch's groups are
 // ceil(R / it)).
@@ -266,9 +319,23 @@ int mc_qmc_model_shifts(int family_id, int extra) {
 }
 
 // Resident blocks per SM of a QMC kernel: #33's under family_id (extra:
-// its integer, which sizes Merton's and Bates's table), or qmc_kernel's for
-// family_id -1.
+// its integer, which sizes Merton's and Bates's table), qmc_kernel's for
+// family_id -1, or qmc_bridge_kernel's (128 threads) for -2 (extra: its
+// stream's slots).
 int mc_qmc_occupancy(int family_id, int payoff_id, int extra, int* blocks) {
+  if (family_id == -2) {
+    if (extra < 1 || extra > mc::kBridgeSlots) return cudaErrorInvalidValue;
+    const int bytes = mc::bridge_slab_bytes(extra, mc::kQmcThreads);
+#define MC_CASE(ID, PAYOFF)                                                               \
+  case mc::ID:                                                                            \
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                 \
+        blocks, mc::qmc_bridge_kernel<mc::PAYOFF>, mc::kQmcThreads, bytes);
+    switch (payoff_id) {
+      MC_ALL_PAYOFFS(MC_CASE)
+      default: return cudaErrorInvalidValue;
+    }
+#undef MC_CASE
+  }
   if (family_id == -1) {
 #define MC_CASE(ID, PAYOFF)                                                              \
   case mc::ID:                                                                           \
@@ -312,21 +379,25 @@ int mc_qmc_model_sums(int family_id, int payoff_id, int family, int n, int d,
 #undef MC_LAUNCH
 }
 
-// As mc_qmc_sums, the Euler increments from the Brownian bridge: bidx
-// (n_steps, 3) int32 and bcoef (n_steps, 3) f32 from qmc.bridge_schedule.
+// As mc_qmc_sums, the Euler increments from the Brownian bridge in stream
+// order (qmc.bridge_stream): entries (n_steps, 4) int32 and pairs
+// (ceil(n_steps/2),) int32 as qmc_bridge_kernel reads them, n_slots its
+// slots (at most kBridgeSlots); the grid n_bx x n_groups (ceil(R /
+// kBridgeShifts)) of blocks of mc_qmc_bridge_threads(n_steps).
 int mc_qmc_bridge_sums(int payoff_id, int family, int n, int d, const int* table,
                        const void* shifts, int n_shifts, const float* params, int n_steps,
-                       const int* bidx, const float* bcoef, double* partials, int n_bx,
-                       void* stream) {
+                       const int* entries, const int* pairs, int n_slots, double* partials,
+                       int n_bx, int n_groups, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1 || d != n_steps)
+  if (!mc::qmc_args_ok(family, n, d, n_shifts, n_bx) || n_steps < 1 || d != n_steps ||
+      n_steps > 0xffff || n_slots < 2 || n_slots > mc::kBridgeSlots)
     return cudaErrorInvalidValue;
   const mc::QmcPoints q = mc::qmc_points(family, n, d, n_shifts, table, shifts);
-  const dim3 grid(n_bx, n_shifts);
+  const int4* ent = reinterpret_cast<const int4*>(entries);
 #define MC_CASE(ID, PAYOFF)                                                              \
   case mc::ID:                                                                           \
-    return mc::launch_qmc_bridge<mc::PAYOFF>(q, params, n_steps, bidx, bcoef, partials,  \
-                                             grid, s);
+    return mc::launch_qmc_bridge<mc::PAYOFF>(q, params, n_steps, ent, pairs, n_slots,    \
+                                             partials, n_bx, n_groups, s);
   switch (payoff_id) {
     MC_ALL_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;

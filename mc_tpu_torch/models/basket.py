@@ -65,7 +65,8 @@ from mc_tpu_torch.ops.reduce import finish_sum
 __all__ = ["BasketDynamics", "demo_basket", "DEMO_BASKET", "MAX_BASKET_D",
            "BASKET_TAG", "HEAD_FIELDS", "BasketConfig", "chol_scalars",
            "packed_length", "pack_basket", "unpack_basket", "basket_normals",
-           "mix_step", "levels", "basket_of", "basket_partials",
+           "mix_step", "levels", "basket_of", "partials_blocks",
+           "basket_partials",
            "basket_partials_plain", "basket_trajectories",
            "basket_trajectories_plain", "qmc_pay", "price_basket"]
 
@@ -398,6 +399,13 @@ def basket_trajectories_plain(payoff: PathPayoff, cfg: BasketConfig, key,
 # ---------------------------------------------------------------------------
 
 
+def partials_blocks(n_paths: int, block_paths: int) -> int:
+    """The partials kernel's blocks: block b sums paths b*block_paths ..
+    b*block_paths + block_paths-1 (the library's paths a block), capped at
+    MAX_BLOCKS, past which the blocks grid-stride."""
+    return min(_cuda.cdiv(n_paths, block_paths), _cuda.MAX_BLOCKS)
+
+
 def basket_partials(payoff: PathPayoff, cfg: BasketConfig, key,
                     params: torch.Tensor, path_offset: int = 0, n_valid=None):
     """(rows, 2) f64 [sum pay, sum pay^2] of ``cfg.n_paths`` basket paths
@@ -409,8 +417,7 @@ def basket_partials(payoff: PathPayoff, cfg: BasketConfig, key,
                                      n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_basket_block_threads()),
-                   _cuda.MAX_BLOCKS)
+    n_blocks = partials_blocks(cfg.n_paths, lib.mc_basket_block_paths())
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)
     with torch.cuda.device(params.device):

@@ -20,6 +20,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -106,10 +107,17 @@ _SIGNATURES = {
     "mc_divs_block_threads": ([], _c_int),
     "mc_vasicek_block_threads": ([], _c_int),
     "mc_basket_block_threads": ([], _c_int),
+    "mc_basket_block_paths": ([], _c_int),
+    "mc_basket_capacity": ([_c_int], _c_int),
+    "mc_basket_paths_per_thread": ([_c_int], _c_int),
+    # payoff_id, d, antithetic, blocks
+    "mc_basket_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
     "mc_fx_block_threads": ([], _c_int),
     "mc_rainbow_block_threads": ([], _c_int),
     "mc_qmc_block_threads": ([], _c_int),
     "mc_qmc_bridge_threads": ([_c_int], _c_int),
+    "mc_qmc_bridge_shifts": ([], _c_int),
+    "mc_qmc_bridge_slots": ([], _c_int),
     "mc_qmc_model_block_threads": ([], _c_int),
     "mc_rates_block_threads": ([], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
@@ -267,10 +275,10 @@ _SIGNATURES = {
     # family_id (-1: qmc_kernel), payoff_id, extra, blocks
     "mc_qmc_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
     # payoff_id, family, n, d, table, shifts, n_shifts, params, n_steps,
-    # bidx, bcoef, partials, n_bx, stream
+    # entries, pairs, n_slots, partials, n_bx, n_groups, stream
     "mc_qmc_bridge_sums": ([_c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-                            _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                            _c_int, _c_ptr], _c_int),
+                            _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int,
+                            _c_ptr, _c_int, _c_int, _c_ptr], _c_int),
     # tile, n_pay, k0, k1, pv, n_paths, path_offset, bound, partials,
     # n_blocks, stream
     "mc_rates_partials": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -330,6 +338,18 @@ def _run_all(cmds: list[list[str]], jobs: int) -> list[tuple[str, float]]:
         return list(pool.map(run, cmds))
 
 
+def _unit_bytes(src: Path) -> int:
+    """The bytes of ``src`` and of the csrc headers it includes, each once."""
+    seen, todo = {src}, [src]
+    while todo:
+        for name in re.findall(r'#include "([^"]+)"', todo.pop().read_text()):
+            h = CSRC / name
+            if h.exists() and h not in seen:
+                seen.add(h)
+                todo.append(h)
+    return sum(p.stat().st_size for p in seen)
+
+
 def _build() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
@@ -346,13 +366,14 @@ def _build() -> Path:
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    # The largest sources (a proxy for nvcc's time) start first, so the pool
-    # ends together.  The pool leaves one CPU to the caller's other threads:
-    # on the H100 machine a thread beside 40 busy processes ran at a fifth of
-    # its speed at any niceness, beside 7 at full speed, and 7 compilers at
-    # once built in 72.9 s where 40 took 79.7 s.
-    srcs = sorted(CSRC.glob("*.cu"), key=lambda p: (-p.stat().st_size,
-                                                    p.name))
+    # The largest sources with the headers they include (a proxy for nvcc's
+    # time: a capacity's few lines instantiate a header's kernels) start
+    # first, so the pool ends together.  The pool leaves one CPU to the
+    # caller's other threads: on the H100 machine a thread beside 40 busy
+    # processes ran at a fifth of its speed at any niceness, beside 7 at
+    # full speed, and 7 compilers at once built in 72.9 s where 40 took
+    # 79.7 s.
+    srcs = sorted(CSRC.glob("*.cu"), key=lambda p: (-_unit_bytes(p), p.name))
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
     jobs = max(1, len(os.sched_getaffinity(0)) - 1)

@@ -33,17 +33,17 @@ its draws a path (``QMCModel.dims``); Merton and Bates read the Poisson
 counts' uniforms as raw coordinates, and Bates packs 4 dimensions a step.
 
 Three kernels, each taking all R shifts in one launch, one f64 sum per
-path block and shift.  ``qmc_sums`` and ``qmc_model_sums`` run several
-shifts a thread (the library's own count, each point's coordinate
-computed once for them), on the grid ``kernel_launch`` computes; the
-bridge runs one shift a block row:
+path block and shift, several shifts a thread (the library's own count,
+each point's coordinate computed once for them), on the grid
+``kernel_launch`` (``bridge_launch``) computes:
 
 * ``qmc_sums`` (replaces ``_pallas_qmc_shift_sum``, ``mc_tpu/qmc.py:463``;
   ``csrc/qmc_kernels.cu``): the payoff sum per shift, terminal or Euler,
   either point family;
 * ``qmc_bridge_sums`` (replaces ``_pallas_qmc_bridge_shift_sum``,
-  ``mc_tpu/qmc.py:403``): the same with the bridge's W buffer in shared
-  memory;
+  ``mc_tpu/qmc.py:403``): the same with the bridge's increments, its
+  entries run depth first (``bridge_stream``), so a thread keeps only the
+  few nodes still to be read;
 * ``qmc_model_sums`` (replaces ``_model_shift_mean_fn``'s Pallas call,
   ``mc_tpu/qmc.py:824``; ``csrc/qmc_model.cuh``, one source a family):
   the payoff sum per shift through a family's leg.
@@ -59,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 import math
 from collections import deque
 from typing import Callable, Optional
@@ -81,7 +82,8 @@ from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
 __all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "SOBOL_ID_BITS", "QMC_TAG",
            "QMC_THREADS", "QmcLaunch", "qmc_launch", "kernel_launch",
            "prev_prime",
-           "lattice_vector", "bridge_schedule", "sobol_directions",
+           "lattice_vector", "bridge_schedule", "BridgeStream", "bridge_stream",
+           "bridge_launch", "sobol_directions",
            "QMCPointSet", "lattice_residue", "point_units", "point_unit",
            "qmc_draw_pair",
            "bridge_draw_pair", "qmc_pointset", "qmc_sums", "qmc_sums_plain",
@@ -208,6 +210,97 @@ def bridge_schedule(n_steps: int):
         raise RuntimeError(f"bridge schedule has {len(idx)} entries for "
                            f"{n} steps")
     return np.asarray(idx, np.int32), np.asarray(coef, np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BridgeStream:
+    """``bridge_schedule``'s entries in depth-first order, as the bridge
+    kernel runs them: ``order[i]`` the schedule entry run i-th (its
+    dimension), ``slots[i]`` the slots (out, l, r) of its nodes W[m], W[l],
+    W[r]; ``pair_end[m]`` the entries run before step pair m, and
+    ``pair_slots[m]`` the slots of W[2m+1] and W[min(2m+2, n)]; W[0] = 0
+    starts in slot 0, and ``n_slots`` slots hold every node still to be
+    read."""
+    order: np.ndarray       # (n,) int32
+    slots: np.ndarray       # (n, 3) int32
+    pair_end: np.ndarray    # (ceil(n/2),) int32
+    pair_slots: np.ndarray  # (ceil(n/2), 2) int32
+    n_slots: int
+
+    def tables(self):
+        """The kernel's two int32 tables: (n, 4) entries [dimension | out
+        << 16 | l << 20 | r << 24, c_l, c_r, s as f32 bits] and the
+        (ceil(n/2),) pairs [entries run before | W[2m+1]'s slot << 16 |
+        W[hi]'s slot << 20]."""
+        n_steps = self.order.shape[0]
+        _, coef = bridge_schedule(n_steps)
+        s = self.slots.astype(np.int64)
+        entries = np.empty((n_steps, 4), np.int32)
+        entries[:, 0] = (self.order | (s[:, 0] << 16) | (s[:, 1] << 20)
+                         | (s[:, 2] << 24))
+        entries[:, 1:] = coef[self.order].view(np.int32)
+        ps = self.pair_slots.astype(np.int64)
+        pairs = self.pair_end | (ps[:, 0] << 16) | (ps[:, 1] << 20)
+        return entries, pairs.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def bridge_stream(n_steps: int) -> BridgeStream:
+    """The streamed bridge (``BridgeStream``): ``bridge_schedule``'s entries
+    in depth-first order (each interval bisected, then its left half, then
+    its right), so W comes in time order; step pair m runs once W[2m+1] and
+    W[min(2m+2, n)] are set, and a node's slot is freed after its last
+    read (the lowest free slot taken first).  At most ~ceil(log2 n) + 2
+    nodes are live: 8 slots at 100 steps, 11 at 1,023."""
+    n = n_steps
+    idx, _ = bridge_schedule(n)
+    entry_of = {int(m): k for k, (m, _, _) in enumerate(idx)}
+    order, stack = [0], [(0, n)]
+    while stack:
+        lo, hi = stack.pop()
+        if hi - lo > 1:
+            mid = (lo + hi) // 2
+            order.append(entry_of[mid])
+            stack += [(mid, hi), (lo, mid)]
+    done = {0: -1} | {int(idx[k][0]): i for i, k in enumerate(order)}
+    n_pairs = (n + 1) // 2
+    pair_end, end = [], 0
+    for m in range(n_pairs):
+        end = max(end, done[2 * m + 1] + 1, done[min(2 * m + 2, n)] + 1)
+        pair_end.append(end)
+    # the events: entries, then each pair once its entries have run
+    events, start = [], 0
+    for m in range(n_pairs):
+        events += [("entry", i) for i in range(start, pair_end[m])]
+        events.append(("pair", m))
+        start = pair_end[m]
+    reads = {}
+    for t, (kind, i) in enumerate(events):
+        nodes = (idx[order[i]][1:] if kind == "entry"
+                 else (2 * i + 1, min(2 * i + 2, n)))
+        for j in nodes:
+            reads[int(j)] = t
+    slot, free, n_slots = {0: 0}, [], 1
+    slots = np.zeros((n, 3), np.int32)
+    pair_slots = np.zeros((n_pairs, 2), np.int32)
+    for t, (kind, i) in enumerate(events):
+        if kind == "entry":
+            m, lo, hi = (int(v) for v in idx[order[i]])
+            if free:
+                slot[m] = heapq.heappop(free)
+            else:
+                slot[m], n_slots = n_slots, n_slots + 1
+            slots[i] = (slot[m], slot[lo], slot[hi])
+            read = (lo, hi)
+        else:
+            read = (2 * i + 1, min(2 * i + 2, n))
+            pair_slots[i] = (slot[read[0]], slot[read[1]])
+        for j in set(read):
+            if reads[j] == t:
+                heapq.heappush(free, slot.pop(j))
+    return BridgeStream(order=np.asarray(order, np.int32), slots=slots,
+                        pair_end=np.asarray(pair_end, np.int32),
+                        pair_slots=pair_slots, n_slots=n_slots)
 
 
 @functools.lru_cache(maxsize=8)
@@ -413,9 +506,21 @@ def kernel_launch(ps: QMCPointSet, model: str | None = None,
         QMC_MODELS[model].family_id, extra), lib.mc_qmc_model_block_threads())
 
 
+def bridge_launch(ps: QMCPointSet, n_steps: int) -> QmcLaunch:
+    """qmc_launch of ``ps`` for the bridge kernel over ``n_steps`` on the
+    library's own block for that step count and shifts a thread."""
+    lib = _cuda.load()
+    threads = lib.mc_qmc_bridge_threads(n_steps)
+    if threads <= 0:
+        raise ValueError(f"the bridge kernel takes at most 1,807 steps; got "
+                         f"{n_steps}")
+    return qmc_launch(ps.n, ps.n_shifts, lib.mc_qmc_bridge_shifts(), threads)
+
+
 def qmc_occupancy(family_id: int, payoff: PathPayoff, extra: int) -> int:
     """Resident blocks per SM of #33's kernel under ``family_id`` (extra:
-    its integer), or of qmc_kernel for family_id -1, for ``payoff`` on the
+    its integer), of qmc_kernel for family_id -1, or of the bridge kernel
+    at 128 threads for -2 (extra: its stream's slots), for ``payoff`` on the
     current card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     lib = _cuda.load()
     blocks = ctypes.c_int(0)
@@ -484,21 +589,18 @@ def qmc_sums(payoff: PathPayoff, cfg: pk.KernelConfig, ps: QMCPointSet,
     with torch.cuda.device(params.device):
         stream = _cuda.stream_handle(params.device)
         if bridge:
-            bidx, bcoef = bridge_schedule(cfg.n_steps)
-            bidx_t = torch.from_numpy(bidx.reshape(-1)).to(params.device)
-            bcoef_t = torch.from_numpy(bcoef.reshape(-1)).to(params.device)
-            threads = lib.mc_qmc_bridge_threads(cfg.n_steps)
-            if threads <= 0:
-                raise ValueError(f"the bridge's W buffer for {cfg.n_steps} "
-                                 "steps does not fit a block's shared memory")
-            n_bx = min(_cuda.cdiv(ps.n, threads), _cuda.MAX_BLOCKS)
-            partials = torch.empty((n_bx, r_shifts, 1), dtype=torch.float64,
+            geo = bridge_launch(ps, cfg.n_steps)
+            stream_ = bridge_stream(cfg.n_steps)
+            entries, pairs = (torch.from_numpy(t).to(params.device)
+                              for t in stream_.tables())
+            partials = torch.empty((geo.n_bx, r_shifts, 1), dtype=torch.float64,
                                    device=params.device)
             status = lib.mc_qmc_bridge_sums(
                 payoff.cuda_id, FAMILIES[ps.family], ps.n, ps.d,
                 ps.table.data_ptr(), ps.shifts.data_ptr(), r_shifts,
-                params.data_ptr(), cfg.n_steps, bidx_t.data_ptr(),
-                bcoef_t.data_ptr(), partials.data_ptr(), n_bx, stream)
+                params.data_ptr(), cfg.n_steps, entries.data_ptr(),
+                pairs.data_ptr(), stream_.n_slots, partials.data_ptr(),
+                geo.n_bx, geo.groups, stream)
             _cuda.check(status, "qmc_bridge_sums kernel")
             _cuda.count_launch("qmc_bridge_sums")
             return partials
