@@ -243,6 +243,7 @@ DEVICE = "cuda"
 # The model families (bench.py's Heston rows are 1M x 100, and every family
 # since has taken that size; the README's NMC).
 FAMILY_PATHS = 16_384                # phase 2: every payoff, 100 steps
+EDGE_PATHS = FAMILY_PATHS + 27       # phase 2: a ragged last block (#14, #19)
 FAMILY_MAIN = 1_000_000              # price_<family> at 1M (x 100)
 PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
 HESTON_PAYOFF_MAIN = PAYOFF_MAIN     # #13's shape
@@ -640,10 +641,18 @@ def ptxas_resources(log: str) -> dict:
                 kernel = f"{kernel}<{payoff}{cap}>"
                 at = p.end() + len(payoff) + f.end()
                 payoff = rest[at:at + int(f.group(2))]
+            elif f and kernel.endswith("_partials_kernel"):
+                # merton_partials_kernel<Payoff, Method, R, bool>,
+                # bates_partials_kernel<Payoff, Scheme, R>
+                at = p.end() + len(payoff) + f.end()
+                kernel = f"{kernel}<{rest[at:at + int(f.group(2))]}>"
             r = re.search(r"ELi(\d+)E(?:Lb(\d)E)?", rest)
             rounds = int(r.group(1)) if r else None
             if r and r.group(2) is not None:  # kernel<P, N, bool>
                 rounds = (rounds, int(r.group(2)))
+            ints = re.findall(r"L[ib](\d+)E", rest[p.end():]) if p else []
+            if len(ints) > 2:  # localvol_partials_kernel<P, R, C, bool>
+                rounds = tuple(int(i) for i in ints)
             entry = (kernel, payoff, rounds)
             out[entry] = {}
             continue
@@ -1036,34 +1045,38 @@ def unit_ops(rounds: int, words: int):
     return (2 + 3 * rounds + 2 * (rounds // 4) + 2 * words, words, 0)
 
 
-def scan_ops(kmax: int):
-    """The Poisson scan: expf(-lam), then per iteration the k -> float
-    conversion, the compare-add (2), the pmf multiply, the IEEE division
-    (a reciprocal and two refinement ops) and the cdf add."""
-    return _add((0, 0, 1), _scale((1, 5, 1), kmax))
+def table_ops(kmax: int):
+    """The Poisson count against the block's cdf table: a compare-select
+    and an add per entry (the table itself is built once a block; the
+    scan's recurrence, its expf and kmax divisions, no longer run a
+    draw)."""
+    return _scale((0, 2, 0), kmax)
 
 
-# A Merton step on top of its draws and scan: w (3), the jump n*mu_j +
-# (sigma_j*sqrtf(n))*e (4 and a sqrtf), w + jump (1), S = base*expf(w) (1).
-MERTON_STEP_OPS = (0, 9, 2)
+# A Merton step on top of its draws and count: w (3), S = base*expf(w) (1);
+# the jump n*mu_j + (sigma_j*sqrtf(n))*e (4 and a sqrtf) and w + jump (1).
+MERTON_DIFF_OPS = (0, 4, 1)
+MERTON_JUMP_OPS = (0, 5, 1)
+MERTON_STEP_OPS = _add(MERTON_DIFF_OPS, MERTON_JUMP_OPS)
 # Bates's jump on top of Heston's Euler step (HESTON_EULER_OPS): the jump
 # (4 and a sqrtf) and w += jump (1).
 BATES_JUMP_OPS = (0, 5, 1)
 
 
-def merton_path(n_steps: int, rounds: int, kmax: int):
-    """A Merton Euler path: per step pair, draw3 (two normal pairs and both
-    words of a third call) and two steps; its payoff."""
-    pair = _add(_scale(pair_ops(rounds), 2), unit_ops(rounds, 2),
-                _scale(_add(MERTON_STEP_OPS, scan_ops(kmax)), 2))
+def merton_path(n_steps: int, rounds: int, kmax: int, lam_dt: float):
+    """A Merton Euler path: per step pair the diffusion normals and both
+    Poisson uniforms (two threefry calls), a compare of each uniform with
+    the table's least entry F(0) = exp(-lam*dt), the two diffusion steps;
+    and only where a uniform of the pair reaches the table (a share 1 -
+    F(0)^2 of the pairs: the count is 0 below it, and a count of 0 is no
+    jump whatever the jump sizes) the jump-size normals, the counts against
+    the table and the jumps; its payoff."""
+    reach = 1.0 - math.exp(-lam_dt) ** 2
+    jumps = _add(pair_ops(rounds),
+                 _scale(_add(table_ops(kmax), MERTON_JUMP_OPS), 2))
+    pair = _add(pair_ops(rounds), unit_ops(rounds, 2), (0, 2, 0),
+                _scale(MERTON_DIFF_OPS, 2), _scale(jumps, reach))
     return _add(_scale(pair, n_steps // 2), TERMINAL_OPS)
-
-
-def table_ops(kmax: int):
-    """The family kernels' Poisson count against the block's cdf table: a
-    compare-select and an add per entry (the table itself is built once a
-    block, the scan's recurrence and divisions no longer run a substep)."""
-    return _scale((0, 2, 0), kmax)
 
 
 def merton_substep(kmax: int):
@@ -1076,7 +1089,7 @@ def bates_step(rounds: int, kmax: int):
     """A Bates Euler step: two normal pairs, a uniform, Heston's step, the
     jump and the scan."""
     return _add(_scale(pair_ops(rounds), 2), unit_ops(rounds, 1),
-                HESTON_EULER_OPS, BATES_JUMP_OPS, scan_ops(kmax))
+                HESTON_EULER_OPS, BATES_JUMP_OPS, table_ops(kmax))
 
 
 def bates_substep(kmax: int):
@@ -1113,9 +1126,12 @@ def jump_bounds():
     reports: #14 Euler at 1M x 100, #15 and the generic trajectories at
     NMC_MAIN's outer 16,384 x 100 (vanilla), #16 Euler at 1M x 100, the
     family kernels at NMC_MAIN (vanilla)."""
+    from mc_tpu_torch.models.merton import DEMO_MERTON
+
     k_dt, _ = jump_kmax()
     n_out, n_steps, _ = NMC_MAIN
-    m_path = merton_path(MAIN_STEPS, 13, k_dt)
+    m_path = merton_path(MAIN_STEPS, 13, k_dt,
+                         DEMO_MERTON.lam / MAIN_STEPS)
     b_path = _add(_scale(bates_step(13, k_dt), MAIN_STEPS), TERMINAL_OPS)
     return {
         "merton_partials": bound(76, _scale(m_path, FAMILY_MAIN)),
@@ -1226,15 +1242,17 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     def note(row, e):
         err[row] = max(err[row], e)
 
-    def merton_case(name, n_paths, method="euler", **kw):
+    def merton_case(name, n_paths, method="euler", dyn=mm.DEMO_MERTON,
+                    kmax=None, **kw):
         opt = payoff_option(mt, name)
-        cfg = mm.MertonConfig(n_paths=n_paths, n_steps=MAIN_STEPS,
-                              kmax=k_t if method == "terminal" else k_dt,
+        if kmax is None:
+            kmax = k_t if method == "terminal" else k_dt
+        cfg = mm.MertonConfig(n_paths=n_paths, n_steps=MAIN_STEPS, kmax=kmax,
                               method=method, **kw)
         defer(partials_check(note, "merton_partials", mm.merton_partials,
                              mm.merton_partials_plain, cfg, merton_keys[0],
-                             mm.pack_merton(opt, mm.DEMO_MERTON, MAIN_STEPS,
-                                            dev), name, opt, method))
+                             mm.pack_merton(opt, dyn, MAIN_STEPS, dev), name,
+                             opt, f"{method} kmax={kmax}"))
 
     def bates_case(name, n_paths, **kw):
         opt = payoff_option(mt, name)
@@ -1260,6 +1278,16 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
                dict(scheme="qe", rng_source="threefry", antithetic=True)):
         bates_case("vanilla_call", FAMILY_PATHS, **kw)
     merton_case("vanilla_call", FAMILY_MAIN)  # the main shape: a partial block
+    # #14's edges: the table at kmax 1 and 53 (lam*dt = 17; the terminal
+    # draw's at lam*T = 17), each jump-size skip's premise, a ragged last
+    # block, antithetic and threefry-20
+    for method, deep in (("euler", mm.MertonDynamics(lam=17.0 * MAIN_STEPS)),
+                         ("terminal", mm.MertonDynamics(lam=17.0))):
+        merton_case("vanilla_call", EDGE_PATHS, method, kmax=1,
+                    antithetic=True)
+        merton_case("vanilla_call", EDGE_PATHS, method, dyn=deep,
+                    kmax=53, rng_source="threefry",
+                    antithetic=method == "euler")
     for scheme in ("euler", "qe"):
         bates_case("vanilla_call", FAMILY_MAIN, scheme=scheme)
 
@@ -1735,7 +1763,7 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
     # Each kernel at its main shape, beside Heston's partials of its scheme
     # (the terminal draw: Euler's); the plain versions of the Euler rows
     # (the terminal draw and QE: the kernel alone).  Registers: ROUNDS=13,
-    # all methods and schemes.
+    # each method's or scheme's kernel (Merton's not antithetic).
     euler = ("heston_partials call euler", gbm_ms["heston_partials"])
     qe = ("heston_partials call qe", gbm_ms["qe"])
     out = partials_times((
@@ -1744,20 +1772,22 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
                                     m_prm),
          lambda: mm.merton_partials_plain(call, m_cfg["euler"],
                                           merton_keys[0], m_prm),
-         ("merton_partials_kernel", "VanillaCall", 13), euler),
+         ("merton_partials_kernel<MertonEuler>", "VanillaCall", (13, 0)),
+         euler),
         (None, "merton_partials call terminal",
          lambda: mm.merton_partials(call, m_cfg["terminal"], merton_keys[0],
                                     m_prm), None,
-         ("merton_partials_kernel", "VanillaCall", 13), euler),
+         ("merton_partials_kernel<MertonTerminal>", "VanillaCall", (13, 0)),
+         euler),
         ("bates_partials", "bates_partials call euler",
          lambda: bm.bates_partials(call, b_cfg["euler"], bates_keys[0],
                                    b_prm),
          lambda: bm.bates_partials_plain(call, b_cfg["euler"], bates_keys[0],
                                          b_prm),
-         ("bates_partials_kernel", "VanillaCall", 13), euler),
+         ("bates_partials_kernel<BatesEuler>", "VanillaCall", 13), euler),
         (None, "bates_partials call qe",
          lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0], b_prm),
-         None, ("bates_partials_kernel", "VanillaCall", 13), qe)),
+         None, ("bates_partials_kernel<BatesQe>", "VanillaCall", 13), qe)),
         FAMILY_MAIN, time_pair, regs, tag)
 
     heston_nmc = ("Heston", {name: gbm_ms[name]
@@ -1898,6 +1928,7 @@ class Single(NamedTuple):
     nmc: object           # SingleNMC, or None
     grid: object = None   # GridKernel: a trajectories kernel beside the NMC's
     main_checks: int = 2  # phase 2: the checks also run at the main shape
+    edges: tuple = ()     # phase 2: (payoff, n_paths, (label, dyn), keywords)
     edge_variants: bool = False  # phase 2: the variants on every dynamics
     partials_src: str = ""  # the partials kernel's source, if not its own
 
@@ -1947,6 +1978,24 @@ def single_families(mt):
     cev = (("", cm.DEMO_CEV),)
     lv = (("K=9", lm.LocalVolSurface.demo(MAIN_STEPS)),
           ("K=25", cev_gate_surface(lm, MAIN_STEPS)))
+
+    def smile(k):
+        return (f"K={k}", lm.LocalVolSurface.from_function(
+            lambda x, t: 0.2 + 0.1 * x * x + 0.05 * t, MAIN_STEPS,
+            n_knots=k))
+
+    # #19's edges: K at the knot capacity and one past it (11 and up: runtime
+    # K), 32 and 33, a ragged last lockstep group, antithetic and threefry-20
+    def lv_key(surf):  # the kernel's template: <P, 13, capacity, false>
+        from mc_tpu_torch.ops import _cuda
+
+        return 13, _cuda.load().mc_localvol_capacity(surf.n_knots), 0
+
+    lv_edges = (("vanilla_call", EDGE_PATHS, smile(2), {}),
+                ("vanilla_call", EDGE_PATHS, smile(10), anti[0]),
+                ("bullet_call", EDGE_PATHS, smile(11), rng20[1]),
+                ("vanilla_call", EDGE_PATHS, smile(32), rng20[2]),
+                ("asian_call", EDGE_PATHS, smile(33), anti[0]))
     sabr = (("", sm.DEMO_SABR),)
     # rates 12% down to 2%, vols 10% up to 40%
     steep = (("steep curves", tm.TermStructure.from_knots(
@@ -1974,13 +2023,14 @@ def single_families(mt):
                    n_paths=n, n_steps=MAIN_STEPS, n_knots=surf.n_knots, **kw),
                pack=lm.pack_localvol, tpu="models/localvol.py:264",
                checks=lv, payoffs=every, variants=rng20, timed=lv,
-               ref="heston_partials", rounds=13,
+               ref="heston_partials", rounds=lv_key,
                path=half_pair_path(lv_step_ops(9), MAIN_STEPS),
                nmc=SingleNMC(
                    fam=LocalVolNMC(extras=(9,)), dyn=lm.LocalVolSurface.demo,
                    traj_tpu="models/localvol.py:406", struct="LocalVolFamily",
                    n_grids=1, substep=_add(half, lv_step_ops(9)),
-                   ref=("Heston", "heston"), traj_ref="merton_trajectories")),
+                   ref=("Heston", "heston"), traj_ref="merton_trajectories"),
+               edges=lv_edges, partials_src="localvol_partials.cuh"),
         Single(family="sabr", kernels=SABR_KERNELS, model=sm,
                config=config(sm.SABRConfig), pack=sm.pack_sabr,
                tpu="models/sabr.py:177", checks=sabr, payoffs=sv,
@@ -2110,6 +2160,8 @@ def single_kernel_checks(mt, dev, singles, keys):
         for label_dyn in s.checks[:s.main_checks]:  # the main shape: a
             # partly filled block
             case("vanilla_call", FAMILY_MAIN, label_dyn)
+        for name, n_paths, label_dyn, kw in s.edges:
+            case(name, n_paths, label_dyn, **kw)
         if s.nmc is None:
             continue
         for name, po in sorted(PAYOFFS.items()):
@@ -2209,7 +2261,8 @@ def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms,
                 lambda cfg=cfg, prm=prm: fn(call, cfg, key, prm),
                 (lambda cfg=cfg, prm=prm: plain(call, cfg, key, prm))
                 if i == 0 else None,
-                (f"{row}_kernel", "VanillaCall", s.rounds),
+                (f"{row}_kernel", "VanillaCall",
+                 s.rounds(dyn) if callable(s.rounds) else s.rounds),
                 (f"{s.ref} call euler", known[s.ref])))
         out.update(partials_times(rows, FAMILY_MAIN, time_pair, regs, tag))
         price_fn = getattr(mt, f"price_{s.family}")
@@ -2391,15 +2444,58 @@ def qmc_case(mt, dev, name, n_paths, n_steps, method, family, bridge,
     return po, cfg, ps, pk.pack_params(payoff_option(mt, name), n_steps, dev)
 
 
-def qmc_block_plain(po, cfg, ps, prm, ids):
-    """qmc_sums_plain's sums over the points ``ids`` alone: (R, 1) f64."""
+def block_sums(pay, blocks: dict) -> dict:
+    """{block: (R, 1) f64 sums of its points} from one plain leg's (R, n)
+    payoffs over the blocks' points laid end to end (``blocks``: {block:
+    its point ids}, in order): one plain run for all the blocks."""
+    out, at = {}, 0
+    for b, ids in blocks.items():
+        n = ids.shape[0]
+        out[b] = pay[:, at:at + n].contiguous().double().sum(dim=1,
+                                                             keepdim=True)
+        at += n
+    return out
+
+
+def qmc_block_plain(po, cfg, ps, prm, blocks: dict) -> dict:
+    """qmc_sums_plain's sums over each block's points alone: {block: (R, 1)
+    f64}, one plain run over the blocks' points together."""
     from mc_tpu_torch import qmc
     from mc_tpu_torch.ops import path_kernels as pk
 
+    ids = torch.cat(list(blocks.values()))
     p = pk.unpack_params(prm)
     pay, _ = pk._payoff_leg(po, cfg, p, p.s0.expand(ps.n_shifts, ids.shape[0]),
                             qmc.qmc_draw_pair(ps, ids, cfg.method))
-    return pay.double().sum(dim=1, keepdim=True)
+    return block_sums(pay, blocks)
+
+
+def qmc_model_block_plain(model, po, ps, prm, extra, blocks: dict) -> dict:
+    """qmc_model_sums_plain's sums over each block's points alone, as
+    qmc_block_plain: one plain run of the family's leg over them together."""
+    from mc_tpu_torch import qmc
+
+    return block_sums(qmc.qmc_model_payoffs(model, po, ps, prm, MAIN_STEPS,
+                                            extra,
+                                            torch.cat(list(blocks.values()))),
+                      blocks)
+
+
+def qmc_block_plan(ps):
+    """The QMC kernels' path blocks of ``ps`` before the library is built:
+    a point's block depends on the block's threads (qmc.QMC_THREADS) and n
+    alone, not on the shifts a thread; the kernel half holds the library's
+    launch to it (check_block_plan)."""
+    from mc_tpu_torch import qmc
+
+    return qmc.qmc_launch(ps.n, ps.n_shifts, 1, qmc.QMC_THREADS)
+
+
+def check_block_plan(label, geo, plan) -> None:
+    if (geo.threads, geo.n_bx) != (plan.threads, plan.n_bx):
+        fail(f"{label}: the kernel's blocks ({geo.threads} threads, "
+             f"{geo.n_bx} blocks) are not the plain half's ({plan.threads}, "
+             f"{plan.n_bx})")
 
 
 def qmc_block_ids(geo, n: int, dev) -> dict:
@@ -2531,13 +2627,15 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
         po, cfg, ps, prm = qmc_case(mt, dev, "asian_call", QMC_POINTS,
                                     MAIN_STEPS, "euler", family, False,
                                     QMC_SHIFTS)
-        geo = qmc.kernel_launch(ps)
-        want = {b: qmc_block_plain(po, cfg, ps, prm, ids)
-                for b, ids in qmc_block_ids(geo, ps.n, dev).items()}
+        plan = qmc_block_plan(ps)
+        want = qmc_block_plain(po, cfg, ps, prm, qmc_block_ids(plan, ps.n,
+                                                              dev))
         yield
+        geo = qmc.kernel_launch(ps)
         partials = qmc.qmc_sums(po, cfg, ps, prm)
         label = (f"qmc_sums asian_call {family} euler {ps.n}x{MAIN_STEPS} "
                  f"{ps.n_shifts} shifts")
+        check_block_plan(label, geo, plan)
         if partials.shape[0] != geo.n_bx:
             fail(f"{label}: {partials.shape[0]} blocks, kernel_launch's "
                  f"{geo.n_bx}")
@@ -3107,15 +3205,16 @@ def qmc_model_checks(mt, dev):
         against a launch of that shift alone, bitwise."""
         po, ps, prm, extra = qmc_model_case(mt, dev, model, "vanilla_call",
                                             family, QMC_POINTS, QMC_SHIFTS)
-        geo = qmc.kernel_launch(ps, model, extra)
-        want = {b: finish_sum(qmc.qmc_model_sums_plain(
-            model, po, ps, prm, MAIN_STEPS, extra, ids))
-            for b, ids in qmc_block_ids(geo, ps.n, dev).items()}
+        plan = qmc_block_plan(ps)
+        want = qmc_model_block_plain(model, po, ps, prm, extra,
+                                     qmc_block_ids(plan, ps.n, dev))
         yield
+        geo = qmc.kernel_launch(ps, model, extra)
         partials = qmc.qmc_model_sums(model, po, ps, prm, MAIN_STEPS, extra)
         row = f"qmc_model_sums_{model}"
         label = (f"{row} vanilla_call {family} {ps.n}x{MAIN_STEPS} d={ps.d} "
                  f"{ps.n_shifts} shifts")
+        check_block_plan(label, geo, plan)
         if partials.shape[0] != geo.n_bx:
             fail(f"{label}: {partials.shape[0]} blocks, kernel_launch's "
                  f"{geo.n_bx}")
@@ -3663,7 +3762,21 @@ def main() -> int:
     from mc_tpu_torch.utils import nvidia_smi_name_power
 
     dev = torch.device(DEVICE)
-    t_start = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+
+    # The kernels build in a thread (the CPUs less one) from here, while
+    # the families' checks run their plain versions on the card (step 0).
+    built = {}
+
+    def build():
+        try:
+            _cuda.load()
+        except Exception as e:  # reported, and the run fails, below
+            built["error"] = repr(e)
+        built["seconds"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
 
     laps = [t_start]
 
@@ -3685,7 +3798,6 @@ def main() -> int:
     print(f"phase 1: starts {process_seconds():.1f} s after the process")
     print(f"phase 1: torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} device(s); device 0 = {kind}")
-    t0 = time.perf_counter()
     # The QMC point sets' tables (the lattice's CBC vectors by numpy FFTs,
     # scipy's Sobol directions; host work, cached for the run) are built
     # beside nvcc, which leaves the GPU idle.
@@ -3729,19 +3841,6 @@ def main() -> int:
                             ("fx", FX_TAG), ("rainbow", RAINBOW_TAG),
                             ("rainbow_nmc", RAINBOW_NMC_TAG))}
 
-    # The kernels build in a thread (the CPUs less one), while the
-    # families' checks run their plain versions on the card (step 0).
-    built = {}
-
-    def build():
-        try:
-            _cuda.load()
-        except Exception as e:  # reported, and the run fails, below
-            built["error"] = repr(e)
-        built["seconds"] = time.perf_counter() - t0
-
-    builder = threading.Thread(target=build)
-    builder.start()
     singles = single_families(mt)
 
     # --- Phase 2, first pass: the families' plain versions -------------
@@ -3768,7 +3867,7 @@ def main() -> int:
         lap("the rates checks' plain versions")
     print(f"phase 2: {len(_DEFERRED)} checks' plain halves done "
           f"{time.perf_counter() - t0:.1f} s after the build started")
-    builder.join()
+    build_thread.join()
     if "error" in built:
         fail(f"the kernels' build: {built['error']}")
     print(f"phase 1: built and loaded {_cuda.build_info['path']} in "

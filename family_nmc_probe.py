@@ -3,11 +3,13 @@ family_fused_kernel), or with ``--qmc`` the QMC kernels (#33
 qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
 the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
-basket_partials_kernel, #26 basket_trajectories_kernel), on one CUDA card:
+basket_partials_kernel, #26 basket_trajectories_kernel), or with
+``--partials`` the local-vol and Merton partials kernels (#19
+localvol_partials_kernel, #14 merton_partials_kernel), on one CUDA card:
 what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
 
-    python3 family_nmc_probe.py [--qmc | --gbm | --basket]
+    python3 family_nmc_probe.py [--qmc | --gbm | --basket | --partials]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
@@ -81,6 +83,22 @@ for d = 1, 4, 8, 9, 16, 32, with and without antithetic, and #26 at
 against the first.  ``-DMC_BASKET_PATHS=N`` sets the paths a thread of
 every capacity up to 16.  ``--sass`` writes each listed kernel's SASS
 beside ``--out``.
+
+``--partials`` builds ``localvol_kernels.cu``, each knot capacity's
+``localvol<N>_kernels.cu`` and ``merton_kernels.cu`` (a source without
+``mc_localvol_occupancy`` or ``mc_merton_occupancy``, an older commit's,
+through a unit that adds it) and prints the ptxas resources of the
+VanillaCall threefry-13 instantiations, per shape the resident blocks per
+SM and, where exported, the knot capacity and paths a thread; ``--sass``
+their loops; then it runs 178 small cases (every payoff, K = 2-33, K = 25 at
+300 steps, kmax 1-53, threefry-20, antithetic, an offset and a bound)
+through every variant, each bitwise against the first; ``--time`` runs
+price_localvol's kernel at 1M x 100 on the demo surface (K = 9) and on the
+K = 25 CEV surface and price_merton's Euler (1M x 100) and terminal (1M)
+kernels, with and without antithetic, in turns over the variants, twice,
+each bitwise against the first.  A sweep of the paths a thread or the
+knot capacity edits those constants in a copy of ``csrc`` and passes it as
+a variant.
 
 Everything printed also goes, as JSON, to ``--out`` (default
 ``build/family_probe.json``).  Needs a card; exits 2 without one.
@@ -208,6 +226,8 @@ def probe_sources(src: Path, mode: str, out: Path):
         return [shim]
     if mode == "basket":
         return basket_sources(src, out)
+    if mode == "partials":
+        return partials_sources(src, out)
     return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
             *src.glob("*_nmc32_kernels.cu")]
 
@@ -236,8 +256,9 @@ def build(variants, mode: str = "family"):
     print(f"probe: {len(cmds)} sources compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     logs = {}
-    for (label, name), (err, _) in zip(jobs, runs):
+    for (label, name), (err, sec) in zip(jobs, runs):
         logs.setdefault(label, {})[name] = err
+        print(f"probe: {label} {name} nvcc {sec:.1f} s", flush=True)
     libs = {}
     for label, _, _ in variants:
         out = ROOT / "build" / "probe" / label
@@ -384,6 +405,7 @@ def sass_loops(lib: Path, entry: str, ins=None):
 
 def write_listing(out: str, label: str, name: str, ins) -> None:
     """A kernel's SASS (address, guard, instruction) beside ``out``."""
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
     Path(out).with_suffix(f".{label}.{name[-60:]}.sass").write_text("".join(
         f"{a:05x} {g} {o}{rest}\n" for a, o, rest, g in ins))
 
@@ -1160,12 +1182,330 @@ def basket_main(args, variants, card) -> dict:
 
 
 
+# --- the local-vol and Merton partials kernels (--partials) ------------------
+
+PARTIALS_MAIN = (1_000_000, 100)  # paths, steps: price_localvol/price_merton
+PARTIALS_WARM = 4096
+PARTIALS_EDGE = 16_411            # the bitwise cases' paths: a ragged block
+LV_KNOTS = (2, 9, 10, 11, 16, 25, 33)
+# A csrc that predates the occupancy entry points (the parent's one path a
+# thread): these units add them, for VanillaCall at threefry-13.
+LOCALVOL_SHIM = """#include "{src}/localvol_kernels.cu"
+
+extern "C" int mc_localvol_occupancy(int payoff_id, int n_knots, int antithetic, int* blocks) {{
+  (void)n_knots; (void)antithetic;
+  if (payoff_id != mc::PAYOFF_VANILLA_CALL) return cudaErrorInvalidValue;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::localvol_partials_kernel<mc::VanillaCall, 13>, mc_localvol_block_threads(), 0);
+}}
+"""
+MERTON_SHIM = """#include "{src}/merton_kernels.cu"
+
+extern "C" int mc_merton_occupancy(int payoff_id, int terminal, int antithetic, int* blocks) {{
+  (void)antithetic;
+  if (payoff_id != mc::PAYOFF_VANILLA_CALL) return cudaErrorInvalidValue;
+  const int threads = mc_merton_block_threads();
+  return terminal ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        blocks, mc::merton_partials_kernel<mc::VanillaCall, mc::MertonTerminal, 13>,
+                        threads, 0)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        blocks, mc::merton_partials_kernel<mc::VanillaCall, mc::MertonEuler, 13>,
+                        threads, 0);
+}}
+"""
+
+
+def partials_sources(src: Path, out: Path):
+    """The local-vol and Merton partials sources of ``src`` (each
+    capacity's own ``localvol<N>_kernels.cu`` too, not the NMC's), through
+    a shim where the source has no occupancy entry point."""
+    srcs = []
+    for name, shim, entry in (("localvol", LOCALVOL_SHIM,
+                               "mc_localvol_occupancy"),
+                              ("merton", MERTON_SHIM, "mc_merton_occupancy")):
+        main = src / f"{name}_kernels.cu"
+        if entry in main.read_text():
+            srcs += [main, *(q for q in src.glob(f"{name}[0-9]*_kernels.cu"))]
+        else:
+            unit = out / f"{name}_probe.cu"
+            unit.write_text(shim.format(src=src))
+            srcs.append(unit)
+    return srcs
+
+
+def bind_partials(lib_path: Path):
+    """The local-vol and Merton partials entry points of a variant's
+    library and each kernel's paths a block (``mc_<name>_block_paths``; the
+    parent's: its threads, one path each)."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    tiles = {}
+    for name in ("localvol", "merton"):
+        fn = getattr(lib, f"mc_{name}_partials")
+        fn.argtypes, fn.restype = _cuda._SIGNATURES[f"mc_{name}_partials"]
+        tile = getattr(lib, f"mc_{name}_block_paths", None) or getattr(
+            lib, f"mc_{name}_block_threads")
+        tile.argtypes, tile.restype = [], _int
+        tiles[name] = tile()
+    lib.mc_localvol_occupancy.argtypes = [_int, _int, _int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.mc_merton_occupancy.argtypes = [_int, _int, _int,
+                                        ctypes.POINTER(ctypes.c_int)]
+    for name in ("mc_localvol_capacity", "mc_localvol_paths_per_thread"):
+        if hasattr(lib, name):
+            getattr(lib, name).restype = _int
+    return lib, tiles
+
+
+def partials_layout(lib) -> dict:
+    """Per shape: the resident blocks per SM of the VanillaCall kernel and,
+    where the variant exports them, local vol's knot capacity and paths a
+    thread."""
+    out = {}
+    blocks = ctypes.c_int(0)
+    for k in LV_KNOTS:
+        for anti in (False, True):
+            st = lib.mc_localvol_occupancy(_payoff_id("vanilla_call"), k,
+                                           int(anti), ctypes.byref(blocks))
+            row = dict(blocks_per_sm=blocks.value if st == 0 else None)
+            if hasattr(lib, "mc_localvol_capacity"):
+                row.update(capacity=lib.mc_localvol_capacity(k),
+                           paths_a_thread=lib.mc_localvol_paths_per_thread(
+                               int(anti)))
+            out[f"localvol K={k} anti={anti}"] = row
+    for terminal in (False, True):
+        for anti in (False, True):
+            st = lib.mc_merton_occupancy(_payoff_id("vanilla_call"),
+                                         int(terminal), int(anti),
+                                         ctypes.byref(blocks))
+            row = dict(blocks_per_sm=blocks.value if st == 0 else None)
+            out[f"merton terminal={terminal} anti={anti}"] = row
+    return out
+
+
+def lv_surface(n_knots: int, n_steps: int):
+    """The demo surface's smile on ``n_knots`` knots (K = 25:
+    chip_smoke.py's CEV-shaped gate surface, sigma 0.2 (S/S0)^-0.3 over
+    [-1.5, 1.5])."""
+    import math
+
+    from mc_tpu_torch.models import localvol as lm
+
+    if n_knots == 25:
+        return lm.LocalVolSurface.from_function(
+            lambda x, t: 0.2 * math.exp(-0.3 * x), n_steps, x_lo=-1.5,
+            x_hi=1.5, n_knots=25)
+    return lm.LocalVolSurface.from_function(
+        lambda x, t: 0.2 + 0.1 * x * x + 0.05 * t, n_steps, n_knots=n_knots)
+
+
+def partials_cases(timed: bool):
+    """The --partials cases: (label, kernel, arguments).  Timed: the main
+    shapes; else the bitwise edges (every payoff, each K around the
+    capacities, K = 25 at 300 steps, kmax 1, 4, 10, 53, threefry-20, an
+    offset and a bound, ragged counts)."""
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    n, steps = PARTIALS_MAIN
+    if timed:
+        out = []
+        for k in (9, 25):
+            for anti in (False, True):
+                out.append((f"localvol K={k} anti={anti}", "localvol",
+                            dict(k=k, steps=steps, anti=anti, n=n)))
+        for anti in (False, True):
+            out.append((f"merton euler anti={anti}", "merton",
+                        dict(terminal=False, anti=anti, n=n, steps=steps)))
+        for anti in (False, True):
+            out.append((f"merton terminal anti={anti}", "merton",
+                        dict(terminal=True, anti=anti, n=n, steps=steps)))
+        return out
+    e = PARTIALS_EDGE
+    out = []
+    for name, po in sorted(PAYOFFS.items()):
+        for anti in (False, True):
+            out.append((f"localvol {name} K=9 anti={anti}", "localvol",
+                        dict(k=9, steps=steps, anti=anti, n=e, payoff=name)))
+            out.append((f"merton {name} euler anti={anti}", "merton",
+                        dict(terminal=False, anti=anti, n=e, steps=steps,
+                             payoff=name)))
+            if po.terminal_only:
+                out.append((f"merton {name} terminal anti={anti}", "merton",
+                            dict(terminal=True, anti=anti, n=e, steps=steps,
+                                 payoff=name)))
+    for k in LV_KNOTS:
+        for anti in (False, True):
+            for rounds in (13, 20):
+                for payoff in ("vanilla_call", "asian_call"):
+                    out.append((f"localvol {payoff} K={k} anti={anti} "
+                                f"rounds={rounds}", "localvol",
+                                dict(k=k, steps=steps, anti=anti, n=e,
+                                     rounds=rounds, payoff=payoff)))
+    for anti in (False, True):
+        out.append((f"localvol K=25 300 steps anti={anti}", "localvol",
+                    dict(k=25, steps=300, anti=anti, n=e)))
+        out.append((f"localvol K=9 offset bound anti={anti}", "localvol",
+                    dict(k=9, steps=steps, anti=anti, n=50_001,
+                         offset=12_345, bound=12_345 + 40_000)))
+    for lam_dt, kmax in ((0.003, 1), (0.003, 4), (0.3, 10), (17.0, 53)):
+        for terminal in (False, True):
+            for anti in (False, True):
+                for rounds in (13, 20):
+                    out.append((f"merton lam_dt={lam_dt} kmax={kmax} "
+                                f"terminal={terminal} anti={anti} "
+                                f"rounds={rounds}", "merton",
+                                dict(terminal=terminal, anti=anti, n=e,
+                                     steps=steps, lam=lam_dt * steps,
+                                     kmax=kmax, rounds=rounds)))
+    for terminal in (False, True):
+        out.append((f"merton offset bound terminal={terminal}", "merton",
+                    dict(terminal=terminal, anti=True, n=50_001,
+                         steps=steps, offset=12_345,
+                         bound=12_345 + 40_000)))
+    return out
+
+
+def partials_inputs(kernel: str, a: dict, dev):
+    """(params, key, count) of a --partials case: the packed vector, the
+    key price_<family> derives from seed 1234 and the knot count or kmax."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import localvol as lm
+    from mc_tpu_torch.models import merton as mm
+
+    if kernel == "localvol":
+        prm = lm.pack_localvol(OptionParams(), lv_surface(a["k"], a["steps"]),
+                               a["steps"], dev)
+        tag, count = lm.LOCALVOL_TAG, a["k"]
+    else:
+        dyn = mm.MertonDynamics(lam=a.get("lam", mm.DEMO_MERTON.lam))
+        prm = mm.pack_merton(OptionParams(), dyn, a["steps"], dev)
+        lam = dyn.lam if a["terminal"] else dyn.lam / a["steps"]
+        count = a["kmax"] if "kmax" in a else mm.poisson_kmax(lam)
+        tag = mm.MERTON_TAG
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
+                                                tag))
+    return prm, key, count
+
+
+def run_partials(lib, tiles, kernel: str, a: dict, inputs, n_paths=None):
+    """(partials, ms) of one localvol or merton partials call."""
+    prm, (k0, k1), count = inputs
+    n = n_paths or a["n"]
+    offset = a.get("offset", 0)
+    bound = a.get("bound", offset + n)
+    n_blocks = min(-(-n // tiles[kernel]), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    pid = _payoff_id(a.get("payoff", "vanilla_call"))
+    rounds, anti = a.get("rounds", 13), int(a["anti"])
+    stream = torch.cuda.current_stream().cuda_stream
+    t = _events()
+    if kernel == "localvol":
+        st = lib.mc_localvol_partials(pid, rounds, anti, k0, k1, prm.data_ptr(),
+                                      count, a["steps"], n, offset, bound,
+                                      part.data_ptr(), n_blocks, stream)
+    else:
+        st = lib.mc_merton_partials(pid, int(a["terminal"]), rounds, anti, k0,
+                                    k1, prm.data_ptr(), count, a["steps"], n,
+                                    offset, bound, part.data_ptr(), n_blocks,
+                                    stream)
+    t.append(_event())
+    _check(st, f"{kernel}_partials")
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1])
+
+
+def partials_main(args, variants, card) -> dict:
+    """The --partials probe: resources, SASS, the bitwise edges and the
+    times of the local-vol (#19) and Merton (#14) partials kernels."""
+    libs = build(variants, "partials")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"(24localvol_partials_kernel|22merton_partials_kernel)"
+                      r"INS_11VanillaCallE.*Li13E")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, tiles = bind_partials(lib_path)
+        bound[label] = (lib, tiles)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = sorted(e for e in res if want.search(e))
+        funcs = (sass_functions(lib_path, lambda f: f in entries)
+                 if args.sass else {})
+        rows = {}
+        for e in entries:
+            r = dict(res[e])
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+                write_listing(args.out, label, e, funcs[e])
+            rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        layout = partials_layout(lib)
+        print(f"probe {label}: partials layout (VanillaCall) tiles {tiles} "
+              f"{layout} {card}", flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout,
+                                         tiles=tiles, ptxas=logs)
+    order = list(bound) + list(bound)[::-1]
+    # the bitwise edges: once per variant, each against the first's
+    edges, bad = {}, 0
+    for case, kernel, a in partials_cases(timed=False):
+        inputs = partials_inputs(kernel, a, dev)
+        ref = None
+        for label in bound:
+            lib, tiles = bound[label]
+            part, _ = run_partials(lib, tiles, kernel, a, inputs)
+            ref = part if ref is None else ref
+            same = bool(torch.equal(part, ref))
+            edges.setdefault(case, {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {case} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        times = {}
+        for case, kernel, a in partials_cases(timed=True):
+            inputs = partials_inputs(kernel, a, dev)
+            ref = None
+            for label in order:
+                lib, tiles = bound[label]
+                run_partials(lib, tiles, kernel, a, inputs, PARTIALS_WARM)
+                part, ms = run_partials(lib, tiles, kernel, a, inputs)
+                ref = part if ref is None else ref
+                same = bool(torch.equal(part, ref))
+                times.setdefault(case, {}).setdefault(label, []).append(
+                    dict(ms=ms, bitwise=same))
+                print(f"probe time {case} {a['n']}x{a['steps']} {label}: "
+                      f"{ms:.4f} ms, partials bitwise vs {order[0]}: {same} "
+                      f"{card}", flush=True)
+                if not same:
+                    print(f"FAIL: {case} {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--qmc", action="store_true")
     mode.add_argument("--gbm", action="store_true")
     mode.add_argument("--basket", action="store_true")
+    mode.add_argument("--partials", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
@@ -1194,6 +1534,8 @@ def main() -> int:
         return write_report(args.out, gbm_main(args, variants, card))
     if args.basket:
         return write_report(args.out, basket_main(args, variants, card))
+    if args.partials:
+        return write_report(args.out, partials_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")

@@ -14,10 +14,11 @@
 //
 // The partials and trajectories kernels read the surface in global memory
 // (every thread of a warp reads the same slope row: one broadcast load from
-// L1).  The family NMC sweep (lv_steps) reads each row once for its kLegs
-// legs, from the block's staged copy when the surface fits the shared
-// budget (3.7 KB at K = 9, n_steps = 100; 10 KB at K = 25) and where it
-// lies when it does not.
+// L1); the partials kernel (localvol_partials.cuh) reads each row once for
+// its lockstep legs.  The family NMC sweep (lv_steps) reads each row once
+// for its kLegs legs, from the block's staged copy when the surface fits the
+// shared budget (3.7 KB at K = 9, n_steps = 100; 10 KB at K = 25) and where
+// it lies when it does not.
 #pragma once
 
 #include <cstdint>

@@ -98,10 +98,17 @@ _SIGNATURES = {
     "mc_reduce_block_threads": ([], _c_int),
     "mc_heston_block_threads": ([], _c_int),
     "mc_family_block_threads": ([], _c_int),
-    "mc_merton_block_threads": ([], _c_int),
+    "mc_merton_block_paths": ([], _c_int),
+    # payoff_id, terminal, antithetic, blocks
+    "mc_merton_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
     "mc_bates_block_threads": ([], _c_int),
     "mc_cev_block_threads": ([], _c_int),
-    "mc_localvol_block_threads": ([], _c_int),
+    "mc_localvol_block_paths": ([], _c_int),
+    "mc_localvol_capacity": ([_c_int], _c_int),
+    # antithetic
+    "mc_localvol_paths_per_thread": ([_c_int], _c_int),
+    # payoff_id, n_knots, antithetic, blocks
+    "mc_localvol_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
     "mc_sabr_block_threads": ([], _c_int),
     "mc_term_block_threads": ([], _c_int),
     "mc_divs_block_threads": ([], _c_int),

@@ -89,7 +89,8 @@ __all__ = ["MAX_LATTICE_N", "SOBOL_BITS", "SOBOL_ID_BITS", "QMC_TAG",
            "bridge_draw_pair", "qmc_pointset", "qmc_sums", "qmc_sums_plain",
            "finish_qmc", "price_qmc", "QMC_MODELS", "QMCModel",
            "qmc_model_dynamics", "qmc_model_pointset", "qmc_model_discount",
-           "qmc_model_sums", "qmc_model_sums_plain", "price_qmc_model"]
+           "qmc_model_sums", "qmc_model_sums_plain", "qmc_model_payoffs",
+           "price_qmc_model"]
 
 MAX_LATTICE_N = 1 << 20  # the exact int32 residue's bound
 SOBOL_BITS = 30          # scipy's Joe-Kuo direction numbers are scaled to 2^30
@@ -862,19 +863,28 @@ def qmc_model_sums_plain(model: str, payoff: PathPayoff, ps: QMCPointSet,
     """Plain version of the qmc_model_sums kernel: (chunks, R, 1) f64, row c
     the payoff sums of chunk c's points through ``model``'s leg under each
     shift.  ``ids``: the (int64) point ids to sum, by default all ``ps.n``."""
-    m = _check_model(model, payoff, ps, params, n_steps, extra)
-    p = m.unpack(params, extra)
+    _check_model(model, payoff, ps, params, n_steps, extra)
     if ids is None:
         ids = torch.arange(ps.n, dtype=torch.int64, device=params.device)
     per = max(1, PLAIN_ELEMS[params.device.type] // ps.n_shifts)
     rows = []
     for chunk in ids.split(per):
-        like = torch.zeros((ps.n_shifts, chunk.shape[0]),
-                           dtype=torch.float32, device=params.device)
-        pay = m.leg(payoff, p, n_steps, like,
-                    qmc_draw_pair(ps, chunk, "euler"))
+        pay = qmc_model_payoffs(model, payoff, ps, params, n_steps, extra,
+                                chunk)
         rows.append(pay.double().sum(dim=1, keepdim=True))
     return torch.stack(rows)
+
+
+def qmc_model_payoffs(model: str, payoff: PathPayoff, ps: QMCPointSet,
+                      params: torch.Tensor, n_steps: int, extra: int,
+                      ids: torch.Tensor) -> torch.Tensor:
+    """(R, len(ids)) f32: the payoffs of the points ``ids`` (int64) through
+    ``model``'s leg under each shift, the plain version's per-point values."""
+    m = _check_model(model, payoff, ps, params, n_steps, extra)
+    like = torch.zeros((ps.n_shifts, ids.shape[0]), dtype=torch.float32,
+                       device=params.device)
+    return m.leg(payoff, m.unpack(params, extra), n_steps, like,
+                 qmc_draw_pair(ps, ids, "euler"))
 
 
 def qmc_model_sums(model: str, payoff: PathPayoff, ps: QMCPointSet,
