@@ -16,7 +16,9 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    all 18 payoffs (with resume, multi-word resume, importance sampling and
    the geometric control variate too), the terminal kernels for the six
    terminal-only payoffs, trajectories and both NMC kernels for the payoffs
-   with one state word, the strike ladder and the batched book, the greek
+   with one state word, the strike ladder and the batched book (bullet,
+   Asian, down-and-in and vanilla Euler books, antithetic and with the
+   control variate, a ragged last contract group, and book64), the greek
    kernel for the five pathwise payoffs and the two reductions up to 2^26
    elements (one view misaligned); the Heston kernel for its 16 payoffs
    (Euler and QE, threefry-13 and -20, antithetic, 1M x 100), the Heston
@@ -30,7 +32,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    CEV-gate surface, 1M x 100), the local-vol trajectories and the generic
    trajectories under CEV (every one-word payoff) and the CEV and local-vol
    family NMC kernels; the SABR kernel (16 payoffs, threefry-13 and -20,
-   antithetic, 1M x 100), the term-structure and cash-dividend kernels (18
+   antithetic, 1M x 100, at the demo's beta = 1 and at beta = 0.5, the two
+   instantiations), the term-structure and cash-dividend kernels (18
    payoffs each, on steep curves and two payments, antithetic, 1M x 100),
    the generic trajectories under SABR and term and their family NMC
    kernels; the Vasicek kernel (18 payoffs, threefry-13 and -20,
@@ -184,6 +187,8 @@ Without a CUDA device it prints no result and exits 2.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -651,8 +656,11 @@ def ptxas_resources(log: str) -> dict:
             if r and r.group(2) is not None:  # kernel<P, N, bool>
                 rounds = (rounds, int(r.group(2)))
             ints = re.findall(r"L[ib](\d+)E", rest[p.end():]) if p else []
-            if len(ints) > 2:  # localvol_partials_kernel<P, R, C, bool>
+            if len(ints) > 2:  # localvol_partials_kernel<P, R, C, bool>,
+                # sabr_partials_kernel<P, R, unit beta, antithetic>
                 rounds = tuple(int(i) for i in ints)
+            if kernel == "book_kernel" and ints:  # book_kernel<P, CV>
+                rounds = int(ints[0])
             entry = (kernel, payoff, rounds)
             out[entry] = {}
             continue
@@ -1828,8 +1836,12 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
 CEV_STEP_OPS = (0, 10, 2)
 # A SABR step on top of its whole threefry pair (sabr.cuh): z_f (3), the
 # local vol sig*expf((beta-1)*lf) (3 and an expf), lf (7), the vol factor
-# (7 and an expf), F = expf(lf) (an expf).
+# (7 and an expf), F = expf(lf) (an expf): the family NMC's leg.
 SABR_STEP_OPS = (0, 20, 3)
+# #17's least work a step at the demo's beta = 1, where the local vol is sig:
+# z_f (3), lf (7), the vol factor (7 and an expf); the call reads F =
+# expf(lf) once a path (SPOT_OPS).
+SABR_UNIT_STEP_OPS = (0, 17, 1)
 # A cash-dividend step on top of its half pair (divs.cuh): the factor's
 # exponent (2), S*expf (1 and an expf), the drop and its floor (2).
 DIVS_STEP_OPS = (0, 5, 1)
@@ -1996,7 +2008,14 @@ def single_families(mt):
                 ("bullet_call", EDGE_PATHS, smile(11), rng20[1]),
                 ("vanilla_call", EDGE_PATHS, smile(32), rng20[2]),
                 ("asian_call", EDGE_PATHS, smile(33), anti[0]))
-    sabr = (("", sm.DEMO_SABR),)
+    # the demo (beta = 1: the unit-beta kernel) and beta = 0.5 (the general)
+    sabr = (("", sm.DEMO_SABR),
+            ("beta=0.5", dataclasses.replace(sm.DEMO_SABR, beta=0.5)))
+
+    def sabr_key(dyn):  # the kernel's template: <P, 13, unit beta, false>
+        return 13, int(sm.sabr_unit_beta(sm.pack_sabr(
+            mt.DEMO_OPTION, dyn, MAIN_STEPS, "cpu"))), 0
+
     # rates 12% down to 2%, vols 10% up to 40%
     steep = (("steep curves", tm.TermStructure.from_knots(
         [0.12, 0.08, 0.04, 0.02], [0.1, 0.2, 0.3, 0.4], MAIN_STEPS)),)
@@ -2034,9 +2053,11 @@ def single_families(mt):
         Single(family="sabr", kernels=SABR_KERNELS, model=sm,
                config=config(sm.SABRConfig), pack=sm.pack_sabr,
                tpu="models/sabr.py:177", checks=sabr, payoffs=sv,
-               variants=rng20, timed=sabr, ref="heston_partials", rounds=13,
-               path=_add(_scale(_add(pair_ops(13), SABR_STEP_OPS),
-                                MAIN_STEPS), TERMINAL_OPS),
+               variants=rng20, timed=sabr, ref="heston_partials",
+               rounds=sabr_key,
+               path=_add(_scale(_add(pair_ops(13), SABR_UNIT_STEP_OPS),
+                                MAIN_STEPS), SPOT_OPS, TERMINAL_OPS),
+               edge_variants=True, partials_src="sabr_partials.cuh",
                nmc=SingleNMC(
                    fam=SABRNMC(), dyn=lambda n: sm.DEMO_SABR,
                    traj_tpu=generic, struct="SABRFamily", n_grids=2,
@@ -4239,12 +4260,29 @@ def main() -> int:
         ladder_case(call, pk.KernelConfig(n_paths=LADDER_PATHS,
                                           n_steps=MAIN_STEPS,
                                           method="terminal"), strikes_t))
+    # The small books: each way a contract's leg reads the spot (the
+    # bullet's and the down-and-in's barrier test on w, the Asian's spot at
+    # each step, the call's at the end; csrc/barrier.cuh StateRead), a
+    # ragged last contract group (13 contracts in groups of 8), antithetic
+    # and the control variate.
     nb, nb_paths = BOOK_SMALL
-    rows_small = pk.pack_params_rows(book_options(mt, nb), MAIN_STEPS, dev)
+    small = book_options(mt, nb)
+    rows_small = pk.pack_params_rows(small, MAIN_STEPS, dev)
+    rows_down = pk.pack_params_rows(dataclasses.replace(
+        small, barrier=np.full(nb, 90.0, np.float32)), MAIN_STEPS, dev)
+    asian, down_in = get_payoff("asian_call"), get_payoff("down_in_call")
+    anti_cv = dict(antithetic=True, with_cv=True)
     book_err = max(book_case(po, pk.KernelConfig(
-        n_paths=nb_paths, n_steps=MAIN_STEPS, **kw), rows_small)[0]
-        for po, kw in ((bullet, {}), (bullet, dict(antithetic=True)),
-                       (call, dict(with_cv=True))))
+        n_paths=nb_paths, n_steps=MAIN_STEPS, **kw), rows)[0]
+        for po, kw, rows in ((bullet, {}, rows_small),
+                             (bullet, dict(antithetic=True), rows_small),
+                             (call, dict(with_cv=True), rows_small),
+                             (call, {}, rows_small),
+                             (asian, {}, rows_small),
+                             (asian, anti_cv, rows_small),
+                             (down_in, {}, rows_down),
+                             (down_in, anti_cv, rows_down),
+                             (bullet, anti_cv, rows_small[:13])))
     nb, nb_paths = BOOK_MAIN
     book64 = book_options(mt, nb)
     rows_main = pk.pack_params_rows(book64, MAIN_STEPS, dev)
@@ -4965,6 +5003,15 @@ def main() -> int:
     seq_ms, sp_seq, _ = cuda_ms(lambda: [pk.simulate_partials(
         bullet, cfg_bk, key, rows_main[b]) for b in range(nb)])
     book_steps = nb * nb_paths * MAIN_STEPS
+    lib = _cuda.load()
+    blocks = ctypes.c_int(0)
+    _cuda.check(lib.mc_book_occupancy(
+        bullet.cuda_id, 1, MAIN_STEPS, pk.book_block_threads(cfg_bk),
+        ctypes.byref(blocks)), "mc_book_occupancy")
+    print(f"phase 5: book bullet {nb} x {nb_paths} x {MAIN_STEPS}: "
+          f"{pk.book_block_threads(cfg_bk)} threads a block, {blocks.value} "
+          f"blocks/SM, {lib.mc_book_contracts(bullet.cuda_id)} contracts a "
+          f"replayed draw {tag}")
     print(f"phase 5: book bullet {nb} x {nb_paths} x {MAIN_STEPS}: kernel "
           f"{book_ms:.4f} ms (spread {sp:.1%}), {book_steps / book_ms * 1e3:.4e}"
           f" contract-path-steps/s; {nb} sequential simulate_partials "
@@ -4980,7 +5027,9 @@ def main() -> int:
         prm = pk.pack_params(payoff_option(mt, name), MAIN_STEPS, dev)
         line = (f"registers simulate {regs.get(('simulate_kernel', struct, 13))}"
                 f", ladder {regs.get(('ladder_kernel', struct, None))}, book "
-                f"{regs.get(('book_kernel', struct, None))}")
+                f"{regs.get(('book_kernel', struct, 0))} (CV "
+                f"{regs.get(('book_kernel', struct, 1))}, "
+                f"{lib.mc_book_contracts(po.cuda_id)} contracts a draw)")
         if not po.terminal_only:
             ms, sp, _ = cuda_ms(lambda po=po, prm=prm: pk.simulate_partials(
                 po, cfg_b, key, prm))
@@ -5130,6 +5179,24 @@ def main() -> int:
     stamp(6)
     nmc_bytes = 4 * n_out * n_steps  # the surface
     nmc_ops = _scale(inner_ops("bullet_call", n_steps, n_inner), n_out)
+    # The book: the draws once per path; per contract a step moves w (3)
+    # and counts it against the contract's threshold (2), with no expf, and
+    # the leg forms S once, at maturity; each block finds each contract's
+    # threshold once.
+    book_ops = _add(
+        _scale(_add(_scale(pair_ops(13), (MAIN_STEPS + 1) // 2),
+                    _scale(_add(_scale(_add(NMC_STEP_OPS,
+                                            UPDATE_OPS["bullet_call"]),
+                                       MAIN_STEPS), SPOT_OPS, TERMINAL_OPS),
+                           nb)), nb_paths),
+        _scale(THRESHOLD_OPS, nb * _cuda.cdiv(nb_paths, 256)))
+    sabr_ops = _scale(next(s for s in singles if s.family == "sabr").path,
+                      FAMILY_MAIN)
+    for row, ops in (("book", book_ops), ("sabr_partials", sabr_ops)):
+        print(f"phase 6: {row} bound terms: int32 "
+              f"{ops[0] / INT32_OPS_PER_S * 1e3:.4f} ms, f32 "
+              f"{ops[1] / F32_OPS_PER_S * 1e3:.4f} ms, SFU "
+              f"{ops[2] / SFU_OPS_PER_S * 1e3:.4f} ms {tag}")
     outer_ops = _scale(path_ops("bullet_call", n_steps, 13), n_out)
     bounds = {
         "terminal_pair": bound(
@@ -5147,14 +5214,8 @@ def main() -> int:
             + 16 * len(strikes) * _cuda.cdiv(LADDER_PATHS, 256),
             _scale(_add(pair_ops(13), TERMINAL_DRAW_OPS,
                         _scale(TERMINAL_OPS, len(strikes))), LADDER_PATHS)),
-        # the draws once per path, the step loop once per contract
-        "book": bound(
-            60 * nb + 16 * nb * _cuda.cdiv(nb_paths, 256),
-            _scale(_add(_scale(pair_ops(13), (MAIN_STEPS + 1) // 2),
-                        _scale(_add(_scale(_add(STEP_OPS,
-                                                UPDATE_OPS["bullet_call"]),
-                                           MAIN_STEPS), TERMINAL_OPS), nb)),
-                   nb_paths)),
+        "book": bound(60 * nb + 16 * nb * _cuda.cdiv(nb_paths, 256),
+                      book_ops),
         # the Asian's path and its tangents
         "greek_partials": bound(0, _scale(_add(
             path_ops("asian_call", MAIN_STEPS, 13),

@@ -5,11 +5,13 @@ the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
 basket_partials_kernel, #26 basket_trajectories_kernel), or with
 ``--partials`` the local-vol and Merton partials kernels (#19
-localvol_partials_kernel, #14 merton_partials_kernel), on one CUDA card:
+localvol_partials_kernel, #14 merton_partials_kernel), or with ``--sabr``
+the SABR partials kernel (#17 sabr_partials_kernel), on one CUDA card:
 what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
 
-    python3 family_nmc_probe.py [--qmc | --gbm | --basket | --partials]
+    python3 family_nmc_probe.py [--qmc | --gbm | --basket | --partials |
+                                 --sabr]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
@@ -61,9 +63,17 @@ against its fused one.  A variant whose library does not export its legs a
 thread (``mc_nmc_legs``) is called through the entry points as they were
 before the leg groups were passed in.  ``-DMC_NMC_LEGS=N`` sets a
 variant's legs a thread.
-``--time`` also times the book kernel (#7, ``batch_kernels.cu``, built into
-the same library: it shares the bullet and the draw) on chip_smoke.py's
-bullet book64, 64 x 2^20 x 100, in turns, bitwise against the first.
+``--gbm`` also builds the book kernel (#7, ``batch_kernels.cu``, into the
+same library: it shares the bullet and the draw; a source without
+``mc_book_occupancy``, an older commit's, through the unit's addition of
+it), prints its resources, blocks per SM at 100 steps and (``--sass``) its
+loops, and runs 265 edge books (every payoff on 5 contracts, plain,
+antithetic, with the control variate and by the terminal draw; 1 to 300
+contracts; 1 to 217 steps; barriers 0, -1, +-inf, NaN, spots 0, -0, -50,
++inf, NaN, sigma 0 and 1e19, an infinite drift, on every contract or two)
+through every variant, each bitwise against the first; ``--time`` also
+times it on chip_smoke.py's bullet book64, 64 x 2^20 x 100, in turns,
+bitwise against the first.
 ``--gbm`` also runs the library's check of two premises of the kernels on
 every input they can meet (``mc_nmc_libm_check``, as chip_smoke.py's phase
 2 does, through the first variant that exports it): that ``sincosf`` is
@@ -99,6 +109,22 @@ kernels, with and without antithetic, in turns over the variants, twice,
 each bitwise against the first.  A sweep of the paths a thread or the
 knot capacity edits those constants in a copy of ``csrc`` and passes it as
 a variant.
+
+``--sabr`` builds ``sabr_kernels.cu`` and ``sabr1_kernels.cu`` (the
+unit-beta instantiations; a source without ``mc_sabr_occupancy``, an older
+commit's, through a unit that adds it and is called through the entry
+point before its unit-beta argument) and prints the ptxas resources of the
+VanillaCall and BulletCall threefry-13 instantiations, per beta class and
+antithetic the resident blocks per SM and paths a thread; ``--sass`` their
+loops with the MUFU functions in each; then it runs 276 edge cases (every
+payoff at beta 1 and 0.5, plain and antithetic; threefry-20; an offset and
+a bound; 1, 2 and 7 steps; 2^21 + 4,099 paths, over the grid's threads; at
+beta 1 alpha 0, -0, 1e19, inf, NaN, a forward of 0, 1e38, inf, NaN, nu 0
+and 60, rho +-1, barriers 0, -1, +-inf, NaN) through every variant, each
+bitwise against the first; ``--time`` runs price_sabr's kernel at 1M x 100
+on the call at beta 1 (the demo) and 0.5, antithetic and not, the bullet
+and the Asian at beta 1, and the beta = 1 call through the general-beta
+kernel, in turns over the variants, twice, each bitwise against the first.
 
 Everything printed also goes, as JSON, to ``--out`` (default
 ``build/family_probe.json``).  Needs a card; exits 2 without one.
@@ -212,6 +238,32 @@ extern "C" int probe_nmc_occupancy(int payoff_id, int fused, int* blocks) {{
   }}
 }}
 """
+# A batch_kernels.cu that predates mc_book_occupancy (one template argument,
+# the buffer 8 bytes a pair and thread): this adds it to the --gbm unit.
+BOOK_OCCUPANCY_SHIM = """
+template <class P>
+static int probe_book_occupancy(int euler, int n_steps, int threads, int* blocks) {{
+  const int n_pairs = euler ? (n_steps + 1) / 2 : 1;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(n_pairs) * threads;
+  if (smem > 48 * 1024) {{
+    const cudaError_t err = cudaFuncSetAttribute(
+        mc::book_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }}
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::book_kernel<P>, threads, smem);
+}}
+
+extern "C" int mc_book_occupancy(int payoff_id, int euler, int n_steps, int threads,
+                                 int* blocks) {{
+  switch (payoff_id) {{
+    case mc::PAYOFF_BULLET_CALL:
+      return probe_book_occupancy<mc::BulletCall>(euler, n_steps, threads, blocks);
+    case mc::PAYOFF_VANILLA_CALL:
+      return probe_book_occupancy<mc::VanillaCall>(euler, n_steps, threads, blocks);
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
 
 
 def probe_sources(src: Path, mode: str, out: Path):
@@ -222,8 +274,13 @@ def probe_sources(src: Path, mode: str, out: Path):
                 *(p for p in src.glob("qmc_*_kernels.cu"))]
     if mode == "gbm":
         shim = out / "nmc_probe.cu"
-        shim.write_text(GBM_SHIM.format(src=src))
+        text = GBM_SHIM
+        if "mc_book_occupancy" not in (src / "batch_kernels.cu").read_text():
+            text += BOOK_OCCUPANCY_SHIM
+        shim.write_text(text.format(src=src))
         return [shim]
+    if mode == "sabr":
+        return sabr_sources(src, out)
     if mode == "basket":
         return basket_sources(src, out)
     if mode == "partials":
@@ -506,6 +563,13 @@ def _events():
     return [_event()]
 
 
+def same_bits(a, b) -> bool:
+    """a and b bit for bit, but that a NaN may carry another payload."""
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan()) and torch.equal(
+        a[~nan].view(torch.int64), b[~nan].view(torch.int64)))
+
+
 def _check(status, what):
     if status:
         raise RuntimeError(f"{what}: CUDA error {status}")
@@ -769,6 +833,9 @@ def bind_gbm(lib_path: Path):
     lib.probe_nmc_occupancy.argtypes = [_int, _int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.probe_nmc_occupancy.restype = _int
+    lib.mc_book_occupancy.argtypes = [_int, _int, _int, _int,
+                                      ctypes.POINTER(ctypes.c_int)]
+    lib.mc_book_occupancy.restype = _int
     if hasattr(lib, "mc_nmc_libm_check"):
         lib.mc_nmc_libm_check.argtypes, lib.mc_nmc_libm_check.restype = (
             _cuda._SIGNATURES["mc_nmc_libm_check"])
@@ -842,6 +909,12 @@ def run_gbm(lib, legs, payoff: str, inputs):
 BOOK_MAIN = (64, 1 << 20, 100)  # contracts, paths, steps: chip_smoke's book64
 
 
+def book_threads(cfg) -> int:
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    return pk.book_block_threads(cfg)
+
+
 def book_inputs(dev):
     """(KernelConfig, parameter rows) of chip_smoke.py's book64 bullet book:
     strikes U(80, 120) and vols U(0.1, 0.4) from default_rng(7), S0 = 100,
@@ -863,8 +936,9 @@ def book_inputs(dev):
     return cfg, pk.pack_params_rows(opt, n_steps, dev)
 
 
-def run_book(lib, inputs):
-    """(partials, ms) of one book kernel call through ``lib``."""
+def run_book(lib, inputs, payoff: str = "bullet_call"):
+    """(partials, ms) of one book kernel call through ``lib``: paths 0 ..
+    n_paths-1 of key (1234, 5678), every one valid."""
     from mc_tpu_torch.ops import path_kernels as pk
     from mc_tpu_torch.ops.payoffs import get_payoff
 
@@ -875,13 +949,90 @@ def run_book(lib, inputs):
                        dtype=torch.float64, device=rows.device)
     t = _events()
     _check(lib.mc_book_partials(
-        get_payoff("bullet_call").cuda_id, 1, 0, 0, 1234, 5678,
+        get_payoff(payoff).cuda_id, int(cfg.method == "euler"),
+        int(cfg.antithetic), int(cfg.with_cv), 1234, 5678,
         rows.data_ptr(), rows.shape[0], cfg.n_steps, cfg.n_paths, 0,
         cfg.n_paths, threads, part.data_ptr(), cfg.n_moments, n_blocks,
         torch.cuda.current_stream().cuda_stream), "book")
     t.append(_event())
     torch.cuda.synchronize()
     return part, t[0].elapsed_time(t[1])
+
+
+BOOK_EDGE_PATHS = 4_099  # a ragged last block
+
+
+def book_edge_cases(dev):
+    """The book's bitwise edges: (label, payoff, (KernelConfig, rows)).
+    Every payoff on 5 contracts (a ragged contract group), plain,
+    antithetic and with the control variate, and the terminal draw; book64
+    bullet on the main parameters with 1, 3, 63 and 300 contracts (more
+    than a block's threads), 33 and 217 steps (a 128-thread block); the
+    barrier books (bullet, up-and-out, down-and-in) with barriers 0, -1,
+    +-inf and NaN, spots 0, -0, -50, +inf and NaN, sigma 0 and 1e19 (an
+    infinite log-price) and an infinite drift."""
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    def book(n, at=None, **fix):
+        """n contracts from default_rng(11), the fields of ``fix`` set on
+        contracts ``at`` (default all)."""
+        gen = np.random.default_rng(11)
+        f = dict(s0=gen.uniform(80, 120, n), t=np.full(n, 1.0),
+                 k=gen.uniform(80, 120, n), r=np.full(n, 0.05),
+                 sigma=gen.uniform(0.1, 0.4, n),
+                 barrier=gen.uniform(90, 130, n), p1=np.full(n, 10.0),
+                 p2=np.full(n, 50.0), q=np.full(n, 0.01))
+        for name, v in fix.items():
+            f[name][slice(None) if at is None else list(at)] = v
+        return OptionParams(**{k: v.astype(np.float32) for k, v in f.items()})
+
+    special = {"variance_swap": dict(k=0.04),
+               "forward_start_call": dict(k=1.0, p1=30.0),
+               "cliquet": dict(k=10.0, p1=-0.05, p2=0.05)}
+    out = []
+
+    def add(label, payoff, opts, steps=100, n=BOOK_EDGE_PATHS, **kw):
+        cfg = pk.KernelConfig(n_paths=n, n_steps=steps, **kw)
+        out.append((label, payoff, (cfg, pk.pack_params_rows(opts, steps,
+                                                              dev))))
+
+    for name, po in sorted(PAYOFFS.items()):
+        opts = book(5, **special.get(name, {}))
+        for kw in (dict(), dict(antithetic=True), dict(with_cv=True),
+                   dict(antithetic=True, with_cv=True)):
+            add(f"book {name} 5 contracts {kw}", name, opts, **kw)
+        if po.terminal_only:
+            for anti in (False, True):
+                add(f"book {name} terminal anti={anti}", name, opts,
+                    method="terminal", antithetic=anti)
+    main = book_inputs(dev)[1].cpu()
+    for n in (1, 3, 63):
+        out.append((f"book64 bullet first {n} contracts", "bullet_call",
+                    (pk.KernelConfig(n_paths=BOOK_EDGE_PATHS, n_steps=100),
+                     main[:n].contiguous().to(dev))))
+    add("book bullet 300 contracts", "bullet_call", book(300))
+    add("book bullet 300 contracts cv", "bullet_call", book(300),
+        with_cv=True)
+    for steps in (1, 2, 33, 217):
+        add(f"book bullet 5 contracts {steps} steps anti", "bullet_call",
+            book(5), steps=steps, antithetic=True)
+        add(f"book asian 5 contracts {steps} steps", "asian_call", book(5),
+            steps=steps)
+    edges = [dict(barrier=0.0), dict(barrier=-1.0), dict(barrier=np.inf),
+             dict(barrier=-np.inf), dict(barrier=np.nan), dict(s0=0.0),
+             dict(s0=-0.0), dict(s0=-50.0), dict(s0=-50.0, barrier=-60.0),
+             dict(s0=np.inf), dict(s0=np.nan), dict(sigma=0.0),
+             dict(sigma=1e19), dict(r=1e38)]
+    for name in ("bullet_call", "up_out_call", "down_in_call"):
+        for fix in edges:
+            for at in (None, (1, 4)):
+                opts = book(5, at, **fix)
+                add(f"book {name} {fix} on {at or 'all'}", name, opts)
+                add(f"book {name} {fix} on {at or 'all'} anti cv", name,
+                    opts, antithetic=True, with_cv=True)
+    return out
 
 
 def gbm_main(args, variants, card) -> dict:
@@ -926,8 +1077,56 @@ def gbm_main(args, variants, card) -> dict:
                     for lp in r["sass"]["loops"]:
                         print(f"  loop {lp}")
                     write_listing(args.out, label, f"{kernel}.{name}", funcs[e])
+        book_rows = {}
+        book_cfg = book_inputs(torch.device("cpu"))[0]
+        threads = book_threads(book_cfg)
+        for e in sorted(x for x in res if re.search(
+                r"11book_kernelINS_(10BulletCall|11VanillaCall)E", x)):
+            r = dict(res[e])
+            if args.sass:
+                ins = sass_functions(lib_path, lambda f, e=e: f == e).get(e)
+                if ins:
+                    n_ins, loops = sass_loops(lib_path, e, ins)
+                    r["sass"] = dict(instructions=n_ins, loops=loops,
+                                     total=sass_classes(ins))
+                    write_listing(args.out, label, e, ins)
+            book_rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        for name in ("bullet_call", "vanilla_call"):
+            blocks = ctypes.c_int(0)
+            st = lib.mc_book_occupancy(get_payoff(name).cuda_id, 1,
+                                       book_cfg.n_steps, threads,
+                                       ctypes.byref(blocks))
+            book_rows[f"{name} blocks_per_sm"] = (blocks.value if st == 0
+                                                  else None)
+        print(f"probe {label}: book at {book_cfg.n_steps} steps, {threads} "
+              f"threads: blocks/SM bullet "
+              f"{book_rows['bullet_call blocks_per_sm']}, vanilla "
+              f"{book_rows['vanilla_call blocks_per_sm']} {card}", flush=True)
         report["variants"][label] = dict(src=str(src), defines=defines,
-                                         kernels=rows, ptxas=logs)
+                                         kernels=rows, book=book_rows,
+                                         ptxas=logs)
+    edges, bad = {}, 0
+    for case, payoff, inputs in book_edge_cases(dev):
+        ref = None
+        for label in bound:
+            part, _ = run_book(bound[label][0], inputs, payoff)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(case, {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {case} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe book edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["book_edges"] = edges
     checker = next((lib for lib, _ in bound.values()
                     if hasattr(lib, "mc_nmc_libm_check")), None)
     if checker is not None:
@@ -1498,6 +1697,284 @@ def partials_main(args, variants, card) -> dict:
     return report
 
 
+# --- the SABR partials kernel (--sabr) ----------------------------------------
+
+SABR_MAIN = (1_000_000, 100)  # paths, steps: price_sabr's kernel (phase 5)
+SABR_WARM = 4096
+SABR_EDGE = 16_411            # the bitwise cases' paths: a ragged block
+# A csrc that predates mc_sabr_occupancy (one path a thread, no unit-beta
+# instantiations): this unit adds it, for VanillaCall at threefry-13.
+SABR_SHIM = """#include "{src}/sabr_kernels.cu"
+
+extern "C" int mc_sabr_occupancy(int unit_beta, int antithetic, int* blocks) {{
+  (void)unit_beta; (void)antithetic;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::sabr_partials_kernel<mc::VanillaCall, 13>, mc_sabr_block_threads(), 0);
+}}
+"""
+# The entry point before the unit-beta argument (an older commit's csrc).
+_OLD_SABR_ABI = [_int, _int, _int, _u32, _u32, _ptr, _int, _u32, _u32, _u32,
+                 _ptr, _int, _ptr]
+
+
+def sabr_sources(src: Path, out: Path):
+    """The SABR partials sources of ``src`` (``sabr_kernels.cu`` and each
+    ``sabr<N>_kernels.cu``), through a shim where the source has no
+    occupancy entry point."""
+    main = src / "sabr_kernels.cu"
+    if "mc_sabr_occupancy" in main.read_text():
+        return [main, *src.glob("sabr[0-9]*_kernels.cu")]
+    unit = out / "sabr_probe.cu"
+    unit.write_text(SABR_SHIM.format(src=src))
+    return [unit]
+
+
+def bind_sabr(lib_path: Path):
+    """(library, new ABI, paths a block): the SABR partials entry point,
+    with the unit-beta argument where the library exports its paths a block
+    (``mc_sabr_block_paths``) and as it was before where it does not."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    new_abi = hasattr(lib, "mc_sabr_block_paths")
+    fn = lib.mc_sabr_partials
+    fn.argtypes = (_cuda._SIGNATURES["mc_sabr_partials"][0] if new_abi
+                   else _OLD_SABR_ABI)
+    fn.restype = _int
+    tile = lib.mc_sabr_block_paths if new_abi else lib.mc_sabr_block_threads
+    tile.argtypes, tile.restype = [], _int
+    lib.mc_sabr_occupancy.argtypes = [_int, _int, ctypes.POINTER(ctypes.c_int)]
+    lib.mc_sabr_occupancy.restype = _int
+    if hasattr(lib, "mc_sabr_paths_per_thread"):
+        lib.mc_sabr_paths_per_thread.argtypes = []
+        lib.mc_sabr_paths_per_thread.restype = _int
+    return lib, new_abi, tile()
+
+
+def sabr_cases(timed: bool):
+    """The --sabr cases: (label, arguments).  Timed: price_sabr's call at
+    1M x 100 under the demo dynamics (beta = 1) and beta = 0.5, plain and
+    antithetic, the bullet and the Asian at beta = 1, and (``general``) the
+    beta = 1 call through the general-beta kernel.  Else the bitwise edges:
+    every payoff at beta 1 and 0.5, plain and antithetic; threefry-20; an
+    offset and a bound; 1, 2 and 7 steps; more paths than the grid's
+    threads; and at beta = 1 the edges of the step (alpha 0, -0, 1e19,
+    inf, NaN; a forward of 0, 1e38, inf, NaN; nu 0 and 60; rho +-1) and of
+    the barrier test (barriers 0, -1, +-inf, NaN)."""
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    n, steps = SABR_MAIN
+    if timed:
+        out = []
+        for beta in (1.0, 0.5):
+            for anti in (False, True):
+                out.append((f"sabr call beta={beta} anti={anti}",
+                            dict(beta=beta, anti=anti, n=n, steps=steps)))
+        for payoff in ("bullet_call", "asian_call"):
+            out.append((f"sabr {payoff} beta=1.0 anti=False",
+                        dict(beta=1.0, anti=False, n=n, steps=steps,
+                             payoff=payoff)))
+        for anti in (False, True):
+            out.append((f"sabr call beta=1.0 anti={anti} general",
+                        dict(beta=1.0, anti=anti, n=n, steps=steps,
+                             general=True)))
+        return out
+    e = SABR_EDGE
+    special = {"variance_swap": dict(k=0.04),
+               "forward_start_call": dict(k=1.0, p1=30.0),
+               "cliquet": dict(k=10.0, p1=-0.05, p2=0.05),
+               "down_out_call": dict(barrier=90.0),
+               "down_in_call": dict(barrier=90.0)}
+    out = []
+    for name in sorted(set(PAYOFFS) - set(SIGMA_PAYOFFS)):
+        for beta in (1.0, 0.5):
+            for anti in (False, True):
+                out.append((f"sabr {name} beta={beta} anti={anti}",
+                            dict(beta=beta, anti=anti, n=e, steps=steps,
+                                 payoff=name,
+                                 option=special.get(name, {}))))
+    for beta in (1.0, 0.5):
+        for anti in (False, True):
+            for payoff in ("vanilla_call", "bullet_call", "asian_call"):
+                out.append((f"sabr {payoff} beta={beta} anti={anti} "
+                            f"rounds=20", dict(beta=beta, anti=anti, n=e,
+                                               steps=steps, payoff=payoff,
+                                               rounds=20)))
+            out.append((f"sabr beta={beta} anti={anti} offset bound",
+                        dict(beta=beta, anti=anti, n=50_001, steps=steps,
+                             offset=12_345, bound=12_345 + 40_000)))
+            for st in (1, 2, 7):
+                out.append((f"sabr bullet beta={beta} anti={anti} {st} steps",
+                            dict(beta=beta, anti=anti, n=e, steps=st,
+                                 payoff="bullet_call")))
+            out.append((f"sabr beta={beta} anti={anti} 2^21+4099 paths",
+                        dict(beta=beta, anti=anti, n=(1 << 21) + 4099,
+                             steps=4)))
+    dyn_edges = [dict(alpha=0.0), dict(alpha=-0.0), dict(alpha=1e19),
+                 dict(alpha=float("inf")), dict(alpha=float("nan")),
+                 dict(nu=0.0), dict(nu=60.0), dict(rho=1.0),
+                 dict(rho=-1.0)]
+    opt_edges = [dict(s0=0.0), dict(s0=1e38), dict(s0=float("inf")),
+                 dict(s0=float("nan")), dict(barrier=0.0),
+                 dict(barrier=-1.0), dict(barrier=float("inf")),
+                 dict(barrier=float("-inf")), dict(barrier=float("nan"))]
+    for fix in dyn_edges + opt_edges:
+        for payoff in ("vanilla_call", "bullet_call", "up_out_call",
+                       "down_in_call", "asian_call"):
+            for anti in (False, True):
+                dyn = {k: v for k, v in fix.items() if k in ("alpha", "nu",
+                                                             "rho")}
+                opt = {k: v for k, v in fix.items() if k not in dyn}
+                out.append((f"sabr {payoff} beta=1 {fix} anti={anti}",
+                            dict(beta=1.0, anti=anti, n=4099, steps=steps,
+                                 payoff=payoff, option=opt, dyn=dyn)))
+    return out
+
+
+def sabr_inputs(a: dict, dev):
+    """(params, key, unit beta) of a --sabr case: the packed vector of the
+    demo option and dynamics at the case's beta (and its option and
+    dynamics fields), the key price_sabr derives from seed 1234."""
+    import dataclasses
+
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import sabr as sm
+
+    dyn = dataclasses.replace(sm.DEMO_SABR, beta=a["beta"], **a.get("dyn", {}))
+    prm = sm.pack_sabr(OptionParams(**a.get("option", {})), dyn, a["steps"],
+                       dev)
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
+                                                sm.SABR_TAG))
+    unit = float(np.float32(dyn.beta)) == 1.0 and not a.get("general")
+    return prm, key, unit
+
+
+def run_sabr(lib, new_abi: bool, tile: int, a: dict, inputs, n_paths=None):
+    """(partials, ms) of one SABR partials call."""
+    prm, (k0, k1), unit = inputs
+    n = n_paths or a["n"]
+    offset = a.get("offset", 0)
+    bound = a.get("bound", offset + n)
+    n_blocks = min(-(-n // tile), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    head = (_payoff_id(a.get("payoff", "vanilla_call")), a.get("rounds", 13),
+            int(a["anti"]))
+    if new_abi:
+        head += (int(unit),)
+    stream = torch.cuda.current_stream().cuda_stream
+    t = _events()
+    st = lib.mc_sabr_partials(*head, k0, k1, prm.data_ptr(), a["steps"], n,
+                              offset, bound, part.data_ptr(), n_blocks, stream)
+    t.append(_event())
+    _check(st, "sabr_partials")
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1])
+
+
+def mufu_kinds(ins, loop) -> dict:
+    """The MUFU instructions of ``loop`` (a sass_loops entry) by function."""
+    lo, hi = int(loop["start"], 16), int(loop["end"], 16)
+    kinds = {}
+    for addr, op, _, _ in ins:
+        if lo <= addr <= hi and op.startswith("MUFU"):
+            kinds[op] = kinds.get(op, 0) + 1
+    return kinds
+
+
+def sabr_main(args, variants, card) -> dict:
+    """The --sabr probe: resources, SASS, the bitwise edges and the times
+    of the SABR partials kernel (#17)."""
+    libs = build(variants, "sabr")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"20sabr_partials_kernelINS_(11VanillaCall|10BulletCall)"
+                      r"ELi13E")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, new_abi, tile = bind_sabr(lib_path)
+        bound[label] = (lib, new_abi, tile)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = sorted(e for e in res if want.search(e))
+        funcs = (sass_functions(lib_path, lambda f: f in entries)
+                 if args.sass else {})
+        rows = {}
+        for e in entries:
+            r = dict(res[e])
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                for lp in loops:
+                    lp["mufu"] = mufu_kinds(funcs[e], lp)
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+                write_listing(args.out, label, e, funcs[e])
+            rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        layout = {}
+        for unit in (0, 1):
+            for anti in (0, 1):
+                blocks = ctypes.c_int(0)
+                st = lib.mc_sabr_occupancy(unit, anti, ctypes.byref(blocks))
+                row = dict(blocks_per_sm=blocks.value if st == 0 else None)
+                if hasattr(lib, "mc_sabr_paths_per_thread"):
+                    row["paths_a_thread"] = lib.mc_sabr_paths_per_thread()
+                layout[f"unit_beta={unit} anti={anti}"] = row
+        print(f"probe {label}: sabr layout (VanillaCall) paths a block "
+              f"{tile} {layout} {card}", flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout,
+                                         tile=tile, ptxas=logs)
+    order = list(bound) + list(bound)[::-1]
+    edges, bad = {}, 0
+    for case, a in sabr_cases(timed=False):
+        inputs = sabr_inputs(a, dev)
+        ref = None
+        for label in bound:
+            part, _ = run_sabr(*bound[label], a, inputs)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(case, {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {case} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe sabr edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        times, refs = {}, {}
+        for case, a in sabr_cases(timed=True):
+            inputs = sabr_inputs(a, dev)
+            # the general-beta kernel's call against the first variant's
+            same_as = (a["beta"], a["anti"], a.get("payoff"))
+            for label in order:
+                lib, new_abi, tile = bound[label]
+                if a.get("general") and not new_abi:
+                    continue
+                run_sabr(lib, new_abi, tile, a, inputs, SABR_WARM)
+                part, ms = run_sabr(lib, new_abi, tile, a, inputs)
+                same = same_bits(part, refs.setdefault(same_as, part))
+                times.setdefault(case, {}).setdefault(label, []).append(
+                    dict(ms=ms, bitwise=same))
+                print(f"probe time {case} {a['n']}x{a['steps']} {label}: "
+                      f"{ms:.4f} ms, partials bitwise vs the first: {same} "
+                      f"{card}", flush=True)
+                if not same:
+                    print(f"FAIL: {case} {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1506,6 +1983,7 @@ def main() -> int:
     mode.add_argument("--gbm", action="store_true")
     mode.add_argument("--basket", action="store_true")
     mode.add_argument("--partials", action="store_true")
+    mode.add_argument("--sabr", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
@@ -1536,6 +2014,8 @@ def main() -> int:
         return write_report(args.out, basket_main(args, variants, card))
     if args.partials:
         return write_report(args.out, partials_main(args, variants, card))
+    if args.sabr:
+        return write_report(args.out, sabr_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")

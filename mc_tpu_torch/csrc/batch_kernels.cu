@@ -21,37 +21,52 @@
 // count, too many for the fixed per-thread register array of the
 // grid-stride kernels.  Both kernels therefore take one path per thread,
 // cdiv(n_paths, threads) blocks, and after the simulation one block
-// reduction per strike or contract (reduce.cuh); the order of every sum is
-// fixed by the path count alone.  Both simulate each leg with the simulate
-// kernel's simulate_path and finish it with its path_payoff and add_moments
-// (payoffs.cuh, reduce.cuh), so a path's payoff is bitwise the same in all
-// three.  Up to 2^21 paths (ops/_cuda.py MAX_BLOCKS x 256) simulate_kernel
-// does not grid-stride either, its blocks are the ladder's and (at 256
-// threads, up to 216 steps) the book's, and strike m's or contract b's rows
-// are bitwise those of simulate_partials at that strike or contract; above
-// that its threads take several paths each and the sums agree to f64
-// rounding.
+// reduction per strike or contract, in reduce.cuh's tree order; the order
+// of every sum is fixed by the path count alone.  A path's payoff is
+// bitwise the simulate kernel's (simulate_path, path_payoff, add_moments;
+// payoffs.cuh, reduce.cuh).  Up to 2^21 paths (ops/_cuda.py MAX_BLOCKS x
+// 256) simulate_kernel does not grid-stride either, its blocks are the
+// ladder's and (at 256 threads, up to 216 steps) the book's, and strike m's
+// or contract b's rows are bitwise those of simulate_partials at that
+// strike or contract; above that its threads take several paths each and
+// the sums agree to f64 rounding.
 //
 // The book's buffer is 8 * n_pairs bytes per thread: 400 B at 100 steps.  The
 // wrapper picks the block (256, 128, 64 or 32 threads) so that the buffer and
-// the reduction's 10 KB fit the 227 KB a block may hold; above 48 KB the
-// launch raises the kernel's dynamic shared memory limit first.  This is the
-// port's counterpart of book_tile_rows (:794-803).
+// the kernel's static 10 KB (the reduction's rows and a chunk's thresholds)
+// fit the 227 KB a block may hold; above 48 KB the launch raises the
+// kernel's dynamic shared memory limit first.  This is the port's
+// counterpart of book_tile_rows (:794-803).  At 100 steps the buffer holds
+// the SM to 2 blocks of 256 threads.
 //
 // What bounds them on the H100: bytes do not matter (60 bytes of parameters
 // per strike or contract in, one row per block out).  The ladder is the
 // simulate kernel's work plus M terminal evaluations per path.  The book's
-// step loop runs B times per path on replayed draws: one expf (the special
-// function unit, 16 lanes per SM per clock) and one shared-memory load per
-// contract-step, so the transcendentals bind (1.6 ms for 64 contracts x 2^20
-// paths x 100 steps), above the shared-memory reads (0.8 ms) and the RNG
-// (about 0.2 ms, paid once).  Float contraction is off in the build
-// (--fmad=false), so each mul and add rounds as in the plain version.
+// step loop runs B times per path on replayed draws, so it is issue-bound
+// on that loop; its design takes the work out of it:
+// - a payoff that reads S only through S < B (the bullet, the up-and-out
+//   and the down-and-in calls) tests the log-price w against the contract's
+//   threshold (below_max_all, barrier.cuh: one bisection per contract and
+//   block, by the threads of its chunk), and a terminal-only payoff steps w
+//   alone; both form S = s0 * expf(w) once, at maturity, bitwise the last
+//   step's S.  A step is then ~5 f32 operations, no expf (each step's expf
+//   was about half of the loop's issued instructions);
+// - a thread steps 8 contracts (4 where the payoff reads S at each step) on
+//   each replayed normal, one shared-memory load for them, with their
+//   parameters in registers;
+// - each group's rows reduce over the book's 2 or 5 moments, up to 3
+//   contracts a pass (4 barriers: the halves, then warp 0's shuffles)
+//   where one contract of 5 rows took 9.
+// The bound is f32 issue: 0.51 ms for 64 contracts x 2^20 paths x 100 steps
+// (chip_smoke.py phase 6), the RNG 0.16 ms (int32, paid once).  Float
+// contraction is off in the build (--fmad=false), so each mul and add
+// rounds as in the plain version.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "barrier.cuh"
 #include "payoffs.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
@@ -89,42 +104,217 @@ ladder_kernel(int euler, int antithetic, uint32_t k0, uint32_t k1,
   }
 }
 
+// The book's contracts a thread steps in lockstep on each replayed draw:
+// 8, or 4 where the payoff reads the spot at each step (at 8 the
+// Brownian-bridge barriers' and the cliquet's states took 163-181
+// registers, over the 128 that 2 blocks an SM leave).  Swept on the H100
+// (family_nmc_probe.py --gbm, PERF.md): book64 bullet 2.91 / 2.24 / 2.22 /
+// 1.99 ms at 1 / 2 / 4 / 8.  A last group of
+// n_contracts % C runs its missing contracts as copies of the chunk's last
+// one, through the same code, and stores no rows for them.
 template <class Payoff>
-__global__ void __launch_bounds__(kBookMaxThreads)
-book_kernel(int euler, int antithetic, int with_cv, uint32_t k0, uint32_t k1,
+constexpr int kBookContracts = kStateRead<Payoff> == StateRead::kSpot ? 4 : 8;
+// The block reduction's rows a pass (contracts of n_mom rows each, 3 or 1)
+// and its two ping-pong halves: levels nt/2, nt/8, ... write the first (128
+// doubles a row), levels nt/4, nt/16, ... the second (64).  With the
+// chunk's thresholds that is 10 KB, the book_block_threads budget
+// (ops/path_kernels.py BOOK_REDUCE_BYTES).
+constexpr int kBookRows = 6;
+constexpr int kBookHalfA = kBookMaxThreads / 2;
+constexpr int kBookHalfB = kBookMaxThreads / 4;
+
+// C contracts' legs on the thread's replayed draws, each bitwise the
+// simulate kernel's simulate_path (Euler, no shift, no resume): w steps as
+// euler_step steps it.  by_w: S = s0 * expf(w) only where the payoff reads
+// it (leg_step: a kNone leg steps w alone, a kBarrier leg tests w <=
+// below_max[c], a kSpot leg forms S at each step), then once at the end;
+// else (a contract with s0 < 0, where the threshold is not exact) euler_step
+// at each step.  Per step the C contracts' + legs, then their - legs.
+template <class Payoff, int C, bool by_w, class DrawPair>
+__device__ __forceinline__ void book_legs(const Params (&p)[C], const float (&below_max)[C],
+                                          bool antithetic, int n_steps, DrawPair draw_pair,
+                                          PathEnd<Payoff> (&e)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    e[c] = PathEnd<Payoff>{0.0f, p[c].s0, 0.0f, p[c].s0, Payoff::init(p[c]),
+                           Payoff::init(p[c])};
+  }
+  for_each_draw(0, n_steps, draw_pair, [&](float z) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if constexpr (by_w) {
+        leg_step<Payoff>(p[c], p[c].s0, below_max[c], z, e[c].w, e[c].s, e[c].st);
+      } else {
+        euler_step<Payoff>(p[c], p[c].s0, z, e[c].w, e[c].s, e[c].st);
+      }
+    }
+    if (antithetic) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if constexpr (by_w) {
+          leg_step<Payoff>(p[c], p[c].s0, below_max[c], -z, e[c].wn, e[c].sn, e[c].stn);
+        } else {
+          euler_step<Payoff>(p[c], p[c].s0, -z, e[c].wn, e[c].sn, e[c].stn);
+        }
+      }
+    }
+  });
+  if constexpr (by_w && kStateRead<Payoff> != StateRead::kSpot) {
+    if (n_steps > 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        e[c].s = p[c].s0 * expf(e[c].w);
+        if (antithetic) e[c].sn = p[c].s0 * expf(e[c].wn);
+      }
+    }
+  }
+}
+
+// Store the rows acc[c][0..N) of contracts c < n_valid at out + c*N, each
+// the sum over the block's nt threads in block_store_moments' tree (level
+// s: thread t < s adds thread t+s's value to its own), kBookRows / N
+// contracts a pass.  A level above 16 goes through shared memory (its upper
+// half written, its lower half reading), the ping-pong halves alternating
+// so that one barrier a level suffices; the levels 16 .. 1 are warp 0's
+// __shfl_down_sync adds, the same operands in the same order.  Every
+// thread of the block calls it.
+template <int C, int N>
+__device__ __forceinline__ void book_store(double (&acc)[C][N], int n_valid, double* out) {
+  constexpr int kPerPass = kBookRows / N;
+  __shared__ double halves[kBookRows][kBookHalfA + kBookHalfB];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+#pragma unroll
+  for (int cp = 0; cp < C; cp += kPerPass) {
+    if (cp >= n_valid) break;  // block-uniform
+    __syncthreads();  // the last pass's readers are done with the halves
+    int half = 0;  // the offset of the level's half in a row
+    for (int s = nt / 2; s > 16; s /= 2, half = kBookHalfA - half) {
+      if (tid >= s && tid < 2 * s) {
+#pragma unroll
+        for (int c = cp; c < cp + kPerPass && c < C; ++c) {
+#pragma unroll
+          for (int m = 0; m < N; ++m) halves[(c - cp) * N + m][half + tid - s] = acc[c][m];
+        }
+      }
+      __syncthreads();
+      if (tid < s) {
+#pragma unroll
+        for (int c = cp; c < cp + kPerPass && c < C; ++c) {
+#pragma unroll
+          for (int m = 0; m < N; ++m) {
+            acc[c][m] = acc[c][m] + halves[(c - cp) * N + m][half + tid];
+          }
+        }
+      }
+    }
+    if (tid < 32) {
+#pragma unroll
+      for (int s = 16; s > 0; s /= 2) {
+#pragma unroll
+        for (int c = cp; c < cp + kPerPass && c < C; ++c) {
+#pragma unroll
+          for (int m = 0; m < N; ++m) {
+            acc[c][m] = acc[c][m] + __shfl_down_sync(0xFFFFFFFFu, acc[c][m], s);
+          }
+        }
+      }
+      if (tid == 0) {
+#pragma unroll
+        for (int c = cp; c < cp + kPerPass && c < C; ++c) {
+          if (c < n_valid) {
+#pragma unroll
+            for (int m = 0; m < N; ++m) out[c * N + m] = acc[c][m];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <class Payoff, bool CV>
+__global__ void __launch_bounds__(kBookMaxThreads, 2)
+book_kernel(int euler, int antithetic, uint32_t k0, uint32_t k1,
             const float* __restrict__ params_rows, int n_contracts, int n_steps,
             uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-            double* __restrict__ partials, int n_mom) {
+            double* __restrict__ partials) {
+  constexpr int C = kBookContracts<Payoff>;
+  constexpr int N = CV ? kMaxMoments : 2;  // [pay, pay^2] (and x, x^2, pay*x)
+  constexpr bool kThreshold = kStateRead<Payoff> == StateRead::kBarrier;
   extern __shared__ float zbuf[];  // [2 * pair + half][thread]
+  __shared__ float below_max_s[kThreshold ? kBookMaxThreads : 1];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const uint32_t i = blockIdx.x * nt + tid;  // one path per thread
   const uint32_t id = path_offset + i;
   const bool valid = i < n_paths && id < bound;
   const int n_pairs = euler ? (n_steps + 1) / 2 : 1;
+  // A chunk's thresholds, one contract a thread: the chunk is the next nt
+  // contracts (all of them unless the book has more than nt).  w <= the
+  // threshold exactly when s0 * expf(w) < barrier, where s0 is not below 0.
+  auto thresholds = [&](int c0) {
+    if constexpr (kThreshold) {
+      if (tid < n_contracts - c0) {
+        const Params p = load_params(params_rows + kParamFields * (c0 + tid));
+        below_max_s[tid] = below_max_all(p.s0, p.barrier);
+      }
+    }
+  };
+  thresholds(0);
   for (int m = 0; m < n_pairs; ++m) {
     float z0, z1;
     normal_pair<kBatchRounds>(k0, k1, id, static_cast<uint32_t>(m), z0, z1);
     zbuf[(2 * m) * nt + tid] = z0;
     zbuf[(2 * m + 1) * nt + tid] = z1;
   }
+  if constexpr (kThreshold) __syncthreads();
   // A thread replays only its own column: no barrier needed.
   auto draw_pair = [&](int m, float& z0, float& z1) {
     z0 = zbuf[(2 * m) * nt + tid];
     z1 = zbuf[(2 * m + 1) * nt + tid];
   };
-  for (int b = 0; b < n_contracts; ++b) {
-    const Params p = load_params(params_rows + static_cast<size_t>(kParamFields) * b);
-    const PathEnd<Payoff> e = simulate_path<Payoff>(p, euler, antithetic, p.s0,
-                                                    Payoff::init(p), 0, n_steps, 0.0f,
-                                                    draw_pair);
-    float pay, x;
-    path_payoff<Payoff>(p, e, antithetic, 1.0f, 1.0f, pay, x);
-    double acc[kMaxMoments] = {0.0, 0.0, 0.0, 0.0, 0.0};
-    add_moments(acc, pay, x, valid, with_cv);
-    block_store_moments<kMaxMoments, kBookMaxThreads>(
-        acc, partials + static_cast<size_t>(n_mom) * (static_cast<size_t>(blockIdx.x) * n_contracts + b),
-        n_mom);
+  for (int c0 = 0; c0 < n_contracts; c0 += nt) {
+    const int n_chunk = min(nt, n_contracts - c0);
+    if (c0 > 0 && kThreshold) {  // every thread is past the last chunk's reads
+      thresholds(c0);
+      __syncthreads();
+    }
+    for (int g = 0; g < n_chunk; g += C) {
+      Params p[C];
+      float below_max[C];
+      bool by_w = true;  // no threshold group holds a contract with s0 < 0
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int local = min(g + c, n_chunk - 1);
+        p[c] = load_params(params_rows + static_cast<size_t>(kParamFields) * (c0 + local));
+        below_max[c] = kThreshold ? below_max_s[local] : 0.0f;
+        by_w = by_w && !(kThreshold && p[c].s0 < 0.0f);
+      }
+      PathEnd<Payoff> e[C];
+      if (!euler) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          e[c] = simulate_path<Payoff>(p[c], false, antithetic, p[c].s0, Payoff::init(p[c]),
+                                       0, n_steps, 0.0f, draw_pair);
+        }
+      } else if (by_w) {
+        book_legs<Payoff, C, true>(p, below_max, antithetic, n_steps, draw_pair, e);
+      } else if constexpr (kThreshold) {
+        book_legs<Payoff, C, false>(p, below_max, antithetic, n_steps, draw_pair, e);
+      }
+      double acc[C][N];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float pay, x;
+        path_payoff<Payoff>(p[c], e[c], antithetic, 1.0f, 1.0f, pay, x);
+#pragma unroll
+        for (int m = 0; m < N; ++m) acc[c][m] = 0.0;
+        add_moments(acc[c], pay, x, valid, CV);
+      }
+      book_store<C, N>(acc, n_chunk - g,
+                       partials + static_cast<size_t>(N) *
+                                      (static_cast<size_t>(blockIdx.x) * n_contracts + c0 + g));
+    }
   }
 }
 
@@ -140,24 +330,41 @@ cudaError_t launch_ladder(int euler, int antithetic, uint32_t k0, uint32_t k1,
   return cudaGetLastError();
 }
 
-template <class Payoff>
-cudaError_t launch_book(int euler, int antithetic, int with_cv, uint32_t k0, uint32_t k1,
+// The book kernel's dynamic shared memory (the normal buffer), with the
+// kernel's limit raised to it where it is above the default 48 KB.
+template <class Payoff, bool CV>
+cudaError_t book_smem(int euler, int n_steps, int threads, size_t* smem) {
+  const int n_pairs = euler ? (n_steps + 1) / 2 : 1;
+  *smem = 2 * sizeof(float) * static_cast<size_t>(n_pairs) * threads;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(book_kernel<Payoff, CV>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <class Payoff, bool CV>
+cudaError_t launch_book(int euler, int antithetic, uint32_t k0, uint32_t k1,
                         const float* params_rows, int n_contracts, int n_steps,
                         uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                        int threads, double* partials, int n_mom, int n_blocks,
-                        cudaStream_t stream) {
-  const int n_pairs = euler ? (n_steps + 1) / 2 : 1;
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(n_pairs) * threads;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        book_kernel<Payoff>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  book_kernel<Payoff><<<n_blocks, threads, smem, stream>>>(
-      euler, antithetic, with_cv, k0, k1, params_rows, n_contracts, n_steps, n_paths,
-      path_offset, bound, partials, n_mom);
+                        int threads, double* partials, int n_blocks, cudaStream_t stream) {
+  size_t smem;
+  const cudaError_t err = book_smem<Payoff, CV>(euler, n_steps, threads, &smem);
+  if (err != cudaSuccess) return err;
+  book_kernel<Payoff, CV><<<n_blocks, threads, smem, stream>>>(
+      euler, antithetic, k0, k1, params_rows, n_contracts, n_steps, n_paths, path_offset,
+      bound, partials);
   return cudaGetLastError();
+}
+
+// The resident blocks per SM of the book kernel (no control variate) at a
+// shape.
+template <class Payoff>
+cudaError_t book_occupancy(int euler, int n_steps, int threads, int* blocks) {
+  size_t smem;
+  const cudaError_t err = book_smem<Payoff, false>(euler, n_steps, threads, &smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, book_kernel<Payoff, false>,
+                                                       threads, smem);
 }
 
 }  // namespace mc
@@ -186,23 +393,49 @@ int mc_ladder_partials(int payoff_id, int euler, int antithetic, uint32_t k0, ui
 #undef MC_CASE
 }
 
+// The contracts a thread steps on each replayed draw, for a payoff.
+int mc_book_contracts(int payoff_id) {
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return mc::kBookContracts<mc::PAYOFF>;
+  switch (payoff_id) {
+    MC_ALL_PAYOFFS(MC_CASE)
+    default: return -1;
+  }
+#undef MC_CASE
+}
+
+int mc_book_occupancy(int payoff_id, int euler, int n_steps, int threads, int* blocks) {
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return mc::book_occupancy<mc::PAYOFF>(euler, n_steps, threads, blocks);
+  switch (payoff_id) {
+    MC_ALL_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
 int mc_book_partials(int payoff_id, int euler, int antithetic, int with_cv, uint32_t k0,
                      uint32_t k1, const float* params_rows, int n_contracts, int n_steps,
                      uint32_t n_paths, uint32_t path_offset, uint32_t bound, int threads,
                      double* partials, int n_mom, int n_blocks, void* stream) {
   const bool pow2 = threads >= 32 && threads <= mc::kBookMaxThreads &&
                     (threads & (threads - 1)) == 0;
-  if (!pow2 || n_contracts < 1 ||
+  if (!pow2 || n_contracts < 1 || n_mom != (with_cv ? mc::kMaxMoments : 2) ||
       static_cast<uint64_t>(n_blocks) * threads < n_paths) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MC_CASE(ID, PAYOFF)                                                         \
-  case mc::ID:                                                                      \
-    return mc::launch_book<mc::PAYOFF>(euler, antithetic, with_cv, k0, k1,          \
-                                       params_rows, n_contracts, n_steps, n_paths,  \
-                                       path_offset, bound, threads, partials, n_mom, \
-                                       n_blocks, s);
+#define MC_CASE(ID, PAYOFF)                                                               \
+  case mc::ID:                                                                            \
+    return with_cv ? mc::launch_book<mc::PAYOFF, true>(euler, antithetic, k0, k1,         \
+                                                       params_rows, n_contracts, n_steps, \
+                                                       n_paths, path_offset, bound,       \
+                                                       threads, partials, n_blocks, s)    \
+                   : mc::launch_book<mc::PAYOFF, false>(euler, antithetic, k0, k1,        \
+                                                        params_rows, n_contracts,         \
+                                                        n_steps, n_paths, path_offset,    \
+                                                        bound, threads, partials,         \
+                                                        n_blocks, s);
   switch (payoff_id) {
     MC_ALL_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;

@@ -63,10 +63,10 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
+#include "barrier.cuh"
 #include "payoffs.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
@@ -88,74 +88,6 @@ constexpr int nmc_legs(int own) {
 }
 constexpr int kNmcLegs = nmc_legs(4);
 static_assert(kNmcLegs == 1 || kNmcLegs == 2 || kNmcLegs == 4, "1, 2 or 4 legs");
-
-// How a leg moves its payoff state at a step.  kSpot: update reads the spot
-// S = base * expf(w) at each step (the Asian, the lookback, the down-and-out
-// call).  kNone: no state words (the terminal-only payoffs), so update reads
-// nothing.  kBarrier: update reads S only through S < p.barrier (the payoffs
-// with update_below: the bullet, the up-and-out and the down-and-in calls),
-// and that test is w <= below_max (below_max_w).  The kNone and kBarrier legs
-// form S once, at the leg's end, from the last w: the only S terminal reads.
-enum class StateRead { kSpot, kNone, kBarrier };
-
-template <class Payoff, class = void>
-struct HasUpdateBelow : std::false_type {};
-template <class Payoff>
-struct HasUpdateBelow<Payoff, std::void_t<decltype(&Payoff::update_below)>>
-    : std::true_type {};
-
-template <class Payoff>
-constexpr StateRead kStateRead = Payoff::kStates == 0          ? StateRead::kNone
-                                 : HasUpdateBelow<Payoff>::value ? StateRead::kBarrier
-                                                                 : StateRead::kSpot;
-
-// A float's place in the order of the floats as a uint32 (-0 just below +0),
-// and back.
-__device__ __forceinline__ uint32_t float_order(float x) {
-  const uint32_t b = __float_as_uint(x);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float order_float(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
-}
-
-// The largest finite w with base * expf(w) < barrier: -inf if there is
-// none, +inf if every finite w is.  expf is monotone over the floats
-// (mc_nmc_libm_check tests each of them) and so is its product with
-// base >= 0, so base * expf(w) < barrier exactly when w <= below_max_w: a
-// bisection over the floats' order, 32 expf once per point, in place of an
-// expf at each of the point's n_inner * remaining steps.
-__device__ float below_max_w(float base, float barrier) {
-  auto below = [&](uint32_t k) { return base * expf(order_float(k)) < barrier; };
-  uint32_t lo = float_order(-FLT_MAX), hi = float_order(FLT_MAX);
-  if (!below(lo)) return -INFINITY;
-  if (below(hi)) return INFINITY;
-  while (hi - lo > 1) {  // below(lo) and not below(hi)
-    const uint32_t mid = lo + (hi - lo) / 2;
-    if (below(mid)) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  return order_float(lo);
-}
-
-// One step of a leg from base: w moves as euler_step moves it; a kSpot leg
-// forms S and updates its state from it, a kBarrier leg from w <= below_max.
-template <class Payoff>
-__device__ __forceinline__ void leg_step(const Params& p, float base, float below_max, float z,
-                                         float& w, float& s, typename Payoff::State& st) {
-  if constexpr (kStateRead<Payoff> == StateRead::kSpot) {
-    euler_step<Payoff>(p, base, z, w, s, st);
-  } else {
-    w = w + (p.drift_dt + p.vol_dt * z);
-    if constexpr (kStateRead<Payoff> == StateRead::kBarrier) {
-      st = Payoff::update_below(st, w <= below_max, p);
-    }
-  }
-}
 
 // kNmcLegs inner legs in lockstep from (s_j, st_j) over `remaining` steps,
 // leg l on counters (id, c[l] + q): the pairs whose two halves are taken,

@@ -10,6 +10,7 @@
 // Heston, and the entry points refuse the two payoffs that read sigma.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include "family.cuh"
@@ -42,11 +43,16 @@ __device__ __forceinline__ SABRParams load_sabr(const float* __restrict__ v) {
 // One SABR step: z_f = rho*z_vol + rho_perp*z_perp; the local lognormal vol
 // sig*exp((beta-1)*lf) at lf = log F; lf += (vol_loc*sqrt_dt)*z_f, less
 // ((0.5*vol_loc)*vol_loc)*dt; sig *= exp((nu*sqrt_dt)*z_vol -
-// ((0.5*nu)*nu)*dt), the exact lognormal factor.
+// ((0.5*nu)*nu)*dt), the exact lognormal factor.  kUnitBeta: the caller
+// knows beta is 1, where (beta-1)*lf is +-0 for a finite lf, expf(+-0) is 1
+// and sig*1 is sig; the step then takes vol_loc = sig without the expf, and
+// NaN where lf is +-inf or NaN (0*inf is NaN): bit for bit the same step.
+template <bool kUnitBeta = false>
 __device__ __forceinline__ void sabr_step(const SABRParams& c, float z_vol, float z_perp,
                                           float& lf, float& sig) {
   const float z_f = c.rho * z_vol + c.rho_perp * z_perp;
-  const float vol_loc = sig * expf((c.beta - 1.0f) * lf);
+  const float vol_loc = kUnitBeta ? (isfinite(lf) ? sig : __int_as_float(0x7fc00000))
+                                  : sig * expf((c.beta - 1.0f) * lf);
   lf = (lf + (vol_loc * c.sqrt_dt) * z_f) - ((0.5f * vol_loc) * vol_loc) * c.pay.dt;
   sig = sig * expf((c.nu * c.sqrt_dt) * z_vol - ((0.5f * c.nu) * c.nu) * c.pay.dt);
 }

@@ -17,8 +17,10 @@ fails on them with an AttributeError); the other 16 payoffs price.
 One kernel lives in ``csrc/sabr_kernels.cu``:
 
 * ``sabr_partials`` (replaces ``_sabr_partials``,
-  ``mc_tpu/models/sabr.py:177``): the step loop, threefry-13 or -20, the
-  antithetic twin in the same thread, [sum pay, sum pay^2] per block in f64.
+  ``mc_tpu/models/sabr.py:177``): the step loop, threefry-13 or -20, paths
+  in lockstep (an antithetic path's twin as one more leg), [sum pay, sum
+  pay^2] per block of 256 paths in f64; at a packed beta of 1 its unit-beta
+  instantiation, whose step has no local-vol ``exp`` (``sabr_unit_beta``).
 
 Counters, as in ``mc_tpu``: step j of path ``id`` draws the normal pair
 ``(id, j) -> (z_vol, z_perp)``, the forward's shock z_f = rho z_vol +
@@ -49,7 +51,8 @@ from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["SABRDynamics", "DEMO_SABR", "SABR_FIELDS", "SABR_TAG",
            "SABRConfig", "pack_sabr", "unpack_sabr", "sabr_step",
-           "sabr_partials", "sabr_partials_plain", "qmc_pay", "price_sabr",
+           "sabr_partials", "sabr_partials_plain", "sabr_unit_beta",
+           "qmc_pay", "price_sabr",
            "sabr_implied_vol", "sabr_call_hagan"]
 
 # rng.derive_key stream tag of the SABR family (mc_tpu's 0x5AB4).
@@ -226,6 +229,15 @@ def sabr_partials_plain(payoff: PathPayoff, cfg: SABRConfig, key,
 # ---------------------------------------------------------------------------
 
 
+def sabr_unit_beta(params: torch.Tensor) -> bool:
+    """Whether the packed beta is 1 (``c.beta - 1.0f == 0``), where the
+    kernel's unit-beta instantiation gives the general step's bits without
+    its local-vol ``exp``: one 4-byte read of the packed vector (on the
+    card, a copy to the host)."""
+    beta = float(params[SABR_FIELDS.index("beta")])
+    return beta - 1.0 == 0.0
+
+
 def sabr_partials(payoff: PathPayoff, cfg: SABRConfig, key,
                   params: torch.Tensor, path_offset: int = 0, n_valid=None):
     """(rows, 2) f64 [sum pay, sum pay^2] of ``cfg.n_paths`` SABR paths
@@ -238,13 +250,14 @@ def sabr_partials(payoff: PathPayoff, cfg: SABRConfig, key,
                                    n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_sabr_block_threads()),
+    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_sabr_block_paths()),
                    _cuda.MAX_BLOCKS)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)
     with torch.cuda.device(params.device):
         status = lib.mc_sabr_partials(
-            payoff.cuda_id, cfg.rng_rounds, int(cfg.antithetic), int(key[0]),
+            payoff.cuda_id, cfg.rng_rounds, int(cfg.antithetic),
+            int(sabr_unit_beta(params)), int(key[0]),
             int(key[1]), params.data_ptr(), cfg.n_steps, cfg.n_paths,
             path_offset & 0xFFFFFFFF, bound, partials.data_ptr(), n_blocks,
             _cuda.stream_handle(params.device))

@@ -109,7 +109,10 @@ _SIGNATURES = {
     "mc_localvol_paths_per_thread": ([_c_int], _c_int),
     # payoff_id, n_knots, antithetic, blocks
     "mc_localvol_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
-    "mc_sabr_block_threads": ([], _c_int),
+    "mc_sabr_block_paths": ([], _c_int),
+    "mc_sabr_paths_per_thread": ([], _c_int),
+    # unit_beta, antithetic, blocks
+    "mc_sabr_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_term_block_threads": ([], _c_int),
     "mc_divs_block_threads": ([], _c_int),
     "mc_vasicek_block_threads": ([], _c_int),
@@ -160,6 +163,10 @@ _SIGNATURES = {
     "mc_ladder_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
                             _c_ptr, _c_int, _c_int, _c_u32, _c_u32, _c_u32,
                             _c_ptr, _c_int, _c_ptr], _c_int),
+    # payoff_id
+    "mc_book_contracts": ([_c_int], _c_int),
+    # payoff_id, euler, n_steps, threads, blocks
+    "mc_book_occupancy": ([_c_int, _c_int, _c_int, _c_int, _c_ptr], _c_int),
     # payoff_id, euler, antithetic, with_cv, k0, k1, params_rows,
     # n_contracts, n_steps, n_paths, path_offset, bound, threads, partials,
     # n_mom, n_blocks, stream
@@ -228,11 +235,11 @@ _SIGNATURES = {
     "mc_localvol_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
                               _c_int, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
                               _c_int, _c_ptr], _c_int),
-    # payoff_id, rounds, antithetic, k0, k1, params, n_steps, n_paths,
-    # path_offset, bound, partials, n_blocks, stream
-    "mc_sabr_partials": ([_c_int, _c_int, _c_int, _c_u32, _c_u32, _c_ptr,
-                          _c_int, _c_u32, _c_u32, _c_u32, _c_ptr, _c_int,
-                          _c_ptr], _c_int),
+    # payoff_id, rounds, antithetic, unit_beta, k0, k1, params, n_steps,
+    # n_paths, path_offset, bound, partials, n_blocks, stream
+    "mc_sabr_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
+                          _c_ptr, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
+                          _c_int, _c_ptr], _c_int),
     # payoff_id, antithetic, k0, k1, params, n_steps, n_paths, path_offset,
     # bound, partials, n_blocks, stream (term: 11 + 2*n_steps params; divs:
     # 13 + n_steps)
@@ -345,6 +352,44 @@ def _run_all(cmds: list[list[str]], jobs: int) -> list[tuple[str, float]]:
         return list(pool.map(run, cmds))
 
 
+# Each source's nvcc seconds on the H100 machine (chip_smoke.py phase 1
+# prints them; NVIDIA H100 80GB HBM3 host, 7 compilers at once): the build
+# starts the longest first, so the pool ends together.  A source not listed
+# starts before them, the largest unit first (_unit_bytes).
+NVCC_SECONDS = {
+    "basket32_kernels.cu": 73.4, "batch_kernels.cu": 31.2,
+    "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 30.5,
+    "localvol10_kernels.cu": 30.1, "localvol_kernels.cu": 30.0,
+    "basket_nmc_kernels.cu": 29.1, "basket16_kernels.cu": 28.5,
+    "bates_kernels.cu": 27.0, "path_kernels.cu": 23.9,
+    "basket_kernels.cu": 23.6, "sabr_kernels.cu": 19.6,
+    "sabr1_kernels.cu": 18.1, "merton_nmc_kernels.cu": 18.0,
+    "heston_kernels.cu": 18.0, "bates_nmc_kernels.cu": 17.6,
+    "basket8_kernels.cu": 17.2, "localvol_nmc_kernels.cu": 17.1,
+    "vasicek_nmc_kernels.cu": 15.9, "qmc_kernels.cu": 15.9,
+    "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 14.3,
+    "basket_nmc32_kernels.cu": 13.8, "vasicek_kernels.cu": 13.7,
+    "term_nmc_kernels.cu": 13.3, "cev_nmc_kernels.cu": 11.0,
+    "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 10.2,
+    "qmc_bates_kernels.cu": 9.5, "qmc_basket_kernels.cu": 8.9,
+    "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,
+    "qmc_vasicek_kernels.cu": 6.9, "greek_kernels.cu": 6.9,
+    "qmc_sabr_kernels.cu": 6.9, "qmc_cev_kernels.cu": 6.8,
+    "qmc_term_kernels.cu": 6.7, "divs_kernels.cu": 6.5,
+    "term_kernels.cu": 6.5, "qmc_heston_kernels.cu": 6.4,
+    "cev_kernels.cu": 6.2, "qmc_basket32_kernels.cu": 6.1,
+    "rates_kernels.cu": 4.9, "rainbow_kernels.cu": 3.8,
+    "fx_kernels.cu": 3.2, "reduce_kernels.cu": 3.0}
+
+
+def _build_order(src: Path):
+    """The build's sort key of a source: unlisted first (largest unit
+    first), then by NVCC_SECONDS, longest first."""
+    if src.name in NVCC_SECONDS:
+        return (1, -NVCC_SECONDS[src.name], src.name)
+    return (0, -_unit_bytes(src), src.name)
+
+
 def _unit_bytes(src: Path) -> int:
     """The bytes of ``src`` and of the csrc headers it includes, each once."""
     seen, todo = {src}, [src]
@@ -373,14 +418,12 @@ def _build() -> Path:
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    # The largest sources with the headers they include (a proxy for nvcc's
-    # time: a capacity's few lines instantiate a header's kernels) start
-    # first, so the pool ends together.  The pool leaves one CPU to the
-    # caller's other threads: on the H100 machine a thread beside 40 busy
-    # processes ran at a fifth of its speed at any niceness, beside 7 at
-    # full speed, and 7 compilers at once built in 72.9 s where 40 took
-    # 79.7 s.
-    srcs = sorted(CSRC.glob("*.cu"), key=lambda p: (-_unit_bytes(p), p.name))
+    # The longest sources start first (_build_order), so the pool ends
+    # together.  The pool leaves one CPU to the caller's other threads: on
+    # the H100 machine a thread beside 40 busy processes ran at a fifth of
+    # its speed at any niceness, beside 7 at full speed, and 7 compilers at
+    # once built in 72.9 s where 40 took 79.7 s.
+    srcs = sorted(CSRC.glob("*.cu"), key=_build_order)
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
     jobs = max(1, len(os.sched_getaffinity(0)) - 1)

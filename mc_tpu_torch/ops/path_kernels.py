@@ -74,10 +74,12 @@ CPU_CHUNK = 1 << 14
 PLAIN_BOOK_DRAW_BYTES = 1 << 28
 
 # The book kernel's block: its normal buffer (8 bytes per path and pair of
-# steps) and its reduction buffer (5 f64 moments x 256 threads, reduce.cuh)
-# must fit the 227 KB of shared memory an H100 block may hold.
+# steps) and its static shared memory (the block reduction's 6 f64 rows x
+# (128 + 64) and a barrier threshold for each of 256 contracts,
+# csrc/batch_kernels.cu: 10 KB) must fit the 227 KB of shared memory an H100
+# block may hold.
 BOOK_SMEM_BYTES = 232_448
-BOOK_REDUCE_BYTES = 5 * 8 * 256
+BOOK_REDUCE_BYTES = 6 * 8 * (128 + 64) + 4 * 256
 BOOK_MAX_THREADS = 256
 
 
