@@ -27,14 +27,21 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    and -20, antithetic, 1M x 100 and 1M), the Merton trajectories and the
    generic trajectories under Bates (every one-word payoff), the Bates
    kernel (16 payoffs, Euler and QE, 1M x 100) and the Merton and Bates
-   family NMC kernels; the CEV kernel (16 payoffs, antithetic, 1M x 100),
+   family NMC kernels; the CEV kernel (16 payoffs, antithetic, 1M x 100;
+   its edges: ragged lockstep groups, an offset past 2^20 with a bound
+   inside the run and past its end, beta 0 and 1, paths absorbed at 0) and
+   its clamped-spot logf against the toolkit's on every float of [1e-12,
+   FLT_MAX] and +inf (mc_cev_logf_check),
    the local-vol kernel (18 payoffs, antithetic, threefry-20, the K = 25
    CEV-gate surface, 1M x 100), the local-vol trajectories and the generic
    trajectories under CEV (every one-word payoff) and the CEV and local-vol
    family NMC kernels; the SABR kernel (16 payoffs, threefry-13 and -20,
    antithetic, 1M x 100, at the demo's beta = 1 and at beta = 0.5, the two
    instantiations), the term-structure and cash-dividend kernels (18
-   payoffs each, on steep curves and two payments, antithetic, 1M x 100),
+   payoffs each, on steep curves and two payments, antithetic, 1M x 100;
+   the dividends' edges as CEV's and its edge schedules: a payment at step
+   0 and the last, every step, -0.0 between, negative, above the spot,
+   +inf, 2 steps and 2,050, past its block table),
    the generic trajectories under SABR and term and their family NMC
    kernels; the Vasicek kernel (18 payoffs, threefry-13 and -20,
    antithetic, 1M x 100), the Vasicek trajectories, the basket kernel (18
@@ -144,7 +151,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    ``hullwhite --proj-spread-bp 25`` and ``g2pp`` against the library call
    bit for bit;
 4. the kernels' launch counts over each of the sixteen paths (#33's per
-   family; #11's per tile, one per price_* call);
+   family; #11's per tile, one per price_* call; Heston's and Bates's
+   partials by scheme, Euler and QE);
 5. kernel and plain-version times with CUDA events (median of >= 5 runs
    after a warm-up; the NMC kernels and calls once, in phases 2 and 3; the
    plain versions once), the
@@ -163,7 +171,9 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    SM, its shifts a thread and its shared bytes; the bridge's live slots),
    the basket's partials kernel at d = 1, 4, 9, 16, 32, antithetic and not
    (beside its share of the bound, its capacity, paths a thread,
-   registers, spills and resident blocks per SM), #11 per tile at 2^20
+   registers, spills and resident blocks per SM), the CEV and dividend
+   kernels antithetic and not (beside the same, and paths a thread),
+   #11 per tile at 2^20
    and 2^24 paths with 10 payments and at 2^20 with 60 (the NMC kernels' times are their
    phase-2 calls' and the NMC calls' their phase-3 calls'; #3/#5 beside
    their legs a thread, registers, spills and resident blocks per SM; each family's
@@ -179,14 +189,17 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    price_rainbow(), price_nmc_rainbow(), price_qmc(), price_qmc_model()
    (its phase-3 calls), price_swaption(), price_hw_swaption(),
    price_g2_swaption());
-6. one JSON line of per-kernel results (with each kernel's bound), then the
-   JSON status line.
+6. the bounds' int32, f32 and SFU terms of the recounted rows (the book,
+   SABR, CEV, the dividends) and the QE kernels' bounds beside their
+   phase-5 times, one JSON line of per-kernel results (with each kernel's
+   bound), then the JSON status line.
 
 Without a CUDA device it prints no result and exits 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -379,6 +392,14 @@ GREEK_TERMINAL_OPS = (0, 8 + 4 * 3 + 2 + 10, 0)
 # A Heston Euler step on top of its whole threefry pair (heston.cuh): z_s
 # (3), v+ (1), sq (2 and a sqrtf), w (6), v (7), S = s0*expf(w) (1).
 HESTON_EULER_OPS = (0, 20, 2)
+# A Heston QE step on top of its pair and uniform (heston.cuh
+# heston_qe_step), the least work: of its two branches the cheaper, the
+# quadratic, each step (m (2), s2 (2), psi (1 and a division), 2/psi and
+# its floor (1 and a division), b2 (4 and a sqrtf), a (1 and a division),
+# b + z (1 and a sqrtf), v' (2); its martingale correction (8, a division
+# and a logf)); var_s (4), w (6 and a sqrtf), the selects (3), S =
+# s0*expf(w) (1 and an expf).
+HESTON_QE_OPS = (0, 36, 9)
 # An inner leg's end: its counter base (2), the call's payoff (2) and the
 # Kahan step (4).
 KAHAN_LEG_OPS = (2, 6, 0)
@@ -514,13 +535,15 @@ def partials_times(rows, n_paths: int, time_pair, regs, tag):
     """Phase 5: each (row, label, kernel fn, plain fn or None, registers
     key, (ref label, ref ms)) at n_paths x MAIN_STEPS beside its plain
     version where given, and beside the reference, a kernel of the same
-    shape.  Returns {row: (ms, plain ms)}."""
+    shape.  Returns {row: (ms, plain ms or None)} of the rows named."""
     out = {}
     for row, label, fn, plain, regs_key, (ref_label, ref_ms) in rows:
         if plain is None:
             k_ms, sp, _ = cuda_ms(fn)
             print(f"phase 5: {label} {n_paths}x{MAIN_STEPS}: kernel "
                   f"{k_ms:.4f} ms (spread {sp:.1%}) {tag}")
+            if row is not None:
+                out[row] = (k_ms, None)
         else:
             out[row] = time_pair(label, fn, plain, f"{n_paths}x{MAIN_STEPS}")
             k_ms = out[row][0]
@@ -661,6 +684,9 @@ def ptxas_resources(log: str) -> dict:
                 rounds = tuple(int(i) for i in ints)
             if kernel == "book_kernel" and ints:  # book_kernel<P, CV>
                 rounds = int(ints[0])
+            if kernel in ("cev_partials_kernel", "divs_partials_kernel"):
+                # cev_partials_kernel<P, A>, divs_partials_kernel<P, A, table>
+                rounds = tuple(int(i) for i in ints)
             entry = (kernel, payoff, rounds)
             out[entry] = {}
             continue
@@ -1100,6 +1126,18 @@ def bates_step(rounds: int, kmax: int):
                 HESTON_EULER_OPS, BATES_JUMP_OPS, table_ops(kmax))
 
 
+def qe_path(n_steps: int, kmax: int = 0):
+    """A Heston (kmax 0) or Bates QE path: per step the pair and the
+    uniform of heston_kernels.cu's QeScheme and the QE step (Bates: its
+    jump-size pair and Poisson uniform, the jump and the count against the
+    table too), the payoff."""
+    step = _add(pair_ops(13), unit_ops(13, 1), HESTON_QE_OPS)
+    if kmax:
+        step = _add(step, pair_ops(13), unit_ops(13, 1), BATES_JUMP_OPS,
+                    table_ops(kmax))
+    return _add(_scale(step, n_steps), TERMINAL_OPS)
+
+
 def bates_substep(kmax: int):
     """An inner Bates substep: bates_step's draws, Heston's step and the
     jump, the count against the table."""
@@ -1153,20 +1191,26 @@ def jump_bounds():
     }
 
 
-def partials_check(note, row, fn, plain, cfg, key, prm, name, opt, label):
+def partials_check(note, row, fn, plain, cfg, key, prm, name, opt, label,
+                   path_offset=0, n_valid=None):
     """Phase 2: a partials kernel (``fn``) against its plain version on one
-    payoff: the finished sums to f64 rounding; ``note(row, err)`` takes the
-    largest price or stderr difference.  A deferred check."""
+    payoff (paths ``path_offset + i``, masked at ``n_valid``): the finished
+    sums to f64 rounding; ``note(row, err)`` takes the largest price or
+    stderr difference.  A deferred check."""
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
 
     po = get_payoff(name)
-    want = finish_sum(plain(po, cfg, key, prm))
+    at = () if path_offset == 0 and n_valid is None else (path_offset,
+                                                          n_valid)
+    want = finish_sum(plain(po, cfg, key, prm, *at))
     yield
-    got = finish_sum(fn(po, cfg, key, prm))
+    got = finish_sum(fn(po, cfg, key, prm, *at))
     check_sums(f"{row} {name} {label} {cfg.n_paths}x{cfg.n_steps} "
                f"{getattr(cfg, 'rng_source', 'threefry13')} "
-               f"anti={cfg.antithetic}", got, want)
+               f"anti={cfg.antithetic}"
+               + (f" offset {path_offset} bound {n_valid}" if at else ""),
+               got, want)
     note(row, price_err(got, want, cfg.n_paths, opt))
 
 
@@ -1312,6 +1356,36 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
                                          dyn, keys, row)
                for family, (fam, pack, dyn, keys, row) in fams.items()}
     return err, rows_ms
+
+
+@contextlib.contextmanager
+def scheme_split(_cuda, family):
+    """Under Heston and Bates, each launch of ``<family>_partials`` within
+    the block counted by its config's scheme: {"euler": n, "qe": m} (the
+    kernels line's row holds both kernels).  Other families: {}."""
+    from mc_tpu_torch.models import bates, heston
+
+    model = {"heston": heston, "bates": bates}.get(family)
+    split = {}
+    if model is None:
+        yield split
+        return
+    row = f"{family}_partials"
+    fn = getattr(model, row)
+
+    def counted(payoff, cfg, *args, **kw):
+        before = _cuda.launch_counts.get(row, 0)
+        try:
+            return fn(payoff, cfg, *args, **kw)
+        finally:
+            split[cfg.scheme] = (split.get(cfg.scheme, 0)
+                                 + _cuda.launch_counts.get(row, 0) - before)
+
+    setattr(model, row, counted)
+    try:
+        yield split
+    finally:
+        setattr(model, row, fn)
 
 
 def family_main_path(mt, dev, _cuda, family, e2e_nmc):
@@ -1793,7 +1867,7 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
          lambda: bm.bates_partials_plain(call, b_cfg["euler"], bates_keys[0],
                                          b_prm),
          ("bates_partials_kernel<BatesEuler>", "VanillaCall", 13), euler),
-        (None, "bates_partials call qe",
+        ("bates_qe", "bates_partials call qe",
          lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0], b_prm),
          None, ("bates_partials_kernel<BatesQe>", "VanillaCall", 13), qe)),
         FAMILY_MAIN, time_pair, regs, tag)
@@ -1843,8 +1917,11 @@ SABR_STEP_OPS = (0, 20, 3)
 # expf(lf) once a path (SPOT_OPS).
 SABR_UNIT_STEP_OPS = (0, 17, 1)
 # A cash-dividend step on top of its half pair (divs.cuh): the factor's
-# exponent (2), S*expf (1 and an expf), the drop and its floor (2).
-DIVS_STEP_OPS = (0, 5, 1)
+# exponent (2), S*expf (1 and an expf), the floor (1); a step that pays
+# adds the drop (DIVS_PAY_OPS), a step with no payment costs its floor
+# alone.
+DIVS_STEP_OPS = (0, 4, 1)
+DIVS_PAY_OPS = (0, 1, 0)
 # A Vasicek step on top of its three normals (vasicek.cuh): eps (1), eta
 # (3), u (5), dy (4), w (3), y (1), x (2), S = s0*expf(w) (1 and an expf).
 VASICEK_STEP_OPS = (0, 20, 1)
@@ -1891,6 +1968,13 @@ def half_pair_path(step, n_steps: int):
     its payoff."""
     return _add(_scale(pair_ops(13), n_steps // 2), _scale(step, n_steps),
                 TERMINAL_OPS)
+
+
+def divs_path(n_steps: int, n_payments: int):
+    """A cash-dividend path: its steps, the drop at each payment, its
+    payoff."""
+    return _add(half_pair_path(DIVS_STEP_OPS, n_steps),
+                _scale(DIVS_PAY_OPS, n_payments))
 
 
 def cev_gate_surface(lm, n_steps: int, beta: float = 0.7,
@@ -2030,7 +2114,7 @@ def single_families(mt):
         Single(family="cev", kernels=CEV_KERNELS, model=cm,
                config=config(cm.CEVConfig), pack=cm.pack_cev,
                tpu="models/cev.py:150", checks=cev, payoffs=sv,
-               variants=anti, timed=cev, ref="heston_partials", rounds=None,
+               variants=anti, timed=cev, ref="heston_partials", rounds=(0,),
                path=half_pair_path(CEV_STEP_OPS, MAIN_STEPS),
                nmc=SingleNMC(
                    fam=CEVNMC(), dyn=lambda n: cm.DEMO_CEV, traj_tpu=generic,
@@ -2079,8 +2163,8 @@ def single_families(mt):
         Single(family="divs", kernels=DIVS_KERNELS, model=dm,
                config=config(dm.DivsConfig), pack=dm.pack_divs,
                tpu="models/dividends.py:146", checks=two, payoffs=every,
-               variants=anti, timed=two, ref="cev_partials", rounds=None,
-               path=half_pair_path(DIVS_STEP_OPS, MAIN_STEPS), nmc=None),
+               variants=anti, timed=two, ref="cev_partials", rounds=(0, 1),
+               path=divs_path(MAIN_STEPS, 2), nmc=None),
         Single(family="vasicek", kernels=VASICEK_KERNELS, model=vm,
                config=config(vm.VasicekConfig), pack=vm.pack_vasicek,
                tpu="models/vasicek.py:266", checks=vas, payoffs=every,
@@ -2183,6 +2267,8 @@ def single_kernel_checks(mt, dev, singles, keys):
             case("vanilla_call", FAMILY_MAIN, label_dyn)
         for name, n_paths, label_dyn, kw in s.edges:
             case(name, n_paths, label_dyn, **kw)
+        if s.family in ("cev", "divs"):
+            cev_divs_edge_checks(mt, dev, note, s, keys[s.family][0])
         if s.nmc is None:
             continue
         for name, po in sorted(PAYOFFS.items()):
@@ -2199,6 +2285,72 @@ def single_kernel_checks(mt, dev, singles, keys):
                     defer(grid_check(mt, dev, note, s, keys[s.family][0],
                                      name))
     return err, rows_ms
+
+
+# #18's and #22's edge shapes beside their main ones (phase 2, each against
+# its plain version on the card; family_nmc_probe.py --partials holds them
+# to the parent kernels): ragged lockstep groups, an offset past 2^20 with
+# a bound inside the run and one past its last path, CEV at beta 0 and 1
+# and absorbed at 0, the dividends' edge schedules (a payment at step 0
+# and the last, every step paying, -0.0 between, negative, above the spot,
+# +inf: family_nmc_probe.py's divs_schedules but NaN, whose plain clamp keeps
+# the NaN that the kernel's fmaxf drops), 2 steps and a schedule past the
+# block table's 2,048 steps.
+EDGE_OFFSET = (1 << 20) + 12_345
+DIVS_EDGE_SCHEDULES = ("first and last step", "every step", "-0.0 between",
+                       "negative", "above spot", "+inf")
+
+
+def cev_divs_edge_checks(mt, dev, note, s: Single, key):
+    """Phase 2: #18's or #22's edge shapes (EDGE_OFFSET, the schedules)
+    against the plain version, deferred."""
+    from family_nmc_probe import divs_schedules
+    from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import dividends as dm
+
+    row = f"{s.family}_partials"
+    fn, plain = getattr(s.model, row), getattr(s.model, f"{row}_plain")
+
+    def check(name, cfg, prm, label, offset=0, n_valid=None):
+        defer(partials_check(note, row, fn, plain, cfg, key, prm, name,
+                             payoff_option(mt, name), label, offset,
+                             n_valid))
+
+    for anti in (False, True):
+        for n_valid, label in ((EDGE_OFFSET + EDGE_PATHS - 1000,
+                                "offset, bound inside"),
+                               (0xFFFFFFFF, "offset, bound past the end")):
+            dyn = s.checks[0][1]
+            check("asian_call", s.config(EDGE_PATHS, dyn, antithetic=anti),
+                  s.pack(payoff_option(mt, "asian_call"), dyn, MAIN_STEPS,
+                         dev), label, EDGE_OFFSET, n_valid)
+    if s.family == "cev":
+        for label, dyn in (("beta=0", cm.CEVDynamics(sigma_lv=20.0, beta=0.0)),
+                           ("beta=1", cm.CEVDynamics(sigma_lv=0.2, beta=1.0)),
+                           ("absorbed", cm.CEVDynamics(sigma_lv=60.0,
+                                                       beta=1.0))):
+            for name in ("vanilla_call", "bullet_call", "asian_call"):
+                for anti in (False, True):
+                    check(name, s.config(EDGE_PATHS, dyn, antithetic=anti),
+                          s.pack(payoff_option(mt, name), dyn, MAIN_STEPS,
+                                 dev), label)
+        return
+    for label in DIVS_EDGE_SCHEDULES:
+        d = divs_schedules(MAIN_STEPS)[label]
+        for name in ("vanilla_call", "bullet_call", "asian_call",
+                     "up_out_call_bb"):
+            for anti in (False, True):
+                check(name, s.config(EDGE_PATHS, d, antithetic=anti),
+                      s.pack(payoff_option(mt, name), d, MAIN_STEPS, dev),
+                      label)
+    # 2 steps, and a schedule past the block table (its loop without it)
+    for n_steps in (2, 2050):
+        d = divs_schedules(n_steps)["first and last step"]
+        for anti in (False, True):
+            check("asian_call", dm.DivsConfig(n_paths=4099, n_steps=n_steps,
+                                              antithetic=anti),
+                  dm.pack_divs(payoff_option(mt, "asian_call"), d, n_steps,
+                               dev), f"{n_steps} steps")
 
 
 def nmc_extra_cases(mt, s: Single):
@@ -2915,6 +3067,64 @@ def entry_resources(log: str, kernel: str) -> dict:
             out[entry].update(registers=int(m.group(1)),
                               smem=int(s.group(1)) if s else 0)
     return out
+
+
+# The antithetic pair's end: two payoffs (2 each), their mean (2), its
+# square (1).
+ANTI_TERMINAL_OPS = (0, 7, 0)
+
+
+def cev_divs_report(mt, dev, keys, tag) -> None:
+    """Phase 5: #18 and #22 at FAMILY_MAIN x 100 (CEV's demo dynamics, the
+    dividends' two payments), the call plain and antithetic (CUDA events):
+    each one's share of its least work's bound, its paths a thread (the
+    library's), ptxas's registers, spills and stack, its resident blocks/SM
+    (the library's occupancy; #22 at MAIN_STEPS' table)."""
+    from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import dividends as dm
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    lib, call, res = _cuda.load(), get_payoff("vanilla_call"), build_resources()
+    sched = two_payments(dm, MAIN_STEPS)
+    for family, model, dyn, step, extra in (
+            ("cev", cm, cm.DEMO_CEV, CEV_STEP_OPS, (0, 0, 0)),
+            ("divs", dm, sched, DIVS_STEP_OPS, _scale(DIVS_PAY_OPS, 2))):
+        prm = getattr(model, f"pack_{family}")(mt.DEMO_OPTION, dyn, MAIN_STEPS,
+                                               dev)
+        cls = cm.CEVConfig if family == "cev" else dm.DivsConfig
+        fn = getattr(model, f"{family}_partials")
+        for anti in (False, True):
+            cfg = cls(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS, antithetic=anti)
+            k_ms, sp, _ = cuda_ms(lambda cfg=cfg: fn(call, cfg, keys[family][0],
+                                                     prm))
+            legs = 2 if anti else 1
+            path = _add(_scale(pair_ops(13), MAIN_STEPS // 2),
+                        _scale(_add(_scale(step, MAIN_STEPS), extra), legs),
+                        ANTI_TERMINAL_OPS if anti else TERMINAL_OPS)
+            b_ms, b_by = bound(4 * prm.numel(), _scale(path, FAMILY_MAIN))
+            blocks = ctypes.c_int(0)
+            if family == "cev":
+                st = lib.mc_cev_occupancy(int(anti), ctypes.byref(blocks))
+                r = res.get(("cev_partials_kernel", "VanillaCall",
+                             (int(anti),)), {})
+            else:
+                st = lib.mc_divs_occupancy(int(anti), MAIN_STEPS,
+                                           ctypes.byref(blocks))
+                r = res.get(("divs_partials_kernel", "VanillaCall",
+                             (int(anti), 1)), {})
+            _cuda.check(st, f"{family} occupancy")
+            paths = (lib.mc_divs_paths_per_thread(int(anti))
+                     if family == "divs" else 1)
+            print(f"phase 5: {family}_partials call anti={anti} "
+                  f"{FAMILY_MAIN}x{MAIN_STEPS}: kernel {k_ms:.4f} ms (spread "
+                  f"{sp:.1%}), {b_ms / k_ms:.1%} of its bound ({b_ms:.4f} ms, "
+                  f"{b_by}); {paths} paths a thread, registers "
+                  f"{r.get('registers')}, spill stores/loads "
+                  f"{r.get('spill_stores')}/{r.get('spill_loads')} B, stack "
+                  f"{r.get('stack')} B, {blocks.value} blocks/SM"
+                  + (f", a table of up to {lib.mc_divs_table_steps()} steps"
+                     if family == "divs" else "") + f" {tag}")
 
 
 def basket_partials_report(mt, dev, key, ptxas: str, tag) -> None:
@@ -4186,6 +4396,20 @@ def main() -> int:
     if n_order or n_trig:
         fail("the CUDA libm breaks a premise of the NMC kernels (expf's "
              "order or sincosf == cosf, sinf)")
+    # #18's logf on the clamped spot (csrc/cev.cuh cev_logf) against the
+    # toolkit's logf on every float max(S, 1e-12) can be: [1e-12, FLT_MAX]
+    # and +inf
+    bad = torch.tensor([0, -1], dtype=torch.int64, device=dev)
+    _cuda.check(_cuda.load().mc_cev_logf_check(bad.data_ptr(),
+                                                _cuda.stream_handle(dev)),
+                "cev_logf_check")
+    n_logf, first_logf = (int(x) for x in bad.tolist())
+    n_domain = 0x7F800000 - int(np.array(1e-12, np.float32).view(np.uint32)) + 1
+    print(f"phase 2: cev_logf != logf on {n_logf} of the {n_domain} floats "
+          f"of [1e-12, FLT_MAX] and +inf"
+          + (f" (the least: bits {first_logf:#010x})" if n_logf else ""))
+    if n_logf:
+        fail("the CEV kernel's clamped-spot logf is not the toolkit's logf")
     fused_err, inner_err = nmc_small_cases(NMC_SMALL)
     # odd steps, a ragged last leg group; the bullet's window within reach
     # of 7 steps
@@ -4848,10 +5072,12 @@ def main() -> int:
     families = ("heston", "merton", "bates", "cev", "localvol", "sabr",
                 "term", "divs", "vasicek", "basket")
     lap("the GBM path", 3)
-    family_launches = {}
+    family_launches, by_scheme = {}, {}
     for family in families:
-        family_launches[family] = family_main_path(mt, dev, _cuda, family,
-                                                   e2e_nmc)
+        with scheme_split(_cuda, family) as split:
+            family_launches[family] = family_main_path(mt, dev, _cuda, family,
+                                                       e2e_nmc)
+        by_scheme[family] = split
         lap(f"the {family} path", 3)
     for path in ("fx", "rainbow", "qmc"):
         family_launches[path] = fx_rainbow_qmc_path(mt, dev, _cuda, path,
@@ -4868,6 +5094,10 @@ def main() -> int:
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
     for family, path in family_launches.items():
         print(f"phase 4: launches over phase 3's {family} path: {path}")
+    for family in ("heston", "bates"):
+        print(f"phase 4: {family}_partials launches over phase 3's {family} "
+              f"path by scheme (#12's and #16's Euler and QE kernels): "
+              f"{by_scheme[family]}")
     if not all(n > 0 for path in (launches, *family_launches.values())
                for n in path.values()):
         fail("a kernel of the main path was never launched")
@@ -5100,6 +5330,7 @@ def main() -> int:
         "family_fused_merton": jump_ms["family_fused_merton"][0],
         "family_inner_merton": jump_ms["family_inner_merton"][0]},
         single_rows_ms, e2e_nmc)
+    cev_divs_report(mt, dev, keys, tag)
     basket_partials_report(mt, dev, keys["basket"][0],
                            _cuda.build_info.get("ptxas", ""), tag)
     frq_ms = fx_rainbow_qmc_times(
@@ -5190,13 +5421,25 @@ def main() -> int:
                                        MAIN_STEPS), SPOT_OPS, TERMINAL_OPS),
                            nb)), nb_paths),
         _scale(THRESHOLD_OPS, nb * _cuda.cdiv(nb_paths, 256)))
-    sabr_ops = _scale(next(s for s in singles if s.family == "sabr").path,
-                      FAMILY_MAIN)
-    for row, ops in (("book", book_ops), ("sabr_partials", sabr_ops)):
+    single_ops = {f"{s.family}_partials": _scale(s.path, FAMILY_MAIN)
+                  for s in singles if s.family in ("sabr", "cev", "divs")}
+    k_dt, _ = jump_kmax()
+    qe_ops = {"heston_partials qe": _scale(qe_path(MAIN_STEPS), FAMILY_MAIN),
+              "bates_partials qe": _scale(qe_path(MAIN_STEPS, k_dt),
+                                          FAMILY_MAIN)}
+    for row, ops in (("book", book_ops), *single_ops.items(),
+                     *qe_ops.items()):
         print(f"phase 6: {row} bound terms: int32 "
               f"{ops[0] / INT32_OPS_PER_S * 1e3:.4f} ms, f32 "
               f"{ops[1] / F32_OPS_PER_S * 1e3:.4f} ms, SFU "
               f"{ops[2] / SFU_OPS_PER_S * 1e3:.4f} ms {tag}")
+    # the QE kernels (#12's heston_qe_kernel, #16's QE instantiation) at
+    # 1M x 100: their phase-5 times against their bounds
+    for (row, ops), ms in zip(qe_ops.items(), (heston_ms["qe"][0],
+                                               jump_ms["bates_qe"][0])):
+        b_ms, b_by = bound(68 if row.startswith("heston") else 80, ops)
+        print(f"phase 6: {row} {FAMILY_MAIN}x{MAIN_STEPS}: {ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it {tag}")
     outer_ops = _scale(path_ops("bullet_call", n_steps, 13), n_out)
     bounds = {
         "terminal_pair": bound(

@@ -4,14 +4,15 @@ qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
 the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
 basket_partials_kernel, #26 basket_trajectories_kernel), or with
-``--partials`` the local-vol and Merton partials kernels (#19
-localvol_partials_kernel, #14 merton_partials_kernel), or with ``--sabr``
+``--partials`` the local-vol, Merton, CEV and cash-dividend partials
+kernels (#19 localvol_partials_kernel, #14 merton_partials_kernel, #18
+cev_partials_kernel, #22 divs_partials_kernel), or with ``--sabr``
 the SABR partials kernel (#17 sabr_partials_kernel), on one CUDA card:
 what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
 
     python3 family_nmc_probe.py [--qmc | --gbm | --basket | --partials |
-                                 --sabr]
+                                 --sabr] [--kernels NAME,...]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
@@ -108,7 +109,15 @@ K = 25 CEV surface and price_merton's Euler (1M x 100) and terminal (1M)
 kernels, with and without antithetic, in turns over the variants, twice,
 each bitwise against the first.  A sweep of the paths a thread or the
 knot capacity edits those constants in a copy of ``csrc`` and passes it as
-a variant.
+a variant.  ``--partials`` also builds ``cev_kernels.cu`` and
+``divs_kernels.cu`` (an older commit's through units adding
+``mc_cev_occupancy`` and ``mc_divs_occupancy``), prints each variant's
+``mc_cev_logf_check`` (CEV's clamped-spot logf against the toolkit's on
+every float of [1e-12, FLT_MAX] and +inf), runs their edge cases
+(cev_edge_cases, divs_edge_cases) and (``--time``) times price_cev's and
+price_divs's kernels at 1M x 100 (the call plain and antithetic, the
+Asian).  ``--kernels`` names the kernels to build and run (a comma list of
+localvol, merton, cev and divs; all four by default).
 
 ``--sabr`` builds ``sabr_kernels.cu`` and ``sabr1_kernels.cu`` (the
 unit-beta instantiations; a source without ``mc_sabr_occupancy``, an older
@@ -266,9 +275,10 @@ extern "C" int mc_book_occupancy(int payoff_id, int euler, int n_steps, int thre
 """
 
 
-def probe_sources(src: Path, mode: str, out: Path):
+def probe_sources(src: Path, mode: str, out: Path, kernels=None):
     """The sources a probe compiles from ``src``: the family NMC ones, the
-    QMC ones, or (``gbm``) the GBM NMC unit, written to ``out``."""
+    QMC ones, or (``gbm``) the GBM NMC unit, written to ``out``
+    (``partials``: those of ``kernels``)."""
     if mode == "qmc":
         return [src / "qmc_kernels.cu",
                 *(p for p in src.glob("qmc_*_kernels.cu"))]
@@ -284,12 +294,12 @@ def probe_sources(src: Path, mode: str, out: Path):
     if mode == "basket":
         return basket_sources(src, out)
     if mode == "partials":
-        return partials_sources(src, out)
+        return partials_sources(src, out, kernels or PARTIALS_KERNELS)
     return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
             *src.glob("*_nmc32_kernels.cu")]
 
 
-def build(variants, mode: str = "family"):
+def build(variants, mode: str = "family", kernels=None):
     """Compile every variant's family NMC (QMC, GBM NMC) sources at once
     and link one library each: {label: (library path, {source: ptxas
     log})}."""
@@ -302,7 +312,7 @@ def build(variants, mode: str = "family"):
         out.mkdir(parents=True, exist_ok=True)
         for old in out.glob("*.o"):
             old.unlink()
-        srcs = sorted(probe_sources(src, mode, out),
+        srcs = sorted(probe_sources(src, mode, out, kernels),
                       key=lambda p: -p.stat().st_size)
         for s in srcs:
             cmds.append([nvcc, *_cuda.NVCC_FLAGS, *(f"-D{d}" for d in defines),
@@ -1387,6 +1397,7 @@ PARTIALS_MAIN = (1_000_000, 100)  # paths, steps: price_localvol/price_merton
 PARTIALS_WARM = 4096
 PARTIALS_EDGE = 16_411            # the bitwise cases' paths: a ragged block
 LV_KNOTS = (2, 9, 10, 11, 16, 25, 33)
+DIVS_LAYOUT_STEPS = (2, 100, 2048, 2050)  # about the table's capacity
 # A csrc that predates the occupancy entry points (the parent's one path a
 # thread): these units add them, for VanillaCall at threefry-13.
 LOCALVOL_SHIM = """#include "{src}/localvol_kernels.cu"
@@ -1414,72 +1425,116 @@ extern "C" int mc_merton_occupancy(int payoff_id, int terminal, int antithetic, 
 """
 
 
-def partials_sources(src: Path, out: Path):
-    """The local-vol and Merton partials sources of ``src`` (each
-    capacity's own ``localvol<N>_kernels.cu`` too, not the NMC's), through
-    a shim where the source has no occupancy entry point."""
+# A csrc that predates mc_cev_occupancy or mc_divs_occupancy (the parent's
+# one path a thread): these units add them, for VanillaCall.
+CEV_SHIM = """#include "{src}/cev_kernels.cu"
+
+extern "C" int mc_cev_occupancy(int antithetic, int* blocks) {{
+  (void)antithetic;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::cev_partials_kernel<mc::VanillaCall>, mc_cev_block_threads(), 0);
+}}
+"""
+DIVS_SHIM = """#include "{src}/divs_kernels.cu"
+
+extern "C" int mc_divs_occupancy(int antithetic, int n_steps, int* blocks) {{
+  (void)antithetic; (void)n_steps;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::divs_partials_kernel<mc::VanillaCall>, mc_divs_block_threads(), 0);
+}}
+"""
+PARTIALS_KERNELS = ("localvol", "merton", "cev", "divs")
+_PARTIALS_SHIMS = {"localvol": LOCALVOL_SHIM, "merton": MERTON_SHIM,
+                   "cev": CEV_SHIM, "divs": DIVS_SHIM}
+# the occupancy entry points' arguments before the blocks pointer
+_OCCUPANCY_ARGS = {"localvol": 3, "merton": 3, "cev": 1, "divs": 2}
+
+
+def partials_sources(src: Path, out: Path, kernels=PARTIALS_KERNELS):
+    """The partials sources of ``kernels`` in ``src`` (each capacity's own
+    ``<name><N>_kernels.cu`` too, not the NMC's), through a shim where the
+    source has no occupancy entry point."""
     srcs = []
-    for name, shim, entry in (("localvol", LOCALVOL_SHIM,
-                               "mc_localvol_occupancy"),
-                              ("merton", MERTON_SHIM, "mc_merton_occupancy")):
+    for name in kernels:
         main = src / f"{name}_kernels.cu"
-        if entry in main.read_text():
+        if f"mc_{name}_occupancy" in main.read_text():
             srcs += [main, *(q for q in src.glob(f"{name}[0-9]*_kernels.cu"))]
         else:
             unit = out / f"{name}_probe.cu"
-            unit.write_text(shim.format(src=src))
+            unit.write_text(_PARTIALS_SHIMS[name].format(src=src))
             srcs.append(unit)
     return srcs
 
 
-def bind_partials(lib_path: Path):
-    """The local-vol and Merton partials entry points of a variant's
-    library and each kernel's paths a block (``mc_<name>_block_paths``; the
-    parent's: its threads, one path each)."""
+def bind_partials(lib_path: Path, kernels=PARTIALS_KERNELS):
+    """The partials entry points of ``kernels`` in a variant's library and
+    each kernel's paths a block (``mc_<name>_block_paths``; the parent's:
+    its threads, one path each)."""
     from mc_tpu_torch.ops import _cuda
 
     lib = ctypes.CDLL(str(lib_path))
     tiles = {}
-    for name in ("localvol", "merton"):
+    for name in kernels:
         fn = getattr(lib, f"mc_{name}_partials")
         fn.argtypes, fn.restype = _cuda._SIGNATURES[f"mc_{name}_partials"]
         tile = getattr(lib, f"mc_{name}_block_paths", None) or getattr(
             lib, f"mc_{name}_block_threads")
         tile.argtypes, tile.restype = [], _int
         tiles[name] = tile()
-    lib.mc_localvol_occupancy.argtypes = [_int, _int, _int,
-                                          ctypes.POINTER(ctypes.c_int)]
-    lib.mc_merton_occupancy.argtypes = [_int, _int, _int,
-                                        ctypes.POINTER(ctypes.c_int)]
-    for name in ("mc_localvol_capacity", "mc_localvol_paths_per_thread"):
+        occ = getattr(lib, f"mc_{name}_occupancy")
+        occ.argtypes = [_int] * _OCCUPANCY_ARGS[name] + [
+            ctypes.POINTER(ctypes.c_int)]
+        occ.restype = _int
+    for name in ("mc_localvol_capacity", "mc_localvol_paths_per_thread",
+                 "mc_divs_paths_per_thread", "mc_divs_table_steps"):
         if hasattr(lib, name):
             getattr(lib, name).restype = _int
+    if hasattr(lib, "mc_cev_logf_check"):
+        lib.mc_cev_logf_check.argtypes, lib.mc_cev_logf_check.restype = (
+            _cuda._SIGNATURES["mc_cev_logf_check"])
     return lib, tiles
 
 
-def partials_layout(lib) -> dict:
+def partials_layout(lib, kernels=PARTIALS_KERNELS) -> dict:
     """Per shape: the resident blocks per SM of the VanillaCall kernel and,
     where the variant exports them, local vol's knot capacity and paths a
-    thread."""
+    thread, the dividends' paths a thread and table capacity in steps."""
     out = {}
     blocks = ctypes.c_int(0)
-    for k in LV_KNOTS:
+    call = _payoff_id("vanilla_call")
+
+    def row(st, name, anti):
+        r = dict(blocks_per_sm=blocks.value if st == 0 else None)
+        if name == "divs" and hasattr(lib, "mc_divs_paths_per_thread"):
+            r["paths_a_thread"] = lib.mc_divs_paths_per_thread(int(anti))
+        return r
+
+    for k in LV_KNOTS if "localvol" in kernels else ():
         for anti in (False, True):
-            st = lib.mc_localvol_occupancy(_payoff_id("vanilla_call"), k,
-                                           int(anti), ctypes.byref(blocks))
-            row = dict(blocks_per_sm=blocks.value if st == 0 else None)
+            st = lib.mc_localvol_occupancy(call, k, int(anti),
+                                           ctypes.byref(blocks))
+            r = row(st, "localvol", anti)
             if hasattr(lib, "mc_localvol_capacity"):
-                row.update(capacity=lib.mc_localvol_capacity(k),
-                           paths_a_thread=lib.mc_localvol_paths_per_thread(
-                               int(anti)))
-            out[f"localvol K={k} anti={anti}"] = row
-    for terminal in (False, True):
+                r.update(capacity=lib.mc_localvol_capacity(k),
+                         paths_a_thread=lib.mc_localvol_paths_per_thread(
+                             int(anti)))
+            out[f"localvol K={k} anti={anti}"] = r
+    for terminal in (False, True) if "merton" in kernels else ():
         for anti in (False, True):
-            st = lib.mc_merton_occupancy(_payoff_id("vanilla_call"),
-                                         int(terminal), int(anti),
+            st = lib.mc_merton_occupancy(call, int(terminal), int(anti),
                                          ctypes.byref(blocks))
-            row = dict(blocks_per_sm=blocks.value if st == 0 else None)
-            out[f"merton terminal={terminal} anti={anti}"] = row
+            out[f"merton terminal={terminal} anti={anti}"] = row(st, "merton",
+                                                                 anti)
+    for anti in (False, True) if "cev" in kernels else ():
+        st = lib.mc_cev_occupancy(int(anti), ctypes.byref(blocks))
+        out[f"cev anti={anti}"] = row(st, "cev", anti)
+    for steps in DIVS_LAYOUT_STEPS if "divs" in kernels else ():
+        for anti in (False, True):
+            st = lib.mc_divs_occupancy(int(anti), steps, ctypes.byref(blocks))
+            r = row(st, "divs", anti)
+            if hasattr(lib, "mc_divs_table_steps"):
+                r["table_steps"] = lib.mc_divs_table_steps()
+            out[f"divs steps={steps} anti={anti}"] = r
     return out
 
 
@@ -1499,11 +1554,22 @@ def lv_surface(n_knots: int, n_steps: int):
         lambda x, t: 0.2 + 0.1 * x * x + 0.05 * t, n_steps, n_knots=n_knots)
 
 
-def partials_cases(timed: bool):
-    """The --partials cases: (label, kernel, arguments).  Timed: the main
-    shapes; else the bitwise edges (every payoff, each K around the
-    capacities, K = 25 at 300 steps, kmax 1, 4, 10, 53, threefry-20, an
-    offset and a bound, ragged counts)."""
+def partials_cases(timed: bool, kernels=PARTIALS_KERNELS):
+    """The --partials cases of ``kernels``: (label, kernel, arguments).
+    Timed: the main shapes; else the bitwise edges (every payoff, each K
+    around the capacities, K = 25 at 300 steps, kmax 1, 4, 10, 53,
+    threefry-20, an offset and a bound, ragged counts; CEV's and the
+    dividends' edges: cev_edge_cases, divs_edge_cases)."""
+    out = [c for c in _lv_merton_cases(timed)
+           if c[1] in kernels]
+    if "cev" in kernels:
+        out += cev_edge_cases(timed)
+    if "divs" in kernels:
+        out += divs_edge_cases(timed)
+    return out
+
+
+def _lv_merton_cases(timed: bool):
     from mc_tpu_torch.ops.payoffs import PAYOFFS
 
     n, steps = PARTIALS_MAIN
@@ -1565,31 +1631,187 @@ def partials_cases(timed: bool):
     return out
 
 
+# Options that keep a payoff's window or strike live (the SABR, CEV and
+# dividend edges').
+SPECIAL_OPTIONS = {"variance_swap": dict(k=0.04),
+                   "forward_start_call": dict(k=1.0, p1=30.0),
+                   "cliquet": dict(k=10.0, p1=-0.05, p2=0.05),
+                   "down_out_call": dict(barrier=90.0),
+                   "down_in_call": dict(barrier=90.0)}
+# More paths than the grid's threads (8,192 blocks of 256), a ragged tail.
+GRID_PAST = (1 << 21) + 4099
+
+
+def cev_edge_cases(timed: bool):
+    """CEV's (#18) cases.  Timed: price_cev's call at 1M x 100 under the
+    demo dynamics (beta 0.5), plain and antithetic, and the Asian.  Else
+    every payoff CEV prices, plain and antithetic; beta 0, 0.5 and 1;
+    paths absorbed at 0 (sigma_lv 60 at beta 1); a spot that overflows to
+    +inf (s0 3e38, r 0.5); s0 0, -1, NaN, 1e-30, +inf; 2, 4 and 300 steps;
+    an offset and a bound past 2^20; a bound past the last path (the paths
+    past n_paths add zeros all the same); more paths than the grid's
+    threads."""
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    n, steps = PARTIALS_MAIN
+    if timed:
+        return [(f"cev call anti={anti}", "cev",
+                 dict(anti=anti, n=n, steps=steps)) for anti in (False, True)
+                ] + [("cev asian_call anti=False", "cev",
+                      dict(anti=False, n=n, steps=steps, payoff="asian_call"))]
+    e = PARTIALS_EDGE
+    out = []
+    for name in sorted(set(PAYOFFS) - set(SIGMA_PAYOFFS)):
+        for anti in (False, True):
+            out.append((f"cev {name} anti={anti}", "cev",
+                        dict(anti=anti, n=e, steps=steps, payoff=name,
+                             option=SPECIAL_OPTIONS.get(name, {}))))
+    dyn_edges = [dict(beta=0.0, sigma_lv=20.0), dict(beta=1.0, sigma_lv=0.2),
+                 dict(beta=1.0, sigma_lv=60.0), dict(beta=0.5, sigma_lv=0.0),
+                 dict(beta=0.5, sigma_lv=float("inf")),
+                 dict(beta=0.5, sigma_lv=float("nan"))]
+    opt_edges = [dict(s0=3e38, r=0.5), dict(s0=0.0), dict(s0=-1.0),
+                 dict(s0=float("nan")), dict(s0=1e-30), dict(s0=float("inf"))]
+    for fix in dyn_edges + opt_edges:
+        for payoff in ("vanilla_call", "bullet_call", "asian_call"):
+            for anti in (False, True):
+                dyn = {k: v for k, v in fix.items() if k in ("beta",
+                                                             "sigma_lv")}
+                opt = {k: v for k, v in fix.items() if k not in dyn}
+                out.append((f"cev {payoff} {fix} anti={anti}", "cev",
+                            dict(anti=anti, n=4099, steps=steps,
+                                 payoff=payoff, option=opt, dyn=dyn)))
+    for anti in (False, True):
+        for st in (2, 4, 300):
+            out.append((f"cev asian {st} steps anti={anti}", "cev",
+                        dict(anti=anti, n=e, steps=st, payoff="asian_call")))
+        out.append((f"cev offset bound anti={anti}", "cev",
+                    dict(anti=anti, n=50_001, steps=steps,
+                         offset=(1 << 20) + 12_345,
+                         bound=(1 << 20) + 12_345 + 40_000)))
+        out.append((f"cev {GRID_PAST} paths anti={anti}", "cev",
+                    dict(anti=anti, n=GRID_PAST, steps=4)))
+        out.append((f"cev bound past the end anti={anti}", "cev",
+                    dict(anti=anti, n=5003, steps=steps, offset=7,
+                         bound=0xFFFFFFFF)))
+    return out
+
+
+def divs_schedules(steps: int):
+    """The dividends' edge schedules at ``steps``: {label: amounts}."""
+    two = np.zeros(steps, np.float32)
+    two[steps // 4 - 1], two[3 * steps // 4 - 1] = 3.0, 4.0
+    out = {"two payments": two, "none": np.zeros(steps, np.float32)}
+    ends = np.zeros(steps, np.float32)
+    ends[0], ends[-1] = 2.0, 5.0
+    out["first and last step"] = ends
+    out["every step"] = np.full(steps, 0.05, np.float32)
+    signed = two.copy()
+    signed[1::3] = -0.0
+    out["-0.0 between"] = signed
+    for label, v in (("NaN", np.nan), ("negative", -3.0), ("above spot", 500.0),
+                     ("+inf", np.inf)):
+        d = two.copy()
+        d[steps // 2] = v
+        out[label] = d
+    return out
+
+
+def divs_edge_cases(timed: bool):
+    """The dividends' (#22) cases.  Timed: price_divs's call at 1M x 100 on
+    the two payments (chip_smoke.py's), plain and antithetic, and the
+    Asian.  Else every payoff on the two payments, plain and antithetic;
+    each schedule of divs_schedules (none, the first and last step, every
+    step, -0.0 between, NaN, negative, above the spot, +inf) on the call,
+    the bullet, the Asian and the bridge barrier; 2 and 300 steps; the
+    table's capacity and past it; an offset and a bound past 2^20; a bound
+    past the last path; more paths than the grid's threads."""
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    n, steps = PARTIALS_MAIN
+    if timed:
+        return [(f"divs call two payments anti={anti}", "divs",
+                 dict(anti=anti, n=n, steps=steps, sched="two payments"))
+                for anti in (False, True)] + [
+            ("divs asian_call two payments anti=False", "divs",
+             dict(anti=False, n=n, steps=steps, payoff="asian_call",
+                  sched="two payments"))]
+    e = PARTIALS_EDGE
+    out = []
+    for name in sorted(PAYOFFS):
+        for anti in (False, True):
+            out.append((f"divs {name} anti={anti}", "divs",
+                        dict(anti=anti, n=e, steps=steps, payoff=name,
+                             sched="two payments",
+                             option=SPECIAL_OPTIONS.get(name, {}))))
+    for sched in divs_schedules(steps):
+        for payoff in ("vanilla_call", "bullet_call", "asian_call",
+                       "up_out_call_bb"):
+            for anti in (False, True):
+                out.append((f"divs {payoff} {sched} anti={anti}", "divs",
+                            dict(anti=anti, n=4099, steps=steps,
+                                 payoff=payoff, sched=sched)))
+    for anti in (False, True):
+        for st in (2, 300, 2048, 2050):
+            for sched in ("first and last step", "every step"):
+                out.append((f"divs asian {st} steps {sched} anti={anti}",
+                            "divs", dict(anti=anti, n=4099 if st > 300 else e,
+                                         steps=st, payoff="asian_call",
+                                         sched=sched)))
+        out.append((f"divs offset bound anti={anti}", "divs",
+                    dict(anti=anti, n=50_001, steps=steps,
+                         sched="two payments", offset=(1 << 20) + 12_345,
+                         bound=(1 << 20) + 12_345 + 40_000)))
+        out.append((f"divs {GRID_PAST} paths anti={anti}", "divs",
+                    dict(anti=anti, n=GRID_PAST, steps=4,
+                         sched="first and last step")))
+        out.append((f"divs bound past the end anti={anti}", "divs",
+                    dict(anti=anti, n=5003, steps=steps, offset=7,
+                         bound=0xFFFFFFFF, sched="two payments")))
+    return out
+
+
 def partials_inputs(kernel: str, a: dict, dev):
     """(params, key, count) of a --partials case: the packed vector, the
-    key price_<family> derives from seed 1234 and the knot count or kmax."""
+    key price_<family> derives from seed 1234 and the knot count or kmax
+    (CEV and the dividends: None)."""
+    import dataclasses
+
     from mc_tpu_torch import engines, rng
     from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import cev as cm
+    from mc_tpu_torch.models import dividends as dm
     from mc_tpu_torch.models import localvol as lm
     from mc_tpu_torch.models import merton as mm
 
+    opt = OptionParams(**a.get("option", {}))
+    count = None
     if kernel == "localvol":
-        prm = lm.pack_localvol(OptionParams(), lv_surface(a["k"], a["steps"]),
+        prm = lm.pack_localvol(opt, lv_surface(a["k"], a["steps"]),
                                a["steps"], dev)
         tag, count = lm.LOCALVOL_TAG, a["k"]
-    else:
+    elif kernel == "merton":
         dyn = mm.MertonDynamics(lam=a.get("lam", mm.DEMO_MERTON.lam))
-        prm = mm.pack_merton(OptionParams(), dyn, a["steps"], dev)
+        prm = mm.pack_merton(opt, dyn, a["steps"], dev)
         lam = dyn.lam if a["terminal"] else dyn.lam / a["steps"]
         count = a["kmax"] if "kmax" in a else mm.poisson_kmax(lam)
         tag = mm.MERTON_TAG
+    elif kernel == "cev":
+        dyn = dataclasses.replace(cm.DEMO_CEV, **a.get("dyn", {}))
+        prm = cm.pack_cev(opt, dyn, a["steps"], dev)
+        tag = cm.CEV_TAG
+    else:
+        prm = dm.pack_divs(opt, divs_schedules(a["steps"])[a["sched"]],
+                           a["steps"], dev)
+        tag = dm.DIVS_TAG
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
                                                 tag))
     return prm, key, count
 
 
 def run_partials(lib, tiles, kernel: str, a: dict, inputs, n_paths=None):
-    """(partials, ms) of one localvol or merton partials call."""
+    """(partials, ms) of one partials call of ``kernel``."""
     prm, (k0, k1), count = inputs
     n = n_paths or a["n"]
     offset = a.get("offset", 0)
@@ -1604,29 +1826,55 @@ def run_partials(lib, tiles, kernel: str, a: dict, inputs, n_paths=None):
         st = lib.mc_localvol_partials(pid, rounds, anti, k0, k1, prm.data_ptr(),
                                       count, a["steps"], n, offset, bound,
                                       part.data_ptr(), n_blocks, stream)
-    else:
+    elif kernel == "merton":
         st = lib.mc_merton_partials(pid, int(a["terminal"]), rounds, anti, k0,
                                     k1, prm.data_ptr(), count, a["steps"], n,
                                     offset, bound, part.data_ptr(), n_blocks,
                                     stream)
+    else:
+        st = getattr(lib, f"mc_{kernel}_partials")(
+            pid, anti, k0, k1, prm.data_ptr(), a["steps"], n, offset, bound,
+            part.data_ptr(), n_blocks, stream)
     t.append(_event())
     _check(st, f"{kernel}_partials")
     torch.cuda.synchronize()
     return part, t[0].elapsed_time(t[1])
 
 
+# The VanillaCall threefry-13 kernels the partials probe lists (CEV and
+# the dividends have no rounds parameter).
+PARTIALS_ENTRIES = {
+    "localvol": r"24localvol_partials_kernelINS_11VanillaCallE.*Li13E",
+    "merton": r"22merton_partials_kernelINS_11VanillaCallE.*Li13E",
+    "cev": r"19cev_partials_kernelINS_11VanillaCallE",
+    "divs": r"20divs_partials_kernelINS_11VanillaCallE"}
+
+
+def cev_logf_check(lib, dev) -> dict:
+    """The library's mc_cev_logf_check: the floats of [1e-12, FLT_MAX] and
+    +inf on which the CEV step's logf is not the toolkit's, and the
+    first."""
+    bad = torch.tensor([0, -1], dtype=torch.int64, device=dev)
+    _check(lib.mc_cev_logf_check(bad.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream),
+           "mc_cev_logf_check")
+    n_bad, first = (int(x) for x in bad.tolist())
+    return dict(mismatches=n_bad, first=hex(first) if n_bad else None)
+
+
 def partials_main(args, variants, card) -> dict:
     """The --partials probe: resources, SASS, the bitwise edges and the
-    times of the local-vol (#19) and Merton (#14) partials kernels."""
-    libs = build(variants, "partials")
+    times of the local-vol (#19), Merton (#14), CEV (#18) and dividend
+    (#22) partials kernels (``--kernels``: a subset)."""
+    kernels = tuple(k for k in args.kernels.split(",") if k)
+    libs = build(variants, "partials", kernels)
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
     bound = {}
-    want = re.compile(r"(24localvol_partials_kernel|22merton_partials_kernel)"
-                      r"INS_11VanillaCallE.*Li13E")
+    want = re.compile("|".join(PARTIALS_ENTRIES[k] for k in kernels))
     for label, src, defines in variants:
         lib_path, logs = libs[label]
-        lib, tiles = bind_partials(lib_path)
+        lib, tiles = bind_partials(lib_path, kernels)
         bound[label] = (lib, tiles)
         res = {}
         for log in logs.values():
@@ -1639,6 +1887,8 @@ def partials_main(args, variants, card) -> dict:
             r = dict(res[e])
             if args.sass and e in funcs:
                 n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                for lp in loops:
+                    lp["mufu"] = mufu_kinds(funcs[e], lp)
                 r["sass"] = dict(instructions=n_ins, loops=loops,
                                  total=sass_classes(funcs[e]))
                 write_listing(args.out, label, e, funcs[e])
@@ -1650,23 +1900,30 @@ def partials_main(args, variants, card) -> dict:
                 print(f"  total {r['sass']['total']}")
                 for lp in r["sass"]["loops"]:
                     print(f"  loop {lp}")
-        layout = partials_layout(lib)
+        layout = partials_layout(lib, kernels)
         print(f"probe {label}: partials layout (VanillaCall) tiles {tiles} "
               f"{layout} {card}", flush=True)
         report["variants"][label] = dict(src=str(src), defines=defines,
                                          kernels=rows, layout=layout,
                                          tiles=tiles, ptxas=logs)
+        if "cev" in kernels and hasattr(lib, "mc_cev_logf_check"):
+            chk = cev_logf_check(lib, dev)
+            report["variants"][label]["cev_logf_check"] = chk
+            print(f"probe {label}: mc_cev_logf_check {chk} {card}", flush=True)
+            if chk["mismatches"]:
+                print(f"FAIL: {label}'s CEV logf is not the toolkit's",
+                      flush=True)
     order = list(bound) + list(bound)[::-1]
     # the bitwise edges: once per variant, each against the first's
     edges, bad = {}, 0
-    for case, kernel, a in partials_cases(timed=False):
+    for case, kernel, a in partials_cases(False, kernels):
         inputs = partials_inputs(kernel, a, dev)
         ref = None
         for label in bound:
             lib, tiles = bound[label]
             part, _ = run_partials(lib, tiles, kernel, a, inputs)
             ref = part if ref is None else ref
-            same = bool(torch.equal(part, ref))
+            same = same_bits(part, ref)
             edges.setdefault(case, {})[label] = same
             if not same:
                 bad += 1
@@ -1677,7 +1934,7 @@ def partials_main(args, variants, card) -> dict:
     report["edges"] = edges
     if args.time:
         times = {}
-        for case, kernel, a in partials_cases(timed=True):
+        for case, kernel, a in partials_cases(True, kernels):
             inputs = partials_inputs(kernel, a, dev)
             ref = None
             for label in order:
@@ -1685,7 +1942,7 @@ def partials_main(args, variants, card) -> dict:
                 run_partials(lib, tiles, kernel, a, inputs, PARTIALS_WARM)
                 part, ms = run_partials(lib, tiles, kernel, a, inputs)
                 ref = part if ref is None else ref
-                same = bool(torch.equal(part, ref))
+                same = same_bits(part, ref)
                 times.setdefault(case, {}).setdefault(label, []).append(
                     dict(ms=ms, bitwise=same))
                 print(f"probe time {case} {a['n']}x{a['steps']} {label}: "
@@ -1781,11 +2038,6 @@ def sabr_cases(timed: bool):
                              general=True)))
         return out
     e = SABR_EDGE
-    special = {"variance_swap": dict(k=0.04),
-               "forward_start_call": dict(k=1.0, p1=30.0),
-               "cliquet": dict(k=10.0, p1=-0.05, p2=0.05),
-               "down_out_call": dict(barrier=90.0),
-               "down_in_call": dict(barrier=90.0)}
     out = []
     for name in sorted(set(PAYOFFS) - set(SIGMA_PAYOFFS)):
         for beta in (1.0, 0.5):
@@ -1793,7 +2045,7 @@ def sabr_cases(timed: bool):
                 out.append((f"sabr {name} beta={beta} anti={anti}",
                             dict(beta=beta, anti=anti, n=e, steps=steps,
                                  payoff=name,
-                                 option=special.get(name, {}))))
+                                 option=SPECIAL_OPTIONS.get(name, {}))))
     for beta in (1.0, 0.5):
         for anti in (False, True):
             for payoff in ("vanilla_call", "bullet_call", "asian_call"):
@@ -1985,6 +2237,9 @@ def main() -> int:
     mode.add_argument("--partials", action="store_true")
     mode.add_argument("--sabr", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--kernels", default=",".join(PARTIALS_KERNELS),
+                    help="--partials: a comma list of localvol, merton, cev, "
+                         "divs")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--out", default="build/family_probe.json")

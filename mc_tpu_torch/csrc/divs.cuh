@@ -9,8 +9,8 @@
 //    vol_dt, D_0, ..., D_{n_steps-1}]
 // The payoffs' Params take the head (sigma for the Brownian-bridge
 // barriers); drift_t and vol_t, which no step here reads, are NaN.  The
-// amounts stay in global memory: every thread of a warp reads D_j at step
-// j, one broadcast load from L1 (400 bytes at n_steps = 100).
+// partials kernel reads the amounts once a block, into its payment table
+// (divs_kernels.cu).
 #pragma once
 
 #include "payoffs.cuh"
@@ -36,16 +36,24 @@ __device__ __forceinline__ DivsParams load_divs(const float* __restrict__ v) {
   return c;
 }
 
-// One level-space step j: S = S*exp(drift_dt + vol_dt*z), then the cash
-// drop S = max(S - D_j, 1e-6) right after the move (the floor absorbs a
+// One level-space step of L legs: S = S*exp(drift_dt + vol_dt*z), then the
+// cash drop S = max(S - D_j, 1e-6) right after the move (the floor absorbs a
 // payment larger than the spot), the payoff state updated on the
-// post-dividend S.
-template <class Payoff>
-__device__ __forceinline__ void divs_step(const DivsParams& c, int j, float z, float& s,
-                                          typename Payoff::State& st) {
-  s = s * expf(c.pay.drift_dt + c.pay.vol_dt * z);
-  s = fmaxf(s - c.d[j], 1e-6f);
-  st = Payoff::update(st, s, c.pay);
+// post-dividend S.  At a step that pays no amount (`pays` false: D_j is +0
+// or -0) the drop is the floor alone, max(S, 1e-6): max(S - (+-0), 1e-6) is
+// that bit for bit for every S (S - (+0) is S; S - (-0) is S + 0, which only
+// turns -0 into +0, and both floor to 1e-6).
+template <class Payoff, int L>
+__device__ __forceinline__ void divs_step(const DivsParams& c, bool pays, float dj,
+                                          const float (&z)[L], float (&s)[L],
+                                          typename Payoff::State (&st)[L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    float x = s[l] * expf(c.pay.drift_dt + c.pay.vol_dt * z[l]);
+    if (pays) x = x - dj;
+    s[l] = fmaxf(x, 1e-6f);
+    st[l] = Payoff::update(st[l], s[l], c.pay);
+  }
 }
 
 }  // namespace mc

@@ -212,7 +212,7 @@ def divs_partials(payoff: PathPayoff, cfg: DivsConfig, key,
                                    n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_divs_block_threads()),
+    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_divs_block_paths()),
                    _cuda.MAX_BLOCKS)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)

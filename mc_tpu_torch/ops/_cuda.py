@@ -102,7 +102,11 @@ _SIGNATURES = {
     # payoff_id, terminal, antithetic, blocks
     "mc_merton_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
     "mc_bates_block_threads": ([], _c_int),
-    "mc_cev_block_threads": ([], _c_int),
+    "mc_cev_block_paths": ([], _c_int),
+    # antithetic, blocks
+    "mc_cev_occupancy": ([_c_int, _c_ptr], _c_int),
+    # bad (2 u64: 0 and ~0), stream
+    "mc_cev_logf_check": ([_c_ptr, _c_ptr], _c_int),
     "mc_localvol_block_paths": ([], _c_int),
     "mc_localvol_capacity": ([_c_int], _c_int),
     # antithetic
@@ -114,7 +118,12 @@ _SIGNATURES = {
     # unit_beta, antithetic, blocks
     "mc_sabr_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_term_block_threads": ([], _c_int),
-    "mc_divs_block_threads": ([], _c_int),
+    "mc_divs_block_paths": ([], _c_int),
+    # antithetic
+    "mc_divs_paths_per_thread": ([_c_int], _c_int),
+    "mc_divs_table_steps": ([], _c_int),
+    # antithetic, n_steps, blocks
+    "mc_divs_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_vasicek_block_threads": ([], _c_int),
     "mc_basket_block_threads": ([], _c_int),
     "mc_basket_block_paths": ([], _c_int),
@@ -375,9 +384,9 @@ NVCC_SECONDS = {
     "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,
     "qmc_vasicek_kernels.cu": 6.9, "greek_kernels.cu": 6.9,
     "qmc_sabr_kernels.cu": 6.9, "qmc_cev_kernels.cu": 6.8,
-    "qmc_term_kernels.cu": 6.7, "divs_kernels.cu": 6.5,
+    "qmc_term_kernels.cu": 6.7, "divs_kernels.cu": 20.3,
     "term_kernels.cu": 6.5, "qmc_heston_kernels.cu": 6.4,
-    "cev_kernels.cu": 6.2, "qmc_basket32_kernels.cu": 6.1,
+    "cev_kernels.cu": 11.0, "qmc_basket32_kernels.cu": 6.1,
     "rates_kernels.cu": 4.9, "rainbow_kernels.cu": 3.8,
     "fx_kernels.cu": 3.2, "reduce_kernels.cu": 3.0}
 
