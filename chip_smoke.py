@@ -21,12 +21,14 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    control variate, a ragged last contract group, and book64), the greek
    kernel for the five pathwise payoffs and the two reductions up to 2^26
    elements (one view misaligned); the Heston kernel for its 16 payoffs
-   (Euler and QE, threefry-13 and -20, antithetic, 1M x 100), the Heston
+   (Euler and QE, threefry-13 and -20, antithetic, 1M x 100; QE also in
+   QE_EDGES' stress regime and plain-K0 fall-backs), the Heston
    trajectories for the one-word payoffs and both family NMC kernels; the
    Merton kernel (every payoff, Euler and the terminal draw, threefry-13
    and -20, antithetic, 1M x 100 and 1M), the Merton trajectories and the
    generic trajectories under Bates (every one-word payoff), the Bates
-   kernel (16 payoffs, Euler and QE, 1M x 100) and the Merton and Bates
+   kernel (16 payoffs, Euler and QE, 1M x 100; QE also at QE_EDGES) and
+   the Merton and Bates
    family NMC kernels; the CEV kernel (16 payoffs, antithetic, 1M x 100;
    its edges: ragged lockstep groups, an offset past 2^20 with a bound
    inside the run and past its end, beta 0 and 1, paths absorbed at 0) and
@@ -190,8 +192,9 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    (its phase-3 calls), price_swaption(), price_hw_swaption(),
    price_g2_swaption());
 6. the bounds' int32, f32 and SFU terms of the recounted rows (the book,
-   SABR, CEV, the dividends) and the QE kernels' bounds beside their
-   phase-5 times, one JSON line of per-kernel results (with each kernel's
+   SABR, CEV, the dividends, the QE kernels, call and antithetic) and the
+   QE kernels' bounds beside their phase-5 times (call and antithetic),
+   one JSON line of per-kernel results (with each kernel's
    bound), then the JSON status line.
 
 Without a CUDA device it prints no result and exits 2.
@@ -392,14 +395,16 @@ GREEK_TERMINAL_OPS = (0, 8 + 4 * 3 + 2 + 10, 0)
 # A Heston Euler step on top of its whole threefry pair (heston.cuh): z_s
 # (3), v+ (1), sq (2 and a sqrtf), w (6), v (7), S = s0*expf(w) (1).
 HESTON_EULER_OPS = (0, 20, 2)
-# A Heston QE step on top of its pair and uniform (heston.cuh
-# heston_qe_step), the least work: of its two branches the cheaper, the
-# quadratic, each step (m (2), s2 (2), psi (1 and a division), 2/psi and
-# its floor (1 and a division), b2 (4 and a sqrtf), a (1 and a division),
-# b + z (1 and a sqrtf), v' (2); its martingale correction (8, a division
-# and a logf)); var_s (4), w (6 and a sqrtf), the selects (3), S =
-# s0*expf(w) (1 and an expf).
-HESTON_QE_OPS = (0, 36, 9)
+# A Heston QE step on top of its pair (heston.cuh), the least work at the
+# demo dynamics, whose psi never exceeds psi(0) = xi^2 / (2 kappa theta) =
+# 0.5625: the quadratic sampler at each step (m (3), s2 (2), psi (1 and a
+# division), the switch (1), 2/psi and its floor (1 and a division), b2 (4
+# and a sqrtf), a (1 and a division), b + z (1 and a sqrtf), v' (2)) and its
+# martingale correction (9, a division and a logf); var_s (4), w (6 and a
+# sqrtf).  The exponential sampler's uniform is drawn only where a lane
+# takes that sampler, so never here; S is formed where the payoff reads it
+# (the call: once, at maturity).
+HESTON_QE_OPS = (0, 35, 8)
 # An inner leg's end: its counter base (2), the call's payoff (2) and the
 # Kahan step (4).
 KAHAN_LEG_OPS = (2, 6, 0)
@@ -873,8 +878,9 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
 
 
 def heston_kernel_checks(mt, dev, keys):
-    """Phase 2 of the Heston slice: kernels #12, #13, #29 and #30 against
-    their plain versions on the card, each check deferred.  Returns
+    """Phase 2 of the Heston slice: kernels #12 (QE also at QE_EDGES), #13,
+    #29 and #30 against their plain versions on the card, each check
+    deferred.  Returns
     ({kernel: max abs error}, family_nmc_case's ms at NMC_MAIN), filled by
     the kernel pass."""
     from mc_tpu_torch.models import heston as hm
@@ -889,15 +895,17 @@ def heston_kernel_checks(mt, dev, keys):
     def note(kernel, e):
         err[kernel] = max(err[kernel], e)
 
-    def partials_case(name, n_paths, **kw):
-        po, opt = get_payoff(name), payoff_option(mt, name)
-        cfg = hm.HestonConfig(n_paths=n_paths, n_steps=MAIN_STEPS, **kw)
-        prm = hm.pack_heston(opt, dyn, MAIN_STEPS, dev)
+    def partials_case(name, n_paths, dynamics=dyn, option=None,
+                      n_steps=MAIN_STEPS, label="", **kw):
+        po = get_payoff(name)
+        opt = option or payoff_option(mt, name)
+        cfg = hm.HestonConfig(n_paths=n_paths, n_steps=n_steps, **kw)
+        prm = hm.pack_heston(opt, dynamics, n_steps, dev)
         want = finish_sum(hm.heston_partials_plain(po, cfg, key, prm))
         yield
         got = finish_sum(hm.heston_partials(po, cfg, key, prm))
-        check_sums(f"heston_partials {name} {cfg.scheme} {n_paths}x"
-                   f"{MAIN_STEPS} {cfg.rng_source} anti={cfg.antithetic}",
+        check_sums(f"heston_partials {name} {cfg.scheme}{label} {n_paths}x"
+                   f"{n_steps} {cfg.rng_source} anti={cfg.antithetic}",
                    got, want)
         note("heston_partials", price_err(got, want, n_paths, opt))
 
@@ -911,6 +919,12 @@ def heston_kernel_checks(mt, dev, keys):
             defer(partials_case(name, FAMILY_PATHS, **kw))
     for scheme in ("euler", "qe"):  # the main shape: a partly filled block
         defer(partials_case("vanilla_call", FAMILY_MAIN, scheme=scheme))
+    # #12 QE's other branches: the exponential sampler and the plain-K0
+    # fall-backs (QE_EDGES)
+    for edge, (dynamics, option, n_steps) in qe_edges(mt, hm).items():
+        for name, kw in qe_edge_runs(edge):
+            defer(partials_case(name, FAMILY_PATHS, dynamics, option, n_steps,
+                                f" {edge}", scheme="qe", **kw))
 
     def traj_case(name, n_paths):
         po, opt = get_payoff(name), payoff_option(mt, name)
@@ -948,6 +962,37 @@ def heston_kernel_checks(mt, dev, keys):
                           "vanilla_call", NMC_MAIN, family_note,
                           EARLIER_NMC_ROWS), nmc_ms.update)
     return err, nmc_ms
+
+
+# The QE kernels' (#12, #16) phase-2 edges beyond the demo dynamics, whose
+# psi stays under 0.5625: Heston's variance in the Feller-violating stress
+# regime of tests/test_heston_qe.py (psi crosses 1.5 inside a warp: both
+# samplers), and at rho = +0.9, xi = 2, kappa = 1 from v0 = 17 at dt = 2,
+# where both samplers' martingale corrections fall back to the plain K0 on a
+# share of the paths: {edge: (dynamics fields, option fields, steps)}.
+QE_EDGES = {
+    "stress": (dict(v0=0.09, kappa=1.0, theta=0.09, xi=1.0, rho=-0.9), {},
+               MAIN_STEPS),
+    "rho+0.9 fall-backs": (dict(v0=17.0, kappa=1.0, theta=0.09, xi=2.0,
+                                rho=0.9), dict(t=4.0), 2)}
+
+
+def qe_edges(mt, hm):
+    """QE_EDGES as (HestonDynamics, OptionParams, steps)."""
+    return {edge: (hm.HestonDynamics(**d), mt.OptionParams(**o), n)
+            for edge, (d, o, n) in QE_EDGES.items()}
+
+
+def qe_edge_runs(edge: str):
+    """The payoffs and configurations a QE edge runs: the stress regime
+    the call, the Asian and the bullet, plain and antithetic, and the call
+    at threefry-20; the fall-backs the call, plain and antithetic."""
+    if edge != "stress":
+        return [("vanilla_call", dict(antithetic=a)) for a in (False, True)]
+    return [(name, dict(antithetic=a))
+            for name in ("vanilla_call", "asian_call", "bullet_call")
+            for a in (False, True)] + [
+        ("vanilla_call", dict(antithetic=True, rng_source="threefry"))]
 
 
 def run_cli(argv) -> dict:
@@ -989,21 +1034,32 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
     gbm_sim, sp, _ = cuda_ms(lambda: pk.simulate_partials(
         call, gbm_cfg, key, pk.pack_params(mt.DEMO_OPTION, MAIN_STEPS, dev)))
     steps = FAMILY_MAIN * MAIN_STEPS
-    for scheme in ("euler", "qe"):
+    # Euler, QE and QE antithetic (the kernel alone: its plain version
+    # repeats the call's)
+    for scheme, anti, row in (("euler", False, "heston_partials"),
+                              ("qe", False, "qe"), ("qe", True, "qe_anti")):
         cfg = hm.HestonConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
-                              scheme=scheme)
-        k_ms, p_ms = time_pair(
-            f"heston_partials call {scheme}",
-            lambda cfg=cfg: hm.heston_partials(call, cfg, key, prm),
-            lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
-            f"{FAMILY_MAIN}x{MAIN_STEPS}")
-        kernel = "heston_qe_kernel" if scheme == "qe" else "heston_euler_kernel"
-        print(f"phase 5: heston_partials call {scheme}: {steps / k_ms * 1e3:.4e}"
+                              scheme=scheme, antithetic=anti)
+        label = f"heston_partials call {scheme}{' antithetic' if anti else ''}"
+        if anti:
+            k_ms, k_sp, _ = cuda_ms(lambda cfg=cfg: hm.heston_partials(
+                call, cfg, key, prm))
+            print(f"phase 5: {label} {FAMILY_MAIN}x{MAIN_STEPS}: kernel "
+                  f"{k_ms:.4f} ms (spread {k_sp:.1%}) {tag}")
+            out[row] = (k_ms, None)
+        else:
+            out[row] = time_pair(
+                label, lambda cfg=cfg: hm.heston_partials(call, cfg, key, prm),
+                lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
+                f"{FAMILY_MAIN}x{MAIN_STEPS}")
+            k_ms = out[row][0]
+        reg_key = (("heston_qe_kernel", "VanillaCall", (13, int(anti)))
+                   if scheme == "qe"
+                   else ("heston_euler_kernel", "VanillaCall", 13))
+        print(f"phase 5: {label}: {steps / k_ms * 1e3:.4e}"
               f" path-steps/s; {k_ms / gbm_sim:.2f}x the GBM simulate_partials"
               f" call euler on the same shape ({gbm_sim:.4f} ms, spread "
-              f"{sp:.1%}); registers {regs.get((kernel, 'VanillaCall', 13))}"
-              f" {tag}")
-        out["heston_partials" if scheme == "euler" else "qe"] = (k_ms, p_ms)
+              f"{sp:.1%}); registers {regs.get(reg_key)} {tag}")
     bullet = get_payoff("bullet_call")
     cfg_t = hm.HestonConfig(n_paths=HESTON_PAYOFF_MAIN, n_steps=MAIN_STEPS)
     out["heston_trajectories"] = time_pair(
@@ -1126,16 +1182,23 @@ def bates_step(rounds: int, kmax: int):
                 HESTON_EULER_OPS, BATES_JUMP_OPS, table_ops(kmax))
 
 
-def qe_path(n_steps: int, kmax: int = 0):
-    """A Heston (kmax 0) or Bates QE path: per step the pair and the
-    uniform of heston_kernels.cu's QeScheme and the QE step (Bates: its
-    jump-size pair and Poisson uniform, the jump and the count against the
-    table too), the payoff."""
-    step = _add(pair_ops(13), unit_ops(13, 1), HESTON_QE_OPS)
+def qe_path(n_steps: int, kmax: int = 0, lam_dt: float = 0.0, legs: int = 1):
+    """A Heston (kmax 0) or Bates QE path of ``legs`` legs on one draw (2:
+    an antithetic path): per step the diffusion pair and each leg's
+    quadratic QE step (HESTON_QE_OPS); under Bates also the Poisson
+    uniform, each leg's compare with the table's least entry F(0) and its w
+    += jump, and only where a leg's uniform reaches the table (a share 1 -
+    F(0) of the steps a leg, at most ``legs`` times that for the path: a
+    count of 0 is no jump whatever the jump size) the jump-size pair and
+    each leg's count against the table and its jump; per leg S =
+    s0*expf(w) once and the payoff (the call reads S at maturity only)."""
+    step = _add(pair_ops(13), _scale(HESTON_QE_OPS, legs))
     if kmax:
-        step = _add(step, pair_ops(13), unit_ops(13, 1), BATES_JUMP_OPS,
-                    table_ops(kmax))
-    return _add(_scale(step, n_steps), TERMINAL_OPS)
+        reach = legs * (1.0 - math.exp(-lam_dt))
+        jump = _add(pair_ops(13), _scale(_add(table_ops(kmax), (0, 4, 1)), legs))
+        step = _add(step, unit_ops(13, 1), _scale((0, 2, 0), legs),
+                    _scale(jump, reach))
+    return _add(_scale(step, n_steps), _scale(_add((0, 1, 1), TERMINAL_OPS), legs))
 
 
 def bates_substep(kmax: int):
@@ -1276,12 +1339,14 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
     """Phase 2 of the jump slice: #14 (every payoff, both methods,
     threefry-13/-20, antithetic; the main shapes 1M x 100 and 1M terminal),
     #15 and the generic trajectories (every one-word payoff), #16 (its 16
-    payoffs, Euler and QE; 1M x 100), and both families' #29/#30 at
+    payoffs, Euler and QE; 1M x 100; QE at QE_EDGES), and both families'
+    #29/#30 at
     NMC_SMALL and at NMC_MAIN against the plain rows NMC_ROWS, each
     against its plain version on the card, deferred.  Returns ({row: max
     abs error}, {family: ms of the plain version's rows at NMC_MAIN}),
     filled by the kernel pass."""
     from mc_tpu_torch.models import bates as bm
+    from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.models import merton as mm
     from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
     from mc_tpu_torch.nmc_bates import BatesNMC
@@ -1306,14 +1371,17 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
                              mm.pack_merton(opt, dyn, MAIN_STEPS, dev), name,
                              opt, f"{method} kmax={kmax}"))
 
-    def bates_case(name, n_paths, **kw):
-        opt = payoff_option(mt, name)
-        cfg = bm.BatesConfig(n_paths=n_paths, n_steps=MAIN_STEPS, kmax=k_dt,
+    def bates_case(name, n_paths, dyn=bm.DEMO_BATES, opt=None,
+                   n_steps=MAIN_STEPS, label="", **kw):
+        kmax = (k_dt if opt is None
+                else mm.poisson_kmax(dyn.lam * opt.t / n_steps))
+        opt = opt or payoff_option(mt, name)
+        cfg = bm.BatesConfig(n_paths=n_paths, n_steps=n_steps, kmax=kmax,
                              **kw)
         defer(partials_check(note, "bates_partials", bm.bates_partials,
                              bm.bates_partials_plain, cfg, bates_keys[0],
-                             bm.pack_bates(opt, bm.DEMO_BATES, MAIN_STEPS,
-                                           dev), name, opt, cfg.scheme))
+                             bm.pack_bates(opt, dyn, n_steps, dev), name, opt,
+                             cfg.scheme + label))
 
     for name, po in sorted(PAYOFFS.items()):
         merton_case(name, FAMILY_PATHS)
@@ -1342,6 +1410,13 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
                     antithetic=method == "euler")
     for scheme in ("euler", "qe"):
         bates_case("vanilla_call", FAMILY_MAIN, scheme=scheme)
+    # #16 QE's other branches (QE_EDGES), Heston's variance under the demo
+    # jumps
+    for edge, (heston, option, n_steps) in qe_edges(mt, hm).items():
+        dyn = dataclasses.replace(bm.DEMO_BATES, **dataclasses.asdict(heston))
+        for name, kw in qe_edge_runs(edge):
+            bates_case(name, FAMILY_PATHS, dyn, option, n_steps, f" {edge}",
+                       scheme="qe", **kw)
 
     fams = {"merton": (MertonNMC(extras=(k_dt,)), mm.pack_merton,
                        mm.DEMO_MERTON, merton_keys, "merton_trajectories"),
@@ -1842,6 +1917,8 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
     b_cfg = {sc: bm.BatesConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
                                 kmax=k_dt, scheme=sc)
              for sc in ("euler", "qe")}
+    b_cfg["qe_anti"] = bm.BatesConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
+                                      kmax=k_dt, scheme="qe", antithetic=True)
     # Each kernel at its main shape, beside Heston's partials of its scheme
     # (the terminal draw: Euler's); the plain versions of the Euler rows
     # (the terminal draw and QE: the kernel alone).  Registers: ROUNDS=13,
@@ -1869,7 +1946,12 @@ def jump_times(mt, dev, merton_keys, bates_keys, regs, tag, time_pair,
          ("bates_partials_kernel<BatesEuler>", "VanillaCall", 13), euler),
         ("bates_qe", "bates_partials call qe",
          lambda: bm.bates_partials(call, b_cfg["qe"], bates_keys[0], b_prm),
-         None, ("bates_partials_kernel<BatesQe>", "VanillaCall", 13), qe)),
+         None, ("bates_qe_kernel", "VanillaCall", (13, 0)), qe),
+        ("bates_qe_anti", "bates_partials call qe antithetic",
+         lambda: bm.bates_partials(call, b_cfg["qe_anti"], bates_keys[0],
+                                   b_prm),
+         None, ("bates_qe_kernel", "VanillaCall", (13, 1)),
+         ("heston_partials call qe antithetic", gbm_ms["qe_anti"]))),
         FAMILY_MAIN, time_pair, regs, tag)
 
     heston_nmc = ("Heston", {name: gbm_ms[name]
@@ -5424,20 +5506,28 @@ def main() -> int:
     single_ops = {f"{s.family}_partials": _scale(s.path, FAMILY_MAIN)
                   for s in singles if s.family in ("sabr", "cev", "divs")}
     k_dt, _ = jump_kmax()
-    qe_ops = {"heston_partials qe": _scale(qe_path(MAIN_STEPS), FAMILY_MAIN),
-              "bates_partials qe": _scale(qe_path(MAIN_STEPS, k_dt),
-                                          FAMILY_MAIN)}
+    lam_dt = mt.DEMO_BATES.lam * mt.DEMO_OPTION.t / MAIN_STEPS
+    # the QE kernels (#12's heston_qe_kernel, #16's bates_qe_kernel) at 1M
+    # x 100, call and antithetic: (ops, parameter bytes, phase-5 ms)
+    qe_rows = {
+        "heston_partials qe": (qe_path(MAIN_STEPS), 68, heston_ms["qe"][0]),
+        "heston_partials qe antithetic": (qe_path(MAIN_STEPS, legs=2), 68,
+                                          heston_ms["qe_anti"][0]),
+        "bates_partials qe": (qe_path(MAIN_STEPS, k_dt, lam_dt), 80,
+                              jump_ms["bates_qe"][0]),
+        "bates_partials qe antithetic": (qe_path(MAIN_STEPS, k_dt, lam_dt, 2),
+                                         80, jump_ms["bates_qe_anti"][0])}
+    qe_ops = {row: _scale(ops, FAMILY_MAIN)
+              for row, (ops, _, _) in qe_rows.items()}
     for row, ops in (("book", book_ops), *single_ops.items(),
                      *qe_ops.items()):
         print(f"phase 6: {row} bound terms: int32 "
               f"{ops[0] / INT32_OPS_PER_S * 1e3:.4f} ms, f32 "
               f"{ops[1] / F32_OPS_PER_S * 1e3:.4f} ms, SFU "
               f"{ops[2] / SFU_OPS_PER_S * 1e3:.4f} ms {tag}")
-    # the QE kernels (#12's heston_qe_kernel, #16's QE instantiation) at
-    # 1M x 100: their phase-5 times against their bounds
-    for (row, ops), ms in zip(qe_ops.items(), (heston_ms["qe"][0],
-                                               jump_ms["bates_qe"][0])):
-        b_ms, b_by = bound(68 if row.startswith("heston") else 80, ops)
+    # their phase-5 times against their bounds
+    for row, (_, n_bytes, ms) in qe_rows.items():
+        b_ms, b_by = bound(n_bytes, qe_ops[row])
         print(f"phase 6: {row} {FAMILY_MAIN}x{MAIN_STEPS}: {ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it {tag}")
     outer_ops = _scale(path_ops("bullet_call", n_steps, 13), n_out)

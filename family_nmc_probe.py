@@ -6,7 +6,8 @@ with ``--basket`` the basket's partials and trajectories kernels (#25
 basket_partials_kernel, #26 basket_trajectories_kernel), or with
 ``--partials`` the local-vol, Merton, CEV and cash-dividend partials
 kernels (#19 localvol_partials_kernel, #14 merton_partials_kernel, #18
-cev_partials_kernel, #22 divs_partials_kernel), or with ``--sabr``
+cev_partials_kernel, #22 divs_partials_kernel) and the Heston and Bates QE
+kernels (#12 heston_qe_kernel, #16's QE instantiation), or with ``--sabr``
 the SABR partials kernel (#17 sabr_partials_kernel), on one CUDA card:
 what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
@@ -116,8 +117,18 @@ a variant.  ``--partials`` also builds ``cev_kernels.cu`` and
 every float of [1e-12, FLT_MAX] and +inf), runs their edge cases
 (cev_edge_cases, divs_edge_cases) and (``--time``) times price_cev's and
 price_divs's kernels at 1M x 100 (the call plain and antithetic, the
-Asian).  ``--kernels`` names the kernels to build and run (a comma list of
-localvol, merton, cev and divs; all four by default).
+Asian).  ``--partials`` also builds ``heston_kernels.cu`` and
+``bates_kernels.cu`` with their ``<family>_qe_kernels.cu`` (an older
+commit's through units adding ``mc_heston_occupancy`` and
+``mc_bates_occupancy``), prints the ptxas resources of the QE and Euler
+kernels and their blocks per SM, runs the QE edge cases (qe_edge_cases:
+both samplers and both fall-backs of the martingale correction, diverging
+warps, threefry-20, degenerate dynamics and barriers, Bates's depths and
+non-finite jump parameters) and (``--time``) times price_heston's and
+price_bates's QE kernels at 1M x 100 (the call plain and antithetic, the
+Asian) and their Euler kernels' call.  ``--kernels`` names the kernels to
+build and run (a comma list of localvol, merton, cev, divs, heston_qe and
+bates_qe; all six by default).
 
 ``--sabr`` builds ``sabr_kernels.cu`` and ``sabr1_kernels.cu`` (the
 unit-beta instantiations; a source without ``mc_sabr_occupancy``, an older
@@ -1443,25 +1454,66 @@ extern "C" int mc_divs_occupancy(int antithetic, int n_steps, int* blocks) {{
       blocks, mc::divs_partials_kernel<mc::VanillaCall>, mc_divs_block_threads(), 0);
 }}
 """
-PARTIALS_KERNELS = ("localvol", "merton", "cev", "divs")
+# A csrc that predates mc_heston_occupancy or mc_bates_occupancy (the QE
+# kernels' one loop for both legs): these units add them, for VanillaCall at
+# threefry-13, by scheme (qe 1: the QE kernel, 0: the Euler one).
+HESTON_SHIM = """#include "{src}/heston_kernels.cu"
+
+extern "C" int mc_heston_occupancy(int qe, int antithetic, int* blocks) {{
+  (void)antithetic;
+  const int threads = mc_heston_block_threads();
+  return qe ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks, mc::heston_qe_kernel<mc::VanillaCall, 13>, threads, 0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks, mc::heston_euler_kernel<mc::VanillaCall, 13>, threads, 0);
+}}
+"""
+BATES_SHIM = """#include "{src}/bates_kernels.cu"
+
+extern "C" int mc_bates_occupancy(int qe, int antithetic, int* blocks) {{
+  (void)antithetic;
+  const int threads = mc_bates_block_threads();
+  return qe ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks, mc::bates_partials_kernel<mc::VanillaCall, mc::BatesQe, 13>,
+                  threads, 0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks, mc::bates_partials_kernel<mc::VanillaCall, mc::BatesEuler, 13>,
+                  threads, 0);
+}}
+"""
+PARTIALS_KERNELS = ("localvol", "merton", "cev", "divs", "heston_qe",
+                    "bates_qe")
+# The family of a kernel name: its sources' stem and its entry points'
+# infix (mc_<family>_partials); the QE kernels are their families'.
+_PARTIALS_FAMILY = {"heston_qe": "heston", "bates_qe": "bates"}
 _PARTIALS_SHIMS = {"localvol": LOCALVOL_SHIM, "merton": MERTON_SHIM,
-                   "cev": CEV_SHIM, "divs": DIVS_SHIM}
+                   "cev": CEV_SHIM, "divs": DIVS_SHIM, "heston": HESTON_SHIM,
+                   "bates": BATES_SHIM}
 # the occupancy entry points' arguments before the blocks pointer
-_OCCUPANCY_ARGS = {"localvol": 3, "merton": 3, "cev": 1, "divs": 2}
+_OCCUPANCY_ARGS = {"localvol": 3, "merton": 3, "cev": 1, "divs": 2,
+                   "heston_qe": 2, "bates_qe": 2}
+
+
+def partials_family(name: str) -> str:
+    return _PARTIALS_FAMILY.get(name, name)
 
 
 def partials_sources(src: Path, out: Path, kernels=PARTIALS_KERNELS):
     """The partials sources of ``kernels`` in ``src`` (each capacity's own
-    ``<name><N>_kernels.cu`` too, not the NMC's), through a shim where the
-    source has no occupancy entry point."""
+    ``<family><N>_kernels.cu`` and the QE kernels' ``<family>_qe_kernels.cu``
+    too, not the NMC's), through a shim where the sources have no occupancy
+    entry point."""
     srcs = []
     for name in kernels:
-        main = src / f"{name}_kernels.cu"
-        if f"mc_{name}_occupancy" in main.read_text():
-            srcs += [main, *(q for q in src.glob(f"{name}[0-9]*_kernels.cu"))]
+        fam = partials_family(name)
+        own = [src / f"{fam}_kernels.cu",
+               *src.glob(f"{fam}[0-9]*_kernels.cu"),
+               *src.glob(f"{fam}_qe_kernels.cu")]
+        if any(f"mc_{fam}_occupancy" in q.read_text() for q in own):
+            srcs += own
         else:
-            unit = out / f"{name}_probe.cu"
-            unit.write_text(_PARTIALS_SHIMS[name].format(src=src))
+            unit = out / f"{fam}_probe.cu"
+            unit.write_text(_PARTIALS_SHIMS[fam].format(src=src))
             srcs.append(unit)
     return srcs
 
@@ -1475,13 +1527,14 @@ def bind_partials(lib_path: Path, kernels=PARTIALS_KERNELS):
     lib = ctypes.CDLL(str(lib_path))
     tiles = {}
     for name in kernels:
-        fn = getattr(lib, f"mc_{name}_partials")
-        fn.argtypes, fn.restype = _cuda._SIGNATURES[f"mc_{name}_partials"]
-        tile = getattr(lib, f"mc_{name}_block_paths", None) or getattr(
-            lib, f"mc_{name}_block_threads")
+        fam = partials_family(name)
+        fn = getattr(lib, f"mc_{fam}_partials")
+        fn.argtypes, fn.restype = _cuda._SIGNATURES[f"mc_{fam}_partials"]
+        tile = getattr(lib, f"mc_{fam}_block_paths", None) or getattr(
+            lib, f"mc_{fam}_block_threads")
         tile.argtypes, tile.restype = [], _int
         tiles[name] = tile()
-        occ = getattr(lib, f"mc_{name}_occupancy")
+        occ = getattr(lib, f"mc_{fam}_occupancy")
         occ.argtypes = [_int] * _OCCUPANCY_ARGS[name] + [
             ctypes.POINTER(ctypes.c_int)]
         occ.restype = _int
@@ -1535,6 +1588,16 @@ def partials_layout(lib, kernels=PARTIALS_KERNELS) -> dict:
             if hasattr(lib, "mc_divs_table_steps"):
                 r["table_steps"] = lib.mc_divs_table_steps()
             out[f"divs steps={steps} anti={anti}"] = r
+    for name in ("heston_qe", "bates_qe"):
+        if name not in kernels:
+            continue
+        fam = partials_family(name)
+        for qe in (1, 0):
+            for anti in (False, True):
+                st = getattr(lib, f"mc_{fam}_occupancy")(
+                    qe, int(anti), ctypes.byref(blocks))
+                out[f"{fam} {'qe' if qe else 'euler'} anti={anti}"] = row(
+                    st, name, anti)
     return out
 
 
@@ -1566,6 +1629,10 @@ def partials_cases(timed: bool, kernels=PARTIALS_KERNELS):
         out += cev_edge_cases(timed)
     if "divs" in kernels:
         out += divs_edge_cases(timed)
+    if "heston_qe" in kernels:
+        out += qe_edge_cases(timed, "heston_qe")
+    if "bates_qe" in kernels:
+        out += qe_edge_cases(timed, "bates_qe")
     return out
 
 
@@ -1772,6 +1839,114 @@ def divs_edge_cases(timed: bool):
     return out
 
 
+# Heston's variance dynamics at the QE edges: the Feller-violating stress
+# regime of tests/test_heston_qe.py, where psi crosses 1.5 inside a warp;
+# rho = +0.9 from v0 = 3 at dt = 0.5 (tests/test_torch_heston.py's
+# fall-back case, which keeps A*a and A/beta inside the correction's
+# validity), and xi = 2, kappa = 1 at dt = 2 from v0 = 17 and 30, where
+# both samplers fall back to the plain K0 on a share of the paths (quadratic
+# above v ~ 16.2, exponential over v ~ 5-16.2); (option fields, dynamics,
+# steps) each.  v0 = 0, and degenerate dynamics (psi NaN: theta = v0 = 0;
+# xi = 0; kappa = 0).
+QE_STRESS = dict(v0=0.09, kappa=1.0, theta=0.09, xi=1.0, rho=-0.9)
+QE_FALLBACKS = (
+    (dict(t=1.0), dict(v0=3.0, kappa=1.0, theta=0.09, xi=1.0, rho=0.9), 2),
+    (dict(t=4.0), dict(v0=17.0, kappa=1.0, theta=0.09, xi=2.0, rho=0.9), 2),
+    (dict(t=20.0), dict(v0=17.0, kappa=1.0, theta=0.09, xi=2.0, rho=0.9), 10),
+    (dict(t=4.0), dict(v0=30.0, kappa=1.0, theta=0.09, xi=2.0, rho=0.9), 2))
+QE_DEGENERATE = (dict(v0=0.0, theta=0.0), dict(xi=0.0), dict(kappa=0.0))
+
+
+def qe_edge_cases(timed: bool, kernel: str):
+    """The QE kernels' (#12's heston_qe_kernel, #16's QE instantiation)
+    cases.  Timed: price_heston's (price_bates's) call at 1M x 100 under the
+    demo dynamics, plain and antithetic, the Asian, and the Euler kernel's
+    call (qe 0).  Else every payoff Heston prices, plain and antithetic;
+    the stress regime (both samplers in a warp) and rho = +0.9 at large v
+    (QE_FALLBACKS: the plain-K0 fall-backs), under threefry-13 and -20,
+    plain and antithetic; v0 = 0 and the degenerate dynamics; 1, 2 and 453 steps;
+    an offset past 2^20 with a bound inside the run; a bound past the last
+    path; more paths than the grid's threads; the bullet and the down-and-in
+    call at barriers 0, -1, +-inf, NaN and spots 0, -0, -50 (also under a
+    barrier of -60, where the spot falls below it as w rises, struck at
+    -100), +inf, NaN.
+    Under Bates also lam*dt from 0.003 to 17 and kmax 1 to 256, and mu_j,
+    sigma_j at +-0, +-inf and NaN (the call and the Asian)."""
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    fam = partials_family(kernel)
+    n, steps = PARTIALS_MAIN
+    if timed:
+        return [(f"{fam} qe call anti={anti}", kernel,
+                 dict(anti=anti, n=n, steps=steps)) for anti in (False, True)
+                ] + [(f"{fam} qe asian_call anti=False", kernel,
+                      dict(anti=False, n=n, steps=steps, payoff="asian_call")),
+                     (f"{fam} euler call anti=False", kernel,
+                      dict(anti=False, n=n, steps=steps, qe=0))]
+    e = PARTIALS_EDGE
+    out = []
+
+    def add(label, **a):
+        out.append((f"{fam} qe {label}", kernel, {"n": e, "steps": steps,
+                                                  **a}))
+
+    for name in sorted(set(PAYOFFS) - set(SIGMA_PAYOFFS)):
+        for anti in (False, True):
+            add(f"{name} anti={anti}", anti=anti, payoff=name,
+                option=SPECIAL_OPTIONS.get(name, {}))
+    for rounds in (13, 20):
+        for anti in (False, True):
+            for payoff in ("vanilla_call", "bullet_call", "asian_call"):
+                add(f"stress {payoff} r{rounds} anti={anti}", anti=anti,
+                    payoff=payoff, rounds=rounds, dyn=QE_STRESS)
+            for opt, dyn, st in QE_FALLBACKS:
+                add(f"fall-back {opt} {dyn} {st} steps r{rounds} "
+                    f"anti={anti}", anti=anti, rounds=rounds, dyn=dyn,
+                    option=opt, steps=st)
+    for anti in (False, True):
+        for dyn in (dict(v0=0.0), dict(QE_STRESS, v0=0.0), *QE_DEGENERATE):
+            add(f"{dyn} anti={anti}", anti=anti, dyn=dyn)
+        for st in (1, 2, 453):
+            add(f"stress asian {st} steps anti={anti}", anti=anti,
+                payoff="asian_call", dyn=QE_STRESS, steps=st)
+        add(f"offset bound anti={anti}", anti=anti, n=50_001,
+            dyn=QE_STRESS, offset=(1 << 20) + 12_345,
+            bound=(1 << 20) + 12_345 + 40_000)
+        add(f"bound past the end anti={anti}", anti=anti, n=5003, offset=7,
+            bound=0xFFFFFFFF)
+        add(f"{GRID_PAST} paths anti={anti}", anti=anti, n=GRID_PAST, steps=4)
+        for payoff in ("bullet_call", "down_in_call"):
+            for fix in (dict(barrier=0.0), dict(barrier=-1.0),
+                        dict(barrier=float("inf")),
+                        dict(barrier=float("-inf")),
+                        dict(barrier=float("nan")), dict(s0=0.0),
+                        dict(s0=-0.0), dict(s0=-50.0),
+                        dict(s0=-50.0, barrier=-60.0, k=-100.0),
+                        dict(s0=float("inf")),
+                        dict(s0=float("nan"))):
+                add(f"{payoff} {fix} anti={anti}", anti=anti, n=4099,
+                    payoff=payoff,
+                    option={**SPECIAL_OPTIONS.get(payoff, {}), **fix})
+    if kernel != "bates_qe":
+        return out
+    inf, nan = float("inf"), float("nan")
+    for anti in (False, True):
+        for lam, kmax in ((0.3, None), (30.0, None), (1700.0, None),
+                          (1700.0, 256), (0.3, 1), (0.3, 256)):
+            add(f"lam {lam} kmax {kmax} anti={anti}", anti=anti,
+                dyn=dict(lam=lam), **({} if kmax is None else dict(kmax=kmax)))
+        for jump in (dict(mu_j=0.0, sigma_j=0.0), dict(mu_j=-0.0, sigma_j=-0.0),
+                     dict(mu_j=0.0), dict(mu_j=-0.0), dict(mu_j=inf),
+                     dict(mu_j=-inf), dict(mu_j=nan), dict(sigma_j=0.0),
+                     dict(sigma_j=-0.0), dict(sigma_j=inf),
+                     dict(sigma_j=-inf), dict(sigma_j=nan)):
+            for payoff in ("vanilla_call", "asian_call"):
+                add(f"{payoff} {jump} anti={anti}", anti=anti, n=4099,
+                    payoff=payoff, dyn=jump)
+    return out
+
+
 def partials_inputs(kernel: str, a: dict, dev):
     """(params, key, count) of a --partials case: the packed vector, the
     key price_<family> derives from seed 1234 and the knot count or kmax
@@ -1780,8 +1955,10 @@ def partials_inputs(kernel: str, a: dict, dev):
 
     from mc_tpu_torch import engines, rng
     from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import bates as bm
     from mc_tpu_torch.models import cev as cm
     from mc_tpu_torch.models import dividends as dm
+    from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.models import localvol as lm
     from mc_tpu_torch.models import merton as mm
 
@@ -1801,6 +1978,16 @@ def partials_inputs(kernel: str, a: dict, dev):
         dyn = dataclasses.replace(cm.DEMO_CEV, **a.get("dyn", {}))
         prm = cm.pack_cev(opt, dyn, a["steps"], dev)
         tag = cm.CEV_TAG
+    elif kernel == "heston_qe":
+        dyn = dataclasses.replace(hm.DEMO_HESTON, **a.get("dyn", {}))
+        prm = hm.pack_heston(opt, dyn, a["steps"], dev)
+        tag = hm.HESTON_TAG
+    elif kernel == "bates_qe":
+        dyn = dataclasses.replace(bm.DEMO_BATES, **a.get("dyn", {}))
+        prm = bm.pack_bates(opt, dyn, a["steps"], dev)
+        count = a.get("kmax") or mm.poisson_kmax(
+            float(dyn.lam) * float(opt.t) / a["steps"])
+        tag = bm.BATES_TAG
     else:
         prm = dm.pack_divs(opt, divs_schedules(a["steps"])[a["sched"]],
                            a["steps"], dev)
@@ -1831,6 +2018,15 @@ def run_partials(lib, tiles, kernel: str, a: dict, inputs, n_paths=None):
                                     k1, prm.data_ptr(), count, a["steps"], n,
                                     offset, bound, part.data_ptr(), n_blocks,
                                     stream)
+    elif kernel == "heston_qe":
+        st = lib.mc_heston_partials(pid, a.get("qe", 1), rounds, anti, k0, k1,
+                                    prm.data_ptr(), a["steps"], n, offset,
+                                    bound, part.data_ptr(), n_blocks, stream)
+    elif kernel == "bates_qe":
+        st = lib.mc_bates_partials(pid, a.get("qe", 1), rounds, anti, k0, k1,
+                                   prm.data_ptr(), count, a["steps"], n,
+                                   offset, bound, part.data_ptr(), n_blocks,
+                                   stream)
     else:
         st = getattr(lib, f"mc_{kernel}_partials")(
             pid, anti, k0, k1, prm.data_ptr(), a["steps"], n, offset, bound,
@@ -1847,7 +2043,11 @@ PARTIALS_ENTRIES = {
     "localvol": r"24localvol_partials_kernelINS_11VanillaCallE.*Li13E",
     "merton": r"22merton_partials_kernelINS_11VanillaCallE.*Li13E",
     "cev": r"19cev_partials_kernelINS_11VanillaCallE",
-    "divs": r"20divs_partials_kernelINS_11VanillaCallE"}
+    "divs": r"20divs_partials_kernelINS_11VanillaCallE",
+    # the QE kernel and, beside it, the family's Euler kernel
+    "heston_qe": r"(16heston_qe|19heston_euler)_kernelINS_11VanillaCallE.*Li13E",
+    "bates_qe": r"(21bates_partials_kernelINS_11VanillaCallENS_\d+Bates(Qe|Euler)"
+                r"|15bates_qe_kernelINS_11VanillaCallE).*Li13E"}
 
 
 def cev_logf_check(lib, dev) -> dict:
@@ -2239,7 +2439,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--kernels", default=",".join(PARTIALS_KERNELS),
                     help="--partials: a comma list of localvol, merton, cev, "
-                         "divs")
+                         "divs, heston_qe, bates_qe")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--out", default="build/family_probe.json")

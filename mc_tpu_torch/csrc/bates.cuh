@@ -20,6 +20,12 @@ namespace mc {
 
 constexpr int kBatesFields = 20;
 
+// Paths a block of the Bates partials kernels (one a thread):
+// bates_kernels.cu, bates_qe_kernels.cu.
+constexpr int kBatesThreads = 256;
+// The deepest Poisson scan a partials kernel takes (BatesConfig's MAX_KMAX).
+constexpr int kBatesMaxKmax = 256;
+
 struct BatesParams {
   HestonParams h;
   float lam_dt, mu_j, sigma_j;

@@ -1,26 +1,26 @@
 // Bates kernels of the port, for sm_90a.
 //
-// bates_euler_kernel and bates_qe_kernel (one shared body) replace
-// mc_tpu/models/bates.py _bates_partials (the Pallas call at :269): one path
-// per thread over a grid-stride loop; step j draws, under Euler, the
-// diffusion pair (id, 3j), the first normal of (id, 3j+1) for the jump size
-// and word 0 of (id, 3j+2) for the Poisson uniform, and under QE the pair
-// (id, 4j), the QE uniform of (id, 4j+1), the jump normal of (id, 4j+2) and
-// the Poisson uniform of (id, 4j+3); Heston's step (heston.cuh), then the
-// jump (merton.cuh); threefry-13 or -20; the antithetic twin in the same
-// thread from the same draws (normals negated, each uniform u -> 1-u); paths
-// at or past `bound` add zeros; each block writes one row of f64
-// [sum pay, sum pay^2] (reduce.cuh).  Every payoff but the two
-// Brownian-bridge barriers (the Heston parameters have no sigma).
+// bates_partials_kernel<P, BatesEuler, R> and bates_qe_kernel replace
+// mc_tpu/models/bates.py _bates_partials (the Pallas call at :269).  The
+// Euler kernel is here: one path per thread over a grid-stride loop; step j
+// draws the diffusion pair (id, 3j), the first normal of (id, 3j+1) for the
+// jump size and word 0 of (id, 3j+2) for the Poisson uniform; Heston's step
+// (heston.cuh), then the jump (merton.cuh); threefry-13 or -20; the
+// antithetic twin in the same thread from the same draws (normals negated,
+// each uniform u -> 1-u); paths at or past `bound` add zeros; each block
+// writes one row of f64 [sum pay, sum pay^2] (reduce.cuh).  Every payoff
+// but the two Brownian-bridge barriers (the Heston parameters have no
+// sigma).  The QE kernel, its own loop, is in bates_qe_kernels.cu;
+// mc_bates_partials launches either.
 //
 // The Bates instantiations of the family NMC kernels, the generic
 // trajectories among them, are in bates_nmc_kernels.cu.
 //
-// What bounds them on the H100: operations.  A Bates Euler step spends three
+// What bounds it on the H100: operations.  A Bates Euler step spends three
 // threefry calls (two Box-Muller pairs and a uniform), Heston's sqrtf and
 // Box-Muller transcendentals, the Poisson scan (kmax iterations, kmax = 4 at
-// lam*dt = 0.003), a sqrtf and an expf; QE a fourth threefry call and QE's
-// logarithms on top.  The parameters are 80 bytes and each block writes 16.
+// lam*dt = 0.003), a sqrtf and an expf.  The parameters are 80 bytes and
+// each block writes 16.
 
 #include <cstdint>
 
@@ -35,10 +35,10 @@
 
 namespace mc {
 
-constexpr int kBatesThreads = 256;
-
 // A step's draws: the diffusion normals (z_v, z_2), the jump normal e, the
-// QE uniform u_v (unused under Euler) and the Poisson uniform u_n.
+// QE uniform u_v (unused: this is the Euler kernel's code, kept as it is;
+// the QE kernel draws its own in bates_qe_kernels.cu) and the Poisson
+// uniform u_n.
 struct BatesDraws {
   float z_v, z_2, e, u_v, u_n;
 };
@@ -55,24 +55,6 @@ struct BatesEuler {
   __device__ static void step(const BatesParams& b, const QeConsts&, float z_v, float z_2,
                               float, float& w, float& v) {
     heston_euler_step(b.h, z_v, z_2, w, v);
-  }
-};
-
-struct BatesQe {
-  template <int ROUNDS>
-  __device__ static BatesDraws draw(uint32_t k0, uint32_t k1, uint32_t id, int j) {
-    BatesDraws d;
-    const uint32_t c = 4u * static_cast<uint32_t>(j);
-    float unused;
-    normal_pair<ROUNDS>(k0, k1, id, c, d.z_v, d.z_2);
-    d.u_v = unit_draw<ROUNDS>(k0, k1, id, c + 1u);
-    normal_pair<ROUNDS>(k0, k1, id, c + 2u, d.e, unused);
-    d.u_n = unit_draw<ROUNDS>(k0, k1, id, c + 3u);
-    return d;
-  }
-  __device__ static void step(const BatesParams& b, const QeConsts& qc, float z_v, float z_2,
-                              float u_v, float& w, float& v) {
-    heston_qe_step(b.h, qc, z_v, z_2, u_v, w, v);
   }
 };
 
@@ -113,17 +95,17 @@ bates_partials_kernel(int antithetic, uint32_t k0, uint32_t k1,
 }
 
 template <class Payoff>
-cudaError_t launch_bates_partials(int qe, int rounds, int antithetic, uint32_t k0, uint32_t k1,
-                                  const float* params, int kmax, int n_steps, uint32_t n_paths,
-                                  uint32_t path_offset, uint32_t bound, double* partials,
-                                  int n_blocks, cudaStream_t stream) {
-#define MC_BATES_LAUNCH(SCHEME, R)                                                     \
-  bates_partials_kernel<Payoff, SCHEME, R><<<n_blocks, kBatesThreads, 0, stream>>>(    \
+cudaError_t launch_bates_euler(int rounds, int antithetic, uint32_t k0, uint32_t k1,
+                               const float* params, int kmax, int n_steps, uint32_t n_paths,
+                               uint32_t path_offset, uint32_t bound, double* partials,
+                               int n_blocks, cudaStream_t stream) {
+#define MC_BATES_LAUNCH(R)                                                                 \
+  bates_partials_kernel<Payoff, BatesEuler, R><<<n_blocks, kBatesThreads, 0, stream>>>(    \
       antithetic, k0, k1, params, kmax, n_steps, n_paths, path_offset, bound, partials)
   if (rounds == 13) {
-    if (qe) MC_BATES_LAUNCH(BatesQe, 13); else MC_BATES_LAUNCH(BatesEuler, 13);
+    MC_BATES_LAUNCH(13);
   } else if (rounds == 20) {
-    if (qe) MC_BATES_LAUNCH(BatesQe, 20); else MC_BATES_LAUNCH(BatesEuler, 20);
+    MC_BATES_LAUNCH(20);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -131,11 +113,29 @@ cudaError_t launch_bates_partials(int qe, int rounds, int antithetic, uint32_t k
   return cudaGetLastError();
 }
 
+// The QE kernel's launch and occupancy (bates_qe_kernels.cu).
+cudaError_t launch_bates_qe(int payoff_id, int rounds, int antithetic, uint32_t k0,
+                            uint32_t k1, const float* params, int kmax, int n_steps,
+                            uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                            double* partials, int n_blocks, cudaStream_t stream);
+cudaError_t bates_qe_occupancy(int antithetic, int* blocks);
+
 }  // namespace mc
 
 extern "C" {
 
-int mc_bates_block_threads() { return mc::kBatesThreads; }
+// The partials kernels' paths a block (their grid: ceil(n_paths / it),
+// capped).
+int mc_bates_block_paths() { return mc::kBatesThreads; }
+
+// Resident blocks per SM of the partials kernel of a scheme (VanillaCall,
+// threefry-13).
+int mc_bates_occupancy(int qe, int antithetic, int* blocks) {
+  if (qe) return mc::bates_qe_occupancy(antithetic, blocks);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::bates_partials_kernel<mc::VanillaCall, mc::BatesEuler, 13>,
+      mc::kBatesThreads, 0);
+}
 
 int mc_bates_partials(int payoff_id, int qe, int rounds, int antithetic, uint32_t k0,
                       uint32_t k1, const float* params, int kmax, int n_steps,
@@ -143,12 +143,15 @@ int mc_bates_partials(int payoff_id, int qe, int rounds, int antithetic, uint32_
                       int n_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kmax < 1 || kmax > 256) return cudaErrorInvalidValue;
+  if (qe) {
+    return mc::launch_bates_qe(payoff_id, rounds, antithetic, k0, k1, params, kmax, n_steps,
+                               n_paths, path_offset, bound, partials, n_blocks, s);
+  }
 #define MC_CASE(ID, PAYOFF)                                                         \
   case mc::ID:                                                                      \
-    return mc::launch_bates_partials<mc::PAYOFF>(qe, rounds, antithetic, k0, k1,    \
-                                                 params, kmax, n_steps, n_paths,    \
-                                                 path_offset, bound, partials,      \
-                                                 n_blocks, s);
+    return mc::launch_bates_euler<mc::PAYOFF>(rounds, antithetic, k0, k1, params,   \
+                                              kmax, n_steps, n_paths, path_offset,  \
+                                              bound, partials, n_blocks, s);
   switch (payoff_id) {
     MC_HESTON_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;  // the bridge barriers read sigma

@@ -28,6 +28,10 @@ struct HestonParams {
 };
 constexpr int kHestonFields = 17;
 
+// Paths a block of the Heston partials and trajectories kernels (one a
+// thread): heston_kernels.cu, heston_qe_kernels.cu.
+constexpr int kHestonThreads = 256;
+
 __device__ __forceinline__ HestonParams load_heston(const float* __restrict__ v) {
   const float nan = __int_as_float(0x7fc00000);
   HestonParams h;
@@ -78,48 +82,73 @@ __device__ __forceinline__ QeConsts qe_consts(const HestonParams& h) {
 
 // One QE step (w, v) -> (w', v'), v' >= 0, with the per-step martingale
 // correction K0* (Andersen 2008, Prop. 5.1; the plain K0 where its validity
-// constraint fails).  Both branches are evaluated on domain-safe arguments
-// and selected, as in the plain version.
-__device__ __forceinline__ void heston_qe_step(const HestonParams& h, const QeConsts& c,
-                                               float z_v, float z_s, float u, float& w,
-                                               float& v) {
-  const float one_minus = static_cast<float>(1.0 - 1e-6);
+// constraint fails), split at Andersen's switch: qe_moments gives m and
+// psi, a lane with psi <= 1.5 takes qe_quadratic_step (its z_v), any other
+// (a NaN psi too) qe_exponential_step (its uniform u), and qe_advance moves
+// w.  Each branch is the plain version's (mc_tpu_torch/models/heston.py
+// heston_qe_step, which evaluates both on domain-safe arguments and
+// selects) operation for operation, so a lane that computes only its own
+// gets the selected values bit for bit.
+struct QeMoments {
+  float m, psi;
+};
+
+__device__ __forceinline__ QeMoments qe_moments(const HestonParams& h, const QeConsts& c,
+                                                float v) {
   const float m = h.theta + (v - h.theta) * c.emkdt;
   const float s2 = v * c.c1 + c.c2;
-  const float psi = s2 / (m * m);
+  return QeMoments{m, s2 / (m * m)};
+}
 
-  // quadratic branch: v' = a (b + Z)^2
-  const float two_over = 2.0f / fmaxf(psi, 1e-12f);
+__device__ __forceinline__ bool qe_quadratic(const QeMoments& q) { return q.psi <= 1.5f; }
+
+constexpr float kQeOneMinus = static_cast<float>(1.0 - 1e-6);
+
+// The quadratic sampler v' = a (b + z_v)^2 and k0_eff: K0* where 2 A a <
+// 1 - 1e-6, else the plain K0 + K1 v.
+__device__ __forceinline__ void qe_quadratic_step(const QeConsts& c, const QeMoments& q,
+                                                  float v, float z_v, float& v_next,
+                                                  float& k0_eff) {
+  const float two_over = 2.0f / fmaxf(q.psi, 1e-12f);
   float b2 = fmaxf(two_over - 1.0f, 0.0f);
   b2 = b2 + sqrtf(two_over * b2);
-  const float a = m / (1.0f + b2);
+  const float a = q.m / (1.0f + b2);
   const float bz = sqrtf(b2) + z_v;
-  const float v_quad = (a * bz) * bz;
-
-  // exponential branch: mass p_at0 at zero + exponential tail
-  const float p_at0 = (psi - 1.0f) / (psi + 1.0f);
-  const float beta = (1.0f - p_at0) / fmaxf(m, 1e-30f);
-  const float u_c = fminf(u, 0.99999994f);
-  const float v_exp = u_c <= p_at0 ? 0.0f : (log1pf(-p_at0) - log1pf(-u_c)) / beta;
-
-  const bool quad = psi <= 1.5f;
-  const float v_next = quad ? v_quad : v_exp;
-
+  v_next = (a * bz) * bz;
   const float aa = c.a_mc;
   const float two_a_a = (2.0f * aa) * a;
-  const bool ok_q = two_a_a < one_minus;
-  const float safe = ok_q ? 1.0f - two_a_a : 1.0f;
-  const float k0_q = ((((-aa) * b2) * a) / safe + 0.5f * logf(safe)) - (0.5f * c.k3) * v;
-  const bool ok_e = aa < beta * one_minus;
-  const float marg = ok_e ? p_at0 + (beta * (1.0f - p_at0)) / fmaxf(beta - aa, 1e-30f)
-                          : 1.0f;
-  const float k0_e = (-logf(marg)) - (0.5f * c.k3) * v;
-  const float k0_plain = c.k0 + c.k1 * v;
-  const float k0_eff = quad ? (ok_q ? k0_q : k0_plain) : (ok_e ? k0_e : k0_plain);
+  if (two_a_a < kQeOneMinus) {
+    const float safe = 1.0f - two_a_a;
+    k0_eff = ((((-aa) * b2) * a) / safe + 0.5f * logf(safe)) - (0.5f * c.k3) * v;
+  } else {
+    k0_eff = c.k0 + c.k1 * v;
+  }
+}
 
+// The exponential sampler (mass p_at0 at zero, an exponential tail) on the
+// uniform u and k0_eff: K0* where A < beta (1 - 1e-6), else the plain K0 +
+// K1 v.
+__device__ __forceinline__ void qe_exponential_step(const QeConsts& c, const QeMoments& q,
+                                                    float v, float u, float& v_next,
+                                                    float& k0_eff) {
+  const float p_at0 = (q.psi - 1.0f) / (q.psi + 1.0f);
+  const float beta = (1.0f - p_at0) / fmaxf(q.m, 1e-30f);
+  const float u_c = fminf(u, 0.99999994f);
+  v_next = u_c <= p_at0 ? 0.0f : (log1pf(-p_at0) - log1pf(-u_c)) / beta;
+  const float aa = c.a_mc;
+  if (aa < beta * kQeOneMinus) {
+    const float marg = p_at0 + (beta * (1.0f - p_at0)) / fmaxf(beta - aa, 1e-30f);
+    k0_eff = (-logf(marg)) - (0.5f * c.k3) * v;
+  } else {
+    k0_eff = c.k0 + c.k1 * v;
+  }
+}
+
+// w' from the step's v, v' and k0_eff and the spot normal z_s.
+__device__ __forceinline__ void qe_advance(const QeConsts& c, float v, float v_next,
+                                           float k0_eff, float z_s, float& w) {
   const float var_s = fmaxf(c.k3 * v + c.k4 * v_next, 0.0f);
   w = (((w + c.growth_dt) + k0_eff) + c.k2 * v_next) + sqrtf(var_s) * z_s;
-  v = v_next;
 }
 
 // One outer Euler step of path `id` on the threefry-13 stream: pair (id, j),

@@ -1,15 +1,15 @@
 // Heston kernels of the port, for sm_90a.
 //
-// heston_euler_kernel and heston_qe_kernel (one shared body) replace
-// mc_tpu/models/heston.py _heston_partials_pallas (the Pallas call at :342):
-// one path per thread over a grid-stride loop, the Euler step drawing the
-// normal pair (id, j) at step j, the QE step the pair (id, 2j) and the
-// uniform of word 0 of (id, 2j+1); threefry-13 or -20; the antithetic twin
-// in the same thread from the same draws, (z_v, z_2, u) -> (-z_v, -z_2,
-// 1 - u); paths at or past `bound` add zeros.  Every payoff of the registry
-// except the two Brownian-bridge barriers (they read the GBM sigma), the
-// multi-word ones included.  Each block writes one row of f64
-// [sum pay, sum pay^2] (reduce.cuh), no float atomics.
+// heston_euler_kernel and heston_qe_kernel replace mc_tpu/models/heston.py
+// _heston_partials_pallas (the Pallas call at :342).  The Euler kernel is
+// here: one path per thread over a grid-stride loop, step j drawing the
+// normal pair (id, j); threefry-13 or -20; the antithetic twin in the same
+// thread from the same draws, (z_v, z_2) -> (-z_v, -z_2); paths at or past
+// `bound` add zeros.  Every payoff of the registry except the two
+// Brownian-bridge barriers (they read the GBM sigma), the multi-word ones
+// included.  Each block writes one row of f64 [sum pay, sum pay^2]
+// (reduce.cuh), no float atomics.  The QE kernel, its own loop, is in
+// heston_qe_kernels.cu; mc_heston_partials launches either.
 //
 // heston_trajectories_kernel replaces heston_trajectories_kernel (the
 // Pallas call at :549): the Euler loop on threefry-13 that also stores S,
@@ -20,15 +20,13 @@
 // and the Euler kernel's arithmetic at 13 rounds, so the three give the
 // same paths bit for bit.
 //
-// What bounds them on the H100: operations.  A Heston step spends a whole
-// threefry pair (the GBM log-Euler step half of one), the Box-Muller
-// transcendentals (log1pf, sqrtf, cosf, sinf), a sqrtf of v and one expf;
-// QE adds a second threefry call for its uniform, two log1pf, two logf and
-// three more sqrtf, and a dozen divisions.  The parameters are 68 bytes and
-// each block writes 16; the trajectories write 12 bytes per path-step (120
-// MB at 100,000 x 100, 36 us at 3.35 TB/s), less than their RNG work takes.
-// The design keeps everything in registers: one thread per path, both legs
-// stepped from the same draws, the QE constants computed once per thread.
+// What bounds them on the H100: operations.  A Heston Euler step spends a
+// whole threefry pair (the GBM log-Euler step half of one), the Box-Muller
+// transcendentals (log1pf, sqrtf, cosf, sinf), a sqrtf of v and one expf.
+// The parameters are 68 bytes and each block writes 16; the trajectories
+// write 12 bytes per path-step (120 MB at 100,000 x 100, 36 us at 3.35
+// TB/s), less than their RNG work takes.  The design keeps everything in
+// registers: one thread per path, both legs stepped from the same draws.
 
 #include <cstdint>
 
@@ -41,10 +39,11 @@
 
 namespace mc {
 
-constexpr int kHestonThreads = 256;
-
-// The two schemes as the partials kernel takes them: draw(j) gives the
-// step's (z_v, z_2, u), step() advances (w, v).
+// The Euler scheme as the partials body takes it: draw(j) gives the step's
+// (z_v, z_2, u), step() advances (w, v).  The body keeps its scheme
+// parameter and runtime antithetic flag so the Euler kernel's code, and so
+// its bits and time, stay as they are; the QE kernel has its own loop
+// (heston_qe_kernels.cu).
 struct EulerScheme {
   template <int ROUNDS>
   __device__ static void draw(uint32_t k0, uint32_t k1, uint32_t id, int j, float& z_v,
@@ -55,20 +54,6 @@ struct EulerScheme {
   __device__ static void step(const HestonParams& h, const QeConsts&, float z_v, float z_2,
                               float, float& w, float& v) {
     heston_euler_step(h, z_v, z_2, w, v);
-  }
-};
-
-struct QeScheme {
-  template <int ROUNDS>
-  __device__ static void draw(uint32_t k0, uint32_t k1, uint32_t id, int j, float& z_v,
-                              float& z_2, float& u) {
-    const uint32_t c = 2u * static_cast<uint32_t>(j);
-    normal_pair<ROUNDS>(k0, k1, id, c, z_v, z_2);
-    u = unit_draw<ROUNDS>(k0, k1, id, c + 1u);
-  }
-  __device__ static void step(const HestonParams& h, const QeConsts& c, float z_v,
-                              float z_2, float u, float& w, float& v) {
-    heston_qe_step(h, c, z_v, z_2, u, w, v);
   }
 };
 
@@ -118,15 +103,6 @@ heston_euler_kernel(int antithetic, uint32_t k0, uint32_t k1, const float* __res
                                                     n_paths, path_offset, bound, partials);
 }
 
-template <class Payoff, int ROUNDS>
-__global__ void __launch_bounds__(kHestonThreads)
-heston_qe_kernel(int antithetic, uint32_t k0, uint32_t k1, const float* __restrict__ params,
-                 int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                 double* __restrict__ partials) {
-  heston_partials_body<Payoff, QeScheme, ROUNDS>(antithetic, k0, k1, params, n_steps,
-                                                 n_paths, path_offset, bound, partials);
-}
-
 template <class Payoff>
 __global__ void __launch_bounds__(kHestonThreads)
 heston_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
@@ -157,17 +133,17 @@ heston_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ p
 }
 
 template <class Payoff>
-cudaError_t launch_heston_partials(int qe, int rounds, int antithetic, uint32_t k0,
-                                   uint32_t k1, const float* params, int n_steps,
-                                   uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                                   double* partials, int n_blocks, cudaStream_t stream) {
-#define MC_HESTON_LAUNCH(KERNEL, R)                                                  \
-  KERNEL<Payoff, R><<<n_blocks, kHestonThreads, 0, stream>>>(                        \
+cudaError_t launch_heston_euler(int rounds, int antithetic, uint32_t k0, uint32_t k1,
+                                const float* params, int n_steps, uint32_t n_paths,
+                                uint32_t path_offset, uint32_t bound, double* partials,
+                                int n_blocks, cudaStream_t stream) {
+#define MC_HESTON_LAUNCH(R)                                                          \
+  heston_euler_kernel<Payoff, R><<<n_blocks, kHestonThreads, 0, stream>>>(           \
       antithetic, k0, k1, params, n_steps, n_paths, path_offset, bound, partials)
   if (rounds == 13) {
-    if (qe) MC_HESTON_LAUNCH(heston_qe_kernel, 13); else MC_HESTON_LAUNCH(heston_euler_kernel, 13);
+    MC_HESTON_LAUNCH(13);
   } else if (rounds == 20) {
-    if (qe) MC_HESTON_LAUNCH(heston_qe_kernel, 20); else MC_HESTON_LAUNCH(heston_euler_kernel, 20);
+    MC_HESTON_LAUNCH(20);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -175,23 +151,43 @@ cudaError_t launch_heston_partials(int qe, int rounds, int antithetic, uint32_t 
   return cudaGetLastError();
 }
 
+// The QE kernel's launch and occupancy (heston_qe_kernels.cu).
+cudaError_t launch_heston_qe(int payoff_id, int rounds, int antithetic, uint32_t k0,
+                             uint32_t k1, const float* params, int n_steps, uint32_t n_paths,
+                             uint32_t path_offset, uint32_t bound, double* partials,
+                             int n_blocks, cudaStream_t stream);
+cudaError_t heston_qe_occupancy(int antithetic, int* blocks);
+
 }  // namespace mc
 
 extern "C" {
 
-int mc_heston_block_threads() { return mc::kHestonThreads; }
+// The partials and trajectories kernels' paths a block (their grid:
+// ceil(n_paths / it), capped).
+int mc_heston_block_paths() { return mc::kHestonThreads; }
+
+// Resident blocks per SM of the partials kernel of a scheme (VanillaCall,
+// threefry-13).
+int mc_heston_occupancy(int qe, int antithetic, int* blocks) {
+  if (qe) return mc::heston_qe_occupancy(antithetic, blocks);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::heston_euler_kernel<mc::VanillaCall, 13>, mc::kHestonThreads, 0);
+}
 
 int mc_heston_partials(int payoff_id, int qe, int rounds, int antithetic, uint32_t k0,
                        uint32_t k1, const float* params, int n_steps, uint32_t n_paths,
                        uint32_t path_offset, uint32_t bound, double* partials, int n_blocks,
                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (qe) {
+    return mc::launch_heston_qe(payoff_id, rounds, antithetic, k0, k1, params, n_steps,
+                                n_paths, path_offset, bound, partials, n_blocks, s);
+  }
 #define MC_CASE(ID, PAYOFF)                                                          \
   case mc::ID:                                                                       \
-    return mc::launch_heston_partials<mc::PAYOFF>(qe, rounds, antithetic, k0, k1,    \
-                                                  params, n_steps, n_paths,          \
-                                                  path_offset, bound, partials,      \
-                                                  n_blocks, s);
+    return mc::launch_heston_euler<mc::PAYOFF>(rounds, antithetic, k0, k1, params,   \
+                                               n_steps, n_paths, path_offset, bound, \
+                                               partials, n_blocks, s);
   switch (payoff_id) {
     MC_HESTON_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;  // the bridge barriers read sigma

@@ -17,7 +17,10 @@ One kernel lives in ``csrc/bates_kernels.cu``:
 * ``bates_partials`` (replaces ``_bates_partials``,
   ``mc_tpu/models/bates.py:257``): the Euler or QE step loop with the jump,
   threefry-13 or -20, the antithetic twin in the same thread,
-  [sum pay, sum pay^2] per block in f64.
+  [sum pay, sum pay^2] per block in f64.  The QE loop is a kernel of its own
+  in ``csrc/bates_qe_kernels.cu``: Heston's branch-split QE step, the
+  Poisson count against a block's cdf table, the jump size drawn only where
+  a count can be nonzero, the plain and antithetic paths kernels apart.
 
 Counters, as in ``mc_tpu``: the Euler step j of path ``id`` draws the pair
 ``(id, 3j)`` for (z_v, z_perp), the first normal of ``(id, 3j+1)`` for the
@@ -318,7 +321,7 @@ def bates_partials(payoff: PathPayoff, cfg: BatesConfig, key,
                                     n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_bates_block_threads()),
+    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_bates_block_paths()),
                    _cuda.MAX_BLOCKS)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)

@@ -96,12 +96,16 @@ _SIGNATURES = {
     "mc_nmc_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_ladder_block_threads": ([], _c_int),
     "mc_reduce_block_threads": ([], _c_int),
-    "mc_heston_block_threads": ([], _c_int),
+    "mc_heston_block_paths": ([], _c_int),
+    # qe, antithetic, blocks
+    "mc_heston_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_family_block_threads": ([], _c_int),
     "mc_merton_block_paths": ([], _c_int),
     # payoff_id, terminal, antithetic, blocks
     "mc_merton_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
-    "mc_bates_block_threads": ([], _c_int),
+    "mc_bates_block_paths": ([], _c_int),
+    # qe, antithetic, blocks
+    "mc_bates_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_cev_block_paths": ([], _c_int),
     # antithetic, blocks
     "mc_cev_occupancy": ([_c_int, _c_ptr], _c_int),
@@ -370,15 +374,16 @@ NVCC_SECONDS = {
     "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 30.5,
     "localvol10_kernels.cu": 30.1, "localvol_kernels.cu": 30.0,
     "basket_nmc_kernels.cu": 29.1, "basket16_kernels.cu": 28.5,
-    "bates_kernels.cu": 27.0, "path_kernels.cu": 23.9,
+    "bates_qe_kernels.cu": 28.0, "path_kernels.cu": 23.9,
     "basket_kernels.cu": 23.6, "sabr_kernels.cu": 19.6,
     "sabr1_kernels.cu": 18.1, "merton_nmc_kernels.cu": 18.0,
-    "heston_kernels.cu": 18.0, "bates_nmc_kernels.cu": 17.6,
+    "heston_qe_kernels.cu": 18.9, "bates_nmc_kernels.cu": 17.6,
     "basket8_kernels.cu": 17.2, "localvol_nmc_kernels.cu": 17.1,
     "vasicek_nmc_kernels.cu": 15.9, "qmc_kernels.cu": 15.9,
     "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 14.3,
     "basket_nmc32_kernels.cu": 13.8, "vasicek_kernels.cu": 13.7,
     "term_nmc_kernels.cu": 13.3, "cev_nmc_kernels.cu": 11.0,
+    "bates_kernels.cu": 9.0, "heston_kernels.cu": 8.3,
     "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 10.2,
     "qmc_bates_kernels.cu": 9.5, "qmc_basket_kernels.cu": 8.9,
     "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,
