@@ -14,14 +14,18 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    the card, same key, with the tolerances of the parity contract, at the
    contract's sizes and at the main path's shapes: the simulate kernel for
    all 18 payoffs (with resume, multi-word resume, importance sampling and
-   the geometric control variate too), the terminal kernels for the six
+   the geometric control variate too; its edges, BARRIER_EDGES and
+   EDGE_STEPS: the barrier payoffs' threshold at barriers +-0, -1, +-inf,
+   NaN and spots 0, -0, -50, resume spots +-0 and -50 at an odd start of
+   an odd count, 0, 1 and 7 steps), the terminal kernels for the six
    terminal-only payoffs, trajectories and both NMC kernels for the payoffs
    with one state word, the strike ladder and the batched book (bullet,
    Asian, down-and-in and vanilla Euler books, antithetic and with the
    control variate, a ragged last contract group, and book64), the greek
    kernel for the five pathwise payoffs and the two reductions up to 2^26
    elements (one view misaligned); the Heston kernel for its 16 payoffs
-   (Euler and QE, threefry-13 and -20, antithetic, 1M x 100; QE also in
+   (Euler and QE, threefry-13 and -20, antithetic, 1M x 100 plain and, for
+   Euler, antithetic; Euler also at BARRIER_EDGES, 1 and 7 steps; QE also in
    QE_EDGES' stress regime and plain-K0 fall-backs), the Heston
    trajectories for the one-word payoffs and both family NMC kernels; the
    Merton kernel (every payoff, Euler and the terminal draw, threefry-13
@@ -160,9 +164,12 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    plain versions once), the
    ladder and the book beside the single-contract
    launches they replace, the simulate kernel per payoff with its
-   registers, the greek kernel beside the simulate kernel on its shape,
+   registers (its timed rows with their registers, spills and resident
+   blocks per SM), the greek kernel beside the simulate kernel on its shape,
    the reductions beside ``torch.sum``, the Heston kernels beside the GBM
-   kernels of the same shapes, the Merton and Bates kernels beside the
+   kernels of the same shapes (the Euler and QE calls antithetic too, with
+   registers, spills and resident blocks per SM), the Merton and Bates
+   kernels beside the
    Heston kernels of their shapes, the CEV and local-vol kernels beside
    the Heston and Merton kernels of their shapes, the SABR kernels beside
    Heston's, the term and dividend kernels beside CEV's, the Vasicek
@@ -193,7 +200,8 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    price_g2_swaption());
 6. the bounds' int32, f32 and SFU terms of the recounted rows (the book,
    SABR, CEV, the dividends, the QE kernels, call and antithetic) and the
-   QE kernels' bounds beside their phase-5 times (call and antithetic),
+   QE kernels', the simulate kernel's timed rows' and #12's Euler call's
+   (and antithetic call's) bounds beside their phase-5 times,
    one JSON line of per-kernel results (with each kernel's
    bound), then the JSON status line.
 
@@ -300,6 +308,25 @@ GRID_PATHS = 100_000                 # #26: the (B, state) grids, 100 steps
 # 8, 16, 32), antithetic and not; phase 5 times #25 at BASKET_TIMED_D.
 BASKET_EDGES = (1, 5, 8, 9, 16, 17, 32)
 BASKET_TIMED_D = (1, 4, 9, 16, 32)
+# Phase 2: the edges of the legs that form S only where the payoff reads it
+# (#2 and #12's Euler kernel, barrier.cuh): the barrier payoffs' threshold
+# at barriers +-0, -1, +-inf and NaN and at spots 0, -0 and -50 (under a
+# barrier of -60, struck at -100: S falls below it as w rises); 0, 1 and 7
+# steps.  The plain versions' clamps keep a NaN or an infinite spot that
+# fmaxf drops, so those spots are held only parent to tree
+# (family_nmc_probe.py).
+BARRIER_EDGES = (dict(barrier=0.0), dict(barrier=-0.0), dict(barrier=-1.0),
+                 dict(barrier=math.inf), dict(barrier=-math.inf),
+                 dict(barrier=math.nan), dict(s0=0.0), dict(s0=-0.0),
+                 dict(s0=-50.0, barrier=-60.0, k=-100.0))
+EDGE_STEPS = (0, 1, 7)
+
+
+def edge_steps(payoff: str):
+    """EDGE_STEPS a payoff runs against its plain version: not the Asian at
+    0 steps, whose mean of no spots is NaN (the plain clamp keeps it,
+    fmaxf drops it)."""
+    return tuple(n for n in EDGE_STEPS if n or payoff != "asian_call")
 
 # Options that make each payoff live at 100 steps, and the contracts its
 # closed form prices: the down barriers at 90, the variance swap's variance
@@ -393,8 +420,13 @@ TERMINAL_DRAW_OPS = (0, 3, 1)  # S_T = s0 * exp(drift_t + vol_t * z)
 GREEK_STEP_OPS = (0, 1 + 2 + 8 + 5, 0)
 GREEK_TERMINAL_OPS = (0, 8 + 4 * 3 + 2 + 10, 0)
 # A Heston Euler step on top of its whole threefry pair (heston.cuh): z_s
-# (3), v+ (1), sq (2 and a sqrtf), w (6), v (7), S = s0*expf(w) (1).
-HESTON_EULER_OPS = (0, 20, 2)
+# (3), v+ (1), sq (2 and a sqrtf), w (6), v (7).
+HESTON_EULER_STEP_OPS = (0, 19, 1)
+# ... and S = s0*expf(w) (a mul and an expf) at each step: the step of the
+# trajectories (#13), the family NMC's legs (#29/#30) and Bates's Euler
+# kernel.  #12's Euler kernel forms S only where the payoff reads it
+# (heston_euler_path).
+HESTON_EULER_OPS = _add(HESTON_EULER_STEP_OPS, (0, 1, 1))
 # A Heston QE step on top of its pair (heston.cuh), the least work at the
 # demo dynamics, whose psi never exceeds psi(0) = xi^2 / (2 kappa theta) =
 # 0.5625: the quadratic sampler at each step (m (3), s2 (2), psi (1 and a
@@ -448,6 +480,55 @@ def inner_ops(payoff: str, n_steps: int, n_inner: int):
             point = _add(point, THRESHOLD_OPS)
         total = _add(total, _scale(one, n_inner), point)
     return total
+
+
+def spot_each_step(payoff: str) -> bool:
+    """Whether a leg that forms S only where the payoff reads it (#2, #12's
+    Euler kernel; barrier.cuh) forms it at each step: a payoff whose update
+    reads S (not a terminal-only one, and not the bullet, the up-and-out or
+    the down-and-in call, which test w against a threshold)."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    return not (get_payoff(payoff).terminal_only
+                or payoff in NMC_BARRIER_PAYOFFS)
+
+
+def simulate_path_ops(payoff: str, n_steps: int, rounds: int = 13,
+                      legs: int = 1):
+    """A log-Euler path of the simulate kernel (#2, simulate.cuh) and its
+    payoff: a pair per two steps; each leg's step moves w (NMC_STEP_OPS),
+    updates the payoff state (UPDATE_OPS; the barrier payoffs' compare is
+    against w) and forms S (SPOT_OPS) where the payoff reads it, else once
+    at maturity; the payoff (and the pair's mean) at maturity.  The kBarrier
+    payoffs' block threshold is simulate_block_ops."""
+    each = spot_each_step(payoff)
+    step = _add(NMC_STEP_OPS, UPDATE_OPS[payoff],
+                SPOT_OPS if each else (0, 0, 0))
+    end = _add(TERMINAL_OPS, (0, 0, 0) if each else SPOT_OPS)
+    return _add(_scale(pair_ops(rounds), (n_steps + 1) // 2),
+                _scale(step, legs * n_steps), _scale(end, legs))
+
+
+def simulate_block_ops(payoff: str, n_paths: int):
+    """The kBarrier payoffs' threshold, a bisection (THRESHOLD_OPS) once a
+    block of 256 paths; other payoffs: none."""
+    if payoff not in NMC_BARRIER_PAYOFFS:
+        return (0, 0, 0)
+    return _scale(THRESHOLD_OPS, -(-n_paths // 256))
+
+
+def heston_euler_path(payoff: str, n_steps: int, legs: int = 1):
+    """A path of #12's Euler kernel (heston_kernels.cu) and its payoff: a
+    whole pair and each leg's step (HESTON_EULER_STEP_OPS) each step, S
+    (SPOT_OPS) at each step where the payoff reads it (else once, at
+    maturity; the barrier payoffs' compare against w, their threshold once
+    a block: simulate_block_ops), the payoff at maturity."""
+    each = spot_each_step(payoff)
+    step = _add(pair_ops(13), _scale(_add(
+        HESTON_EULER_STEP_OPS, UPDATE_OPS[payoff],
+        SPOT_OPS if each else (0, 0, 0)), legs))
+    end = _add(TERMINAL_OPS, (0, 0, 0) if each else SPOT_OPS)
+    return _add(_scale(step, n_steps), _scale(end, legs))
 
 
 def bound(n_bytes: float, ops, f64_ops: float = 0.0):
@@ -646,6 +727,34 @@ def family_nmc_report(family, fam, prm, struct, name, ms, tag) -> None:
           f"{res.get('smem')} B static, kLegs {fam.legs} {tag}")
 
 
+def sim_key(po, cfg=None):
+    """The ptxas key of simulate_kernel<Payoff, rounds, Euler, antithetic,
+    moments> (#2, simulate.cuh: a kernel per mode; the six terminal-only
+    payoffs share TerminalOnly's) that a config launches (default:
+    threefry-13 Euler, plain, 2 moments)."""
+    struct = "TerminalOnly" if po.terminal_only else type(po).__name__
+    if cfg is None:
+        return ("simulate_kernel", struct, (13, 1, 0, 2))
+    return ("simulate_kernel", struct, (cfg.rng_rounds,
+                                        int(cfg.method == "euler"),
+                                        int(cfg.antithetic), cfg.n_moments))
+
+
+def simulate_layout(po, cfg) -> str:
+    """Phase 5: the registers and spills (ptxas) and resident blocks per SM
+    of the simulate kernel a config launches."""
+    from mc_tpu_torch.ops import _cuda
+
+    res = build_resources().get(sim_key(po, cfg), {})
+    blocks = ctypes.c_int(0)
+    _cuda.check(_cuda.load().mc_simulate_occupancy(
+        po.cuda_id, int(cfg.method == "euler"), int(cfg.antithetic),
+        int(cfg.with_cv), ctypes.byref(blocks)), "mc_simulate_occupancy")
+    return (f"registers {res.get('registers')}, spill stores/loads "
+            f"{res.get('spill_stores')}/{res.get('spill_loads')} B, "
+            f"{blocks.value} blocks/SM")
+
+
 def share(mask) -> float:
     return float(mask.double().mean())
 
@@ -685,7 +794,8 @@ def ptxas_resources(log: str) -> dict:
                 rounds = (rounds, int(r.group(2)))
             ints = re.findall(r"L[ib](\d+)E", rest[p.end():]) if p else []
             if len(ints) > 2:  # localvol_partials_kernel<P, R, C, bool>,
-                # sabr_partials_kernel<P, R, unit beta, antithetic>
+                # sabr_partials_kernel<P, R, unit beta, antithetic>,
+                # simulate_kernel<P, R, Euler, antithetic, moments>
                 rounds = tuple(int(i) for i in ints)
             if kernel == "book_kernel" and ints:  # book_kernel<P, CV>
                 rounds = int(ints[0])
@@ -788,6 +898,65 @@ def run_deferred() -> int:
             raise RuntimeError("a phase-2 check yielded twice")
     _DEFERRED.clear()
     return done
+
+
+# --- #2's edges, deferred --------------------------------------------------
+
+
+def simulate_edge_checks(mt, dev, key, check, errs):
+    """Phase 2 of #2's edges (BARRIER_EDGES, EDGE_STEPS), each check
+    deferred (its plain half in the first pass): the barrier payoffs' block
+    threshold and a resumed path's own (resume spots +-0 and -50 among the
+    plain trajectories' at an odd start of an odd count), the spot formed
+    once at maturity or at each step, plain and antithetic with the
+    control.  ``check(name, label, got, want)`` holds a row to its plain
+    version (the GBM tolerances); its errors go to ``errs``."""
+    from mc_tpu_torch import engines
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+    from mc_tpu_torch.ops.reduce import finish_sum
+
+    def case(po, cfg, opt, **resume):
+        prm = pk.pack_params(opt, cfg.n_steps, dev)
+        ex = (engines.control_mean(po, prm)
+              if cfg.with_cv and po.has_control else None)
+        want = engines.finish_price(finish_sum(pk.simulate_partials_plain(
+            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv, ex)
+        yield
+        got = engines.finish_price(finish_sum(pk.simulate_partials(
+            po, cfg, key, prm, **resume)), cfg.n_paths, opt, cfg.with_cv, ex)
+        return check(po.name, f"simulate_partials {po.name} {cfg.method} "
+                     f"{cfg.n_paths}x{cfg.n_steps} anti={cfg.antithetic} "
+                     f"cv={cfg.with_cv} start={cfg.start_step} {opt}",
+                     got, want)
+
+    start = RESUME_STEPS[1]
+    grid_s, grid_c, _ = pk.simulate_trajectories_plain(
+        get_payoff("bullet_call"), pk.KernelConfig(
+            n_paths=EDGE_PATHS, n_steps=MAIN_STEPS), key,
+        pk.pack_params(mt.DEMO_OPTION, MAIN_STEPS, dev))
+    s_edge = grid_s[start - 1].clone()
+    s_edge[::7] = torch.tensor([0.0, -0.0, -50.0], device=dev).repeat(
+        len(s_edge[::7]))[:len(s_edge[::7])]
+    resume = dict(s_init=s_edge, state_init=grid_c[start - 1].contiguous())
+    for kw in (dict(), dict(antithetic=True, with_cv=True)):
+        for name in ("vanilla_call", "bullet_call", "asian_call"):
+            for n_steps in edge_steps(name):
+                defer(case(get_payoff(name), pk.KernelConfig(
+                    n_paths=EDGE_PATHS, n_steps=n_steps, **kw),
+                    payoff_option(mt, name)), errs.append)
+        for name in ("bullet_call", "up_out_call", "down_in_call"):
+            for fix in BARRIER_EDGES:
+                defer(case(get_payoff(name), pk.KernelConfig(
+                    n_paths=EDGE_PATHS, n_steps=MAIN_STEPS, **kw),
+                    dataclasses.replace(payoff_option(mt, name), **fix)),
+                    errs.append)
+            for fix in ({}, dict(barrier=0.0), dict(barrier=math.inf)):
+                defer(case(get_payoff(name), pk.KernelConfig(
+                    n_paths=EDGE_PATHS, n_steps=MAIN_STEPS + 1,
+                    start_step=start, **kw),
+                    dataclasses.replace(payoff_option(mt, name), **fix),
+                    **resume), errs.append)
 
 
 # --- the Heston slice: kernels #12, #13, #29, #30 ---------------------------
@@ -919,6 +1088,20 @@ def heston_kernel_checks(mt, dev, keys):
             defer(partials_case(name, FAMILY_PATHS, **kw))
     for scheme in ("euler", "qe"):  # the main shape: a partly filled block
         defer(partials_case("vanilla_call", FAMILY_MAIN, scheme=scheme))
+    # #12 Euler's antithetic kernel at the main shape, and the edges of its
+    # legs (BARRIER_EDGES, EDGE_STEPS), plain and antithetic
+    defer(partials_case("vanilla_call", FAMILY_MAIN, antithetic=True))
+    for anti in (False, True):
+        for name in ("vanilla_call", "asian_call", "bullet_call"):
+            for n_steps in (n for n in EDGE_STEPS if n):  # HestonConfig
+                defer(partials_case(name, EDGE_PATHS, n_steps=n_steps,
+                                    antithetic=anti))
+        for name in ("bullet_call", "up_out_call", "down_in_call"):
+            for fix in BARRIER_EDGES:
+                defer(partials_case(
+                    name, EDGE_PATHS, option=dataclasses.replace(
+                        payoff_option(mt, name), **fix), label=f" {fix}",
+                    antithetic=anti))
     # #12 QE's other branches: the exponential sampler and the plain-K0
     # fall-backs (QE_EDGES)
     for edge, (dynamics, option, n_steps) in qe_edges(mt, hm).items():
@@ -1022,6 +1205,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
     plain ms is measured in phase 2)."""
     from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.nmc_heston import HestonNMC
+    from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops import path_kernels as pk
     from mc_tpu_torch.ops.payoffs import get_payoff
 
@@ -1037,6 +1221,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
     # Euler, QE and QE antithetic (the kernel alone: its plain version
     # repeats the call's)
     for scheme, anti, row in (("euler", False, "heston_partials"),
+                              ("euler", True, "euler_anti"),
                               ("qe", False, "qe"), ("qe", True, "qe_anti")):
         cfg = hm.HestonConfig(n_paths=FAMILY_MAIN, n_steps=MAIN_STEPS,
                               scheme=scheme, antithetic=anti)
@@ -1053,13 +1238,18 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
                 lambda cfg=cfg: hm.heston_partials_plain(call, cfg, key, prm),
                 f"{FAMILY_MAIN}x{MAIN_STEPS}")
             k_ms = out[row][0]
-        reg_key = (("heston_qe_kernel", "VanillaCall", (13, int(anti)))
-                   if scheme == "qe"
-                   else ("heston_euler_kernel", "VanillaCall", 13))
+        res = build_resources().get((f"heston_{scheme}_kernel", "VanillaCall",
+                                     (13, int(anti))), {})
+        blocks = ctypes.c_int(0)
+        _cuda.check(_cuda.load().mc_heston_occupancy(
+            int(scheme == "qe"), int(anti), ctypes.byref(blocks)),
+            "mc_heston_occupancy")
         print(f"phase 5: {label}: {steps / k_ms * 1e3:.4e}"
               f" path-steps/s; {k_ms / gbm_sim:.2f}x the GBM simulate_partials"
               f" call euler on the same shape ({gbm_sim:.4f} ms, spread "
-              f"{sp:.1%}); registers {regs.get(reg_key)} {tag}")
+              f"{sp:.1%}); registers {res.get('registers')}, spill "
+              f"stores/loads {res.get('spill_stores')}/"
+              f"{res.get('spill_loads')} B, {blocks.value} blocks/SM {tag}")
     bullet = get_payoff("bullet_call")
     cfg_t = hm.HestonConfig(n_paths=HESTON_PAYOFF_MAIN, n_steps=MAIN_STEPS)
     out["heston_trajectories"] = time_pair(
@@ -1107,7 +1297,7 @@ def heston_bounds():
     reports: #12 Euler at 1M x 100, #13 at 100,000 x 100, the family
     kernels at NMC_MAIN (vanilla)."""
     euler_path = _add(_scale(_add(pair_ops(13), HESTON_EULER_OPS), MAIN_STEPS),
-                      TERMINAL_OPS)
+                      TERMINAL_OPS)  # S at each step: #13, the outer legs
     n_out, n_steps, n_inner = NMC_MAIN
     substeps = n_out * n_inner * n_steps * (n_steps - 1) // 2
     legs = n_out * n_inner * n_steps
@@ -1116,7 +1306,8 @@ def heston_bounds():
     outer = _scale(euler_path, n_out)
     surface = 4 * n_out * n_steps
     return {
-        "heston_partials": bound(68, _scale(euler_path, FAMILY_MAIN)),
+        "heston_partials": bound(68, _scale(
+            heston_euler_path("vanilla_call", MAIN_STEPS), FAMILY_MAIN)),
         "heston_trajectories": bound(
             3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS,
             _scale(euler_path, HESTON_PAYOFF_MAIN)),
@@ -4161,6 +4352,11 @@ def main() -> int:
     # The families' checks keep no tensor past their return, so they run
     # without autograd's bookkeeping: their plain versions are launch-bound.
     with torch.inference_mode():
+        sim_edge_errs = []
+        simulate_edge_checks(
+            mt, dev, key, lambda name, label, got, want: check_for(name)(
+                label, got, want), sim_edge_errs)
+        lap("#2's edge checks' plain versions")
         heston_err, family_rows_ms = heston_kernel_checks(mt, dev,
                                                           keys["heston"])
         lap("the Heston checks' plain versions")
@@ -4658,6 +4854,7 @@ def main() -> int:
     with torch.inference_mode():
         n_checks = run_deferred()
     lap(f"the kernel halves of the families' {n_checks} deferred checks")
+    sim_err = max([sim_err, *sim_edge_errs])
 
     # --- Phase 3: the main path at a size users run --------------------
     stamp(3)
@@ -5222,6 +5419,10 @@ def main() -> int:
         lambda: pk.simulate_partials(bullet, cfg_b, key, p100),
         lambda: pk.simulate_partials_plain(bullet, cfg_b, key, p100),
         f"{BULLET_PATHS}x{MAIN_STEPS}")
+    print(f"phase 5: simulate_partials bullet euler: "
+          f"{simulate_layout(bullet, cfg_b)} {tag}")
+    # the phase-5 simulate rows' kernel ms, for phase 6's shares
+    sim_rows = {"bullet euler": (sim_ms[0], cfg_b, "bullet_call")}
     p_otm = pk.pack_params(otm, MAIN_STEPS, dev)
     for label, cfg, prm in (
             ("simulate_partials call terminal antithetic",
@@ -5235,22 +5436,30 @@ def main() -> int:
             ("simulate_partials call K=180 euler IS", pk.KernelConfig(
                 n_paths=MAIN_PATHS, n_steps=MAIN_STEPS, is_shift=is_shift),
              p_otm)):
-        time_pair(label,
-                  lambda cfg=cfg, prm=prm: pk.simulate_partials(call, cfg, key,
-                                                                prm),
-                  lambda cfg=cfg, prm=prm: pk.simulate_partials_plain(
-                      call, cfg, key, prm),
-                  f"{cfg.n_paths}x{cfg.n_steps}")
+        k_ms, _ = time_pair(
+            label,
+            lambda cfg=cfg, prm=prm: pk.simulate_partials(call, cfg, key, prm),
+            lambda cfg=cfg, prm=prm: pk.simulate_partials_plain(
+                call, cfg, key, prm),
+            f"{cfg.n_paths}x{cfg.n_steps}")
+        print(f"phase 5: {label}: {simulate_layout(call, cfg)} {tag}")
+        sim_rows[label.removeprefix("simulate_partials ")] = (
+            k_ms, cfg, "vanilla_call")
     start = RESUME_STEPS[0]
     cfg_r = pk.KernelConfig(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS,
                             start_step=start)
     resume = dict(s_init=traj.s[start - 1].contiguous(),
                   state_init=traj.state[start - 1].contiguous())
-    time_pair(f"simulate_partials bullet resumed at step {start}",
-              lambda: pk.simulate_partials(bullet, cfg_r, key, p100, **resume),
-              lambda: pk.simulate_partials_plain(bullet, cfg_r, key, p100,
-                                                 **resume),
-              f"{BULLET_PATHS}x{MAIN_STEPS}")
+    k_ms, _ = time_pair(
+        f"simulate_partials bullet resumed at step {start}",
+        lambda: pk.simulate_partials(bullet, cfg_r, key, p100, **resume),
+        lambda: pk.simulate_partials_plain(bullet, cfg_r, key, p100,
+                                           **resume),
+        f"{BULLET_PATHS}x{MAIN_STEPS}")
+    print(f"phase 5: simulate_partials bullet resumed at step {start}: "
+          f"{simulate_layout(bullet, cfg_r)} (each path's own threshold) "
+          f"{tag}")
+    sim_rows[f"bullet resumed at step {start}"] = (k_ms, cfg_r, "bullet_call")
     traj_ms = time_pair(
         "trajectories bullet",
         lambda: pk.simulate_trajectories(bullet, cfg_b, key, p100),
@@ -5337,7 +5546,7 @@ def main() -> int:
     for name, po in sorted(PAYOFFS.items()):
         struct = type(po).__name__
         prm = pk.pack_params(payoff_option(mt, name), MAIN_STEPS, dev)
-        line = (f"registers simulate {regs.get(('simulate_kernel', struct, 13))}"
+        line = (f"registers simulate {regs.get(sim_key(po))}"
                 f", ladder {regs.get(('ladder_kernel', struct, None))}, book "
                 f"{regs.get(('book_kernel', struct, 0))} (CV "
                 f"{regs.get(('book_kernel', struct, 1))}, "
@@ -5372,7 +5581,7 @@ def main() -> int:
               f" = {greek_ms[po.name][0] / sim_only:.2f}x simulate_partials "
               f"on the same paths ({sim_only:.4f} ms, spread {sp:.1%}); "
               f"registers greek {regs.get(('greek_kernel', struct, 13))}, "
-              f"simulate {regs.get(('simulate_kernel', struct, 13))} {tag}")
+              f"simulate {regs.get(sim_key(po, cfg))} {tag}")
 
     # The reductions beside torch.sum(dtype=float64), the one PyTorch call
     # that computes the sum (and one of sum_sumsq's two moments).
@@ -5525,6 +5734,46 @@ def main() -> int:
               f"{ops[0] / INT32_OPS_PER_S * 1e3:.4f} ms, f32 "
               f"{ops[1] / F32_OPS_PER_S * 1e3:.4f} ms, SFU "
               f"{ops[2] / SFU_OPS_PER_S * 1e3:.4f} ms {tag}")
+    # #2's phase-5 rows and #12's Euler call and antithetic call
+    # (recounted: S only where the payoff reads it, the barrier payoffs'
+    # threshold once a block, or once a resumed path)
+    for row, (ms, cfg, name) in sim_rows.items():
+        legs = 2 if cfg.antithetic else 1
+        if cfg.method == "terminal":
+            ops = _scale(_add(pair_ops(13), _scale(_add(
+                TERMINAL_DRAW_OPS, TERMINAL_OPS), legs)), cfg.n_paths)
+        else:
+            ops = _scale(simulate_path_ops(
+                name, cfg.n_steps - cfg.start_step, cfg.rng_rounds, legs),
+                cfg.n_paths)
+            if cfg.start_step:
+                ops = _add(ops, _scale(THRESHOLD_OPS, cfg.n_paths))
+            else:
+                ops = _add(ops, simulate_block_ops(name, cfg.n_paths))
+            if cfg.is_shift:  # a shifted draw a leg-step, a weight a leg
+                ops = _add(ops, _scale((0, 1, 0),
+                                       legs * cfg.n_steps * cfg.n_paths),
+                           _scale((0, 6, 1), legs * cfg.n_paths))
+        if cfg.with_cv:
+            ops = _add(ops, _scale((0, 4, 0), cfg.n_paths))
+        b_ms, b_by = bound(60, ops)
+        print(f"phase 6: simulate_partials {row} {cfg.n_paths}x"
+              f"{cfg.n_steps}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"int32 {ops[0] / INT32_OPS_PER_S * 1e3:.4f}, f32 "
+              f"{ops[1] / F32_OPS_PER_S * 1e3:.4f}, SFU "
+              f"{ops[2] / SFU_OPS_PER_S * 1e3:.4f} ms), {b_ms / ms:.1%} of it "
+              f"{tag}")
+    for row, legs in (("heston_partials", 1), ("euler_anti", 2)):
+        ops = _scale(heston_euler_path("vanilla_call", MAIN_STEPS, legs),
+                     FAMILY_MAIN)
+        b_ms, b_by = bound(68, ops)
+        ms = heston_ms[row][0]
+        print(f"phase 6: heston_partials euler{' antithetic' * (legs - 1)} "
+              f"{FAMILY_MAIN}x{MAIN_STEPS}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; int32 {ops[0] / INT32_OPS_PER_S * 1e3:.4f}, f32 "
+              f"{ops[1] / F32_OPS_PER_S * 1e3:.4f}, SFU "
+              f"{ops[2] / SFU_OPS_PER_S * 1e3:.4f} ms), {b_ms / ms:.1%} of it "
+              f"{tag}")
     # their phase-5 times against their bounds
     for row, (_, n_bytes, ms) in qe_rows.items():
         b_ms, b_by = bound(n_bytes, qe_ops[row])
@@ -5534,8 +5783,9 @@ def main() -> int:
     bounds = {
         "terminal_pair": bound(
             0, _scale(_add(pair_ops(13), (0, 14, 2)), MAIN_PATHS // 2)),
-        "simulate_partials": bound(
-            0, _scale(path_ops("bullet_call", MAIN_STEPS, 13), BULLET_PATHS)),
+        "simulate_partials": bound(0, _add(
+            _scale(simulate_path_ops("bullet_call", MAIN_STEPS), BULLET_PATHS),
+            simulate_block_ops("bullet_call", BULLET_PATHS))),
         "trajectories": bound(
             grid_bytes,
             _scale(path_ops("bullet_call", MAIN_STEPS, 13), BULLET_PATHS)),
@@ -5568,7 +5818,7 @@ def main() -> int:
     rows = (
         ("terminal_pair", "path_kernels.cu", "ops/path_kernels.py:1015",
          tp_err, tp_ms, f"{MAIN_PATHS} paths"),
-        ("simulate_partials", "path_kernels.cu", "ops/path_kernels.py:395",
+        ("simulate_partials", "simulate.cuh", "ops/path_kernels.py:395",
          sim_err, sim_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),
         ("trajectories", "path_kernels.cu", "ops/path_kernels.py:524",
          traj_err, traj_ms, f"bullet {BULLET_PATHS}x{MAIN_STEPS}"),

@@ -1,13 +1,15 @@
 """Probe the family nested-MC kernels (#29 family_inner_kernel, #30
 family_fused_kernel), or with ``--qmc`` the QMC kernels (#33
 qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
-the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), or
+the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), the
+book (#7) and the simulate kernel (#2 simulate_kernel), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
 basket_partials_kernel, #26 basket_trajectories_kernel), or with
 ``--partials`` the local-vol, Merton, CEV and cash-dividend partials
 kernels (#19 localvol_partials_kernel, #14 merton_partials_kernel, #18
-cev_partials_kernel, #22 divs_partials_kernel) and the Heston and Bates QE
-kernels (#12 heston_qe_kernel, #16's QE instantiation), or with ``--sabr``
+cev_partials_kernel, #22 divs_partials_kernel), the Heston and Bates QE
+kernels (#12 heston_qe_kernel, #16's QE instantiation) and #12's Euler
+kernel (heston_euler_kernel), or with ``--sabr``
 the SABR partials kernel (#17 sabr_partials_kernel), on one CUDA card:
 what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
@@ -76,6 +78,21 @@ contracts; 1 to 217 steps; barriers 0, -1, +-inf, NaN, spots 0, -0, -50,
 through every variant, each bitwise against the first; ``--time`` also
 times it on chip_smoke.py's bullet book64, 64 x 2^20 x 100, in turns,
 bitwise against the first.
+``--gbm`` also builds the simulate kernel (#2, ``path_kernels.cu`` and
+``simulate*_kernels.cu``; an older commit's, whose simulate_kernel took
+its modes at run time, through a unit adding ``mc_simulate_occupancy``),
+prints the ptxas resources of its BulletCall and VanillaCall (a tree's
+TerminalOnly, which the six terminal-only payoffs share) threefry-13
+instantiations, (``--sass``) their loops, its resident blocks per SM
+under SIMULATE_MODES, runs 562 edge cases (simulate_edge_cases: every
+payoff by Euler, plain, antithetic, with the control variate and both;
+the terminal draw; importance sampling; 0 to 33 steps; resume at even and
+odd starts of even and odd counts with resume spots +-0, -50, +inf, NaN;
+the barrier payoffs' edges; ragged and past-the-grid path counts,
+offsets and bounds) through every variant, each bitwise against the
+first, and (``--time``) times chip_smoke.py's phase-5 simulate rows and
+the bullet at 1M x 100 in turns, each call's time a batch's share (the
+batch sized to >= 5 ms: a single call at ~0.03 ms is mostly launch).
 ``--gbm`` also runs the library's check of two premises of the kernels on
 every input they can meet (``mc_nmc_libm_check``, as chip_smoke.py's phase
 2 does, through the first variant that exports it): that ``sincosf`` is
@@ -126,9 +143,18 @@ both samplers and both fall-backs of the martingale correction, diverging
 warps, threefry-20, degenerate dynamics and barriers, Bates's depths and
 non-finite jump parameters) and (``--time``) times price_heston's and
 price_bates's QE kernels at 1M x 100 (the call plain and antithetic, the
-Asian) and their Euler kernels' call.  ``--kernels`` names the kernels to
-build and run (a comma list of localvol, merton, cev, divs, heston_qe and
-bates_qe; all six by default).
+Asian) and their Euler kernels' call.  ``--kernels heston_euler`` builds
+the Heston sources for #12's Euler kernel (heston_euler_kernel, plain and
+antithetic kernels apart since S is formed only where the payoff reads
+it), runs its edge cases (heston_euler_edge_cases: every payoff, threefry-13
+and -20, plain and antithetic, the stress regime, 0 to 453 steps, an
+offset, bounds, more paths than the grid's threads, the barrier payoffs'
+threshold at barriers +-0, -1, +-inf, NaN and spots +-0, -50, +inf, NaN)
+and (``--time``) times its call and bullet at 1M x 100, plain and
+antithetic.
+``--kernels`` names the kernels to build and run (a comma list of
+localvol, merton, cev, divs, heston_qe, bates_qe and heston_euler; all
+seven by default).
 
 ``--sabr`` builds ``sabr_kernels.cu`` and ``sabr1_kernels.cu`` (the
 unit-beta instantiations; a source without ``mc_sabr_occupancy``, an older
@@ -286,6 +312,41 @@ extern "C" int mc_book_occupancy(int payoff_id, int euler, int n_steps, int thre
 """
 
 
+# A path_kernels.cu that predates mc_simulate_occupancy (simulate_kernel<P,
+# R>: the modes runtime flags, 256 threads a block): this unit adds it, for
+# threefry-13 (the mode arguments ignored).
+SIMULATE_SHIM = """#include "{src}/path_kernels.cu"
+
+template <class P>
+static int probe_simulate_occupancy(int* blocks) {{
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::simulate_kernel<P, 13>,
+                                                       mc_block_threads(), 0);
+}}
+
+extern "C" int mc_simulate_occupancy(int payoff_id, int euler, int antithetic, int with_cv,
+                                     int* blocks) {{
+  (void)euler; (void)antithetic; (void)with_cv;
+  switch (payoff_id) {{
+    case mc::PAYOFF_BULLET_CALL: return probe_simulate_occupancy<mc::BulletCall>(blocks);
+    case mc::PAYOFF_VANILLA_CALL: return probe_simulate_occupancy<mc::VanillaCall>(blocks);
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def simulate_sources(src: Path, out: Path):
+    """The sources of simulate_kernel (#2) in ``src``: ``path_kernels.cu``
+    and any ``simulate*_kernels.cu``, through SIMULATE_SHIM where none
+    exports ``mc_simulate_occupancy``."""
+    own = [src / "path_kernels.cu", *sorted(src.glob("simulate*_kernels.cu"))]
+    if any("mc_simulate_occupancy" in q.read_text() for q in own):
+        return own
+    unit = out / "simulate_probe.cu"
+    unit.write_text(SIMULATE_SHIM.format(src=src))
+    return [unit]
+
+
 def probe_sources(src: Path, mode: str, out: Path, kernels=None):
     """The sources a probe compiles from ``src``: the family NMC ones, the
     QMC ones, or (``gbm``) the GBM NMC unit, written to ``out``
@@ -299,7 +360,7 @@ def probe_sources(src: Path, mode: str, out: Path, kernels=None):
         if "mc_book_occupancy" not in (src / "batch_kernels.cu").read_text():
             text += BOOK_OCCUPANCY_SHIM
         shim.write_text(text.format(src=src))
-        return [shim]
+        return [shim, *simulate_sources(src, out)]
     if mode == "sabr":
         return sabr_sources(src, out)
     if mode == "basket":
@@ -860,7 +921,332 @@ def bind_gbm(lib_path: Path):
     if hasattr(lib, "mc_nmc_libm_check"):
         lib.mc_nmc_libm_check.argtypes, lib.mc_nmc_libm_check.restype = (
             _cuda._SIGNATURES["mc_nmc_libm_check"])
+    lib.mc_simulate_partials.argtypes, lib.mc_simulate_partials.restype = (
+        _cuda._SIGNATURES["mc_simulate_partials"])
+    lib.mc_simulate_occupancy.argtypes = [_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.mc_simulate_occupancy.restype = _int
+    for name in ("mc_block_threads", "mc_simulate_block_paths"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [], _int
     return lib, (lib.mc_nmc_legs() if new_abi else None)
+
+
+# --- the simulate kernel (#2, --gbm) -----------------------------------------
+
+SIMULATE_WARM = 4096
+SIMULATE_EDGE = 4_099   # a ragged last block
+IS_STRIKE = 180.0       # chip_smoke.py's importance-sampling call
+# The mode combinations the occupancy rows list: (euler, antithetic, cv).
+SIMULATE_MODES = ((1, 0, 0), (1, 1, 1), (0, 0, 0), (0, 1, 1))
+
+
+def simulate_block_paths(lib) -> int:
+    """Paths a block of simulate_kernel (the parent's: its threads)."""
+    fn = getattr(lib, "mc_simulate_block_paths", None) or lib.mc_block_threads
+    return fn()
+
+
+def simulate_resume_state(payoff: str, n: int, start: int, s_edge):
+    """Resume inputs at step ``start`` of ``n`` paths from default_rng(5):
+    spots U(60, 140) (``s_edge``: values written over paths 0, 7, 14, ...)
+    and the payoff's state words, plausible for its kind (counts, running
+    sums, flags, spots)."""
+    import math
+
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    gen = np.random.default_rng(5)
+    s = gen.uniform(60.0, 140.0, n).astype(np.float32)
+    if s_edge:
+        s[::7] = np.resize(np.asarray(s_edge, np.float32), s[::7].shape)
+    words = {"bullet_call": [gen.integers(0, start, n)],
+             "asian_call": [gen.uniform(60, 140, n) * start],
+             "up_out_call": [gen.integers(0, 2, n)],
+             "down_out_call": [gen.integers(0, 2, n)],
+             "down_in_call": [gen.integers(0, 2, n)],
+             "lookback_call": [gen.uniform(100, 160, n)],
+             "up_out_call_bb": [gen.uniform(60, 140, n), gen.uniform(0, 1, n)],
+             "down_out_call_bb": [gen.uniform(60, 140, n),
+                                  gen.uniform(0, 1, n)],
+             "variance_swap": [gen.uniform(60, 140, n),
+                               gen.uniform(0, 0.1, n)],
+             "forward_start_call": [np.full(n, start), gen.uniform(60, 140, n)],
+             "cliquet": [np.full(n, start), gen.uniform(60, 140, n),
+                         gen.uniform(-0.1, 0.1, n)],
+             "asian_call_geo_cv": [gen.uniform(60, 140, n) * start,
+                                   np.full(n, start * math.log(100.0))]}
+    st = [np.asarray(w, np.float32) for w in
+          words.get(payoff, [])][:get_payoff(payoff).n_state]
+    return s, st
+
+
+def simulate_edge_cases(timed: bool):
+    """simulate_kernel's cases: (label, payoff, KernelConfig fields, option
+    fields, extra).  Timed: chip_smoke.py's phase-5 rows (the bullet at
+    100,000 x 100, the call by Euler at 1M x 100 plain, antithetic with the
+    control variate and at K = 180 under importance sampling, the terminal
+    antithetic call at 1M, the bullet resumed at step 50) and the bullet at
+    1M x 100.  Else every payoff by Euler, plain, antithetic, with the
+    control variate and both, under threefry-13 (plain and both also -20);
+    the six terminal-only payoffs by the terminal draw the same way;
+    importance sampling on the Euler and terminal legs; 0, 1, 2, 7 and 33
+    steps; resume at steps 50 and 51 of 100 and 101 (the odd start takes
+    the tail of its pair) with resume spots +-0, -50, +inf and NaN among
+    them, every payoff's state words; the barrier payoffs at barriers +-0,
+    -1, +-inf, NaN and spots +-0, -50 (under a barrier of -60, struck at
+    -100), +inf, NaN; 1, 255, 257 and 2^21 + 4,099 paths; an offset past
+    2^20 with a bound inside the run; a bound past the last path.  A
+    resumed spot below 0 under a barrier of -60, struck at -100, is where
+    its own threshold and S at each step part (the kernel steps S there)."""
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    inf, nan = float("inf"), float("nan")
+    n_main, steps = PARTIALS_MAIN
+    if timed:
+        import math
+
+        shift = math.log(IS_STRIKE / 100.0) / 0.2
+        return [
+            ("simulate bullet euler", "bullet_call",
+             dict(n_paths=100_000, n_steps=steps), {}, {}),
+            ("simulate call euler", "vanilla_call",
+             dict(n_paths=n_main, n_steps=steps), {}, {}),
+            ("simulate call euler antithetic+cv", "vanilla_call",
+             dict(n_paths=n_main, n_steps=steps, antithetic=True,
+                  with_cv=True), {}, {}),
+            ("simulate call K=180 euler IS", "vanilla_call",
+             dict(n_paths=n_main, n_steps=steps, is_shift=shift),
+             dict(k=IS_STRIKE), {}),
+            ("simulate call terminal antithetic", "vanilla_call",
+             dict(n_paths=n_main, n_steps=steps, method="terminal",
+                  antithetic=True), {}, {}),
+            ("simulate bullet resumed at step 50", "bullet_call",
+             dict(n_paths=100_000, n_steps=steps, start_step=50), {},
+             dict(resume=())),
+            ("simulate bullet euler 1M", "bullet_call",
+             dict(n_paths=n_main, n_steps=steps), {}, {})]
+    e = SIMULATE_EDGE
+    out = []
+    modes = (dict(), dict(antithetic=True), dict(with_cv=True),
+             dict(antithetic=True, with_cv=True))
+
+    def add(label, payoff, cfg=None, opt=None, **extra):
+        out.append((f"simulate {label}", payoff,
+                    {"n_paths": e, "n_steps": steps, **(cfg or {})},
+                    {**SPECIAL_OPTIONS.get(payoff, {}), **(opt or {})},
+                    extra))
+
+    for name, po in sorted(PAYOFFS.items()):
+        for m in modes:
+            add(f"{name} euler {m}", name, m)
+        for m in (modes[0], modes[3]):
+            add(f"{name} euler {m} r20", name, dict(m, rng_source="threefry"))
+        if po.terminal_only:
+            for m in modes:
+                add(f"{name} terminal {m}", name, dict(m, method="terminal"))
+                add(f"{name} terminal {m} r20", name,
+                    dict(m, method="terminal", rng_source="threefry"))
+        for start, n_steps in ((50, 100), (51, 100), (50, 101), (51, 101)):
+            add(f"{name} resumed at {start} of {n_steps}", name,
+                dict(n_steps=n_steps, start_step=start), resume=())
+        add(f"{name} resumed at 51 anti cv r20", name,
+            dict(start_step=51, antithetic=True, with_cv=True,
+                 rng_source="threefry"), resume=())
+    for name in ("vanilla_call", "bullet_call", "asian_call", "up_out_call"):
+        for m in modes:
+            add(f"{name} euler IS {m}", name, dict(m, is_shift=1.5),
+                dict(k=130.0))
+            if name == "vanilla_call":
+                add(f"{name} terminal IS {m}", name,
+                    dict(m, method="terminal", is_shift=2.9), dict(k=180.0))
+        for st in (0, 1, 2, 7, 33):
+            if st:  # no theta at 0 steps
+                add(f"{name} {st} steps IS anti", name,
+                    dict(n_steps=st, is_shift=0.7, antithetic=True))
+            for m in (modes[0], modes[3]):
+                add(f"{name} {st} steps {m}", name, dict(m, n_steps=st))
+        for n in (1, 255, 257):
+            add(f"{name} {n} paths anti cv", name,
+                dict(n_paths=n, antithetic=True, with_cv=True))
+        add(f"{name} offset bound anti", name,
+            dict(n_paths=50_001, antithetic=True),
+            offset=(1 << 20) + 12_345, bound=(1 << 20) + 12_345 + 40_000)
+        add(f"{name} bound past the end", name, dict(n_paths=5003),
+            offset=7, bound=0xFFFFFFFF)
+        add(f"{name} {GRID_PAST} paths", name,
+            dict(n_paths=GRID_PAST, n_steps=4))
+    for name in ("bullet_call", "up_out_call", "down_in_call",
+                 "down_out_call"):
+        for fix in (dict(barrier=0.0), dict(barrier=-0.0),
+                    dict(barrier=-1.0), dict(barrier=inf), dict(barrier=-inf),
+                    dict(barrier=nan), dict(s0=0.0), dict(s0=-0.0),
+                    dict(s0=-50.0), dict(s0=-50.0, barrier=-60.0, k=-100.0),
+                    dict(s0=inf), dict(s0=nan)):
+            for m in (modes[0], modes[3]):
+                add(f"{name} {fix} {m}", name, m, fix)
+        for s_edge in ((0.0, -0.0, -50.0, inf, nan), (-0.0,), (-50.0,),
+                       (nan,), (inf,)):
+            for start in (50, 51):
+                add(f"{name} resumed at {start} spots {s_edge}", name,
+                    dict(start_step=start, antithetic=True), resume=s_edge)
+            for fix in (dict(barrier=0.0), dict(barrier=inf),
+                        dict(barrier=nan), dict(barrier=-60.0, k=-100.0)):
+                add(f"{name} resumed at 51 spots {s_edge} {fix}", name,
+                    dict(start_step=51), fix, resume=s_edge)
+    return out
+
+
+def simulate_inputs(payoff: str, cfg: dict, opt: dict, extra: dict, dev):
+    """(KernelConfig, params, key, s_init, state block) of a simulate case."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    kc = pk.KernelConfig(**cfg)
+    prm = pk.pack_params(OptionParams(**opt), kc.n_steps, dev)
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
+    s_init = block = None
+    if "resume" in extra:
+        s, st = simulate_resume_state(payoff, kc.n_paths, kc.start_step,
+                                      extra["resume"])
+        s_init = torch.from_numpy(s).to(dev)
+        if st:
+            block = torch.from_numpy(np.stack(st)).contiguous().to(dev)
+    return kc, prm, key, s_init, block
+
+
+def run_simulate(lib, payoff: str, inputs, extra: dict, n_paths=None,
+                 batch: int = 1):
+    """(partials, ms) of ``batch`` back-to-back simulate calls through
+    ``lib``'s entry point (ms: a call's share of the events' span)."""
+    kc, prm, (k0, k1), s_init, block = inputs
+    n = n_paths or kc.n_paths
+    offset = extra.get("offset", 0)
+    bound = extra.get("bound", offset + n)
+    n_blocks = min(-(-n // simulate_block_paths(lib)), 8192)
+    part = torch.empty((n_blocks, kc.n_moments), dtype=torch.float64,
+                       device=prm.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (_payoff_id(payoff), kc.rng_rounds, int(kc.method == "euler"),
+            int(kc.antithetic), int(kc.with_cv), k0, k1, prm.data_ptr(),
+            kc.n_steps, kc.start_step, kc.is_shift, n, offset, bound,
+            None if s_init is None else s_init.data_ptr(),
+            None if block is None else block.data_ptr(), part.data_ptr(),
+            kc.n_moments, n_blocks, stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_simulate_partials(*args), "simulate_partials")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def simulate_layout(lib) -> dict:
+    """Blocks per SM of simulate_kernel for the bullet and the call under
+    SIMULATE_MODES, and its paths a block."""
+    out = {}
+    blocks = ctypes.c_int(0)
+    for name in ("bullet_call", "vanilla_call"):
+        for euler, anti, cv in SIMULATE_MODES:
+            st = lib.mc_simulate_occupancy(_payoff_id(name), euler, anti, cv,
+                                           ctypes.byref(blocks))
+            out[f"{name} euler={euler} anti={anti} cv={cv}"] = (
+                blocks.value if st == 0 else None)
+    out["paths a block"] = simulate_block_paths(lib)
+    return out
+
+
+def simulate_probe(args, bound, libs, card) -> dict:
+    """--gbm's simulate_kernel half: resources and blocks per SM (the
+    bullet's and the call's kernels; a tree's call is its TerminalOnly), the
+    bitwise edges through every variant and (--time) the phase-5 rows in
+    turns, each call's time a batch's share (the first call's span sizes a
+    batch of >= 5 ms)."""
+    dev = torch.device("cuda")
+    report = {"variants": {}}
+    want = re.compile(r"15simulate_kernelI.*NS_(10BulletCall|11VanillaCall|12TerminalOnly)E"
+                      r".*Li13E")
+    for label, (lib, _) in bound.items():
+        lib_path, logs = libs[label]
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = sorted(e for e in res if want.search(e))
+        funcs = (sass_functions(lib_path, lambda f: f in entries)
+                 if args.sass else {})
+        rows = {}
+        for e in entries:
+            r = dict(res[e])
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                for lp in loops:
+                    lp["mufu"] = mufu_kinds(funcs[e], lp)
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+                write_listing(args.out, label, e, funcs[e])
+            rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        layout = simulate_layout(lib)
+        print(f"probe {label}: simulate layout {layout} {card}", flush=True)
+        report["variants"][label] = dict(kernels=rows, layout=layout)
+    edges, bad = {}, 0
+    for case, payoff, cfg, opt, extra in simulate_edge_cases(False):
+        inputs = simulate_inputs(payoff, cfg, opt, extra, dev)
+        ref = None
+        for label, (lib, _) in bound.items():
+            part, _ = run_simulate(lib, payoff, inputs, extra)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(case, {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {case} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe simulate edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        from mc_tpu_torch.ops import path_kernels as pk
+        from mc_tpu_torch.ops.payoffs import get_payoff
+
+        times = {}
+        order = list(bound) + list(bound)[::-1]
+        for case, payoff, cfg, opt, extra in simulate_edge_cases(True):
+            inputs = simulate_inputs(payoff, cfg, opt, extra, dev)
+            if "resume" in extra:  # the plain trajectories' states
+                kc = inputs[0]
+                s_g, c_g, _ = pk.simulate_trajectories_plain(
+                    get_payoff(payoff), pk.KernelConfig(
+                        n_paths=kc.n_paths, n_steps=kc.n_steps), inputs[2],
+                    inputs[1])
+                inputs = (*inputs[:3], s_g[kc.start_step - 1].contiguous(),
+                          c_g[kc.start_step - 1][None].contiguous())
+            ref = None
+            for label in order:
+                lib = bound[label][0]
+                run_simulate(lib, payoff, inputs, extra, SIMULATE_WARM)
+                part, first = run_simulate(lib, payoff, inputs, extra)
+                batch = max(1, int(np.ceil(5.0 / max(first, 1e-3))))
+                _, ms = run_simulate(lib, payoff, inputs, extra, batch=batch)
+                ref = part if ref is None else ref
+                same = same_bits(part, ref)
+                times.setdefault(case, {}).setdefault(label, []).append(
+                    dict(ms=ms, single_ms=first, batch=batch, bitwise=same))
+                print(f"probe time {case} {cfg['n_paths']}x{cfg['n_steps']} "
+                      f"{label}: {ms:.5f} ms a call in a batch of {batch} "
+                      f"(one call alone {first:.5f}), partials bitwise vs "
+                      f"{order[0]}: {same} {card}", flush=True)
+                if not same:
+                    print(f"FAIL: {case} {label} disagrees", flush=True)
+        report["times"] = times
+    return report
 
 
 def libm_check(lib, dev) -> dict:
@@ -1148,6 +1534,7 @@ def gbm_main(args, variants, card) -> dict:
     print(f"probe book edges: {len(edges)} cases x {len(bound)} variants, "
           f"{bad} disagree {card}", flush=True)
     report["book_edges"] = edges
+    report["simulate"] = simulate_probe(args, bound, libs, card)
     checker = next((lib for lib, _ in bound.values()
                     if hasattr(lib, "mc_nmc_libm_check")), None)
     if checker is not None:
@@ -1482,16 +1869,17 @@ extern "C" int mc_bates_occupancy(int qe, int antithetic, int* blocks) {{
 }}
 """
 PARTIALS_KERNELS = ("localvol", "merton", "cev", "divs", "heston_qe",
-                    "bates_qe")
+                    "bates_qe", "heston_euler")
 # The family of a kernel name: its sources' stem and its entry points'
-# infix (mc_<family>_partials); the QE kernels are their families'.
-_PARTIALS_FAMILY = {"heston_qe": "heston", "bates_qe": "bates"}
+# infix (mc_<family>_partials); the QE and Euler kernels are their families'.
+_PARTIALS_FAMILY = {"heston_qe": "heston", "bates_qe": "bates",
+                    "heston_euler": "heston"}
 _PARTIALS_SHIMS = {"localvol": LOCALVOL_SHIM, "merton": MERTON_SHIM,
                    "cev": CEV_SHIM, "divs": DIVS_SHIM, "heston": HESTON_SHIM,
                    "bates": BATES_SHIM}
 # the occupancy entry points' arguments before the blocks pointer
 _OCCUPANCY_ARGS = {"localvol": 3, "merton": 3, "cev": 1, "divs": 2,
-                   "heston_qe": 2, "bates_qe": 2}
+                   "heston_qe": 2, "bates_qe": 2, "heston_euler": 2}
 
 
 def partials_family(name: str) -> str:
@@ -1504,8 +1892,7 @@ def partials_sources(src: Path, out: Path, kernels=PARTIALS_KERNELS):
     too, not the NMC's), through a shim where the sources have no occupancy
     entry point."""
     srcs = []
-    for name in kernels:
-        fam = partials_family(name)
+    for fam in dict.fromkeys(partials_family(name) for name in kernels):
         own = [src / f"{fam}_kernels.cu",
                *src.glob(f"{fam}[0-9]*_kernels.cu"),
                *src.glob(f"{fam}_qe_kernels.cu")]
@@ -1588,10 +1975,12 @@ def partials_layout(lib, kernels=PARTIALS_KERNELS) -> dict:
             if hasattr(lib, "mc_divs_table_steps"):
                 r["table_steps"] = lib.mc_divs_table_steps()
             out[f"divs steps={steps} anti={anti}"] = r
-    for name in ("heston_qe", "bates_qe"):
+    for name in ("heston_qe", "bates_qe", "heston_euler"):
         if name not in kernels:
             continue
         fam = partials_family(name)
+        if name == "heston_qe" and "heston_euler" in kernels:
+            continue  # heston_euler's rows list both schemes
         for qe in (1, 0):
             for anti in (False, True):
                 st = getattr(lib, f"mc_{fam}_occupancy")(
@@ -1633,6 +2022,8 @@ def partials_cases(timed: bool, kernels=PARTIALS_KERNELS):
         out += qe_edge_cases(timed, "heston_qe")
     if "bates_qe" in kernels:
         out += qe_edge_cases(timed, "bates_qe")
+    if "heston_euler" in kernels:
+        out += heston_euler_edge_cases(timed)
     return out
 
 
@@ -1947,6 +2338,64 @@ def qe_edge_cases(timed: bool, kernel: str):
     return out
 
 
+def heston_euler_edge_cases(timed: bool):
+    """The Heston Euler kernel's (#12's heston_euler_kernel) cases, through
+    mc_heston_partials at qe 0.  Timed: price_heston's call and the bullet
+    at 1M x 100, plain and antithetic.  Else every payoff Heston
+    prices, plain and antithetic, under threefry-13 and -20; the stress
+    regime (v crosses 0); 0, 1, 2, 7 and 453 steps; an offset past 2^20
+    with a bound inside the run; a bound past the last path; more paths
+    than the grid's threads; the bullet, the up-and-out and the down-and-in
+    calls at barriers +-0, -1, +-inf, NaN and spots +-0, -50 (also under a
+    barrier of -60, struck at -100), +inf, NaN."""
+    from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    n, steps = PARTIALS_MAIN
+    if timed:
+        return [(f"heston euler {payoff} anti={anti}", "heston_euler",
+                 dict(anti=anti, n=n, steps=steps, payoff=payoff))
+                for payoff in ("vanilla_call", "bullet_call")
+                for anti in (False, True)]
+    e = PARTIALS_EDGE
+    out = []
+
+    def add(label, **a):
+        out.append((f"heston euler {label}", "heston_euler",
+                    {"n": e, "steps": steps, **a}))
+
+    inf, nan = float("inf"), float("nan")
+    for name in sorted(set(PAYOFFS) - set(SIGMA_PAYOFFS)):
+        for rounds in (13, 20):
+            for anti in (False, True):
+                add(f"{name} r{rounds} anti={anti}", anti=anti, payoff=name,
+                    rounds=rounds, option=SPECIAL_OPTIONS.get(name, {}))
+    for anti in (False, True):
+        for payoff in ("vanilla_call", "bullet_call", "asian_call"):
+            add(f"stress {payoff} anti={anti}", anti=anti, payoff=payoff,
+                dyn=QE_STRESS, option=SPECIAL_OPTIONS.get(payoff, {}))
+            for st in (0, 1, 2, 7, 453):
+                add(f"{payoff} {st} steps anti={anti}", anti=anti,
+                    payoff=payoff, steps=st, n=4099,
+                    option=SPECIAL_OPTIONS.get(payoff, {}))
+        add(f"offset bound anti={anti}", anti=anti, n=50_001,
+            offset=(1 << 20) + 12_345, bound=(1 << 20) + 12_345 + 40_000)
+        add(f"bound past the end anti={anti}", anti=anti, n=5003, offset=7,
+            bound=0xFFFFFFFF)
+        add(f"{GRID_PAST} paths anti={anti}", anti=anti, n=GRID_PAST, steps=4)
+        for payoff in ("bullet_call", "up_out_call", "down_in_call"):
+            for fix in (dict(barrier=0.0), dict(barrier=-0.0),
+                        dict(barrier=-1.0), dict(barrier=inf),
+                        dict(barrier=-inf), dict(barrier=nan), dict(s0=0.0),
+                        dict(s0=-0.0), dict(s0=-50.0),
+                        dict(s0=-50.0, barrier=-60.0, k=-100.0),
+                        dict(s0=inf), dict(s0=nan)):
+                add(f"{payoff} {fix} anti={anti}", anti=anti, n=4099,
+                    payoff=payoff,
+                    option={**SPECIAL_OPTIONS.get(payoff, {}), **fix})
+    return out
+
+
 def partials_inputs(kernel: str, a: dict, dev):
     """(params, key, count) of a --partials case: the packed vector, the
     key price_<family> derives from seed 1234 and the knot count or kmax
@@ -1978,7 +2427,7 @@ def partials_inputs(kernel: str, a: dict, dev):
         dyn = dataclasses.replace(cm.DEMO_CEV, **a.get("dyn", {}))
         prm = cm.pack_cev(opt, dyn, a["steps"], dev)
         tag = cm.CEV_TAG
-    elif kernel == "heston_qe":
+    elif kernel in ("heston_qe", "heston_euler"):
         dyn = dataclasses.replace(hm.DEMO_HESTON, **a.get("dyn", {}))
         prm = hm.pack_heston(opt, dyn, a["steps"], dev)
         tag = hm.HESTON_TAG
@@ -2018,8 +2467,9 @@ def run_partials(lib, tiles, kernel: str, a: dict, inputs, n_paths=None):
                                     k1, prm.data_ptr(), count, a["steps"], n,
                                     offset, bound, part.data_ptr(), n_blocks,
                                     stream)
-    elif kernel == "heston_qe":
-        st = lib.mc_heston_partials(pid, a.get("qe", 1), rounds, anti, k0, k1,
+    elif kernel in ("heston_qe", "heston_euler"):
+        qe = a.get("qe", int(kernel == "heston_qe"))
+        st = lib.mc_heston_partials(pid, qe, rounds, anti, k0, k1,
                                     prm.data_ptr(), a["steps"], n, offset,
                                     bound, part.data_ptr(), n_blocks, stream)
     elif kernel == "bates_qe":
@@ -2047,7 +2497,10 @@ PARTIALS_ENTRIES = {
     # the QE kernel and, beside it, the family's Euler kernel
     "heston_qe": r"(16heston_qe|19heston_euler)_kernelINS_11VanillaCallE.*Li13E",
     "bates_qe": r"(21bates_partials_kernelINS_11VanillaCallENS_\d+Bates(Qe|Euler)"
-                r"|15bates_qe_kernelINS_11VanillaCallE).*Li13E"}
+                r"|15bates_qe_kernelINS_11VanillaCallE).*Li13E",
+    # the Euler kernel (one, or a plain and an antithetic one) and the
+    # bullet's, whose barrier legs test w against the block's threshold
+    "heston_euler": r"19heston_euler_kernelINS_(11VanillaCall|10BulletCall)E.*Li13E"}
 
 
 def cev_logf_check(lib, dev) -> dict:
@@ -2439,7 +2892,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--kernels", default=",".join(PARTIALS_KERNELS),
                     help="--partials: a comma list of localvol, merton, cev, "
-                         "divs, heston_qe, bates_qe")
+                         "divs, heston_qe, bates_qe, heston_euler")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--out", default="build/family_probe.json")

@@ -1,7 +1,9 @@
 // The spot a leg's payoff reads, and the barrier test on the log-price:
 // shared by the GBM nested-MC legs (nmc_kernels.cu, #3 and #5), the book
-// (batch_kernels.cu, #7) and the SABR partials kernel (sabr_partials.cuh,
-// #17).
+// (batch_kernels.cu, #7), the SABR partials kernel (sabr_partials.cuh,
+// #17), the simulate kernel (simulate.cuh, #2) and the Heston and Bates
+// partials kernels (heston_kernels.cu, heston_qe_kernels.cu,
+// bates_qe_kernels.cu; #12, #16).
 //
 // A leg that steps its log-price w from a start price base forms the spot
 // S = base * expf(w) only where its payoff reads it (StateRead).  A
@@ -102,6 +104,53 @@ __device__ __forceinline__ void leg_step(const Params& p, float base, float belo
 __device__ __forceinline__ float below_max_all(float base, float barrier) {
   const float t = below_max_w(base, barrier);
   return t == -INFINITY ? __int_as_float(0x7fc00000) : t;
+}
+
+// The threshold of a kBarrier leg that starts from p.s0, for every leg of
+// a block: below_max_all(p.s0, p.barrier), found by thread 0 once a block
+// (a block-wide barrier: every thread calls it), and whether the legs test
+// w against it (by_w: s0 not below 0; else they form S at each step, as
+// the book does).  Other payoffs: none.
+template <class Payoff>
+__device__ __forceinline__ float block_below_max(const Params& p, bool& by_w) {
+  by_w = !(p.s0 < 0.0f);
+  if constexpr (kStateRead<Payoff> == StateRead::kBarrier) {
+    __shared__ float below_max_s;
+    if (threadIdx.x == 0) below_max_s = below_max_all(p.s0, p.barrier);
+    __syncthreads();
+    return below_max_s;
+  }
+  return 0.0f;
+}
+
+// A leg's payoff state after its step moved w (from base): a kSpot leg
+// forms S = base * expf(w) and updates from it; a kBarrier leg updates from
+// w <= below_max where by_w (else from S, formed here); a kNone leg has no
+// state to move.
+template <class Payoff>
+__device__ __forceinline__ void leg_update(const Params& p, float base, float below_max,
+                                           bool by_w, float w, float& s,
+                                           typename Payoff::State& st) {
+  if constexpr (kStateRead<Payoff> == StateRead::kSpot) {
+    s = base * expf(w);  // log-space: one exp rounding per S_t
+    st = Payoff::update(st, s, p);
+  } else if constexpr (kStateRead<Payoff> == StateRead::kBarrier) {
+    if (by_w) {
+      st = Payoff::update_below(st, w <= below_max, p);
+    } else {
+      s = base * expf(w);
+      st = Payoff::update(st, s, p);
+    }
+  }
+}
+
+// The spot terminal reads: S of the last step, formed here where the steps
+// did not form it (the leg took no step: S is base).
+template <class Payoff>
+__device__ __forceinline__ void leg_end_spot(float base, bool stepped, float w, float& s) {
+  if constexpr (kStateRead<Payoff> != StateRead::kSpot) {
+    if (stepped) s = base * expf(w);
+  }
 }
 
 }  // namespace mc

@@ -16,7 +16,7 @@
 // drew all four counters and scanned for the count every step; the same
 // partials on the H100, family_nmc_probe.py --partials --kernels bates_qe):
 // - Heston's branch-split QE step and its lazily drawn uniform, the spot
-//   only where the payoff reads it (heston.cuh, heston_qe.cuh);
+//   only where the payoff reads it (heston.cuh, barrier.cuh);
 // - the Poisson count against the block's cdf table, thread 0 building it
 //   and its least entry in shared memory (poisson_cdf_table: the scan's
 //   recurrence in its order), bit for bit the scan's (merton.cuh);
@@ -104,11 +104,11 @@ __device__ __forceinline__ float bates_qe_pay(const BatesParams& b, const QeCons
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       w[l] = w[l] + jump[l];
-      qe_leg_state<Payoff>(b.h.pay, s0, below_max, by_w, w[l], s[l], st[l]);
+      leg_update<Payoff>(b.h.pay, s0, below_max, by_w, w[l], s[l], st[l]);
     }
   }
 #pragma unroll
-  for (int l = 0; l < L; ++l) qe_leg_end<Payoff>(s0, n_steps, w[l], s[l]);
+  for (int l = 0; l < L; ++l) leg_end_spot<Payoff>(s0, n_steps > 0, w[l], s[l]);
   const float p = Payoff::terminal(st[0], s[0], b.h.pay);
   if constexpr (A) return 0.5f * (p + Payoff::terminal(st[1], s[1], b.h.pay));
   return p;
@@ -129,7 +129,7 @@ bates_qe_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params, int 
     cdf[kmax] = f_min;
   }
   bool by_w;
-  const float below_max = qe_below_max<Payoff>(b.h.pay, by_w);
+  const float below_max = block_below_max<Payoff>(b.h.pay, by_w);
   __syncthreads();
   double acc[2] = {0.0, 0.0};
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kBatesThreads;

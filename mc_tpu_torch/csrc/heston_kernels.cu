@@ -2,14 +2,28 @@
 //
 // heston_euler_kernel and heston_qe_kernel replace mc_tpu/models/heston.py
 // _heston_partials_pallas (the Pallas call at :342).  The Euler kernel is
-// here: one path per thread over a grid-stride loop, step j drawing the
-// normal pair (id, j); threefry-13 or -20; the antithetic twin in the same
-// thread from the same draws, (z_v, z_2) -> (-z_v, -z_2); paths at or past
-// `bound` add zeros.  Every payoff of the registry except the two
-// Brownian-bridge barriers (they read the GBM sigma), the multi-word ones
-// included.  Each block writes one row of f64 [sum pay, sum pay^2]
-// (reduce.cuh), no float atomics.  The QE kernel, its own loop, is in
-// heston_qe_kernels.cu; mc_heston_partials launches either.
+// here (the step: mc_tpu's heston_euler_step at :94, on the leg
+// _heston_leg at :255): one path per thread over a grid-stride loop,
+// kHestonThreads a block, step j drawing the normal pair (id, j);
+// threefry-13 or -20; paths at or past `bound` add zeros.  Every payoff of
+// the registry except the two Brownian-bridge barriers (they read the GBM
+// sigma), the multi-word ones included.  Each block writes one row of f64
+// [sum pay, sum pay^2] (reduce.cuh), no float atomics.  The QE kernel, its
+// own loop, is in heston_qe_kernels.cu; mc_heston_partials launches either.
+//
+// Each path's payoff is the kernel's it replaced bit for bit (that kernel
+// formed S = s0 * expf(w) at every step and held the antithetic twin in a
+// branch of its step loop; the same partials on the H100,
+// family_nmc_probe.py --partials --kernels heston_euler):
+// - the spot is formed only where the payoff reads it (barrier.cuh): at
+//   each step for a payoff whose update reads S (the Asian, the lookback,
+//   the down-and-out call, the multi-word payoffs); for the bullet, the
+//   up-and-out and the down-and-in calls, whose update reads S only through
+//   S < B, the test is w <= below_max_all(s0, B), found once a block (S at
+//   each step where s0 is below 0); once, at maturity, for the
+//   terminal-only payoffs;
+// - the plain and antithetic paths are kernels apart, the twin a second
+//   lockstep leg on the negated pair (-z_v, -z_2).
 //
 // heston_trajectories_kernel replaces heston_trajectories_kernel (the
 // Pallas call at :549): the Euler loop on threefry-13 that also stores S,
@@ -22,7 +36,8 @@
 //
 // What bounds them on the H100: operations.  A Heston Euler step spends a
 // whole threefry pair (the GBM log-Euler step half of one), the Box-Muller
-// transcendentals (log1pf, sqrtf, cosf, sinf), a sqrtf of v and one expf.
+// transcendentals (log1pf, sqrtf, sincosf) and a sqrtf of v; the
+// trajectories (and the partials kernel's kSpot payoffs) an expf for S.
 // The parameters are 68 bytes and each block writes 16; the trajectories
 // write 12 bytes per path-step (120 MB at 100,000 x 100, 36 us at 3.35
 // TB/s), less than their RNG work takes.  The design keeps everything in
@@ -32,6 +47,7 @@
 
 #include <cuda_runtime.h>
 
+#include "barrier.cuh"
 #include "heston.cuh"
 #include "payoffs.cuh"
 #include "reduce.cuh"
@@ -39,68 +55,61 @@
 
 namespace mc {
 
-// The Euler scheme as the partials body takes it: draw(j) gives the step's
-// (z_v, z_2, u), step() advances (w, v).  The body keeps its scheme
-// parameter and runtime antithetic flag so the Euler kernel's code, and so
-// its bits and time, stay as they are; the QE kernel has its own loop
-// (heston_qe_kernels.cu).
-struct EulerScheme {
-  template <int ROUNDS>
-  __device__ static void draw(uint32_t k0, uint32_t k1, uint32_t id, int j, float& z_v,
-                              float& z_2, float& u) {
+// A path's payoff (the pair's mean if antithetic) over n_steps Euler steps.
+template <class Payoff, int ROUNDS, bool A>
+__device__ __forceinline__ float heston_euler_pay(const HestonParams& h, float below_max,
+                                                  bool by_w, uint32_t k0, uint32_t k1,
+                                                  uint32_t id, int n_steps) {
+  constexpr int L = A ? 2 : 1;  // leg 0 the path, leg 1 its antithetic twin
+  const float s0 = h.pay.s0;
+  float w[L], v[L], s[L];
+  typename Payoff::State st[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    w[l] = 0.0f;
+    v[l] = h.v0;
+    s[l] = s0;
+    st[l] = Payoff::init(h.pay);
+  }
+  for (int j = 0; j < n_steps; ++j) {
+    float z_v, z_2;
     normal_pair<ROUNDS>(k0, k1, id, static_cast<uint32_t>(j), z_v, z_2);
-    u = 0.0f;
+    heston_euler_step(h, z_v, z_2, w[0], v[0]);
+    if constexpr (A) heston_euler_step(h, -z_v, -z_2, w[1], v[1]);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      leg_update<Payoff>(h.pay, s0, below_max, by_w, w[l], s[l], st[l]);
+    }
   }
-  __device__ static void step(const HestonParams& h, const QeConsts&, float z_v, float z_2,
-                              float, float& w, float& v) {
-    heston_euler_step(h, z_v, z_2, w, v);
-  }
-};
+#pragma unroll
+  for (int l = 0; l < L; ++l) leg_end_spot<Payoff>(s0, n_steps > 0, w[l], s[l]);
+  const float p = Payoff::terminal(st[0], s[0], h.pay);
+  if constexpr (A) return 0.5f * (p + Payoff::terminal(st[1], s[1], h.pay));
+  return p;
+}
 
-template <class Payoff, class Scheme, int ROUNDS>
-__device__ __forceinline__ void heston_partials_body(
-    int antithetic, uint32_t k0, uint32_t k1, const float* __restrict__ params,
-    int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-    double* __restrict__ partials) {
-  using State = typename Payoff::State;
+// The plain kernel at 6 blocks an SM (40 registers): at ptxas's own
+// choice (32 registers, 8 blocks, a spill) it ran 1.6% slower on the H100.
+// The antithetic kernel at 5 (48 registers; ptxas takes 40 for the call).
+template <class Payoff, int ROUNDS, bool A>
+__global__ void __launch_bounds__(kHestonThreads, A ? 5 : 6)
+heston_euler_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params, int n_steps,
+                    uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+                    double* __restrict__ partials) {
   const HestonParams h = load_heston(params);
-  const QeConsts qc = qe_consts(h);
+  bool by_w;
+  const float below_max = block_below_max<Payoff>(h.pay, by_w);
   double acc[2] = {0.0, 0.0};
-  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
-  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kHestonThreads;
+  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * kHestonThreads + threadIdx.x;
        i < n_paths; i += stride) {
     const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    float w = 0.0f, v = h.v0, s = h.pay.s0;
-    float wn = 0.0f, vn = h.v0, sn = h.pay.s0;
-    State st = Payoff::init(h.pay), stn = st;
-    for (int j = 0; j < n_steps; ++j) {
-      float z_v, z_2, u;
-      Scheme::template draw<ROUNDS>(k0, k1, id, j, z_v, z_2, u);
-      Scheme::step(h, qc, z_v, z_2, u, w, v);
-      s = h.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
-      st = Payoff::update(st, s, h.pay);
-      if (antithetic) {
-        Scheme::step(h, qc, -z_v, -z_2, 1.0f - u, wn, vn);
-        sn = h.pay.s0 * expf(wn);
-        stn = Payoff::update(stn, sn, h.pay);
-      }
-    }
-    float pay = Payoff::terminal(st, s, h.pay);
-    if (antithetic) pay = 0.5f * (pay + Payoff::terminal(stn, sn, h.pay));
-    const float pv[1] = {pay};
+    const float pv[1] = {
+        heston_euler_pay<Payoff, ROUNDS, A>(h, below_max, by_w, k0, k1, id, n_steps)};
     add_moments(acc, pv, id < bound);
   }
   block_store_moments<2, kHestonThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
                                          2);
-}
-
-template <class Payoff, int ROUNDS>
-__global__ void __launch_bounds__(kHestonThreads)
-heston_euler_kernel(int antithetic, uint32_t k0, uint32_t k1, const float* __restrict__ params,
-                    int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                    double* __restrict__ partials) {
-  heston_partials_body<Payoff, EulerScheme, ROUNDS>(antithetic, k0, k1, params, n_steps,
-                                                    n_paths, path_offset, bound, partials);
 }
 
 template <class Payoff>
@@ -137,18 +146,20 @@ cudaError_t launch_heston_euler(int rounds, int antithetic, uint32_t k0, uint32_
                                 const float* params, int n_steps, uint32_t n_paths,
                                 uint32_t path_offset, uint32_t bound, double* partials,
                                 int n_blocks, cudaStream_t stream) {
-#define MC_HESTON_LAUNCH(R)                                                          \
-  heston_euler_kernel<Payoff, R><<<n_blocks, kHestonThreads, 0, stream>>>(           \
-      antithetic, k0, k1, params, n_steps, n_paths, path_offset, bound, partials)
+#define MC_HESTON_EULER_LAUNCH(R, A)                                                      \
+  heston_euler_kernel<Payoff, R, A><<<n_blocks, kHestonThreads, 0, stream>>>(            \
+      k0, k1, params, n_steps, n_paths, path_offset, bound, partials);                  \
+  return cudaGetLastError()
   if (rounds == 13) {
-    MC_HESTON_LAUNCH(13);
-  } else if (rounds == 20) {
-    MC_HESTON_LAUNCH(20);
-  } else {
-    return cudaErrorInvalidValue;
+    if (antithetic) { MC_HESTON_EULER_LAUNCH(13, true); }
+    MC_HESTON_EULER_LAUNCH(13, false);
   }
-#undef MC_HESTON_LAUNCH
-  return cudaGetLastError();
+  if (rounds == 20) {
+    if (antithetic) { MC_HESTON_EULER_LAUNCH(20, true); }
+    MC_HESTON_EULER_LAUNCH(20, false);
+  }
+#undef MC_HESTON_EULER_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 // The QE kernel's launch and occupancy (heston_qe_kernels.cu).
@@ -170,8 +181,12 @@ int mc_heston_block_paths() { return mc::kHestonThreads; }
 // threefry-13).
 int mc_heston_occupancy(int qe, int antithetic, int* blocks) {
   if (qe) return mc::heston_qe_occupancy(antithetic, blocks);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, mc::heston_euler_kernel<mc::VanillaCall, 13>, mc::kHestonThreads, 0);
+  return antithetic ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks, mc::heston_euler_kernel<mc::VanillaCall, 13, true>,
+                          mc::kHestonThreads, 0)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks, mc::heston_euler_kernel<mc::VanillaCall, 13, false>,
+                          mc::kHestonThreads, 0);
 }
 
 int mc_heston_partials(int payoff_id, int qe, int rounds, int antithetic, uint32_t k0,

@@ -10,13 +10,9 @@
 // 2, theta 0.04) psi never exceeds psi(0) = xi^2 / (2 kappa theta) = 0.5625,
 // so no step of the main shape draws it.
 //
-// The spot S = base * expf(w) is formed only where the payoff reads it
-// (StateRead, barrier.cuh): at each step for a kSpot payoff; for a kBarrier
-// payoff the test S < barrier is w <= below_max_all(base, barrier), found
-// once a block, where base is not below 0 (else S at each step, as the
-// book does); once, at the end, for the others.  expf keeps the order of
-// the floats (mc_nmc_libm_check, chip_smoke.py phase 2), so the test is the
-// plain version's bit for bit.
+// The spot S = base * expf(w) is formed only where the payoff reads it:
+// the legs keep their payoff state by barrier.cuh's block_below_max,
+// leg_update and leg_end_spot, as the Euler kernel's do.
 #pragma once
 
 #include <cstdint>
@@ -52,48 +48,6 @@ __device__ __forceinline__ void qe_legs_step(const HestonParams& h, const QeCons
     }
     qe_advance(c, v[l], v_next, k0_eff, z_s[l], w[l]);
     v[l] = v_next;
-  }
-}
-
-// The kBarrier legs' threshold: below_max_all(s0, barrier), by thread 0
-// once a block (a block-wide barrier: every thread calls it), and whether
-// it is exact (by_w: s0 not below 0).  Other payoffs: none.
-template <class Payoff>
-__device__ __forceinline__ float qe_below_max(const Params& p, bool& by_w) {
-  by_w = !(p.s0 < 0.0f);
-  if constexpr (kStateRead<Payoff> == StateRead::kBarrier) {
-    __shared__ float below_max_s;
-    if (threadIdx.x == 0) below_max_s = below_max_all(p.s0, p.barrier);
-    __syncthreads();
-    return below_max_s;
-  }
-  return 0.0f;
-}
-
-// A leg's payoff state after its step moved w (from base).
-template <class Payoff>
-__device__ __forceinline__ void qe_leg_state(const Params& p, float base, float below_max,
-                                             bool by_w, float w, float& s,
-                                             typename Payoff::State& st) {
-  if constexpr (kStateRead<Payoff> == StateRead::kSpot) {
-    s = base * expf(w);  // log-space: one exp rounding per S_t
-    st = Payoff::update(st, s, p);
-  } else if constexpr (kStateRead<Payoff> == StateRead::kBarrier) {
-    if (by_w) {
-      st = Payoff::update_below(st, w <= below_max, p);
-    } else {
-      s = base * expf(w);
-      st = Payoff::update(st, s, p);
-    }
-  }
-}
-
-// The spot terminal reads: S of the last step, formed here where the steps
-// did not form it (none formed it at 0 steps: S is base).
-template <class Payoff>
-__device__ __forceinline__ void qe_leg_end(float base, int n_steps, float w, float& s) {
-  if constexpr (kStateRead<Payoff> != StateRead::kSpot) {
-    if (n_steps > 0) s = base * expf(w);
   }
 }
 

@@ -18,7 +18,7 @@
 // - the exponential sampler's uniform, a whole threefry call, is drawn only
 //   where a leg takes that sampler (heston_qe.cuh): never under the demo
 //   dynamics, where psi <= 0.5625;
-// - the spot is formed only where the payoff reads it (heston_qe.cuh);
+// - the spot is formed only where the payoff reads it (barrier.cuh);
 // - the plain and antithetic paths are kernels apart (the replaced kernel's
 //   one loop held the twin's branch), the twin a second lockstep leg on
 //   the negated pair and 1 - u.
@@ -69,11 +69,11 @@ __device__ __forceinline__ float heston_qe_pay(const HestonParams& h, const QeCo
                     w, v);
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      qe_leg_state<Payoff>(h.pay, s0, below_max, by_w, w[l], s[l], st[l]);
+      leg_update<Payoff>(h.pay, s0, below_max, by_w, w[l], s[l], st[l]);
     }
   }
 #pragma unroll
-  for (int l = 0; l < L; ++l) qe_leg_end<Payoff>(s0, n_steps, w[l], s[l]);
+  for (int l = 0; l < L; ++l) leg_end_spot<Payoff>(s0, n_steps > 0, w[l], s[l]);
   const float p = Payoff::terminal(st[0], s[0], h.pay);
   if constexpr (A) return 0.5f * (p + Payoff::terminal(st[1], s[1], h.pay));
   return p;
@@ -87,7 +87,7 @@ heston_qe_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params, int
   const HestonParams h = load_heston(params);
   const QeConsts qc = qe_consts(h);
   bool by_w;
-  const float below_max = qe_below_max<Payoff>(h.pay, by_w);
+  const float below_max = block_below_max<Payoff>(h.pay, by_w);
   double acc[2] = {0.0, 0.0};
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kHestonThreads;
   for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * kHestonThreads + threadIdx.x;

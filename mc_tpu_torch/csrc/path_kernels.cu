@@ -1,4 +1,5 @@
-// Path-simulation kernels 1, 2 and 4 of the port, for sm_90a.
+// Path-simulation kernels 1 and 4 of the port, for sm_90a (kernel 2, the
+// simulate kernel, is in simulate.cuh).
 //
 // terminal_pair_kernel replaces mc_tpu/ops/path_kernels.py
 // terminal_pair_partials (the Pallas call at :1031): element e draws one
@@ -6,43 +7,26 @@
 // and 2e+1, each masked by pid < n_paths.  It takes the six terminal-only
 // payoffs.
 //
-// simulate_kernel replaces mc_tpu/ops/path_kernels.py simulate_partials (the
-// Pallas call at :450), for all 18 payoffs: the exact terminal draw or the
-// log-Euler step loop (w += drift_dt + vol_dt*z; S = base*exp(w)), one
-// threefry per two steps, the payoff templated in, the antithetic leg and
-// the control-variate moments fused into the same pass; the control is
-// Payoff::control (S_T unless the payoff has its own, mc_tpu :285).  Resume:
-// each path may start from its own s_init and payoff state at step
-// start_step, the state a (kStates, n_paths) block, word q of path i at
-// q*n_paths + i (an odd start first takes the tail half of its pair); null
-// pointers mean "from p.s0 and Payoff::init".  Importance sampling: is_shift
-// moves each draw (by is_shift on the terminal draw, by theta =
-// is_shift/sqrt(n_steps) per Euler step) and pay and x carry the likelihood
-// ratio; the antithetic leg negates the draw before the shift.  The leg and
-// its finish (simulate_path, path_payoff, add_moments) are the ladder's and
-// the book's too (batch_kernels.cu).
-//
 // trajectories_kernel replaces mc_tpu/ops/path_kernels.py
 // simulate_trajectories_kernel (the Pallas call at :543), for the payoffs
-// with at most one state word: the plain log-Euler loop of simulate_kernel
-// that also stores S and state word 0 after every step into step-major
-// (n_steps, n_paths) grids, entry j*n_paths + i, so a warp's stores of one
-// step are coalesced.  Its step is the euler_step and its draw schedule the
-// outer leg of nmc_fused_kernel, so its grids are bitwise the states that
-// kernel recomputes in registers.
+// with at most one state word: the plain log-Euler loop (euler_step, S at
+// every step) that also stores S and state word 0 after every step into
+// step-major (n_steps, n_paths) grids, entry j*n_paths + i, so a warp's
+// stores of one step are coalesced.  Its step is the euler_step and its
+// draw schedule the outer leg of nmc_fused_kernel, so its grids are bitwise
+// the states that kernel recomputes in registers; the simulate kernel's
+// leg (simulate.cuh) steps w in the same association, so their paths
+// agree.
 //
-// What bounds them on the H100: terminal_pair and simulate read 60 bytes of
-// parameters (and 4 bytes per path and state word on resume) and write one
-// row of moments per block, so bytes do not matter; trajectories writes 8
-// bytes per path-step (80 MB at 100,000 x 100, 24 us at 3.35 TB/s), less
-// than its RNG work takes.  The cost is the RNG's integer work (13 or 20
-// threefry rounds of add/rotate/xor per pair) and the transcendentals
-// (log1pf, sqrtf, cosf, sinf per pair, one expf per step, and the payoff's
-// own: logf per step for the bridge barriers, the variance swap and the
-// geometric control, one more expf for the bridge barriers).  The design
-// keeps all of it in registers: one thread per path (per element for the
-// pair kernel) over a grid-stride loop, both Box-Muller halves consumed, both
-// antithetic legs stepped from the same draw, and f64 moment sums per thread
+// What bounds them on the H100: terminal_pair reads 60 bytes of parameters
+// and writes one row of moments per block, so bytes do not matter;
+// trajectories writes 8 bytes per path-step (80 MB at 100,000 x 100, 24 us
+// at 3.35 TB/s), less than its RNG work takes.  The cost is the RNG's
+// integer work (13 or 20 threefry rounds of add/rotate/xor per pair) and
+// the transcendentals (log1pf, sqrtf, sincosf per pair, one expf per step,
+// and the payoff's own).  The design keeps all of it in registers: one
+// thread per path (per element for the pair kernel) over a grid-stride
+// loop, both Box-Muller halves consumed, and f64 moment sums per thread
 // reduced once per block (reduce.cuh).  Float contraction is off in the
 // build (--fmad=false), so each mul and add rounds as in the plain version.
 
@@ -80,59 +64,6 @@ terminal_pair_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
     acc[1] += static_cast<double>(pa * pa + pb * pb);
   }
   block_store_moments<2, kThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x), 2);
-}
-
-// Importance-sampling likelihood ratio dP/dQ of an Euler leg:
-// exp(-theta * sum_eps + n theta^2 / 2), sum_eps * vol_dt = w - n * drift_dt.
-__device__ __forceinline__ float euler_is_weight(const Params& p, float w, int n_steps,
-                                                 float theta) {
-  const float n = static_cast<float>(n_steps);
-  const float sum_eps = (w - n * p.drift_dt) / p.vol_dt;
-  return expf(-theta * sum_eps + 0.5f * n * theta * theta);
-}
-
-template <class Payoff, int ROUNDS>
-__global__ void __launch_bounds__(kThreads)
-simulate_kernel(int euler, int antithetic, int with_cv, uint32_t k0, uint32_t k1,
-                const float* __restrict__ params, int n_steps, int start_step,
-                float is_shift, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                const float* __restrict__ s_init, const float* __restrict__ state_init,
-                double* __restrict__ partials, int n_mom) {
-  const Params p = load_params(params);
-  const bool shifted = is_shift != 0.0f;
-  const float theta = is_shift / static_cast<float>(sqrt(static_cast<double>(n_steps)));
-  double acc[kMaxMoments] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
-  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_paths; i += stride) {
-    const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    const float base = s_init ? s_init[i] : p.s0;
-    typename Payoff::State st0 = Payoff::init(p);
-    if (state_init) {
-#pragma unroll
-      for (int q = 0; q < Payoff::kStates; ++q) {
-        st0.w[q] = state_init[static_cast<uint64_t>(q) * n_paths + i];
-      }
-    }
-    const PathEnd<Payoff> e = simulate_path<Payoff>(
-        p, euler, antithetic, base, st0, start_step, n_steps, euler ? theta : is_shift,
-        [&](int m, float& z0, float& z1) {
-          normal_pair<ROUNDS>(k0, k1, id, static_cast<uint32_t>(m), z0, z1);
-        });
-    // Under IS pay and x carry each leg's likelihood ratio dP/dQ: at the
-    // terminal draw exp(-shift*eps + shift^2/2); 1 when unshifted (exact).
-    auto weight = [&](float w_l) {
-      if (!shifted) return 1.0f;
-      return euler ? euler_is_weight(p, w_l, n_steps, theta)
-                   : expf(-is_shift * w_l + 0.5f * is_shift * is_shift);
-    };
-    float pay, x;  // x: the control variate X (pair mean if antithetic)
-    path_payoff<Payoff>(p, e, antithetic, weight(e.w), antithetic ? weight(e.wn) : 1.0f,
-                        pay, x);
-    add_moments(acc, pay, x, id < bound, with_cv);
-  }
-  block_store_moments<kMaxMoments, kThreads>(
-      acc, partials + static_cast<size_t>(n_mom) * blockIdx.x, n_mom);
 }
 
 template <class Payoff, int ROUNDS>
@@ -190,28 +121,6 @@ cudaError_t launch_terminal_pair(int rounds, uint32_t k0, uint32_t k1,
 }
 
 template <class Payoff>
-cudaError_t launch_simulate(int rounds, int euler, int antithetic, int with_cv,
-                            uint32_t k0, uint32_t k1, const float* params,
-                            int n_steps, int start_step, float is_shift,
-                            uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                            const float* s_init, const float* state_init,
-                            double* partials, int n_mom, int n_blocks,
-                            cudaStream_t stream) {
-  if (rounds == 13) {
-    simulate_kernel<Payoff, 13><<<n_blocks, kThreads, 0, stream>>>(
-        euler, antithetic, with_cv, k0, k1, params, n_steps, start_step, is_shift,
-        n_paths, path_offset, bound, s_init, state_init, partials, n_mom);
-  } else if (rounds == 20) {
-    simulate_kernel<Payoff, 20><<<n_blocks, kThreads, 0, stream>>>(
-        euler, antithetic, with_cv, k0, k1, params, n_steps, start_step, is_shift,
-        n_paths, path_offset, bound, s_init, state_init, partials, n_mom);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-template <class Payoff>
 cudaError_t launch_trajectories(int rounds, uint32_t k0, uint32_t k1,
                                 const float* params, int n_steps, uint32_t n_paths,
                                 uint32_t path_offset, uint32_t bound, float* s_grid,
@@ -255,27 +164,6 @@ int mc_terminal_pair(int payoff_id, int rounds, uint32_t k0, uint32_t k1,
       return cudaErrorInvalidValue;
   }
 #undef MC_CASE
-}
-
-int mc_simulate_partials(int payoff_id, int rounds, int euler, int antithetic,
-                         int with_cv, uint32_t k0, uint32_t k1, const float* params,
-                         int n_steps, int start_step, float is_shift, uint32_t n_paths,
-                         uint32_t path_offset, uint32_t bound, const float* s_init,
-                         const float* state_init, double* partials, int n_mom,
-                         int n_blocks, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MC_LAUNCH_SIMULATE(PAYOFF)                                                   \
-  mc::launch_simulate<PAYOFF>(rounds, euler, antithetic, with_cv, k0, k1, params,   \
-                              n_steps, start_step, is_shift, n_paths, path_offset, \
-                              bound, s_init, state_init, partials, n_mom, n_blocks, s)
-#define MC_CASE(ID, PAYOFF) \
-  case mc::ID: return MC_LAUNCH_SIMULATE(mc::PAYOFF);
-  switch (payoff_id) {
-    MC_ALL_PAYOFFS(MC_CASE)
-    default: return cudaErrorInvalidValue;
-  }
-#undef MC_CASE
-#undef MC_LAUNCH_SIMULATE
 }
 
 int mc_trajectories(int payoff_id, int rounds, uint32_t k0, uint32_t k1,

@@ -64,4 +64,26 @@ __device__ void block_store_moments(const double (&acc)[N], double* out, int n_s
   }
 }
 
+// block_store_moments for a block of exactly THREADS threads, storing all
+// N: the same tree, its levels unrolled (a loop bound the compiler knows).
+template <int N, int THREADS>
+__device__ void block_store_moments_unrolled(const double (&acc)[N], double* out) {
+  __shared__ double sh[N][THREADS];
+#pragma unroll
+  for (int m = 0; m < N; ++m) sh[m][threadIdx.x] = acc[m];
+  __syncthreads();
+#pragma unroll
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) sh[m][threadIdx.x] += sh[m][threadIdx.x + s];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) out[m] = sh[m][0];
+  }
+}
+
 }  // namespace mc

@@ -16,10 +16,12 @@ Two kernels live in ``csrc/heston_kernels.cu``:
 * ``heston_partials`` (replaces ``_heston_partials_pallas``,
   ``mc_tpu/models/heston.py:332``): the Euler or QE step loop, threefry-13
   or -20, the antithetic twin in the same thread, [sum pay, sum pay^2] per
-  block in f64.  The QE loop is a kernel of its own in
-  ``csrc/heston_qe_kernels.cu``: each lane computes only the sampler it
-  takes, the exponential sampler's uniform is drawn only where a lane takes
-  it, and the plain and antithetic paths are kernels apart.
+  block in f64.  Each loop forms S only where the payoff reads it (a
+  barrier as the log-price against a threshold found once a block), and
+  the plain and antithetic paths are kernels apart.  The QE loop is a
+  kernel of its own in ``csrc/heston_qe_kernels.cu``: each lane computes
+  only the sampler it takes, and the exponential sampler's uniform is
+  drawn only where a lane takes it.
 * ``heston_trajectories`` (replaces ``heston_trajectories_kernel``,
   ``mc_tpu/models/heston.py:527``): the Euler loop on threefry-13 that
   stores S, v (the raw full-truncation state) and payoff state word 0 after

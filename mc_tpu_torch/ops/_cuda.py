@@ -88,6 +88,9 @@ def family_extras(values) -> FamilyExtras:
 _SIGNATURES = {
     "mc_error_string": ([_c_int], ctypes.c_char_p),
     "mc_block_threads": ([], _c_int),
+    "mc_simulate_block_paths": ([], _c_int),
+    # payoff_id, euler, antithetic, with_cv, blocks
+    "mc_simulate_occupancy": ([_c_int, _c_int, _c_int, _c_int, _c_ptr], _c_int),
     "mc_nmc_block_threads": ([], _c_int),
     "mc_nmc_legs": ([], _c_int),
     # bad (2 u64, zeroed), stream
@@ -374,7 +377,8 @@ NVCC_SECONDS = {
     "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 30.5,
     "localvol10_kernels.cu": 30.1, "localvol_kernels.cu": 30.0,
     "basket_nmc_kernels.cu": 29.1, "basket16_kernels.cu": 28.5,
-    "bates_qe_kernels.cu": 28.0, "path_kernels.cu": 23.9,
+    "bates_qe_kernels.cu": 28.0, "path_kernels.cu": 9.1,
+    "simulate_kernels.cu": 29.7, "simulate20_kernels.cu": 30.2,
     "basket_kernels.cu": 23.6, "sabr_kernels.cu": 19.6,
     "sabr1_kernels.cu": 18.1, "merton_nmc_kernels.cu": 18.0,
     "heston_qe_kernels.cu": 18.9, "bates_nmc_kernels.cu": 17.6,
@@ -383,7 +387,7 @@ NVCC_SECONDS = {
     "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 14.3,
     "basket_nmc32_kernels.cu": 13.8, "vasicek_kernels.cu": 13.7,
     "term_nmc_kernels.cu": 13.3, "cev_nmc_kernels.cu": 11.0,
-    "bates_kernels.cu": 9.0, "heston_kernels.cu": 8.3,
+    "bates_kernels.cu": 9.0, "heston_kernels.cu": 13.6,
     "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 10.2,
     "qmc_bates_kernels.cu": 9.5, "qmc_basket_kernels.cu": 8.9,
     "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,

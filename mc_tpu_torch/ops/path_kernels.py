@@ -1,8 +1,10 @@
 """Path-simulation kernels: wrappers, plain versions, configuration
 (port of ``mc_tpu/ops/path_kernels.py``).
 
-Three kernels live in ``csrc/path_kernels.cu``, two in
-``csrc/batch_kernels.cu`` and one in ``csrc/greek_kernels.cu``:
+Two kernels live in ``csrc/path_kernels.cu``, one in ``csrc/simulate.cuh``
+(instantiated in ``csrc/simulate_kernels.cu`` and
+``csrc/simulate20_kernels.cu``), two in ``csrc/batch_kernels.cu`` and one in
+``csrc/greek_kernels.cu``:
 
 * ``terminal_pair_partials`` (replaces the Pallas kernel at
   ``mc_tpu/ops/path_kernels.py:1015``): one threefry + Box-Muller pair per
@@ -10,7 +12,9 @@ Three kernels live in ``csrc/path_kernels.cu``, two in
 * ``simulate_partials`` (replaces ``mc_tpu/ops/path_kernels.py:395``): the
   exact terminal draw or the log-Euler step loop, with the antithetic leg,
   the control-variate moments, importance sampling and resume from stored
-  per-path states fused in.
+  per-path states fused in; a kernel per mode (Euler or terminal,
+  antithetic or not, 2 or 5 moments), S formed only where the payoff reads
+  it.
 * ``simulate_trajectories`` (replaces ``mc_tpu/ops/path_kernels.py:524``):
   the log-Euler loop that stores the price and payoff state after every
   step, step-major ``(n_steps, n_paths)``, plus the payoff partials.
@@ -199,6 +203,12 @@ def _check_params(params: torch.Tensor) -> None:
 
 def _grid(lib, n: int) -> int:
     return min(_cuda.cdiv(n, lib.mc_block_threads()), _cuda.MAX_BLOCKS)
+
+
+def simulate_grid(lib, n: int) -> int:
+    """The simulate kernel's blocks: its paths a block
+    (``mc_simulate_block_paths``, whatever its threads a path), capped."""
+    return min(_cuda.cdiv(n, lib.mc_simulate_block_paths()), _cuda.MAX_BLOCKS)
 
 
 def _bound(path_offset: int, n_paths: int, n_valid) -> int:
@@ -657,7 +667,7 @@ def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key,
                                        n_valid, s_init, state_init)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = _grid(lib, cfg.n_paths)
+    n_blocks = simulate_grid(lib, cfg.n_paths)
     partials = torch.empty((n_blocks, cfg.n_moments), dtype=torch.float64,
                            device=params.device)
     # The state words as one (n_state, n_paths) block, word q of path i at
