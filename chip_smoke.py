@@ -230,6 +230,11 @@ import torch
 
 # Phase-2 (kernel vs plain) and phase-3 (main path) sizes.
 TP_PATHS = 1 << 20
+# phase 2: terminal_pair at ragged element counts (256, 257, 4,100, 50,001
+# and 2^23 + 1 elements, the last past the grid's 2^21 elements a round),
+# each an odd path count; phase 5: the call at TP_BIG paths too
+TP_EDGE_PATHS = (511, 513, 8_199, 100_001, (1 << 24) + 1)
+TP_BIG = 1 << 24
 TERM_PATHS = 1 << 18
 EULER_PATHS, EULER_STEPS = 1 << 16, 100
 NMC_SMALL = (2048, 16, 64)          # outer paths, steps, inner paths
@@ -738,6 +743,16 @@ def sim_key(po, cfg=None):
     return ("simulate_kernel", struct, (cfg.rng_rounds,
                                         int(cfg.method == "euler"),
                                         int(cfg.antithetic), cfg.n_moments))
+
+
+def tp_occupancy() -> int:
+    """Resident blocks per SM of terminal_pair_kernel (the call, threefry-13)."""
+    from mc_tpu_torch.ops import _cuda
+
+    blocks = ctypes.c_int(0)
+    _cuda.check(_cuda.load().mc_terminal_pair_occupancy(ctypes.byref(blocks)),
+                "mc_terminal_pair_occupancy")
+    return blocks.value
 
 
 def simulate_layout(po, cfg) -> str:
@@ -3977,6 +3992,10 @@ RATES_OVERHANG = 100_001       # a part-full last block
 # phase 2: (paths, path_offset, bound): ids past 2^20, the bound short of
 # the end
 RATES_OFFSET = (500_000, 1_234_567, 1_234_567 + 499_000)
+# phase 2: past the staging cap (csrc/rates_kernels.cu kRatesStagePayments,
+# checked against the library's): the tables read in place
+RATES_CAP = 512
+RATES_PAST_CAP = RATES_CAP + 1
 RATES_RTOL = 2e-16             # phase 2: bitwise, or one f64 rounding
 RATES_SE = 4.0                 # phase 3: tests/test_rates_fused.py:42,59,103
 RATES_SPREAD = 0.0025          # the multi-curve tiles' projection spread
@@ -3998,6 +4017,18 @@ def rates_demo(mt, tile: str, n_pay: int, payer: bool):
     return spec, kw
 
 
+@functools.lru_cache(maxsize=None)
+def rates_tables(mt, model: str, n_pay: int, payer: bool):
+    """The host tables of ``model`` ("hw" or "g2") on the demo curve, built
+    once for both of its tiles (their cost grows as n_pay^2)."""
+    from mc_tpu_torch.models import g2pp, hullwhite
+
+    spec = mt.SwaptionSpec(n_payments=n_pay, payer=payer)
+    if model == "hw":
+        return hullwhite.hw_tables(spec, mt.DEMO_HW, mt.DEMO_CURVE)
+    return g2pp.g2_tables(spec, mt.DEMO_G2, mt.DEMO_CURVE)
+
+
 def rates_pack(mt, dev, tile: str, n_pay: int, payer: bool):
     """(pv on dev, key) that price_<model>() hands #11 for ``tile``."""
     from mc_tpu_torch import rng
@@ -4012,7 +4043,7 @@ def rates_pack(mt, dev, tile: str, n_pay: int, payer: bool):
     elif tile.startswith("hw"):
         hw, curve = mt.DEMO_HW, mt.DEMO_CURVE
         pv = hullwhite.pack_hw_swpt(hw.a, hw.sigma_r, spec,
-                                    *hullwhite.hw_tables(spec, hw, curve),
+                                    *rates_tables(mt, "hw", n_pay, payer),
                                     dev)
         if proj is not None:
             pv = hullwhite.pack_multicurve(pv, *hullwhite.hw_mc_weights(
@@ -4020,7 +4051,8 @@ def rates_pack(mt, dev, tile: str, n_pay: int, payer: bool):
         tag = hullwhite.HW_TAG
     else:
         g2, curve = mt.DEMO_G2, mt.DEMO_CURVE
-        pv = g2pp.pack_g2_swpt(spec, g2, g2pp.g2_tables(spec, g2, curve), dev)
+        pv = g2pp.pack_g2_swpt(spec, g2, rates_tables(mt, "g2", n_pay, payer),
+                               dev)
         if proj is not None:
             pv = hullwhite.pack_multicurve(pv, *hullwhite.hw_mc_weights(
                 spec, curve, proj))
@@ -4032,11 +4064,14 @@ def rates_checks(mt, dev):
     """Phase 2 of the rates slice: #11 against its plain version on the card
     for all five tiles, payer and receiver, at n_payments 1, 10 and 60, on
     RATES_PATHS paths, RATES_OVERHANG paths and RATES_OFFSET (a nonzero
-    path_offset, the bound short of the end): the rows bitwise (the plain
-    version adds in the kernel's order), the sums within RATES_RTOL.  Each
-    check is deferred (its plain half runs now).  Returns ({row: max abs
-    error of a price}, {tile: the plain version's ms at RATES_PATHS, n = 10,
-    payer, host clock}), filled by the kernel pass."""
+    path_offset, the bound short of the end); and, payer, at RATES_PAST_CAP
+    payments on RATES_OVERHANG paths (the tables read in place; the
+    library's cap checked to be RATES_CAP) and at 10 on RATES_BIG paths (the
+    grid strides): the rows bitwise (the plain version adds in the kernel's
+    order), the sums within RATES_RTOL.  Each check is deferred (its plain
+    half runs now).  Returns ({row: max abs error of a price}, {tile: the
+    plain version's ms at RATES_PATHS, n = 10, payer, host clock}), filled
+    by the kernel pass."""
     from mc_tpu_torch.ops import fused
     from mc_tpu_torch.ops.reduce import finish_sum
 
@@ -4053,6 +4088,13 @@ def rates_checks(mt, dev):
         if (n_pay, payer, n_paths, offset) == (10, True, RATES_PATHS, 0):
             plain_ms[tile] = (time.perf_counter() - t0) * 1e3
         yield
+        if n_pay == RATES_PAST_CAP:
+            from mc_tpu_torch.ops import _cuda
+
+            cap = _cuda.load().mc_rates_stage_payments()
+            if cap != RATES_CAP:
+                fail(f"the rates kernel stages up to {cap} payments; "
+                     f"RATES_PAST_CAP assumes {RATES_CAP}")
         got = fused.fused_moment_partials(tile, n_pay, key, pv, n_paths,
                                           offset, bound)
         row = f"rates_partials_{tile}"
@@ -4070,6 +4112,8 @@ def rates_checks(mt, dev):
                 for shape in ((RATES_PATHS,), (RATES_OVERHANG,),
                               RATES_OFFSET):
                     defer(check(tile, n_pay, payer, *shape))
+        defer(check(tile, RATES_PAST_CAP, True, RATES_OVERHANG))
+        defer(check(tile, 10, True, RATES_BIG))
     return err, plain_ms
 
 
@@ -4228,6 +4272,20 @@ def rates_times(mt, dev, ptxas, tag, plain_ms, e2e):
         out[f"rates_partials_{tile}"] = (times[(RATES_PATHS, 10)],
                                          plain_ms[tile])
     print(f"phase 5: rates_partials registers {regs} {tag}")
+    from mc_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    occ = {}
+    for tile in RATES_TILES:
+        for n_pay in (10, RATES_PAST_CAP):
+            blocks = ctypes.c_int(0)
+            _cuda.check(lib.mc_rates_occupancy(
+                fused.TILES[tile].cuda_id, n_pay, ctypes.byref(blocks)),
+                "mc_rates_occupancy")
+            occ[f"{tile} n={n_pay}"] = blocks.value
+    print(f"phase 5: rates_partials {lib.mc_rates_paths_per_thread()} paths a "
+          f"thread, tables staged up to {lib.mc_rates_stage_payments()} "
+          f"payments; blocks/SM {occ} {tag}")
     e2e_report(tuple((f"{label} payer {RATES_PATHS} paths", "paths/s",
                       RATES_PATHS, fn) for label, fn in e2e.items()), tag)
     return out
@@ -4618,7 +4676,8 @@ def main() -> int:
                 {"nmc_fused": fused_ms, "nmc_inner": inner_ms})
 
     # At the sizes of the parity contract, then at the main path's shapes.
-    tp_err = max(terminal_pair_case(TP_PATHS), terminal_pair_case(MAIN_PATHS))
+    tp_err = max(terminal_pair_case(TP_PATHS), terminal_pair_case(MAIN_PATHS),
+                 *(terminal_pair_case(n) for n in TP_EDGE_PATHS))
     cases = [(call, pk.KernelConfig(n_paths=TERM_PATHS, n_steps=MAIN_STEPS,
                                     method="terminal", antithetic=True),
               vanilla_check)]
@@ -5413,6 +5472,17 @@ def main() -> int:
         lambda: pk.terminal_pair_partials_plain(call, cfg_tp, key, p100,
                                                 MAIN_PATHS),
         f"{MAIN_PATHS} paths")
+    cfg_big = pk.KernelConfig(n_paths=TP_BIG // 2, n_steps=MAIN_STEPS,
+                              method="terminal")
+    tp_big_ms, tp_big_sp, _ = cuda_ms(lambda: pk.terminal_pair_partials(
+        call, cfg_big, key, p100, TP_BIG), reps=3)
+    tp_big_bound = bound(0, _scale(_add(pair_ops(13), (0, 14, 2)),
+                                   TP_BIG // 2))[0]
+    print(f"phase 5: terminal_pair {TP_BIG} paths: kernel {tp_big_ms:.4f} ms "
+          f"(spread {tp_big_sp:.1%}, 3 reps), {TP_BIG / tp_big_ms * 1e3:.4e} "
+          f"paths/s, {tp_big_bound / tp_big_ms:.1%} of its bound "
+          f"({tp_big_bound:.4f} ms); {_cuda.load().mc_terminal_pair_elems_per_thread()}"
+          f" elements a thread, {tp_occupancy()} blocks/SM {tag}")
     cfg_b = pk.KernelConfig(n_paths=BULLET_PATHS, n_steps=MAIN_STEPS)
     sim_ms = time_pair(
         "simulate_partials bullet euler",

@@ -15,7 +15,8 @@ what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
 
     python3 family_nmc_probe.py [--qmc | --gbm | --basket | --partials |
-                                 --sabr] [--kernels NAME,...]
+                                 --sabr | --rates | --wrappers DIR]
+                                [--kernels NAME,...]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
 
@@ -171,6 +172,42 @@ bitwise against the first; ``--time`` runs price_sabr's kernel at 1M x 100
 on the call at beta 1 (the demo) and 0.5, antithetic and not, the bullet
 and the Asian at beta 1, and the beta = 1 call through the general-beta
 kernel, in turns over the variants, twice, each bitwise against the first.
+
+``--gbm --kernels terminal_pair`` builds ``path_kernels.cu`` for the
+terminal-pair kernel (#1 terminal_pair_kernel; an older commit's through a
+unit adding ``mc_terminal_pair_occupancy``), prints its resources and
+blocks per SM, runs each of the six terminal payoffs under threefry-13 and
+-20 over ragged element counts, odd path totals and degenerate options
+through every variant, each bitwise against the first, and (``--time``)
+times the call at 1M and 2^24 paths in turns, each call's time a batch's
+share.
+
+``--rates`` builds ``rates_kernels.cu`` (the rates kernel #11
+rates_partials_kernel; an older commit's through a unit adding
+``mc_rates_occupancy``), prints the ptxas resources of its instantiations,
+blocks per SM per tile at 10, 60 and 513 payments, paths a thread and
+staging cap (where exported) and (``--sass``) its loops; runs every tile,
+payer and receiver, over 1 to 100,001 paths at n = 1, 2, 3, 10, 60, the
+cap and one past it, offsets and bounds past 2^32, non-finite and
+overflowing packs and 2^24 paths, through every variant, each bitwise
+against the first; ``--time`` times each tile at 2^20 and 2^24 paths with
+10 payments and at 2^20 with 60 and with the cap, in turns, each call's
+time a batch's share.  The library stages the tables up to its cap and
+reads them in place past it; a variant whose copy of ``csrc`` sets
+``kRatesStagePayments`` to 0 times the in-place path at every n.
+
+``--wrappers DIR`` builds nothing of its own: it imports the
+``mc_tpu_torch`` of the checkout DIR (its library built, or loaded, under
+DIR's ``build/``) and times the calls that chip_smoke.py's phase 5 times at
+a shape the host owns: #1 through ``terminal_pair_partials`` on the 1M-path
+call and #11 through ``fused_moment_partials`` per tile at 2^20 paths and
+10 payments, each as a batch's share of the CUDA events (>= 5 ms a batch)
+and as the host clock's share of the same batch before its synchronize
+(the wrapper's own host time, the launches queued behind it); and end to
+end (host clock, each call ended by a synchronize) ``price()``'s 1M-path
+call and the six swaption rows, payer, at 2^20 paths.  Each row is the
+median of WRAP_REPS.  Run it once a process from each of two checkouts in
+turns (A B B A ...) to compare their host paths on one host.
 
 Everything printed also goes, as JSON, to ``--out`` (default
 ``build/family_probe.json``).  Needs a card; exits 2 without one.
@@ -355,12 +392,24 @@ def probe_sources(src: Path, mode: str, out: Path, kernels=None):
         return [src / "qmc_kernels.cu",
                 *(p for p in src.glob("qmc_*_kernels.cu"))]
     if mode == "gbm":
-        shim = out / "nmc_probe.cu"
-        text = GBM_SHIM
-        if "mc_book_occupancy" not in (src / "batch_kernels.cu").read_text():
-            text += BOOK_OCCUPANCY_SHIM
-        shim.write_text(text.format(src=src))
-        return [shim, *simulate_sources(src, out)]
+        parts = kernels or GBM_PARTS
+        srcs = []
+        if {"nmc", "book"} & set(parts):
+            shim = out / "nmc_probe.cu"
+            text = GBM_SHIM
+            if "mc_book_occupancy" not in (src / "batch_kernels.cu").read_text():
+                text += BOOK_OCCUPANCY_SHIM
+            shim.write_text(text.format(src=src))
+            srcs.append(shim)
+        if "simulate" in parts:
+            srcs += simulate_sources(src, out)
+        elif "terminal_pair" in parts:
+            srcs.append(src / "path_kernels.cu")
+        if "terminal_pair" in parts:
+            srcs = terminal_pair_sources(src, out, srcs)
+        return srcs
+    if mode == "rates":
+        return rates_sources(src, out)
     if mode == "sabr":
         return sabr_sources(src, out)
     if mode == "basket":
@@ -889,6 +938,8 @@ def qmc_main(args, variants, card) -> dict:
 
 GBM_PAYOFFS = (("bullet_call", "BulletCall"), ("vanilla_call", "VanillaCall"))
 GBM_KERNELS = ("nmc_fused_kernel", "nmc_inner_kernel")
+# --gbm's parts (--kernels): #3/#5, the book #7, simulate #2, terminal_pair #1
+GBM_PARTS = ("nmc", "book", "simulate", "terminal_pair")
 # The entry points before the leg groups were passed in (no n_groups after
 # n_inner): an older commit's csrc.
 _OLD_GBM_ABI = {
@@ -908,25 +959,35 @@ def bind_gbm(lib_path: Path):
     new_abi = hasattr(lib, "mc_nmc_legs")
     for name in ("mc_nmc_fused", "mc_nmc_inner", "mc_nmc_block_threads",
                  "mc_book_partials", *(("mc_nmc_legs",) if new_abi else ())):
+        if not hasattr(lib, name):  # --kernels without nmc and book
+            continue
         argtypes, restype = _cuda._SIGNATURES[name]
         fn = getattr(lib, name)
         fn.argtypes = argtypes if new_abi else _OLD_GBM_ABI.get(name, argtypes)
         fn.restype = restype
-    lib.probe_nmc_occupancy.argtypes = [_int, _int,
-                                        ctypes.POINTER(ctypes.c_int)]
-    lib.probe_nmc_occupancy.restype = _int
-    lib.mc_book_occupancy.argtypes = [_int, _int, _int, _int,
-                                      ctypes.POINTER(ctypes.c_int)]
-    lib.mc_book_occupancy.restype = _int
-    if hasattr(lib, "mc_nmc_libm_check"):
-        lib.mc_nmc_libm_check.argtypes, lib.mc_nmc_libm_check.restype = (
-            _cuda._SIGNATURES["mc_nmc_libm_check"])
-    lib.mc_simulate_partials.argtypes, lib.mc_simulate_partials.restype = (
-        _cuda._SIGNATURES["mc_simulate_partials"])
-    lib.mc_simulate_occupancy.argtypes = [_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int)]
-    lib.mc_simulate_occupancy.restype = _int
-    for name in ("mc_block_threads", "mc_simulate_block_paths"):
+    if hasattr(lib, "probe_nmc_occupancy"):
+        lib.probe_nmc_occupancy.argtypes = [_int, _int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.probe_nmc_occupancy.restype = _int
+        lib.mc_book_occupancy.argtypes = [_int, _int, _int, _int,
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.mc_book_occupancy.restype = _int
+    for name in ("mc_nmc_libm_check", "mc_simulate_partials",
+                 "mc_terminal_pair"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = (
+                _cuda._SIGNATURES[name])
+    if hasattr(lib, "mc_simulate_occupancy"):
+        lib.mc_simulate_occupancy.argtypes = [_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.mc_simulate_occupancy.restype = _int
+    if hasattr(lib, "mc_terminal_pair_occupancy"):
+        lib.mc_terminal_pair_occupancy.argtypes = [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.mc_terminal_pair_occupancy.restype = _int
+    for name in ("mc_block_threads", "mc_simulate_block_paths",
+                 "mc_terminal_pair_block_elems",
+                 "mc_terminal_pair_elems_per_thread"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = [], _int
     return lib, (lib.mc_nmc_legs() if new_abi else None)
@@ -1446,7 +1507,8 @@ def gbm_main(args, variants, card) -> dict:
     """The --gbm probe: resources, SASS and times of the GBM NMC kernels."""
     from mc_tpu_torch.ops.payoffs import get_payoff
 
-    libs = build(variants, "gbm")
+    parts = set(args.kernels or GBM_PARTS)
+    libs = build(variants, "gbm", tuple(parts))
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
     bound = {}
@@ -1454,6 +1516,8 @@ def gbm_main(args, variants, card) -> dict:
         lib_path, logs = libs[label]
         lib, legs = bind_gbm(lib_path)
         bound[label] = (lib, legs)
+        if not {"nmc", "book"} & parts:
+            continue
         res = {}
         for log in logs.values():
             res.update(ptxas_resources(log))
@@ -1520,7 +1584,8 @@ def gbm_main(args, variants, card) -> dict:
                                          kernels=rows, book=book_rows,
                                          ptxas=logs)
     edges, bad = {}, 0
-    for case, payoff, inputs in book_edge_cases(dev):
+    for case, payoff, inputs in (book_edge_cases(dev) if "book" in parts
+                                 else ()):
         ref = None
         for label in bound:
             part, _ = run_book(bound[label][0], inputs, payoff)
@@ -1531,10 +1596,14 @@ def gbm_main(args, variants, card) -> dict:
                 bad += 1
                 print(f"FAIL: {case} {label} disagrees with "
                       f"{next(iter(bound))}", flush=True)
-    print(f"probe book edges: {len(edges)} cases x {len(bound)} variants, "
-          f"{bad} disagree {card}", flush=True)
+    if "book" in parts:
+        print(f"probe book edges: {len(edges)} cases x {len(bound)} "
+              f"variants, {bad} disagree {card}", flush=True)
     report["book_edges"] = edges
-    report["simulate"] = simulate_probe(args, bound, libs, card)
+    if "simulate" in parts:
+        report["simulate"] = simulate_probe(args, bound, libs, card)
+    if "terminal_pair" in parts:
+        report["terminal_pair"] = terminal_pair_probe(args, bound, libs, card)
     checker = next((lib for lib, _ in bound.values()
                     if hasattr(lib, "mc_nmc_libm_check")), None)
     if checker is not None:
@@ -1543,7 +1612,7 @@ def gbm_main(args, variants, card) -> dict:
               f"{report['libm']} {card}", flush=True)
     if args.time:
         times = {}
-        for name, _ in GBM_PAYOFFS:
+        for name, _ in (GBM_PAYOFFS if "nmc" in parts else ()):
             warm = gbm_inputs(name, NMC_WARM, dev)
             main_in = gbm_inputs(name, NMC_MAIN, dev)
             ref = None
@@ -1564,8 +1633,8 @@ def gbm_main(args, variants, card) -> dict:
                       f"{card}", flush=True)
                 if not same:
                     print(f"FAIL: {name} {label} disagrees", flush=True)
-        book, ref = book_inputs(dev), None
-        for label in list(bound) + list(bound)[::-1]:
+        book, ref = (book_inputs(dev) if "book" in parts else None), None
+        for label in (list(bound) + list(bound)[::-1]) if book else ():
             part, ms = run_book(bound[label][0], book)
             ref = part if ref is None else ref
             same = bool(torch.equal(part, ref))
@@ -1576,6 +1645,195 @@ def gbm_main(args, variants, card) -> dict:
                   f"{same} {card}", flush=True)
             if not same:
                 print(f"FAIL: book {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
+# --- the terminal-pair kernel (#1, --gbm) ------------------------------------
+
+TP_PAYOFFS = ("vanilla_call", "vanilla_put", "digital_call", "digital_put",
+              "best_of_cash", "zcb")
+TP_EDGE_ELEMS = (1, 255, 256, 257, 4_099, 1 << 23)
+# chip_smoke.py's 1M-path call (500,000 elements) and 2^24 paths (the grid
+# strides 4 rounds at the 8,192-block cap)
+TP_TIMED = (1_000_000, 1 << 24)
+# A call at 1M paths lasts ~7 us, of the order of a launch: its batches
+# last >= 20 ms and the variants take 3 pairs of turns.
+TP_BATCH_MS, TP_TURNS = 20.0, 3
+# A path_kernels.cu that predates mc_terminal_pair_occupancy (256 elements
+# a block, one a thread): this adds it, for VanillaCall at threefry-13.
+TP_OCCUPANCY_SHIM = """
+extern "C" int mc_terminal_pair_occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::terminal_pair_kernel<mc::VanillaCall, 13>, mc_block_threads(), 0);
+}
+"""
+
+
+def terminal_pair_sources(src: Path, out: Path, srcs):
+    """``srcs`` with TP_OCCUPANCY_SHIM added where ``src``'s
+    ``path_kernels.cu`` does not export ``mc_terminal_pair_occupancy``: a
+    unit including it takes its place (or, where a SIMULATE_SHIM unit
+    includes it, that unit gets the addition)."""
+    path = src / "path_kernels.cu"
+    if "mc_terminal_pair_occupancy" in path.read_text():
+        return srcs
+    out_srcs = []
+    for s in srcs:
+        if s == path:
+            s = out / "path_probe.cu"
+            s.write_text(f'#include "{path}"\n' + TP_OCCUPANCY_SHIM)
+        elif s.name == "simulate_probe.cu":
+            s.write_text(s.read_text() + TP_OCCUPANCY_SHIM)
+        out_srcs.append(s)
+    return out_srcs
+
+
+def tp_block_elems(lib) -> int:
+    """Elements a block of terminal_pair_kernel (the parent's: its
+    threads)."""
+    fn = (getattr(lib, "mc_terminal_pair_block_elems", None)
+          or lib.mc_block_threads)
+    return fn()
+
+
+def tp_cases(timed: bool):
+    """terminal_pair_kernel's cases: (label, payoff, rounds, elements, paths,
+    option fields).  Timed: the call at TP_TIMED paths.  Else each of the
+    six terminal payoffs under threefry-13 and -20 at TP_EDGE_ELEMS
+    elements with an even and an odd path count; s0 +-0, -50, +inf, NaN;
+    sigma 0; a drift that overflows expf (r = 100); more paths than two
+    an element (the wrapper refuses them; the entry point masks them)."""
+    inf, nan = float("inf"), float("nan")
+    if timed:
+        return [(f"terminal_pair call {n} paths", "vanilla_call", 13,
+                 (n + 1) // 2, n, {}) for n in TP_TIMED]
+    out = []
+    for name in TP_PAYOFFS:
+        for rounds in (13, 20):
+            for e in TP_EDGE_ELEMS:
+                for total in (2 * e, 2 * e - 1):
+                    out.append((f"terminal_pair {name} r{rounds} {e} elements "
+                                f"{total} paths", name, rounds, e, total, {}))
+            for fix in (dict(s0=0.0), dict(s0=-0.0), dict(s0=-50.0),
+                        dict(s0=inf), dict(s0=nan), dict(sigma=0.0),
+                        dict(r=100.0)):
+                out.append((f"terminal_pair {name} r{rounds} {fix}", name,
+                            rounds, 4_099, 8_197, fix))
+            # a path count past two an element: the entry point's own mask
+            out.append((f"terminal_pair {name} r{rounds} 257 elements "
+                        f"1,514 paths", name, rounds, 257, 1_514, {}))
+    return out
+
+
+def run_terminal_pair(lib, payoff: str, rounds: int, n_elems: int,
+                      total: int, prm, batch: int = 1):
+    """(partials, ms) of ``batch`` back-to-back terminal_pair calls."""
+    from mc_tpu_torch import engines, rng
+
+    k0, k1 = (int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
+    n_blocks = min(-(-n_elems // tp_block_elems(lib)), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    args = (_payoff_id(payoff), rounds, k0, k1, prm.data_ptr(), n_elems,
+            total, part.data_ptr(), n_blocks,
+            torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_terminal_pair(*args), "terminal_pair")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def terminal_pair_probe(args, bound, libs, card) -> dict:
+    """--gbm's terminal_pair_kernel half: resources, blocks per SM and
+    (--sass) the loops of its VanillaCall threefry-13 instantiation, the
+    bitwise edges through every variant and (--time) the call at TP_TIMED
+    paths in TP_TURNS pairs of turns, each call's time a batch's share
+    (>= TP_BATCH_MS a batch)."""
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    dev = torch.device("cuda")
+    report = {"variants": {}}
+    want = re.compile(r"20terminal_pair_kernelINS_11VanillaCallELi13E")
+    for label, (lib, _) in bound.items():
+        lib_path, logs = libs[label]
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = sorted(e for e in res if want.search(e))
+        funcs = (sass_functions(lib_path, lambda f: f in entries)
+                 if args.sass else {})
+        rows = {}
+        for e in entries:
+            r = dict(res[e])
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                for lp in loops:
+                    lp["mufu"] = mufu_kinds(funcs[e], lp)
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+                write_listing(args.out, label, e, funcs[e])
+            rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        blocks = ctypes.c_int(0)
+        st = lib.mc_terminal_pair_occupancy(ctypes.byref(blocks))
+        layout = dict(blocks_per_sm=blocks.value if st == 0 else None,
+                      elements_a_block=tp_block_elems(lib))
+        if hasattr(lib, "mc_terminal_pair_elems_per_thread"):
+            layout["elements_a_thread"] = (
+                lib.mc_terminal_pair_elems_per_thread())
+        print(f"probe {label}: terminal_pair layout {layout} {card}",
+              flush=True)
+        report["variants"][label] = dict(kernels=rows, layout=layout)
+    edges, bad = {}, 0
+    for case, payoff, rounds, n_elems, total, fix in tp_cases(False):
+        prm = pk.pack_params(OptionParams(**fix), 100, dev)
+        ref = None
+        for label, (lib, _) in bound.items():
+            part, _ = run_terminal_pair(lib, payoff, rounds, n_elems, total,
+                                        prm)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(case, {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {case} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe terminal_pair edges: {len(edges)} cases x {len(bound)} "
+          f"variants, {bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        times = {}
+        order = (list(bound) + list(bound)[::-1]) * TP_TURNS
+        for case, payoff, rounds, n_elems, total, fix in tp_cases(True):
+            prm = pk.pack_params(OptionParams(**fix), 100, dev)
+            ref = None
+            for label in order:
+                lib = bound[label][0]
+                run_terminal_pair(lib, payoff, rounds, 4096, 8192, prm)
+                part, first = run_terminal_pair(lib, payoff, rounds, n_elems,
+                                                total, prm)
+                batch = max(1, int(np.ceil(TP_BATCH_MS / max(first, 1e-3))))
+                _, ms = run_terminal_pair(lib, payoff, rounds, n_elems, total,
+                                          prm, batch=batch)
+                ref = part if ref is None else ref
+                same = same_bits(part, ref)
+                times.setdefault(case, {}).setdefault(label, []).append(
+                    dict(ms=ms, single_ms=first, batch=batch, bitwise=same))
+                print(f"probe time {case} {label}: {ms:.5f} ms a call in a "
+                      f"batch of {batch} (one call alone {first:.5f}), "
+                      f"partials bitwise vs {order[0]}: {same} {card}",
+                      flush=True)
+                if not same:
+                    print(f"FAIL: {case} {label} disagrees", flush=True)
         report["times"] = times
     return report
 
@@ -2519,7 +2777,7 @@ def partials_main(args, variants, card) -> dict:
     """The --partials probe: resources, SASS, the bitwise edges and the
     times of the local-vol (#19), Merton (#14), CEV (#18) and dividend
     (#22) partials kernels (``--kernels``: a subset)."""
-    kernels = tuple(k for k in args.kernels.split(",") if k)
+    kernels = args.kernels or PARTIALS_KERNELS
     libs = build(variants, "partials", kernels)
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
@@ -2881,6 +3139,447 @@ def sabr_main(args, variants, card) -> dict:
 
 
 
+# --- the rates kernel (#11, --rates) -----------------------------------------
+
+RATES_TILES = ("va", "hw", "hw_mc", "g2", "g2_mc")
+RATES_STRUCTS = {"va": "VaSwpt", "hw": "HwSwpt", "hw_mc": "HwSwptMc",
+                 "g2": "G2Swpt", "g2_mc": "G2SwptMc"}
+RATES_MAIN = 1 << 20           # mc_tpu's default n_paths for every price_*
+RATES_BIG = 1 << 24            # chip_smoke.py's RATES_BIG
+RATES_TIMED = ((RATES_MAIN, 10), (RATES_BIG, 10), (RATES_MAIN, 60))
+RATES_EDGE_PATHS = (1, 255, 256, 257, 100_001)
+RATES_EDGE_N = (1, 2, 3, 10, 60)
+# chip_smoke.py's RATES_OFFSET (paths, path_offset, bound), ids that wrap
+# past 2^32, and a bound past the last path (a lane past the end adds zeros)
+RATES_OFFSETS = ((500_000, 1_234_567, 1_234_567 + 499_000),
+                 (5_000, (1 << 32) - 1_000, (1 << 32) - 1),
+                 (5_003, 7, 0xFFFFFFFF))
+# The staging cap's stand-in where no variant exports one (an older csrc).
+RATES_CAP_DEFAULT = 512
+# A csrc that predates mc_rates_occupancy (one path a thread, the pack read
+# in place): this unit adds it (n_pay ignored).
+RATES_SHIM = """#include "{src}/rates_kernels.cu"
+
+template <class T>
+static int probe_rates_occupancy(int* blocks) {{
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::rates_partials_kernel<T>,
+                                                       mc::kRatesThreads, 0);
+}}
+
+extern "C" int mc_rates_occupancy(int tile, int n_pay, int* blocks) {{
+  (void)n_pay;
+  switch (tile) {{
+    case 0: return probe_rates_occupancy<mc::VaSwpt>(blocks);
+    case 1: return probe_rates_occupancy<mc::HwSwpt>(blocks);
+    case 2: return probe_rates_occupancy<mc::HwSwptMc>(blocks);
+    case 3: return probe_rates_occupancy<mc::G2Swpt>(blocks);
+    case 4: return probe_rates_occupancy<mc::G2SwptMc>(blocks);
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+def rates_sources(src: Path, out: Path):
+    """``rates_kernels.cu`` of ``src``, through RATES_SHIM where it does not
+    export ``mc_rates_occupancy``."""
+    main = src / "rates_kernels.cu"
+    if "mc_rates_occupancy" in main.read_text():
+        return [main]
+    unit = out / "rates_probe.cu"
+    unit.write_text(RATES_SHIM.format(src=src))
+    return [unit]
+
+
+def bind_rates(lib_path: Path):
+    """(library, new ABI): the rates entry points, and whether the library
+    exports its paths a thread and staging cap (``mc_rates_paths_per_thread``;
+    an older csrc does not).  The library picks the staged or in-place path
+    by n itself."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    new_abi = hasattr(lib, "mc_rates_paths_per_thread")
+    for name in ("mc_rates_partials", "mc_rates_occupancy"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = (
+            _cuda._SIGNATURES[name])
+    for name in ("mc_rates_paths_per_thread", "mc_rates_stage_payments"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [], _int
+    return lib, new_abi
+
+
+def rates_cap(bound) -> int:
+    """The largest staging cap a variant exports (a variant with the cap
+    set to 0, the tables in place at every n, among them)."""
+    caps = [lib.mc_rates_stage_payments() for lib, new_abi in bound.values()
+            if new_abi]
+    return max(caps, default=RATES_CAP_DEFAULT)
+
+
+def rates_real_pack(tile: str, n_pay: int, payer: bool, dev):
+    """(pv, key) price_<model>() hands #11 on the demo specs (the multi-curve
+    tiles at a 25 bp projection spread): chip_smoke.py's rates_pack."""
+    import mc_tpu_torch as mt
+    from mc_tpu_torch import rng
+    from mc_tpu_torch.models import g2pp, hullwhite, swaption
+
+    spec = mt.SwaptionSpec(n_payments=n_pay, payer=payer)
+    proj = (mt.DiscountCurve(mt.DEMO_CURVE.times, mt.DEMO_CURVE.zeros + 0.0025)
+            if tile.endswith("_mc") else None)
+    if tile == "va":
+        d = mt.DEMO_VASICEK.as_f32()
+        pv = swaption.pack_va_swpt(spec, d.a, d.b, d.sigma_r, 0.05, dev)
+        tag = swaption.SWAPTION_TAG
+    elif tile.startswith("hw"):
+        pv = hullwhite.pack_hw_swpt(
+            mt.DEMO_HW.a, mt.DEMO_HW.sigma_r, spec,
+            *hullwhite.hw_tables(spec, mt.DEMO_HW, mt.DEMO_CURVE), dev)
+        tag = hullwhite.HW_TAG
+    else:
+        pv = g2pp.pack_g2_swpt(spec, mt.DEMO_G2, g2pp.g2_tables(
+            spec, mt.DEMO_G2, mt.DEMO_CURVE), dev)
+        tag = g2pp.G2_TAG
+    if proj is not None:
+        pv = hullwhite.pack_multicurve(pv, *hullwhite.hw_mc_weights(
+            spec, mt.DEMO_CURVE, proj))
+    return pv.contiguous(), tuple(int(k) for k in rng.derive_key(1234, 0, tag))
+
+
+def rates_synthetic_pack(tile: str, n: int, seed: int, payer: bool,
+                         special=None):
+    """A pack of ``tile`` at ``n`` payments from default_rng(seed), each
+    field in a plausible range (numpy f32; the layout of csrc/rates.cuh).
+    ``special``: "inf" (an entry of a middle payment +inf), "nan" (an entry
+    of the last payment NaN) or "overflow" (a middle bond's expf to +inf)."""
+    g = np.random.default_rng(seed)
+    u = g.uniform
+    sign = 1.0 if payer else -1.0
+    if tile == "va":
+        head = [u(-0.05, 0.05), u(0.5, 1.0), u(0.0, 5.0), u(0.005, 0.02),
+                u(0.0, 0.05), u(0.0, 0.02), u(0.0, 0.2), u(0.0, 0.05), sign,
+                u(0.0, 0.08)]
+        tables = [u(-2.0, 0.0, n), u(0.0, 20.0, n)]
+    elif tile.startswith("hw"):
+        head = [u(0.005, 0.02), u(0.0, 0.05), u(0.0, 0.02), u(0.5, 1.0),
+                u(0.0, 0.01), u(0.0, 0.05), sign]
+        tables = [u(0.3, 1.0, n), u(0.0, 20.0, n), u(0.0, 0.05, n)]
+    else:
+        head = [u(0.005, 0.02), u(0.0, 0.02), u(0.005, 0.02), u(0.0, 0.02),
+                u(0.0, 0.02), u(0.005, 0.02), u(0.5, 1.0), u(0.0, 0.01),
+                u(0.0, 0.05), sign]
+        tables = [u(0.3, 1.0, n), u(-0.01, 0.01, n), u(0.0, 20.0, n),
+                  u(0.0, 20.0, n)]
+    if special == "inf":
+        tables[1][n // 2] = np.inf
+    elif special == "nan":
+        tables[0][n - 1] = np.nan
+    elif special == "overflow":  # the bond's exponent past log(FLT_MAX)
+        if tile == "va":
+            tables[0][n // 2] = 200.0
+        elif tile.startswith("hw"):
+            tables[2][n // 2] = -200.0
+        else:
+            tables[1][n // 2] = 200.0
+    parts = [np.asarray(head), *tables]
+    if tile.endswith("_mc"):
+        parts += [np.asarray([u(-1.0, 1.0)]), u(-0.2, 0.2, n)]
+    return np.concatenate(parts).astype(np.float32)
+
+
+def rates_cases(timed: bool, cap: int):
+    """The --rates cases: (label, tile, arguments).  Timed: each tile at
+    RATES_TIMED on the demo packs, payer, and at 2^20 paths with ``cap``
+    payments on a synthetic pack (a variant whose cap is 0 times the
+    tables read in place at every n).  Else every tile,
+    payer and receiver, at n = 1, 2, 3, 10, 60, the cap and one past it on
+    synthetic packs over 1, 255, 256, 257 and 100,001 paths; the demo packs
+    at n = 10 and 60; RATES_OFFSETS; a pack with a +inf entry, one with a NaN
+    entry and one whose bond overflows expf, at n = 10 and past the cap;
+    and 2^24 paths at n = 10."""
+    out = []
+    if timed:
+        for tile in RATES_TILES:
+            for n_paths, n_pay in RATES_TIMED:
+                out.append((f"rates {tile} {n_paths} paths n={n_pay}", tile,
+                            dict(n_paths=n_paths, n=n_pay, real=True)))
+            out.append((f"rates {tile} {RATES_MAIN} paths n={cap}", tile,
+                        dict(n_paths=RATES_MAIN, n=cap, seed=7)))
+        return out
+    seed = 0
+    for tile in RATES_TILES:
+        for payer in (True, False):
+            for n in (*RATES_EDGE_N, cap, cap + 1):
+                for n_paths in RATES_EDGE_PATHS:
+                    seed += 1
+                    out.append((f"rates {tile} payer={payer} n={n} "
+                                f"{n_paths} paths", tile,
+                                dict(n_paths=n_paths, n=n, seed=seed,
+                                     payer=payer)))
+            for n in (10, 60):
+                out.append((f"rates {tile} payer={payer} n={n} demo", tile,
+                            dict(n_paths=100_001, n=n, real=True,
+                                 payer=payer)))
+            for n_paths, offset, bnd in RATES_OFFSETS:
+                out.append((f"rates {tile} payer={payer} offset {offset} "
+                            f"bound {bnd}", tile,
+                            dict(n_paths=n_paths, n=10, real=True,
+                                 payer=payer, offset=offset, bound=bnd)))
+        for special in ("inf", "nan", "overflow"):
+            for n in (10, cap + 1):
+                seed += 1
+                out.append((f"rates {tile} {special} n={n}", tile,
+                            dict(n_paths=4099, n=n, seed=seed,
+                                 special=special)))
+        out.append((f"rates {tile} {RATES_BIG} paths n=10", tile,
+                    dict(n_paths=RATES_BIG, n=10, real=True)))
+    return out
+
+
+def rates_inputs(tile: str, a: dict, dev):
+    """(pv, key) of a --rates case."""
+    if a.get("real"):
+        return rates_real_pack(tile, a["n"], a.get("payer", True), dev)
+    pv = rates_synthetic_pack(tile, a["n"], a["seed"], a.get("payer", True),
+                              a.get("special"))
+    return torch.from_numpy(pv).to(dev), (0x1234ABCD, 0x5A97 + a["seed"])
+
+
+def run_rates(lib, tile: str, a: dict, inputs, n_paths=None,
+              batch: int = 1):
+    """(partials, ms) of ``batch`` back-to-back rates calls through ``lib``
+    (ms: a call's share of the events' span)."""
+    from mc_tpu_torch.ops import fused
+
+    pv, (k0, k1) = inputs
+    n = n_paths or a["n_paths"]
+    offset = a.get("offset", 0)
+    bnd = a.get("bound", (offset + n) & 0xFFFFFFFF)
+    n_blocks = min(-(-n // 256), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=pv.device)
+    args = (fused.TILES[tile].cuda_id, a["n"], k0, k1, pv.data_ptr(), n, offset, bnd, part.data_ptr(),
+            n_blocks, torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_rates_partials(*args), f"rates_partials {tile}")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def rates_main(args, variants, card) -> dict:
+    """The --rates probe: resources, blocks per SM, SASS, the bitwise edges
+    and the times of the rates kernel (#11)."""
+    libs = build(variants, "rates")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"21rates_partials_kernelINS_\d+(VaSwpt|HwSwpt|HwSwptMc|"
+                      r"G2Swpt|G2SwptMc)E")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, new_abi = bind_rates(lib_path)
+        bound[label] = (lib, new_abi)
+        res = {}
+        for log in logs.values():
+            res.update(ptxas_resources(log))
+        entries = sorted(e for e in res if want.search(e))
+        funcs = (sass_functions(lib_path, lambda f: f in entries)
+                 if args.sass else {})
+        rows = {}
+        for e in entries:
+            r = dict(res[e])
+            if args.sass and e in funcs:
+                n_ins, loops = sass_loops(lib_path, e, funcs[e])
+                for lp in loops:
+                    lp["mufu"] = mufu_kinds(funcs[e], lp)
+                r["sass"] = dict(instructions=n_ins, loops=loops,
+                                 total=sass_classes(funcs[e]))
+                write_listing(args.out, label, e, funcs[e])
+            rows[e] = r
+            print(f"probe {label}: {e}: "
+                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+                  flush=True)
+            if "sass" in r:
+                print(f"  total {r['sass']['total']}")
+                for lp in r["sass"]["loops"]:
+                    print(f"  loop {lp}")
+        layout = {}
+        for tile in RATES_TILES:
+            for n_pay in (10, 60, RATES_CAP_DEFAULT + 1):
+                blocks = ctypes.c_int(0)
+                st = lib.mc_rates_occupancy(RATES_TILES.index(tile), n_pay,
+                                            ctypes.byref(blocks))
+                layout[f"{tile} n={n_pay}"] = (blocks.value if st == 0
+                                               else None)
+        if new_abi:
+            layout.update(paths_a_thread=lib.mc_rates_paths_per_thread(),
+                          stage_payments=lib.mc_rates_stage_payments())
+        print(f"probe {label}: rates layout (blocks/SM) {layout} {card}",
+              flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout,
+                                         ptxas=logs)
+    cap = rates_cap(bound)
+    order = list(bound) + list(bound)[::-1]
+    edges, bad = {}, 0
+    for case, tile, a in rates_cases(False, cap):
+        inputs = rates_inputs(tile, a, dev)
+        ref = None
+        for label in bound:
+            part, _ = run_rates(bound[label][0], tile, a, inputs)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(case, {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {case} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe rates edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        times, refs = {}, {}
+        for case, tile, a in rates_cases(True, cap):
+            inputs = rates_inputs(tile, a, dev)
+            for label in order:
+                lib = bound[label][0]
+                run_rates(lib, tile, a, inputs, 4096)
+                part, first = run_rates(lib, tile, a, inputs)
+                batch = max(1, int(np.ceil(5.0 / max(first, 1e-3))))
+                _, ms = run_rates(lib, tile, a, inputs, batch=batch)
+                same = same_bits(part, refs.setdefault(
+                    (tile, a["n_paths"], a["n"]), part))
+                times.setdefault(case, {}).setdefault(label, []).append(
+                    dict(ms=ms, single_ms=first, batch=batch, bitwise=same))
+                print(f"probe time {case} {label}: {ms:.5f} ms a call in a "
+                      f"batch of {batch} (one call alone {first:.5f}), "
+                      f"partials bitwise vs the first: {same} {card}",
+                      flush=True)
+                if not same:
+                    print(f"FAIL: {case} {label} disagrees", flush=True)
+        report["times"] = times
+    return report
+
+
+# --- host-owned rows (--wrappers) --------------------------------------------
+
+WRAP_REPS = 21
+WRAP_BATCH_MS = 5.0
+
+
+def wrappers_main(args, card) -> dict:
+    """The --wrappers probe: the host-owned rows of the package at DIR."""
+    import statistics
+
+    import mc_tpu_torch as mt
+    from mc_tpu_torch.ops import _cuda, fused
+    from mc_tpu_torch.ops import path_kernels as pk
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    root = Path(args.wrappers).resolve()
+    if root not in Path(mt.__file__).resolve().parents:
+        raise SystemExit(f"mc_tpu_torch came from {mt.__file__}, not {root}")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _cuda.load()
+    load_s = time.perf_counter() - t0
+
+    def batch_ms(fn):
+        """(device ms, host ms) a call: CUDA events and the host clock over
+        a batch of back-to-back calls, the host's read before the batch's
+        synchronize; medians of WRAP_REPS batches."""
+        fn()
+        torch.cuda.synchronize()
+        start = _event()
+        fn()
+        end = _event()
+        torch.cuda.synchronize()
+        n = max(1, int(np.ceil(WRAP_BATCH_MS / max(start.elapsed_time(end),
+                                                   1e-3))))
+        dev_ms, host_ms = [], []
+        for _ in range(WRAP_REPS):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            start = _event()
+            for _ in range(n):
+                fn()
+            end = _event()
+            h1 = time.perf_counter()
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end) / n)
+            host_ms.append((h1 - h0) * 1e3 / n)
+        return statistics.median(dev_ms), statistics.median(host_ms), n
+
+    def e2e_ms(fn):
+        fn()
+        secs = []
+        for _ in range(WRAP_REPS):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - h0)
+        return statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3
+
+    rows = {}
+    n_tp = 1_000_000
+    call = get_payoff("vanilla_call")
+    cfg = pk.KernelConfig(n_paths=n_tp // 2, n_steps=100, method="terminal")
+    params = pk.pack_params(mt.DEMO_OPTION, 100, dev)
+    key = (0x1234ABCD, 0x5A97)
+    rows[f"terminal_pair {n_tp} paths"] = batch_ms(
+        lambda: pk.terminal_pair_partials(call, cfg, key, params, n_tp))
+    for tile in RATES_TILES:
+        pv, k = rates_real_pack(tile, 10, True, dev)
+        rows[f"rates_partials {tile} {RATES_MAIN} paths n=10"] = batch_ms(
+            lambda pv=pv, k=k, tile=tile: fused.fused_moment_partials(
+                tile, 10, k, pv, RATES_MAIN))
+    for label, (d_ms, h_ms, n) in rows.items():
+        print(f"probe wrappers {root.name}: {label}: device {d_ms:.5f} ms, "
+              f"host {h_ms:.5f} ms a call (batches of {n}, median of "
+              f"{WRAP_REPS}) {card}", flush=True)
+    sim = mt.SimParams(n_paths=n_tp, n_steps=100)
+    rsim = mt.SimParams(n_paths=RATES_MAIN, n_steps=1)
+    curve, spec = mt.DEMO_CURVE, mt.SwaptionSpec(payer=True)
+    proj = mt.DiscountCurve(curve.times, [z + 25 * 1e-4 for z in curve.zeros])
+    tenor, mats = mt.DEMO_SWAPTION.tenor, [0.5, 1.0, 2.0, 3.0, 5.0, 10.0]
+
+    def par_rate(t_m):  # chip_smoke.py's par-swap curve
+        dfs = [curve.df(tenor * j) for j in range(1, round(t_m / tenor) + 1)]
+        return (1.0 - dfs[-1]) / (tenor * sum(dfs))
+
+    boot = mt.DiscountCurve.from_par_swaps(mats, [par_rate(m) for m in mats],
+                                           tenor=tenor)
+    hw, g2 = mt.DEMO_HW, mt.DEMO_G2
+    e2e = {
+        "price() call 1M paths default":
+            lambda: mt.price(mt.DEMO_OPTION, sim, device="cuda"),
+        "price_swaption() Vasicek": lambda: mt.price_swaption(
+            spec, mt.DEMO_VASICEK, rsim, device="cuda"),
+        "price_hw_swaption() demo curve": lambda: mt.price_hw_swaption(
+            spec, hw, curve, rsim, device="cuda"),
+        "price_hw_swaption() par-swap curve": lambda: mt.price_hw_swaption(
+            spec, hw, boot, rsim, device="cuda"),
+        "price_hw_swaption() multi-curve +25bp": lambda: mt.price_hw_swaption(
+            spec, hw, curve, rsim, projection_curve=proj, device="cuda"),
+        "price_g2_swaption() demo curve": lambda: mt.price_g2_swaption(
+            spec, g2, curve, rsim, device="cuda"),
+        "price_g2_swaption() multi-curve +25bp": lambda: mt.price_g2_swaption(
+            spec, g2, curve, rsim, projection_curve=proj, device="cuda"),
+    }
+    out = {"root": str(root), "load_s": load_s, "reps": WRAP_REPS,
+           "card": card, "wrappers": {
+               k: dict(device_ms=d, host_ms=h, batch=n)
+               for k, (d, h, n) in rows.items()}, "e2e": {}}
+    for label, fn in e2e.items():
+        med, lo, hi = e2e_ms(fn)
+        out["e2e"][label] = dict(ms=med, min_ms=lo, max_ms=hi)
+        print(f"probe wrappers {root.name}: e2e {label}: median {med:.4f} ms "
+              f"(min {lo:.4f}, max {hi:.4f}, {WRAP_REPS} calls) {card}",
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -2889,10 +3588,14 @@ def main() -> int:
     mode.add_argument("--basket", action="store_true")
     mode.add_argument("--partials", action="store_true")
     mode.add_argument("--sabr", action="store_true")
+    mode.add_argument("--rates", action="store_true")
+    mode.add_argument("--wrappers", metavar="DIR", default=None)
     ap.add_argument("--variant", action="append", default=[])
-    ap.add_argument("--kernels", default=",".join(PARTIALS_KERNELS),
+    ap.add_argument("--kernels", default=None,
                     help="--partials: a comma list of localvol, merton, cev, "
-                         "divs, heston_qe, bates_qe, heston_euler")
+                         "divs, heston_qe, bates_qe, heston_euler (all by "
+                         "default); --gbm: of nmc, book, simulate, "
+                         "terminal_pair (all by default)")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--out", default="build/family_probe.json")
@@ -2900,6 +3603,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("family_nmc_probe: no CUDA device", file=sys.stderr)
         return 2
+    if args.wrappers:  # the checkout's package before this one's
+        sys.path.insert(0, str(Path(args.wrappers).resolve()))
     from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops.payoffs import get_payoff
@@ -2907,6 +3612,8 @@ def main() -> int:
 
     card = nvidia_smi_name_power()
     print(card, flush=True)
+    if args.wrappers:
+        return write_report(args.out, wrappers_main(args, card))
     own = _cuda.CSRC.resolve()
     variants = []
     for spec in args.variant or [f"tree={own}"]:
@@ -2914,6 +3621,8 @@ def main() -> int:
         src, _, defs = rest.partition(":")
         variants.append((label, Path(src).resolve(),
                          [d for d in defs.split(",") if d]))
+    if args.kernels is not None:
+        args.kernels = tuple(k for k in args.kernels.split(",") if k)
     if args.qmc:
         return write_report(args.out, qmc_main(args, variants, card))
     if args.gbm:
@@ -2924,6 +3633,8 @@ def main() -> int:
         return write_report(args.out, partials_main(args, variants, card))
     if args.sabr:
         return write_report(args.out, sabr_main(args, variants, card))
+    if args.rates:
+        return write_report(args.out, rates_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")

@@ -86,4 +86,47 @@ __device__ void block_store_moments_unrolled(const double (&acc)[N], double* out
   }
 }
 
+// block_store_moments for a block of exactly THREADS threads (a power of
+// two, at least a warp), storing all N: the same tree and the same adds,
+// its levels above 32 in shared memory, then warp 0 takes the level of 32
+// (thread t's sum and t + 32's, read from shared memory) and the last five
+// by __shfl_down_sync, thread t with t + s for s = 16 .. 1, as the tree
+// pairs them: the row keeps its bits, with two barriers fewer (none in a
+// block of one warp).  Every thread of the block must call it.
+template <int N, int THREADS>
+__device__ void block_store_moments_warp(const double (&acc)[N], double* out) {
+  static_assert(THREADS >= 32 && (THREADS & (THREADS - 1)) == 0,
+                "a power of two of at least a warp");
+  double v[N];
+  if constexpr (THREADS == 32) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) v[m] = acc[m];
+  } else {
+    __shared__ double sh[N][THREADS];
+#pragma unroll
+    for (int m = 0; m < N; ++m) sh[m][threadIdx.x] = acc[m];
+    __syncthreads();
+#pragma unroll
+    for (int s = THREADS / 2; s > 32; s >>= 1) {
+      if (threadIdx.x < s) {
+#pragma unroll
+        for (int m = 0; m < N; ++m) sh[m][threadIdx.x] += sh[m][threadIdx.x + s];
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x >= 32) return;
+#pragma unroll
+    for (int m = 0; m < N; ++m) v[m] = sh[m][threadIdx.x] + sh[m][threadIdx.x + 32];
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) v[m] += __shfl_down_sync(0xffffffffu, v[m], s);
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) out[m] = v[m];
+  }
+}
+
 }  // namespace mc

@@ -145,7 +145,14 @@ _SIGNATURES = {
     "mc_qmc_bridge_shifts": ([], _c_int),
     "mc_qmc_bridge_slots": ([], _c_int),
     "mc_qmc_model_block_threads": ([], _c_int),
-    "mc_rates_block_threads": ([], _c_int),
+    "mc_rates_block_paths": ([], _c_int),
+    "mc_rates_paths_per_thread": ([], _c_int),
+    "mc_rates_stage_payments": ([], _c_int),
+    # tile, n_pay, blocks
+    "mc_rates_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
+    "mc_terminal_pair_block_elems": ([], _c_int),
+    "mc_terminal_pair_elems_per_thread": ([], _c_int),
+    "mc_terminal_pair_occupancy": ([_c_ptr], _c_int),
     # payoff_id, rounds, k0, k1, params, n_elems, n_paths_total, partials,
     # n_blocks, stream
     "mc_terminal_pair": ([_c_int, _c_int, _c_u32, _c_u32, _c_ptr, _c_u32,
@@ -396,7 +403,7 @@ NVCC_SECONDS = {
     "qmc_term_kernels.cu": 6.7, "divs_kernels.cu": 20.3,
     "term_kernels.cu": 6.5, "qmc_heston_kernels.cu": 6.4,
     "cev_kernels.cu": 11.0, "qmc_basket32_kernels.cu": 6.1,
-    "rates_kernels.cu": 4.9, "rainbow_kernels.cu": 3.8,
+    "rates_kernels.cu": 5.5, "rainbow_kernels.cu": 3.8,
     "fx_kernels.cu": 3.2, "reduce_kernels.cu": 3.0}
 
 

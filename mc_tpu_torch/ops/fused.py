@@ -22,16 +22,21 @@ and returns the discounted positive part; ``mc_tpu`` prices the multi-curve
 swaptions only on its classic XLA route, whose per-path arithmetic the two
 ``_mc`` tiles follow.
 
-The kernel (``csrc/rates_kernels.cu`` ``rates_partials_kernel<Tile>``)
-runs one path per thread over a grid-stride loop and writes one f64 row of
-[sum pay, sum pay^2] per block (``csrc/reduce.cuh``).  The plain version
-computes the same f32 payoffs and adds them in the kernel's order: each
-thread's grid-stride share in sequence, then the block's tree.  So the two
-return the same rows bit for bit wherever their per-path payoffs agree.
-The wrapper takes the plain version only when ``pv`` lies on the CPU; for a
-CUDA tensor it launches the kernel or raises.  ``mc_tpu``'s
-``use_interpret`` and its (8, 128) slab helpers describe the TPU and are
-not ported.
+The kernel (``csrc/rates_kernels.cu`` ``rates_partials_kernel<Tile, P,
+staged>``) sums 256 paths a block, grid-strided, P paths a thread in
+lockstep (thread t of T = 256 / P runs paths t, t + T, ...), each path's
+f64 [pay, pay^2] in a lane of its own; the lanes add as the top levels of
+the tree a block of 256 one-path threads would run, and one f64 row of
+[sum pay, sum pay^2] per block comes out (``csrc/reduce.cuh``).  A block
+stages the pack's header, and up to ``mc_rates_stage_payments()`` payments
+its tables, in shared memory; past that it reads the tables in place (the
+library picks the path by ``n_pay``).  The plain version computes the same
+f32 payoffs and adds them in that order: path b*256 + t's grid-stride
+share in sequence, then the 256-wide tree.  So the two return the same rows bit for bit
+wherever their per-path payoffs agree.  The wrapper takes the plain
+version only when ``pv`` lies on the CPU; for a CUDA tensor it launches the
+kernel or raises.  ``mc_tpu``'s ``use_interpret`` and its (8, 128) slab
+helpers describe the TPU and are not ported.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ __all__ = ["RatesTile", "TILES", "RATES_THREADS", "packed_length",
            "fused_moment_partials", "fused_moment_partials_plain",
            "block_rows"]
 
-# Threads a block of the rates kernel (csrc/rates_kernels.cu kRatesThreads):
-# the plain version reduces in the kernel's block shape.
+# Paths a block of the rates kernel (csrc/rates_kernels.cu kRatesTile): the
+# threads of the one-path-a-thread tree whose order the kernel's lanes keep
+# and the plain version reduces in.
 RATES_THREADS = 256
 
 
@@ -106,9 +112,11 @@ def _n_blocks(n_paths: int) -> int:
 
 def block_rows(pay: torch.Tensor) -> torch.Tensor:
     """(n_blocks, 2) f64 [sum pay, sum pay^2] of the f32 per-path ``pay``,
-    added as the kernel adds them: thread t of block b sums paths b*T + t,
-    + stride, ... (stride = n_blocks*T) in f64 in that order, then the
-    block's tree halves its T sums (``reduce.cuh`` block_store_moments)."""
+    added as the kernel adds them: slot t of block b (T = RATES_THREADS
+    slots; the kernel's thread t mod T/P, lane t div T/P) sums paths b*T +
+    t, + stride, ... (stride = n_blocks*T) in f64 in that order, then the
+    block's tree halves its T sums (the lanes' folds, then ``reduce.cuh``
+    block_store_moments_warp)."""
     n = pay.shape[0]
     n_blocks = _n_blocks(n)
     stride = n_blocks * RATES_THREADS
@@ -162,10 +170,10 @@ def fused_moment_partials(tile: str, n_pay: int, key, pv: torch.Tensor,
         return fused_moment_partials_plain(tile, n_pay, key, pv, n_paths,
                                            path_offset, n_valid)
     lib = _cuda.load()
-    threads = lib.mc_rates_block_threads()
-    if threads != RATES_THREADS:
-        raise RuntimeError(f"the rates kernel runs {threads} threads a "
-                           f"block; mc_tpu_torch expects {RATES_THREADS}")
+    paths = lib.mc_rates_block_paths()
+    if paths != RATES_THREADS:
+        raise RuntimeError(f"the rates kernel sums {paths} paths a block; "
+                           f"mc_tpu_torch expects {RATES_THREADS}")
     bound = pk._bound(path_offset, n_paths, n_valid)
     n_blocks = _n_blocks(n_paths)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,

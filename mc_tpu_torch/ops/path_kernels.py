@@ -8,7 +8,8 @@ Two kernels live in ``csrc/path_kernels.cu``, one in ``csrc/simulate.cuh``
 
 * ``terminal_pair_partials`` (replaces the Pallas kernel at
   ``mc_tpu/ops/path_kernels.py:1015``): one threefry + Box-Muller pair per
-  element prices the exact terminal paths ``2e`` and ``2e+1``.
+  element prices the exact terminal paths ``2e`` and ``2e+1``; 256
+  elements a block, several a thread (``terminal_pair_grid``).
 * ``simulate_partials`` (replaces ``mc_tpu/ops/path_kernels.py:395``): the
   exact terminal draw or the log-Euler step loop, with the antithetic leg,
   the control-variate moments, importance sampling and resume from stored
@@ -203,6 +204,14 @@ def _check_params(params: torch.Tensor) -> None:
 
 def _grid(lib, n: int) -> int:
     return min(_cuda.cdiv(n, lib.mc_block_threads()), _cuda.MAX_BLOCKS)
+
+
+def terminal_pair_grid(lib, n_elems: int) -> int:
+    """The terminal-pair kernel's blocks: its elements a block
+    (``mc_terminal_pair_block_elems``, whatever its elements a thread),
+    capped."""
+    return min(_cuda.cdiv(n_elems, lib.mc_terminal_pair_block_elems()),
+               _cuda.MAX_BLOCKS)
 
 
 def simulate_grid(lib, n: int) -> int:
@@ -628,7 +637,7 @@ def terminal_pair_partials(payoff: PathPayoff, cfg: KernelConfig, key,
         return terminal_pair_partials_plain(payoff, cfg, key, params,
                                             n_paths_total)
     lib = _cuda.load()
-    n_blocks = _grid(lib, cfg.n_paths)
+    n_blocks = terminal_pair_grid(lib, cfg.n_paths)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)
     with torch.cuda.device(params.device):
