@@ -53,9 +53,12 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    antithetic, 1M x 100), the Vasicek trajectories, the basket kernel (18
    payoffs at d = 4; the call and the bullet at d = 1, 5, 8, 9, 16, 17 and
    32, each capacity's edges, antithetic and not; 1M x 100),
-   the basket's (B, state) trajectories at 100,000 x 100, the generic
-   trajectories of its d asset grids and both families' NMC kernels; the
-   FX kernel (8 contracts, threefry-13 and -20, 1M), the rainbow kernel (6
+   the basket's (B, state) trajectories at 100,000 x 100 and, for the call
+   and the bullet, at d = 1, 4, 5, 8, 9, 16, 17 and 32 on 4,099 paths, the
+   generic trajectories of its d asset grids and both families' NMC
+   kernels; the FX kernel (8 contracts, threefry-13 and -20, 1M; each at 1,
+   255, 257 and 100,001 paths, an offset and a bound cutting a block and
+   2^24 paths), the rainbow kernel (6
    payoffs at d = 4, 1M, antithetic; the call at d = 1, 2, 8, 9, 32), the
    rainbow's generic trajectories and NMC kernels (both folds), the QMC
    kernels (terminal and Euler on the lattice and Sobol, the Brownian
@@ -173,8 +176,11 @@ from the root of a checkout.  It drives ``mc_tpu_torch`` only (never JAX or
    Heston kernels of their shapes, the CEV and local-vol kernels beside
    the Heston and Merton kernels of their shapes, the SABR kernels beside
    Heston's, the term and dividend kernels beside CEV's, the Vasicek
-   kernels beside Merton's, the basket kernels beside Heston's, the FX
-   kernel beside terminal_pair, the rainbow kernels beside the basket's,
+   kernels beside Merton's, the basket kernels beside Heston's (the
+   trajectories kernel also at d = 9 and 32), the FX kernel beside
+   terminal_pair (and at 2^24 paths, beside its share of the bound, its
+   paths a thread and resident blocks per SM), the rainbow kernels beside
+   the basket's,
    the QMC kernels on both families and #33 per family (each beside its
    share of the bound, its registers and spills, its resident blocks per
    SM, its shifts a thread and its shared bytes; the bridge's live slots),
@@ -309,6 +315,7 @@ VASICEK_KERNELS = ("vasicek_partials", "vasicek_trajectories", "family_inner",
 BASKET_KERNELS = ("basket_partials", "family_trajectories", "family_inner",
                   "family_fused", "basket_trajectories")
 GRID_PATHS = 100_000                 # #26: the (B, state) grids, 100 steps
+GRID_EDGE_PATHS = 4_099              # #26's d edges: a ragged last block
 # Phase 2: the basket's d at each capacity's edges (basket_partials.cuh: 4,
 # 8, 16, 32), antithetic and not; phase 5 times #25 at BASKET_TIMED_D.
 BASKET_EDGES = (1, 5, 8, 9, 16, 17, 32)
@@ -817,6 +824,8 @@ def ptxas_resources(log: str) -> dict:
             if kernel in ("cev_partials_kernel", "divs_partials_kernel"):
                 # cev_partials_kernel<P, A>, divs_partials_kernel<P, A, table>
                 rounds = tuple(int(i) for i in ints)
+            if kernel == "fx_partials_kernel":  # <contract, rounds>
+                rounds = tuple(int(i) for i in re.findall(r"Li(\d+)E", rest))
             entry = (kernel, payoff, rounds)
             out[entry] = {}
             continue
@@ -2320,13 +2329,17 @@ class Single(NamedTuple):
 class GridKernel(NamedTuple):
     """A family's trajectories kernel outside its NMC (the basket's #26:
     the (B, state) grids its LSMC reads), checked for every one-word payoff
-    and timed at ``n_paths`` x MAIN_STEPS on the family's first check."""
+    and timed at ``n_paths`` x MAIN_STEPS on the family's first check; its
+    ``edges`` checked at GRID_EDGE_PATHS for the call and the bullet, its
+    ``wide`` dynamics timed beside the first."""
     row: str
     fn: object            # (payoff, config, key, params) -> (*grids, partials)
     plain: object
     tpu: str
     n_paths: int
     rounds: object = None  # its registers key's integer
+    edges: tuple = ()      # phase 2: ((label, dyn), ...)
+    wide: tuple = ()       # phase 5: ((label, dyn), ...)
 
 
 def single_families(mt):
@@ -2481,7 +2494,12 @@ def single_families(mt):
                                fn=bm.basket_trajectories,
                                plain=bm.basket_trajectories_plain,
                                tpu="models/basket.py:393",
-                               n_paths=GRID_PATHS, rounds=8),
+                               n_paths=GRID_PATHS, rounds=4,
+                               edges=tuple((f"d={d}", bm.demo_basket(d, 0.5))
+                                           for d in (1, 4, 5, 8, 9, 16, 17,
+                                                     32)),
+                               wide=tuple((f"d={d}", bm.demo_basket(d, 0.5))
+                                          for d in (9, 32))),
                main_checks=1,  # the d edges at FAMILY_PATHS
                edge_variants=True, partials_src="basket_partials.cuh"),
     )
@@ -2572,6 +2590,10 @@ def single_kernel_checks(mt, dev, singles, keys):
                 if po.n_state <= 1:
                     defer(grid_check(mt, dev, note, s, keys[s.family][0],
                                      name))
+            for label_dyn in s.grid.edges:
+                for name in ("vanilla_call", "bullet_call"):
+                    defer(grid_check(mt, dev, note, s, keys[s.family][0],
+                                     name, label_dyn, GRID_EDGE_PATHS))
     return err, rows_ms
 
 
@@ -2672,26 +2694,29 @@ def nmc_extra_cases(mt, s: Single):
     return ()
 
 
-def grid_check(mt, dev, note, s: Single, key, name):
-    """Phase 2: a family's GridKernel on its first dynamics at
-    ``n_paths`` x MAIN_STEPS against its plain version: the grids bitwise,
-    the payoff sums to f64 rounding.  A deferred check."""
+def grid_check(mt, dev, note, s: Single, key, name, label_dyn=None,
+               n_paths=None):
+    """Phase 2: a family's GridKernel on ``label_dyn`` (its first
+    dynamics) at ``n_paths`` (its own) x MAIN_STEPS against its plain
+    version: the grids bitwise, the payoff sums to f64 rounding.  A
+    deferred check."""
     from mc_tpu_torch.ops.payoffs import get_payoff
     from mc_tpu_torch.ops.reduce import finish_sum
 
     g = s.grid
     po, opt = get_payoff(name), payoff_option(mt, name)
-    label, dyn = s.checks[0]
-    cfg = s.config(g.n_paths, dyn)
+    label, dyn = label_dyn or s.checks[0]
+    n_paths = n_paths or g.n_paths
+    cfg = s.config(n_paths, dyn)
     prm = s.pack(opt, dyn, MAIN_STEPS, dev)
     *g_p, part_p = g.plain(po, cfg, key, prm)
     yield
     *g_k, part_k = g.fn(po, cfg, key, prm)
-    text = spaced(g.row, label, name, f"{g.n_paths}x{MAIN_STEPS}")
+    text = spaced(g.row, label, name, f"{n_paths}x{MAIN_STEPS}")
     note(g.row, check_bitwise(f"{text} (grids, state)", g_k, g_p))
     got, want = finish_sum(part_k), finish_sum(part_p)
     check_sums(f"{text} payoff", got, want)
-    note(g.row, price_err(got, want, g.n_paths, opt))
+    note(g.row, price_err(got, want, n_paths, opt))
 
 
 def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms,
@@ -2761,6 +2786,17 @@ def single_times(mt, dev, singles, keys, regs, tag, time_pair, ref_ms,
                   f"{grid_bytes / out[g.row][0] / 1e6:.1f} GB/s; registers "
                   f"{regs.get((f'{g.row}_kernel', 'VanillaCall', g.rounds))}"
                   f" {tag}")
+            for w_label, w_dyn in g.wide:
+                cfg = s.config(g.n_paths, w_dyn)
+                prm = s.pack(opt, w_dyn, MAIN_STEPS, dev)
+                k_ms, sp, _ = cuda_ms(lambda cfg=cfg, prm=prm: g.fn(
+                    call, cfg, key, prm))
+                b_ms = probe_bound(g.row, payoff="vanilla_call", d=w_dyn.d,
+                                   n_paths=g.n_paths, n_steps=MAIN_STEPS)[0]
+                print(f"phase 5: {spaced(g.row, 'call', w_label)} "
+                      f"{g.n_paths}x{MAIN_STEPS}: kernel {k_ms:.4f} ms "
+                      f"(spread {sp:.1%}), {b_ms / k_ms:.1%} of its bound "
+                      f"({b_ms:.4f} ms) {tag}")
         known.update({k: v[0] for k, v in out.items()})
         e2e_report(e2e, tag)
     return out
@@ -2837,8 +2873,24 @@ QMC_COORD_OPS = {"lattice": (LATTICE_BASE_OPS, LATTICE_SHIFT_OPS),
 # A bridge entry: (c_l W[l] + c_r W[r]) + s z (5), and a step's increment
 # (1).
 BRIDGE_OPS = (0, 6, 0)
-# FX: z_x (3), S_T and X_T (3 and an expf each), the payoff (~4).
-FX_PATH_OPS = (0, 13, 2)
+# Phase 2: #28 for every contract at ragged path counts, a block cut by an
+# offset and a bound, and 2^24 paths (the grid strides): (n_paths,
+# path_offset, n_valid).
+FX_EDGE_SHAPES = ((1, 0, None), (255, 0, None), (257, 0, None),
+                  (100_001, 0, None), (5_000, 1_000, 1_000 + 4_321),
+                  (1 << 24, 0, None))
+# FX, the least work of a path on top of its pair, by contract kind (gk,
+# quanto, compo, flexo): z_x (3) and X_T (3 and an expf) where the payoff
+# reads X_T, S_T (3 and an expf) where it reads S_T, the payoff and its
+# square (gk 3, quanto, compo and flexo 4; a put's sign is free).
+FX_KIND_OPS = ((0, 9, 1), (0, 7, 1), (0, 13, 2), (0, 13, 2))
+
+
+def fx_path_ops(contract: str):
+    """An FX path of ``contract``: its pair and its kind's work."""
+    from mc_tpu_torch.models.fx import FX_CONTRACTS
+
+    return _add(pair_ops(13), FX_KIND_OPS[FX_CONTRACTS[contract] >> 1])
 
 
 def rainbow_path(d: int, antithetic: bool = False):
@@ -3023,15 +3075,22 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
     fxd, demo, _ = fx_rainbow_qmc_setup(mt)
     fx_prm = fx.pack_fx(opt, fxd, dev)
     for contract in sorted(fx.FX_CONTRACTS):
-        for src in ("threefry13", "threefry"):
-            cfg = fx.FXConfig(FAMILY_MAIN, src)
+        shapes = [(FAMILY_MAIN, src, 0, None)
+                  for src in ("threefry13", "threefry")]
+        shapes += [(n, "threefry13", off, n_valid)
+                   for n, off, n_valid in FX_EDGE_SHAPES]
+        for n, src, off, n_valid in shapes:
+            cfg = fx.FXConfig(n, src)
             defer(sums_case(
                 "fx_partials",
-                lambda contract=contract, cfg=cfg: fx.fx_partials(
-                    contract, cfg, keys["fx"][0], fx_prm),
-                lambda contract=contract, cfg=cfg: fx.fx_partials_plain(
-                    contract, cfg, keys["fx"][0], fx_prm),
-                FAMILY_MAIN, f"{contract} {src}"))
+                lambda contract=contract, cfg=cfg, off=off, nv=n_valid:
+                    fx.fx_partials(contract, cfg, keys["fx"][0], fx_prm, off,
+                                   nv),
+                lambda contract=contract, cfg=cfg, off=off, nv=n_valid:
+                    fx.fx_partials_plain(contract, cfg, keys["fx"][0], fx_prm,
+                                         off, nv),
+                n, f"{contract} {src}"
+                + (f" offset {off} bound {n_valid}" if off else "")))
 
     def rainbow_case(name, n_paths, dyn, **kw):
         cfg = rb.RainbowConfig(n_paths=n_paths, d=dyn.d, **kw)
@@ -3496,6 +3555,7 @@ def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
     from mc_tpu_torch.models import fx
     from mc_tpu_torch.models import rainbow as rb
     from mc_tpu_torch.nmc_rainbow import RainbowNMC
+    from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops.payoffs import get_payoff
 
     o = mt.DEMO_OPTION
@@ -3508,10 +3568,24 @@ def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
         lambda: fx.fx_partials("quanto_call", cfg, keys["fx"][0], prm),
         lambda: fx.fx_partials_plain("quanto_call", cfg, keys["fx"][0], prm),
         f"{FAMILY_MAIN} paths")
+    big = fx.FXConfig(TP_BIG)
+    big_ms, big_sp, _ = cuda_ms(lambda: fx.fx_partials(
+        "quanto_call", big, keys["fx"][0], prm), reps=3)
+    big_bound = probe_bound("fx_partials", contract="quanto_call",
+                            n_paths=TP_BIG)[0]
+    lib = _cuda.load()
+    blocks = ctypes.c_int(0)
+    _cuda.check(lib.mc_fx_occupancy(fx.FX_CONTRACTS["quanto_call"],
+                                    ctypes.byref(blocks)), "mc_fx_occupancy")
+    print(f"phase 5: fx_partials quanto_call {TP_BIG} paths: kernel "
+          f"{big_ms:.4f} ms (spread {big_sp:.1%}, 3 reps), "
+          f"{big_bound / big_ms:.1%} of its bound ({big_bound:.4f} ms) {tag}")
     print(f"phase 5: fx_partials: "
           f"{out['fx_partials'][0] / ref_ms['terminal_pair']:.2f}x "
           f"terminal_pair on 1M paths ({ref_ms['terminal_pair']:.4f} ms); "
-          f"registers {regs.get(('fx_partials_kernel', None, None))} {tag}")
+          f"registers {regs.get(('fx_partials_kernel', None, (2, 13)))}, "
+          f"{lib.mc_fx_paths_per_thread()} paths a thread, {blocks.value} "
+          f"blocks/SM {tag}")
     for d, kw in ((4, {}), (4, dict(antithetic=True)), (32, {})):
         rcfg = rb.RainbowConfig(FAMILY_MAIN, d, **kw)
         rprm = bm.pack_basket(o, bm.demo_basket(d, 0.5), 1, dev)
@@ -3629,7 +3703,7 @@ def fx_rainbow_qmc_bounds():
     path4 = basket_path(4, MAIN_STEPS)
     n_qmc = 1_048_573
     return {
-        "fx_partials": bound(44, _scale(_add(pair_ops(13), FX_PATH_OPS),
+        "fx_partials": bound(44, _scale(fx_path_ops("quanto_call"),
                                         FAMILY_MAIN)),
         "rainbow_partials": bound(4 * packed_length(4),
                                   _scale(rainbow_path(4), FAMILY_MAIN)),
@@ -3644,6 +3718,28 @@ def fx_rainbow_qmc_bounds():
                                                     True, "asian_call",
                                                     QMC_SHIFTS), n_qmc)),
     }
+
+
+def probe_bound(row: str, **kw):
+    """bound() of a call that family_nmc_probe.py times at a shape of its
+    own: fx_partials (contract, n_paths), rainbow_partials (call_on_max at
+    d, n_paths) and basket_trajectories (payoff, d, n_paths, n_steps: the
+    level and state grids written)."""
+    from mc_tpu_torch.models.basket import packed_length
+
+    n = kw["n_paths"]
+    if row == "fx_partials":
+        return bound(44, _scale(fx_path_ops(kw["contract"]), n))
+    d = kw["d"]
+    if row == "rainbow_partials":
+        return bound(4 * packed_length(d), _scale(rainbow_path(d), n))
+    if row == "basket_trajectories":
+        steps = kw["n_steps"]
+        path = _add(basket_path(d, steps),
+                    _scale(UPDATE_OPS.get(kw["payoff"], (0, 0, 0)), steps))
+        return bound(4 * packed_length(d) + 2 * 4 * n * steps,
+                     _scale(path, n))
+    raise KeyError(row)
 
 
 # --- the model half of QMC: kernel #33 --------------------------------------
@@ -5957,8 +6053,8 @@ def main() -> int:
             f"{sf.family} call {nmc_shape} (plain: rows "
             f"{list(EARLIER_NMC_ROWS)})",
         ) * 2
-        if sf.grid is not None:  # after the NMC's three rows
-            srcs = srcs + (f"{sf.family}_kernels.cu",)
+        if sf.grid is not None:  # after the NMC's three rows, beside its
+            srcs = srcs + srcs[:1]  # partials kernel
             tpus = tpus + (sf.grid.tpu,)
             shapes = shapes + (spaced("call", sf.timed[0][0],
                                       f"{sf.grid.n_paths}x{MAIN_STEPS}"),)

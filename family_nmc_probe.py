@@ -4,7 +4,8 @@ qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
 the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), the
 book (#7) and the simulate kernel (#2 simulate_kernel), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
-basket_partials_kernel, #26 basket_trajectories_kernel), or with
+basket_partials_kernel, #26 basket_trajectories_kernel), or with ``--fx``
+the FX kernel (#28 fx_partials_kernel) and the rainbow's (#27), or with
 ``--partials`` the local-vol, Merton, CEV and cash-dividend partials
 kernels (#19 localvol_partials_kernel, #14 merton_partials_kernel, #18
 cev_partials_kernel, #22 divs_partials_kernel), the Heston and Bates QE
@@ -14,8 +15,9 @@ the SABR partials kernel (#17 sabr_partials_kernel), on one CUDA card:
 what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
 
-    python3 family_nmc_probe.py [--qmc | --gbm | --basket | --partials |
-                                 --sabr | --rates | --wrappers DIR]
+    python3 family_nmc_probe.py [--qmc | --gbm | --basket | --fx |
+                                 --partials | --sabr | --rates |
+                                 --wrappers DIR]
                                 [--kernels NAME,...]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
@@ -102,17 +104,37 @@ give, and that ``expf`` keeps the order of every finite float (the barrier
 legs' threshold rests on it).
 
 ``--basket`` builds ``basket_kernels.cu`` and each capacity's
-``basket<N>_kernels.cu`` (a source without ``mc_basket_occupancy``, an
-older commit's, through a unit that adds it) and prints the ptxas
-resources of every VanillaCall instantiation of both kernels, each d's
-capacity, paths a thread (where exported) and resident blocks per SM;
-``--sass`` their loops, with the instructions issued under a predicate and
-the forward branches; ``--time`` runs price_basket's kernel at 1M x 100
-for d = 1, 4, 8, 9, 16, 32, with and without antithetic, and #26 at
-100,000 x 100, d = 4, in turns over the variants, twice, each bitwise
-against the first.  ``-DMC_BASKET_PATHS=N`` sets the paths a thread of
-every capacity up to 16.  ``--sass`` writes each listed kernel's SASS
+``basket<N>_kernels.cu`` (a source without ``mc_basket_occupancy`` or
+``mc_basket_trajectories_occupancy``, an older commit's, through a unit
+that adds them) and prints the ptxas resources of every VanillaCall and
+BulletCall instantiation of both kernels, each d's capacity, paths a
+thread (where exported) and resident blocks per SM; ``--sass`` their
+loops, with the instructions issued under a predicate and the forward
+branches; then it runs 258 #26 edge cases (basket_grid_cases: every
+one-word payoff at d = 1, 2, 3, 4, 5, 8, 9, 16, 17, 32; 1 to 100,001
+paths at 1, 2 and 217 steps; past the capped grid; offsets and bounds
+past 2^32; a Cholesky entry, weight or s0 of +-inf or NaN), grids and
+rows bitwise against the first variant; ``--time`` runs price_basket's
+kernel at 1M x 100 for d = 1, 4, 8, 9, 16, 32, with and without
+antithetic, in turns over the variants, twice, and #26's call and bullet
+at 100,000 x 100 for d = 1, 4, 9, 16, 32, each call a batch's share (>=
+5 ms), in 2 pairs of turns beside its bound, each bitwise against the
+first.  ``-DMC_BASKET_PATHS=N`` sets the partials kernel's paths a thread
+of every capacity up to 16.  ``--sass`` writes each listed kernel's SASS
 beside ``--out``.
+
+``--fx`` builds ``fx_kernels.cu`` (an older commit's through a unit
+adding ``mc_fx_occupancy``) and ``rainbow_kernels.cu`` (through a unit
+adding its resident blocks), prints the ptxas resources of every FX
+instantiation and of the rainbow's threefry-13 ones, each contract's
+resident blocks per SM and the paths a block and a thread; runs 384 FX
+edge cases (fx_cases: every contract under threefry-13 and -20 at 1 to
+2^24 paths, offsets and bounds past 2^32, rho +-1 and 0, sigma 0, s0 or
+x0 of +-0, +inf, NaN, drifts past expf's range) bitwise against the first
+variant; ``--time`` times the quanto, GK and compo calls at 1M and 2^24
+paths and the rainbow's (#27) best-of call at d = 4 on 1M paths, each
+call a batch's share (>= 20 ms), in 3 pairs of turns, beside the bounds
+chip_smoke.py counts (``probe_bound``).
 
 ``--partials`` builds ``localvol_kernels.cu``, each knot capacity's
 ``localvol<N>_kernels.cu`` and ``merton_kernels.cu`` (a source without
@@ -200,12 +222,15 @@ reads them in place past it; a variant whose copy of ``csrc`` sets
 ``mc_tpu_torch`` of the checkout DIR (its library built, or loaded, under
 DIR's ``build/``) and times the calls that chip_smoke.py's phase 5 times at
 a shape the host owns: #1 through ``terminal_pair_partials`` on the 1M-path
-call and #11 through ``fused_moment_partials`` per tile at 2^20 paths and
-10 payments, each as a batch's share of the CUDA events (>= 5 ms a batch)
-and as the host clock's share of the same batch before its synchronize
-(the wrapper's own host time, the launches queued behind it); and end to
-end (host clock, each call ended by a synchronize) ``price()``'s 1M-path
-call and the six swaption rows, payer, at 2^20 paths.  Each row is the
+call, #11 through ``fused_moment_partials`` per tile at 2^20 paths and
+10 payments, #28 through ``fx_partials`` on the 1M-path quanto call and
+#26 through ``basket_trajectories`` on the call at 100,000 x 100, d = 4,
+each as a batch's share of the CUDA events (>= 5 ms a batch) and as the
+host clock's share of the same batch before its synchronize (the
+wrapper's own host time, the launches queued behind it); and end to end
+(host clock, each call ended by a synchronize) ``price()``'s 1M-path
+call, ``price_fx()``'s 1M-path quanto call and the six swaption rows,
+payer, at 2^20 paths.  Each row is the
 median of WRAP_REPS.  Run it once a process from each of two checkouts in
 turns (A B B A ...) to compare their host paths on one host.
 
@@ -217,6 +242,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -414,6 +440,8 @@ def probe_sources(src: Path, mode: str, out: Path, kernels=None):
         return sabr_sources(src, out)
     if mode == "basket":
         return basket_sources(src, out)
+    if mode == "fx":
+        return fx_sources(src, out)
     if mode == "partials":
         return partials_sources(src, out, kernels or PARTIALS_KERNELS)
     return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
@@ -695,10 +723,12 @@ def _events():
 
 
 def same_bits(a, b) -> bool:
-    """a and b bit for bit, but that a NaN may carry another payload."""
+    """a and b (f32 or f64) bit for bit, but that a NaN may carry another
+    payload."""
     nan = a.isnan()
-    return bool(torch.equal(nan, b.isnan()) and torch.equal(
-        a[~nan].view(torch.int64), b[~nan].view(torch.int64)))
+    word = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return bool(a.shape == b.shape and torch.equal(nan, b.isnan())
+                and torch.equal(a[~nan].view(word), b[~nan].view(word)))
 
 
 def _check(status, what):
@@ -1230,30 +1260,7 @@ def simulate_probe(args, bound, libs, card) -> dict:
                       r".*Li13E")
     for label, (lib, _) in bound.items():
         lib_path, logs = libs[label]
-        res = {}
-        for log in logs.values():
-            res.update(ptxas_resources(log))
-        entries = sorted(e for e in res if want.search(e))
-        funcs = (sass_functions(lib_path, lambda f: f in entries)
-                 if args.sass else {})
-        rows = {}
-        for e in entries:
-            r = dict(res[e])
-            if args.sass and e in funcs:
-                n_ins, loops = sass_loops(lib_path, e, funcs[e])
-                for lp in loops:
-                    lp["mufu"] = mufu_kinds(funcs[e], lp)
-                r["sass"] = dict(instructions=n_ins, loops=loops,
-                                 total=sass_classes(funcs[e]))
-                write_listing(args.out, label, e, funcs[e])
-            rows[e] = r
-            print(f"probe {label}: {e}: "
-                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
-                  flush=True)
-            if "sass" in r:
-                print(f"  total {r['sass']['total']}")
-                for lp in r["sass"]["loops"]:
-                    print(f"  loop {lp}")
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
         layout = simulate_layout(lib)
         print(f"probe {label}: simulate layout {layout} {card}", flush=True)
         report["variants"][label] = dict(kernels=rows, layout=layout)
@@ -1759,30 +1766,7 @@ def terminal_pair_probe(args, bound, libs, card) -> dict:
     want = re.compile(r"20terminal_pair_kernelINS_11VanillaCallELi13E")
     for label, (lib, _) in bound.items():
         lib_path, logs = libs[label]
-        res = {}
-        for log in logs.values():
-            res.update(ptxas_resources(log))
-        entries = sorted(e for e in res if want.search(e))
-        funcs = (sass_functions(lib_path, lambda f: f in entries)
-                 if args.sass else {})
-        rows = {}
-        for e in entries:
-            r = dict(res[e])
-            if args.sass and e in funcs:
-                n_ins, loops = sass_loops(lib_path, e, funcs[e])
-                for lp in loops:
-                    lp["mufu"] = mufu_kinds(funcs[e], lp)
-                r["sass"] = dict(instructions=n_ins, loops=loops,
-                                 total=sass_classes(funcs[e]))
-                write_listing(args.out, label, e, funcs[e])
-            rows[e] = r
-            print(f"probe {label}: {e}: "
-                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
-                  flush=True)
-            if "sass" in r:
-                print(f"  total {r['sass']['total']}")
-                for lp in r["sass"]["loops"]:
-                    print(f"  loop {lp}")
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
         blocks = ctypes.c_int(0)
         st = lib.mc_terminal_pair_occupancy(ctypes.byref(blocks))
         layout = dict(blocks_per_sm=blocks.value if st == 0 else None,
@@ -1811,30 +1795,366 @@ def terminal_pair_probe(args, bound, libs, card) -> dict:
           f"variants, {bad} disagree {card}", flush=True)
     report["edges"] = edges
     if args.time:
-        times = {}
-        order = (list(bound) + list(bound)[::-1]) * TP_TURNS
-        for case, payoff, rounds, n_elems, total, fix in tp_cases(True):
-            prm = pk.pack_params(OptionParams(**fix), 100, dev)
-            ref = None
-            for label in order:
-                lib = bound[label][0]
-                run_terminal_pair(lib, payoff, rounds, 4096, 8192, prm)
-                part, first = run_terminal_pair(lib, payoff, rounds, n_elems,
-                                                total, prm)
-                batch = max(1, int(np.ceil(TP_BATCH_MS / max(first, 1e-3))))
-                _, ms = run_terminal_pair(lib, payoff, rounds, n_elems, total,
-                                          prm, batch=batch)
-                ref = part if ref is None else ref
-                same = same_bits(part, ref)
-                times.setdefault(case, {}).setdefault(label, []).append(
-                    dict(ms=ms, single_ms=first, batch=batch, bitwise=same))
-                print(f"probe time {case} {label}: {ms:.5f} ms a call in a "
-                      f"batch of {batch} (one call alone {first:.5f}), "
-                      f"partials bitwise vs {order[0]}: {same} {card}",
-                      flush=True)
-                if not same:
-                    print(f"FAIL: {case} {label} disagrees", flush=True)
+        prms = {}
+
+        def run(label, a, batch, warm=False):
+            if a["label"] not in prms:
+                prms[a["label"]] = pk.pack_params(OptionParams(**a["fix"]),
+                                                  100, dev)
+            prm = prms[a["label"]]
+            lib = bound[label][0]
+            shape = (4096, 8192) if warm else (a["n_elems"], a["total"])
+            part, ms = run_terminal_pair(lib, a["payoff"], a["rounds"], *shape,
+                                         prm, batch=batch)
+            return (part,), ms
+
+        cases = [dict(label=case, payoff=payoff, rounds=rounds,
+                      n_elems=n_elems, total=total, fix=fix)
+                 for case, payoff, rounds, n_elems, total, fix
+                 in tp_cases(True)]
+        report["times"] = batched_turns(bound, cases, run, TP_BATCH_MS,
+                                        TP_TURNS, card, "partials")
+    return report
+
+
+# --- the FX and rainbow kernels (--fx) ----------------------------------------
+
+FX_TIMED_CONTRACTS = ("quanto_call", "gk_call", "compo_call")
+FX_TIMED = (1_000_000, 1 << 24)   # chip_smoke.py's FAMILY_MAIN and 2^24
+FX_EDGE_PATHS = (1, 255, 256, 257, 100_001, 1 << 24)
+# (path_offset, n_paths, bound or None for the run's end): a block cut by
+# the offset and the bound; ids that wrap past 2^32, masked at the run's
+# wrapped end and at a bound before the wrap
+FX_OFFSETS = ((1_000, 5_000, 1_000 + 4_321), ((1 << 32) - 300, 1_000, None),
+              ((1 << 32) - 300, 1_000, (1 << 32) - 1))
+# (option fields, FX fields) of the degenerate cases, at FX_EDGE_FIX_PATHS
+FX_EDGE_FIX = tuple(
+    [({}, dict(rho=v)) for v in (1.0, -1.0, 0.0)]
+    + [(dict(sigma=0.0), {}), ({}, dict(sigma_x=0.0))]
+    + [(dict(s0=v), {}) for v in (0.0, -0.0, float("inf"), float("nan"))]
+    + [({}, dict(x0=v)) for v in (0.0, -0.0, float("inf"), float("nan"))]
+    + [({}, dict(r_f=100.0)), (dict(r=100.0), {})])  # drifts past expf's range
+FX_EDGE_FIX_PATHS = 4_099
+RAINBOW_TIMED = ("call_on_max", 4, 1_000_000)  # chip_smoke.py's phase-5 row
+# A call lasts ~0.01 ms at 1M paths, of the order of a launch: its batches
+# last >= 20 ms and the variants take 3 pairs of turns (as --gbm's #1).
+FX_BATCH_MS, FX_TURNS = 20.0, 3
+# An fx_kernels.cu that predates mc_fx_occupancy (one path a thread, the
+# contract a runtime argument): this unit adds it (threefry-13, every
+# contract the one kernel).
+FX_SHIM = """#include "{src}/fx_kernels.cu"
+
+extern "C" int mc_fx_occupancy(int contract, int* blocks) {{
+  (void)contract;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mc::fx_partials_kernel<13>, mc_fx_block_threads(), 0);
+}}
+"""
+# The rainbow kernel (#27, timed alone beside #28): this unit adds its
+# resident blocks per SM (threefry-13, the capacity of d).
+RAINBOW_SHIM = """#include "{src}/rainbow_kernels.cu"
+
+extern "C" int probe_rainbow_occupancy(int d, int* blocks) {{
+  const int threads = mc_rainbow_block_threads();
+  return d <= 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks, mc::rainbow_partials_kernel<8, 13>, threads, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks, mc::rainbow_partials_kernel<32, 13>, threads, 0);
+}}
+"""
+
+
+def fx_sources(src: Path, out: Path):
+    """``src``'s fx_kernels.cu (through FX_SHIM where it has no
+    ``mc_fx_occupancy``) and its rainbow_kernels.cu through
+    RAINBOW_SHIM."""
+    srcs = []
+    fx = src / "fx_kernels.cu"
+    if "mc_fx_occupancy" in fx.read_text():
+        srcs.append(fx)
+    else:
+        unit = out / "fx_probe.cu"
+        unit.write_text(FX_SHIM.format(src=src))
+        srcs.append(unit)
+    unit = out / "rainbow_probe.cu"
+    unit.write_text(RAINBOW_SHIM.format(src=src))
+    return [*srcs, unit]
+
+
+def bind_fx(lib_path: Path):
+    """The FX and rainbow entry points of a variant's library, and its FX
+    paths a block (``mc_fx_block_paths``; the parent's: its threads, one
+    path each)."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("mc_fx_partials", "mc_rainbow_partials",
+                 "mc_rainbow_block_threads"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = \
+            _cuda._SIGNATURES[name]
+    for name in ("mc_fx_occupancy", "probe_rainbow_occupancy"):
+        getattr(lib, name).argtypes = [_int, ctypes.POINTER(ctypes.c_int)]
+        getattr(lib, name).restype = _int
+    tile = (lib.mc_fx_block_paths() if hasattr(lib, "mc_fx_block_paths")
+            else lib.mc_fx_block_threads())
+    return lib, tile
+
+
+def fx_layout(lib, tile: int) -> dict:
+    """Each contract's resident blocks per SM (threefry-13), the paths a
+    block and a thread (where exported) and the rainbow's blocks at d = 4
+    and 32."""
+    from mc_tpu_torch.models.fx import FX_CONTRACTS
+
+    out = dict(paths_a_block=tile)
+    if hasattr(lib, "mc_fx_paths_per_thread"):
+        out["paths_a_thread"] = lib.mc_fx_paths_per_thread()
+    for name, cid in FX_CONTRACTS.items():
+        blocks = ctypes.c_int(0)
+        st = lib.mc_fx_occupancy(cid, ctypes.byref(blocks))
+        out[f"blocks_per_sm {name}"] = blocks.value if st == 0 else None
+    for d in (4, 32):
+        blocks = ctypes.c_int(0)
+        st = lib.probe_rainbow_occupancy(d, ctypes.byref(blocks))
+        out[f"rainbow blocks_per_sm d={d}"] = blocks.value if st == 0 else None
+    return out
+
+
+def fx_cases(timed: bool):
+    """#28's cases: dicts of contract, rounds, n (paths), offset, bound
+    (None: the run's end), opt and fx (fields over OptionParams() and
+    DEMO_FX).  Timed: FX_TIMED_CONTRACTS at FX_TIMED paths, threefry-13.
+    Else every contract under threefry-13 and -20 at FX_EDGE_PATHS paths,
+    at FX_OFFSETS and at FX_EDGE_FIX."""
+    from mc_tpu_torch.models.fx import FX_CONTRACTS
+
+    def case(contract, rounds, n, offset=0, bound=None, opt=None, fx=None):
+        label = (f"fx {contract} r{rounds} {n} paths"
+                 + (f" offset {offset} bound {bound}" if offset or bound
+                    else "") + (f" {opt}" if opt else "")
+                 + (f" {fx}" if fx else ""))
+        return dict(label=label, contract=contract, rounds=rounds, n=n,
+                    offset=offset, bound=bound, opt=opt or {}, fx=fx or {})
+
+    if timed:
+        return [case(c, 13, n) for c in FX_TIMED_CONTRACTS for n in FX_TIMED]
+    out = []
+    for contract in FX_CONTRACTS:
+        for rounds in (13, 20):
+            out += [case(contract, rounds, n) for n in FX_EDGE_PATHS]
+            out += [case(contract, rounds, n, off, b)
+                    for off, n, b in FX_OFFSETS]
+            out += [case(contract, rounds, FX_EDGE_FIX_PATHS, opt=o, fx=f)
+                    for o, f in FX_EDGE_FIX]
+    return out
+
+
+def fx_inputs(a: dict, dev):
+    """(params, key) of an FX case: pack_fx of its fields, price_fx's key at
+    seed 1234."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import fx as fxm
+
+    prm = fxm.pack_fx(OptionParams(**a["opt"]),
+                      dataclasses.replace(fxm.DEMO_FX, **a["fx"]), dev)
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
+                                                fxm.FX_TAG))
+    return prm, key
+
+
+def run_fx(lib, tile: int, a: dict, inputs, batch: int = 1, n=None):
+    """(partials, ms) of ``batch`` back-to-back fx_partials calls of case
+    ``a`` (``n``: its path count, or another)."""
+    from mc_tpu_torch.models.fx import FX_CONTRACTS
+
+    prm, (k0, k1) = inputs
+    n = a["n"] if n is None else n
+    bound = (a["offset"] + n if a["bound"] is None else a["bound"]) & 0xFFFFFFFF
+    n_blocks = min(-(-n // tile), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    args = (FX_CONTRACTS[a["contract"]], a["rounds"], k0, k1, prm.data_ptr(),
+            n, a["offset"] & 0xFFFFFFFF, bound, part.data_ptr(), n_blocks,
+            torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_fx_partials(*args), "fx_partials")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def run_rainbow(lib, inputs, n: int, batch: int = 1):
+    """(partials, ms) of ``batch`` rainbow_partials calls (#27) of
+    RAINBOW_TIMED's payoff and d, threefry-13."""
+    from mc_tpu_torch.models.rainbow import RAINBOW_PAYOFFS
+
+    name, d, _ = RAINBOW_TIMED
+    prm, (k0, k1) = inputs
+    n_blocks = min(-(-n // lib.mc_rainbow_block_threads()), 8192)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    args = (RAINBOW_PAYOFFS[name][0], 13, 0, k0, k1, prm.data_ptr(), d, n, 0,
+            n, part.data_ptr(), n_blocks,
+            torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_rainbow_partials(*args), "rainbow_partials")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def batched_turns(bound, cases, run, batch_ms: float, turns: int, card,
+                  what: str) -> dict:
+    """Each case through every variant in ``turns`` pairs of turns (A B ..
+    B A), each call's time a batch's share (the batch sized from one call
+    alone to last >= batch_ms), its result bitwise against the first
+    variant's: {case: {label: [{ms, single_ms, batch, bitwise}]}}.
+    ``run(label, case, batch)`` -> (result tensors, ms); ``case`` has a
+    "label"."""
+    times = {}
+    order = (list(bound) + list(bound)[::-1]) * turns
+    for a in cases:
+        ref = None
+        for label in order:
+            run(label, a, 1, warm=True)
+            out, first = run(label, a, 1)
+            batch = max(1, int(np.ceil(batch_ms / max(first, 1e-3))))
+            _, ms = run(label, a, batch)
+            ref = out if ref is None else ref
+            same = all(same_bits(x, y) for x, y in zip(out, ref))
+            times.setdefault(a["label"], {}).setdefault(label, []).append(
+                dict(ms=ms, single_ms=first, batch=batch, bitwise=same))
+            print(f"probe time {a['label']} {label}: {ms:.5f} ms a call in a "
+                  f"batch of {batch} (one call alone {first:.5f}), {what} "
+                  f"bitwise vs {order[0]}: {same} {card}", flush=True)
+            if not same:
+                print(f"FAIL: {a['label']} {label} disagrees", flush=True)
+    for case, by in times.items():
+        med = {label: float(np.median([r["ms"] for r in rows]))
+               for label, rows in by.items()}
+        print(f"probe time {case} medians: "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in med.items())
+              + f" {card}", flush=True)
+    return times
+
+
+def bound_of(row: str, **kw):
+    """chip_smoke.py's (bound_ms, bound_by) of ``row`` (its counts, the
+    card's published rates)."""
+    import chip_smoke as cs
+
+    return cs.probe_bound(row, **kw)
+
+
+def kernel_rows(args, label: str, lib_path: Path, logs: dict, want, card):
+    """The ptxas resources of the entries matching ``want`` (and, with
+    --sass, their loops, instructions by class and MUFU kinds, the listing
+    written beside --out), printed: {entry: row}."""
+    res = {}
+    for log in logs.values():
+        res.update(ptxas_resources(log))
+    entries = sorted(e for e in res if want.search(e))
+    funcs = (sass_functions(lib_path, lambda f: f in entries)
+             if args.sass else {})
+    rows = {}
+    for e in entries:
+        r = dict(res[e])
+        if args.sass and e in funcs:
+            n_ins, loops = sass_loops(lib_path, e, funcs[e])
+            for lp in loops:
+                lp["mufu"] = mufu_kinds(funcs[e], lp)
+            r["sass"] = dict(instructions=n_ins, loops=loops,
+                             total=sass_classes(funcs[e]))
+            write_listing(args.out, label, e, funcs[e])
+        rows[e] = r
+        print(f"probe {label}: {e}: "
+              f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
+              flush=True)
+        if "sass" in r:
+            print(f"  total {r['sass']['total']}")
+            for lp in r["sass"]["loops"]:
+                print(f"  loop {lp}")
+    return rows
+
+
+def fx_main(args, variants, card) -> dict:
+    """The --fx probe: resources, SASS, the bitwise edges and the times of
+    the FX kernel (#28), and the rainbow kernel's (#27) time alone."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models.rainbow import RAINBOW_TAG
+
+    libs = build(variants, "fx")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"(18fx_partials_kernel|23rainbow_partials_kernelILi(8|32)"
+                      r"ELi13E)")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, tile = bind_fx(lib_path)
+        bound[label] = (lib, tile)
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
+        layout = fx_layout(lib, tile)
+        print(f"probe {label}: fx layout {layout} {card}", flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout)
+    edges, bad = {}, 0
+    for a in fx_cases(False):
+        inputs = fx_inputs(a, dev)
+        ref = None
+        for label, (lib, tile) in bound.items():
+            part, _ = run_fx(lib, tile, a, inputs)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(a["label"], {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {a['label']} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe fx edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        cache = {}
+
+        def run(label, a, batch, warm=False):
+            lib, tile = bound[label]
+            if a["label"] not in cache:
+                cache[a["label"]] = fx_inputs(a, dev) if a["contract"] != \
+                    "rainbow" else (
+                        bm.pack_basket(OptionParams(), bm.demo_basket(
+                            RAINBOW_TIMED[1], 0.5), 1, dev),
+                        tuple(int(k) for k in rng.derive_key(
+                            1234, engines.STREAM_OUTER, RAINBOW_TAG)))
+            inputs = cache[a["label"]]
+            if a["contract"] == "rainbow":
+                part, ms = run_rainbow(lib, inputs, 4096 if warm else a["n"],
+                                       batch)
+            else:
+                part, ms = run_fx(lib, tile, a, inputs, batch,
+                                  4096 if warm else None)
+            return (part,), ms
+
+        cases = fx_cases(True) + [dict(
+            label=f"rainbow {RAINBOW_TIMED[0]} d={RAINBOW_TIMED[1]} "
+                  f"{RAINBOW_TIMED[2]} paths", contract="rainbow",
+            n=RAINBOW_TIMED[2])]
+        times = batched_turns(bound, cases, run, FX_BATCH_MS, FX_TURNS, card,
+                              "partials")
+        bounds = {a["label"]: (bound_of("rainbow_partials", d=RAINBOW_TIMED[1],
+                                        n_paths=a["n"])
+                               if a["contract"] == "rainbow" else
+                               bound_of("fx_partials", contract=a["contract"],
+                                        n_paths=a["n"]))
+                  for a in cases}
+        for case, (b_ms, by) in bounds.items():
+            print(f"probe bound {case}: {b_ms:.5f} ms ({by}) {card}",
+                  flush=True)
         report["times"] = times
+        report["bounds"] = bounds
     return report
 
 
@@ -1843,7 +2163,17 @@ def terminal_pair_probe(args, bound, libs, card) -> dict:
 BASKET_MAIN = (1_000_000, 100)  # paths, steps: price_basket's kernel (phase 5)
 BASKET_WARM = 4096
 BASKET_D = (1, 4, 8, 9, 16, 32)
-BASKET_GRID = (100_000, 100, 4)  # #26: chip_smoke.py's GRID_PATHS, d = 4
+# #26 at chip_smoke.py's GRID_PATHS x MAIN_STEPS: the call and the bullet
+BASKET_GRID = (100_000, 100)
+BASKET_GRID_D = (1, 4, 9, 16, 32)
+BASKET_GRID_PAYOFFS = ("vanilla_call", "bullet_call")
+BASKET_GRID_BATCH_MS, BASKET_GRID_TURNS = 5.0, 2
+# #26's bitwise edges: d about each capacity, ragged path and step counts,
+# more paths than the capped grid's (8,192 blocks of 256) so blocks stride
+BASKET_EDGE_D = (1, 2, 3, 4, 5, 8, 9, 16, 17, 32)
+BASKET_EDGE_PATHS = (1, 255, 256, 257, 100_001)
+BASKET_EDGE_STEPS = (1, 2, 217)
+BASKET_GRID_PAST = (1 << 21) + 4_099
 # The basket's partials kernel of a csrc that predates mc_basket_occupancy
 # (the parent's capacities 8 and 32, one path a thread): this unit adds it,
 # for VanillaCall.
@@ -1859,38 +2189,77 @@ extern "C" int mc_basket_occupancy(int payoff_id, int d, int antithetic, int* bl
                       blocks, mc::basket_partials_kernel<mc::VanillaCall, 32>, threads, 0);
 }}
 """
+# The trajectories kernel (#26) of a csrc that predates
+# mc_basket_trajectories_occupancy (capacities 8 and 32, one path a thread,
+# a block of mc_basket_block_threads()): this adds it, for the call and the
+# bullet.
+BASKET_GRID_SHIM = """
+template <class P>
+static int probe_grid_occupancy(int d, int* blocks) {{
+  const int threads = mc_basket_block_threads();
+  return d <= 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks, mc::basket_trajectories_kernel<P, 8>, threads, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks, mc::basket_trajectories_kernel<P, 32>, threads, 0);
+}}
+
+extern "C" int mc_basket_trajectories_occupancy(int payoff_id, int d, int* blocks) {{
+  switch (payoff_id) {{
+    case mc::PAYOFF_VANILLA_CALL: return probe_grid_occupancy<mc::VanillaCall>(d, blocks);
+    case mc::PAYOFF_BULLET_CALL: return probe_grid_occupancy<mc::BulletCall>(d, blocks);
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
 
 
 def basket_sources(src: Path, out: Path):
     """The basket sources of ``src`` (basket_kernels.cu and a capacity's
     own basket<N>_kernels.cu, not the NMC's), through BASKET_SHIM where the
-    source has no occupancy entry point."""
+    source has no partials occupancy entry point and BASKET_GRID_SHIM where
+    it has no trajectories one."""
     main = src / "basket_kernels.cu"
-    if "mc_basket_occupancy" in main.read_text():
-        return [main, *(q for q in src.glob("basket*_kernels.cu")
-                        if q != main and "nmc" not in q.name)]
-    shim = out / "basket_probe.cu"
-    shim.write_text(BASKET_SHIM.format(src=src))
-    return [shim]
+    text = main.read_text()
+    shim = ""
+    if "mc_basket_occupancy" not in text:
+        shim = BASKET_SHIM
+    elif "mc_basket_trajectories_occupancy" not in text:
+        shim = f'#include "{{src}}/basket_kernels.cu"\n'
+    if "mc_basket_trajectories_occupancy" not in text:
+        shim += BASKET_GRID_SHIM
+    if shim:
+        main = out / "basket_probe.cu"
+        main.write_text(shim.format(src=src))
+    return [main, *(q for q in src.glob("basket*_kernels.cu")
+                    if q.name != "basket_kernels.cu" and "nmc" not in q.name)]
 
 
 def bind_basket(lib_path: Path):
-    """The basket entry points of a variant's library, and its paths a
-    block (``mc_basket_block_paths``; the parent's: its threads, one path
-    each)."""
+    """The basket entry points of a variant's library, its partials kernel's
+    paths a block (``mc_basket_block_paths``; before it: its threads, one
+    path each) and its trajectories kernel's
+    (``mc_basket_trajectories_block_paths``; before it: its threads)."""
     from mc_tpu_torch.ops import _cuda
 
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("mc_basket_partials", "mc_basket_trajectories",
-                 "mc_basket_block_threads"):
+    for name in ("mc_basket_partials", "mc_basket_trajectories"):
         getattr(lib, name).argtypes, getattr(lib, name).restype = \
             _cuda._SIGNATURES[name]
+    # the trajectories kernel's threads a block: at d since it has its own
+    # paths a block, a constant before
+    new = hasattr(lib, "mc_basket_trajectories_block_paths")
+    lib.mc_basket_block_threads.argtypes = [_int] if new else []
     lib.mc_basket_occupancy.argtypes = [_int, _int, _int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.mc_basket_occupancy.restype = _int
+    lib.mc_basket_trajectories_occupancy.argtypes = [
+        _int, _int, ctypes.POINTER(ctypes.c_int)]
+    lib.mc_basket_trajectories_occupancy.restype = _int
     tile = (lib.mc_basket_block_paths() if hasattr(lib, "mc_basket_block_paths")
             else lib.mc_basket_block_threads())
-    return lib, tile
+    grid_tile = (lib.mc_basket_trajectories_block_paths() if new
+                 else lib.mc_basket_block_threads())
+    return lib, tile, grid_tile
 
 
 def basket_layout(lib, d: int, anti: bool) -> dict:
@@ -1906,19 +2275,34 @@ def basket_layout(lib, d: int, anti: bool) -> dict:
     return out
 
 
+def basket_grid_layout(lib, d: int, payoff: str) -> dict:
+    """The trajectories kernel's resident blocks per SM at d (``payoff``)
+    and its threads a block there."""
+    blocks = ctypes.c_int(0)
+    st = lib.mc_basket_trajectories_occupancy(_payoff_id(payoff), d,
+                                              ctypes.byref(blocks))
+    out = dict(blocks_per_sm=blocks.value if st == 0 else None)
+    out["threads"] = (lib.mc_basket_block_threads(d)
+                      if lib.mc_basket_block_threads.argtypes
+                      else lib.mc_basket_block_threads())
+    return out
+
+
 def _payoff_id(name: str) -> int:
     from mc_tpu_torch.ops.payoffs import get_payoff
     return get_payoff(name).cuda_id
 
 
-def basket_inputs(n_paths: int, d: int, dev):
-    """(params, key) of price_basket's call at d (demo_basket(d, 0.5))."""
+def basket_inputs(n_steps: int, d: int, dev, fix=()):
+    """(params, key) of price_basket's call at d (demo_basket(d, 0.5)), the
+    packed entries ``fix`` ((index, value) pairs) overwritten."""
     from mc_tpu_torch import engines, rng
     from mc_tpu_torch.config import OptionParams
     from mc_tpu_torch.models import basket as bm
 
-    prm = bm.pack_basket(OptionParams(), bm.demo_basket(d, 0.5),
-                         BASKET_MAIN[1], dev)
+    prm = bm.pack_basket(OptionParams(), bm.demo_basket(d, 0.5), n_steps, dev)
+    for i, v in fix:
+        prm[i] = v
     key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
                                                 bm.BASKET_TAG))
     return prm, key
@@ -1939,80 +2323,125 @@ def run_basket(lib, tile, d, anti, n_paths, inputs):
     return part, t[0].elapsed_time(t[1])
 
 
-def run_basket_grid(lib, inputs):
-    """(grids, partials, ms) of one basket_trajectories call (#26)."""
-    n_paths, n_steps, d = BASKET_GRID
+def basket_grid_cases(timed: bool):
+    """#26's cases: dicts of payoff, d, n (paths), steps, offset, bound
+    (None: the run's end) and fix (packed entries overwritten).  Timed:
+    BASKET_GRID_PAYOFFS at BASKET_GRID, d in BASKET_GRID_D.  Else every
+    one-word payoff at each BASKET_EDGE_D; the call at ragged path and step
+    counts and past the capped grid; offsets and bounds that cut a block and
+    ids that wrap past 2^32; a Cholesky entry, weight or s0 of +-inf or
+    NaN."""
+    from mc_tpu_torch.models.basket import HEAD_FIELDS
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    def case(payoff, d, n, steps, offset=0, bound=None, fix=()):
+        label = (f"basket_trajectories {payoff} d={d} {n}x{steps}"
+                 + (f" offset {offset} bound {bound}" if offset or bound
+                    else "") + (f" fix {fix}" if fix else ""))
+        return dict(label=label, payoff=payoff, d=d, n=n, steps=steps,
+                    offset=offset, bound=bound, fix=tuple(fix))
+
+    if timed:
+        return [case(p, d, *BASKET_GRID) for p in BASKET_GRID_PAYOFFS
+                for d in BASKET_GRID_D]
+    one_word = [n for n, po in PAYOFFS.items() if po.n_state <= 1]
+    out = [case(p, d, 257, 3) for d in BASKET_EDGE_D for p in one_word]
+    for d in (1, 4, 5, 9, 17, 32):
+        out += [case("vanilla_call", d, n, s) for n in BASKET_EDGE_PATHS
+                for s in BASKET_EDGE_STEPS]
+    for d in (4, 9, 32):
+        out.append(case("vanilla_call", d, BASKET_GRID_PAST, 2))
+        for payoff in ("vanilla_call", "bullet_call"):
+            out += [case(payoff, d, n, 5, off, b) for off, n, b in FX_OFFSETS]
+        h, row = len(HEAD_FIELDS), min(2, d - 1)
+        # L's entry (row, 0), the last weight, the first s0
+        for at in (h + 3 * d + row * (row + 1) // 2, h + 2 * d - 1, h):
+            out += [case("vanilla_call", d, 4_099, 5, fix=((at, v),))
+                    for v in (float("inf"), float("-inf"), float("nan"))]
+    return out
+
+
+def run_basket_grid(lib, grid_tile: int, a: dict, inputs, batch: int = 1,
+                    n=None):
+    """(grids, partials, ms) of ``batch`` basket_trajectories calls (#26) of
+    case ``a`` (``n``: its path count, or another)."""
     prm, (k0, k1) = inputs
-    threads = lib.mc_basket_block_threads()
-    n_blocks = min(-(-n_paths // threads), 8192)
-    grids = torch.empty((2, n_steps, n_paths), dtype=torch.float32,
+    n = a["n"] if n is None else n
+    bound = (a["offset"] + n if a["bound"] is None else a["bound"]) & 0xFFFFFFFF
+    n_blocks = min(-(-n // grid_tile), 8192)
+    grids = torch.empty((2, a["steps"], n), dtype=torch.float32,
                         device=prm.device)
     part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    args = (_payoff_id(a["payoff"]), k0, k1, prm.data_ptr(), a["d"],
+            a["steps"], n, a["offset"] & 0xFFFFFFFF, bound,
+            grids[0].data_ptr(), grids[1].data_ptr(), part.data_ptr(),
+            n_blocks, torch.cuda.current_stream().cuda_stream)
     t = _events()
-    _check(lib.mc_basket_trajectories(
-        _payoff_id("vanilla_call"), k0, k1, prm.data_ptr(), d, n_steps,
-        n_paths, 0, n_paths, grids[0].data_ptr(), grids[1].data_ptr(),
-        part.data_ptr(), n_blocks, torch.cuda.current_stream().cuda_stream),
-        "basket_trajectories")
+    for _ in range(batch):
+        _check(lib.mc_basket_trajectories(*args), "basket_trajectories")
     t.append(_event())
     torch.cuda.synchronize()
-    return grids, part, t[0].elapsed_time(t[1])
+    return grids, part, t[0].elapsed_time(t[1]) / batch
 
 
 def basket_main(args, variants, card) -> dict:
-    """The --basket probe: resources, SASS and times of the basket's
-    partials kernel (#25) and trajectories kernel (#26)."""
+    """The --basket probe: resources, SASS, the bitwise edges and times of
+    the basket's partials kernel (#25) and trajectories kernel (#26)."""
     libs = build(variants, "basket")
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
     bound = {}
     want = re.compile(r"(22basket_partials_kernel|26basket_trajectories_kernel)"
-                      r"INS_11VanillaCallE")
+                      r"INS_(11VanillaCall|10BulletCall)E")
     for label, src, defines in variants:
         lib_path, logs = libs[label]
-        lib, tile = bind_basket(lib_path)
-        bound[label] = (lib, tile)
-        res = {}
-        for log in logs.values():
-            res.update(ptxas_resources(log))
-        entries = sorted(e for e in res if want.search(e))
-        funcs = (sass_functions(lib_path, lambda f: f in entries)
-                 if args.sass else {})
-        rows = {}
-        for e in entries:
-            r = dict(res[e])
-            if args.sass and e in funcs:
-                n_ins, loops = sass_loops(lib_path, e, funcs[e])
-                r["sass"] = dict(instructions=n_ins, loops=loops,
-                                 total=sass_classes(funcs[e]))
-                write_listing(args.out, label, e, funcs[e])
-            rows[e] = r
-            print(f"probe {label}: {e}: "
-                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
-                  flush=True)
-            if "sass" in r:
-                print(f"  total {r['sass']['total']}")
-                for lp in r["sass"]["loops"]:
-                    print(f"  loop {lp}")
+        lib, tile, grid_tile = bind_basket(lib_path)
+        bound[label] = (lib, tile, grid_tile)
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
         layout = {}
         for d in BASKET_D:
             for anti in (False, True):
                 layout[f"d={d} anti={anti}"] = basket_layout(lib, d, anti)
         print(f"probe {label}: basket_partials layout (VanillaCall) {layout} "
               f"{card}", flush=True)
+        grid_layout = dict(paths_a_block=grid_tile)
+        for d in BASKET_GRID_D:
+            for payoff in BASKET_GRID_PAYOFFS:
+                grid_layout[f"{payoff} d={d}"] = basket_grid_layout(lib, d,
+                                                                    payoff)
+        print(f"probe {label}: basket_trajectories layout {grid_layout} "
+              f"{card}", flush=True)
         report["variants"][label] = dict(src=str(src), defines=defines,
                                          kernels=rows, layout=layout,
-                                         ptxas=logs)
+                                         grid_layout=grid_layout, ptxas=logs)
+    edges, bad = {}, 0
+    for a in basket_grid_cases(False):
+        inputs = basket_inputs(a["steps"], a["d"], dev, a["fix"])
+        ref = None
+        for label, (lib, _, grid_tile) in bound.items():
+            grids, part, _ = run_basket_grid(lib, grid_tile, a, inputs)
+            ref = (grids, part) if ref is None else ref
+            same = same_bits(grids, ref[0]) and same_bits(part, ref[1])
+            edges.setdefault(a["label"], {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {a['label']} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+            del grids
+        del ref
+    print(f"probe basket_trajectories edges: {len(edges)} cases x "
+          f"{len(bound)} variants, {bad} disagree {card}", flush=True)
+    report["edges"] = edges
     if args.time:
         times = {}
         order = list(bound) + list(bound)[::-1]
         for d in BASKET_D:
-            main_in = basket_inputs(BASKET_MAIN[0], d, dev)
+            main_in = basket_inputs(BASKET_MAIN[1], d, dev)
             for anti in (False, True):
                 case = f"basket_partials call d={d} anti={anti}"
                 ref = None
                 for label in order:
-                    lib, tile = bound[label]
+                    lib, tile, _ = bound[label]
                     run_basket(lib, tile, d, anti, BASKET_WARM, main_in)
                     part, ms = run_basket(lib, tile, d, anti, BASKET_MAIN[0],
                                           main_in)
@@ -2025,24 +2454,30 @@ def basket_main(args, variants, card) -> dict:
                           f"bitwise vs {order[0]}: {same} {card}", flush=True)
                     if not same:
                         print(f"FAIL: {case} {label} disagrees", flush=True)
-        grid_in = basket_inputs(BASKET_GRID[0], BASKET_GRID[2], dev)
-        ref = None
-        case = (f"basket_trajectories call d={BASKET_GRID[2]} "
-                f"{BASKET_GRID[0]}x{BASKET_GRID[1]}")
-        for label in order:
-            lib, _ = bound[label]
-            run_basket_grid(lib, grid_in)
-            grids, part, ms = run_basket_grid(lib, grid_in)
-            ref = (grids, part) if ref is None else ref
-            same = bool(torch.equal(grids, ref[0])
-                        and torch.equal(part, ref[1]))
-            times.setdefault(case, {}).setdefault(label, []).append(
-                dict(ms=ms, bitwise=same))
-            print(f"probe time {case} {label}: {ms:.3f} ms, grids and "
-                  f"partials bitwise vs {order[0]}: {same} {card}", flush=True)
-            if not same:
-                print(f"FAIL: {case} {label} disagrees", flush=True)
+        cache = {}
+
+        def run(label, a, batch, warm=False):
+            lib, _, grid_tile = bound[label]
+            if a["label"] not in cache:
+                cache[a["label"]] = basket_inputs(a["steps"], a["d"], dev)
+            inputs = cache[a["label"]]
+            grids, part, ms = run_basket_grid(lib, grid_tile, a, inputs,
+                                              batch, BASKET_WARM if warm
+                                              else None)
+            return (grids, part), ms
+
+        cases = basket_grid_cases(True)
+        times.update(batched_turns(bound, cases, run, BASKET_GRID_BATCH_MS,
+                                   BASKET_GRID_TURNS, card,
+                                   "grids and partials"))
+        bounds = {a["label"]: bound_of("basket_trajectories", d=a["d"],
+                                       payoff=a["payoff"], n_paths=a["n"],
+                                       n_steps=a["steps"]) for a in cases}
+        for case, (b_ms, by) in bounds.items():
+            print(f"probe bound {case}: {b_ms:.5f} ms ({by}) {card}",
+                  flush=True)
         report["times"] = times
+        report["bounds"] = bounds
     return report
 
 
@@ -2787,30 +3222,7 @@ def partials_main(args, variants, card) -> dict:
         lib_path, logs = libs[label]
         lib, tiles = bind_partials(lib_path, kernels)
         bound[label] = (lib, tiles)
-        res = {}
-        for log in logs.values():
-            res.update(ptxas_resources(log))
-        entries = sorted(e for e in res if want.search(e))
-        funcs = (sass_functions(lib_path, lambda f: f in entries)
-                 if args.sass else {})
-        rows = {}
-        for e in entries:
-            r = dict(res[e])
-            if args.sass and e in funcs:
-                n_ins, loops = sass_loops(lib_path, e, funcs[e])
-                for lp in loops:
-                    lp["mufu"] = mufu_kinds(funcs[e], lp)
-                r["sass"] = dict(instructions=n_ins, loops=loops,
-                                 total=sass_classes(funcs[e]))
-                write_listing(args.out, label, e, funcs[e])
-            rows[e] = r
-            print(f"probe {label}: {e}: "
-                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
-                  flush=True)
-            if "sass" in r:
-                print(f"  total {r['sass']['total']}")
-                for lp in r["sass"]["loops"]:
-                    print(f"  loop {lp}")
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
         layout = partials_layout(lib, kernels)
         print(f"probe {label}: partials layout (VanillaCall) tiles {tiles} "
               f"{layout} {card}", flush=True)
@@ -3059,30 +3471,7 @@ def sabr_main(args, variants, card) -> dict:
         lib_path, logs = libs[label]
         lib, new_abi, tile = bind_sabr(lib_path)
         bound[label] = (lib, new_abi, tile)
-        res = {}
-        for log in logs.values():
-            res.update(ptxas_resources(log))
-        entries = sorted(e for e in res if want.search(e))
-        funcs = (sass_functions(lib_path, lambda f: f in entries)
-                 if args.sass else {})
-        rows = {}
-        for e in entries:
-            r = dict(res[e])
-            if args.sass and e in funcs:
-                n_ins, loops = sass_loops(lib_path, e, funcs[e])
-                for lp in loops:
-                    lp["mufu"] = mufu_kinds(funcs[e], lp)
-                r["sass"] = dict(instructions=n_ins, loops=loops,
-                                 total=sass_classes(funcs[e]))
-                write_listing(args.out, label, e, funcs[e])
-            rows[e] = r
-            print(f"probe {label}: {e}: "
-                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
-                  flush=True)
-            if "sass" in r:
-                print(f"  total {r['sass']['total']}")
-                for lp in r["sass"]["loops"]:
-                    print(f"  loop {lp}")
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
         layout = {}
         for unit in (0, 1):
             for anti in (0, 1):
@@ -3379,30 +3768,7 @@ def rates_main(args, variants, card) -> dict:
         lib_path, logs = libs[label]
         lib, new_abi = bind_rates(lib_path)
         bound[label] = (lib, new_abi)
-        res = {}
-        for log in logs.values():
-            res.update(ptxas_resources(log))
-        entries = sorted(e for e in res if want.search(e))
-        funcs = (sass_functions(lib_path, lambda f: f in entries)
-                 if args.sass else {})
-        rows = {}
-        for e in entries:
-            r = dict(res[e])
-            if args.sass and e in funcs:
-                n_ins, loops = sass_loops(lib_path, e, funcs[e])
-                for lp in loops:
-                    lp["mufu"] = mufu_kinds(funcs[e], lp)
-                r["sass"] = dict(instructions=n_ins, loops=loops,
-                                 total=sass_classes(funcs[e]))
-                write_listing(args.out, label, e, funcs[e])
-            rows[e] = r
-            print(f"probe {label}: {e}: "
-                  f"{ {k: v for k, v in r.items() if k != 'sass'} } {card}",
-                  flush=True)
-            if "sass" in r:
-                print(f"  total {r['sass']['total']}")
-                for lp in r["sass"]["loops"]:
-                    print(f"  loop {lp}")
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
         layout = {}
         for tile in RATES_TILES:
             for n_pay in (10, 60, RATES_CAP_DEFAULT + 1):
@@ -3472,6 +3838,8 @@ def wrappers_main(args, card) -> dict:
     import statistics
 
     import mc_tpu_torch as mt
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models import fx
     from mc_tpu_torch.ops import _cuda, fused
     from mc_tpu_torch.ops import path_kernels as pk
     from mc_tpu_torch.ops.payoffs import get_payoff
@@ -3534,6 +3902,16 @@ def wrappers_main(args, card) -> dict:
         rows[f"rates_partials {tile} {RATES_MAIN} paths n=10"] = batch_ms(
             lambda pv=pv, k=k, tile=tile: fused.fused_moment_partials(
                 tile, 10, k, pv, RATES_MAIN))
+    fx_cfg = fx.FXConfig(n_paths=n_tp)
+    fx_prm = fx.pack_fx(mt.DEMO_OPTION, fx.DEMO_FX, dev)
+    rows[f"fx_partials quanto_call {n_tp} paths"] = batch_ms(
+        lambda: fx.fx_partials("quanto_call", fx_cfg, key, fx_prm))
+    grid_cfg = bm.BasketConfig(n_paths=BASKET_GRID[0], n_steps=BASKET_GRID[1],
+                               d=4)
+    grid_prm = bm.pack_basket(mt.DEMO_OPTION, bm.DEMO_BASKET, BASKET_GRID[1],
+                              dev)
+    rows[f"basket_trajectories call d=4 {BASKET_GRID[0]}x{BASKET_GRID[1]}"] = \
+        batch_ms(lambda: bm.basket_trajectories(call, grid_cfg, key, grid_prm))
     for label, (d_ms, h_ms, n) in rows.items():
         print(f"probe wrappers {root.name}: {label}: device {d_ms:.5f} ms, "
               f"host {h_ms:.5f} ms a call (batches of {n}, median of "
@@ -3554,6 +3932,9 @@ def wrappers_main(args, card) -> dict:
     e2e = {
         "price() call 1M paths default":
             lambda: mt.price(mt.DEMO_OPTION, sim, device="cuda"),
+        "price_fx() quanto call 1M paths": lambda: mt.price_fx(
+            mt.DEMO_OPTION, fx.DEMO_FX, mt.SimParams(n_paths=n_tp),
+            device="cuda"),
         "price_swaption() Vasicek": lambda: mt.price_swaption(
             spec, mt.DEMO_VASICEK, rsim, device="cuda"),
         "price_hw_swaption() demo curve": lambda: mt.price_hw_swaption(
@@ -3586,6 +3967,7 @@ def main() -> int:
     mode.add_argument("--qmc", action="store_true")
     mode.add_argument("--gbm", action="store_true")
     mode.add_argument("--basket", action="store_true")
+    mode.add_argument("--fx", action="store_true")
     mode.add_argument("--partials", action="store_true")
     mode.add_argument("--sabr", action="store_true")
     mode.add_argument("--rates", action="store_true")
@@ -3629,6 +4011,8 @@ def main() -> int:
         return write_report(args.out, gbm_main(args, variants, card))
     if args.basket:
         return write_report(args.out, basket_main(args, variants, card))
+    if args.fx:
+        return write_report(args.out, fx_main(args, variants, card))
     if args.partials:
         return write_report(args.out, partials_main(args, variants, card))
     if args.sabr:

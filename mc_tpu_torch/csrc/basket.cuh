@@ -17,20 +17,21 @@
 // barriers price as their discrete twins); q and the GBM drift/vol
 // coefficients are NaN.
 //
-// d is a runtime value up to a capacity kMaxD, a template parameter (8 and
-// 32 here; the partials kernel of basket_partials.cuh also 4 and 16), so
-// every d in [1, 32] runs without a rebuild and the build stays a few
-// instantiations per kernel and payoff (not 32).  At a capacity up to 16
+// d is a runtime value up to a capacity kMaxD, a template parameter (8 and 32
+// for the family NMC, the rainbow and the QMC leg; the partials and
+// trajectories kernels of basket_partials.cuh take 4, 8, 16 and 32 and their
+// own legs), so every d in [1, 32] runs without a rebuild and the build stays
+// a few instantiations per kernel and payoff (not 32).  At a capacity up to 16
 // the loops over assets and normals unroll fully, guarded by i < d, and the
 // log-moneyness ws[kMaxD] and the normals z[kMaxD] live in registers (the
 // loops run to the capacity, each body guarded by i < d, no early exit); at
-// capacity 32 they stay loops to d (the 528-term Cholesky mix unrolled
-// would cost minutes of ptxas per instantiation) and the two arrays live in
-// local memory.  The Cholesky factor, s0s, weights and drifts are
-// uniform loads from the packed vector (every thread of a warp reads the
-// same word: one L1 broadcast, __ldg); the family NMC sweep
-// (basket_mix_legs, basket_levels) reads each once for its kLegs legs,
-// through plain loads, from the block's staged copy in shared memory.
+// capacity 32 they stay loops to d (the 528-term Cholesky mix unrolled would
+// cost minutes of ptxas per instantiation) and the two arrays live in local
+// memory.  The Cholesky factor, s0s, weights and drifts are uniform loads from
+// the packed vector (every thread of a warp reads the same word: one L1
+// broadcast, __ldg); the family NMC sweep (basket_mix_legs, basket_levels)
+// reads each once for its kLegs legs, through plain loads, from the block's
+// staged copy in shared memory.
 #pragma once
 
 #include <cstdint>
@@ -208,29 +209,6 @@ __device__ __forceinline__ void basket_levels(const BasketParams<kMaxD>& c,
       }
     }
   }
-}
-
-// One path's leg of n_steps from the start, step j on counters j*npps + q:
-// the payoff state after each step and the last step's level in b;
-// on_step(j, b, st) sees each step.
-template <class Payoff, int kMaxD, class OnStep>
-__device__ __forceinline__ float basket_leg(const BasketParams<kMaxD>& c, float sign,
-                                            uint32_t k0, uint32_t k1, uint32_t id, int n_steps,
-                                            OnStep on_step) {
-  float ws[kMaxD], z[kMaxD];
-#pragma unroll (BasketUnroll<kMaxD>::value)
-  for (int i = 0; i < kMaxD; ++i) ws[i] = 0.0f;
-  typename Payoff::State st = Payoff::init(c.pay);
-  float b = c.pay.s0;
-  for (int j = 0; j < n_steps; ++j) {
-    basket_draw(c, k0, k1, id, static_cast<uint32_t>(j) * static_cast<uint32_t>(c.npps), sign,
-                z);
-    basket_mix(c, z, ws);
-    b = basket_level(c, ws);
-    st = Payoff::update(st, b, c.pay);
-    on_step(j, b, st);
-  }
-  return Payoff::terminal(st, b, c.pay);
 }
 
 // The basket for the family NMC engine (mc_tpu/nmc_basket.py:44-245): the

@@ -1,11 +1,13 @@
-// The basket's partials kernel (#25) at capacity 8 (basket_partials.cuh;
-// the dispatch is in basket_kernels.cu), for sm_90a: a source of its own,
-// so the capacities' instantiations compile in parallel.
+// The basket's partials kernel (#25) and trajectories kernel (#26) at
+// capacity 8 (basket_partials.cuh; the dispatch is in basket_kernels.cu),
+// for sm_90a: a source of its own, so the capacities' instantiations compile
+// in parallel.
 
 #include "basket_partials.cuh"
 
 namespace mc {
 
 MC_DEFINE_BASKET_PARTIALS(8)
+MC_DEFINE_BASKET_TRAJECTORIES(8)
 
 }  // namespace mc

@@ -9,18 +9,15 @@
 // atomics; threefry-13; every payoff of the registry (the bridge barriers
 // read sigma = 0, as in mc_tpu's Pallas kernel).
 //
-// basket_trajectories_kernel replaces basket_trajectories_kernel
-// (mc_tpu/models/basket.py:393, the Pallas call at :409): one path a thread
-// over a grid-stride loop, the step loop drawing step j's d normals from the
-// pairs (id, j*ceil(d/2) + q), the Cholesky mix and the log increments, the
-// payoff updated on the basket level (basket_leg, basket.cuh), storing the
-// basket level and payoff state word 0 after every step, step-major (entry
-// j*n_paths + i), and the payoff's moment rows; the twelve one-word
+// basket_trajectories_kernel (#26) replaces basket_trajectories_kernel
+// (mc_tpu/models/basket.py:393, the Pallas call at :409): the same legs and
+// blocks (basket_partials.cuh), no antithetic twin, each lane storing its
+// path's basket level and payoff state word 0 after every step, step-major
+// (entry j*n_paths + i), and the payoff's moment rows; the twelve one-word
 // payoffs.  These are the (B, state) grids mc_tpu's basket LSMC regresses
 // on; the NMC's per-asset grids come from the family engine
-// (basket_nmc_kernels.cu).  It takes any d in [1, 32] through two
-// capacities, kMaxD = 8 (d <= 8: registers) and 32 (d > 8: local memory;
-// basket.cuh).
+// (basket_nmc_kernels.cu).  mc_basket_trajectories picks the capacity of d,
+// as mc_basket_partials does.
 //
 // What bounds them on the H100: operations.  A step spends ceil(d/2)
 // threefry pairs, the mix's d(d+1)/2 multiplies and d(d-1)/2 adds, d expf
@@ -41,52 +38,31 @@
 
 namespace mc {
 
-// The trajectories kernel's block.
-constexpr int kBasketThreads = 256;
-
-template <class Payoff, int kMaxD>
-__global__ void __launch_bounds__(kBasketThreads)
-basket_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params, int d,
-                           int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
-                           float* __restrict__ b_grid, float* __restrict__ state_grid,
-                           double* __restrict__ partials) {
-  const BasketParams<kMaxD> c = load_basket<kMaxD>(params, d);
-  double acc[2] = {0.0, 0.0};
-  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
-  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_paths; i += stride) {
-    const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    const float pv[1] = {basket_leg<Payoff>(
-        c, 1.0f, k0, k1, id, n_steps,
-        [&](int j, float b, const typename Payoff::State& st) {
-          const size_t at = static_cast<size_t>(j) * n_paths + i;
-          b_grid[at] = b;
-          state_grid[at] = Payoff::kStates ? st.w[0] : 0.0f;
-        })};
-    add_moments(acc, pv, id < bound);
-  }
-  block_store_moments<2, kBasketThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
-                                         2);
-}
-
-template <class Payoff, int kMaxD>
-cudaError_t launch_basket_trajectories(uint32_t k0, uint32_t k1, const float* params, int d,
-                                       int n_steps, uint32_t n_paths, uint32_t path_offset,
-                                       uint32_t bound, float* b_grid, float* state_grid,
-                                       double* partials, int n_blocks, cudaStream_t stream) {
-  basket_trajectories_kernel<Payoff, kMaxD><<<n_blocks, kBasketThreads, 0, stream>>>(
-      k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, state_grid, partials);
-  return cudaGetLastError();
-}
-
 MC_DEFINE_BASKET_PARTIALS(4)
+MC_DEFINE_BASKET_TRAJECTORIES(4)
 
 }  // namespace mc
 
 extern "C" {
 
-// The trajectories kernel's threads a block (one path each).
-int mc_basket_block_threads() { return mc::kBasketThreads; }
+// The trajectories kernel's paths a block (its grid: ceil(n_paths / it),
+// capped), its threads a block at d (kBasketTile over its paths a thread
+// there) and its resident blocks per SM (a one-word payoff at d).
+int mc_basket_trajectories_block_paths() { return mc::kBasketTile; }
+int mc_basket_block_threads(int d) {
+  return d >= 1 && d <= 32
+             ? mc::kBasketTile / mc::basket_grid_paths_per_thread(mc::basket_capacity(d))
+             : 0;
+}
+int mc_basket_trajectories_occupancy(int payoff_id, int d, int* blocks) {
+  if (d < 1 || d > 32) return cudaErrorInvalidValue;
+  switch (mc::basket_capacity(d)) {
+    case 4: return mc::basket_trajectories_occupancy_4(payoff_id, blocks);
+    case 8: return mc::basket_trajectories_occupancy_8(payoff_id, blocks);
+    case 16: return mc::basket_trajectories_occupancy_16(payoff_id, blocks);
+    default: return mc::basket_trajectories_occupancy_32(payoff_id, blocks);
+  }
+}
 
 // The partials kernel's paths a block (its grid: ceil(n_paths / it),
 // capped), the capacity that runs d and the paths a thread there.
@@ -128,26 +104,24 @@ int mc_basket_partials(int payoff_id, int antithetic, uint32_t k0, uint32_t k1,
 #undef MC_BASKET_ARGS
 }
 
-// b_grid, state_grid: (n_steps, n_paths) f32; partials (n_blocks, 2) f64.
+// b_grid, state_grid: (n_steps, n_paths) f32; partials (n_blocks, 2) f64;
+// n_blocks blocks of mc_basket_trajectories_block_paths() paths.
 int mc_basket_trajectories(int payoff_id, uint32_t k0, uint32_t k1, const float* params, int d,
                            int n_steps, uint32_t n_paths, uint32_t path_offset, uint32_t bound,
                            float* b_grid, float* state_grid, double* partials, int n_blocks,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 1 || d > 32 || n_steps < 1) return cudaErrorInvalidValue;
-#define MC_CASE(ID, PAYOFF)                                                              \
-  case mc::ID:                                                                           \
-    return d <= 8 ? mc::launch_basket_trajectories<mc::PAYOFF, 8>(                       \
-                        k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, \
-                        state_grid, partials, n_blocks, s)                               \
-                  : mc::launch_basket_trajectories<mc::PAYOFF, 32>(                      \
-                        k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, \
-                        state_grid, partials, n_blocks, s);
-  switch (payoff_id) {
-    MC_ONE_WORD_PAYOFFS(MC_CASE)
-    default: return cudaErrorInvalidValue;
+#define MC_BASKET_ARGS                                                                     \
+  payoff_id, k0, k1, params, d, n_steps, n_paths, path_offset, bound, b_grid, state_grid, \
+      partials, n_blocks, s
+  switch (mc::basket_capacity(d)) {
+    case 4: return mc::basket_trajectories_4(MC_BASKET_ARGS);
+    case 8: return mc::basket_trajectories_8(MC_BASKET_ARGS);
+    case 16: return mc::basket_trajectories_16(MC_BASKET_ARGS);
+    default: return mc::basket_trajectories_32(MC_BASKET_ARGS);
   }
-#undef MC_CASE
+#undef MC_BASKET_ARGS
 }
 
 }  // extern "C"

@@ -22,17 +22,19 @@ The payoffs see b0 = sum_i w_i s0_i as s0 and sigma = k*0: the Brownian-
 bridge barriers then price as their discrete twins, as ``mc_tpu``'s Pallas
 kernel does (its XLA dual reads the option's sigma instead; ROADMAP C16).
 
-Two kernels, in ``csrc/basket_kernels.cu``:
+Two kernels, in ``csrc/basket_partials.cuh``, at the capacity that fits d
+(4, 8, 16 or 32; a source a capacity, ``csrc/basket_kernels.cu`` and
+``csrc/basket{8,16,32}_kernels.cu``):
 
 * ``basket_partials`` (replaces ``_basket_partials``,
   ``mc_tpu/models/basket.py:268``): the step loop, threefry-13, the
-  antithetic leg (every normal negated) after the first in the same
-  thread, [sum pay, sum pay^2] per block in f64.
+  antithetic leg (every normal negated) in lockstep with the first on the
+  same draw, [sum pay, sum pay^2] per block in f64.
 * ``basket_trajectories`` (replaces ``basket_trajectories_kernel``,
-  ``mc_tpu/models/basket.py:393``): the same loop storing the basket level
-  B and payoff state word 0 after every step, step-major ``(n_steps,
-  n_paths)`` (the grids ``mc_tpu``'s basket LSMC reads), plus the payoff's
-  moment rows.
+  ``mc_tpu/models/basket.py:393``): the same loop, several paths a thread
+  in lockstep, storing the basket level B and payoff state word 0 after
+  every step, step-major ``(n_steps, n_paths)`` (the grids ``mc_tpu``'s
+  basket LSMC reads), plus the payoff's moment rows.
 
 The NMC's d per-asset price grids are a third store of the same leg
 (``nmc_basket``).  Counters, as in ``mc_tpu``: step j of path ``id`` takes
@@ -450,8 +452,8 @@ def basket_trajectories(payoff: PathPayoff, cfg: BasketConfig, key,
                                          path_offset, n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_basket_block_threads()),
-                   _cuda.MAX_BLOCKS)
+    n_blocks = partials_blocks(cfg.n_paths,
+                               lib.mc_basket_trajectories_block_paths())
     grids = torch.empty((2, cfg.n_steps, cfg.n_paths), dtype=torch.float32,
                         device=params.device)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,

@@ -23,9 +23,10 @@ with exact closed forms (``oracle.gk_call``, ``quanto_call``,
 contract onto the single-asset GBM engine.
 
 One kernel, in ``csrc/fx_kernels.cu``: ``fx_partials`` (replaces
-``_fx_partials``, ``mc_tpu/models/fx.py:208``), threefry-13 or -20, the
-contract a runtime switch (uniform across the grid), [sum pay, sum pay^2]
-per block in f64.  The wrapper takes its plain PyTorch version below only
+``_fx_partials``, ``mc_tpu/models/fx.py:208``), threefry-13 or -20, an
+instantiation a contract (picked on the host; each computes only the
+terminal values its payoff reads), 256 paths a block run several a thread
+in lockstep, [sum pay, sum pay^2] per block in f64.  The wrapper takes its plain PyTorch version below only
 when the parameter tensor lies on the CPU; for a CUDA tensor it launches
 the kernel or raises.
 """
@@ -203,7 +204,7 @@ def fx_partials(contract: str, cfg: FXConfig, key, params: torch.Tensor,
                                  n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_fx_block_threads()),
+    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_fx_block_paths()),
                    _cuda.MAX_BLOCKS)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)

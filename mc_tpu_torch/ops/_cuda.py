@@ -132,13 +132,20 @@ _SIGNATURES = {
     # antithetic, n_steps, blocks
     "mc_divs_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_vasicek_block_threads": ([], _c_int),
-    "mc_basket_block_threads": ([], _c_int),
+    # d
+    "mc_basket_block_threads": ([_c_int], _c_int),
+    "mc_basket_trajectories_block_paths": ([], _c_int),
+    # payoff_id, d, blocks
+    "mc_basket_trajectories_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_basket_block_paths": ([], _c_int),
     "mc_basket_capacity": ([_c_int], _c_int),
     "mc_basket_paths_per_thread": ([_c_int], _c_int),
     # payoff_id, d, antithetic, blocks
     "mc_basket_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
-    "mc_fx_block_threads": ([], _c_int),
+    "mc_fx_block_paths": ([], _c_int),
+    "mc_fx_paths_per_thread": ([], _c_int),
+    # contract, blocks
+    "mc_fx_occupancy": ([_c_int, _c_ptr], _c_int),
     "mc_rainbow_block_threads": ([], _c_int),
     "mc_qmc_block_threads": ([], _c_int),
     "mc_qmc_bridge_threads": ([_c_int], _c_int),
@@ -376,20 +383,21 @@ def _run_all(cmds: list[list[str]], jobs: int) -> list[tuple[str, float]]:
 
 
 # Each source's nvcc seconds on the H100 machine (chip_smoke.py phase 1
-# prints them; NVIDIA H100 80GB HBM3 host, 7 compilers at once): the build
+# prints them; NVIDIA H100 80GB HBM3 host, 7 compilers at once; the basket
+# and FX sources from a host ~1.35x slower than the rest's): the build
 # starts the longest first, so the pool ends together.  A source not listed
 # starts before them, the largest unit first (_unit_bytes).
 NVCC_SECONDS = {
-    "basket32_kernels.cu": 73.4, "batch_kernels.cu": 31.2,
+    "basket32_kernels.cu": 114.2, "batch_kernels.cu": 31.2,
     "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 30.5,
     "localvol10_kernels.cu": 30.1, "localvol_kernels.cu": 30.0,
-    "basket_nmc_kernels.cu": 29.1, "basket16_kernels.cu": 28.5,
+    "basket_nmc_kernels.cu": 29.1, "basket16_kernels.cu": 38.6,
     "bates_qe_kernels.cu": 28.0, "path_kernels.cu": 9.1,
     "simulate_kernels.cu": 29.7, "simulate20_kernels.cu": 30.2,
-    "basket_kernels.cu": 23.6, "sabr_kernels.cu": 19.6,
+    "basket_kernels.cu": 21.4, "sabr_kernels.cu": 19.6,
     "sabr1_kernels.cu": 18.1, "merton_nmc_kernels.cu": 18.0,
     "heston_qe_kernels.cu": 18.9, "bates_nmc_kernels.cu": 17.6,
-    "basket8_kernels.cu": 17.2, "localvol_nmc_kernels.cu": 17.1,
+    "basket8_kernels.cu": 19.9, "localvol_nmc_kernels.cu": 17.1,
     "vasicek_nmc_kernels.cu": 15.9, "qmc_kernels.cu": 15.9,
     "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 14.3,
     "basket_nmc32_kernels.cu": 13.8, "vasicek_kernels.cu": 13.7,
@@ -404,7 +412,7 @@ NVCC_SECONDS = {
     "term_kernels.cu": 6.5, "qmc_heston_kernels.cu": 6.4,
     "cev_kernels.cu": 11.0, "qmc_basket32_kernels.cu": 6.1,
     "rates_kernels.cu": 5.5, "rainbow_kernels.cu": 3.8,
-    "fx_kernels.cu": 3.2, "reduce_kernels.cu": 3.0}
+    "fx_kernels.cu": 7.4, "reduce_kernels.cu": 3.0}
 
 
 def _build_order(src: Path):
