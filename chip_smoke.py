@@ -273,6 +273,9 @@ GREEK_TERM_PATHS = 1 << 20           # phase 2: terminal pathwise payoffs
 GREEK_EULER_PATHS = 65_536           # phase 2: Asian, lookback (100, 99 steps)
 GREEK_PATHS = 1_000_000              # phases 2-3: the call's greeks, terminal
 GREEK_STEP_PATHS = 100_000           # phases 2-3: 100,000 x 100, the CLI default
+# phase 2: past the capped grid (MAX_BLOCKS x 256 = 2^21 paths), so blocks
+# grid-stride: the terminal call, the Euler call and Asian over 2 steps
+GREEK_PAST = (1 << 21) + 4_099
 FD_BUMP = 0.05                       # the bullet's CRN-FD bump (h = 5 at S0)
 CHUNK_PATHS, N_CHUNKS = 1 << 20, 4   # phase 3: chunked_price, resume after 2
 REDUCE_SIZES = (1, 1_000_003, 1 << 20, 1 << 26)  # 2^20 misaligned too
@@ -431,6 +434,10 @@ TERMINAL_DRAW_OPS = (0, 3, 1)  # S_T = s0 * exp(drift_t + vol_t * z)
 # the payoff's five values and their squares.
 GREEK_STEP_OPS = (0, 1 + 2 + 8 + 5, 0)
 GREEK_TERMINAL_OPS = (0, 8 + 4 * 3 + 2 + 10, 0)
+# ... and for a payoff without state (the call, the put, best-of-cash) the
+# Euler loop moves w (3) and sum_z (1) a step and forms S once, at maturity
+# (SPOT_OPS): no tangent and no S at the steps.
+GREEK_STATELESS_STEP_OPS = (0, 3 + 1, 0)
 # A Heston Euler step on top of its whole threefry pair (heston.cuh): z_s
 # (3), v+ (1), sq (2 and a sqrtf), w (6), v (7).
 HESTON_EULER_STEP_OPS = (0, 19, 1)
@@ -2832,6 +2839,10 @@ def single_bounds(singles):
 # rainbow's #29/#30 ---------------------------------------------------------
 
 FX_KERNELS = ("fx_partials",)
+# phase 2: #27 about each capacity (basket_capacity: 4, 8, 16, 32), at a
+# ragged path count (its last block cut)
+RAINBOW_EDGE_D = (1, 4, 5, 8, 9, 16, 17, 32)
+RAINBOW_RAGGED = 4_099
 RAINBOW_KERNELS = ("rainbow_partials", "family_trajectories", "family_inner",
                    "family_fused")
 QMC_KERNELS = ("qmc_sums", "qmc_bridge_sums")
@@ -2891,6 +2902,25 @@ def fx_path_ops(contract: str):
     from mc_tpu_torch.models.fx import FX_CONTRACTS
 
     return _add(pair_ops(13), FX_KIND_OPS[FX_CONTRACTS[contract] >> 1])
+
+
+def greek_path_ops(payoff: str, method: str, n_steps: int):
+    """A path of the greek kernel (#8, greek_kernels.cu) and its finish:
+    the terminal draw; or the log-Euler loop, a pair per two steps, which
+    for a payoff with state (the Asian) takes the step of path_ops and
+    GREEK_STEP_OPS each step and for one without (the call, the put)
+    GREEK_STATELESS_STEP_OPS, S once at maturity; then the tangents, the
+    five values and their squares (GREEK_TERMINAL_OPS)."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    if method == "terminal":
+        return _add(pair_ops(13), TERMINAL_DRAW_OPS, GREEK_TERMINAL_OPS)
+    if get_payoff(payoff).n_state == 0:
+        return _add(_scale(pair_ops(13), (n_steps + 1) // 2),
+                    _scale(GREEK_STATELESS_STEP_OPS, n_steps), SPOT_OPS,
+                    GREEK_TERMINAL_OPS)
+    return _add(path_ops(payoff, n_steps, 13),
+                _scale(GREEK_STEP_OPS, n_steps), GREEK_TERMINAL_OPS)
 
 
 def rainbow_path(d: int, antithetic: bool = False):
@@ -3110,6 +3140,13 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
                  antithetic=True)
     for d in (1, 2, 8, 9, 32):
         rainbow_case("call_on_max", FAMILY_PATHS, bm.demo_basket(d, 0.5))
+    # each capacity's edges (4, 8, 16, 32), the plain and the antithetic
+    # kernel, at a ragged path count
+    for d in RAINBOW_EDGE_D:
+        for anti in (False, True):
+            rainbow_case("put_on_min" if anti else "call_on_max",
+                         RAINBOW_RAGGED, bm.demo_basket(d, 0.5),
+                         antithetic=anti)
 
     def pack(o, _, n_steps, dv):
         return bm.pack_basket(o, demo, n_steps, dv)
@@ -3603,6 +3640,18 @@ def fx_rainbow_qmc_times(mt, dev, keys, regs, ptxas, tag, time_pair, ref_ms,
             "call_on_max", rcfg, keys["rainbow"][0], rprm))
         print(f"phase 5: {label} {FAMILY_MAIN} paths: kernel {k_ms:.4f} ms "
               f"(spread {sp:.1%}) {tag}")
+    for d in (2, 4, 9, 32):
+        for anti in (0, 1):
+            blocks = ctypes.c_int(0)
+            _cuda.check(lib.mc_rainbow_occupancy(d, anti,
+                                                 ctypes.byref(blocks)),
+                        "mc_rainbow_occupancy")
+            b_ms = probe_bound("rainbow_partials", d=d, n_paths=FAMILY_MAIN,
+                               antithetic=bool(anti))[0]
+            print(f"phase 5: rainbow_partials d={d} anti={anti}: "
+                  f"{lib.mc_rainbow_paths_per_thread(d)} paths a thread, "
+                  f"{blocks.value} blocks/SM; bound at {FAMILY_MAIN} paths "
+                  f"{b_ms:.5f} ms {tag}")
     print(f"phase 5: rainbow_partials d=4: "
           f"{out['rainbow_partials'][0] / ref_ms['basket_partials']:.4f}x the "
           f"basket's 1M x 100 partials ({ref_ms['basket_partials']:.4f} ms); "
@@ -3722,17 +3771,22 @@ def fx_rainbow_qmc_bounds():
 
 def probe_bound(row: str, **kw):
     """bound() of a call that family_nmc_probe.py times at a shape of its
-    own: fx_partials (contract, n_paths), rainbow_partials (call_on_max at
-    d, n_paths) and basket_trajectories (payoff, d, n_paths, n_steps: the
-    level and state grids written)."""
+    own: fx_partials (contract, n_paths), greek_partials (payoff, method,
+    n_paths, n_steps), rainbow_partials (d, n_paths, antithetic: False by
+    default; every payoff counted as call_on_max) and basket_trajectories
+    (payoff, d, n_paths, n_steps: the level and state grids written)."""
     from mc_tpu_torch.models.basket import packed_length
 
     n = kw["n_paths"]
     if row == "fx_partials":
         return bound(44, _scale(fx_path_ops(kw["contract"]), n))
+    if row == "greek_partials":
+        return bound(0, _scale(greek_path_ops(kw["payoff"], kw["method"],
+                                              kw["n_steps"]), n))
     d = kw["d"]
     if row == "rainbow_partials":
-        return bound(4 * packed_length(d), _scale(rainbow_path(d), n))
+        return bound(4 * packed_length(d), _scale(
+            rainbow_path(d, kw.get("antithetic", False)), n))
     if row == "basket_trajectories":
         steps = kw["n_steps"]
         path = _add(basket_path(d, steps),
@@ -4986,6 +5040,10 @@ def main() -> int:
                       for n_steps in (MAIN_STEPS, MAIN_STEPS - 1)]
         if name == "vanilla_call" or not get_payoff(name).terminal_only:
             shapes.append(("euler", GREEK_STEP_PATHS, MAIN_STEPS))
+        if name == "vanilla_call":
+            shapes.append(("terminal", GREEK_PAST, MAIN_STEPS))
+        if name in ("vanilla_call", "asian_call"):
+            shapes.append(("euler", GREEK_PAST, 2))
         for method, n_paths, n_steps in shapes:
             greek_err = max(greek_err, greek_case(name, method, n_paths,
                                                   n_steps))
@@ -5726,28 +5784,51 @@ def main() -> int:
 
     # The greek kernel beside the simulate kernel on its shape (what the
     # tangents cost): the call over the 1M-path terminal draw, the Asian
-    # over 100,000 x 100.
+    # and the call over 100,000 x 100.
     asian = get_payoff("asian_call")
     greek_ms = {}
+    lib = _cuda.load()
     for label, po, cfg in (
             (f"call terminal {GREEK_PATHS} paths", call, pk.KernelConfig(
                 n_paths=GREEK_PATHS, n_steps=MAIN_STEPS, method="terminal")),
             (f"asian euler {GREEK_STEP_PATHS}x{MAIN_STEPS}", asian,
+             pk.KernelConfig(n_paths=GREEK_STEP_PATHS, n_steps=MAIN_STEPS)),
+            (f"call euler {GREEK_STEP_PATHS}x{MAIN_STEPS}", call,
              pk.KernelConfig(n_paths=GREEK_STEP_PATHS, n_steps=MAIN_STEPS))):
-        greek_ms[po.name] = time_pair(
-            "greek_partials",
-            lambda po=po, cfg=cfg: pk.simulate_greek_partials(po, cfg, key,
-                                                              p100),
-            lambda po=po, cfg=cfg: pk.simulate_greek_partials_plain(
-                po, cfg, key, p100), label)
+        euler = int(cfg.method == "euler")
+        if (po.name, euler) == ("vanilla_call", 1):  # no plain time: greek_ms
+            # holds the phase-6 rows, the terminal call and the Asian
+            g_ms, sp_g, _ = cuda_ms(lambda po=po, cfg=cfg:
+                                    pk.simulate_greek_partials(po, cfg, key,
+                                                               p100))
+            line = f"{g_ms:.4f} ms (spread {sp_g:.1%})"
+        else:
+            greek_ms[po.name] = time_pair(
+                "greek_partials",
+                lambda po=po, cfg=cfg: pk.simulate_greek_partials(po, cfg, key,
+                                                                  p100),
+                lambda po=po, cfg=cfg: pk.simulate_greek_partials_plain(
+                    po, cfg, key, p100), label)
+            g_ms = greek_ms[po.name][0]
+            line = f"{g_ms:.4f} ms"
         sim_only, sp, _ = cuda_ms(lambda po=po, cfg=cfg: pk.simulate_partials(
             po, cfg, key, p100))
         struct = type(po).__name__
-        print(f"phase 5: greek_partials {label}: {greek_ms[po.name][0]:.4f} ms"
-              f" = {greek_ms[po.name][0] / sim_only:.2f}x simulate_partials "
-              f"on the same paths ({sim_only:.4f} ms, spread {sp:.1%}); "
-              f"registers greek {regs.get(('greek_kernel', struct, 13))}, "
-              f"simulate {regs.get(sim_key(po, cfg))} {tag}")
+        blocks = ctypes.c_int(0)
+        _cuda.check(lib.mc_greek_occupancy(po.cuda_id, euler,
+                                           ctypes.byref(blocks)),
+                    "mc_greek_occupancy")
+        b_ms = probe_bound("greek_partials", payoff=po.name,
+                           method=cfg.method, n_paths=cfg.n_paths,
+                           n_steps=cfg.n_steps)[0]
+        print(f"phase 5: greek_partials {label}: {line} = "
+              f"{g_ms / sim_only:.2f}x simulate_partials on the same paths "
+              f"({sim_only:.4f} ms, spread {sp:.1%}), {b_ms / g_ms:.1%} of "
+              f"its bound ({b_ms:.5f} ms); registers greek "
+              f"{regs.get(('greek_kernel', struct, (13, euler)))}, "
+              f"{lib.mc_greek_paths_per_thread(euler)} paths a thread, "
+              f"{blocks.value} blocks/SM; simulate {regs.get(sim_key(po, cfg))} "
+              f"{tag}")
 
     # The reductions beside torch.sum(dtype=float64), the one PyTorch call
     # that computes the sum (and one of sum_sumsq's two moments).
@@ -6066,8 +6147,8 @@ def main() -> int:
         for row, src, tpu, shape in (
             ("fx_partials", "fx_kernels.cu", "models/fx.py:208",
              f"quanto_call {FAMILY_MAIN} paths"),
-            ("rainbow_partials", "rainbow_kernels.cu", "models/rainbow.py:135",
-             f"call_on_max d=4 {FAMILY_MAIN} paths"),
+            ("rainbow_partials", "rainbow_partials.cuh",
+             "models/rainbow.py:135", f"call_on_max d=4 {FAMILY_MAIN} paths"),
             ("family_trajectories_rainbow", "rainbow_nmc_kernels.cu",
              "nmc_engine.py:445 (no Pallas counterpart: the XLA scan "
              "xla_family_trajectories)",

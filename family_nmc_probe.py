@@ -5,7 +5,9 @@ the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), the
 book (#7) and the simulate kernel (#2 simulate_kernel), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
 basket_partials_kernel, #26 basket_trajectories_kernel), or with ``--fx``
-the FX kernel (#28 fx_partials_kernel) and the rainbow's (#27), or with
+the FX kernel (#28 fx_partials_kernel) and the rainbow's (#27
+rainbow_partials_kernel), or with ``--greeks`` the pathwise-greek kernel
+(#8 greek_kernel), or with
 ``--partials`` the local-vol, Merton, CEV and cash-dividend partials
 kernels (#19 localvol_partials_kernel, #14 merton_partials_kernel, #18
 cev_partials_kernel, #22 divs_partials_kernel), the Heston and Bates QE
@@ -16,7 +18,7 @@ what they cost in registers, spills, shared memory and resident blocks,
 their SASS loops, and their times.
 
     python3 family_nmc_probe.py [--qmc | --gbm | --basket | --fx |
-                                 --partials | --sabr | --rates |
+                                 --greeks | --partials | --sabr | --rates |
                                  --wrappers DIR]
                                 [--kernels NAME,...]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
@@ -124,17 +126,34 @@ of every capacity up to 16.  ``--sass`` writes each listed kernel's SASS
 beside ``--out``.
 
 ``--fx`` builds ``fx_kernels.cu`` (an older commit's through a unit
-adding ``mc_fx_occupancy``) and ``rainbow_kernels.cu`` (through a unit
-adding its resident blocks), prints the ptxas resources of every FX
-instantiation and of the rainbow's threefry-13 ones, each contract's
-resident blocks per SM and the paths a block and a thread; runs 384 FX
-edge cases (fx_cases: every contract under threefry-13 and -20 at 1 to
-2^24 paths, offsets and bounds past 2^32, rho +-1 and 0, sigma 0, s0 or
-x0 of +-0, +inf, NaN, drifts past expf's range) bitwise against the first
-variant; ``--time`` times the quanto, GK and compo calls at 1M and 2^24
-paths and the rainbow's (#27) best-of call at d = 4 on 1M paths, each
-call a batch's share (>= 20 ms), in 3 pairs of turns, beside the bounds
-chip_smoke.py counts (``probe_bound``).
+adding ``mc_fx_occupancy``) and the rainbow's sources (#27:
+``rainbow_kernels.cu`` and ``rainbow32_kernels.cu``; an older commit's
+through a unit adding ``mc_rainbow_occupancy``), prints the ptxas
+resources of every FX instantiation and of the rainbow's threefry-13 ones,
+each contract's resident blocks per SM and the paths a block and a
+thread, and the rainbow's paths a thread and blocks per SM about each
+capacity; runs 384 FX edge cases (fx_cases: every contract under
+threefry-13 and -20 at 1 to 2^24 paths, offsets and bounds past 2^32, rho
++-1 and 0, sigma 0, s0 or x0 of +-0, +inf, NaN, drifts past expf's range)
+and 488 rainbow edge cases (rainbow_cases: every payoff, plain and
+antithetic, under both rounds at d about every capacity; 1 to 2^21 + 3
+paths; offsets and bounds past 2^32; an s0, a drift or a Cholesky entry of
++-inf or NaN) bitwise against the first variant; ``--time`` times the
+quanto, GK and compo calls at 1M and 2^24 paths and RAINBOW_TIMED's
+rainbow calls on 1M paths, each call a batch's share (>= 20 ms), in 3
+pairs of turns, beside the bounds chip_smoke.py counts (``probe_bound``).
+``--kernels fx`` or ``--kernels rainbow`` takes one half.
+
+``--greeks`` builds ``greek_kernels.cu`` (the pathwise-greek kernel #8;
+an older commit's through a unit adding ``mc_greek_occupancy``), prints
+the ptxas resources of its threefry-13 instantiations, each mode's paths a
+thread and each payoff's blocks per SM, (``--sass``) their loops; runs 168
+edge cases (greek_cases: the five pathwise payoffs by each mode they take
+under both rounds, 1 to 2^21 + 3 paths, 1 to 217 steps, sigma = 0, s0 =
++inf) bitwise against the first variant; ``--time`` times GREEK_TIMED (the
+call at 1M terminal, the Asian and the call by Euler at 100,000 x 100),
+each call a batch's share (>= 5 ms), in 3 pairs of turns, beside its
+bound.
 
 ``--partials`` builds ``localvol_kernels.cu``, each knot capacity's
 ``localvol<N>_kernels.cu`` and ``merton_kernels.cu`` (a source without
@@ -223,14 +242,18 @@ reads them in place past it; a variant whose copy of ``csrc`` sets
 DIR's ``build/``) and times the calls that chip_smoke.py's phase 5 times at
 a shape the host owns: #1 through ``terminal_pair_partials`` on the 1M-path
 call, #11 through ``fused_moment_partials`` per tile at 2^20 paths and
-10 payments, #28 through ``fx_partials`` on the 1M-path quanto call and
+10 payments, #28 through ``fx_partials`` on the 1M-path quanto call,
 #26 through ``basket_trajectories`` on the call at 100,000 x 100, d = 4,
+#27 through ``rainbow_partials`` on the 1M-path best-of call at d = 4 and
+antithetic at d = 2 and #8 through ``simulate_greek_partials`` at
+GREEK_TIMED's shapes,
 each as a batch's share of the CUDA events (>= 5 ms a batch) and as the
 host clock's share of the same batch before its synchronize (the
 wrapper's own host time, the launches queued behind it); and end to end
 (host clock, each call ended by a synchronize) ``price()``'s 1M-path
-call, ``price_fx()``'s 1M-path quanto call and the six swaption rows,
-payer, at 2^20 paths.  Each row is the
+call, ``price_fx()``'s 1M-path quanto call, ``price_rainbow()``'s 1M-path
+best-of call at d = 4, ``greeks()``'s fused-kernel call at 1M terminal and
+Asian at 100,000 x 100 and the six swaption rows, payer, at 2^20 paths.  Each row is the
 median of WRAP_REPS.  Run it once a process from each of two checkouts in
 turns (A B B A ...) to compare their host paths on one host.
 
@@ -441,7 +464,9 @@ def probe_sources(src: Path, mode: str, out: Path, kernels=None):
     if mode == "basket":
         return basket_sources(src, out)
     if mode == "fx":
-        return fx_sources(src, out)
+        return fx_sources(src, out, kernels or FX_PARTS)
+    if mode == "greeks":
+        return greek_sources(src, out)
     if mode == "partials":
         return partials_sources(src, out, kernels or PARTIALS_KERNELS)
     return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
@@ -1835,7 +1860,24 @@ FX_EDGE_FIX = tuple(
     + [({}, dict(x0=v)) for v in (0.0, -0.0, float("inf"), float("nan"))]
     + [({}, dict(r_f=100.0)), (dict(r=100.0), {})])  # drifts past expf's range
 FX_EDGE_FIX_PATHS = 4_099
-RAINBOW_TIMED = ("call_on_max", 4, 1_000_000)  # chip_smoke.py's phase-5 row
+# #27 at chip_smoke.py's FAMILY_MAIN paths, threefry-13: (payoff, d,
+# antithetic): the best-of call about every capacity, its antithetic leg at
+# d = 4, the d = 2 exchange and worst-of call antithetic (price_rainbow's
+# Margrabe and Stulz gates), every other payoff at d = 4
+RAINBOW_MAIN = 1_000_000
+RAINBOW_TIMED = tuple(
+    [("call_on_max", d, False) for d in (1, 2, 4, 5, 8, 9, 16, 32)]
+    + [("call_on_max", 4, True), ("exchange", 2, True), ("call_on_min", 2, True)]
+    + [(name, 4, False) for name in ("call_on_min", "put_on_max", "put_on_min",
+                                     "exchange", "best_of_cash")])
+# #27's bitwise edges: every payoff at the d about each capacity (at
+# RAINBOW_EDGE_N paths), ragged path counts past the capped grid, FX_OFFSETS'
+# offsets and bounds, and an s0, a drift or a Cholesky entry of +-inf or NaN
+RAINBOW_EDGE_D = (1, 2, 3, 4, 5, 8, 9, 16, 17, 32)
+RAINBOW_EDGE_N = 4_099
+RAINBOW_EDGE_PATHS = (1, 255, 256, 257, 100_001, (1 << 21) + 3)
+RAINBOW_PATHS_D = (2, 4, 9, 32)
+RAINBOW_FIX_VALUES = (float("inf"), float("-inf"), float("nan"))
 # A call lasts ~0.01 ms at 1M paths, of the order of a launch: its batches
 # last >= 20 ms and the variants take 3 pairs of turns (as --gbm's #1).
 FX_BATCH_MS, FX_TURNS = 20.0, 3
@@ -1850,11 +1892,14 @@ extern "C" int mc_fx_occupancy(int contract, int* blocks) {{
       blocks, mc::fx_partials_kernel<13>, mc_fx_block_threads(), 0);
 }}
 """
-# The rainbow kernel (#27, timed alone beside #28): this unit adds its
-# resident blocks per SM (threefry-13, the capacity of d).
+# The rainbow kernel (#27) of a csrc that predates mc_rainbow_occupancy
+# (capacities 8 and 32, one path a thread, the antithetic leg a runtime
+# flag): this unit adds its resident blocks per SM (threefry-13, the
+# capacity of d).
 RAINBOW_SHIM = """#include "{src}/rainbow_kernels.cu"
 
-extern "C" int probe_rainbow_occupancy(int d, int* blocks) {{
+extern "C" int mc_rainbow_occupancy(int d, int antithetic, int* blocks) {{
+  (void)antithetic;
   const int threads = mc_rainbow_block_threads();
   return d <= 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                       blocks, mc::rainbow_partials_kernel<8, 13>, threads, 0)
@@ -1862,61 +1907,92 @@ extern "C" int probe_rainbow_occupancy(int d, int* blocks) {{
                       blocks, mc::rainbow_partials_kernel<32, 13>, threads, 0);
 }}
 """
+FX_PARTS = ("fx", "rainbow")
 
 
-def fx_sources(src: Path, out: Path):
+def fx_sources(src: Path, out: Path, kernels=FX_PARTS):
     """``src``'s fx_kernels.cu (through FX_SHIM where it has no
-    ``mc_fx_occupancy``) and its rainbow_kernels.cu through
-    RAINBOW_SHIM."""
+    ``mc_fx_occupancy``) and its rainbow sources (rainbow_kernels.cu and
+    rainbow32_kernels.cu; through RAINBOW_SHIM where it has
+    no ``mc_rainbow_occupancy``), those of ``kernels``."""
     srcs = []
     fx = src / "fx_kernels.cu"
-    if "mc_fx_occupancy" in fx.read_text():
+    if "fx" not in kernels:
+        pass
+    elif "mc_fx_occupancy" in fx.read_text():
         srcs.append(fx)
     else:
         unit = out / "fx_probe.cu"
         unit.write_text(FX_SHIM.format(src=src))
         srcs.append(unit)
+    if "rainbow" not in kernels:
+        return srcs
+    if "mc_rainbow_occupancy" in (src / "rainbow_kernels.cu").read_text():
+        return [*srcs, *(q for q in sorted(src.glob("rainbow*_kernels.cu"))
+                         if "_nmc" not in q.name)]
     unit = out / "rainbow_probe.cu"
     unit.write_text(RAINBOW_SHIM.format(src=src))
     return [*srcs, unit]
 
 
 def bind_fx(lib_path: Path):
-    """The FX and rainbow entry points of a variant's library, and its FX
-    paths a block (``mc_fx_block_paths``; the parent's: its threads, one
-    path each)."""
+    """The FX and rainbow entry points of a variant's library (those it
+    has), its FX paths a block (``mc_fx_block_paths``; the parent's: its
+    threads, one path each) and its rainbow paths a block
+    (``mc_rainbow_block_paths``; the parent's: its threads)."""
     from mc_tpu_torch.ops import _cuda
 
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("mc_fx_partials", "mc_rainbow_partials",
-                 "mc_rainbow_block_threads"):
-        getattr(lib, name).argtypes, getattr(lib, name).restype = \
-            _cuda._SIGNATURES[name]
-    for name in ("mc_fx_occupancy", "probe_rainbow_occupancy"):
-        getattr(lib, name).argtypes = [_int, ctypes.POINTER(ctypes.c_int)]
-        getattr(lib, name).restype = _int
+    for name in ("mc_fx_partials", "mc_rainbow_partials"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = \
+                _cuda._SIGNATURES[name]
+    if hasattr(lib, "mc_fx_occupancy"):
+        lib.mc_fx_occupancy.argtypes = [_int, ctypes.POINTER(ctypes.c_int)]
+        lib.mc_fx_occupancy.restype = _int
+    if hasattr(lib, "mc_rainbow_occupancy"):
+        lib.mc_rainbow_occupancy.argtypes = [_int, _int,
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.mc_rainbow_occupancy.restype = _int
     tile = (lib.mc_fx_block_paths() if hasattr(lib, "mc_fx_block_paths")
-            else lib.mc_fx_block_threads())
-    return lib, tile
+            else lib.mc_fx_block_threads() if hasattr(lib, "mc_fx_block_threads")
+            else None)
+    rtile = (lib.mc_rainbow_block_paths()
+             if hasattr(lib, "mc_rainbow_block_paths")
+             else lib.mc_rainbow_block_threads()
+             if hasattr(lib, "mc_rainbow_block_threads") else None)
+    return lib, (tile, rtile)
 
 
-def fx_layout(lib, tile: int) -> dict:
+def fx_layout(lib, tiles) -> dict:
     """Each contract's resident blocks per SM (threefry-13), the paths a
-    block and a thread (where exported) and the rainbow's blocks at d = 4
-    and 32."""
-    from mc_tpu_torch.models.fx import FX_CONTRACTS
+    block and a thread (where exported); the rainbow's paths a block, and
+    at each capacity's edge d its paths a thread (where exported; else 1)
+    and resident blocks per SM, plain and antithetic."""
+    out = {}
+    if tiles[0] is not None:
+        from mc_tpu_torch.models.fx import FX_CONTRACTS
 
-    out = dict(paths_a_block=tile)
-    if hasattr(lib, "mc_fx_paths_per_thread"):
-        out["paths_a_thread"] = lib.mc_fx_paths_per_thread()
-    for name, cid in FX_CONTRACTS.items():
-        blocks = ctypes.c_int(0)
-        st = lib.mc_fx_occupancy(cid, ctypes.byref(blocks))
-        out[f"blocks_per_sm {name}"] = blocks.value if st == 0 else None
-    for d in (4, 32):
-        blocks = ctypes.c_int(0)
-        st = lib.probe_rainbow_occupancy(d, ctypes.byref(blocks))
-        out[f"rainbow blocks_per_sm d={d}"] = blocks.value if st == 0 else None
+        out["paths_a_block"] = tiles[0]
+        if hasattr(lib, "mc_fx_paths_per_thread"):
+            out["paths_a_thread"] = lib.mc_fx_paths_per_thread()
+        for name, cid in FX_CONTRACTS.items():
+            blocks = ctypes.c_int(0)
+            st = lib.mc_fx_occupancy(cid, ctypes.byref(blocks))
+            out[f"blocks_per_sm {name}"] = blocks.value if st == 0 else None
+    if tiles[1] is not None:
+        out["rainbow paths_a_block"] = tiles[1]
+        for d in (1, 2, 4, 5, 8, 9, 16, 17, 32):
+            row = dict(
+                paths_a_thread=(lib.mc_rainbow_paths_per_thread(d)
+                                if hasattr(lib, "mc_rainbow_paths_per_thread")
+                                else 1))
+            for anti in (0, 1):
+                blocks = ctypes.c_int(0)
+                st = lib.mc_rainbow_occupancy(d, anti, ctypes.byref(blocks))
+                row[f"blocks_per_sm anti={anti}"] = (blocks.value if st == 0
+                                                     else None)
+            out[f"rainbow d={d}"] = row
     return out
 
 
@@ -1984,18 +2060,93 @@ def run_fx(lib, tile: int, a: dict, inputs, batch: int = 1, n=None):
     return part, t[0].elapsed_time(t[1]) / batch
 
 
-def run_rainbow(lib, inputs, n: int, batch: int = 1):
-    """(partials, ms) of ``batch`` rainbow_partials calls (#27) of
-    RAINBOW_TIMED's payoff and d, threefry-13."""
+def rainbow_fix_entries(d: int):
+    """The pack entries an edge case sets to +-inf or NaN (pack_basket's
+    layout): asset 1's s0, asset 2's drift, L[2][1] and, at d = 32, L[20][13]
+    (in the third block of 8 rows)."""
+    from mc_tpu_torch.models.basket import packed_length
+
+    head, chol = 10, 10 + 3 * d
+    out = [head + 1, head + 2 * d + 2, chol + 3 + 1]
+    if d == 32:
+        out.append(chol + 20 * 21 // 2 + 13)
+    assert max(out) < packed_length(d)
+    return tuple(out)
+
+
+def rainbow_cases(timed: bool):
+    """#27's cases: dicts of payoff, d, anti, rounds, n (paths), offset,
+    bound (None: the run's end) and fix ((pack index, value), ...).  Timed:
+    RAINBOW_TIMED at RAINBOW_MAIN paths.  Else every payoff, plain and
+    antithetic, under threefry-13 and -20, at RAINBOW_EDGE_D (the exchange
+    from d = 2); RAINBOW_EDGE_PATHS at RAINBOW_PATHS_D; FX_OFFSETS at d = 4
+    and 32; and the non-finite entries of rainbow_fix_entries."""
     from mc_tpu_torch.models.rainbow import RAINBOW_PAYOFFS
 
-    name, d, _ = RAINBOW_TIMED
+    def case(payoff, d, anti=False, rounds=13, n=RAINBOW_EDGE_N, offset=0,
+             bound=None, fix=()):
+        label = (f"rainbow {payoff} d={d} anti={int(anti)} r{rounds} {n} paths"
+                 + (f" offset {offset} bound {bound}" if offset or bound
+                    else "") + (f" fix {fix}" if fix else ""))
+        return dict(label=label, contract="rainbow", payoff=payoff, d=d,
+                    anti=anti, rounds=rounds, n=n, offset=offset, bound=bound,
+                    fix=fix)
+
+    if timed:
+        return [case(p, d, a, n=RAINBOW_MAIN) for p, d, a in RAINBOW_TIMED]
+    out = []
+    for payoff, (_, min_d) in RAINBOW_PAYOFFS.items():
+        for anti in (False, True):
+            for rounds in (13, 20):
+                out += [case(payoff, d, anti, rounds) for d in RAINBOW_EDGE_D
+                        if d >= min_d]
+    for anti in (False, True):
+        for d in RAINBOW_PATHS_D:
+            out += [case("call_on_max", d, anti, n=n)
+                    for n in RAINBOW_EDGE_PATHS]
+        for d in (4, 32):
+            out += [case("put_on_min", d, anti, n=n, offset=off, bound=b)
+                    for off, n, b in FX_OFFSETS]
+    for d in (4, 9, 32):
+        payoffs = RAINBOW_PAYOFFS if d == 4 else ("call_on_max", "put_on_min")
+        for payoff in payoffs:
+            for anti in (False, True):
+                out += [case(payoff, d, anti, fix=((i, v),))
+                        for i in rainbow_fix_entries(d)
+                        for v in RAINBOW_FIX_VALUES]
+    return out
+
+
+def rainbow_inputs(a: dict, dev):
+    """(params, key) of a rainbow case: pack_basket at n_steps = 1 of
+    OptionParams() and demo_basket(d, 0.5), its fix entries set;
+    price_rainbow's key at seed 1234."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.models import basket as bm
+    from mc_tpu_torch.models.rainbow import RAINBOW_TAG
+
+    prm = bm.pack_basket(OptionParams(), bm.demo_basket(a["d"], 0.5), 1, dev)
+    for i, v in a["fix"]:
+        prm[i] = v
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
+                                                RAINBOW_TAG))
+    return prm, key
+
+
+def run_rainbow(lib, tile: int, a: dict, inputs, batch: int = 1, n=None):
+    """(partials, ms) of ``batch`` back-to-back rainbow_partials calls (#27)
+    of case ``a`` (``n``: its path count, or another)."""
+    from mc_tpu_torch.models.rainbow import RAINBOW_PAYOFFS
+
     prm, (k0, k1) = inputs
-    n_blocks = min(-(-n // lib.mc_rainbow_block_threads()), 8192)
+    n = a["n"] if n is None else n
+    bound = (a["offset"] + n if a["bound"] is None else a["bound"]) & 0xFFFFFFFF
+    n_blocks = min(-(-n // tile), 8192)
     part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
-    args = (RAINBOW_PAYOFFS[name][0], 13, 0, k0, k1, prm.data_ptr(), d, n, 0,
-            n, part.data_ptr(), n_blocks,
-            torch.cuda.current_stream().cuda_stream)
+    args = (RAINBOW_PAYOFFS[a["payoff"]][0], a["rounds"], int(a["anti"]), k0,
+            k1, prm.data_ptr(), a["d"], n, a["offset"] & 0xFFFFFFFF, bound,
+            part.data_ptr(), n_blocks, torch.cuda.current_stream().cuda_stream)
     t = _events()
     for _ in range(batch):
         _check(lib.mc_rainbow_partials(*args), "rainbow_partials")
@@ -2080,33 +2231,48 @@ def kernel_rows(args, label: str, lib_path: Path, logs: dict, want, card):
 
 def fx_main(args, variants, card) -> dict:
     """The --fx probe: resources, SASS, the bitwise edges and the times of
-    the FX kernel (#28), and the rainbow kernel's (#27) time alone."""
-    from mc_tpu_torch import engines, rng
-    from mc_tpu_torch.config import OptionParams
-    from mc_tpu_torch.models import basket as bm
-    from mc_tpu_torch.models.rainbow import RAINBOW_TAG
-
-    libs = build(variants, "fx")
+    the FX kernel (#28) and the rainbow kernel (#27), those of
+    ``--kernels`` (fx, rainbow; both by default)."""
+    parts = args.kernels or FX_PARTS
+    libs = build(variants, "fx", parts)
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
     bound = {}
-    want = re.compile(r"(18fx_partials_kernel|23rainbow_partials_kernelILi(8|32)"
+    want = re.compile(r"(18fx_partials_kernel|23rainbow_partials_kernelILi\d+"
                       r"ELi13E)")
     for label, src, defines in variants:
         lib_path, logs = libs[label]
-        lib, tile = bind_fx(lib_path)
-        bound[label] = (lib, tile)
+        lib, tiles = bind_fx(lib_path)
+        bound[label] = (lib, tiles)
         rows = kernel_rows(args, label, lib_path, logs, want, card)
-        layout = fx_layout(lib, tile)
+        layout = fx_layout(lib, tiles)
         print(f"probe {label}: fx layout {layout} {card}", flush=True)
         report["variants"][label] = dict(src=str(src), defines=defines,
                                          kernels=rows, layout=layout)
+    cases = {"edges": [], "times": []}
+    if "fx" in parts:
+        cases["edges"] += fx_cases(False)
+        cases["times"] += fx_cases(True)
+    if "rainbow" in parts:
+        cases["edges"] += rainbow_cases(False)
+        cases["times"] += rainbow_cases(True)
+
+    def inputs_of(a):
+        return (rainbow_inputs(a, dev) if a["contract"] == "rainbow"
+                else fx_inputs(a, dev))
+
+    def run(label, a, inputs, batch=1, n=None):
+        lib, (tile, rtile) = bound[label]
+        if a["contract"] == "rainbow":
+            return run_rainbow(lib, rtile, a, inputs, batch, n)
+        return run_fx(lib, tile, a, inputs, batch, n)
+
     edges, bad = {}, 0
-    for a in fx_cases(False):
-        inputs = fx_inputs(a, dev)
+    for a in cases["edges"]:
+        inputs = inputs_of(a)
         ref = None
-        for label, (lib, tile) in bound.items():
-            part, _ = run_fx(lib, tile, a, inputs)
+        for label in bound:
+            part, _ = run(label, a, inputs)
             ref = part if ref is None else ref
             same = same_bits(part, ref)
             edges.setdefault(a["label"], {})[label] = same
@@ -2120,39 +2286,243 @@ def fx_main(args, variants, card) -> dict:
     if args.time:
         cache = {}
 
-        def run(label, a, batch, warm=False):
-            lib, tile = bound[label]
+        def timed(label, a, batch, warm=False):
             if a["label"] not in cache:
-                cache[a["label"]] = fx_inputs(a, dev) if a["contract"] != \
-                    "rainbow" else (
-                        bm.pack_basket(OptionParams(), bm.demo_basket(
-                            RAINBOW_TIMED[1], 0.5), 1, dev),
-                        tuple(int(k) for k in rng.derive_key(
-                            1234, engines.STREAM_OUTER, RAINBOW_TAG)))
-            inputs = cache[a["label"]]
-            if a["contract"] == "rainbow":
-                part, ms = run_rainbow(lib, inputs, 4096 if warm else a["n"],
-                                       batch)
-            else:
-                part, ms = run_fx(lib, tile, a, inputs, batch,
-                                  4096 if warm else None)
+                cache[a["label"]] = inputs_of(a)
+            part, ms = run(label, a, cache[a["label"]], batch,
+                           4096 if warm else None)
             return (part,), ms
 
-        cases = fx_cases(True) + [dict(
-            label=f"rainbow {RAINBOW_TIMED[0]} d={RAINBOW_TIMED[1]} "
-                  f"{RAINBOW_TIMED[2]} paths", contract="rainbow",
-            n=RAINBOW_TIMED[2])]
-        times = batched_turns(bound, cases, run, FX_BATCH_MS, FX_TURNS, card,
-                              "partials")
-        bounds = {a["label"]: (bound_of("rainbow_partials", d=RAINBOW_TIMED[1],
-                                        n_paths=a["n"])
+        times = batched_turns(bound, cases["times"], timed, FX_BATCH_MS,
+                              FX_TURNS, card, "partials")
+        bounds = {a["label"]: (bound_of("rainbow_partials", d=a["d"],
+                                        n_paths=a["n"], antithetic=a["anti"])
                                if a["contract"] == "rainbow" else
                                bound_of("fx_partials", contract=a["contract"],
                                         n_paths=a["n"]))
+                  for a in cases["times"]}
+        for case, (b_ms, by) in bounds.items():
+            med = {label: float(np.median([r["ms"] for r in rows]))
+                   for label, rows in times[case].items()}
+            print(f"probe bound {case}: {b_ms:.5f} ms ({by}); share "
+                  + ", ".join(f"{k} {b_ms / v:.1%}" for k, v in med.items())
+                  + f" {card}", flush=True)
+        report["times"] = times
+        report["bounds"] = bounds
+    return report
+
+
+# --- the pathwise-greek kernel (--greeks) ------------------------------------
+
+# #8 at chip_smoke.py's shapes (phase 5 and the main path's greeks()):
+# (payoff, method, paths, steps), threefry-13
+GREEK_TIMED = (("vanilla_call", "terminal", 1_000_000, 100),
+               ("asian_call", "euler", 100_000, 100),
+               ("vanilla_call", "euler", 100_000, 100))
+# greeks()'s fused-kernel route (chip_smoke.py's kernel_which)
+GREEK_WHICH = ("delta", "vega", "rho", "epsilon")
+# #8's bitwise edges: ragged path counts past the capped grid (2^21 paths:
+# 8,192 blocks of 256) at 100 steps, step counts odd and even at
+# GREEK_EDGE_N paths, and sigma = 0 (sqrt_dt = 0/0) and an infinite s0
+GREEK_EDGE_PATHS = (1, 255, 256, 257, 100_001, (1 << 21) + 3)
+GREEK_EDGE_STEPS = (1, 2, 99, 217)
+GREEK_EDGE_N = 4_099
+GREEK_EDGE_FIX = ({"sigma": 0.0}, {"s0": float("inf")})
+# A call lasts 0.03-0.05 ms: batches of >= 5 ms, 3 pairs of turns.
+GREEK_BATCH_MS, GREEK_TURNS = 5.0, 3
+# A greek_kernels.cu that predates mc_greek_occupancy (one path a thread,
+# the mode a runtime argument, a block of kGreekThreads paths): this unit
+# adds it (threefry-13, either mode the one kernel), its paths a block and
+# a thread.
+GREEK_SHIM = """#include "{src}/greek_kernels.cu"
+
+template <class P>
+static int probe_greek_occupancy(int* blocks) {{
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::greek_kernel<P, 13>,
+                                                       mc::kGreekThreads, 0);
+}}
+
+extern "C" int mc_greek_block_paths() {{ return mc::kGreekThreads; }}
+extern "C" int mc_greek_paths_per_thread(int euler) {{ (void)euler; return 1; }}
+extern "C" int mc_greek_occupancy(int payoff_id, int euler, int* blocks) {{
+  (void)euler;
+#define MC_CASE(ID, PAYOFF) \\
+  case mc::ID:              \\
+    return probe_greek_occupancy<mc::PAYOFF>(blocks);
+  switch (payoff_id) {{
+    MC_PATHWISE_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }}
+#undef MC_CASE
+}}
+"""
+
+
+def greek_sources(src: Path, out: Path):
+    """``src``'s greek_kernels.cu, through GREEK_SHIM where it has no
+    ``mc_greek_occupancy``."""
+    own = src / "greek_kernels.cu"
+    if "mc_greek_occupancy" in own.read_text():
+        return [own]
+    unit = out / "greek_probe.cu"
+    unit.write_text(GREEK_SHIM.format(src=src))
+    return [unit]
+
+
+def bind_greeks(lib_path: Path):
+    """The greek kernel's entry points of a variant's library."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mc_greek_partials.argtypes, lib.mc_greek_partials.restype = \
+        _cuda._SIGNATURES["mc_greek_partials"]
+    lib.mc_greek_occupancy.argtypes = [_int, _int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.mc_greek_occupancy.restype = _int
+    return lib, lib.mc_greek_block_paths()
+
+
+def greek_layout(lib, tile: int) -> dict:
+    """The paths a block, the paths a thread of each mode and the resident
+    blocks per SM of each pathwise payoff's threefry-13 kernels (terminal
+    where it takes the terminal draw, Euler)."""
+    from mc_tpu_torch.ops.payoffs import PATHWISE, get_payoff
+
+    lib.mc_greek_paths_per_thread.argtypes = [_int]
+    out = dict(paths_a_block=tile,
+               paths_a_thread_terminal=lib.mc_greek_paths_per_thread(0),
+               paths_a_thread_euler=lib.mc_greek_paths_per_thread(1))
+    for name in PATHWISE:
+        po = get_payoff(name)
+        for euler in ((1,) if not po.terminal_only else (0, 1)):
+            blocks = ctypes.c_int(0)
+            st = lib.mc_greek_occupancy(po.cuda_id, euler,
+                                        ctypes.byref(blocks))
+            out[f"blocks_per_sm {name} {'euler' if euler else 'terminal'}"] = \
+                blocks.value if st == 0 else None
+    return out
+
+
+def greek_cases(timed: bool):
+    """#8's cases: dicts of payoff, method, rounds, n (paths), steps and fix
+    (fields over OptionParams()).  Timed: GREEK_TIMED.  Else each pathwise
+    payoff by each method it takes (the Asian and the lookback by Euler
+    only) under threefry-13 and -20: GREEK_EDGE_PATHS at 100 steps,
+    GREEK_EDGE_STEPS (Euler) and GREEK_EDGE_FIX at GREEK_EDGE_N paths."""
+    from mc_tpu_torch.ops.payoffs import PATHWISE, get_payoff
+
+    def case(payoff, method, n, steps, rounds=13, fix=None):
+        label = (f"greek {payoff} {method} r{rounds} {n}x{steps}"
+                 + (f" {fix}" if fix else ""))
+        return dict(label=label, payoff=payoff, method=method, rounds=rounds,
+                    n=n, steps=steps, fix=fix or {})
+
+    if timed:
+        return [case(*t) for t in GREEK_TIMED]
+    out = []
+    for payoff in PATHWISE:
+        methods = (("terminal", "euler") if get_payoff(payoff).terminal_only
+                   else ("euler",))
+        for method in methods:
+            for rounds in (13, 20):
+                out += [case(payoff, method, n, 100, rounds)
+                        for n in GREEK_EDGE_PATHS]
+                if method == "euler":
+                    out += [case(payoff, method, GREEK_EDGE_N, steps, rounds)
+                            for steps in GREEK_EDGE_STEPS]
+                out += [case(payoff, method, GREEK_EDGE_N, 100, rounds, fix)
+                        for fix in GREEK_EDGE_FIX]
+    return out
+
+
+def greek_inputs(a: dict, dev):
+    """(params, key) of a greek case: pack_params of its option fields at
+    its steps; a fixed key."""
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    return (pk.pack_params(OptionParams(**a["fix"]), a["steps"], dev),
+            (0x1234ABCD, 0x5A97))
+
+
+def run_greek(lib, tile: int, a: dict, inputs, batch: int = 1, n=None):
+    """(partials, ms) of ``batch`` back-to-back greek_partials calls (#8) of
+    case ``a`` (``n``: its path count, or another)."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    prm, (k0, k1) = inputs
+    n = a["n"] if n is None else n
+    n_blocks = min(-(-n // tile), 8192)
+    part = torch.empty((n_blocks, 10), dtype=torch.float64, device=prm.device)
+    args = (get_payoff(a["payoff"]).cuda_id, a["rounds"],
+            int(a["method"] == "euler"), k0, k1, prm.data_ptr(), a["steps"],
+            n, part.data_ptr(), n_blocks,
+            torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_greek_partials(*args), "greek_partials")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def greeks_main(args, variants, card) -> dict:
+    """The --greeks probe: resources, SASS, the bitwise edges and the times
+    of the pathwise-greek kernel (#8)."""
+    libs = build(variants, "greeks")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"12greek_kernelI.*Li13E")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, tile = bind_greeks(lib_path)
+        bound[label] = (lib, tile)
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
+        layout = greek_layout(lib, tile)
+        print(f"probe {label}: greek layout {layout} {card}", flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout)
+    edges, bad = {}, 0
+    for a in greek_cases(False):
+        inputs = greek_inputs(a, dev)
+        ref = None
+        for label, (lib, tile) in bound.items():
+            part, _ = run_greek(lib, tile, a, inputs)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(a["label"], {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {a['label']} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe greek edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        cache = {}
+
+        def timed(label, a, batch, warm=False):
+            lib, tile = bound[label]
+            if a["label"] not in cache:
+                cache[a["label"]] = greek_inputs(a, dev)
+            part, ms = run_greek(lib, tile, a, cache[a["label"]], batch,
+                                 4096 if warm else None)
+            return (part,), ms
+
+        cases = greek_cases(True)
+        times = batched_turns(bound, cases, timed, GREEK_BATCH_MS,
+                              GREEK_TURNS, card, "partials")
+        bounds = {a["label"]: bound_of("greek_partials", payoff=a["payoff"],
+                                       method=a["method"], n_paths=a["n"],
+                                       n_steps=a["steps"])
                   for a in cases}
         for case, (b_ms, by) in bounds.items():
-            print(f"probe bound {case}: {b_ms:.5f} ms ({by}) {card}",
-                  flush=True)
+            med = {label: float(np.median([r["ms"] for r in rows]))
+                   for label, rows in times[case].items()}
+            print(f"probe bound {case}: {b_ms:.5f} ms ({by}); share "
+                  + ", ".join(f"{k} {b_ms / v:.1%}" for k, v in med.items())
+                  + f" {card}", flush=True)
         report["times"] = times
         report["bounds"] = bounds
     return report
@@ -3840,6 +4210,7 @@ def wrappers_main(args, card) -> dict:
     import mc_tpu_torch as mt
     from mc_tpu_torch.models import basket as bm
     from mc_tpu_torch.models import fx
+    from mc_tpu_torch.models import rainbow as rb
     from mc_tpu_torch.ops import _cuda, fused
     from mc_tpu_torch.ops import path_kernels as pk
     from mc_tpu_torch.ops.payoffs import get_payoff
@@ -3912,6 +4283,19 @@ def wrappers_main(args, card) -> dict:
                               dev)
     rows[f"basket_trajectories call d=4 {BASKET_GRID[0]}x{BASKET_GRID[1]}"] = \
         batch_ms(lambda: bm.basket_trajectories(call, grid_cfg, key, grid_prm))
+    for d, anti in ((4, False), (2, True)):
+        rb_cfg = rb.RainbowConfig(n_paths=n_tp, d=d, antithetic=anti)
+        rb_prm = bm.pack_basket(mt.DEMO_OPTION, bm.demo_basket(d, 0.5), 1, dev)
+        rows[f"rainbow_partials call_on_max d={d} anti={int(anti)} {n_tp} "
+             f"paths"] = batch_ms(lambda rb_cfg=rb_cfg, rb_prm=rb_prm:
+                                  rb.rainbow_partials("call_on_max", rb_cfg,
+                                                      key, rb_prm))
+    for payoff, method, n, steps in GREEK_TIMED:
+        g_cfg = pk.KernelConfig(n_paths=n, n_steps=steps, method=method)
+        g_po = get_payoff(payoff)
+        rows[f"greek_partials {payoff} {method} {n}x{steps}"] = batch_ms(
+            lambda g_cfg=g_cfg, g_po=g_po: pk.simulate_greek_partials(
+                g_po, g_cfg, key, params))
     for label, (d_ms, h_ms, n) in rows.items():
         print(f"probe wrappers {root.name}: {label}: device {d_ms:.5f} ms, "
               f"host {h_ms:.5f} ms a call (batches of {n}, median of "
@@ -3935,6 +4319,14 @@ def wrappers_main(args, card) -> dict:
         "price_fx() quanto call 1M paths": lambda: mt.price_fx(
             mt.DEMO_OPTION, fx.DEMO_FX, mt.SimParams(n_paths=n_tp),
             device="cuda"),
+        "price_rainbow() call_on_max d=4 1M paths": lambda: mt.price_rainbow(
+            mt.DEMO_OPTION, bm.DEMO_BASKET, mt.SimParams(n_paths=n_tp),
+            device="cuda"),
+        "greeks() pathwise (fused kernel) call 1M terminal": lambda: mt.greeks(
+            mt.DEMO_OPTION, sim, which=GREEK_WHICH, device="cuda"),
+        "greeks() pathwise (fused kernel) asian 100000x100": lambda: mt.greeks(
+            mt.DEMO_OPTION, mt.SimParams(n_paths=100_000, n_steps=100),
+            "asian_call", which=GREEK_WHICH, device="cuda"),
         "price_swaption() Vasicek": lambda: mt.price_swaption(
             spec, mt.DEMO_VASICEK, rsim, device="cuda"),
         "price_hw_swaption() demo curve": lambda: mt.price_hw_swaption(
@@ -3968,6 +4360,7 @@ def main() -> int:
     mode.add_argument("--gbm", action="store_true")
     mode.add_argument("--basket", action="store_true")
     mode.add_argument("--fx", action="store_true")
+    mode.add_argument("--greeks", action="store_true")
     mode.add_argument("--partials", action="store_true")
     mode.add_argument("--sabr", action="store_true")
     mode.add_argument("--rates", action="store_true")
@@ -3977,7 +4370,8 @@ def main() -> int:
                     help="--partials: a comma list of localvol, merton, cev, "
                          "divs, heston_qe, bates_qe, heston_euler (all by "
                          "default); --gbm: of nmc, book, simulate, "
-                         "terminal_pair (all by default)")
+                         "terminal_pair (all by default); --fx: of fx, "
+                         "rainbow (both by default)")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--out", default="build/family_probe.json")
@@ -4013,6 +4407,8 @@ def main() -> int:
         return write_report(args.out, basket_main(args, variants, card))
     if args.fx:
         return write_report(args.out, fx_main(args, variants, card))
+    if args.greeks:
+        return write_report(args.out, greeks_main(args, variants, card))
     if args.partials:
         return write_report(args.out, partials_main(args, variants, card))
     if args.sabr:

@@ -18,20 +18,21 @@
 // coefficients are NaN.
 //
 // d is a runtime value up to a capacity kMaxD, a template parameter (8 and 32
-// for the family NMC, the rainbow and the QMC leg; the partials and
-// trajectories kernels of basket_partials.cuh take 4, 8, 16 and 32 and their
-// own legs), so every d in [1, 32] runs without a rebuild and the build stays
-// a few instantiations per kernel and payoff (not 32).  At a capacity up to 16
-// the loops over assets and normals unroll fully, guarded by i < d, and the
-// log-moneyness ws[kMaxD] and the normals z[kMaxD] live in registers (the
-// loops run to the capacity, each body guarded by i < d, no early exit); at
-// capacity 32 they stay loops to d (the 528-term Cholesky mix unrolled would
-// cost minutes of ptxas per instantiation) and the two arrays live in local
-// memory.  The Cholesky factor, s0s, weights and drifts are uniform loads from
-// the packed vector (every thread of a warp reads the same word: one L1
-// broadcast, __ldg); the family NMC sweep (basket_mix_legs, basket_levels)
-// reads each once for its kLegs legs, through plain loads, from the block's
-// staged copy in shared memory.
+// for the family NMC and the QMC leg; the partials and trajectories kernels
+// of basket_partials.cuh and the rainbow's of rainbow_partials.cuh take 4,
+// 8, 16 and 32 and their own legs), so every d in [1, 32] runs without a
+// rebuild and the build stays a few instantiations per kernel and payoff
+// (not 32).  At a capacity up to 16 the loops over assets and normals
+// unroll fully, guarded by i < d, and the log-moneyness ws[kMaxD] and the
+// normals z[kMaxD] live in registers (the loops run to the capacity, each
+// body guarded by i < d, no early exit); at capacity 32 they stay loops to d
+// (the 528-term Cholesky mix unrolled would cost minutes of ptxas per
+// instantiation) and the two arrays live in local memory.  The Cholesky
+// factor, s0s, weights and drifts are uniform loads from the packed vector
+// (every thread of a warp reads the same word: one L1 broadcast, __ldg); the
+// family NMC sweep (basket_mix_legs, basket_levels) reads each once for its
+// kLegs legs, through plain loads, from the block's staged copy in shared
+// memory.
 #pragma once
 
 #include <cstdint>
@@ -124,20 +125,6 @@ __device__ __forceinline__ void basket_mix(const BasketParams<kMaxD>& c, const f
       ws[i] = (ws[i] + __ldg(c.drift + i)) + c.sqrt_dt * y;
     }
   }
-}
-
-// y_i alone, in the same order: the rainbow's terminal draw
-// (rainbow_kernels.cu), which adds no log-moneyness.
-template <int kMaxD>
-__device__ __forceinline__ float basket_mix_y(const BasketParams<kMaxD>& c,
-                                              const float (&z)[kMaxD], int i) {
-  const float* row = c.chol + i * (i + 1) / 2;
-  float y = __ldg(row) * z[0];
-#pragma unroll (BasketUnroll<kMaxD>::value)
-  for (int k = 1; k < basket_bound<kMaxD>(i + 1); ++k) {
-    if (k <= i) y = y + __ldg(row + k) * z[k];
-  }
-  return y;
 }
 
 // B = w_0 S_0 + w_1 S_1 + ... in i order, S_i = s0_i * expf(w_i);

@@ -15,13 +15,16 @@ basket's at n_steps = 1 (``pack_basket``: the drifts span the full horizon,
 sqrt_dt = sqrt(T)); the weights are ignored.  Gates: Margrabe (1978) and
 Stulz (1982) at d = 2 (``oracle.margrabe``, ``oracle.stulz_*``).
 
-One kernel, in ``csrc/rainbow_kernels.cu``: ``rainbow_partials`` (replaces
-``_rainbow_partials``, ``mc_tpu/models/rainbow.py:135``), d a runtime value
-up to 32 through the basket's two capacities, threefry-13 or -20, the
-payoff a runtime switch, the antithetic leg (every normal negated) in the
-same thread, [sum pay, sum pay^2] per block in f64.  The wrapper takes its
-plain PyTorch version below only when the parameter tensor lies on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+One kernel, in ``csrc/rainbow_partials.cuh`` (instantiated in
+``csrc/rainbow_kernels.cu`` and ``csrc/rainbow32_kernels.cu``):
+``rainbow_partials`` (replaces ``_rainbow_partials``,
+``mc_tpu/models/rainbow.py:135``), d a runtime value up to 32 through the
+basket's capacities (4, 8, 16, 32, picked in the library), threefry-13 or
+-20, the payoff a runtime switch, the plain and the antithetic path
+(every normal negated) kernels apart, 256 paths a block and several a
+thread in lockstep, [sum pay, sum pay^2] per block in f64.  The wrapper
+takes its plain PyTorch version below only when the parameter tensor lies
+on the CPU; for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -157,7 +160,7 @@ def rainbow_partials(name: str, cfg: RainbowConfig, key, params: torch.Tensor,
                                       n_valid)
     bound = pk._bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_rainbow_block_threads()),
+    n_blocks = min(_cuda.cdiv(cfg.n_paths, lib.mc_rainbow_block_paths()),
                    _cuda.MAX_BLOCKS)
     partials = torch.empty((n_blocks, 2), dtype=torch.float64,
                            device=params.device)

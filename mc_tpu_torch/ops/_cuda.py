@@ -146,7 +146,16 @@ _SIGNATURES = {
     "mc_fx_paths_per_thread": ([], _c_int),
     # contract, blocks
     "mc_fx_occupancy": ([_c_int, _c_ptr], _c_int),
-    "mc_rainbow_block_threads": ([], _c_int),
+    "mc_rainbow_block_paths": ([], _c_int),
+    # d
+    "mc_rainbow_paths_per_thread": ([_c_int], _c_int),
+    # d, antithetic, blocks
+    "mc_rainbow_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
+    "mc_greek_block_paths": ([], _c_int),
+    # euler
+    "mc_greek_paths_per_thread": ([_c_int], _c_int),
+    # payoff_id, euler, blocks
+    "mc_greek_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_qmc_block_threads": ([], _c_int),
     "mc_qmc_bridge_threads": ([_c_int], _c_int),
     "mc_qmc_bridge_shifts": ([], _c_int),
@@ -406,12 +415,13 @@ NVCC_SECONDS = {
     "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 10.2,
     "qmc_bates_kernels.cu": 9.5, "qmc_basket_kernels.cu": 8.9,
     "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,
-    "qmc_vasicek_kernels.cu": 6.9, "greek_kernels.cu": 6.9,
+    "qmc_vasicek_kernels.cu": 6.9, "greek_kernels.cu": 7.7,
     "qmc_sabr_kernels.cu": 6.9, "qmc_cev_kernels.cu": 6.8,
     "qmc_term_kernels.cu": 6.7, "divs_kernels.cu": 20.3,
     "term_kernels.cu": 6.5, "qmc_heston_kernels.cu": 6.4,
     "cev_kernels.cu": 11.0, "qmc_basket32_kernels.cu": 6.1,
-    "rates_kernels.cu": 5.5, "rainbow_kernels.cu": 3.8,
+    "rates_kernels.cu": 5.5, "rainbow_kernels.cu": 5.4,
+    "rainbow32_kernels.cu": 9.4,
     "fx_kernels.cu": 7.4, "reduce_kernels.cu": 3.0}
 
 

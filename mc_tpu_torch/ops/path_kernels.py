@@ -27,7 +27,8 @@ Two kernels live in ``csrc/path_kernels.cu``, one in ``csrc/simulate.cuh``
 * ``simulate_greek_partials`` (replaces ``mc_tpu/ops/path_kernels.py:932``):
   simulate's leg carrying the pathwise tangents of the payoff with respect
   to (s0, sigma, r, q), ten moments (pay, delta, vega, rho', epsilon) x
-  (sum, sumsq).
+  (sum, sumsq); a kernel per mode (Euler or the terminal draw), S formed
+  only where the payoff reads it, 256 paths a block (``greek_grid``).
 
 Each wrapper returns f64 partial sums, one row per block (``(rows,
 moments)``, or ``(rows, M|B, moments)`` for the ladder and the book), for
@@ -218,6 +219,12 @@ def simulate_grid(lib, n: int) -> int:
     """The simulate kernel's blocks: its paths a block
     (``mc_simulate_block_paths``, whatever its threads a path), capped."""
     return min(_cuda.cdiv(n, lib.mc_simulate_block_paths()), _cuda.MAX_BLOCKS)
+
+
+def greek_grid(lib, n: int) -> int:
+    """The greek kernel's blocks: its paths a block
+    (``mc_greek_block_paths``, whatever its paths a thread), capped."""
+    return min(_cuda.cdiv(n, lib.mc_greek_block_paths()), _cuda.MAX_BLOCKS)
 
 
 def _bound(path_offset: int, n_paths: int, n_valid) -> int:
@@ -765,7 +772,7 @@ def simulate_greek_partials(payoff: PathPayoff, cfg: KernelConfig, key,
     if params.device.type == "cpu":
         return simulate_greek_partials_plain(payoff, cfg, key, params)
     lib = _cuda.load()
-    n_blocks = _grid(lib, cfg.n_paths)
+    n_blocks = greek_grid(lib, cfg.n_paths)
     partials = torch.empty((n_blocks, GREEK_MOMENTS), dtype=torch.float64,
                            device=params.device)
     with torch.cuda.device(params.device):

@@ -104,7 +104,7 @@ def test_warp_levels_pair_threads_as_the_shared_tree(threads, seed):
 
 def test_helper_in_reduce_and_only_these_kernels_call_it():
     """block_store_moments_warp lives in reduce.cuh beside the unchanged
-    tree; #11, #1 and #28 call it, and no other source does."""
+    tree; #11, #1, #28, #27 and #8 call it, and no other source does."""
     assert "__device__ void block_store_moments_warp(" in REDUCE
     assert "__device__ void block_store_moments(" in REDUCE
     assert "__device__ void block_store_moments_unrolled(" in REDUCE
@@ -112,7 +112,8 @@ def test_helper_in_reduce_and_only_these_kernels_call_it():
     assert "__shfl_down_sync(0xffffffffu, v[m], s)" in REDUCE
     callers = sorted(p.name for p in CSRC.glob("*.cu*")
                      if "block_store_moments_warp<" in p.read_text())
-    assert callers == ["fx_kernels.cu", "path_kernels.cu", "rates_kernels.cu"]
+    assert callers == ["fx_kernels.cu", "greek_kernels.cu", "path_kernels.cu",
+                       "rainbow_partials.cuh", "rates_kernels.cu"]
 
 
 # --- the lanes ---------------------------------------------------------------

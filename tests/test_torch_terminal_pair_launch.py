@@ -158,20 +158,24 @@ def test_kernel_structure_in_source():
 
 
 def test_other_kernels_keep_the_thread_grid():
-    """trajectories_kernel (in the same source) and the greek kernel keep
-    256 threads a block and the wrapper's mc_block_threads grid; only #1
-    takes its own count of elements a block."""
+    """trajectories_kernel (in the same source) keeps 256 threads a block
+    and the wrapper's mc_block_threads grid; #1 takes its own count of
+    elements a block, and the greek kernel (greek_kernels.cu) its own count
+    of paths a block."""
     traj = SOURCE[SOURCE.index("cudaError_t launch_trajectories("):]
     traj = traj[:traj.index("\n}\n")]
     assert traj.count("<<<n_blocks, kThreads, 0, stream>>>") == 2
     assert "block_store_moments<2, kThreads>(" in SOURCE
     wrap = Path(pk.__file__).read_text()
-    for fn in ("simulate_trajectories", "simulate_greek_partials"):
+    for fn, grid_fn in (("simulate_trajectories", "_grid"),
+                        ("simulate_greek_partials", "greek_grid")):
         body = wrap[wrap.index(f"def {fn}("):]
         body = body[:body.index("\ndef ")]
-        assert "n_blocks = _grid(lib, cfg.n_paths)" in body
+        assert f"n_blocks = {grid_fn}(lib, cfg.n_paths)" in body
     grid = wrap[wrap.index("def _grid("):]
     assert "lib.mc_block_threads()" in grid[:grid.index("\ndef ")]
+    grid = wrap[wrap.index("def greek_grid("):]
+    assert "lib.mc_greek_block_paths()" in grid[:grid.index("\ndef ")]
     tp = wrap[wrap.index("def terminal_pair_partials("):]
     tp = tp[:tp.index("\ndef ")]
     assert "n_blocks = terminal_pair_grid(lib, cfg.n_paths)" in tp
