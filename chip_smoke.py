@@ -287,6 +287,13 @@ DEVICE = "cuda"
 # since has taken that size; the README's NMC).
 FAMILY_PATHS = 16_384                # phase 2: every payoff, 100 steps
 EDGE_PATHS = FAMILY_PATHS + 27       # phase 2: a ragged last block (#14, #19)
+# phase 2: the family trajectories kernel at a ragged outer grid: a part-full
+# block, a ragged last draw chunk and an odd last step (18 steps under the
+# families whose plain outer path takes steps in pairs)
+TRAJ_RAGGED = (2_049, 17)
+# ... and at a grid past every family's split (782 blocks of 128 paths, more
+# than 4 an SM): the blocks of one thread a path
+TRAJ_WIDE = (100_000, 4)
 FAMILY_MAIN = 1_000_000              # price_<family> at 1M (x 100)
 PAYOFF_MAIN = 100_000                # phase 3: every payoff of each family
 HESTON_PAYOFF_MAIN = PAYOFF_MAIN     # #13's shape
@@ -684,11 +691,14 @@ def family_nmc_times(families, call, time_pair, regs, tag):
             f"{n_out}x{n_steps}")
         grid_bytes = (fam.n_grids + 1) * 4 * n_out * n_steps
         k_ms = out[traj_row][0]
-        traj_regs = regs.get((f"family_trajectories_kernel<{struct}>",
-                              "VanillaCall", None))
+        traj_regs = {split: regs.get((f"family_trajectories_kernel<{struct}>",
+                                      "VanillaCall", split))
+                     for split in (1, 0)}
         print(f"phase 5: {traj_row} writes {grid_bytes / 1e6:.1f} MB in "
               f"{k_ms:.4f} ms: {grid_bytes / k_ms / 1e6:.1f} GB/s; registers "
               f"{traj_regs} {tag}")
+        traj_alone_report(family, fam, prm, key, call, cfg, traj_row,
+                          traj_regs, tag)
         for name in ("family_fused", "family_inner"):
             ms = nmc_ms[name.split("_")[1]]
             out[f"{name}_{family}"] = (ms, None)
@@ -699,6 +709,44 @@ def family_nmc_times(families, call, time_pair, regs, tag):
                   f"({ref_ms[name]:.3f} ms) {tag}")
             family_nmc_report(family, fam, prm, struct, name, ms, tag)
     return out
+
+
+def traj_alone_report(family, fam, prm, key, call, cfg, row, regs, tag):
+    """Phase 5: the family trajectories kernel alone at cfg's outer grid,
+    launched through the library's entry point in batches of >= 5 ms (a
+    call through its wrapper is mostly host time at 16,384 x 100), beside
+    its bound (probe_bound), its block's threads, dynamic shared bytes and
+    resident blocks per SM."""
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    n_blocks = min(_cuda.cdiv(cfg.n_paths,
+                              lib.mc_family_trajectories_block_paths()),
+                   _cuda.MAX_BLOCKS)
+    out = torch.empty((fam.n_grids + 1, cfg.n_steps, cfg.n_paths),
+                      dtype=torch.float32, device=prm.device)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    args = (fam.cuda_id, call.cuda_id, int(key[0]), int(key[1]),
+            prm.data_ptr(), _cuda.family_extras(fam.extras), cfg.n_steps,
+            cfg.n_paths, 0, cfg.n_paths, _cuda.pointer_array(out[:fam.n_grids]),
+            fam.n_grids, out[fam.n_grids].data_ptr(), part.data_ptr(), n_blocks,
+            _cuda.stream_handle(prm.device))
+    ms, spread, batch = cuda_ms(lambda: _cuda.check(
+        lib.mc_family_trajectories(*args), "family_trajectories kernel"))
+    b_ms, by = probe_bound("family_trajectories", family=family,
+                           n_paths=cfg.n_paths, n_steps=cfg.n_steps,
+                           d=fam.extras[0] if family in ("basket", "rainbow")
+                           else None,
+                           kmax=fam.extras[0] if family in ("merton", "bates")
+                           else 0)
+    lay = ne.family_trajectories_layout(fam, call, cfg.n_paths)
+    print(f"phase 5: {row} {family} call {cfg.n_paths}x{cfg.n_steps}, the "
+          f"kernel alone: {ms:.5f} ms (spread {spread:.1%}, batches of "
+          f"{batch}), {b_ms / ms:.1%} of its bound ({b_ms:.5f} ms, {by}); "
+          f"{lay['threads']} threads a block, {lay['blocks_per_sm']} "
+          f"blocks/SM, {lay['smem_bytes']} B dynamic shared; registers "
+          f"{regs} {tag}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -833,6 +881,8 @@ def ptxas_resources(log: str) -> dict:
                 rounds = tuple(int(i) for i in ints)
             if kernel == "fx_partials_kernel":  # <contract, rounds>
                 rounds = tuple(int(i) for i in re.findall(r"Li(\d+)E", rest))
+            if kernel.startswith("family_trajectories_kernel<") and ints:
+                rounds = int(ints[-1])  # <Family, Payoff, split>
             entry = (kernel, payoff, rounds)
             out[entry] = {}
             continue
@@ -1032,8 +1082,8 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
                     rows=None, what=""):
     """Phase 2: family ``fam``'s fused and inner kernels and its outer
     trajectories at ``shape`` against their plain versions: grids, the
-    surface (whole, or only its ``rows``) and the outer moments bitwise or
-    to f64 rounding, and the fused surface == the inner's (grid == fused)
+    surface (whole, or only its ``rows``), the trajectories' payoff sums
+    and the outer moments bitwise or to f64 rounding, and the fused surface == the inner's (grid == fused)
     in every row.  ``note(kind, err)`` takes the kinds "trajectories",
     "fused" and "inner"; ``what`` names the case's dynamics.  A deferred check (its plain half first); returns
     {"plain": the plain rows' ms, "fused", "inner": the kernels' ms (CUDA
@@ -1058,12 +1108,15 @@ def family_nmc_case(mt, dev, fam, pack, dyn, keys, name, shape, note,
     yield
     (surf_f, outer_f), fused_ms = timed_call(
         lambda: ne.family_fused(fam, po, cfg, key, key_in, prm))
-    *g_k, st_k, _ = fam.trajectories(po, cfg, key, prm)
+    *g_k, st_k, traj_k = fam.trajectories(po, cfg, key, prm)
     surf_i, inner_ms = timed_call(
         lambda: ne.family_inner(fam, po, cfg, key_in, prm, g_k, st_k))
     note("trajectories", check_bitwise(
         f"{fam.name} trajectories {label} (grids, state)", (*g_k, st_k),
         (*g_p, st_p)))
+    got, want_o = finish_sum(traj_k), finish_sum(outer_p)
+    check_sums(f"{fam.name} trajectories {label} payoff", got, want_o)
+    note("trajectories", price_err(got, want_o, n_out, opt))
     which = "" if len(rows) == n_steps else f" rows {rows}"
     note("fused", check_bitwise(
         f"family_fused {label}{which} (plain {plain_ms:.1f} ms)",
@@ -1457,13 +1510,10 @@ def jump_bounds():
     reports: #14 Euler at 1M x 100, #15 and the generic trajectories at
     NMC_MAIN's outer 16,384 x 100 (vanilla), #16 Euler at 1M x 100, the
     family kernels at NMC_MAIN (vanilla)."""
-    from mc_tpu_torch.models.merton import DEMO_MERTON
-
     k_dt, _ = jump_kmax()
     n_out, n_steps, _ = NMC_MAIN
-    m_path = merton_path(MAIN_STEPS, 13, k_dt,
-                         DEMO_MERTON.lam / MAIN_STEPS)
-    b_path = _add(_scale(bates_step(13, k_dt), MAIN_STEPS), TERMINAL_OPS)
+    m_path, _ = family_traj_path("merton", MAIN_STEPS, kmax=k_dt)
+    b_path, _ = family_traj_path("bates", MAIN_STEPS, kmax=k_dt)
     return {
         "merton_partials": bound(76, _scale(m_path, FAMILY_MAIN)),
         "merton_trajectories": bound(2 * 4 * n_out * n_steps,
@@ -1497,6 +1547,18 @@ def partials_check(note, row, fn, plain, cfg, key, prm, name, opt, label,
                + (f" offset {path_offset} bound {n_valid}" if at else ""),
                got, want)
     note(row, price_err(got, want, cfg.n_paths, opt))
+
+
+def traj_ragged(mt, dev, note, row, fam, pack, dyn, key):
+    """Phase 2: traj_check's call and bullet at TRAJ_RAGGED and its call at
+    TRAJ_WIDE, deferred."""
+    n_paths, n_steps = TRAJ_RAGGED
+    n_steps += n_steps % 2 * fam.even_steps
+    for name in ("vanilla_call", "bullet_call"):
+        defer(traj_check(mt, dev, note, row, fam, pack, dyn, key, name,
+                         n_paths, n_steps))
+    defer(traj_check(mt, dev, note, row, fam, pack, dyn, key, "vanilla_call",
+                     *TRAJ_WIDE))
 
 
 def traj_check(mt, dev, note, row, fam, pack, dyn, key, name, n_paths,
@@ -1649,6 +1711,8 @@ def jump_kernel_checks(mt, dev, merton_keys, bates_keys):
             for fam, pack, dyn, (key, _), row in fams.values():
                 defer(traj_check(mt, dev, note, row, fam, pack, dyn, key,
                                  name, FAMILY_PATHS))
+    for fam, pack, dyn, (key, _), row in fams.values():
+        traj_ragged(mt, dev, note, row, fam, pack, dyn, key)
     rows_ms = {family: family_nmc_checks(mt, dev, note, family, fam, pack,
                                          dyn, keys, row)
                for family, (fam, pack, dyn, keys, row) in fams.items()}
@@ -2423,7 +2487,7 @@ def single_families(mt):
                config=config(cm.CEVConfig), pack=cm.pack_cev,
                tpu="models/cev.py:150", checks=cev, payoffs=sv,
                variants=anti, timed=cev, ref="heston_partials", rounds=(0,),
-               path=half_pair_path(CEV_STEP_OPS, MAIN_STEPS),
+               path=family_traj_path("cev", MAIN_STEPS)[0],
                nmc=SingleNMC(
                    fam=CEVNMC(), dyn=lambda n: cm.DEMO_CEV, traj_tpu=generic,
                    struct="CEVFamily", n_grids=1,
@@ -2435,7 +2499,7 @@ def single_families(mt):
                pack=lm.pack_localvol, tpu="models/localvol.py:264",
                checks=lv, payoffs=every, variants=rng20, timed=lv,
                ref="heston_partials", rounds=lv_key,
-               path=half_pair_path(lv_step_ops(9), MAIN_STEPS),
+               path=family_traj_path("localvol", MAIN_STEPS)[0],
                nmc=SingleNMC(
                    fam=LocalVolNMC(extras=(9,)), dyn=lm.LocalVolSurface.demo,
                    traj_tpu="models/localvol.py:406", struct="LocalVolFamily",
@@ -2447,8 +2511,7 @@ def single_families(mt):
                tpu="models/sabr.py:177", checks=sabr, payoffs=sv,
                variants=rng20, timed=sabr, ref="heston_partials",
                rounds=sabr_key,
-               path=_add(_scale(_add(pair_ops(13), SABR_UNIT_STEP_OPS),
-                                MAIN_STEPS), SPOT_OPS, TERMINAL_OPS),
+               path=family_traj_path("sabr", MAIN_STEPS)[0],
                edge_variants=True, partials_src="sabr_partials.cuh",
                nmc=SingleNMC(
                    fam=SABRNMC(), dyn=lambda n: sm.DEMO_SABR,
@@ -2462,7 +2525,7 @@ def single_families(mt):
                variants=anti,
                timed=(("demo curves", tm.demo_term(MAIN_STEPS)),),
                ref="cev_partials", rounds=None,
-               path=half_pair_path(STEP_OPS, MAIN_STEPS),
+               path=family_traj_path("term", MAIN_STEPS)[0],
                nmc=SingleNMC(
                    fam=TermNMC(), dyn=tm.demo_term, traj_tpu=generic,
                    struct="TermFamily", n_grids=1,
@@ -2477,7 +2540,7 @@ def single_families(mt):
                config=config(vm.VasicekConfig), pack=vm.pack_vasicek,
                tpu="models/vasicek.py:266", checks=vas, payoffs=every,
                variants=rng20, timed=vas, ref="merton_partials", rounds=13,
-               path=vasicek_path(MAIN_STEPS),
+               path=family_traj_path("vasicek", MAIN_STEPS)[0],
                nmc=SingleNMC(
                    fam=VasicekNMC(), dyn=lambda n: vm.DEMO_VASICEK,
                    traj_tpu="models/vasicek.py:405", struct="VasicekFamily",
@@ -2490,7 +2553,7 @@ def single_families(mt):
                pack=bm.pack_basket, tpu="models/basket.py:268",
                checks=baskets, payoffs=every, variants=anti,
                timed=baskets[:1], ref="heston_partials",
-               rounds=(4, 0), path=basket_path(4, MAIN_STEPS),
+               rounds=(4, 0), path=family_traj_path("basket", MAIN_STEPS, 4)[0],
                nmc=SingleNMC(
                    fam=BasketNMC(extras=(4,)), dyn=lambda n: bm.DEMO_BASKET,
                    traj_tpu=generic, struct="BasketFamily<8>", n_grids=4,
@@ -2589,6 +2652,8 @@ def single_kernel_checks(mt, dev, singles, keys):
                 defer(traj_check(mt, dev, note, traj_row(s), s.nmc.fam,
                                  nmc_pack(s), None, keys[s.family][0], name,
                                  FAMILY_PATHS))
+        traj_ragged(mt, dev, note, traj_row(s), s.nmc.fam, nmc_pack(s), None,
+                    keys[s.family][0])
         rows_ms[s.family] = family_nmc_checks(
             mt, dev, note, s.family, s.nmc.fam, nmc_pack(s), None,
             keys[s.family], traj_row(s), extra=nmc_extra_cases(mt, s))
@@ -3157,6 +3222,7 @@ def fx_rainbow_qmc_checks(mt, dev, keys, lattice_ready):
         if po.n_state <= 1:
             defer(traj_check(mt, dev, note, row, fam, pack, None,
                              keys["rainbow_nmc"][0], name, FAMILY_PATHS))
+    traj_ragged(mt, dev, note, row, fam, pack, None, keys["rainbow_nmc"][0])
     kinds = {"trajectories": row, "fused": "family_fused_rainbow",
              "inner": "family_inner_rainbow"}
     defer(family_nmc_case(mt, dev, RainbowNMC(extras=(4, 1)), pack, None,
@@ -3749,7 +3815,7 @@ def fx_rainbow_qmc_bounds():
     from mc_tpu_torch.models.basket import packed_length
 
     n_out, n_steps, _ = NMC_MAIN
-    path4 = basket_path(4, MAIN_STEPS)
+    path4, _ = family_traj_path("rainbow", MAIN_STEPS, 4)
     n_qmc = 1_048_573
     return {
         "fx_partials": bound(44, _scale(fx_path_ops("quanto_call"),
@@ -3769,12 +3835,38 @@ def fx_rainbow_qmc_bounds():
     }
 
 
+def family_traj_path(family: str, n_steps: int, d=None, kmax: int = 0):
+    """(the outer path's operations, market grids) of the family
+    trajectories kernel under ``family`` at n_steps (the call; the
+    demo dynamics, Merton's and Bates's Poisson depth ``kmax``, the
+    basket's and the rainbow's d): each family's one count of a path,
+    which the kernels line's rows (jump_bounds, single_families'
+    paths, fx_rainbow_qmc_bounds) read at MAIN_STEPS and probe_bound
+    at the probe's shapes."""
+    if family == "merton":
+        from mc_tpu_torch.models.merton import DEMO_MERTON
+
+        return merton_path(n_steps, 13, kmax, DEMO_MERTON.lam / n_steps), 1
+    if family == "bates":
+        return _add(_scale(bates_step(13, kmax), n_steps), TERMINAL_OPS), 2
+    if family in ("basket", "rainbow"):
+        return basket_path(d, n_steps), d
+    return {"cev": (half_pair_path(CEV_STEP_OPS, n_steps), 1),
+            "localvol": (half_pair_path(lv_step_ops(9), n_steps), 1),
+            "sabr": (_add(_scale(_add(pair_ops(13), SABR_UNIT_STEP_OPS),
+                                 n_steps), SPOT_OPS, TERMINAL_OPS), 2),
+            "term": (half_pair_path(STEP_OPS, n_steps), 1),
+            "vasicek": (vasicek_path(n_steps), 3)}[family]
+
+
 def probe_bound(row: str, **kw):
     """bound() of a call that family_nmc_probe.py times at a shape of its
     own: fx_partials (contract, n_paths), greek_partials (payoff, method,
     n_paths, n_steps), rainbow_partials (d, n_paths, antithetic: False by
     default; every payoff counted as call_on_max) and basket_trajectories
-    (payoff, d, n_paths, n_steps: the level and state grids written)."""
+    (payoff, d, n_paths, n_steps: the level and state grids written) and
+    family_trajectories (family, n_paths, n_steps, d, kmax: the market and
+    state grids written, family_traj_path's work)."""
     from mc_tpu_torch.models.basket import packed_length
 
     n = kw["n_paths"]
@@ -3783,6 +3875,10 @@ def probe_bound(row: str, **kw):
     if row == "greek_partials":
         return bound(0, _scale(greek_path_ops(kw["payoff"], kw["method"],
                                               kw["n_steps"]), n))
+    if row == "family_trajectories":
+        path, n_grids = family_traj_path(kw["family"], kw["n_steps"],
+                                         kw.get("d"), kw.get("kmax", 0))
+        return bound((n_grids + 1) * 4 * n * kw["n_steps"], _scale(path, n))
     d = kw["d"]
     if row == "rainbow_partials":
         return bound(4 * packed_length(d), _scale(

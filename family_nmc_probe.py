@@ -19,7 +19,7 @@ their SASS loops, and their times.
 
     python3 family_nmc_probe.py [--qmc | --gbm | --basket | --fx |
                                  --greeks | --partials | --sabr | --rates |
-                                 --wrappers DIR]
+                                 --trajectories | --wrappers DIR]
                                 [--kernels NAME,...]
                                 [--variant LABEL=DIR[:DEFINE,...]] ...
                                 [--sass] [--time] [--out PATH]
@@ -237,6 +237,35 @@ time a batch's share.  The library stages the tables up to its cap and
 reads them in place past it; a variant whose copy of ``csrc`` sets
 ``kRatesStagePayments`` to 0 times the in-place path at every n.
 
+``--trajectories`` builds the family NMC sources for the family
+trajectories kernel (family_trajectories_kernel, family.cuh: Merton's #15,
+local vol's #20, Vasicek's #24 and the outer grids of CEV, SABR, term,
+Bates, the basket and the rainbow at capacities 8 and 32; an older
+commit's sources through units adding each family's resident blocks,
+TRAJ_SHIM), prints the ptxas resources of its VanillaCall and BulletCall
+instantiations and each instantiation's threads a block and resident
+blocks per SM; runs ~1,000 edge cases (traj_cases: the call and the
+bullet of every instantiation at 1 to 217 steps and 1 to 16,385 paths,
+every one-word payoff on Merton and the basket, the basket and the
+rainbow at d = 1, 3, 8, 9, 32 under both folds, a grid capped at 3
+blocks, offsets and bounds past 2^32, the last packed field at +-inf and
+NaN) through every variant, grids, state grid and rows bitwise against
+the first; ``--time`` times the call and the bullet of every
+instantiation at TRAJ_TIMED (16,384 x 100, 2,048 x 16, 2,048 x 100,
+20,000, 33,000, 50,000 and 100,000 x 100), each call a batch's share (>=
+5 ms), in 3 pairs of turns,
+beside the bound chip_smoke.py counts (``probe_bound``).  A sweep is a
+variant whose copy of ``csrc`` edits the constants in ``family.cuh`` and
+the family headers: ``kTrajDrawWarps`` (the draw warps of a split block),
+a family's ``kTrajSplitBlocks`` (the blocks an SM up to which its grids
+split; 0: none, a large value: every grid), e.g.
+
+    cp -r mc_tpu_torch/csrc build/split_all
+    sed -i 's/kTrajSplitBlocks = [^;]*;/kTrajSplitBlocks = 1000000;/' \
+        build/split_all/*.cuh
+    python3 family_nmc_probe.py --trajectories --variant tree=mc_tpu_torch/csrc \
+        --variant split_all=build/split_all --time
+
 ``--wrappers DIR`` builds nothing of its own: it imports the
 ``mc_tpu_torch`` of the checkout DIR (its library built, or loaded, under
 DIR's ``build/``) and times the calls that chip_smoke.py's phase 5 times at
@@ -266,6 +295,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -469,8 +499,11 @@ def probe_sources(src: Path, mode: str, out: Path, kernels=None):
         return greek_sources(src, out)
     if mode == "partials":
         return partials_sources(src, out, kernels or PARTIALS_KERNELS)
-    return [src / "family_nmc_kernels.cu", *src.glob("*_nmc_kernels.cu"),
-            *src.glob("*_nmc32_kernels.cu")]
+    if mode == "trajectories":
+        return traj_sources(src, out)
+    return list(dict.fromkeys([src / "family_nmc_kernels.cu",
+                               *src.glob("*_nmc_kernels.cu"),
+                               *src.glob("*_nmc32_kernels.cu")]))
 
 
 def build(variants, mode: str = "family", kernels=None):
@@ -2301,6 +2334,345 @@ def fx_main(args, variants, card) -> dict:
                                bound_of("fx_partials", contract=a["contract"],
                                         n_paths=a["n"]))
                   for a in cases["times"]}
+        for case, (b_ms, by) in bounds.items():
+            med = {label: float(np.median([r["ms"] for r in rows]))
+                   for label, rows in times[case].items()}
+            print(f"probe bound {case}: {b_ms:.5f} ms ({by}); share "
+                  + ", ".join(f"{k} {b_ms / v:.1%}" for k, v in med.items())
+                  + f" {card}", flush=True)
+        report["times"] = times
+        report["bounds"] = bounds
+    return report
+
+
+# --- the family trajectories kernel (--trajectories) -------------------------
+
+# The instantiations of family_trajectories_kernel (family.cuh): (label,
+# family, d or None, device struct, source).  The basket and the rainbow at
+# each capacity's timed d (the demo's 4 at capacity 8, the full 32 at 32).
+TRAJ_INSTANCES = (
+    ("merton", "merton", None, "MertonFamily", "merton_nmc_kernels.cu"),
+    ("localvol", "localvol", None, "LocalVolFamily",
+     "localvol_nmc_kernels.cu"),
+    ("vasicek", "vasicek", None, "VasicekFamily", "vasicek_nmc_kernels.cu"),
+    ("cev", "cev", None, "CEVFamily", "cev_nmc_kernels.cu"),
+    ("sabr", "sabr", None, "SABRFamily", "sabr_nmc_kernels.cu"),
+    ("term", "term", None, "TermFamily", "term_nmc_kernels.cu"),
+    ("bates", "bates", None, "BatesFamily", "bates_nmc_kernels.cu"),
+    ("basket8", "basket", 4, "BasketFamily<8>", "basket_nmc_kernels.cu"),
+    ("basket32", "basket", 32, "BasketFamily<32>", "basket_nmc32_kernels.cu"),
+    ("rainbow8", "rainbow", 4, "RainbowFamily<8>", "rainbow_nmc_kernels.cu"),
+    ("rainbow32", "rainbow", 32, "RainbowFamily<32>",
+     "rainbow_nmc32_kernels.cu"))
+# (paths, steps) timed: chip_smoke.py's NMC_MAIN outer grid, NMC_SMALL's and
+# nmc --model's 2,048 outer paths at 16 and 100 steps, grids of 157, 258 and
+# 391 blocks of 128 paths (1.2, 2 and 3 an SM: where the draw warps stop
+# paying) and one that fills the card (782 blocks, SimParams' default)
+TRAJ_TIMED = ((16_384, 100), (2_048, 16), (2_048, 100), (20_000, 100),
+              (33_000, 100), (50_000, 100), (100_000, 100))
+TRAJ_PAYOFFS = ("vanilla_call", "bullet_call")
+# The bitwise edges: every instantiation's call and bullet at TRAJ_EDGE_STEPS
+# x TRAJ_EDGE_PATHS (a ragged last draw chunk and an odd last step pair among
+# them), every one-word payoff on Merton and the basket, the basket and the
+# rainbow at TRAJ_EDGE_D (both folds), 1,000 paths on a grid capped at 3
+# blocks (grid-stride rounds), FX_OFFSETS' offsets and bounds (ids past
+# 2^32, a bound below the run's end), the last packed field at +-inf and NaN
+TRAJ_EDGE_STEPS = (1, 2, 3, 16, 100, 217)
+TRAJ_EDGE_PATHS = (1, 127, 128, 129, 2_048, 16_385)
+TRAJ_EDGE_D = (1, 3, 8, 9, 32)
+TRAJ_CAPPED = (1_000, 3)  # paths, blocks
+TRAJ_FIX_VALUES = (float("inf"), float("-inf"), float("nan"))
+TRAJ_BATCH_MS, TRAJ_TURNS = 5.0, 3
+# A family NMC source whose family_nmc_kernels.cu predates
+# mc_family_trajectories_occupancy (one path a thread, 128 threads a block):
+# this unit adds the resident blocks per SM of its trajectories kernel for
+# each one-word payoff.
+TRAJ_SHIM = """#include "{src}/{source}"
+
+extern "C" int probe_traj_occupancy_{label}(int payoff_id, int* blocks) {{
+  switch (payoff_id) {{
+#define MC_CASE(ID, PAYOFF)                                                  \\
+  case mc::ID:                                                               \\
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \\
+        blocks, mc::family_trajectories_kernel<mc::{struct}, mc::PAYOFF>,    \\
+        mc::kFamilyThreads, 0);
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+#undef MC_CASE
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def traj_sources(src: Path, out: Path):
+    """The family NMC sources of ``src``; where its entry points have no
+    ``mc_family_trajectories_occupancy``, each family's source through
+    TRAJ_SHIM."""
+    srcs = probe_sources(src, "family", out)
+    if "mc_family_trajectories_occupancy" in (
+            src / "family_nmc_kernels.cu").read_text():
+        return srcs
+    shimmed = {source: (label, struct)
+               for label, _, _, struct, source in TRAJ_INSTANCES}
+    out_srcs = []
+    for s in srcs:
+        if s.name not in shimmed:
+            out_srcs.append(s)
+            continue
+        label, struct = shimmed[s.name]
+        unit = out / f"traj_probe_{label}.cu"
+        unit.write_text(TRAJ_SHIM.format(src=src, source=s.name, label=label,
+                                         struct=struct))
+        out_srcs.append(unit)
+    return out_srcs
+
+
+def bind_traj(lib_path: Path):
+    """The trajectories entry point of a variant's library and its paths a
+    block (``mc_family_trajectories_block_paths``; the parent's: its
+    threads, one path each)."""
+    from mc_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(str(lib_path))
+    argtypes, restype = _cuda._SIGNATURES["mc_family_trajectories"]
+    lib.mc_family_trajectories.argtypes = argtypes
+    lib.mc_family_trajectories.restype = restype
+    if hasattr(lib, "mc_family_trajectories_occupancy"):
+        lib.mc_family_trajectories_occupancy.argtypes = [
+            _int, _int, _cuda.FamilyExtras, _int,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.mc_family_trajectories_occupancy.restype = _int
+        lib.mc_family_trajectories_geometry.argtypes = [
+            _int, _cuda.FamilyExtras, _int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.mc_family_trajectories_geometry.restype = _int
+        tile = lib.mc_family_trajectories_block_paths()
+    else:
+        tile = lib.mc_family_block_threads()
+    return lib, tile
+
+
+def traj_family(a: dict, dev):
+    """(NMCFamily, params, key) of a trajectories case: the family's
+    NMC_FAMILY_BUILDERS entry at the case's steps (the demo dynamics; the
+    basket and the rainbow demo_basket(d, 0.5), the rainbow's fold; local
+    vol and term, whose entries take an even count only, packed for the
+    next even count and read at the odd one), its pack with the case's fix
+    entries set, the outer key at seed 1234."""
+    steps = a["steps"] + (a["steps"] % 2 * (a["family"] in ("localvol",
+                                                             "term")))
+    fam, prm, key = _traj_pack(a["family"], a["d"], a["fold"], steps)
+    prm = prm.to(dev)
+    for i, v in a["fix"]:
+        prm[i % prm.numel()] = v
+    return fam, prm, key
+
+
+@functools.lru_cache(maxsize=None)
+def _traj_pack(family: str, d, fold: int, steps: int):
+    """traj_family's family, its pack on the CPU and its key."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch import nmc_engine as ne
+    from mc_tpu_torch.config import OptionParams, SimParams
+
+    ne.ensure_family(family)
+    opt = OptionParams()
+    sim = SimParams(n_paths=1, n_steps=steps)
+    if family in ("basket", "rainbow"):
+        from mc_tpu_torch.models.basket import demo_basket
+        from mc_tpu_torch.nmc_rainbow import RainbowNMC
+
+        fam, dyn = ne.NMC_FAMILY_BUILDERS[family](opt, demo_basket(d, 0.5),
+                                                  sim)
+        if family == "rainbow":
+            fam = RainbowNMC(extras=(d, fold))
+    else:
+        fam, dyn = ne.NMC_FAMILY_BUILDERS[family](opt, None, sim)
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER,
+                                                fam.tag))
+    return fam, fam.pack(opt, dyn, steps, torch.device("cpu")), key
+
+
+def traj_cases(timed: bool):
+    """The trajectories kernel's cases: dicts of label, inst (the
+    TRAJ_INSTANCES label), family, d, fold, payoff, n (paths), steps,
+    offset, bound (None: the run's end), blocks (None: the wrapper's grid)
+    and fix ((pack index, value), ...; a negative index from the end).
+    Timed: TRAJ_TIMED x TRAJ_PAYOFFS for every instantiation.  Else the
+    edges of TRAJ_EDGE_*."""
+    from mc_tpu_torch.ops.payoffs import PAYOFFS
+
+    def case(inst, payoff, n, steps, d=None, fold=0, offset=0, bound=None,
+             blocks=None, fix=()):
+        _, family, d0, _, _ = next(t for t in TRAJ_INSTANCES if t[0] == inst)
+        d = d0 if d is None else d
+        label = (f"family_trajectories {inst} {payoff}"
+                 + (f" d={d}" if d else "") + (" min" if fold else "")
+                 + f" {n}x{steps}"
+                 + (f" offset {offset} bound {bound}" if offset or bound
+                    else "") + (f" blocks {blocks}" if blocks else "")
+                 + (f" fix {fix}" if fix else ""))
+        return dict(label=label, inst=inst, family=family, d=d, fold=fold,
+                    payoff=payoff, n=n, steps=steps, offset=offset,
+                    bound=bound, blocks=blocks, fix=tuple(fix))
+
+    insts = [t[0] for t in TRAJ_INSTANCES]
+    if timed:
+        return [case(i, p, n, s) for n, s in TRAJ_TIMED for i in insts
+                for p in TRAJ_PAYOFFS]
+    one_word = [n for n, po in PAYOFFS.items() if po.n_state <= 1]
+    out = [case(i, p, n, s) for i in insts for p in TRAJ_PAYOFFS
+           for s in TRAJ_EDGE_STEPS for n in TRAJ_EDGE_PATHS]
+    out += [case(i, p, 129, s) for i in ("merton", "basket8", "basket32")
+            for p in one_word if p not in TRAJ_PAYOFFS for s in (3, 16)]
+    for d in TRAJ_EDGE_D:
+        cap = 8 if d <= 8 else 32
+        for fold in (0, 1):
+            out += [case(f"rainbow{cap}", p, 2_049, s, d=d, fold=fold)
+                    for p in TRAJ_PAYOFFS for s in (3, 17)]
+        out += [case(f"basket{cap}", p, 2_049, s, d=d)
+                for p in TRAJ_PAYOFFS for s in (3, 17)]
+    for i in insts:
+        out.append(case(i, "vanilla_call", TRAJ_CAPPED[0], 17,
+                        blocks=TRAJ_CAPPED[1]))
+        out += [case(i, p, n, 17, offset=off, bound=b) for p in TRAJ_PAYOFFS
+                for off, n, b in FX_OFFSETS]
+        out += [case(i, "vanilla_call", 129, 17, fix=((-1, v),))
+                for v in TRAJ_FIX_VALUES]
+    return out
+
+
+def run_traj(lib, tile: int, a: dict, inputs, batch: int = 1, n=None):
+    """(grids and state grid, partials, ms) of ``batch`` back-to-back
+    mc_family_trajectories calls of case ``a`` (``n``: its path count, or
+    another)."""
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    fam, prm, (k0, k1) = inputs
+    n = a["n"] if n is None else n
+    bound = (a["offset"] + n if a["bound"] is None else a["bound"]) & 0xFFFFFFFF
+    n_blocks = a["blocks"] or min(-(-n // tile), _cuda.MAX_BLOCKS)
+    out = torch.empty((fam.n_grids + 1, a["steps"], n), dtype=torch.float32,
+                      device=prm.device)
+    part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
+    args = (fam.cuda_id, get_payoff(a["payoff"]).cuda_id, k0, k1,
+            prm.data_ptr(), _cuda.family_extras(fam.extras), a["steps"], n,
+            a["offset"] & 0xFFFFFFFF, bound,
+            _cuda.pointer_array(out[:fam.n_grids]), fam.n_grids,
+            out[fam.n_grids].data_ptr(), part.data_ptr(), n_blocks,
+            torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_family_trajectories(*args), "family_trajectories")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return out, part, t[0].elapsed_time(t[1]) / batch
+
+
+def traj_layout(lib, tile: int) -> dict:
+    """Per instantiation and timed path count its blocks, threads a block,
+    dynamic shared bytes and resident blocks per SM for the call and the
+    bullet (the parent's: 128 threads, no dynamic shared memory, its blocks
+    through TRAJ_SHIM's units)."""
+    from mc_tpu_torch.ops import _cuda
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    out = {"paths_a_block": tile}
+    new = hasattr(lib, "mc_family_trajectories_occupancy")
+    for label, family, d, _, _ in TRAJ_INSTANCES:
+        fam, _, _ = traj_family(dict(family=family, d=d, fold=0, n=1,
+                                     steps=2, fix=()), torch.device("cpu"))
+        ex = _cuda.family_extras(fam.extras)
+        for n in sorted({n for n, _ in TRAJ_TIMED}):
+            n_blocks = min(-(-n // tile), _cuda.MAX_BLOCKS)
+            threads, smem = ctypes.c_int(tile), ctypes.c_int(0)
+            if new:
+                _check(lib.mc_family_trajectories_geometry(
+                    fam.cuda_id, ex, n_blocks, ctypes.byref(threads),
+                    ctypes.byref(smem)), "trajectories geometry")
+            row = dict(blocks=n_blocks, threads=threads.value,
+                       smem_dynamic=smem.value)
+            for payoff in TRAJ_PAYOFFS:
+                blocks = ctypes.c_int(0)
+                pid = get_payoff(payoff).cuda_id
+                if new:
+                    st = lib.mc_family_trajectories_occupancy(
+                        fam.cuda_id, pid, ex, n_blocks, ctypes.byref(blocks))
+                else:
+                    fn = getattr(lib, f"probe_traj_occupancy_{label}")
+                    fn.argtypes = [_int, ctypes.POINTER(ctypes.c_int)]
+                    st = fn(pid, ctypes.byref(blocks))
+                row[f"blocks_per_sm {payoff}"] = (blocks.value if st == 0
+                                                  else None)
+            out[f"{label} {n}"] = row
+    return out
+
+
+def traj_main(args, variants, card) -> dict:
+    """The --trajectories probe: resources, SASS, the bitwise edges and the
+    times of the family trajectories kernel, every instantiation."""
+    libs = build(variants, "trajectories")
+    dev = torch.device("cuda")
+    report = {"card": card, "variants": {}}
+    bound = {}
+    want = re.compile(r"26family_trajectories_kernel.*(11VanillaCall|"
+                      r"10BulletCall)")
+    for label, src, defines in variants:
+        lib_path, logs = libs[label]
+        lib, tile = bind_traj(lib_path)
+        bound[label] = (lib, tile)
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
+        layout = traj_layout(lib, tile)
+        print(f"probe {label}: trajectories layout {layout} {card}",
+              flush=True)
+        report["variants"][label] = dict(src=str(src), defines=defines,
+                                         kernels=rows, layout=layout)
+
+    def run(label, a, inputs, batch=1, n=None):
+        lib, tile = bound[label]
+        return run_traj(lib, tile, a, inputs, batch, n)
+
+    edges, bad = {}, 0
+    for a in traj_cases(False):
+        inputs = traj_family(a, dev)
+        ref = None
+        for label in bound:
+            grids, part, _ = run(label, a, inputs)
+            ref = (grids, part) if ref is None else ref
+            same = same_bits(grids, ref[0]) and same_bits(part, ref[1])
+            edges.setdefault(a["label"], {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {a['label']} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+        del inputs, grids, part, ref
+    print(f"probe trajectories edges: {len(edges)} cases x {len(bound)} "
+          f"variants, {bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        cases = traj_cases(True)
+        cache = {}
+
+        def timed(label, a, batch, warm=False):
+            if a["label"] not in cache:
+                cache.clear()
+                cache[a["label"]] = traj_family(a, dev)
+            grids, part, ms = run(label, a, cache[a["label"]], batch,
+                                  256 if warm else None)
+            return (grids, part), ms
+
+        times = batched_turns(bound, cases, timed, TRAJ_BATCH_MS, TRAJ_TURNS,
+                              card, "grids and partials")
+        bounds = {}
+        for a in cases:
+            fam, _, _ = traj_family(dict(a, n=1), torch.device("cpu"))
+            bounds[a["label"]] = bound_of(
+                "family_trajectories", family=a["family"], n_paths=a["n"],
+                n_steps=a["steps"], d=a["d"], kmax=(fam.extras[0] if
+                                                    a["family"] in
+                                                    ("merton", "bates")
+                                                    else 0))
         for case, (b_ms, by) in bounds.items():
             med = {label: float(np.median([r["ms"] for r in rows]))
                    for label, rows in times[case].items()}
@@ -4364,6 +4736,7 @@ def main() -> int:
     mode.add_argument("--partials", action="store_true")
     mode.add_argument("--sabr", action="store_true")
     mode.add_argument("--rates", action="store_true")
+    mode.add_argument("--trajectories", action="store_true")
     mode.add_argument("--wrappers", metavar="DIR", default=None)
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--kernels", default=None,
@@ -4415,6 +4788,8 @@ def main() -> int:
         return write_report(args.out, sabr_main(args, variants, card))
     if args.rates:
         return write_report(args.out, rates_main(args, variants, card))
+    if args.trajectories:
+        return write_report(args.out, traj_main(args, variants, card))
     libs = build(variants)
     fams = families()
     dev = torch.device("cuda")

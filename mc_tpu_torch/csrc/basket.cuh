@@ -200,7 +200,7 @@ __device__ __forceinline__ void basket_levels(const BasketParams<kMaxD>& c,
 
 // The basket for the family NMC engine (mc_tpu/nmc_basket.py:44-245): the
 // d asset price grids (S_1..S_d), extras i[0] = d.  The outer step j draws
-// its pairs j*npps + q; the carry holds the level b the step fed the payoff,
+// its pairs j*npps + q (its draw unit); the carry holds the level b the step fed the payoff,
 // which the outer payoff reads.  The inner leg resumes each asset from w_i =
 // logf(S_i / s0_i), substep u drawing pairs c_base + u*npps + q, and pays on
 // the level of its last substep (at the last row on the level of the
@@ -211,6 +211,12 @@ struct BasketFamily {
   static constexpr int kGrids = kMaxD;
   // capacity 32 keeps one leg a thread: its arrays live in local memory
   static constexpr int kLegs = kMaxD <= 8 ? family_legs(2) : 1;
+  // step j's normals z_0 .. z_{2 npps - 1} (basket_draw's), of which the mix
+  // reads d
+  using OuterDraw = DrawWords<kMaxD>;
+  static constexpr int kStepsPerDraw = 1;
+  // capacity 32's step is its mix, no draw to hide: it never splits
+  static constexpr int kTrajSplitBlocks = kMaxD <= 8 ? 2 : 0;
 
   template <class Payoff>
   struct Carry {
@@ -237,15 +243,24 @@ struct BasketFamily {
     o.st = Payoff::init(c.pay);
     return o;
   }
+  __device__ static int draw_words(const Params& c) { return 2 * c.npps; }
+  __device__ static void outer_draw(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    basket_draw(c, k0, k1, id, u * static_cast<uint32_t>(c.npps), 1.0f, d.w);
+  }
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& c, int, const OuterDraw& d,
+                                       Carry<Payoff>& o) {
+    basket_mix(c, d.w, o.ws);
+    o.b = basket_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
+    o.st = Payoff::update(o.st, o.b, c.pay);
+  }
   template <class Payoff>
   __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& o) {
-    float z[kMaxD];
-    basket_draw(c, k0, k1, id, static_cast<uint32_t>(j) * static_cast<uint32_t>(c.npps), 1.0f,
-                z);
-    basket_mix(c, z, o.ws);
-    o.b = basket_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
-    o.st = Payoff::update(o.st, o.b, c.pay);
+    OuterDraw d;
+    outer_draw(c, k0, k1, id, static_cast<uint32_t>(j), d);
+    outer_advance<Payoff>(c, j, d, o);
   }
   template <class Payoff>
   __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {
@@ -382,15 +397,20 @@ struct RainbowFamily : BasketFamily<kMaxD> {
     o.st = Payoff::init(c.pay);
     return o;
   }
+  // the basket's draw (outer_draw, draw_words), the level folded
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& c, int, const typename Base::OuterDraw& d,
+                                       Carry<Payoff>& o) {
+    basket_mix(c, d.w, o.ws);
+    o.b = rainbow_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
+    o.st = Payoff::update(o.st, o.b, c.pay);
+  }
   template <class Payoff>
   __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& o) {
-    float z[kMaxD];
-    basket_draw(c, k0, k1, id, static_cast<uint32_t>(j) * static_cast<uint32_t>(c.npps), 1.0f,
-                z);
-    basket_mix(c, z, o.ws);
-    o.b = rainbow_level(c, o.ws, [&](int i, float s) { o.lv[i] = s; });
-    o.st = Payoff::update(o.st, o.b, c.pay);
+    typename Base::OuterDraw d;
+    Base::outer_draw(c, k0, k1, id, static_cast<uint32_t>(j), d);
+    outer_advance<Payoff>(c, j, d, o);
   }
 };
 

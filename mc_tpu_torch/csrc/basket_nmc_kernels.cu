@@ -3,13 +3,13 @@
 // family_inner_kernel<BasketFamily<kMaxD>> (#29) and
 // family_trajectories_kernel<BasketFamily<kMaxD>>, which stores the d asset
 // price grids of the grid strategy where mc_tpu builds them with its XLA scan
-// (no Pallas counterpart).  Its step is BasketFamily::outer_step
-// (basket.cuh), the fused kernel's, so the two give the same outer paths bit
-// for bit.  The call's d (extras i[0], in [1, 32]) picks the capacity: 8 for
-// d <= 8 (instantiated here), 32 above (basket_nmc32_kernels.cu, a source of
-// its own so the two capacities compile in parallel).  The twelve one-word
-// payoffs each; family_nmc_kernels.cu's entry points call the launchers
-// below.
+// (no Pallas counterpart).  Its steps are BasketFamily's outer_draw and
+// outer_advance (basket.cuh), the draw and the step of the fused kernel's
+// outer_step, so the two give the same outer paths bit for bit.  The call's d
+// (extras i[0], in [1, 32]) picks the capacity: 8 for d <= 8 (instantiated
+// here), 32 above (basket_nmc32_kernels.cu, a source of its own so the two
+// capacities compile in parallel).  The twelve one-word payoffs each;
+// family_nmc_kernels.cu's entry points call the launchers below.
 
 #include <cstdint>
 
@@ -62,6 +62,24 @@ cudaError_t basket_family_occupancy(int payoff_id, FamilyExtras extras, int fuse
                                   int* blocks) {
   return (extras.i[0] <= 8 ? basket8_family_occupancy : basket32_family_occupancy)(
       payoff_id, extras, fused, smem_bytes, blocks);
+}
+
+cudaError_t basket_family_trajectories_occupancy(int payoff_id, FamilyExtras extras,
+                                              int n_blocks, int* blocks) {
+  const int d = extras.i[0];
+  if (d < 1 || d > 32) return cudaErrorInvalidValue;
+  return (extras.i[0] <= 8 ? basket8_family_trajectories_occupancy
+                           : basket32_family_trajectories_occupancy)(payoff_id, extras,
+                                                                     n_blocks, blocks);
+}
+
+cudaError_t basket_family_trajectories_geometry(FamilyExtras extras, int n_blocks,
+                                             int* threads, int* smem_bytes) {
+  const int d = extras.i[0];
+  if (d < 1 || d > 32) return cudaErrorInvalidValue;
+  return (extras.i[0] <= 8 ? basket8_family_trajectories_geometry
+                           : basket32_family_trajectories_geometry)(extras, n_blocks, threads,
+                                                                    smem_bytes);
 }
 
 }  // namespace mc

@@ -85,7 +85,8 @@ __device__ __forceinline__ void bates_euler_step(const BatesParams& b, int kmax,
 }
 
 // Bates for the family NMC engine (mc_tpu/nmc_bates.py:47-188): grids (S, v);
-// outer step j on counters 3j, 3j+1, 3j+2 (price_bates's Euler path), the
+// outer step j on counters 3j, 3j+1, 3j+2 (price_bates's Euler path: its
+// draw unit, bates_euler_draw), the
 // inner legs from (S_t, v_t) with w from 0 on c_base + 3u, their jump
 // counts taken against the block's cdf table as Merton's.
 struct BatesFamilyParams {
@@ -98,6 +99,10 @@ struct BatesFamily {
   using Params = BatesFamilyParams;
   static constexpr int kGrids = 2;
   static constexpr int kLegs = family_legs(2);
+  // step j's draw: (z_v, z_perp, e, u), u the Poisson uniform or its count
+  using OuterDraw = DrawWords<4>;
+  static constexpr int kStepsPerDraw = 1;
+  static constexpr int kTrajSplitBlocks = 4;  // the draw is most of a step
 
   template <class Payoff>
   struct Carry {
@@ -120,11 +125,36 @@ struct BatesFamily {
   __device__ static Carry<Payoff> outer_init(const Params& p) {
     return Carry<Payoff>{0.0f, p.b.h.v0, p.b.h.pay.s0, Payoff::init(p.b.h.pay)};
   }
+  __device__ static void outer_draw(const Params&, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    bates_euler_draw<13>(k0, k1, id, 3u * u, d.w[0], d.w[1], d.w[2], d.w[3]);
+  }
+  // The uniform's count against the block's table, in place.
+  __device__ static void draw_counts(const Params& p, OuterDraw& d) {
+    const float u[1] = {d.w[3]};
+    float n[1];
+    poisson_counts(p.cdf, p.kmax, u, n);
+    d.w[3] = n[0];
+  }
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& p, int, const OuterDraw& d,
+                                       Carry<Payoff>& c) {
+    heston_euler_step(p.b.h, d.w[0], d.w[1], c.w, c.v);
+    bates_jump<Payoff>(p.b, p.kmax, d.w[2], d.w[3], p.b.h.pay.s0, c.w, c.s, c.st);
+  }
+  template <class Payoff>
+  __device__ static void outer_advance_counted(const Params& p, int, const OuterDraw& d,
+                                               Carry<Payoff>& c) {
+    heston_euler_step(p.b.h, d.w[0], d.w[1], c.w, c.v);
+    bates_jump_n<Payoff>(p.b, d.w[3], d.w[2], p.b.h.pay.s0, c.w, c.s, c.st);
+  }
+  // bates_euler_step on counter 3j: the draw, then the advance.
   template <class Payoff>
   __device__ static void outer_step(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& c) {
-    bates_euler_step<Payoff>(p.b, p.kmax, k0, k1, id, 3u * static_cast<uint32_t>(j),
-                             p.b.h.pay.s0, c.w, c.v, c.s, c.st);
+    OuterDraw d;
+    outer_draw(p, k0, k1, id, static_cast<uint32_t>(j), d);
+    outer_advance<Payoff>(p, j, d, c);
   }
   template <class Payoff>
   __device__ static void point(const Carry<Payoff>& c, float (&g)[kGrids]) {

@@ -15,9 +15,20 @@
 //                                      basket), their capacity: the call
 //                                      stores grid_count(p) of them;
 //   Carry<Payoff>, outer_init(p)       the outer path's carry and its start;
+//   OuterDraw, kStepsPerDraw           the words one outer draw unit gives
+//                                      (DrawWords), and the steps it feeds
+//                                      (2 where a step pair shares a draw);
+//   outer_draw(p, k0, k1, id, u, d)    draw unit u of path id on the outer
+//                                      stream: a pure function of (key, id,
+//                                      u), steps u*kStepsPerDraw on;
+//   outer_advance<Payoff>(p, j, d, c)  step j from its unit's draw d (its
+//                                      half, for a pair), steps taken j = 0,
+//                                      1, 2, ... in order;
 //   outer_step<Payoff>(p, k0, k1, id, j, c)
-//                                      one outer step j on the outer stream,
-//                                      steps taken j = 0, 1, 2, ... in order;
+//                                      the two: outer_draw at the first step
+//                                      of a unit (a pair's odd half parked
+//                                      in the carry), then outer_advance's
+//                                      step on the step's half;
 //   point(c, g), outer_pay(p, c)       the grid rows of a carry, its payoff;
 //   kLegs                              the inner legs a thread runs at once;
 //   inner_legs<Payoff>(p, k0, k1, id, c_base, stride, remaining, g, st, pay)
@@ -31,13 +42,29 @@
 //   table_floats(extras), fill_table(p, t), attach_table(p, t)
 //                                      optional: a per-block table in shared
 //                                      memory (Merton's and Bates's Poisson
-//                                      cdf), built by one thread.
+//                                      cdf), built by one thread;
+//   draw_counts(p, d), outer_advance_counted<Payoff>(p, j, d, c)
+//                                      with the table: a draw's Poisson
+//                                      uniforms turned into their counts
+//                                      against it, and the step on them (the
+//                                      scan's counts, bit for bit);
+//   draw_words(p)                      optional: the words of OuterDraw a
+//                                      call draws (the basket's 2*ceil(d/2));
+//   kTrajSplitBlocks                   the blocks an SM up to which the
+//                                      trajectories kernel splits its draws
+//                                      off (traj_split; 0: never, and no
+//                                      split kernel is instantiated).
 //
 // family_fused_kernel replaces mc_tpu/nmc_engine.py family_fused_kernel (the
 // Pallas call at :426) and family_inner_kernel its family_inner_kernel (the
 // Pallas call at :331).  family_trajectories_kernel stores a family's outer
-// grids where mc_tpu builds them with its XLA scan (xla_family_trajectories,
-// nmc_engine.py:445-488): it has no Pallas counterpart.
+// grids: under Merton, local vol and Vasicek it replaces
+// mc_tpu/models/merton.py merton_trajectories_kernel (:392),
+// models/localvol.py localvol_trajectories_kernel (:406) and
+// models/vasicek.py vasicek_trajectories_kernel (:405); under CEV, SABR,
+// term, Bates, the basket and the rainbow mc_tpu builds the grids with its
+// XLA scan (xla_family_trajectories, nmc_engine.py:445-488), which has no
+// Pallas counterpart.
 //
 // For outer path i and step j, surface[j, i] = point_scale * (1/n_inner) *
 // the f32 Kahan sum over m = 0..n_inner-1, in that order, of inner leg m,
@@ -78,9 +105,30 @@
 // - __launch_bounds__(128, kFamilyMinBlocks) leaves the registers to ptxas:
 //   no family spills at the basket's capacity 8.
 // The fused kernel recomputes the outer path up to step j+1 in registers
-// through the family's outer step, the one the trajectories kernels store,
-// j+1 steps against the sweep's n_inner*(n_steps-j-1), and keeps no
-// history; so the grid and fused strategies give bitwise equal surfaces.
+// through the family's outer step, whose draw and advance the trajectories
+// kernel runs apart (below), j+1 steps against the sweep's
+// n_inner*(n_steps-j-1), and keeps no history; so the grid and fused
+// strategies give bitwise equal surfaces.
+//
+// The trajectories kernel runs at small outer grids (16,384 paths: 128
+// blocks on 132 SMs; nmc --model's 2,048: 16 blocks), where one path a
+// thread leaves one warp a scheduler and nothing hides each step's draw, a
+// dependent chain of some hundreds of cycles (threefry-13 and Box-Muller,
+// Merton's three pairs, the basket's d/2).  The draws do not depend on the
+// path's state, so a block of 128 paths splits them off: its first 4 warps
+// (the advance lanes, one a path) take the steps in order and store the
+// grids step-major, coalesced; kTrajDrawWarps further warps fill a shared
+// buffer with the draws of the block's next chunk of kChunk units while the
+// advance lanes consume the current one (double-buffered, one barrier a
+// chunk), Merton's and Bates's jump counts taken there against the block's
+// Poisson table.  Each row is folded over the 128 advance lanes by
+// block_store_moments' tree of a 128-thread block (unrolled), so the grids, the state
+// grid and the rows keep the bits of one path a thread.  A grid of more
+// than the family's kTrajSplitBlocks blocks an SM already fills the
+// schedulers: there the launcher runs a kernel of its own, blocks of 128
+// threads under their own launch bounds, each lane drawing a unit of its
+// path and stepping it at once (the split's fewer resident paths lose
+// there).
 #pragma once
 
 #include <cstdint>
@@ -303,26 +351,96 @@ family_inner_kernel(uint32_t ki0, uint32_t ki1, const float* __restrict__ params
   surface[at] = id < bound ? v : 0.0f;
 }
 
-// One path per thread over a grid-stride loop: the family's outer steps,
-// its kGrids grids and payoff state word 0 stored after each step,
-// step-major (entry j*n_paths + i), and one f64 row of [sum pay, sum pay^2]
-// per block.
+// The words of one outer draw unit (a family's OuterDraw), in the family's
+// layout.
+template <int N>
+struct DrawWords {
+  float w[N];
+};
+
+// A family that draws fewer words than its OuterDraw holds (draw_words(p)).
+template <class Family, class = void>
+struct FamilyDrawWords : std::false_type {};
+template <class Family>
+struct FamilyDrawWords<Family, std::void_t<decltype(&Family::draw_words)>> : std::true_type {};
+
+// The trajectories kernel's draw warps (PERF.md §6: 12 beat 4 and none).
+// A family splits its draws off on grids of at most Family::kTrajSplitBlocks
+// blocks an SM of the card (traj_split), where the blocks' warps leave the
+// SMs' schedulers idle; a larger grid fills the SMs with blocks of one
+// thread a path, whose more resident paths there beat the split's (the
+// crossover lies between 2 and 3 blocks an SM, past 3 where the draw is most
+// of a step; 0: never split).
+constexpr int kTrajDrawWarps = 12;
+static_assert(kTrajDrawWarps > 0, "a split block draws in its draw warps only");
+// The shared bytes of the two draw buffers (with the table, up to 1 KB,
+// and the fold's 2 KB under the 48 KB a block takes without opting in).
+constexpr int kTrajBufferBytes = 40 * 1024;
+
+// The trajectories kernel's launch geometry under Family: kFamilyThreads
+// paths a block, one advance lane each, and kDrawWarps draw warps; a chunk
+// of kChunk draw units, kWords floats each, a buffer of kBufferFloats
+// (both halves) in dynamic shared memory before the family's table.  A
+// chunk holds as many units as fit, rounded down to a multiple of
+// kDrawWarps/4 (where one fits), so its kChunk*kFamilyThreads draws
+// spread evenly over the draw warps' threads.
+template <class Family>
+struct TrajGeometry {
+  using Draw = typename Family::OuterDraw;
+  static constexpr int kWords = static_cast<int>(sizeof(Draw) / sizeof(float));
+  static constexpr int kDrawWarps = kTrajDrawWarps;
+  static constexpr int kThreads = kFamilyThreads + 32 * kDrawWarps;
+  static constexpr int kFit = kTrajBufferBytes / (2 * kFamilyThreads * sizeof(Draw));
+  static constexpr int kGroup = kDrawWarps >= 8 ? kDrawWarps / 4 : 1;
+  static constexpr int kChunk = kFit >= kGroup ? kFit / kGroup * kGroup : (kFit > 1 ? kFit : 1);
+  static constexpr int kBufferFloats = 2 * kChunk * kWords * kFamilyThreads;
+};
+
+// Draw unit u of path id: the family's draw, its Poisson uniforms turned
+// into their counts against the block's table where the family has one.  Out
+// of line, one copy in a source serves both trajectories kernels of every
+// payoff (the draw is their larger code: inlined, the second kernel a payoff
+// cost the build ~40 CPU-seconds, PERF.md §6).
+template <class Family>
+__device__ __noinline__ typename Family::OuterDraw family_draw(const typename Family::Params& p,
+                                                               uint32_t k0, uint32_t k1,
+                                                               uint32_t id, int u) {
+  typename Family::OuterDraw d;
+  Family::outer_draw(p, k0, k1, id, static_cast<uint32_t>(u), d);
+  if constexpr (FamilyTable<Family>::value) Family::draw_counts(p, d);
+  return d;
+}
+
+// The words of OuterDraw a call draws.
+template <class Family>
+__device__ __forceinline__ int family_draw_words(const typename Family::Params& p) {
+  if constexpr (FamilyDrawWords<Family>::value) {
+    return Family::draw_words(p);
+  } else {
+    return TrajGeometry<Family>::kWords;
+  }
+}
+
+// Unit u's steps j = u*kStepsPerDraw, ... (those below n_steps) of path i
+// from its draw d: each advanced on family_draw's words, its grids and
+// payoff state word 0 stored at j*n_paths + i.
 template <class Family, class Payoff>
-__global__ void __launch_bounds__(kFamilyThreads)
-family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
-                           FamilyExtras extras, int n_steps, uint32_t n_paths,
-                           uint32_t path_offset, uint32_t bound, GridOutPtrs grids,
-                           float* __restrict__ state_grid, double* __restrict__ partials) {
-  const typename Family::Params p = Family::load(params, extras, n_steps);
-  const int n_grids = grid_count<Family>(p);
-  double acc[2] = {0.0, 0.0};
-  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
-  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_paths; i += stride) {
-    const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    auto c = Family::template outer_init<Payoff>(p);
-    for (int j = 0; j < n_steps; ++j) {
-      Family::template outer_step<Payoff>(p, k0, k1, id, j, c);
+__device__ __forceinline__ void traj_advance_unit(const typename Family::Params& p, int u,
+                                                  const typename Family::OuterDraw& d,
+                                                  typename Family::template Carry<Payoff>& c,
+                                                  int n_steps, int n_grids, uint32_t n_paths,
+                                                  uint64_t i, const GridOutPtrs& grids,
+                                                  float* __restrict__ state_grid) {
+  constexpr int S = Family::kStepsPerDraw;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int j = u * S + s;
+    if (S == 1 || j < n_steps) {
+      if constexpr (FamilyTable<Family>::value) {
+        Family::template outer_advance_counted<Payoff>(p, j, d, c);
+      } else {
+        Family::template outer_advance<Payoff>(p, j, d, c);
+      }
       float g[Family::kGrids];
       Family::template point<Payoff>(c, g);
       const size_t at = static_cast<size_t>(j) * n_paths + i;
@@ -332,11 +450,106 @@ family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ p
       }
       state_grid[at] = Payoff::kStates ? c.st.w[0] : 0.0f;
     }
-    const float pv[1] = {Family::template outer_pay<Payoff>(p, c)};
-    add_moments(acc, pv, id < bound);
   }
-  block_store_moments<2, kFamilyThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
-                                         2);
+}
+
+// The family's outer paths, kFamilyThreads a block over a grid-stride loop
+// of rounds (path i = round base + lane): its kGrids grids and payoff state
+// word 0 stored after each step, step-major (entry j*n_paths + i), and one
+// f64 row of [sum pay, sum pay^2] per block, folded over the advance lanes.
+// kSplit (the launcher's choice, traj_split): the block's draw warps run a
+// round's units in chunks of kChunk, filling chunk 0, then, a barrier a
+// chunk, chunk q+1 into one buffer half (word f of unit ul and lane at
+// ((half*kChunk + ul)*kWords + f)*kFamilyThreads + lane) while the advance
+// lanes step through chunk q in the other.  Else a block of kFamilyThreads
+// runs each path in its thread, a unit at a time, drawn and stepped at once.
+template <class Family, class Payoff, bool kSplit>
+__global__ void __launch_bounds__(kSplit ? TrajGeometry<Family>::kThreads : kFamilyThreads)
+family_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
+                           FamilyExtras extras, int n_steps, uint32_t n_paths,
+                           uint32_t path_offset, uint32_t bound, GridOutPtrs grids,
+                           float* __restrict__ state_grid, double* __restrict__ partials) {
+  using G = TrajGeometry<Family>;
+  using Draw = typename Family::OuterDraw;
+  extern __shared__ float family_smem[];  // the draw buffer's halves, the table
+  typename Family::Params p = Family::load(params, extras, n_steps);
+  if constexpr (FamilyTable<Family>::value) {
+    float* table = family_smem + (kSplit ? G::kBufferFloats : 0);
+    if (threadIdx.x == 0) Family::fill_table(p, table);
+    __syncthreads();
+    Family::attach_table(p, table);
+  }
+  const int n_grids = grid_count<Family>(p);
+  const int words = family_draw_words<Family>(p);
+  const int n_units = (n_steps + Family::kStepsPerDraw - 1) / Family::kStepsPerDraw;
+  const int n_chunks = (n_units + G::kChunk - 1) / G::kChunk;
+  double acc[2] = {0.0, 0.0};
+  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * kFamilyThreads;
+  for (uint64_t base = static_cast<uint64_t>(blockIdx.x) * kFamilyThreads; base < n_paths;
+       base += stride) {  // block-uniform
+    const uint64_t i = base + threadIdx.x;
+    const bool mine = threadIdx.x < kFamilyThreads && i < n_paths;
+    const uint32_t id = path_offset + static_cast<uint32_t>(i);
+    typename Family::template Carry<Payoff> c;
+    if (mine) c = Family::template outer_init<Payoff>(p);
+    if constexpr (kSplit) {
+      // iteration q draws chunk q+1 (chunk 0 at q = -1) and steps through
+      // chunk q
+      for (int q = -1; q < n_chunks; ++q) {
+        // a draw thread's items drawer, drawer + 32*kDrawWarps, ... of the
+        // chunk's kChunk*kFamilyThreads
+        for (int it = static_cast<int>(threadIdx.x) - kFamilyThreads;
+             it >= 0 && q + 1 < n_chunks && it < G::kChunk * kFamilyThreads;
+             it += 32 * G::kDrawWarps) {
+          const int ul = it / kFamilyThreads, lane = it % kFamilyThreads;
+          const int u = (q + 1) * G::kChunk + ul;
+          const uint64_t at = base + static_cast<uint64_t>(lane);
+          if (u < n_units && at < n_paths) {
+            const Draw d =
+                family_draw<Family>(p, k0, k1, path_offset + static_cast<uint32_t>(at), u);
+            float* out = family_smem +
+                         static_cast<size_t>((((q + 1) & 1) * G::kChunk + ul) * G::kWords) *
+                             kFamilyThreads +
+                         lane;
+#pragma unroll
+            for (int f = 0; f < G::kWords; ++f) {
+              if (f < words) out[f * kFamilyThreads] = d.w[f];
+            }
+          }
+        }
+        if (q >= 0 && mine) {
+          const float* in = family_smem +
+                            static_cast<size_t>((q & 1) * G::kChunk * G::kWords) *
+                                kFamilyThreads +
+                            threadIdx.x;
+          for (int ul = 0; ul < G::kChunk; ++ul) {
+            const int u = q * G::kChunk + ul;
+            if (u >= n_units) break;  // block-uniform
+            Draw d;
+#pragma unroll
+            for (int f = 0; f < G::kWords; ++f) {
+              if (f < words) d.w[f] = in[(ul * G::kWords + f) * kFamilyThreads];
+            }
+            traj_advance_unit<Family, Payoff>(p, u, d, c, n_steps, n_grids, n_paths, i, grids,
+                                              state_grid);
+          }
+        }
+        __syncthreads();  // chunk q read, chunk q+1 written
+      }
+    } else if (mine) {  // the lane's own path
+      for (int u = 0; u < n_units; ++u) {
+        const Draw d = family_draw<Family>(p, k0, k1, id, u);
+        traj_advance_unit<Family, Payoff>(p, u, d, c, n_steps, n_grids, n_paths, i, grids,
+                                          state_grid);
+      }
+    }
+    if (mine) {
+      const float pv[1] = {Family::template outer_pay<Payoff>(p, c)};
+      add_moments(acc, pv, id < bound);
+    }
+  }
+  block_store_moments_unrolled<2, kFamilyThreads>(acc,
+                                                  partials + 2 * static_cast<size_t>(blockIdx.x));
 }
 
 // Blocks of the NMC kernels: one per (step, tile of kFamilyThreads outer
@@ -401,16 +614,76 @@ cudaError_t launch_family_inner(uint32_t ki0, uint32_t ki1, const float* params,
   return cudaGetLastError();
 }
 
+// The SMs of the current card (read once).
+inline int traj_sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
+
+// Whether a grid of n_blocks runs the draw warps (kTrajDrawWarps).
+template <class Family>
+inline bool traj_split(long long n_blocks) {
+  return n_blocks <= static_cast<long long>(Family::kTrajSplitBlocks) * traj_sm_count();
+}
+
+// The trajectories kernel's block: its threads, and its dynamic shared
+// memory (the draw buffer's two halves where it splits; the family's
+// table).
+template <class Family>
+inline int traj_threads(bool split) {
+  return split ? TrajGeometry<Family>::kThreads : kFamilyThreads;
+}
+
+template <class Family>
+inline size_t traj_smem_bytes(const FamilyExtras& extras, bool split) {
+  const long long table = family_table_floats<Family>(extras);
+  return sizeof(float) *
+         static_cast<size_t>((split ? TrajGeometry<Family>::kBufferFloats : 0) +
+                             (table > 0 ? table : 0));
+}
+
+// The launch on a grid of n_blocks, and its resident blocks per SM; a
+// family whose kTrajSplitBlocks is 0 instantiates no split kernel.
 template <class Family, class Payoff>
 cudaError_t launch_family_trajectories(uint32_t k0, uint32_t k1, const float* params,
                                        FamilyExtras extras, int n_steps, uint32_t n_paths,
                                        uint32_t path_offset, uint32_t bound,
                                        const GridOutPtrs& grids, float* state_grid,
                                        double* partials, int n_blocks, cudaStream_t stream) {
-  family_trajectories_kernel<Family, Payoff><<<n_blocks, kFamilyThreads, 0, stream>>>(
-      k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids, state_grid,
-      partials);
+  if constexpr (Family::kTrajSplitBlocks > 0) {
+    if (traj_split<Family>(n_blocks)) {
+      family_trajectories_kernel<Family, Payoff, true>
+          <<<n_blocks, traj_threads<Family>(true), traj_smem_bytes<Family>(extras, true),
+             stream>>>(k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids,
+                       state_grid, partials);
+      return cudaGetLastError();
+    }
+  }
+  family_trajectories_kernel<Family, Payoff, false>
+      <<<n_blocks, kFamilyThreads, traj_smem_bytes<Family>(extras, false), stream>>>(
+          k0, k1, params, extras, n_steps, n_paths, path_offset, bound, grids, state_grid,
+          partials);
   return cudaGetLastError();
+}
+
+template <class Family, class Payoff>
+cudaError_t family_trajectories_occupancy(const FamilyExtras& extras, int n_blocks,
+                                          int* blocks) {
+  if constexpr (Family::kTrajSplitBlocks > 0) {
+    if (traj_split<Family>(n_blocks)) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, family_trajectories_kernel<Family, Payoff, true>, traj_threads<Family>(true),
+          traj_smem_bytes<Family>(extras, true));
+    }
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, family_trajectories_kernel<Family, Payoff, false>, kFamilyThreads,
+      traj_smem_bytes<Family>(extras, false));
 }
 
 // The payoff switch of each family's launchers (the one-word payoffs, the
@@ -475,6 +748,18 @@ cudaError_t family_trajectories_switch(int payoff_id, uint32_t k0, uint32_t k1,
 }
 
 template <class Family>
+cudaError_t family_trajectories_occupancy_switch(int payoff_id, const FamilyExtras& extras,
+                                                 int n_blocks, int* blocks) {
+#define MC_CASE(ID, PAYOFF) \
+  case ID: return family_trajectories_occupancy<Family, PAYOFF>(extras, n_blocks, blocks);
+  switch (payoff_id) {
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
+
+template <class Family>
 cudaError_t family_occupancy_switch(int payoff_id, int fused, int smem_bytes, int* blocks) {
 #define MC_CASE(ID, PAYOFF)                                                              \
   case ID:                                                                               \
@@ -494,7 +779,9 @@ cudaError_t family_occupancy_switch(int payoff_id, int fused, int smem_bytes, in
 // Each family's launchers, defined in its own source as calls of the
 // switches above on its family struct; PREFIX_occupancy gives the resident
 // blocks per SM of the fused (fused = 1) or inner kernel at smem_bytes of
-// dynamic shared memory.
+// dynamic shared memory, PREFIX_trajectories_occupancy those of the
+// trajectories kernel on a grid of n_blocks and PREFIX_trajectories_geometry
+// its threads a block and dynamic shared bytes there.
 #define MC_FAMILY_LAUNCHERS(PREFIX)                                                       \
   cudaError_t PREFIX##_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,      \
                              uint32_t ki1, const float* params, FamilyExtras extras,       \
@@ -513,7 +800,11 @@ cudaError_t family_occupancy_switch(int payoff_id, int fused, int smem_bytes, in
                                     const GridOutPtrs& grids, float* state_grid,           \
                                     double* partials, int n_blocks, cudaStream_t stream);  \
   cudaError_t PREFIX##_occupancy(int payoff_id, FamilyExtras extras, int fused,        \
-                                 int smem_bytes, int* blocks);
+                                 int smem_bytes, int* blocks);                            \
+  cudaError_t PREFIX##_trajectories_occupancy(int payoff_id, FamilyExtras extras,         \
+                                              int n_blocks, int* blocks);                 \
+  cudaError_t PREFIX##_trajectories_geometry(FamilyExtras extras, int n_blocks,           \
+                                             int* threads, int* smem_bytes);
 MC_FAMILY_LAUNCHERS(heston_family)
 MC_FAMILY_LAUNCHERS(merton_family)
 MC_FAMILY_LAUNCHERS(bates_family)
@@ -532,9 +823,10 @@ MC_FAMILY_LAUNCHERS(rainbow32_family)
 
 // The definitions of PREFIX's NMC launchers (fused, inner, occupancy) as the
 // switches above on FAMILY; MC_DEFINE_FAMILY_LAUNCHERS adds the generic
-// trajectories.  The basket's and the rainbow's come one per capacity,
-// capacity 32 in a source of its own (<family>_nmc32_kernels.cu) so the
-// build's heaviest instantiations compile in parallel.
+// trajectories (the launch, its occupancy and geometry).  The basket's and
+// the rainbow's come one per capacity, capacity 32 in a source of its own
+// (<family>_nmc32_kernels.cu) so the build's heaviest instantiations compile
+// in parallel.
 #define MC_DEFINE_FAMILY_NMC(PREFIX, FAMILY)                                              \
   cudaError_t PREFIX##_fused(int payoff_id, uint32_t ko0, uint32_t ko1, uint32_t ki0,      \
                              uint32_t ki1, const float* params, FamilyExtras extras,       \
@@ -573,6 +865,18 @@ MC_FAMILY_LAUNCHERS(rainbow32_family)
     return family_trajectories_switch<FAMILY>(payoff_id, k0, k1, params, extras, n_steps,  \
                                              n_paths, path_offset, bound, grids,          \
                                              state_grid, partials, n_blocks, stream);     \
+  }                                                                                       \
+  cudaError_t PREFIX##_trajectories_occupancy(int payoff_id, FamilyExtras extras,         \
+                                              int n_blocks, int* blocks) {                \
+    return family_trajectories_occupancy_switch<FAMILY>(payoff_id, extras, n_blocks,      \
+                                                        blocks);                          \
+  }                                                                                       \
+  cudaError_t PREFIX##_trajectories_geometry(FamilyExtras extras, int n_blocks,           \
+                                             int* threads, int* smem_bytes) {             \
+    const bool split = traj_split<FAMILY>(n_blocks);                                      \
+    *threads = traj_threads<FAMILY>(split);                                               \
+    *smem_bytes = static_cast<int>(traj_smem_bytes<FAMILY>(extras, split));               \
+    return cudaSuccess;                                                                   \
   }
 
 }  // namespace mc

@@ -5,8 +5,9 @@
 // Pallas call at :331), the grid strategy over a family's stored grids;
 // family_fused_kernel replaces family_fused_kernel (the Pallas call at
 // :426), which simulates the outer paths itself; family_trajectories_kernel
-// stores the outer grids of a family that has no trajectories kernel of its
-// own in mc_tpu.  The templates, their design and their bound are in
+// stores the outer grids of every family but Heston: Merton's, local vol's
+// and Vasicek's replace mc_tpu's trajectories kernels (#15, #20, #24), the
+// others' mc_tpu builds with its XLA scan.  The templates, their design and their bound are in
 // family.cuh.  The entry points switch on the family and check n_grids
 // against its kGrids: Heston (its kernels instantiated here; its grids come
 // from heston_trajectories, heston_kernels.cu), Merton
@@ -134,6 +135,10 @@ extern "C" {
 
 int mc_family_block_threads() { return mc::kFamilyThreads; }
 
+// The outer paths a block of the trajectories kernel (one advance lane
+// each; the wrapper sizes its grid and partials by it).
+int mc_family_trajectories_block_paths() { return mc::kFamilyThreads; }
+
 // The launcher mc::<family>_family_<WHAT>(...) of family_id; Heston has no
 // generic trajectories (its grids come from heston_trajectories): refused.
 #define MC_FAMILY_DISPATCH(WHAT, ...)                                                     \
@@ -154,6 +159,8 @@ int mc_family_block_threads() { return mc::kFamilyThreads; }
 #define MC_HESTON_inner(...) mc::heston_family_inner(__VA_ARGS__)
 #define MC_HESTON_occupancy(...) mc::heston_family_occupancy(__VA_ARGS__)
 #define MC_HESTON_trajectories(...) cudaErrorInvalidValue
+#define MC_HESTON_trajectories_occupancy(...) cudaErrorInvalidValue
+#define MC_HESTON_trajectories_geometry(...) cudaErrorInvalidValue
 
 // The resident blocks per SM of family_id's fused (fused = 1) or inner
 // kernel for payoff_id at smem_bytes of dynamic shared memory
@@ -213,6 +220,25 @@ int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k
   for (int k = 0; k < n_grids; ++k) g.g[k] = grids[k];
   MC_FAMILY_DISPATCH(trajectories, payoff_id, k0, k1, params, extras, n_steps, n_paths,
                      path_offset, bound, g, state_grid, partials, n_blocks, s)
+}
+
+// The resident blocks per SM of family_id's trajectories kernel for
+// payoff_id at its extras on a grid of n_blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+int mc_family_trajectories_occupancy(int family_id, int payoff_id, mc::FamilyExtras extras,
+                                     int n_blocks, int* blocks) {
+  if (mc::family_grids(family_id, extras) < 0) return cudaErrorInvalidValue;
+  MC_FAMILY_DISPATCH(trajectories_occupancy, payoff_id, extras, n_blocks, blocks)
+}
+
+// The threads a block of family_id's trajectories kernel on a grid of
+// n_blocks (its advance lanes, and its draw warps where the grid has at most
+// the family's kTrajSplitBlocks blocks an SM) and its dynamic shared bytes at
+// its extras.
+int mc_family_trajectories_geometry(int family_id, mc::FamilyExtras extras, int n_blocks,
+                                    int* threads, int* smem_bytes) {
+  if (mc::family_grids(family_id, extras) < 0) return cudaErrorInvalidValue;
+  MC_FAMILY_DISPATCH(trajectories_geometry, extras, n_blocks, threads, smem_bytes)
 }
 
 }  // extern "C"

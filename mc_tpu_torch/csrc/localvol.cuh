@@ -109,9 +109,10 @@ __device__ __forceinline__ void lv_steps(const LocalVolParams& l, int j, const f
 }
 
 // Local vol for the family NMC engine (mc_tpu/nmc_localvol.py:52-167):
-// grid S, extras i[0] = K.  The outer step j draws pair (id, j/2) at even j,
-// parks the odd step's normal in the carry and carries S, so the outer
-// payoff reads the spot the step stored.  The inner leg at row j resumes
+// grid S, extras i[0] = K.  The outer draw unit m is pair (id, m), feeding
+// steps 2m and 2m+1 (outer_step draws it at the even step and parks the
+// odd half in the carry); the carry holds S, so the outer payoff reads
+// the spot the step stored.  The inner leg at row j resumes
 // from w0 = log(S_t / s0), recomputes S = s0*exp(w) at every substep and
 // pays on it; its substep 2q takes surface row j+1+2q (j+1 = n_steps -
 // remaining), pair q of counter c_base + q, the odd one taken only while
@@ -121,11 +122,15 @@ struct LocalVolFamily {
   static constexpr int kGrids = 1;
   static constexpr int kLegs = family_legs(4);
 
+  using OuterDraw = DrawWords<2>;  // the pair's normals
+  static constexpr int kStepsPerDraw = 2;
+  static constexpr int kTrajSplitBlocks = 2;
+
   template <class Payoff>
   struct Carry {
     float w, s;
     typename Payoff::State st;
-    float z_next;
+    float z_next;  // the odd step's normal, parked by the even step
   };
 
   __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
@@ -138,12 +143,26 @@ struct LocalVolFamily {
   __device__ static Carry<Payoff> outer_init(const Params& l) {
     return Carry<Payoff>{0.0f, l.pay.s0, Payoff::init(l.pay), 0.0f};
   }
+  __device__ static void outer_draw(const Params&, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    normal_pair<13>(k0, k1, id, u, d.w[0], d.w[1]);
+  }
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& l, int j, const OuterDraw& d,
+                                       Carry<Payoff>& o) {
+    lv_step<Payoff>(l, j, (j & 1) == 0 ? d.w[0] : d.w[1], o.w, o.s, o.st);
+  }
+  // The draw at an even step, its odd normal parked in the carry, then the
+  // step on its half: outer_advance's step.
   template <class Payoff>
   __device__ static void outer_step(const Params& l, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& o) {
     float z;
     if ((j & 1) == 0) {
-      normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j >> 1), z, o.z_next);
+      OuterDraw d;
+      outer_draw(l, k0, k1, id, static_cast<uint32_t>(j >> 1), d);
+      z = d.w[0];
+      o.z_next = d.w[1];
     } else {
       z = o.z_next;
     }

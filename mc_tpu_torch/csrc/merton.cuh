@@ -130,39 +130,20 @@ __device__ __forceinline__ MertonDraws merton_draw3(uint32_t k0, uint32_t k1, ui
   return d;
 }
 
-// The half of a draw3 the odd step of a pair takes.
-struct MertonHalf {
-  float z, e, u;
-};
-
-// One outer step j of path `id` on the threefry-13 stream: an even step
-// draws pair m = j/2 and parks the odd step's half in `next`, an odd step
-// takes it.  The step of the Merton trajectories kernel (#15) and of the
-// fused family kernel's outer paths, both stepping j = 0, 1, 2, ... in
-// order, so the grids one stores are bitwise the states the other
-// recomputes.
-template <class Payoff>
-__device__ __forceinline__ void merton_outer_step(const MertonParams& m, int kmax, uint32_t k0,
-                                                  uint32_t k1, uint32_t id, int j, float& w,
-                                                  float& s, typename Payoff::State& st,
-                                                  MertonHalf& next) {
-  MertonHalf h;
-  if ((j & 1) == 0) {
-    const MertonDraws d = merton_draw3<13>(k0, k1, id, static_cast<uint32_t>(j >> 1));
-    h = MertonHalf{d.z0, d.e0, d.u0};
-    next = MertonHalf{d.z1, d.e1, d.u1};
-  } else {
-    h = next;
-  }
-  merton_step<Payoff>(m, kmax, h.z, h.e, h.u, m.pay.s0, w, s, st);
-}
-
 // Merton for the family NMC engine (mc_tpu/nmc_merton.py:44-166): grid S;
 // the inner legs resume from S_t with w from 0, substep u drawing the normal
 // pair (z, e) of counter c_base + 2u and the Poisson uniform of word 0 of
 // c_base + 2u + 1, its count taken against the block's cdf table (shared
 // memory, built once a block) where the outer steps scan.  The carry holds
 // s, so outer_pay reads the rounded spot the step stored.
+//
+// The outer path: draw unit m is the step pair (2m, 2m+1)'s merton_draw3 on
+// the threefry-13 stream, OuterDraw [z0, z1, e0, e1, u0, u1]; step j takes
+// its half (z, e, u)_{j&1}.  The step of the trajectories kernel (#15) and of
+// the fused family kernel's outer paths, both stepping j = 0, 1, 2, ... in
+// order, so the grids one stores are bitwise the states the other
+// recomputes; the trajectories kernel takes the counts against the block's
+// table on its draw side (draw_counts: the scan's counts, bit for bit).
 struct MertonFamilyParams {
   MertonParams m;
   int kmax;
@@ -174,11 +155,15 @@ struct MertonFamily {
   static constexpr int kGrids = 1;
   static constexpr int kLegs = family_legs(4);
 
+  using OuterDraw = DrawWords<6>;
+  static constexpr int kStepsPerDraw = 2;
+  static constexpr int kTrajSplitBlocks = 4;  // the draw is most of a step
+
   template <class Payoff>
   struct Carry {
     float w, s;
     typename Payoff::State st;
-    MertonHalf next;
+    float next[3];  // the odd step's half (z, e, u), parked by the even step
   };
 
   __device__ static Params load(const float* __restrict__ params, const FamilyExtras& ex,
@@ -194,12 +179,50 @@ struct MertonFamily {
 
   template <class Payoff>
   __device__ static Carry<Payoff> outer_init(const Params& p) {
-    return Carry<Payoff>{0.0f, p.m.pay.s0, Payoff::init(p.m.pay), MertonHalf{0.0f, 0.0f, 0.0f}};
+    return Carry<Payoff>{0.0f, p.m.pay.s0, Payoff::init(p.m.pay), {0.0f, 0.0f, 0.0f}};
   }
+  __device__ static void outer_draw(const Params&, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    const MertonDraws m = merton_draw3<13>(k0, k1, id, u);
+    d = OuterDraw{{m.z0, m.z1, m.e0, m.e1, m.u0, m.u1}};
+  }
+  // The uniforms' counts against the block's table, in place.
+  __device__ static void draw_counts(const Params& p, OuterDraw& d) {
+    const float u[2] = {d.w[4], d.w[5]};
+    float n[2];
+    poisson_counts(p.cdf, p.kmax, u, n);
+    d.w[4] = n[0];
+    d.w[5] = n[1];
+  }
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& p, int j, const OuterDraw& d,
+                                       Carry<Payoff>& c) {
+    const bool even = (j & 1) == 0;
+    merton_step<Payoff>(p.m, p.kmax, even ? d.w[0] : d.w[1], even ? d.w[2] : d.w[3],
+                        even ? d.w[4] : d.w[5], p.m.pay.s0, c.w, c.s, c.st);
+  }
+  template <class Payoff>
+  __device__ static void outer_advance_counted(const Params& p, int j, const OuterDraw& d,
+                                               Carry<Payoff>& c) {
+    const bool even = (j & 1) == 0;
+    merton_step_n<Payoff>(p.m, even ? d.w[4] : d.w[5], even ? d.w[0] : d.w[1],
+                          even ? d.w[2] : d.w[3], p.m.pay.s0, c.w, c.s, c.st);
+  }
+  // The draw at an even step, its odd half parked in the carry, then the
+  // step on its half: outer_advance's step.
   template <class Payoff>
   __device__ static void outer_step(const Params& p, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& c) {
-    merton_outer_step<Payoff>(p.m, p.kmax, k0, k1, id, j, c.w, c.s, c.st, c.next);
+    float z, e, u;
+    if ((j & 1) == 0) {
+      OuterDraw d;
+      outer_draw(p, k0, k1, id, static_cast<uint32_t>(j >> 1), d);
+      z = d.w[0]; e = d.w[2]; u = d.w[4];
+      c.next[0] = d.w[1]; c.next[1] = d.w[3]; c.next[2] = d.w[5];
+    } else {
+      z = c.next[0]; e = c.next[1]; u = c.next[2];
+    }
+    merton_step<Payoff>(p.m, p.kmax, z, e, u, p.m.pay.s0, c.w, c.s, c.st);
   }
   template <class Payoff>
   __device__ static void point(const Carry<Payoff>& c, float (&g)[kGrids]) {

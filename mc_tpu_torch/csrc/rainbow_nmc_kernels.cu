@@ -65,4 +65,20 @@ cudaError_t rainbow_family_occupancy(int payoff_id, FamilyExtras extras, int fus
       payoff_id, extras, fused, smem_bytes, blocks);
 }
 
+cudaError_t rainbow_family_trajectories_occupancy(int payoff_id, FamilyExtras extras,
+                                              int n_blocks, int* blocks) {
+  if (!rainbow_extras_ok(extras)) return cudaErrorInvalidValue;
+  return (extras.i[0] <= 8 ? rainbow8_family_trajectories_occupancy
+                           : rainbow32_family_trajectories_occupancy)(payoff_id, extras,
+                                                                     n_blocks, blocks);
+}
+
+cudaError_t rainbow_family_trajectories_geometry(FamilyExtras extras, int n_blocks,
+                                             int* threads, int* smem_bytes) {
+  if (!rainbow_extras_ok(extras)) return cudaErrorInvalidValue;
+  return (extras.i[0] <= 8 ? rainbow8_family_trajectories_geometry
+                           : rainbow32_family_trajectories_geometry)(extras, n_blocks, threads,
+                                                                    smem_bytes);
+}
+
 }  // namespace mc

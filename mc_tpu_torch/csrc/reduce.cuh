@@ -64,13 +64,18 @@ __device__ void block_store_moments(const double (&acc)[N], double* out, int n_s
   }
 }
 
-// block_store_moments for a block of exactly THREADS threads, storing all
-// N: the same tree, its levels unrolled (a loop bound the compiler knows).
+// block_store_moments over the first THREADS threads (a power of two) of a
+// block of THREADS or more, storing all N: the tree of a block of THREADS,
+// the same adds, its levels unrolled (a loop bound the compiler knows); the
+// threads past THREADS add nothing and take its barriers.  Every thread of
+// the block must call it.
 template <int N, int THREADS>
 __device__ void block_store_moments_unrolled(const double (&acc)[N], double* out) {
   __shared__ double sh[N][THREADS];
+  if (threadIdx.x < THREADS) {
 #pragma unroll
-  for (int m = 0; m < N; ++m) sh[m][threadIdx.x] = acc[m];
+    for (int m = 0; m < N; ++m) sh[m][threadIdx.x] = acc[m];
+  }
   __syncthreads();
 #pragma unroll
   for (int s = THREADS / 2; s > 0; s >>= 1) {

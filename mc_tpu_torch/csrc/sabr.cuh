@@ -59,7 +59,7 @@ __device__ __forceinline__ void sabr_step(const SABRParams& c, float z_vol, floa
 
 // SABR for the family NMC engine (mc_tpu/nmc_sabr.py:36-108): grids (F,
 // sig), no extras.  The outer path starts from log(f0) and alpha (the
-// forward, not the spot), step j draws pair (id, j), and the carry keeps
+// forward, not the spot), step j draws pair (id, j) (its draw unit), and the carry keeps
 // the rounded F = exp(log F) the step stored, which the outer payoff reads.
 // The inner leg resumes from (log F_t, sig_t), substep u on pair c_base + u,
 // and pays on exp(log F) (at the last row on exp(log F_T)).
@@ -67,6 +67,9 @@ struct SABRFamily {
   using Params = SABRParams;
   static constexpr int kGrids = 2;
   static constexpr int kLegs = family_legs(1);
+  using OuterDraw = DrawWords<2>;  // step j's pair (z_vol, z_perp)
+  static constexpr int kStepsPerDraw = 1;
+  static constexpr int kTrajSplitBlocks = 2;
 
   template <class Payoff>
   struct Carry {
@@ -83,14 +86,23 @@ struct SABRFamily {
   __device__ static Carry<Payoff> outer_init(const Params& c) {
     return Carry<Payoff>{logf(c.f0), c.alpha, c.f0, Payoff::init(c.pay)};
   }
+  __device__ static void outer_draw(const Params&, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    normal_pair<13>(k0, k1, id, u, d.w[0], d.w[1]);
+  }
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& c, int, const OuterDraw& d,
+                                       Carry<Payoff>& o) {
+    sabr_step(c, d.w[0], d.w[1], o.lf, o.sig);
+    o.f = expf(o.lf);
+    o.st = Payoff::update(o.st, o.f, c.pay);
+  }
   template <class Payoff>
   __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& o) {
-    float z_vol, z_perp;
-    normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j), z_vol, z_perp);
-    sabr_step(c, z_vol, z_perp, o.lf, o.sig);
-    o.f = expf(o.lf);
-    o.st = Payoff::update(o.st, o.f, c.pay);
+    OuterDraw d;
+    outer_draw(c, k0, k1, id, static_cast<uint32_t>(j), d);
+    outer_advance<Payoff>(c, j, d, o);
   }
   template <class Payoff>
   __device__ static void point(const Carry<Payoff>& o, float (&g)[kGrids]) {

@@ -1,12 +1,13 @@
-// The term-structure instantiations of the family NMC kernels (family.cuh), for sm_90a:
-// family_fused_kernel<TermFamily> (#30), family_inner_kernel<TermFamily> (#29)
-// and family_trajectories_kernel<TermFamily>, which stores the S grid of the
-// grid strategy where mc_tpu builds it with its XLA scan (no Pallas
-// counterpart).  Its step is TermFamily::outer_step (term.cuh), the fused
-// kernel's, so the two give the same outer paths bit for bit.  The twelve
-// one-word payoffs each; family_nmc_kernels.cu's entry points call the
-// launchers below.  A source of their own, so they compile beside
-// term_kernels.cu.
+// The term-structure instantiations of the family NMC kernels (family.cuh),
+// for sm_90a: family_fused_kernel<TermFamily> (#30),
+// family_inner_kernel<TermFamily> (#29) and
+// family_trajectories_kernel<TermFamily>, which stores the S grid of the grid
+// strategy where mc_tpu builds it with its XLA scan (no Pallas counterpart).
+// Its steps are TermFamily's outer_draw and outer_advance (term.cuh), the
+// draw and the step of the fused kernel's outer_step, so the two give the
+// same outer paths bit for bit.  The twelve one-word payoffs each;
+// family_nmc_kernels.cu's entry points call the launchers below.  A source of
+// their own, so they compile beside term_kernels.cu.
 
 #include <cstdint>
 

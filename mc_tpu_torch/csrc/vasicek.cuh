@@ -74,9 +74,10 @@ __device__ __forceinline__ void vasicek_draw6(uint32_t k0, uint32_t k1, uint32_t
 }
 
 // Vasicek for the family NMC engine (mc_tpu/nmc_vasicek.py:53-175): grids
-// (S, x, y), no extras.  The outer step j draws the step pair j/2's six
-// normals at even j, steps on (z0, z1, z2) and parks (z3, z4, z5) for the
-// odd step; the carry holds S, so the outer payoff reads the spot the step
+// (S, x, y), no extras.  The outer draw unit m is the step pair m's six
+// normals, the even step on (z0, z1, z2) and the odd on (z3, z4, z5)
+// (outer_step draws it at the even step and parks the odd half in the
+// carry); the carry holds S, so the outer payoff reads the spot the step
 // stored, and the outer payoff is discounted by its own exp(-y_T).  The
 // inner leg resumes from (S_t, x_t) with w = y = 0, substep u drawing the
 // pairs 2(c_base + u) -> (za, zb) and 2(c_base + u) + 1 -> (zc, unused), and
@@ -87,12 +88,16 @@ struct VasicekFamily {
   static constexpr int kGrids = 3;
   static constexpr int kLegs = family_legs(2);
 
+  using OuterDraw = DrawWords<6>;  // the pair's six normals
+  static constexpr int kStepsPerDraw = 2;
+  static constexpr int kTrajSplitBlocks = 4;  // the draw is most of a step
+
   template <class Payoff>
   struct Carry {
     VasicekState g;
     float s;
     typename Payoff::State st;
-    float parked[3];
+    float parked[3];  // the odd step's normals, parked by the even step
   };
 
   __device__ static Params load(const float* __restrict__ params, const FamilyExtras&, int) {
@@ -105,15 +110,30 @@ struct VasicekFamily {
     return Carry<Payoff>{VasicekState{0.0f, c.x0, 0.0f}, c.pay.s0, Payoff::init(c.pay),
                          {0.0f, 0.0f, 0.0f}};
   }
+  __device__ static void outer_draw(const Params&, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    vasicek_draw6<13>(k0, k1, id, static_cast<int>(u), d.w);
+  }
+  // Step j takes (z0, z1, z2) at an even j, (z3, z4, z5) at an odd one.
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& c, int j, const OuterDraw& d,
+                                       Carry<Payoff>& o) {
+    const bool even = (j & 1) == 0;
+    o.s = vasicek_step(c, even ? d.w[0] : d.w[3], even ? d.w[1] : d.w[4],
+                       even ? d.w[2] : d.w[5], c.pay.s0, o.g);
+    o.st = Payoff::update(o.st, o.s, c.pay);
+  }
+  // The draw at an even step, its odd half parked in the carry, then the
+  // step on its half: outer_advance's step.
   template <class Payoff>
   __device__ static void outer_step(const Params& c, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& o) {
     float za, zb, zc;
     if ((j & 1) == 0) {
-      float z[6];
-      vasicek_draw6<13>(k0, k1, id, j >> 1, z);
-      za = z[0]; zb = z[1]; zc = z[2];
-      o.parked[0] = z[3]; o.parked[1] = z[4]; o.parked[2] = z[5];
+      OuterDraw d;
+      outer_draw(c, k0, k1, id, static_cast<uint32_t>(j >> 1), d);
+      za = d.w[0]; zb = d.w[1]; zc = d.w[2];
+      o.parked[0] = d.w[3]; o.parked[1] = d.w[4]; o.parked[2] = d.w[5];
     } else {
       za = o.parked[0]; zb = o.parked[1]; zc = o.parked[2];
     }

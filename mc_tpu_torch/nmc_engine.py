@@ -20,12 +20,14 @@ in ``csrc/family_nmc_kernels.cu``):
   family's trajectories kernel stored;
 * ``family_fused`` (replaces ``family_fused_kernel``,
   ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself;
-* ``family_trajectories``: stores the outer grids of a family without a
-  trajectories kernel of its own (Bates, CEV, SABR, term and the basket's
-  d asset grids; the port's
-  counterpart of ``mc_tpu``'s XLA scan ``xla_family_trajectories``),
-  stepping the family's outer step, the fused kernel's, so the grid and
-  fused strategies agree.
+* ``family_trajectories``: stores the outer grids of every family but
+  Heston (under Merton, local vol and Vasicek it replaces ``mc_tpu``'s
+  trajectories kernels, ``models/merton.py:392``, ``models/localvol.py:406``,
+  ``models/vasicek.py:405``; under Bates, CEV, SABR, term, the basket and
+  the rainbow ``mc_tpu``'s XLA scan ``xla_family_trajectories``), stepping
+  the family's outer step, the fused kernel's (on a small outer grid its
+  draws split off to warps of their own), so the grid and fused strategies
+  agree.
 
 The wrappers compute each call's launch geometry on the host
 (``family_launch``: the point's legs in groups of the family's ``legs``,
@@ -70,6 +72,7 @@ __all__ = ["NMCFamily", "FamilyConfig", "FamilyLaunch", "family_launch",
            "family_rows_plain", "family_inner", "family_inner_plain",
            "family_fused", "family_fused_plain", "family_trajectories",
            "family_trajectories_plain", "launch_family_trajectories",
+           "family_trajectories_layout",
            "price_nmc_family", "NMC_FAMILIES", "NMC_FAMILY_BUILDERS",
            "register_nmc_family", "ensure_family"]
 
@@ -354,6 +357,28 @@ def family_launch(fam: NMCFamily, n_inner: int, n_pack: int) -> FamilyLaunch:
                         stage_floats=stage, table_floats=table)
 
 
+def family_trajectories_layout(fam: NMCFamily, payoff: PathPayoff,
+                               n_paths: int) -> dict:
+    """The trajectories kernel of ``fam`` for ``payoff`` on ``n_paths``
+    outer paths on the current card: its blocks, threads a block (128
+    advance lanes, and the draw warps where the grid has at most the
+    family's kTrajSplitBlocks blocks an SM), dynamic shared bytes and
+    resident blocks per SM."""
+    lib = _cuda.load()
+    ex = _cuda.family_extras(fam.extras)
+    n_blocks = min(_cuda.cdiv(n_paths, lib.mc_family_trajectories_block_paths()),
+                   _cuda.MAX_BLOCKS)
+    threads, smem, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _cuda.check(lib.mc_family_trajectories_geometry(
+        fam.cuda_id, ex, n_blocks, ctypes.addressof(threads),
+        ctypes.addressof(smem)), "family_trajectories_geometry")
+    _cuda.check(lib.mc_family_trajectories_occupancy(
+        fam.cuda_id, payoff.cuda_id, ex, n_blocks, ctypes.addressof(blocks)),
+        "family_trajectories_occupancy")
+    return dict(n_blocks=n_blocks, threads=threads.value,
+                smem_bytes=smem.value, blocks_per_sm=blocks.value)
+
+
 def family_occupancy(fam: NMCFamily, payoff: PathPayoff, fused: bool,
                      smem_bytes: int) -> int:
     """Resident blocks per SM of ``fam``'s fused or inner kernel for
@@ -463,10 +488,12 @@ def launch_family_trajectories(family_id: int, n_grids: int, extras, payoff,
                                n_valid=None):
     """Launch family_trajectories_kernel for family ``family_id`` on the
     card (the caller checks and counts): ``(*market_grids, state_grid,
-    partials)``."""
+    partials)``, a partials row per block of the kernel's paths a block
+    (``mc_family_trajectories_block_paths``)."""
     bound = _bound(path_offset, n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = min(_cuda.cdiv(n_paths, lib.mc_family_block_threads()),
+    n_blocks = min(_cuda.cdiv(n_paths,
+                              lib.mc_family_trajectories_block_paths()),
                    _cuda.MAX_BLOCKS)
     out = torch.empty((n_grids + 1, n_steps, n_paths), dtype=torch.float32,
                       device=params.device)

@@ -103,6 +103,13 @@ _SIGNATURES = {
     # qe, antithetic, blocks
     "mc_heston_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_family_block_threads": ([], _c_int),
+    "mc_family_trajectories_block_paths": ([], _c_int),
+    # family_id, payoff_id, extras, n_blocks, blocks (out)
+    "mc_family_trajectories_occupancy": ([_c_int, _c_int, FamilyExtras,
+                                          _c_int, _c_ptr], _c_int),
+    # family_id, extras, n_blocks, threads (out), dynamic shared bytes (out)
+    "mc_family_trajectories_geometry": ([_c_int, FamilyExtras, _c_int,
+                                         _c_ptr, _c_ptr], _c_int),
     "mc_merton_block_paths": ([], _c_int),
     # payoff_id, terminal, antithetic, blocks
     "mc_merton_occupancy": ([_c_int, _c_int, _c_int, _c_ptr], _c_int),
@@ -393,26 +400,28 @@ def _run_all(cmds: list[list[str]], jobs: int) -> list[tuple[str, float]]:
 
 # Each source's nvcc seconds on the H100 machine (chip_smoke.py phase 1
 # prints them; NVIDIA H100 80GB HBM3 host, 7 compilers at once; the basket
-# and FX sources from a host ~1.35x slower than the rest's): the build
+# and FX sources from a host ~1.35x slower than the rest's; the family NMC
+# sources, two trajectories kernels a payoff, from one build on a host ~1.2x
+# slower, scaled by the other sources' median ratio): the build
 # starts the longest first, so the pool ends together.  A source not listed
 # starts before them, the largest unit first (_unit_bytes).
 NVCC_SECONDS = {
     "basket32_kernels.cu": 114.2, "batch_kernels.cu": 31.2,
-    "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 30.5,
+    "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 41.5,
     "localvol10_kernels.cu": 30.1, "localvol_kernels.cu": 30.0,
-    "basket_nmc_kernels.cu": 29.1, "basket16_kernels.cu": 38.6,
+    "basket_nmc_kernels.cu": 40.5, "basket16_kernels.cu": 38.6,
     "bates_qe_kernels.cu": 28.0, "path_kernels.cu": 9.1,
     "simulate_kernels.cu": 29.7, "simulate20_kernels.cu": 30.2,
     "basket_kernels.cu": 21.4, "sabr_kernels.cu": 19.6,
-    "sabr1_kernels.cu": 18.1, "merton_nmc_kernels.cu": 18.0,
-    "heston_qe_kernels.cu": 18.9, "bates_nmc_kernels.cu": 17.6,
-    "basket8_kernels.cu": 19.9, "localvol_nmc_kernels.cu": 17.1,
-    "vasicek_nmc_kernels.cu": 15.9, "qmc_kernels.cu": 15.9,
-    "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 14.3,
-    "basket_nmc32_kernels.cu": 13.8, "vasicek_kernels.cu": 13.7,
-    "term_nmc_kernels.cu": 13.3, "cev_nmc_kernels.cu": 11.0,
+    "sabr1_kernels.cu": 18.1, "merton_nmc_kernels.cu": 23.2,
+    "heston_qe_kernels.cu": 18.9, "bates_nmc_kernels.cu": 24.1,
+    "basket8_kernels.cu": 19.9, "localvol_nmc_kernels.cu": 19.9,
+    "vasicek_nmc_kernels.cu": 19.9, "qmc_kernels.cu": 15.9,
+    "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 15.2,
+    "basket_nmc32_kernels.cu": 14.7, "vasicek_kernels.cu": 13.7,
+    "term_nmc_kernels.cu": 15.5, "cev_nmc_kernels.cu": 14.8,
     "bates_kernels.cu": 9.0, "heston_kernels.cu": 13.6,
-    "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 10.2,
+    "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 14.5,
     "qmc_bates_kernels.cu": 9.5, "qmc_basket_kernels.cu": 8.9,
     "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,
     "qmc_vasicek_kernels.cu": 6.9, "greek_kernels.cu": 7.7,
