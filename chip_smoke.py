@@ -874,8 +874,8 @@ def ptxas_resources(log: str) -> dict:
                 # sabr_partials_kernel<P, R, unit beta, antithetic>,
                 # simulate_kernel<P, R, Euler, antithetic, moments>
                 rounds = tuple(int(i) for i in ints)
-            if kernel == "book_kernel" and ints:  # book_kernel<P, CV>
-                rounds = int(ints[0])
+            if kernel in ("book_kernel", "ladder_kernel") and ints:
+                rounds = int(ints[0])  # book_kernel<P, CV>, ladder_kernel<P, euler>
             if kernel in ("cev_partials_kernel", "divs_partials_kernel"):
                 # cev_partials_kernel<P, A>, divs_partials_kernel<P, A, table>
                 rounds = tuple(int(i) for i in ints)
@@ -901,6 +901,15 @@ def ptxas_resources(log: str) -> dict:
                               smem=int(s.group(1)) if s else 0)
             entry = None
     return out
+
+
+def ladder_regs(lib, regs, po) -> dict:
+    """The registers of a payoff's ladder kernels, by mode and paths a
+    thread (ladder_kernel<Payoff, euler>: the terminal one for a payoff
+    without state, the Euler one)."""
+    modes = (0, 1) if po.terminal_only else (1,)
+    return {f"{('terminal', 'euler')[e]} P={lib.mc_ladder_paths_per_thread(e)}":
+            regs.get(("ladder_kernel", type(po).__name__, e)) for e in modes}
 
 
 def ptxas_registers(log: str) -> dict:
@@ -1213,6 +1222,9 @@ def heston_kernel_checks(mt, dev, keys):
     defer(traj_case("bullet_call", HESTON_PAYOFF_MAIN))
 
     fam = HestonNMC()
+    # #13 is the family template's: its ragged and wide edges
+    traj_ragged(mt, dev, note, "heston_trajectories", fam, hm.pack_heston,
+                dyn, key)
     kinds = {"trajectories": "heston_trajectories", "fused": "family_fused",
              "inner": "family_inner"}
 
@@ -1287,6 +1299,7 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
     phase-2 calls' (``nmc_ms``), the NMC calls' their phase-3 calls'
     (``e2e_nmc``).  Returns {kernel: (ms, plain ms)} (the family kernels'
     plain ms is measured in phase 2)."""
+    from mc_tpu_torch import nmc_engine as ne
     from mc_tpu_torch.models import heston as hm
     from mc_tpu_torch.nmc_heston import HestonNMC
     from mc_tpu_torch.ops import _cuda
@@ -1343,12 +1356,20 @@ def heston_times(mt, dev, keys, regs, tag, time_pair, gbm_ms, nmc_ms,
         f"{HESTON_PAYOFF_MAIN}x{MAIN_STEPS}")
     k_ms = out["heston_trajectories"][0]
     grid_bytes = 3 * 4 * HESTON_PAYOFF_MAIN * MAIN_STEPS
+    # #13 is the family template's: its split and one-thread-a-path kernels
+    traj_regs = {split: regs.get(("family_trajectories_kernel<HestonFamily>",
+                                  "BulletCall", split)) for split in (1, 0)}
     print(f"phase 5: heston_trajectories writes {grid_bytes / 1e6:.1f} MB in "
           f"{k_ms:.4f} ms: {grid_bytes / k_ms / 1e6:.1f} GB/s; "
           f"{k_ms / gbm_ms['trajectories']:.2f}x the GBM trajectories kernel "
-          f"({gbm_ms['trajectories']:.4f} ms); registers "
-          f"{regs.get(('heston_trajectories_kernel', 'BulletCall', None))} "
-          f"{tag}")
+          f"({gbm_ms['trajectories']:.4f} ms); registers {traj_regs} {tag}")
+    # alone at the grid NMC's outer grid, the split kernel
+    traj_alone_report("heston", HestonNMC(), prm, key, call,
+                      ne.FamilyConfig(n_paths=NMC_MAIN[0], n_steps=MAIN_STEPS,
+                                      n_inner=1), "heston_trajectories",
+                      {split: regs.get((
+                          "family_trajectories_kernel<HestonFamily>",
+                          "VanillaCall", split)) for split in (1, 0)}, tag)
 
     n_out, n_steps, n_inner = NMC_MAIN
     inner_steps = n_out * n_inner * n_steps * (n_steps - 1) // 2
@@ -3851,12 +3872,34 @@ def family_traj_path(family: str, n_steps: int, d=None, kmax: int = 0):
         return _add(_scale(bates_step(13, kmax), n_steps), TERMINAL_OPS), 2
     if family in ("basket", "rainbow"):
         return basket_path(d, n_steps), d
+    if family == "heston":  # S at each step
+        return _add(_scale(_add(pair_ops(13), HESTON_EULER_OPS), n_steps),
+                    TERMINAL_OPS), 2
     return {"cev": (half_pair_path(CEV_STEP_OPS, n_steps), 1),
             "localvol": (half_pair_path(lv_step_ops(9), n_steps), 1),
             "sabr": (_add(_scale(_add(pair_ops(13), SABR_UNIT_STEP_OPS),
                                  n_steps), SPOT_OPS, TERMINAL_OPS), 2),
             "term": (half_pair_path(STEP_OPS, n_steps), 1),
             "vasicek": (vasicek_path(n_steps), 3)}[family]
+
+
+def ladder_bound(payoff: str, euler: bool, n_paths: int, n_steps: int,
+                 n_strikes: int):
+    """bound() of a ladder call: each path simulated once (the terminal
+    draw, or the log-Euler leg with its payoff), then the payoff at each
+    further strike; the parameters and strikes read once, a row of M x 2
+    f64 a block of 256 paths written."""
+    from mc_tpu_torch.ops import _cuda
+
+    if euler:
+        path = _add(path_ops(payoff, n_steps, 13),
+                    _scale(TERMINAL_OPS, n_strikes - 1))
+    else:
+        path = _add(pair_ops(13), TERMINAL_DRAW_OPS,
+                    _scale(TERMINAL_OPS, n_strikes))
+    return bound(60 + 4 * n_strikes
+                 + 16 * n_strikes * _cuda.cdiv(n_paths, 256),
+                 _scale(path, n_paths))
 
 
 def probe_bound(row: str, **kw):
@@ -3866,10 +3909,14 @@ def probe_bound(row: str, **kw):
     default; every payoff counted as call_on_max) and basket_trajectories
     (payoff, d, n_paths, n_steps: the level and state grids written) and
     family_trajectories (family, n_paths, n_steps, d, kmax: the market and
-    state grids written, family_traj_path's work)."""
+    state grids written, family_traj_path's work) and ladder (payoff, euler,
+    n_paths, n_steps, n_strikes: ladder_bound)."""
     from mc_tpu_torch.models.basket import packed_length
 
     n = kw["n_paths"]
+    if row == "ladder":
+        return ladder_bound(kw["payoff"], kw["euler"], n, kw["n_steps"],
+                            kw["n_strikes"])
     if row == "fx_partials":
         return bound(44, _scale(fx_path_ops(kw["contract"]), n))
     if row == "greek_partials":
@@ -5835,6 +5882,29 @@ def main() -> int:
           f"(terminal, {LADDER_PATHS} paths each): {singles_ms:.4f} ms "
           f"(spread {sp:.1%}); the ladder kernel takes "
           f"{ladder_ms[0] / singles_ms:.3f}x their time {tag}")
+    # The ladder alone (the library's entry point in batches of >= 5 ms: a
+    # call through its wrapper is mostly host time) at M = 1 beside M = 17.
+    lib = _cuda.load()
+    n_lb = _cuda.cdiv(LADDER_PATHS, lib.mc_ladder_block_paths())
+    blocks = ctypes.c_int(0)
+    _cuda.check(lib.mc_ladder_occupancy(call.cuda_id, 0, ctypes.byref(blocks)),
+                "mc_ladder_occupancy")
+    for m in (1, len(strikes)):
+        part = torch.empty((n_lb, m, 2), dtype=torch.float64, device=dev)
+        args = (call.cuda_id, 0, 0, int(key[0]), int(key[1]), p100.data_ptr(),
+                strikes_t.data_ptr(), m, MAIN_STEPS, LADDER_PATHS, 0,
+                LADDER_PATHS, part.data_ptr(), n_lb, _cuda.stream_handle(dev))
+        ms, sp, batch = cuda_ms(lambda args=args: _cuda.check(
+            lib.mc_ladder_partials(*args), "ladder kernel"))
+        b_ms, by = ladder_bound("vanilla_call", False, LADDER_PATHS,
+                                MAIN_STEPS, m)
+        print(f"phase 5: ladder call terminal {LADDER_PATHS} paths x {m} "
+              f"strikes, the kernel alone: {ms:.5f} ms (spread {sp:.1%}, "
+              f"batches of {batch}), {b_ms / ms:.1%} of its bound "
+              f"({b_ms:.5f} ms, {by}); {lib.mc_ladder_block_paths()} paths a "
+              f"block, {lib.mc_ladder_paths_per_thread(0)} a thread, "
+              f"{lib.mc_ladder_strikes_per_pass(0)} strikes a pass, "
+              f"{blocks.value} blocks/SM {tag}")
 
     # The book beside 64 sequential single-contract launches (its plain
     # version was timed once in phase 2).
@@ -5867,7 +5937,7 @@ def main() -> int:
         struct = type(po).__name__
         prm = pk.pack_params(payoff_option(mt, name), MAIN_STEPS, dev)
         line = (f"registers simulate {regs.get(sim_key(po))}"
-                f", ladder {regs.get(('ladder_kernel', struct, None))}, book "
+                f", ladder {ladder_regs(lib, regs, po)}, book "
                 f"{regs.get(('book_kernel', struct, 0))} (CV "
                 f"{regs.get(('book_kernel', struct, 1))}, "
                 f"{lib.mc_book_contracts(po.cuda_id)} contracts a draw)")
@@ -6135,11 +6205,8 @@ def main() -> int:
         "nmc_fused": bound(nmc_bytes, _add(nmc_ops, outer_ops)),
         "nmc_inner": bound(3 * nmc_bytes, nmc_ops),
         # one terminal draw per path, then the payoff at each strike
-        "ladder": bound(
-            60 + 4 * len(strikes)
-            + 16 * len(strikes) * _cuda.cdiv(LADDER_PATHS, 256),
-            _scale(_add(pair_ops(13), TERMINAL_DRAW_OPS,
-                        _scale(TERMINAL_OPS, len(strikes))), LADDER_PATHS)),
+        "ladder": ladder_bound("vanilla_call", False, LADDER_PATHS,
+                               MAIN_STEPS, len(strikes)),
         "book": bound(60 * nb + 16 * nb * _cuda.cdiv(nb_paths, 256),
                       book_ops),
         # the Asian's path and its tangents
@@ -6188,7 +6255,7 @@ def main() -> int:
         ("heston_partials", "heston_kernels.cu", "models/heston.py:332",
          heston_err["heston_partials"], heston_ms["heston_partials"],
          f"call euler {FAMILY_MAIN}x{MAIN_STEPS}"),
-        ("heston_trajectories", "heston_kernels.cu", "models/heston.py:527",
+        ("heston_trajectories", "family_nmc_kernels.cu", "models/heston.py:527",
          heston_err["heston_trajectories"], heston_ms["heston_trajectories"],
          f"bullet {HESTON_PAYOFF_MAIN}x{MAIN_STEPS}"),
         ("family_inner", "family_nmc_kernels.cu", "nmc_engine.py:314",

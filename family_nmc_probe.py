@@ -2,7 +2,9 @@
 family_fused_kernel), or with ``--qmc`` the QMC kernels (#33
 qmc_model_kernel, #32 qmc_kernel, #31 qmc_bridge_kernel), or with ``--gbm``
 the GBM nested-MC kernels (#3 nmc_fused_kernel, #5 nmc_inner_kernel), the
-book (#7) and the simulate kernel (#2 simulate_kernel), or
+book (#7), the simulate kernel (#2 simulate_kernel), the terminal-pair
+kernel (#1) and the strike ladder (#6 ladder_kernel), or with
+``--trajectories`` the family trajectories kernel (#13, #15, #20, #24), or
 with ``--basket`` the basket's partials and trajectories kernels (#25
 basket_partials_kernel, #26 basket_trajectories_kernel), or with ``--fx``
 the FX kernel (#28 fx_partials_kernel) and the rainbow's (#27
@@ -223,6 +225,21 @@ through every variant, each bitwise against the first, and (``--time``)
 times the call at 1M and 2^24 paths in turns, each call's time a batch's
 share.
 
+``--gbm --kernels ladder`` builds ``batch_kernels.cu`` for the strike
+ladder (#6 ladder_kernel; an older commit's through a unit adding
+``mc_ladder_occupancy``), prints the ptxas resources of its VanillaCall and
+BulletCall instantiations, its paths a block, paths a thread and strikes a
+pass by mode and its blocks per SM; runs 256 edge ladders (the call and
+the put by the terminal draw and by Euler, the bullet and the Asian by
+Euler, plain and antithetic, at M = 1, 3, 17, 64 and 67 strikes over 1,
+255, 257 and 2^20 + 3 paths; the call and the bullet at offsets past 2^32
+and a bound below the run's end) through every variant, rows bitwise
+against the first (both keep the one-path-a-thread tree's order); and
+(``--time``) times LADDER_TIMED (the call by the terminal draw at 1M paths
+and M = 1, 4, 17, 64; the Euler bullet at 16,384 and 1M x 100, M = 17),
+each call a batch's share (>= 5 ms), in 3 pairs of turns, beside
+``chip_smoke.probe_bound("ladder")``.
+
 ``--rates`` builds ``rates_kernels.cu`` (the rates kernel #11
 rates_partials_kernel; an older commit's through a unit adding
 ``mc_rates_occupancy``), prints the ptxas resources of its instantiations,
@@ -238,15 +255,18 @@ reads them in place past it; a variant whose copy of ``csrc`` sets
 ``kRatesStagePayments`` to 0 times the in-place path at every n.
 
 ``--trajectories`` builds the family NMC sources for the family
-trajectories kernel (family_trajectories_kernel, family.cuh: Merton's #15,
-local vol's #20, Vasicek's #24 and the outer grids of CEV, SABR, term,
-Bates, the basket and the rainbow at capacities 8 and 32; an older
-commit's sources through units adding each family's resident blocks,
-TRAJ_SHIM), prints the ptxas resources of its VanillaCall and BulletCall
-instantiations and each instantiation's threads a block and resident
-blocks per SM; runs ~1,000 edge cases (traj_cases: the call and the
-bullet of every instantiation at 1 to 217 steps and 1 to 16,385 paths,
-every one-word payoff on Merton and the basket, the basket and the
+trajectories kernel (family_trajectories_kernel, family.cuh: Heston's #13,
+Merton's #15, local vol's #20, Vasicek's #24 and the outer grids of CEV,
+SABR, term, Bates, the basket and the rainbow at capacities 8 and 32; an
+older commit's sources through units adding each family's resident
+blocks, TRAJ_SHIM; one whose Heston grids came from a kernel of its own,
+``mc_heston_trajectories``, through HESTON_TRAJ_SHIM, called there, its
+rows' sums held to f64 rounding), prints the ptxas resources of its
+VanillaCall and BulletCall instantiations and each instantiation's threads
+a block and resident blocks per SM; runs ~1,100 edge cases (traj_cases:
+the call and the bullet of every instantiation at 1 to 217 steps and 1 to
+16,385 paths, every one-word payoff on Heston, Merton and the basket, the
+basket and the
 rainbow at d = 1, 3, 8, 9, 32 under both folds, a grid capped at 3
 blocks, offsets and bounds past 2^32, the last packed field at +-inf and
 NaN) through every variant, grids, state grid and rows bitwise against
@@ -254,7 +274,9 @@ the first; ``--time`` times the call and the bullet of every
 instantiation at TRAJ_TIMED (16,384 x 100, 2,048 x 16, 2,048 x 100,
 20,000, 33,000, 50,000 and 100,000 x 100), each call a batch's share (>=
 5 ms), in 3 pairs of turns,
-beside the bound chip_smoke.py counts (``probe_bound``).  A sweep is a
+beside the bound chip_smoke.py counts (``probe_bound``).  ``--kernels``
+takes a comma list of TRAJ_INSTANCES' labels (``heston``, ``merton``, ..;
+all by default).  A sweep is a
 variant whose copy of ``csrc`` edits the constants in ``family.cuh`` and
 the family headers: ``kTrajDrawWarps`` (the draw warps of a split block),
 a family's ``kTrajSplitBlocks`` (the blocks an SM up to which its grids
@@ -486,6 +508,8 @@ def probe_sources(src: Path, mode: str, out: Path, kernels=None):
             srcs.append(src / "path_kernels.cu")
         if "terminal_pair" in parts:
             srcs = terminal_pair_sources(src, out, srcs)
+        if "ladder" in parts:
+            srcs = ladder_sources(src, out, srcs)
         return srcs
     if mode == "rates":
         return rates_sources(src, out)
@@ -1026,8 +1050,9 @@ def qmc_main(args, variants, card) -> dict:
 
 GBM_PAYOFFS = (("bullet_call", "BulletCall"), ("vanilla_call", "VanillaCall"))
 GBM_KERNELS = ("nmc_fused_kernel", "nmc_inner_kernel")
-# --gbm's parts (--kernels): #3/#5, the book #7, simulate #2, terminal_pair #1
-GBM_PARTS = ("nmc", "book", "simulate", "terminal_pair")
+# --gbm's parts (--kernels): #3/#5, the book #7, simulate #2, terminal_pair
+# #1, the ladder #6
+GBM_PARTS = ("nmc", "book", "simulate", "terminal_pair", "ladder")
 # The entry points before the leg groups were passed in (no n_groups after
 # n_inner): an older commit's csrc.
 _OLD_GBM_ABI = {
@@ -1669,6 +1694,8 @@ def gbm_main(args, variants, card) -> dict:
         report["simulate"] = simulate_probe(args, bound, libs, card)
     if "terminal_pair" in parts:
         report["terminal_pair"] = terminal_pair_probe(args, bound, libs, card)
+    if "ladder" in parts:
+        report["ladder"] = ladder_probe(args, bound, libs, card)
     checker = next((lib for lib, _ in bound.values()
                     if hasattr(lib, "mc_nmc_libm_check")), None)
     if checker is not None:
@@ -1872,6 +1899,241 @@ def terminal_pair_probe(args, bound, libs, card) -> dict:
                  in tp_cases(True)]
         report["times"] = batched_turns(bound, cases, run, TP_BATCH_MS,
                                         TP_TURNS, card, "partials")
+    return report
+
+
+# --- the strike ladder (#6, --gbm --kernels ladder) ---------------------------
+
+LADDER_STRIKES = (60.0, 140.0)  # chip_smoke.py's vol-surface row, M points
+# The timed calls: the call by the terminal draw at 1M paths (the main path's
+# price_ladder) at M = 1, 4, 17, 64 strikes, and the bullet by Euler at
+# 16,384 and 1M paths x 100 steps at M = 17: (payoff, euler, paths, steps, M)
+LADDER_TIMED = tuple(("vanilla_call", 0, 1_000_000, 100, m)
+                     for m in (1, 4, 17, 64)) + tuple(
+    ("bullet_call", 1, n, 100, 17) for n in (16_384, 1_000_000))
+# The bitwise edges: M = 1, 3, 17, 64 and 67 (ragged passes at any pass size
+# up to 64), n_paths 1, 255, 257 and 2^20 + 3, both modes (the terminal draw
+# for the payoffs without state), antithetic and not, path_offset and bound
+LADDER_EDGE_M = (1, 3, 17, 64, 67)
+LADDER_EDGE_PATHS = (1, 255, 257, (1 << 20) + 3)
+LADDER_EDGE_PAYOFFS = ("vanilla_call", "vanilla_put", "bullet_call",
+                       "asian_call")
+LADDER_EDGE_STEPS = 7  # odd: the Euler leg's last half-pair
+LADDER_OFFSETS = ((1_000, 5_000, 1_000 + 4_321), ((1 << 32) - 300, 1_000,
+                                                   None))
+LADDER_BATCH_MS, LADDER_TURNS = 5.0, 3
+# A batch_kernels.cu that predates mc_ladder_occupancy (ladder_kernel<P>, 256
+# threads, one path each): this adds it to the unit that includes it.
+LADDER_OCCUPANCY_SHIM = """
+template <class P>
+static int probe_ladder_occupancy(int* blocks) {{
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mc::ladder_kernel<P>,
+                                                       mc::kLadderThreads, 0);
+}}
+
+extern "C" int mc_ladder_occupancy(int payoff_id, int euler, int* blocks) {{
+  (void)euler;
+  switch (payoff_id) {{
+    case mc::PAYOFF_BULLET_CALL: return probe_ladder_occupancy<mc::BulletCall>(blocks);
+    case mc::PAYOFF_VANILLA_CALL: return probe_ladder_occupancy<mc::VanillaCall>(blocks);
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def ladder_sources(src: Path, out: Path, srcs):
+    """``srcs`` with ``src``'s ``batch_kernels.cu`` (the ladder's): where
+    the --gbm unit already includes it (nmc or book), that unit gets
+    LADDER_OCCUPANCY_SHIM if the source lacks mc_ladder_occupancy; else a
+    unit of its own includes it (with the shim where needed)."""
+    path = src / "batch_kernels.cu"
+    shim = ("" if "mc_ladder_occupancy" in path.read_text()
+            else LADDER_OCCUPANCY_SHIM.format())
+    unit = next((s for s in srcs if s.name == "nmc_probe.cu"), None)
+    if unit is not None:
+        unit.write_text(unit.read_text() + shim)
+        return srcs
+    unit = out / "ladder_probe.cu"
+    unit.write_text(f'#include "{path}"\n' + shim)
+    return [*srcs, unit]
+
+
+def ladder_block_paths(lib) -> int:
+    """Paths a block of ladder_kernel (the parent's: its threads, one path
+    each)."""
+    fn = (getattr(lib, "mc_ladder_block_paths", None)
+          or lib.mc_ladder_block_threads)
+    return fn()
+
+
+def ladder_layout(lib) -> dict:
+    """The ladder's paths a block and, where exported, its paths a thread by
+    mode and strikes a pass, and its resident blocks per SM (the call by the
+    terminal draw, the bullet by Euler)."""
+    out = {"paths_a_block": ladder_block_paths(lib)}
+    for name in ("mc_ladder_paths_per_thread",):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            out["paths_a_thread terminal"] = fn(0)
+            out["paths_a_thread euler"] = fn(1)
+    if hasattr(lib, "mc_ladder_strikes_per_pass"):
+        out["strikes_a_pass terminal"] = lib.mc_ladder_strikes_per_pass(0)
+        out["strikes_a_pass euler"] = lib.mc_ladder_strikes_per_pass(1)
+    for payoff, euler in (("vanilla_call", 0), ("bullet_call", 1)):
+        blocks = ctypes.c_int(0)
+        st = lib.mc_ladder_occupancy(_payoff_id(payoff), euler,
+                                     ctypes.byref(blocks))
+        out[f"blocks_per_sm {payoff} {'euler' if euler else 'terminal'}"] = (
+            blocks.value if st == 0 else None)
+    return out
+
+
+def ladder_cases(timed: bool):
+    """The ladder's cases: dicts of label, payoff, euler, anti, n (paths),
+    steps, m (strikes), offset, bound (None: the run's end).  Timed:
+    LADDER_TIMED.  Else the edges of LADDER_EDGE_*: every payoff by Euler
+    and the two without state by the terminal draw, antithetic and not, at
+    every M and path count; the call and the bullet at LADDER_OFFSETS."""
+    from mc_tpu_torch.ops.payoffs import get_payoff
+
+    def case(payoff, euler, n, steps, m, anti=0, offset=0, bound=None):
+        label = (f"ladder {payoff} {'euler' if euler else 'terminal'}"
+                 f"{' anti' if anti else ''} {n}x{steps} M={m}"
+                 + (f" offset {offset} bound {bound}" if offset or bound
+                    else ""))
+        return dict(label=label, payoff=payoff, euler=euler, anti=anti, n=n,
+                    steps=steps, m=m, offset=offset, bound=bound)
+
+    if timed:
+        return [case(p, e, n, s, m) for p, e, n, s, m in LADDER_TIMED]
+    out = []
+    for payoff in LADDER_EDGE_PAYOFFS:
+        modes = (1,) if get_payoff(payoff).n_state else (0, 1)
+        for euler in modes:
+            for anti in (0, 1):
+                out += [case(payoff, euler, n, LADDER_EDGE_STEPS, m, anti)
+                        for m in LADDER_EDGE_M for n in LADDER_EDGE_PATHS]
+    for off, n, b in LADDER_OFFSETS:
+        for payoff, euler in (("vanilla_call", 0), ("bullet_call", 1)):
+            out += [case(payoff, euler, n, 16, m, anti, off, b)
+                    for m in (1, 17) for anti in (0, 1)]
+    return out
+
+
+def ladder_inputs(a: dict, dev):
+    """(params, strikes, key) of a ladder case: the demo option (the
+    bullet's window reachable in the case's steps), M strikes evenly over
+    LADDER_STRIKES, the outer key at seed 1234."""
+    from mc_tpu_torch import engines, rng
+    from mc_tpu_torch.config import OptionParams
+    from mc_tpu_torch.ops import path_kernels as pk
+
+    opt = (OptionParams(p1=1.0, p2=6.0) if a["steps"] < 50 else
+           OptionParams())
+    prm = pk.pack_params(opt, a["steps"], dev)
+    strikes = torch.tensor(np.linspace(*LADDER_STRIKES, a["m"]),
+                           dtype=torch.float32, device=dev)
+    key = tuple(int(k) for k in rng.derive_key(1234, engines.STREAM_OUTER))
+    return prm, strikes, key
+
+
+def run_ladder(lib, a: dict, inputs, batch: int = 1, n=None):
+    """(partials, ms) of ``batch`` back-to-back mc_ladder_partials calls of
+    case ``a`` (``n``: its path count, or another)."""
+    prm, strikes, (k0, k1) = inputs
+    n = a["n"] if n is None else n
+    bound = (a["offset"] + n if a["bound"] is None else a["bound"]) & 0xFFFFFFFF
+    n_blocks = -(-n // ladder_block_paths(lib))
+    part = torch.empty((n_blocks, a["m"], 2), dtype=torch.float64,
+                       device=prm.device)
+    args = (_payoff_id(a["payoff"]), a["euler"], a["anti"], k0, k1,
+            prm.data_ptr(), strikes.data_ptr(), a["m"], a["steps"], n,
+            a["offset"] & 0xFFFFFFFF, bound, part.data_ptr(), n_blocks,
+            torch.cuda.current_stream().cuda_stream)
+    t = _events()
+    for _ in range(batch):
+        _check(lib.mc_ladder_partials(*args), "ladder")
+    t.append(_event())
+    torch.cuda.synchronize()
+    return part, t[0].elapsed_time(t[1]) / batch
+
+
+def ladder_probe(args, bound, libs, card) -> dict:
+    """--gbm's ladder half: resources and (--sass) loops of its VanillaCall
+    and BulletCall instantiations, its layout, the bitwise edges through
+    every variant (rows bitwise against the first variant's: both keep the
+    one-path-a-thread block tree's order) and (--time) LADDER_TIMED in
+    LADDER_TURNS pairs of turns, each call's time a batch's share (>=
+    LADDER_BATCH_MS a batch), beside chip_smoke.py's bound."""
+    from mc_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    report = {"variants": {}}
+    want = re.compile(r"13ladder_kernelINS_(11VanillaCall|10BulletCall)E")
+    for label, (lib, _) in bound.items():
+        for name in ("mc_ladder_block_paths", "mc_ladder_block_threads"):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes, getattr(lib, name).restype = (
+                    [], _int)
+        for name in ("mc_ladder_paths_per_thread",
+                     "mc_ladder_strikes_per_pass"):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = [_int]
+                getattr(lib, name).restype = _int
+        lib.mc_ladder_occupancy.argtypes = [_int, _int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.mc_ladder_occupancy.restype = _int
+        lib.mc_ladder_partials.argtypes, lib.mc_ladder_partials.restype = (
+            _cuda._SIGNATURES["mc_ladder_partials"])
+        lib_path, logs = libs[label]
+        rows = kernel_rows(args, label, lib_path, logs, want, card)
+        layout = ladder_layout(lib)
+        print(f"probe {label}: ladder layout {layout} {card}", flush=True)
+        report["variants"][label] = dict(kernels=rows, layout=layout)
+    edges, bad = {}, 0
+    for a in ladder_cases(False):
+        inputs = ladder_inputs(a, dev)
+        ref = None
+        for label, (lib, _) in bound.items():
+            part, _ = run_ladder(lib, a, inputs)
+            ref = part if ref is None else ref
+            same = same_bits(part, ref)
+            edges.setdefault(a["label"], {})[label] = same
+            if not same:
+                bad += 1
+                print(f"FAIL: {a['label']} {label} disagrees with "
+                      f"{next(iter(bound))}", flush=True)
+    print(f"probe ladder edges: {len(edges)} cases x {len(bound)} variants, "
+          f"{bad} disagree {card}", flush=True)
+    report["edges"] = edges
+    if args.time:
+        cache = {}
+
+        def run(label, a, batch, warm=False):
+            if a["label"] not in cache:
+                cache.clear()
+                cache[a["label"]] = ladder_inputs(a, dev)
+            part, ms = run_ladder(bound[label][0], a, cache[a["label"]],
+                                  batch, 4096 if warm else None)
+            return (part,), ms
+
+        cases = ladder_cases(True)
+        times = batched_turns(bound, cases, run, LADDER_BATCH_MS,
+                              LADDER_TURNS, card, "partials")
+        bounds = {}
+        for a in cases:
+            b_ms, by = bound_of("ladder", payoff=a["payoff"],
+                                euler=a["euler"], n_paths=a["n"],
+                                n_steps=a["steps"], n_strikes=a["m"])
+            bounds[a["label"]] = (b_ms, by)
+            med = {label: float(np.median([r["ms"] for r in rows]))
+                   for label, rows in times[a["label"]].items()}
+            print(f"probe bound {a['label']}: {b_ms:.5f} ms ({by}); share "
+                  + ", ".join(f"{k} {b_ms / v:.1%}" for k, v in med.items())
+                  + f" {card}", flush=True)
+        report["times"] = times
+        report["bounds"] = bounds
     return report
 
 
@@ -2351,6 +2613,7 @@ def fx_main(args, variants, card) -> dict:
 # family, d or None, device struct, source).  The basket and the rainbow at
 # each capacity's timed d (the demo's 4 at capacity 8, the full 32 at 32).
 TRAJ_INSTANCES = (
+    ("heston", "heston", None, "HestonFamily", "family_nmc_kernels.cu"),
     ("merton", "merton", None, "MertonFamily", "merton_nmc_kernels.cu"),
     ("localvol", "localvol", None, "LocalVolFamily",
      "localvol_nmc_kernels.cu"),
@@ -2404,11 +2667,41 @@ extern "C" int probe_traj_occupancy_{label}(int payoff_id, int* blocks) {{
 """
 
 
+# A heston_kernels.cu whose heston_trajectories_kernel stores #13's grids
+# (before Heston joined the family template): this unit adds its resident
+# blocks per SM for each one-word payoff; heston_qe_kernels.cu, which the
+# partials' launcher calls, is built beside it.
+HESTON_TRAJ_SHIM = """#include "{src}/heston_kernels.cu"
+
+extern "C" int probe_heston_traj_occupancy(int payoff_id, int* blocks) {{
+  switch (payoff_id) {{
+#define MC_CASE(ID, PAYOFF)                                                  \\
+  case mc::ID:                                                               \\
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \\
+        blocks, mc::heston_trajectories_kernel<mc::PAYOFF>, mc::kHestonThreads, 0);
+    MC_ONE_WORD_PAYOFFS(MC_CASE)
+#undef MC_CASE
+    default: return cudaErrorInvalidValue;
+  }}
+}}
+"""
+# The entry point of that kernel (mc_heston_trajectories): payoff, k0, k1,
+# params, n_steps, n_paths, path_offset, bound, the S, v and state grids,
+# partials, n_blocks, stream.
+_HESTON_TRAJ_ABI = [_int, _u32, _u32, _ptr, _int, _u32, _u32, _u32, _ptr,
+                    _ptr, _ptr, _ptr, _int, _ptr]
+
+
 def traj_sources(src: Path, out: Path):
     """The family NMC sources of ``src``; where its entry points have no
     ``mc_family_trajectories_occupancy``, each family's source through
-    TRAJ_SHIM."""
+    TRAJ_SHIM; where Heston stores its grids with a kernel of its own
+    (``mc_heston_trajectories``), its sources through HESTON_TRAJ_SHIM."""
     srcs = probe_sources(src, "family", out)
+    if "mc_heston_trajectories" in (src / "heston_kernels.cu").read_text():
+        unit = out / "heston_traj_probe.cu"
+        unit.write_text(HESTON_TRAJ_SHIM.format(src=src))
+        srcs += [unit, src / "heston_qe_kernels.cu"]
     if "mc_family_trajectories_occupancy" in (
             src / "family_nmc_kernels.cu").read_text():
         return srcs
@@ -2449,7 +2742,22 @@ def bind_traj(lib_path: Path):
         tile = lib.mc_family_trajectories_block_paths()
     else:
         tile = lib.mc_family_block_threads()
+    if hasattr(lib, "mc_heston_trajectories"):
+        lib.mc_heston_trajectories.argtypes = _HESTON_TRAJ_ABI
+        lib.mc_heston_trajectories.restype = _int
+        lib.mc_heston_block_paths.argtypes = []
+        lib.mc_heston_block_paths.restype = _int
+        lib.probe_heston_traj_occupancy.argtypes = [
+            _int, ctypes.POINTER(ctypes.c_int)]
+        lib.probe_heston_traj_occupancy.restype = _int
     return lib, tile
+
+
+def heston_own_kernel(lib, a: dict) -> bool:
+    """Whether case ``a`` runs Heston's trajectories kernel of its own (a
+    parent's library: #13 before the family template), not the family
+    entry point."""
+    return a["family"] == "heston" and hasattr(lib, "mc_heston_trajectories")
 
 
 def traj_family(a: dict, dev):
@@ -2493,13 +2801,13 @@ def _traj_pack(family: str, d, fold: int, steps: int):
     return fam, fam.pack(opt, dyn, steps, torch.device("cpu")), key
 
 
-def traj_cases(timed: bool):
+def traj_cases(timed: bool, insts=None):
     """The trajectories kernel's cases: dicts of label, inst (the
     TRAJ_INSTANCES label), family, d, fold, payoff, n (paths), steps,
     offset, bound (None: the run's end), blocks (None: the wrapper's grid)
     and fix ((pack index, value), ...; a negative index from the end).
-    Timed: TRAJ_TIMED x TRAJ_PAYOFFS for every instantiation.  Else the
-    edges of TRAJ_EDGE_*."""
+    Timed: TRAJ_TIMED x TRAJ_PAYOFFS for every instantiation of ``insts``
+    (default all).  Else the edges of TRAJ_EDGE_*."""
     from mc_tpu_torch.ops.payoffs import PAYOFFS
 
     def case(inst, payoff, n, steps, d=None, fold=0, offset=0, bound=None,
@@ -2516,16 +2824,17 @@ def traj_cases(timed: bool):
                     payoff=payoff, n=n, steps=steps, offset=offset,
                     bound=bound, blocks=blocks, fix=tuple(fix))
 
-    insts = [t[0] for t in TRAJ_INSTANCES]
+    insts = [t[0] for t in TRAJ_INSTANCES if insts is None or t[0] in insts]
     if timed:
         return [case(i, p, n, s) for n, s in TRAJ_TIMED for i in insts
                 for p in TRAJ_PAYOFFS]
     one_word = [n for n, po in PAYOFFS.items() if po.n_state <= 1]
     out = [case(i, p, n, s) for i in insts for p in TRAJ_PAYOFFS
            for s in TRAJ_EDGE_STEPS for n in TRAJ_EDGE_PATHS]
-    out += [case(i, p, 129, s) for i in ("merton", "basket8", "basket32")
+    out += [case(i, p, 129, s) for i in ("heston", "merton", "basket8",
+                                         "basket32") if i in insts
             for p in one_word if p not in TRAJ_PAYOFFS for s in (3, 16)]
-    for d in TRAJ_EDGE_D:
+    for d in TRAJ_EDGE_D if "basket8" in insts else ():
         cap = 8 if d <= 8 else 32
         for fold in (0, 1):
             out += [case(f"rainbow{cap}", p, 2_049, s, d=d, fold=fold)
@@ -2552,41 +2861,70 @@ def run_traj(lib, tile: int, a: dict, inputs, batch: int = 1, n=None):
     fam, prm, (k0, k1) = inputs
     n = a["n"] if n is None else n
     bound = (a["offset"] + n if a["bound"] is None else a["bound"]) & 0xFFFFFFFF
+    own = heston_own_kernel(lib, a)
+    if own:
+        tile = lib.mc_heston_block_paths()
     n_blocks = a["blocks"] or min(-(-n // tile), _cuda.MAX_BLOCKS)
     out = torch.empty((fam.n_grids + 1, a["steps"], n), dtype=torch.float32,
                       device=prm.device)
     part = torch.empty((n_blocks, 2), dtype=torch.float64, device=prm.device)
-    args = (fam.cuda_id, get_payoff(a["payoff"]).cuda_id, k0, k1,
-            prm.data_ptr(), _cuda.family_extras(fam.extras), a["steps"], n,
-            a["offset"] & 0xFFFFFFFF, bound,
-            _cuda.pointer_array(out[:fam.n_grids]), fam.n_grids,
-            out[fam.n_grids].data_ptr(), part.data_ptr(), n_blocks,
-            torch.cuda.current_stream().cuda_stream)
+    pid = get_payoff(a["payoff"]).cuda_id
+    stream = torch.cuda.current_stream().cuda_stream
+    if own:
+        args = (pid, k0, k1, prm.data_ptr(), a["steps"], n,
+                a["offset"] & 0xFFFFFFFF, bound, out[0].data_ptr(),
+                out[1].data_ptr(), out[2].data_ptr(), part.data_ptr(),
+                n_blocks, stream)
+        entry = lib.mc_heston_trajectories
+    else:
+        args = (fam.cuda_id, pid, k0, k1, prm.data_ptr(),
+                _cuda.family_extras(fam.extras), a["steps"], n,
+                a["offset"] & 0xFFFFFFFF, bound,
+                _cuda.pointer_array(out[:fam.n_grids]), fam.n_grids,
+                out[fam.n_grids].data_ptr(), part.data_ptr(), n_blocks,
+                stream)
+        entry = lib.mc_family_trajectories
     t = _events()
     for _ in range(batch):
-        _check(lib.mc_family_trajectories(*args), "family_trajectories")
+        _check(entry(*args), "family_trajectories")
     t.append(_event())
     torch.cuda.synchronize()
     return out, part, t[0].elapsed_time(t[1]) / batch
 
 
-def traj_layout(lib, tile: int) -> dict:
-    """Per instantiation and timed path count its blocks, threads a block,
-    dynamic shared bytes and resident blocks per SM for the call and the
-    bullet (the parent's: 128 threads, no dynamic shared memory, its blocks
-    through TRAJ_SHIM's units)."""
+def traj_layout(lib, tile: int, insts) -> dict:
+    """Per instantiation of ``insts`` and timed path count its blocks,
+    threads a block, dynamic shared bytes and resident blocks per SM for the
+    call and the bullet (the parent's: 128 threads, no dynamic shared memory,
+    its blocks through TRAJ_SHIM's units; Heston's own kernel 256 threads,
+    through HESTON_TRAJ_SHIM's)."""
     from mc_tpu_torch.ops import _cuda
     from mc_tpu_torch.ops.payoffs import get_payoff
 
     out = {"paths_a_block": tile}
     new = hasattr(lib, "mc_family_trajectories_occupancy")
     for label, family, d, _, _ in TRAJ_INSTANCES:
+        if label not in insts:
+            continue
         fam, _, _ = traj_family(dict(family=family, d=d, fold=0, n=1,
                                      steps=2, fix=()), torch.device("cpu"))
         ex = _cuda.family_extras(fam.extras)
+        own = heston_own_kernel(lib, dict(family=family))
+        own_tile = lib.mc_heston_block_paths() if own else tile
         for n in sorted({n for n, _ in TRAJ_TIMED}):
-            n_blocks = min(-(-n // tile), _cuda.MAX_BLOCKS)
-            threads, smem = ctypes.c_int(tile), ctypes.c_int(0)
+            n_blocks = min(-(-n // own_tile), _cuda.MAX_BLOCKS)
+            threads, smem = ctypes.c_int(own_tile), ctypes.c_int(0)
+            if own:
+                row = dict(blocks=n_blocks, threads=threads.value,
+                           smem_dynamic=0)
+                for payoff in TRAJ_PAYOFFS:
+                    blocks = ctypes.c_int(0)
+                    st = lib.probe_heston_traj_occupancy(
+                        get_payoff(payoff).cuda_id, ctypes.byref(blocks))
+                    row[f"blocks_per_sm {payoff}"] = (blocks.value if st == 0
+                                                      else None)
+                out[f"{label} {n}"] = row
+                continue
             if new:
                 _check(lib.mc_family_trajectories_geometry(
                     fam.cuda_id, ex, n_blocks, ctypes.byref(threads),
@@ -2616,14 +2954,18 @@ def traj_main(args, variants, card) -> dict:
     dev = torch.device("cuda")
     report = {"card": card, "variants": {}}
     bound = {}
-    want = re.compile(r"26family_trajectories_kernel.*(11VanillaCall|"
-                      r"10BulletCall)")
+    insts = args.kernels or tuple(t[0] for t in TRAJ_INSTANCES)
+    structs = "|".join(t[3].split("<")[0] for t in TRAJ_INSTANCES
+                       if t[0] in insts)
+    heston = "|26heston_trajectories_kernel" if "heston" in insts else ""
+    want = re.compile(rf"(26family_trajectories_kernelINS_\d+({structs})"
+                      rf"{heston}).*(11VanillaCall|10BulletCall)")
     for label, src, defines in variants:
         lib_path, logs = libs[label]
         lib, tile = bind_traj(lib_path)
         bound[label] = (lib, tile)
         rows = kernel_rows(args, label, lib_path, logs, want, card)
-        layout = traj_layout(lib, tile)
+        layout = traj_layout(lib, tile, insts)
         print(f"probe {label}: trajectories layout {layout} {card}",
               flush=True)
         report["variants"][label] = dict(src=str(src), defines=defines,
@@ -2633,14 +2975,32 @@ def traj_main(args, variants, card) -> dict:
         lib, tile = bound[label]
         return run_traj(lib, tile, a, inputs, batch, n)
 
+    def paths_a_block(label, a):
+        lib, tile = bound[label]
+        return lib.mc_heston_block_paths() if heston_own_kernel(lib, a) else tile
+
+    def same_rows(part, ref, same_blocks):
+        """Rows bitwise; or, where the variants' blocks hold other paths
+        (Heston's own kernel: 256 a block, the template's 128), their sums
+        to f64 rounding."""
+        if same_blocks:
+            return same_bits(part, ref)
+        got, want = part.sum(0), ref.sum(0)
+        nan = want.isnan()
+        if not torch.equal(got.isnan(), nan):
+            return False
+        close = (got - want).abs() <= 1e-12 * want.abs()
+        return bool(torch.all(close | nan | (got == want)))
+
     edges, bad = {}, 0
-    for a in traj_cases(False):
+    for a in traj_cases(False, insts):
         inputs = traj_family(a, dev)
-        ref = None
+        ref, first = None, next(iter(bound))
         for label in bound:
             grids, part, _ = run(label, a, inputs)
             ref = (grids, part) if ref is None else ref
-            same = same_bits(grids, ref[0]) and same_bits(part, ref[1])
+            same = same_bits(grids, ref[0]) and same_rows(
+                part, ref[1], paths_a_block(label, a) == paths_a_block(first, a))
             edges.setdefault(a["label"], {})[label] = same
             if not same:
                 bad += 1
@@ -2651,7 +3011,7 @@ def traj_main(args, variants, card) -> dict:
           f"variants, {bad} disagree {card}", flush=True)
     report["edges"] = edges
     if args.time:
-        cases = traj_cases(True)
+        cases = traj_cases(True, insts)
         cache = {}
 
         def timed(label, a, batch, warm=False):
@@ -2660,7 +3020,8 @@ def traj_main(args, variants, card) -> dict:
                 cache[a["label"]] = traj_family(a, dev)
             grids, part, ms = run(label, a, cache[a["label"]], batch,
                                   256 if warm else None)
-            return (grids, part), ms
+            # Heston's rows are held to the parent's sums in the edges
+            return ((grids,) if a["family"] == "heston" else (grids, part)), ms
 
         times = batched_turns(bound, cases, timed, TRAJ_BATCH_MS, TRAJ_TURNS,
                               card, "grids and partials")
@@ -4743,7 +5104,9 @@ def main() -> int:
                     help="--partials: a comma list of localvol, merton, cev, "
                          "divs, heston_qe, bates_qe, heston_euler (all by "
                          "default); --gbm: of nmc, book, simulate, "
-                         "terminal_pair (all by default); --fx: of fx, "
+                         "terminal_pair, ladder (all by default); "
+                         "--trajectories: of TRAJ_INSTANCES' labels (all "
+                         "by default); --fx: of fx, "
                          "rainbow (both by default)")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--time", action="store_true")

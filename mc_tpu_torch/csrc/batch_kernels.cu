@@ -4,7 +4,20 @@
 // (the Pallas call at :648): each path is simulated once (the exact terminal
 // draw or the log-Euler loop, both antithetic legs from one draw), then M
 // strikes are evaluated by Payoff::terminal with p.k swapped for strikes[m]
-// (mc_tpu :606-627).  partials[block, m, :] = [sum pay, sum pay^2].
+// (mc_tpu :606-627).  partials[block, m, :] = [sum pay, sum pay^2].  A block
+// sums kLadderBlockPaths = 256 paths, block b paths b*256 .. b*256+255: its
+// 256 / P threads each run P of them in lockstep (thread t paths t, t + T,
+// .. t + (P-1)T, T the block's threads; P by mode, ladder_paths: a kernel a
+// mode, the terminal one for the six payoffs without state only), each
+// path's M payoffs evaluated once, the strikes read
+// once a block by uniform loads, R a pass (as many as kLadderPassBytes of
+// rows hold).  A pass's rows (R strikes x 2 moments) reduce together: the
+// lanes add as the one-path-a-thread kernel's 256-thread tree added its
+// threads t + pT, then the T threads' levels down to 64 in shared memory,
+// one barrier a level for all the pass's rows, and the level of 32 and the
+// warp's levels 16 .. 1 (__shfl_down_sync) take the rows a warp each: every
+// row keeps the old tree's order, bit for bit, and a block waits at a few
+// barriers a pass (3 at 128 threads) where the tree took 9 a strike.
 //
 // book_kernel replaces simulate_book_partials (the Pallas call at :778): B
 // contracts, each with its own (15,) parameter row, priced on the same draws
@@ -19,10 +32,11 @@
 //
 // Accumulators: M strikes (or B contracts x 2 or 5 moments) are a runtime
 // count, too many for the fixed per-thread register array of the
-// grid-stride kernels.  Both kernels therefore take one path per thread,
-// cdiv(n_paths, threads) blocks, and after the simulation one block
-// reduction per strike or contract, in reduce.cuh's tree order; the order
-// of every sum is fixed by the path count alone.  A path's payoff is
+// grid-stride kernels.  Both kernels therefore take a block's paths once
+// (the ladder 256, P a thread; the book one a thread), cdiv(n_paths, paths a
+// block) blocks, and reduce the strikes or contracts a pass at a time, in
+// reduce.cuh's tree order; the order of every sum is fixed by the path
+// count alone.  A path's payoff is
 // bitwise the simulate kernel's (simulate_path, path_payoff, add_moments;
 // payoffs.cuh, reduce.cuh).  Up to 2^21 paths (ops/_cuda.py MAX_BLOCKS x
 // 256) simulate_kernel does not grid-stride either, its blocks are the
@@ -41,7 +55,10 @@
 //
 // What bounds them on the H100: bytes do not matter (60 bytes of parameters
 // per strike or contract in, one row per block out).  The ladder is the
-// simulate kernel's work plus M terminal evaluations per path.  The book's
+// simulate kernel's work plus M terminal evaluations per path: by the
+// terminal draw a threefry-13 pair and an expf a path, so at M = 17 the
+// one-path-a-thread kernel's 17 trees of 9 barriers were its time; its
+// design takes them out (above).  The book's
 // step loop runs B times per path on replayed draws, so it is issue-bound
 // on that loop; its design takes the work out of it:
 // - a payoff that reads S only through S < B (the bullet, the up-and-out
@@ -73,34 +90,115 @@
 
 namespace mc {
 
-constexpr int kLadderThreads = 256;
 constexpr int kBookMaxThreads = 256;
 constexpr int kBatchRounds = 13;  // price_ladder/price_portfolio: threefry-13
 
-template <class Payoff>
-__global__ void __launch_bounds__(kLadderThreads)
-ladder_kernel(int euler, int antithetic, uint32_t k0, uint32_t k1,
-              const float* __restrict__ params, const float* __restrict__ strikes,
-              int n_strikes, int n_steps, uint32_t n_paths, uint32_t path_offset,
-              uint32_t bound, double* __restrict__ partials) {
+// The ladder's paths a block: the one-path-a-thread kernel's threads, so each
+// row keeps that kernel's tree.
+constexpr int kLadderBlockPaths = 256;
+// Paths a thread in lockstep, by the terminal draw (a straight-line path:
+// the six payoffs without state) and by the log-Euler loop (swept on the
+// H100, family_nmc_probe.py --gbm --kernels ladder, PERF.md §6).
+constexpr int kLadderTerminalPaths = 4;
+constexpr int kLadderEulerPaths = 1;
+__host__ __device__ constexpr int ladder_paths(bool euler) {
+  return euler ? kLadderEulerPaths : kLadderTerminalPaths;
+}
+// The shared bytes of a pass's rows: a pass takes as many strikes as 2 f64
+// rows of the block's T threads each fit (8 at 128 threads, 4 at 256).
+constexpr int kLadderPassBytes = 16 * 1024;
+template <int T>
+__host__ __device__ constexpr int ladder_strikes() {
+  return kLadderPassBytes / (2 * T * static_cast<int>(sizeof(double)));
+}
+
+// Each block: its paths' legs (each lane's simulate_path, payoffs.cuh, the
+// simulate kernel's leg: path q of the thread draws id[q]), then per pass
+// of R strikes each thread's rows into shared memory, sh[2r + m][t] for
+// strike r0 + r and moment m
+// (its lanes' f64 [pay, pay^2], each from zero as add_moments adds them,
+// folded: lane q holds the tree's thread t + qT, and lanes q and q + h add
+// at its level hT), one barrier, then block_store_moments' levels s = T/2
+// .. 64 in place (sh[row][c] += sh[row][c + s], the 2R*s adds of a level
+// spread over all T threads, a barrier each), and the level of 32 and the
+// warp's shuffles a row a warp: lane l of warp w adds sh[row][l] and
+// sh[row][l + 32] for rows w, w + T/32, .., then __shfl_down_sync by 16 ..
+// 1, lane 0 storing the row.  A pass after the first waits at a barrier of
+// its own for the last pass's readers.  Only a pass's strikes are evaluated
+// and stored (a ragged last pass is shorter).
+template <class Payoff, bool EULER>
+__global__ void __launch_bounds__(kLadderBlockPaths / ladder_paths(EULER))
+ladder_kernel(int antithetic, uint32_t k0, uint32_t k1, const float* __restrict__ params,
+              const float* __restrict__ strikes, int n_strikes, int n_steps,
+              uint32_t n_paths, uint32_t path_offset, uint32_t bound,
+              double* __restrict__ partials) {
+  constexpr int P = ladder_paths(EULER);
+  constexpr int T = kLadderBlockPaths / P;
+  constexpr int R = ladder_strikes<T>();
+  static_assert(T >= 64 && (T & (T - 1)) == 0 && R >= 1,
+                "a power of two of at least two warps, a strike a pass");
+  __shared__ double sh[2 * R][T];
+  const int t = threadIdx.x;
   const Params p = load_params(params);
-  const uint32_t i = blockIdx.x * kLadderThreads + threadIdx.x;  // one path per thread
-  const uint32_t id = path_offset + i;
-  const bool valid = i < n_paths && id < bound;
-  const PathEnd<Payoff> e = simulate_path<Payoff>(
-      p, euler, antithetic, p.s0, Payoff::init(p), 0, n_steps, 0.0f,
-      [&](int m, float& z0, float& z1) {
-        normal_pair<kBatchRounds>(k0, k1, id, static_cast<uint32_t>(m), z0, z1);
-      });
-  for (int m = 0; m < n_strikes; ++m) {
-    Params pm = p;
-    pm.k = strikes[m];
-    float pay, x;  // x unused: the ladder has no control variate
-    path_payoff<Payoff>(pm, e, antithetic, 1.0f, 1.0f, pay, x);
-    double acc[2] = {0.0, 0.0};
-    add_moments(acc, pay, x, valid, false);
-    block_store_moments<2, kLadderThreads>(
-        acc, partials + 2 * (static_cast<size_t>(blockIdx.x) * n_strikes + m), 2);
+  uint32_t id[P];
+  bool valid[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const uint32_t i = blockIdx.x * kLadderBlockPaths + q * T + t;
+    id[q] = path_offset + i;
+    valid[q] = i < n_paths && id[q] < bound;
+  }
+  PathEnd<Payoff> e[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    e[q] = simulate_path<Payoff>(
+        p, EULER, antithetic, p.s0, Payoff::init(p), 0, n_steps, 0.0f,
+        [&](int m, float& z0, float& z1) {
+          normal_pair<kBatchRounds>(k0, k1, id[q], static_cast<uint32_t>(m), z0, z1);
+        });
+  }
+  for (int r0 = 0; r0 < n_strikes; r0 += R) {  // block-uniform
+    const int n_pass = min(R, n_strikes - r0);
+    if (r0 > 0) __syncthreads();  // the last pass's readers are done
+    for (int r = 0; r < n_pass; ++r) {  // a runtime loop: unrolled over R it ran slower
+      Params pm = p;
+      pm.k = __ldg(strikes + r0 + r);
+      double lane[P][2];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float pay, x;  // x unused: the ladder has no control variate
+        path_payoff<Payoff>(pm, e[q], antithetic, 1.0f, 1.0f, pay, x);
+        lane[q][0] = lane[q][1] = 0.0;
+        add_moments(lane[q], pay, x, valid[q], false);
+      }
+#pragma unroll
+      for (int h = P / 2; h >= 1; h /= 2) {
+#pragma unroll
+        for (int q = 0; q < h; ++q) {
+          lane[q][0] += lane[q + h][0];
+          lane[q][1] += lane[q + h][1];
+        }
+      }
+      sh[2 * r][t] = lane[0][0];
+      sh[2 * r + 1][t] = lane[0][1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = T / 2; s >= 64; s /= 2) {
+      for (int i = t; i < 2 * n_pass * s; i += T) {
+        const int row = i / s, c = i % s;
+        sh[row][c] = sh[row][c] + sh[row][c + s];
+      }
+      __syncthreads();
+    }
+    double* out = partials + 2 * (static_cast<size_t>(blockIdx.x) * n_strikes + r0);
+    const int lane = t & 31;
+    for (int row = t >> 5; row < 2 * n_pass; row += T / 32) {
+      double x = sh[row][lane] + sh[row][lane + 32];
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1) x = x + __shfl_down_sync(0xFFFFFFFFu, x, s);
+      if (lane == 0) out[row] = x;
+    }
   }
 }
 
@@ -318,16 +416,45 @@ book_kernel(int euler, int antithetic, uint32_t k0, uint32_t k1,
   }
 }
 
+template <class Payoff, bool EULER>
+cudaError_t launch_ladder(int antithetic, uint32_t k0, uint32_t k1, const float* params,
+                          const float* strikes, int n_strikes, int n_steps, uint32_t n_paths,
+                          uint32_t path_offset, uint32_t bound, double* partials,
+                          int n_blocks, cudaStream_t stream) {
+  ladder_kernel<Payoff, EULER><<<n_blocks, kLadderBlockPaths / ladder_paths(EULER), 0, stream>>>(
+      antithetic, k0, k1, params, strikes, n_strikes, n_steps, n_paths, path_offset, bound,
+      partials);
+  return cudaGetLastError();
+}
+
+// The payoff's kernel of the mode: Euler, or the terminal draw for a payoff
+// without state (a path-dependent payoff has no terminal kernel).
 template <class Payoff>
-cudaError_t launch_ladder(int euler, int antithetic, uint32_t k0, uint32_t k1,
+cudaError_t ladder_switch(int euler, int antithetic, uint32_t k0, uint32_t k1,
                           const float* params, const float* strikes, int n_strikes,
                           int n_steps, uint32_t n_paths, uint32_t path_offset,
                           uint32_t bound, double* partials, int n_blocks,
                           cudaStream_t stream) {
-  ladder_kernel<Payoff><<<n_blocks, kLadderThreads, 0, stream>>>(
-      euler, antithetic, k0, k1, params, strikes, n_strikes, n_steps, n_paths,
-      path_offset, bound, partials);
-  return cudaGetLastError();
+  if (euler)
+    return launch_ladder<Payoff, true>(antithetic, k0, k1, params, strikes, n_strikes,
+                                       n_steps, n_paths, path_offset, bound, partials,
+                                       n_blocks, stream);
+  if constexpr (Payoff::kStates == 0)
+    return launch_ladder<Payoff, false>(antithetic, k0, k1, params, strikes, n_strikes,
+                                        n_steps, n_paths, path_offset, bound, partials,
+                                        n_blocks, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <class Payoff>
+cudaError_t ladder_occupancy(int euler, int* blocks) {
+  if (euler)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ladder_kernel<Payoff, true>, kLadderBlockPaths / ladder_paths(true), 0);
+  if constexpr (Payoff::kStates == 0)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ladder_kernel<Payoff, false>, kLadderBlockPaths / ladder_paths(false), 0);
+  return cudaErrorInvalidValue;
 }
 
 // The book kernel's dynamic shared memory (the normal buffer), with the
@@ -371,19 +498,39 @@ cudaError_t book_occupancy(int euler, int n_steps, int threads, int* blocks) {
 
 extern "C" {
 
-int mc_ladder_block_threads() { return mc::kLadderThreads; }
+// The ladder's paths a block (its grid: ceil(n_paths / it)), and by mode
+// (euler 0: the terminal draw, the six payoffs without state; 1) its paths a
+// thread and strikes a pass.
+int mc_ladder_block_paths() { return mc::kLadderBlockPaths; }
+int mc_ladder_paths_per_thread(int euler) { return mc::ladder_paths(euler != 0); }
+int mc_ladder_strikes_per_pass(int euler) {
+  return euler ? mc::ladder_strikes<mc::kLadderBlockPaths / mc::ladder_paths(true)>()
+               : mc::ladder_strikes<mc::kLadderBlockPaths / mc::ladder_paths(false)>();
+}
+
+// Resident blocks per SM of a payoff's kernel of the mode.
+int mc_ladder_occupancy(int payoff_id, int euler, int* blocks) {
+#define MC_CASE(ID, PAYOFF) \
+  case mc::ID: return mc::ladder_occupancy<mc::PAYOFF>(euler, blocks);
+  switch (payoff_id) {
+    MC_ALL_PAYOFFS(MC_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef MC_CASE
+}
 
 int mc_ladder_partials(int payoff_id, int euler, int antithetic, uint32_t k0, uint32_t k1,
                        const float* params, const float* strikes, int n_strikes,
                        int n_steps, uint32_t n_paths, uint32_t path_offset,
                        uint32_t bound, double* partials, int n_blocks, void* stream) {
-  if (n_strikes < 1 || static_cast<uint64_t>(n_blocks) * mc::kLadderThreads < n_paths) {
+  if (n_strikes < 1 ||
+      static_cast<uint64_t>(n_blocks) * mc::kLadderBlockPaths < n_paths) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MC_CASE(ID, PAYOFF)                                                        \
   case mc::ID:                                                                     \
-    return mc::launch_ladder<mc::PAYOFF>(euler, antithetic, k0, k1, params, strikes, \
+    return mc::ladder_switch<mc::PAYOFF>(euler, antithetic, k0, k1, params, strikes, \
                                          n_strikes, n_steps, n_paths, path_offset,  \
                                          bound, partials, n_blocks, s);
   switch (payoff_id) {

@@ -58,8 +58,9 @@
 // family_fused_kernel replaces mc_tpu/nmc_engine.py family_fused_kernel (the
 // Pallas call at :426) and family_inner_kernel its family_inner_kernel (the
 // Pallas call at :331).  family_trajectories_kernel stores a family's outer
-// grids: under Merton, local vol and Vasicek it replaces
-// mc_tpu/models/merton.py merton_trajectories_kernel (:392),
+// grids: under Heston, Merton, local vol and Vasicek it replaces
+// mc_tpu/models/heston.py heston_trajectories_kernel (:527),
+// models/merton.py merton_trajectories_kernel (:392),
 // models/localvol.py localvol_trajectories_kernel (:406) and
 // models/vasicek.py vasicek_trajectories_kernel (:405); under CEV, SABR,
 // term, Bates, the basket and the rainbow mc_tpu builds the grids with its
@@ -113,9 +114,10 @@
 // The trajectories kernel runs at small outer grids (16,384 paths: 128
 // blocks on 132 SMs; nmc --model's 2,048: 16 blocks), where one path a
 // thread leaves one warp a scheduler and nothing hides each step's draw, a
-// dependent chain of some hundreds of cycles (threefry-13 and Box-Muller,
-// Merton's three pairs, the basket's d/2).  The draws do not depend on the
-// path's state, so a block of 128 paths splits them off: its first 4 warps
+// dependent chain of some hundreds of cycles (threefry-13 and Box-Muller:
+// Heston's and SABR's pair, Merton's three, the basket's d/2).  The draws
+// do not depend on the path's state, so a block of 128 paths splits them
+// off: its first 4 warps
 // (the advance lanes, one a path) take the steps in order and store the
 // grids step-major, coalesced; kTrajDrawWarps further warps fill a shared
 // buffer with the draws of the block's next chunk of kChunk units while the

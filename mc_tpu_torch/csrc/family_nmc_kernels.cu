@@ -5,19 +5,28 @@
 // Pallas call at :331), the grid strategy over a family's stored grids;
 // family_fused_kernel replaces family_fused_kernel (the Pallas call at
 // :426), which simulates the outer paths itself; family_trajectories_kernel
-// stores the outer grids of every family but Heston: Merton's, local vol's
-// and Vasicek's replace mc_tpu's trajectories kernels (#15, #20, #24), the
-// others' mc_tpu builds with its XLA scan.  The templates, their design and their bound are in
-// family.cuh.  The entry points switch on the family and check n_grids
-// against its kGrids: Heston (its kernels instantiated here; its grids come
-// from heston_trajectories, heston_kernels.cu), Merton
-// (merton_nmc_kernels.cu), Bates (bates_nmc_kernels.cu), CEV
+// stores the outer grids of every family: Heston's, Merton's, local vol's
+// and Vasicek's replace mc_tpu's trajectories kernels (#13, #15, #20, #24),
+// the others' mc_tpu builds with its XLA scan.  The templates, their design
+// and their bound are in family.cuh.  The entry points switch on the family
+// and check n_grids against its kGrids: Heston (its kernels instantiated
+// here), Merton (merton_nmc_kernels.cu), Bates (bates_nmc_kernels.cu), CEV
 // (cev_nmc_kernels.cu), local vol (localvol_nmc_kernels.cu), SABR
 // (sabr_nmc_kernels.cu), term structures (term_nmc_kernels.cu), Vasicek
 // (vasicek_nmc_kernels.cu), the basket (basket_nmc_kernels.cu and
 // basket_nmc32_kernels.cu, one per capacity, its grid count the call's d)
 // and the rainbow (rainbow_nmc_kernels.cu and rainbow_nmc32_kernels.cu, as
-// the basket), each family's instantiations compiled in its own source.  A later family adds its struct, its launchers and a case.
+// the basket), each family's instantiations compiled in its own source.  A
+// later family adds its struct, its launchers and a case.
+//
+// Heston's trajectories kernel (#13, replacing mc_tpu/models/heston.py
+// heston_trajectories_kernel, the Pallas call at :549) is the template's:
+// HestonFamily's outer step split into its draw (the threefry-13 pair (id,
+// j)) and its advance (the full-truncation Euler step, S = s0 exp(w), the
+// payoff's update), the same operations in the same order as the step it
+// replaced, so its S, v and state grids are that kernel's bit for bit; its
+// rows are the template's, 128 paths a block (the finished sums agree to
+// f64 rounding).
 
 #include <cstdint>
 
@@ -30,13 +39,18 @@
 
 namespace mc {
 
-// Heston: grids (S, v); the inner legs run full-truncation Euler from
-// (S_j, v_j) with w from 0 and S = S_j exp(w), one threefry-13 pair per
-// substep (mc_tpu/nmc_heston.py:58-73).  No extras.
+// Heston: grids (S, v); outer step j draws the threefry-13 pair (id, j)
+// (its draw unit) and takes the full-truncation Euler step from s0; the
+// inner legs run full-truncation Euler from (S_j, v_j) with w from 0 and
+// S = S_j exp(w), one threefry-13 pair per substep
+// (mc_tpu/nmc_heston.py:58-73).  No extras.
 struct HestonFamily {
   using Params = HestonParams;
   static constexpr int kGrids = 2;
   static constexpr int kLegs = family_legs(1);
+  using OuterDraw = DrawWords<2>;  // step j's pair (z_v, z_perp)
+  static constexpr int kStepsPerDraw = 1;
+  static constexpr int kTrajSplitBlocks = 2;
 
   template <class Payoff>
   struct Carry {
@@ -53,10 +67,24 @@ struct HestonFamily {
   __device__ static Carry<Payoff> outer_init(const Params& h) {
     return Carry<Payoff>{0.0f, h.v0, h.pay.s0, Payoff::init(h.pay)};
   }
+  __device__ static void outer_draw(const Params&, uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t u, OuterDraw& d) {
+    normal_pair<13>(k0, k1, id, u, d.w[0], d.w[1]);
+  }
+  template <class Payoff>
+  __device__ static void outer_advance(const Params& h, int, const OuterDraw& d,
+                                       Carry<Payoff>& c) {
+    heston_euler_step(h, d.w[0], d.w[1], c.w, c.v);
+    c.s = h.pay.s0 * expf(c.w);  // log-space: one exp rounding per S_t
+    c.st = Payoff::update(c.st, c.s, h.pay);
+  }
+  // The draw, then the advance.
   template <class Payoff>
   __device__ static void outer_step(const Params& h, uint32_t k0, uint32_t k1, uint32_t id,
                                     int j, Carry<Payoff>& c) {
-    heston_outer_step<Payoff>(h, k0, k1, id, j, c.w, c.v, c.s, c.st);
+    OuterDraw d;
+    outer_draw(h, k0, k1, id, static_cast<uint32_t>(j), d);
+    outer_advance<Payoff>(h, j, d, c);
   }
   template <class Payoff>
   __device__ static void point(const Carry<Payoff>& c, float (&g)[kGrids]) {
@@ -104,7 +132,7 @@ struct HestonFamily {
   }
 };
 
-MC_DEFINE_FAMILY_NMC(heston_family, HestonFamily)
+MC_DEFINE_FAMILY_LAUNCHERS(heston_family, HestonFamily)
 
 // The market grids each family stores (S first): the basket's d, in [1,
 // kMaxGrids], is its extras' i[0].
@@ -139,11 +167,10 @@ int mc_family_block_threads() { return mc::kFamilyThreads; }
 // each; the wrapper sizes its grid and partials by it).
 int mc_family_trajectories_block_paths() { return mc::kFamilyThreads; }
 
-// The launcher mc::<family>_family_<WHAT>(...) of family_id; Heston has no
-// generic trajectories (its grids come from heston_trajectories): refused.
+// The launcher mc::<family>_family_<WHAT>(...) of family_id.
 #define MC_FAMILY_DISPATCH(WHAT, ...)                                                     \
   switch (family_id) {                                                                    \
-    case mc::FAMILY_HESTON: return MC_HESTON_##WHAT(__VA_ARGS__);                          \
+    case mc::FAMILY_HESTON: return mc::heston_family_##WHAT(__VA_ARGS__);                  \
     case mc::FAMILY_MERTON: return mc::merton_family_##WHAT(__VA_ARGS__);                  \
     case mc::FAMILY_BATES: return mc::bates_family_##WHAT(__VA_ARGS__);                    \
     case mc::FAMILY_CEV: return mc::cev_family_##WHAT(__VA_ARGS__);                        \
@@ -155,12 +182,6 @@ int mc_family_trajectories_block_paths() { return mc::kFamilyThreads; }
     case mc::FAMILY_RAINBOW: return mc::rainbow_family_##WHAT(__VA_ARGS__);                \
     default: return cudaErrorInvalidValue;                                                \
   }
-#define MC_HESTON_fused(...) mc::heston_family_fused(__VA_ARGS__)
-#define MC_HESTON_inner(...) mc::heston_family_inner(__VA_ARGS__)
-#define MC_HESTON_occupancy(...) mc::heston_family_occupancy(__VA_ARGS__)
-#define MC_HESTON_trajectories(...) cudaErrorInvalidValue
-#define MC_HESTON_trajectories_occupancy(...) cudaErrorInvalidValue
-#define MC_HESTON_trajectories_geometry(...) cudaErrorInvalidValue
 
 // The resident blocks per SM of family_id's fused (fused = 1) or inner
 // kernel for payoff_id at smem_bytes of dynamic shared memory
@@ -205,10 +226,9 @@ int mc_family_inner(int family_id, int payoff_id, uint32_t ki0, uint32_t ki1,
 }
 
 // grids: a host array of n_grids device pointers the kernel writes, each
-// (n_steps, n_paths) f32; partials (n_blocks, 2) f64.  Merton (#15's
-// kernel), Bates, CEV, local vol (#20's kernel), SABR, term, Vasicek (#24's
-// kernel) and the basket's and the rainbow's d asset grids; Heston stores
-// its grids with heston_trajectories.
+// (n_steps, n_paths) f32; partials (n_blocks, 2) f64.  Heston (#13's
+// kernel), Merton (#15's), Bates, CEV, local vol (#20's), SABR, term,
+// Vasicek (#24's) and the basket's and the rainbow's d asset grids.
 int mc_family_trajectories(int family_id, int payoff_id, uint32_t k0, uint32_t k1,
                            const float* params, mc::FamilyExtras extras, int n_steps,
                            uint32_t n_paths, uint32_t path_offset, uint32_t bound,

@@ -28,8 +28,8 @@ struct HestonParams {
 };
 constexpr int kHestonFields = 17;
 
-// Paths a block of the Heston partials and trajectories kernels (one a
-// thread): heston_kernels.cu, heston_qe_kernels.cu.
+// Paths a block of the Heston partials kernels (one a thread):
+// heston_kernels.cu, heston_qe_kernels.cu.
 constexpr int kHestonThreads = 256;
 
 __device__ __forceinline__ HestonParams load_heston(const float* __restrict__ v) {
@@ -149,22 +149,6 @@ __device__ __forceinline__ void qe_advance(const QeConsts& c, float v, float v_n
                                            float k0_eff, float z_s, float& w) {
   const float var_s = fmaxf(c.k3 * v + c.k4 * v_next, 0.0f);
   w = (((w + c.growth_dt) + k0_eff) + c.k2 * v_next) + sqrtf(var_s) * z_s;
-}
-
-// One outer Euler step of path `id` on the threefry-13 stream: pair (id, j),
-// S = s0 exp(w), the payoff state updated.  The step of the trajectories
-// kernel and of the family NMC's outer paths, so the grids one stores are
-// bitwise the states the other recomputes in registers.
-template <class Payoff>
-__device__ __forceinline__ void heston_outer_step(const HestonParams& h, uint32_t k0,
-                                                  uint32_t k1, uint32_t id, int j,
-                                                  float& w, float& v, float& s,
-                                                  typename Payoff::State& st) {
-  float z_v, z_perp;
-  normal_pair<13>(k0, k1, id, static_cast<uint32_t>(j), z_v, z_perp);
-  heston_euler_step(h, z_v, z_perp, w, v);
-  s = h.pay.s0 * expf(w);  // log-space: one exp rounding per S_t
-  st = Payoff::update(st, s, h.pay);
 }
 
 // Heston's Euler leg on a randomized-QMC draw (qmc_model.cuh, #33): step j

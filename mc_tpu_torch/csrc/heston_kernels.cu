@@ -25,23 +25,16 @@
 // - the plain and antithetic paths are kernels apart, the twin a second
 //   lockstep leg on the negated pair (-z_v, -z_2).
 //
-// heston_trajectories_kernel replaces heston_trajectories_kernel (the
-// Pallas call at :549): the Euler loop on threefry-13 that also stores S,
-// the raw full-truncation v and payoff state word 0 after every step into
-// step-major (n_steps, n_paths) grids, entry j*n_paths + i, so a warp's
-// stores of one step are coalesced; the one-word payoffs only.  Its step is
-// heston_outer_step, the family NMC's outer step (family_nmc_kernels.cu),
-// and the Euler kernel's arithmetic at 13 rounds, so the three give the
-// same paths bit for bit.
+// Heston's trajectories kernel (#13, the Pallas call at :549) is the family
+// template's, HestonFamily in family_nmc_kernels.cu: its step is this
+// kernel's Euler arithmetic at 13 rounds, so their paths agree bit for bit.
 //
-// What bounds them on the H100: operations.  A Heston Euler step spends a
+// What bounds it on the H100: operations.  A Heston Euler step spends a
 // whole threefry pair (the GBM log-Euler step half of one), the Box-Muller
-// transcendentals (log1pf, sqrtf, sincosf) and a sqrtf of v; the
-// trajectories (and the partials kernel's kSpot payoffs) an expf for S.
-// The parameters are 68 bytes and each block writes 16; the trajectories
-// write 12 bytes per path-step (120 MB at 100,000 x 100, 36 us at 3.35
-// TB/s), less than their RNG work takes.  The design keeps everything in
-// registers: one thread per path, both legs stepped from the same draws.
+// transcendentals (log1pf, sqrtf, sincosf) and a sqrtf of v; the kSpot
+// payoffs an expf for S.  The parameters are 68 bytes and each block writes
+// 16.  The design keeps everything in registers: one thread per path, both
+// legs stepped from the same draws.
 
 #include <cstdint>
 
@@ -113,35 +106,6 @@ heston_euler_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params, 
 }
 
 template <class Payoff>
-__global__ void __launch_bounds__(kHestonThreads)
-heston_trajectories_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ params,
-                           int n_steps, uint32_t n_paths, uint32_t path_offset,
-                           uint32_t bound, float* __restrict__ s_grid,
-                           float* __restrict__ v_grid, float* __restrict__ state_grid,
-                           double* __restrict__ partials) {
-  const HestonParams h = load_heston(params);
-  double acc[2] = {0.0, 0.0};
-  const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
-  for (uint64_t i = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_paths; i += stride) {
-    const uint32_t id = path_offset + static_cast<uint32_t>(i);
-    float w = 0.0f, v = h.v0, s = h.pay.s0;
-    typename Payoff::State st = Payoff::init(h.pay);
-    for (int j = 0; j < n_steps; ++j) {
-      heston_outer_step<Payoff>(h, k0, k1, id, j, w, v, s, st);
-      const size_t at = static_cast<size_t>(j) * n_paths + i;
-      s_grid[at] = s;
-      v_grid[at] = v;
-      state_grid[at] = Payoff::kStates ? st.w[0] : 0.0f;
-    }
-    const float pv[1] = {Payoff::terminal(st, s, h.pay)};
-    add_moments(acc, pv, id < bound);
-  }
-  block_store_moments<2, kHestonThreads>(acc, partials + 2 * static_cast<size_t>(blockIdx.x),
-                                         2);
-}
-
-template <class Payoff>
 cudaError_t launch_heston_euler(int rounds, int antithetic, uint32_t k0, uint32_t k1,
                                 const float* params, int n_steps, uint32_t n_paths,
                                 uint32_t path_offset, uint32_t bound, double* partials,
@@ -173,8 +137,8 @@ cudaError_t heston_qe_occupancy(int antithetic, int* blocks);
 
 extern "C" {
 
-// The partials and trajectories kernels' paths a block (their grid:
-// ceil(n_paths / it), capped).
+// The partials kernels' paths a block (their grid: ceil(n_paths / it),
+// capped).
 int mc_heston_block_paths() { return mc::kHestonThreads; }
 
 // Resident blocks per SM of the partials kernel of a scheme (VanillaCall,
@@ -206,25 +170,6 @@ int mc_heston_partials(int payoff_id, int qe, int rounds, int antithetic, uint32
   switch (payoff_id) {
     MC_HESTON_PAYOFFS(MC_CASE)
     default: return cudaErrorInvalidValue;  // the bridge barriers read sigma
-  }
-#undef MC_CASE
-}
-
-int mc_heston_trajectories(int payoff_id, uint32_t k0, uint32_t k1, const float* params,
-                           int n_steps, uint32_t n_paths, uint32_t path_offset,
-                           uint32_t bound, float* s_grid, float* v_grid, float* state_grid,
-                           double* partials, int n_blocks, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MC_CASE(ID, PAYOFF)                                                          \
-  case mc::ID:                                                                       \
-    mc::heston_trajectories_kernel<mc::PAYOFF>                                       \
-        <<<n_blocks, mc::kHestonThreads, 0, s>>>(k0, k1, params, n_steps, n_paths,   \
-                                                 path_offset, bound, s_grid, v_grid, \
-                                                 state_grid, partials);              \
-    return cudaGetLastError();
-  switch (payoff_id) {
-    MC_ONE_WORD_PAYOFFS(MC_CASE)  // the grid stores one state word
-    default: return cudaErrorInvalidValue;
   }
 #undef MC_CASE
 }

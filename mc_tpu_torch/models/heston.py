@@ -11,7 +11,7 @@ and every payoff of the registry reads only (state, S, params), so it plugs
 in unchanged, except the two Brownian-bridge barriers, which read the GBM
 sigma that the Heston parameters do not have.
 
-Two kernels live in ``csrc/heston_kernels.cu``:
+Two kernels serve this module:
 
 * ``heston_partials`` (replaces ``_heston_partials_pallas``,
   ``mc_tpu/models/heston.py:332``): the Euler or QE step loop, threefry-13
@@ -26,7 +26,10 @@ Two kernels live in ``csrc/heston_kernels.cu``:
   ``mc_tpu/models/heston.py:527``): the Euler loop on threefry-13 that
   stores S, v (the raw full-truncation state) and payoff state word 0 after
   every step, step-major ``(n_steps, n_paths)``, plus the payoff's moment
-  rows.
+  rows.  Its kernel is the family template's
+  (``family_trajectories_kernel<HestonFamily, P, split>``,
+  ``csrc/family_nmc_kernels.cu``), launched through
+  ``nmc_engine.launch_family_trajectories``: a row per 128 paths.
 
 Counters, as in ``mc_tpu``: the Euler step j of path ``id`` draws the normal
 pair ``(id, j)``; the QE step j draws the pair ``(id, 2j)`` and the uniform
@@ -417,7 +420,8 @@ def heston_trajectories(payoff: PathPayoff, cfg: HestonConfig, key,
     partials)``, the grids ``(n_steps, n_paths)`` f32 step-major (entry
     [j, i] after step j+1 of path i; ``v`` the raw full-truncation state,
     clip it at 0 before using it as a regressor), the partials ``(rows,
-    2)`` f64.  The Euler loop on threefry-13 only, as in ``mc_tpu``."""
+    2)`` f64 (on the card a row per block of the family template's paths a
+    block).  The Euler loop on threefry-13 only, as in ``mc_tpu``."""
     check_heston_params(params)
     check_heston_payoff(payoff)
     if payoff.n_state > 1:
@@ -429,22 +433,13 @@ def heston_trajectories(payoff: PathPayoff, cfg: HestonConfig, key,
     if params.device.type == "cpu":
         return heston_trajectories_plain(payoff, cfg, key, params,
                                          path_offset, n_valid)
-    bound = pk._bound(path_offset, cfg.n_paths, n_valid)
-    lib = _cuda.load()
-    n_blocks = _grid(lib, cfg.n_paths)
-    grids = torch.empty((3, cfg.n_steps, cfg.n_paths), dtype=torch.float32,
-                        device=params.device)
-    partials = torch.empty((n_blocks, 2), dtype=torch.float64,
-                           device=params.device)
-    with torch.cuda.device(params.device):
-        status = lib.mc_heston_trajectories(
-            payoff.cuda_id, int(key[0]), int(key[1]), params.data_ptr(),
-            cfg.n_steps, cfg.n_paths, path_offset & 0xFFFFFFFF, bound,
-            grids[0].data_ptr(), grids[1].data_ptr(), grids[2].data_ptr(),
-            partials.data_ptr(), n_blocks, _cuda.stream_handle(params.device))
-    _cuda.check(status, "heston_trajectories kernel")
+    from mc_tpu_torch.nmc_engine import launch_family_trajectories
+
+    s_grid, v_grid, st, partials = launch_family_trajectories(
+        FAMILY_HESTON, 2, (), payoff, cfg.n_paths, cfg.n_steps, key, params,
+        path_offset, n_valid)
     _cuda.count_launch("heston_trajectories")
-    return grids[0], grids[1], grids[2], partials
+    return s_grid, v_grid, st, partials
 
 
 # ---------------------------------------------------------------------------

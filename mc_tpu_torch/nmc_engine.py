@@ -20,11 +20,12 @@ in ``csrc/family_nmc_kernels.cu``):
   family's trajectories kernel stored;
 * ``family_fused`` (replaces ``family_fused_kernel``,
   ``mc_tpu/nmc_engine.py:407``): recomputes each outer path itself;
-* ``family_trajectories``: stores the outer grids of every family but
-  Heston (under Merton, local vol and Vasicek it replaces ``mc_tpu``'s
-  trajectories kernels, ``models/merton.py:392``, ``models/localvol.py:406``,
-  ``models/vasicek.py:405``; under Bates, CEV, SABR, term, the basket and
-  the rainbow ``mc_tpu``'s XLA scan ``xla_family_trajectories``), stepping
+* ``family_trajectories``: stores the outer grids of every family (under
+  Heston, Merton, local vol and Vasicek it replaces ``mc_tpu``'s
+  trajectories kernels, ``models/heston.py:527``, ``models/merton.py:392``,
+  ``models/localvol.py:406``, ``models/vasicek.py:405``; under Bates, CEV,
+  SABR, term, the basket and the rainbow ``mc_tpu``'s XLA scan
+  ``xla_family_trajectories``), stepping
   the family's outer step, the fused kernel's (on a small outer grid its
   draws split off to warps of their own), so the grid and fused strategies
   agree.

@@ -6,7 +6,11 @@ Every (path, step) point of the outer trajectories is re-priced by
 (S_t, v_t) and payoff state: exposure profiles under stochastic volatility
 for XVA.  The engine is `nmc_engine`; this module supplies the Heston
 physics: full-truncation Euler inner legs resumed from (S_t, v_t), the
-outer grids from ``models.heston.heston_trajectories``.
+outer grids from ``models.heston.heston_trajectories`` (the family
+template's trajectories kernel, ``csrc/family.cuh``), whose plain outer
+hooks here (``outer_init``, ``outer_draws``, ``outer_step``, ``outer_pay``)
+give ``heston_trajectories_plain``'s grids bit for bit through
+``nmc_engine.family_trajectories_plain``.
 
 Inner draws: point (path i, step j), inner path m, substep u takes the
 threefry-13 pair ``(i, ((j+1)*n_inner + m)*n_steps + u)``, one Box-Muller
@@ -27,6 +31,7 @@ from mc_tpu_torch.models.heston import (DEMO_HESTON, FAMILY_HESTON,
                                         heston_trajectories,
                                         heston_trajectories_plain,
                                         pack_heston, unpack_heston)
+from mc_tpu_torch.models.merton import counters
 from mc_tpu_torch.nmc import NMCResult
 from mc_tpu_torch.nmc_engine import (NMCFamily, price_nmc_family,
                                      register_nmc_family)
@@ -69,6 +74,27 @@ class HestonNMC(NMCFamily):
                            n_valid=None):
         return heston_trajectories_plain(payoff, self._cfg(cfg), key, params,
                                          path_offset, n_valid)
+
+    # The outer path (the family template's HestonFamily): step j on the
+    # threefry-13 pair (id, j), heston_trajectories_plain's step.
+    def outer_init(self, payoff, p, like):
+        zero = torch.zeros_like(like)
+        return zero, zero + p.v0, zero + p.s0, payoff.init(p, zero)
+
+    def outer_draws(self, k0, k1, ids, steps):
+        return rng.normal_pair(k0, k1, ids, counters(ids, steps))
+
+    def outer_step(self, payoff, p, carry, draws):
+        w, v, s, state = carry
+        w, v = heston_euler_step(p, w, v, *draws, p.dt, p.sqrt_dt)
+        s = (torch.zeros_like(w) + p.s0) * torch.exp(w)
+        state = payoff.update(state, s, p)
+        word0 = state[0] if payoff.n_state else torch.zeros_like(s)
+        return (w, v, s, state), (s, v, word0)
+
+    def outer_pay(self, payoff, p, carry):
+        _, _, s, state = carry
+        return payoff.terminal(state, s, p)
 
     def leg(self, payoff, p, k0, k1, ids, c_base, remaining, grids_j,
             state_j):

@@ -97,7 +97,11 @@ _SIGNATURES = {
     "mc_nmc_libm_check": ([_c_ptr, _c_ptr], _c_int),
     # payoff_id, fused, blocks (out)
     "mc_nmc_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
-    "mc_ladder_block_threads": ([], _c_int),
+    "mc_ladder_block_paths": ([], _c_int),
+    "mc_ladder_paths_per_thread": ([_c_int], _c_int),
+    "mc_ladder_strikes_per_pass": ([_c_int], _c_int),
+    # payoff_id, euler, blocks (out)
+    "mc_ladder_occupancy": ([_c_int, _c_int, _c_ptr], _c_int),
     "mc_reduce_block_threads": ([], _c_int),
     "mc_heston_block_paths": ([], _c_int),
     # qe, antithetic, blocks
@@ -232,11 +236,6 @@ _SIGNATURES = {
     "mc_heston_partials": ([_c_int, _c_int, _c_int, _c_int, _c_u32, _c_u32,
                             _c_ptr, _c_int, _c_u32, _c_u32, _c_u32, _c_ptr,
                             _c_int, _c_ptr], _c_int),
-    # payoff_id, k0, k1, params, n_steps, n_paths, path_offset, bound,
-    # s_grid, v_grid, state_grid, partials, n_blocks, stream
-    "mc_heston_trajectories": ([_c_int, _c_u32, _c_u32, _c_ptr, _c_int,
-                                _c_u32, _c_u32, _c_u32, _c_ptr, _c_ptr,
-                                _c_ptr, _c_ptr, _c_int, _c_ptr], _c_int),
     # family_id, payoff_id, ki0, ki1, params, extras, n_steps, n_inner,
     # n_groups, stage_floats, n_paths, path_offset, bound, grids (host array
     # of n_grids device pointers), n_grids, state_grid, surface, stream
@@ -402,11 +401,13 @@ def _run_all(cmds: list[list[str]], jobs: int) -> list[tuple[str, float]]:
 # prints them; NVIDIA H100 80GB HBM3 host, 7 compilers at once; the basket
 # and FX sources from a host ~1.35x slower than the rest's; the family NMC
 # sources, two trajectories kernels a payoff, from one build on a host ~1.2x
-# slower, scaled by the other sources' median ratio): the build
-# starts the longest first, so the pool ends together.  A source not listed
-# starts before them, the largest unit first (_unit_bytes).
+# slower, scaled by the other sources' median ratio; batch_kernels.cu and
+# family_nmc_kernels.cu their earlier figures scaled by the ratio of their
+# nvcc seconds to their earlier sources' in one family_nmc_probe.py build):
+# the build starts the longest first, so the pool ends together.  A source
+# not listed starts before them, the largest unit first (_unit_bytes).
 NVCC_SECONDS = {
-    "basket32_kernels.cu": 114.2, "batch_kernels.cu": 31.2,
+    "basket32_kernels.cu": 114.2, "batch_kernels.cu": 35.2,
     "merton_kernels.cu": 31.1, "rainbow_nmc_kernels.cu": 41.5,
     "localvol10_kernels.cu": 30.1, "localvol_kernels.cu": 30.0,
     "basket_nmc_kernels.cu": 40.5, "basket16_kernels.cu": 38.6,
@@ -420,10 +421,10 @@ NVCC_SECONDS = {
     "nmc_kernels.cu": 15.3, "rainbow_nmc32_kernels.cu": 15.2,
     "basket_nmc32_kernels.cu": 14.7, "vasicek_kernels.cu": 13.7,
     "term_nmc_kernels.cu": 15.5, "cev_nmc_kernels.cu": 14.8,
-    "bates_kernels.cu": 9.0, "heston_kernels.cu": 13.6,
+    "bates_kernels.cu": 9.0, "heston_kernels.cu": 11.9,
     "qmc_merton_kernels.cu": 10.4, "sabr_nmc_kernels.cu": 14.5,
     "qmc_bates_kernels.cu": 9.5, "qmc_basket_kernels.cu": 8.9,
-    "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 8.2,
+    "qmc_localvol_kernels.cu": 8.7, "family_nmc_kernels.cu": 10.1,
     "qmc_vasicek_kernels.cu": 6.9, "greek_kernels.cu": 7.7,
     "qmc_sabr_kernels.cu": 6.9, "qmc_cev_kernels.cu": 6.8,
     "qmc_term_kernels.cu": 6.7, "divs_kernels.cu": 20.3,

@@ -821,7 +821,7 @@ def simulate_ladder_partials(payoff: PathPayoff, cfg: KernelConfig, key,
                                               strikes, path_offset, n_valid)
     bound = _bound(path_offset, cfg.n_paths, n_valid)
     lib = _cuda.load()
-    n_blocks = _cuda.cdiv(cfg.n_paths, lib.mc_ladder_block_threads())
+    n_blocks = _cuda.cdiv(cfg.n_paths, lib.mc_ladder_block_paths())
     partials = torch.empty((n_blocks, strikes.numel(), 2),
                            dtype=torch.float64, device=params.device)
     with torch.cuda.device(params.device):

@@ -1,6 +1,7 @@
 """The family trajectories kernel (family_trajectories_kernel,
-``csrc/family.cuh``: Merton's #15, local vol's #20, Vasicek's #24 and the
-outer grids of CEV, SABR, term, Bates, the basket and the rainbow): each
+``csrc/family.cuh``: Heston's #13, Merton's #15, local vol's #20, Vasicek's
+#24 and the outer grids of CEV, SABR, term, Bates, the basket and the
+rainbow): each
 family's outer step split into a draw and an advance, a block of 128 paths
 whose draw warps fill a double-buffered shared chunk of draw units while
 its 128 advance lanes take the steps, the launch geometry (read from the
@@ -28,6 +29,7 @@ from mc_tpu_torch import nmc_engine as ne
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import OptionParams, SimParams
 from mc_tpu_torch.models import basket as bm
+from mc_tpu_torch.models import heston as hm
 from mc_tpu_torch.models import localvol as lm
 from mc_tpu_torch.models import merton as mm
 from mc_tpu_torch.models import vasicek as vm
@@ -35,6 +37,7 @@ from mc_tpu_torch.models.merton import counters
 from mc_tpu_torch.nmc_basket import BasketNMC
 from mc_tpu_torch.nmc_bates import BatesNMC
 from mc_tpu_torch.nmc_cev import CEVNMC
+from mc_tpu_torch.nmc_heston import HestonNMC
 from mc_tpu_torch.nmc_localvol import LocalVolNMC
 from mc_tpu_torch.nmc_merton import MertonNMC
 from mc_tpu_torch.nmc_rainbow import RainbowNMC
@@ -88,7 +91,8 @@ def chunk_units(words: int, warps: int) -> int:
 
 
 # (family, header, struct, plain family): every struct the kernel runs
-STRUCTS = (("merton", "merton.cuh", "MertonFamily", MertonNMC(extras=(4,))),
+STRUCTS = (("heston", "family_nmc_kernels.cu", "HestonFamily", HestonNMC()),
+           ("merton", "merton.cuh", "MertonFamily", MertonNMC(extras=(4,))),
            ("localvol", "localvol.cuh", "LocalVolFamily",
             LocalVolNMC(extras=(9,))),
            ("vasicek", "vasicek.cuh", "VasicekFamily", VasicekNMC()),
@@ -122,7 +126,8 @@ def outer_words(header: str, struct: str) -> int:
 
 
 # each struct's step function, which outer_advance and outer_step share
-STEPS = {"merton": "merton_step<Payoff>(", "localvol": "lv_step<Payoff>(",
+STEPS = {"heston": "outer_advance<Payoff>(",
+         "merton": "merton_step<Payoff>(", "localvol": "lv_step<Payoff>(",
          "vasicek": "vasicek_step(", "cev": "cev_substep<Payoff>(",
          "sabr": "outer_advance<Payoff>(", "term": "term_step<Payoff>(",
          "bates": "outer_advance<Payoff>(", "basket": "outer_advance<Payoff>(",
@@ -418,6 +423,21 @@ class _Generic:
         return po.terminal(state, s, self.p)
 
 
+class _Heston(_Generic):
+    """Heston on HestonNMC's plain hooks (unit j: pair (id, j)), held to
+    the models module's own plain version."""
+
+    def plain(self, po, n, steps, offset, n_valid):
+        cfg = hm.HestonConfig(n_paths=n, n_steps=steps)
+        return hm.heston_trajectories_plain(po, cfg, KEY, self.params, offset,
+                                            n_valid)
+
+
+def _heston(n_steps):
+    return _Heston(HestonNMC(), hm.pack_heston(OptionParams(), hm.DEMO_HESTON,
+                                               n_steps, "cpu"))
+
+
 def _sabr(n_steps):
     from mc_tpu_torch.models import sabr as sm
 
@@ -432,8 +452,9 @@ def _basket(d):
     return make
 
 
-SPECS = {"merton": _Merton, "localvol": _LocalVol, "vasicek": _Vasicek,
-         "sabr": _sabr, "basket d=3": _basket(3), "basket d=9": _basket(9)}
+SPECS = {"heston": _heston, "merton": _Merton, "localvol": _LocalVol,
+         "vasicek": _Vasicek, "sabr": _sabr, "basket d=3": _basket(3),
+         "basket d=9": _basket(9)}
 
 
 def mirror(spec, po, n, steps, offset, bound, n_blocks, chunk):
@@ -509,7 +530,8 @@ ODD = ((1, 1, 0, None, None), (129, 3, 0, None, None),
 
 # the odd step counts under the families whose plain version takes them
 MIRROR_CASES = [(name, shape) for name in sorted(SPECS)
-                for shape in SHAPES + (ODD if name in ("sabr", "basket d=3",
+                for shape in SHAPES + (ODD if name in ("heston", "sabr",
+                                                       "basket d=3",
                                                        "basket d=9") else ())]
 
 

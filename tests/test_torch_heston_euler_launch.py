@@ -114,19 +114,34 @@ def test_step_loop_forms_no_spot_and_holds_no_branch_of_the_twin():
                      r"__global__ void __launch_bounds__\(kHestonThreads, "
                      r"A \? 5 : 6\)\s+heston_euler_kernel\(uint32_t k0", SRC)
     assert "block_below_max<Payoff>(h.pay, by_w);" in SRC
-    # the trajectories kernel keeps its S at each step (heston_outer_step)
-    assert "heston_outer_step<Payoff>(h, k0, k1, id, j, w, v, s, st);" in SRC
+    # the trajectories (#13) left this source for the family template, whose
+    # Heston advance keeps its S at each step (family_nmc_kernels.cu)
+    assert "heston_trajectories_kernel" not in SRC
+    assert "c.s = h.pay.s0 * expf(c.w);" in (
+        CSRC / "family_nmc_kernels.cu").read_text()
 
 
 def test_heston_steps_untouched():
-    """heston_euler_step's arithmetic and heston_outer_step, which the
-    trajectories, the family NMC and the QMC leg share, as they were."""
+    """heston_euler_step's arithmetic, which the trajectories, the family
+    NMC and the QMC leg share, as it was; the family's outer step
+    (HestonFamily: the draw of pair (id, j), then the advance) is the old
+    heston_outer_step split in two, the same operations in the same
+    order."""
     step = (CSRC / "heston.cuh").read_text()
     assert "w = w + ((h.growth - 0.5f * v_plus) * h.pay.dt + sq * z_s);" in step
     assert ("v = (v + (h.kappa * (h.theta - v_plus)) * h.pay.dt) + "
             "(h.xi * sq) * z_v;") in step
-    outer = _body(step, "__device__ __forceinline__ void heston_outer_step(")
-    assert "s = h.pay.s0 * expf(w);" in outer
+    assert "heston_outer_step" not in step
+    fam = (CSRC / "family_nmc_kernels.cu").read_text()
+    draw = _body(fam, "__device__ static void outer_draw(")
+    assert "normal_pair<13>(k0, k1, id, u, d.w[0], d.w[1]);" in draw
+    advance = _body(fam, "__device__ static void outer_advance(")
+    assert advance.index("heston_euler_step(h, d.w[0], d.w[1], c.w, c.v);") < (
+        advance.index("c.s = h.pay.s0 * expf(c.w);")) < advance.index(
+        "c.st = Payoff::update(c.st, c.s, h.pay);")
+    outer = _body(fam, "__device__ static void outer_step(")
+    assert outer.index("outer_draw(h, k0, k1, id, static_cast<uint32_t>(j), d);") < (
+        outer.index("outer_advance<Payoff>(h, j, d, c);"))
 
 
 @pytest.mark.parametrize("antithetic", [False, True])

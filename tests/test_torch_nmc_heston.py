@@ -29,9 +29,10 @@ from mc_tpu_torch import convert, rng
 from mc_tpu_torch.models import heston as th
 from mc_tpu_torch.nmc_engine import (FamilyConfig, NMC_FAMILIES,
                                      ensure_family, family_fused,
-                                     family_inner, price_nmc_family)
+                                     family_inner, family_trajectories_plain,
+                                     price_nmc_family)
 from mc_tpu_torch.nmc_heston import HestonNMC, price_nmc_heston
-from mc_tpu_torch.ops.payoffs import get_payoff
+from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
 
 torch.set_num_threads(1)
 
@@ -226,3 +227,33 @@ def test_convert_heston_dynamics_and_params():
         convert.heston_params(packed[:15])
     with pytest.raises(ValueError, match="17"):
         convert.heston_params(packed.astype(np.float64))
+
+
+ONE_WORD = sorted(n for n, po in PAYOFFS.items() if po.n_state <= 1)
+
+
+@pytest.mark.parametrize("n_paths,n_steps,offset,n_valid",
+                         [(300, 9, 0, None), (129, 16, (1 << 32) - 100, None),
+                          (257, 7, 1_000, 1_000 + 200)])
+@pytest.mark.parametrize("payoff", ONE_WORD)
+def test_engine_hooks_give_heston_trajectories_plain_bitwise(
+        payoff, n_paths, n_steps, offset, n_valid):
+    """HestonNMC's plain outer hooks through the engine's generic plain
+    trajectories (the family template's order: a unit's pair, then its
+    step) give heston_trajectories_plain's S, v and state grids and rows bit
+    for bit, for every one-word payoff, offsets past 2^32 and a bound below
+    the run's end."""
+    po = get_payoff(payoff)
+    prm = th.pack_heston(OPT, th.DEMO_HESTON, n_steps, "cpu")
+    key = (0x12345678, 0x9ABCDEF0)
+    got = family_trajectories_plain(
+        HestonNMC(), po, FamilyConfig(n_paths=n_paths, n_steps=n_steps,
+                                      n_inner=1), key, prm, offset, n_valid)
+    want = th.heston_trajectories_plain(
+        po, th.HestonConfig(n_paths=n_paths, n_steps=n_steps), key, prm,
+        offset, n_valid)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.numpy().tobytes() == w.numpy().tobytes()
+
