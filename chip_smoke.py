@@ -220,6 +220,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -233,6 +234,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 # Phase-2 (kernel vs plain) and phase-3 (main path) sizes.
 TP_PATHS = 1 << 20
@@ -4584,6 +4586,420 @@ def rates_times(mt, dev, ptxas, tag, plain_ms, e2e):
     return out
 
 
+# --- the composed entry points: model table, family/CVA greeks, books ------
+
+GREEK_FD_PATHS = 1 << 20              # phase 3: the FD family greeks (x 100)
+GREEK_SE_SEEDS = 8                    # delta's stderr: 8 replicas of 2^17
+MULTI_GREEK_PATHS = 1 << 20           # rainbow (d = 4, 2), basket (d = 4)
+BASKET_D1_PATHS = 1 << 18             # basket d = 1 against GBM's greeks()
+# cva_greeks at nmc --model's shape.  At 16 steps paths cross Heston's
+# variance truncation within a bump of v0, and the CRN difference's bias
+# falls with h (3.06e-2 off the tangent at h = 5e-4, as mc_tpu's own
+# differences sit: tests/test_torch_cva_greeks.py, the 16-step case), so
+# v0 is held to the differences at h = 2e-5 and 1e-5 (the bumps'
+# denominators the f32-rounded v0 +/- h), the larger h's printed beside.
+CVA_SHAPE = NMC_SMALL
+CVA_V0_SHOWN = (5e-4, 1e-4)
+# the CLI's nmc --cva-greeks leg checks its wiring (keys, finite values) at
+# a cut depth: the same greeks at CVA_SHAPE are held in cva_greeks' check
+CLI_CVA_SHAPE = (2048, 8, 16)
+BOOK_SHAPE = NMC_MAIN                 # price_nmc_book B = 1 == price_nmc
+COMPOSED_KERNELS = {
+    # kernel row (its launch-count key) -> the call of the block it serves
+    "heston_partials": "chunked_price(model='heston'), heston_greeks",
+    "vasicek_partials": "chunked_price(model='vasicek'), vasicek_greeks",
+    "merton_partials": "merton_greeks", "sabr_partials": "sabr_greeks",
+    "rainbow_partials": "rainbow_greeks", "basket_partials": "basket_greeks",
+    "nmc_fused": "cva_greeks()", "family_fused": "cva_greeks(model='heston')",
+    "trajectories": "price_nmc_book()", "nmc_inner": "price_nmc_book()",
+    "heston_trajectories": "price_nmc_book(model='heston')",
+    "family_inner": "price_nmc_book(model='heston')"}
+
+
+def composed_path(mt, dev, _cuda, tag, e2e):
+    """Phase 3, the entry points that compose ported kernels (the model
+    table's chunked_price(model=...), the family and multi-asset greeks,
+    cva_greeks, price_nmc_book and their CLI legs), the counts set to 0
+    before it; returns its launches by kernel row (the family kernels it
+    launches run under Heston, whose rows the kernels line leaves
+    unsuffixed).  ``e2e``: (label, unit, work, seconds)
+    of each call, one timed call each (host clock, ended by a
+    synchronize)."""
+    import importlib
+
+    from mc_tpu_torch import oracle, rng
+    from mc_tpu_torch.checkpoint import load_checkpoint
+    from mc_tpu_torch.models.basket import BasketDynamics
+
+    tg = importlib.import_module("mc_tpu_torch.greeks")
+    _cuda.reset_launch_counts()
+    option = mt.DEMO_OPTION
+    sections, t_sec = [], [time.perf_counter()]
+
+    def section(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sections.append(f"{name} {now - t_sec[0]:.2f} s")
+        t_sec[0] = now
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # chunked_price(model=...): Heston (its steps take no pairs) and
+    # Vasicek (discounted pathwise), 4 x 2^20 x 100 in 2^20-path chunks,
+    # stopped after chunk 2 and resumed; each against price_<family>.
+    csim = mt.SimParams(n_paths=N_CHUNKS * CHUNK_PATHS, n_steps=MAIN_STEPS)
+    for model, dyn, price_fn in (("heston", mt.DEMO_HESTON, mt.price_heston),
+                                 ("vasicek", mt.DEMO_VASICEK,
+                                  mt.price_vasicek)):
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "run.npz")
+            full, secs = timed(lambda: mt.chunked_price(
+                option, csim, chunk_paths=CHUNK_PATHS, model=model,
+                device=DEVICE))
+            mt.chunked_price(option, csim.replace(n_paths=2 * CHUNK_PATHS),
+                             chunk_paths=CHUNK_PATHS, model=model,
+                             checkpoint_path=ck, device=DEVICE)
+            mid = load_checkpoint(ck)
+            mid.n_paths = csim.n_paths
+            mid.save(ck)
+            resumed = mt.chunked_price(option, csim, chunk_paths=CHUNK_PATHS,
+                                       model=model, checkpoint_path=ck,
+                                       resume=True, device=DEVICE)
+        straight = price_fn(option, dyn, csim, device=DEVICE)
+        bitwise = (float(resumed.price) == float(full.price)
+                   and float(resumed.stderr) == float(full.stderr))
+        d = max(abs(float(full.price) / float(straight.price) - 1.0),
+                abs(float(full.stderr) / float(straight.stderr) - 1.0))
+        e2e.append((f"chunked_price(model='{model}') {N_CHUNKS}x"
+                    f"{CHUNK_PATHS}x{MAIN_STEPS}", "path-steps/s",
+                    csim.n_paths * MAIN_STEPS, secs))
+        print(f"phase 3: chunked_price(model='{model}') {N_CHUNKS}x"
+              f"{CHUNK_PATHS}x{MAIN_STEPS}: {float(full.price):.9f} +/- "
+              f"{float(full.stderr):.9f}; resumed after chunk 2: "
+              f"{'bitwise' if bitwise else 'NOT bitwise'}; price_{model} "
+              f"{float(straight.price):.9f} (rel {d:.2e}); {secs:.3f} s")
+        if not (bitwise and d <= SUMS_RTOL):
+            fail(f"chunked_price(model={model!r}) is not resumed bitwise or "
+                 f"differs from price_{model}")
+
+    section("chunked_price(model=...)")
+
+    # The FD family greeks at 2^20 x 100 (antithetic, as mc_tpu's cases):
+    # each greek bitwise (up - dn) / (2h) of two direct price_<family>
+    # calls; delta within 4 stderr (GREEK_SE_SEEDS replicas) of the
+    # oracle's central difference, plus its discretization allowance.
+    gsim = mt.SimParams(n_paths=GREEK_FD_PATHS, n_steps=MAIN_STEPS)
+    base_opt = dict(s0=option.s0, k=option.k, t=option.t)
+    families = (
+        ("merton", tg.MERTON_GREEK_FIELDS, mt.DEMO_MERTON, 0x3E44,
+         lambda o, d, sim, key: mt.price_merton(
+             o, d, sim, method="euler", antithetic=True, key=key,
+             device=DEVICE),
+         lambda **kw: mt.merton_call_closed_form(
+             r=option.r, sigma=option.sigma, **mt.DEMO_MERTON.__dict__, **kw),
+         0.0),
+        ("sabr", tg.SABR_GREEK_FIELDS, mt.DEMO_SABR, 0x5AB4,
+         lambda o, d, sim, key: mt.price_sabr(
+             o, d, sim, antithetic=True, key=key, device=DEVICE), None, 0.0),
+        ("heston", tg.HESTON_GREEK_FIELDS, mt.DEMO_HESTON, 0x4E57,
+         lambda o, d, sim, key: mt.price_heston(
+             o, d, sim, antithetic=True, key=key, device=DEVICE),
+         lambda **kw: mt.heston_call_cf(r=option.r, **mt.DEMO_HESTON.__dict__,
+                                        **kw),
+         0.003),  # full-truncation Euler at 100 steps: 0.3% of delta
+        ("vasicek", tg.VASICEK_GREEK_FIELDS, mt.DEMO_VASICEK, 0x7A51,
+         lambda o, d, sim, key: mt.price_vasicek(
+             o, d, sim, antithetic=True, key=key, device=DEVICE),
+         lambda **kw: oracle.bsv_call(r0=option.r, sigma_s=option.sigma,
+                                      **mt.DEMO_VASICEK.__dict__, **kw),
+         0.0))
+    for family, fields, dyn, ftag, price_fn, oracle_fn, allow in families:
+        greek_fn = getattr(tg, f"{family}_greeks")
+        g, secs = timed(lambda: greek_fn(sim=gsim, antithetic=True,
+                                         device=DEVICE))
+        e2e.append((f"{family}_greeks() {GREEK_FD_PATHS}x{MAIN_STEPS} "
+                    f"{'/'.join(g)}", "paths/s", gsim.n_paths, secs))
+        key = tuple(int(k) for k in rng.derive_key(gsim.seed, 0, ftag))
+        d32 = dyn.as_f32()
+        for name in g:
+            tree, fld, sgn = fields[name]
+            obj = option if tree == "option" else d32
+            x = np.float32(getattr(obj, fld))
+            h = np.float32(1e-3) * np.maximum(np.abs(x), np.float32(1e-2))
+
+            def bumped(v):
+                if tree == "option":
+                    return dataclasses.replace(option, **{fld: float(v)}), d32
+                return option, dataclasses.replace(d32, **{fld: float(v)})
+
+            up, dn = (price_fn(*bumped(v), gsim, key).price
+                      for v in (x + h, x - h))
+            want = sgn * (up - dn) / (2.0 * float(h))
+            if float(g[name]) != float(want):
+                fail(f"{family}_greeks {name} is not its two prices' "
+                     f"difference: {float(g[name])!r} != {float(want)!r}")
+        text = (f"phase 3: {family}_greeks {GREEK_FD_PATHS}x{MAIN_STEPS}: "
+                + ", ".join(f"{k} {float(v):.6f}" for k, v in g.items())
+                + f" (each bitwise its two prices); {secs:.3f} s")
+        if oracle_fn is not None:
+            reps = [float(greek_fn(sim=gsim.replace(
+                n_paths=GREEK_FD_PATHS // GREEK_SE_SEEDS, seed=seed),
+                which=("delta",), antithetic=True, device=DEVICE)["delta"])
+                for seed in range(GREEK_SE_SEEDS)]
+            se = statistics.stdev(reps) / math.sqrt(GREEK_SE_SEEDS)
+            s0 = option.s0
+            ref = (oracle_fn(s0=s0 + 0.1, **{k: v for k, v in base_opt.items()
+                                             if k != "s0"})
+                   - oracle_fn(s0=s0 - 0.1, **{k: v for k, v in
+                                               base_opt.items()
+                                               if k != "s0"})) / 0.2
+            err = abs(float(g["delta"]) - ref)
+            text += (f"; delta vs the oracle's {ref:.6f}: {err:.2e} = "
+                     f"{err / se:.2f} se (se {se:.2e} from {GREEK_SE_SEEDS} "
+                     f"replicas) + allowance {allow * ref:.2e}")
+            if not err <= 4.0 * se + allow * ref:
+                print(text)
+                fail(f"{family}_greeks delta is off its oracle")
+        print(text)
+
+    section("the FD greeks")
+
+    # rainbow_greeks at d = 4 and d = 2 (2^20 paths): the value through the
+    # greeks' path is price_rainbow's bitwise; at d = 2 delta and cega
+    # against central differences of Stulz's call on the max.
+    rsim = mt.SimParams(n_paths=MULTI_GREEK_PATHS, n_steps=1)
+    d2 = BasketDynamics(s0s=np.array([100.0, 100.0], np.float32),
+                        sigmas=np.array([0.25, 0.2], np.float32),
+                        weights=np.array([0.5, 0.5], np.float32),
+                        corr=np.array([[1.0, 0.4], [0.4, 1.0]], np.float32))
+    for label, dyn in (("d=4", mt.demo_basket(4, 0.5)), ("d=2", d2)):
+        g, secs = timed(lambda: tg.rainbow_greeks(option, dyn, rsim,
+                                                  device=DEVICE))
+        e2e.append((f"rainbow_greeks() call_on_max {label} "
+                    f"{MULTI_GREEK_PATHS}", "paths/s", rsim.n_paths, secs))
+        live = dataclasses.replace(dyn, s0s=torch.tensor(dyn.s0s,
+                                                         requires_grad=True))
+        v_live = mt.price_rainbow(option, live, rsim, device=DEVICE).price
+        v = mt.price_rainbow(option, dyn, rsim, device=DEVICE).price
+        c = g["cega"].cpu()
+        ok = (float(v_live.detach()) == float(v)
+              and bool(torch.isfinite(g["delta"]).all())
+              and bool(torch.isfinite(g["vega"]).all())
+              and torch.equal(c, c.T) and not bool(torch.diag(c).any()))
+        text = (f"phase 3: rainbow_greeks call_on_max {label} "
+                f"{MULTI_GREEK_PATHS}: delta {g['delta'].tolist()}, vega "
+                f"{g['vega'].tolist()}, cega[0,1] {float(c[0, 1]):.6f}; "
+                f"value with grad {'==' if ok else '!='} price_rainbow; "
+                f"{secs:.3f} s")
+        if label == "d=2":
+            fn = lambda s1, s2, rho=0.4: oracle.stulz_max_call(
+                s1, s2, 100.0, 1.0, 0.1, 0.25, 0.2, rho)
+            ref_d = [(fn(100.01, 100.0) - fn(99.99, 100.0)) / 0.02,
+                     (fn(100.0, 100.01) - fn(100.0, 99.99)) / 0.02]
+            ref_c = (fn(100.0, 100.0, 0.401) - fn(100.0, 100.0, 0.399)) / 2e-3
+            d_err = max(abs(float(g["delta"][i]) - ref_d[i])
+                        for i in range(2))
+            c_err = abs(float(c[0, 1]) - ref_c)
+            text += (f"; vs Stulz: delta {d_err:.2e} (gate 5e-3), cega "
+                     f"{c_err:.2e} (gate 0.12)")
+            ok = ok and d_err < 5e-3 and c_err < 0.12
+        print(text)
+        if not ok:
+            fail(f"rainbow_greeks {label} is off")
+
+    section("rainbow_greeks")
+
+    # basket_greeks at d = 4, 2^20 x 100; at d = 1, weight 1, GBM's
+    # pathwise greeks() within 4 joint stderr.
+    bsim = mt.SimParams(n_paths=MULTI_GREEK_PATHS, n_steps=MAIN_STEPS)
+    b4 = mt.demo_basket(4, 0.5)
+    g, secs = timed(lambda: tg.basket_greeks(option, b4, bsim,
+                                             device=DEVICE))
+    e2e.append((f"basket_greeks() vanilla_call d=4 {MULTI_GREEK_PATHS}x"
+                f"{MAIN_STEPS}", "paths/s", bsim.n_paths, secs))
+    live = dataclasses.replace(b4, s0s=torch.tensor(b4.s0s,
+                                                    requires_grad=True))
+    same = (float(mt.price_basket(option, live, bsim,
+                                  device=DEVICE).price.detach())
+            == float(mt.price_basket(option, b4, bsim, device=DEVICE).price))
+    c = g["cega"].cpu()
+    b1 = BasketDynamics(s0s=np.array([100.0], np.float32),
+                        sigmas=np.array([0.2], np.float32),
+                        weights=np.array([1.0], np.float32),
+                        corr=np.array([[1.0]], np.float32))
+    s1 = mt.SimParams(n_paths=BASKET_D1_PATHS, n_steps=MAIN_STEPS)
+    g1 = tg.basket_greeks(option, b1, s1, which=("delta", "vega"),
+                          device=DEVICE)
+    pw = mt.greeks(option, s1, "vanilla_call", which=("delta", "vega"),
+                   device=DEVICE)
+    z = {k: abs(float(g1[k][0]) - float(pw[k]))
+         / (math.sqrt(2.0) * float(pw[f"{k}_stderr"])) for k in g1}
+    ok = (same and torch.equal(c, c.T) and not bool(torch.diag(c).any())
+          and all(bool(torch.isfinite(v).all()) for v in g.values())
+          and max(z.values()) <= 4.0)
+    print(f"phase 3: basket_greeks vanilla_call d=4 {MULTI_GREEK_PATHS}x"
+          f"{MAIN_STEPS}: delta {g['delta'].tolist()}, vega "
+          f"{g['vega'].tolist()}, cega[0,1] {float(c[0, 1]):.6f}; value with "
+          f"grad {'==' if same else '!='} price_basket; {secs:.3f} s; d=1 "
+          f"{BASKET_D1_PATHS}x{MAIN_STEPS} vs greeks() pathwise: "
+          + ", ".join(f"{k} {float(g1[k][0]):.6f} vs {float(pw[k]):.6f} "
+                      f"({z[k]:.2f} joint se)" for k in z))
+    if not ok:
+        fail("basket_greeks is off")
+
+    section("basket_greeks")
+
+    # cva_greeks, GBM and Heston, at CVA_SHAPE: forward mode against CRN
+    # central differences of the kernel NMC's CVA on the same keys
+    # (tests/test_xva.py's bumps and tolerances; v0's bumps CVA_SHAPE's).
+    cases = (("gbm", None, (("delta", "s0", (0.05,), 1e-3, "option"),
+                            ("vega", "sigma", (1e-3,), 2e-3, "option"))),
+             ("heston", "heston", (("delta", "s0", (0.05,), 2e-3, "option"),
+                                   ("v0", "v0", (2e-5, 1e-5), 1e-2,
+                                    "dyn"))))
+    n_out, n_steps, n_inner = CVA_SHAPE
+    for label, model, greeks in cases:
+        vsim = mt.SimParams(n_paths=n_out, n_steps=n_steps,
+                            n_paths_inner=n_inner)
+        g, secs = timed(lambda: tg.cva_greeks(
+            option, vsim, "vanilla_call", hazard_rate=0.02,
+            which=tuple(x[0] for x in greeks), model=model, device=DEVICE))
+        e2e.append((f"cva_greeks({'' if model is None else 'heston'}) "
+                    f"{n_out}x{n_steps}x{n_inner} {'/'.join(g)}", "calls/s",
+                    1, secs))
+
+        def cva_at(opt, dyn=mt.DEMO_HESTON):
+            res = (mt.price_nmc(opt, vsim, "vanilla_call", strategy="fused",
+                                device=DEVICE) if model is None else
+                   mt.price_nmc_heston(opt, dyn, vsim, "vanilla_call",
+                                       strategy="fused", device=DEVICE))
+            return float(res.cva(0.02, t_horizon=1.0))
+
+        def crn_fd(fld, tree, h):
+            base = option if tree == "option" else mt.DEMO_HESTON
+            x = getattr(base, fld)
+            up, dn = (float(np.float32(x + h)), float(np.float32(x - h)))
+            at = ((lambda v: cva_at(dataclasses.replace(option, **{fld: v})))
+                  if tree == "option" else
+                  (lambda v: cva_at(option, dataclasses.replace(
+                      base, **{fld: v}))))
+            return (at(up) - at(dn)) / (up - dn)
+
+        parts, ok = [], True
+        for name, fld, hs, rel, tree in greeks:
+            tangent = float(g[name])
+            ok = ok and tangent > 0.0
+            for h in hs + (CVA_V0_SHOWN if name == "v0" else ()):
+                fd = crn_fd(fld, tree, h)
+                r = abs(tangent / fd - 1.0)
+                ok = ok and (r <= rel or h not in hs)
+                parts.append(f"{name} {tangent:.7f} vs CRN-FD {fd:.7f} at h "
+                             f"{h:g} (rel {r:.2e}, " + (
+                                 f"gate {rel:g})" if h in hs
+                                 else "not gated)"))
+        print(f"phase 3: cva_greeks {label} {n_out}x{n_steps}x{n_inner}: "
+              + ", ".join(parts) + f"; {secs:.3f} s")
+        if not ok:
+            fail(f"cva_greeks {label} is off its CRN central differences")
+
+    section("cva_greeks")
+
+    # price_nmc_book, GBM and Heston: B = 1 at the main NMC shape is the
+    # grid price_nmc bitwise on every point; at the small shape a long
+    # against the same short nets to zero and the netted EE is at most
+    # the standalone EEs' sum.
+    n_out, n_steps, n_inner = BOOK_SHAPE
+    msim = mt.SimParams(n_paths=n_out, n_steps=n_steps, n_paths_inner=n_inner)
+    n_out_s, n_steps_s, n_inner_s = NMC_SMALL
+    ssim = mt.SimParams(n_paths=n_out_s, n_steps=n_steps_s,
+                        n_paths_inner=n_inner_s)
+    for model, payoff, ref_fn in (
+            ("gbm", "bullet_call", lambda: mt.price_nmc(
+                option, msim, "bullet_call", strategy="grid",
+                device=DEVICE)),
+            ("heston", "vanilla_call", lambda: mt.price_nmc_heston(
+                option, mt.DEMO_HESTON, msim, "vanilla_call",
+                strategy="grid", device=DEVICE))):
+        one, secs = timed(lambda: mt.price_nmc_book(
+            mt.OptionParams(k=np.array([option.k], np.float32)), msim,
+            payoff, model=model, device=DEVICE))
+        e2e.append((f"price_nmc_book(model='{model}') B=1 {n_out}x{n_steps}"
+                    f"x{n_inner}", "inner path-steps/s",
+                    n_out * n_inner * n_steps * (n_steps - 1) // 2, secs))
+        ref = ref_fn()
+        b1_ok = (torch.equal(one.net_surface, ref.surface)
+                 and float(one.outers.price[0]) == float(ref.outer.price))
+        ls = mt.price_nmc_book(mt.OptionParams(k=np.array([100.0, 100.0],
+                                                          np.float32)),
+                               ssim, payoff, [1.0, -1.0], model=model,
+                               device=DEVICE)
+        zero = (not bool(ls.net_surface.any())
+                and float(ls.net_outer_price) == 0.0)
+        book = mt.price_nmc_book(
+            mt.OptionParams(k=np.array([90.0, 100.0, 110.0], np.float32)),
+            ssim, payoff, [1.0, -2.0, 1.0], model=model, device=DEVICE)
+        ee_net, _ = book.exposure_profile()
+        gap = float((ee_net - book.ee_contract.sum(dim=0)).max())
+        print(f"phase 3: price_nmc_book({model!r}) {payoff} B=1 {n_out}x"
+              f"{n_steps}x{n_inner}: {'bitwise' if b1_ok else 'NOT bitwise'}"
+              f" the grid NMC ({secs:.3f} s); long/short {n_out_s}x"
+              f"{n_steps_s}x{n_inner_s}: {'zero' if zero else 'NOT zero'}; "
+              f"3-contract netted EE - sum of standalone EEs: max {gap:.3e}")
+        if not (b1_ok and zero and gap <= 1e-5 * float(ee_net.max())):
+            fail(f"price_nmc_book({model!r}) is off")
+
+    section("price_nmc_book")
+
+    # The CLI legs, in this process.
+    from mc_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["info", "--device", DEVICE])
+    info = out.getvalue()
+    small = ["--n-paths", str(NMC_SMALL[0]), "--n-steps", str(NMC_SMALL[1]),
+             "--n-inner", str(NMC_SMALL[2]), "--payoff", "vanilla_call",
+             "--device", DEVICE]
+    rb = run_cli(["rainbow", "--greeks", "--n-paths", str(MULTI_GREEK_PATHS),
+                  "--device", DEVICE])
+    h_out, h_steps, h_inner = CLI_CVA_SHAPE
+    cg = run_cli(["nmc", "--model", "heston", "--cva-hazard", "0.02",
+                  "--cva-greeks", "delta,v0,dyn.rho", "--n-paths", str(h_out),
+                  "--n-steps", str(h_steps), "--n-inner", str(h_inner),
+                  "--payoff", "vanilla_call", "--device", DEVICE])
+    bk = run_cli(["nmc", "--book-strikes", "90,100,110", "--book-weights",
+                  "1,-2,1", "--cva-hazard", "0.02"] + small)
+    ok = (rc == 0 and torch.cuda.get_device_name(0) in info
+          and len(rb["delta"]) == 2 and math.isfinite(rb["cega_01"])
+          and set(cg["cva_greeks"]) == {"delta", "v0", "dyn.rho"}
+          and all(math.isfinite(v) for v in cg["cva_greeks"].values())
+          and len(bk["netted_ee"]) == NMC_SMALL[1]
+          and all(a <= b + 1e-5 for a, b in zip(bk["netted_ee"],
+                                                 bk["sum_of_standalone_ee"]))
+          and bk["netted_cva"] > 0.0)
+    print(f"phase 3: python -m mc_tpu_torch info: "
+          f"{info.strip().splitlines()[-1]}; rainbow --greeks: delta "
+          f"{rb['delta']}, cega_01 {rb['cega_01']:.6f}; nmc --model heston "
+          f"--cva-greeks delta,v0,dyn.rho: {cg['cva_greeks']}; nmc "
+          f"--book-strikes 90,100,110: netted cva {bk['netted_cva']:.6f}")
+    if not ok:
+        fail("the info, rainbow --greeks, nmc --cva-greeks or nmc "
+             "--book-strikes command is off")
+
+    section("the CLI")
+    print("phase 3: the composed block by section, its checks included: "
+          + ", ".join(sections))
+    counts = dict(_cuda.launch_counts)
+    missing = [k for k in COMPOSED_KERNELS if not counts.get(k)]
+    if missing:
+        fail(f"the composed entry points never launched {missing}")
+    return {k: counts[k] for k in COMPOSED_KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4727,6 +5143,13 @@ def main() -> int:
         lap("the rates checks' plain versions")
     print(f"phase 2: {len(_DEFERRED)} checks' plain halves done "
           f"{time.perf_counter() - t0:.1f} s after the build started")
+    # forward mode's one-time cost, beside nvcc rather than in phase 3's
+    # first cva_greeks: torch's first operation on a dual tensor imports
+    # torch._dynamo (7.0 s in a first cva_greeks call, 0.2 s once warmed;
+    # NVIDIA H100 80GB HBM3, 700 W)
+    with fwAD.dual_level():
+        fwAD.make_dual(torch.ones(()), torch.ones(())) * 2.0
+    lap("forward mode's first use (beside nvcc)")
     build_thread.join()
     if "error" in built:
         fail(f"the kernels' build: {built['error']}")
@@ -5724,6 +6147,11 @@ def main() -> int:
     rates_e2e = {}
     family_launches["rates"] = rates_path(mt, dev, _cuda, rates_e2e)
     lap("the rates path", 3)
+    composed_e2e = []
+    family_launches["composed"] = composed_path(mt, dev, _cuda, tag,
+                                                composed_e2e)
+    lap("the composed entry points (model table, family and CVA greeks, "
+        "books)", 3)
 
     # --- Phase 4: launch counts over phase 3 ----------------------------
     print(f"phase 4: launches over phase 3's GBM path: {launches}")
@@ -5747,6 +6175,9 @@ def main() -> int:
                                        "rainbow")
                             and k == "family_trajectories"))
             launches[f"{k}_{family}" if suffixed else k] = n
+    # the composed entry points launch rows of the GBM and Heston paths
+    for k, n in family_launches["composed"].items():
+        launches[k] += n
 
     # --- Phase 5: times -------------------------------------------------
     stamp(5)
@@ -6053,6 +6484,8 @@ def main() -> int:
     rates_ms = rates_times(mt, dev, _cuda.build_info.get(
         "ptxas_by_source", {}).get("rates_kernels.cu", ""), tag,
         rates_plain_ms, rates_e2e)
+    # the composed entry points: the one timed call of each in phase 3
+    e2e_report(composed_e2e, tag)
     # the family kernels' plain ms: their rows in phase 2
     for ms, rows_ms in ((jump_ms, jump_rows_ms), (single_ms, single_rows_ms)):
         for family, nmc_ms in rows_ms.items():

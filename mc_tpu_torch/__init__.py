@@ -36,21 +36,33 @@ launch; importing the package builds and loads nothing.
     price_hw_swaption(projection_curve=DiscountCurve.flat(0.045))  # on a curve
     price_g2_swaption()                    # G2++ two-factor, curve-fitted
     greeks(which=("delta", "vega"))        # the fused pathwise kernel
+    heston_greeks(which=("delta", "vega_v0"))  # CRN-FD over a family kernel
+    rainbow_greeks()                       # per-asset delta/vega, cega matrix
+    cva_greeks(hazard_rate=0.02)           # d(CVA)/d(market), forward mode
+    price_nmc_book(OptionParams(k=np.array([95., 105.])))  # a netting set
     chunked_price(checkpoint_path="run.npz", resume=True)  # bitwise resume
+    chunked_price(model="heston")          # chunked under a family
+
+The names ``mc_tpu`` loads lazily (its ``__getattr__``) are here too; the
+few whose module is still to port raise an AttributeError that names its
+ROADMAP item.
 """
 
 from mc_tpu_torch.checkpoint import chunked_price
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import (Trajectories, price, price_ladder,
                                   price_portfolio, simulate_trajectories)
-from mc_tpu_torch.greeks import greeks
+from mc_tpu_torch.greeks import (basket_greeks, cva_greeks, greeks,
+                                 heston_greeks, merton_greeks, rainbow_greeks,
+                                 sabr_greeks, vasicek_greeks)
 from mc_tpu_torch.models.basket import (DEMO_BASKET, BasketDynamics,
                                         demo_basket, price_basket)
 from mc_tpu_torch.models.bates import (DEMO_BATES, BatesDynamics,
                                        bates_call_cf, price_bates)
 from mc_tpu_torch.models.cev import (DEMO_CEV, CEVDynamics,
                                      cev_call_closed_form, price_cev)
-from mc_tpu_torch.models.fx import DEMO_FX, FXDynamics, price_fx
+from mc_tpu_torch.models.fx import (DEMO_FX, FX_CONTRACTS, FXDynamics,
+                                    price_fx, quanto_option_params)
 from mc_tpu_torch.models.g2pp import DEMO_G2, G2Dynamics, price_g2_swaption
 from mc_tpu_torch.models.hullwhite import (DEMO_CURVE, DEMO_HW, DiscountCurve,
                                            HullWhiteDynamics,
@@ -73,6 +85,7 @@ from mc_tpu_torch.models.term import DEMO_TERM, TermStructure, price_term
 from mc_tpu_torch.models.vasicek import (DEMO_VASICEK, VasicekDynamics,
                                          price_vasicek)
 from mc_tpu_torch.nmc import NMCResult, price_nmc
+from mc_tpu_torch.nmc_book import NMCBookResult, price_nmc_book
 from mc_tpu_torch.nmc_engine import price_nmc_family
 from mc_tpu_torch.nmc_basket import price_nmc_basket
 from mc_tpu_torch.nmc_bates import price_nmc_bates
@@ -84,9 +97,14 @@ from mc_tpu_torch.nmc_rainbow import price_nmc_rainbow
 from mc_tpu_torch.nmc_sabr import price_nmc_sabr
 from mc_tpu_torch.nmc_term import price_nmc_term
 from mc_tpu_torch.nmc_vasicek import price_nmc_vasicek
-from mc_tpu_torch.oracle import (bsv_call, g2_swaption, g2_swaption_multicurve,
+from mc_tpu_torch.oracle import (PriceResult, bs_call, bs_call_as,
+                                 bs_delta_call, bs_digital_call,
+                                 bs_down_out_call, bs_gamma, bs_implied_vol,
+                                 bs_put, bs_up_out_call, bs_vega, bsv_call,
+                                 cnd_as, g2_swaption, g2_swaption_multicurve,
                                  hw_swaption, hw_swaption_multicurve,
                                  margrabe, vasicek_swaption, vasicek_zcb)
+from mc_tpu_torch.ops.payoffs import PAYOFFS, get_payoff
 from mc_tpu_torch.qmc import price_qmc, price_qmc_model
 from mc_tpu_torch.xva import (CollateralizedExposure, ExposureMetrics,
                               coupon_dates)
@@ -115,6 +133,40 @@ __all__ = ["price", "price_ladder", "price_portfolio", "price_nmc",
            "price_g2_swaption", "G2Dynamics", "DEMO_G2", "g2_swaption",
            "g2_swaption_multicurve",
            "simulate_trajectories", "Trajectories", "greeks",
-           "chunked_price", "NMCResult", "ExposureMetrics",
-           "CollateralizedExposure", "coupon_dates", "OptionParams",
-           "SimParams", "DEMO_OPTION", "DEMO_SIM"]
+           "heston_greeks", "merton_greeks", "sabr_greeks", "vasicek_greeks",
+           "rainbow_greeks", "basket_greeks", "cva_greeks",
+           "chunked_price", "NMCResult", "price_nmc_book", "NMCBookResult",
+           "ExposureMetrics", "CollateralizedExposure", "coupon_dates",
+           "OptionParams", "SimParams", "DEMO_OPTION", "DEMO_SIM",
+           "PriceResult", "bs_call", "bs_put", "bs_call_as", "bs_delta_call",
+           "cnd_as", "PAYOFFS", "get_payoff", "FX_CONTRACTS",
+           "quanto_option_params", "bs_implied_vol", "bs_vega", "bs_gamma",
+           "bs_digital_call", "bs_up_out_call", "bs_down_out_call"]
+
+# mc_tpu's lazily loaded names whose module is still to port -> its ROADMAP
+# item (ROADMAP.md, queue A).
+_UNPORTED = dict.fromkeys(("price_heston_mlmc", "price_mlmc_family"), 16)
+_UNPORTED.update(dict.fromkeys(("price_american", "binomial_american"), 17))
+_UNPORTED.update(dict.fromkeys((
+    "price_bermudan_swaption", "price_swaption_sharded", "price_swaption_qmc",
+    "swaption_greeks", "swap_exposure", "bermudan_swaption_bounds",
+    "price_bermudan_swaption_qmc", "swap_cva_greeks",
+    "bermudan_swaption_exposure", "price_bermudan_hw_swaption",
+    "bermudan_hw_swaption_bounds", "bermudan_hw_swaption_exposure",
+    "price_hw_swaption_qmc", "price_hw_swaption_sharded", "price_hw_equity",
+    "price_bermudan_hw_swaption_qmc", "hw_swap_exposure",
+    "hw_swap_book_exposure", "hw_swap_cva_greeks", "hw_swaption_greeks",
+    "price_bermudan_g2_swaption", "bermudan_g2_swaption_bounds",
+    "bermudan_g2_swaption_exposure", "price_g2_swaption_sharded",
+    "g2_swap_exposure", "g2_swap_book_exposure", "g2_swap_cva_greeks",
+    "g2_swaption_greeks", "price_g2_swaption_qmc",
+    "price_bermudan_g2_swaption_qmc"), 18))
+_UNPORTED.update(dict.fromkeys(("calibrate_sabr", "hagan_iv"), 19))
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        raise AttributeError(
+            f"mc_tpu_torch.{name} is not ported yet (ROADMAP item "
+            f"{_UNPORTED[name]}); mc_tpu has it")
+    raise AttributeError(f"module 'mc_tpu_torch' has no attribute {name!r}")

@@ -14,9 +14,13 @@ a resumed run is bitwise the uninterrupted one.
 
 The TPU's Kahan (8, 128) f32 slabs become f64 sums here, so the file
 layout differs from ``mc_tpu``'s and carries its own magic;
-``convert.checkpoint`` carries an ``mc_tpu`` checkpoint across.  The model
-families (``model=``) come with ROADMAP item 13 and elastic runs over
-several cards (``mesh=``) with item 20.
+``convert.checkpoint`` carries an ``mc_tpu`` checkpoint across.
+
+``model=`` runs the same loop under a step-loop family of the model table
+(``parallel.models_sharded``, ``mc_tpu/checkpoint.py:168-187``): every
+family kernel keys its counters by global path id and takes the chunk's
+``path_offset``, so resume stays bitwise under any dynamics.  Elastic runs
+over several cards (``mesh=``) come with ROADMAP item 20.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ import torch
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
-from mc_tpu_torch.oracle import PriceResult
+from mc_tpu_torch.oracle import PriceResult, summarize
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
+from mc_tpu_torch.parallel.models_sharded import (SHARDED_MODELS, _model_def,
+                                                  model_fingerprint)
 
 __all__ = ["chunked_price", "load_checkpoint", "Checkpoint"]
 
@@ -86,6 +92,7 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
                   rng_source: str = "threefry13",
                   stream: int = STREAM_OUTER,
                   model: str = "gbm",
+                  dyn=None,
                   device="cuda") -> PriceResult:
     """Price ``sim.n_paths`` paths in chunks on ``device``, with optional
     checkpointing.
@@ -94,25 +101,50 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
     payoffs by default, else "euler"), on the per-path stream, so the
     result is ``price(method=method)`` up to the order of its f64 sums.
     The snapshot's meta fingerprints the run (seed, payoff, method, chunk
-    size, rng source, steps, market data); resuming under any other raises.
+    size, rng source, steps, market data, model and dynamics); resuming
+    under any other raises.
+
+    ``model`` is any step-loop family of ``parallel.SHARDED_MODELS`` (not
+    the terminal-draw rainbow and FX): the family's partials kernel on the
+    stream of ``price_<model>`` (``derive_key(seed, stream, tag)``), its
+    Euler loop, its discount.  ``dyn`` defaults to the family's demo
+    dynamics.
     """
     po = get_payoff(payoff)
-    if model != "gbm":
-        raise ValueError(f"chunked_price takes model='gbm' only; the model "
-                         f"families ({model!r}) come with ROADMAP item 13")
     if rng_source not in ("threefry", "threefry13"):
         # 'hw' is stateful: a resumed run could not be bitwise the
         # uninterrupted one, which is this module's contract.
         raise ValueError(f"rng_source {rng_source!r} not resumable; use "
                          "'threefry13' or 'threefry'")
-    if method is None:
-        method = "terminal" if po.terminal_only else "euler"
-    po.validate(option, sim.n_steps)
+    mdef, extras = None, ()
+    if model != "gbm":
+        try:
+            mdef = _model_def(model)
+        except KeyError:
+            raise ValueError(f"unknown model {model!r}; chunked models: "
+                             f"{SHARDED_MODELS}") from None
+        if mdef.resolve_payoff is not None or mdef.terminal_only:
+            raise ValueError(f"chunked_price supports step-loop families; "
+                             f"{model!r} is a terminal-draw family")
+        po.validate(option, sim.n_steps)
+        if dyn is None:
+            dyn = mdef.default_dyn(sim)
+        if mdef.prepare is not None:
+            dyn, extras = mdef.prepare(option, dyn, sim)
+        if mdef.even_steps and sim.n_steps % 2:
+            raise ValueError(f"{model} requires an even n_steps "
+                             "(pair-consuming step loop)")
+        method = "euler"
+    else:
+        if method is None:
+            method = "terminal" if po.terminal_only else "euler"
+        po.validate(option, sim.n_steps)
     dev = resolve_device(device)
     chunk_paths = min(int(chunk_paths), sim.n_paths)
     if chunk_paths < 1:
         raise ValueError(f"chunk_paths must be positive; got {chunk_paths}")
-    key = rng.derive_key(sim.seed, stream)
+    tag = () if mdef is None else (mdef.tag,)
+    key = rng.derive_key(sim.seed, stream, *tag)
     meta = dict(seed=sim.seed, payoff=po.name, method=method,
                 chunk_paths=chunk_paths,
                 # the stream is part of the contract: resuming a run
@@ -122,7 +154,8 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
                 # loudly, not merge distributions
                 option=",".join(f"{v:.9g}" for v in
                                 (float(x) for x in option.astuple())),
-                model=model, dyn="")
+                model=model,
+                dyn="" if mdef is None else model_fingerprint(dyn))
 
     start = 0
     sums = torch.zeros(2, dtype=torch.float64, device=dev)
@@ -140,16 +173,34 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
         start = ck.paths_done
         sums = torch.as_tensor(np.asarray(ck.sums, np.float64)).to(dev)
 
-    params = pk.pack_params(option, sim.n_steps, dev)
+    if mdef is None:
+        params = pk.pack_params(option, sim.n_steps, dev)
+    builds = {}  # chunk size -> the family's partials of that many paths
     while start < sim.n_paths:
         n_local = min(chunk_paths, sim.n_paths - start)
-        cfg = pk.KernelConfig(n_paths=n_local, n_steps=sim.n_steps,
-                              method=method, rng_source=rng_source)
-        sums = sums + finish_sum(pk.simulate_partials(
-            po, cfg, key, params, path_offset=start, n_valid=sim.n_paths))
+        if mdef is None:
+            cfg = pk.KernelConfig(n_paths=n_local, n_steps=sim.n_steps,
+                                  method=method, rng_source=rng_source)
+            part = pk.simulate_partials(po, cfg, key, params,
+                                        path_offset=start,
+                                        n_valid=sim.n_paths)
+        else:
+            if n_local not in builds:
+                # as mc_tpu's model chunks: the family's threefry-13 stream
+                builds[n_local] = mdef.build(
+                    po, pk.KernelConfig(n_paths=n_local, n_steps=sim.n_steps),
+                    option, dyn, sim.n_steps, dev, extras)
+            params, partials = builds[n_local]
+            part = partials(key, params, start, sim.n_paths)
+        sums = sums + finish_sum(part)
         start += n_local
         if checkpoint_path:
             Checkpoint(paths_done=start, n_paths=sim.n_paths,
                        sums=sums.cpu().numpy(), meta=meta
                        ).save(checkpoint_path)
-    return finish_price(sums, sim.n_paths, option)
+    if mdef is None:
+        return finish_price(sums, sim.n_paths, option)
+    params, _ = mdef.build(po, pk.KernelConfig(n_paths=1, n_steps=sim.n_steps),
+                           option, dyn, sim.n_steps, dev, extras)
+    return summarize(sums[0], sums[1], float(sim.n_paths),
+                     mdef.finish_discount(params, option))

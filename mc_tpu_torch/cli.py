@@ -1,6 +1,6 @@
 """Command-line interface (port of ``mc_tpu/cli.py`` demo/price/nmc/traj/
 ladder/book/greeks/heston/merton/bates/cev/localvol/sabr/term/divs/vasicek/
-basket/rainbow/fx/qmc/swaption/hullwhite/g2pp).
+basket/rainbow/fx/qmc/swaption/hullwhite/g2pp/info).
 
 ``python -m mc_tpu_torch demo`` — the ``./main`` equivalent
 (``hello.cu:3-48``): the European call by every method, the bullet and the
@@ -17,7 +17,8 @@ the payoff has one, ``heston`` and ``bates`` the CF oracle for the call,
 Black-Scholes at the averaged curves and the z-score, ``divs`` the
 quadrature oracle and z-score of one dividend, ``vasicek`` the bond's or
 Merton's (1973) call oracle and z-score, ``rainbow`` the Stulz or Margrabe
-price and z-score at d = 2, ``fx`` the contract's closed form and z,
+price and z-score at d = 2 (``--greeks``: the per-asset delta and vega
+and cega[0, 1]), ``fx`` the contract's closed form and z,
 ``qmc`` Black-Scholes beside the call or put, ``swaption``, ``hullwhite``
 (``--proj-spread-bp`` multi-curve, ``--par-swap-rates`` a bootstrapped
 curve) and ``g2pp`` the European swaption beside its oracle and z-score
@@ -25,7 +26,9 @@ curve) and ``g2pp`` the European swaption beside its oracle and z-score
 the ROADMAP item that ports them), ``nmc --exposure`` the XVA
 figures of the surface, under GBM or ``--model
 heston|merton|bates|cev|localvol|sabr|term|vasicek|basket|rainbow``, each
-family's dynamics from its own flags); ``traj`` writes the
+family's dynamics from its own flags; ``--cva-greeks`` adds d(CVA)/d(field)
+by forward mode, ``--book-strikes``/``--book-weights`` net a book of
+contracts); ``info`` prints the device summary; ``traj`` writes the
 reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explicit (default
 ``cuda``); nothing is resized for the device.
 """
@@ -33,6 +36,7 @@ reference's tidy trajectory CSV (``testing.cu:37-47``).  ``--device`` is explici
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 from mc_tpu_torch.config import OptionParams, SimParams
@@ -606,9 +610,6 @@ def cmd_rainbow(args):
     from mc_tpu_torch.models.basket import BasketDynamics
     from mc_tpu_torch.models.rainbow import price_rainbow
 
-    if args.greeks:
-        raise SystemExit("rainbow --greeks (mc_tpu's rainbow_greeks) is not "
-                         "ported to mc_tpu_torch yet (ROADMAP item 12)")
     option, sim = _parse(args)
     d = args.n_assets
     corr = np.full((d, d), args.corr, np.float32)
@@ -621,6 +622,12 @@ def cmd_rainbow(args):
                         antithetic=args.antithetic, device=args.device)
     out = {"payoff": args.payoff, "n_assets": d, "price": float(res.price),
            "stderr": float(res.stderr)}
+    if args.greeks:
+        from mc_tpu_torch.greeks import rainbow_greeks
+        g = rainbow_greeks(option, dyn, sim, args.payoff, device=args.device)
+        out["delta"] = [float(x) for x in g["delta"].tolist()]
+        out["vega"] = [float(x) for x in g["vega"].tolist()]
+        out["cega_01"] = float(g["cega"][0, 1]) if d > 1 else 0.0
     if d == 2:  # the closed-form column (Margrabe, Stulz)
         a = (float(s0s[0]), float(s0s[1]))
         if args.payoff == "exchange":
@@ -896,21 +903,24 @@ def cmd_nmc(args):
     if args.wwr_spot_beta is not None and args.strategy != "grid":
         raise SystemExit("--wwr-spot-beta needs the outer spot grid: "
                          "--strategy grid")
+    dyn = None  # the family's dynamics; cva_greeks reuses them
+    if args.model != "gbm":
+        try:
+            ensure_family(args.model)
+        except ValueError as e:
+            raise SystemExit(f"--model {args.model}: {e}") from None
+        dyn = _FAMILY_DYNAMICS[args.model](args)
+    if args.book_strikes:
+        return _nmc_book(args, option, sim, dyn)
     if args.model == "gbm":
         res = price_nmc(option, sim, payoff=args.payoff,
                         strategy=args.strategy, discount=args.discount,
                         device=args.device)
     else:
-        try:
-            ensure_family(args.model)
-        except ValueError as e:
-            raise SystemExit(f"--model {args.model}: {e}") from None
         if args.discount != "full":
             raise SystemExit(f"--discount is fixed (full) with --model "
                              f"{args.model}")
-        res = NMC_FAMILIES[args.model](option,
-                                       _FAMILY_DYNAMICS[args.model](args),
-                                       sim, payoff=args.payoff,
+        res = NMC_FAMILIES[args.model](option, dyn, sim, payoff=args.payoff,
                                        strategy=args.strategy,
                                        device=args.device)
     out = {
@@ -927,11 +937,65 @@ def cmd_nmc(args):
             out["cva"] = float(res.cva(args.cva_hazard, args.cva_recovery,
                                        t_horizon=args.t))
         out = _xva_outputs(res, args, out)
+    if args.cva_greeks:
+        if args.cva_hazard is None:
+            raise SystemExit("--cva-greeks needs --cva-hazard")
+        from mc_tpu_torch.greeks import cva_greeks
+        g = cva_greeks(option, sim, args.payoff, hazard_rate=args.cva_hazard,
+                       recovery=args.cva_recovery,
+                       which=tuple(args.cva_greeks.split(",")),
+                       model=None if args.model == "gbm" else args.model,
+                       dyn=dyn, device=args.device)
+        out["cva_greeks"] = {k: float(v) for k, v in g.items()}
     if args.surface_npz:
         np.savez_compressed(args.surface_npz,
                             surface=res.surface_matrix().cpu().numpy())
         out["surface_npz"] = args.surface_npz
     print(json.dumps(out))
+    return 0
+
+
+def _nmc_book(args, option, sim, dyn):
+    """nmc --book-strikes: the netting-set NMC, one contract per strike,
+    netted EE/PFE/CVA (mc_tpu/cli.py:265-309)."""
+    import numpy as np
+
+    from mc_tpu_torch.nmc_book import price_nmc_book
+
+    if args.cva_greeks:
+        raise SystemExit("--cva-greeks differentiates a single contract's "
+                         "CVA; not supported with --book-strikes")
+    ks = [float(x) for x in args.book_strikes.split(",")]
+    ws = ([float(x) for x in args.book_weights.split(",")]
+          if args.book_weights else None)
+    book = dataclasses.replace(
+        option, **{f.name: np.full(len(ks), getattr(option, f.name),
+                                   np.float32)
+                   for f in dataclasses.fields(option) if f.name != "k"},
+        k=np.asarray(ks, np.float32))
+    res = price_nmc_book(book, sim, payoff=args.payoff, weights=ws,
+                         model=args.model, dyn=dyn, device=args.device)
+    ee, pfe = res.exposure_profile(args.pfe_quantile)
+    out = {
+        "n_contracts": len(ks),
+        "net_outer_price": float(res.net_outer_price),
+        "per_contract_price": [round(float(x), 6)
+                               for x in res.outers.price.tolist()],
+        "netted_ee": _profile(ee),
+        "netted_pfe": _profile(pfe),
+        "sum_of_standalone_ee": _profile(res.ee_contract.sum(dim=0)),
+    }
+    if args.cva_hazard is not None:
+        out["netted_cva"] = float(res.cva(args.cva_hazard, args.cva_recovery))
+    out = _xva_outputs(res, args, out)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_info(args):
+    """The device summary (mc_tpu/cli.py:882-885)."""
+    from mc_tpu_torch.utils import device_summary
+    print(device_summary(args.device))
     return 0
 
 
@@ -1006,6 +1070,13 @@ def main(argv=None):
     p.add_argument("--cva-hazard", type=float, default=None,
                    help="flat hazard rate: emit unilateral CVA")
     p.add_argument("--cva-recovery", type=float, default=0.4)
+    p.add_argument("--cva-greeks", default=None,
+                   help="comma list of CVA sensitivities by forward-mode "
+                        "AD through the nested pipeline: option greeks "
+                        "(delta,rho,dual_delta; vega under gbm) or, with "
+                        "--model, any scalar dynamics field (e.g. "
+                        "'delta,v0,xi' under heston, 'delta,lam' under "
+                        "merton); needs --cva-hazard")
     p.add_argument("--dva-hazard", type=float, default=None,
                    help="own flat hazard: emit DVA and bilateral CVA "
                         "(needs --cva-hazard)")
@@ -1045,6 +1116,12 @@ def main(argv=None):
                    help="sabr vol-of-vol (its rho is --rho-sv)")
     _add_vasicek_flags(p)
     _add_basket_flags(p)
+    p.add_argument("--book-strikes", default=None,
+                   help="comma list of strikes: netting-set NMC (netted "
+                        "EE/PFE/CVA over the book)")
+    p.add_argument("--book-weights", default=None,
+                   help="comma list of +/- position sizes (with "
+                        "--book-strikes; default all +1)")
     p.set_defaults(fn=cmd_nmc)
 
     p = sub.add_parser("ladder", help="strike ladder on shared paths, JSON")
@@ -1192,7 +1269,7 @@ def main(argv=None):
                         "exchange|best_of_cash")
     p.add_argument("--antithetic", action="store_true")
     p.add_argument("--greeks", action="store_true",
-                   help="per-asset delta/vega + cega (not ported yet)")
+                   help="per-asset delta/vega + cega (one backward pass)")
     p.add_argument("--n-assets", type=int, default=2)
     p.add_argument("--corr", type=float, default=0.5)
     p.add_argument("--s02", type=float, default=105.0,
@@ -1323,6 +1400,11 @@ def main(argv=None):
     p.add_argument("--rho-xy", type=float, default=-0.7,
                    help="factor correlation")
     p.set_defaults(fn=cmd_g2pp)
+
+    p = sub.add_parser("info", help="devices, memory, power limit")
+    p.add_argument("--device", default="cuda",
+                   help="the device to describe (cuda | cpu)")
+    p.set_defaults(fn=cmd_info)
 
     p = sub.add_parser("traj", help="dump trajectories CSV (testing.cu)")
     _add_option_flags(p)

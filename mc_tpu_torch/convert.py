@@ -34,9 +34,9 @@ from mc_tpu_torch.models.vasicek import VASICEK_FIELDS, VasicekDynamics
 from mc_tpu_torch.ops import fused as _fused
 
 __all__ = ["option_params", "book_params", "sim_params", "key",
-           "surface_matrix", "checkpoint", "heston_dynamics", "heston_params",
-           "merton_dynamics", "merton_params", "bates_dynamics",
-           "bates_params", "cev_dynamics", "cev_params", "localvol_surface",
+           "surface_matrix", "book_surface", "checkpoint", "heston_dynamics",
+           "heston_params", "merton_dynamics", "merton_params",
+           "bates_dynamics", "bates_params", "cev_dynamics", "cev_params", "localvol_surface",
            "localvol_params", "sabr_dynamics", "sabr_params",
            "term_structure", "term_params", "divs_params",
            "vasicek_dynamics", "vasicek_params", "basket_dynamics",
@@ -377,6 +377,15 @@ def surface_matrix(grid, n_paths: int) -> np.ndarray:
     return np.moveaxis(g, 0, -1).reshape(rows * lanes, n_steps)[:n_paths]
 
 
+def book_surface(src) -> np.ndarray:
+    """An ``mc_tpu`` ``NMCBookResult`` (its ``net_surface``, ``(n_steps,
+    rows, 128)`` with lane padding, and ``n_paths``) -> the port's
+    ``NMCBookResult.net_surface`` layout, ``(n_steps, n_paths)`` f32."""
+    n_paths = int(float(np.asarray(src.n_paths)))
+    return np.ascontiguousarray(
+        surface_matrix(src.net_surface, n_paths).T.astype(np.float32))
+
+
 # mc_tpu's checkpoint magic and the meta keys that describe its TPU engine.
 _MC_TPU_MAGIC = "mc_tpu-checkpoint-v1"
 _ENGINE_META = ("engine", "tile_rows")
@@ -388,6 +397,9 @@ def checkpoint(src) -> Checkpoint:
 
     ``src`` is the path of ``mc_tpu``'s ``.npz``, or a mapping of its
     arrays (``acc``, ``comp``, ``paths_done``, ``n_paths``, ``meta_*``).
+    A ``model=`` run's meta carries its ``model`` and ``dyn`` fingerprint
+    (every dynamics leaf as ``%.9g``), which the port's
+    ``chunked_price(model=...)`` writes the same way.
     The sums are the f64 sum of the Kahan accumulators ``acc`` less the f64
     sum of their compensations ``comp``; the meta drops ``engine`` and
     ``tile_rows``, which describe the TPU's kernels and not the run.

@@ -32,7 +32,7 @@ from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["price", "price_ladder", "price_portfolio", "finish_price",
            "control_mean", "simulate_trajectories", "Trajectories",
-           "STREAM_OUTER", "STREAM_INNER", "resolve_device"]
+           "STREAM_OUTER", "STREAM_INNER", "resolve_device", "kernel_sums"]
 
 # Stream tags (replace the reference's magic seeds 1234/1235,
 # wrappers.cuh:41,151: outer vs inner NMC draws must be independent).
@@ -138,41 +138,68 @@ def _stream_key(sim: SimParams, stream: int, key):
     return int(key[0]), int(key[1])
 
 
-class _SimulateSums(torch.autograd.Function):
-    """The finished moment sums of ``simulate_partials`` as a function of
-    the packed parameters, differentiable.
+# What a backward pass of kernel_sums recomputes at once: GRAD_CHUNK paths
+# on the CPU (cache-sized chunks); on the card GRAD_TAPE_WORK path-steps x
+# assets, which bounds the plain version's autograd tape (it grows with
+# the paths, steps and assets it holds) while keeping the chunks few,
+# since the plain version is launch-bound: chip_smoke.py's
+# basket_greeks at d = 4, 2^20 x 100 took 3.16 s in 2^17-path chunks and
+# 0.31-0.42 s in one (NVIDIA H100 80GB HBM3, 700 W).
+GRAD_CHUNK = 1 << 17
+GRAD_TAPE_WORK = 1 << 29
 
-    Forward: the simulate kernel on a CUDA tensor, its plain version on a
-    CPU one, as ``simulate_partials`` chooses; the forward value is always
-    what that call computes.  Backward: ``simulate_partials_plain`` is
-    recomputed on the same device under ``enable_grad`` and its
-    vector-Jacobian product returned.  The plain version computes the
-    kernel's f32 values per path (bitwise on the card, where the kernels
-    are built without float contraction), so this is the gradient of the
-    function the kernel computes, as ``mc_tpu`` differentiates its Pallas
-    kernel through its bitwise-equal XLA dual; it is no fallback.  The
-    sums, not the per-block rows, are the output: the kernel and the plain
-    version cut the paths into different rows.
+
+class _KernelSums(torch.autograd.Function):
+    """The finished moment sums of a partials kernel as a function of its
+    packed parameters, differentiable.
+
+    Forward: ``run(params)``, the family's wrapper (the kernel on a CUDA
+    tensor, its plain version on a CPU one); the value is always what that
+    call computes.  Backward: ``run_plain(params, path_offset, n)``, the
+    plain version over paths [path_offset, path_offset + n) of the run, is
+    recomputed on the same device under ``enable_grad`` chunk by chunk and
+    the vector-Jacobian products added.  The plain version computes the
+    kernel's f32 values per path, so this is the gradient of the function
+    the kernel computes (as ``mc_tpu`` differentiates its Pallas kernels
+    through their XLA duals), not a fallback.
     """
 
     @staticmethod
-    def forward(ctx, params, payoff, cfg, key, path_offset):
+    def forward(ctx, params, run, run_plain, n_paths, work_per_path):
         ctx.save_for_backward(params)
-        ctx.args = (payoff, cfg, key, path_offset)
-        return finish_sum(pk.simulate_partials(payoff, cfg, key,
-                                               params.detach(),
-                                               path_offset=path_offset))
+        ctx.args = (run_plain, n_paths, work_per_path)
+        return finish_sum(run(params.detach()))
 
     @staticmethod
     def backward(ctx, grad_sums):
         (params,) = ctx.saved_tensors
-        payoff, cfg, key, path_offset = ctx.args
+        run_plain, n_paths, work_per_path = ctx.args
+        chunk = (max(GRAD_CHUNK, GRAD_TAPE_WORK // work_per_path)
+                 if params.is_cuda else GRAD_CHUNK)
+        grad = torch.zeros_like(params)
         with torch.enable_grad():
-            p = params.detach().requires_grad_()
-            sums = finish_sum(pk.simulate_partials_plain(
-                payoff, cfg, key, p, path_offset=path_offset))
-            (grad_params,) = torch.autograd.grad(sums, p, grad_sums)
-        return grad_params, None, None, None, None
+            for off in range(0, n_paths, chunk):
+                p = params.detach().requires_grad_()
+                sums = finish_sum(run_plain(p, off,
+                                            min(chunk, n_paths - off)))
+                # the scalar <sums, grad_sums>: its gradient is the
+                # vector-Jacobian product bit for bit, and a scalar output
+                # keeps torch.autograd.grad from importing its shape
+                # machinery (torch.fx's symbolic shapes, seconds at first
+                # use) for the grad_outputs check
+                (g,) = torch.autograd.grad((sums * grad_sums).sum(), p)
+                grad = grad + g
+        return grad, None, None, None, None
+
+
+def kernel_sums(params: torch.Tensor, run, run_plain, n_paths: int,
+                work_per_path: int = 1):
+    """``finish_sum(run(params))``; differentiable through ``run_plain``
+    (``_KernelSums``) when ``params`` requires grad.  ``work_per_path``
+    (steps x assets) sizes the backward's chunks on the card."""
+    if not params.requires_grad:
+        return finish_sum(run(params))
+    return _KernelSums.apply(params, run, run_plain, n_paths, work_per_path)
 
 
 def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
@@ -191,11 +218,17 @@ def _price_impl(option: OptionParams, payoff: PathPayoff, sim: SimParams,
                               antithetic=antithetic, with_cv=control_variate,
                               rng_source=rng_source, method=method,
                               is_shift=importance_shift)
-        if params.requires_grad:
-            sums = _SimulateSums.apply(params, payoff, cfg, key, path_offset)
-        else:
-            sums = finish_sum(pk.simulate_partials(payoff, cfg, key, params,
-                                                   path_offset=path_offset))
+        # the backward's chunks keep the run's mask bound, so a chunk
+        # masks the paths the whole run masks
+        sums = kernel_sums(
+            params,
+            lambda p: pk.simulate_partials(payoff, cfg, key, p,
+                                           path_offset=path_offset),
+            lambda p, off, n: pk.simulate_partials_plain(
+                payoff, dataclasses.replace(cfg, n_paths=n), key, p,
+                path_offset=path_offset + off,
+                n_valid=path_offset + n_paths),
+            n_paths, sim.n_steps)
     ex = (control_mean(payoff, params)
           if control_variate and payoff.has_control else None)
     return finish_price(sums, n_paths, option, control_variate, ex)
@@ -236,7 +269,7 @@ def price(option: OptionParams = DEMO_OPTION,
 
     Differentiable: an option field may be a 0-d tensor that requires grad,
     and ``torch.autograd.grad`` of the result then gives the pathwise
-    derivative of the price (``_SimulateSums``); its value is bitwise the
+    derivative of the price (``kernel_sums``); its value is bitwise the
     price from float fields.  The terminal_pair kernel has no
     differentiable counterpart (``method="terminal"`` draws the same
     distribution), nor does ``rng_source="hw"``.

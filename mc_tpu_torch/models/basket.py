@@ -55,14 +55,14 @@ import torch
 
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
-from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
+from mc_tpu_torch.engines import (STREAM_OUTER, finish_price, kernel_sums,
+                                  resolve_device)
 from mc_tpu_torch.models.merton import counters
 from mc_tpu_torch.models.term import fma_f32, sqrt_f32
 from mc_tpu_torch.oracle import PriceResult
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
-from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["BasketDynamics", "demo_basket", "DEMO_BASKET", "MAX_BASKET_D",
            "BASKET_TAG", "HEAD_FIELDS", "BasketConfig", "chol_scalars",
@@ -99,8 +99,12 @@ class BasketDynamics:
         return int(np.shape(self.s0s)[0])
 
     def as_f32(self) -> "BasketDynamics":
-        return BasketDynamics(*(np.asarray(v, np.float32) for v in (
-            self.s0s, self.sigmas, self.weights, self.corr)))
+        """numpy f32 fields; a field that carries a derivative stays a
+        tensor (``greeks.rainbow_greeks`` and ``basket_greeks``)."""
+        return BasketDynamics(*(
+            v.to("cpu", torch.float32) if twin.carries_derivative(v)
+            else np.asarray(v, np.float32)
+            for v in (self.s0s, self.sigmas, self.weights, self.corr)))
 
 
 def demo_basket(d: int = 4, rho: float = 0.5) -> BasketDynamics:
@@ -116,8 +120,15 @@ def demo_basket(d: int = 4, rho: float = 0.5) -> BasketDynamics:
 DEMO_BASKET = demo_basket()
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
+
+
+def _f32_array(v) -> torch.Tensor:
+    """A basket field as an f32 CPU tensor (a tensor keeps its
+    derivative)."""
+    if torch.is_tensor(v):
+        return v.to("cpu", torch.float32)
+    return torch.from_numpy(np.asarray(v, np.float32).copy())
 
 
 def _check_d(d: int) -> None:
@@ -137,15 +148,17 @@ def chol_scalars(cov: torch.Tensor, d: int) -> torch.Tensor:
     contracts it), the diagonal sqrt(max(acc, 1e-30)), the rest acc /
     L_jj.  The lower triangle of a (d, d) f32 tensor."""
     _check_d(d)
-    L = torch.zeros((d, d), dtype=torch.float32)
+    L = [[None] * d for _ in range(d)]
     for i in range(d):
         for j in range(i + 1):
-            acc = cov[i, j]
+            acc = cov[i][j]
             for k in range(j):
-                acc = fma_f32(-L[i, k], L[j, k], acc)
-            L[i, j] = (sqrt_f32(torch.clamp(acc, min=1e-30)) if i == j
-                       else acc / L[j, j])
-    return L
+                acc = fma_f32(-L[i][k], L[j][k], acc)
+            L[i][j] = (sqrt_f32(torch.clamp(acc, min=1e-30)) if i == j
+                       else acc / L[j][j])
+    zero = torch.zeros((), dtype=torch.float32)
+    return torch.stack([torch.stack([zero if x is None else x for x in row])
+                        for row in L])
 
 
 def packed_length(d: int) -> int:
@@ -168,20 +181,19 @@ def pack_basket(option: OptionParams, basket: BasketDynamics, n_steps: int,
     b = basket.as_f32()
     d = b.d
     _check_d(d)
-    sig = torch.from_numpy(b.sigmas.copy())
-    corr = torch.from_numpy(b.corr.copy())
-    s0s = torch.from_numpy(b.s0s.copy())
-    w = torch.from_numpy(b.weights.copy())
-    cov = sig[:, None] * corr * sig[None, :]
+    sig, corr, s0s, w = (_f32_array(v) for v in (b.sigmas, b.corr, b.s0s,
+                                                b.weights))
+    offdiag = sig[:, None] * corr * sig[None, :]
     acc = torch.zeros((), dtype=torch.float32)
     for i in range(d):
         acc = fma_f32(sig[i] * corr[i, i], sig[i], acc)
     jitter = 1e-6 * (acc * (torch.tensor(1.0) / d))
+    cov = [[offdiag[i, j] for j in range(d)] for i in range(d)]
     if d > 1:  # at d = 1 XLA adds the jitter to the rounded product
         for i in range(d):
-            cov[i, i] = fma_f32(sig[i] * corr[i, i], sig[i], jitter)
+            cov[i][i] = fma_f32(sig[i] * corr[i, i], sig[i], jitter)
     else:
-        cov[0, 0] = cov[0, 0] + jitter
+        cov[0][0] = cov[0][0] + jitter
     L = chol_scalars(cov, d)
     _, t, k, r, _, barrier, p1, p2, q = (_f32(v) for v in option.astuple())
     inv_n = 1.0 / _f32(n_steps)
@@ -497,6 +509,13 @@ def price_basket(option: OptionParams = DEMO_OPTION,
                        antithetic=antithetic)
     dev = resolve_device(device)
     params = pack_basket(option, b32, sim.n_steps, dev)
-    sums = finish_sum(basket_partials(po, cfg, (int(key[0]), int(key[1])),
-                                      params))
+    key = (int(key[0]), int(key[1]))
+    # basket fields that require grad (greeks.basket_greeks): the kernel's
+    # value, the plain version's gradient
+    sums = kernel_sums(
+        params, lambda prm: basket_partials(po, cfg, key, prm),
+        lambda prm, off, n: basket_partials_plain(
+            po, dataclasses.replace(cfg, n_paths=n), key, prm, off,
+            sim.n_paths),
+        sim.n_paths, sim.n_steps * b32.d)
     return finish_price(sums, sim.n_paths, option)

@@ -50,7 +50,7 @@ from mc_tpu_torch.models.merton import (MAX_KMAX, counters, jump_increment,
                                         poisson_inv_cdf, poisson_kmax,
                                         steps_index)
 from mc_tpu_torch.oracle import PriceResult
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -99,8 +99,7 @@ DEMO_BATES = BatesDynamics()
 BATES_FIELDS = HESTON_FIELDS + ("lam_dt", "mu_j", "sigma_j")
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def pack_bates(option: OptionParams, dyn: BatesDynamics, n_steps: int,

@@ -45,7 +45,7 @@ from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.models.merton import counters, steps_index
 from mc_tpu_torch.oracle import PriceResult, bs_call
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -83,8 +83,7 @@ def packed_length(n_steps: int) -> int:
     return len(HEAD_FIELDS) + n_steps
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def pack_divs(option: OptionParams, divs, n_steps: int,

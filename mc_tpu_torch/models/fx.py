@@ -45,7 +45,7 @@ from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.models.term import fma_f32, sqrt_f32
 from mc_tpu_torch.oracle import PriceResult
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.reduce import finish_sum
 
@@ -100,8 +100,7 @@ def get_fx_contract(name: str) -> str:
     return name
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def pack_fx(option: OptionParams, fx: FXDynamics, device) -> torch.Tensor:

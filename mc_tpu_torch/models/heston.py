@@ -52,7 +52,7 @@ from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.oracle import PriceResult
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -111,9 +111,7 @@ def pack_heston(option: OptionParams, heston: HestonDynamics, n_steps: int,
     """The 17 fields of ``HESTON_FIELDS`` as an f32 (17,) tensor on
     ``device``, each derived field computed in f32 in the order of
     ``mc_tpu``'s ``_pack_heston`` (so the two are bitwise equal)."""
-    def f32(v):
-        return torch.tensor(float(v), dtype=torch.float32)
-
+    f32 = twin.f32  # a tensor keeps its derivative
     s0, t, k, r, _, barrier, p1, p2, q = (f32(v) for v in option.astuple())
     v0, kappa, theta, xi, rho = (f32(v) for v in heston.astuple())
     n = f32(n_steps)

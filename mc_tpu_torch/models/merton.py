@@ -49,7 +49,7 @@ from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.oracle import PriceResult
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -96,8 +96,7 @@ MERTON_FIELDS = ("s0", "k", "r", "barrier", "p1", "p2", "t", "q", "sigma",
                  "vol_t", "lam_dt", "lam_t", "mu_j", "sigma_j")
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def pack_merton(option: OptionParams, dyn: MertonDynamics, n_steps: int,

@@ -35,7 +35,8 @@ import torch
 
 from mc_tpu_torch import rng
 from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
-from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
+from mc_tpu_torch.engines import (STREAM_OUTER, finish_price, kernel_sums,
+                                  resolve_device)
 from mc_tpu_torch.models.basket import (DEMO_BASKET, BasketDynamics,
                                         _check_d, _col, check_basket_params,
                                         pack_basket, unpack_basket)
@@ -43,7 +44,6 @@ from mc_tpu_torch.models.merton import counters
 from mc_tpu_torch.oracle import PriceResult
 from mc_tpu_torch.ops import _cuda
 from mc_tpu_torch.ops import path_kernels as pk
-from mc_tpu_torch.ops.reduce import finish_sum
 
 __all__ = ["RAINBOW_PAYOFFS", "RAINBOW_TAG", "RainbowConfig",
            "get_rainbow_payoff", "rainbow_normals", "rainbow_levels",
@@ -205,6 +205,13 @@ def price_rainbow(option: OptionParams = DEMO_OPTION,
                         rng_source=rng_source)
     dev = resolve_device(device)
     params = pack_basket(option, b32, 1, dev)
-    sums = finish_sum(rainbow_partials(payoff, cfg, (int(key[0]),
-                                                     int(key[1])), params))
+    key = (int(key[0]), int(key[1]))
+    # basket fields that require grad (greeks.rainbow_greeks): the kernel's
+    # value, the plain version's gradient
+    sums = kernel_sums(
+        params, lambda prm: rainbow_partials(payoff, cfg, key, prm),
+        lambda prm, off, n: rainbow_partials_plain(
+            payoff, dataclasses.replace(cfg, n_paths=n), key, prm, off,
+            sim.n_paths),
+        sim.n_paths, b32.d)
     return finish_price(sums, sim.n_paths, option)

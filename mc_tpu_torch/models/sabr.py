@@ -44,7 +44,7 @@ from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.models.heston import SIGMA_PAYOFFS
 from mc_tpu_torch.models.merton import pair_draws
 from mc_tpu_torch.oracle import PriceResult, _call_segment_f64
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -86,8 +86,7 @@ SABR_FIELDS = ("s0", "k", "r", "barrier", "p1", "p2", "t", "q",
                "alpha", "beta", "nu", "rho", "rho_perp")
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def pack_sabr(option: OptionParams, dyn: SABRDynamics, n_steps: int,

@@ -44,7 +44,7 @@ from mc_tpu_torch.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu_torch.engines import STREAM_OUTER, finish_price, resolve_device
 from mc_tpu_torch.models.merton import pair_draws
 from mc_tpu_torch.oracle import PriceResult
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -111,22 +111,32 @@ def fma_f32(a, b, c) -> torch.Tensor:
     """a*b + c rounded once to f32 (round half to even), as a 0-d f32
     tensor from f32 scalars: the fused multiply-add XLA's CPU backend
     contracts ``mc_tpu``'s jitted a*b + c into, computed exactly in
-    rationals."""
-    a, b, c = (np.float32(float(v)) for v in (a, b, c))
+    rationals.  An operand that carries a derivative passes on that of
+    the torch expression a*b + c."""
+    args = (a, b, c)
+    a, b, c = (np.float32(twin.primal(v)) for v in args)
     exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
     r = np.float32(float(exact))
     near = (np.nextafter(r, np.float32(-np.inf)), r,
             np.nextafter(r, np.float32(np.inf)))
     best = min(near, key=lambda x: (abs(Fraction(float(x)) - exact),
                                     int(np.asarray(x).view(np.int32)) & 1))
-    return torch.tensor(best, dtype=torch.float32)
+    value = torch.tensor(best, dtype=torch.float32)
+    if not any(map(twin.carries_derivative, args)):
+        return value
+    ta, tb, tc = map(twin.f32, args)
+    return twin.with_derivative_of(value, ta * tb + tc)
 
 
 def sqrt_f32(x) -> torch.Tensor:
     """The correctly rounded f32 square root of an f32 scalar, as a 0-d f32
     tensor (XLA's; PyTorch's CPU sqrt of a 0-d tensor misses it now and
-    then)."""
-    return torch.tensor(np.sqrt(np.float32(float(x))), dtype=torch.float32)
+    then), with torch.sqrt's derivative where ``x`` carries one."""
+    value = torch.tensor(np.sqrt(np.float32(twin.primal(x))),
+                         dtype=torch.float32)
+    if not twin.carries_derivative(x):
+        return value
+    return twin.with_derivative_of(value, torch.sqrt(twin.f32(x)))
 
 
 def mean_f32(x: torch.Tensor) -> torch.Tensor:
@@ -159,8 +169,7 @@ def packed_length(n_steps: int) -> int:
     return len(HEAD_FIELDS) + 2 * n_steps
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def pack_term(option: OptionParams, term: TermStructure, n_steps: int,

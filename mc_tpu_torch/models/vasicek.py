@@ -53,7 +53,7 @@ from mc_tpu_torch.engines import STREAM_OUTER, resolve_device
 from mc_tpu_torch.models.merton import counters, steps_index
 from mc_tpu_torch.models.term import fma_f32, sqrt_f32
 from mc_tpu_torch.oracle import PriceResult, summarize
-from mc_tpu_torch.ops import _cuda
+from mc_tpu_torch.ops import _cuda, twin
 from mc_tpu_torch.ops import path_kernels as pk
 from mc_tpu_torch.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu_torch.ops.reduce import finish_sum
@@ -95,8 +95,7 @@ VASICEK_FIELDS = ("s0", "k", "r", "barrier", "p1", "p2", "t", "dt",
                   "l33")
 
 
-def _f32(v):
-    return torch.tensor(float(v), dtype=torch.float32)
+_f32 = twin.f32  # a tensor keeps its derivative
 
 
 def ou_gap(x):

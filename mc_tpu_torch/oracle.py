@@ -2,7 +2,9 @@
 (port of ``mc_tpu/oracle.py:63-200,208-455,459-505,515-549,549-638,
 641-1003``).
 
-The oracles are host f64 through ``math.erf``/``math.erfc``: the gates of
+The oracles are host f64 through ``math.erf``/``math.erfc`` (but
+``cnd_as`` and ``bs_call_as``, the reference's Abramowitz-Stegun CND in
+f32 on tensors): the gates of
 the payoffs (vanilla, digital, continuous-barrier, forward-start, cliquet),
 of the greeks (Black-Scholes delta, vega, gamma), the implied volatility,
 the Vasicek bond and Merton's (1973) call under Vasicek rates,
@@ -24,10 +26,10 @@ from typing import Any
 
 import torch
 
-__all__ = ["bs_call", "bs_put", "bs_digital_call", "bs_digital_put",
-           "bs_up_out_call", "bs_down_out_call", "bs_forward_start_call",
-           "bs_cliquet", "bs_delta_call", "bs_vega", "bs_gamma",
-           "bs_implied_vol", "vasicek_zcb", "bsv_call", "margrabe",
+__all__ = ["bs_call", "bs_put", "cnd_as", "bs_call_as", "bs_digital_call",
+           "bs_digital_put", "bs_up_out_call", "bs_down_out_call",
+           "bs_forward_start_call", "bs_cliquet", "bs_delta_call", "bs_vega",
+           "bs_gamma", "bs_implied_vol", "vasicek_zcb", "bsv_call", "margrabe",
            "bvn_cdf", "stulz_min_call", "stulz_max_call", "stulz_min_put",
            "stulz_max_put", "gk_call", "gk_put", "quanto_call", "quanto_put",
            "compo_call", "compo_put", "flexo_call", "flexo_put",
@@ -194,6 +196,34 @@ def bs_gamma(s0, k, t, r, sigma, q=0.0) -> float:
     s0, k, t, r, sigma, q = map(float, (s0, k, t, r, sigma, q))
     return (math.exp(-q * t) * _pdf(_d1(s0, k, t, r, sigma, q))
             / (s0 * sigma * math.sqrt(t)))
+
+
+def cnd_as(x):
+    """The Abramowitz-Stegun polynomial CND (max abs error ~7.5e-8), in f32
+    as ``mc_tpu.oracle.cnd_as`` computes it: the reference's 5-term
+    approximation (``BlackandScholes.hpp:8-30``), its sign branch a mask.
+    ``x`` a float, array or tensor; returns an f32 tensor."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    p = torch.tensor(0.2316419, dtype=torch.float32)
+    b = (0.31938153, -0.356563782, 1.781477937, -1.821255978, 1.330274429)
+    one_over_sqrt2pi = torch.tensor(0.39894228, dtype=torch.float32)
+    ax = torch.abs(x)
+    tt = 1.0 / (1.0 + p * ax)
+    poly = tt * (b[0] + tt * (b[1] + tt * (b[2] + tt * (b[3] + tt * b[4]))))
+    upper_tail = one_over_sqrt2pi * torch.exp(-0.5 * ax * ax) * poly
+    return torch.where(x >= 0, 1.0 - upper_tail, upper_tail)
+
+
+def bs_call_as(s0, k, t, r, sigma):
+    """The Black-Scholes call through ``cnd_as``, in f32: comparable bit for
+    bit with the reference's oracle (``mc_tpu.oracle.bs_call_as``)."""
+    s0, k, t, r, sigma = (torch.as_tensor(v, dtype=torch.float32)
+                          for v in (s0, k, t, r, sigma))
+    sqrt_t = torch.sqrt(t)
+    d1 = (torch.log(s0 / k) + (r + 0.5 * sigma * sigma) * t) / (sigma
+                                                                 * sqrt_t)
+    d2 = d1 - sigma * sqrt_t
+    return s0 * cnd_as(d1) - k * torch.exp(-r * t) * cnd_as(d2)
 
 
 def bs_implied_vol(price, s0, k, t, r, q=0.0, n_iter: int = 24) -> float:

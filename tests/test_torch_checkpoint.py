@@ -136,8 +136,12 @@ def test_hw_rng_source_rejected():
 
 
 def test_model_refused():
-    with pytest.raises(ValueError, match="item 13"):
-        chunked_price(sim=SIM, model="heston", **CPU)
+    """A name outside the model table and the terminal-draw families are
+    refused (the step-loop families run: tests/test_torch_model_table.py)."""
+    with pytest.raises(ValueError, match="unknown model 'bachelier'"):
+        chunked_price(sim=SIM, model="bachelier", **CPU)
+    with pytest.raises(ValueError, match="terminal-draw"):
+        chunked_price(sim=SIM, model="rainbow", **CPU)
 
 
 def test_rejects_mc_tpu_file_and_resumes_it_converted(tmp_path):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -660,7 +661,8 @@ def test_fx_subcommand_matches_mc_tpus(contract, capsys):
 def test_rainbow_subcommand_matches_mc_tpus(n_assets, payoff, capsys):
     """rainbow: spots and vols interpolated from (--s0, --sigma) to
     (--s02, --sigma2); at d = 2 the Stulz or Margrabe column and its
-    z-score; --greeks refused until the rainbow greeks are ported."""
+    z-score; --greeks adds mc_tpu's delta, vega and cega_01 (its
+    rainbow_greeks within 1e-5 of the largest entry)."""
     from mc_tpu_torch import cli
 
     argv = ["rainbow", "--n-paths", "3001", "--n-assets", str(n_assets),
@@ -673,8 +675,17 @@ def test_rainbow_subcommand_matches_mc_tpus(n_assets, payoff, capsys):
     if n_assets == 2:
         assert res["oracle"] == pytest.approx(want["oracle"], abs=1e-4)
         assert abs(res["z_score"]) < 4.0
-    with pytest.raises(SystemExit, match="item 12"):
-        cli.main(argv + ["--device", "cpu", "--greeks"])
+    assert cli.main(argv + ["--device", "cpu", "--greeks"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_cli(argv + ["--greeks"], capsys)
+    assert sorted(res) == sorted(want)
+    scale = max(abs(x) for x in want["vega"])
+    for key in ("delta", "vega"):
+        assert len(res[key]) == n_assets
+        np.testing.assert_allclose(res[key], want[key], rtol=0,
+                                   atol=1e-5 * scale)
+    assert res["cega_01"] == pytest.approx(want["cega_01"], rel=0,
+                                           abs=1e-5 * scale)
 
 
 @pytest.mark.parametrize("family,payoff", [("lattice", "vanilla_call"),
@@ -835,3 +846,61 @@ def test_rates_subcommands_take_no_tpu_flags(capsys):
             with pytest.raises(SystemExit):
                 cli.main([command, *flag, "--device", "cpu"])
     capsys.readouterr()
+
+
+def test_info_subcommand_describes_the_device(capsys):
+    """info: mc_tpu's device summary, on the port's device."""
+    from mc_tpu_torch import cli
+
+    assert cli.main(["info", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "torch" in out and "device: cpu" in out
+
+
+@pytest.mark.parametrize("model,which", [("gbm", "delta,vega"),
+                                         ("heston", "delta,v0,dyn.rho"),
+                                         ("merton", "delta,lam")])
+def test_nmc_cva_greeks_match_mc_tpus(model, which, capsys):
+    """nmc --cva-greeks: mc_tpu's cva_greeks key, each greek within 1e-5
+    relative of mc_tpu's CLI (tests/test_torch_cva_greeks.py's bound),
+    the family's dynamics from its flags."""
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", model, "--n-paths", "256", "--n-steps", "8",
+            "--n-inner", "8", "--payoff", "vanilla_call", "--cva-hazard",
+            "0.02", "--cva-greeks", which, "--v0", "0.05", "--lam", "0.4"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_cli(argv, capsys)
+    assert sorted(res["cva_greeks"]) == sorted(want["cva_greeks"])
+    for k, v in want["cva_greeks"].items():
+        assert res["cva_greeks"][k] == pytest.approx(v, rel=1e-5), k
+    with pytest.raises(SystemExit, match="needs --cva-hazard"):
+        cli.main(["nmc", "--device", "cpu", "--n-paths", "64", "--n-steps",
+                  "4", "--n-inner", "4", "--cva-greeks", "delta"])
+
+
+@pytest.mark.parametrize("model", ["gbm", "heston"])
+def test_nmc_book_strikes_match_mc_tpus(model, capsys):
+    """nmc --book-strikes/--book-weights: mc_tpu's keys; the per-contract
+    prices and netted profiles within the port's book tolerance of mc_tpu's
+    (tests/test_torch_nmc_book.py); --cva-greeks refused with a book."""
+    from mc_tpu_torch import cli
+
+    argv = ["nmc", "--model", model, "--n-paths", "512", "--n-steps", "8",
+            "--n-inner", "8", "--payoff", "vanilla_call", "--book-strikes",
+            "90,100,110", "--book-weights", "1,-0.5,2", "--cva-hazard",
+            "0.02"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = _mc_tpu_cli(argv, capsys)
+    assert sorted(res) == sorted(want)
+    assert res["n_contracts"] == 3
+    scale = max(want["netted_pfe"])
+    for key in ("per_contract_price", "netted_ee", "netted_pfe",
+                "sum_of_standalone_ee"):
+        np.testing.assert_allclose(res[key], want[key], rtol=0,
+                                   atol=1e-5 * scale + 2e-6)
+    assert res["netted_cva"] == pytest.approx(want["netted_cva"], rel=1e-5)
+    with pytest.raises(SystemExit, match="not supported with --book"):
+        cli.main(argv + ["--device", "cpu", "--cva-greeks", "delta"])

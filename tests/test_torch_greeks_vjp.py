@@ -2,7 +2,7 @@
 tests/test_greeks_vjp.py).
 
 price() wraps the simulate kernel in an autograd Function
-(engines._SimulateSums): forward the kernel (its plain version on a CPU
+(engines.kernel_sums): forward the kernel (its plain version on a CPU
 tensor), backward the plain version's vector-Jacobian product.  On the CPU
 both are the plain version, so the gradient through price() equals the
 gradient of the plain version's own graph bitwise; against mc_tpu's
